@@ -2,30 +2,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — config -> ``mpc_fn`` -> the hand-written
-whole-solve CUDA kernel -> time-indexed plan pickup — through
-``RecedingHorizonController`` on the card, for both iris flight configs,
-and checks it. Phases (each prints a line; any failure raises and the
-script exits non-zero without a result):
+Drives the port's three solve routes through ``mpc_fn`` on the card and
+checks them: the linesearch APG on the hand-written whole-solve kernel
+(flown by ``RecedingHorizonController`` on both iris flight configs), and
+MPPI and fixed-step APG on the hand-written cost-oracle kernels. Phases
+(each prints a line; any failure raises and the script exits non-zero
+without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds the kernel from ``sde4mbrl_px4_tpu_torch/csrc`` (nvcc) and
-   prints the build seconds and the compiler's register/spill summary;
-3. holds the kernel against its plain PyTorch version on the card: the
+2. builds both kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc`` (one
+   ``nvcc`` each, in parallel) and prints the build seconds and the
+   compiler's register/spill/shared-memory summary;
+3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
-   solve as it flies with its hover_diag metric), equal iteration counts,
-   and ``x_evol`` against the mean rollout of the kernel's plan (rtol 1e-5);
-4. runs the slice: a controller per replay on ``cuda`` replays
+   solve with its hover_diag metric), equal iteration counts, and
+   ``x_evol`` against the mean rollout of the kernel's plan (rtol 1e-5);
+4. holds each cost-oracle kernel against the plain oracle on both iris
+   configs: ``value_batch`` at K = 1, 4, 64, 256 (rtol 2e-5),
+   ``value_and_grad`` (rtol 5e-4 / atol 5e-5), ``trajectory`` (rtol 1e-5);
+5. runs fixed-step APG (the configs without a linesearch block) over the
+   kernel oracle and over the plain one at a fixed budget: equal
+   iteration counts, rtol 2e-4 / atol 2e-5;
+6. the whole-solve route: a controller per replay on ``cuda`` replays
    ``replay_pos``, ``replay_traj`` and the 42-tick ``replay_engagement``
    against the committed iris goldens at the gates of ``bench.py:250``
    (the engagement's cost is printed, not gated: see ``phase_slice``);
-   the kernel's launch count, set to 0 just before, must equal the number
-   of solves, and JAX must never be imported;
-5. times the chained pos and traj replays per solve (p50 over ticks 2-6,
-   wall clock from dispatch to the plan on the host) for the kernel and
-   for the plain version on the same card, with the iteration counts.
+7. the MPPI route: ``replay_solver_family("mppi")`` (4 solves, K=64,
+   8 rounds) through the kernels and through the plain oracle with the
+   same generator draws (|du| <= 1e-4 per row, equal step counts), then
+   the 30-tick position step of ``tests/test_mppi.py:48-76`` at K=256
+   through the kernels (the gap must close to below 0.35 of its start);
+8. the fixed-step route: chained solves of the posctrl config without
+   its linesearch block through the kernels;
+9. times, on the same card, kernel against plain: the chained pos and
+   traj replays per solve (p50, wall clock from dispatch to the plan on
+   the host), MPPI and fixed-step APG per solve (p50 over chained ticks),
+   and each oracle kernel per launch (CUDA events).
+
+In phases 6-8 every kernel's launch count is set to 0 just before the
+route runs and read just after: each route must have launched exactly the
+kernels it is made of, as many times as its solves need, and JAX must
+never be imported.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is
@@ -34,15 +53,20 @@ and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
+# fixed-step APG: a stepsize that accepts steps on the problem of each config
+FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
+LIBS = ("apg_solve", "cost_oracle")
 
 
 def log(msg: str) -> None:
@@ -54,6 +78,22 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True, text=True,
                        timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def config(name: str, **mut) -> dict:
+    """An iris config, with ``solver``/``mppi`` set and the linesearch block
+    deleted (``linesearch=None``) or the ``apg_mpc`` keys given."""
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(ROOT, f"configs/{name}.yaml"))
+    for key in ("solver", "mppi"):
+        if key in mut:
+            cfg[key] = mut.pop(key)
+    if "linesearch" in mut:
+        mut.pop("linesearch")
+        del cfg["apg_mpc"]["linesearch"]
+    cfg["apg_mpc"].update(mut)
+    return cfg
 
 
 def problem(b, dev):
@@ -70,9 +110,59 @@ def problem(b, dev):
     return x0, x_ref, u_prev, u_init
 
 
+def counts() -> dict:
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": AK.apg_solve_kernel.launches,
+            "value_batch": CO.value_batch_kernel.launches,
+            "value_and_grad": CO.value_and_grad_kernel.launches,
+            "trajectory": CO.trajectory_kernel.launches}
+
+
+def zero_counts() -> None:
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    for fn in (AK.apg_solve_kernel, CO.value_batch_kernel,
+               CO.value_and_grad_kernel, CO.trajectory_kernel):
+        fn.launches = 0
+
+
+def check_route(name: str, expected: dict) -> dict:
+    """The launch counts of a route just run against what it needs."""
+    got = counts()
+    log(f"kernel launches in the {name} route: {got} (expected {expected})")
+    if got != expected or not any(got.values()):
+        raise AssertionError(f"the {name} route did not launch the kernels it needs")
+    if "jax" in sys.modules:
+        raise AssertionError("JAX was imported")
+    return got
+
+
+def phase_build() -> None:
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import build
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBS)) as ex:
+        paths = dict(zip(LIBS, ex.map(build.build_library, LIBS)))
+    nvcc_s = dict(build.build_library.seconds)     # loading reuses the builds
+    AK.load_apg_library()
+    CO.load_oracle_library()
+    log(f"phase 2: built {len(LIBS)} libraries in parallel in "
+        f"{time.perf_counter() - t:.1f} s (with load)")
+    for name, path in paths.items():
+        log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
 def phase_parity(dev) -> tuple:
-    """Kernel vs plain on the card. Returns (max |du|, kernel ms, plain ms)
-    of the fixed-budget traj solve."""
+    """Whole-solve kernel vs plain on the card. Returns (max |du|, kernel
+    ms, plain ms) of the fixed-budget traj solve."""
     import numpy as np
     import torch
 
@@ -134,6 +224,91 @@ def time_fixed(AK, args, pre, n_kernel=20, n_plain=3):
     return k_ms, (time.perf_counter() - t) * 1e3 / n_plain
 
 
+def oracles(name: str, dev):
+    """(bundle, kernel oracle, plain oracle) on the parity problem."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    b = load_mpc_from_cfgfile(os.path.join(ROOT, f"configs/{name}.yaml"), device=dev)[3]
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    args = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+            None, 1, b.apg_config.maxls)
+    return b, CO.cost_oracle(*args), CO.cost_oracle_plain(*args)
+
+
+def plans(K: int, seed: int, dev):
+    import numpy as np
+    import torch
+
+    u = np.random.RandomState(seed).uniform(0.3, 0.95, (K, 20, 4)).astype(np.float32)
+    return torch.from_numpy(u).to(dev)
+
+
+def phase_oracle_parity(dev) -> dict:
+    """Each oracle kernel vs the plain oracle; returns max |err| per kernel."""
+    import torch
+
+    err = {"value_batch": 0.0, "value_and_grad": 0.0, "trajectory": 0.0}
+    for name in TOLS:
+        _, kern, plain = oracles(name, dev)
+        for K in (1, 4, 64, 256):
+            U = plans(K, K, dev)
+            vk = kern.value_batch(U)
+            torch.cuda.synchronize()
+            vp = plain.value_batch(U)
+            rel = float(((vk - vp).abs() / vp.abs()).max())
+            err["value_batch"] = max(err["value_batch"], float((vk - vp).abs().max()))
+            log(f"oracle {name}: value_batch K={K} max rel err {rel:.3e} (rtol 2e-5)")
+            if not (rel <= 2e-5 and torch.isfinite(vk).all()):
+                raise AssertionError(f"value_batch disagrees with its plain version ({name}, K={K})")
+        u = plans(1, 7, dev)[0]
+        (v_k, g_k), (v_p, g_p) = kern.value_and_grad(u), plain.value_and_grad(u)
+        torch.cuda.synchronize()
+        ok_g = bool(torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5))
+        dv = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+        dg = float((g_k - g_p).abs().max())
+        err["value_and_grad"] = max(err["value_and_grad"], dg, abs(float(v_k - v_p)))
+        x_k, x_p = kern.trajectory(u), plain.trajectory(u)
+        ok_x = bool(torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6))
+        dx = float((x_k - x_p).abs().max())
+        err["trajectory"] = max(err["trajectory"], dx)
+        log(f"oracle {name}: value_and_grad value rel {dv:.3e} (rtol 2e-5), grad max|d| "
+            f"{dg:.3e} (rtol 5e-4, atol 5e-5); trajectory max|dx| {dx:.3e} (rtol 1e-5)")
+        if not (ok_g and dv <= 2e-5 and ok_x):
+            raise AssertionError(f"an oracle kernel disagrees with its plain version ({name})")
+    return err
+
+
+def phase_fixed_step_parity(dev) -> float:
+    """Fixed-step APG over the kernel oracle vs the plain oracle, fixed
+    budget of 30 iterations; returns max |du|."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.solver.apg import apg_solve
+
+    worst = 0.0
+    for name, step in FIXED_STEP.items():
+        b, kern, plain = oracles(name, dev)
+        apg = b.apg_config._replace(use_linesearch=False, stepsize=step, max_iter=30,
+                                    max_no_improvement_iter=30)
+        u_init = problem(b, dev)[3]
+        with torch.no_grad():
+            st_k, st_p = (apg_solve(o, u_init, b.lb, b.ub, apg, precond=b.precond)
+                          for o in (kern, plain))
+        nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+        du = float((st_k.yk - st_p.yk).abs().max())
+        dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+        log(f"fixed-step {name}{' +hover_diag' if b.precond is not None else ''} "
+            f"(stepsize {step}): steps kernel {nk} plain {np_}; max|du| {du:.3e} "
+            f"(rtol 2e-4, atol 2e-5); cost {float(st_p.init_cost):.3f} -> "
+            f"{float(st_k.opt_cost):.3f}, rel {dc:.3e}")
+        if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5)
+                and dc <= 2e-4 and float(st_k.opt_cost) < float(st_k.init_cost)):
+            raise AssertionError(f"fixed-step APG disagrees on the kernels ({name})")
+        worst = max(worst, du)
+    return worst
+
+
 def controller(dev):
     from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
 
@@ -162,18 +337,18 @@ def phase_slice(dev) -> int:
     import torch
 
     from sde4mbrl_px4_tpu_torch.engine import goldens as G
-    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
 
     ctrls = [controller(dev) for _ in range(3)]         # one per replay
     solves0 = sum(c.traj.solves + c.pos.solves for c in ctrls)
-    AK.apg_solve_kernel.launches = 0
+    zero_counts()
     modes, *engagement = G.replay_engagement(ctrls[2])
     results = {"pos_flagship": G.replay_pos(ctrls[0]),
                "traj_flagship": G.replay_traj(ctrls[1]),
                "engagement": engagement}
     torch.cuda.synchronize()
-    launches = AK.apg_solve_kernel.launches
     solves = sum(c.traj.solves + c.pos.solves for c in ctrls) - solves0
+    got = check_route("whole-solve", {"apg_solve": solves, "value_batch": 0,
+                                      "value_and_grad": 0, "trajectory": 0})
     for name, (tr, costs) in results.items():
         path = os.path.join(G.golden_dir(ROOT), f"iris_{name}_trace.npz")
         res = G.compare_to_golden(tr, costs, path)
@@ -194,30 +369,135 @@ def phase_slice(dev) -> int:
             f"{'exact' if res['idx_exact'] else 'MISMATCH'} -> {'PASS' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             raise AssertionError(f"golden gate failed for iris_{name}: {res}")
-    log(f"kernel launches in the slice run: {launches} for {solves} solves")
-    if launches != solves or launches == 0:
-        raise AssertionError("the slice did not run every solve through the kernel")
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported")
-    return launches
+    return got["apg_solve"]
 
 
 @contextlib.contextmanager
-def routed(solve):
-    """Route the loader's solves through ``solve`` (measurement only)."""
+def routed(name: str, fn):
+    """Route the loader's ``name`` (``apg_solve_kernel`` or ``cost_oracle``)
+    through ``fn`` (measurement and parity only)."""
     from sde4mbrl_px4_tpu_torch.engine import mpc_loader
-    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
 
-    mpc_loader.apg_solve_kernel = solve
+    orig = getattr(mpc_loader, name)
+    setattr(mpc_loader, name, fn)
     try:
         yield
     finally:
-        mpc_loader.apg_solve_kernel = AK.apg_solve_kernel
+        setattr(mpc_loader, name, orig)
+
+
+def phase_mppi(dev) -> dict:
+    """The MPPI route: the family replay through the kernels (counted) and
+    through the plain oracle, then the K=256 closed loop."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    n, iters = 4, 8
+    zero_counts()
+    tr_k = G.replay_solver_family(ROOT, "mppi", n=n, device=dev)
+    torch.cuda.synchronize()
+    got = check_route("MPPI", {"apg_solve": 0, "value_batch": n * (iters + 2),
+                               "value_and_grad": 0, "trajectory": n})
+    with routed("cost_oracle", CO.cost_oracle_plain):
+        tr_p = G.replay_solver_family(ROOT, "mppi", n=n, device=dev)
+    du = np.abs(tr_k[:, :-1] - tr_p[:, :-1]).max(axis=1)
+    log(f"MPPI family replay ({n} solves, K=64, {iters} rounds), kernels vs plain, same "
+        f"draws: max|du| per row {np.array2string(du, precision=3)} (gate 1e-4); steps "
+        f"{tr_k[:, -1].tolist()} vs {tr_p[:, -1].tolist()}")
+    if not ((du <= 1e-4).all() and np.array_equal(tr_k[:, -1], tr_p[:, -1])
+            and np.isfinite(tr_k).all()):
+        raise AssertionError("MPPI through the kernels disagrees with the plain oracle")
+
+    cfg = config("iris_posctrl_mpc", solver="mppi",
+                 mppi={"samples": 256, "sigma": 0.02, "temperature": 0.1,
+                       "iters": 8, "noise_beta": 0.7})
+    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device=dev)
+    x = hover_state(dev)
+    x[0] = 1.0
+    tgt = hover_state(dev)
+    gen = torch.Generator().manual_seed(0)
+    st = reset_fn(x, gen, x)
+    e0 = float(torch.linalg.norm(x[:3]))
+    for _ in range(30):
+        u, st, gen, x_evol = mpc_fn(x, gen, st, 0.0, tgt)
+        x = x_evol[1]
+    e1 = float(torch.linalg.norm(x[:3]))
+    log(f"MPPI closed loop (K=256, 30 ticks) through the kernels: position error "
+        f"{e0:.3f} -> {e1:.4f} m (gate < {0.35 * e0:.3f})")
+    if not (e1 < 0.35 * e0 and bool(torch.isfinite(u).all())):
+        raise AssertionError("the MPPI closed loop did not close the position step")
+    return got
+
+
+def chain(cfg: dict, dev, n: int):
+    """``n`` chained solves of one config's ``mpc_fn`` from the pinned
+    offset state of the family replays: (rows [u0, num_steps], wall ms
+    per solve from dispatch to the plan on the host)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    cfg, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    dt = float(cfg["_time_steps"][0])
+    x = hover_state(dev)
+    x[0], x[2] = 0.5, -0.3
+    gen = torch.Generator().manual_seed(0)
+    st = reset_fn(x, gen, x)
+    rows, ms = [], []
+    for k in range(n):
+        t = time.perf_counter()
+        u, st, gen, x_evol = mpc_fn(x, gen, st, k * dt, x)
+        u0 = u[0].cpu().numpy()
+        ms.append((time.perf_counter() - t) * 1e3)
+        x = x_evol[1]
+        rows.append(np.concatenate([u0, [float(st.num_steps)]]))
+    return np.stack(rows), ms
+
+
+def phase_fixed_step(dev) -> dict:
+    """The fixed-step route: chained solves of the posctrl config without its
+    linesearch block, through the kernels."""
+    import numpy as np
+    import torch
+
+    n = 3
+    cfg = config("iris_posctrl_mpc", linesearch=None,
+                 stepsize=FIXED_STEP["iris_posctrl_mpc"])
+    zero_counts()
+    rows, _ = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    steps = int(rows[:, -1].sum())
+    got = check_route("fixed-step", {"apg_solve": 0, "value_batch": steps,
+                                     "value_and_grad": steps + 2 * n, "trajectory": n})
+    log(f"fixed-step route: {n} chained solves at {rows[:, -1].tolist()} iterations, "
+        f"u0 {np.array2string(rows[-1, :-1], precision=4)}")
+    if not (np.isfinite(rows).all() and (rows[:, :-1] >= 1e-4 - 1e-7).all()):
+        raise AssertionError("the fixed-step route returned an invalid plan")
+    return got
+
+
+def chained(dev, mode: str, n: int, warm: int):
+    """(p50 wall ms, mean iterations) per solve over ticks ``warm+1..n``."""
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+
+    c = controller(dev)
+    records = recording(c)
+    (G.replay_pos if mode == "pos" else G.replay_traj)(c, n=n)
+    tail = records[warm:]
+    return (statistics.median(r.solve_time for r in tail) * 1e3,
+            statistics.mean(r.num_steps for r in tail))
 
 
 def event_timed(events: list):
-    """The kernel's wrapper with CUDA events recorded around each call: the
-    device span of one solve (consts packing plus the kernel)."""
+    """The whole-solve kernel's wrapper with CUDA events recorded around each
+    call: the device span of one solve (consts packing plus the kernel)."""
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
@@ -233,37 +513,68 @@ def event_timed(events: list):
     return solve
 
 
-def chained(dev, mode: str, n: int, warm: int):
-    """(p50 wall ms, mean iterations) per solve over ticks ``warm+1..n``."""
-    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+def per_launch_ms(fn, n: int) -> float:
+    """Mean device time of ``fn()`` over ``n`` calls (CUDA events, warm)."""
+    import torch
 
-    c = controller(dev)
-    records = recording(c)
-    (G.replay_pos if mode == "pos" else G.replay_traj)(c, n=n)
-    tail = records[warm:]
-    return (statistics.median(r.solve_time for r in tail) * 1e3,
-            statistics.mean(r.num_steps for r in tail))
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 def phase_timing(dev, card: str) -> dict:
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
     out = {}
-    n, warm = 6, 1
+    n_kernel, n_plain, warm = 6, 3, 1
     for mode in ("pos", "traj"):
         events = []
-        with routed(event_timed(events)):
-            k_ms, k_steps = chained(dev, mode, n, warm)
+        with routed("apg_solve_kernel", event_timed(events)):
+            k_ms, k_steps = chained(dev, mode, n_kernel, warm)
         torch.cuda.synchronize()
-        dev_ms = statistics.median(a.elapsed_time(b) for a, b in events[-(n - warm):])
-        with routed(AK.apg_solve_plain):
-            p_ms, p_steps = chained(dev, mode, n, warm)
+        dev_ms = statistics.median(a.elapsed_time(b)
+                                   for a, b in events[-(n_kernel - warm):])
+        with routed("apg_solve_kernel", AK.apg_solve_plain):
+            p_ms, p_steps = chained(dev, mode, n_plain, warm)
         out[mode] = (k_ms, p_ms, dev_ms)
-        log(f"chained iris/{mode} replay, per solve p50 over ticks {warm + 1}-{n} ({card}): "
-            f"kernel {k_ms:.3f} ms wall ({dev_ms:.3f} ms device span) at {k_steps:.1f} "
-            f"iterations, plain {p_ms:.3f} ms wall at {p_steps:.1f} iterations")
+        log(f"chained iris/{mode} replay, per solve p50 ({card}): kernel {k_ms:.3f} ms "
+            f"wall ({dev_ms:.3f} ms device span) at {k_steps:.1f} iterations over ticks "
+            f"{warm + 1}-{n_kernel}, plain {p_ms:.3f} ms wall at {p_steps:.1f} iterations "
+            f"over ticks {warm + 1}-{n_plain}")
+
+    routes = {"mppi": (config("iris_posctrl_mpc", solver="mppi"), 8, 8),
+              "fixed_step": (config("iris_posctrl_mpc", linesearch=None,
+                                    stepsize=FIXED_STEP["iris_posctrl_mpc"]), 6, 3)}
+    for route, (cfg, n_k, n_p) in routes.items():
+        rows_k, ms_k = chain(cfg, dev, n_k)
+        with routed("cost_oracle", CO.cost_oracle_plain):
+            rows_p, ms_p = chain(cfg, dev, n_p)
+        out[route] = (statistics.median(ms_k[warm:]), statistics.median(ms_p[warm:]))
+        log(f"chained {route} solves, per solve p50 ({card}): kernels "
+            f"{out[route][0]:.3f} ms wall over ticks {warm + 1}-{n_k} at "
+            f"{rows_k[warm:, -1].mean():.1f} iterations, plain {out[route][1]:.3f} ms "
+            f"wall over ticks {warm + 1}-{n_p} at {rows_p[warm:, -1].mean():.1f}")
+
+    _, kern, plain = oracles("iris_posctrl_mpc", dev)
+    U, u = plans(64, 1, dev), plans(1, 2, dev)[0]
+    calls = {"value_batch": lambda o: o.value_batch(U),
+             "value_and_grad": lambda o: o.value_and_grad(u),
+             "trajectory": lambda o: o.trajectory(u)}
+    for name, call in calls.items():
+        out[name] = (per_launch_ms(lambda: call(kern), 50),
+                     per_launch_ms(lambda: call(plain), 5))
+        log(f"{name}{' K=64' if name == 'value_batch' else ''} per launch ({card}): "
+            f"kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms (CUDA events)")
     return out
 
 
@@ -275,45 +586,58 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy
-    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
-    from sde4mbrl_px4_tpu_torch.ops.cuda import build
 
     apply_fp32_policy()
     dev = torch.device("cuda")
     card = card_line()
     log(f"phase 1: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-
-    t = time.perf_counter()
-    lib_path = build.build_library("apg_solve")
-    build_s = build.build_library.last_seconds
-    AK.load_apg_library()
-    log(f"phase 2: built {os.path.relpath(lib_path, ROOT)} in {build_s:.1f} s "
-        f"(with load {time.perf_counter() - t:.1f} s)")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
-
+    phase_build()
     max_err, fixed = phase_parity(dev)
-    log(f"phase 3: kernel matches its plain version (max|du| {max_err:.3e})")
-    launches = phase_slice(dev)
-    log("phase 4: slice replays pass the golden gates through the kernel")
+    log(f"phase 3: the whole-solve kernel matches its plain version (max|du| {max_err:.3e})")
+    oracle_err = phase_oracle_parity(dev)
+    log(f"phase 4: the oracle kernels match the plain oracle (max|err| {oracle_err})")
+    fs_err = phase_fixed_step_parity(dev)
+    log(f"phase 5: fixed-step APG on the kernels matches plain (max|du| {fs_err:.3e})")
+    launches = {"apg_solve": phase_slice(dev)}
+    log("phase 6: the whole-solve route passes the golden gates through the kernel")
+    mppi = phase_mppi(dev)
+    log("phase 7: the MPPI route runs on the oracle kernels and closes the loop")
+    fixed_route = phase_fixed_step(dev)
+    log("phase 8: the fixed-step route runs on the oracle kernels")
+    launches.update(value_batch=mppi["value_batch"], trajectory=mppi["trajectory"],
+                    value_and_grad=fixed_route["value_and_grad"])
     timing = phase_timing(dev, card)
-    log("phase 5: timed")
+    log("phase 9: timed")
 
+    oracle_src = "sde4mbrl_px4_tpu_torch/csrc/cost_oracle.cu"
+    tpu = "sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py"
     print(json.dumps({"kernels": [{
         "name": "apg_solve",
         "route": "cuda",
         "source": "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cu",
         "replaces": "sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py:420",
-        "launches": launches,
+        "launches": launches["apg_solve"],
         "max_abs_err": max_err,
         "ms": timing["traj"][0],
         "plain_ms": timing["traj"][1],
         "device_ms": timing["traj"][2],
         "fixed_budget_ms": fixed[0],
         "fixed_budget_plain_ms": fixed[1],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": oracle_src,
+        "replaces": f"{tpu}:{line}",
+        "launches": launches[name],
+        "max_abs_err": oracle_err[name],
+        "ms": timing[name][0],
+        "plain_ms": timing[name][1],
+    } for name, line in (("value_batch", 276), ("value_and_grad", 297),
+                         ("trajectory", 347))] , "solve_ms": {
+        "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
+        "fixed_step": timing["fixed_step"][0],
+        "fixed_step_plain": timing["fixed_step"][1]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

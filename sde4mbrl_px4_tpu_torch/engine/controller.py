@@ -13,6 +13,12 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/engine/controller.py``:
   ``solve_async`` + ``collect_entry``) and picks commands out of the latest
   plan by time index (``pick_command`` / ``on_state``).
 
+Each solver's ``rng`` is a CPU ``torch.Generator`` (``rng_traj`` /
+``rng_pos``). The APG routes draw nothing from it; under ``solver: mppi``
+each solve draws its exploration noise from it in one call and moves it to
+the device in one copy (``solver/mppi.py::draw_mppi_noise``). The
+deadline budget is ignored by MPPI, as in the original.
+
 Not ported yet (ROADMAP.md §1 'Node twin and closed loop'): the
 ``pipeline=True`` fetch thread and the ``offset_adaptation`` estimator.
 """

@@ -1,13 +1,16 @@
 """Flagship golden-trace replays for the port.
 
 PyTorch counterpart of ``sde4mbrl_px4_tpu/engine/goldens.py``
-(``replay_pos``, ``replay_traj``, ``replay_engagement``): the same pinned
-plant states, seeds and simulated clock, driven through the port's
-:class:`~sde4mbrl_px4_tpu_torch.engine.controller.RecedingHorizonController`,
-so the port's command traces are held against the committed
-``tests/goldens/iris_*.npz``. Give every replay a controller of its own:
-a replay rewinds the controller's warm starts (:func:`fresh`), and the
-engagement replay replaces its automata.
+(``replay_pos``, ``replay_traj``, ``replay_engagement``,
+``replay_solver_family``): the same pinned plant states, seeds and
+simulated clock, driven through the port's
+:class:`~sde4mbrl_px4_tpu_torch.engine.controller.RecedingHorizonController`
+(or, for a solver family, its raw ``(reset_fn, mpc_fn)`` pair), so the
+port's command traces are held against the committed
+``tests/goldens/iris_*.npz`` and ``family_*_trace.npz``. Give every
+controller replay a controller of its own: a replay rewinds the
+controller's warm starts (:func:`fresh`), and the engagement replay
+replaces its automata.
 
 Command-row layout: ``[u6, w4, idx]``. :func:`compare_to_golden` applies the
 cross-backend gates of ``bench.py:250`` (warm-started APG is fp-chaotic:
@@ -27,7 +30,8 @@ from sde4mbrl_px4_tpu_torch.core.types import (
     CONTROL_STATES, CTRL_TRAJ_ACTIVE, CTRL_TRAJ_IDLE, hover_state)
 
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
-           "replay_engagement", "compare_to_golden", "GATES"]
+           "replay_engagement", "replay_solver_family", "compare_to_golden",
+           "GATES", "SOLVER_FAMILIES"]
 
 # bench.py:250 — |du| <= 0.03, |dw| <= 0.08, relative cost <= 0.02
 GATES = {"u": 0.03, "w": 0.08, "cost_rel": 0.02}
@@ -139,6 +143,56 @@ def replay_engagement(c, n_none: int = 4, n_idle: int = 10, n_traj: int = 28,
         raise RuntimeError("overrun tick was not recorded")
     return (np.asarray(modes, np.int32), np.stack(cmds),
             np.asarray(costs, np.float32))
+
+
+# original :190-196; only "mppi" is ported (the others raise, naming the
+# ROADMAP.md item that brings them)
+SOLVER_FAMILIES = {
+    "p512anti": dict(base="iris_traj_mpc.yaml",
+                     mut={"num_particles": 512, "antithetic": True,
+                          "apg_mpc.max_iter": 6}),
+    "mppi": dict(base="iris_posctrl_mpc.yaml", mut={"solver": "mppi"}),
+    "policy": dict(base="iris_traj_mpc.yaml", mut={"solver": "policy"}),
+}
+_FAMILY_ITEM = {"p512anti": "Particles", "policy": "Policy solver family"}
+
+
+def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
+                         device=None) -> np.ndarray:
+    """Pinned-seed replay of one solver family's raw ``(reset_fn, mpc_fn)``
+    pair (original :199-237): ``n`` warm receding-horizon solves from a
+    pinned offset state, each from the last one's ``x_evol[1]``, recording
+    rows ``[u_opt[0], num_steps]``. ``draws`` is what ``mpc_fn`` gets as
+    ``rng``: None for ``torch.Generator().manual_seed(0)``, or an iterator
+    of each solve's ``(eps, c0)`` (the original's own draws, in tests)."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    if family in _FAMILY_ITEM:
+        raise NotImplementedError(
+            f"solver family {family!r} is not ported yet; ROADMAP.md §1 "
+            f"'{_FAMILY_ITEM[family]}' brings it")
+    spec = SOLVER_FAMILIES[family]
+    cfg = load_yaml_config(os.path.join(repo_root, "configs", spec["base"]))
+    for key, val in spec["mut"].items():
+        blk = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            blk = blk[p]
+        blk[parts[-1]] = val
+    cfg, (reset_fn, mpc_fn), _, bundle = make_mpc_from_config(cfg, device=device)
+    dt = float(cfg["_time_steps"][0])
+    rng = torch.Generator().manual_seed(0) if draws is None else draws
+    x = hover_state(bundle.device)
+    x[0], x[2] = 0.5, -0.3
+    st = reset_fn(x, rng, x)
+    rows = []
+    for k in range(n):
+        u, st, rng, x_evol = mpc_fn(x, rng, st, k * dt, x)
+        x = x_evol[1]
+        rows.append(np.concatenate([u[0].cpu().numpy().astype(np.float32),
+                                    [float(st.num_steps)]]))
+    return np.stack(rows)
 
 
 def compare_to_golden(trace: np.ndarray, costs: np.ndarray,

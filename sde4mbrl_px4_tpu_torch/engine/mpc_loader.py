@@ -14,13 +14,28 @@ same call-site contract (``:1-59``)::
   ``opt_state'`` carrying the one-step-shifted warm start.
 
 The solver runs in NED/FRD; with ``convert_to_enu`` the ``xdes`` inputs and
-the trajectory table are ENU and converted here. Every solve is one call
-of ``ops/cuda/apg_kernel.py::apg_solve_kernel``: the hand-written kernel on
-a CUDA device, its plain PyTorch version on the CPU. ``rng`` is a
-``torch.Generator`` (or None); the ported configs are deterministic
-(``num_particles: 1``), so it passes through unchanged, as in the original
-(``:655-662``). Configs outside this slice raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
+the trajectory table are ENU and converted here. A solve takes one of three
+routes (original ``:434-455``, ``:710-822``), each on a hand-written kernel
+on a CUDA device and on its plain PyTorch version on the CPU:
+
+- ``solver: apg`` with an ``apg_mpc.linesearch`` block: one call of
+  ``ops/cuda/apg_kernel.py::apg_solve_kernel``, the whole solve in one
+  launch, ``x_evol`` exported by it;
+- ``solver: apg`` without a linesearch block: the fixed-step
+  ``solver/apg.py::apg_solve`` over the cost oracle
+  (``ops/cuda/cost_oracle.py``), ``x_evol`` from ``oracle.trajectory``;
+- ``solver: mppi``: ``solver/mppi.py::mppi_solve`` over the cost oracle,
+  ``x_evol`` from ``oracle.trajectory``.
+
+``rng`` is a ``torch.Generator`` (or None for the APG routes, which draw
+nothing: at ``num_particles: 1`` it passes through unchanged, as in the
+original ``:655-662``). MPPI draws one solve's exploration noise from it
+in one call (``solver/mppi.py::draw_mppi_noise``); in place of a generator
+``rng`` may be an iterator that yields each solve's ``(eps, c0)``, which
+is how tests hand in the original's own draws. ``iter_budget`` caps the
+APG routes and is ignored by MPPI, as in the original (``:636-644``).
+Configs outside the ported scope raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -44,8 +59,10 @@ from sde4mbrl_px4_tpu_torch.models.trajectory import (
     TrajectoryTable, load_trajectory_csv, make_state_from_traj)
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
 from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel
+from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle
 from sde4mbrl_px4_tpu_torch.ops.rollout import make_time_steps
-from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState
+from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve
+from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
 __all__ = ["load_mpc_from_cfgfile", "MPCBundle", "make_mpc_from_config"]
 
@@ -77,11 +94,9 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
 def _check_slice(cfg: Dict[str, Any]) -> None:
     """Refuse the config features this port does not implement yet."""
     solver = str(cfg.get("solver", "apg"))
-    if solver == "mppi":
-        raise _not_in_slice("solver: mppi", "MPPI")
     if solver == "policy":
         raise _not_in_slice("solver: policy", "Policy solver family")
-    if solver != "apg":
+    if solver not in ("apg", "mppi"):
         raise ValueError(f"unknown solver {solver!r} (apg|mppi|policy)")
     if int(cfg.get("num_particles", 1)) > 1:
         raise _not_in_slice("num_particles > 1", "Particles")
@@ -213,6 +228,8 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     lb, ub = torch.tensor(lb_np, device=dev), torch.tensor(ub_np, device=dev)
     cost_params = CostParams.from_config(cfg, n_u, device=dev)
     apg_cfg = APGConfig.from_config(cfg)
+    solver = str(cfg.get("solver", "apg"))
+    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
     num_particles = int(cfg.get("num_particles", 1))
     warm_shift = str(cfg.get("warm_shift", "repeat"))
 
@@ -231,9 +248,10 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     if precond_mode not in ("none", "hover_diag"):
         raise ValueError(f"apg_mpc.precond must be 'hover_diag' or omitted, "
                          f"got {precond_mode!r}")
+    # MPPI takes no metric: the original loads it for apg only (:509)
     precond = (_load_precond(cfg, model, time_steps_np, lb_np, ub_np,
                              convert_to_enu, dev)
-               if precond_mode == "hover_diag" else None)
+               if precond_mode == "hover_diag" and solver == "apg" else None)
 
     bundle = MPCBundle(
         model=model, params=params, cost_params=cost_params,
@@ -284,13 +302,37 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
             xdes = enu2ned(xdes)
         curr_t = torch.as_tensor(curr_t, dtype=f32, device=dev)
         x_ref = _build_ref(curr_t, xdes)
-        st, x_evol = apg_solve_kernel(
-            model, params, cost_params, apg_cfg, time_steps, x, x_ref,
-            opt_state.yk[0], None, 1, lb, ub, opt_state.yk,
-            t_init=opt_state.stepsize if carry_t else None,
-            precond=precond, iter_budget=iter_budget)
+        u_prev = opt_state.yk[0]
+        if solver == "apg" and apg_cfg.use_linesearch:
+            st, x_evol = apg_solve_kernel(
+                model, params, cost_params, apg_cfg, time_steps, x, x_ref,
+                u_prev, None, 1, lb, ub, opt_state.yk,
+                t_init=opt_state.stepsize if carry_t else None,
+                precond=precond, iter_budget=iter_budget)
+        else:
+            oracle = cost_oracle(model, params, cost_params, time_steps, x, x_ref,
+                                 u_prev, None, 1, apg_cfg.maxls)
+            with torch.no_grad():
+                if solver == "mppi":
+                    eps, c0 = _mppi_draws(rng)
+                    st = mppi_solve(oracle, opt_state.yk, lb, ub, mppi_cfg, eps, c0)
+                else:
+                    st = apg_solve(oracle, opt_state.yk, lb, ub, apg_cfg,
+                                   precond=precond, iter_budget=iter_budget)
+                x_evol = oracle.trajectory(st.yk)
         return MPCSolution(u_opt=st.yk, opt_state=st._replace(yk=_shift(st.yk)),
                            rng=rng, x_evol=x_evol)
+
+    def _mppi_draws(rng):
+        """One solve's (eps, c0) on the device: drawn from a generator, or
+        the next pair an iterator of draws hands in."""
+        if isinstance(rng, torch.Generator):
+            return draw_mppi_noise(rng, mppi_cfg, H, n_u, dev)
+        if rng is None:
+            raise ValueError("solver: mppi needs rng: a torch.Generator or an "
+                             "iterator of (eps, c0) draws")
+        eps, c0 = next(rng)
+        return (eps.to(dev, f32), None if c0 is None else c0.to(dev, f32))
 
     return cfg, (reset_fn, mpc_fn), state_from_traj, bundle
 

@@ -7,8 +7,10 @@ where ``x_evol`` (H+1, 13) is the mean trajectory of the best iterate. On
 CUDA tensors it launches ``csrc/apg_solve.cu`` (one thread block, on the
 current stream, no sync) or raises; on CPU tensors it runs
 :func:`apg_solve_plain`, the same function in plain PyTorch
-(``solver/apg.py::apg_solve`` over ``rollout_sde`` + ``cost_fn`` with
-autograd for the gradient, ``rollout_mean`` for ``x_evol``).
+(``solver/apg.py::apg_solve`` over the plain cost oracle,
+``ops/cuda/cost_oracle.py::cost_oracle_plain``: ``rollout_sde`` +
+``cost_fn`` with autograd for the gradient, ``rollout_mean`` for
+``x_evol``).
 
 Scope (the flight configs): deterministic P=1, no state constraints, no
 slack columns, no particle chunks; anything else raises.
@@ -22,11 +24,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ApgArgs, build_consts
-from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
+from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_plain
 from sde4mbrl_px4_tpu_torch.solver.apg import (
     APGConfig, APGState, apg_solve, resolve_t_init)
 
@@ -74,7 +76,10 @@ def _check_scope(model: NeuralSDE, apg: APGConfig, noise, num_particles: int,
             "constraints) are not ported; ROADMAP.md §1 'State constraints "
             "and slack' brings them")
     if not apg.use_linesearch:
-        raise NotImplementedError("apg_solve_kernel needs the linesearch block")
+        raise ValueError(
+            "apg_solve_kernel runs the linesearch APG; a config without "
+            "apg_mpc.linesearch is the fixed-step solver, which runs "
+            "solver/apg.py::apg_solve over the cost oracle (engine/mpc_loader.py)")
 
 
 def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -87,27 +92,12 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
     """Plain PyTorch version of :func:`apg_solve_kernel` (any device)."""
     _check_scope(model, apg, noise, num_particles, chunk, lb)
-    H = int(time_steps.shape[0])
-    zeros = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
-    cost_fn = make_cost_fn(cp, time_steps)
-    u_prev = u_prev[: model.n_u]
-
-    def seq_cost(u):
-        xp, sg = rollout_sde(model, params, x0, u, time_steps, zeros)
-        return cost_fn(xp, sg, u, x_ref, u_prev)
-
-    def value_and_grad(u):
-        with torch.enable_grad():
-            u_ = u.detach().requires_grad_(True)
-            f = seq_cost(u_)
-            (g,) = torch.autograd.grad(f, u_)
-        return f.detach(), g
-
-    value_batch = torch.func.vmap(seq_cost)
+    oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
+                               None, 1, apg.maxls)
     with torch.no_grad():
-        st = apg_solve(value_and_grad, value_batch, u_init, lb, ub, apg,
-                       t_init=t_init, precond=precond, iter_budget=iter_budget)
-        x_evol = rollout_mean(model, params, x0, st.yk, time_steps)
+        st = apg_solve(oracle, u_init, lb, ub, apg, t_init=t_init,
+                       precond=precond, iter_budget=iter_budget)
+        x_evol = oracle.trajectory(st.yk)
     return st, x_evol
 
 

@@ -37,8 +37,9 @@ def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` (with every ``csrc/*.cuh``) unless a build
     of the same sources exists; returns the library path. The compiler's
     output (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside it as ``.log``; ``build_library.last_seconds`` is the time the
-    last call spent compiling (0 when the build was reused)."""
+    beside it as ``.log``; ``build_library.seconds[name]`` is the time the
+    last call for ``name`` spent compiling (0 when the build was reused).
+    Builds of different libraries may run in parallel threads."""
     src = CSRC / f"{name}.cu"
     deps = [src] + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -46,7 +47,7 @@ def build_library(name: str) -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    build_library.last_seconds = 0.0
+    build_library.seconds[name] = 0.0
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,7 +59,7 @@ def build_library(name: str) -> Path:
         t0 = time.perf_counter()
         r = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
                             str(tmp), str(src)], capture_output=True, text=True)
-        build_library.last_seconds = time.perf_counter() - t0
+        build_library.seconds[name] = time.perf_counter() - t0
         log = r.stdout + r.stderr
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -68,7 +69,7 @@ def build_library(name: str) -> Path:
     return out
 
 
-build_library.last_seconds = 0.0
+build_library.seconds = {}
 
 
 def load_library(name: str) -> ctypes.CDLL:

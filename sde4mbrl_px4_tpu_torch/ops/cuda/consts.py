@@ -6,8 +6,11 @@ Port of ``sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py::build_consts``
 state, the horizon of reference states, the previous control, the trunk
 weights, the effective mixer, inertia, per-step dt and discount, cost
 weights and scalars, the input box). :class:`ApgArgs` mirrors
-``csrc/apg_solve.cuh::ApgArgs`` field for field; the library's
-``apg_args_size()`` is checked against it when it is loaded.
+``csrc/apg_solve.cuh::ApgArgs`` field for field; each library's
+``*_args_size()`` is checked against it when it is loaded. One layout
+serves all four kernels: the whole-solve kernel and the three cost-oracle
+kernels (``csrc/cost_oracle.cu``), which read the same buffer and ignore
+the solver fields.
 """
 from __future__ import annotations
 
@@ -44,13 +47,16 @@ class ApgArgs(ctypes.Structure):
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
-                 apg: APGConfig, time_steps: torch.Tensor, x0: torch.Tensor,
-                 x_ref: torch.Tensor, u_prev: torch.Tensor, lb: torch.Tensor,
-                 ub: torch.Tensor, has_pre: bool = False,
+                 apg: Optional[APGConfig], time_steps: torch.Tensor,
+                 x0: torch.Tensor, x_ref: torch.Tensor, u_prev: torch.Tensor,
+                 lb: Optional[torch.Tensor] = None,
+                 ub: Optional[torch.Tensor] = None, has_pre: bool = False,
                  iter_budget: Optional[int] = None) -> Tuple[torch.Tensor, ApgArgs]:
     """Pack the consts buffer on the tensors' device (one ``torch.cat``, no
-    host sync) and fill the argument struct."""
-    if apg.maxls > APG_MAXK:
+    host sync) and fill the argument struct. Without an ``apg`` config (the
+    cost oracle) the solver fields are zero; without a box the ``lb``/``ub``
+    blocks hold -inf/+inf."""
+    if apg is not None and apg.maxls > APG_MAXK:
         raise ValueError(f"maxls={apg.maxls} exceeds the kernel's {APG_MAXK}")
     f32 = torch.float32
     H = int(time_steps.shape[0])
@@ -68,6 +74,9 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                         dtype=f32, device=x0.device)
     scal = torch.cat([host[:1], torch.exp(params["diffusion_log_scale"]).reshape(1),
                       host[1:]])
+    if lb is None:
+        lb = torch.full((n,), -float("inf"), dtype=f32, device=x0.device)
+        ub = -lb
     pieces = (
         ("x0", x0), ("xref", x_ref), ("uprev", u_prev[:n]),
         ("w0", net["w0"]), ("b0", net["b0"]), ("w1", net["w1"]),
@@ -88,14 +97,17 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     a.n_consts = off
     buf = torch.cat(flat)
 
-    a.H, a.n_u, a.nZ, a.K = H, n, n, int(apg.maxls)
+    a.H, a.n_u, a.nZ = H, n, n
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
+    a.has_slew = int(cp.u_slew_constr is not None)
+    if apg is None:
+        return buf, a
+    a.K = int(apg.maxls)
     a.max_iter = int(apg.max_iter)
     a.max_no_imp = int(apg.max_no_improvement_iter)
     a.has_budget = int(iter_budget is not None)
     a.budget = 0 if iter_budget is None else int(iter_budget)
     a.has_pre = int(has_pre)
-    a.has_slew = int(cp.u_slew_constr is not None)
     a.reset_opt = _RESET.get(apg.reset_option, 1)   # unknown -> conservative
     a.mom_restart = int(apg.momentum_restart)
     a.has_moment_scale = int(apg.moment_scale is not None)

@@ -1,0 +1,248 @@
+"""Cost oracle: the hand-written Hopper kernels and their plain version.
+
+:func:`cost_oracle` is the counterpart of
+``sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py::pallas_cost_oracle``
+(``:187-369``) and takes its inputs (``interpret`` aside, which has no
+meaning here): one solve's cost, returned as a
+:class:`~sde4mbrl_px4_tpu_torch.solver.apg.CostOracle` whose
+``value_batch`` (K, H, n) -> (K,), ``value_and_grad`` (H, n) -> ((),
+(H, n)) and ``trajectory`` (H, n) -> (H+1, 13) evaluate it; ``value(u)``
+is ``value_batch(u[None])[0]``, as in the original. On CUDA tensors the
+entries launch ``csrc/cost_oracle.cu`` (on the current stream, no sync)
+or raise; the consts buffer is packed once, when the oracle is built, and
+every launch of the solve reuses it. On CPU tensors :func:`cost_oracle`
+returns :func:`cost_oracle_plain`: ``vmap`` of the rollout + cost,
+autograd for the gradient, ``rollout_mean`` for the trajectory.
+
+Scope: deterministic P=1, no state constraints, no slack columns, no
+particle chunks; anything else raises, naming the ROADMAP item that brings
+it. :func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
+:func:`trajectory_kernel` each count their launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
+from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
+from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ApgArgs, build_consts
+from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
+from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
+
+__all__ = ["cost_oracle", "cost_oracle_plain", "load_oracle_library",
+           "value_batch_kernel", "value_and_grad_kernel", "trajectory_kernel",
+           "SMEM_LIMIT"]
+
+SMEM_LIMIT = 49152   # bytes of shared memory a block may use (48 KB)
+_P = ctypes.c_void_p
+_A = ctypes.POINTER(ApgArgs)
+
+
+@functools.lru_cache(maxsize=None)
+def load_oracle_library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/cost_oracle.cu``."""
+    lib = load_library("cost_oracle")
+    sig = {
+        "cost_oracle_args_size": ([], ctypes.c_int),
+        "cost_oracle_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "value_batch_smem_bytes": ([_A, ctypes.c_int], ctypes.c_int),
+        "trajectory_smem_bytes": ([_A], ctypes.c_int),
+        "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
+        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 4, ctypes.c_int),
+        "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
+        "value_and_grad_launch": ([_A] + [_P] * 5, ctypes.c_int),
+    }
+    for name, (argtypes, restype) in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    if lib.cost_oracle_args_size() != ctypes.sizeof(ApgArgs):
+        raise RuntimeError(
+            f"ApgArgs ABI mismatch: library {lib.cost_oracle_args_size()} bytes, "
+            f"Python {ctypes.sizeof(ApgArgs)} bytes")
+    return lib
+
+
+def _check_scope(noise, num_particles: int, deterministic, chunk: int) -> None:
+    if noise is not None or int(num_particles) != 1 or deterministic is False:
+        raise NotImplementedError(
+            "cost_oracle: only the deterministic P=1 oracle is ported "
+            f"(num_particles={num_particles}, noise "
+            f"{'given' if noise is not None else 'None'}); ROADMAP.md §1 "
+            "'Particles' brings the rest")
+    if chunk:
+        raise NotImplementedError(
+            "cost_oracle: particle chunks (K11) are not ported; ROADMAP.md §1 "
+            "'Particles' brings them")
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device,
+           contiguous: bool = True) -> None:
+    if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"cost_oracle: {name} must be float32 {shape} on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"cost_oracle: {name} must be contiguous")
+
+
+def _check_inputs(model: NeuralSDE, time_steps, x0, x_ref, u_prev) -> None:
+    H, n, dev = int(time_steps.shape[0]), model.n_u, x0.device
+    for name, t, shape in (("x0", x0, (13,)), ("x_ref", x_ref, (H + 1, 13)),
+                           ("time_steps", time_steps, (H,))):
+        _check(name, t, shape, dev, contiguous=False)
+    if u_prev.device != dev or u_prev.dtype != torch.float32 or u_prev.shape[0] < n:
+        raise ValueError(f"cost_oracle: u_prev must be float32 with >= {n} "
+                         f"entries on {dev}")
+
+
+def _checked(H: int, n: int, dev: torch.device, value_batch, value_and_grad,
+             trajectory) -> CostOracle:
+    """The oracle of the three evaluations, with shape/dtype/contiguity
+    checks on the plans it is given; ``value(u)`` is
+    ``value_batch(u[None])[0]``. A plan narrower or wider than n_u (slack
+    columns) is refused."""
+
+    def check_plan(u: torch.Tensor) -> None:
+        if u.shape[-1] != n:
+            raise NotImplementedError(
+                f"cost_oracle: plans must have n_u={n} columns, got "
+                f"{u.shape[-1]}; slack decision columns are ROADMAP.md §1 "
+                "'State constraints and slack'")
+        _check("u", u, (H, n), dev)
+
+    def vb(U):
+        if U.dim() != 3 or U.shape[0] < 1:
+            raise ValueError(f"cost_oracle: value_batch takes (K, {H}, {n}), "
+                             f"got {tuple(U.shape)}")
+        check_plan(U[0])
+        _check("U", U, (U.shape[0], H, n), dev)
+        return value_batch(U)
+
+    def vg(u):
+        check_plan(u)
+        return value_and_grad(u)
+
+    def traj(u):
+        check_plan(u)
+        return trajectory(u)
+
+    return CostOracle(value=lambda u: vb(u[None])[0], value_batch=vb,
+                      value_and_grad=vg, trajectory=traj)
+
+
+def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                      time_steps: torch.Tensor, x0: torch.Tensor,
+                      x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
+                      num_particles: int, maxls: int,
+                      deterministic: Optional[bool] = None,
+                      chunk: int = 0) -> CostOracle:
+    """Plain PyTorch version of :func:`cost_oracle` (any device)."""
+    _check_scope(noise, num_particles, deterministic, chunk)
+    _check_inputs(model, time_steps, x0, x_ref, u_prev)
+    H, n = int(time_steps.shape[0]), model.n_u
+    zeros = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
+    cost_fn = make_cost_fn(cp, time_steps)
+    u_prev = u_prev[:n]
+
+    def seq_cost(u):
+        xp, sg = rollout_sde(model, params, x0, u, time_steps, zeros)
+        return cost_fn(xp, sg, u, x_ref, u_prev)
+
+    base = CostOracle.from_fn(seq_cost)
+    return _checked(H, n, x0.device, base.value_batch, base.value_and_grad,
+                    lambda u: rollout_mean(model, params, x0, u, time_steps))
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + load_oracle_library().cost_oracle_error_string(rc).decode())
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def value_batch_kernel(consts: torch.Tensor, args: ApgArgs,
+                       U: torch.Tensor) -> torch.Tensor:
+    """(K, H, n) plans -> (K,) costs: one launch of ``value_batch_kernel``."""
+    lib = load_oracle_library()
+    K = int(U.shape[0])
+    need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"value_batch needs {need} bytes of shared memory per "
+                         f"block, above the {SMEM_LIMIT}-byte budget")
+    out = torch.empty(K, dtype=torch.float32, device=U.device)
+    _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
+                                     U.data_ptr(), out.data_ptr(), _stream(U)),
+              "value_batch")
+    value_batch_kernel.launches += 1
+    return out
+
+
+def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs,
+                          u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, n) plan -> (cost (), gradient (H, n)): one launch."""
+    lib = load_oracle_library()
+    need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
+    if need > SMEM_LIMIT:
+        raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
+                         f"above the {SMEM_LIMIT}-byte budget")
+    val = torch.empty((), dtype=torch.float32, device=u.device)
+    grad = torch.empty_like(u)
+    _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
+                                        u.data_ptr(), val.data_ptr(),
+                                        grad.data_ptr(), _stream(u)),
+              "value_and_grad")
+    value_and_grad_kernel.launches += 1
+    return val, grad
+
+
+def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
+                      u: torch.Tensor) -> torch.Tensor:
+    """(H, n) plan -> its mean rollout (H+1, 13): one launch."""
+    lib = load_oracle_library()
+    need = lib.trajectory_smem_bytes(ctypes.byref(args))
+    if need > SMEM_LIMIT:
+        raise ValueError(f"trajectory needs {need} bytes of shared memory, "
+                         f"above the {SMEM_LIMIT}-byte budget")
+    out = torch.empty((args.H + 1, 13), dtype=torch.float32, device=u.device)
+    _raise_on(lib.trajectory_launch(ctypes.byref(args), consts.data_ptr(),
+                                    u.data_ptr(), out.data_ptr(), _stream(u)),
+              "trajectory")
+    trajectory_kernel.launches += 1
+    return out
+
+
+value_batch_kernel.launches = 0
+value_and_grad_kernel.launches = 0
+trajectory_kernel.launches = 0
+
+
+def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
+                u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
+                deterministic: Optional[bool] = None,
+                chunk: int = 0) -> CostOracle:
+    """The cost oracle of one solve. ``noise`` must be None (P=1 runs the
+    mean dynamics); ``maxls`` is unused, as in the original (``value_batch``
+    takes any K). CPU tensors get :func:`cost_oracle_plain`."""
+    dev = x0.device
+    if dev.type == "cpu":
+        return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
+                                 noise, num_particles, maxls, deterministic, chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"cost_oracle: unsupported device {dev}")
+    _check_scope(noise, num_particles, deterministic, chunk)
+    _check_inputs(model, time_steps, x0, x_ref, u_prev)
+    load_oracle_library()
+    consts, args = build_consts(model, params, cp, None, time_steps, x0, x_ref,
+                                u_prev)
+    return _checked(int(time_steps.shape[0]), model.n_u, dev,
+                    functools.partial(value_batch_kernel, consts, args),
+                    functools.partial(value_and_grad_kernel, consts, args),
+                    functools.partial(trajectory_kernel, consts, args))

@@ -8,9 +8,11 @@ adaptive restart (optionally resetting the momentum counter), best-iterate
 tracking, atol/rtol and stagnation stops, the three ``reset_option`` trial
 steps (increase / conservative / Barzilai-Borwein), the diagonal
 ``precond`` metric, the ``t_init`` stepsize carry and the ``iter_budget``
-cap. The loop runs on the host and reads its stop test every iteration:
-this is the plain version the whole-solve kernel
-(``ops/cuda/apg_kernel.py``) is held against.
+cap. Without a ``linesearch`` block the solver takes fixed steps of
+``stepsize`` (``:346-351``). The loop runs on the host and reads its stop
+test every iteration: this is the plain version the whole-solve kernel
+(``ops/cuda/apg_kernel.py``) is held against, and the fixed-step solver
+that the cost-oracle kernels (``ops/cuda/cost_oracle.py``) serve.
 
 Candidate steps use the exact ``decrease_factor**k`` (Python doubles cast
 to fp32), as the kernels do (``sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py:224-231``).
@@ -21,8 +23,38 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-__all__ = ["APGConfig", "APGState", "apg_solve", "box_project", "df_powers",
-           "resolve_t_init"]
+__all__ = ["APGConfig", "APGState", "CostOracle", "apg_solve", "box_project",
+           "df_powers", "resolve_t_init"]
+
+
+class CostOracle(NamedTuple):
+    """The cost evaluations a solver needs, however they are computed
+    (counterpart of ``sde4mbrl_px4_tpu/solver/apg.py:39-61`` with the
+    ``trajectory`` of ``ops/pallas/solve_kernels.py:359-369``):
+
+    - ``value(u) -> ()``;
+    - ``value_batch(U[K, H, n]) -> (K,)``;
+    - ``value_and_grad(u) -> ((), (H, n))``;
+    - ``trajectory(u) -> (H+1, 13)``, the mean rollout of a plan (None when
+      the oracle wraps a bare cost function).
+    """
+
+    value: Callable
+    value_batch: Callable
+    value_and_grad: Callable
+    trajectory: Optional[Callable] = None
+
+    @staticmethod
+    def from_fn(cost_fn: Callable) -> "CostOracle":
+        def value_and_grad(u):
+            with torch.enable_grad():
+                u_ = u.detach().requires_grad_(True)
+                f = cost_fn(u_)
+                (g,) = torch.autograd.grad(f, u_)
+            return f.detach(), g
+
+        return CostOracle(value=cost_fn, value_batch=torch.func.vmap(cost_fn),
+                          value_and_grad=value_and_grad)
 
 
 class APGConfig(NamedTuple):
@@ -108,26 +140,23 @@ def resolve_t_init(cfg: APGConfig, t_init: Optional[torch.Tensor],
     return torch.where(ti > 0.0, torch.clamp(ti, 1e-6, cfg.max_stepsize), init)
 
 
-def apg_solve(value_and_grad: Callable, value_batch: Callable,
-              u_init: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
-              cfg: APGConfig, t_init: Optional[torch.Tensor] = None,
+def apg_solve(oracle: CostOracle, u_init: torch.Tensor, lb: torch.Tensor,
+              ub: torch.Tensor, cfg: APGConfig, t_init: Optional[torch.Tensor] = None,
               precond: Optional[torch.Tensor] = None,
               iter_budget: Optional[int] = None) -> APGState:
     """Minimize a cost over box-constrained control sequences.
 
-    ``value_and_grad(u) -> (f, g)`` and ``value_batch(U[K,H,n]) -> (K,)``
-    evaluate the cost. Returns the :class:`APGState` whose ``yk`` is the
-    best iterate (not shifted). See the module docstring for the options.
+    The oracle evaluates the cost: ``value_and_grad`` at every iterate,
+    ``value_batch`` over the ``maxls`` linesearch candidates, ``value`` at
+    the fixed-step trial point. Returns the :class:`APGState` whose ``yk``
+    is the best iterate (not shifted). See the module docstring for the
+    options; without the linesearch ``t_init`` is ignored.
     """
-    if not cfg.use_linesearch:
-        raise NotImplementedError("apg_solve needs the linesearch block")
+    value_and_grad = oracle.value_and_grad
     dev = u_init.device
-    K = cfg.maxls
     dfp = df_powers(cfg)
-    df_k = torch.tensor(dfp[:K], dtype=torch.float32, device=dev)
-    tmax = cfg.max_stepsize
+    df_k = torch.tensor(dfp[:cfg.maxls], dtype=torch.float32, device=dev)
     if precond is None:
-        D = None
         dscale = lambda g: g
         dquad = lambda d: d * d
     else:
@@ -145,42 +174,28 @@ def apg_solve(value_and_grad: Callable, value_batch: Callable,
     u = y = best_u = y_prev = u0
     g_prev = g0
     f_u = best_f = f0
-    t = resolve_t_init(cfg, t_init, dev)
+    if cfg.use_linesearch:
+        t = resolve_t_init(cfg, t_init, dev)
+    else:
+        t = torch.tensor(cfg.stepsize, dtype=torch.float32, device=dev)
     sum_t = torch.zeros((), dtype=torch.float32, device=dev)
     sum_ls = torch.zeros((), dtype=torch.float32, device=dev)
     done = False
     while k < kmax and not done:
         f_y, g = value_and_grad(y)
-        if cfg.reset_option == "bb":
-            s = y - y_prev
-            r = g - g_prev
-            sr = torch.sum(s * r)
-            rr = torch.sum(r * dscale(r))
-            t_bb = sr / torch.clamp(rr, min=1e-12)
-            t_inc = torch.clamp(t * cfg.increase_factor, max=tmax)
-            t0 = (torch.where(sr > 1e-12, torch.clamp(t_bb, 1e-6, tmax), t_inc)
-                  if k > 0 else t_inc)
-        elif cfg.reset_option == "increase":
-            t0 = torch.clamp(t * cfg.increase_factor, max=tmax)
+        if cfg.use_linesearch:
+            t_acc, n_ls, ok, u_trial, f_trial = _vector_linesearch(
+                cfg, oracle.value_batch, y, f_y, g, t, k, y_prev, g_prev, proj,
+                dscale, dquad, df_k, dfp[cfg.maxls])
         else:
-            t0 = t
+            # fixed step (original :346-351)
+            t_acc, n_ls = t, 1.0
+            u_trial = proj(y - t_acc * dscale(g))
+            f_trial = oracle.value(u_trial)
+            ok = bool(f_trial <= f_y)
 
-        # vector linesearch: all K candidates in one batched evaluation
-        ts = t0 * df_k                                           # (K,)
-        u_ts = proj(y[None] - ts[:, None, None] * dscale(g)[None])  # (K, H, n)
-        f_ts = value_batch(u_ts)
-        d = u_ts - y[None]
-        lin = torch.sum(g[None] * d, dim=(1, 2))
-        quad = torch.sum(dquad(d), dim=(1, 2)) / (2.0 * torch.clamp(ts, min=1e-12))
-        ok_k = f_ts <= f_y + (1.0 - cfg.coef) * lin + quad
-        ok_t = torch.any(ok_k)
-        idx = torch.argmax(ok_k.to(torch.int32))
-        ok = bool(ok_t)
-        t_acc = ts[idx] if ok else t0 * dfp[K]
-        n_ls = float(int(idx) + 1) if ok else float(K)
-
-        u_new = u_ts[idx] if ok else u
-        f_new = f_ts[idx] if ok else f_u
+        u_new = u_trial if ok else u
+        f_new = f_trial if ok else f_u
 
         kf = float(k_m if cfg.momentum_restart else k)
         beta = (cfg.moment_scale if cfg.moment_scale is not None
@@ -215,3 +230,39 @@ def apg_solve(value_and_grad: Callable, value_batch: Callable,
         init_cost=f0,
         opt_cost=best_f,
     )
+
+
+def _vector_linesearch(cfg: APGConfig, value_batch: Callable, y, f_y, g, t,
+                       k: int, y_prev, g_prev, proj, dscale, dquad, df_k,
+                       df_K: float):
+    """Trial stepsize by ``reset_option``, then all ``maxls`` Armijo
+    candidates in one batched evaluation; the first (largest) accepted
+    step wins. Returns ``(t_acc, n_ls, ok, u_trial, f_trial)``."""
+    K = cfg.maxls
+    tmax = cfg.max_stepsize
+    if cfg.reset_option == "bb":
+        s = y - y_prev
+        r = g - g_prev
+        sr = torch.sum(s * r)
+        rr = torch.sum(r * dscale(r))
+        t_bb = sr / torch.clamp(rr, min=1e-12)
+        t_inc = torch.clamp(t * cfg.increase_factor, max=tmax)
+        t0 = (torch.where(sr > 1e-12, torch.clamp(t_bb, 1e-6, tmax), t_inc)
+              if k > 0 else t_inc)
+    elif cfg.reset_option == "increase":
+        t0 = torch.clamp(t * cfg.increase_factor, max=tmax)
+    else:
+        t0 = t
+
+    ts = t0 * df_k                                           # (K,)
+    u_ts = proj(y[None] - ts[:, None, None] * dscale(g)[None])  # (K, H, n)
+    f_ts = value_batch(u_ts)
+    d = u_ts - y[None]
+    lin = torch.sum(g[None] * d, dim=(1, 2))
+    quad = torch.sum(dquad(d), dim=(1, 2)) / (2.0 * torch.clamp(ts, min=1e-12))
+    ok_k = f_ts <= f_y + (1.0 - cfg.coef) * lin + quad
+    idx = torch.argmax(ok_k.to(torch.int32))
+    ok = bool(torch.any(ok_k))
+    t_acc = ts[idx] if ok else t0 * df_K
+    n_ls = float(int(idx) + 1) if ok else float(K)
+    return t_acc, n_ls, ok, u_ts[idx], f_ts[idx]

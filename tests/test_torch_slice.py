@@ -7,8 +7,8 @@ position-hold golden replay.
   committed ``tests/goldens/iris_pos_flagship_trace.npz`` at the
   cross-backend gates of ``bench.py:250`` (|du| <= 0.03, |dw| <= 0.08,
   relative cost <= 0.02, pickup index exact);
-- a fresh process that imports the port and runs the slice never imports
-  JAX;
+- a fresh process that imports the port and runs the slice (the
+  whole-solve route, MPPI and fixed-step APG) never imports JAX;
 - configs outside the slice are refused with the ROADMAP item that brings
   them. (The trajectory replay is ``test_torch_slice_traj.py``.)
 """
@@ -66,12 +66,14 @@ def test_flagship_traj_loads_committed_preconditioner(repo_root):
 
 
 @pytest.mark.parametrize("mutation, item", [
-    ({"solver": "mppi"}, "MPPI"),
+    ({"solver": "mppi", "num_particles": 8}, "Particles"),
     ({"solver": "policy"}, "Policy solver family"),
     ({"num_particles": 8}, "Particles"),
     ({"initial_state_std": 0.01}, "Particles"),
     ({"pallas_chunk": 4}, "Particles"),
     ({"state_constr": {"state_id": [3]}}, "State constraints and slack"),
+    ({"solver": "mppi", "state_constr": {"state_id": [3]}},
+     "State constraints and slack"),
 ])
 def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
     cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
@@ -140,6 +142,40 @@ def test_slice_runs_without_jax(repo_root):
         for mode in ("pos", "traj"):
             rec = c.solve_once(x, CONTROL_STATES[mode], 0.5, x, 1e6)
             assert rec.num_steps == 2, rec
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        print("NO_JAX_OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo_root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "NO_JAX_OK" in r.stdout, r.stdout + r.stderr
+
+
+def test_oracle_routes_run_without_jax(repo_root):
+    """A fresh process runs one MPPI solve and one fixed-step APG solve (a
+    config without a linesearch block) through ``mpc_fn`` without JAX
+    ever entering ``sys.modules``."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from sde4mbrl_px4_tpu_torch.core.types import hover_state
+        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+        from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+        for route in ("mppi", "fixed_step"):
+            cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+            if route == "mppi":
+                cfg["solver"] = "mppi"
+                cfg["mppi"] = {"samples": 16, "iters": 2}
+            else:
+                del cfg["apg_mpc"]["linesearch"]
+                cfg["apg_mpc"]["max_iter"] = 2
+            _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg)
+            x = hover_state()
+            gen = torch.Generator().manual_seed(0)
+            sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
+            assert int(sol.opt_state.num_steps) == 2, route
+            assert torch.isfinite(sol.u_opt).all() and sol.x_evol.shape == (21, 13)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
