@@ -39,12 +39,37 @@ without a result):
 9. times, on the same card, kernel against plain: the chained pos and
    traj replays per solve (p50, wall clock from dispatch to the plan on
    the host), MPPI and fixed-step APG per solve (p50 over chained ticks),
-   and each oracle kernel per launch (CUDA events).
+   and each oracle kernel per launch (CUDA events);
+10. Monte-Carlo particles, kernel against plain on the same torch draws,
+    both iris configs, at P=8 (one chunk) and P=64 in chunks of 16: the
+    noise and chunk branches of ``value`` and ``value_batch`` (K=4, rtol
+    2e-5) and ``value_and_grad`` (value rtol 2e-5, gradient rtol 5e-4 /
+    atol 5e-5), and the particle form of the whole solve at max_iter=10
+    (equal steps, ``yk`` rtol 5e-4 / atol 5e-5, ``opt_cost`` rel 5e-4, as
+    ``tests/test_apg_kernel.py:100-105``; ``x_evol`` the mean rollout of
+    the plan);
+11. the ``p512anti`` solver family (4 solves, max_iter 6, P=512
+    antithetic) through the kernels and through the plain version with the
+    same draws: |du| <= 5e-4, the golden's own tolerance, equal steps;
+12. the full-width particle route: ``iris_traj_mpc.yaml`` at P=512
+    antithetic, max_iter 200, chained through ``mpc_fn`` along the
+    lemniscate (per-solve p50, iterations, per-iteration time, tracking
+    error of ``x_evol[1]``), then three traj ticks of a
+    ``RecedingHorizonController`` flying that config; a fixed 5-iteration
+    P=512 solve, kernel against plain (parity and times); the chosen chunk
+    and shared memory;
+13. the fixed-step route at P=512 antithetic (the posctrl config without
+    its linesearch block) on the oracle kernels' particle branches; then
+    those kernels against the plain oracle at P=512 in the route's chunks
+    (``value`` at K=1 and ``value_batch`` at K=4, rtol 2e-5;
+    ``value_and_grad``, value rtol 2e-5, gradient rtol 5e-4 / atol 5e-5),
+    and their per-launch times.
 
-In phases 6-8 every kernel's launch count is set to 0 just before the
-route runs and read just after: each route must have launched exactly the
-kernels it is made of, as many times as its solves need, and JAX must
-never be imported.
+In phases 6-8 and 11-13 every kernel's launch count is set to 0 just
+before the route runs and read just after: each route must have launched
+exactly the kernels it is made of, as many times as its solves need (a
+particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
+JAX must never be imported.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is
@@ -56,6 +81,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +93,9 @@ TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
 LIBS = ("apg_solve", "cost_oracle")
+# particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
+PART_RTOL, PART_ATOL = 5e-4, 5e-5
+P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
 
 
 def log(msg: str) -> None:
@@ -81,8 +110,9 @@ def card_line() -> str:
 
 
 def config(name: str, **mut) -> dict:
-    """An iris config, with ``solver``/``mppi`` set and the linesearch block
-    deleted (``linesearch=None``) or the ``apg_mpc`` keys given."""
+    """An iris config, with ``solver``/``mppi`` set, the linesearch block
+    deleted (``linesearch=None``), ``particles`` antithetic Monte-Carlo
+    paths or the ``apg_mpc`` keys given."""
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
 
     cfg = load_yaml_config(os.path.join(ROOT, f"configs/{name}.yaml"))
@@ -92,6 +122,9 @@ def config(name: str, **mut) -> dict:
     if "linesearch" in mut:
         mut.pop("linesearch")
         del cfg["apg_mpc"]["linesearch"]
+    particles = mut.pop("particles", None)
+    if particles:
+        cfg.update(num_particles=particles, antithetic=True)
     cfg["apg_mpc"].update(mut)
     return cfg
 
@@ -156,7 +189,11 @@ def phase_build() -> None:
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)(ILb([01])E)?", line)
+            if entry:
+                form = {"0": "<false>", "1": "<true>"}.get(entry.group(3), "")
+                log(f"  ptxas: {entry.group(1)}{form}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
 
 
@@ -578,6 +615,279 @@ def phase_timing(dev, card: str) -> dict:
     return out
 
 
+def brownian(P: int, dev, antithetic: bool = False, seed: int = None):
+    """A (P, H, 13) Brownian block from a seeded CPU generator."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+
+    gen = torch.Generator().manual_seed(P if seed is None else seed)
+    return draw_brownian(gen, 20, P, antithetic, dev).transpose(0, 1)
+
+
+def particle_solve_parity(AK, b, args, chunk: int, tag: str) -> tuple:
+    """A particle solve through the kernel and the plain version: equal
+    steps, ``yk`` and ``opt_cost`` at the particle tolerances, ``x_evol``
+    (the ``trajectory`` launch) the mean rollout of the kernel's plan.
+    Returns (max |du|, max |dx| of ``x_evol``)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    st_k, xe_k = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk)
+    torch.cuda.synchronize()
+    st_p, _ = AK.apg_solve_plain(*args, precond=b.precond, chunk=chunk)
+    nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+    du = float((st_k.yk - st_p.yk).abs().max())
+    dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+    ref = rollout_mean(b.model, b.params, args[5], st_k.yk, b.time_steps)
+    dx = float((xe_k - ref).abs().max())
+    log(f"particle solve {tag}: steps kernel {nk} plain {np_}; max|du| {du:.3e} "
+        f"(rtol {PART_RTOL}, atol {PART_ATOL}); cost rel {dc:.3e} (5e-4); x_evol "
+        f"max|dx| {dx:.3e} (rtol 1e-5)")
+    if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=PART_RTOL, atol=PART_ATOL)
+            and dc <= PART_RTOL and torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6)
+            and bool(torch.isfinite(st_k.yk).all())):
+        raise AssertionError(f"the particle solve disagrees with its plain version ({tag})")
+    return du, dx
+
+
+def phase_particle_parity(dev) -> dict:
+    """The noise and chunk branches of every kernel against the plain
+    versions on the same draws; returns max |err| per kernel."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    err = {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0}
+    for name in TOLS:
+        b = load_mpc_from_cfgfile(os.path.join(ROOT, f"configs/{name}.yaml"), device=dev)[3]
+        x0, x_ref, u_prev, u_init = problem(b, dev)
+        apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+        for P, chunk in ((8, 0), (64, 16)):
+            z = brownian(P, dev)
+            tag = f"{name} P={P} chunk={chunk or P}"
+            oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+                     z, P, b.apg_config.maxls)
+            kern = CO.cost_oracle(*oargs, chunk=chunk)
+            plain = CO.cost_oracle_plain(*oargs, chunk=chunk)
+            for kernel, e in particle_oracle_parity(kern, plain, plans(4, P, dev), tag).items():
+                err[kernel] = max(err[kernel], e)
+            args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
+                    z, P, b.lb, b.ub, u_init)
+            err["apg_solve"] = max(err["apg_solve"],
+                                   particle_solve_parity(AK, b, args, chunk, tag)[0])
+    return err
+
+
+def particle_oracle_parity(kern, plain, U, tag: str) -> dict:
+    """The particle oracle kernels against the plain oracle on the same
+    draws: ``value`` (``value_batch`` at K=1) and ``value_batch`` at
+    K=len(U) at rtol 2e-5, ``value_and_grad`` (value rtol 2e-5, gradient
+    rtol 5e-4 / atol 5e-5). Returns max |err| per kernel."""
+    import torch
+
+    vk, vp = kern.value_batch(U), plain.value_batch(U)
+    v1k, v1p = kern.value(U[0]), plain.value(U[0])
+    (a_k, g_k), (a_p, g_p) = kern.value_and_grad(U[1]), plain.value_and_grad(U[1])
+    torch.cuda.synchronize()
+    rel = max(float(((vk - vp).abs() / vp.abs()).max()),
+              abs(float(v1k) - float(v1p)) / abs(float(v1p)))
+    dv = abs(float(a_k) - float(a_p)) / abs(float(a_p))
+    dg = float((g_k - g_p).abs().max())
+    log(f"particle oracle {tag}: value (K=1) / value_batch K={len(U)} max rel err "
+        f"{rel:.3e} (rtol 2e-5); value_and_grad value rel {dv:.3e}, grad max|d| {dg:.3e} "
+        f"(rtol 5e-4, atol 5e-5)")
+    if not (rel <= 2e-5 and dv <= 2e-5 and bool(torch.isfinite(vk).all())
+            and bool(torch.isfinite(g_k).all())
+            and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5)):
+        raise AssertionError(f"a particle oracle kernel disagrees with its plain "
+                             f"version ({tag})")
+    return {"value_batch": max(float((vk - vp).abs().max()), abs(float(v1k - v1p))),
+            "value_and_grad": max(dg, abs(float(a_k - a_p)))}
+
+
+def phase_particle_family(dev) -> tuple:
+    """``replay_solver_family("p512anti")`` through the kernels (counted)
+    and through the plain version; returns (launches, max |du|)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    n = 4
+    zero_counts()
+    tr_k = G.replay_solver_family(ROOT, "p512anti", n=n, device=dev)
+    torch.cuda.synchronize()
+    got = check_route("p512anti family", {"apg_solve": n, "value_batch": 0,
+                                          "value_and_grad": 0, "trajectory": n})
+    with routed("apg_solve_kernel", AK.apg_solve_plain):
+        tr_p = G.replay_solver_family(ROOT, "p512anti", n=n, device=dev)
+    du = np.abs(tr_k[:, :-1] - tr_p[:, :-1]).max(axis=1)
+    log(f"p512anti family replay ({n} solves, max_iter 6), kernels vs plain, same draws: "
+        f"max|du| per row {np.array2string(du, precision=3)} (gate 5e-4); steps "
+        f"{tr_k[:, -1].tolist()} vs {tr_p[:, -1].tolist()}")
+    if not ((du <= 5e-4).all() and np.array_equal(tr_k[:, -1], tr_p[:, -1])
+            and np.isfinite(tr_k).all()):
+        raise AssertionError("the p512anti family through the kernels disagrees with plain")
+    return got, float(du.max())
+
+
+def phase_particle_flight(dev, card: str) -> dict:
+    """The full-width route: iris_traj_mpc at P=512 antithetic, chained
+    through ``mpc_fn`` along the lemniscate, then flown by a controller;
+    a fixed 5-iteration solve kernel vs plain; the chosen chunk."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    cfg0 = config("iris_traj_mpc", particles=P_FULL)
+    cfg, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(cfg0), device=dev)
+    dt, t0, n, warm = float(cfg["_time_steps"][0]), 3.0, 7, 1
+    x = enu2ned(sft(np.float32(t0)))
+    gen = torch.Generator().manual_seed(0)
+    st = reset_fn(x, gen, x)
+    events, wall, steps, track = [], [], [], []
+    zero_counts()
+    with routed("apg_solve_kernel", event_timed(events)):
+        for k in range(n):
+            w0 = time.perf_counter()
+            u, st, gen, x_evol = mpc_fn(x, gen, st, np.float32(t0 + k * dt), x)
+            u0 = u[0].cpu()
+            wall.append((time.perf_counter() - w0) * 1e3)
+            steps.append(int(st.num_steps))
+            x = x_evol[1]
+            ref = enu2ned(sft(np.float32(t0 + (k + 1) * dt)))
+            track.append(float(torch.linalg.norm(x[:3] - ref[:3])))
+            if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(x_evol).all())
+                    and bool(torch.isfinite(u0).all())):
+                raise AssertionError(f"P={P_FULL} solve {k} returned non-finite values")
+    torch.cuda.synchronize()
+    got = check_route(f"P={P_FULL} flight", {"apg_solve": n, "value_batch": 0,
+                                             "value_and_grad": 0, "trajectory": n})
+    dev_ms = [a.elapsed_time(e) for a, e in events]
+    tail = slice(warm, n)
+    out = {"launches": got,
+           "wall_ms": statistics.median(wall[tail]),
+           "device_ms": statistics.median(dev_ms[tail]),
+           "steps": statistics.mean(steps[tail]),
+           "iter_ms": statistics.median(d / s for d, s in zip(dev_ms[tail], steps[tail])),
+           "track_m": max(track)}
+    log(f"P={P_FULL} antithetic traj route through mpc_fn, {n} chained ticks along the "
+        f"lemniscate ({card}): per solve p50 {out['wall_ms']:.3f} ms wall, "
+        f"{out['device_ms']:.3f} ms device span (solve + trajectory) over ticks "
+        f"{warm + 1}-{n}; iterations {steps}; per iteration p50 {out['iter_ms']:.4f} ms; "
+        f"|x_evol[1] - ref| per tick {np.array2string(np.array(track), precision=4)} m "
+        f"(gate 0.5 m)")
+    if max(track) > 0.5 or min(steps) < 1:
+        raise AssertionError(f"the P={P_FULL} route did not track the lemniscate")
+
+    # the same config flown by the controller
+    path = os.path.join(ROOT, "build", "chip_smoke", f"iris_traj_p{P_FULL}anti.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump({k: v for k, v in cfg0.items() if not k.startswith("_")}, f)
+    c = RecedingHorizonController(path, os.path.join(ROOT, "configs/iris_posctrl_mpc.yaml"),
+                                  seed=0, now_fn=lambda: 0.0, device=dev)
+    traj0, pos0 = c.traj.solves, c.pos.solves
+    zero_counts()
+    cmds, _ = G.replay_traj(c, n=3)
+    torch.cuda.synchronize()
+    n_traj, n_pos = c.traj.solves - traj0, c.pos.solves - pos0
+    check_route(f"P={P_FULL} controller", {"apg_solve": n_traj + n_pos, "value_batch": 0,
+                                           "value_and_grad": 0, "trajectory": n_traj})
+    log(f"RecedingHorizonController flying P={P_FULL}: {n_traj} traj solves, commands "
+        f"u0 {np.array2string(cmds[-1, :4], precision=4)}, pickup idx {cmds[:, 10].tolist()}")
+    if not (n_traj == 3 and np.isfinite(cmds).all()):
+        raise AssertionError(f"the controller did not fly the P={P_FULL} config")
+
+    # a fixed 5-iteration solve at P=512: parity and kernel vs plain time
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z,
+            P_FULL, b.lb, b.ub, u_init)
+    out["max_du"], out["max_dx"] = particle_solve_parity(
+        AK, b, args, 0, f"iris_traj_mpc P={P_FULL} antithetic")
+    out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=5,
+                                                        n_plain=2)
+    log(f"fixed 5-iteration P={P_FULL} traj solve ({card}): kernel {out['fixed_ms']:.3f} ms "
+        f"(CUDA events, mean of 5, solve + trajectory), plain {out['fixed_plain_ms']:.3f} ms "
+        f"(wall, mean of 2)")
+
+    _, a = build_consts(b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref,
+                        u_prev, b.lb, b.ub, has_pre=b.precond is not None)
+    AK.plan_solve_particles(a, P_FULL, 0)
+    out["Pc"], out["smem"] = a.Pc, AK.load_apg_library().apg_smem_bytes(ctypes.byref(a))
+    lib = CO.load_oracle_library()
+    _, o = build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref, u_prev)
+    CO.plan_oracle_particles(lib, o, P_FULL, 0)
+    out["oracle_Pc"] = o.Pc
+    out["oracle_smem"] = (lib.value_batch_smem_bytes(ctypes.byref(o), 4),
+                          lib.value_and_grad_smem_bytes(ctypes.byref(o)))
+    log(f"chunks at P={P_FULL}: whole solve Pc={a.Pc} ({a.n_chunks} chunks), apg_smem_bytes "
+        f"{out['smem']} (budget {AK.SMEM_LIMIT_PARTICLES}); oracle Pc={o.Pc}, "
+        f"value_batch {out['oracle_smem'][0]} B, value_and_grad {out['oracle_smem'][1]} B")
+    return out
+
+
+def phase_particle_oracle(dev, card: str) -> dict:
+    """The fixed-step route at P=512 antithetic on the oracle kernels'
+    particle branches (counted), then their per-launch times."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    n = 2
+    cfg = config("iris_posctrl_mpc", linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"],
+                 particles=P_FULL)
+    zero_counts()
+    rows, ms = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    steps = int(rows[:, -1].sum())
+    got = check_route(f"fixed-step P={P_FULL}", {"apg_solve": 0, "value_batch": steps,
+                                                 "value_and_grad": steps + 2 * n,
+                                                 "trajectory": n})
+    log(f"fixed-step route at P={P_FULL} antithetic: {n} chained solves at "
+        f"{rows[:, -1].tolist()} iterations, {np.array2string(np.array(ms), precision=1)} ms "
+        f"wall, u0 {np.array2string(rows[-1, :-1], precision=4)}")
+    if not (np.isfinite(rows).all() and (rows[:, :-1] >= 1e-4 - 1e-7).all()):
+        raise AssertionError(f"the fixed-step route at P={P_FULL} returned an invalid plan")
+
+    b = load_mpc_from_cfgfile(os.path.join(ROOT, "configs/iris_posctrl_mpc.yaml"),
+                              device=dev)[3]
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+             brownian(P_FULL, dev, antithetic=True, seed=0), P_FULL, b.apg_config.maxls)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U, u = plans(4, 3, dev), plans(1, 4, dev)[0]
+    out = {"launches": got,
+           "err": particle_oracle_parity(kern, plain, U, f"iris_posctrl_mpc P={P_FULL} "
+                                         f"antithetic, the route's chunk")}
+    for name, call in (("value_batch", lambda o: o.value_batch(U)),
+                       ("value_and_grad", lambda o: o.value_and_grad(u))):
+        out[name] = (per_launch_ms(lambda: call(kern), 20),
+                     per_launch_ms(lambda: call(plain), 3))
+        log(f"{name}{' K=4' if name == 'value_batch' else ''} at P={P_FULL} per launch "
+            f"({card}): kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms (CUDA events)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -609,14 +919,27 @@ def main() -> int:
                     value_and_grad=fixed_route["value_and_grad"])
     timing = phase_timing(dev, card)
     log("phase 9: timed")
+    part_err = phase_particle_parity(dev)
+    log(f"phase 10: the particle branches match their plain versions (max|err| {part_err})")
+    family_launches, family_du = phase_particle_family(dev)
+    part_err["apg_solve"] = max(part_err["apg_solve"], family_du)
+    log("phase 11: the p512anti family replays kernel vs plain within 5e-4")
+    flight = phase_particle_flight(dev, card)
+    part_err["apg_solve"] = max(part_err["apg_solve"], flight["max_du"])
+    log(f"phase 12: the P={P_FULL} antithetic route flies on the particle kernels")
+    part_oracle = phase_particle_oracle(dev, card)
+    for kernel, e in part_oracle["err"].items():
+        part_err[kernel] = max(part_err[kernel], e)
+    log(f"phase 13: the fixed-step route at P={P_FULL} runs on the particle oracle kernels, "
+        f"which match the plain oracle there")
 
     oracle_src = "sde4mbrl_px4_tpu_torch/csrc/cost_oracle.cu"
     tpu = "sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py"
+    apg = {"route": "cuda", "source": "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cu",
+           "replaces": "sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py:420"}
+    particles = "noise + chunks (K11)"
     print(json.dumps({"kernels": [{
-        "name": "apg_solve",
-        "route": "cuda",
-        "source": "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cu",
-        "replaces": "sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py:420",
+        "name": "apg_solve", "branch": "P=1", **apg,
         "launches": launches["apg_solve"],
         "max_abs_err": max_err,
         "ms": timing["traj"][0],
@@ -624,8 +947,19 @@ def main() -> int:
         "device_ms": timing["traj"][2],
         "fixed_budget_ms": fixed[0],
         "fixed_budget_plain_ms": fixed[1],
+    }, {
+        "name": "apg_solve", "branch": particles, **apg,
+        "launches": flight["launches"]["apg_solve"],
+        "max_abs_err": part_err["apg_solve"],
+        "ms": flight["fixed_ms"],
+        "plain_ms": flight["fixed_plain_ms"],
+        "timed": f"fixed 5-iteration solve at P={P_FULL} antithetic, with its trajectory launch",
+        "solve_ms_p50": flight["wall_ms"], "device_ms_p50": flight["device_ms"],
+        "iterations": flight["steps"], "iteration_ms": flight["iter_ms"],
+        "Pc": flight["Pc"], "smem_bytes": flight["smem"],
+        "p512anti_family_launches": family_launches["apg_solve"],
     }] + [{
-        "name": name,
+        "name": name, "branch": "P=1",
         "route": "cuda",
         "source": oracle_src,
         "replaces": f"{tpu}:{line}",
@@ -634,10 +968,31 @@ def main() -> int:
         "ms": timing[name][0],
         "plain_ms": timing[name][1],
     } for name, line in (("value_batch", 276), ("value_and_grad", 297),
-                         ("trajectory", 347))] , "solve_ms": {
+                         ("trajectory", 347))] + [{
+        "name": name, "branch": particles,
+        "route": "cuda",
+        "source": oracle_src,
+        "replaces": f"{tpu}:{line}",
+        "launches": part_oracle["launches"][name],
+        "max_abs_err": part_err[name],
+        "ms": part_oracle[name][0],
+        "plain_ms": part_oracle[name][1],
+        "timed": f"per launch at P={P_FULL} antithetic"
+                 + (", K=4" if name == "value_batch" else ""),
+        "Pc": flight["oracle_Pc"],
+    } for name, line in (("value_batch", 276), ("value_and_grad", 297))] + [{
+        "name": "trajectory", "branch": f"x_evol of the P={P_FULL} route (mean dynamics)",
+        "route": "cuda", "source": oracle_src, "replaces": f"{tpu}:347",
+        "launches": flight["launches"]["trajectory"],
+        "max_abs_err": flight["max_dx"],
+        "ms": timing["trajectory"][0],
+        "plain_ms": timing["trajectory"][1],
+        "timed": "per launch, as the P=1 branch: the same kernel at the same shape",
+    }], "solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
         "fixed_step": timing["fixed_step"][0],
-        "fixed_step_plain": timing["fixed_step"][1]}}))
+        "fixed_step_plain": timing["fixed_step"][1],
+        f"p{P_FULL}anti_traj": flight["wall_ms"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,24 +4,44 @@
 // Replaces the TPU kernel sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py::
 // pallas_apg_solve (pallas_call at :420, body _kernel :163-391) together
 // with the sde4mbrl_px4_tpu/ops/pallas/bodies.py functions it runs:
-// make_step with want_acts (K1), manual_bwd_step/_qrotate_bwd (K2),
-// vg_sweep on its flight branch (K3), candidate_rollout/run_candidates at
-// P=1 (K4), the control cost inlined at apg_kernel.py:239-262 (K5), and the
-// build_consts layout (K7, ops/cuda/consts.py). Scope: deterministic P=1
-// solves without state constraints, slack or particle chunks.
+// make_step with want_acts and with its Brownian term (K1),
+// manual_bwd_step/_qrotate_bwd (K2), vg_sweep on its flight branch and on
+// its noise branch with the chunk loop (K3, K11), candidate_rollout/
+// run_candidates over P particles in chunks (K4, K11), the control cost
+// inlined at apg_kernel.py:239-262 (K5), and the build_consts layout (K7,
+// ops/cuda/consts.py). Scope: no state constraints, no slack.
 //
-// What bounds it on this card: latency, not FLOPs or bytes. One APG
+// Two instantiations of one kernel body:
+//   apg_solve_kernel<false>  deterministic P=1 (the flight configs): the
+//                            mean dynamics, the manual reverse sweep on the
+//                            activation stash, x_evol from the exit sweep;
+//   apg_solve_kernel<true>   Monte-Carlo particles (has_noise): P paths in
+//                            n_chunks passes of Pc rows, the Brownian block
+//                            (H, P, 13) read from device memory per step,
+//                            the reverse sweep re-running the trunk from the
+//                            stashed states (vg_part), the K candidates as
+//                            K*Pc rows per pass (cand_part); x_evol is the
+//                            trajectory kernel's (cost_oracle.cu).
+//
+// What bounds it on this card: latency, not FLOPs or bytes. At P=1 one APG
 // iteration is about 1.6 MFLOP (a forward and a reverse sweep of one row
 // plus a forward sweep of K candidate rows, each step a (9+n_u)->64->64->12
 // MLP), serial over the H steps of the horizon and over up to max_iter
-// iterations; the whole working set is ~45 KB. What the design does about
-// it: everything (weights, consts, iterates, the state and activation
-// stash) lives in shared memory for the whole solve, so the loop never
-// touches device memory; the hidden units of each layer are spread over
-// the threads, the K linesearch candidates are rows of one batched
-// rollout, the transposed matvecs of the reverse sweep are warp-per-row
-// reductions, and the loop exits on the device. No allocation, no host
-// round trip, one launch per solve.
+// iterations; the whole working set is ~45 KB. At P=512 and K=4 an
+// iteration is ~0.9 GFLOP (2,048 candidate rows, 512 forward and 512
+// reverse rows, the reverse re-running the trunk), all of it on the one
+// SM of the block. What the design does about it: everything (weights,
+// consts, iterates, the state stash, a chunk's rows) lives in shared
+// memory for the whole solve, so the loop touches device memory only for
+// the noise rows (L2-resident, 532 KB at P=512); the hidden units of each
+// layer and rows are spread over the threads, the K linesearch candidates
+// are rows of one batched rollout, and the loop exits on the device. No
+// allocation, no host round trip, one launch per solve. The particle form
+// takes dynamic shared memory above 48 KB (up to 227 KB, set once per
+// library load by apg_init), which sets the chunk: the wrapper takes the
+// largest divisor Pc of P whose layout fits (Pc = 32 at P=512, K=4, iris
+// widths). Spreading the particles over a cluster or the grid is later
+// work.
 //
 // Control flow is block-uniform: every loop decision (done, accepted step,
 // restart) is computed by thread 0 into shared memory, followed by
@@ -46,49 +66,68 @@ struct Scal {
 };
 
 // Carve the dynamic shared memory; returns the number of floats used.
-__host__ __device__ inline int layout(const ApgArgs& a, Smem* s, float* base) {
+// part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows).
+__host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
+  const int B = part ? a.Pc : 1;              // vg rows per pass
+  const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
   int o = 0;
   auto take = [&](float** p, int n) {
     if (s) *p = base + o;
     o += n;
   };
-  Smem d;
+  Smem d = {};
   Smem* t = s ? s : &d;
   take(&t->c, a.n_consts);
   take(&t->D, HZ); take(&t->u, HZ); take(&t->y, HZ); take(&t->bu, HZ);
   take(&t->g, HZ); take(&t->yp, HZ); take(&t->gp, HZ);
   take(&t->cand, a.K * HZ);
-  take(&t->xs, (a.H + 1) * 13);
-  take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-  take(&t->h2, a.H * a.OUT);
-  take(&t->xr, a.K * 13);
-  take(&t->feat, a.K * a.F);
-  take(&t->a0, a.K * a.HID); take(&t->a1, a.K * a.HID);
-  take(&t->a2, a.K * a.OUT);
-  take(&t->jt, a.K); take(&t->jr, a.K);
-  take(&t->ct, 13); take(&t->cu, a.nZ);
-  take(&t->c_h2, a.OUT); take(&t->c_h1p, a.HID); take(&t->c_h0p, a.HID);
-  take(&t->c_feat, a.F);
+  take(&t->xs, (a.H + 1) * B * 13);
+  if (part) {
+    take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
+  } else {
+    take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
+    take(&t->h2, a.H * a.OUT);
+  }
+  take(&t->xr, R * 13);
+  take(&t->feat, R * a.F);
+  take(&t->a0, R * a.HID); take(&t->a1, R * a.HID);
+  take(&t->a2, R * a.OUT);
+  take(&t->jt, R); take(&t->jr, R);
+  take(&t->ct, B * 13); take(&t->cu, B * a.nZ);
+  take(&t->c_h2, B * a.OUT); take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+  take(&t->c_feat, B * a.F);
   take(&t->red, 32);
+  if (part) {
+    take(&t->cacc, 2 * a.K);
+    take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
+    take(&t->w2t, a.OUT * a.HID);
+  }
   return o;
 }
 
-__global__ void __launch_bounds__(APG_NTHREADS)
+template <bool PART>
+__global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
-                 const float* __restrict__ precond, float* __restrict__ yk,
-                 float* __restrict__ stats, float* __restrict__ x_evol) {
+                 const float* __restrict__ precond, const float* __restrict__ noise,
+                 float* __restrict__ yk, float* __restrict__ stats,
+                 float* __restrict__ x_evol) {
   extern __shared__ float smem[];
   __shared__ Scal S;
   Smem s;
-  layout(a, &s, smem);
+  layout(a, PART, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
+  auto value_grad = [&](const float* U) {
+    if constexpr (PART) vg_part(a, s, &S.fval, U, noise);
+    else vg(a, s, &S.fval, U);
+  };
 
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
   __syncthreads();
+  if constexpr (PART) transpose_weights(a, s);
   for (int e = tid; e < HZ; e += nt) {
     const int i = e % nZ;
     const float u0 = clampf(u_init[e], c[a.o_lb + i], c[a.o_ub + i]);
@@ -103,13 +142,13 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
   __syncthreads();
 
-  vg(a, s, &S.fval, s.u);
+  value_grad(s.u);
   for (int e = tid; e < HZ; e += nt) s.gp[e] = s.g[e];
   if (tid == 0) { S.f0 = S.fval; S.f_u = S.fval; S.best_f = S.fval; }
   __syncthreads();
 
   while (S.k < S.kmax && !S.done) {
-    vg(a, s, &S.fval, s.y);                       // f_y in S.fval, grad in s.g
+    value_grad(s.y);                              // f_y in S.fval, grad in s.g
 
     // ---- trial stepsize
     if (a.reset_opt == 2) {
@@ -142,11 +181,19 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       const float tk = t0 * a.dfp[k];
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
-    for (int e = tid; e < K * 13; e += nt) s.xr[e] = c[a.o_x0 + e % 13];
-    if (tid < K) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
-    __syncthreads();
-    for (int t = 0; t < a.H; ++t)
-      fwd_step(a, s, K, s.cand + t * nZ, HZ, s.xr, s.xr, t, nullptr, nullptr, nullptr);
+    if constexpr (PART) {
+      cand_part(a, s, K, noise);
+    } else {
+      for (int e = tid; e < K * 13; e += nt) s.xr[e] = c[a.o_x0 + e % 13];
+      if (tid < K) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
+      __syncthreads();
+      for (int t = 0; t < a.H; ++t)
+        fwd_step<false>(a, s, K, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
+                        nullptr, nullptr, nullptr);
+    }
+    // rollout costs per candidate: the rows' own (P=1) or particle means
+    const float* cost_t = PART ? s.cacc : s.jt;
+    const float* cost_r = PART ? s.cacc + K : s.jr;
 
     // ---- per-candidate control cost, <g, d>, <d, D^-1 d>
     for (int j = warp; j < 3 * K; j += nw) {
@@ -179,7 +226,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       int ok = 0;
       for (int ki = K - 1; ki >= 0; --ki) {
         const float tk = t0 * a.dfp[ki];
-        const float fk = (s.jt[ki] + res_mult * s.jr[ki]) + s.red[3 * ki];
+        const float fk = (cost_t[ki] + res_mult * cost_r[ki]) + s.red[3 * ki];
         const float bound = f_y + a.one_m_coef * s.red[3 * ki + 1]
                             + s.red[3 * ki + 2] / (2.f * fmaxf(tk, 1e-12f));
         if (fk <= bound) { t_acc = tk; f_new_s = fk; n_ls = (float)(ki + 1); ok = 1; }
@@ -224,11 +271,14 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     __syncthreads();
   }
 
-  // ---- exit gradient at the best iterate; its forward states are x_evol
-  vg(a, s, &S.fval, s.bu);
+  // ---- exit gradient at the best iterate; at P=1 its forward states are
+  // x_evol (the particle form's are sample paths: x_evol comes from the
+  // trajectory kernel)
+  value_grad(s.bu);
   if (warp == 0) warp_reduce_to(HZ, [&](int e) { return s.g[e] * s.g[e]; }, s.red + 0);
   for (int e = tid; e < HZ; e += nt) yk[e] = s.bu[e];
-  for (int e = tid; e < (a.H + 1) * 13; e += nt) x_evol[e] = s.xs[e];
+  if constexpr (!PART)
+    for (int e = tid; e < (a.H + 1) * 13; e += nt) x_evol[e] = s.xs[e];
   __syncthreads();
   if (tid == 0) {
     const float n_steps = fmaxf((float)S.k, 1.f);
@@ -243,34 +293,59 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
 }
 
+int dyn_bytes(const ApgArgs& a) {
+  return layout(a, a.has_noise != 0, nullptr, nullptr) * (int)sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
 
 int apg_args_size() { return (int)sizeof(ApgArgs); }
 
+// Let the particle form take dynamic shared memory up to the card's 227 KB
+// less its static shared memory (the deterministic form stays inside the
+// 48 KB default). Called once when the library is loaded; returns a
+// cudaError_t.
+int apg_init() { return (int)allow_large_smem(apg_solve_kernel<true>); }
+
 // Shared memory the kernel needs for these dimensions (dynamic + static).
 int apg_smem_bytes(const ApgArgs* a) {
-  return layout(*a, nullptr, nullptr) * (int)sizeof(float) + (int)sizeof(Scal);
+  return dyn_bytes(*a) + (int)sizeof(Scal);
 }
 
 const char* apg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launch one solve on `stream`. Returns cudaGetLastError() after the launch
+// Launch one solve on `stream`. noise is the (H, P, 13) Brownian block when
+// a->has_noise (else unused, may be null); x_evol (H+1, 13) is written only
+// by the deterministic form. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
-                     const void* t0, const void* precond, void* yk, void* stats,
-                     void* x_evol, void* stream) {
+                     const void* t0, const void* precond, const void* noise,
+                     void* yk, void* stats, void* x_evol, void* stream) {
+  const bool part = a->has_noise != 0;
+  const int limit = part ? APG_SMEM_LIMIT_PARTICLES : APG_SMEM_LIMIT;
   if (a->K < 1 || a->K > APG_MAXK || a->nZ != a->n_u || a->OUT != 12 ||
-      a->F != 9 + a->n_u || apg_smem_bytes(a) > APG_SMEM_LIMIT ||
-      (a->has_pre && precond == nullptr))
+      a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
+      (a->has_pre && precond == nullptr) ||
+      (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
+               a->Pc * a->n_chunks != a->P)
+            : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1)))
     return (int)cudaErrorInvalidValue;
-  const size_t dyn = (size_t)layout(*a, nullptr, nullptr) * sizeof(float);
-  apg_solve_kernel<<<1, APG_NTHREADS, dyn, (cudaStream_t)stream>>>(
-      *a, (const float*)consts, (const float*)u_init, (const float*)t0,
-      (const float*)precond, (float*)yk, (float*)stats, (float*)x_evol);
+  const size_t dyn = (size_t)dyn_bytes(*a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (part)
+    apg_solve_kernel<true><<<1, APG_NTHREADS_PART, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u_init, (const float*)t0,
+        (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
+        (float*)x_evol);
+  else
+    apg_solve_kernel<false><<<1, APG_NTHREADS, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u_init, (const float*)t0,
+        (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
+        (float*)x_evol);
   return (int)cudaGetLastError();
 }
 

@@ -7,11 +7,21 @@
 
 #define APG_MAXK 8          // largest maxls (linesearch candidates) supported
 #define APG_NTHREADS 256    // threads per block (one block per solve)
-#define APG_SMEM_LIMIT 49152  // static + dynamic shared memory budget (bytes)
+#define APG_NTHREADS_PART 512  // ... in the particle form (more rows per step)
+#define APG_SMEM_LIMIT 49152  // static + dynamic shared memory budget (bytes), P=1
+// Budget of the particle path (has_noise): all of a block's shared memory on
+// sm_90 (227 KB), taken as dynamic shared memory after
+// cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize, ...)
+// (apg_init).
+#define APG_SMEM_LIMIT_PARTICLES 232448
 
 struct ApgArgs {
   // dimensions
   int H, n_u, nZ, K, F, HID, OUT;
+  // Monte-Carlo particles: P paths in n_chunks passes of Pc rows; the
+  // Brownian block (H, P, 13) is a separate device pointer. has_noise = 0 is
+  // the deterministic mean-dynamics path (P = Pc = n_chunks = 1).
+  int P, Pc, n_chunks, has_noise;
   // solver options
   int max_iter, max_no_imp, budget, has_budget, has_pre, has_slew;
   int reset_opt;            // 0 increase, 1 conservative, 2 Barzilai-Borwein

@@ -8,20 +8,30 @@
 //                   vg_sweep of bodies.py)
 //   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347)
 //
-// Scope: deterministic P=1, no state constraints, no slack, no particle
-// chunks (the wrapper refuses the rest). The step, sweep and cost device
-// code is sweeps.cuh, shared with the whole-solve kernel (apg_solve.cu), so
-// the two paths compute the same numbers.
+// value_batch and value_and_grad come in two instantiations: <false> the
+// deterministic P=1 oracle (mean dynamics), <true> the Monte-Carlo one
+// (has_noise): P particles in n_chunks passes of Pc rows, the Brownian
+// block (H, P, 13) read from device memory per step, costs the particle
+// mean (a mean of chunk means, K11). trajectory is always the mean dynamics
+// (solve_kernels.py:319-320). Scope: no state constraints, no slack (the
+// wrapper refuses them). The step, sweep and cost device code is
+// sweeps.cuh, shared with the whole-solve kernel (apg_solve.cu), so the two
+// paths compute the same numbers.
 //
 // What bounds them on this card: latency. A step is a (9+n_u)->64->64->12
 // MLP plus rigid-body math, serial over the H steps; one plan is ~0.2 MFLOP
-// forward. What the design does about it: each block copies the 24.9 KB
-// consts buffer into shared memory once and keeps every intermediate
-// there; value_batch runs ORACLE_TILE candidates as rows of one batched
-// fwd_step per block, with ceil(K / ORACLE_TILE) blocks in parallel, so
-// any K runs in the time of one tile (the TPU package sends K > 128 to XLA
-// only because of its VMEM; here a tile's 41 KB fits the default 48 KB).
-// value_and_grad and trajectory are one block each.
+// forward per particle. What the design does about it: each block copies
+// the 24.9 KB consts buffer into shared memory once and keeps every
+// intermediate there. At P=1 value_batch runs ORACLE_TILE candidates as
+// rows of one batched fwd_step per block, with ceil(K / ORACLE_TILE) blocks
+// in parallel, so any K runs in the time of one tile (the TPU package sends
+// K > 128 to XLA only because of its VMEM; here a tile's 41 KB fits the
+// default 48 KB). With particles each candidate is a block of its own that
+// sweeps its P particles Pc rows at a time (K blocks in parallel), and
+// value_and_grad sweeps them chunk by chunk in one block; both take dynamic
+// shared memory above 48 KB (set once per library load by
+// cost_oracle_init), and the wrapper picks the largest divisor Pc of P
+// whose layouts fit. trajectory is one block.
 //
 // Control flow is block-uniform and every __syncthreads() is reached by all
 // threads of the block.
@@ -37,11 +47,15 @@ namespace {
 static_assert(ORACLE_TILE <= 32, "one red slot per tile row");
 static_assert(ORACLE_TILE <= ORACLE_NTHREADS, "fwd_step: one thread per row");
 
-// Carve one block's dynamic shared memory for `kind` with R rows; returns
-// the number of floats used. Fields a kernel does not use stay null.
-__host__ __device__ inline int layout(const ApgArgs& a, int kind, int R,
+// Carve one block's dynamic shared memory for `kind` with R candidate rows
+// of controls; returns the number of floats used. part: the particle form
+// (R*Pc step rows per pass, a Pc-row state stash and reverse sweep in
+// value_and_grad). Fields a kernel does not use stay null.
+__host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part,
                                       Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
+  const int rows = part ? R * a.Pc : R;       // step rows per pass
+  const int B = part ? a.Pc : 1;              // value_and_grad rows per pass
   int o = 0;
   auto take = [&](float** p, int n) {
     if (s) *p = base + o;
@@ -51,21 +65,30 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R,
   Smem* t = s ? s : &d;
   take(&t->c, a.n_consts);
   take(&t->cand, R * HZ);
-  take(&t->xr, R * 13);
-  take(&t->feat, R * a.F);
-  take(&t->a0, R * a.HID); take(&t->a1, R * a.HID);
-  take(&t->a2, R * a.OUT);
-  take(&t->jt, R); take(&t->jr, R);
+  take(&t->xr, rows * 13);
+  take(&t->feat, rows * a.F);
+  take(&t->a0, rows * a.HID); take(&t->a1, rows * a.HID);
+  take(&t->a2, rows * a.OUT);
+  take(&t->jt, rows); take(&t->jr, rows);
   take(&t->red, 32);
-  if (kind != ORACLE_VALUE_BATCH) take(&t->xs, (a.H + 1) * 13);
+  if (kind != ORACLE_VALUE_BATCH) take(&t->xs, (a.H + 1) * B * 13);
   if (kind == ORACLE_VALUE_AND_GRAD) {
-    take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-    take(&t->h2, a.H * a.OUT);
+    if (part) {
+      take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
+    } else {
+      take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
+      take(&t->h2, a.H * a.OUT);
+    }
     take(&t->g, HZ);
-    take(&t->ct, 13); take(&t->cu, a.nZ);
-    take(&t->c_h2, a.OUT); take(&t->c_h1p, a.HID); take(&t->c_h0p, a.HID);
-    take(&t->c_feat, a.F);
+    take(&t->ct, B * 13); take(&t->cu, B * a.nZ);
+    take(&t->c_h2, B * a.OUT); take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+    take(&t->c_feat, B * a.F);
+    if (part) {
+      take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
+      take(&t->w2t, a.OUT * a.HID);
+    }
   }
+  if (part) take(&t->cacc, 2 * R);
   return o;
 }
 
@@ -82,12 +105,14 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(ORACLE_NTHREADS)
+template <bool PART>
+__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
-                   const float* __restrict__ U, float* __restrict__ out) {
+                   const float* __restrict__ U, const float* __restrict__ noise,
+                   float* __restrict__ out) {
   extern __shared__ float smem[];
   Smem s = {};
-  layout(a, ORACLE_VALUE_BATCH, tile, &s, smem);
+  layout(a, ORACLE_VALUE_BATCH, tile, PART, &s, smem);
   const int HZ = a.H * a.nZ, nZ = a.nZ;
   const int k0 = blockIdx.x * tile;
   const int R = min(tile, K - k0);
@@ -95,8 +120,13 @@ value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
   const float* c = s.c;
   load_block(a, s, R, consts, U + (size_t)k0 * HZ);
 
-  for (int t = 0; t < a.H; ++t)
-    fwd_step(a, s, R, s.cand + t * nZ, HZ, s.xr, s.xr, t, nullptr, nullptr, nullptr);
+  if constexpr (PART) {
+    cand_part(a, s, R, noise);
+  } else {
+    for (int t = 0; t < a.H; ++t)
+      fwd_step<false>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
+                      nullptr, nullptr, nullptr);
+  }
 
   // control-only cost per row, one warp per row
   const float* scal = c + a.o_scal;
@@ -110,7 +140,9 @@ value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
     }, s.red + r);
   }
   __syncthreads();
-  if (tid < R) out[k0 + tid] = (s.jt[tid] + scal[SC_RESM] * s.jr[tid]) + s.red[tid];
+  const float* cost_t = PART ? s.cacc : s.jt;
+  const float* cost_r = PART ? s.cacc + R : s.jr;
+  if (tid < R) out[k0 + tid] = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
 }
 
 __global__ void __launch_bounds__(ORACLE_NTHREADS)
@@ -118,40 +150,62 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
                   const float* __restrict__ u, float* __restrict__ x_out) {
   extern __shared__ float smem[];
   Smem s = {};
-  layout(a, ORACLE_TRAJECTORY, 1, &s, smem);
+  layout(a, ORACLE_TRAJECTORY, 1, false, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block(a, s, 1, consts, u);
   if (tid < 13) s.xs[tid] = s.xr[tid];
   __syncthreads();
   for (int t = 0; t < a.H; ++t)
-    fwd_step(a, s, 1, s.cand + t * a.nZ, 0, s.xs + t * 13, s.xs + (t + 1) * 13, t,
-             nullptr, nullptr, nullptr);
+    fwd_step<false>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
+                    s.xs + (t + 1) * 13, t, nullptr, nullptr, nullptr);
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
 
-__global__ void __launch_bounds__(ORACLE_NTHREADS)
+template <bool PART>
+__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
-                      const float* __restrict__ u, float* __restrict__ val,
-                      float* __restrict__ grad) {
+                      const float* __restrict__ u, const float* __restrict__ noise,
+                      float* __restrict__ val, float* __restrict__ grad) {
   extern __shared__ float smem[];
   __shared__ float fval;
   Smem s = {};
-  layout(a, ORACLE_VALUE_AND_GRAD, 1, &s, smem);
+  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block(a, s, 1, consts, u);
-  vg(a, s, &fval, s.cand);
+  if constexpr (PART) {
+    transpose_weights(a, s);
+    vg_part(a, s, &fval, s.cand, noise);
+  } else {
+    vg(a, s, &fval, s.cand);
+  }
   for (int e = tid; e < a.H * a.nZ; e += nt) grad[e] = s.g[e];
   if (tid == 0) *val = fval;
 }
 
-int tile_rows(int K) { return K < ORACLE_TILE ? K : ORACLE_TILE; }
+// Candidate rows per value_batch block: a tile at P=1, one candidate (and
+// its Pc particle rows per pass) with particles.
+int tile_rows(const ApgArgs& a, int K) {
+  if (a.has_noise) return 1;
+  return K < ORACLE_TILE ? K : ORACLE_TILE;
+}
 
-int dyn_bytes(const ApgArgs& a, int kind, int R) {
-  return layout(a, kind, R, nullptr, nullptr) * (int)sizeof(float);
+int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
+  return layout(a, kind, R, part, nullptr, nullptr) * (int)sizeof(float);
+}
+
+int smem_limit(const ApgArgs& a) {
+  return a.has_noise ? ORACLE_SMEM_LIMIT_PARTICLES : ORACLE_SMEM_LIMIT;
 }
 
 bool args_ok(const ApgArgs* a) {
   return a->nZ == a->n_u && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1;
+}
+
+// The particle fields and the noise block, when the kernel reads them.
+bool particles_ok(const ApgArgs* a, const void* noise) {
+  if (!a->has_noise) return a->P == 1 && a->Pc == 1 && a->n_chunks == 1;
+  return noise != nullptr && a->Pc >= 1 && a->n_chunks >= 1 &&
+         a->Pc * a->n_chunks == a->P;
 }
 
 }  // namespace
@@ -164,29 +218,48 @@ const char* cost_oracle_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// Let the particle forms take dynamic shared memory above 48 KB (the
+// deterministic ones stay inside the default). Called once when the library
+// is loaded; returns a cudaError_t.
+int cost_oracle_init() {
+  const cudaError_t err = allow_large_smem(value_batch_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
+  return (int)allow_large_smem(value_and_grad_kernel<true>);
+}
+
 // Shared memory one block of each kernel needs (dynamic + static).
 int value_batch_smem_bytes(const ApgArgs* a, int K) {
-  return dyn_bytes(*a, ORACLE_VALUE_BATCH, tile_rows(K));
+  return dyn_bytes(*a, ORACLE_VALUE_BATCH, tile_rows(*a, K), a->has_noise != 0);
 }
 int trajectory_smem_bytes(const ApgArgs* a) {
-  return dyn_bytes(*a, ORACLE_TRAJECTORY, 1);
+  return dyn_bytes(*a, ORACLE_TRAJECTORY, 1, false);
 }
 int value_and_grad_smem_bytes(const ApgArgs* a) {
-  return dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1) + (int)sizeof(float);
+  return dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0) + (int)sizeof(float);
 }
 
 // Launchers: one launch on `stream` each, returning cudaGetLastError()
 // after it (cudaErrorInvalidValue for arguments the kernels do not take).
-// U is (K, H, nZ), u (H, nZ); outputs are (K,), (H+1, 13), () and (H, nZ).
+// U is (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read
+// only when a->has_noise; may be null otherwise); outputs are (K,),
+// (H+1, 13), () and (H, nZ).
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
-                       const void* U, void* out, void* stream) {
-  if (!args_ok(a) || K < 1 || value_batch_smem_bytes(a, K) > ORACLE_SMEM_LIMIT)
+                       const void* U, const void* noise, void* out, void* stream) {
+  if (!args_ok(a) || !particles_ok(a, noise) || K < 1 ||
+      value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int tile = tile_rows(K);
+  const int tile = tile_rows(*a, K);
   const int blocks = (K + tile - 1) / tile;
-  value_batch_kernel<<<blocks, ORACLE_NTHREADS, dyn_bytes(*a, ORACLE_VALUE_BATCH, tile),
-                       (cudaStream_t)stream>>>(
-      *a, K, tile, (const float*)consts, (const float*)U, (float*)out);
+  const size_t dyn = value_batch_smem_bytes(a, K);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a->has_noise)
+    value_batch_kernel<true><<<blocks, ORACLE_NTHREADS_PART, dyn, st>>>(
+        *a, K, tile, (const float*)consts, (const float*)U, (const float*)noise,
+        (float*)out);
+  else
+    value_batch_kernel<false><<<blocks, ORACLE_NTHREADS, dyn, st>>>(
+        *a, K, tile, (const float*)consts, (const float*)U, (const float*)noise,
+        (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -194,19 +267,27 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
   if (!args_ok(a) || trajectory_smem_bytes(a) > ORACLE_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  trajectory_kernel<<<1, ORACLE_NTHREADS, dyn_bytes(*a, ORACLE_TRAJECTORY, 1),
+  trajectory_kernel<<<1, ORACLE_NTHREADS, trajectory_smem_bytes(a),
                       (cudaStream_t)stream>>>(
       *a, (const float*)consts, (const float*)u, (float*)x_out);
   return (int)cudaGetLastError();
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
-                          void* val, void* grad, void* stream) {
-  if (!args_ok(a) || value_and_grad_smem_bytes(a) > ORACLE_SMEM_LIMIT)
+                          const void* noise, void* val, void* grad, void* stream) {
+  if (!args_ok(a) || !particles_ok(a, noise) ||
+      value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  value_and_grad_kernel<<<1, ORACLE_NTHREADS, dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1),
-                          (cudaStream_t)stream>>>(
-      *a, (const float*)consts, (const float*)u, (float*)val, (float*)grad);
+  const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a->has_noise)
+    value_and_grad_kernel<true><<<1, ORACLE_NTHREADS_PART, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u, (const float*)noise,
+        (float*)val, (float*)grad);
+  else
+    value_and_grad_kernel<false><<<1, ORACLE_NTHREADS, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u, (const float*)noise,
+        (float*)val, (float*)grad);
   return (int)cudaGetLastError();
 }
 

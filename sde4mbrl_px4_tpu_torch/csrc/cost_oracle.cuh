@@ -7,8 +7,12 @@
 #include "apg_solve.cuh"
 
 #define ORACLE_NTHREADS 256     // threads per block
+#define ORACLE_NTHREADS_PART 512  // ... in the particle forms
 #define ORACLE_TILE 16          // candidate rows per value_batch block
-#define ORACLE_SMEM_LIMIT 49152 // static + dynamic shared memory budget (bytes)
+#define ORACLE_SMEM_LIMIT 49152 // static + dynamic shared memory budget (bytes), P=1
+// Budget of the particle forms (has_noise): all of a block's shared memory
+// on sm_90 (227 KB), as dynamic shared memory (cost_oracle_init).
+#define ORACLE_SMEM_LIMIT_PARTICLES APG_SMEM_LIMIT_PARTICLES
 
 // Which kernel a shared-memory query is for.
 enum { ORACLE_VALUE_BATCH = 0, ORACLE_TRAJECTORY = 1, ORACLE_VALUE_AND_GRAD = 2 };

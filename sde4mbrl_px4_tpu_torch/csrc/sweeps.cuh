@@ -4,17 +4,32 @@
 //
 //   - scalar helpers: sigm, softplus, warp_sum, qrot/qrot_bwd, qdot,
 //     wrench4, warp_reduce_to;
-//   - fwd_step: one Euler step plus stage cost for R rows
-//     (bodies.py::make_step, deterministic);
-//   - bwd_step: one reverse step (bodies.py::manual_bwd_step);
+//   - trunk / fwd_step: the network and one Euler(-Maruyama) step plus
+//     stage cost for R rows (bodies.py::make_step); fwd_step<false> is the
+//     deterministic P=1 form, fwd_step<true> the particle form with the
+//     Brownian term (bodies.py:159-165);
+//   - bwd_step: one reverse step of the P=1 plan (bodies.py::manual_bwd_step);
+//     bwd_rows: one reverse step of a chunk of particle rows (the noise
+//     branch that the TPU kernel traces with jax.vjp, bodies.py:587-596);
 //   - ctrl_grad / ctrl_terms: the control-only cost terms and their
 //     closed-form gradient (bodies.py::control_cost, vg_sweep :598-628);
-//   - vg: value and gradient of one plan (bodies.py::vg_sweep).
+//   - vg / vg_part: value and gradient of one plan (bodies.py::vg_sweep),
+//     deterministic and over P particles in chunks (K11, :638-661);
+//   - cand_part: K candidates x P particles in chunks, the particle mean
+//     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765).
 //
 // Every function works on shared-memory scratch described by Smem; each
 // kernel carves its own layout and sets the fields the functions it calls
 // read. Functions that contain __syncthreads() are called by every thread
 // of the block.
+//
+// Particles: the Brownian block is (H, P, 13) in device memory, horizon-
+// major, so the rows of chunk ch at step t are contiguous at
+// noise + (t*P + ch*Pc)*13. A chunk of Pc particles is swept as Pc rows
+// (K*Pc for the candidates, particle-major: row i = p*K + k); costs are
+// means over the chunk's rows, then means over chunks (mean of chunk means,
+// as the TPU kernel reduces), and the particle-form loops run rows over the
+// threads, so R may exceed blockDim.
 //
 // Numerics: fp32 throughout, no fast-math. softplus is
 // max(x,0)+log1p(exp(-|x|)) and the sigmoid 1/(1+exp(-x)), as in JAX.
@@ -35,14 +50,20 @@ struct Smem {
   float *c;                        // copy of the consts buffer
   float *D, *u, *y, *bu, *g, *yp, *gp;   // (H, nZ) each (whole solve; g in vg)
   float *cand;                     // (R, H, nZ) rows of controls
-  float *xs;                       // (H+1, 13) stashed states of a vg sweep
-  float *h0p, *h1p, *h2;           // (H, HID), (H, HID), (H, OUT) stash
+  float *xs;                       // (H+1, Pc, 13) stashed states of a vg sweep
+  float *h0p, *h1p, *h2;           // (H, HID), (H, HID), (H, OUT) stash (P=1)
   float *xr;                       // (R, 13) row states
   float *feat, *a0, *a1, *a2;      // (R, F), (R, HID), (R, HID), (R, OUT)
   float *jt, *jr;                  // (R,) running stage costs
-  float *ct;                       // (13,) reverse-sweep state cotangent
+  float *p0, *p1;                  // (Pc, HID) each: recomputed pre-activations
+  // reverse sweep, one set per row (Pc rows in the particle form)
+  float *ct;                       // (13,) state cotangent
   float *cu;                       // (nZ,) partial control cotangent
   float *c_h2, *c_h1p, *c_h0p, *c_feat;   // (OUT), (HID), (HID), (F)
+  float *cacc;                     // (2K,) particle means per candidate:
+                                   // tracking [0, K), sigma [K, 2K)
+  float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
+                                   // transposed weights (particle reverse)
   float *red;                      // (32,) reduction results
 };
 
@@ -114,28 +135,36 @@ __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
   if (lane == 0) *out = acc;
 }
 
-// One Euler step plus stage cost for R rows (bodies.py::make_step,
-// deterministic). Row r's controls are U[r * ustride + i]; its state is
-// read from x[r*13..] and the new state written to xn[r*13..] (x and xn may
-// alias). With a stash (R == 1), the trunk pre-activations are recorded.
-// Accumulates jt[r] += d_t * track and jr[r] += d_t * res2.
-__device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
-                         int ustride, const float* x, float* xn, int t,
-                         float* st_h0p, float* st_h1p, float* st_h2) {
+// The network for R rows: features (body-frame velocity, rates, gravity
+// direction, motors), the two swish layers and the output layer into
+// s.feat, s.a0, s.a1, s.a2. Row r's state is x[r*13..]. With PART = false
+// (the P=1 form) row r is thread r < R, its controls are U[r*ustride ..],
+// and a stash (R == 1) records the pre-activations; with PART = true rows
+// run over the threads, row r's controls are U[(r % K)*ustride ..] and a
+// stash holds R rows (idx = r*HID + j).
+template <bool PART>
+__device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
+                      int ustride, int K, const float* x, float* st_h0p,
+                      float* st_h1p, float* st_h2) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int F = a.F, HID = a.HID, OUT = a.OUT;
 
-  // features: body-frame velocity, rates, gravity direction, motors
-  if (tid < R) {
-    const float* xr = x + tid * 13;
+  auto features = [&](int r) {
+    const float* xr = x + r * 13;
     const float qcu[3] = {-xr[7], -xr[8], -xr[9]};
     const float ez[3] = {0.f, 0.f, 1.f};
-    float* f = s.feat + tid * F;
+    float* f = s.feat + r * F;
     qrot(xr[6], qcu, xr + 3, f);
     f[3] = xr[10]; f[4] = xr[11]; f[5] = xr[12];
     qrot(xr[6], qcu, ez, f + 6);
-    for (int i = 0; i < a.n_u; ++i) f[9 + i] = U[tid * ustride + i];
+    const float* ur = PART ? U + (r % K) * ustride : U + r * ustride;
+    for (int i = 0; i < a.n_u; ++i) f[9 + i] = ur[i];
+  };
+  if constexpr (PART) {
+    for (int r = tid; r < R; r += nt) features(r);
+  } else if (tid < R) {
+    features(tid);
   }
   __syncthreads();
   const float* w0 = c + a.o_w0; const float* b0 = c + a.o_b0;
@@ -146,7 +175,7 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < F; ++i) acc += f[i] * w0[i * HID + j];
     const float pre = acc + b0[j];
     s.a0[idx] = pre * sigm(pre);
-    if (st_h0p) st_h0p[j] = pre;
+    if (st_h0p) st_h0p[PART ? idx : j] = pre;
   }
   __syncthreads();
   const float* w1 = c + a.o_w1; const float* b1 = c + a.o_b1;
@@ -157,7 +186,7 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < HID; ++i) acc += h[i] * w1[i * HID + j];
     const float pre = acc + b1[j];
     s.a1[idx] = pre * sigm(pre);
-    if (st_h1p) st_h1p[j] = pre;
+    if (st_h1p) st_h1p[PART ? idx : j] = pre;
   }
   __syncthreads();
   const float* w2 = c + a.o_w2; const float* b2 = c + a.o_b2;
@@ -168,12 +197,32 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < HID; ++i) acc += h[i] * w2[i * OUT + o];
     const float pre = acc + b2[o];
     s.a2[idx] = pre;
-    if (st_h2) st_h2[o] = pre;
+    if (st_h2) st_h2[PART ? idx : o] = pre;
   }
   __syncthreads();
-  if (tid < R) {
-    const float* xr = x + tid * 13;
-    const float* h = s.a2 + tid * OUT;
+}
+
+// One Euler(-Maruyama) step plus stage cost for R rows (bodies.py::
+// make_step). Rows, controls and stash as in trunk; the state is read from
+// x[r*13..] and the new state written to xn[r*13..] (x and xn may alias).
+// PART adds the Brownian term: row r's draws are z[(r / K)*13 ..] (its
+// particle; rows are particle-major), and v1 += sqrt(dt)*sigma[0:3]*z[3:6],
+// om1 += sqrt(dt)*sigma[3:6]*z[10:13] after the drift, in the order of
+// bodies.py:160-162. Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
+template <bool PART>
+__device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
+                         int ustride, int K, const float* z, const float* x,
+                         float* xn, int t, float* st_h0p, float* st_h1p,
+                         float* st_h2) {
+  trunk<PART>(a, s, R, U, ustride, K, x, st_h0p, st_h1p, st_h2);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* c = s.c;
+  const int OUT = a.OUT;
+
+  auto step = [&](int row) {
+    const float* xr = x + row * 13;
+    const float* h = s.a2 + row * OUT;
+    const float* ur = PART ? U + (row % K) * ustride : U + row * ustride;
     const float* scal = c + a.o_scal;
     const float* in = c + a.o_inertia;
     const float* ws = c + a.o_wstate;
@@ -184,13 +233,14 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < 3; ++i) { p[i] = xr[i]; v[i] = xr[3 + i]; om[i] = xr[10 + i]; }
     for (int i = 0; i < 4; ++i) q[i] = xr[6 + i];
 
-    float res2 = 0.f;
+    float res2 = 0.f, sg6[6];
     for (int i = 0; i < 6; ++i) {
       const float sg = softplus(h[6 + i]) * ds;
       res2 += sg * sg;
+      sg6[i] = sg;
     }
     float w[4];
-    wrench4(a, c + a.o_mix, U + tid * ustride, w);
+    wrench4(a, c + a.o_mix, ur, w);
     const float fb[3] = {h[0], h[1], h[2] - w[0]};
     float rot[3];
     qrot(q[0], q + 1, fb, rot);
@@ -206,6 +256,14 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
       p1[i] = p[i] + dt * v[i];
       v1[i] = v[i] + dt * acc[i];
       om1[i] = om[i] + dt * dom[i];
+    }
+    if constexpr (PART) {
+      const float* zr = z + (row / K) * 13;
+      const float sd = sqrtf(dt);
+      for (int i = 0; i < 3; ++i) {
+        v1[i] = v1[i] + sd * sg6[i] * zr[3 + i];
+        om1[i] = om1[i] + sd * sg6[3 + i] * zr[10 + i];
+      }
     }
     float nq = 0.f;
     for (int i = 0; i < 4; ++i) { q1[i] = q[i] + dt * dq[i]; nq += q1[i] * q1[i]; }
@@ -230,39 +288,42 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
     }
     const float track = tp + tv + tq + tw;
 
-    float* o = xn + tid * 13;
+    float* o = xn + row * 13;
     for (int i = 0; i < 3; ++i) { o[i] = p1[i]; o[3 + i] = v1[i]; o[10 + i] = om1[i]; }
     for (int i = 0; i < 4; ++i) o[6 + i] = q1[i];
-    s.jt[tid] += d_t * track;
-    s.jr[tid] += d_t * res2;
+    s.jt[row] += d_t * track;
+    s.jr[row] += d_t * res2;
+  };
+  if constexpr (PART) {
+    for (int row = tid; row < R; row += nt) step(row);
+  } else if (tid < R) {
+    step(tid);
   }
   __syncthreads();
 }
 
-// One reverse step (bodies.py::manual_bwd_step, B = 1) at horizon index t,
-// reading the stash; updates the state cotangent s.ct and writes the
-// dynamics part of the control gradient into s.g[t*nZ ..].
-__device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  const float* c = s.c;
-  const int F = a.F, HID = a.HID, OUT = a.OUT;
-  const float* st = s.xs + t * 13;
-  const float* x1 = s.xs + (t + 1) * 13;
-  const float* h2 = s.h2 + t * OUT;
-  const float* u = U + t * a.nZ;
+// Reverse of one row's stage cost, sigma penalty, renormalisation, EM
+// update and drift at horizon index t: the scalar half of
+// bodies.py::manual_bwd_step. st / x1 are the row's states at t and t+1,
+// h2 its output pre-activations, u its controls; cT and cR seed the
+// tracking and the sigma cost. ct holds the cotangent of x1 on entry and
+// that of st (before the feature terms) on exit; c_h2 receives the trunk
+// output cotangent and cu the wrench part of the control cotangent. PART
+// adds the Brownian term's sigma cotangent sqrt(dt)*z*c_{v1,om1} (zr: the
+// row's draws).
+template <bool PART>
+__device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
+                                        const float* st, const float* x1,
+                                        const float* h2, const float* u,
+                                        const float* zr, int t, float cT, float cR,
+                                        float* ct, float* c_h2, float* cu) {
   const float* scal = c + a.o_scal;
   const float* in = c + a.o_inertia;
   const float* mix = c + a.o_mix;
-  const float dt = c[a.o_ts + t], d_t = c[a.o_disc + t];
-
-  // ---- part 1 (thread 0): stage cost, sigma, renormalize, EM, dynamics
-  if (tid == 0) {
+  const float dt = c[a.o_ts + t];
+  {
     const float* ws = c + a.o_wstate;
     const float* r = c + a.o_xref + (t + 1) * 13;
-    const float cT = d_t;
-    const float cR = d_t * scal[SC_RESM];
-    float* ct = s.ct;
     float cp1[3], cv1[3], cq1[4], com1[3];
     for (int i = 0; i < 3; ++i) {
       cp1[i] = ct[i] + cT * 2.f * ws[i] * (x1[i] - r[i]);
@@ -284,13 +345,16 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
     cq1[2] = ct[8] + (rz * c_ex + rw * c_ey - rx * c_ez);
     cq1[3] = ct[9] + (-ry * c_ex + rx * c_ey + rw * c_ez);
 
-    // sigma / res2
+    // sigma / res2 (and the Brownian term v1 += sd*sig6[0:3]*z[3:6],
+    // om1 += sd*sig6[3:6]*z[10:13])
     const float dsc = scal[SC_DIFF];
     for (int i = 0; i < 6; ++i) {
       const float hs = h2[6 + i];
       const float sig6 = softplus(hs) * dsc;
-      const float c_sig6 = cR * 2.f * sig6;
-      s.c_h2[6 + i] = c_sig6 * sigm(hs) * dsc;
+      float c_sig6 = cR * 2.f * sig6;
+      if constexpr (PART)
+        c_sig6 = c_sig6 + sqrtf(dt) * (i < 3 ? zr[3 + i] * cv1[i] : zr[7 + i] * com1[i - 3]);
+      c_h2[6 + i] = c_sig6 * sigm(hs) * dsc;
     }
 
     // quaternion renormalize
@@ -332,7 +396,7 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
     float c_tau[3], c_crs[3], Iom[3], t1[3], t2[3];
     for (int i = 0; i < 3; ++i) {
       c_tau[i] = c_dom[i] / in[i];
-      s.c_h2[3 + i] = c_dom[i] / in[i];
+      c_h2[3 + i] = c_dom[i] / in[i];
       c_crs[i] = -c_dom[i] / in[i];
       Iom[i] = in[i] * om[i];
     }
@@ -349,16 +413,53 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
     qrot_bwd(qw, q + 1, fb, c_rot, &c_wq, c_uq, c_fb);
     cq[0] += c_wq;
     for (int i = 0; i < 3; ++i) cq[1 + i] += c_uq[i];
-    for (int i = 0; i < 3; ++i) s.c_h2[i] = c_fb[i];
+    for (int i = 0; i < 3; ++i) c_h2[i] = c_fb[i];
     const float c_wr[4] = {-c_fb[2], c_tau[0], c_tau[1], c_tau[2]};
     for (int i = 0; i < a.n_u; ++i) {
       float acc = 0.f;
       for (int m = 0; m < 4; ++m) acc += c_wr[m] * mix[m * a.n_u + i];
-      s.cu[i] = acc;
+      cu[i] = acc;
     }
     for (int i = 0; i < 3; ++i) { ct[i] = cp[i]; ct[3 + i] = cv[i]; ct[10 + i] = com[i]; }
     for (int i = 0; i < 4; ++i) ct[6 + i] = cq[i];
   }
+}
+
+// Features back to the state and the controls for one row (the feature
+// half of manual_bwd_step): ct += the cotangent of the state through the
+// features cf, and g[i] = cu[i] + cf[9+i] (g may alias cu).
+__device__ __forceinline__ void bwd_feat(const ApgArgs& a, const float* st,
+                                         const float* cf, const float* cu,
+                                         float* ct, float* g) {
+  const float* q = st + 6;
+  const float* v = st + 3;
+  for (int i = 0; i < 3; ++i) ct[10 + i] += cf[3 + i];
+  const float qcu[3] = {-q[1], -q[2], -q[3]};
+  const float ez[3] = {0.f, 0.f, 1.f};
+  float c_wv, c_uv[3], c_v[3], c_wg, c_ug[3], c_e[3];
+  qrot_bwd(q[0], qcu, v, cf, &c_wv, c_uv, c_v);
+  qrot_bwd(q[0], qcu, ez, cf + 6, &c_wg, c_ug, c_e);
+  for (int i = 0; i < 3; ++i) ct[3 + i] += c_v[i];
+  ct[6] += c_wv + c_wg;
+  for (int i = 0; i < 3; ++i) ct[7 + i] += -(c_uv[i] + c_ug[i]);
+  for (int i = 0; i < a.n_u; ++i) g[i] = cu[i] + cf[9 + i];
+}
+
+// One reverse step (bodies.py::manual_bwd_step, B = 1) at horizon index t,
+// reading the stash; updates the state cotangent s.ct and writes the
+// dynamics part of the control gradient into s.g[t*nZ ..].
+__device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const float* c = s.c;
+  const int F = a.F, HID = a.HID, OUT = a.OUT;
+  const float* st = s.xs + t * 13;
+  const float d_t = c[a.o_disc + t];
+
+  // ---- part 1 (thread 0): stage cost, sigma, renormalize, EM, dynamics
+  if (tid == 0)
+    bwd_dyn<false>(a, c, st, s.xs + (t + 1) * 13, s.h2 + t * OUT, U + t * a.nZ,
+                   nullptr, t, d_t, d_t * c[a.o_scal + SC_RESM], s.ct, s.c_h2, s.cu);
   __syncthreads();
 
   // ---- trunk backward on the stashed pre-activations
@@ -393,21 +494,92 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
   __syncthreads();
 
   // ---- part 2 (thread 0): features back to the state and the controls
-  if (tid == 0) {
-    float* ct = s.ct;
-    const float* cf = s.c_feat;
-    const float* q = st + 6;
-    const float* v = st + 3;
-    for (int i = 0; i < 3; ++i) ct[10 + i] += cf[3 + i];
-    const float qcu[3] = {-q[1], -q[2], -q[3]};
-    const float ez[3] = {0.f, 0.f, 1.f};
-    float c_wv, c_uv[3], c_v[3], c_wg, c_ug[3], c_e[3];
-    qrot_bwd(q[0], qcu, v, cf, &c_wv, c_uv, c_v);
-    qrot_bwd(q[0], qcu, ez, cf + 6, &c_wg, c_ug, c_e);
-    for (int i = 0; i < 3; ++i) ct[3 + i] += c_v[i];
-    ct[6] += c_wv + c_wg;
-    for (int i = 0; i < 3; ++i) ct[7 + i] += -(c_uv[i] + c_ug[i]);
-    for (int i = 0; i < a.n_u; ++i) s.g[t * a.nZ + i] = s.cu[i] + cf[9 + i];
+  if (tid == 0) bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.g + t * a.nZ);
+  __syncthreads();
+}
+
+// Transposed copies of the trunk weights for bwd_rows, whose transposed
+// matvecs then read consecutive addresses across a warp (the weights as
+// stored would put a warp's 32 reads in one shared-memory bank). Reads the
+// consts copy s.c; ends with a barrier.
+__device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int F = a.F, HID = a.HID, OUT = a.OUT;
+  const float* c = s.c;
+  for (int e = tid; e < F * HID; e += nt) {       // w0 (F, HID)
+    const int i = e / HID, j = e - i * HID;
+    s.w0t[j * F + i] = c[a.o_w0 + e];
+  }
+  for (int e = tid; e < HID * HID; e += nt) {     // w1 (HID, HID)
+    const int i = e / HID, j = e - i * HID;
+    s.w1t[j * HID + i] = c[a.o_w1 + e];
+  }
+  for (int e = tid; e < HID * OUT; e += nt) {     // w2 (HID, OUT)
+    const int j = e / OUT, o = e - j * OUT;
+    s.w2t[o * HID + j] = c[a.o_w2 + e];
+  }
+  __syncthreads();
+}
+
+// One reverse step of a chunk of R = a.Pc particle rows at horizon index t:
+// the noise branch, which the TPU kernel differentiates by tracing jax.vjp
+// of the step (bodies.py:587-596). Like the traced VJP, it re-runs the
+// trunk forward, from the stashed states xs[t], into s.p0 / s.p1 / s.a2.
+// Each row is seeded with d_t/Pc (the chunk's cost is the mean over its
+// rows; z: the chunk's draws at step t). Updates the row cotangents s.ct
+// (R, 13) and adds the chunk's control gradient, summed over its rows and
+// divided by n_chunks, to s.g[t*nZ ..]. Needs transpose_weights first.
+__device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
+                         const float* __restrict__ z, int t) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* c = s.c;
+  const int R = a.Pc, F = a.F, HID = a.HID, OUT = a.OUT, nZ = a.nZ;
+  const float* xt = s.xs + t * R * 13;
+  const float* x1 = s.xs + (t + 1) * R * 13;
+  const float* u = U + t * nZ;
+  trunk<true>(a, s, R, u, 0, 1, xt, s.p0, s.p1, nullptr);
+  const float d_t = c[a.o_disc + t];
+  const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
+  for (int r = tid; r < R; r += nt)
+    bwd_dyn<true>(a, c, xt + r * 13, x1 + r * 13, s.a2 + r * OUT, u, z + r * 13, t,
+                  cT, cR, s.ct + r * 13, s.c_h2 + r * OUT, s.cu + r * nZ);
+  __syncthreads();
+
+  // trunk backward, one output per thread and row, on the transposed
+  // weights (transpose_weights)
+  for (int idx = tid; idx < R * HID; idx += nt) {
+    const int r = idx / HID, j = idx - r * HID;
+    const float* ch = s.c_h2 + r * OUT;
+    float acc = 0.f;
+    for (int o = 0; o < OUT; ++o) acc += ch[o] * s.w2t[o * HID + j];
+    const float h = s.p1[idx], s1 = sigm(h);
+    s.c_h1p[idx] = acc * (s1 + h * s1 * (1.f - s1));
+  }
+  __syncthreads();
+  for (int idx = tid; idx < R * HID; idx += nt) {
+    const int r = idx / HID, i = idx - r * HID;
+    const float* ch = s.c_h1p + r * HID;
+    float acc = 0.f;
+    for (int j = 0; j < HID; ++j) acc += s.w1t[j * HID + i] * ch[j];
+    const float h = s.p0[idx], s0 = sigm(h);
+    s.c_h0p[idx] = acc * (s0 + h * s0 * (1.f - s0));
+  }
+  __syncthreads();
+  for (int idx = tid; idx < R * F; idx += nt) {
+    const int r = idx / F, i = idx - r * F;
+    const float* ch = s.c_h0p + r * HID;
+    float acc = 0.f;
+    for (int j = 0; j < HID; ++j) acc += s.w0t[j * F + i] * ch[j];
+    s.c_feat[idx] = acc;
+  }
+  __syncthreads();
+  for (int r = tid; r < R; r += nt)
+    bwd_feat(a, xt + r * 13, s.c_feat + r * F, s.cu + r * nZ, s.ct + r * 13, s.cu + r * nZ);
+  __syncthreads();
+  if (tid < nZ) {
+    float acc = 0.f;
+    for (int r = 0; r < R; ++r) acc += s.cu[r * nZ + tid];
+    s.g[t * nZ + tid] = s.g[t * nZ + tid] + acc / (float)a.n_chunks;
   }
   __syncthreads();
 }
@@ -469,8 +641,9 @@ __device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U)
   if (tid == 0) { s.jt[0] = 0.f; s.jr[0] = 0.f; }
   __syncthreads();
   for (int t = 0; t < a.H; ++t)
-    fwd_step(a, s, 1, U + t * a.nZ, 0, s.xs + t * 13, s.xs + (t + 1) * 13, t,
-             s.h0p + t * a.HID, s.h1p + t * a.HID, s.h2 + t * a.OUT);
+    fwd_step<false>(a, s, 1, U + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
+                    s.xs + (t + 1) * 13, t, s.h0p + t * a.HID, s.h1p + t * a.HID,
+                    s.h2 + t * a.OUT);
   for (int t = a.H - 1; t >= 0; --t) bwd_step(a, s, U, t);
   for (int e = tid; e < HZ; e += blockDim.x) {
     const int t = e / a.nZ, i = e - t * a.nZ;
@@ -487,6 +660,100 @@ __device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U)
     *fval = s.jt[0] + scal[SC_RESM] * s.jr[0] + jc;
   }
   __syncthreads();
+}
+
+// Value and gradient of the iterate U over P particles (the noise branch of
+// bodies.py::vg_sweep with its chunk loop, K11 :638-661): per chunk of Pc
+// rows a forward sweep into the state stash s.xs (H+1, Pc, 13) and the
+// reverse sweep bwd_rows; the rollout costs are means over the chunk's rows,
+// averaged over the chunks into s.cacc[0..2), and the chunks' control
+// gradients are averaged into s.g; the closed-form control gradient and the
+// control-only terms are added once. noise: the (H, P, 13) Brownian block.
+__device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
+                        const float* __restrict__ noise) {
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
+  const float* c = s.c;
+  const int HZ = a.H * a.nZ, R = a.Pc;
+  for (int e = tid; e < HZ; e += nt) s.g[e] = 0.f;
+  if (tid < 2) s.cacc[tid] = 0.f;
+  for (int ch = 0; ch < a.n_chunks; ++ch) {
+    for (int e = tid; e < R * 13; e += nt) {
+      s.xs[e] = c[a.o_x0 + e % 13];
+      s.ct[e] = 0.f;
+    }
+    for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
+    __syncthreads();
+    const float* zc = noise + (size_t)ch * R * 13;
+    for (int t = 0; t < a.H; ++t)
+      fwd_step<true>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
+                     s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t, nullptr, nullptr,
+                     nullptr);
+    for (int t = a.H - 1; t >= 0; --t) bwd_rows(a, s, U, zc + (size_t)t * a.P * 13, t);
+    if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
+    if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
+    __syncthreads();
+    if (tid == 0) {
+      s.cacc[0] = s.cacc[0] + s.red[3] / (float)R / (float)a.n_chunks;
+      s.cacc[1] = s.cacc[1] + s.red[4] / (float)R / (float)a.n_chunks;
+    }
+  }
+  for (int e = tid; e < HZ; e += nt) {
+    const int t = e / a.nZ, i = e - t * a.nZ;
+    s.g[e] = s.g[e] + ctrl_grad(a, c, U, t, i);
+  }
+  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).u; }, s.red + 0);
+  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).sl; }, s.red + 1);
+  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).viol; }, s.red + 2);
+  __syncthreads();
+  if (tid == 0) {
+    const float* scal = c + a.o_scal;
+    float jc = scal[SC_UERR] * s.red[0] + scal[SC_SLEW] * s.red[1];
+    if (a.has_slew) jc = jc + scal[SC_SLEWC] * s.red[2];
+    *fval = s.cacc[0] + scal[SC_RESM] * s.cacc[1] + jc;
+  }
+  __syncthreads();
+}
+
+// K candidate plans (rows of s.cand, (K, H, nZ)) over P particles
+// (bodies.py::candidate_rollout/run_candidates, :694-765): per chunk, K*Pc
+// rows, particle-major (row i = p*K + k), through the horizon from x0; the
+// particle mean of each candidate's tracking and sigma costs, a mean of
+// chunk means, lands in s.cacc[k] and s.cacc[K + k].
+__device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
+                          const float* __restrict__ noise) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
+  if (tid < 2 * K) s.cacc[tid] = 0.f;
+  for (int ch = 0; ch < a.n_chunks; ++ch) {
+    for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
+    for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
+    __syncthreads();
+    const float* zc = noise + (size_t)ch * Pc * 13;
+    for (int t = 0; t < a.H; ++t)
+      fwd_step<true>(a, s, R, s.cand + t * a.nZ, HZ, K, zc + (size_t)t * a.P * 13,
+                     s.xr, s.xr, t, nullptr, nullptr, nullptr);
+    if (tid < 2 * K) {
+      const int k = tid < K ? tid : tid - K;
+      const float* j = tid < K ? s.jt : s.jr;
+      float acc = 0.f;
+      for (int p = 0; p < Pc; ++p) acc += j[p * K + k];
+      s.cacc[tid] = s.cacc[tid] + acc / (float)Pc / (float)a.n_chunks;
+    }
+    __syncthreads();
+  }
+}
+
+// Let the particle form of a kernel take dynamic shared memory above the
+// 48 KB default: up to APG_SMEM_LIMIT_PARTICLES (227 KB) less its static
+// shared memory, the most the attribute accepts. Called once per library
+// load (apg_init, cost_oracle_init).
+template <class Kernel>
+cudaError_t allow_large_smem(Kernel* fn) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              APG_SMEM_LIMIT_PARTICLES - (int)fa.sharedSizeBytes);
 }
 
 }  // namespace

@@ -145,8 +145,8 @@ def replay_engagement(c, n_none: int = 4, n_idle: int = 10, n_traj: int = 28,
             np.asarray(costs, np.float32))
 
 
-# original :190-196; only "mppi" is ported (the others raise, naming the
-# ROADMAP.md item that brings them)
+# original :190-196; "policy" raises, naming the ROADMAP.md item that
+# brings it
 SOLVER_FAMILIES = {
     "p512anti": dict(base="iris_traj_mpc.yaml",
                      mut={"num_particles": 512, "antithetic": True,
@@ -154,17 +154,20 @@ SOLVER_FAMILIES = {
     "mppi": dict(base="iris_posctrl_mpc.yaml", mut={"solver": "mppi"}),
     "policy": dict(base="iris_traj_mpc.yaml", mut={"solver": "policy"}),
 }
-_FAMILY_ITEM = {"p512anti": "Particles", "policy": "Policy solver family"}
+_FAMILY_ITEM = {"policy": "Policy solver family"}
 
 
 def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
-                         device=None) -> np.ndarray:
+                         device=None, traj_t0: float = 3.0) -> np.ndarray:
     """Pinned-seed replay of one solver family's raw ``(reset_fn, mpc_fn)``
-    pair (original :199-237): ``n`` warm receding-horizon solves from a
-    pinned offset state, each from the last one's ``x_evol[1]``, recording
-    rows ``[u_opt[0], num_steps]``. ``draws`` is what ``mpc_fn`` gets as
-    ``rng``: None for ``torch.Generator().manual_seed(0)``, or an iterator
-    of each solve's ``(eps, c0)`` (the original's own draws, in tests)."""
+    pair (original :199-237): ``n`` warm receding-horizon solves along the
+    trajectory from ``traj_t0`` (a config with a trajectory table, as
+    ``p512anti``) or from a pinned offset state (``mppi``), each from the
+    last one's ``x_evol[1]``, recording rows ``[u_opt[0], num_steps]``.
+    ``draws`` is what ``mpc_fn`` gets as ``rng``: None for
+    ``torch.Generator().manual_seed(0)``, or an iterator of each solve's
+    draws (MPPI's ``(eps, c0)``, a (P, H, 13) Brownian block for particles;
+    the original's own draws, in tests)."""
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
 
@@ -180,15 +183,20 @@ def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
         for p in parts[:-1]:
             blk = blk[p]
         blk[parts[-1]] = val
-    cfg, (reset_fn, mpc_fn), _, bundle = make_mpc_from_config(cfg, device=device)
+    cfg, (reset_fn, mpc_fn), sft, bundle = make_mpc_from_config(cfg, device=device)
     dt = float(cfg["_time_steps"][0])
     rng = torch.Generator().manual_seed(0) if draws is None else draws
-    x = hover_state(bundle.device)
-    x[0], x[2] = 0.5, -0.3
+    if sft is not None:
+        x = enu2ned(sft(np.float32(traj_t0)))
+        t0 = traj_t0
+    else:
+        x = hover_state(bundle.device)
+        x[0], x[2] = 0.5, -0.3
+        t0 = 0.0
     st = reset_fn(x, rng, x)
     rows = []
     for k in range(n):
-        u, st, rng, x_evol = mpc_fn(x, rng, st, k * dt, x)
+        u, st, rng, x_evol = mpc_fn(x, rng, st, np.float32(t0 + k * dt), x)
         x = x_evol[1]
         rows.append(np.concatenate([u[0].cpu().numpy().astype(np.float32),
                                     [float(st.num_steps)]]))

@@ -20,22 +20,31 @@ on a CUDA device and on its plain PyTorch version on the CPU:
 
 - ``solver: apg`` with an ``apg_mpc.linesearch`` block: one call of
   ``ops/cuda/apg_kernel.py::apg_solve_kernel``, the whole solve in one
-  launch, ``x_evol`` exported by it;
+  launch, ``x_evol`` exported by it (with particles: a second launch, the
+  oracle's ``trajectory``);
 - ``solver: apg`` without a linesearch block: the fixed-step
   ``solver/apg.py::apg_solve`` over the cost oracle
   (``ops/cuda/cost_oracle.py``), ``x_evol`` from ``oracle.trajectory``;
 - ``solver: mppi``: ``solver/mppi.py::mppi_solve`` over the cost oracle,
   ``x_evol`` from ``oracle.trajectory``.
 
-``rng`` is a ``torch.Generator`` (or None for the APG routes, which draw
-nothing: at ``num_particles: 1`` it passes through unchanged, as in the
-original ``:655-662``). MPPI draws one solve's exploration noise from it
-in one call (``solver/mppi.py::draw_mppi_noise``); in place of a generator
-``rng`` may be an iterator that yields each solve's ``(eps, c0)``, which
-is how tests hand in the original's own draws. ``iter_budget`` caps the
-APG routes and is ignored by MPPI, as in the original (``:636-644``).
-Configs outside the ported scope raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+``num_particles`` P > 1 makes the APG routes minimise the mean cost over P
+Monte-Carlo paths (``antithetic`` pairs them as (z, -z)); the particles
+run on the same kernels, in chunks of ``pallas_chunk`` or, without it, of
+the largest divisor of P that fits a block's shared memory. The original
+sends P > 128 without ``pallas_chunk`` to XLA (``:334-335``); here every P
+runs on the kernels.
+
+``rng`` is a ``torch.Generator`` (or None for the deterministic APG
+routes, which draw nothing: at ``num_particles: 1`` it passes through
+unchanged, as in the original ``:655-662``). A Monte-Carlo solve draws its
+Brownian block from it in one call (``ops/rollout.py::draw_brownian``),
+MPPI its exploration noise (``solver/mppi.py::draw_mppi_noise``). In place
+of a generator ``rng`` may be an iterator that yields each solve's draws,
+a (P, H, 13) block or MPPI's ``(eps, c0)``, which is how tests hand in the
+original's own draws. ``iter_budget`` caps the APG routes and is ignored by
+MPPI, as in the original (``:636-644``). Configs outside the ported scope
+raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ from sde4mbrl_px4_tpu_torch.models.trajectory import (
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
 from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle
-from sde4mbrl_px4_tpu_torch.ops.rollout import make_time_steps
+from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian, make_time_steps
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
@@ -91,25 +100,44 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
         f"ROADMAP.md §1 '{item}' brings it")
 
 
+# the config options of the original's particle axis that run no TPU
+# kernel there (it sends them to XLA, :336-350, :434-443)
+_PARTICLE_XLA = "Particles without a kernel: risk, start spread, MPPI K x P"
+
+
 def _check_slice(cfg: Dict[str, Any]) -> None:
-    """Refuse the config features this port does not implement yet."""
+    """Refuse the config features this port does not implement yet, and
+    the particle settings the original refuses (``:336-341``,
+    ``:464-470``)."""
     solver = str(cfg.get("solver", "apg"))
     if solver == "policy":
         raise _not_in_slice("solver: policy", "Policy solver family")
     if solver not in ("apg", "mppi"):
         raise ValueError(f"unknown solver {solver!r} (apg|mppi|policy)")
-    if int(cfg.get("num_particles", 1)) > 1:
-        raise _not_in_slice("num_particles > 1", "Particles")
-    if cfg.get("initial_state_std") is not None:
-        raise _not_in_slice("initial_state_std", "Particles")
+    P = int(cfg.get("num_particles", 1))
     if cfg["cost_params"].get("risk_lambda"):
-        raise _not_in_slice("cost_params.risk_lambda", "Particles")
-    if int(cfg.get("pallas_chunk", 0) or 0):
-        raise _not_in_slice("pallas_chunk (chunked particles, K11)", "Particles")
+        if P <= 1:
+            raise ValueError(
+                "cost_params.risk_lambda needs num_particles > 1 — with one "
+                "particle there is no outcome spread to price")
+        raise _not_in_slice("cost_params.risk_lambda", _PARTICLE_XLA)
+    if cfg.get("initial_state_std") is not None:
+        if P <= 1:
+            raise ValueError(
+                "initial_state_std needs num_particles > 1 — the deterministic "
+                "single-particle path would ignore the scenario spread")
+        raise _not_in_slice("initial_state_std", _PARTICLE_XLA)
+    if solver == "mppi" and P > 1:
+        raise _not_in_slice("solver: mppi with num_particles > 1", _PARTICLE_XLA)
+    chunk = int(cfg.get("pallas_chunk", 0) or 0)
+    if chunk < 0 or (chunk and P % chunk):
+        raise ValueError(f"pallas_chunk={chunk} must divide num_particles={P}")
+    if bool(cfg.get("antithetic", False)) and P > 1 and P % 2:
+        raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
     if cfg.get("state_constr") is not None:
         raise _not_in_slice("state_constr", "State constraints and slack")
     if str(cfg.get("matmul_precision", "highest")).lower() not in ("highest", "float32"):
-        raise _not_in_slice("matmul_precision below fp32", "Particles")
+        raise _not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
 
 
 def _resolve_model(cfg: Dict[str, Any], device: torch.device):
@@ -231,6 +259,8 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     solver = str(cfg.get("solver", "apg"))
     mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
     num_particles = int(cfg.get("num_particles", 1))
+    antithetic = bool(cfg.get("antithetic", False))
+    chunk = int(cfg.get("pallas_chunk", 0) or 0)
     warm_shift = str(cfg.get("warm_shift", "repeat"))
 
     state_from_traj = state_from_traj_ned = None
@@ -303,15 +333,17 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         curr_t = torch.as_tensor(curr_t, dtype=f32, device=dev)
         x_ref = _build_ref(curr_t, xdes)
         u_prev = opt_state.yk[0]
+        noise = _brownian(rng) if num_particles > 1 else None
         if solver == "apg" and apg_cfg.use_linesearch:
             st, x_evol = apg_solve_kernel(
                 model, params, cost_params, apg_cfg, time_steps, x, x_ref,
-                u_prev, None, 1, lb, ub, opt_state.yk,
+                u_prev, noise, num_particles, lb, ub, opt_state.yk,
                 t_init=opt_state.stepsize if carry_t else None,
-                precond=precond, iter_budget=iter_budget)
+                precond=precond, iter_budget=iter_budget, chunk=chunk)
         else:
             oracle = cost_oracle(model, params, cost_params, time_steps, x, x_ref,
-                                 u_prev, None, 1, apg_cfg.maxls)
+                                 u_prev, noise, num_particles, apg_cfg.maxls,
+                                 chunk=chunk)
             with torch.no_grad():
                 if solver == "mppi":
                     eps, c0 = _mppi_draws(rng)
@@ -322,6 +354,17 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
                 x_evol = oracle.trajectory(st.yk)
         return MPCSolution(u_opt=st.yk, opt_state=st._replace(yk=_shift(st.yk)),
                            rng=rng, x_evol=x_evol)
+
+    def _brownian(rng) -> torch.Tensor:
+        """One solve's Brownian block (P, H, 13) on the device: drawn from a
+        generator (as (H, P, 13), the view transposed), or the next block an
+        iterator of draws hands in."""
+        if isinstance(rng, torch.Generator):
+            return draw_brownian(rng, H, num_particles, antithetic, dev).transpose(0, 1)
+        if rng is None:
+            raise ValueError("num_particles > 1 needs rng: a torch.Generator or "
+                             "an iterator of (P, H, 13) Brownian blocks")
+        return next(rng).to(dev, f32)
 
     def _mppi_draws(rng):
         """One solve's (eps, c0) on the device: drawn from a generator, or

@@ -12,9 +12,15 @@ current stream, no sync) or raises; on CPU tensors it runs
 ``cost_fn`` with autograd for the gradient, ``rollout_mean`` for
 ``x_evol``).
 
-Scope (the flight configs): deterministic P=1, no state constraints, no
-slack columns, no particle chunks; anything else raises.
-``apg_solve_kernel.launches`` counts kernel launches.
+A deterministic P=1 solve (the flight configs) is one launch, whose exit
+sweep exports ``x_evol``. A Monte-Carlo solve (``num_particles`` P > 1,
+``noise`` the (P, H, 13) Brownian block) minimises the particle-mean cost:
+one launch of the kernel's particle form, which sweeps the particles in
+chunks (``chunk``, or the largest divisor of P whose shared memory fits),
+then one launch of the oracle's ``trajectory`` kernel for the mean-dynamics
+``x_evol``, as in the original (``engine/mpc_loader.py:745-751``). Scope:
+no state constraints, no slack columns; they raise.
+``apg_solve_kernel.launches`` counts the whole-solve kernel's launches.
 """
 from __future__ import annotations
 
@@ -27,15 +33,17 @@ import torch
 from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
-from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ApgArgs, build_consts
-from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_plain
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
+    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
+from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
+    cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
     APGConfig, APGState, apg_solve, resolve_t_init)
 
 __all__ = ["apg_solve_kernel", "apg_solve_plain", "load_apg_library",
-           "SMEM_LIMIT"]
+           "plan_solve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
-SMEM_LIMIT = 49152   # bytes of shared memory the kernel may use (48 KB)
+SMEM_LIMIT = 49152   # bytes of shared memory the P=1 kernel may use (48 KB)
 _P = ctypes.c_void_p
 
 
@@ -49,27 +57,30 @@ def load_apg_library() -> ctypes.CDLL:
     lib.apg_smem_bytes.restype = ctypes.c_int
     lib.apg_error_string.argtypes = [ctypes.c_int]
     lib.apg_error_string.restype = ctypes.c_char_p
-    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 8
+    lib.apg_init.argtypes = []
+    lib.apg_init.restype = ctypes.c_int
+    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 9
     lib.apg_solve_launch.restype = ctypes.c_int
     if lib.apg_args_size() != ctypes.sizeof(ApgArgs):
         raise RuntimeError(
             f"ApgArgs ABI mismatch: library {lib.apg_args_size()} bytes, "
             f"Python {ctypes.sizeof(ApgArgs)} bytes")
+    rc = lib.apg_init()
+    if rc != 0:
+        raise RuntimeError("apg_init failed: " + lib.apg_error_string(rc).decode())
     return lib
 
 
-def _check_scope(model: NeuralSDE, apg: APGConfig, noise, num_particles: int,
-                 chunk: int, lb: torch.Tensor) -> None:
-    if noise is not None or int(num_particles) != 1:
-        raise NotImplementedError(
-            "apg_solve_kernel: only the deterministic P=1 solve is ported "
-            f"(num_particles={num_particles}, noise "
-            f"{'given' if noise is not None else 'None'}); ROADMAP.md §1 'Particles' "
-            "brings the rest")
-    if chunk:
-        raise NotImplementedError(
-            "apg_solve_kernel: particle chunks (K11) are not ported; "
-            "ROADMAP.md §1 'Particles' brings them")
+def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int) -> None:
+    """Fill the particle fields of a solve's ``args``: ``chunk``, or the
+    largest divisor of P whose shared memory (``apg_smem_bytes``) fits the
+    227 KB budget of the particle form."""
+    lib = load_apg_library()
+    plan_particles(args, num_particles, chunk,
+                   lambda a: lib.apg_smem_bytes(ctypes.byref(a)), SMEM_LIMIT_PARTICLES)
+
+
+def _check_scope(model: NeuralSDE, apg: APGConfig, lb: torch.Tensor) -> None:
     if lb.shape[-1] != model.n_u:
         raise NotImplementedError(
             "apg_solve_kernel: slack decision columns (slack_proximal state "
@@ -91,9 +102,9 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     iter_budget: Optional[int] = None,
                     chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
     """Plain PyTorch version of :func:`apg_solve_kernel` (any device)."""
-    _check_scope(model, apg, noise, num_particles, chunk, lb)
+    _check_scope(model, apg, lb)
     oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
-                               None, 1, apg.maxls)
+                               noise, num_particles, apg.maxls, chunk=chunk)
     with torch.no_grad():
         st = apg_solve(oracle, u_init, lb, ub, apg, t_init=t_init,
                        precond=precond, iter_budget=iter_budget)
@@ -103,22 +114,25 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             u_init: torch.Tensor, t0: torch.Tensor,
-            precond: Optional[torch.Tensor], stream: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and launch one solve; returns (yk, stats, x_evol)."""
+            precond: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+            stream: int) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Allocate the outputs and launch one solve; returns (yk, stats,
+    x_evol), x_evol None for the particle form."""
+    limit = SMEM_LIMIT_PARTICLES if args.has_noise else SMEM_LIMIT
     need = lib.apg_smem_bytes(ctypes.byref(args))
-    if need > SMEM_LIMIT:
+    if need > limit:
         raise ValueError(f"apg_solve_kernel needs {need} bytes of shared "
-                         f"memory, above the {SMEM_LIMIT}-byte budget")
+                         f"memory, above the {limit}-byte budget")
     H, nZ = args.H, args.nZ
     kw = dict(dtype=torch.float32, device=u_init.device)
     yk = torch.empty((H, nZ), **kw)
     stats = torch.empty(8, **kw)
-    x_evol = torch.empty((H + 1, 13), **kw)
+    x_evol = None if args.has_noise else torch.empty((H + 1, 13), **kw)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.apg_solve_launch(
         ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
-        None if precond is None else precond.data_ptr(), yk.data_ptr(),
-        stats.data_ptr(), x_evol.data_ptr(), stream)
+        ptr(precond), ptr(noise), yk.data_ptr(), stats.data_ptr(), ptr(x_evol),
+        stream)
     if rc != 0:
         raise RuntimeError("apg_solve_kernel launch failed: "
                            + lib.apg_error_string(rc).decode())
@@ -135,11 +149,13 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                      chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
     """One fused APG solve -> ``(APGState, x_evol)``.
 
-    Inputs as ``pallas_apg_solve``: ``noise`` must be None (P=1 runs the
-    mean dynamics), ``u_init`` (H, n_u) is the warm start, ``t_init`` the carried
-    stepsize (non-positive -> ``init_stepsize``), ``precond`` an optional
-    (H, n_u) diagonal metric, ``iter_budget`` an optional host-side
-    iteration cap. CPU tensors run :func:`apg_solve_plain`.
+    Inputs as ``pallas_apg_solve``: ``noise`` the (P, H, 13) Brownian block
+    of a Monte-Carlo solve (None for the mean dynamics of P=1), ``u_init``
+    (H, n_u) the warm start, ``t_init`` the carried stepsize (non-positive
+    -> ``init_stepsize``), ``precond`` an optional (H, n_u) diagonal metric,
+    ``iter_budget`` an optional host-side iteration cap, ``chunk`` the
+    particle chunk (0: the largest divisor of P that fits). CPU tensors run
+    :func:`apg_solve_plain`.
     """
     dev = x0.device
     if dev.type == "cpu":
@@ -148,8 +164,9 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                                t_init, precond, iter_budget, chunk)
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_kernel: unsupported device {dev}")
-    _check_scope(model, apg, noise, num_particles, chunk, lb)
+    _check_scope(model, apg, lb)
     H, n = int(time_steps.shape[0]), model.n_u
+    P, z, chunk = resolve_particles(noise, num_particles, None, chunk, H, dev)
     for name, t, shape in (("x0", x0, (13,)), ("x_ref", x_ref, (H + 1, 13)),
                            ("u_init", u_init, (H, n)), ("lb", lb, (n,)),
                            ("ub", ub, (n,)), ("time_steps", time_steps, (H,)),
@@ -166,10 +183,15 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     consts, args = build_consts(model, params, cp, apg, time_steps, x0, x_ref,
                                 u_prev, lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget)
+    if z is not None:
+        z = z.contiguous()
+        plan_solve_particles(args, P, chunk)
     t0 = resolve_t_init(apg, t_init, dev)
-    yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond,
+    yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z,
                                 torch.cuda.current_stream(dev).cuda_stream)
     apg_solve_kernel.launches += 1
+    if x_evol is None:
+        x_evol = trajectory_kernel(consts, args, yk)
     st = APGState(yk=yk, num_steps=stats[0], stepsize=stats[1],
                   avg_stepsize=stats[2], avg_linesearch=stats[3],
                   grad_sqr=stats[4], init_cost=stats[5], opt_cost=stats[6])

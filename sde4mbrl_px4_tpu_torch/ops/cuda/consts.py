@@ -10,12 +10,15 @@ weights and scalars, the input box). :class:`ApgArgs` mirrors
 ``*_args_size()`` is checked against it when it is loaded. One layout
 serves all four kernels: the whole-solve kernel and the three cost-oracle
 kernels (``csrc/cost_oracle.cu``), which read the same buffer and ignore
-the solver fields.
+the solver fields. The Monte-Carlo particles' Brownian block is not part of
+the buffer (at P=512 it is 532 KB, more than a block's shared memory): the
+kernels read it from device memory, and :func:`plan_particles` fills the
+particle fields (P, the chunk Pc, the number of chunks).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -23,12 +26,17 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
-__all__ = ["APG_MAXK", "ApgArgs", "build_consts"]
+__all__ = ["APG_MAXK", "SMEM_LIMIT_PARTICLES", "ApgArgs", "build_consts",
+           "plan_particles"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
+# shared memory a block of a particle form may take: 227 KB, all of an sm_90
+# block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
+SMEM_LIMIT_PARTICLES = 232448
 
 _INT_FIELDS = (
     "H", "n_u", "nZ", "K", "F", "HID", "OUT",
+    "P", "Pc", "n_chunks", "has_noise",
     "max_iter", "max_no_imp", "budget", "has_budget", "has_pre", "has_slew",
     "reset_opt", "mom_restart", "has_moment_scale",
     "o_x0", "o_xref", "o_uprev", "o_w0", "o_b0", "o_w1", "o_b1", "o_w2",
@@ -98,6 +106,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     buf = torch.cat(flat)
 
     a.H, a.n_u, a.nZ = H, n, n
+    a.P = a.Pc = a.n_chunks = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
     if apg is None:
@@ -120,3 +129,21 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     for k, v in enumerate(df_powers(apg)):
         a.dfp[k] = v
     return buf, a
+
+
+def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
+                   need: Callable[[ApgArgs], int], limit: int) -> None:
+    """Fill the particle fields of ``a`` for a Monte-Carlo solve: P paths
+    swept in ``n_chunks`` passes of ``Pc`` rows. ``chunk`` is the one
+    ``cost_oracle.resolve_particles`` checked: a divisor of P below P, or 0,
+    which takes the largest divisor of P whose shared-memory ``need(a)``
+    (bytes) fits ``limit``. Raises ValueError when nothing fits."""
+    P = int(num_particles)
+    a.P, a.has_noise = P, 1
+    sizes = [chunk] if chunk else [d for d in range(P, 0, -1) if P % d == 0]
+    for pc in sizes:
+        a.Pc, a.n_chunks = pc, P // pc
+        if need(a) <= limit:
+            return
+    raise ValueError(f"P={P} in chunks of {a.Pc} needs {need(a)} bytes of "
+                     f"shared memory per block, above the {limit}-byte budget")

@@ -14,10 +14,19 @@ every launch of the solve reuses it. On CPU tensors :func:`cost_oracle`
 returns :func:`cost_oracle_plain`: ``vmap`` of the rollout + cost,
 autograd for the gradient, ``rollout_mean`` for the trajectory.
 
-Scope: deterministic P=1, no state constraints, no slack columns, no
-particle chunks; anything else raises, naming the ROADMAP item that brings
-it. :func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
-:func:`trajectory_kernel` each count their launches in ``.launches``.
+Particles: with ``num_particles`` P > 1 (or ``deterministic=False``) the
+cost is the mean over the P Monte-Carlo paths of the Brownian block
+``noise`` (P, H, 13), the original kernels' layout; ``trajectory`` stays the
+mean dynamics. ``chunk`` is taken and checked as in the original (it must
+divide P; ``P <= chunk`` turns it off): the kernels sweep the particles in
+chunks of that size, or, at 0, of the largest divisor of P that fits their
+shared memory. The plain version takes the unchunked mean, which the
+chunked one equals in exact arithmetic.
+
+Scope: no state constraints, no slack columns; they raise, naming the
+ROADMAP item that brings them. :func:`value_batch_kernel`,
+:func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
+their launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -30,15 +39,16 @@ import torch
 from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
-from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ApgArgs, build_consts
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
+    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
 __all__ = ["cost_oracle", "cost_oracle_plain", "load_oracle_library",
            "value_batch_kernel", "value_and_grad_kernel", "trajectory_kernel",
-           "SMEM_LIMIT"]
+           "resolve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
-SMEM_LIMIT = 49152   # bytes of shared memory a block may use (48 KB)
+SMEM_LIMIT = 49152   # bytes of shared memory a P=1 block may use (48 KB)
 _P = ctypes.c_void_p
 _A = ctypes.POINTER(ApgArgs)
 
@@ -50,12 +60,13 @@ def load_oracle_library() -> ctypes.CDLL:
     sig = {
         "cost_oracle_args_size": ([], ctypes.c_int),
         "cost_oracle_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "cost_oracle_init": ([], ctypes.c_int),
         "value_batch_smem_bytes": ([_A, ctypes.c_int], ctypes.c_int),
         "trajectory_smem_bytes": ([_A], ctypes.c_int),
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
-        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 4, ctypes.c_int),
+        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 5, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
-        "value_and_grad_launch": ([_A] + [_P] * 5, ctypes.c_int),
+        "value_and_grad_launch": ([_A] + [_P] * 6, ctypes.c_int),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -64,20 +75,40 @@ def load_oracle_library() -> ctypes.CDLL:
         raise RuntimeError(
             f"ApgArgs ABI mismatch: library {lib.cost_oracle_args_size()} bytes, "
             f"Python {ctypes.sizeof(ApgArgs)} bytes")
+    rc = lib.cost_oracle_init()
+    if rc != 0:
+        raise RuntimeError("cost_oracle_init failed: "
+                           + lib.cost_oracle_error_string(rc).decode())
     return lib
 
 
-def _check_scope(noise, num_particles: int, deterministic, chunk: int) -> None:
-    if noise is not None or int(num_particles) != 1 or deterministic is False:
-        raise NotImplementedError(
-            "cost_oracle: only the deterministic P=1 oracle is ported "
-            f"(num_particles={num_particles}, noise "
-            f"{'given' if noise is not None else 'None'}); ROADMAP.md §1 "
-            "'Particles' brings the rest")
-    if chunk:
-        raise NotImplementedError(
-            "cost_oracle: particle chunks (K11) are not ported; ROADMAP.md §1 "
-            "'Particles' brings them")
+def resolve_particles(noise: Optional[torch.Tensor], num_particles: int,
+                      deterministic: Optional[bool], chunk: int, H: int,
+                      dev: torch.device) -> Tuple[int, Optional[torch.Tensor], int]:
+    """The particle set-up of a solve, checked as in the original
+    (``solve_kernels.py:215-224``): ``(P, noise (H, P, 13) or None, chunk)``.
+    ``deterministic`` defaults to ``P <= 1``; a deterministic solve runs the
+    mean dynamics (its particles would all coincide) and ignores ``noise``;
+    otherwise ``noise`` must be the float32 (P, H, 13) block on the
+    solve's device. ``chunk`` must divide P, and ``P <= chunk`` turns it
+    off (0)."""
+    P = int(num_particles)
+    if P < 1:
+        raise ValueError(f"num_particles must be >= 1, got {P}")
+    chunk = int(chunk or 0)
+    if chunk < 0 or (chunk and P % chunk):
+        raise ValueError(f"num_particles={P} must divide by chunk={chunk}")
+    if chunk and P <= chunk:
+        chunk = 0
+    if deterministic is None:
+        deterministic = P <= 1
+    if deterministic:
+        return P, None, chunk
+    if noise is None:
+        raise ValueError(f"a Monte-Carlo solve (num_particles={P}) needs its "
+                         f"Brownian block: noise (P, H, 13), got None")
+    _check("noise", noise, (P, H, 13), dev, contiguous=False)
+    return P, noise.transpose(0, 1), chunk
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device,
@@ -140,16 +171,19 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                       num_particles: int, maxls: int,
                       deterministic: Optional[bool] = None,
                       chunk: int = 0) -> CostOracle:
-    """Plain PyTorch version of :func:`cost_oracle` (any device)."""
-    _check_scope(noise, num_particles, deterministic, chunk)
+    """Plain PyTorch version of :func:`cost_oracle` (any device): the
+    unchunked particle mean."""
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
     H, n = int(time_steps.shape[0]), model.n_u
-    zeros = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
+    _, z, _ = resolve_particles(noise, num_particles, deterministic, chunk, H,
+                                x0.device)
+    if z is None:
+        z = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
     cost_fn = make_cost_fn(cp, time_steps)
     u_prev = u_prev[:n]
 
     def seq_cost(u):
-        xp, sg = rollout_sde(model, params, x0, u, time_steps, zeros)
+        xp, sg = rollout_sde(model, params, x0, u, time_steps, z)
         return cost_fn(xp, sg, u, x_ref, u_prev)
 
     base = CostOracle.from_fn(seq_cost)
@@ -167,39 +201,60 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def value_batch_kernel(consts: torch.Tensor, args: ApgArgs,
-                       U: torch.Tensor) -> torch.Tensor:
-    """(K, H, n) plans -> (K,) costs: one launch of ``value_batch_kernel``."""
+def _limit(args: ApgArgs) -> int:
+    return SMEM_LIMIT_PARTICLES if args.has_noise else SMEM_LIMIT
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(K, H, n) plans -> (K,) costs: one launch of ``value_batch_kernel``
+    (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``)."""
     lib = load_oracle_library()
     K = int(U.shape[0])
     need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
-    if need > SMEM_LIMIT:
+    if need > _limit(args):
         raise ValueError(f"value_batch needs {need} bytes of shared memory per "
-                         f"block, above the {SMEM_LIMIT}-byte budget")
+                         f"block, above the {_limit(args)}-byte budget")
     out = torch.empty(K, dtype=torch.float32, device=U.device)
     _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
-                                     U.data_ptr(), out.data_ptr(), _stream(U)),
+                                     U.data_ptr(), _ptr(noise), out.data_ptr(),
+                                     _stream(U)),
               "value_batch")
     value_batch_kernel.launches += 1
     return out
 
 
-def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs,
-                          u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, n) plan -> (cost (), gradient (H, n)): one launch."""
     lib = load_oracle_library()
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
-    if need > SMEM_LIMIT:
+    if need > _limit(args):
         raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
-                         f"above the {SMEM_LIMIT}-byte budget")
+                         f"above the {_limit(args)}-byte budget")
     val = torch.empty((), dtype=torch.float32, device=u.device)
     grad = torch.empty_like(u)
     _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
-                                        u.data_ptr(), val.data_ptr(),
+                                        u.data_ptr(), _ptr(noise), val.data_ptr(),
                                         grad.data_ptr(), _stream(u)),
               "value_and_grad")
     value_and_grad_kernel.launches += 1
     return val, grad
+
+
+def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int) -> None:
+    """The oracle's chunk: ``chunk``, or the largest divisor of P whose
+    ``value_batch`` and ``value_and_grad`` blocks both fit."""
+    def need(a):
+        return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
+                   lib.value_and_grad_smem_bytes(ctypes.byref(a)))
+
+    plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES)
 
 
 def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
@@ -228,21 +283,26 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                 u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                 deterministic: Optional[bool] = None,
                 chunk: int = 0) -> CostOracle:
-    """The cost oracle of one solve. ``noise`` must be None (P=1 runs the
-    mean dynamics); ``maxls`` is unused, as in the original (``value_batch``
-    takes any K). CPU tensors get :func:`cost_oracle_plain`."""
+    """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
+    block of a Monte-Carlo solve (None for the mean dynamics of P=1);
+    ``maxls`` is unused, as in the original (``value_batch`` takes any K).
+    CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
                                  noise, num_particles, maxls, deterministic, chunk)
     if dev.type != "cuda":
         raise ValueError(f"cost_oracle: unsupported device {dev}")
-    _check_scope(noise, num_particles, deterministic, chunk)
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
-    load_oracle_library()
+    H = int(time_steps.shape[0])
+    P, z, chunk = resolve_particles(noise, num_particles, deterministic, chunk, H, dev)
+    lib = load_oracle_library()
     consts, args = build_consts(model, params, cp, None, time_steps, x0, x_ref,
                                 u_prev)
-    return _checked(int(time_steps.shape[0]), model.n_u, dev,
-                    functools.partial(value_batch_kernel, consts, args),
-                    functools.partial(value_and_grad_kernel, consts, args),
+    if z is not None:
+        z = z.contiguous()
+        plan_oracle_particles(lib, args, P, chunk)
+    return _checked(H, model.n_u, dev,
+                    lambda U: value_batch_kernel(consts, args, U, z),
+                    lambda u: value_and_grad_kernel(consts, args, u, z),
                     functools.partial(trajectory_kernel, consts, args))

@@ -3,8 +3,10 @@
 PyTorch counterpart of ``sde4mbrl_px4_tpu/ops/rollout.py``. The horizon is
 a Python loop (the plain version of the whole-solve kernel, which runs it
 on the card). Brownian increments are an INPUT: JAX's threefry stream has
-no torch twin, so parity tests draw them with numpy and hand the same
-block to both packages. ``make_time_steps`` is copied from the original.
+no torch twin, so parity tests draw them with numpy (or with JAX) and hand
+the same block to both packages; the port's own draws come from a
+``torch.Generator`` (:func:`draw_brownian`). ``make_time_steps`` is copied
+from the original.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from sde4mbrl_px4_tpu_torch.core import quaternion as quat
 from sde4mbrl_px4_tpu_torch.models.sde_model import (
     NeuralSDE, drift_and_sigma, drift_fn)
 
-__all__ = ["make_time_steps", "em_step", "rollout_mean", "rollout_sde"]
+__all__ = ["make_time_steps", "draw_brownian", "em_step", "rollout_mean",
+           "rollout_sde"]
 
 
 def make_time_steps(horizon: int, num_short_dt: int, short_step_dt: float,
@@ -28,6 +31,23 @@ def make_time_steps(horizon: int, num_short_dt: int, short_step_dt: float,
         [short_step_dt] * n_short + [long_step_dt] * (int(horizon) - n_short),
         dtype=np.float32,
     )
+
+
+def draw_brownian(gen: torch.Generator, H: int, P: int, antithetic: bool = False,
+                  device=None) -> torch.Tensor:
+    """Brownian increments (H, P, 13) from ``gen`` (counterpart of the
+    original ``ops/rollout.py:33-51``), drawn in one call on the generator's
+    device and moved to ``device`` in one copy. ``antithetic`` draws
+    z (H, P/2, 13) and returns ``cat([z, -z], dim=1)``: mirrored path pairs,
+    an unbiased particle mean at lower variance; it needs an even P."""
+    if antithetic and P % 2:
+        raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
+    n = P // 2 if antithetic else P
+    z = torch.randn((H, n, 13), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    if device is not None:
+        z = z.to(device)
+    return torch.cat([z, -z], dim=1) if antithetic else z
 
 
 def _renorm_quat(x: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,10 @@ Pallas kernel in interpret mode for the posctrl case. Fixed iteration
 budgets with equal ``num_steps``; tolerances are the reference's own
 (``tests/test_apg_kernel.py:60-80``).
 
-``test_kernel_matches_plain_on_cuda`` compares the hand-written CUDA
-kernel with the plain version on the card and skips without one."""
+``test_kernel_matches_plain_on_cuda`` and
+``test_particle_kernel_matches_plain_on_cuda`` compare the hand-written CUDA
+kernel with the plain version on the card (P=1; P=8, P=64 in chunks of 16
+and P=512 antithetic) and skip without one."""
 import os
 
 import jax.numpy as jnp
@@ -59,11 +61,16 @@ def test_scope_is_enforced(port_bundles):
                                  problem(tb.cost_params.uref.numpy()))
     args = (tb.model, tb.params, tb.cost_params, tb.apg_config, tb.time_steps, x0,
             x_ref, u_prev, None)
-    with pytest.raises(NotImplementedError, match="P=1"):
+    # particles: the Brownian block is required, in the (P, H, 13) layout,
+    # and a chunk must divide P (apg_kernel.py:122-123 of the original)
+    with pytest.raises(ValueError, match="Brownian block"):
         AK.apg_solve_kernel(*args, 4, tb.lb, tb.ub, u_init)
-    with pytest.raises(NotImplementedError, match="noise given"):
-        AK.apg_solve_kernel(*args[:-1], torch.zeros(H, 1, 13), 1, tb.lb, tb.ub, u_init)
-    with pytest.raises(NotImplementedError, match="chunk"):
+    with pytest.raises(ValueError, match="noise"):
+        AK.apg_solve_kernel(*args[:-1], torch.zeros(H, 4, 13), 4, tb.lb, tb.ub, u_init)
+    with pytest.raises(ValueError, match="divide"):
+        AK.apg_solve_kernel(*args[:-1], torch.zeros(4, H, 13), 4, tb.lb, tb.ub, u_init,
+                            chunk=3)
+    with pytest.raises(ValueError, match="divide"):
         AK.apg_solve_kernel(*args, 1, tb.lb, tb.ub, u_init, chunk=4)
     lb6 = torch.cat([tb.lb, torch.zeros(2)])
     with pytest.raises(NotImplementedError, match="slack"):
@@ -98,6 +105,47 @@ def test_kernel_matches_plain_on_cuda(repo_root):
         np.testing.assert_allclose(st_k.yk.cpu().numpy(), st_p.yk.cpu().numpy(),
                                    rtol=tol[0], atol=tol[1])
         assert float(st_k.opt_cost) == pytest.approx(float(st_p.opt_cost), rel=tol[0])
+        ref = t_rollout_mean(b.model, b.params, x0, st_k.yk, b.time_steps)
+        np.testing.assert_allclose(xe_k.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, chunk, antithetic", [(8, 0, False), (64, 16, False),
+                                                  (512, 0, True)])
+def test_particle_kernel_matches_plain_on_cuda(repo_root, P, chunk, antithetic):
+    """The particle form of the whole-solve kernel against its plain version
+    on the card, both iris configs, max_iter=10, the same torch draws: equal
+    steps, yk at rtol 5e-4 / atol 5e-5, opt_cost at rel 5e-4
+    (``tests/test_apg_kernel.py:100-105``); one solve launch and one
+    ``trajectory`` launch for x_evol, the mean rollout of the plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean as t_rollout_mean
+
+    dev = torch.device("cuda")
+    for name in ("iris_traj_mpc", "iris_posctrl_mpc"):
+        b = load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
+                                  device=dev)[3]
+        apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+        x0, x_ref, u_prev, u_init = (torch.from_numpy(a).to(dev) for a in
+                                     problem(b.cost_params.uref.cpu().numpy()))
+        z = draw_brownian(torch.Generator().manual_seed(P), H, P, antithetic,
+                          dev).transpose(0, 1)
+        args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref,
+                u_prev, z, P, b.lb, b.ub, u_init)
+        n0 = (AK.apg_solve_kernel.launches, CO.trajectory_kernel.launches)
+        st_k, xe_k = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk)
+        torch.cuda.synchronize()
+        assert (AK.apg_solve_kernel.launches, CO.trajectory_kernel.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        st_p, _ = AK.apg_solve_plain(*args, precond=b.precond, chunk=chunk)
+        assert int(st_k.num_steps) == int(st_p.num_steps)
+        np.testing.assert_allclose(st_k.yk.cpu().numpy(), st_p.yk.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-5)
+        assert float(st_k.opt_cost) == pytest.approx(float(st_p.opt_cost), rel=5e-4)
         ref = t_rollout_mean(b.model, b.params, x0, st_k.yk, b.time_steps)
         np.testing.assert_allclose(xe_k.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)

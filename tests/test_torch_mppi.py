@@ -144,10 +144,12 @@ def test_family_mppi_replays_golden(repo_root):
 
 
 def test_unported_families_are_refused(repo_root):
-    with pytest.raises(NotImplementedError, match="Particles"):
-        G.replay_solver_family(repo_root, "p512anti")
+    """Only the policy family is still refused; ``p512anti`` runs since the
+    particles were ported (its golden: ``tests/test_torch_particles.py``)."""
     with pytest.raises(NotImplementedError, match="Policy solver family"):
         G.replay_solver_family(repo_root, "policy")
+    rows = G.replay_solver_family(repo_root, "p512anti", n=1)
+    assert rows.shape == (1, 5) and np.isfinite(rows).all() and 1 <= rows[0, -1] <= 6
 
 
 def test_mppi_config_closed_loop(repo_root):

@@ -8,8 +8,10 @@ committed checkpoint on both sides. Tolerances are the reference's own
 (``tests/test_pallas_kernels.py:76,86``; ``tests/test_apg_kernel.py:199``):
 values rtol 2e-5, gradients rtol 5e-4 / atol 5e-5, trajectories rtol 1e-5.
 
-``test_kernels_match_plain_on_cuda`` holds the three CUDA kernels to the
-plain version on the card and skips without one."""
+``test_kernels_match_plain_on_cuda`` and
+``test_particle_kernels_match_plain_on_cuda`` hold the three CUDA kernels
+to the plain version on the card (P=1; P=8, P=64 in chunks of 16 and P=512
+antithetic) and skip without one."""
 import os
 
 import jax
@@ -113,12 +115,20 @@ def test_scope_and_inputs_are_checked(oracles, repo_root):
     T = torch.from_numpy
     x0, x_ref, u_prev = (T(a) for a in oracles["pos"][4])
     args = (tb.model, tb.params, tb.cost_params, tb.time_steps, x0, x_ref, u_prev)
-    with pytest.raises(NotImplementedError, match="Particles"):
+    # particles: a Monte-Carlo oracle needs its (P, H, 13) Brownian block,
+    # and a chunk must divide P (solve_kernels.py:221-222; at P=1 too)
+    with pytest.raises(ValueError, match="Brownian block"):
         CO.cost_oracle(*args, None, 4, 4)
-    with pytest.raises(NotImplementedError, match="noise given"):
-        CO.cost_oracle(*args, torch.zeros(1, H, 13), 1, 4)
-    with pytest.raises(NotImplementedError, match="K11"):
+    with pytest.raises(ValueError, match="noise"):
+        CO.cost_oracle(*args, torch.zeros(H, 4, 13), 4, 4)
+    with pytest.raises(ValueError, match="divide"):
+        CO.cost_oracle(*args, torch.zeros(4, H, 13), 4, 4, chunk=3)
+    with pytest.raises(ValueError, match="divide"):
         CO.cost_oracle(*args, None, 1, 4, chunk=4)
+    # P=1 is the mean dynamics, whatever noise comes with it (as the original)
+    u = torch.from_numpy(plans(1, 3)[0])
+    assert float(CO.cost_oracle(*args, torch.ones(1, H, 13), 1, 4).value(u)) == \
+        float(oracles["pos"][2].value(u))
     with pytest.raises(ValueError, match="x_ref"):
         CO.cost_oracle(*args[:5], x_ref[:-1], u_prev, None, 1, 4)
     port = oracles["pos"][2]
@@ -157,6 +167,46 @@ def test_kernels_match_plain_on_cuda(repo_root):
             assert CO.value_batch_kernel.launches == n0 + 1
             torch.testing.assert_close(vk, plain.value_batch(U), rtol=VAL_RTOL, atol=0)
         u = torch.from_numpy(plans(1, 7)[0]).to(dev)
+        vk, gk = kern.value_and_grad(u)
+        vp, gp = plain.value_and_grad(u)
+        torch.testing.assert_close(vk, vp, rtol=VAL_RTOL, atol=0)
+        torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
+        torch.testing.assert_close(kern.trajectory(u), plain.trajectory(u),
+                                   rtol=X_RTOL, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, chunk, antithetic", [(8, 0, False), (64, 16, False),
+                                                  (512, 0, True)])
+def test_particle_kernels_match_plain_on_cuda(repo_root, P, chunk, antithetic):
+    """The noise and chunk branches of ``value_batch`` (K=4) and
+    ``value_and_grad`` against the plain particle oracle on the card, both
+    iris configs, the same torch draws; ``trajectory`` stays the mean
+    rollout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernels have no CPU mode")
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+
+    dev = torch.device("cuda")
+    for name in CONFIGS.values():
+        b = load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
+                                  device=dev)[3]
+        x0, x_ref, u_prev, _ = (torch.from_numpy(a).to(dev) for a in
+                                problem(b.cost_params.uref.cpu().numpy()))
+        z = draw_brownian(torch.Generator().manual_seed(P), H, P, antithetic,
+                          dev).transpose(0, 1)
+        args = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+                z, P, 4)
+        kern = CO.cost_oracle(*args, chunk=chunk)
+        plain = CO.cost_oracle_plain(*args, chunk=chunk)
+        U = torch.from_numpy(plans(4, P)).to(dev)
+        n0 = CO.value_batch_kernel.launches
+        vk = kern.value_batch(U)
+        torch.cuda.synchronize()
+        assert CO.value_batch_kernel.launches == n0 + 1
+        torch.testing.assert_close(vk, plain.value_batch(U), rtol=VAL_RTOL, atol=0)
+        u = U[1].contiguous()
         vk, gk = kern.value_and_grad(u)
         vp, gp = plain.value_and_grad(u)
         torch.testing.assert_close(vk, vp, rtol=VAL_RTOL, atol=0)

@@ -8,9 +8,12 @@ position-hold golden replay.
   cross-backend gates of ``bench.py:250`` (|du| <= 0.03, |dw| <= 0.08,
   relative cost <= 0.02, pickup index exact);
 - a fresh process that imports the port and runs the slice (the
-  whole-solve route, MPPI and fixed-step APG) never imports JAX;
-- configs outside the slice are refused with the ROADMAP item that brings
-  them. (The trajectory replay is ``test_torch_slice_traj.py``.)
+  whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
+  never imports JAX;
+- particle configs load and route to the kernel wrappers; configs outside
+  the slice are refused with the ROADMAP item that brings them, and the
+  particle settings the original refuses raise ValueError as there. (The
+  trajectory replay is ``test_torch_slice_traj.py``.)
 """
 import os
 import subprocess
@@ -65,21 +68,89 @@ def test_flagship_traj_loads_committed_preconditioner(repo_root):
     np.testing.assert_array_equal(b.precond.numpy(), ref)
 
 
+def _mutated(repo_root, name, mutation):
+    """A config with ``mutation`` applied; dotted keys reach into blocks."""
+    cfg = load_yaml_config(os.path.join(repo_root, f"configs/{name}.yaml"))
+    for key, val in mutation.items():
+        blk, parts = cfg, key.split(".")
+        for p in parts[:-1]:
+            blk = blk[p]
+        blk[parts[-1]] = val
+    return cfg
+
+
+# The particle options that run no TPU kernel in the original (it sends them
+# to XLA, engine/mpc_loader.py:336-350, :434-443) stay refused, naming the
+# ROADMAP item that brings them.
 @pytest.mark.parametrize("mutation, item", [
     ({"solver": "mppi", "num_particles": 8}, "Particles"),
     ({"solver": "policy"}, "Policy solver family"),
-    ({"num_particles": 8}, "Particles"),
-    ({"initial_state_std": 0.01}, "Particles"),
-    ({"pallas_chunk": 4}, "Particles"),
+    ({"num_particles": 8, "cost_params.risk_lambda": 1.0}, "Particles"),
+    ({"num_particles": 8, "initial_state_std": 0.01}, "Particles"),
+    ({"solver": "mppi", "num_particles": 512, "antithetic": True}, "Particles"),
     ({"state_constr": {"state_id": [3]}}, "State constraints and slack"),
     ({"solver": "mppi", "state_constr": {"state_id": [3]}},
      "State constraints and slack"),
+    ({"num_particles": 512, "matmul_precision": "default"}, "Reduced matmul precision"),
 ])
 def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
-    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
-    cfg.update(mutation)
+    cfg = _mutated(repo_root, "iris_posctrl_mpc", mutation)
     with pytest.raises(NotImplementedError, match=item):
         tloader.make_mpc_from_config(cfg)
+
+
+# ... and the particle settings the original itself refuses
+# (engine/mpc_loader.py:336-341, :464-470; solve_kernels.py:221-222;
+# ops/rollout.py:47-49) raise ValueError, as there.
+@pytest.mark.parametrize("mutation, match", [
+    ({"cost_params.risk_lambda": 1.0}, "risk_lambda needs num_particles > 1"),
+    ({"initial_state_std": 0.01}, "initial_state_std needs num_particles > 1"),
+    ({"pallas_chunk": 4}, "must divide num_particles=1"),
+    ({"num_particles": 8, "pallas_chunk": 3}, "must divide num_particles=8"),
+    ({"num_particles": 7, "antithetic": True}, "even particle count"),
+])
+def test_particle_settings_the_original_refuses(repo_root, mutation, match):
+    cfg = _mutated(repo_root, "iris_posctrl_mpc", mutation)
+    with pytest.raises(ValueError, match=match):
+        tloader.make_mpc_from_config(cfg)
+
+
+@pytest.mark.parametrize("name, mutation, wrapper", [
+    ("iris_traj_mpc", {"num_particles": 8}, "apg_solve_kernel"),
+    ("iris_traj_mpc", {"num_particles": 8, "pallas_chunk": 4, "antithetic": True},
+     "apg_solve_kernel"),
+    ("iris_posctrl_mpc", {"num_particles": 8, "pallas_chunk": 4,
+                          "apg_mpc.linesearch": None, "apg_mpc.stepsize": 1e-5},
+     "cost_oracle"),
+])
+def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, name,
+                                                       mutation, wrapper):
+    """``num_particles: 8`` (with ``pallas_chunk`` and ``antithetic``) loads
+    and each solve hands the kernel wrapper of its route one (P, H, 13)
+    block drawn from the generator, P and the chunk; on the CPU the wrapper
+    runs its plain version."""
+    cfg = _mutated(repo_root, name, mutation)
+    cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
+    calls = []
+    orig = getattr(tloader, wrapper)
+
+    def spy(*args, **kw):
+        noise, P = args[7:9] if wrapper == "cost_oracle" else args[8:10]
+        calls.append((tuple(noise.shape), P, kw["chunk"]))
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(tloader, wrapper, spy)
+    _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg)
+    assert b.num_particles == 8
+    x = torch.zeros(13)
+    x[6] = 1.0
+    gen = torch.Generator().manual_seed(0)
+    state0 = gen.get_state()
+    sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
+    assert sol.rng is gen and not torch.equal(gen.get_state(), state0)
+    assert calls == [((8, 20, 13), 8, mutation.get("pallas_chunk", 0))]
+    assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
+    assert sol.x_evol.shape == (21, 13)
 
 
 def test_precond_cache_miss_is_refused(repo_root):
@@ -142,6 +213,18 @@ def test_slice_runs_without_jax(repo_root):
         for mode in ("pos", "traj"):
             rec = c.solve_once(x, CONTROL_STATES[mode], 0.5, x, 1e6)
             assert rec.num_steps == 2, rec
+        # the particle route: P=8 antithetic, chunks of 4
+        import torch
+        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+        from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+        cfg = load_yaml_config("configs/iris_traj_mpc.yaml")
+        cfg.update(num_particles=8, antithetic=True, pallas_chunk=4)
+        cfg["apg_mpc"]["max_iter"] = 2
+        _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg)
+        xt = hover_state()
+        gen = torch.Generator().manual_seed(0)
+        sol = mpc_fn(xt, gen, reset_fn(xt, gen, xt), 0.5, xt)
+        assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
