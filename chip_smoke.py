@@ -38,7 +38,8 @@ without a result):
    its linesearch block through the kernels;
 9. times, on the same card, kernel against plain: the chained pos and
    traj replays per solve (p50, wall clock from dispatch to the plan on
-   the host), MPPI and fixed-step APG per solve (p50 over chained ticks),
+   the host), MPPI and fixed-step APG per solve (p50 over chained ticks;
+   the plain replays and fixed-step route time their first tick only),
    and each oracle kernel per launch (CUDA events);
 10. Monte-Carlo particles, kernel against plain on the same torch draws,
     both iris configs, at P=8 (one chunk) and P=64 in chunks of 16: the
@@ -63,9 +64,31 @@ without a result):
     those kernels against the plain oracle at P=512 in the route's chunks
     (``value`` at K=1 and ``value_batch`` at K=4, rtol 2e-5;
     ``value_and_grad``, value rtol 2e-5, gradient rtol 5e-4 / atol 5e-5),
-    and their per-launch times.
+    and their per-launch times;
+14. state constraints (``state_constr``), kernel against plain, on
+    ``configs/iris_constr_posctrl_mpc.yaml`` as shipped (proximal slack,
+    nZ = 10) and in its penalty form, each at P=1 and at P=8 in chunks of
+    4: the whole solve at max_iter=10 from a bound-violating start (the
+    particle tolerances), ``value``/``value_batch`` (K = 4, 64) and
+    ``value_and_grad`` at the oracle tolerances, ``trajectory`` of an
+    nZ-wide plan; then the altitude floor of
+    ``examples/noise_robustness.py`` (penalty form) at P=128 antithetic,
+    a fixed 5-iteration solve, timed; each form's shared memory;
+15. the constrained flight of ``examples/constrained_mpc.py``: 100 chained
+    ticks of the 3 m step without the block, with it (gate: the example's
+    own, v_c < v_u and v_c < 0.75 m/s) and in its penalty form, one
+    ``apg_solve`` launch per tick and no ``trajectory``; the shipped config
+    as a controller's position config; the floor route at P=128 through
+    ``mpc_fn``; the fixed 10-iteration solve of each form, kernel against
+    plain, timed;
+16. the oracle routes with constraints, in both forms: MPPI at the
+    ``MPPIConfig`` defaults through the kernels and through the plain
+    oracle with the same draws (|du| <= 1e-4 per row), fixed-step APG
+    (kernel oracle against plain in lockstep), per-launch times at nZ = 10
+    and nZ = 4; the fixed-step floor route at P=128 and its oracle kernels
+    against plain.
 
-In phases 6-8 and 11-13 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13 and 15-16 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -80,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -96,10 +120,27 @@ LIBS = ("apg_solve", "cost_oracle")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
+# state constraints: the shipped proximal config and its penalty form
+# (slack_proximal false); the kernels' forms as the build log names them
+SHIPPED = "iris_constr_posctrl_mpc"
+SC_FORMS = ("prox", "penalty")
+SC_NAMES = ("none", "penalty", "prox")
+FLIGHT_TICKS = 100   # examples/constrained_mpc.py: the 3 m step
+P_FLOOR = 128        # examples/noise_robustness.py: P=128 antithetic, max_iter 60
+FLOOR = {"state_id": [2], "state_bound": [[-5.0, -1.2]], "state_penalty": [300.0],
+         "slack_scaling": [1.0]}   # its altitude floor (NED z <= -1.2), :125-130
+FLOOR_NOISE = 0.6    # ... and the diffusion scale it gives the model (:102, :137)
+# the least time of a call: the H100 SXM's fp32 rate outside the tensor cores
+# and its HBM3 rate (NVIDIA's published H100 SXM figures)
+PEAK_FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the run's log, stamped with the seconds since start."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -189,9 +230,12 @@ def phase_build() -> None:
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)(ILb([01])E)?", line)
+            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)(?:ILb([01])ELi(\d)EE)?",
+                              line)
             if entry:
-                form = {"0": "<false>", "1": "<true>"}.get(entry.group(3), "")
+                form = ("" if entry.group(2) is None else
+                        f"<{'true' if entry.group(2) == '1' else 'false'}, "
+                        f"{SC_NAMES[int(entry.group(3))]}>")
                 log(f"  ptxas: {entry.group(1)}{form}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -471,17 +515,21 @@ def phase_mppi(dev) -> dict:
     return got
 
 
-def chain(cfg: dict, dev, n: int):
+def chain(cfg: dict, dev, n: int, make=None):
     """``n`` chained solves of one config's ``mpc_fn`` from the pinned
     offset state of the family replays: (rows [u0, num_steps], wall ms
-    per solve from dispatch to the plan on the host)."""
+    per solve from dispatch to the plan on the host). ``make(cfg, dev)``
+    loads the config (default ``make_mpc_from_config``)."""
     import numpy as np
     import torch
 
     from sde4mbrl_px4_tpu_torch.core.types import hover_state
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
 
-    cfg, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    if make is None:
+        cfg, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    else:
+        cfg, (reset_fn, mpc_fn), _, _ = make(cfg, dev)
     dt = float(cfg["_time_steps"][0])
     x = hover_state(dev)
     x[0], x[2] = 0.5, -0.3
@@ -573,7 +621,9 @@ def phase_timing(dev, card: str) -> dict:
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
     out = {}
-    n_kernel, n_plain, warm = 6, 3, 1
+    # the plain version has nothing to compile or warm: its replays time
+    # their first tick only (its iteration count is printed beside it)
+    n_kernel, warm, n_plain = 6, 1, 1
     for mode in ("pos", "traj"):
         events = []
         with routed("apg_solve_kernel", event_timed(events)):
@@ -582,25 +632,25 @@ def phase_timing(dev, card: str) -> dict:
         dev_ms = statistics.median(a.elapsed_time(b)
                                    for a, b in events[-(n_kernel - warm):])
         with routed("apg_solve_kernel", AK.apg_solve_plain):
-            p_ms, p_steps = chained(dev, mode, n_plain, warm)
-        out[mode] = (k_ms, p_ms, dev_ms)
+            p_ms, p_steps = chained(dev, mode, n_plain, 0)
+        out[mode] = (k_ms, p_ms, dev_ms, k_steps)
         log(f"chained iris/{mode} replay, per solve p50 ({card}): kernel {k_ms:.3f} ms "
             f"wall ({dev_ms:.3f} ms device span) at {k_steps:.1f} iterations over ticks "
             f"{warm + 1}-{n_kernel}, plain {p_ms:.3f} ms wall at {p_steps:.1f} iterations "
-            f"over ticks {warm + 1}-{n_plain}")
+            f"on tick 1")
 
-    routes = {"mppi": (config("iris_posctrl_mpc", solver="mppi"), 8, 8),
+    routes = {"mppi": (config("iris_posctrl_mpc", solver="mppi"), 8, 8, warm),
               "fixed_step": (config("iris_posctrl_mpc", linesearch=None,
-                                    stepsize=FIXED_STEP["iris_posctrl_mpc"]), 6, 3)}
-    for route, (cfg, n_k, n_p) in routes.items():
+                                    stepsize=FIXED_STEP["iris_posctrl_mpc"]), 6, 1, 0)}
+    for route, (cfg, n_k, n_p, w_p) in routes.items():
         rows_k, ms_k = chain(cfg, dev, n_k)
         with routed("cost_oracle", CO.cost_oracle_plain):
             rows_p, ms_p = chain(cfg, dev, n_p)
-        out[route] = (statistics.median(ms_k[warm:]), statistics.median(ms_p[warm:]))
+        out[route] = (statistics.median(ms_k[warm:]), statistics.median(ms_p[w_p:]))
         log(f"chained {route} solves, per solve p50 ({card}): kernels "
             f"{out[route][0]:.3f} ms wall over ticks {warm + 1}-{n_k} at "
             f"{rows_k[warm:, -1].mean():.1f} iterations, plain {out[route][1]:.3f} ms "
-            f"wall over ticks {warm + 1}-{n_p} at {rows_p[warm:, -1].mean():.1f}")
+            f"wall over ticks {w_p + 1}-{n_p} at {rows_p[w_p:, -1].mean():.1f}")
 
     _, kern, plain = oracles("iris_posctrl_mpc", dev)
     U, u = plans(64, 1, dev), plans(1, 2, dev)[0]
@@ -625,11 +675,13 @@ def brownian(P: int, dev, antithetic: bool = False, seed: int = None):
     return draw_brownian(gen, 20, P, antithetic, dev).transpose(0, 1)
 
 
-def particle_solve_parity(AK, b, args, chunk: int, tag: str) -> tuple:
-    """A particle solve through the kernel and the plain version: equal
-    steps, ``yk`` and ``opt_cost`` at the particle tolerances, ``x_evol``
-    (the ``trajectory`` launch) the mean rollout of the kernel's plan.
-    Returns (max |du|, max |dx| of ``x_evol``)."""
+def particle_solve_parity(AK, b, args, chunk: int, tag: str,
+                          what: str = "particle solve") -> tuple:
+    """A particle (or state-constrained) solve through the kernel and the
+    plain version: equal steps, ``yk`` and ``opt_cost`` at the particle
+    tolerances, ``x_evol`` (the ``trajectory`` launch, or the P=1 exit
+    sweep's) the mean rollout of the control columns of the kernel's plan.
+    Returns (max |du|, max |dx| of ``x_evol``, steps)."""
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
@@ -640,16 +692,16 @@ def particle_solve_parity(AK, b, args, chunk: int, tag: str) -> tuple:
     nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
     du = float((st_k.yk - st_p.yk).abs().max())
     dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
-    ref = rollout_mean(b.model, b.params, args[5], st_k.yk, b.time_steps)
+    ref = rollout_mean(b.model, b.params, args[5], st_k.yk[:, :b.model.n_u], b.time_steps)
     dx = float((xe_k - ref).abs().max())
-    log(f"particle solve {tag}: steps kernel {nk} plain {np_}; max|du| {du:.3e} "
+    log(f"{what} {tag}: steps kernel {nk} plain {np_}; max|du| {du:.3e} "
         f"(rtol {PART_RTOL}, atol {PART_ATOL}); cost rel {dc:.3e} (5e-4); x_evol "
         f"max|dx| {dx:.3e} (rtol 1e-5)")
     if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=PART_RTOL, atol=PART_ATOL)
             and dc <= PART_RTOL and torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6)
             and bool(torch.isfinite(st_k.yk).all())):
-        raise AssertionError(f"the particle solve disagrees with its plain version ({tag})")
-    return du, dx
+        raise AssertionError(f"the {what} disagrees with its plain version ({tag})")
+    return du, dx, nk
 
 
 def phase_particle_parity(dev) -> dict:
@@ -682,11 +734,12 @@ def phase_particle_parity(dev) -> dict:
     return err
 
 
-def particle_oracle_parity(kern, plain, U, tag: str) -> dict:
-    """The particle oracle kernels against the plain oracle on the same
-    draws: ``value`` (``value_batch`` at K=1) and ``value_batch`` at
-    K=len(U) at rtol 2e-5, ``value_and_grad`` (value rtol 2e-5, gradient
-    rtol 5e-4 / atol 5e-5). Returns max |err| per kernel."""
+def particle_oracle_parity(kern, plain, U, tag: str, what: str = "particle oracle") -> dict:
+    """The particle (or state-constrained) oracle kernels against the plain
+    oracle on the same draws: ``value`` (``value_batch`` at K=1) and
+    ``value_batch`` at K=len(U) at rtol 2e-5, ``value_and_grad`` (value
+    rtol 2e-5, gradient rtol 5e-4 / atol 5e-5). Returns max |err| per
+    kernel."""
     import torch
 
     vk, vp = kern.value_batch(U), plain.value_batch(U)
@@ -697,14 +750,13 @@ def particle_oracle_parity(kern, plain, U, tag: str) -> dict:
               abs(float(v1k) - float(v1p)) / abs(float(v1p)))
     dv = abs(float(a_k) - float(a_p)) / abs(float(a_p))
     dg = float((g_k - g_p).abs().max())
-    log(f"particle oracle {tag}: value (K=1) / value_batch K={len(U)} max rel err "
+    log(f"{what} {tag}: value (K=1) / value_batch K={len(U)} max rel err "
         f"{rel:.3e} (rtol 2e-5); value_and_grad value rel {dv:.3e}, grad max|d| {dg:.3e} "
         f"(rtol 5e-4, atol 5e-5)")
     if not (rel <= 2e-5 and dv <= 2e-5 and bool(torch.isfinite(vk).all())
             and bool(torch.isfinite(g_k).all())
             and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5)):
-        raise AssertionError(f"a particle oracle kernel disagrees with its plain "
-                             f"version ({tag})")
+        raise AssertionError(f"a {what} kernel disagrees with its plain version ({tag})")
     return {"value_batch": max(float((vk - vp).abs().max()), abs(float(v1k - v1p))),
             "value_and_grad": max(dg, abs(float(a_k - a_p)))}
 
@@ -820,7 +872,7 @@ def phase_particle_flight(dev, card: str) -> dict:
     z = brownian(P_FULL, dev, antithetic=True, seed=0)
     args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z,
             P_FULL, b.lb, b.ub, u_init)
-    out["max_du"], out["max_dx"] = particle_solve_parity(
+    out["max_du"], out["max_dx"], out["fixed_steps"] = particle_solve_parity(
         AK, b, args, 0, f"iris_traj_mpc P={P_FULL} antithetic")
     out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=5,
                                                         n_plain=2)
@@ -888,6 +940,418 @@ def phase_particle_oracle(dev, card: str) -> dict:
     return out
 
 
+def constrained_config(form: str, **mut) -> dict:
+    """``configs/iris_constr_posctrl_mpc.yaml`` in the proximal form as
+    shipped (``form="prox"``) or its penalty form, with ``mut`` as
+    :func:`config` takes it."""
+    cfg = config(SHIPPED, **mut)
+    cfg["state_constr"]["slack_proximal"] = form == "prox"
+    return cfg
+
+
+def floor_config(**mut) -> dict:
+    """The particle route of ``examples/noise_robustness.py``: the posctrl
+    config with its altitude floor (penalty form), P=128 antithetic,
+    max_iter 60; :func:`floor_mpc` loads it at the example's noise."""
+    mut.setdefault("max_iter", 60)
+    mut.setdefault("max_no_improvement_iter", mut["max_iter"])
+    cfg = config("iris_posctrl_mpc", particles=P_FLOOR, **mut)
+    cfg["state_constr"] = copy.deepcopy(FLOOR)
+    return cfg
+
+
+def floor_mpc(cfg: dict, dev):
+    """``make_mpc_from_config`` of a :func:`floor_config`, with the model's
+    diffusion at the example's noise scale, as the example sets it
+    (``params["diffusion_log_scale"] = log(0.6)``)."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    made = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    made[3].params["diffusion_log_scale"].fill_(math.log(FLOOR_NOISE))
+    return made
+
+
+def trunk_flops(b) -> int:
+    """Multiply-add FLOPs of one row's trunk, (9+n_u) -> HID -> HID -> 12:
+    the work of one row of one step forward, and of its transposed products
+    in a reverse step (the rigid-body arithmetic is left out, so bounds
+    built on it are lower bounds)."""
+    net = b.params["net"]
+    F, HID, OUT = int(net["w0"].shape[0]), int(net["w1"].shape[0]), int(net["w2"].shape[1])
+    return 2 * (F * HID + HID * HID + HID * OUT)
+
+
+def work(b, kind: str, P: int = 1, K: int = 1, iters: int = 0) -> int:
+    """FLOPs of one call, from its shapes: ``value_batch`` K x P rows
+    forward over H steps; ``value_and_grad`` P rows forward and reverse
+    (one trunk pass each way: that the particle forms re-run the trunk in
+    the reverse is the kernels' choice, not work the function needs);
+    ``trajectory`` one row forward; ``apg_solve`` iters + 2 gradients and
+    iters K-candidate rollouts."""
+    H, f = int(b.time_steps.shape[0]), trunk_flops(b)
+    vg = P * H * 2 * f
+    cands = K * P * H * f
+    return {"value_batch": cands, "value_and_grad": vg, "trajectory": H * f,
+            "apg_solve": (iters + 2) * vg + iters * cands}[kind]
+
+
+def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0) -> int:
+    """Bytes one call must move: the consts buffer, the plans (nZ wide) and
+    the (H, P, 13) Brownian block read once, the outputs written once."""
+    H, nZ = int(b.time_steps.shape[0]), int(b.lb_z.shape[0])
+    noise = H * P * 13 if P > 1 else 0
+    pre = H * nZ if b.precond is not None else 0
+    io = {"value_batch": K * H * nZ + K, "value_and_grad": 2 * H * nZ + 1,
+          "trajectory": H * nZ + (H + 1) * 13,
+          "apg_solve": 2 * H * nZ + 1 + pre + 8 + (H + 1) * 13}[kind]
+    return 4 * (n_consts + noise + io)
+
+
+def bound(b, kind: str, n_consts: int, **shape) -> tuple:
+    """(bound_ms, bound_by): the larger of the call's FLOPs over the fp32
+    peak and its bytes over the HBM rate."""
+    t_ops = work(b, kind, **{k: v for k, v in shape.items() if k in ("P", "K", "iters")})
+    t_ops = t_ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = io_bytes(b, kind, n_consts=n_consts,
+                       **{k: v for k, v in shape.items() if k in ("P", "K")}) / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def make_bundle(name: str, dev):
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+
+    return load_mpc_from_cfgfile(os.path.join(ROOT, f"configs/{name}.yaml"), device=dev)[3]
+
+
+def n_consts(b, dev, constrained: bool = False) -> int:
+    """Floats in the consts buffer of b's solves."""
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    x0, x_ref, u_prev, _ = constrained_problem(b) if constrained else problem(b, dev)
+    return build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref,
+                        u_prev)[1].n_consts
+
+
+def smem_bytes(b, dev, P: int = 1, K: int = 64) -> dict:
+    """Shared memory per block of each kernel for b's constrained solves at
+    P particles (the chunk each picks), and the value_batch tile."""
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    x0, x_ref, u_prev, _ = constrained_problem(b)
+    _, a = build_consts(b.model, b.params, b.cost_params, b.apg_config, b.time_steps, x0,
+                        x_ref, u_prev, b.lb_z, b.ub_z)
+    lib, olib = AK.load_apg_library(), CO.load_oracle_library()
+    _, o = build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref,
+                        u_prev)
+    if P > 1:
+        AK.plan_solve_particles(a, P, 0)
+        CO.plan_oracle_particles(olib, o, P, 0)
+    return {"apg_solve": lib.apg_smem_bytes(ctypes.byref(a)), "apg_Pc": a.Pc,
+            "value_batch": olib.value_batch_smem_bytes(ctypes.byref(o), K),
+            "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(o)),
+            "trajectory": olib.trajectory_smem_bytes(ctypes.byref(o)), "oracle_Pc": o.Pc}
+
+
+def phase_constraint_parity(dev) -> dict:
+    """Every state-constraint branch of every kernel against its plain
+    version on the card: the whole solve (max_iter 10 from a bound-violating
+    start) and the oracle (``value``, ``value_batch`` K = 4 and 64,
+    ``value_and_grad``, ``trajectory`` at nZ = 10) in both forms at P=1 and
+    at P=8 in chunks of 4; then the noise-robustness floor at P=128
+    antithetic, a fixed 5-iteration solve, with the same torch draws.
+    Returns max |err| per (kernel, form, P) and the shared memory."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_plans, constrained_problem
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    err, smem = {}, {}
+    for form in SC_FORMS:
+        b = make_mpc_from_config(constrained_config(form), device=dev)[3]
+        x0, x_ref, u_prev, z_init = constrained_problem(b)
+        m = b.cost_params.n_slack
+        apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+        for P, chunk in ((1, 0), (8, 4)):
+            z = None if P == 1 else brownian(P, dev, antithetic=True)
+            tag = f"{form} nZ={4 + m} P={P}" + (f" chunk={chunk}" if chunk else "")
+            args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
+                    z, P, b.lb_z, b.ub_z, z_init)
+            du, dx, _ = particle_solve_parity(AK, b, args, chunk, tag, "constrained solve")
+            err[("apg_solve", form, P)] = du
+            oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, z, P,
+                     b.apg_config.maxls)
+            kern = CO.cost_oracle(*oargs, chunk=chunk)
+            plain = CO.cost_oracle_plain(*oargs, chunk=chunk)
+            e = {"value_batch": 0.0, "value_and_grad": 0.0}
+            for K in ((4, 64) if P == 1 else (4,)):
+                U = constrained_plans(b, K, K + P)
+                for k, v in particle_oracle_parity(kern, plain, U, tag,
+                                                   "constrained oracle").items():
+                    e[k] = max(e[k], v)
+            for k, v in e.items():
+                err[(k, form, P)] = v
+            u = constrained_plans(b, 1, 9)[0]
+            x_k, x_p = kern.trajectory(u), plain.trajectory(u)
+            dxt = float((x_k - x_p).abs().max())
+            err[("trajectory", form, P)] = dxt
+            log(f"constrained oracle {tag}: trajectory of a {4 + m}-column plan max|dx| "
+                f"{dxt:.3e} (rtol 1e-5, atol 1e-6)")
+            if not torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"trajectory disagrees with its plain version ({tag})")
+        smem[form] = smem_bytes(b, dev)
+        log(f"shared memory, {form} form (nZ={4 + m}, P=1): apg_smem_bytes "
+            f"{smem[form]['apg_solve']} (default budget 49152, constrained forms up to "
+            f"{AK.SMEM_LIMIT_PARTICLES}); value_batch K=64 {smem[form]['value_batch']}, "
+            f"value_and_grad {smem[form]['value_and_grad']}, trajectory "
+            f"{smem[form]['trajectory']} (budget 49152)")
+
+    b = floor_mpc(floor_config(), dev)[3]
+    x0, x_ref, u_prev, z_init = constrained_problem(b)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
+            brownian(P_FLOOR, dev, antithetic=True, seed=1), P_FLOOR, b.lb_z, b.ub_z, z_init)
+    tag = f"altitude floor (penalty) P={P_FLOOR} antithetic"
+    du, dx, steps = particle_solve_parity(AK, b, args, 0, tag, "constrained solve")
+    err[("apg_solve", "penalty", P_FLOOR)] = du
+    smem["floor"] = smem_bytes(b, dev, P_FLOOR, K=1)
+    timed = time_fixed(AK, args, None, n_kernel=5, n_plain=2)
+    log(f"fixed 5-iteration floor solve at P={P_FLOOR}: kernel {timed[0]:.3f} ms (CUDA "
+        f"events, mean of 5, solve + trajectory), plain {timed[1]:.3f} ms (wall, mean of 2); "
+        f"whole solve Pc={smem['floor']['apg_Pc']}, apg_smem_bytes {smem['floor']['apg_solve']}")
+    return {"err": err, "smem": smem, "floor": (timed, steps, b)}
+
+
+def flight(cfg: dict, dev, n: int) -> dict:
+    """``examples/constrained_mpc.py`` on the port: ``n`` chained ticks of
+    a 3 m position step (NED x) from hover, ``x = x_evol[1]``; the peak
+    |v| and |omega| along the predicted paths, the final position error,
+    wall ms and iterations per solve."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import ned2enu
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    x = hover_state(dev)
+    target = hover_state(dev)
+    target[0] = 3.0
+    xdes = ned2enu(target)
+    gen = torch.Generator().manual_seed(0)
+    st = reset_fn(x, gen, x)
+    v_max = w_max = 0.0
+    wall, steps = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        u, st, gen, x_evol = mpc_fn(x, gen, st, 0.0, xdes)
+        xe = x_evol.cpu()
+        wall.append((time.perf_counter() - t) * 1e3)
+        steps.append(int(st.num_steps))
+        if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(xe).all())):
+            raise AssertionError("a constrained flight solve returned non-finite values")
+        v_max = max(v_max, float(xe[1:, 3:6].abs().max()))
+        w_max = max(w_max, float(xe[1:, 10:13].abs().max()))
+        x = x_evol[1]
+    return {"v": v_max, "w": w_max, "err": float(torch.linalg.norm(x[:3] - target[:3])),
+            "wall": wall, "steps": steps}
+
+
+def phase_constrained_flight(dev, card: str) -> dict:
+    """The full-width constrained route: the 3 m step flown without and with
+    the shipped proximal block (gate: the example's PASS), and in the
+    penalty form; one ``apg_solve`` per tick and no ``trajectory`` (P=1
+    exports ``x_evol``). Then the shipped config as the controller's
+    position config, the floor route at P=128 through ``mpc_fn``, and the
+    fixed 10-iteration solve, kernel against plain."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    n, warm = FLIGHT_TICKS, 1
+    none = {"value_batch": 0, "value_and_grad": 0, "trajectory": 0}
+    unconstrained = config(SHIPPED)
+    unconstrained.pop("state_constr")
+    runs, out = {}, {"launches": {}}
+    for name, cfg in (("unconstrained", unconstrained), ("prox", constrained_config("prox")),
+                      ("penalty", constrained_config("penalty"))):
+        events = []
+        zero_counts()
+        with routed("apg_solve_kernel", event_timed(events)):
+            r = flight(cfg, dev, n)
+        torch.cuda.synchronize()
+        out["launches"][name] = check_route(f"constrained flight ({name})",
+                                            {"apg_solve": n, **none})
+        r["device"] = [a.elapsed_time(e) for a, e in events]
+        runs[name] = r
+        log(f"3 m step, {name} ({n} chained ticks, {card}): |v|max {r['v']:.3f} m/s, "
+            f"|w|max {r['w']:.3f} rad/s, final error {r['err']:.3f} m; per solve p50 "
+            f"{statistics.median(r['wall'][warm:]):.3f} ms wall, "
+            f"{statistics.median(r['device'][warm:]):.3f} ms device span over ticks "
+            f"{warm + 1}-{n}; iterations per solve mean {statistics.mean(r['steps']):.1f} "
+            f"(min {min(r['steps'])}, max {max(r['steps'])})")
+    v_u, v_c = runs["unconstrained"]["v"], runs["prox"]["v"]
+    ok = v_c < v_u and v_c < 0.75
+    log(f"constrained flight (examples/constrained_mpc.py gate: v_c < v_u and v_c < 0.75 "
+        f"m/s): v_u {v_u:.3f}, v_c {v_c:.3f} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the constrained flight did not hold its velocity box")
+    out["runs"] = runs
+
+    # the shipped config as the position config of the controller
+    c = RecedingHorizonController(os.path.join(ROOT, "configs/iris_traj_mpc.yaml"),
+                                  os.path.join(ROOT, f"configs/{SHIPPED}.yaml"),
+                                  seed=0, now_fn=lambda: 0.0, device=dev)
+    pos0 = c.pos.solves
+    zero_counts()
+    cmds, _ = G.replay_pos(c)
+    torch.cuda.synchronize()
+    n_pos = c.pos.solves - pos0
+    check_route("constrained controller", {"apg_solve": n_pos, **none})
+    log(f"RecedingHorizonController with {SHIPPED} as its position config: {n_pos} pos "
+        f"solves, commands u0 {np.array2string(cmds[-1, :4], precision=4)}, slack columns "
+        f"{tuple(c.opt_state_pos.yk.shape)} kept in its warm start")
+    if not (n_pos == 6 and np.isfinite(cmds).all() and (cmds[:, :4] >= 1e-4 - 1e-7).all()
+            and (cmds[:, :4] <= 1.0 + 1e-7).all() and c.opt_state_pos.yk.shape[1] == 10):
+        raise AssertionError("the controller did not fly the constrained position config")
+
+    # the particle route of examples/noise_robustness.py
+    zero_counts()
+    rows, ms = chain(floor_config(), dev, 3, make=floor_mpc)
+    torch.cuda.synchronize()
+    out["launches"]["floor"] = check_route(f"floor P={P_FLOOR}", {
+        "apg_solve": 3, "value_batch": 0, "value_and_grad": 0, "trajectory": 3})
+    log(f"altitude-floor route at P={P_FLOOR} antithetic through mpc_fn ({card}): 3 chained "
+        f"solves at {rows[:, -1].tolist()} iterations, "
+        f"{np.array2string(np.array(ms), precision=1)} ms wall")
+    if not (np.isfinite(rows).all() and (rows[:, -1] >= 1).all()):
+        raise AssertionError(f"the floor route at P={P_FLOOR} returned an invalid plan")
+
+    # the fixed 10-iteration solve of each form, kernel against plain
+    out["fixed"] = {}
+    for form in SC_FORMS:
+        b = make_mpc_from_config(constrained_config(form), device=dev)[3]
+        x0, x_ref, u_prev, z_init = constrained_problem(b)
+        apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+        args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None,
+                1, b.lb_z, b.ub_z, z_init)
+        out["fixed"][form] = (time_fixed(AK, args, None), b)
+        k_ms, p_ms = out["fixed"][form][0]
+        log(f"fixed 10-iteration {form} solve ({card}): kernel {k_ms:.4f} ms (CUDA events, "
+            f"mean of 20), plain {p_ms:.3f} ms (wall, mean of 3)")
+    return out
+
+
+def phase_constrained_oracle(dev, card: str) -> dict:
+    """The oracle routes with state constraints: MPPI on the constrained
+    config at the MPPIConfig defaults (kernels vs plain with the same torch
+    draws, |du| <= 1e-4 per row), fixed-step APG (kernels vs plain in
+    lockstep), in both forms, and fixed-step at P=128 on the floor (the
+    oracle's constrained particle branches, then those kernels against
+    plain); launch counts per route; per-launch times."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_plans, constrained_problem
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.solver.apg import apg_solve
+
+    n, iters, step = 4, 8, 1e-6
+    out = {"launches": {}, "err": {}, "ms": {}}
+    for form in SC_FORMS:
+        zero_counts()
+        rows_k, _ = chain(constrained_config(form, solver="mppi"), dev, n)
+        torch.cuda.synchronize()
+        out["launches"][("mppi", form)] = check_route(f"constrained MPPI ({form})", {
+            "apg_solve": 0, "value_batch": n * (iters + 2), "value_and_grad": 0,
+            "trajectory": n})
+        with routed("cost_oracle", CO.cost_oracle_plain):
+            rows_p, _ = chain(constrained_config(form, solver="mppi"), dev, n)
+        du = np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max(axis=1)
+        log(f"constrained MPPI ({form}; K=64, {iters} rounds, {n} chained solves), kernels vs "
+            f"plain, same draws: max|du| per row {np.array2string(du, precision=3)} (gate 1e-4)")
+        if not ((du <= 1e-4).all() and np.isfinite(rows_k).all()):
+            raise AssertionError(f"constrained MPPI through the kernels disagrees ({form})")
+
+        cfg = constrained_config(form, linesearch=None, stepsize=step, max_iter=30,
+                                 max_no_improvement_iter=30)
+        zero_counts()
+        rows, _ = chain(cfg, dev, 2)
+        torch.cuda.synchronize()
+        k = int(rows[:, -1].sum())
+        out["launches"][("fixed_step", form)] = check_route(f"constrained fixed-step ({form})", {
+            "apg_solve": 0, "value_batch": k, "value_and_grad": k + 4, "trajectory": 2})
+        b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)[3]
+        x0, x_ref, u_prev, z_init = constrained_problem(b)
+        oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1,
+                 b.apg_config.maxls)
+        kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+        with torch.no_grad():
+            st_k, st_p = (apg_solve(o, z_init, b.lb_z, b.ub_z, b.apg_config)
+                          for o in (kern, plain))
+        nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+        du = float((st_k.yk - st_p.yk).abs().max())
+        dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+        log(f"constrained fixed-step ({form}, stepsize {step}, 30 iterations): steps kernel "
+            f"{nk} plain {np_}; max|du| {du:.3e} (rtol 5e-4, atol 5e-5); cost "
+            f"{float(st_p.init_cost):.3f} -> {float(st_k.opt_cost):.3f}, rel {dc:.3e}")
+        if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=5e-4, atol=5e-5)
+                and dc <= 5e-4 and float(st_k.opt_cost) < float(st_k.init_cost)):
+            raise AssertionError(f"constrained fixed-step APG disagrees on the kernels ({form})")
+        out["err"][("fixed_step", form)] = du
+        m = b.cost_params.n_slack
+        U, u = constrained_plans(b, 64, 1), constrained_plans(b, 1, 2)[0]
+        for name, call in (("value_batch", lambda o: o.value_batch(U)),
+                           ("value_and_grad", lambda o: o.value_and_grad(u)),
+                           ("trajectory", lambda o: o.trajectory(u))):
+            out["ms"][(name, form, 1)] = (per_launch_ms(lambda: call(kern), 50),
+                                          per_launch_ms(lambda: call(plain), 5))
+            log(f"{name}{' K=64' if name == 'value_batch' else ''} {form} nZ={4 + m} per "
+                f"launch ({card}): kernel {out['ms'][(name, form, 1)][0]:.4f} ms, plain "
+                f"{out['ms'][(name, form, 1)][1]:.3f} ms (CUDA events)")
+
+    cfg = floor_config(linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"], max_iter=20)
+    zero_counts()
+    rows, ms = chain(cfg, dev, 2, make=floor_mpc)
+    torch.cuda.synchronize()
+    k = int(rows[:, -1].sum())
+    out["launches"][("fixed_step", "floor")] = check_route(f"floor fixed-step P={P_FLOOR}", {
+        "apg_solve": 0, "value_batch": k, "value_and_grad": k + 4, "trajectory": 2})
+    log(f"floor fixed-step route at P={P_FLOOR}: 2 chained solves at "
+        f"{rows[:, -1].tolist()} iterations, {np.array2string(np.array(ms), precision=1)} ms")
+    b = floor_mpc(cfg, dev)[3]
+    x0, x_ref, u_prev, _ = constrained_problem(b)
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+             brownian(P_FLOOR, dev, antithetic=True, seed=2), P_FLOOR, b.apg_config.maxls)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U, u = plans(4, 3, dev), plans(1, 4, dev)[0]
+    for name, e in particle_oracle_parity(kern, plain, U, f"floor P={P_FLOOR} antithetic",
+                                          "constrained oracle").items():
+        out["err"][(name, "floor")] = e
+    for name, call in (("value_batch", lambda o: o.value_batch(U[:1])),
+                       ("value_and_grad", lambda o: o.value_and_grad(u))):
+        out["ms"][(name, "penalty", P_FLOOR)] = (per_launch_ms(lambda: call(kern), 20),
+                                                 per_launch_ms(lambda: call(plain), 3))
+        log(f"{name}{' K=1' if name == 'value_batch' else ''} floor at P={P_FLOOR} per launch "
+            f"({card}): kernel {out['ms'][(name, 'penalty', P_FLOOR)][0]:.4f} ms, plain "
+            f"{out['ms'][(name, 'penalty', P_FLOOR)][1]:.3f} ms (CUDA events)")
+    out["floor_bundle"] = b
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -933,66 +1397,115 @@ def main() -> int:
     log(f"phase 13: the fixed-step route at P={P_FULL} runs on the particle oracle kernels, "
         f"which match the plain oracle there")
 
+    cons = phase_constraint_parity(dev)
+    log("phase 14: every state-constraint branch matches its plain version")
+    cflight = phase_constrained_flight(dev, card)
+    log("phase 15: the constrained flight holds its velocity box on the whole-solve kernel")
+    coracle = phase_constrained_oracle(dev, card)
+    log("phase 16: MPPI and fixed-step APG with state constraints run on the oracle kernels, "
+        "which match the plain oracle there")
+
     oracle_src = "sde4mbrl_px4_tpu_torch/csrc/cost_oracle.cu"
     tpu = "sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py"
     apg = {"route": "cuda", "source": "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cu",
            "replaces": "sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py:420"}
+    lines = {"value_batch": 276, "value_and_grad": 297, "trajectory": 347}
     particles = "noise + chunks (K11)"
-    print(json.dumps({"kernels": [{
-        "name": "apg_solve", "branch": "P=1", **apg,
-        "launches": launches["apg_solve"],
-        "max_abs_err": max_err,
-        "ms": timing["traj"][0],
-        "plain_ms": timing["traj"][1],
-        "device_ms": timing["traj"][2],
-        "fixed_budget_ms": fixed[0],
-        "fixed_budget_plain_ms": fixed[1],
-    }, {
-        "name": "apg_solve", "branch": particles, **apg,
-        "launches": flight["launches"]["apg_solve"],
-        "max_abs_err": part_err["apg_solve"],
-        "ms": flight["fixed_ms"],
-        "plain_ms": flight["fixed_plain_ms"],
-        "timed": f"fixed 5-iteration solve at P={P_FULL} antithetic, with its trajectory launch",
-        "solve_ms_p50": flight["wall_ms"], "device_ms_p50": flight["device_ms"],
-        "iterations": flight["steps"], "iteration_ms": flight["iter_ms"],
-        "Pc": flight["Pc"], "smem_bytes": flight["smem"],
-        "p512anti_family_launches": family_launches["apg_solve"],
-    }] + [{
-        "name": name, "branch": "P=1",
-        "route": "cuda",
-        "source": oracle_src,
-        "replaces": f"{tpu}:{line}",
-        "launches": launches[name],
-        "max_abs_err": oracle_err[name],
-        "ms": timing[name][0],
-        "plain_ms": timing[name][1],
-    } for name, line in (("value_batch", 276), ("value_and_grad", 297),
-                         ("trajectory", 347))] + [{
-        "name": name, "branch": particles,
-        "route": "cuda",
-        "source": oracle_src,
-        "replaces": f"{tpu}:{line}",
-        "launches": part_oracle["launches"][name],
-        "max_abs_err": part_err[name],
-        "ms": part_oracle[name][0],
-        "plain_ms": part_oracle[name][1],
-        "timed": f"per launch at P={P_FULL} antithetic"
-                 + (", K=4" if name == "value_batch" else ""),
-        "Pc": flight["oracle_Pc"],
-    } for name, line in (("value_batch", 276), ("value_and_grad", 297))] + [{
-        "name": "trajectory", "branch": f"x_evol of the P={P_FULL} route (mean dynamics)",
-        "route": "cuda", "source": oracle_src, "replaces": f"{tpu}:347",
-        "launches": flight["launches"]["trajectory"],
-        "max_abs_err": flight["max_dx"],
-        "ms": timing["trajectory"][0],
-        "plain_ms": timing["trajectory"][1],
-        "timed": "per launch, as the P=1 branch: the same kernel at the same shape",
-    }], "solve_ms": {
+    b_traj, b_pos = (make_bundle(name, dev) for name in TOLS)
+    nc_traj, nc_pos = n_consts(b_traj, dev), n_consts(b_pos, dev)
+
+    def entry(name, branch, launches, err, ms, plain_ms, bnd, **extra):
+        where = apg if name == "apg_solve" else {
+            "route": "cuda", "source": oracle_src, "replaces": f"{tpu}:{lines[name]}"}
+        return {"name": name, "branch": branch, **where, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None, **extra}
+
+    kernels = [
+        entry("apg_solve", "P=1", launches["apg_solve"], max_err, timing["traj"][0],
+              timing["traj"][1], bound(b_traj, "apg_solve", nc_traj, K=4,
+                                       iters=round(timing["traj"][3])),
+              timed=f"chained iris/traj replay, per solve p50 at "
+                    f"{timing['traj'][3]:.1f} iterations", device_ms=timing["traj"][2],
+              fixed_budget_ms=fixed[0], fixed_budget_plain_ms=fixed[1]),
+        entry("apg_solve", particles, flight["launches"]["apg_solve"], part_err["apg_solve"],
+              flight["fixed_ms"], flight["fixed_plain_ms"],
+              bound(b_traj, "apg_solve", nc_traj, P=P_FULL, K=4, iters=flight["fixed_steps"]),
+              timed=f"fixed {flight['fixed_steps']}-iteration solve at P={P_FULL} antithetic, "
+                    f"with its trajectory launch",
+              solve_ms_p50=flight["wall_ms"], device_ms_p50=flight["device_ms"],
+              iterations=flight["steps"], iteration_ms=flight["iter_ms"],
+              Pc=flight["Pc"], smem_bytes=flight["smem"],
+              p512anti_family_launches=family_launches["apg_solve"]),
+    ] + [entry(name, "P=1", launches[name], oracle_err[name], timing[name][0], timing[name][1],
+               bound(b_pos, name, nc_pos, K=64 if name == "value_batch" else 1),
+               timed="per launch" + (", K=64" if name == "value_batch" else ""))
+         for name in ("value_batch", "value_and_grad", "trajectory")] + [
+        entry(name, particles, part_oracle["launches"][name], part_err[name],
+              part_oracle[name][0], part_oracle[name][1],
+              bound(b_pos, name, nc_pos, P=P_FULL, K=4 if name == "value_batch" else 1),
+              timed=f"per launch at P={P_FULL} antithetic"
+                    + (", K=4" if name == "value_batch" else ""), Pc=flight["oracle_Pc"])
+        for name in ("value_batch", "value_and_grad")] + [
+        entry("trajectory", f"x_evol of the P={P_FULL} route (mean dynamics)",
+              flight["launches"]["trajectory"], flight["max_dx"], timing["trajectory"][0],
+              timing["trajectory"][1], bound(b_pos, "trajectory", nc_pos),
+              timed="per launch, as the P=1 branch: the same kernel at the same shape")]
+
+    err, smem = cons["err"], cons["smem"]
+    for form in SC_FORMS:
+        (k_ms, p_ms), b = cflight["fixed"][form]
+        run = cflight["runs"][form]
+        kernels.append(entry(
+            "apg_solve", f"state_constr {form}, P=1", cflight["launches"][form]["apg_solve"],
+            err[("apg_solve", form, 1)], k_ms, p_ms,
+            bound(b, "apg_solve", n_consts(b, dev, True), K=4, iters=10),
+            timed="fixed 10-iteration solve from the bound-violating start", form=form, P=1,
+            max_abs_err_P8_chunked=err[("apg_solve", form, 8)],
+            flight_solve_ms_p50=statistics.median(run["wall"][1:]),
+            flight_device_ms_p50=statistics.median(run["device"][1:]),
+            flight_iterations_mean=statistics.mean(run["steps"]),
+            flight_v_max=run["v"], smem_bytes=smem[form]["apg_solve"]))
+    (f_ms, f_plain), f_steps, b_floor = cons["floor"]
+    kernels.append(entry(
+        "apg_solve", f"state_constr penalty (altitude floor), P={P_FLOOR} antithetic",
+        cflight["launches"]["floor"]["apg_solve"], err[("apg_solve", "penalty", P_FLOOR)],
+        f_ms, f_plain, bound(b_floor, "apg_solve", n_consts(b_floor, dev, True), P=P_FLOOR,
+                             K=4, iters=f_steps),
+        timed=f"fixed {f_steps}-iteration solve with its trajectory launch",
+        form="penalty", P=P_FLOOR,
+        Pc=smem["floor"]["apg_Pc"], smem_bytes=smem["floor"]["apg_solve"]))
+    for name in ("value_batch", "value_and_grad", "trajectory"):
+        for form in SC_FORMS:
+            b = cflight["fixed"][form][1]
+            n = sum(coracle["launches"][(route, form)][name] for route in ("mppi", "fixed_step"))
+            e = max(err[(name, form, 1)], err[(name, form, 8)])
+            ms, plain_ms = coracle["ms"][(name, form, 1)]
+            K = 64 if name == "value_batch" else 1
+            if name == "trajectory" and form != "prox":
+                continue                      # the same kernel: nZ = 10 is the new width
+            kernels.append(entry(
+                name, f"state_constr {form}, P=1" + (f", nZ=10" if form == "prox" else ""),
+                n, e, ms, plain_ms, bound(b, name, n_consts(b, dev, True), K=K),
+                timed="per launch" + (", K=64" if K == 64 else ""), form=form, P=1,
+                smem_bytes=smem[form][name]))
+        if name == "trajectory":
+            continue
+        ms, plain_ms = coracle["ms"][(name, "penalty", P_FLOOR)]
+        b = coracle["floor_bundle"]
+        kernels.append(entry(
+            name, f"state_constr penalty (altitude floor), P={P_FLOOR} antithetic",
+            coracle["launches"][("fixed_step", "floor")][name], coracle["err"][(name, "floor")],
+            ms, plain_ms, bound(b, name, n_consts(b, dev, True), P=P_FLOOR, K=1),
+            timed="per launch" + (", K=1" if name == "value_batch" else ""),
+            form="penalty", P=P_FLOOR,
+            Pc=smem["floor"]["oracle_Pc"], smem_bytes=smem["floor"][name]))
+    print(json.dumps({"kernels": kernels, "solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
         "fixed_step": timing["fixed_step"][0],
         "fixed_step_plain": timing["fixed_step"][1],
-        f"p{P_FULL}anti_traj": flight["wall_ms"]}}))
+        f"p{P_FULL}anti_traj": flight["wall_ms"],
+        "constrained_flight_p50": statistics.median(cflight["runs"]["prox"]["wall"][1:])}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

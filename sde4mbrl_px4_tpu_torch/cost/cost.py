@@ -5,9 +5,13 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/cost/cost.py``
 terms the iris flight configs use: quadratic tracking of position,
 velocity, attitude error and body rate; control effort about ``uref``;
 slew; the one-sided slew-rate box; the ``res_mult`` uncertainty penalty;
-the geometric ``discount``. State constraints, proximal slack and the
-``risk_lambda`` reduction are not ported yet: the loader refuses configs
-that use them (``engine/mpc_loader.py``).
+the geometric ``discount``; and the ``state_constr`` block in both forms
+(``:59-82``, ``:187-207``): the penalty form (one-sided quadratic box
+penalties over the 13 states, relaxed by ``constr_pen``) and the
+proximal-slack form (``slack_proximal: True``: one slack-target column per
+constrained state in the decision sequence, coupled to the state at full
+``state_penalty`` weight). The ``risk_lambda`` reduction is not ported yet:
+the loader refuses configs that use it (``engine/mpc_loader.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +37,25 @@ class CostParams(NamedTuple):
     u_slew_constr: Optional[torch.Tensor]   # (n_u, 2) [lo, hi] du/dt box, or None
     u_slew_constr_coeff: float
     discount: float
+    # penalty form of ``state_constr`` (``slack_proximal`` false): densified
+    # over the 13 states, weight 0 off
+    state_pen13: Optional[torch.Tensor] = None       # (13,)
+    state_lo13: Optional[torch.Tensor] = None        # (13,) -1e9 pad
+    state_hi13: Optional[torch.Tensor] = None        # (13,) +1e9 pad
+    state_inv_scale13: Optional[torch.Tensor] = None  # (13,) 1/slack_scaling
+    constr_pen: float = 0.0
+    # proximal-slack form: m slack-target columns past n_u in the decision
+    # sequence, box-projected to [slack_lo, slack_hi] by the solver
+    slack_pen: Optional[torch.Tensor] = None         # (m,) state_penalty
+    slack_inv_scale: Optional[torch.Tensor] = None   # (m,) 1/slack_scaling
+    slack_sel: Optional[torch.Tensor] = None         # (m, 13) one-hot selector
+    slack_lo: Optional[torch.Tensor] = None          # (m,)
+    slack_hi: Optional[torch.Tensor] = None          # (m,)
+
+    @property
+    def n_slack(self) -> int:
+        """m, the slack columns of the proximal form (0 otherwise)."""
+        return 0 if self.slack_sel is None else int(self.slack_sel.shape[0])
 
     @staticmethod
     def from_config(cfg: Dict[str, Any], n_u: int,
@@ -47,6 +70,29 @@ class CostParams(NamedTuple):
             return float(np.float32(v))
 
         slew_constr = cp.get("u_slew_constr")
+        sc = {}
+        blk = cfg.get("state_constr")
+        if blk is not None:
+            ids = list(blk["state_id"])
+            m = len(ids)
+            pen_m = np.asarray(blk["state_penalty"], np.float32)
+            b = np.asarray(blk["state_bound"], np.float32)
+            inv_m = 1.0 / np.asarray(blk.get("slack_scaling", np.ones(m)), np.float32)
+            t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+            if blk.get("slack_proximal"):
+                sel = np.zeros((m, 13), np.float32)
+                sel[np.arange(m), ids] = 1.0
+                sc = dict(slack_pen=t(pen_m), slack_inv_scale=t(inv_m), slack_sel=t(sel),
+                          slack_lo=t(b[:, 0]), slack_hi=t(b[:, 1]))
+            else:
+                pen = np.zeros(13, np.float32)
+                lo = np.full(13, -1e9, np.float32)
+                hi = np.full(13, 1e9, np.float32)
+                inv = np.ones(13, np.float32)
+                pen[ids], lo[ids], hi[ids], inv[ids] = pen_m, b[:, 0], b[:, 1], inv_m
+                sc = dict(state_pen13=t(pen), state_lo13=t(lo), state_hi13=t(hi),
+                          state_inv_scale13=t(inv),
+                          constr_pen=f32(blk.get("constr_pen", 1.0)))
         return CostParams(
             uref=vec(cp["uref"], n_u),
             uerr=f32(cp.get("uerr", 0.0)),
@@ -60,6 +106,7 @@ class CostParams(NamedTuple):
                 np.asarray(slew_constr, np.float32), device=device)),
             u_slew_constr_coeff=f32(cp.get("u_slew_constr_coeff", 0.0)),
             discount=f32(cfg.get("discount", 1.0)),
+            **sc,
         )
 
 
@@ -79,19 +126,32 @@ def _stage_tracking(cp: CostParams, x: torch.Tensor, x_ref: torch.Tensor) -> tor
 
 
 def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
-    """``cost(x_paths, sigma_paths, u_seq, x_ref, u_prev) -> scalar``.
+    """``cost(x_paths, sigma_paths, u_seq, x_ref, u_prev, s_seq) -> scalar``.
 
     ``x_paths`` (P, H+1, 13) or (H+1, 13); ``sigma_paths`` (P, H, 13) or
     None; ``u_seq`` (H, n_u); ``x_ref`` (H+1, 13); ``u_prev`` (n_u,) or None
-    (then ``uref``). Particles reduce by mean.
+    (then ``uref``); ``s_seq`` (H, m) the proximal slack targets (the
+    caller splits the decision sequence). Particles reduce by mean. The
+    state-constraint terms join the stage cost in the original's order
+    (prox coupling, then the penalty form's ``constr_pen * viol``).
     """
     H = int(time_steps.shape[0])
     disc = discount_vector(cp, H, time_steps.device)
 
-    def cost_fn(x_paths, sigma_paths, u_seq, x_ref, u_prev=None):
+    def cost_fn(x_paths, sigma_paths, u_seq, x_ref, u_prev=None, s_seq=None):
         if x_paths.dim() == 2:
             x_paths = x_paths[None]
-        track = _stage_tracking(cp, x_paths[:, 1:, :], x_ref[None, 1:, :])   # (P, H)
+        xs = x_paths[:, 1:, :]
+        track = _stage_tracking(cp, xs, x_ref[None, 1:, :])                 # (P, H)
+        if cp.slack_sel is not None and s_seq is not None:
+            x_sel = xs @ cp.slack_sel.t()                                    # (P, H, m)
+            dsl = (x_sel - s_seq[None]) * cp.slack_inv_scale
+            track = track + torch.sum(cp.slack_pen * dsl * dsl, -1)
+        if cp.state_pen13 is not None:
+            over = torch.clamp(xs - cp.state_hi13, min=0.0) * cp.state_inv_scale13
+            under = torch.clamp(cp.state_lo13 - xs, min=0.0) * cp.state_inv_scale13
+            viol = torch.sum(cp.state_pen13 * (over * over + under * under), -1)
+            track = track + cp.constr_pen * viol
         j_track = torch.mean(torch.sum(disc * track, dim=-1))
 
         du = u_seq - cp.uref

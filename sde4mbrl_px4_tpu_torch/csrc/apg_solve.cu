@@ -9,19 +9,29 @@
 // its noise branch with the chunk loop (K3, K11), candidate_rollout/
 // run_candidates over P particles in chunks (K4, K11), the control cost
 // inlined at apg_kernel.py:239-262 (K5), and the build_consts layout (K7,
-// ops/cuda/consts.py). Scope: no state constraints, no slack.
+// ops/cuda/consts.py), with make_step's state-constraint branch
+// (bodies.py:188-206) and its reverse, which the TPU kernel traces with
+// jax.vjp (apg_kernel.py:140-142), and the widened decision row nZ = n_u + m
+// of the proximal form (apg_kernel.py:240-266).
 //
-// Two instantiations of one kernel body:
-//   apg_solve_kernel<false>  deterministic P=1 (the flight configs): the
-//                            mean dynamics, the manual reverse sweep on the
-//                            activation stash, x_evol from the exit sweep;
-//   apg_solve_kernel<true>   Monte-Carlo particles (has_noise): P paths in
-//                            n_chunks passes of Pc rows, the Brownian block
-//                            (H, P, 13) read from device memory per step,
-//                            the reverse sweep re-running the trunk from the
-//                            stashed states (vg_part), the K candidates as
-//                            K*Pc rows per pass (cand_part); x_evol is the
-//                            trajectory kernel's (cost_oracle.cu).
+// Six instantiations of one kernel body, apg_solve_kernel<PART, SC>:
+//   PART = false  deterministic P=1 (the flight configs): the mean
+//                 dynamics, the manual reverse sweep on the activation
+//                 stash, x_evol from the exit sweep;
+//   PART = true   Monte-Carlo particles (has_noise): P paths in n_chunks
+//                 passes of Pc rows, the Brownian block (H, P, 13) read
+//                 from device memory per step, the reverse sweep re-running
+//                 the trunk from the stashed states (vg_part), the K
+//                 candidates as K*Pc rows per pass (cand_part); x_evol is
+//                 the trajectory kernel's (cost_oracle.cu);
+//   SC            the state_constr form (CONSTR_NONE, CONSTR_PENALTY,
+//                 CONSTR_PROX; sweeps.cuh::constr_cost/constr_bwd): the
+//                 constraint terms in every stage cost and their cotangents
+//                 in every reverse step. In the proximal form the candidate
+//                 clip, the Armijo <g, d> and <d, D^-1 d> and the iterate
+//                 update run over the nZ columns, the control terms over the
+//                 first n_u. CONSTR_NONE compiles to the code the kernel had
+//                 before the constraint forms existed.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. At P=1 one APG
 // iteration is about 1.6 MFLOP (a forward and a reverse sweep of one row
@@ -41,7 +51,12 @@
 // library load by apg_init), which sets the chunk: the wrapper takes the
 // largest divisor Pc of P whose layout fits (Pc = 32 at P=512, K=4, iris
 // widths). Spreading the particles over a cluster or the grid is later
-// work.
+// work. The constraint terms add per-row scalar arithmetic to each step's
+// serial chain and no memory traffic (their constants sit in shared memory
+// with the rest); the proximal form's wider rows (nZ = 10 on the shipped
+// iris config) take the P=1 layout to ~49.6 KB, past the 48 KB default, so
+// the constrained P=1 forms take dynamic shared memory above it too (set
+// once per library load by apg_init).
 //
 // Control flow is block-uniform: every loop decision (done, accepted step,
 // restart) is computed by thread 0 into shared memory, followed by
@@ -106,7 +121,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
   return o;
 }
 
-template <bool PART>
+template <bool PART, int SC>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
@@ -121,8 +136,8 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part(a, s, &S.fval, U, noise);
-    else vg(a, s, &S.fval, U);
+    if constexpr (PART) vg_part<SC>(a, s, &S.fval, U, noise);
+    else vg<SC>(a, s, &S.fval, U);
   };
 
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
@@ -182,13 +197,13 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part(a, s, K, noise);
+      cand_part<SC>(a, s, K, noise);
     } else {
       for (int e = tid; e < K * 13; e += nt) s.xr[e] = c[a.o_x0 + e % 13];
       if (tid < K) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
       __syncthreads();
       for (int t = 0; t < a.H; ++t)
-        fwd_step<false>(a, s, K, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
+        fwd_step<false, SC>(a, s, K, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
                         nullptr, nullptr, nullptr);
     }
     // rollout costs per candidate: the rows' own (P=1) or particle means
@@ -202,7 +217,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       if (kind == 0) {
         const float* scal = c + a.o_scal;
         warp_reduce_to(HZ, [&](int e) {
-          const CtrlTerms ct = ctrl_terms(a, c, Uk, e);
+          const CtrlTerms ct = ctrl_terms<SC>(a, c, Uk, e);
           float cc = scal[SC_UERR] * ct.u + scal[SC_SLEW] * ct.sl;
           if (a.has_slew) cc = cc + scal[SC_SLEWC] * ct.viol;
           return cc;
@@ -297,17 +312,42 @@ int dyn_bytes(const ApgArgs& a) {
   return layout(a, a.has_noise != 0, nullptr, nullptr) * (int)sizeof(float);
 }
 
+template <bool PART, int SC>
+void launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
+            const float* u_init, const float* t0, const float* precond,
+            const float* noise, float* yk, float* stats, float* x_evol) {
+  apg_solve_kernel<PART, SC><<<1, PART ? APG_NTHREADS_PART : APG_NTHREADS, dyn, st>>>(
+      a, consts, u_init, t0, precond, noise, yk, stats, x_evol);
+}
+
+// The instantiation for [has_noise][sc_kind].
+using LaunchFn = void (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
+                          const float*, const float*, const float*, const float*,
+                          float*, float*, float*);
+const LaunchFn kLaunch[2][3] = {
+    {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
+    {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>}};
+
 }  // namespace
 
 extern "C" {
 
 int apg_args_size() { return (int)sizeof(ApgArgs); }
 
-// Let the particle form take dynamic shared memory up to the card's 227 KB
-// less its static shared memory (the deterministic form stays inside the
-// 48 KB default). Called once when the library is loaded; returns a
-// cudaError_t.
-int apg_init() { return (int)allow_large_smem(apg_solve_kernel<true>); }
+// Let the particle forms and the constrained P=1 forms take dynamic shared
+// memory up to the card's 227 KB less their static shared memory (the
+// unconstrained P=1 form stays inside the 48 KB default). Called once when
+// the library is loaded; returns a cudaError_t.
+int apg_init() {
+  const cudaError_t errs[] = {allow_large_smem(apg_solve_kernel<true, CONSTR_NONE>),
+                              allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY>),
+                              allow_large_smem(apg_solve_kernel<true, CONSTR_PROX>),
+                              allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
+                              allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>)};
+  for (const cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
+}
 
 // Shared memory the kernel needs for these dimensions (dynamic + static).
 int apg_smem_bytes(const ApgArgs* a) {
@@ -320,14 +360,16 @@ const char* apg_error_string(int err) {
 
 // Launch one solve on `stream`. noise is the (H, P, 13) Brownian block when
 // a->has_noise (else unused, may be null); x_evol (H+1, 13) is written only
-// by the deterministic form. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// by the deterministic form. u_init, precond and yk are (H, nZ). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
                      void* yk, void* stats, void* x_evol, void* stream) {
   const bool part = a->has_noise != 0;
-  const int limit = part ? APG_SMEM_LIMIT_PARTICLES : APG_SMEM_LIMIT;
-  if (a->K < 1 || a->K > APG_MAXK || a->nZ != a->n_u || a->OUT != 12 ||
+  const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
+                                                      : APG_SMEM_LIMIT;
+  if (a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != 12 ||
       a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
       (a->has_pre && precond == nullptr) ||
       (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
@@ -336,16 +378,9 @@ int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (part)
-    apg_solve_kernel<true><<<1, APG_NTHREADS_PART, dyn, st>>>(
-        *a, (const float*)consts, (const float*)u_init, (const float*)t0,
-        (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
-        (float*)x_evol);
-  else
-    apg_solve_kernel<false><<<1, APG_NTHREADS, dyn, st>>>(
-        *a, (const float*)consts, (const float*)u_init, (const float*)t0,
-        (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
-        (float*)x_evol);
+  kLaunch[part][a->sc_kind](*a, dyn, st, (const float*)consts, (const float*)u_init,
+                            (const float*)t0, (const float*)precond, (const float*)noise,
+                            (float*)yk, (float*)stats, (float*)x_evol);
   return (int)cudaGetLastError();
 }
 

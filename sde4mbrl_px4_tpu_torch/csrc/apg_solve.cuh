@@ -33,7 +33,24 @@ struct ApgArgs {
   // config scalars (fp32 casts of the Python doubles)
   float inc, one_m_coef, tmax, beta_init, moment_scale, atol, rtol;
   float dfp[APG_MAXK + 1];  // float32(decrease_factor**k), k = 0..K
+  // state constraints (the state_constr block): sc_kind selects the
+  // kernels' compile-time form (CONSTR_*); m slack columns past n_u in the
+  // proximal form (nZ = n_u + m), 0 otherwise. Offsets of the proximal
+  // block (penm, invm, the state ids as floats; m each) or of the penalty
+  // block (pen13 with constr_pen folded in, lo13, hi13, inv13; 13 each).
+  int sc_kind, m, o_penm, o_invm, o_sid, o_pen13, o_lo13, o_hi13, o_inv13;
 };
+
+// The state-constraint forms, a template parameter of the kernels so that
+// the unconstrained forms compile to the code they had without them.
+enum { CONSTR_NONE = 0, CONSTR_PENALTY = 1, CONSTR_PROX = 2 };
+
+// The constraint fields agree with the decision width.
+inline bool constr_args_ok(const ApgArgs& a) {
+  if (a.sc_kind == CONSTR_PROX) return a.m >= 1 && a.nZ == a.n_u + a.m;
+  return (a.sc_kind == CONSTR_NONE || a.sc_kind == CONSTR_PENALTY) && a.m == 0 &&
+         a.nZ == a.n_u;
+}
 
 // scal block (o_scal): [mass, diff_scale, uerr, u_slew_coeff,
 //                       u_slew_constr_coeff, res_mult]

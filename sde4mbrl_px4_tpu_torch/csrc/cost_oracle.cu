@@ -8,15 +8,21 @@
 //                   vg_sweep of bodies.py)
 //   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347)
 //
-// value_batch and value_and_grad come in two instantiations: <false> the
-// deterministic P=1 oracle (mean dynamics), <true> the Monte-Carlo one
+// value_batch and value_and_grad are templates <PART, SC>: PART = false the
+// deterministic P=1 oracle (mean dynamics), PART = true the Monte-Carlo one
 // (has_noise): P particles in n_chunks passes of Pc rows, the Brownian
 // block (H, P, 13) read from device memory per step, costs the particle
-// mean (a mean of chunk means, K11). trajectory is always the mean dynamics
-// (solve_kernels.py:319-320). Scope: no state constraints, no slack (the
-// wrapper refuses them). The step, sweep and cost device code is
-// sweeps.cuh, shared with the whole-solve kernel (apg_solve.cu), so the two
-// paths compute the same numbers.
+// mean (a mean of chunk means, K11); SC the state_constr form (CONSTR_NONE,
+// CONSTR_PENALTY, CONSTR_PROX), which adds make_step's constraint terms
+// (bodies.py:188-206) to every stage cost and their cotangents to the
+// reverse sweep, and in the proximal form reads nZ = n_u + m wide plans
+// whose control terms cover the first n_u columns (bodies.py:413-415, :485).
+// All six pairs are instantiated; CONSTR_NONE compiles to the code the
+// kernels had before the constraint forms existed. trajectory is always
+// the mean dynamics of the control columns (solve_kernels.py:319-332), at
+// any nZ. The step, sweep and cost device code is sweeps.cuh, shared with
+// the whole-solve kernel (apg_solve.cu), so the two paths compute the same
+// numbers.
 //
 // What bounds them on this card: latency. A step is a (9+n_u)->64->64->12
 // MLP plus rigid-body math, serial over the H steps; one plan is ~0.2 MFLOP
@@ -31,7 +37,10 @@
 // value_and_grad sweeps them chunk by chunk in one block; both take dynamic
 // shared memory above 48 KB (set once per library load by
 // cost_oracle_init), and the wrapper picks the largest divisor Pc of P
-// whose layouts fit. trajectory is one block.
+// whose layouts fit. trajectory is one block. The constraint terms add
+// per-row scalar work to each step and no memory traffic; at nZ > n_u a
+// value_batch tile shrinks below 16 rows where its wider rows would pass
+// 48 KB (16 rows of nZ = 10 still fit, at 48.7 KB).
 //
 // Control flow is block-uniform and every __syncthreads() is reached by all
 // threads of the block.
@@ -105,9 +114,9 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
   __syncthreads();
 }
 
-template <bool PART>
+template <bool PART, int SC>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
-value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
+value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
                    float* __restrict__ out) {
   extern __shared__ float smem[];
@@ -121,11 +130,11 @@ value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
   load_block(a, s, R, consts, U + (size_t)k0 * HZ);
 
   if constexpr (PART) {
-    cand_part(a, s, R, noise);
+    cand_part<SC>(a, s, R, noise);
   } else {
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
-                      nullptr, nullptr, nullptr);
+      fwd_step<false, SC>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
+                          nullptr, nullptr, nullptr);
   }
 
   // control-only cost per row, one warp per row
@@ -133,7 +142,7 @@ value_batch_kernel(ApgArgs a, int K, int tile, const float* __restrict__ consts,
   for (int r = warp; r < R; r += nw) {
     const float* Ur = s.cand + r * HZ;
     warp_reduce_to(HZ, [&](int e) {
-      const CtrlTerms ct = ctrl_terms(a, c, Ur, e);
+      const CtrlTerms ct = ctrl_terms<SC>(a, c, Ur, e);
       float cc = scal[SC_UERR] * ct.u + scal[SC_SLEW] * ct.sl;
       if (a.has_slew) cc = cc + scal[SC_SLEWC] * ct.viol;
       return cc;
@@ -156,12 +165,12 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   if (tid < 13) s.xs[tid] = s.xr[tid];
   __syncthreads();
   for (int t = 0; t < a.H; ++t)
-    fwd_step<false>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
-                    s.xs + (t + 1) * 13, t, nullptr, nullptr, nullptr);
+    fwd_step<false, CONSTR_NONE>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
+                                 s.xs + (t + 1) * 13, t, nullptr, nullptr, nullptr);
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
 
-template <bool PART>
+template <bool PART, int SC>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
@@ -174,23 +183,27 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   load_block(a, s, 1, consts, u);
   if constexpr (PART) {
     transpose_weights(a, s);
-    vg_part(a, s, &fval, s.cand, noise);
+    vg_part<SC>(a, s, &fval, s.cand, noise);
   } else {
-    vg(a, s, &fval, s.cand);
+    vg<SC>(a, s, &fval, s.cand);
   }
   for (int e = tid; e < a.H * a.nZ; e += nt) grad[e] = s.g[e];
   if (tid == 0) *val = fval;
 }
 
-// Candidate rows per value_batch block: a tile at P=1, one candidate (and
-// its Pc particle rows per pass) with particles.
-int tile_rows(const ApgArgs& a, int K) {
-  if (a.has_noise) return 1;
-  return K < ORACLE_TILE ? K : ORACLE_TILE;
-}
-
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
   return layout(a, kind, R, part, nullptr, nullptr) * (int)sizeof(float);
+}
+
+// Candidate rows per value_batch block: a tile at P=1 (up to ORACLE_TILE,
+// fewer where wide decision rows would pass the 48 KB budget), one
+// candidate (and its Pc particle rows per pass) with particles.
+int tile_rows(const ApgArgs& a, int K) {
+  if (a.has_noise) return 1;
+  int tile = K < ORACLE_TILE ? K : ORACLE_TILE;
+  while (tile > 1 && dyn_bytes(a, ORACLE_VALUE_BATCH, tile, false) > ORACLE_SMEM_LIMIT)
+    --tile;
+  return tile;
 }
 
 int smem_limit(const ApgArgs& a) {
@@ -198,8 +211,40 @@ int smem_limit(const ApgArgs& a) {
 }
 
 bool args_ok(const ApgArgs* a) {
-  return a->nZ == a->n_u && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1;
+  return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1;
 }
+
+// One launch of an instantiation; the tables below pick it by
+// [has_noise][sc_kind].
+template <bool PART, int SC>
+void launch_value_batch(const ApgArgs& a, int K, int tile, int blocks, size_t dyn,
+                        cudaStream_t st, const float* consts, const float* U,
+                        const float* noise, float* out) {
+  value_batch_kernel<PART, SC><<<blocks, PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
+                                 dyn, st>>>(K, tile, a, consts, U, noise, out);
+}
+using ValueBatchFn = void (*)(const ApgArgs&, int, int, int, size_t, cudaStream_t,
+                              const float*, const float*, const float*, float*);
+const ValueBatchFn kValueBatch[2][3] = {
+    {launch_value_batch<false, CONSTR_NONE>, launch_value_batch<false, CONSTR_PENALTY>,
+     launch_value_batch<false, CONSTR_PROX>},
+    {launch_value_batch<true, CONSTR_NONE>, launch_value_batch<true, CONSTR_PENALTY>,
+     launch_value_batch<true, CONSTR_PROX>}};
+
+template <bool PART, int SC>
+void launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
+                           const float* consts, const float* u, const float* noise,
+                           float* val, float* grad) {
+  value_and_grad_kernel<PART, SC><<<1, PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
+                                    dyn, st>>>(a, consts, u, noise, val, grad);
+}
+using ValueAndGradFn = void (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
+                                const float*, const float*, float*, float*);
+const ValueAndGradFn kValueAndGrad[2][3] = {
+    {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
+     launch_value_and_grad<false, CONSTR_PROX>},
+    {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
+     launch_value_and_grad<true, CONSTR_PROX>}};
 
 // The particle fields and the noise block, when the kernel reads them.
 bool particles_ok(const ApgArgs* a, const void* noise) {
@@ -222,9 +267,16 @@ const char* cost_oracle_error_string(int err) {
 // deterministic ones stay inside the default). Called once when the library
 // is loaded; returns a cudaError_t.
 int cost_oracle_init() {
-  const cudaError_t err = allow_large_smem(value_batch_kernel<true>);
-  if (err != cudaSuccess) return (int)err;
-  return (int)allow_large_smem(value_and_grad_kernel<true>);
+  const cudaError_t errs[] = {
+      allow_large_smem(value_batch_kernel<true, CONSTR_NONE>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PROX>),
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE>),
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY>),
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>)};
+  for (const cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -251,15 +303,9 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts,
   const int tile = tile_rows(*a, K);
   const int blocks = (K + tile - 1) / tile;
   const size_t dyn = value_batch_smem_bytes(a, K);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (a->has_noise)
-    value_batch_kernel<true><<<blocks, ORACLE_NTHREADS_PART, dyn, st>>>(
-        *a, K, tile, (const float*)consts, (const float*)U, (const float*)noise,
-        (float*)out);
-  else
-    value_batch_kernel<false><<<blocks, ORACLE_NTHREADS, dyn, st>>>(
-        *a, K, tile, (const float*)consts, (const float*)U, (const float*)noise,
-        (float*)out);
+  kValueBatch[a->has_noise != 0][a->sc_kind](
+      *a, K, tile, blocks, dyn, (cudaStream_t)stream, (const float*)consts,
+      (const float*)U, (const float*)noise, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -279,15 +325,9 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (a->has_noise)
-    value_and_grad_kernel<true><<<1, ORACLE_NTHREADS_PART, dyn, st>>>(
-        *a, (const float*)consts, (const float*)u, (const float*)noise,
-        (float*)val, (float*)grad);
-  else
-    value_and_grad_kernel<false><<<1, ORACLE_NTHREADS, dyn, st>>>(
-        *a, (const float*)consts, (const float*)u, (const float*)noise,
-        (float*)val, (float*)grad);
+  kValueAndGrad[a->has_noise != 0][a->sc_kind](
+      *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
+      (const float*)noise, (float*)val, (float*)grad);
   return (int)cudaGetLastError();
 }
 

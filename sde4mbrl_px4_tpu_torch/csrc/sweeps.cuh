@@ -31,6 +31,20 @@
 // as the TPU kernel reduces), and the particle-form loops run rows over the
 // threads, so R may exceed blockDim.
 //
+// State constraints (the state_constr block; bodies.py:188-206 and their
+// reverse, which the TPU kernel gets by tracing jax.vjp, apg_kernel.py:
+// 140-142): a template parameter SC of fwd_step, bwd_dyn and every sweep
+// above them (CONSTR_NONE, CONSTR_PENALTY, CONSTR_PROX), so the
+// unconstrained instantiations compile to the code they had without it.
+// constr_cost adds the terms to a row's stage cost at its new state, in the
+// TPU kernel's order; constr_bwd adds their cotangents to the post-step
+// state before the renormalisation backward (and, in the proximal form,
+// the slack columns' gradient). In the proximal form a decision row is
+// nZ = n_u + m wide: the trunk, the wrench and the control terms read its
+// first n_u columns, the slack targets are columns n_u.. . The terms are
+// scalar per-row arithmetic on constants in shared memory: latency on the
+// step's serial chain, no memory traffic.
+//
 // Numerics: fp32 throughout, no fast-math. softplus is
 // max(x,0)+log1p(exp(-|x|)) and the sigmoid 1/(1+exp(-x)), as in JAX.
 #pragma once
@@ -202,14 +216,77 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
   __syncthreads();
 }
 
+// The state-constraint terms of one row's stage cost (bodies.py:188-206),
+// added to its tracking cost `track` at the new state xn (13, shared
+// memory) in the TPU kernel's order. Proximal: track + sum_j penm_j *
+// ((xn[id_j] - s_j) * invm_j)^2 against the row's slack targets s = u[n_u..].
+// Penalty: track plus, segment by segment (p, v, q, omega), the sum of
+// pen13'_i * (over_i^2 + under_i^2), over/under the scaled one-sided
+// violations of [lo13, hi13] (pen13' holds constr_pen).
+template <int SC>
+__device__ __forceinline__ float constr_cost(const ApgArgs& a, const float* c,
+                                             const float* xn, const float* u,
+                                             float track) {
+  if constexpr (SC == CONSTR_PROX) {
+    float acc = 0.f;
+    for (int j = 0; j < a.m; ++j) {
+      const float d = (xn[(int)c[a.o_sid + j]] - u[a.n_u + j]) * c[a.o_invm + j];
+      acc += c[a.o_penm + j] * d * d;
+    }
+    track = track + acc;
+  } else if constexpr (SC == CONSTR_PENALTY) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {            // segments [0,3) [3,6) [6,10) [10,13)
+      const int i0 = g < 3 ? 3 * g : 10, i1 = g < 2 ? 3 * g + 3 : (g == 2 ? 10 : 13);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = i0; i < i1; ++i) {
+        const float inv = c[a.o_inv13 + i];
+        const float ov = fmaxf(xn[i] - c[a.o_hi13 + i], 0.f) * inv;
+        const float un = fmaxf(c[a.o_lo13 + i] - xn[i], 0.f) * inv;
+        acc += c[a.o_pen13 + i] * (ov * ov + un * un);
+      }
+      track = track + acc;
+    }
+  }
+  return track;
+}
+
+// Reverse of constr_cost, seeded with cT: adds the terms' cotangent to the
+// post-step state's ct (13) and, in the proximal form, writes the slack
+// columns' gradient into cu[n_u + j] (the coupling's -d/ds).
+template <int SC>
+__device__ __forceinline__ void constr_bwd(const ApgArgs& a, const float* c,
+                                           const float* x1, const float* u, float cT,
+                                           float* ct, float* cu) {
+  if constexpr (SC == CONSTR_PROX) {
+    for (int j = 0; j < a.m; ++j) {
+      const int id = (int)c[a.o_sid + j];
+      const float inv = c[a.o_invm + j];
+      const float dsl = (x1[id] - u[a.n_u + j]) * inv;
+      const float gx = cT * 2.f * c[a.o_penm + j] * inv * dsl;
+      ct[id] += gx;
+      cu[a.n_u + j] = -gx;
+    }
+  } else if constexpr (SC == CONSTR_PENALTY) {
+    for (int i = 0; i < 13; ++i) {
+      const float inv = c[a.o_inv13 + i];
+      const float ov = fmaxf(x1[i] - c[a.o_hi13 + i], 0.f) * inv;
+      const float un = fmaxf(c[a.o_lo13 + i] - x1[i], 0.f) * inv;
+      ct[i] += cT * 2.f * c[a.o_pen13 + i] * inv * (ov - un);
+    }
+  }
+}
+
 // One Euler(-Maruyama) step plus stage cost for R rows (bodies.py::
 // make_step). Rows, controls and stash as in trunk; the state is read from
 // x[r*13..] and the new state written to xn[r*13..] (x and xn may alias).
 // PART adds the Brownian term: row r's draws are z[(r / K)*13 ..] (its
 // particle; rows are particle-major), and v1 += sqrt(dt)*sigma[0:3]*z[3:6],
 // om1 += sqrt(dt)*sigma[3:6]*z[10:13] after the drift, in the order of
-// bodies.py:160-162. Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
-template <bool PART>
+// bodies.py:160-162. SC adds the state-constraint terms (constr_cost).
+// Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
+template <bool PART, int SC>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
                          float* xn, int t, float* st_h0p, float* st_h1p,
@@ -286,11 +363,12 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
       tq += ws[6 + i] * e3[i] * e3[i];
       tw += ws[9 + i] * dw * dw;
     }
-    const float track = tp + tv + tq + tw;
+    float track = tp + tv + tq + tw;
 
     float* o = xn + row * 13;
     for (int i = 0; i < 3; ++i) { o[i] = p1[i]; o[3 + i] = v1[i]; o[10 + i] = om1[i]; }
     for (int i = 0; i < 4; ++i) o[6 + i] = q1[i];
+    if constexpr (SC != CONSTR_NONE) track = constr_cost<SC>(a, c, o, ur, track);
     s.jt[row] += d_t * track;
     s.jr[row] += d_t * res2;
   };
@@ -310,8 +388,9 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
 // that of st (before the feature terms) on exit; c_h2 receives the trunk
 // output cotangent and cu the wrench part of the control cotangent. PART
 // adds the Brownian term's sigma cotangent sqrt(dt)*z*c_{v1,om1} (zr: the
-// row's draws).
-template <bool PART>
+// row's draws). SC adds the state-constraint cotangents to ct first
+// (constr_bwd; the proximal form's slack gradient lands in cu[n_u..]).
+template <bool PART, int SC>
 __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
                                         const float* st, const float* x1,
                                         const float* h2, const float* u,
@@ -321,6 +400,7 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
   const float* in = c + a.o_inertia;
   const float* mix = c + a.o_mix;
   const float dt = c[a.o_ts + t];
+  if constexpr (SC != CONSTR_NONE) constr_bwd<SC>(a, c, x1, u, cT, ct, cu);
   {
     const float* ws = c + a.o_wstate;
     const float* r = c + a.o_xref + (t + 1) * 13;
@@ -447,7 +527,9 @@ __device__ __forceinline__ void bwd_feat(const ApgArgs& a, const float* st,
 
 // One reverse step (bodies.py::manual_bwd_step, B = 1) at horizon index t,
 // reading the stash; updates the state cotangent s.ct and writes the
-// dynamics part of the control gradient into s.g[t*nZ ..].
+// dynamics part of the control gradient into s.g[t*nZ ..] (with the slack
+// columns' gradient in the proximal form).
+template <int SC>
 __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
@@ -458,7 +540,7 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
 
   // ---- part 1 (thread 0): stage cost, sigma, renormalize, EM, dynamics
   if (tid == 0)
-    bwd_dyn<false>(a, c, st, s.xs + (t + 1) * 13, s.h2 + t * OUT, U + t * a.nZ,
+    bwd_dyn<false, SC>(a, c, st, s.xs + (t + 1) * 13, s.h2 + t * OUT, U + t * a.nZ,
                    nullptr, t, d_t, d_t * c[a.o_scal + SC_RESM], s.ct, s.c_h2, s.cu);
   __syncthreads();
 
@@ -494,7 +576,11 @@ __device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t)
   __syncthreads();
 
   // ---- part 2 (thread 0): features back to the state and the controls
-  if (tid == 0) bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.g + t * a.nZ);
+  if (tid == 0) {
+    bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.g + t * a.nZ);
+    if constexpr (SC == CONSTR_PROX)
+      for (int i = a.n_u; i < a.nZ; ++i) s.g[t * a.nZ + i] = s.cu[i];
+  }
   __syncthreads();
 }
 
@@ -528,7 +614,10 @@ __device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
 // Each row is seeded with d_t/Pc (the chunk's cost is the mean over its
 // rows; z: the chunk's draws at step t). Updates the row cotangents s.ct
 // (R, 13) and adds the chunk's control gradient, summed over its rows and
-// divided by n_chunks, to s.g[t*nZ ..]. Needs transpose_weights first.
+// divided by n_chunks, to s.g[t*nZ ..] (the slack columns' gradient rides
+// in s.cu[r*nZ + n_u ..] in the proximal form). Needs transpose_weights
+// first.
+template <int SC>
 __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
                          const float* __restrict__ z, int t) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -541,7 +630,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   const float d_t = c[a.o_disc + t];
   const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
   for (int r = tid; r < R; r += nt)
-    bwd_dyn<true>(a, c, xt + r * 13, x1 + r * 13, s.a2 + r * OUT, u, z + r * 13, t,
+    bwd_dyn<true, SC>(a, c, xt + r * 13, x1 + r * 13, s.a2 + r * OUT, u, z + r * 13, t,
                   cT, cR, s.ct + r * 13, s.c_h2 + r * OUT, s.cu + r * nZ);
   __syncthreads();
 
@@ -585,8 +674,12 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
 }
 
 // Closed-form gradient of the control-only cost terms at (t, i)
-// (bodies.py::vg_sweep, :598-628).
+// (bodies.py::vg_sweep, :598-628); 0 on the proximal form's slack columns
+// (bodies.py::_prox_pad).
+template <int SC>
 __device__ float ctrl_grad(const ApgArgs& a, const float* c, const float* U, int t, int i) {
+  if constexpr (SC == CONSTR_PROX)
+    if (i >= a.n_u) return 0.f;
   const float* scal = c + a.o_scal;
   const float d_t = c[a.o_disc + t], dt = c[a.o_ts + t];
   const float ut = U[t * a.nZ + i];
@@ -609,12 +702,16 @@ __device__ float ctrl_grad(const ApgArgs& a, const float* c, const float* U, int
 }
 
 // Elementwise control-cost terms of an (H, nZ) block at e = t*nZ + i:
-// uerr part, slew part and slew-rate violation (bodies.py::control_cost).
+// uerr part, slew part and slew-rate violation (bodies.py::control_cost);
+// none on the proximal form's slack columns.
 struct CtrlTerms { float u, sl, viol; };
+template <int SC>
 __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c,
                                                 const float* U, int e) {
   const int t = e / a.nZ, i = e - t * a.nZ;
   CtrlTerms r;
+  if constexpr (SC == CONSTR_PROX)
+    if (i >= a.n_u) return CtrlTerms{0.f, 0.f, 0.f};
   const float du = U[e] - c[a.o_uref + i];
   r.u = c[a.o_disc + t] * du * du;
   const float up = t == 0 ? c[a.o_uprev + i] : U[e - a.nZ];
@@ -633,6 +730,7 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
 // Value and gradient of the iterate U (bodies.py::vg_sweep): checkpointed
 // forward sweep into the stash, manual reverse sweep, closed-form control
 // gradients. Gradient lands in s.g, the value in *fval (shared memory).
+template <int SC>
 __device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* c = s.c;
@@ -641,17 +739,17 @@ __device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U)
   if (tid == 0) { s.jt[0] = 0.f; s.jr[0] = 0.f; }
   __syncthreads();
   for (int t = 0; t < a.H; ++t)
-    fwd_step<false>(a, s, 1, U + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
+    fwd_step<false, SC>(a, s, 1, U + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
                     s.xs + (t + 1) * 13, t, s.h0p + t * a.HID, s.h1p + t * a.HID,
                     s.h2 + t * a.OUT);
-  for (int t = a.H - 1; t >= 0; --t) bwd_step(a, s, U, t);
+  for (int t = a.H - 1; t >= 0; --t) bwd_step<SC>(a, s, U, t);
   for (int e = tid; e < HZ; e += blockDim.x) {
     const int t = e / a.nZ, i = e - t * a.nZ;
-    s.g[e] = s.g[e] + ctrl_grad(a, c, U, t, i);
+    s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
   }
-  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).u; }, s.red + 0);
-  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).sl; }, s.red + 1);
-  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).viol; }, s.red + 2);
+  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).u; }, s.red + 0);
+  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).sl; }, s.red + 1);
+  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).viol; }, s.red + 2);
   __syncthreads();
   if (tid == 0) {
     const float* scal = c + a.o_scal;
@@ -669,6 +767,7 @@ __device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U)
 // averaged over the chunks into s.cacc[0..2), and the chunks' control
 // gradients are averaged into s.g; the closed-form control gradient and the
 // control-only terms are added once. noise: the (H, P, 13) Brownian block.
+template <int SC>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         const float* __restrict__ noise) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
@@ -685,10 +784,10 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     __syncthreads();
     const float* zc = noise + (size_t)ch * R * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
+      fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
                      s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t, nullptr, nullptr,
                      nullptr);
-    for (int t = a.H - 1; t >= 0; --t) bwd_rows(a, s, U, zc + (size_t)t * a.P * 13, t);
+    for (int t = a.H - 1; t >= 0; --t) bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t);
     if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
     if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
     __syncthreads();
@@ -699,11 +798,11 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
   }
   for (int e = tid; e < HZ; e += nt) {
     const int t = e / a.nZ, i = e - t * a.nZ;
-    s.g[e] = s.g[e] + ctrl_grad(a, c, U, t, i);
+    s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
   }
-  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).u; }, s.red + 0);
-  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).sl; }, s.red + 1);
-  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms(a, c, U, e).viol; }, s.red + 2);
+  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).u; }, s.red + 0);
+  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).sl; }, s.red + 1);
+  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).viol; }, s.red + 2);
   __syncthreads();
   if (tid == 0) {
     const float* scal = c + a.o_scal;
@@ -719,6 +818,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // rows, particle-major (row i = p*K + k), through the horizon from x0; the
 // particle mean of each candidate's tracking and sigma costs, a mean of
 // chunk means, lands in s.cacc[k] and s.cacc[K + k].
+template <int SC>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
                           const float* __restrict__ noise) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -730,7 +830,7 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
     __syncthreads();
     const float* zc = noise + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true>(a, s, R, s.cand + t * a.nZ, HZ, K, zc + (size_t)t * a.P * 13,
+      fwd_step<true, SC>(a, s, R, s.cand + t * a.nZ, HZ, K, zc + (size_t)t * a.P * 13,
                      s.xr, s.xr, t, nullptr, nullptr, nullptr);
     if (tid < 2 * K) {
       const int k = tid < K ? tid : tid - K;

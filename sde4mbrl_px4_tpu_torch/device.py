@@ -1,9 +1,15 @@
-"""Device and dtype policy: fp32 everywhere, TF32 off.
+"""Device and dtype policy: fp32 everywhere, TF32 off; the card by default.
 
 Reduced precision on the control-to-wrench product makes the solver stall
 short of the optimum (``sde4mbrl_px4_tpu/models/sde_model.py:167-176``), so
 every float matmul of the port runs in full fp32. The loader applies this
-policy before it builds anything; callers pass their ``device`` explicitly.
+policy before it builds anything.
+
+The port's entry points (the loader, ``CompiledMPC``,
+``RecedingHorizonController``, ``goldens.replay*``) run on the card unless
+the caller asks for the CPU: ``device=None`` means ``cuda``, and without a
+CUDA device they raise instead of carrying on on the CPU. ``"cpu"`` (the
+plain PyTorch versions of the kernels) must be asked for, as the tests do.
 """
 from __future__ import annotations
 
@@ -22,8 +28,12 @@ def apply_fp32_policy() -> None:
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:
-    """``None`` means the CPU; a CUDA device must exist when asked for."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` means the card (``cuda``); a CUDA device must exist, or this
+    raises naming the missing card. The CPU must be asked for."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {dev} requested{' (the default)' if device is None else ''} "
+            "but no CUDA card is available (torch.cuda.is_available() is false); "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev

@@ -16,6 +16,10 @@ Command-row layout: ``[u6, w4, idx]``. :func:`compare_to_golden` applies the
 cross-backend gates of ``bench.py:250`` (warm-started APG is fp-chaotic:
 commands gate at the chaos scale, the converged cost tightly, the pickup
 index exactly).
+
+:func:`constrained_problem` and :func:`constrained_plans` are the
+fixed-budget state-constraint problem that the kernel-against-plain checks
+on the card and the CPU parity tests share.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from sde4mbrl_px4_tpu_torch.core.types import (
 
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
            "replay_engagement", "replay_solver_family", "compare_to_golden",
-           "GATES", "SOLVER_FAMILIES"]
+           "constrained_problem", "constrained_plans", "GATES", "SOLVER_FAMILIES"]
 
 # bench.py:250 — |du| <= 0.03, |dw| <= 0.08, relative cost <= 0.02
 GATES = {"u": 0.03, "w": 0.08, "cost_rel": 0.02}
@@ -216,3 +220,31 @@ def compare_to_golden(trace: np.ndarray, costs: np.ndarray,
     ok = (du <= GATES["u"] and dw <= GATES["w"] and dc <= GATES["cost_rel"]
           and idx_ok)
     return {"du": du, "dw": dw, "cost_rel": dc, "idx_exact": idx_ok, "ok": ok}
+
+
+def constrained_problem(b):
+    """The fixed-budget state-constraint problem that the kernel-against-
+    plain checks and the CPU parity tests share, on bundle ``b``'s device:
+    a start past the velocity box (x0[3] = 0.6, as
+    ``tests/test_prox_slack.py:85``), a hover reference, ``u_prev`` at
+    uref, and a warm start of ``reset_fn``'s shape: the controls at
+    uref + 0.02, the slack columns (nZ - n_u) at 0, inside every box of the
+    shipped block. Returns ``(x0, x_ref, u_prev, z_init)``."""
+    dev, H = b.device, int(b.time_steps.shape[0])
+    x0 = hover_state(dev)
+    x0[3] = 0.6
+    x_ref = hover_state(dev).expand(H + 1, 13).contiguous()
+    u_prev = b.cost_params.uref.clone()
+    z_init = torch.cat([u_prev.expand(H, b.model.n_u) + 0.02,
+                        torch.zeros(H, b.cost_params.n_slack, device=dev)], 1)
+    return x0, x_ref, u_prev, z_init.contiguous()
+
+
+def constrained_plans(b, K: int, seed: int) -> torch.Tensor:
+    """(K, H, nZ) decision rows for bundle ``b``'s oracle: controls uniform
+    in [0.3, 0.95] from ``seed``, slack targets uniform in [-0.9, 0.9]
+    (inside and past the shipped boxes) from ``seed + 1000``."""
+    H, n_u, m = int(b.time_steps.shape[0]), b.model.n_u, b.cost_params.n_slack
+    u = np.random.RandomState(seed).uniform(0.3, 0.95, (K, H, n_u))
+    s = np.random.RandomState(seed + 1000).uniform(-0.9, 0.9, (K, H, m))
+    return torch.from_numpy(np.concatenate([u, s], -1).astype(np.float32)).to(b.device)

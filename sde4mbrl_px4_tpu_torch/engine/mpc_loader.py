@@ -4,14 +4,24 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/engine/mpc_loader.py``, with the
 same call-site contract (``:1-59``)::
 
     cfg, (reset_fn, mpc_fn), state_from_traj, bundle = \\
-        load_mpc_from_cfgfile(path, convert_to_enu=True, device="cuda")
+        load_mpc_from_cfgfile(path, convert_to_enu=True)
+
+``device`` defaults to the card (``cuda``; without one the loader raises);
+``device="cpu"`` runs every kernel's plain PyTorch version instead.
 
 - ``cfg['_time_steps']``: per-step dt list;
 - ``state_from_traj(t) -> x(13)`` (ENU) or None without ``trajectory_path``;
 - ``reset_fn(x, rng, xdes) -> APGState`` warm-start initializer;
 - ``mpc_fn(x, rng, opt_state, curr_t=0., xdes=None, iter_budget=None) ->
   MPCSolution(u_opt[H,n_u], opt_state', rng', x_evol[H+1,13])``, with
-  ``opt_state'`` carrying the one-step-shifted warm start.
+  ``opt_state'`` carrying the one-step-shifted warm start (H, nZ).
+
+A ``state_constr`` block (original ``:244-255``) runs on every route, on
+the kernels' constraint branches: the penalty form as extra stage-cost
+terms; the proximal form (``slack_proximal: True``) widens the decision
+sequence to nZ = n_u + m columns, the slack targets boxed to the state
+bounds (``lb_z``/``ub_z``), warm-started at 0 clipped into that box, and
+``u_opt`` is its first n_u columns.
 
 The solver runs in NED/FRD; with ``convert_to_enu`` the ``xdes`` inputs and
 the trajectory table are ENU and converted here. A solve takes one of three
@@ -85,13 +95,15 @@ class MPCBundle(NamedTuple):
     apg_config: APGConfig
     time_steps: torch.Tensor     # (H,)
     knot_times: torch.Tensor     # (H+1,) cumulative times incl. 0
-    lb: torch.Tensor
+    lb: torch.Tensor             # (n_u,) input box
     ub: torch.Tensor
     num_particles: int
     state_from_traj: Optional[Callable]
     convert_to_enu: bool
-    precond: Optional[torch.Tensor]   # (H, n_u) hover_diag metric or None
+    precond: Optional[torch.Tensor]   # (H, nZ) hover_diag metric or None
     device: torch.device
+    lb_z: torch.Tensor           # (nZ,) decision box: lb, then the slack bounds
+    ub_z: torch.Tensor
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -107,10 +119,18 @@ _PARTICLE_XLA = "Particles without a kernel: risk, start spread, MPPI K x P"
 
 def _check_slice(cfg: Dict[str, Any]) -> None:
     """Refuse the config features this port does not implement yet, and
-    the particle settings the original refuses (``:336-341``,
-    ``:464-470``)."""
+    the settings the original refuses: particle ones (``:336-341``,
+    ``:464-470``) and ``solver: policy`` with proximal slack
+    (``:374-378``)."""
     solver = str(cfg.get("solver", "apg"))
+    sc = cfg.get("state_constr")
     if solver == "policy":
+        if sc is not None and sc.get("slack_proximal"):
+            # the original refuses this pairing (:374-378)
+            raise ValueError(
+                "solver: policy does not support slack_proximal state "
+                "constraints — the policy head predicts motor plans only "
+                "(distill an expert WITHOUT slack, or keep solver: apg)")
         raise _not_in_slice("solver: policy", "Policy solver family")
     if solver not in ("apg", "mppi"):
         raise ValueError(f"unknown solver {solver!r} (apg|mppi|policy)")
@@ -134,8 +154,6 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
         raise ValueError(f"pallas_chunk={chunk} must divide num_particles={P}")
     if bool(cfg.get("antithetic", False)) and P > 1 and P % 2:
         raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
-    if cfg.get("state_constr") is not None:
-        raise _not_in_slice("state_constr", "State constraints and slack")
     if str(cfg.get("matmul_precision", "highest")).lower() not in ("highest", "float32"):
         raise _not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
 
@@ -217,15 +235,15 @@ def _precond_cache_key(cfg: Dict[str, Any], vehicle_name: str,
 # ---------------------------------------------------------------------------
 
 
-def _load_precond(cfg, model, time_steps_np, lb_np, ub_np, convert_to_enu,
+def _load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ, convert_to_enu,
                   device) -> torch.Tensor:
-    H, n_u = len(time_steps_np), model.n_u
+    H = len(time_steps_np)
     key = _precond_cache_key(cfg, model.vehicle.name, time_steps_np, lb_np,
-                             ub_np, n_u, convert_to_enu)
+                             ub_np, nZ, convert_to_enu)
     for cand in _precond_cache_paths(cfg, key):
         if os.path.exists(cand):
             d = np.load(cand)
-            if d.shape == (H, n_u):
+            if d.shape == (H, nZ):
                 return torch.tensor(np.asarray(d, np.float32), device=device)
     raise _not_in_slice(
         f"computing the hover_diag preconditioner (no cached {key}.npy)",
@@ -236,7 +254,9 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
                          device: Optional[torch.device | str] = None
                          ) -> Tuple[Dict[str, Any], Tuple[Callable, Callable],
                                     Optional[Callable], MPCBundle]:
-    """Core factory; ``cfg`` is an already-parsed config mapping."""
+    """Core factory; ``cfg`` is an already-parsed config mapping.
+    ``device=None`` is the card (``cuda``); without one this raises, and
+    ``"cpu"`` must be asked for."""
     _check_slice(cfg)
     apply_fp32_policy()
     dev = resolve_device(device)
@@ -255,6 +275,17 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     lb_np, ub_np = input_bounds_from_config(cfg)
     lb, ub = torch.tensor(lb_np, device=dev), torch.tensor(ub_np, device=dev)
     cost_params = CostParams.from_config(cfg, n_u, device=dev)
+    m = cost_params.n_slack
+    nZ = n_u + m
+    if m:
+        lb_z = torch.cat([lb, cost_params.slack_lo])
+        ub_z = torch.cat([ub, cost_params.slack_hi])
+        # admissible slack targets at rest: 0 clipped into the state box
+        # (original :480-490)
+        s_hover = torch.clamp(torch.zeros_like(cost_params.slack_lo),
+                              cost_params.slack_lo, cost_params.slack_hi)
+    else:
+        lb_z, ub_z = lb, ub
     apg_cfg = APGConfig.from_config(cfg)
     solver = str(cfg.get("solver", "apg"))
     mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
@@ -279,7 +310,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         raise ValueError(f"apg_mpc.precond must be 'hover_diag' or omitted, "
                          f"got {precond_mode!r}")
     # MPPI takes no metric: the original loads it for apg only (:509)
-    precond = (_load_precond(cfg, model, time_steps_np, lb_np, ub_np,
+    precond = (_load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ,
                              convert_to_enu, dev)
                if precond_mode == "hover_diag" and solver == "apg" else None)
 
@@ -288,20 +319,24 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         apg_config=apg_cfg, time_steps=time_steps, knot_times=knot_times,
         lb=lb, ub=ub, num_particles=num_particles,
         state_from_traj=state_from_traj, convert_to_enu=convert_to_enu,
-        precond=precond, device=dev)
+        precond=precond, device=dev, lb_z=lb_z, ub_z=ub_z)
 
     def reset_fn(x, rng, xdes) -> APGState:
         """State-aware warm start (original :582-615): collective thrust
-        scaled by 1/cos(tilt) plus a vertical-rate damping term."""
+        scaled by 1/cos(tilt) plus a vertical-rate damping term; slack
+        columns at their rest targets."""
         del rng, xdes
         x = torch.as_tensor(x, dtype=f32, device=dev)
         qx, qy = x[7], x[8]
         cos_tilt = 1.0 - 2.0 * (qx * qx + qy * qy)
         scale = 1.0 / torch.clamp(cos_tilt, min=0.5) + 0.3 * x[5]
         u0 = torch.clamp(cost_params.uref * torch.clamp(scale, 0.7, 1.5), lb, ub)
+        yk = u0.expand(H, n_u)
+        if m:
+            yk = torch.cat([yk, s_hover.expand(H, m)], dim=1)
         z = torch.zeros((), dtype=f32, device=dev)
         return APGState(
-            yk=u0.expand(H, n_u).contiguous(), num_steps=z,
+            yk=yk.contiguous(), num_steps=z,
             stepsize=torch.tensor(apg_cfg.init_stepsize, dtype=f32, device=dev),
             avg_stepsize=z, avg_linesearch=z, grad_sqr=z, init_cost=z, opt_cost=z)
 
@@ -315,7 +350,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
 
     def _shift(z_opt: torch.Tensor) -> torch.Tensor:
         if warm_shift == "extrapolate":
-            tail = torch.clamp(2.0 * z_opt[-1:] - z_opt[-2:-1], lb, ub)
+            tail = torch.clamp(2.0 * z_opt[-1:] - z_opt[-2:-1], lb_z, ub_z)
         else:
             tail = z_opt[-1:]
         return torch.cat([z_opt[1:], tail], dim=0)
@@ -337,7 +372,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         if solver == "apg" and apg_cfg.use_linesearch:
             st, x_evol = apg_solve_kernel(
                 model, params, cost_params, apg_cfg, time_steps, x, x_ref,
-                u_prev, noise, num_particles, lb, ub, opt_state.yk,
+                u_prev, noise, num_particles, lb_z, ub_z, opt_state.yk,
                 t_init=opt_state.stepsize if carry_t else None,
                 precond=precond, iter_budget=iter_budget, chunk=chunk)
         else:
@@ -347,12 +382,13 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
             with torch.no_grad():
                 if solver == "mppi":
                     eps, c0 = _mppi_draws(rng)
-                    st = mppi_solve(oracle, opt_state.yk, lb, ub, mppi_cfg, eps, c0)
+                    st = mppi_solve(oracle, opt_state.yk, lb_z, ub_z, mppi_cfg, eps, c0)
                 else:
-                    st = apg_solve(oracle, opt_state.yk, lb, ub, apg_cfg,
+                    st = apg_solve(oracle, opt_state.yk, lb_z, ub_z, apg_cfg,
                                    precond=precond, iter_budget=iter_budget)
                 x_evol = oracle.trajectory(st.yk)
-        return MPCSolution(u_opt=st.yk, opt_state=st._replace(yk=_shift(st.yk)),
+        return MPCSolution(u_opt=st.yk[:, :n_u],
+                           opt_state=st._replace(yk=_shift(st.yk)),
                            rng=rng, x_evol=x_evol)
 
     def _brownian(rng) -> torch.Tensor:
@@ -370,7 +406,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         """One solve's (eps, c0) on the device: drawn from a generator, or
         the next pair an iterator of draws hands in."""
         if isinstance(rng, torch.Generator):
-            return draw_mppi_noise(rng, mppi_cfg, H, n_u, dev)
+            return draw_mppi_noise(rng, mppi_cfg, H, nZ, dev)
         if rng is None:
             raise ValueError("solver: mppi needs rng: a torch.Generator or an "
                              "iterator of (eps, c0) draws")
@@ -382,6 +418,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
 
 def load_mpc_from_cfgfile(path: str, convert_to_enu: bool = True,
                           device: Optional[torch.device | str] = None):
-    """File-path entry point (the original's ``load_mpc_from_cfgfile``)."""
+    """File-path entry point (the original's ``load_mpc_from_cfgfile``);
+    ``device=None`` is the card."""
     return make_mpc_from_config(load_yaml_config(path),
                                 convert_to_enu=convert_to_enu, device=device)

@@ -18,9 +18,18 @@ sweep exports ``x_evol``. A Monte-Carlo solve (``num_particles`` P > 1,
 one launch of the kernel's particle form, which sweeps the particles in
 chunks (``chunk``, or the largest divisor of P whose shared memory fits),
 then one launch of the oracle's ``trajectory`` kernel for the mean-dynamics
-``x_evol``, as in the original (``engine/mpc_loader.py:745-751``). Scope:
-no state constraints, no slack columns; they raise.
-``apg_solve_kernel.launches`` counts the whole-solve kernel's launches.
+``x_evol``, as in the original (``engine/mpc_loader.py:745-751``).
+
+State constraints (``state_constr``, either form) are a compile-time branch
+of the kernel (``consts.py::sc_kind``): the penalty form's box penalties
+and the proximal form's slack coupling join the stage cost and the reverse
+sweep. In the proximal form the decision rows (``u_init``, ``yk``, the box
+``lb``/``ub``, ``precond``) are nZ = n_u + m wide; the kernel clips and
+sums the Armijo terms over nZ columns and the control terms over n_u. Its
+P=1 layout at nZ = 10 passes 48 KB, so the constrained forms take dynamic
+shared memory above the default (set once per library load by
+``apg_init``). ``apg_solve_kernel.launches`` counts the whole-solve
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
+    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -43,7 +52,7 @@ from sde4mbrl_px4_tpu_torch.solver.apg import (
 __all__ = ["apg_solve_kernel", "apg_solve_plain", "load_apg_library",
            "plan_solve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
-SMEM_LIMIT = 49152   # bytes of shared memory the P=1 kernel may use (48 KB)
+SMEM_LIMIT = 49152   # bytes of shared memory the unconstrained P=1 kernel may use (48 KB)
 _P = ctypes.c_void_p
 
 
@@ -80,12 +89,13 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int) -> None:
                    lambda a: lib.apg_smem_bytes(ctypes.byref(a)), SMEM_LIMIT_PARTICLES)
 
 
-def _check_scope(model: NeuralSDE, apg: APGConfig, lb: torch.Tensor) -> None:
-    if lb.shape[-1] != model.n_u:
-        raise NotImplementedError(
-            "apg_solve_kernel: slack decision columns (slack_proximal state "
-            "constraints) are not ported; ROADMAP.md §1 'State constraints "
-            "and slack' brings them")
+def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
+                 lb: torch.Tensor) -> None:
+    nZ = model.n_u + cp.n_slack
+    if lb.shape[-1] != nZ:
+        raise ValueError(
+            f"apg_solve_kernel: the box must have nZ={nZ} columns (n_u={model.n_u} "
+            f"controls and {cp.n_slack} slack targets), got {lb.shape[-1]}")
     if not apg.use_linesearch:
         raise ValueError(
             "apg_solve_kernel runs the linesearch APG; a config without "
@@ -102,7 +112,7 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     iter_budget: Optional[int] = None,
                     chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
     """Plain PyTorch version of :func:`apg_solve_kernel` (any device)."""
-    _check_scope(model, apg, lb)
+    _check_scope(model, cp, apg, lb)
     oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
                                noise, num_particles, apg.maxls, chunk=chunk)
     with torch.no_grad():
@@ -118,7 +128,8 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             stream: int) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Allocate the outputs and launch one solve; returns (yk, stats,
     x_evol), x_evol None for the particle form."""
-    limit = SMEM_LIMIT_PARTICLES if args.has_noise else SMEM_LIMIT
+    limit = (SMEM_LIMIT_PARTICLES if args.has_noise or args.sc_kind != SC_NONE
+             else SMEM_LIMIT)
     need = lib.apg_smem_bytes(ctypes.byref(args))
     if need > limit:
         raise ValueError(f"apg_solve_kernel needs {need} bytes of shared "
@@ -151,8 +162,9 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
     Inputs as ``pallas_apg_solve``: ``noise`` the (P, H, 13) Brownian block
     of a Monte-Carlo solve (None for the mean dynamics of P=1), ``u_init``
-    (H, n_u) the warm start, ``t_init`` the carried stepsize (non-positive
-    -> ``init_stepsize``), ``precond`` an optional (H, n_u) diagonal metric,
+    (H, nZ) the warm start, ``lb``/``ub`` the (nZ,) box, ``t_init`` the
+    carried stepsize (non-positive -> ``init_stepsize``), ``precond`` an
+    optional (H, nZ) diagonal metric,
     ``iter_budget`` an optional host-side iteration cap, ``chunk`` the
     particle chunk (0: the largest divisor of P that fits). CPU tensors run
     :func:`apg_solve_plain`.
@@ -164,8 +176,8 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                                t_init, precond, iter_budget, chunk)
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_kernel: unsupported device {dev}")
-    _check_scope(model, apg, lb)
-    H, n = int(time_steps.shape[0]), model.n_u
+    _check_scope(model, cp, apg, lb)
+    H, n = int(time_steps.shape[0]), model.n_u + cp.n_slack
     P, z, chunk = resolve_particles(noise, num_particles, None, chunk, H, dev)
     for name, t, shape in (("x0", x0, (13,)), ("x_ref", x_ref, (H + 1, 13)),
                            ("u_init", u_init, (H, n)), ("lb", lb, (n,)),

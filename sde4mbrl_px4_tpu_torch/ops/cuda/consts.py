@@ -5,7 +5,8 @@ Port of ``sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py::build_consts``
 (``:71-184``, K7): the constants every sweep of the solve reads (initial
 state, the horizon of reference states, the previous control, the trunk
 weights, the effective mixer, inertia, per-step dt and discount, cost
-weights and scalars, the input box). :class:`ApgArgs` mirrors
+weights and scalars, the decision box, and the ``state_constr`` block of
+either form). :class:`ApgArgs` mirrors
 ``csrc/apg_solve.cuh::ApgArgs`` field for field; each library's
 ``*_args_size()`` is checked against it when it is loaded. One layout
 serves all four kernels: the whole-solve kernel and the three cost-oracle
@@ -14,6 +15,15 @@ the solver fields. The Monte-Carlo particles' Brownian block is not part of
 the buffer (at P=512 it is 532 KB, more than a block's shared memory): the
 kernels read it from device memory, and :func:`plan_particles` fills the
 particle fields (P, the chunk Pc, the number of chunks).
+
+State constraints (``solve_kernels.py:119-174``): ``sc_kind`` selects the
+kernels' compile-time form (:data:`SC_NONE`, :data:`SC_PENALTY`,
+:data:`SC_PROX`). The penalty block is ``pen13'`` (``constr_pen`` folded
+in, as the TPU kernel ships it), ``lo13``, ``hi13``, ``inv13``; the
+proximal block is ``penm``, ``invm`` and the m state ids (as floats), and
+the decision row widens to ``nZ = n_u + m`` with the box ``lb``/``ub``
+nZ wide. ``u_prev`` is packed ``n_u`` wide: only the control columns carry
+effort and slew terms.
 """
 from __future__ import annotations
 
@@ -26,13 +36,15 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
-__all__ = ["APG_MAXK", "SMEM_LIMIT_PARTICLES", "ApgArgs", "build_consts",
-           "plan_particles"]
+__all__ = ["APG_MAXK", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
+           "ApgArgs", "build_consts", "plan_particles", "sc_kind"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
 SMEM_LIMIT_PARTICLES = 232448
+# the kernels' state-constraint forms (csrc/apg_solve.cuh CONSTR_*)
+SC_NONE, SC_PENALTY, SC_PROX = 0, 1, 2
 
 _INT_FIELDS = (
     "H", "n_u", "nZ", "K", "F", "HID", "OUT",
@@ -45,13 +57,37 @@ _INT_FIELDS = (
 )
 _FLOAT_FIELDS = ("inc", "one_m_coef", "tmax", "beta_init", "moment_scale",
                  "atol", "rtol")
+_SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
+              "o_hi13", "o_inv13")
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
 
 class ApgArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
-                + [("dfp", ctypes.c_float * (APG_MAXK + 1))])
+                + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
+                + [(n, ctypes.c_int) for n in _SC_FIELDS])
+
+
+def sc_kind(cp: CostParams) -> int:
+    """The kernels' state-constraint form of a cost."""
+    if cp.slack_sel is not None:
+        return SC_PROX
+    return SC_NONE if cp.state_pen13 is None else SC_PENALTY
+
+
+def _constraint_pieces(cp: CostParams) -> tuple:
+    """The consts of the state-constraint block (``solve_kernels.py:157-172``)."""
+    kind = sc_kind(cp)
+    if kind == SC_PROX:
+        ids = torch.argmax(cp.slack_sel, dim=1).to(torch.float32)
+        return (("penm", cp.slack_pen), ("invm", cp.slack_inv_scale), ("sid", ids))
+    if kind == SC_PENALTY:
+        pen = torch.tensor(cp.constr_pen, dtype=torch.float32,
+                           device=cp.state_pen13.device) * cp.state_pen13
+        return (("pen13", pen), ("lo13", cp.state_lo13), ("hi13", cp.state_hi13),
+                ("inv13", cp.state_inv_scale13))
+    return ()
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -63,12 +99,14 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     """Pack the consts buffer on the tensors' device (one ``torch.cat``, no
     host sync) and fill the argument struct. Without an ``apg`` config (the
     cost oracle) the solver fields are zero; without a box the ``lb``/``ub``
-    blocks hold -inf/+inf."""
+    blocks hold -inf/+inf. The box is nZ wide (``n_u`` plus the proximal
+    form's slack columns)."""
     if apg is not None and apg.maxls > APG_MAXK:
         raise ValueError(f"maxls={apg.maxls} exceeds the kernel's {APG_MAXK}")
     f32 = torch.float32
     H = int(time_steps.shape[0])
     n = model.n_u
+    nZ = n + cp.n_slack
     net = params["net"]
     HID, OUT = int(net["w1"].shape[0]), int(net["w2"].shape[1])
     mix_eff = model.mixing * torch.exp(params["motor"]["log_gain"])[:, None]
@@ -83,7 +121,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     scal = torch.cat([host[:1], torch.exp(params["diffusion_log_scale"]).reshape(1),
                       host[1:]])
     if lb is None:
-        lb = torch.full((n,), -float("inf"), dtype=f32, device=x0.device)
+        lb = torch.full((nZ,), -float("inf"), dtype=f32, device=x0.device)
         ub = -lb
     pieces = (
         ("x0", x0), ("xref", x_ref), ("uprev", u_prev[:n]),
@@ -93,7 +131,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         ("disc", discount_vector(cp, H, x0.device)), ("wstate", wstate),
         ("uref", cp.uref), ("slo", slo), ("shi", shi), ("scal", scal),
         ("lb", lb), ("ub", ub),
-    )
+    ) + _constraint_pieces(cp)
     a = ApgArgs()
     off = 0
     flat = []
@@ -105,7 +143,8 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     a.n_consts = off
     buf = torch.cat(flat)
 
-    a.H, a.n_u, a.nZ = H, n, n
+    a.H, a.n_u, a.nZ = H, n, nZ
+    a.sc_kind, a.m = sc_kind(cp), nZ - n
     a.P = a.Pc = a.n_chunks = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)

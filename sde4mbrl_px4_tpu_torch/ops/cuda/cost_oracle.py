@@ -7,7 +7,8 @@ meaning here): one solve's cost, returned as a
 :class:`~sde4mbrl_px4_tpu_torch.solver.apg.CostOracle` whose
 ``value_batch`` (K, H, n) -> (K,), ``value_and_grad`` (H, n) -> ((),
 (H, n)) and ``trajectory`` (H, n) -> (H+1, 13) evaluate it; ``value(u)``
-is ``value_batch(u[None])[0]``, as in the original. On CUDA tensors the
+is ``value_batch(u[None])[0]``, as in the original (n: the decision width
+nZ). On CUDA tensors the
 entries launch ``csrc/cost_oracle.cu`` (on the current stream, no sync)
 or raise; the consts buffer is packed once, when the oracle is built, and
 every launch of the solve reuses it. On CPU tensors :func:`cost_oracle`
@@ -23,10 +24,15 @@ chunks of that size, or, at 0, of the largest divisor of P that fits their
 shared memory. The plain version takes the unchunked mean, which the
 chunked one equals in exact arithmetic.
 
-Scope: no state constraints, no slack columns; they raise, naming the
-ROADMAP item that brings them. :func:`value_batch_kernel`,
-:func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
-their launches in ``.launches``.
+State constraints (``state_constr``, either form): the plans are the
+decision rows, nZ = n_u + m columns wide in the proximal form (the slack
+targets past the controls, as ``engine/mpc_loader.py:765-773`` of the
+original splits them), and the gradient is nZ wide; ``trajectory`` reads
+the control columns. The kernels take the form as a compile-time branch
+(``consts.py::sc_kind``); ``value_batch`` shrinks its tile of candidate
+rows below 16 when the wider rows would not fit 48 KB of shared memory.
+:func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
+:func:`trajectory_kernel` each count their launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -133,16 +139,16 @@ def _check_inputs(model: NeuralSDE, time_steps, x0, x_ref, u_prev) -> None:
 def _checked(H: int, n: int, dev: torch.device, value_batch, value_and_grad,
              trajectory) -> CostOracle:
     """The oracle of the three evaluations, with shape/dtype/contiguity
-    checks on the plans it is given; ``value(u)`` is
-    ``value_batch(u[None])[0]``. A plan narrower or wider than n_u (slack
-    columns) is refused."""
+    checks on the plans it is given (n = nZ columns: the controls and the
+    proximal form's slack targets); ``value(u)`` is
+    ``value_batch(u[None])[0]``."""
 
     def check_plan(u: torch.Tensor) -> None:
         if u.shape[-1] != n:
-            raise NotImplementedError(
-                f"cost_oracle: plans must have n_u={n} columns, got "
-                f"{u.shape[-1]}; slack decision columns are ROADMAP.md §1 "
-                "'State constraints and slack'")
+            raise ValueError(
+                f"cost_oracle: plans must have nZ={n} columns (the controls "
+                f"and the slack targets of a proximal state_constr block), got "
+                f"{u.shape[-1]}")
         _check("u", u, (H, n), dev)
 
     def vb(U):
@@ -181,14 +187,16 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         z = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
     cost_fn = make_cost_fn(cp, time_steps)
     u_prev = u_prev[:n]
+    m = cp.n_slack
 
-    def seq_cost(u):
+    def seq_cost(zr):
+        u = zr[:, :n]
         xp, sg = rollout_sde(model, params, x0, u, time_steps, z)
-        return cost_fn(xp, sg, u, x_ref, u_prev)
+        return cost_fn(xp, sg, u, x_ref, u_prev, zr[:, n:] if m else None)
 
     base = CostOracle.from_fn(seq_cost)
-    return _checked(H, n, x0.device, base.value_batch, base.value_and_grad,
-                    lambda u: rollout_mean(model, params, x0, u, time_steps))
+    return _checked(H, n + m, x0.device, base.value_batch, base.value_and_grad,
+                    lambda zr: rollout_mean(model, params, x0, zr[:, :n], time_steps))
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -211,7 +219,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(K, H, n) plans -> (K,) costs: one launch of ``value_batch_kernel``
+    """(K, H, nZ) plans -> (K,) costs: one launch of ``value_batch_kernel``
     (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``)."""
     lib = load_oracle_library()
     K = int(U.shape[0])
@@ -231,7 +239,7 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
 def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                           noise: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H, n) plan -> (cost (), gradient (H, n)): one launch."""
+    """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch."""
     lib = load_oracle_library()
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
@@ -259,7 +267,7 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int) -
 
 def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
                       u: torch.Tensor) -> torch.Tensor:
-    """(H, n) plan -> its mean rollout (H+1, 13): one launch."""
+    """(H, nZ) plan -> the mean rollout of its controls (H+1, 13): one launch."""
     lib = load_oracle_library()
     need = lib.trajectory_smem_bytes(ctypes.byref(args))
     if need > SMEM_LIMIT:
@@ -302,7 +310,7 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     if z is not None:
         z = z.contiguous()
         plan_oracle_particles(lib, args, P, chunk)
-    return _checked(H, model.n_u, dev,
+    return _checked(H, args.nZ, dev,
                     lambda U: value_batch_kernel(consts, args, U, z),
                     lambda u: value_and_grad_kernel(consts, args, u, z),
                     functools.partial(trajectory_kernel, consts, args))

@@ -21,8 +21,20 @@ H = 20
 
 
 def load_port_bundles(repo_root):
-    return {name: load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"))[3]
+    return {name: load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
+                                        device="cpu")[3]
             for name in ("iris_traj_mpc", "iris_posctrl_mpc")}
+
+
+def constrained_bundle(repo_root, form, device):
+    """The port's bundle of ``configs/iris_constr_posctrl_mpc.yaml`` in the
+    proximal form as shipped (``form="prox"``) or its penalty form."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml"))
+    cfg["state_constr"]["slack_proximal"] = form == "prox"
+    return make_mpc_from_config(cfg, device=device)[3]
 
 
 def problem(cp_uref, x_off=(0.3, 0.2)):

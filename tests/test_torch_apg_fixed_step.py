@@ -85,7 +85,7 @@ def test_config_without_linesearch_solves(repo_root, name):
     cfg = no_linesearch(repo_root, name, max_iter=6, max_no_improvement_iter=6,
                         stepsize=1e-3 if name == "iris_traj_mpc" else 1e-5)
     jcfg, (j_reset, j_mpc), j_sft, _ = j_make(copy.deepcopy(cfg))
-    tcfg, (t_reset, t_mpc), t_sft, tb = make_mpc_from_config(copy.deepcopy(cfg))
+    tcfg, (t_reset, t_mpc), t_sft, tb = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
     assert not tb.apg_config.use_linesearch
     assert (tb.precond is not None) == (name == "iris_traj_mpc")
     x = np.zeros(13, np.float32)

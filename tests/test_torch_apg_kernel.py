@@ -5,10 +5,14 @@ Pallas kernel in interpret mode for the posctrl case. Fixed iteration
 budgets with equal ``num_steps``; tolerances are the reference's own
 (``tests/test_apg_kernel.py:60-80``).
 
-``test_kernel_matches_plain_on_cuda`` and
-``test_particle_kernel_matches_plain_on_cuda`` compare the hand-written CUDA
-kernel with the plain version on the card (P=1; P=8, P=64 in chunks of 16
-and P=512 antithetic) and skip without one."""
+``test_kernel_matches_plain_on_cuda``,
+``test_particle_kernel_matches_plain_on_cuda`` and
+``test_constraint_kernel_matches_plain_on_cuda`` compare the hand-written
+CUDA kernel with the plain version on the card (P=1; P=8, P=64 in chunks of
+16 and P=512 antithetic; each state-constraint form at P=1 and at P=8 in
+chunks of 4) and skip without one;
+``test_shipped_constrained_config_runs_on_the_card_by_default`` loads the
+shipped constrained config with no device and solves it on the kernel."""
 import os
 
 import jax.numpy as jnp
@@ -16,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import H, assert_lockstep, load_port_bundles, problem, solve_pair
+from _torch_parity import (H, assert_lockstep, constrained_bundle, load_port_bundles, problem,
+                           solve_pair)
 from sde4mbrl_px4_tpu.ops.pallas.apg_kernel import pallas_apg_solve
 from sde4mbrl_px4_tpu.ops.rollout import rollout_mean
+from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
 from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
 from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
 
@@ -72,8 +78,9 @@ def test_scope_is_enforced(port_bundles):
                             chunk=3)
     with pytest.raises(ValueError, match="divide"):
         AK.apg_solve_kernel(*args, 1, tb.lb, tb.ub, u_init, chunk=4)
+    # the box is nZ wide: n_u columns without a proximal state_constr block
     lb6 = torch.cat([tb.lb, torch.zeros(2)])
-    with pytest.raises(NotImplementedError, match="slack"):
+    with pytest.raises(ValueError, match="nZ=4"):
         AK.apg_solve_kernel(*args, 1, lb6, lb6 + 1, u_init)
 
 
@@ -149,3 +156,64 @@ def test_particle_kernel_matches_plain_on_cuda(repo_root, P, chunk, antithetic):
         ref = t_rollout_mean(b.model, b.params, x0, st_k.yk, b.time_steps)
         np.testing.assert_allclose(xe_k.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, chunk", [(1, 0), (8, 4)])
+@pytest.mark.parametrize("form", ["penalty", "prox"])
+def test_constraint_kernel_matches_plain_on_cuda(repo_root, form, P, chunk):
+    """The state-constraint branches of the whole-solve kernel (the shipped
+    ``iris_constr_posctrl_mpc.yaml`` and its penalty form) against the plain
+    version on the card, max_iter=10 from a bound-violating start, the same
+    torch draws at P=8: equal steps, ``yk`` (nZ = 10 wide in the proximal
+    form) at rtol 5e-4 / atol 5e-5, ``opt_cost`` at rel 5e-4
+    (``tests/test_prox_slack.py:143-146``); ``x_evol`` the mean rollout of
+    the control columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean as t_rollout_mean
+
+    dev = torch.device("cuda")
+    b = constrained_bundle(repo_root, form, dev)
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    x0, x_ref, u_prev, z_init = constrained_problem(b)
+    z = None if P == 1 else draw_brownian(torch.Generator().manual_seed(P), H, P, True,
+                                          dev).transpose(0, 1)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P,
+            b.lb_z, b.ub_z, z_init)
+    n0 = AK.apg_solve_kernel.launches
+    st_k, xe_k = AK.apg_solve_kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert AK.apg_solve_kernel.launches == n0 + 1
+    st_p, _ = AK.apg_solve_plain(*args, chunk=chunk)
+    assert int(st_k.num_steps) == int(st_p.num_steps)
+    assert st_k.yk.shape == (H, 10 if form == "prox" else 4)
+    np.testing.assert_allclose(st_k.yk.cpu().numpy(), st_p.yk.cpu().numpy(),
+                               rtol=5e-4, atol=5e-5)
+    assert float(st_k.opt_cost) == pytest.approx(float(st_p.opt_cost), rel=5e-4)
+    ref = t_rollout_mean(b.model, b.params, x0, st_k.yk[:, :4], b.time_steps)
+    np.testing.assert_allclose(xe_k.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_shipped_constrained_config_runs_on_the_card_by_default(repo_root):
+    """``load_mpc_from_cfgfile`` of the shipped constrained config with no
+    device runs on the card: one solve is one launch of the whole-solve
+    kernel (its proximal form), ``u_opt`` the 4 control columns and the
+    warm start nZ = 10 wide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+
+    _, (reset_fn, mpc_fn), _, b = load_mpc_from_cfgfile(
+        os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml"))
+    assert b.device.type == "cuda"
+    x = hover_state(b.device)
+    gen = torch.Generator().manual_seed(0)
+    n0 = AK.apg_solve_kernel.launches
+    sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
+    torch.cuda.synchronize()
+    assert AK.apg_solve_kernel.launches == n0 + 1
+    assert sol.u_opt.shape == (H, 4) and sol.opt_state.yk.shape == (H, 10)
+    assert sol.u_opt.device.type == "cuda" and bool(torch.isfinite(sol.u_opt).all())

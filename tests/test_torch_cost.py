@@ -26,7 +26,7 @@ H = 20
 def pair(request, repo_root, iris_traj_bundle, iris_pos_bundle):
     jb = iris_traj_bundle if request.param == "traj" else iris_pos_bundle
     name = "iris_traj_mpc" if request.param == "traj" else "iris_posctrl_mpc"
-    tb = load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"))
+    tb = load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"), device="cpu")
     return jb, tb
 
 

@@ -136,7 +136,8 @@ def test_family_mppi_replays_golden(repo_root):
     """The solver-family golden, with the JAX package's draws injected
     through ``mpc_fn``'s rng; no kernel launches on the CPU."""
     n0 = CO.value_batch_kernel.launches
-    tr = G.replay_solver_family(repo_root, "mppi", draws=jax_mpc_draws(MPPIConfig(), 4))
+    tr = G.replay_solver_family(repo_root, "mppi", draws=jax_mpc_draws(MPPIConfig(), 4),
+                                device="cpu")
     assert CO.value_batch_kernel.launches == n0
     ref = np.load(os.path.join(G.golden_dir(repo_root), "family_mppi_trace.npz"))["trace"]
     assert tr.shape == ref.shape
@@ -147,8 +148,8 @@ def test_unported_families_are_refused(repo_root):
     """Only the policy family is still refused; ``p512anti`` runs since the
     particles were ported (its golden: ``tests/test_torch_particles.py``)."""
     with pytest.raises(NotImplementedError, match="Policy solver family"):
-        G.replay_solver_family(repo_root, "policy")
-    rows = G.replay_solver_family(repo_root, "p512anti", n=1)
+        G.replay_solver_family(repo_root, "policy", device="cpu")
+    rows = G.replay_solver_family(repo_root, "p512anti", n=1, device="cpu")
     assert rows.shape == (1, 5) and np.isfinite(rows).all() and 1 <= rows[0, -1] <= 6
 
 
@@ -161,7 +162,7 @@ def test_mppi_config_closed_loop(repo_root):
                    "iters": 8, "noise_beta": 0.7}
     with warnings.catch_warnings():
         warnings.simplefilter("error")       # every mppi key is known
-        cfg, (reset_fn, mpc_fn), _, bundle = make_mpc_from_config(cfg)
+        cfg, (reset_fn, mpc_fn), _, bundle = make_mpc_from_config(cfg, device="cpu")
     assert bundle.precond is None
     x = hover_state()
     x[0] = 1.0

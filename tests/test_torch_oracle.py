@@ -8,10 +8,12 @@ committed checkpoint on both sides. Tolerances are the reference's own
 (``tests/test_pallas_kernels.py:76,86``; ``tests/test_apg_kernel.py:199``):
 values rtol 2e-5, gradients rtol 5e-4 / atol 5e-5, trajectories rtol 1e-5.
 
-``test_kernels_match_plain_on_cuda`` and
-``test_particle_kernels_match_plain_on_cuda`` hold the three CUDA kernels
+``test_kernels_match_plain_on_cuda``,
+``test_particle_kernels_match_plain_on_cuda`` and
+``test_constraint_kernels_match_plain_on_cuda`` hold the three CUDA kernels
 to the plain version on the card (P=1; P=8, P=64 in chunks of 16 and P=512
-antithetic) and skip without one."""
+antithetic; each state-constraint form at P=1 and at P=8 in chunks of 4)
+and skip without one."""
 import os
 
 import jax
@@ -20,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import H, load_port_bundles, problem
+from _torch_parity import H, constrained_bundle, load_port_bundles, problem
 from sde4mbrl_px4_tpu.cost.cost import make_cost_fn
 from sde4mbrl_px4_tpu.ops.pallas.solve_kernels import pallas_cost_oracle
 from sde4mbrl_px4_tpu.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu.solver.apg import CostOracle as JaxOracle
+from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_plans, constrained_problem
 from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
 CONFIGS = {"traj": "iris_traj_mpc", "pos": "iris_posctrl_mpc"}
@@ -132,7 +135,7 @@ def test_scope_and_inputs_are_checked(oracles, repo_root):
     with pytest.raises(ValueError, match="x_ref"):
         CO.cost_oracle(*args[:5], x_ref[:-1], u_prev, None, 1, 4)
     port = oracles["pos"][2]
-    with pytest.raises(NotImplementedError, match="slack"):
+    with pytest.raises(ValueError, match="nZ=4 columns"):   # no slack columns here
         port.value(torch.zeros(H, 6))
     with pytest.raises(ValueError, match="float32"):
         port.value_and_grad(torch.zeros(H, 4, dtype=torch.float64))
@@ -213,3 +216,41 @@ def test_particle_kernels_match_plain_on_cuda(repo_root, P, chunk, antithetic):
         torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
         torch.testing.assert_close(kern.trajectory(u), plain.trajectory(u),
                                    rtol=X_RTOL, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, chunk", [(1, 0), (8, 4)])
+@pytest.mark.parametrize("form", ["penalty", "prox"])
+def test_constraint_kernels_match_plain_on_cuda(repo_root, form, P, chunk):
+    """The state-constraint branches of ``value_batch`` (K = 1, 4, 64) and
+    ``value_and_grad`` against the plain oracle on the card, on the shipped
+    constrained config and its penalty form (nZ = 10 wide plans in the
+    proximal form), the same torch draws at P=8; ``trajectory`` reads the
+    control columns of an nZ-wide plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernels have no CPU mode")
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+
+    dev = torch.device("cuda")
+    b = constrained_bundle(repo_root, form, dev)
+    x0, x_ref, u_prev, _ = constrained_problem(b)
+    z = None if P == 1 else draw_brownian(torch.Generator().manual_seed(P), H, P, True,
+                                          dev).transpose(0, 1)
+    args = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+    kern = CO.cost_oracle(*args, chunk=chunk)
+    plain = CO.cost_oracle_plain(*args, chunk=chunk)
+    m = b.cost_params.n_slack
+    for K in (1, 4, 64):
+        U = constrained_plans(b, K, K)
+        n0 = CO.value_batch_kernel.launches
+        vk = kern.value_batch(U)
+        torch.cuda.synchronize()
+        assert CO.value_batch_kernel.launches == n0 + 1
+        torch.testing.assert_close(vk, plain.value_batch(U), rtol=VAL_RTOL, atol=0)
+    u = U[1].contiguous()
+    vk, gk = kern.value_and_grad(u)
+    vp, gp = plain.value_and_grad(u)
+    assert gk.shape == (H, 4 + m)
+    torch.testing.assert_close(vk, vp, rtol=VAL_RTOL, atol=0)
+    torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(kern.trajectory(u), plain.trajectory(u), rtol=X_RTOL, atol=1e-6)

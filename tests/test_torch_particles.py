@@ -267,7 +267,7 @@ def test_mpc_fn_p8_antithetic_lockstep_with_jax(repo_root):
     the port fed the JAX ``mpc_fn``'s own draws; no launch on the CPU."""
     cfg = _p8_config(repo_root)
     jcfg, (j_reset, j_mpc), j_sft, jb = j_make(copy.deepcopy(cfg))
-    tcfg, (t_reset, t_mpc), t_sft, tb = make_mpc_from_config(copy.deepcopy(cfg))
+    tcfg, (t_reset, t_mpc), t_sft, tb = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
     assert tb.num_particles == 8 and tb.precond is not None
     xj = j_enu2ned(j_sft(jnp.float32(3.0)))
     xt = T(np.array(xj))
@@ -298,7 +298,7 @@ def test_mpc_fn_p8_antithetic_lockstep_with_jax(repo_root):
 def test_family_p512anti_replays_golden(repo_root):
     """The solver-family golden (P=512 antithetic, 4 solves of at most 6
     iterations along the lemniscate), with the JAX package's draws."""
-    tr = G.replay_solver_family(repo_root, "p512anti",
+    tr = G.replay_solver_family(repo_root, "p512anti", device="cpu",
                                 draws=jax_brownian_draws(512, 4, antithetic=True))
     ref = np.load(os.path.join(G.golden_dir(repo_root), "family_p512anti_trace.npz"))["trace"]
     assert tr.shape == ref.shape
@@ -319,7 +319,7 @@ def test_controller_draws_once_per_solve(repo_root, tmp_path):
     path.write_text(yaml.safe_dump({k: v for k, v in cfg.items() if not k.startswith("_")}))
     c = RecedingHorizonController(str(path),
                                   os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"),
-                                  seed=0, now_fn=lambda: 0.0)
+                                  seed=0, now_fn=lambda: 0.0, device="cpu")
     ref = torch.Generator().manual_seed(0)
     x = hover_state().numpy()
     for k in range(2):

@@ -10,10 +10,14 @@ position-hold golden replay.
 - a fresh process that imports the port and runs the slice (the
   whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
   never imports JAX;
-- particle configs load and route to the kernel wrappers; configs outside
-  the slice are refused with the ROADMAP item that brings them, and the
-  particle settings the original refuses raise ValueError as there. (The
-  trajectory replay is ``test_torch_slice_traj.py``.)
+- particle configs and ``state_constr`` configs (both forms, APG and MPPI)
+  load and route to the kernel wrappers; configs outside the slice are
+  refused with the ROADMAP item that brings them, and the settings the
+  original refuses (particle options, ``solver: policy`` with proximal
+  slack) raise ValueError as there;
+- every entry point runs on the card unless asked for the CPU: without
+  CUDA it raises, naming the missing card. (The trajectory replay is
+  ``test_torch_slice_traj.py``.)
 """
 import os
 import subprocess
@@ -32,6 +36,7 @@ from sde4mbrl_px4_tpu_torch.engine import mpc_loader as tloader
 from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
 from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
 from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import SC_PENALTY, SC_PROX, sc_kind
 
 IRIS = ("iris_traj_mpc", "iris_posctrl_mpc")
 
@@ -40,7 +45,7 @@ def _controller(repo_root):
     return RecedingHorizonController(
         os.path.join(repo_root, "configs/iris_traj_mpc.yaml"),
         os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"),
-        seed=0, now_fn=lambda: 0.0)
+        seed=0, now_fn=lambda: 0.0, device="cpu")
 
 
 @pytest.mark.parametrize("name", IRIS)
@@ -59,7 +64,7 @@ def test_precond_cache_key_matches_jax(repo_root, name):
 
 def test_flagship_traj_loads_committed_preconditioner(repo_root):
     path = os.path.join(repo_root, "configs/iris_traj_mpc.yaml")
-    b = tloader.load_mpc_from_cfgfile(path)[3]
+    b = tloader.load_mpc_from_cfgfile(path, device="cpu")[3]
     key = jloader._precond_cache_key(
         j_load_yaml(path), "iris", j_make_time_steps(20, 20, 0.05, 0.05),
         np.full(4, 1e-4, np.float32), np.ones(4, np.float32), 4, True)
@@ -88,15 +93,12 @@ def _mutated(repo_root, name, mutation):
     ({"num_particles": 8, "cost_params.risk_lambda": 1.0}, "Particles"),
     ({"num_particles": 8, "initial_state_std": 0.01}, "Particles"),
     ({"solver": "mppi", "num_particles": 512, "antithetic": True}, "Particles"),
-    ({"state_constr": {"state_id": [3]}}, "State constraints and slack"),
-    ({"solver": "mppi", "state_constr": {"state_id": [3]}},
-     "State constraints and slack"),
     ({"num_particles": 512, "matmul_precision": "default"}, "Reduced matmul precision"),
 ])
 def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
     cfg = _mutated(repo_root, "iris_posctrl_mpc", mutation)
     with pytest.raises(NotImplementedError, match=item):
-        tloader.make_mpc_from_config(cfg)
+        tloader.make_mpc_from_config(cfg, device="cpu")
 
 
 # ... and the particle settings the original itself refuses
@@ -112,7 +114,7 @@ def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
 def test_particle_settings_the_original_refuses(repo_root, mutation, match):
     cfg = _mutated(repo_root, "iris_posctrl_mpc", mutation)
     with pytest.raises(ValueError, match=match):
-        tloader.make_mpc_from_config(cfg)
+        tloader.make_mpc_from_config(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name, mutation, wrapper", [
@@ -140,7 +142,7 @@ def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, n
         return orig(*args, **kw)
 
     monkeypatch.setattr(tloader, wrapper, spy)
-    _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg)
+    _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg, device="cpu")
     assert b.num_particles == 8
     x = torch.zeros(13)
     x[6] = 1.0
@@ -153,11 +155,84 @@ def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, n
     assert sol.x_evol.shape == (21, 13)
 
 
+# the shipped proximal block and its penalty form (slack_proximal false)
+SC_FORMS = {"prox": SC_PROX, "penalty": SC_PENALTY}
+
+
+@pytest.mark.parametrize("solver", ["apg", "mppi"])
+@pytest.mark.parametrize("form", sorted(SC_FORMS))
+def test_constrained_configs_route_to_the_constraint_branch(repo_root, monkeypatch,
+                                                            form, solver):
+    """``iris_constr_posctrl_mpc.yaml`` in either form loads, and each solve
+    hands its route's kernel wrapper the cost with that constraint form and
+    the nZ-wide decision box and warm start (nZ = 4 + 6 slack columns in the
+    proximal form); ``u_opt`` is the n_u control columns."""
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml"))
+    cfg["state_constr"]["slack_proximal"] = form == "prox"
+    cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
+    if solver == "mppi":
+        cfg.update(solver="mppi", mppi={"samples": 8, "iters": 1})
+    nZ = 10 if form == "prox" else 4
+    wrapper = "apg_solve_kernel" if solver == "apg" else "cost_oracle"
+    calls = []
+    orig = getattr(tloader, wrapper)
+
+    def spy(*args, **kw):
+        calls.append(sc_kind(args[2]))
+        if wrapper == "apg_solve_kernel":
+            assert args[10].shape == (nZ,) and args[12].shape == (20, nZ)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(tloader, wrapper, spy)
+    _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg, device="cpu")
+    assert b.lb_z.shape == (nZ,) and b.lb.shape == (4,)
+    x = torch.zeros(13)
+    x[6], x[3] = 1.0, 0.6
+    gen = torch.Generator().manual_seed(0)
+    st = reset_fn(x, gen, x)
+    assert st.yk.shape == (20, nZ)
+    sol = mpc_fn(x, gen, st, 0.0, x)
+    assert calls == [SC_FORMS[form]]
+    assert sol.u_opt.shape == (20, 4) and sol.opt_state.yk.shape == (20, nZ)
+    assert torch.isfinite(sol.u_opt).all() and sol.x_evol.shape == (21, 13)
+
+
+def test_policy_on_prox_config_is_refused(repo_root):
+    """``solver: policy`` with proximal slack stays refused, with the
+    original's ValueError (``engine/mpc_loader.py:374-378``)."""
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml"))
+    cfg["solver"] = "policy"
+    with pytest.raises(ValueError, match="does not support slack_proximal"):
+        tloader.make_mpc_from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["load_mpc_from_cfgfile", "CompiledMPC",
+                                   "RecedingHorizonController", "replay_solver_family"])
+def test_entry_points_default_to_card(repo_root, entry):
+    """With no device every entry point runs on the card; without CUDA it
+    raises, naming the missing card (it never carries on on the CPU)."""
+    from sde4mbrl_px4_tpu_torch.engine.controller import CompiledMPC
+
+    pos = os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml")
+    call = {"load_mpc_from_cfgfile": lambda: tloader.load_mpc_from_cfgfile(pos),
+            "CompiledMPC": lambda: CompiledMPC(pos),
+            "RecedingHorizonController": lambda: RecedingHorizonController(
+                os.path.join(repo_root, "configs/iris_traj_mpc.yaml"), pos),
+            "replay_solver_family": lambda: G.replay_solver_family(repo_root, "mppi",
+                                                                    n=1)}[entry]
+    if torch.cuda.is_available():
+        if entry == "load_mpc_from_cfgfile":
+            assert call()[3].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        call()
+
+
 def test_precond_cache_miss_is_refused(repo_root):
     cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_traj_mpc.yaml"))
     cfg["cost_params"]["uerr"] = 2.0         # new content -> no cached artifact
     with pytest.raises(NotImplementedError, match="Preconditioner probe"):
-        tloader.make_mpc_from_config(cfg)
+        tloader.make_mpc_from_config(cfg, device="cpu")
 
 
 def test_pos_replay_matches_golden(repo_root):
@@ -205,7 +280,7 @@ def test_slice_runs_without_jax(repo_root):
         from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
         from sde4mbrl_px4_tpu_torch.core.types import CONTROL_STATES, hover_state
         c = RecedingHorizonController("configs/iris_traj_mpc.yaml",
-                                      "configs/iris_posctrl_mpc.yaml")
+                                      "configs/iris_posctrl_mpc.yaml", device="cpu")
         c.traj.deadline_ms = c.pos.deadline_ms = 1.0   # short solves
         c.traj._iter_ms = c.pos._iter_ms = 1.0
         c.traj.deadline_min_iters = c.pos.deadline_min_iters = 2
@@ -220,11 +295,20 @@ def test_slice_runs_without_jax(repo_root):
         cfg = load_yaml_config("configs/iris_traj_mpc.yaml")
         cfg.update(num_particles=8, antithetic=True, pallas_chunk=4)
         cfg["apg_mpc"]["max_iter"] = 2
-        _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg)
+        _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device="cpu")
         xt = hover_state()
         gen = torch.Generator().manual_seed(0)
         sol = mpc_fn(xt, gen, reset_fn(xt, gen, xt), 0.5, xt)
         assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
+        # the shipped constrained config, proximal and penalty forms
+        for prox in (True, False):
+            cfg = load_yaml_config("configs/iris_constr_posctrl_mpc.yaml")
+            cfg["state_constr"]["slack_proximal"] = prox
+            cfg["apg_mpc"]["max_iter"] = 2
+            _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device="cpu")
+            sol = mpc_fn(xt, None, reset_fn(xt, None, xt), 0.0, xt)
+            assert int(sol.opt_state.num_steps) == 2 and sol.u_opt.shape == (20, 4)
+            assert sol.opt_state.yk.shape == (20, 10 if prox else 4)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
@@ -253,7 +337,7 @@ def test_oracle_routes_run_without_jax(repo_root):
             else:
                 del cfg["apg_mpc"]["linesearch"]
                 cfg["apg_mpc"]["max_iter"] = 2
-            _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg)
+            _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device="cpu")
             x = hover_state()
             gen = torch.Generator().manual_seed(0)
             sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
@@ -273,7 +357,7 @@ def test_mpc_fn_contract(repo_root):
     """``mpc_fn`` returns the plan, the shifted warm start, the untouched
     generator and x_evol whose row 0 is the state; CPU tensors stay on CPU."""
     cfg, (reset_fn, mpc_fn), sft, b = tloader.load_mpc_from_cfgfile(
-        os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
+        os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"), device="cpu")
     assert sft is None and cfg["_time_steps"] == pytest.approx([0.05] * 20)
     x = torch.zeros(13)
     x[6] = 1.0

@@ -21,7 +21,7 @@ def test_engagement_replay_matches_golden(repo_root):
     c = RecedingHorizonController(
         os.path.join(repo_root, "configs/iris_traj_mpc.yaml"),
         os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"),
-        seed=0, now_fn=lambda: 0.0)
+        seed=0, now_fn=lambda: 0.0, device="cpu")
     modes, tr, costs = G.replay_engagement(c)
     assert list(modes[:4]) == [CS["none"]] * 4
     assert list(modes[4:14]) == [CS["idle"]] * 10

@@ -16,7 +16,7 @@ def test_traj_replay_matches_golden(repo_root):
     c = RecedingHorizonController(
         os.path.join(repo_root, "configs/iris_traj_mpc.yaml"),
         os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"),
-        seed=0, now_fn=lambda: 0.0)
+        seed=0, now_fn=lambda: 0.0, device="cpu")
     tr, costs = G.replay_traj(c)
     assert np.all(np.isfinite(tr))
     assert np.all(tr[:, :4] >= 1e-4 - 1e-7) and np.all(tr[:, :4] <= 1.0 + 1e-7)
