@@ -13,7 +13,9 @@ without a result):
    limit as ``nvidia-smi`` reports them;
 2. builds both kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc`` (one
    ``nvcc`` each, in parallel) and prints the build seconds and the
-   compiler's register/spill/shared-memory summary;
+   compiler's register/spill/shared-memory summary per ``<PART, SC>`` form;
+   fails if a P=1 form of the whole solve or of ``value_and_grad`` (their
+   trunk lives in registers) spills;
 3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
@@ -38,9 +40,11 @@ without a result):
    its linesearch block through the kernels;
 9. times, on the same card, kernel against plain: the chained pos and
    traj replays per solve (p50, wall clock from dispatch to the plan on
-   the host), MPPI and fixed-step APG per solve (p50 over chained ticks;
-   the plain replays and fixed-step route time their first tick only),
-   and each oracle kernel per launch (CUDA events);
+   the host; device span per APG iteration), MPPI and fixed-step APG per
+   solve (p50 over chained ticks; the plain replays and fixed-step route
+   time their first tick only), and each oracle kernel per launch (CUDA
+   events); then the whole-solve kernel's phase split on a traj replay
+   tick (``phase_split``: its clock-stamped instantiation);
 10. Monte-Carlo particles, kernel against plain on the same torch draws,
     both iris configs, at P=8 (one chunk) and P=64 in chunks of 16: the
     noise and chunk branches of ``value`` and ``value_batch`` (K=4, rtol
@@ -227,18 +231,29 @@ def phase_build() -> None:
     CO.load_oracle_library()
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
         f"{time.perf_counter() - t:.1f} s (with load)")
+    spills, current = {}, None
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)(?:ILb([01])ELi(\d)EE)?",
-                              line)
+            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)"
+                              r"(?:ILb([01])ELi(\d)(?:ELb([01]))?EE)?", line)
             if entry:
                 form = ("" if entry.group(2) is None else
                         f"<{'true' if entry.group(2) == '1' else 'false'}, "
-                        f"{SC_NAMES[int(entry.group(3))]}>")
-                log(f"  ptxas: {entry.group(1)}{form}")
+                        f"{SC_NAMES[int(entry.group(3))]}"
+                        f"{', clock-stamped' if entry.group(4) == '1' else ''}>")
+                current = entry.group(1) + form
+                log(f"  ptxas: {current}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
+                stores = re.search(r"(\d+) bytes spill stores", line)
+                if stores:
+                    spills[current] = int(stores.group(1))
+    p1 = {k: v for k, v in spills.items()
+          if k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))}
+    log(f"  spill stores of the P=1 forms of apg_solve and value_and_grad: {p1}")
+    if len(p1) != 7 or any(p1.values()):
+        raise AssertionError(f"a P=1 form of the whole solve or value_and_grad spills: {p1}")
 
 
 def phase_parity(dev) -> tuple:
@@ -569,7 +584,8 @@ def phase_fixed_step(dev) -> dict:
 
 
 def chained(dev, mode: str, n: int, warm: int):
-    """(p50 wall ms, mean iterations) per solve over ticks ``warm+1..n``."""
+    """(p50 wall ms, mean iterations, iterations per tick) per solve over
+    ticks ``warm+1..n``."""
     from sde4mbrl_px4_tpu_torch.engine import goldens as G
 
     c = controller(dev)
@@ -577,7 +593,7 @@ def chained(dev, mode: str, n: int, warm: int):
     (G.replay_pos if mode == "pos" else G.replay_traj)(c, n=n)
     tail = records[warm:]
     return (statistics.median(r.solve_time for r in tail) * 1e3,
-            statistics.mean(r.num_steps for r in tail))
+            statistics.mean(r.num_steps for r in tail), [r.num_steps for r in tail])
 
 
 def event_timed(events: list):
@@ -596,6 +612,47 @@ def event_timed(events: list):
         return out
 
     return solve
+
+
+def phase_split(dev, card: str, n: int = 3) -> dict:
+    """The whole-solve kernel's phase split: the chained flagship traj
+    replay (a controller, ``n`` ticks) through the kernel's clock-stamped
+    instantiation (``apg_phase_split``); the split of the last solve: each
+    phase's share of the solve's SM cycles (thread 0's stamps), and that
+    share of the solve's device span (CUDA events) per APG iteration."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    events, cycles = [], []
+
+    def solve(*args, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = AK.apg_phase_split(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        cycles.append(AK.apg_phase_split.cycles)
+        return out
+
+    c = controller(dev)
+    records = recording(c)
+    with routed("apg_solve_kernel", solve):
+        G.replay_traj(c, n=n)
+    torch.cuda.synchronize()
+    cyc = cycles[-1].cpu().tolist()
+    span, steps = events[-1][0].elapsed_time(events[-1][1]), float(records[-1].num_steps)
+    share = {name: cyc[i] / cyc[len(AK.PHASES)] for i, name in enumerate(AK.PHASES)}
+    out = {"iterations": steps, "device_ms": span, "cycles": cyc[len(AK.PHASES)],
+           "iteration_ms": {k: v * span / steps for k, v in share.items()}, "share": share}
+    log(f"phase split of traj replay tick {n} ({card}; clock-stamped instantiation, thread "
+        f"0): {steps:.0f} iterations, {span:.3f} ms device span, {out['cycles']} cycles; "
+        + "; ".join(f"{k} {100 * v:.1f} % ({out['iteration_ms'][k]:.4f} ms/iteration)"
+                    for k, v in share.items()))
+    if abs(sum(share.values()) - 1.0) > 0.01 or steps < 1:
+        raise AssertionError(f"the phase split does not cover the solve: {share}")
+    return out
 
 
 def per_launch_ms(fn, n: int) -> float:
@@ -627,17 +684,19 @@ def phase_timing(dev, card: str) -> dict:
     for mode in ("pos", "traj"):
         events = []
         with routed("apg_solve_kernel", event_timed(events)):
-            k_ms, k_steps = chained(dev, mode, n_kernel, warm)
+            k_ms, k_steps, ticks = chained(dev, mode, n_kernel, warm)
         torch.cuda.synchronize()
-        dev_ms = statistics.median(a.elapsed_time(b)
-                                   for a, b in events[-(n_kernel - warm):])
+        spans = [a.elapsed_time(b) for a, b in events[-(n_kernel - warm):]]
+        dev_ms = statistics.median(spans)
+        it_ms = statistics.median(d / n for d, n in zip(spans, ticks))
         with routed("apg_solve_kernel", AK.apg_solve_plain):
-            p_ms, p_steps = chained(dev, mode, n_plain, 0)
-        out[mode] = (k_ms, p_ms, dev_ms, k_steps)
+            p_ms, p_steps, _ = chained(dev, mode, n_plain, 0)
+        out[mode] = (k_ms, p_ms, dev_ms, k_steps, it_ms)
         log(f"chained iris/{mode} replay, per solve p50 ({card}): kernel {k_ms:.3f} ms "
             f"wall ({dev_ms:.3f} ms device span) at {k_steps:.1f} iterations over ticks "
-            f"{warm + 1}-{n_kernel}, plain {p_ms:.3f} ms wall at {p_steps:.1f} iterations "
-            f"on tick 1")
+            f"{warm + 1}-{n_kernel} ({it_ms:.4f} ms device span per iteration, p50), plain "
+            f"{p_ms:.3f} ms wall at {p_steps:.1f} iterations on tick 1")
+    out["split"] = phase_split(dev, card)
 
     routes = {"mppi": (config("iris_posctrl_mpc", solver="mppi"), 8, 8, warm),
               "fixed_step": (config("iris_posctrl_mpc", linesearch=None,
@@ -1240,7 +1299,7 @@ def phase_constrained_flight(dev, card: str) -> dict:
         raise AssertionError(f"the floor route at P={P_FLOOR} returned an invalid plan")
 
     # the fixed 10-iteration solve of each form, kernel against plain
-    out["fixed"] = {}
+    out["fixed"], out["fixed_steps"] = {}, {}
     for form in SC_FORMS:
         b = make_mpc_from_config(constrained_config(form), device=dev)[3]
         x0, x_ref, u_prev, z_init = constrained_problem(b)
@@ -1249,8 +1308,11 @@ def phase_constrained_flight(dev, card: str) -> dict:
                 1, b.lb_z, b.ub_z, z_init)
         out["fixed"][form] = (time_fixed(AK, args, None), b)
         k_ms, p_ms = out["fixed"][form][0]
+        steps = int(AK.apg_solve_kernel(*args)[0].num_steps)
+        out["fixed_steps"][form] = steps
         log(f"fixed 10-iteration {form} solve ({card}): kernel {k_ms:.4f} ms (CUDA events, "
-            f"mean of 20), plain {p_ms:.3f} ms (wall, mean of 3)")
+            f"mean of 20; {k_ms / steps:.4f} ms per iteration at {steps}), plain "
+            f"{p_ms:.3f} ms (wall, mean of 3)")
     return out
 
 
@@ -1427,6 +1489,8 @@ def main() -> int:
                                        iters=round(timing["traj"][3])),
               timed=f"chained iris/traj replay, per solve p50 at "
                     f"{timing['traj'][3]:.1f} iterations", device_ms=timing["traj"][2],
+              iteration_ms=timing["traj"][4], pos_iteration_ms=timing["pos"][4],
+              phase_split_iteration_ms=timing["split"]["iteration_ms"],
               fixed_budget_ms=fixed[0], fixed_budget_plain_ms=fixed[1]),
         entry("apg_solve", particles, flight["launches"]["apg_solve"], part_err["apg_solve"],
               flight["fixed_ms"], flight["fixed_plain_ms"],
@@ -1461,6 +1525,7 @@ def main() -> int:
             err[("apg_solve", form, 1)], k_ms, p_ms,
             bound(b, "apg_solve", n_consts(b, dev, True), K=4, iters=10),
             timed="fixed 10-iteration solve from the bound-violating start", form=form, P=1,
+            iteration_ms=k_ms / cflight["fixed_steps"][form],
             max_abs_err_P8_chunked=err[("apg_solve", form, 8)],
             flight_solve_ms_p50=statistics.median(run["wall"][1:]),
             flight_device_ms_p50=statistics.median(run["device"][1:]),

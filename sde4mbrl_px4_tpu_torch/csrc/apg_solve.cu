@@ -40,23 +40,32 @@
 // iterations; the whole working set is ~45 KB. At P=512 and K=4 an
 // iteration is ~0.9 GFLOP (2,048 candidate rows, 512 forward and 512
 // reverse rows, the reverse re-running the trunk), all of it on the one
-// SM of the block. What the design does about it: everything (weights,
-// consts, iterates, the state stash, a chunk's rows) lives in shared
-// memory for the whole solve, so the loop touches device memory only for
-// the noise rows (L2-resident, 532 KB at P=512); the hidden units of each
-// layer and rows are spread over the threads, the K linesearch candidates
-// are rows of one batched rollout, and the loop exits on the device. No
-// allocation, no host round trip, one launch per solve. The particle form
-// takes dynamic shared memory above 48 KB (up to 227 KB, set once per
-// library load by apg_init), which sets the chunk: the wrapper takes the
-// largest divisor Pc of P whose layout fits (Pc = 32 at P=512, K=4, iris
-// widths). Spreading the particles over a cluster or the grid is later
-// work. The constraint terms add per-row scalar arithmetic to each step's
-// serial chain and no memory traffic (their constants sit in shared memory
-// with the rest); the proximal form's wider rows (nZ = 10 on the shipped
-// iris config) take the P=1 layout to ~49.6 KB, past the 48 KB default, so
-// the constrained P=1 forms take dynamic shared memory above it too (set
-// once per library load by apg_init).
+// SM of the block. What the design does about it: everything (consts,
+// iterates, the state stash, a chunk's rows) lives in shared memory for the
+// whole solve, so the loop touches device memory only for the noise rows
+// (L2-resident, 532 KB at P=512), the K linesearch candidates are rows of
+// one batched rollout, and the loop exits on the device. No allocation, no
+// host round trip, one launch per solve.
+//
+// The P=1 forms shorten the serial chain of a step (sweeps.cuh, p1_rollout
+// / p1_reverse): the trunk weights sit in registers for the whole solve;
+// the 64x64 layer runs split-K over all 256 threads (4 per hidden unit, two
+// xor shuffles); layers 0 and 2 and the row's Euler step run in the 32
+// lanes of the row's warp, alike in every lane, so the new state never
+// leaves registers; two block barriers per forward and per reverse step
+// (candidate row k is warp k, K <= APG_MAXK = 8 warps). Their register
+// layout fixes HID = 64 and F <= 16 (apg_solve_launch refuses others). The
+// particle form keeps the generic shared-memory trunk: it takes dynamic
+// shared memory above 48 KB (up to 227 KB, set once per library load by
+// apg_init), which sets the chunk: the wrapper takes the largest divisor Pc
+// of P whose layout fits (Pc = 32 at P=512, K=4, iris widths). Spreading the
+// particles over a cluster or the grid is later work. The constraint terms
+// add per-row scalar arithmetic to each step's serial chain and no memory
+// traffic (their constants sit in shared memory with the rest); the
+// proximal form's wider rows (nZ = 10 on the shipped iris config) take the
+// P=1 layout past the 48 KB default, so the constrained P=1 forms take
+// dynamic shared memory above it too (set once per library load by
+// apg_init).
 //
 // Control flow is block-uniform: every loop decision (done, accepted step,
 // restart) is computed by thread 0 into shared memory, followed by
@@ -75,19 +84,24 @@
 
 namespace {
 
+static_assert(APG_NTHREADS == 4 * P1_HID && APG_MAXK <= APG_NTHREADS / 32,
+              "P=1 layout: 4 threads per hidden unit, one warp per candidate row");
+
 struct Scal {
   int k, k_m, no_imp, done, kmax, ok, improved, restart;
   float f_u, t, best_f, sum_t, sum_ls, f0, fval, t0, t_acc, beta;
 };
 
 // Carve the dynamic shared memory; returns the number of floats used.
-// part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows).
+// part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows);
+// otherwise every buffer starts on 16 bytes (the P=1 float4 reads).
 __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
   const int B = part ? a.Pc : 1;              // vg rows per pass
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
   int o = 0;
   auto take = [&](float** p, int n) {
+    if (!part) o = (o + 3) & ~3;
     if (s) *p = base + o;
     o += n;
   };
@@ -102,16 +116,19 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
     take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
   } else {
     take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-    take(&t->h2, a.H * a.OUT);
+    take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
   }
-  take(&t->xr, R * 13);
-  take(&t->feat, R * a.F);
+  // the P=1 forms keep a row's state, features, outputs and their
+  // cotangents in registers (sweeps.cuh, p1_rollout / p1_reverse)
+  if (part) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
   take(&t->a0, R * a.HID); take(&t->a1, R * a.HID);
-  take(&t->a2, R * a.OUT);
+  if (part) take(&t->a2, R * a.OUT);
   take(&t->jt, R); take(&t->jr, R);
-  take(&t->ct, B * 13); take(&t->cu, B * a.nZ);
-  take(&t->c_h2, B * a.OUT); take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
-  take(&t->c_feat, B * a.F);
+  if (part) take(&t->ct, B * 13);
+  take(&t->cu, B * a.nZ);
+  if (part) take(&t->c_h2, B * a.OUT);
+  take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+  if (part) take(&t->c_feat, B * a.F);
   take(&t->red, 32);
   if (part) {
     take(&t->cacc, 2 * a.K);
@@ -121,28 +138,43 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
   return o;
 }
 
-template <bool PART, int SC>
+// PROF (only <false, CONSTR_NONE>, apg_solve_prof_launch): thread 0 stamps
+// clock64() at the phase boundaries (sweeps.cuh, PH_*) and writes the
+// per-phase cycle sums and the solve's cycles to prof_out (int64 (8,)).
+template <bool PART, int SC, bool PROF = false>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
                  const float* __restrict__ precond, const float* __restrict__ noise,
                  float* __restrict__ yk, float* __restrict__ stats,
-                 float* __restrict__ x_evol) {
-  extern __shared__ float smem[];
+                 float* __restrict__ x_evol, long long* __restrict__ prof_out) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ Scal S;
   Smem s;
   layout(a, PART, &s, smem);
+  s.prof = nullptr;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
-  auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC>(a, s, &S.fval, U, noise);
-    else vg<SC>(a, s, &S.fval, U);
-  };
+  long long t_start = 0;
+  if constexpr (PROF) {
+    __shared__ long long prof[PH_N + 1];
+    s.prof = prof;
+    if (tid == 0) {
+      for (int i = 0; i < PH_N; ++i) prof[i] = 0;
+      t_start = prof[PH_N] = clock64();
+    }
+  }
 
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
   __syncthreads();
+  P1W W;                                  // the P=1 forms' trunk in registers
   if constexpr (PART) transpose_weights(a, s);
+  else W = load_p1_weights(a, c);
+  auto value_grad = [&](const float* U) {
+    if constexpr (PART) vg_part<SC>(a, s, &S.fval, U, noise);
+    else vg<SC, PROF>(a, s, W, &S.fval, U);
+  };
   for (int e = tid; e < HZ; e += nt) {
     const int i = e % nZ;
     const float u0 = clampf(u_init[e], c[a.o_lb + i], c[a.o_ub + i]);
@@ -157,13 +189,16 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
   __syncthreads();
 
+  prof_stamp<PROF>(s, PH_LOOP);
   value_grad(s.u);
   for (int e = tid; e < HZ; e += nt) s.gp[e] = s.g[e];
   if (tid == 0) { S.f0 = S.fval; S.f_u = S.fval; S.best_f = S.fval; }
   __syncthreads();
 
   while (S.k < S.kmax && !S.done) {
+    prof_stamp<PROF>(s, PH_LOOP);
     value_grad(s.y);                              // f_y in S.fval, grad in s.g
+    prof_stamp<PROF>(s, PH_LOOP);
 
     // ---- trial stepsize
     if (a.reset_opt == 2) {
@@ -199,12 +234,10 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     if constexpr (PART) {
       cand_part<SC>(a, s, K, noise);
     } else {
-      for (int e = tid; e < K * 13; e += nt) s.xr[e] = c[a.o_x0 + e % 13];
-      if (tid < K) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
-      __syncthreads();
-      for (int t = 0; t < a.H; ++t)
-        fwd_step<false, SC>(a, s, K, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
-                        nullptr, nullptr, nullptr);
+      __syncthreads();                            // the candidate rows
+      prof_stamp<PROF>(s, PH_LOOP);
+      p1_rollout<SC, false, false>(a, s, W, K, s.cand, HZ);
+      prof_stamp<PROF>(s, PH_CAND);
     }
     // rollout costs per candidate: the rows' own (P=1) or particle means
     const float* cost_t = PART ? s.cacc : s.jt;
@@ -305,6 +338,12 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     stats[5] = S.f0;
     stats[6] = S.best_f;
     stats[7] = 0.f;
+    if constexpr (PROF) {
+      prof_stamp<PROF>(s, PH_LOOP);
+      for (int i = 0; i < PH_N; ++i) prof_out[i] = s.prof[i];
+      prof_out[PH_N] = clock64() - t_start;
+      prof_out[PH_N + 1] = 0;
+    }
   }
 }
 
@@ -317,7 +356,7 @@ void launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
             const float* u_init, const float* t0, const float* precond,
             const float* noise, float* yk, float* stats, float* x_evol) {
   apg_solve_kernel<PART, SC><<<1, PART ? APG_NTHREADS_PART : APG_NTHREADS, dyn, st>>>(
-      a, consts, u_init, t0, precond, noise, yk, stats, x_evol);
+      a, consts, u_init, t0, precond, noise, yk, stats, x_evol, nullptr);
 }
 
 // The instantiation for [has_noise][sc_kind].
@@ -358,29 +397,56 @@ const char* apg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The arguments a launch takes (a refused launch returns
+// cudaErrorInvalidValue and runs nothing).
+static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
+                      const void* x_evol) {
+  const bool part = a->has_noise != 0;
+  const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
+                                                      : APG_SMEM_LIMIT;
+  return !(a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
+           a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
+           (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
+           (a->has_pre && precond == nullptr) ||
+           (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
+                    a->Pc * a->n_chunks != a->P)
+                 : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1)));
+}
+
 // Launch one solve on `stream`. noise is the (H, P, 13) Brownian block when
 // a->has_noise (else unused, may be null); x_evol (H+1, 13) is written only
 // by the deterministic form. u_init, precond and yk are (H, nZ). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
-// the kernel does not take).
+// the kernel does not take, among them P=1 trunk widths other than
+// HID = P1_HID and F <= P1_FMAX).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
                      void* yk, void* stats, void* x_evol, void* stream) {
-  const bool part = a->has_noise != 0;
-  const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
-                                                      : APG_SMEM_LIMIT;
-  if (a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != 12 ||
-      a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
-      (a->has_pre && precond == nullptr) ||
-      (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
-               a->Pc * a->n_chunks != a->P)
-            : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1)))
-    return (int)cudaErrorInvalidValue;
+  if (!launch_ok(a, precond, noise, x_evol)) return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a);
   const cudaStream_t st = (cudaStream_t)stream;
-  kLaunch[part][a->sc_kind](*a, dyn, st, (const float*)consts, (const float*)u_init,
-                            (const float*)t0, (const float*)precond, (const float*)noise,
-                            (float*)yk, (float*)stats, (float*)x_evol);
+  kLaunch[a->has_noise != 0][a->sc_kind](
+      *a, dyn, st, (const float*)consts, (const float*)u_init, (const float*)t0,
+      (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
+      (float*)x_evol);
+  return (int)cudaGetLastError();
+}
+
+// The deterministic solve without state constraints through the
+// clock-stamped instantiation (apg_solve_kernel<false, CONSTR_NONE, true>),
+// for measurement: as apg_solve_launch, plus prof (int64 (8,)): the cycles
+// of the PH_* phases, then of the whole solve.
+int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_init,
+                          const void* t0, const void* precond, const void* noise,
+                          void* yk, void* stats, void* x_evol, void* prof, void* stream) {
+  if (a->has_noise || a->sc_kind != CONSTR_NONE || prof == nullptr ||
+      !launch_ok(a, precond, noise, x_evol))
+    return (int)cudaErrorInvalidValue;
+  apg_solve_kernel<false, CONSTR_NONE, true><<<1, APG_NTHREADS, (size_t)dyn_bytes(*a),
+                                               (cudaStream_t)stream>>>(
+      *a, (const float*)consts, (const float*)u_init, (const float*)t0,
+      (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
+      (float*)x_evol, (long long*)prof);
   return (int)cudaGetLastError();
 }
 

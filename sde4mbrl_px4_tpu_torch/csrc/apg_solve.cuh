@@ -14,6 +14,13 @@
 // cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize, ...)
 // (apg_init).
 #define APG_SMEM_LIMIT_PARTICLES 232448
+// The P=1 forms hold the trunk in registers at fixed widths (sweeps.cuh,
+// P1W): the hidden width, the largest input width F = 9 + n_u, the output
+// width. Their block is 4 threads per hidden unit (APG_NTHREADS), and the
+// K <= APG_MAXK candidate rows are one warp each.
+#define P1_HID 64
+#define P1_FMAX 16
+#define P1_OUT 12
 
 struct ApgArgs {
   // dimensions

@@ -28,7 +28,9 @@
 // MLP plus rigid-body math, serial over the H steps; one plan is ~0.2 MFLOP
 // forward per particle. What the design does about it: each block copies
 // the 24.9 KB consts buffer into shared memory once and keeps every
-// intermediate there. At P=1 value_batch runs ORACLE_TILE candidates as
+// intermediate there; the P=1 value_and_grad runs the whole-solve kernel's
+// P=1 sweep (sweeps.cuh::vg: the trunk in registers, two barriers per
+// step, HID = 64 and F <= 16 only). At P=1 value_batch runs ORACLE_TILE candidates as
 // rows of one batched fwd_step per block, with ceil(K / ORACLE_TILE) blocks
 // in parallel, so any K runs in the time of one tile (the TPU package sends
 // K > 128 to XLA only because of its VMEM; here a tile's 41 KB fits the
@@ -55,18 +57,22 @@ namespace {
 
 static_assert(ORACLE_TILE <= 32, "one red slot per tile row");
 static_assert(ORACLE_TILE <= ORACLE_NTHREADS, "fwd_step: one thread per row");
+static_assert(ORACLE_NTHREADS == 4 * P1_HID, "P=1 value_and_grad: 4 threads per hidden unit");
 
 // Carve one block's dynamic shared memory for `kind` with R candidate rows
 // of controls; returns the number of floats used. part: the particle form
 // (R*Pc step rows per pass, a Pc-row state stash and reverse sweep in
-// value_and_grad). Fields a kernel does not use stay null.
+// value_and_grad). Fields a kernel does not use stay null. The P=1
+// value_and_grad layout starts every buffer on 16 bytes (its float4 reads).
 __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part,
                                       Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
   const int rows = part ? R * a.Pc : R;       // step rows per pass
   const int B = part ? a.Pc : 1;              // value_and_grad rows per pass
   int o = 0;
+  const bool align = kind == ORACLE_VALUE_AND_GRAD && !part;
   auto take = [&](float** p, int n) {
+    if (align) o = (o + 3) & ~3;
     if (s) *p = base + o;
     o += n;
   };
@@ -86,12 +92,14 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
       take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
     } else {
       take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-      take(&t->h2, a.H * a.OUT);
+      take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
     }
     take(&t->g, HZ);
-    take(&t->ct, B * 13); take(&t->cu, B * a.nZ);
-    take(&t->c_h2, B * a.OUT); take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
-    take(&t->c_feat, B * a.F);
+    if (part) take(&t->ct, B * 13);              // P=1: the row's cotangents in
+    take(&t->cu, B * a.nZ);                      // registers (p1_reverse)
+    if (part) take(&t->c_h2, B * a.OUT);
+    take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+    if (part) take(&t->c_feat, B * a.F);
     if (part) {
       take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
       take(&t->w2t, a.OUT * a.HID);
@@ -133,8 +141,7 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
     cand_part<SC>(a, s, R, noise);
   } else {
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false, SC>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t,
-                          nullptr, nullptr, nullptr);
+      fwd_step<false, SC>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t);
   }
 
   // control-only cost per row, one warp per row
@@ -166,7 +173,7 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   __syncthreads();
   for (int t = 0; t < a.H; ++t)
     fwd_step<false, CONSTR_NONE>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
-                                 s.xs + (t + 1) * 13, t, nullptr, nullptr, nullptr);
+                                 s.xs + (t + 1) * 13, t);
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
 
@@ -175,7 +182,7 @@ __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
                       float* __restrict__ val, float* __restrict__ grad) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float fval;
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, &s, smem);
@@ -185,7 +192,7 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
     transpose_weights(a, s);
     vg_part<SC>(a, s, &fval, s.cand, noise);
   } else {
-    vg<SC>(a, s, &fval, s.cand);
+    vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   }
   for (int e = tid; e < a.H * a.nZ; e += nt) grad[e] = s.g[e];
   if (tid == 0) *val = fval;
@@ -294,7 +301,8 @@ int value_and_grad_smem_bytes(const ApgArgs* a) {
 // after it (cudaErrorInvalidValue for arguments the kernels do not take).
 // U is (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read
 // only when a->has_noise; may be null otherwise); outputs are (K,),
-// (H+1, 13), () and (H, nZ).
+// (H+1, 13), () and (H, nZ). The P=1 value_and_grad takes the trunk
+// widths of the register layout only (HID = P1_HID, F <= P1_FMAX).
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
                        const void* U, const void* noise, void* out, void* stream) {
   if (!args_ok(a) || !particles_ok(a, noise) || K < 1 ||
@@ -322,6 +330,7 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, void* val, void* grad, void* stream) {
   if (!args_ok(a) || !particles_ok(a, noise) ||
+      (!a->has_noise && (a->HID != P1_HID || a->F > P1_FMAX)) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);

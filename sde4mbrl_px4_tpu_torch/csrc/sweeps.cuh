@@ -8,20 +8,27 @@
 //     stage cost for R rows (bodies.py::make_step); fwd_step<false> is the
 //     deterministic P=1 form, fwd_step<true> the particle form with the
 //     Brownian term (bodies.py:159-165);
-//   - bwd_step: one reverse step of the P=1 plan (bodies.py::manual_bwd_step);
-//     bwd_rows: one reverse step of a chunk of particle rows (the noise
-//     branch that the TPU kernel traces with jax.vjp, bodies.py:587-596);
+//   - em_step: the Euler(-Maruyama) step and stage cost of one row, on
+//     shared memory (fwd_step) or on registers (the P=1 forms);
+//   - bwd_dyn / bwd_feat: the scalar halves of one reverse step of a row
+//     (bodies.py::manual_bwd_step); bwd_rows: one reverse step of a chunk of
+//     particle rows (the noise branch that the TPU kernel traces with
+//     jax.vjp, bodies.py:587-596);
+//   - the P=1 forms (P1W, p1_rollout, p1_reverse, vg): the trunk in
+//     registers, split-K layer-1 products, the row's scalar step in the 32
+//     lanes of its warp, two block barriers per step;
 //   - ctrl_grad / ctrl_terms: the control-only cost terms and their
 //     closed-form gradient (bodies.py::control_cost, vg_sweep :598-628);
 //   - vg / vg_part: value and gradient of one plan (bodies.py::vg_sweep),
-//     deterministic and over P particles in chunks (K11, :638-661);
+//     deterministic (P=1) and over P particles in chunks (K11, :638-661);
 //   - cand_part: K candidates x P particles in chunks, the particle mean
 //     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765).
 //
 // Every function works on shared-memory scratch described by Smem; each
 // kernel carves its own layout and sets the fields the functions it calls
-// read. Functions that contain __syncthreads() are called by every thread
-// of the block.
+// read (the P=1 forms read s.a0, s.a1 and s.c_h1p as float4: their layouts
+// align every buffer to 16 bytes). Functions that contain __syncthreads()
+// are called by every thread of the block.
 //
 // Particles: the Brownian block is (H, P, 13) in device memory, horizon-
 // major, so the rows of chunk ch at step t are contiguous at
@@ -79,6 +86,8 @@ struct Smem {
   float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
                                    // transposed weights (particle reverse)
   float *red;                      // (32,) reduction results
+  float *wr;                       // (H, 4) wrench of the vg row per step (P=1)
+  long long *prof;                 // (PH_N + 1,) phase cycles (apg_solve_prof_launch)
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
@@ -91,6 +100,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
+}
+// x[id] of a 13-float register array at a runtime id, as a select chain (a
+// runtime index would move the array to local memory).
+__device__ __forceinline__ float pick13(const float* x, int id) {
+  float v = x[0];
+#pragma unroll
+  for (int i = 1; i < 13; ++i) v = id == i ? x[i] : v;
+  return v;
 }
 __device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
   o[0] = a[1] * b[2] - a[2] * b[1];
@@ -139,6 +156,29 @@ __device__ __forceinline__ void wrench4(const ApgArgs& a, const float* mix,
   }
 }
 
+// The P=1 forms' row controls in registers: u[min(i, n_u-1)] for the
+// P1_FMAX - 9 slots, read unconditionally (no branch guards the reads); the
+// users mask the slots past n_u.
+__device__ __forceinline__ void load_controls(const ApgArgs& a, const float* u, float* uu) {
+#pragma unroll
+  for (int i = 0; i < P1_FMAX - 9; ++i) uu[i] = u[min(i, a.n_u - 1)];
+}
+
+// wrench4 on load_controls' registers, in wrench4's order.
+__device__ __forceinline__ void wrench4_reg(const ApgArgs& a, const float* mix,
+                                            const float* uu, float* w) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < P1_FMAX - 9; ++i) {
+      const float t = fmaf(uu[i], mix[m * a.n_u + min(i, a.n_u - 1)], acc);
+      acc = i < a.n_u ? t : acc;
+    }
+    w[m] = acc;
+  }
+}
+
 // Sum of n values produced by f(e), by one warp; lane 0 writes *out.
 template <class Fn>
 __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
@@ -152,14 +192,14 @@ __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
 // The network for R rows: features (body-frame velocity, rates, gravity
 // direction, motors), the two swish layers and the output layer into
 // s.feat, s.a0, s.a1, s.a2. Row r's state is x[r*13..]. With PART = false
-// (the P=1 form) row r is thread r < R, its controls are U[r*ustride ..],
-// and a stash (R == 1) records the pre-activations; with PART = true rows
-// run over the threads, row r's controls are U[(r % K)*ustride ..] and a
-// stash holds R rows (idx = r*HID + j).
+// (the P=1 rows of value_batch and trajectory) row r is thread r < R and its
+// controls are U[r*ustride ..]; with PART = true rows run over the threads,
+// row r's controls are U[(r % K)*ustride ..], and a stash (bwd_rows) records
+// the R rows' hidden pre-activations (idx = r*HID + j).
 template <bool PART>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
-                      float* st_h1p, float* st_h2) {
+                      float* st_h1p) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int F = a.F, HID = a.HID, OUT = a.OUT;
@@ -189,7 +229,7 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < F; ++i) acc += f[i] * w0[i * HID + j];
     const float pre = acc + b0[j];
     s.a0[idx] = pre * sigm(pre);
-    if (st_h0p) st_h0p[PART ? idx : j] = pre;
+    if (st_h0p) st_h0p[idx] = pre;
   }
   __syncthreads();
   const float* w1 = c + a.o_w1; const float* b1 = c + a.o_b1;
@@ -200,7 +240,7 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < HID; ++i) acc += h[i] * w1[i * HID + j];
     const float pre = acc + b1[j];
     s.a1[idx] = pre * sigm(pre);
-    if (st_h1p) st_h1p[PART ? idx : j] = pre;
+    if (st_h1p) st_h1p[idx] = pre;
   }
   __syncthreads();
   const float* w2 = c + a.o_w2; const float* b2 = c + a.o_b2;
@@ -211,7 +251,6 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     for (int i = 0; i < HID; ++i) acc += h[i] * w2[i * OUT + o];
     const float pre = acc + b2[o];
     s.a2[idx] = pre;
-    if (st_h2) st_h2[PART ? idx : o] = pre;
   }
   __syncthreads();
 }
@@ -223,14 +262,15 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
 // Penalty: track plus, segment by segment (p, v, q, omega), the sum of
 // pen13'_i * (over_i^2 + under_i^2), over/under the scaled one-sided
 // violations of [lo13, hi13] (pen13' holds constr_pen).
-template <int SC>
+template <int SC, bool REG>
 __device__ __forceinline__ float constr_cost(const ApgArgs& a, const float* c,
                                              const float* xn, const float* u,
                                              float track) {
   if constexpr (SC == CONSTR_PROX) {
     float acc = 0.f;
     for (int j = 0; j < a.m; ++j) {
-      const float d = (xn[(int)c[a.o_sid + j]] - u[a.n_u + j]) * c[a.o_invm + j];
+      const int id = (int)c[a.o_sid + j];
+      const float d = ((REG ? pick13(xn, id) : xn[id]) - u[a.n_u + j]) * c[a.o_invm + j];
       acc += c[a.o_penm + j] * d * d;
     }
     track = track + acc;
@@ -255,7 +295,7 @@ __device__ __forceinline__ float constr_cost(const ApgArgs& a, const float* c,
 // Reverse of constr_cost, seeded with cT: adds the terms' cotangent to the
 // post-step state's ct (13) and, in the proximal form, writes the slack
 // columns' gradient into cu[n_u + j] (the coupling's -d/ds).
-template <int SC>
+template <int SC, bool REG>
 __device__ __forceinline__ void constr_bwd(const ApgArgs& a, const float* c,
                                            const float* x1, const float* u, float cT,
                                            float* ct, float* cu) {
@@ -265,7 +305,13 @@ __device__ __forceinline__ void constr_bwd(const ApgArgs& a, const float* c,
       const float inv = c[a.o_invm + j];
       const float dsl = (x1[id] - u[a.n_u + j]) * inv;
       const float gx = cT * 2.f * c[a.o_penm + j] * inv * dsl;
-      ct[id] += gx;
+      if constexpr (REG) {
+#pragma unroll
+        for (int i = 0; i < 13; ++i)
+          if (i == id) ct[i] += gx;
+      } else {
+        ct[id] += gx;
+      }
       cu[a.n_u + j] = -gx;
     }
   } else if constexpr (SC == CONSTR_PENALTY) {
@@ -278,97 +324,127 @@ __device__ __forceinline__ void constr_bwd(const ApgArgs& a, const float* c,
   }
 }
 
-// One Euler(-Maruyama) step plus stage cost for R rows (bodies.py::
-// make_step). Rows, controls and stash as in trunk; the state is read from
-// x[r*13..] and the new state written to xn[r*13..] (x and xn may alias).
-// PART adds the Brownian term: row r's draws are z[(r / K)*13 ..] (its
-// particle; rows are particle-major), and v1 += sqrt(dt)*sigma[0:3]*z[3:6],
+// One Euler(-Maruyama) step plus stage cost of one row (the row half of
+// bodies.py::make_step): state xr (13), trunk output h (12), controls ur,
+// the row's draws zr (PART: v1 += sqrt(dt)*sigma[0:3]*z[3:6],
 // om1 += sqrt(dt)*sigma[3:6]*z[10:13] after the drift, in the order of
-// bodies.py:160-162. SC adds the state-constraint terms (constr_cost).
-// Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
-template <bool PART, int SC>
-__device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
-                         int ustride, int K, const float* z, const float* x,
-                         float* xn, int t, float* st_h0p, float* st_h1p,
-                         float* st_h2) {
-  trunk<PART>(a, s, R, U, ustride, K, x, st_h0p, st_h1p, st_h2);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float* c = s.c;
-  const int OUT = a.OUT;
+// bodies.py:160-162); writes the new state to o (13; may alias xr) and
+// returns the tracking cost (with the state-constraint terms, constr_cost)
+// in track and the sigma penalty in res2. REG (the P=1 forms): xr, h and o
+// are register arrays, so no index into them depends on runtime data, the
+// wrench mix_eff @ ur comes precomputed in wr (4), and the sigma penalty is
+// the caller's (sigma_res2; res2 is left as it is).
+template <bool PART, int SC, bool REG = false>
+__device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const float* xr,
+                                        const float* h, const float* ur, const float* zr,
+                                        int t, float* o, float& track_out, float& res2_out,
+                                        const float* wr = nullptr) {
+  const float* scal = c + a.o_scal;
+  const float* in = c + a.o_inertia;
+  const float* ws = c + a.o_wstate;
+  const float* r = c + a.o_xref + (t + 1) * 13;
+  const float dt = c[a.o_ts + t];
+  const float mass = scal[SC_MASS], ds = scal[SC_DIFF];
+  float p[3], v[3], q[4], om[3];
+  for (int i = 0; i < 3; ++i) { p[i] = xr[i]; v[i] = xr[3 + i]; om[i] = xr[10 + i]; }
+  for (int i = 0; i < 4; ++i) q[i] = xr[6 + i];
 
-  auto step = [&](int row) {
-    const float* xr = x + row * 13;
-    const float* h = s.a2 + row * OUT;
-    const float* ur = PART ? U + (row % K) * ustride : U + row * ustride;
-    const float* scal = c + a.o_scal;
-    const float* in = c + a.o_inertia;
-    const float* ws = c + a.o_wstate;
-    const float* r = c + a.o_xref + (t + 1) * 13;
-    const float dt = c[a.o_ts + t], d_t = c[a.o_disc + t];
-    const float mass = scal[SC_MASS], ds = scal[SC_DIFF];
-    float p[3], v[3], q[4], om[3];
-    for (int i = 0; i < 3; ++i) { p[i] = xr[i]; v[i] = xr[3 + i]; om[i] = xr[10 + i]; }
-    for (int i = 0; i < 4; ++i) q[i] = xr[6 + i];
-
-    float res2 = 0.f, sg6[6];
+  float res2 = 0.f, sg6[6];
+  if constexpr (!REG) {
     for (int i = 0; i < 6; ++i) {
       const float sg = softplus(h[6 + i]) * ds;
       res2 += sg * sg;
       sg6[i] = sg;
     }
-    float w[4];
+  }
+  float w[4];
+  if constexpr (REG) {
+    for (int m = 0; m < 4; ++m) w[m] = wr[m];
+  } else {
     wrench4(a, c + a.o_mix, ur, w);
-    const float fb[3] = {h[0], h[1], h[2] - w[0]};
-    float rot[3];
-    qrot(q[0], q + 1, fb, rot);
-    const float acc[3] = {rot[0] / mass, rot[1] / mass, kG + rot[2] / mass};
-    float Iom[3], cr[3], dom[3], dq[4];
-    for (int i = 0; i < 3; ++i) Iom[i] = in[i] * om[i];
-    cross3(om, Iom, cr);
-    for (int i = 0; i < 3; ++i) dom[i] = (w[1 + i] + h[3 + i] - cr[i]) / in[i];
-    qdot(q, om, dq);
+  }
+  const float fb[3] = {h[0], h[1], h[2] - w[0]};
+  float rot[3];
+  qrot(q[0], q + 1, fb, rot);
+  // REG: products with the reciprocals of mass, inertia and |q1| (one
+  // division each, off the chain; within an ulp of the quotients)
+  const float im = REG ? 1.f / mass : 0.f;
+  const float acc[3] = {REG ? rot[0] * im : rot[0] / mass, REG ? rot[1] * im : rot[1] / mass,
+                        kG + (REG ? rot[2] * im : rot[2] / mass)};
+  float Iom[3], cr[3], dom[3], dq[4];
+  for (int i = 0; i < 3; ++i) Iom[i] = in[i] * om[i];
+  cross3(om, Iom, cr);
+  for (int i = 0; i < 3; ++i) {
+    const float num = w[1 + i] + h[3 + i] - cr[i];
+    dom[i] = REG ? num * (1.f / in[i]) : num / in[i];
+  }
+  qdot(q, om, dq);
 
-    float p1[3], v1[3], q1[4], om1[3];
+  float p1[3], v1[3], q1[4], om1[3];
+  for (int i = 0; i < 3; ++i) {
+    p1[i] = p[i] + dt * v[i];
+    v1[i] = v[i] + dt * acc[i];
+    om1[i] = om[i] + dt * dom[i];
+  }
+  if constexpr (PART) {
+    const float sd = sqrtf(dt);
     for (int i = 0; i < 3; ++i) {
-      p1[i] = p[i] + dt * v[i];
-      v1[i] = v[i] + dt * acc[i];
-      om1[i] = om[i] + dt * dom[i];
+      v1[i] = v1[i] + sd * sg6[i] * zr[3 + i];
+      om1[i] = om1[i] + sd * sg6[3 + i] * zr[10 + i];
     }
-    if constexpr (PART) {
-      const float* zr = z + (row / K) * 13;
-      const float sd = sqrtf(dt);
-      for (int i = 0; i < 3; ++i) {
-        v1[i] = v1[i] + sd * sg6[i] * zr[3 + i];
-        om1[i] = om1[i] + sd * sg6[3 + i] * zr[10 + i];
-      }
-    }
-    float nq = 0.f;
-    for (int i = 0; i < 4; ++i) { q1[i] = q[i] + dt * dq[i]; nq += q1[i] * q1[i]; }
-    nq = sqrtf(nq + 1e-12f);
-    for (int i = 0; i < 4; ++i) q1[i] = q1[i] / nq;
+  }
+  float nq = 0.f;
+  for (int i = 0; i < 4; ++i) { q1[i] = q[i] + dt * dq[i]; nq += q1[i] * q1[i]; }
+  nq = sqrtf(nq + 1e-12f);
+  const float inq = REG ? 1.f / nq : 0.f;
+  for (int i = 0; i < 4; ++i) q1[i] = REG ? q1[i] * inq : q1[i] / nq;
 
-    // stage cost at the new state vs the reference row t+1
-    const float rw = r[6], rx = r[7], ry = r[8], rz = r[9];
-    const float ew = rw * q1[0] + rx * q1[1] + ry * q1[2] + rz * q1[3];
-    const float ex = rw * q1[1] - rx * q1[0] - ry * q1[3] + rz * q1[2];
-    const float ey = rw * q1[2] + rx * q1[3] - ry * q1[0] - rz * q1[1];
-    const float ez = rw * q1[3] - rx * q1[2] + ry * q1[1] - rz * q1[0];
-    const float sgn = ew < 0.f ? -1.f : 1.f;
-    const float e3[3] = {sgn * ex, sgn * ey, sgn * ez};
-    float tp = 0.f, tv = 0.f, tq = 0.f, tw = 0.f;
-    for (int i = 0; i < 3; ++i) {
-      const float dp = p1[i] - r[i], dv = v1[i] - r[3 + i], dw = om1[i] - r[10 + i];
-      tp += ws[i] * dp * dp;
-      tv += ws[3 + i] * dv * dv;
-      tq += ws[6 + i] * e3[i] * e3[i];
-      tw += ws[9 + i] * dw * dw;
-    }
-    float track = tp + tv + tq + tw;
+  // stage cost at the new state vs the reference row t+1
+  const float rw = r[6], rx = r[7], ry = r[8], rz = r[9];
+  const float ew = rw * q1[0] + rx * q1[1] + ry * q1[2] + rz * q1[3];
+  const float ex = rw * q1[1] - rx * q1[0] - ry * q1[3] + rz * q1[2];
+  const float ey = rw * q1[2] + rx * q1[3] - ry * q1[0] - rz * q1[1];
+  const float ez = rw * q1[3] - rx * q1[2] + ry * q1[1] - rz * q1[0];
+  const float sgn = ew < 0.f ? -1.f : 1.f;
+  const float e3[3] = {sgn * ex, sgn * ey, sgn * ez};
+  float tp = 0.f, tv = 0.f, tq = 0.f, tw = 0.f;
+  for (int i = 0; i < 3; ++i) {
+    const float dp = p1[i] - r[i], dv = v1[i] - r[3 + i], dw = om1[i] - r[10 + i];
+    tp += ws[i] * dp * dp;
+    tv += ws[3 + i] * dv * dv;
+    tq += ws[6 + i] * e3[i] * e3[i];
+    tw += ws[9 + i] * dw * dw;
+  }
+  float track = tp + tv + tq + tw;
 
-    float* o = xn + row * 13;
-    for (int i = 0; i < 3; ++i) { o[i] = p1[i]; o[3 + i] = v1[i]; o[10 + i] = om1[i]; }
-    for (int i = 0; i < 4; ++i) o[6 + i] = q1[i];
-    if constexpr (SC != CONSTR_NONE) track = constr_cost<SC>(a, c, o, ur, track);
+  for (int i = 0; i < 3; ++i) { o[i] = p1[i]; o[3 + i] = v1[i]; o[10 + i] = om1[i]; }
+  for (int i = 0; i < 4; ++i) o[6 + i] = q1[i];
+  if constexpr (SC != CONSTR_NONE) track = constr_cost<SC, REG>(a, c, o, ur, track);
+  track_out = track;
+  if constexpr (!REG) res2_out = res2;
+}
+
+// One Euler(-Maruyama) step plus stage cost for R rows (bodies.py::
+// make_step). Rows and controls as in trunk; the state is read from
+// x[r*13..] and the new state written to xn[r*13..] (x and xn may alias).
+// PART adds the Brownian term (em_step): row r's draws are z[(r / K)*13 ..]
+// (its particle; rows are particle-major). SC adds the state-constraint
+// terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
+template <bool PART, int SC>
+__device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
+                         int ustride, int K, const float* z, const float* x,
+                         float* xn, int t) {
+  trunk<PART>(a, s, R, U, ustride, K, x, nullptr, nullptr);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* c = s.c;
+  const int OUT = a.OUT;
+
+  auto step = [&](int row) {
+    const float d_t = c[a.o_disc + t];
+    float track, res2;
+    em_step<PART, SC>(a, c, x + row * 13, s.a2 + row * OUT,
+                      PART ? U + (row % K) * ustride : U + row * ustride,
+                      PART ? z + (row / K) * 13 : nullptr, t, xn + row * 13, track, res2);
     s.jt[row] += d_t * track;
     s.jr[row] += d_t * res2;
   };
@@ -389,18 +465,21 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
 // output cotangent and cu the wrench part of the control cotangent. PART
 // adds the Brownian term's sigma cotangent sqrt(dt)*z*c_{v1,om1} (zr: the
 // row's draws). SC adds the state-constraint cotangents to ct first
-// (constr_bwd; the proximal form's slack gradient lands in cu[n_u..]).
-template <bool PART, int SC>
+// (constr_bwd; the proximal form's slack gradient lands in cu[n_u..]). REG
+// (the P=1 forms): ct and c_h2 are register arrays, wr (4) the stashed
+// wrench, and c_h2[6..12) the caller's (sigma_bwd).
+template <bool PART, int SC, bool REG = false>
 __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
                                         const float* st, const float* x1,
                                         const float* h2, const float* u,
                                         const float* zr, int t, float cT, float cR,
-                                        float* ct, float* c_h2, float* cu) {
+                                        float* ct, float* c_h2, float* cu,
+                                        const float* wr = nullptr) {
   const float* scal = c + a.o_scal;
   const float* in = c + a.o_inertia;
   const float* mix = c + a.o_mix;
   const float dt = c[a.o_ts + t];
-  if constexpr (SC != CONSTR_NONE) constr_bwd<SC>(a, c, x1, u, cT, ct, cu);
+  if constexpr (SC != CONSTR_NONE) constr_bwd<SC, REG>(a, c, x1, u, cT, ct, cu);
   {
     const float* ws = c + a.o_wstate;
     const float* r = c + a.o_xref + (t + 1) * 13;
@@ -426,9 +505,9 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
     cq1[3] = ct[9] + (-ry * c_ex + rx * c_ey + rw * c_ez);
 
     // sigma / res2 (and the Brownian term v1 += sd*sig6[0:3]*z[3:6],
-    // om1 += sd*sig6[3:6]*z[10:13])
+    // om1 += sd*sig6[3:6]*z[10:13]); REG: the caller's (sigma_bwd)
     const float dsc = scal[SC_DIFF];
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < 6 && !REG; ++i) {
       const float hs = h2[6 + i];
       const float sig6 = softplus(hs) * dsc;
       float c_sig6 = cR * 2.f * sig6;
@@ -449,8 +528,9 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
     float dotc = 0.f;
     for (int i = 0; i < 4; ++i) dotc += cq1[i] * q1r[i];
     const float coef = dotc / (nrm2 * nrm);
+    const float inrm = REG ? 1.f / nrm : 0.f;     // REG: reciprocals, as em_step
     float c_q1r[4];
-    for (int i = 0; i < 4; ++i) c_q1r[i] = cq1[i] / nrm - q1r[i] * coef;
+    for (int i = 0; i < 4; ++i) c_q1r[i] = (REG ? cq1[i] * inrm : cq1[i] / nrm) - q1r[i] * coef;
 
     // EM update
     float cp[3], cv[3], c_acc[3], com[3], c_dom[3], cq[4], c_dq[4];
@@ -475,9 +555,16 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
     // domega = (tau + res36 - om x (I om)) / I
     float c_tau[3], c_crs[3], Iom[3], t1[3], t2[3];
     for (int i = 0; i < 3; ++i) {
-      c_tau[i] = c_dom[i] / in[i];
-      c_h2[3 + i] = c_dom[i] / in[i];
-      c_crs[i] = -c_dom[i] / in[i];
+      if constexpr (REG) {
+        const float cd = c_dom[i] * (1.f / in[i]);
+        c_tau[i] = cd;
+        c_h2[3 + i] = cd;
+        c_crs[i] = -cd;
+      } else {
+        c_tau[i] = c_dom[i] / in[i];
+        c_h2[3 + i] = c_dom[i] / in[i];
+        c_crs[i] = -c_dom[i] / in[i];
+      }
       Iom[i] = in[i] * om[i];
     }
     cross3(Iom, c_crs, t1);
@@ -486,19 +573,35 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
 
     // acc = G e_z + qrotate(q, f_body) / mass
     float w[4];
-    wrench4(a, mix, u, w);
+    if constexpr (REG) {
+      for (int m = 0; m < 4; ++m) w[m] = wr[m];
+    } else {
+      wrench4(a, mix, u, w);
+    }
     const float fb[3] = {h2[0], h2[1], h2[2] - w[0]};
     float c_rot[3], c_wq, c_uq[3], c_fb[3];
-    for (int i = 0; i < 3; ++i) c_rot[i] = c_acc[i] / scal[SC_MASS];
+    const float im = REG ? 1.f / scal[SC_MASS] : 0.f;
+    for (int i = 0; i < 3; ++i) c_rot[i] = REG ? c_acc[i] * im : c_acc[i] / scal[SC_MASS];
     qrot_bwd(qw, q + 1, fb, c_rot, &c_wq, c_uq, c_fb);
     cq[0] += c_wq;
     for (int i = 0; i < 3; ++i) cq[1 + i] += c_uq[i];
     for (int i = 0; i < 3; ++i) c_h2[i] = c_fb[i];
     const float c_wr[4] = {-c_fb[2], c_tau[0], c_tau[1], c_tau[2]};
-    for (int i = 0; i < a.n_u; ++i) {
+    auto mix_t = [&](int i) {
       float acc = 0.f;
       for (int m = 0; m < 4; ++m) acc += c_wr[m] * mix[m * a.n_u + i];
       cu[i] = acc;
+    };
+    if constexpr (REG) {
+#pragma unroll
+      for (int i = 0; i < P1_FMAX - 9; ++i) {
+        const int ic = min(i, a.n_u - 1);
+        float acc = 0.f;
+        for (int m = 0; m < 4; ++m) acc += c_wr[m] * mix[m * a.n_u + ic];
+        if (i < a.n_u) cu[i] = acc;
+      }
+    } else {
+      for (int i = 0; i < a.n_u; ++i) mix_t(i);
     }
     for (int i = 0; i < 3; ++i) { ct[i] = cp[i]; ct[3 + i] = cv[i]; ct[10 + i] = com[i]; }
     for (int i = 0; i < 4; ++i) ct[6 + i] = cq[i];
@@ -507,7 +610,10 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
 
 // Features back to the state and the controls for one row (the feature
 // half of manual_bwd_step): ct += the cotangent of the state through the
-// features cf, and g[i] = cu[i] + cf[9+i] (g may alias cu).
+// features cf, and g[i] = cu[i] + cf[9+i] (g may alias cu). REG (the P=1
+// forms): ct and cf are register arrays and the control gradient is the
+// caller's (cu and g unused).
+template <bool REG = false>
 __device__ __forceinline__ void bwd_feat(const ApgArgs& a, const float* st,
                                          const float* cf, const float* cu,
                                          float* ct, float* g) {
@@ -522,66 +628,8 @@ __device__ __forceinline__ void bwd_feat(const ApgArgs& a, const float* st,
   for (int i = 0; i < 3; ++i) ct[3 + i] += c_v[i];
   ct[6] += c_wv + c_wg;
   for (int i = 0; i < 3; ++i) ct[7 + i] += -(c_uv[i] + c_ug[i]);
-  for (int i = 0; i < a.n_u; ++i) g[i] = cu[i] + cf[9 + i];
-}
-
-// One reverse step (bodies.py::manual_bwd_step, B = 1) at horizon index t,
-// reading the stash; updates the state cotangent s.ct and writes the
-// dynamics part of the control gradient into s.g[t*nZ ..] (with the slack
-// columns' gradient in the proximal form).
-template <int SC>
-__device__ void bwd_step(const ApgArgs& a, const Smem& s, const float* U, int t) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  const float* c = s.c;
-  const int F = a.F, HID = a.HID, OUT = a.OUT;
-  const float* st = s.xs + t * 13;
-  const float d_t = c[a.o_disc + t];
-
-  // ---- part 1 (thread 0): stage cost, sigma, renormalize, EM, dynamics
-  if (tid == 0)
-    bwd_dyn<false, SC>(a, c, st, s.xs + (t + 1) * 13, s.h2 + t * OUT, U + t * a.nZ,
-                   nullptr, t, d_t, d_t * c[a.o_scal + SC_RESM], s.ct, s.c_h2, s.cu);
-  __syncthreads();
-
-  // ---- trunk backward on the stashed pre-activations
-  const float* w2 = c + a.o_w2;
-  const float* h1p = s.h1p + t * HID;
-  for (int j = tid; j < HID; j += blockDim.x) {
-    float acc = 0.f;
-    for (int o = 0; o < OUT; ++o) acc += s.c_h2[o] * w2[j * OUT + o];
-    const float s1 = sigm(h1p[j]);
-    s.c_h1p[j] = acc * (s1 + h1p[j] * s1 * (1.f - s1));
-  }
-  __syncthreads();
-  const float* w1 = c + a.o_w1;
-  const float* h0p = s.h0p + t * HID;
-  for (int i = warp; i < HID; i += nw) {       // one warp per row of w1
-    float acc = 0.f;
-    for (int j = lane; j < HID; j += 32) acc += w1[i * HID + j] * s.c_h1p[j];
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const float s0 = sigm(h0p[i]);
-      s.c_h0p[i] = acc * (s0 + h0p[i] * s0 * (1.f - s0));
-    }
-  }
-  __syncthreads();
-  const float* w0 = c + a.o_w0;
-  for (int i = warp; i < F; i += nw) {          // one warp per row of w0
-    float acc = 0.f;
-    for (int j = lane; j < HID; j += 32) acc += w0[i * HID + j] * s.c_h0p[j];
-    acc = warp_sum(acc);
-    if (lane == 0) s.c_feat[i] = acc;
-  }
-  __syncthreads();
-
-  // ---- part 2 (thread 0): features back to the state and the controls
-  if (tid == 0) {
-    bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.g + t * a.nZ);
-    if constexpr (SC == CONSTR_PROX)
-      for (int i = a.n_u; i < a.nZ; ++i) s.g[t * a.nZ + i] = s.cu[i];
-  }
-  __syncthreads();
+  if constexpr (!REG)
+    for (int i = 0; i < a.n_u; ++i) g[i] = cu[i] + cf[9 + i];
 }
 
 // Transposed copies of the trunk weights for bwd_rows, whose transposed
@@ -626,7 +674,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   const float* xt = s.xs + t * R * 13;
   const float* x1 = s.xs + (t + 1) * R * 13;
   const float* u = U + t * nZ;
-  trunk<true>(a, s, R, u, 0, 1, xt, s.p0, s.p1, nullptr);
+  trunk<true>(a, s, R, u, 0, 1, xt, s.p0, s.p1);
   const float d_t = c[a.o_disc + t];
   const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
   for (int r = tid; r < R; r += nt)
@@ -727,22 +775,326 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
   return r;
 }
 
-// Value and gradient of the iterate U (bodies.py::vg_sweep): checkpointed
-// forward sweep into the stash, manual reverse sweep, closed-form control
-// gradients. Gradient lands in s.g, the value in *fval (shared memory).
-template <int SC>
-__device__ void vg(const ApgArgs& a, const Smem& s, float* fval, const float* U) {
+// ---- The P=1 forms: apg_solve_kernel<false, SC>, value_and_grad_kernel<
+// false, SC>. Latency first, one block of 256 threads (4 per hidden unit):
+// a forward step of R <= 8 rows has two block barriers,
+//   warp r (row r):  features, layer 0           -> s.a0   | barrier
+//   all threads:     layer 1, split-K            -> s.a1   | barrier
+//   warp r:          layer 2, the EM step and stage cost, computed alike in
+//                    all 32 lanes, so the new state stays in registers;
+// and a reverse step of the vg row two more,
+//   warp 0:          bwd_dyn, layer 2 backward   -> s.c_h1p | barrier
+//   all threads:     layer 1 backward, split-K   -> s.c_h0p | barrier
+//   warp 0:          layer 0 backward, bwd_feat (state cotangent in
+//                    registers, control gradient into s.g[t]).
+// The trunk weights sit in registers for the whole solve (P1W). Warp-local
+// sums over the 32 lanes are reduce-scatters (warp_sum16_scatter), read back
+// by shuffles where every lane needs them, so all lanes hold the same
+// values; per-solve constants are read from the consts copy in shared
+// memory, off the chain.
+// Widths are fixed: HID = P1_HID, F <= P1_FMAX, OUT = 12 (the launchers
+// refuse others).
+
+// Clock-stamped phases (apg_solve_prof_launch): thread 0 adds the SM cycles
+// since the previous stamp to s.prof[ph]; s.prof[PH_N] holds the last stamp.
+enum { PH_FWD_TRUNK = 0, PH_FWD_SCALAR, PH_BWD_SCALAR, PH_BWD_TRUNK, PH_CAND, PH_LOOP,
+       PH_N };
+template <bool PROF>
+__device__ __forceinline__ void prof_stamp(const Smem& s, int ph) {
+  if constexpr (PROF) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      s.prof[ph] += now - s.prof[PH_N];
+      s.prof[PH_N] = now;
+    }
+  }
+}
+
+// The trunk in registers. Lane l of every warp holds the w0 and w2 rows of
+// hidden units l and l+32 (layers 0 and 2 and their reverse are
+// warp-local); thread 4j+k holds the 16 inputs i = 16m+4k+q (m, q < 4) of
+// hidden unit j of layer 1, forward (w1[i][j]) and reverse (w1[j][i]).
+struct P1W {
+  float w0[2][P1_FMAX];   // w0[f][l + 32h], zero past F
+  float w2[2][P1_OUT];    // w2[l + 32h][o]
+  float w1f[16], w1b[16]; // [4m + q]
+  float b0[2], b1;        // b0[l + 32h], b1[j]
+};
+
+__device__ __forceinline__ P1W load_p1_weights(const ApgArgs& a, const float* c) {
+  const int lane = threadIdx.x & 31, j = threadIdx.x >> 2, k = threadIdx.x & 3;
+  P1W W;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int u = lane + 32 * h;
+#pragma unroll
+    for (int f = 0; f < P1_FMAX; ++f) W.w0[h][f] = f < a.F ? c[a.o_w0 + f * P1_HID + u] : 0.f;
+#pragma unroll
+    for (int o = 0; o < P1_OUT; ++o) W.w2[h][o] = c[a.o_w2 + u * P1_OUT + o];
+    W.b0[h] = c[a.o_b0 + u];
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = 16 * m + 4 * k + q;
+      W.w1f[4 * m + q] = c[a.o_w1 + i * P1_HID + j];
+      W.w1b[4 * m + q] = c[a.o_w1 + j * P1_HID + i];
+    }
+  W.b1 = c[a.o_b1 + j];
+  return W;
+}
+
+static_assert(P1_FMAX == 16 && P1_OUT <= 16, "warp_sum16_scatter: 16 sums per warp");
+
+// Sum 16 values v[o] over the warp, scattered: halving exchanges (8, 4, 2,
+// 1 shuffles) then a last xor, 16 shuffles for 16 sums. Lanes 2o and 2o+1
+// return the sum of v[o] (o = lane/2), bit-identical in both.
+__device__ __forceinline__ float warp_sum16_scatter(const float* v) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float a[8], b[4], c[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i] = (b4 ? v[8 + i] : v[i]) + __shfl_xor_sync(full, b4 ? v[i] : v[8 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    b[i] = (b3 ? a[4 + i] : a[i]) + __shfl_xor_sync(full, b3 ? a[i] : a[4 + i], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (b2 ? b[2 + i] : b[i]) + __shfl_xor_sync(full, b2 ? b[i] : b[2 + i], 4);
+  const float d = (b1 ? c[1] : c[0]) + __shfl_xor_sync(full, b1 ? c[0] : c[1], 2);
+  return d + __shfl_xor_sync(full, d, 1);
+}
+
+// The 16 inputs of this thread's hidden unit j from a 64-float vector in
+// shared memory (16-byte aligned): four float4 reads, conflict-free.
+__device__ __forceinline__ float dot16(const float* v, const float* w) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  const int k = threadIdx.x & 3;
+  float acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 x = v4[4 * m + k];
+    acc += x.x * w[4 * m];
+    acc += x.y * w[4 * m + 1];
+    acc += x.z * w[4 * m + 2];
+    acc += x.w * w[4 * m + 3];
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 2);
+}
+
+// Features of a row in registers (as trunk's) from load_controls' uu, zero
+// past F.
+__device__ __forceinline__ void features_reg(const ApgArgs& a, const float* x,
+                                             const float* uu, float* f) {
+  const float qcu[3] = {-x[7], -x[8], -x[9]};
+  const float ez[3] = {0.f, 0.f, 1.f};
+  qrot(x[6], qcu, x + 3, f);
+  f[3] = x[10]; f[4] = x[11]; f[5] = x[12];
+  qrot(x[6], qcu, ez, f + 6);
+#pragma unroll
+  for (int i = 0; i < P1_FMAX - 9; ++i) f[9 + i] = i < a.n_u ? uu[i] : 0.f;
+}
+
+// The sigma penalty of a row, its 6 softplus terms one per lane: lane 2o
+// holds the trunk output o in `mine` (warp_sum16_scatter); every lane gets
+// sum_i (softplus(h[6+i]) * ds)^2 in em_step's order.
+__device__ __forceinline__ float sigma_res2(float mine, float ds) {
+  const float sg = softplus(mine) * ds;
+  float res2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float v = __shfl_sync(0xffffffffu, sg, 2 * (6 + i));
+    res2 += v * v;
+  }
+  return res2;
+}
+
+// The sigma part of a row's output cotangent, one term per lane as
+// bwd_dyn's loop computes it (h2: the row's 12 stashed outputs, cR the
+// sigma cost's seed): c_h2[6 + i] in every lane.
+__device__ __forceinline__ void sigma_bwd(const float* h2, float cR, float dsc, float* c_h2) {
+  const int i = (threadIdx.x & 31) % 6;
+  const float hs = h2[6 + i];
+  const float sig6 = softplus(hs) * dsc;
+  const float v = cR * 2.f * sig6 * sigm(hs) * dsc;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) c_h2[6 + k] = __shfl_sync(0xffffffffu, v, k);
+}
+
+// R rows through the horizon from x0, warp r < R owning row r, whose
+// controls at step t are U[r*ustride + t*nZ ..]; row r's costs land in
+// s.jt[r], s.jr[r]. STASH (the vg row, R = 1): the states into s.xs[1..H],
+// the pre-activations into s.h0p, s.h1p, s.h2 and the wrench into s.wr for
+// the reverse sweep. Ends without a barrier (warp r wrote row r's costs,
+// warp 0 the stash).
+template <int SC, bool STASH, bool PROF>
+__device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, const P1W& W,
+                                           int R, const float* U, int ustride) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = tid >> 2, k = tid & 3;
+  const float* c = s.c;
+  const bool own = warp < R;
+  const float* Ur = U + warp * ustride;
+  float x[13], jt = 0.f, jr = 0.f;
+#pragma unroll
+  for (int i = 0; i < 13; ++i) x[i] = c[a.o_x0 + i];
+  for (int t = 0; t < a.H; ++t) {
+    const float* ut = Ur + t * a.nZ;
+    float w[4];                                  // the wrench of u_t
+    if (own) {
+      float uu[P1_FMAX - 9], f[P1_FMAX];
+      load_controls(a, ut, uu);
+      features_reg(a, x, uu, f);
+      wrench4_reg(a, c + a.o_mix, uu, w);
+      if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < P1_FMAX; ++i) acc += f[i] * W.w0[h][i];
+        const float pre = acc + W.b0[h];
+        s.a0[warp * P1_HID + lane + 32 * h] = pre * sigm(pre);
+        if (STASH) s.h0p[t * P1_HID + lane + 32 * h] = pre;
+      }
+      if (STASH && lane < 4)
+        s.wr[t * 4 + lane] = lane == 0 ? w[0] : lane == 1 ? w[1] : lane == 2 ? w[2] : w[3];
+    }
+    __syncthreads();
+    {
+      // every thread of hidden unit j holds each row's sum; thread k takes
+      // the swish of rows k and k + 4
+      float pre[APG_MAXK];
+#pragma unroll
+      for (int r = 0; r < APG_MAXK; ++r)
+        pre[r] = r < R ? dot16(s.a0 + r * P1_HID, W.w1f) + W.b1 : 0.f;
+#pragma unroll
+      for (int q = 0; q < APG_MAXK / 4; ++q) {
+        const int r = k + 4 * q;
+        float v = pre[0];
+#pragma unroll
+        for (int i = 1; i < APG_MAXK; ++i) v = r == i ? pre[i] : v;
+        if (r < R) {
+          s.a1[r * P1_HID + j] = v * sigm(v);
+          if (STASH) s.h1p[t * P1_HID + j] = v;
+        }
+      }
+    }
+    __syncthreads();
+    if (own) {
+      const float* a1 = s.a1 + warp * P1_HID;
+      const float v0 = a1[lane], v1 = a1[lane + 32];
+      float p[16];
+#pragma unroll
+      for (int o = 0; o < 16; ++o) p[o] = o < P1_OUT ? v1 * W.w2[1][o] + v0 * W.w2[0][o] : 0.f;
+      const int o = lane >> 1;                   // this lane's output unit
+      const float mine = warp_sum16_scatter(p) + (o < P1_OUT ? c[a.o_b2 + o] : 0.f);
+      float h2[P1_OUT];
+#pragma unroll
+      for (int i = 0; i < P1_OUT; ++i) h2[i] = __shfl_sync(0xffffffffu, mine, 2 * i);
+      const float res2 = sigma_res2(mine, c[a.o_scal + SC_DIFF]);
+      if (STASH) prof_stamp<PROF>(s, PH_FWD_TRUNK);
+      float track, unused;
+      em_step<false, SC, true>(a, c, x, h2, ut, nullptr, t, x, track, unused, w);
+      const float d_t = c[a.o_disc + t];
+      jt += d_t * track;
+      jr += d_t * res2;
+      if (STASH) {
+        if (!(lane & 1) && o < P1_OUT) s.h2[t * P1_OUT + o] = mine;
+        if (lane < 13) s.xs[(t + 1) * 13 + lane] = pick13(x, lane);
+      }
+    }
+  }
+  if (own && lane == 0) { s.jt[warp] = jt; s.jr[warp] = jr; }
+  if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
+}
+
+// The manual reverse sweep of the vg row (bodies.py::manual_bwd_step, B = 1)
+// on the stash of p1_rollout<STASH>: the dynamics part of the control
+// gradient (with the slack columns' in the proximal form) into s.g. Ends
+// with a barrier.
+template <int SC, bool PROF>
+__device__ __forceinline__ void p1_reverse(const ApgArgs& a, const Smem& s, const P1W& W,
+                                           const float* U) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, j = tid >> 2;
+  const float* c = s.c;
+  const int nZ = a.nZ;
+  float ct[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) ct[i] = 0.f;
+  __syncwarp();                                  // warp 0's stash writes
+  for (int t = a.H - 1; t >= 0; --t) {
+    const float* st = s.xs + t * 13;
+    if (warp == 0) {
+      const float d_t = c[a.o_disc + t];
+      const float cR = d_t * c[a.o_scal + SC_RESM];
+      float c_h2[P1_OUT];
+      sigma_bwd(s.h2 + t * P1_OUT, cR, c[a.o_scal + SC_DIFF], c_h2);
+      bwd_dyn<false, SC, true>(a, c, st, st + 13, s.h2 + t * P1_OUT, U + t * nZ, nullptr, t,
+                               d_t, cR, ct, c_h2, s.cu, s.wr + t * 4);
+      prof_stamp<PROF>(s, PH_BWD_SCALAR);
+      const float* h1p = s.h1p + t * P1_HID;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = lane + 32 * h;
+        float acc = 0.f;
+#pragma unroll
+        for (int o = 0; o < P1_OUT; ++o) acc += c_h2[o] * W.w2[h][o];
+        const float s1 = sigm(h1p[u]);
+        s.c_h1p[u] = acc * (s1 + h1p[u] * s1 * (1.f - s1));
+      }
+    }
+    __syncthreads();
+    {
+      const float acc = dot16(s.c_h1p, W.w1b);
+      if ((tid & 3) == 0) {
+        const float h = s.h0p[t * P1_HID + j], s0 = sigm(h);
+        s.c_h0p[j] = acc * (s0 + h * s0 * (1.f - s0));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const float g0 = s.c_h0p[lane], g1 = s.c_h0p[lane + 32];
+      float cf[P1_FMAX];
+#pragma unroll
+      for (int f = 0; f < P1_FMAX; ++f) cf[f] = W.w0[1][f] * g1 + W.w0[0][f] * g0;
+      const float mine = warp_sum16_scatter(cf);
+#pragma unroll
+      for (int f = 0; f < P1_FMAX; ++f) cf[f] = __shfl_sync(0xffffffffu, mine, 2 * f);
+      prof_stamp<PROF>(s, PH_BWD_TRUNK);
+      bwd_feat<true>(a, st, cf, nullptr, ct, nullptr);
+      // step t's control gradient: bwd_dyn's cotangent plus the features'
+      float* g = s.g + t * nZ;
+#pragma unroll
+      for (int i = 0; i < P1_FMAX - 9; ++i) {
+        const float v = s.cu[min(i, a.n_u - 1)] + cf[9 + i];
+        if (i < a.n_u && lane == 0) g[i] = v;
+      }
+      if constexpr (SC == CONSTR_PROX)
+        for (int i = a.n_u + lane; i < nZ; i += 32) g[i] = s.cu[i];
+    }
+  }
+  prof_stamp<PROF>(s, PH_BWD_SCALAR);
+  __syncthreads();
+}
+
+// Value and gradient of the iterate U (bodies.py::vg_sweep) at P=1:
+// checkpointed forward sweep into the stash (s.xs is the mean trajectory,
+// x_evol), manual reverse sweep, closed-form control gradients. Gradient
+// lands in s.g, the value in *fval (shared memory). U must be visible to
+// the block on entry.
+template <int SC, bool PROF = false>
+__device__ __forceinline__ void vg(const ApgArgs& a, const Smem& s, const P1W& W,
+                                   float* fval, const float* U) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* c = s.c;
   const int HZ = a.H * a.nZ;
-  if (tid < 13) { s.xs[tid] = c[a.o_x0 + tid]; s.ct[tid] = 0.f; }
-  if (tid == 0) { s.jt[0] = 0.f; s.jr[0] = 0.f; }
-  __syncthreads();
-  for (int t = 0; t < a.H; ++t)
-    fwd_step<false, SC>(a, s, 1, U + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
-                    s.xs + (t + 1) * 13, t, s.h0p + t * a.HID, s.h1p + t * a.HID,
-                    s.h2 + t * a.OUT);
-  for (int t = a.H - 1; t >= 0; --t) bwd_step<SC>(a, s, U, t);
+  if (tid < 13) s.xs[tid] = c[a.o_x0 + tid];
+  p1_rollout<SC, true, PROF>(a, s, W, 1, U, 0);
+  p1_reverse<SC, PROF>(a, s, W, U);
   for (int e = tid; e < HZ; e += blockDim.x) {
     const int t = e / a.nZ, i = e - t * a.nZ;
     s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
@@ -785,8 +1137,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     const float* zc = noise + (size_t)ch * R * 13;
     for (int t = 0; t < a.H; ++t)
       fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
-                     s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t, nullptr, nullptr,
-                     nullptr);
+                     s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
     for (int t = a.H - 1; t >= 0; --t) bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t);
     if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
     if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
@@ -831,7 +1182,7 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
     const float* zc = noise + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
       fwd_step<true, SC>(a, s, R, s.cand + t * a.nZ, HZ, K, zc + (size_t)t * a.P * 13,
-                     s.xr, s.xr, t, nullptr, nullptr, nullptr);
+                     s.xr, s.xr, t);
     if (tid < 2 * K) {
       const int k = tid < K ? tid : tid - K;
       const float* j = tid < K ? s.jt : s.jr;

@@ -30,6 +30,12 @@ P=1 layout at nZ = 10 passes 48 KB, so the constrained forms take dynamic
 shared memory above the default (set once per library load by
 ``apg_init``). ``apg_solve_kernel.launches`` counts the whole-solve
 kernel's launches.
+
+The P=1 forms hold the trunk in registers at fixed widths (64 hidden
+units, at most 16 inputs; ``consts.py::check_p1_widths``), which the card
+path checks before it builds anything. :func:`apg_phase_split` runs the
+same P=1 solve through the kernel's clock-stamped instantiation and
+returns the SM cycles of each of :data:`PHASES`, for measurement.
 """
 from __future__ import annotations
 
@@ -43,16 +49,21 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
+    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, check_p1_widths, plan_particles,
+    sc_kind)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
     APGConfig, APGState, apg_solve, resolve_t_init)
 
-__all__ = ["apg_solve_kernel", "apg_solve_plain", "load_apg_library",
-           "plan_solve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
+__all__ = ["apg_solve_kernel", "apg_solve_plain", "apg_phase_split", "load_apg_library",
+           "plan_solve_particles", "PHASES", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
 SMEM_LIMIT = 49152   # bytes of shared memory the unconstrained P=1 kernel may use (48 KB)
+# the clock64 phases of apg_phase_split, in the order of its cycle sums
+# (csrc/apg_solve.cu, PH_*)
+PHASES = ("forward trunk", "forward scalar step", "reverse scalar", "reverse trunk",
+          "candidate rollout", "loop bookkeeping")
 _P = ctypes.c_void_p
 
 
@@ -70,6 +81,8 @@ def load_apg_library() -> ctypes.CDLL:
     lib.apg_init.restype = ctypes.c_int
     lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 9
     lib.apg_solve_launch.restype = ctypes.c_int
+    lib.apg_solve_prof_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 10
+    lib.apg_solve_prof_launch.restype = ctypes.c_int
     if lib.apg_args_size() != ctypes.sizeof(ApgArgs):
         raise RuntimeError(
             f"ApgArgs ABI mismatch: library {lib.apg_args_size()} bytes, "
@@ -90,7 +103,9 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int) -> None:
 
 
 def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
-                 lb: torch.Tensor) -> None:
+                 lb: torch.Tensor, params: Optional[Dict[str, Any]] = None) -> None:
+    """What the kernel takes; with ``params`` (a P=1 solve on the card) also
+    the trunk widths of its register layout."""
     nZ = model.n_u + cp.n_slack
     if lb.shape[-1] != nZ:
         raise ValueError(
@@ -101,6 +116,9 @@ def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
             "apg_solve_kernel runs the linesearch APG; a config without "
             "apg_mpc.linesearch is the fixed-step solver, which runs "
             "solver/apg.py::apg_solve over the cost oracle (engine/mpc_loader.py)")
+    if params is not None:
+        w0, w1 = params["net"]["w0"], params["net"]["w1"]
+        check_p1_widths(int(w0.shape[0]), int(w1.shape[0]), "apg_solve_kernel")
 
 
 def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -125,9 +143,11 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             u_init: torch.Tensor, t0: torch.Tensor,
             precond: Optional[torch.Tensor], noise: Optional[torch.Tensor],
-            stream: int) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+            stream: int, prof: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Allocate the outputs and launch one solve; returns (yk, stats,
-    x_evol), x_evol None for the particle form."""
+    x_evol), x_evol None for the particle form. With ``prof`` (int64 (8,))
+    the clock-stamped instantiation runs and writes its cycle sums there."""
     limit = (SMEM_LIMIT_PARTICLES if args.has_noise or args.sc_kind != SC_NONE
              else SMEM_LIMIT)
     need = lib.apg_smem_bytes(ctypes.byref(args))
@@ -140,10 +160,10 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     stats = torch.empty(8, **kw)
     x_evol = None if args.has_noise else torch.empty((H + 1, 13), **kw)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = lib.apg_solve_launch(
-        ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
-        ptr(precond), ptr(noise), yk.data_ptr(), stats.data_ptr(), ptr(x_evol),
-        stream)
+    common = (ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
+              ptr(precond), ptr(noise), yk.data_ptr(), stats.data_ptr(), ptr(x_evol))
+    rc = (lib.apg_solve_launch(*common, stream) if prof is None
+          else lib.apg_solve_prof_launch(*common, prof.data_ptr(), stream))
     if rc != 0:
         raise RuntimeError("apg_solve_kernel launch failed: "
                            + lib.apg_error_string(rc).decode())
@@ -174,11 +194,21 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         return apg_solve_plain(model, params, cp, apg, time_steps, x0, x_ref,
                                u_prev, noise, num_particles, lb, ub, u_init,
                                t_init, precond, iter_budget, chunk)
+    out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                         num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk)
+    apg_solve_kernel.launches += 1
+    return out
+
+
+def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                   num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
+                   prof: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
+    dev = x0.device
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_kernel: unsupported device {dev}")
-    _check_scope(model, cp, apg, lb)
     H, n = int(time_steps.shape[0]), model.n_u + cp.n_slack
     P, z, chunk = resolve_particles(noise, num_particles, None, chunk, H, dev)
+    _check_scope(model, cp, apg, lb, params if P == 1 else None)
     for name, t, shape in (("x0", x0, (13,)), ("x_ref", x_ref, (H + 1, 13)),
                            ("u_init", u_init, (H, n)), ("lb", lb, (n,)),
                            ("ub", ub, (n,)), ("time_steps", time_steps, (H,)),
@@ -200,14 +230,38 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         plan_solve_particles(args, P, chunk)
     t0 = resolve_t_init(apg, t_init, dev)
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    apg_solve_kernel.launches += 1
+                                torch.cuda.current_stream(dev).cuda_stream, prof)
     if x_evol is None:
         x_evol = trajectory_kernel(consts, args, yk)
     st = APGState(yk=yk, num_steps=stats[0], stepsize=stats[1],
                   avg_stepsize=stats[2], avg_linesearch=stats[3],
                   grad_sqr=stats[4], init_cost=stats[5], opt_cost=stats[6])
     return st, x_evol
+
+
+def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                    apg: APGConfig, time_steps: torch.Tensor, x0: torch.Tensor,
+                    x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
+                    num_particles: int, lb: torch.Tensor, ub: torch.Tensor,
+                    u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
+                    precond: Optional[torch.Tensor] = None,
+                    iter_budget: Optional[int] = None,
+                    chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
+    """Measurement twin of :func:`apg_solve_kernel` (same arguments and
+    result) for a deterministic solve without state constraints: it runs
+    the clock-stamped instantiation of the kernel, whose thread 0 sums the
+    SM cycles of each of :data:`PHASES` over the solve into
+    ``apg_phase_split.cycles``, an int64 (8,) tensor on the card: the six
+    sums, then the cycles of the whole solve. Not counted in
+    ``apg_solve_kernel.launches``; CUDA tensors only."""
+    if num_particles != 1 or noise is not None or sc_kind(cp) != SC_NONE:
+        raise ValueError("apg_phase_split times the P=1 solve without state constraints")
+    prof = torch.zeros(8, dtype=torch.int64, device=x0.device)
+    out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                         num_particles, lb, ub, u_init, t_init, precond, iter_budget,
+                         chunk, prof)
+    apg_phase_split.cycles = prof
+    return out
 
 
 apg_solve_kernel.launches = 0

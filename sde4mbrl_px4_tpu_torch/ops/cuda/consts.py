@@ -36,10 +36,14 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
-__all__ = ["APG_MAXK", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
-           "ApgArgs", "build_consts", "plan_particles", "sc_kind"]
+__all__ = ["APG_MAXK", "P1_FMAX", "P1_HID", "SMEM_LIMIT_PARTICLES", "SC_NONE",
+           "SC_PENALTY", "SC_PROX", "ApgArgs", "build_consts", "check_p1_widths",
+           "plan_particles", "sc_kind"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
+# the P=1 kernels hold the trunk in registers at these widths: hidden units,
+# and the most inputs 9 + n_u (csrc/apg_solve.cuh P1_HID, P1_FMAX)
+P1_HID, P1_FMAX = 64, 16
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
 SMEM_LIMIT_PARTICLES = 232448
@@ -88,6 +92,16 @@ def _constraint_pieces(cp: CostParams) -> tuple:
         return (("pen13", pen), ("lo13", cp.state_lo13), ("hi13", cp.state_hi13),
                 ("inv13", cp.state_inv_scale13))
     return ()
+
+
+def check_p1_widths(F: int, HID: int, what: str) -> None:
+    """Raise ValueError unless the P=1 kernels' register layout takes a
+    (F, HID) trunk (the launchers refuse it with cudaErrorInvalidValue)."""
+    if HID != P1_HID or F > P1_FMAX:
+        raise ValueError(
+            f"{what}: the P=1 kernel holds the trunk in registers for {P1_HID} hidden "
+            f"units and at most {P1_FMAX} inputs (9 + n_u); this model has {HID} "
+            f"hidden units and {F} inputs")
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,

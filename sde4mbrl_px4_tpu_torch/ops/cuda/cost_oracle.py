@@ -31,7 +31,9 @@ original splits them), and the gradient is nZ wide; ``trajectory`` reads
 the control columns. The kernels take the form as a compile-time branch
 (``consts.py::sc_kind``); ``value_batch`` shrinks its tile of candidate
 rows below 16 when the wider rows would not fit 48 KB of shared memory.
-:func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
+The P=1 ``value_and_grad`` holds the trunk in registers at fixed widths
+(64 hidden units, at most 16 inputs; ``consts.py::check_p1_widths`` raises
+on others). :func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
 :func:`trajectory_kernel` each count their launches in ``.launches``.
 """
 from __future__ import annotations
@@ -46,7 +48,7 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, plan_particles)
+    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, check_p1_widths, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -240,6 +242,8 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                           noise: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch."""
+    if not args.has_noise:
+        check_p1_widths(args.F, args.HID, "value_and_grad")
     lib = load_oracle_library()
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):

@@ -27,6 +27,8 @@ from sde4mbrl_px4_tpu.ops.rollout import rollout_mean
 from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
 from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
 from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import value_and_grad_kernel
 
 
 @pytest.fixture(scope="module")
@@ -82,13 +84,31 @@ def test_scope_is_enforced(port_bundles):
     lb6 = torch.cat([tb.lb, torch.zeros(2)])
     with pytest.raises(ValueError, match="nZ=4"):
         AK.apg_solve_kernel(*args, 1, lb6, lb6 + 1, u_init)
+    # the P=1 kernels hold the trunk in registers: 64 hidden units, at most
+    # 16 inputs (9 + n_u); the card path checks the widths before building
+    AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, tb.params)
+    net = tb.params["net"]
+    narrow = {**tb.params, "net": {**net, "w1": net["w1"][:32, :32]}}
+    with pytest.raises(ValueError, match="64 hidden units"):
+        AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, narrow)
+    wide = {**tb.params, "net": {**net, "w0": torch.zeros(17, 64)}}
+    with pytest.raises(ValueError, match="at most 16 inputs"):
+        AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, wide)
+    _, oargs = build_consts(tb.model, narrow, tb.cost_params, None, tb.time_steps, x0,
+                            x_ref, u_prev)
+    assert (oargs.HID, oargs.F) == (32, 13)
+    with pytest.raises(ValueError, match="value_and_grad: the P=1 kernel"):
+        value_and_grad_kernel(torch.zeros(oargs.n_consts), oargs, u_init)
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_cuda(repo_root):
+@pytest.mark.parametrize("maxls", [None, 1, 8])
+def test_kernel_matches_plain_on_cuda(repo_root, maxls):
     """The CUDA kernel against its plain version on the card, both iris
     configs, fixed budgets, at the CPU tests' tolerances; x_evol against
-    the mean rollout of the kernel's own plan at rtol 1e-5."""
+    the mean rollout of the kernel's own plan at rtol 1e-5. ``maxls`` 1 and
+    8 (APG_MAXK) put one and eight candidate rows, one warp each, beside the
+    config's 4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
     from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean as t_rollout_mean
@@ -98,7 +118,8 @@ def test_kernel_matches_plain_on_cuda(repo_root):
                                 ("iris_posctrl_mpc", 8, (5e-4, 5e-5))):
         b = load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
                                   device=dev)[3]
-        apg = b.apg_config._replace(max_iter=max_iter, max_no_improvement_iter=max_iter)
+        apg = b.apg_config._replace(max_iter=max_iter, max_no_improvement_iter=max_iter,
+                                    maxls=maxls or b.apg_config.maxls)
         x0, x_ref, u_prev, u_init = (torch.from_numpy(a).to(dev) for a in
                                      problem(b.cost_params.uref.cpu().numpy()))
         args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref,
@@ -159,16 +180,17 @@ def test_particle_kernel_matches_plain_on_cuda(repo_root, P, chunk, antithetic):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("maxls", [None, 1, 8])
 @pytest.mark.parametrize("P, chunk", [(1, 0), (8, 4)])
 @pytest.mark.parametrize("form", ["penalty", "prox"])
-def test_constraint_kernel_matches_plain_on_cuda(repo_root, form, P, chunk):
+def test_constraint_kernel_matches_plain_on_cuda(repo_root, form, P, chunk, maxls):
     """The state-constraint branches of the whole-solve kernel (the shipped
     ``iris_constr_posctrl_mpc.yaml`` and its penalty form) against the plain
     version on the card, max_iter=10 from a bound-violating start, the same
     torch draws at P=8: equal steps, ``yk`` (nZ = 10 wide in the proximal
     form) at rtol 5e-4 / atol 5e-5, ``opt_cost`` at rel 5e-4
     (``tests/test_prox_slack.py:143-146``); ``x_evol`` the mean rollout of
-    the control columns."""
+    the control columns. ``maxls`` 1 and 8 (APG_MAXK) beside the config's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
     from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
@@ -176,7 +198,8 @@ def test_constraint_kernel_matches_plain_on_cuda(repo_root, form, P, chunk):
 
     dev = torch.device("cuda")
     b = constrained_bundle(repo_root, form, dev)
-    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10,
+                                maxls=maxls or b.apg_config.maxls)
     x0, x_ref, u_prev, z_init = constrained_problem(b)
     z = None if P == 1 else draw_brownian(torch.Generator().manual_seed(P), H, P, True,
                                           dev).transpose(0, 1)
