@@ -15,7 +15,8 @@ without a result):
    ``nvcc`` each, in parallel) and prints the build seconds and the
    compiler's register/spill/shared-memory summary per ``<PART, SC>`` form;
    fails if a P=1 form of the whole solve or of ``value_and_grad`` (their
-   trunk lives in registers) spills;
+   trunk lives in registers) spills; prints the registers and spills of the
+   cluster particle forms;
 3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
@@ -46,13 +47,16 @@ without a result):
    events); then the whole-solve kernel's phase split on a traj replay
    tick (``phase_split``: its clock-stamped instantiation);
 10. Monte-Carlo particles, kernel against plain on the same torch draws,
-    both iris configs, at P=8 (one chunk) and P=64 in chunks of 16: the
-    noise and chunk branches of ``value`` and ``value_batch`` (K=4, rtol
-    2e-5) and ``value_and_grad`` (value rtol 2e-5, gradient rtol 5e-4 /
-    atol 5e-5), and the particle form of the whole solve at max_iter=10
-    (equal steps, ``yk`` rtol 5e-4 / atol 5e-5, ``opt_cost`` rel 5e-4, as
-    ``tests/test_apg_kernel.py:100-105``; ``x_evol`` the mean rollout of
-    the plan);
+    both iris configs, at P=8 (one chunk), P=64 in chunks of 16, P=96 in
+    chunks of 32 (a cluster of 3 blocks) and P=1024 antithetic (32 chunks,
+    2 per block): the noise and chunk branches of ``value`` and
+    ``value_batch`` (K=4, rtol 2e-5) and ``value_and_grad`` (value rtol
+    2e-5, gradient rtol 5e-4 / atol 5e-5), and the particle form of the
+    whole solve at max_iter=10 (equal steps, ``yk`` rtol 5e-4 / atol 5e-5,
+    ``opt_cost`` rel 5e-4, as ``tests/test_apg_kernel.py:100-105``;
+    ``x_evol`` the mean rollout of the plan); ``value_and_grad`` and the
+    solve on their cluster against one block (``cluster=1``) within 1e-6,
+    equal steps (equal bits expected);
 11. the ``p512anti`` solver family (4 solves, max_iter 6, P=512
     antithetic) through the kernels and through the plain version with the
     same draws: |du| <= 5e-4, the golden's own tolerance, equal steps;
@@ -61,14 +65,18 @@ without a result):
     lemniscate (per-solve p50, iterations, per-iteration time, tracking
     error of ``x_evol[1]``), then three traj ticks of a
     ``RecedingHorizonController`` flying that config; a fixed 5-iteration
-    P=512 solve, kernel against plain (parity and times); the chosen chunk
-    and shared memory;
+    P=512 solve, kernel against plain (parity and times) and at its cluster
+    against C = 1 (equal steps, max|du| and the ``opt_cost`` gap within
+    1e-6; C, C_max, the chunks per block and
+    ``cudaOccupancyMaxActiveClusters`` printed); its phase split
+    (``particle_phase_split``: the clock-stamped particle instantiation on
+    cluster ranks 0 and 15); the chosen chunk and shared memory;
 13. the fixed-step route at P=512 antithetic (the posctrl config without
     its linesearch block) on the oracle kernels' particle branches; then
     those kernels against the plain oracle at P=512 in the route's chunks
     (``value`` at K=1 and ``value_batch`` at K=4, rtol 2e-5;
     ``value_and_grad``, value rtol 2e-5, gradient rtol 5e-4 / atol 5e-5),
-    and their per-launch times;
+    and their per-launch times (``value_and_grad`` also at C = 1);
 14. state constraints (``state_constr``), kernel against plain, on
     ``configs/iris_constr_posctrl_mpc.yaml`` as shipped (proximal slack,
     nZ = 10) and in its penalty form, each at P=1 and at P=8 in chunks of
@@ -231,7 +239,7 @@ def phase_build() -> None:
     CO.load_oracle_library()
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
         f"{time.perf_counter() - t:.1f} s (with load)")
-    spills, current = {}, None
+    spills, regs, current = {}, {}, None
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -249,11 +257,20 @@ def phase_build() -> None:
                 stores = re.search(r"(\d+) bytes spill stores", line)
                 if stores:
                     spills[current] = int(stores.group(1))
+                used = re.search(r"Used (\d+) registers", line)
+                if used:
+                    regs[current] = int(used.group(1))
     p1 = {k: v for k, v in spills.items()
           if k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))}
     log(f"  spill stores of the P=1 forms of apg_solve and value_and_grad: {p1}")
+    part = {k: (regs.get(k), v) for k, v in spills.items()
+            if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true"))}
+    log(f"  the cluster particle forms of apg_solve and value_and_grad, (registers, spill "
+        f"stores in bytes): {part}")
     if len(p1) != 7 or any(p1.values()):
         raise AssertionError(f"a P=1 form of the whole solve or value_and_grad spills: {p1}")
+    if len(part) != 7:
+        raise AssertionError(f"the build log lacks a particle form: {part}")
 
 
 def phase_parity(dev) -> tuple:
@@ -301,19 +318,24 @@ def phase_parity(dev) -> tuple:
     return worst, timing
 
 
-def time_fixed(AK, args, pre, n_kernel=20, n_plain=3):
+def time_fixed(AK, args, pre, n_kernel=20, n_plain=3, **kw):
+    """(kernel ms per solve, CUDA events; plain ms per solve, wall);
+    ``kw`` goes to the kernel's wrapper (``cluster``); ``n_plain=0`` times
+    the kernel only."""
     import torch
 
     for _ in range(3):
-        AK.apg_solve_kernel(*args, precond=pre)
+        AK.apg_solve_kernel(*args, precond=pre, **kw)
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(n_kernel):
-        AK.apg_solve_kernel(*args, precond=pre)
+        AK.apg_solve_kernel(*args, precond=pre, **kw)
     e1.record()
     torch.cuda.synchronize()
     k_ms = e0.elapsed_time(e1) / n_kernel
+    if not n_plain:
+        return k_ms, None
     t = time.perf_counter()
     for _ in range(n_plain):
         AK.apg_solve_plain(*args, precond=pre)[0].yk.cpu()
@@ -777,20 +799,71 @@ def phase_particle_parity(dev) -> dict:
         b = load_mpc_from_cfgfile(os.path.join(ROOT, f"configs/{name}.yaml"), device=dev)[3]
         x0, x_ref, u_prev, u_init = problem(b, dev)
         apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
-        for P, chunk in ((8, 0), (64, 16)):
-            z = brownian(P, dev)
-            tag = f"{name} P={P} chunk={chunk or P}"
+        # one chunk; 4 chunks; 3 chunks (a cluster of 3); 32 antithetic
+        # chunks (more chunks than blocks)
+        for P, chunk, anti in ((8, 0, False), (64, 16, False), (96, 32, False),
+                               (1024, 0, True)):
+            z = brownian(P, dev, antithetic=anti)
+            tag = f"{name} P={P}{' antithetic' if anti else ''} chunk={chunk or 'auto'}"
             oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
                      z, P, b.apg_config.maxls)
             kern = CO.cost_oracle(*oargs, chunk=chunk)
             plain = CO.cost_oracle_plain(*oargs, chunk=chunk)
-            for kernel, e in particle_oracle_parity(kern, plain, plans(4, P, dev), tag).items():
+            U = plans(4, P, dev)
+            for kernel, e in particle_oracle_parity(kern, plain, U, tag).items():
                 err[kernel] = max(err[kernel], e)
+            one = CO.cost_oracle(*oargs, chunk=chunk, cluster=1)
+            (v_c, g_c), (v_1, g_1) = kern.value_and_grad(U[1]), one.value_and_grad(U[1])
+            dg = float((g_c - g_1).abs().max())
+            log(f"value_and_grad {tag}, its cluster against C = 1: |dv| "
+                f"{abs(float(v_c - v_1)):.3e}, max|dg| {dg:.3e} (1e-6; equal bits expected)")
+            if not (abs(float(v_c - v_1)) <= 1e-6 * abs(float(v_1))
+                    and bool(torch.allclose(g_c, g_1, rtol=1e-6, atol=0))):
+                raise AssertionError(f"value_and_grad moves with its cluster size ({tag})")
             args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
                     z, P, b.lb, b.ub, u_init)
             err["apg_solve"] = max(err["apg_solve"],
                                    particle_solve_parity(AK, b, args, chunk, tag)[0])
+            cluster_vs_one(AK, args, chunk, b.precond, tag)
     return err
+
+
+def cluster_vs_one(AK, args, chunk: int, pre, tag: str) -> dict:
+    """A particle solve at its chosen cluster and at C = 1 (one block
+    sweeping every chunk): equal steps, max|du| and the relative
+    ``opt_cost`` gap within 1e-6 (equal bits expected: the blocks sum the
+    chunks' partials in chunk order). Returns the plan of the chosen
+    cluster and both results."""
+    import ctypes
+
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    st_c, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk)
+    st_1, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk, cluster=1)
+    torch.cuda.synchronize()
+    model, params, cp, apg, ts, x0, x_ref, u_prev, _, P, lb, ub, _ = args
+    _, a = build_consts(model, params, cp, apg, ts, x0, x_ref, u_prev, lb, ub,
+                        has_pre=pre is not None)
+    AK.plan_solve_particles(a, P, chunk)
+    lib = AK.load_apg_library()
+    n = ctypes.c_int(0)
+    rc = lib.apg_max_active_clusters(ctypes.byref(a), ctypes.byref(n))
+    out = {"cluster": a.cluster, "chunks_per_block": a.chunks_per_block, "Pc": a.Pc,
+           "n_chunks": a.n_chunks, "c_max": lib.apg_cluster_max(a.sc_kind, 0),
+           "max_active_clusters": n.value if rc == 0 else f"error {rc}",
+           "steps": (int(st_c.num_steps), int(st_1.num_steps)),
+           "du": float((st_c.yk - st_1.yk).abs().max()),
+           "dc": abs(float(st_c.opt_cost) - float(st_1.opt_cost)) / abs(float(st_1.opt_cost))}
+    log(f"particle solve {tag}, cluster C={a.cluster} (C_max {out['c_max']}, "
+        f"{a.chunks_per_block} chunk(s) per block of {a.n_chunks} of Pc={a.Pc}; "
+        f"cudaOccupancyMaxActiveClusters {out['max_active_clusters']}) against C = 1: steps "
+        f"{out['steps'][0]} / {out['steps'][1]}; max|du| {out['du']:.3e}, opt_cost rel "
+        f"{out['dc']:.3e} (1e-6; equal bits expected)")
+    if not (out["steps"][0] == out["steps"][1] and out["du"] <= 1e-6 and out["dc"] <= 1e-6):
+        raise AssertionError(f"the particle solve moves with its cluster size ({tag})")
+    return out
 
 
 def particle_oracle_parity(kern, plain, U, tag: str, what: str = "particle oracle") -> dict:
@@ -935,9 +1008,14 @@ def phase_particle_flight(dev, card: str) -> dict:
         AK, b, args, 0, f"iris_traj_mpc P={P_FULL} antithetic")
     out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=5,
                                                         n_plain=2)
+    out["fixed_ms_c1"] = time_fixed(AK, args, b.precond, n_kernel=3, n_plain=0, cluster=1)[0]
     log(f"fixed 5-iteration P={P_FULL} traj solve ({card}): kernel {out['fixed_ms']:.3f} ms "
-        f"(CUDA events, mean of 5, solve + trajectory), plain {out['fixed_plain_ms']:.3f} ms "
-        f"(wall, mean of 2)")
+        f"(CUDA events, mean of 5, solve + trajectory; {out['fixed_ms_c1']:.3f} ms at C = 1, "
+        f"mean of 3), plain {out['fixed_plain_ms']:.3f} ms (wall, mean of 2)")
+    out["cluster"] = cluster_vs_one(AK, args, 0, b.precond,
+                                    f"iris_traj_mpc P={P_FULL} antithetic, 5 iterations")
+    out["split"] = particle_phase_split(AK, args, b.precond, card,
+                                        f"the fixed 5-iteration P={P_FULL} traj solve")
 
     _, a = build_consts(b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref,
                         u_prev, b.lb, b.ub, has_pre=b.precond is not None)
@@ -952,6 +1030,38 @@ def phase_particle_flight(dev, card: str) -> dict:
     log(f"chunks at P={P_FULL}: whole solve Pc={a.Pc} ({a.n_chunks} chunks), apg_smem_bytes "
         f"{out['smem']} (budget {AK.SMEM_LIMIT_PARTICLES}); oracle Pc={o.Pc}, "
         f"value_batch {out['oracle_smem'][0]} B, value_and_grad {out['oracle_smem'][1]} B")
+    return out
+
+
+def particle_phase_split(AK, args, pre, card: str, what: str) -> dict:
+    """The phase split of one particle solve without state constraints
+    through the kernel's clock-stamped instantiation (``apg_phase_split``):
+    each phase's share of the solve's SM cycles (thread 0's stamps) on
+    cluster rank 0 and on the last rank, and rank 0's shares of the
+    solve's device span (CUDA events around the solve and its
+    ``trajectory`` launch) per APG iteration."""
+    import torch
+
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    st, _ = AK.apg_phase_split(*args, precond=pre)
+    e1.record()
+    torch.cuda.synchronize()
+    rows = AK.apg_phase_split.cycles.view(-1, 8).cpu().tolist()
+    span, steps = e0.elapsed_time(e1), float(st.num_steps)
+    names = AK.PART_PHASES
+    out = {"iterations": steps, "device_ms": span, "ranks": {}}
+    for row in rows:
+        share = {k: row[i] / row[6] for i, k in enumerate(names)}
+        out["ranks"][int(row[7])] = {"cycles": row[6], "share": share}
+        log(f"phase split of {what} ({card}; clock-stamped instantiation, thread 0 of rank "
+            f"{int(row[7])}): {steps:.0f} iterations, {span:.3f} ms device span, {row[6]} "
+            "cycles; " + "; ".join(f"{k} {100 * v:.1f} % ({v * span / steps:.4f} "
+                                    f"ms/iteration)" for k, v in share.items()))
+        if abs(sum(share.values()) - 1.0) > 0.01 or steps < 1:
+            raise AssertionError(f"the particle phase split does not cover the solve: {share}")
+    out["iteration_ms"] = {k: v * span / steps
+                           for k, v in out["ranks"][int(rows[0][7])]["share"].items()}
     return out
 
 
@@ -996,7 +1106,37 @@ def phase_particle_oracle(dev, card: str) -> dict:
                      per_launch_ms(lambda: call(plain), 3))
         log(f"{name}{' K=4' if name == 'value_batch' else ''} at P={P_FULL} per launch "
             f"({card}): kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms (CUDA events)")
+    one = CO.cost_oracle(*oargs, cluster=1)
+    out["value_and_grad_c1"] = per_launch_ms(lambda: one.value_and_grad(u), 5)
+    out["iteration_ms"] = statistics.median(m / max(k, 1) for m, k in zip(ms, rows[:, -1]))
+    out["plan"] = oracle_plan(b, dev, P_FULL)
+    log(f"value_and_grad at P={P_FULL} on its cluster of {out['plan']['cluster']} blocks "
+        f"({out['plan']['chunks_per_block']} chunk(s) each, C_max {out['plan']['c_max']}): "
+        f"{out['value_and_grad'][0]:.4f} ms per launch, {out['value_and_grad_c1']:.4f} ms at "
+        f"C = 1 ({card}); the route's wall time per iteration p50 "
+        f"{out['iteration_ms']:.3f} ms")
     return out
+
+
+def oracle_plan(b, dev, P: int, constrained: bool = False) -> dict:
+    """The chunk and cluster the oracle's ``value_and_grad`` takes for b at
+    P particles."""
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    x0, x_ref, u_prev, _ = constrained_problem(b) if constrained else problem(b, dev)
+    _, o = build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref,
+                        u_prev)
+    lib = CO.load_oracle_library()
+    CO.plan_oracle_particles(lib, o, P, 0)
+    n = ctypes.c_int(0)
+    rc = lib.value_and_grad_max_active_clusters(ctypes.byref(o), ctypes.byref(n))
+    return {"Pc": o.Pc, "cluster": o.cluster, "chunks_per_block": o.chunks_per_block,
+            "c_max": lib.value_and_grad_cluster_max(o.sc_kind),
+            "max_active_clusters": n.value if rc == 0 else f"error {rc}"}
 
 
 def constrained_config(form: str, **mut) -> dict:
@@ -1112,9 +1252,11 @@ def smem_bytes(b, dev, P: int = 1, K: int = 64) -> dict:
         AK.plan_solve_particles(a, P, 0)
         CO.plan_oracle_particles(olib, o, P, 0)
     return {"apg_solve": lib.apg_smem_bytes(ctypes.byref(a)), "apg_Pc": a.Pc,
+            "apg_cluster": (a.cluster, a.chunks_per_block),
             "value_batch": olib.value_batch_smem_bytes(ctypes.byref(o), K),
             "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(o)),
-            "trajectory": olib.trajectory_smem_bytes(ctypes.byref(o)), "oracle_Pc": o.Pc}
+            "trajectory": olib.trajectory_smem_bytes(ctypes.byref(o)), "oracle_Pc": o.Pc,
+            "oracle_cluster": (o.cluster, o.chunks_per_block)}
 
 
 def phase_constraint_parity(dev) -> dict:
@@ -1184,7 +1326,9 @@ def phase_constraint_parity(dev) -> dict:
     timed = time_fixed(AK, args, None, n_kernel=5, n_plain=2)
     log(f"fixed 5-iteration floor solve at P={P_FLOOR}: kernel {timed[0]:.3f} ms (CUDA "
         f"events, mean of 5, solve + trajectory), plain {timed[1]:.3f} ms (wall, mean of 2); "
-        f"whole solve Pc={smem['floor']['apg_Pc']}, apg_smem_bytes {smem['floor']['apg_solve']}")
+        f"whole solve Pc={smem['floor']['apg_Pc']}, apg_smem_bytes {smem['floor']['apg_solve']}, "
+        f"(cluster, chunks per block) {smem['floor']['apg_cluster']}; value_and_grad "
+        f"{smem['floor']['oracle_cluster']}")
     return {"err": err, "smem": smem, "floor": (timed, steps, b)}
 
 
@@ -1292,6 +1436,7 @@ def phase_constrained_flight(dev, card: str) -> dict:
     torch.cuda.synchronize()
     out["launches"]["floor"] = check_route(f"floor P={P_FLOOR}", {
         "apg_solve": 3, "value_batch": 0, "value_and_grad": 0, "trajectory": 3})
+    out["floor_ms"] = ms
     log(f"altitude-floor route at P={P_FLOOR} antithetic through mpc_fn ({card}): 3 chained "
         f"solves at {rows[:, -1].tolist()} iterations, "
         f"{np.array2string(np.array(ms), precision=1)} ms wall")
@@ -1392,8 +1537,10 @@ def phase_constrained_oracle(dev, card: str) -> dict:
     k = int(rows[:, -1].sum())
     out["launches"][("fixed_step", "floor")] = check_route(f"floor fixed-step P={P_FLOOR}", {
         "apg_solve": 0, "value_batch": k, "value_and_grad": k + 4, "trajectory": 2})
+    out["floor_iteration_ms"] = statistics.median(m / max(k, 1) for m, k in zip(ms, rows[:, -1]))
     log(f"floor fixed-step route at P={P_FLOOR}: 2 chained solves at "
-        f"{rows[:, -1].tolist()} iterations, {np.array2string(np.array(ms), precision=1)} ms")
+        f"{rows[:, -1].tolist()} iterations, {np.array2string(np.array(ms), precision=1)} ms "
+        f"({out['floor_iteration_ms']:.3f} ms wall per iteration p50)")
     b = floor_mpc(cfg, dev)[3]
     x0, x_ref, u_prev, _ = constrained_problem(b)
     oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
@@ -1500,6 +1647,12 @@ def main() -> int:
               solve_ms_p50=flight["wall_ms"], device_ms_p50=flight["device_ms"],
               iterations=flight["steps"], iteration_ms=flight["iter_ms"],
               Pc=flight["Pc"], smem_bytes=flight["smem"],
+              cluster=flight["cluster"]["cluster"],
+              chunks_per_block=flight["cluster"]["chunks_per_block"],
+              cluster_max=flight["cluster"]["c_max"],
+              max_active_clusters=flight["cluster"]["max_active_clusters"],
+              fixed_budget_ms_cluster_1=flight["fixed_ms_c1"],
+              phase_split_iteration_ms=flight["split"]["iteration_ms"],
               p512anti_family_launches=family_launches["apg_solve"]),
     ] + [entry(name, "P=1", launches[name], oracle_err[name], timing[name][0], timing[name][1],
                bound(b_pos, name, nc_pos, K=64 if name == "value_batch" else 1),
@@ -1509,7 +1662,13 @@ def main() -> int:
               part_oracle[name][0], part_oracle[name][1],
               bound(b_pos, name, nc_pos, P=P_FULL, K=4 if name == "value_batch" else 1),
               timed=f"per launch at P={P_FULL} antithetic"
-                    + (", K=4" if name == "value_batch" else ""), Pc=flight["oracle_Pc"])
+                    + (", K=4" if name == "value_batch" else ""), Pc=flight["oracle_Pc"],
+              **({} if name == "value_batch" else {
+                  "cluster": part_oracle["plan"]["cluster"],
+                  "chunks_per_block": part_oracle["plan"]["chunks_per_block"],
+                  "cluster_max": part_oracle["plan"]["c_max"],
+                  "ms_cluster_1": part_oracle["value_and_grad_c1"],
+                  "iteration_ms": part_oracle["iteration_ms"]}))
         for name in ("value_batch", "value_and_grad")] + [
         entry("trajectory", f"x_evol of the P={P_FULL} route (mean dynamics)",
               flight["launches"]["trajectory"], flight["max_dx"], timing["trajectory"][0],
@@ -1539,7 +1698,10 @@ def main() -> int:
                              K=4, iters=f_steps),
         timed=f"fixed {f_steps}-iteration solve with its trajectory launch",
         form="penalty", P=P_FLOOR,
-        Pc=smem["floor"]["apg_Pc"], smem_bytes=smem["floor"]["apg_solve"]))
+        Pc=smem["floor"]["apg_Pc"], smem_bytes=smem["floor"]["apg_solve"],
+        cluster=smem["floor"]["apg_cluster"][0],
+        chunks_per_block=smem["floor"]["apg_cluster"][1], iteration_ms=f_ms / f_steps,
+        solve_ms_p50=statistics.median(cflight["floor_ms"][1:])))
     for name in ("value_batch", "value_and_grad", "trajectory"):
         for form in SC_FORMS:
             b = cflight["fixed"][form][1]
@@ -1564,7 +1726,11 @@ def main() -> int:
             ms, plain_ms, bound(b, name, n_consts(b, dev, True), P=P_FLOOR, K=1),
             timed="per launch" + (", K=1" if name == "value_batch" else ""),
             form="penalty", P=P_FLOOR,
-            Pc=smem["floor"]["oracle_Pc"], smem_bytes=smem["floor"][name]))
+            Pc=smem["floor"]["oracle_Pc"], smem_bytes=smem["floor"][name],
+            **({"cluster": smem["floor"]["oracle_cluster"][0],
+                "chunks_per_block": smem["floor"]["oracle_cluster"][1],
+                "iteration_ms": coracle["floor_iteration_ms"]}
+               if name == "value_and_grad" else {})))
     print(json.dumps({"kernels": kernels, "solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
         "fixed_step": timing["fixed_step"][0],

@@ -39,13 +39,13 @@
 // MLP), serial over the H steps of the horizon and over up to max_iter
 // iterations; the whole working set is ~45 KB. At P=512 and K=4 an
 // iteration is ~0.9 GFLOP (2,048 candidate rows, 512 forward and 512
-// reverse rows, the reverse re-running the trunk), all of it on the one
-// SM of the block. What the design does about it: everything (consts,
-// iterates, the state stash, a chunk's rows) lives in shared memory for the
-// whole solve, so the loop touches device memory only for the noise rows
-// (L2-resident, 532 KB at P=512), the K linesearch candidates are rows of
-// one batched rollout, and the loop exits on the device. No allocation, no
-// host round trip, one launch per solve.
+// reverse rows, the reverse re-running the trunk), spread over the SMs of
+// a cluster, one chunk of Pc rows at a time on each. What the design does
+// about it: everything (consts, iterates, the state stash, a chunk's rows)
+// lives in shared memory for the whole solve, so the loop touches device
+// memory only for the noise rows (L2-resident, 532 KB at P=512), the K
+// linesearch candidates are rows of one batched rollout, and the loop exits
+// on the device. No allocation, no host round trip, one launch per solve.
 //
 // The P=1 forms shorten the serial chain of a step (sweeps.cuh, p1_rollout
 // / p1_reverse): the trunk weights sit in registers for the whole solve;
@@ -58,19 +58,38 @@
 // particle form keeps the generic shared-memory trunk: it takes dynamic
 // shared memory above 48 KB (up to 227 KB, set once per library load by
 // apg_init), which sets the chunk: the wrapper takes the largest divisor Pc
-// of P whose layout fits (Pc = 32 at P=512, K=4, iris widths). Spreading the
-// particles over a cluster or the grid is later work. The constraint terms
-// add per-row scalar arithmetic to each step's serial chain and no memory
-// traffic (their constants sit in shared memory with the rest); the
-// proximal form's wider rows (nZ = 10 on the shipped iris config) take the
-// P=1 layout past the 48 KB default, so the constrained P=1 forms take
-// dynamic shared memory above it too (set once per library load by
-// apg_init).
+// of P whose layout fits (Pc = 32 at P=512, K=4, iris widths). Its chunks
+// run on a thread-block cluster, one block per SM (the 227 KB block fills
+// its SM): C = min(n_chunks, 16 or 8) blocks, block `rank` sweeping chunks
+// rank, rank + C, ..., each keeping its chunks' partials (the gradient
+// share, the vg costs, the K candidates' means) apart in its shared memory;
+// after each sweep every block sums all chunks' partials in chunk order
+// through distributed shared memory (sweeps.cuh, cluster_chunk_sum), so
+// every C gives the bits of C = 1 and every block holds the same gradient
+// and costs. The loop then runs alike in every block of the cluster: the
+// trial step, the candidates, the Armijo accept, the momentum and the stops
+// on identical data, so every block leaves the loop on the same iteration;
+// rank 0 writes the outputs. Two reductions per iteration, each between two
+// cluster barriers. The candidate rows' step (K*Pc rows, the largest)
+// computes the trunk's products as register tiles (sweeps.cuh::rows_gemm: a
+// thread holds up to 4 rows x 4 units of sums, so each shared-memory load
+// feeds up to 4 products), with the sums in the order of a thread per
+// output. The vg sweep keeps a thread per output: its tiled form moved the
+// last bits of some gradients on the P=512 route, and with them the chained
+// solves' iteration counts. The constraint terms add per-row scalar
+// arithmetic to each step's serial chain and no memory traffic (their
+// constants sit in shared memory with the rest); the proximal form's wider
+// rows (nZ = 10 on the shipped iris config) take the P=1 layout past the
+// 48 KB default, so the constrained P=1 forms take dynamic shared memory
+// above it too (set once per library load by apg_init).
 //
 // Control flow is block-uniform: every loop decision (done, accepted step,
 // restart) is computed by thread 0 into shared memory, followed by
 // __syncthreads(), and only then read by all threads. Every
-// __syncthreads() below is reached by all threads.
+// __syncthreads() below is reached by all threads. In the particle form it
+// is cluster-uniform: each block's thread 0 decides on the same reduced
+// values, so every cluster barrier is reached by every thread of every
+// block.
 //
 // Numerics: fp32 throughout, no fast-math. The step, sweep and cost device
 // code lives in sweeps.cuh, shared with the cost-oracle kernels. The Armijo
@@ -99,6 +118,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
   const int HZ = a.H * a.nZ;
   const int B = part ? a.Pc : 1;              // vg rows per pass
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
+  const int ldh = part ? tiled_ld(a) : a.HID;  // hidden row stride (tiled candidates)
   int o = 0;
   auto take = [&](float** p, int n) {
     if (!part) o = (o + 3) & ~3;
@@ -121,7 +141,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
   // the P=1 forms keep a row's state, features, outputs and their
   // cotangents in registers (sweeps.cuh, p1_rollout / p1_reverse)
   if (part) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
-  take(&t->a0, R * a.HID); take(&t->a1, R * a.HID);
+  take(&t->a0, R * ldh); take(&t->a1, R * ldh);
   if (part) take(&t->a2, R * a.OUT);
   take(&t->jt, R); take(&t->jr, R);
   if (part) take(&t->ct, B * 13);
@@ -134,13 +154,20 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
     take(&t->cacc, 2 * a.K);
     take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
     take(&t->w2t, a.OUT * a.HID);
+    // the chunk partials of this block (vg: gradient and 2 costs; the K
+    // candidates' 2K means)
+    take(&t->pg, a.chunks_per_block * (HZ + 2));
+    take(&t->pk, a.chunks_per_block * 2 * a.K);
   }
   return o;
 }
 
-// PROF (only <false, CONSTR_NONE>, apg_solve_prof_launch): thread 0 stamps
-// clock64() at the phase boundaries (sweeps.cuh, PH_*) and writes the
-// per-phase cycle sums and the solve's cycles to prof_out (int64 (8,)).
+// PROF (only <PART, CONSTR_NONE>, apg_solve_prof_launch): thread 0 stamps
+// clock64() at the phase boundaries (sweeps.cuh, PH_* at P=1, PP_* in the
+// particle form) and writes the per-phase cycle sums and the solve's cycles
+// to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
+// last rank (both from the one block at P=1); each row's last entry is the
+// block's rank.
 template <bool PART, int SC, bool PROF = false>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -156,6 +183,11 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
+  // the block's rank in its cluster (0 at P=1: one block); only rank 0
+  // writes the outputs
+  int rank = 0;
+  if constexpr (PART) rank = (int)cg::this_cluster().block_rank();
+  constexpr int LOOP = PART ? (int)PP_LOOP : (int)PH_LOOP;    // the loop's stamp
   long long t_start = 0;
   if constexpr (PROF) {
     __shared__ long long prof[PH_N + 1];
@@ -172,7 +204,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   if constexpr (PART) transpose_weights(a, s);
   else W = load_p1_weights(a, c);
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC>(a, s, &S.fval, U, noise);
+    if constexpr (PART) vg_part<SC, PROF>(a, s, &S.fval, U, noise);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -189,16 +221,16 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
   __syncthreads();
 
-  prof_stamp<PROF>(s, PH_LOOP);
+  prof_stamp<PROF>(s, LOOP);
   value_grad(s.u);
   for (int e = tid; e < HZ; e += nt) s.gp[e] = s.g[e];
   if (tid == 0) { S.f0 = S.fval; S.f_u = S.fval; S.best_f = S.fval; }
   __syncthreads();
 
   while (S.k < S.kmax && !S.done) {
-    prof_stamp<PROF>(s, PH_LOOP);
+    prof_stamp<PROF>(s, LOOP);
     value_grad(s.y);                              // f_y in S.fval, grad in s.g
-    prof_stamp<PROF>(s, PH_LOOP);
+    prof_stamp<PROF>(s, LOOP);
 
     // ---- trial stepsize
     if (a.reset_opt == 2) {
@@ -232,7 +264,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC>(a, s, K, noise);
+      cand_part<SC, true, PROF>(a, s, K, noise);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -324,11 +356,12 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   // trajectory kernel)
   value_grad(s.bu);
   if (warp == 0) warp_reduce_to(HZ, [&](int e) { return s.g[e] * s.g[e]; }, s.red + 0);
-  for (int e = tid; e < HZ; e += nt) yk[e] = s.bu[e];
+  if (rank == 0)
+    for (int e = tid; e < HZ; e += nt) yk[e] = s.bu[e];
   if constexpr (!PART)
     for (int e = tid; e < (a.H + 1) * 13; e += nt) x_evol[e] = s.xs[e];
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     const float n_steps = fmaxf((float)S.k, 1.f);
     stats[0] = (float)S.k;
     stats[1] = S.t;
@@ -338,11 +371,18 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     stats[5] = S.f0;
     stats[6] = S.best_f;
     stats[7] = 0.f;
-    if constexpr (PROF) {
-      prof_stamp<PROF>(s, PH_LOOP);
-      for (int i = 0; i < PH_N; ++i) prof_out[i] = s.prof[i];
-      prof_out[PH_N] = clock64() - t_start;
-      prof_out[PH_N + 1] = 0;
+  }
+  if constexpr (PROF) {
+    if (tid == 0) {
+      prof_stamp<PROF>(s, LOOP);
+      const long long total = clock64() - t_start;
+      for (int row = 0; row < 2; ++row) {
+        if (rank != (row == 0 ? 0 : a.cluster - 1)) continue;
+        long long* out = prof_out + row * (PH_N + 2);
+        for (int i = 0; i < PH_N; ++i) out[i] = s.prof[i];
+        out[PH_N] = total;
+        out[PH_N + 1] = rank;
+      }
     }
   }
 }
@@ -351,21 +391,37 @@ int dyn_bytes(const ApgArgs& a) {
   return layout(a, a.has_noise != 0, nullptr, nullptr) * (int)sizeof(float);
 }
 
-template <bool PART, int SC>
-void launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
-            const float* u_init, const float* t0, const float* precond,
-            const float* noise, float* yk, float* stats, float* x_evol) {
-  apg_solve_kernel<PART, SC><<<1, PART ? APG_NTHREADS_PART : APG_NTHREADS, dyn, st>>>(
-      a, consts, u_init, t0, precond, noise, yk, stats, x_evol, nullptr);
+// One launch: P=1 one block; the particle form one cluster of a.cluster
+// blocks (cudaLaunchKernelEx, whose error a cluster the card cannot
+// schedule returns).
+template <bool PART, int SC, bool PROF = false>
+cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
+                   const float* u_init, const float* t0, const float* precond,
+                   const float* noise, float* yk, float* stats, float* x_evol,
+                   long long* prof) {
+  if constexpr (PART) {
+    ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st);
+    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF>, a, consts, u_init,
+                              t0, precond, noise, yk, stats, x_evol, prof);
+  } else {
+    apg_solve_kernel<false, SC, PROF><<<1, APG_NTHREADS, dyn, st>>>(
+        a, consts, u_init, t0, precond, noise, yk, stats, x_evol, prof);
+    return cudaSuccess;
+  }
 }
 
 // The instantiation for [has_noise][sc_kind].
-using LaunchFn = void (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
-                          const float*, const float*, const float*, const float*,
-                          float*, float*, float*);
+using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
+                                 const float*, const float*, const float*, const float*,
+                                 float*, float*, float*, long long*);
 const LaunchFn kLaunch[2][3] = {
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
     {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>}};
+
+// The largest cluster of each particle form [sc_kind] and of the
+// clock-stamped one (apg_init; 0 before it).
+int g_cmax[3] = {0, 0, 0};
+int g_cmax_prof = 0;
 
 }  // namespace
 
@@ -375,17 +431,32 @@ int apg_args_size() { return (int)sizeof(ApgArgs); }
 
 // Let the particle forms and the constrained P=1 forms take dynamic shared
 // memory up to the card's 227 KB less their static shared memory (the
-// unconstrained P=1 form stays inside the 48 KB default). Called once when
-// the library is loaded; returns a cudaError_t.
+// unconstrained P=1 form stays inside the 48 KB default), and find each
+// particle form's largest cluster (sweeps.cuh::cluster_max). Called once
+// when the library is loaded; returns a cudaError_t.
 int apg_init() {
-  const cudaError_t errs[] = {allow_large_smem(apg_solve_kernel<true, CONSTR_NONE>),
-                              allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY>),
-                              allow_large_smem(apg_solve_kernel<true, CONSTR_PROX>),
-                              allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
-                              allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>)};
+  const cudaError_t errs[] = {
+      allow_large_smem(apg_solve_kernel<true, CONSTR_NONE>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_PROX>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, true>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>),
+      cluster_max(apg_solve_kernel<true, CONSTR_NONE>, APG_NTHREADS_PART, &g_cmax[0]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY>, APG_NTHREADS_PART, &g_cmax[1]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PROX>, APG_NTHREADS_PART, &g_cmax[2]),
+      cluster_max(apg_solve_kernel<true, CONSTR_NONE, true>, APG_NTHREADS_PART,
+                  &g_cmax_prof)};
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;
+}
+
+// The largest cluster the particle form of sc_kind takes (prof: the
+// clock-stamped one, CONSTR_NONE only).
+int apg_cluster_max(int sc_kind, int prof) {
+  if (sc_kind < CONSTR_NONE || sc_kind > CONSTR_PROX) return 0;
+  return prof ? g_cmax_prof : g_cmax[sc_kind];
 }
 
 // Shared memory the kernel needs for these dimensions (dynamic + static).
@@ -393,14 +464,29 @@ int apg_smem_bytes(const ApgArgs* a) {
   return dyn_bytes(*a) + (int)sizeof(Scal);
 }
 
+// cudaOccupancyMaxActiveClusters of the particle form for a's dimensions
+// and cluster size, into *n; returns a cudaError_t.
+int apg_max_active_clusters(const ApgArgs* a, int* n) {
+  using Fn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                      const float*, float*, float*, float*, long long*);
+  const Fn fns[3] = {apg_solve_kernel<true, CONSTR_NONE>,
+                     apg_solve_kernel<true, CONSTR_PENALTY>,
+                     apg_solve_kernel<true, CONSTR_PROX>};
+  if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)max_active_clusters(fns[a->sc_kind], a->cluster, APG_NTHREADS_PART,
+                                  (size_t)dyn_bytes(*a), n);
+}
+
 const char* apg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // The arguments a launch takes (a refused launch returns
-// cudaErrorInvalidValue and runs nothing).
+// cudaErrorInvalidValue and runs nothing); cmax: the particle form's largest
+// cluster.
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
-                      const void* x_evol) {
+                      const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
   const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
                                                       : APG_SMEM_LIMIT;
@@ -409,45 +495,48 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
            (a->has_pre && precond == nullptr) ||
            (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
-                    a->Pc * a->n_chunks != a->P)
-                 : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1)));
+                    a->Pc * a->n_chunks != a->P || !cluster_args_ok(*a, cmax))
+                 : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1 ||
+                    a->cluster != 1 || a->chunks_per_block != 1)));
 }
 
 // Launch one solve on `stream`. noise is the (H, P, 13) Brownian block when
 // a->has_noise (else unused, may be null); x_evol (H+1, 13) is written only
 // by the deterministic form. u_init, precond and yk are (H, nZ). Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
-// the kernel does not take, among them P=1 trunk widths other than
-// HID = P1_HID and F <= P1_FMAX).
+// the launch's error (cudaErrorInvalidValue for arguments the kernel does
+// not take, among them P=1 trunk widths other than HID = P1_HID and
+// F <= P1_FMAX, and a particle launch whose cluster fields are no plan of
+// its chunks; the cluster launch's own error where the card cannot
+// schedule the cluster).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
                      void* yk, void* stats, void* x_evol, void* stream) {
-  if (!launch_ok(a, precond, noise, x_evol)) return (int)cudaErrorInvalidValue;
-  const size_t dyn = (size_t)dyn_bytes(*a);
-  const cudaStream_t st = (cudaStream_t)stream;
-  kLaunch[a->has_noise != 0][a->sc_kind](
-      *a, dyn, st, (const float*)consts, (const float*)u_init, (const float*)t0,
-      (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
-      (float*)x_evol);
-  return (int)cudaGetLastError();
+  if (a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
+      !launch_ok(a, precond, noise, x_evol, g_cmax[a->sc_kind]))
+    return (int)cudaErrorInvalidValue;
+  return launch_error(kLaunch[a->has_noise != 0][a->sc_kind](
+      *a, (size_t)dyn_bytes(*a), (cudaStream_t)stream, (const float*)consts,
+      (const float*)u_init, (const float*)t0, (const float*)precond, (const float*)noise,
+      (float*)yk, (float*)stats, (float*)x_evol, nullptr));
 }
 
-// The deterministic solve without state constraints through the
-// clock-stamped instantiation (apg_solve_kernel<false, CONSTR_NONE, true>),
-// for measurement: as apg_solve_launch, plus prof (int64 (8,)): the cycles
-// of the PH_* phases, then of the whole solve.
+// A solve without state constraints through the clock-stamped
+// instantiation (apg_solve_kernel<PART, CONSTR_NONE, true>; P=1 or
+// particles), for measurement: as apg_solve_launch, plus prof (int64
+// (2, 8)): per stamped rank the cycles of the PH_* (P=1) or PP_* (particle)
+// phases, of the whole solve, and the rank.
 int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_init,
                           const void* t0, const void* precond, const void* noise,
                           void* yk, void* stats, void* x_evol, void* prof, void* stream) {
-  if (a->has_noise || a->sc_kind != CONSTR_NONE || prof == nullptr ||
-      !launch_ok(a, precond, noise, x_evol))
+  if (a->sc_kind != CONSTR_NONE || prof == nullptr ||
+      !launch_ok(a, precond, noise, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
-  apg_solve_kernel<false, CONSTR_NONE, true><<<1, APG_NTHREADS, (size_t)dyn_bytes(*a),
-                                               (cudaStream_t)stream>>>(
-      *a, (const float*)consts, (const float*)u_init, (const float*)t0,
-      (const float*)precond, (const float*)noise, (float*)yk, (float*)stats,
-      (float*)x_evol, (long long*)prof);
-  return (int)cudaGetLastError();
+  const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>
+                                   : &launch<false, CONSTR_NONE, true>;
+  return launch_error(fn(*a, (size_t)dyn_bytes(*a), (cudaStream_t)stream,
+                         (const float*)consts, (const float*)u_init, (const float*)t0,
+                         (const float*)precond, (const float*)noise, (float*)yk,
+                         (float*)stats, (float*)x_evol, (long long*)prof));
 }
 
 }  // extern "C"

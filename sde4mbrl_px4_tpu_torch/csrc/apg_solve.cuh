@@ -46,7 +46,18 @@ struct ApgArgs {
   // block (penm, invm, the state ids as floats; m each) or of the penalty
   // block (pen13 with constr_pen folded in, lo13, hi13, inv13; 13 each).
   int sc_kind, m, o_penm, o_invm, o_sid, o_pen13, o_lo13, o_hi13, o_inv13;
+  // The particle forms of the whole solve and of value_and_grad: one
+  // thread-block cluster of `cluster` blocks per launch; block `rank`
+  // sweeps chunks rank, rank + cluster, ... (at most chunks_per_block of
+  // them). 1 and 1 elsewhere.
+  int cluster, chunks_per_block;
 };
+
+// The largest cluster the particle forms take: 16 blocks where the card
+// schedules one at the form's block size and shared memory (a non-portable
+// size), else the portable 8 (sweeps.cuh::cluster_max).
+#define CLUSTER_MAX 16
+#define CLUSTER_PORTABLE 8
 
 // The state-constraint forms, a template parameter of the kernels so that
 // the unconstrained forms compile to the code they had without them.

@@ -36,10 +36,13 @@
 // K > 128 to XLA only because of its VMEM; here a tile's 41 KB fits the
 // default 48 KB). With particles each candidate is a block of its own that
 // sweeps its P particles Pc rows at a time (K blocks in parallel), and
-// value_and_grad sweeps them chunk by chunk in one block; both take dynamic
-// shared memory above 48 KB (set once per library load by
-// cost_oracle_init), and the wrapper picks the largest divisor Pc of P
-// whose layouts fit. trajectory is one block. The constraint terms add
+// value_and_grad spreads its chunks over a thread-block cluster, one block
+// per SM, as the whole-solve kernel does (sweeps.cuh::vg_part: each block
+// sweeps chunks rank, rank + C, ..., and every block sums all chunks'
+// partials in chunk order through distributed shared memory; rank 0 writes
+// the value and the gradient); both take dynamic shared memory above 48 KB
+// (set once per library load by cost_oracle_init), and the wrapper picks
+// the largest divisor Pc of P whose layouts fit. trajectory is one block. The constraint terms add
 // per-row scalar work to each step and no memory traffic; at nZ > n_u a
 // value_batch tile shrinks below 16 rows where its wider rows would pass
 // 48 KB (16 rows of nZ = 10 still fit, at 48.7 KB).
@@ -106,6 +109,8 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
     }
   }
   if (part) take(&t->cacc, 2 * R);
+  // the chunk partials of a value_and_grad block (gradient and 2 costs)
+  if (part && kind == ORACLE_VALUE_AND_GRAD) take(&t->pg, a.chunks_per_block * (HZ + 2));
   return o;
 }
 
@@ -188,12 +193,15 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block(a, s, 1, consts, u);
+  int rank = 0;                       // the block's rank in its cluster
   if constexpr (PART) {
+    rank = (int)cg::this_cluster().block_rank();
     transpose_weights(a, s);
     vg_part<SC>(a, s, &fval, s.cand, noise);
   } else {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   }
+  if (rank != 0) return;
   for (int e = tid; e < a.H * a.nZ; e += nt) grad[e] = s.g[e];
   if (tid == 0) *val = fval;
 }
@@ -238,15 +246,25 @@ const ValueBatchFn kValueBatch[2][3] = {
     {launch_value_batch<true, CONSTR_NONE>, launch_value_batch<true, CONSTR_PENALTY>,
      launch_value_batch<true, CONSTR_PROX>}};
 
+// P=1 one block; particles one cluster of a.cluster blocks
+// (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
+// returns).
 template <bool PART, int SC>
-void launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
-                           const float* consts, const float* u, const float* noise,
-                           float* val, float* grad) {
-  value_and_grad_kernel<PART, SC><<<1, PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
-                                    dyn, st>>>(a, consts, u, noise, val, grad);
+cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
+                                  const float* consts, const float* u, const float* noise,
+                                  float* val, float* grad) {
+  if constexpr (PART) {
+    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st);
+    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC>, a, consts, u, noise,
+                              val, grad);
+  } else {
+    value_and_grad_kernel<false, SC><<<1, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise,
+                                                                     val, grad);
+    return cudaSuccess;
+  }
 }
-using ValueAndGradFn = void (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
-                                const float*, const float*, float*, float*);
+using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
+                                       const float*, const float*, float*, float*);
 const ValueAndGradFn kValueAndGrad[2][3] = {
     {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
      launch_value_and_grad<false, CONSTR_PROX>},
@@ -259,6 +277,10 @@ bool particles_ok(const ApgArgs* a, const void* noise) {
   return noise != nullptr && a->Pc >= 1 && a->n_chunks >= 1 &&
          a->Pc * a->n_chunks == a->P;
 }
+
+// The largest cluster of each particle value_and_grad form [sc_kind]
+// (cost_oracle_init; 0 before it).
+int g_cmax[3] = {0, 0, 0};
 
 }  // namespace
 
@@ -280,10 +302,33 @@ int cost_oracle_init() {
       allow_large_smem(value_batch_kernel<true, CONSTR_PROX>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>)};
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>),
+      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, ORACLE_NTHREADS_PART, &g_cmax[0]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, ORACLE_NTHREADS_PART,
+                  &g_cmax[1]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, ORACLE_NTHREADS_PART,
+                  &g_cmax[2])};
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;
+}
+
+// The largest cluster of the particle value_and_grad of sc_kind.
+int value_and_grad_cluster_max(int sc_kind) {
+  return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX ? g_cmax[sc_kind] : 0;
+}
+
+// cudaOccupancyMaxActiveClusters of the particle value_and_grad for a's
+// dimensions and cluster size, into *n; returns a cudaError_t.
+int value_and_grad_max_active_clusters(const ApgArgs* a, int* n) {
+  using Fn = void (*)(ApgArgs, const float*, const float*, const float*, float*, float*);
+  const Fn fns[3] = {value_and_grad_kernel<true, CONSTR_NONE>,
+                     value_and_grad_kernel<true, CONSTR_PENALTY>,
+                     value_and_grad_kernel<true, CONSTR_PROX>};
+  if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)max_active_clusters(fns[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
+                                  (size_t)dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, true), n);
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -302,7 +347,9 @@ int value_and_grad_smem_bytes(const ApgArgs* a) {
 // U is (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read
 // only when a->has_noise; may be null otherwise); outputs are (K,),
 // (H+1, 13), () and (H, nZ). The P=1 value_and_grad takes the trunk
-// widths of the register layout only (HID = P1_HID, F <= P1_FMAX).
+// widths of the register layout only (HID = P1_HID, F <= P1_FMAX); the
+// particle one a's cluster plan of its chunks, and returns the cluster
+// launch's own error where the card cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
                        const void* U, const void* noise, void* out, void* stream) {
   if (!args_ok(a) || !particles_ok(a, noise) || K < 1 ||
@@ -331,13 +378,13 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, void* val, void* grad, void* stream) {
   if (!args_ok(a) || !particles_ok(a, noise) ||
       (!a->has_noise && (a->HID != P1_HID || a->F > P1_FMAX)) ||
+      (a->has_noise && !cluster_args_ok(*a, g_cmax[a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  kValueAndGrad[a->has_noise != 0][a->sc_kind](
+  return launch_error(kValueAndGrad[a->has_noise != 0][a->sc_kind](
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
-      (const float*)noise, (float*)val, (float*)grad);
-  return (int)cudaGetLastError();
+      (const float*)noise, (float*)val, (float*)grad));
 }
 
 }  // extern "C"

@@ -22,7 +22,9 @@
 //   - vg / vg_part: value and gradient of one plan (bodies.py::vg_sweep),
 //     deterministic (P=1) and over P particles in chunks (K11, :638-661);
 //   - cand_part: K candidates x P particles in chunks, the particle mean
-//     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765).
+//     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765);
+//   - cluster_chunk_sum: the chunk partials of a thread-block cluster
+//     summed in chunk order through distributed shared memory.
 //
 // Every function works on shared-memory scratch described by Smem; each
 // kernel carves its own layout and sets the fields the functions it calls
@@ -37,6 +39,18 @@
 // means over the chunk's rows, then means over chunks (mean of chunk means,
 // as the TPU kernel reduces), and the particle-form loops run rows over the
 // threads, so R may exceed blockDim.
+//
+// The particle forms of the whole solve and of value_and_grad spread the
+// chunks over a thread-block cluster (ApgArgs::cluster blocks, one per SM):
+// block `rank` sweeps chunks rank, rank + cluster, ..., and keeps each
+// chunk's partials (its share of the gradient, g_u / n_chunks, and of the
+// costs) apart. After a cluster barrier every block sums the partials of
+// all chunks in chunk order 0 .. n_chunks-1, read from their blocks' shared
+// memory (cluster_chunk_sum): the summation order of a one-block serial
+// chunk loop and of the TPU kernel's fori_loop (bodies.py:650-657), so
+// every cluster size gives the same bits, and every block holds the same
+// reduced values. value_batch keeps its one block per candidate
+// (cand_part<SC, false>).
 //
 // State constraints (the state_constr block; bodies.py:188-206 and their
 // reverse, which the TPU kernel gets by tracing jax.vjp, apg_kernel.py:
@@ -56,12 +70,15 @@
 // max(x,0)+log1p(exp(-|x|)) and the sigmoid 1/(1+exp(-x)), as in JAX.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "apg_solve.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kG = 9.81f;
 
@@ -86,6 +103,9 @@ struct Smem {
   float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
                                    // transposed weights (particle reverse)
   float *red;                      // (32,) reduction results
+  float *pg;                       // (chunks_per_block, H*nZ + 2) a block's vg
+                                   // chunk partials: gradient, tracking, sigma
+  float *pk;                       // (chunks_per_block, 2K) its candidate ones
   float *wr;                       // (H, 4) wrench of the vg row per step (P=1)
   long long *prof;                 // (PH_N + 1,) phase cycles (apg_solve_prof_launch)
 };
@@ -189,14 +209,79 @@ __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
   if (lane == 0) *out = acc;
 }
 
+// The row stride of the hidden activations s.a0 and s.a1 in the tiled
+// candidate step: HID + 1, so rows a few apart fall in different
+// shared-memory banks when a warp reads them.
+__host__ __device__ __forceinline__ int tiled_ld(const ApgArgs& a) { return a.HID + 1; }
+
+// epi(r, n, A[r] . W[:, n]) for r < R, n < N: A is (R, Kd) at row stride
+// lda, W (Kd, N) row-major, both in shared memory. Each thread takes a tile
+// of TR rows and TJ columns (columns jt + NJ*c, so a warp reads consecutive
+// columns of W, and a row of A at one address), holding its TR x TJ sums in
+// registers: one load of A and one of W feed TJ and TR products. Each sum
+// runs over k = 0 .. Kd-1 in order from 0.f, as a thread per output does,
+// so the result has its bits.
+template <int TR, int TJ, class Epi>
+__device__ __forceinline__ void tile_gemm(int R, int N, int Kd, const float* A, int lda,
+                                          const float* W, Epi epi) {
+  const int NJ = (N + TJ - 1) / TJ, NR = (R + TR - 1) / TR;
+  for (int t = threadIdx.x; t < NR * NJ; t += blockDim.x) {
+    const int jt = t % NJ, r0 = (t / NJ) * TR;
+    const float* ar[TR];
+    int col[TJ];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) ar[i] = A + min(r0 + i, R - 1) * lda;
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) col[c] = min(jt + NJ * c, N - 1);
+    float acc[TR][TJ];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int c = 0; c < TJ; ++c) acc[i][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < Kd; ++k) {
+      const float* w = W + k * N;
+      float wv[TJ];
+#pragma unroll
+      for (int c = 0; c < TJ; ++c) wv[c] = w[col[c]];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float av = ar[i][k];
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) acc[i][c] += av * wv[c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int c = 0; c < TJ; ++c)
+        if (r0 + i < R && jt + NJ * c < N) epi(r0 + i, jt + NJ * c, acc[i][c]);
+  }
+}
+
+// tile_gemm with the tile that keeps the block's threads busy: 4 x 4 where
+// there are 16 outputs per thread, 2 x 2 where there are 2, else one output
+// per thread.
+template <class Epi>
+__device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, int lda,
+                                          const float* W, Epi epi) {
+  const int outs = R * N, nt = blockDim.x;
+  if (outs >= 16 * nt) tile_gemm<4, 4>(R, N, Kd, A, lda, W, epi);
+  else if (outs >= 2 * nt) tile_gemm<2, 2>(R, N, Kd, A, lda, W, epi);
+  else tile_gemm<1, 1>(R, N, Kd, A, lda, W, epi);
+}
+
 // The network for R rows: features (body-frame velocity, rates, gravity
 // direction, motors), the two swish layers and the output layer into
 // s.feat, s.a0, s.a1, s.a2. Row r's state is x[r*13..]. With PART = false
 // (the P=1 rows of value_batch and trajectory) row r is thread r < R and its
 // controls are U[r*ustride ..]; with PART = true rows run over the threads,
 // row r's controls are U[(r % K)*ustride ..], and a stash (bwd_rows) records
-// the R rows' hidden pre-activations (idx = r*HID + j).
-template <bool PART>
+// the R rows' hidden pre-activations (idx = r*HID + j). TILED (the
+// candidate rows of the whole solve's cluster form): the three products as
+// register tiles (rows_gemm), s.a0 and s.a1 at row stride tiled_ld; the
+// same sums in the same order.
+template <bool PART, bool TILED = false>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
                       float* st_h1p) {
@@ -222,6 +307,28 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
   }
   __syncthreads();
   const float* w0 = c + a.o_w0; const float* b0 = c + a.o_b0;
+  if constexpr (TILED) {
+    const int ld = tiled_ld(a);
+    const float* w1 = c + a.o_w1; const float* b1 = c + a.o_b1;
+    const float* w2 = c + a.o_w2; const float* b2 = c + a.o_b2;
+    rows_gemm(R, HID, F, s.feat, F, w0, [&](int r, int j, float acc) {
+      const float pre = acc + b0[j];
+      s.a0[r * ld + j] = pre * sigm(pre);
+      if (st_h0p) st_h0p[r * HID + j] = pre;
+    });
+    __syncthreads();
+    rows_gemm(R, HID, HID, s.a0, ld, w1, [&](int r, int j, float acc) {
+      const float pre = acc + b1[j];
+      s.a1[r * ld + j] = pre * sigm(pre);
+      if (st_h1p) st_h1p[r * HID + j] = pre;
+    });
+    __syncthreads();
+    rows_gemm(R, OUT, HID, s.a1, ld, w2, [&](int r, int o, float acc) {
+      s.a2[r * OUT + o] = acc + b2[o];
+    });
+    __syncthreads();
+    return;
+  }
   for (int idx = tid; idx < R * HID; idx += nt) {
     const int r = idx / HID, j = idx - r * HID;
     const float* f = s.feat + r * F;
@@ -430,11 +537,13 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // PART adds the Brownian term (em_step): row r's draws are z[(r / K)*13 ..]
 // (its particle; rows are particle-major). SC adds the state-constraint
 // terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
-template <bool PART, int SC>
+// TILED: the trunk's register-tiled products (the whole solve's candidate
+// rows, cand_part<SC, true>).
+template <bool PART, int SC, bool TILED = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
                          float* xn, int t) {
-  trunk<PART>(a, s, R, U, ustride, K, x, nullptr, nullptr);
+  trunk<PART, TILED>(a, s, R, U, ustride, K, x, nullptr, nullptr);
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int OUT = a.OUT;
@@ -661,13 +770,13 @@ __device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
 // trunk forward, from the stashed states xs[t], into s.p0 / s.p1 / s.a2.
 // Each row is seeded with d_t/Pc (the chunk's cost is the mean over its
 // rows; z: the chunk's draws at step t). Updates the row cotangents s.ct
-// (R, 13) and adds the chunk's control gradient, summed over its rows and
-// divided by n_chunks, to s.g[t*nZ ..] (the slack columns' gradient rides
-// in s.cu[r*nZ + n_u ..] in the proximal form). Needs transpose_weights
-// first.
+// (R, 13) and writes the chunk's control gradient, summed over its rows and
+// divided by n_chunks, to gout[t*nZ ..] (its partial; the slack columns'
+// gradient rides in s.cu[r*nZ + n_u ..] in the proximal form). Needs
+// transpose_weights first.
 template <int SC>
 __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
-                         const float* __restrict__ z, int t) {
+                         const float* __restrict__ z, int t, float* gout) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int R = a.Pc, F = a.F, HID = a.HID, OUT = a.OUT, nZ = a.nZ;
@@ -716,7 +825,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   if (tid < nZ) {
     float acc = 0.f;
     for (int r = 0; r < R; ++r) acc += s.cu[r * nZ + tid];
-    s.g[t * nZ + tid] = s.g[t * nZ + tid] + acc / (float)a.n_chunks;
+    gout[t * nZ + tid] = acc / (float)a.n_chunks;
   }
   __syncthreads();
 }
@@ -799,6 +908,12 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
 // since the previous stamp to s.prof[ph]; s.prof[PH_N] holds the last stamp.
 enum { PH_FWD_TRUNK = 0, PH_FWD_SCALAR, PH_BWD_SCALAR, PH_BWD_TRUNK, PH_CAND, PH_LOOP,
        PH_N };
+// ... and of the particle form (every block stamps; ranks 0 and cluster-1
+// write theirs): the vg chunks' forward and reverse sweeps, the candidate
+// chunks' rollouts, the cluster reductions with the wait at their barriers,
+// the rest of the loop.
+enum { PP_VG_FWD = 0, PP_VG_BWD, PP_CAND, PP_RED, PP_LOOP, PP_N };
+static_assert((int)PP_N <= (int)PH_N, "the particle phases share the stamp buffer");
 template <bool PROF>
 __device__ __forceinline__ void prof_stamp(const Smem& s, int ph) {
   if constexpr (PROF) {
@@ -1112,22 +1227,46 @@ __device__ __forceinline__ void vg(const ApgArgs& a, const Smem& s, const P1W& W
   __syncthreads();
 }
 
+// Every block of the cluster: out(e, v) for e < n, v the sum over the
+// chunks ch = 0 .. n_chunks-1, in that order, of element e of chunk ch's
+// partial, part[(ch / cluster) * n + e] in the shared memory of block
+// ch % cluster (the blocks share one layout, so `part` is the same offset
+// in each). Opens with a cluster barrier (every partial written) and closes
+// with one (no block overwrites a partial, or exits, while another still
+// reads it).
+template <class Out>
+__device__ __forceinline__ void cluster_chunk_sum(const ApgArgs& a, float* part, int n,
+                                                  Out out) {
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < a.n_chunks; ++ch)
+      acc += cl.map_shared_rank(part, (unsigned)(ch % a.cluster))[(ch / a.cluster) * n + e];
+    out(e, acc);
+  }
+  cl.sync();
+}
+
 // Value and gradient of the iterate U over P particles (the noise branch of
-// bodies.py::vg_sweep with its chunk loop, K11 :638-661): per chunk of Pc
-// rows a forward sweep into the state stash s.xs (H+1, Pc, 13) and the
-// reverse sweep bwd_rows; the rollout costs are means over the chunk's rows,
-// averaged over the chunks into s.cacc[0..2), and the chunks' control
-// gradients are averaged into s.g; the closed-form control gradient and the
-// control-only terms are added once. noise: the (H, P, 13) Brownian block.
-template <int SC>
+// bodies.py::vg_sweep with its chunk loop, K11 :638-661), by every block of
+// a cluster: per chunk of this block, Pc rows, a forward sweep into the
+// state stash s.xs (H+1, Pc, 13) and the reverse sweep bwd_rows, the
+// chunk's control gradient / n_chunks and its rows' mean costs / n_chunks
+// into its partial (s.pg); then the partials of all chunks summed in chunk
+// order (cluster_chunk_sum) into s.g and s.cacc[0..2), and the closed-form
+// control gradient and the control-only terms added once. Every block ends
+// with the same s.g and *fval. noise: the (H, P, 13) Brownian block.
+template <int SC, bool PROF = false>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         const float* __restrict__ noise) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const float* c = s.c;
-  const int HZ = a.H * a.nZ, R = a.Pc;
-  for (int e = tid; e < HZ; e += nt) s.g[e] = 0.f;
-  if (tid < 2) s.cacc[tid] = 0.f;
-  for (int ch = 0; ch < a.n_chunks; ++ch) {
+  const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2;
+  const int rank = (int)cg::this_cluster().block_rank();
+  for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
+    float* part = s.pg + j * W;
     for (int e = tid; e < R * 13; e += nt) {
       s.xs[e] = c[a.o_x0 + e % 13];
       s.ct[e] = 0.f;
@@ -1138,15 +1277,23 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     for (int t = 0; t < a.H; ++t)
       fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
                      s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
-    for (int t = a.H - 1; t >= 0; --t) bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t);
+    prof_stamp<PROF>(s, PP_VG_FWD);
+    for (int t = a.H - 1; t >= 0; --t)
+      bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
+    prof_stamp<PROF>(s, PP_VG_BWD);
     if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
     if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
     __syncthreads();
     if (tid == 0) {
-      s.cacc[0] = s.cacc[0] + s.red[3] / (float)R / (float)a.n_chunks;
-      s.cacc[1] = s.cacc[1] + s.red[4] / (float)R / (float)a.n_chunks;
+      part[HZ] = s.red[3] / (float)R / (float)a.n_chunks;
+      part[HZ + 1] = s.red[4] / (float)R / (float)a.n_chunks;
     }
   }
+  cluster_chunk_sum(a, s.pg, W, [&](int e, float v) {
+    if (e < HZ) s.g[e] = v;
+    else s.cacc[e - HZ] = v;
+  });
+  prof_stamp<PROF>(s, PP_RED);
   for (int e = tid; e < HZ; e += nt) {
     const int t = e / a.nZ, i = e - t * a.nZ;
     s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
@@ -1168,29 +1315,44 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // (bodies.py::candidate_rollout/run_candidates, :694-765): per chunk, K*Pc
 // rows, particle-major (row i = p*K + k), through the horizon from x0; the
 // particle mean of each candidate's tracking and sigma costs, a mean of
-// chunk means, lands in s.cacc[k] and s.cacc[K + k].
-template <int SC>
+// chunk means, lands in s.cacc[k] and s.cacc[K + k]. CLUSTER (the whole
+// solve): this block's chunks of a cluster, each chunk's means / n_chunks
+// into its partial (s.pk), summed in chunk order by cluster_chunk_sum;
+// otherwise (value_batch) one block walks every chunk, accumulating.
+template <int SC, bool CLUSTER = false, bool PROF = false>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
                           const float* __restrict__ noise) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
-  if (tid < 2 * K) s.cacc[tid] = 0.f;
-  for (int ch = 0; ch < a.n_chunks; ++ch) {
+  int rank = 0, stride = 1;
+  if constexpr (CLUSTER) {
+    rank = (int)cg::this_cluster().block_rank();
+    stride = a.cluster;
+  } else if (tid < 2 * K) {
+    s.cacc[tid] = 0.f;
+  }
+  for (int ch = rank, j = 0; ch < a.n_chunks; ch += stride, ++j) {
     for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
     for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
     __syncthreads();
     const float* zc = noise + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true, SC>(a, s, R, s.cand + t * a.nZ, HZ, K, zc + (size_t)t * a.P * 13,
-                     s.xr, s.xr, t);
+      fwd_step<true, SC, CLUSTER>(a, s, R, s.cand + t * a.nZ, HZ, K,
+                                  zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
+    prof_stamp<PROF>(s, PP_CAND);
     if (tid < 2 * K) {
       const int k = tid < K ? tid : tid - K;
-      const float* j = tid < K ? s.jt : s.jr;
+      const float* jr = tid < K ? s.jt : s.jr;
       float acc = 0.f;
-      for (int p = 0; p < Pc; ++p) acc += j[p * K + k];
-      s.cacc[tid] = s.cacc[tid] + acc / (float)Pc / (float)a.n_chunks;
+      for (int p = 0; p < Pc; ++p) acc += jr[p * K + k];
+      if constexpr (CLUSTER) s.pk[j * 2 * K + tid] = acc / (float)Pc / (float)a.n_chunks;
+      else s.cacc[tid] = s.cacc[tid] + acc / (float)Pc / (float)a.n_chunks;
     }
     __syncthreads();
+  }
+  if constexpr (CLUSTER) {
+    cluster_chunk_sum(a, s.pk, 2 * K, [&](int e, float v) { s.cacc[e] = v; });
+    prof_stamp<PROF>(s, PP_RED);
   }
 }
 
@@ -1205,6 +1367,71 @@ cudaError_t allow_large_smem(Kernel* fn) {
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               APG_SMEM_LIMIT_PARTICLES - (int)fa.sharedSizeBytes);
+}
+
+// A launch of `fn` as one cluster of C blocks of `threads` threads with
+// `dyn` bytes of dynamic shared memory each.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(int C, int threads, size_t dyn, cudaStream_t st) : cfg(), attr() {
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = dyn;
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// A launcher's result: the launch's own error, else cudaGetLastError()
+// (which it clears).
+inline int launch_error(cudaError_t launched) {
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
+}
+
+// How many clusters of C blocks of `fn` (threads, dyn as above) the card
+// can hold at once (cudaOccupancyMaxActiveClusters); 0 where none fits.
+template <class Kernel>
+cudaError_t max_active_clusters(Kernel* fn, int C, int threads, size_t dyn, int* n) {
+  ClusterLaunch l(C, threads, dyn, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, (const void*)fn, &l.cfg);
+}
+
+// Let a particle form launch as a cluster of more than the portable 8
+// blocks, and return in *cmax the largest it takes: CLUSTER_MAX (16) if the
+// card schedules one such cluster at the form's block size and its largest
+// dynamic shared memory (allow_large_smem first), else CLUSTER_PORTABLE.
+// Called once per library load.
+template <class Kernel>
+cudaError_t cluster_max(Kernel* fn, int threads, int* cmax) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  int n = 0;
+  const size_t dyn = (size_t)(APG_SMEM_LIMIT_PARTICLES - (int)fa.sharedSizeBytes);
+  if (max_active_clusters(fn, CLUSTER_MAX, threads, dyn, &n) != cudaSuccess) {
+    (void)cudaGetLastError();                // a size the card refuses: not an error here
+    n = 0;
+  }
+  *cmax = n >= 1 ? CLUSTER_MAX : CLUSTER_PORTABLE;
+  return cudaSuccess;
+}
+
+// Whether a particle launch's cluster fields are a plan of its chunks: C
+// blocks, 1 <= C <= cmax and C <= n_chunks, each block at least one chunk
+// and at most chunks_per_block.
+inline bool cluster_args_ok(const ApgArgs& a, int cmax) {
+  return a.cluster >= 1 && a.cluster <= cmax && a.cluster <= a.n_chunks &&
+         a.chunks_per_block == (a.n_chunks + a.cluster - 1) / a.cluster;
 }
 
 }  // namespace

@@ -16,9 +16,13 @@ A deterministic P=1 solve (the flight configs) is one launch, whose exit
 sweep exports ``x_evol``. A Monte-Carlo solve (``num_particles`` P > 1,
 ``noise`` the (P, H, 13) Brownian block) minimises the particle-mean cost:
 one launch of the kernel's particle form, which sweeps the particles in
-chunks (``chunk``, or the largest divisor of P whose shared memory fits),
-then one launch of the oracle's ``trajectory`` kernel for the mean-dynamics
-``x_evol``, as in the original (``engine/mpc_loader.py:745-751``).
+chunks (``chunk``, or the largest divisor of P whose shared memory fits)
+spread over a thread-block cluster of C = min(n_chunks, C_max) blocks, one
+per SM (C_max 16 where the card schedules such a cluster, else 8;
+``cluster`` caps C, for measurement), then one launch of the oracle's
+``trajectory`` kernel for the mean-dynamics ``x_evol``, as in the original
+(``engine/mpc_loader.py:745-751``). Every C gives the same bits: the
+blocks sum the chunks' partials in chunk order.
 
 State constraints (``state_constr``, either form) are a compile-time branch
 of the kernel (``consts.py::sc_kind``): the penalty form's box penalties
@@ -34,8 +38,10 @@ kernel's launches.
 The P=1 forms hold the trunk in registers at fixed widths (64 hidden
 units, at most 16 inputs; ``consts.py::check_p1_widths``), which the card
 path checks before it builds anything. :func:`apg_phase_split` runs the
-same P=1 solve through the kernel's clock-stamped instantiation and
-returns the SM cycles of each of :data:`PHASES`, for measurement.
+same solve without state constraints (P=1 or particles) through the
+kernel's clock-stamped instantiation and returns the SM cycles of each of
+:data:`PHASES` (P=1) or :data:`PART_PHASES` (particles), for
+measurement.
 """
 from __future__ import annotations
 
@@ -57,13 +63,18 @@ from sde4mbrl_px4_tpu_torch.solver.apg import (
     APGConfig, APGState, apg_solve, resolve_t_init)
 
 __all__ = ["apg_solve_kernel", "apg_solve_plain", "apg_phase_split", "load_apg_library",
-           "plan_solve_particles", "PHASES", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
+           "plan_solve_particles", "PHASES", "PART_PHASES", "SMEM_LIMIT",
+           "SMEM_LIMIT_PARTICLES"]
 
 SMEM_LIMIT = 49152   # bytes of shared memory the unconstrained P=1 kernel may use (48 KB)
 # the clock64 phases of apg_phase_split, in the order of its cycle sums
 # (csrc/apg_solve.cu, PH_*)
 PHASES = ("forward trunk", "forward scalar step", "reverse scalar", "reverse trunk",
           "candidate rollout", "loop bookkeeping")
+# ... of a particle solve (csrc/sweeps.cuh, PP_*): the reductions include the
+# wait at their cluster barriers
+PART_PHASES = ("vg forward sweep", "vg reverse sweep", "candidate rollout",
+               "cluster reduction", "loop bookkeeping")
 _P = ctypes.c_void_p
 
 
@@ -83,6 +94,11 @@ def load_apg_library() -> ctypes.CDLL:
     lib.apg_solve_launch.restype = ctypes.c_int
     lib.apg_solve_prof_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 10
     lib.apg_solve_prof_launch.restype = ctypes.c_int
+    lib.apg_cluster_max.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.apg_cluster_max.restype = ctypes.c_int
+    lib.apg_max_active_clusters.argtypes = [ctypes.POINTER(ApgArgs),
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.apg_max_active_clusters.restype = ctypes.c_int
     if lib.apg_args_size() != ctypes.sizeof(ApgArgs):
         raise RuntimeError(
             f"ApgArgs ABI mismatch: library {lib.apg_args_size()} bytes, "
@@ -93,13 +109,22 @@ def load_apg_library() -> ctypes.CDLL:
     return lib
 
 
-def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int) -> None:
-    """Fill the particle fields of a solve's ``args``: ``chunk``, or the
-    largest divisor of P whose shared memory (``apg_smem_bytes``) fits the
-    227 KB budget of the particle form."""
+def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int,
+                         cluster: int = 0, prof: bool = False) -> None:
+    """Fill the particle and cluster fields of a solve's ``args``: ``chunk``,
+    or the largest divisor of P whose shared memory (``apg_smem_bytes``)
+    fits the 227 KB budget of the particle form; C = min(n_chunks, C_max)
+    blocks, C_max the form's largest cluster (``apg_cluster_max``; the
+    clock-stamped form's with ``prof``) or ``cluster`` when it is given."""
     lib = load_apg_library()
+    c_max = lib.apg_cluster_max(args.sc_kind, int(prof))
+    if cluster:
+        if not 1 <= cluster <= c_max:
+            raise ValueError(f"cluster={cluster}: the particle form takes 1 to {c_max} blocks")
+        c_max = cluster
     plan_particles(args, num_particles, chunk,
-                   lambda a: lib.apg_smem_bytes(ctypes.byref(a)), SMEM_LIMIT_PARTICLES)
+                   lambda a: lib.apg_smem_bytes(ctypes.byref(a)), SMEM_LIMIT_PARTICLES,
+                   c_max)
 
 
 def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
@@ -128,8 +153,10 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                     precond: Optional[torch.Tensor] = None,
                     iter_budget: Optional[int] = None,
-                    chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
-    """Plain PyTorch version of :func:`apg_solve_kernel` (any device)."""
+                    chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+    """Plain PyTorch version of :func:`apg_solve_kernel` (any device); the
+    particle mean is unchunked, so ``cluster`` (a launch detail) is
+    unused."""
     _check_scope(model, cp, apg, lb)
     oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
                                noise, num_particles, apg.maxls, chunk=chunk)
@@ -146,8 +173,9 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             stream: int, prof: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Allocate the outputs and launch one solve; returns (yk, stats,
-    x_evol), x_evol None for the particle form. With ``prof`` (int64 (8,))
-    the clock-stamped instantiation runs and writes its cycle sums there."""
+    x_evol), x_evol None for the particle form. With ``prof`` (int64
+    (2, 8)) the clock-stamped instantiation runs and writes its cycle sums
+    there."""
     limit = (SMEM_LIMIT_PARTICLES if args.has_noise or args.sc_kind != SC_NONE
              else SMEM_LIMIT)
     need = lib.apg_smem_bytes(ctypes.byref(args))
@@ -177,7 +205,7 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                      u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                      precond: Optional[torch.Tensor] = None,
                      iter_budget: Optional[int] = None,
-                     chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
+                     chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
     """One fused APG solve -> ``(APGState, x_evol)``.
 
     Inputs as ``pallas_apg_solve``: ``noise`` the (P, H, 13) Brownian block
@@ -186,23 +214,27 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     carried stepsize (non-positive -> ``init_stepsize``), ``precond`` an
     optional (H, nZ) diagonal metric,
     ``iter_budget`` an optional host-side iteration cap, ``chunk`` the
-    particle chunk (0: the largest divisor of P that fits). CPU tensors run
+    particle chunk (0: the largest divisor of P that fits), ``cluster`` the
+    most blocks of the particle form's cluster (0: the card's largest; 1
+    sweeps every chunk in one block, the same bits). CPU tensors run
     :func:`apg_solve_plain`.
     """
     dev = x0.device
     if dev.type == "cpu":
         return apg_solve_plain(model, params, cp, apg, time_steps, x0, x_ref,
                                u_prev, noise, num_particles, lb, ub, u_init,
-                               t_init, precond, iter_budget, chunk)
+                               t_init, precond, iter_budget, chunk, cluster)
     out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
-                         num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk)
+                         num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
+                         cluster)
     apg_solve_kernel.launches += 1
     return out
 
 
 def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                    num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                   prof: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
+                   cluster, prof: Optional[torch.Tensor] = None
+                   ) -> Tuple[APGState, torch.Tensor]:
     dev = x0.device
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_kernel: unsupported device {dev}")
@@ -227,7 +259,7 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                                 iter_budget=iter_budget)
     if z is not None:
         z = z.contiguous()
-        plan_solve_particles(args, P, chunk)
+        plan_solve_particles(args, P, chunk, cluster, prof is not None)
     t0 = resolve_t_init(apg, t_init, dev)
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
@@ -246,21 +278,24 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                     precond: Optional[torch.Tensor] = None,
                     iter_budget: Optional[int] = None,
-                    chunk: int = 0) -> Tuple[APGState, torch.Tensor]:
+                    chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
     """Measurement twin of :func:`apg_solve_kernel` (same arguments and
-    result) for a deterministic solve without state constraints: it runs
-    the clock-stamped instantiation of the kernel, whose thread 0 sums the
-    SM cycles of each of :data:`PHASES` over the solve into
-    ``apg_phase_split.cycles``, an int64 (8,) tensor on the card: the six
-    sums, then the cycles of the whole solve. Not counted in
-    ``apg_solve_kernel.launches``; CUDA tensors only."""
-    if num_particles != 1 or noise is not None or sc_kind(cp) != SC_NONE:
-        raise ValueError("apg_phase_split times the P=1 solve without state constraints")
-    prof = torch.zeros(8, dtype=torch.int64, device=x0.device)
+    result) for a solve without state constraints: it runs the
+    clock-stamped instantiation of the kernel, whose thread 0 sums the SM
+    cycles of each phase over the solve into ``apg_phase_split.cycles``, an
+    int64 tensor on the card. P=1: (8,), the sums of :data:`PHASES`, then
+    the cycles of the whole solve, then 0. Particles: (2, 8), a row for
+    cluster rank 0 and one for the last rank, each the sums of
+    :data:`PART_PHASES` (and an unused 0), the cycles of the whole solve,
+    then the rank. Not counted in ``apg_solve_kernel.launches``; CUDA
+    tensors only."""
+    if sc_kind(cp) != SC_NONE:
+        raise ValueError("apg_phase_split times a solve without state constraints")
+    prof = torch.zeros((2, 8), dtype=torch.int64, device=x0.device)
     out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                          num_particles, lb, ub, u_init, t_init, precond, iter_budget,
-                         chunk, prof)
-    apg_phase_split.cycles = prof
+                         chunk, cluster, prof)
+    apg_phase_split.cycles = prof if int(num_particles) > 1 else prof[0]
     return out
 
 

@@ -14,7 +14,10 @@ kernels (``csrc/cost_oracle.cu``), which read the same buffer and ignore
 the solver fields. The Monte-Carlo particles' Brownian block is not part of
 the buffer (at P=512 it is 532 KB, more than a block's shared memory): the
 kernels read it from device memory, and :func:`plan_particles` fills the
-particle fields (P, the chunk Pc, the number of chunks).
+particle fields (P, the chunk Pc, the number of chunks) and the cluster
+fields (:func:`plan_cluster`): the particle forms of the whole solve and of
+``value_and_grad`` run one thread-block cluster of ``cluster`` blocks per
+launch, block ``rank`` sweeping chunks ``rank, rank + cluster, ...``.
 
 State constraints (``solve_kernels.py:119-174``): ``sc_kind`` selects the
 kernels' compile-time form (:data:`SC_NONE`, :data:`SC_PENALTY`,
@@ -38,7 +41,7 @@ from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
 __all__ = ["APG_MAXK", "P1_FMAX", "P1_HID", "SMEM_LIMIT_PARTICLES", "SC_NONE",
            "SC_PENALTY", "SC_PROX", "ApgArgs", "build_consts", "check_p1_widths",
-           "plan_particles", "sc_kind"]
+           "plan_cluster", "plan_particles", "sc_kind"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 kernels hold the trunk in registers at these widths: hidden units,
@@ -63,6 +66,7 @@ _FLOAT_FIELDS = ("inc", "one_m_coef", "tmax", "beta_init", "moment_scale",
                  "atol", "rtol")
 _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
               "o_hi13", "o_inv13")
+_CLUSTER_FIELDS = ("cluster", "chunks_per_block")
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
 
@@ -70,7 +74,7 @@ class ApgArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
-                + [(n, ctypes.c_int) for n in _SC_FIELDS])
+                + [(n, ctypes.c_int) for n in _SC_FIELDS + _CLUSTER_FIELDS])
 
 
 def sc_kind(cp: CostParams) -> int:
@@ -159,7 +163,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
     a.H, a.n_u, a.nZ = H, n, nZ
     a.sc_kind, a.m = sc_kind(cp), nZ - n
-    a.P = a.Pc = a.n_chunks = 1
+    a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
     if apg is None:
@@ -184,18 +188,31 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     return buf, a
 
 
+def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:
+    """The cluster of a particle launch over ``n_chunks`` chunks: ``(C,
+    chunks_per_block)``, C = min(n_chunks, c_max) blocks (one cluster per
+    launch, so the grid is C blocks) and the most chunks a block sweeps."""
+    C = min(int(n_chunks), int(c_max))
+    if C < 1:
+        raise ValueError(f"a cluster of {n_chunks} chunks and at most {c_max} blocks")
+    return C, -(-int(n_chunks) // C)
+
+
 def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
-                   need: Callable[[ApgArgs], int], limit: int) -> None:
+                   need: Callable[[ApgArgs], int], limit: int, c_max: int = 1) -> None:
     """Fill the particle fields of ``a`` for a Monte-Carlo solve: P paths
-    swept in ``n_chunks`` passes of ``Pc`` rows. ``chunk`` is the one
+    swept in ``n_chunks`` passes of ``Pc`` rows, over a cluster of at most
+    ``c_max`` blocks (:func:`plan_cluster`). ``chunk`` is the one
     ``cost_oracle.resolve_particles`` checked: a divisor of P below P, or 0,
     which takes the largest divisor of P whose shared-memory ``need(a)``
-    (bytes) fits ``limit``. Raises ValueError when nothing fits."""
+    (bytes, the block's chunk partials included) fits ``limit``. Raises
+    ValueError when nothing fits."""
     P = int(num_particles)
     a.P, a.has_noise = P, 1
     sizes = [chunk] if chunk else [d for d in range(P, 0, -1) if P % d == 0]
     for pc in sizes:
         a.Pc, a.n_chunks = pc, P // pc
+        a.cluster, a.chunks_per_block = plan_cluster(a.n_chunks, c_max)
         if need(a) <= limit:
             return
     raise ValueError(f"P={P} in chunks of {a.Pc} needs {need(a)} bytes of "

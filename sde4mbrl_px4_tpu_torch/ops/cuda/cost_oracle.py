@@ -21,7 +21,10 @@ cost is the mean over the P Monte-Carlo paths of the Brownian block
 mean dynamics. ``chunk`` is taken and checked as in the original (it must
 divide P; ``P <= chunk`` turns it off): the kernels sweep the particles in
 chunks of that size, or, at 0, of the largest divisor of P that fits their
-shared memory. The plain version takes the unchunked mean, which the
+shared memory. ``value_and_grad`` spreads the chunks over a thread-block
+cluster of C = min(n_chunks, C_max) blocks (``cluster`` caps C, for
+measurement; every C gives the same bits), ``value_batch`` runs one block
+per candidate. The plain version takes the unchunked mean, which the
 chunked one equals in exact arithmetic.
 
 State constraints (``state_constr``, either form): the plans are the
@@ -75,6 +78,9 @@ def load_oracle_library() -> ctypes.CDLL:
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 5, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 6, ctypes.c_int),
+        "value_and_grad_cluster_max": ([ctypes.c_int], ctypes.c_int),
+        "value_and_grad_max_active_clusters": ([_A, ctypes.POINTER(ctypes.c_int)],
+                                               ctypes.c_int),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -259,14 +265,22 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     return val, grad
 
 
-def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int) -> None:
+def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
+                          cluster: int = 0) -> None:
     """The oracle's chunk: ``chunk``, or the largest divisor of P whose
-    ``value_batch`` and ``value_and_grad`` blocks both fit."""
+    ``value_batch`` and ``value_and_grad`` blocks both fit; and the cluster
+    of ``value_and_grad``: C = min(n_chunks, C_max), C_max its form's
+    largest (``value_and_grad_cluster_max``) or ``cluster`` when given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
-    plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES)
+    c_max = lib.value_and_grad_cluster_max(args.sc_kind)
+    if cluster:
+        if not 1 <= cluster <= c_max:
+            raise ValueError(f"cluster={cluster}: value_and_grad takes 1 to {c_max} blocks")
+        c_max = cluster
+    plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max)
 
 
 def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
@@ -294,11 +308,12 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                 time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
                 u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                 deterministic: Optional[bool] = None,
-                chunk: int = 0) -> CostOracle:
+                chunk: int = 0, cluster: int = 0) -> CostOracle:
     """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
     block of a Monte-Carlo solve (None for the mean dynamics of P=1);
-    ``maxls`` is unused, as in the original (``value_batch`` takes any K).
-    CPU tensors get :func:`cost_oracle_plain`."""
+    ``maxls`` is unused, as in the original (``value_batch`` takes any K);
+    ``cluster`` caps the particle ``value_and_grad``'s cluster (0: the
+    card's largest). CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
@@ -313,7 +328,7 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                                 u_prev)
     if z is not None:
         z = z.contiguous()
-        plan_oracle_particles(lib, args, P, chunk)
+        plan_oracle_particles(lib, args, P, chunk, cluster)
     return _checked(H, args.nZ, dev,
                     lambda U: value_batch_kernel(consts, args, U, z),
                     lambda u: value_and_grad_kernel(consts, args, u, z),

@@ -9,8 +9,9 @@ budgets with equal ``num_steps``; tolerances are the reference's own
 ``test_particle_kernel_matches_plain_on_cuda`` and
 ``test_constraint_kernel_matches_plain_on_cuda`` compare the hand-written
 CUDA kernel with the plain version on the card (P=1; P=8, P=64 in chunks of
-16 and P=512 antithetic; each state-constraint form at P=1 and at P=8 in
-chunks of 4) and skip without one;
+16, P=96 in chunks of 32, P=512 and P=1024 antithetic; each
+state-constraint form at P=1 and at P=8 in chunks of 4) and skip without
+one;
 ``test_shipped_constrained_config_runs_on_the_card_by_default`` loads the
 shipped constrained config with no device and solves it on the kernel."""
 import os
@@ -140,13 +141,16 @@ def test_kernel_matches_plain_on_cuda(repo_root, maxls):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P, chunk, antithetic", [(8, 0, False), (64, 16, False),
-                                                  (512, 0, True)])
+                                                  (512, 0, True), (1024, 0, True),
+                                                  (96, 32, False)])
 def test_particle_kernel_matches_plain_on_cuda(repo_root, P, chunk, antithetic):
     """The particle form of the whole-solve kernel against its plain version
     on the card, both iris configs, max_iter=10, the same torch draws: equal
     steps, yk at rtol 5e-4 / atol 5e-5, opt_cost at rel 5e-4
     (``tests/test_apg_kernel.py:100-105``); one solve launch and one
-    ``trajectory`` launch for x_evol, the mean rollout of the plan."""
+    ``trajectory`` launch for x_evol, the mean rollout of the plan. P=1024
+    puts more chunks than blocks in the cluster, P=96 in chunks of 32 a
+    cluster of 3; a cluster of one block gives the same plan (rtol 1e-6)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the kernel has no CPU mode")
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
@@ -177,6 +181,10 @@ def test_particle_kernel_matches_plain_on_cuda(repo_root, P, chunk, antithetic):
         ref = t_rollout_mean(b.model, b.params, x0, st_k.yk, b.time_steps)
         np.testing.assert_allclose(xe_k.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
+        st_1, _ = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk, cluster=1)
+        assert int(st_1.num_steps) == int(st_k.num_steps)
+        np.testing.assert_allclose(st_1.yk.cpu().numpy(), st_k.yk.cpu().numpy(),
+                                   rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

@@ -180,12 +180,15 @@ def test_kernels_match_plain_on_cuda(repo_root):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P, chunk, antithetic", [(8, 0, False), (64, 16, False),
-                                                  (512, 0, True)])
+                                                  (512, 0, True), (1024, 0, True),
+                                                  (96, 32, False)])
 def test_particle_kernels_match_plain_on_cuda(repo_root, P, chunk, antithetic):
     """The noise and chunk branches of ``value_batch`` (K=4) and
     ``value_and_grad`` against the plain particle oracle on the card, both
     iris configs, the same torch draws; ``trajectory`` stays the mean
-    rollout."""
+    rollout. ``value_and_grad`` runs its chunks on a cluster (P=1024: more
+    chunks than blocks; P=96 in chunks of 32: 3 blocks), and one block
+    gives the same numbers (rtol 1e-6)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the kernels have no CPU mode")
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
@@ -216,6 +219,9 @@ def test_particle_kernels_match_plain_on_cuda(repo_root, P, chunk, antithetic):
         torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
         torch.testing.assert_close(kern.trajectory(u), plain.trajectory(u),
                                    rtol=X_RTOL, atol=1e-6)
+        v1, g1 = CO.cost_oracle(*args, chunk=chunk, cluster=1).value_and_grad(u)
+        torch.testing.assert_close(v1, vk, rtol=1e-6, atol=0)
+        torch.testing.assert_close(g1, gk, rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@ versions), against the JAX package on the same Brownian draws.
 
 - ``draw_brownian``: one generator call, antithetic halves exact negatives,
   an odd antithetic P refused;
-- the chunk a particle launch takes (``plan_particles``);
+- the chunk a particle launch takes (``plan_particles``), its cluster
+  (``plan_cluster``: every chunk swept by one block) and the ``ApgArgs``
+  mirror of the kernels' header;
 - the plain oracle at P=4 against ``pallas_cost_oracle`` in interpret mode
   and the XLA oracle (``tests/test_pallas_kernels.py:98-104``): values rtol
   2e-5, gradients rtol 5e-4 / atol 5e-5;
@@ -117,6 +119,11 @@ def test_plan_particles_chunk_choice():
     a = ApgArgs()
     plan_particles(a, 512, 0, need, 40_000)
     assert (a.P, a.Pc, a.n_chunks, a.has_noise) == (512, 32, 16, 1)
+    assert (a.cluster, a.chunks_per_block) == (1, 16)          # c_max defaults to 1
+    plan_particles(a, 512, 0, need, 40_000, c_max=16)
+    assert (a.Pc, a.n_chunks, a.cluster, a.chunks_per_block) == (32, 16, 16, 1)
+    plan_particles(a, 1024, 0, need, 40_000, c_max=8)
+    assert (a.Pc, a.n_chunks, a.cluster, a.chunks_per_block) == (32, 32, 8, 4)
     plan_particles(a, 24, 0, need, 40_000)
     assert (a.Pc, a.n_chunks) == (24, 1)
     plan_particles(a, 64, 16, need, 40_000)
@@ -125,6 +132,63 @@ def test_plan_particles_chunk_choice():
         plan_particles(a, 64, 32, need, 20_000)
     with pytest.raises(ValueError, match="above the 500-byte budget"):
         plan_particles(a, 7, 0, need, 500)
+
+
+@pytest.mark.parametrize("c_max", [8, 16])
+@pytest.mark.parametrize("n_chunks", [1, 3, 4, 16, 32])
+def test_plan_cluster_covers_every_chunk_once(n_chunks, c_max):
+    """The cluster of a particle launch: C = min(n_chunks, C_max) blocks,
+    the grid one cluster of C; block ``rank`` sweeps chunks rank, rank + C,
+    ... (the device loop of ``csrc/sweeps.cuh::vg_part`` / ``cand_part``),
+    so every chunk has exactly one block, every block at least one chunk,
+    and none more than ``chunks_per_block``."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import plan_cluster
+
+    def cluster_chunks(rank):
+        return range(rank, n_chunks, C)
+
+    C, cpb = plan_cluster(n_chunks, c_max)
+    assert C == min(n_chunks, c_max)
+    grid = C                              # one cluster per launch
+    assert grid % C == 0
+    owner = {}
+    for rank in range(C):
+        mine = list(cluster_chunks(rank))
+        assert 1 <= len(mine) <= cpb
+        for ch in mine:
+            assert ch not in owner
+            owner[ch] = rank
+    assert sorted(owner) == list(range(n_chunks))
+    assert cpb == max(len(cluster_chunks(r)) for r in range(C))
+    with pytest.raises(ValueError):
+        plan_cluster(n_chunks, 0)
+
+
+def test_apg_args_mirror_the_header():
+    """``consts.ApgArgs`` mirrors ``csrc/apg_solve.cuh::ApgArgs`` field for
+    field, the cluster fields last; every field is 4 bytes, so the size is
+    4 bytes per field (the launchers' ``*_args_size()`` checks the same on
+    the card)."""
+    import ctypes
+    import re
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda.build import CSRC
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import APG_MAXK, ApgArgs
+
+    text = (CSRC / "apg_solve.cuh").read_text()
+    body = re.search(r"struct ApgArgs \{(.*?)\};", text, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    header = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            header += [n.strip().split("[")[0] for n in decl.split(None, 1)[1].split(",")]
+    python = [name for name, _ in ApgArgs._fields_]
+    assert python == header
+    assert python[-2:] == ["cluster", "chunks_per_block"]
+    assert ctypes.sizeof(ApgArgs) == 4 * (len(python) - 1 + APG_MAXK + 1)
+    a = ApgArgs()
+    assert (a.cluster, a.chunks_per_block) == (0, 0)
 
 
 @pytest.mark.parametrize("P, chunk, want", [(64, 16, 16), (16, 16, 0), (8, 16, None),

@@ -11,7 +11,8 @@ position-hold golden replay.
   whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
   never imports JAX;
 - particle configs and ``state_constr`` configs (both forms, APG and MPPI)
-  load and route to the kernel wrappers; configs outside the slice are
+  load and route to the kernel wrappers; configs outside the slice (the
+  hexa configs among them) are
   refused with the ROADMAP item that brings them, and the settings the
   original refuses (particle options, ``solver: policy`` with proximal
   slack) raise ValueError as there;
@@ -204,6 +205,16 @@ def test_policy_on_prox_config_is_refused(repo_root):
     cfg["solver"] = "policy"
     with pytest.raises(ValueError, match="does not support slack_proximal"):
         tloader.make_mpc_from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["hexa_posctrl_mpc", "hexa_traj_mpc",
+                                  "hexa_sitl_posctrl_mpc", "hexa_sitl_traj_mpc"])
+def test_hexa_configs_are_refused(repo_root, name):
+    """The 6-motor configs are refused, naming the ROADMAP item that brings
+    them: their kernel route has not run on the card."""
+    with pytest.raises(NotImplementedError, match="Hexa"):
+        tloader.load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
+                                      device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["load_mpc_from_cfgfile", "CompiledMPC",
