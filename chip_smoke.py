@@ -14,17 +14,24 @@ without a result):
 2. builds both kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc`` (one
    ``nvcc`` each, in parallel) and prints the build seconds and the
    compiler's register/spill/shared-memory summary per ``<PART, SC>`` form;
-   fails if a P=1 form of the whole solve or of ``value_and_grad`` (their
-   trunk lives in registers) spills; prints the registers and spills of the
-   cluster particle forms;
+   fails if a P=1 form on the register chain (the whole solve,
+   ``value_and_grad``, ``value_batch`` and ``trajectory``: their trunk lives
+   in registers) or a cluster form of ``value_batch`` spills; prints the
+   registers and spills of the cluster particle forms and of the
+   shared-memory step of ``value_batch`` and ``trajectory``;
 3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
    solve with its hover_diag metric), equal iteration counts, and
    ``x_evol`` against the mean rollout of the kernel's plan (rtol 1e-5);
 4. holds each cost-oracle kernel against the plain oracle on both iris
-   configs: ``value_batch`` at K = 1, 4, 64, 256 (rtol 2e-5),
-   ``value_and_grad`` (rtol 5e-4 / atol 5e-5), ``trajectory`` (rtol 1e-5);
+   configs: ``value_batch`` at K = 1, 4, 9, 17, 64, 256 (rtol 2e-5; 8
+   candidates per block), ``value_and_grad`` (rtol 5e-4 / atol 5e-5),
+   ``trajectory`` (rtol 1e-5); then ``value_batch`` (K = 1, 20, 64) and
+   ``trajectory`` on the trunk padded to 72 units, outside the register
+   layout (``goldens.padded_trunk``: 8 new units drawn like the shipped
+   ones, which move the costs ~1e-3 relative); the rows
+   per ``value_batch`` block against ``consts.value_batch_grid``;
 5. runs fixed-step APG (the configs without a linesearch block) over the
    kernel oracle and over the plain one at a fixed budget: equal
    iteration counts, rtol 2e-4 / atol 2e-5;
@@ -56,7 +63,8 @@ without a result):
     ``opt_cost`` rel 5e-4, as ``tests/test_apg_kernel.py:100-105``;
     ``x_evol`` the mean rollout of the plan); ``value_and_grad`` and the
     solve on their cluster against one block (``cluster=1``) within 1e-6,
-    equal steps (equal bits expected);
+    equal steps (equal bits expected), ``value_batch`` (K = 4, 9) on its
+    grid of clusters against one block per candidate with equal bits;
 11. the ``p512anti`` solver family (4 solves, max_iter 6, P=512
     antithetic) through the kernels and through the plain version with the
     same draws: |du| <= 5e-4, the golden's own tolerance, equal steps;
@@ -72,20 +80,24 @@ without a result):
     (``particle_phase_split``: the clock-stamped particle instantiation on
     cluster ranks 0 and 15); the chosen chunk and shared memory;
 13. the fixed-step route at P=512 antithetic (the posctrl config without
-    its linesearch block) on the oracle kernels' particle branches; then
-    those kernels against the plain oracle at P=512 in the route's chunks
-    (``value`` at K=1 and ``value_batch`` at K=4, rtol 2e-5;
-    ``value_and_grad``, value rtol 2e-5, gradient rtol 5e-4 / atol 5e-5),
-    and their per-launch times (``value_and_grad`` also at C = 1);
+    its linesearch block) on the oracle kernels' particle branches, its
+    iterations and wall time per iteration; then those kernels
+    against the plain oracle at P=512 in the route's chunks (``value`` at
+    K=1 and ``value_batch`` at K=4, rtol 2e-5; ``value_and_grad``, value
+    rtol 2e-5, gradient rtol 5e-4 / atol 5e-5), ``value_batch`` at K=1 and
+    K=4 against C = 1 (equal bits), and their per-launch times, each also
+    at C = 1;
 14. state constraints (``state_constr``), kernel against plain, on
     ``configs/iris_constr_posctrl_mpc.yaml`` as shipped (proximal slack,
     nZ = 10) and in its penalty form, each at P=1 and at P=8 in chunks of
     4: the whole solve at max_iter=10 from a bound-violating start (the
-    particle tolerances), ``value``/``value_batch`` (K = 4, 64) and
-    ``value_and_grad`` at the oracle tolerances, ``trajectory`` of an
-    nZ-wide plan; then the altitude floor of
-    ``examples/noise_robustness.py`` (penalty form) at P=128 antithetic,
-    a fixed 5-iteration solve, timed; each form's shared memory;
+    particle tolerances), ``value``/``value_batch`` (K = 4, 64, 256) and
+    ``value_and_grad`` at the oracle tolerances, ``value_batch`` at P=8
+    against C = 1 (equal bits), ``trajectory`` of an nZ-wide plan; then
+    the altitude floor of ``examples/noise_robustness.py`` (penalty form)
+    at P=128 antithetic, a fixed 5-iteration solve, timed, and its oracle
+    against plain and ``value_batch`` against C = 1; each form's shared
+    memory;
 15. the constrained flight of ``examples/constrained_mpc.py``: 100 chained
     ticks of the 3 m step without the block, with it (gate: the example's
     own, v_c < v_u and v_c < 0.75 m/s) and in its penalty form, one
@@ -139,6 +151,9 @@ SC_FORMS = ("prox", "penalty")
 SC_NAMES = ("none", "penalty", "prox")
 FLIGHT_TICKS = 100   # examples/constrained_mpc.py: the 3 m step
 P_FLOOR = 128        # examples/noise_robustness.py: P=128 antithetic, max_iter 60
+# the trunk width of the shared-memory step checks: outside the P=1 register
+# layout (64), and 16 value_batch rows of it still fit 48 KB
+PADDED_HID = 72
 FLOOR = {"state_id": [2], "state_bound": [[-5.0, -1.2]], "state_penalty": [300.0],
          "slack_scaling": [1.0]}   # its altitude floor (NED z <= -1.2), :125-130
 FLOOR_NOISE = 0.6    # ... and the diffusion scale it gives the model (:102, :137)
@@ -226,6 +241,23 @@ def check_route(name: str, expected: dict) -> dict:
     return got
 
 
+def form_name(kernel: str, args: list) -> str:
+    """An instantiation as the build log's mangled name gives it: ``kernel<PART,
+    SC>`` plus the third flag (the whole solve's clock stamps, the P=1
+    ``value_batch``'s register chain or shared-memory step); ``trajectory``'s
+    one flag."""
+    if kernel == "trajectory_kernel":
+        return f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}>"
+    if len(args) < 2:
+        return kernel
+    extra = ""
+    if len(args) > 2 and kernel == "apg_solve_kernel":
+        extra = ", clock-stamped" if args[2] else ""
+    elif len(args) > 2 and not args[0]:
+        extra = ", register chain" if args[2] else ", shared-memory step"
+    return f"{kernel}<{'true' if args[0] else 'false'}, {SC_NAMES[args[1]]}{extra}>"
+
+
 def phase_build() -> None:
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import build
@@ -243,14 +275,10 @@ def phase_build() -> None:
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)"
-                              r"(?:ILb([01])ELi(\d)(?:ELb([01]))?EE)?", line)
+            entry = re.search(r"entry function '.*\d([a-z_]+_kernel)(I(?:L[bi]\d+E)+E)?", line)
             if entry:
-                form = ("" if entry.group(2) is None else
-                        f"<{'true' if entry.group(2) == '1' else 'false'}, "
-                        f"{SC_NAMES[int(entry.group(3))]}"
-                        f"{', clock-stamped' if entry.group(4) == '1' else ''}>")
-                current = entry.group(1) + form
+                args = [int(v) for v in re.findall(r"L[bi](\d+)E", entry.group(2) or "")]
+                current = form_name(entry.group(1), args)
                 log(f"  ptxas: {current}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -261,16 +289,23 @@ def phase_build() -> None:
                 if used:
                     regs[current] = int(used.group(1))
     p1 = {k: v for k, v in spills.items()
-          if k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))}
-    log(f"  spill stores of the P=1 forms of apg_solve and value_and_grad: {p1}")
+          if k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))
+          or "register chain" in k}
+    log(f"  spill stores of the P=1 forms on the register chain: {p1}")
     part = {k: (regs.get(k), v) for k, v in spills.items()
-            if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true"))}
-    log(f"  the cluster particle forms of apg_solve and value_and_grad, (registers, spill "
-        f"stores in bytes): {part}")
-    if len(p1) != 7 or any(p1.values()):
-        raise AssertionError(f"a P=1 form of the whole solve or value_and_grad spills: {p1}")
-    if len(part) != 7:
-        raise AssertionError(f"the build log lacks a particle form: {part}")
+            if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
+                             "value_batch_kernel<true"))}
+    log(f"  the cluster particle forms, (registers, spill stores in bytes): {part}")
+    wide = {k: (regs.get(k), v) for k, v in spills.items() if "shared-memory step" in k}
+    log(f"  the P=1 forms of value_batch and trajectory on the shared-memory step (trunks "
+        f"outside the register layout), (registers, spill stores in bytes): {wide}")
+    if len(p1) != 11 or any(p1.values()):
+        raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
+    if len(part) != 10 or len(wide) != 4:
+        raise AssertionError(f"the build log lacks a form: {part}, {wide}")
+    vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
+    if any(v[1] for v in vb.values()):
+        raise AssertionError(f"a cluster form of value_batch spills: {vb}")
 
 
 def phase_parity(dev) -> tuple:
@@ -362,23 +397,65 @@ def plans(K: int, seed: int, dev):
     return torch.from_numpy(u).to(dev)
 
 
+def check_grid(b, params, dev) -> dict:
+    """The rows per ``value_batch`` block the library takes at K = 1 .. 256
+    against its Python mirror ``consts.value_batch_grid``; returns them."""
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts, value_batch_grid
+
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    _, a = build_consts(b.model, params, b.cost_params, None, b.time_steps, x0, x_ref, u_prev)
+    lib = CO.load_oracle_library()
+    rows = {K: lib.value_batch_rows(ctypes.byref(a), K) for K in (1, 4, 8, 9, 17, 64, 256)}
+    mirror = {K: value_batch_grid(K, a)[1] for K in rows}
+    if rows != mirror or any(lib.value_batch_smem_bytes(ctypes.byref(a), K) > CO.SMEM_LIMIT
+                             for K in rows):
+        raise AssertionError(f"value_batch rows per block {rows}, the mirror's {mirror}")
+    return rows
+
+
 def phase_oracle_parity(dev) -> dict:
-    """Each oracle kernel vs the plain oracle; returns max |err| per kernel."""
+    """Each oracle kernel vs the plain oracle; returns max |err| per kernel.
+    ``value_batch`` at K = 1 .. 256 on the register chain (8 rows a block),
+    then ``value_batch`` and ``trajectory`` on the trunk padded with new
+    units outside the register layout (the shared-memory step, 16 rows a
+    block), one launch each."""
     import torch
 
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
     err = {"value_batch": 0.0, "value_and_grad": 0.0, "trajectory": 0.0}
+
+    def batch(kern, plain, K, tag):
+        U = plans(K, K, dev)
+        n0 = CO.value_batch_kernel.launches
+        vk = kern.value_batch(U)
+        torch.cuda.synchronize()
+        vp = plain.value_batch(U)
+        rel = float(((vk - vp).abs() / vp.abs()).max())
+        err["value_batch"] = max(err["value_batch"], float((vk - vp).abs().max()))
+        log(f"oracle {tag}: value_batch K={K} max rel err {rel:.3e} (rtol 2e-5)")
+        if not (rel <= 2e-5 and torch.isfinite(vk).all()
+                and CO.value_batch_kernel.launches == n0 + 1):
+            raise AssertionError(f"value_batch disagrees with its plain version ({tag}, K={K})")
+
+    def traj(kern, plain, u, tag):
+        n0 = CO.trajectory_kernel.launches
+        x_k, x_p = kern.trajectory(u), plain.trajectory(u)
+        dx = float((x_k - x_p).abs().max())
+        err["trajectory"] = max(err["trajectory"], dx)
+        if not (torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6)
+                and CO.trajectory_kernel.launches == n0 + 1):
+            raise AssertionError(f"trajectory disagrees with its plain version ({tag})")
+        return dx
+
     for name in TOLS:
-        _, kern, plain = oracles(name, dev)
-        for K in (1, 4, 64, 256):
-            U = plans(K, K, dev)
-            vk = kern.value_batch(U)
-            torch.cuda.synchronize()
-            vp = plain.value_batch(U)
-            rel = float(((vk - vp).abs() / vp.abs()).max())
-            err["value_batch"] = max(err["value_batch"], float((vk - vp).abs().max()))
-            log(f"oracle {name}: value_batch K={K} max rel err {rel:.3e} (rtol 2e-5)")
-            if not (rel <= 2e-5 and torch.isfinite(vk).all()):
-                raise AssertionError(f"value_batch disagrees with its plain version ({name}, K={K})")
+        b, kern, plain = oracles(name, dev)
+        for K in (1, 4, 9, 17, 64, 256):
+            batch(kern, plain, K, name)
         u = plans(1, 7, dev)[0]
         (v_k, g_k), (v_p, g_p) = kern.value_and_grad(u), plain.value_and_grad(u)
         torch.cuda.synchronize()
@@ -386,14 +463,23 @@ def phase_oracle_parity(dev) -> dict:
         dv = abs(float(v_k) - float(v_p)) / abs(float(v_p))
         dg = float((g_k - g_p).abs().max())
         err["value_and_grad"] = max(err["value_and_grad"], dg, abs(float(v_k - v_p)))
-        x_k, x_p = kern.trajectory(u), plain.trajectory(u)
-        ok_x = bool(torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6))
-        dx = float((x_k - x_p).abs().max())
-        err["trajectory"] = max(err["trajectory"], dx)
+        dx = traj(kern, plain, u, name)
         log(f"oracle {name}: value_and_grad value rel {dv:.3e} (rtol 2e-5), grad max|d| "
             f"{dg:.3e} (rtol 5e-4, atol 5e-5); trajectory max|dx| {dx:.3e} (rtol 1e-5)")
-        if not (ok_g and dv <= 2e-5 and ok_x):
+        if not (ok_g and dv <= 2e-5):
             raise AssertionError(f"an oracle kernel disagrees with its plain version ({name})")
+    log(f"value_batch rows per block by K, iris trunk: {check_grid(b, b.params, dev)}")
+
+    params = padded_trunk(b.params, PADDED_HID, seed=0)
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    args = (b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    kern, plain = CO.cost_oracle(*args), CO.cost_oracle_plain(*args)
+    tag = f"iris_posctrl_mpc, its trunk padded to {PADDED_HID} units"
+    for K in (1, 20, 64):
+        batch(kern, plain, K, tag)
+    dx = traj(kern, plain, plans(1, 7, dev)[0], tag)
+    log(f"oracle {tag}: trajectory max|dx| {dx:.3e} (rtol 1e-5); value_batch rows per block "
+        f"by K {check_grid(b, params, dev)}")
     return err
 
 
@@ -734,15 +820,17 @@ def phase_timing(dev, card: str) -> dict:
             f"wall over ticks {w_p + 1}-{n_p} at {rows_p[w_p:, -1].mean():.1f}")
 
     _, kern, plain = oracles("iris_posctrl_mpc", dev)
-    U, u = plans(64, 1, dev), plans(1, 2, dev)[0]
+    U, U256, u = plans(64, 1, dev), plans(256, 1, dev), plans(1, 2, dev)[0]
     calls = {"value_batch": lambda o: o.value_batch(U),
+             "value_batch_K256": lambda o: o.value_batch(U256),
              "value_and_grad": lambda o: o.value_and_grad(u),
              "trajectory": lambda o: o.trajectory(u)}
     for name, call in calls.items():
         out[name] = (per_launch_ms(lambda: call(kern), 50),
                      per_launch_ms(lambda: call(plain), 5))
-        log(f"{name}{' K=64' if name == 'value_batch' else ''} per launch ({card}): "
-            f"kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms (CUDA events)")
+        log(f"{name.replace('_K256', ' K=256')}{' K=64' if name == 'value_batch' else ''} per "
+            f"launch ({card}): kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms "
+            f"(CUDA events)")
     return out
 
 
@@ -813,6 +901,8 @@ def phase_particle_parity(dev) -> dict:
             for kernel, e in particle_oracle_parity(kern, plain, U, tag).items():
                 err[kernel] = max(err[kernel], e)
             one = CO.cost_oracle(*oargs, chunk=chunk, cluster=1)
+            for Ub in (U, plans(9, P + 9, dev)):
+                batch_cluster_vs_one(kern, one, Ub, tag)
             (v_c, g_c), (v_1, g_1) = kern.value_and_grad(U[1]), one.value_and_grad(U[1])
             dg = float((g_c - g_1).abs().max())
             log(f"value_and_grad {tag}, its cluster against C = 1: |dv| "
@@ -826,6 +916,20 @@ def phase_particle_parity(dev) -> dict:
                                    particle_solve_parity(AK, b, args, chunk, tag)[0])
             cluster_vs_one(AK, args, chunk, b.precond, tag)
     return err
+
+
+def batch_cluster_vs_one(kern, one, U, tag: str) -> None:
+    """``value_batch`` on its grid of K clusters against ``cluster=1`` (one
+    block per candidate sweeping every chunk): equal
+    bits, since every block sums the chunks' partials in chunk order."""
+    import torch
+
+    vk, v1 = kern.value_batch(U), one.value_batch(U)
+    torch.cuda.synchronize()
+    log(f"value_batch {tag}, K={len(U)} on its clusters against C = 1: max|d| "
+        f"{float((vk - v1).abs().max()):.3e} (equal bits)")
+    if not torch.equal(vk, v1):
+        raise AssertionError(f"value_batch moves with its cluster size ({tag}, K={len(U)})")
 
 
 def cluster_vs_one(AK, args, chunk: int, pre, tag: str) -> dict:
@@ -1067,7 +1171,10 @@ def particle_phase_split(AK, args, pre, card: str, what: str) -> dict:
 
 def phase_particle_oracle(dev, card: str) -> dict:
     """The fixed-step route at P=512 antithetic on the oracle kernels'
-    particle branches (counted), then their per-launch times."""
+    particle branches (counted; its iterations and wall time per
+    iteration), then those kernels
+    against plain and their per-launch times: ``value_batch`` at K=1 (what
+    the route launches) and K=4, each also at C = 1 (equal bits)."""
     import numpy as np
     import torch
 
@@ -1084,9 +1191,11 @@ def phase_particle_oracle(dev, card: str) -> dict:
     got = check_route(f"fixed-step P={P_FULL}", {"apg_solve": 0, "value_batch": steps,
                                                  "value_and_grad": steps + 2 * n,
                                                  "trajectory": n})
-    log(f"fixed-step route at P={P_FULL} antithetic: {n} chained solves at "
+    iteration_ms = [m / max(k, 1) for m, k in zip(ms, rows[:, -1])]
+    log(f"fixed-step route at P={P_FULL} antithetic ({card}): {n} chained solves at "
         f"{rows[:, -1].tolist()} iterations, {np.array2string(np.array(ms), precision=1)} ms "
-        f"wall, u0 {np.array2string(rows[-1, :-1], precision=4)}")
+        f"wall, {np.array2string(np.array(iteration_ms), precision=3)} ms per iteration, u0 "
+        f"{np.array2string(rows[-1, :-1], precision=4)}")
     if not (np.isfinite(rows).all() and (rows[:, :-1] >= 1e-4 - 1e-7).all()):
         raise AssertionError(f"the fixed-step route at P={P_FULL} returned an invalid plan")
 
@@ -1096,47 +1205,54 @@ def phase_particle_oracle(dev, card: str) -> dict:
     oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
              brownian(P_FULL, dev, antithetic=True, seed=0), P_FULL, b.apg_config.maxls)
     kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
-    U, u = plans(4, 3, dev), plans(1, 4, dev)[0]
-    out = {"launches": got,
-           "err": particle_oracle_parity(kern, plain, U, f"iris_posctrl_mpc P={P_FULL} "
-                                         f"antithetic, the route's chunk")}
-    for name, call in (("value_batch", lambda o: o.value_batch(U)),
-                       ("value_and_grad", lambda o: o.value_and_grad(u))):
-        out[name] = (per_launch_ms(lambda: call(kern), 20),
-                     per_launch_ms(lambda: call(plain), 3))
-        log(f"{name}{' K=4' if name == 'value_batch' else ''} at P={P_FULL} per launch "
-            f"({card}): kernel {out[name][0]:.4f} ms, plain {out[name][1]:.3f} ms (CUDA events)")
     one = CO.cost_oracle(*oargs, cluster=1)
-    out["value_and_grad_c1"] = per_launch_ms(lambda: one.value_and_grad(u), 5)
-    out["iteration_ms"] = statistics.median(m / max(k, 1) for m, k in zip(ms, rows[:, -1]))
+    U, u = plans(4, 3, dev), plans(1, 4, dev)[0]
+    tag = f"iris_posctrl_mpc P={P_FULL} antithetic, the route's chunk"
+    out = {"launches": got, "err": particle_oracle_parity(kern, plain, U, tag),
+           "iteration_ms": statistics.median(iteration_ms), "iterations": rows[:, -1].tolist()}
+    for Ub in (U[:1], U):
+        batch_cluster_vs_one(kern, one, Ub, tag)
+    for name, call in (("value_batch", lambda o: o.value_batch(U[:1])),
+                       ("value_batch_K4", lambda o: o.value_batch(U)),
+                       ("value_and_grad", lambda o: o.value_and_grad(u))):
+        out[name] = (per_launch_ms(lambda: call(kern), 20), per_launch_ms(lambda: call(plain), 3),
+                     per_launch_ms(lambda: call(one), 5))
+        log(f"{name.replace('_K4', ' K=4')}{' K=1' if name == 'value_batch' else ''} at "
+            f"P={P_FULL} per launch ({card}): kernel {out[name][0]:.4f} ms ({out[name][2]:.4f} "
+            f"ms at C = 1), plain {out[name][1]:.3f} ms (CUDA events)")
     out["plan"] = oracle_plan(b, dev, P_FULL)
-    log(f"value_and_grad at P={P_FULL} on its cluster of {out['plan']['cluster']} blocks "
-        f"({out['plan']['chunks_per_block']} chunk(s) each, C_max {out['plan']['c_max']}): "
-        f"{out['value_and_grad'][0]:.4f} ms per launch, {out['value_and_grad_c1']:.4f} ms at "
-        f"C = 1 ({card}); the route's wall time per iteration p50 "
-        f"{out['iteration_ms']:.3f} ms")
+    log(f"the particle oracle at P={P_FULL}: clusters of {out['plan']['cluster']} blocks "
+        f"({out['plan']['chunks_per_block']} chunk(s) of Pc={out['plan']['Pc']} each), "
+        f"value_batch one per candidate, C_max and cudaOccupancyMaxActiveClusters "
+        f"{ {k: out['plan'][k] for k in ('value_batch', 'value_and_grad')} }; the route's "
+        f"wall time per iteration p50 {out['iteration_ms']:.3f} ms")
     return out
 
 
 def oracle_plan(b, dev, P: int, constrained: bool = False) -> dict:
-    """The chunk and cluster the oracle's ``value_and_grad`` takes for b at
-    P particles."""
+    """The chunk and cluster the oracle's particle kernels take for b at P
+    particles, each kernel's largest cluster and
+    ``cudaOccupancyMaxActiveClusters`` at that cluster."""
     import ctypes
 
     from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
-    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (ORACLE_VALUE_AND_GRAD,
+                                                        ORACLE_VALUE_BATCH, build_consts)
 
     x0, x_ref, u_prev, _ = constrained_problem(b) if constrained else problem(b, dev)
     _, o = build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref,
                         u_prev)
     lib = CO.load_oracle_library()
     CO.plan_oracle_particles(lib, o, P, 0)
-    n = ctypes.c_int(0)
-    rc = lib.value_and_grad_max_active_clusters(ctypes.byref(o), ctypes.byref(n))
-    return {"Pc": o.Pc, "cluster": o.cluster, "chunks_per_block": o.chunks_per_block,
-            "c_max": lib.value_and_grad_cluster_max(o.sc_kind),
-            "max_active_clusters": n.value if rc == 0 else f"error {rc}"}
+    out = {"Pc": o.Pc, "cluster": o.cluster, "chunks_per_block": o.chunks_per_block}
+    for name, kind in (("value_batch", ORACLE_VALUE_BATCH),
+                       ("value_and_grad", ORACLE_VALUE_AND_GRAD)):
+        n = ctypes.c_int(0)
+        rc = lib.oracle_max_active_clusters(kind, ctypes.byref(o), ctypes.byref(n))
+        out[name] = {"c_max": lib.oracle_cluster_max(kind, o.sc_kind),
+                     "max_active_clusters": n.value if rc == 0 else f"error {rc}"}
+    return out
 
 
 def constrained_config(form: str, **mut) -> dict:
@@ -1292,11 +1408,14 @@ def phase_constraint_parity(dev) -> dict:
             kern = CO.cost_oracle(*oargs, chunk=chunk)
             plain = CO.cost_oracle_plain(*oargs, chunk=chunk)
             e = {"value_batch": 0.0, "value_and_grad": 0.0}
-            for K in ((4, 64) if P == 1 else (4,)):
+            for K in ((4, 64, 256) if P == 1 else (4,)):
                 U = constrained_plans(b, K, K + P)
                 for k, v in particle_oracle_parity(kern, plain, U, tag,
                                                    "constrained oracle").items():
                     e[k] = max(e[k], v)
+            if P > 1:
+                batch_cluster_vs_one(kern, CO.cost_oracle(*oargs, chunk=chunk, cluster=1),
+                                     U, tag)
             for k, v in e.items():
                 err[(k, form, P)] = v
             u = constrained_plans(b, 1, 9)[0]
@@ -1322,6 +1441,14 @@ def phase_constraint_parity(dev) -> dict:
     tag = f"altitude floor (penalty) P={P_FLOOR} antithetic"
     du, dx, steps = particle_solve_parity(AK, b, args, 0, tag, "constrained solve")
     err[("apg_solve", "penalty", P_FLOOR)] = du
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, args[8],
+             P_FLOOR, b.apg_config.maxls)
+    kern, one = CO.cost_oracle(*oargs), CO.cost_oracle(*oargs, cluster=1)
+    U = plans(4, 5, dev)
+    e = particle_oracle_parity(kern, CO.cost_oracle_plain(*oargs), U, tag, "constrained oracle")
+    err[("value_batch", "penalty", P_FLOOR)] = e["value_batch"]
+    for Ub in (U[:1], U):
+        batch_cluster_vs_one(kern, one, Ub, tag)
     smem["floor"] = smem_bytes(b, dev, P_FLOOR, K=1)
     timed = time_fixed(AK, args, None, n_kernel=5, n_plain=2)
     log(f"fixed 5-iteration floor solve at P={P_FLOOR}: kernel {timed[0]:.3f} ms (CUDA "
@@ -1614,6 +1741,8 @@ def main() -> int:
     log("phase 16: MPPI and fixed-step APG with state constraints run on the oracle kernels, "
         "which match the plain oracle there")
 
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
+
     oracle_src = "sde4mbrl_px4_tpu_torch/csrc/cost_oracle.cu"
     tpu = "sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py"
     apg = {"route": "cuda", "source": "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cu",
@@ -1656,19 +1785,30 @@ def main() -> int:
               p512anti_family_launches=family_launches["apg_solve"]),
     ] + [entry(name, "P=1", launches[name], oracle_err[name], timing[name][0], timing[name][1],
                bound(b_pos, name, nc_pos, K=64 if name == "value_batch" else 1),
-               timed="per launch" + (", K=64" if name == "value_batch" else ""))
+               timed="per launch" + (", K=64" if name == "value_batch" else ""),
+               **({"rows_per_block": ORACLE_P1_ROWS, "ms_K256": timing["value_batch_K256"][0],
+                   "plain_ms_K256": timing["value_batch_K256"][1],
+                   "bound_ms_K256": bound(b_pos, name, nc_pos, K=256)[0]}
+                  if name == "value_batch" else {}))
          for name in ("value_batch", "value_and_grad", "trajectory")] + [
         entry(name, particles, part_oracle["launches"][name], part_err[name],
               part_oracle[name][0], part_oracle[name][1],
-              bound(b_pos, name, nc_pos, P=P_FULL, K=4 if name == "value_batch" else 1),
+              bound(b_pos, name, nc_pos, P=P_FULL, K=1),
               timed=f"per launch at P={P_FULL} antithetic"
-                    + (", K=4" if name == "value_batch" else ""), Pc=flight["oracle_Pc"],
-              **({} if name == "value_batch" else {
-                  "cluster": part_oracle["plan"]["cluster"],
-                  "chunks_per_block": part_oracle["plan"]["chunks_per_block"],
-                  "cluster_max": part_oracle["plan"]["c_max"],
-                  "ms_cluster_1": part_oracle["value_and_grad_c1"],
-                  "iteration_ms": part_oracle["iteration_ms"]}))
+                    + (", K=1 (what the fixed-step route launches)"
+                       if name == "value_batch" else ""), Pc=flight["oracle_Pc"],
+              cluster=part_oracle["plan"]["cluster"],
+              chunks_per_block=part_oracle["plan"]["chunks_per_block"],
+              cluster_max=part_oracle["plan"][name]["c_max"],
+              max_active_clusters=part_oracle["plan"][name]["max_active_clusters"],
+              ms_cluster_1=part_oracle[name][2],
+              **({"ms_K4": part_oracle["value_batch_K4"][0],
+                  "plain_ms_K4": part_oracle["value_batch_K4"][1],
+                  "ms_cluster_1_K4": part_oracle["value_batch_K4"][2],
+                  "bound_ms_K4": bound(b_pos, name, nc_pos, P=P_FULL, K=4)[0],
+                  "route_iterations": part_oracle["iterations"],
+                  "route_iteration_ms": part_oracle["iteration_ms"]}
+                 if name == "value_batch" else {"iteration_ms": part_oracle["iteration_ms"]}))
         for name in ("value_batch", "value_and_grad")] + [
         entry("trajectory", f"x_evol of the P={P_FULL} route (mean dynamics)",
               flight["launches"]["trajectory"], flight["max_dx"], timing["trajectory"][0],
@@ -1727,9 +1867,9 @@ def main() -> int:
             timed="per launch" + (", K=1" if name == "value_batch" else ""),
             form="penalty", P=P_FLOOR,
             Pc=smem["floor"]["oracle_Pc"], smem_bytes=smem["floor"][name],
-            **({"cluster": smem["floor"]["oracle_cluster"][0],
-                "chunks_per_block": smem["floor"]["oracle_cluster"][1],
-                "iteration_ms": coracle["floor_iteration_ms"]}
+            cluster=smem["floor"]["oracle_cluster"][0],
+            chunks_per_block=smem["floor"]["oracle_cluster"][1],
+            **({"iteration_ms": coracle["floor_iteration_ms"]}
                if name == "value_and_grad" else {})))
     print(json.dumps({"kernels": kernels, "solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],

@@ -264,7 +264,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, true, PROF>(a, s, K, noise);
+      cand_part<SC, PROF>(a, s, K, noise);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);

@@ -28,24 +28,35 @@
 // MLP plus rigid-body math, serial over the H steps; one plan is ~0.2 MFLOP
 // forward per particle. What the design does about it: each block copies
 // the 24.9 KB consts buffer into shared memory once and keeps every
-// intermediate there; the P=1 value_and_grad runs the whole-solve kernel's
-// P=1 sweep (sweeps.cuh::vg: the trunk in registers, two barriers per
-// step, HID = 64 and F <= 16 only). At P=1 value_batch runs ORACLE_TILE candidates as
-// rows of one batched fwd_step per block, with ceil(K / ORACLE_TILE) blocks
-// in parallel, so any K runs in the time of one tile (the TPU package sends
-// K > 128 to XLA only because of its VMEM; here a tile's 41 KB fits the
-// default 48 KB). With particles each candidate is a block of its own that
-// sweeps its P particles Pc rows at a time (K blocks in parallel), and
-// value_and_grad spreads its chunks over a thread-block cluster, one block
-// per SM, as the whole-solve kernel does (sweeps.cuh::vg_part: each block
-// sweeps chunks rank, rank + C, ..., and every block sums all chunks'
-// partials in chunk order through distributed shared memory; rank 0 writes
-// the value and the gradient); both take dynamic shared memory above 48 KB
-// (set once per library load by cost_oracle_init), and the wrapper picks
-// the largest divisor Pc of P whose layouts fit. trajectory is one block. The constraint terms add
-// per-row scalar work to each step and no memory traffic; at nZ > n_u a
-// value_batch tile shrinks below 16 rows where its wider rows would pass
-// 48 KB (16 rows of nZ = 10 still fit, at 48.7 KB).
+// intermediate there or in registers, and:
+//   - at P=1 the three kernels run the step chain of the whole solve's P=1
+//     forms (sweeps.cuh, P1W / p1_rollout: the trunk in registers, split-K
+//     layer 1, a row's scalar step in the 32 lanes of its warp, two block
+//     barriers per step). value_and_grad is the vg row forward and reverse
+//     (sweeps.cuh::vg); value_batch takes up to ORACLE_P1_ROWS = 8
+//     candidates per 256-thread block, one warp each, as the whole solve
+//     takes its linesearch candidates, in ceil(K / 8) blocks in parallel
+//     (the TPU package sends K > 128 to XLA only because of its VMEM);
+//     trajectory is one row whose states the chain stashes. The register
+//     layout takes HID = 64 and F <= 16 only: value_batch<false, SC, false>
+//     and trajectory<false> run other trunks on the shared-memory step
+//     (fwd_step<false>: a thread per trunk output, ORACLE_TILE rows per
+//     value_batch block), chosen by the widths, so every trunk that ran
+//     before still runs; value_and_grad refuses them;
+//   - with particles the chunks of a plan spread over a thread-block
+//     cluster, one block per SM (sweeps.cuh::vg_part / cand_part: block
+//     `rank` sweeps chunks rank, rank + C, ..., and every block sums all
+//     chunks' partials in chunk order through distributed shared memory, so
+//     every C gives the bits of C = 1): value_and_grad is one cluster,
+//     value_batch a grid of K clusters, one per candidate, rank 0 writing
+//     the candidate's cost; each takes dynamic shared memory above 48 KB
+//     (set once per library load by cost_oracle_init), and the wrapper
+//     picks the largest divisor Pc of P whose layouts both fit. The
+//     candidate rows' trunk products are register tiles (rows_gemm, as in
+//     the whole solve), whose sums run in the order of a thread per output.
+// The constraint terms add per-row scalar work to each step and no memory
+// traffic; at nZ > n_u a P=1 value_batch block takes fewer rows only where
+// its wider rows would pass 48 KB.
 //
 // Control flow is block-uniform and every __syncthreads() is reached by all
 // threads of the block.
@@ -58,24 +69,36 @@
 
 namespace {
 
-static_assert(ORACLE_TILE <= 32, "one red slot per tile row");
+static_assert(ORACLE_TILE <= 32 && ORACLE_P1_ROWS <= 32, "one red slot per row");
 static_assert(ORACLE_TILE <= ORACLE_NTHREADS, "fwd_step: one thread per row");
-static_assert(ORACLE_NTHREADS == 4 * P1_HID, "P=1 value_and_grad: 4 threads per hidden unit");
+static_assert(ORACLE_NTHREADS == 4 * P1_HID && ORACLE_P1_ROWS <= ORACLE_NTHREADS / 32,
+              "P=1 register chain: 4 threads per hidden unit, one warp per row");
+
+// Whether a's trunk fits the register layout of the P=1 forms (P1W), which
+// the P=1 kernels then run.
+__host__ __device__ inline bool p1_widths(const ApgArgs& a) {
+  return a.HID == P1_HID && a.F <= P1_FMAX && a.OUT == P1_OUT;
+}
 
 // Carve one block's dynamic shared memory for `kind` with R candidate rows
 // of controls; returns the number of floats used. part: the particle form
 // (R*Pc step rows per pass, a Pc-row state stash and reverse sweep in
-// value_and_grad). Fields a kernel does not use stay null. The P=1
-// value_and_grad layout starts every buffer on 16 bytes (its float4 reads).
+// value_and_grad). At P=1 on a trunk of the register layout (the register
+// chain) every buffer starts on 16 bytes (its float4 reads) and a row's
+// state, features and outputs live in registers; trajectory and
+// value_and_grad then stash the row's states, pre-activations and wrench.
+// Fields a kernel does not use stay null.
 __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part,
                                       Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
   const int rows = part ? R * a.Pc : R;       // step rows per pass
   const int B = part ? a.Pc : 1;              // value_and_grad rows per pass
+  const bool reg = !part && p1_widths(a);
+  // the hidden row stride: the particle value_batch's rows are tiled
+  const int ldh = part && kind == ORACLE_VALUE_BATCH ? tiled_ld(a) : a.HID;
   int o = 0;
-  const bool align = kind == ORACLE_VALUE_AND_GRAD && !part;
   auto take = [&](float** p, int n) {
-    if (align) o = (o + 3) & ~3;
+    if (reg) o = (o + 3) & ~3;
     if (s) *p = base + o;
     o += n;
   };
@@ -83,67 +106,79 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   Smem* t = s ? s : &d;
   take(&t->c, a.n_consts);
   take(&t->cand, R * HZ);
-  take(&t->xr, rows * 13);
-  take(&t->feat, rows * a.F);
-  take(&t->a0, rows * a.HID); take(&t->a1, rows * a.HID);
-  take(&t->a2, rows * a.OUT);
+  if (!reg) { take(&t->xr, rows * 13); take(&t->feat, rows * a.F); }
+  take(&t->a0, rows * ldh); take(&t->a1, rows * ldh);
+  if (!reg) take(&t->a2, rows * a.OUT);
   take(&t->jt, rows); take(&t->jr, rows);
   take(&t->red, 32);
   if (kind != ORACLE_VALUE_BATCH) take(&t->xs, (a.H + 1) * B * 13);
+  if (reg && kind != ORACLE_VALUE_BATCH) {
+    take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
+    take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
+  }
   if (kind == ORACLE_VALUE_AND_GRAD) {
-    if (part) {
-      take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
-    } else {
-      take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-      take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
-    }
+    if (part) { take(&t->p0, B * a.HID); take(&t->p1, B * a.HID); }
     take(&t->g, HZ);
     if (part) take(&t->ct, B * 13);              // P=1: the row's cotangents in
     take(&t->cu, B * a.nZ);                      // registers (p1_reverse)
     if (part) take(&t->c_h2, B * a.OUT);
     take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
-    if (part) take(&t->c_feat, B * a.F);
     if (part) {
+      take(&t->c_feat, B * a.F);
       take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
       take(&t->w2t, a.OUT * a.HID);
     }
   }
   if (part) take(&t->cacc, 2 * R);
-  // the chunk partials of a value_and_grad block (gradient and 2 costs)
+  // a block's chunk partials: value_and_grad's gradient and 2 costs, the
+  // candidates' 2R means
   if (part && kind == ORACLE_VALUE_AND_GRAD) take(&t->pg, a.chunks_per_block * (HZ + 2));
+  if (part && kind == ORACLE_VALUE_BATCH) take(&t->pk, a.chunks_per_block * 2 * R);
   return o;
 }
 
 // Copy the consts and R rows of controls (row r of the block at U + r*HZ)
-// into shared memory, start each row at x0 with zero running costs.
+// into shared memory; on the shared-memory step also start each row at x0
+// with zero running costs.
 __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
                            const float* __restrict__ consts,
                            const float* __restrict__ U) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
   for (int e = tid; e < R * a.H * a.nZ; e += nt) s.cand[e] = U[e];
-  for (int e = tid; e < R * 13; e += nt) s.xr[e] = consts[a.o_x0 + e % 13];
-  if (tid < R) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
+  if (s.xr) {
+    for (int e = tid; e < R * 13; e += nt) s.xr[e] = consts[a.o_x0 + e % 13];
+    if (tid < R) { s.jt[tid] = 0.f; s.jr[tid] = 0.f; }
+  }
   __syncthreads();
 }
 
-template <bool PART, int SC>
+// The costs of K plans U (K, H, nZ) into out (K,). PART: a grid of K
+// clusters of a.cluster blocks, cluster k = blockIdx.x / cluster sweeping
+// candidate k's chunks (cand_part), rank 0 writing its cost. P=1: block b
+// takes candidates b*tile .. b*tile + tile-1, REG on the register chain
+// (p1_rollout, warp r the block's row r), else on the shared-memory step.
+template <bool PART, int SC, bool REG>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
                    float* __restrict__ out) {
-  extern __shared__ float smem[];
+  static_assert(!(PART && REG), "the register chain is the P=1 forms'");
+  extern __shared__ __align__(16) float smem[];
   Smem s = {};
   layout(a, ORACLE_VALUE_BATCH, tile, PART, &s, smem);
   const int HZ = a.H * a.nZ, nZ = a.nZ;
-  const int k0 = blockIdx.x * tile;
-  const int R = min(tile, K - k0);
+  const int k0 = PART ? (int)blockIdx.x / a.cluster : (int)blockIdx.x * tile;
+  const int R = PART ? 1 : min(tile, K - k0);
   const int tid = threadIdx.x, warp = tid >> 5, nw = blockDim.x >> 5;
   const float* c = s.c;
   load_block(a, s, R, consts, U + (size_t)k0 * HZ);
 
   if constexpr (PART) {
-    cand_part<SC>(a, s, R, noise);
+    cand_part<SC>(a, s, 1, noise);
+    if (cg::this_cluster().block_rank() != 0) return;
+  } else if constexpr (REG) {
+    p1_rollout<SC, false, false>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
   } else {
     for (int t = 0; t < a.H; ++t)
       fwd_step<false, SC>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t);
@@ -166,19 +201,28 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   if (tid < R) out[k0 + tid] = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
 }
 
+// The mean rollout of one plan's control columns into x_out (H+1, 13): REG
+// the register chain's row with its states stashed, else the shared-memory
+// step.
+template <bool REG>
 __global__ void __launch_bounds__(ORACLE_NTHREADS)
 trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
                   const float* __restrict__ u, float* __restrict__ x_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   Smem s = {};
   layout(a, ORACLE_TRAJECTORY, 1, false, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block(a, s, 1, consts, u);
-  if (tid < 13) s.xs[tid] = s.xr[tid];
-  __syncthreads();
-  for (int t = 0; t < a.H; ++t)
-    fwd_step<false, CONSTR_NONE>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
-                                 s.xs + (t + 1) * 13, t);
+  if (tid < 13) s.xs[tid] = s.c[a.o_x0 + tid];
+  if constexpr (REG) {
+    p1_rollout<CONSTR_NONE, true, false>(a, s, load_p1_weights(a, s.c), 1, s.cand, 0);
+    __syncthreads();
+  } else {
+    __syncthreads();
+    for (int t = 0; t < a.H; ++t)
+      fwd_step<false, CONSTR_NONE>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
+                                   s.xs + (t + 1) * 13, t);
+  }
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
 
@@ -210,12 +254,14 @@ int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
   return layout(a, kind, R, part, nullptr, nullptr) * (int)sizeof(float);
 }
 
-// Candidate rows per value_batch block: a tile at P=1 (up to ORACLE_TILE,
-// fewer where wide decision rows would pass the 48 KB budget), one
-// candidate (and its Pc particle rows per pass) with particles.
+// Candidate rows per value_batch block: one candidate per cluster with
+// particles; at P=1 up to ORACLE_P1_ROWS on the register chain and
+// ORACLE_TILE on the shared-memory step, fewer where wide decision rows
+// would pass the 48 KB budget.
 int tile_rows(const ApgArgs& a, int K) {
   if (a.has_noise) return 1;
-  int tile = K < ORACLE_TILE ? K : ORACLE_TILE;
+  const int most = p1_widths(a) ? ORACLE_P1_ROWS : ORACLE_TILE;
+  int tile = K < most ? K : most;
   while (tile > 1 && dyn_bytes(a, ORACLE_VALUE_BATCH, tile, false) > ORACLE_SMEM_LIMIT)
     --tile;
   return tile;
@@ -229,22 +275,35 @@ bool args_ok(const ApgArgs* a) {
   return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1;
 }
 
-// One launch of an instantiation; the tables below pick it by
-// [has_noise][sc_kind].
-template <bool PART, int SC>
-void launch_value_batch(const ApgArgs& a, int K, int tile, int blocks, size_t dyn,
-                        cudaStream_t st, const float* consts, const float* U,
-                        const float* noise, float* out) {
-  value_batch_kernel<PART, SC><<<blocks, PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
-                                 dyn, st>>>(K, tile, a, consts, U, noise, out);
+// One launch of a value_batch instantiation: P=1 ceil(K / tile) blocks;
+// particles a grid of K clusters of a.cluster blocks (cudaLaunchKernelEx,
+// whose error a cluster the card cannot schedule returns).
+template <bool PART, int SC, bool REG>
+cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
+                               const float* consts, const float* U, const float* noise,
+                               float* out) {
+  if constexpr (PART) {
+    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K);
+    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false>, K, tile, a, consts,
+                              U, noise, out);
+  } else {
+    value_batch_kernel<false, SC, REG><<<(K + tile - 1) / tile, ORACLE_NTHREADS, dyn, st>>>(
+        K, tile, a, consts, U, noise, out);
+    return cudaSuccess;
+  }
 }
-using ValueBatchFn = void (*)(const ApgArgs&, int, int, int, size_t, cudaStream_t,
-                              const float*, const float*, const float*, float*);
-const ValueBatchFn kValueBatch[2][3] = {
-    {launch_value_batch<false, CONSTR_NONE>, launch_value_batch<false, CONSTR_PENALTY>,
-     launch_value_batch<false, CONSTR_PROX>},
-    {launch_value_batch<true, CONSTR_NONE>, launch_value_batch<true, CONSTR_PENALTY>,
-     launch_value_batch<true, CONSTR_PROX>}};
+using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStream_t,
+                                     const float*, const float*, const float*, float*);
+// [form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on the
+// register chain, 2 particles
+const ValueBatchFn kValueBatch[3][3] = {
+    {launch_value_batch<false, CONSTR_NONE, false>,
+     launch_value_batch<false, CONSTR_PENALTY, false>,
+     launch_value_batch<false, CONSTR_PROX, false>},
+    {launch_value_batch<false, CONSTR_NONE, true>, launch_value_batch<false, CONSTR_PENALTY, true>,
+     launch_value_batch<false, CONSTR_PROX, true>},
+    {launch_value_batch<true, CONSTR_NONE, false>, launch_value_batch<true, CONSTR_PENALTY, false>,
+     launch_value_batch<true, CONSTR_PROX, false>}};
 
 // P=1 one block; particles one cluster of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
@@ -278,9 +337,11 @@ bool particles_ok(const ApgArgs* a, const void* noise) {
          a->Pc * a->n_chunks == a->P;
 }
 
-// The largest cluster of each particle value_and_grad form [sc_kind]
-// (cost_oracle_init; 0 before it).
-int g_cmax[3] = {0, 0, 0};
+// The largest cluster of each particle form [kind][sc_kind], value_batch
+// and value_and_grad (cost_oracle_init; 0 before it).
+int g_cmax[3][3] = {};
+
+bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
 
 }  // namespace
 
@@ -293,42 +354,56 @@ const char* cost_oracle_error_string(int err) {
 }
 
 // Let the particle forms take dynamic shared memory above 48 KB (the
-// deterministic ones stay inside the default). Called once when the library
-// is loaded; returns a cudaError_t.
+// deterministic ones stay inside the default) and find each one's largest
+// cluster (sweeps.cuh::cluster_max). Called once when the library is
+// loaded; returns a cudaError_t.
 int cost_oracle_init() {
+  int* vb = g_cmax[ORACLE_VALUE_BATCH];
+  int* vg = g_cmax[ORACLE_VALUE_AND_GRAD];
+  const int nt = ORACLE_NTHREADS_PART;
   const cudaError_t errs[] = {
-      allow_large_smem(value_batch_kernel<true, CONSTR_NONE>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PROX>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_NONE, false>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY, false>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PROX, false>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>),
-      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, ORACLE_NTHREADS_PART, &g_cmax[0]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, ORACLE_NTHREADS_PART,
-                  &g_cmax[1]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, ORACLE_NTHREADS_PART,
-                  &g_cmax[2])};
+      cluster_max(value_batch_kernel<true, CONSTR_NONE, false>, nt, &vb[CONSTR_NONE]),
+      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false>, nt, &vb[CONSTR_PENALTY]),
+      cluster_max(value_batch_kernel<true, CONSTR_PROX, false>, nt, &vb[CONSTR_PROX]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, nt, &vg[CONSTR_NONE]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, nt, &vg[CONSTR_PENALTY]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, nt, &vg[CONSTR_PROX])};
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;
 }
 
-// The largest cluster of the particle value_and_grad of sc_kind.
-int value_and_grad_cluster_max(int sc_kind) {
-  return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX ? g_cmax[sc_kind] : 0;
+// The largest cluster of the particle form of `kind` (ORACLE_VALUE_BATCH,
+// ORACLE_VALUE_AND_GRAD) and sc_kind; 0 for other kinds.
+int oracle_cluster_max(int kind, int sc_kind) {
+  return (kind == ORACLE_VALUE_BATCH || kind == ORACLE_VALUE_AND_GRAD) && sc_ok(sc_kind)
+             ? g_cmax[kind][sc_kind] : 0;
 }
 
-// cudaOccupancyMaxActiveClusters of the particle value_and_grad for a's
+// cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
 // dimensions and cluster size, into *n; returns a cudaError_t.
-int value_and_grad_max_active_clusters(const ApgArgs* a, int* n) {
-  using Fn = void (*)(ApgArgs, const float*, const float*, const float*, float*, float*);
-  const Fn fns[3] = {value_and_grad_kernel<true, CONSTR_NONE>,
-                     value_and_grad_kernel<true, CONSTR_PENALTY>,
-                     value_and_grad_kernel<true, CONSTR_PROX>};
-  if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
+int oracle_max_active_clusters(int kind, const ApgArgs* a, int* n) {
+  using VbFn = void (*)(int, int, ApgArgs, const float*, const float*, const float*, float*);
+  using VgFn = void (*)(ApgArgs, const float*, const float*, const float*, float*, float*);
+  const VbFn vb[3] = {value_batch_kernel<true, CONSTR_NONE, false>,
+                      value_batch_kernel<true, CONSTR_PENALTY, false>,
+                      value_batch_kernel<true, CONSTR_PROX, false>};
+  const VgFn vg[3] = {value_and_grad_kernel<true, CONSTR_NONE>,
+                      value_and_grad_kernel<true, CONSTR_PENALTY>,
+                      value_and_grad_kernel<true, CONSTR_PROX>};
+  if (!a->has_noise || !sc_ok(a->sc_kind) || a->cluster < 1 ||
+      (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD))
     return (int)cudaErrorInvalidValue;
-  return (int)max_active_clusters(fns[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
-                                  (size_t)dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, true), n);
+  const size_t dyn = (size_t)dyn_bytes(*a, kind, 1, true);
+  return (int)(kind == ORACLE_VALUE_BATCH
+                   ? max_active_clusters(vb[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART, dyn, n)
+                   : max_active_clusters(vg[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART, dyn, n));
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -342,43 +417,49 @@ int value_and_grad_smem_bytes(const ApgArgs* a) {
   return dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0) + (int)sizeof(float);
 }
 
-// Launchers: one launch on `stream` each, returning cudaGetLastError()
-// after it (cudaErrorInvalidValue for arguments the kernels do not take).
-// U is (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read
-// only when a->has_noise; may be null otherwise); outputs are (K,),
-// (H+1, 13), () and (H, nZ). The P=1 value_and_grad takes the trunk
-// widths of the register layout only (HID = P1_HID, F <= P1_FMAX); the
-// particle one a's cluster plan of its chunks, and returns the cluster
-// launch's own error where the card cannot schedule it.
+// Candidate rows per block of a value_batch launch over K plans (1 with
+// particles: one candidate per cluster).
+int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
+
+// Launchers: one launch on `stream` each, returning the launch's error
+// (cudaErrorInvalidValue for arguments the kernels do not take). U is
+// (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read only
+// when a->has_noise; may be null otherwise); outputs are (K,), (H+1, 13),
+// () and (H, nZ). The P=1 value_and_grad takes the trunk widths of the
+// register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
+// cluster plan of its chunks (value_batch one cluster per candidate), and
+// return the cluster launch's own error where the card cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
                        const void* U, const void* noise, void* out, void* stream) {
   if (!args_ok(a) || !particles_ok(a, noise) || K < 1 ||
+      (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int tile = tile_rows(*a, K);
-  const int blocks = (K + tile - 1) / tile;
-  const size_t dyn = value_batch_smem_bytes(a, K);
-  kValueBatch[a->has_noise != 0][a->sc_kind](
-      *a, K, tile, blocks, dyn, (cudaStream_t)stream, (const float*)consts,
-      (const float*)U, (const float*)noise, (float*)out);
-  return (int)cudaGetLastError();
+  const int form = a->has_noise ? 2 : p1_widths(*a) ? 1 : 0;
+  return launch_error(kValueBatch[form][a->sc_kind](
+      *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
+      (const float*)consts, (const float*)U, (const float*)noise, (float*)out));
 }
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
   if (!args_ok(a) || trajectory_smem_bytes(a) > ORACLE_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  trajectory_kernel<<<1, ORACLE_NTHREADS, trajectory_smem_bytes(a),
-                      (cudaStream_t)stream>>>(
-      *a, (const float*)consts, (const float*)u, (float*)x_out);
+  const size_t dyn = (size_t)trajectory_smem_bytes(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p1_widths(*a))
+    trajectory_kernel<true><<<1, ORACLE_NTHREADS, dyn, st>>>(*a, (const float*)consts,
+                                                             (const float*)u, (float*)x_out);
+  else
+    trajectory_kernel<false><<<1, ORACLE_NTHREADS, dyn, st>>>(*a, (const float*)consts,
+                                                              (const float*)u, (float*)x_out);
   return (int)cudaGetLastError();
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, void* val, void* grad, void* stream) {
-  if (!args_ok(a) || !particles_ok(a, noise) ||
-      (!a->has_noise && (a->HID != P1_HID || a->F > P1_FMAX)) ||
-      (a->has_noise && !cluster_args_ok(*a, g_cmax[a->sc_kind])) ||
+  if (!args_ok(a) || !particles_ok(a, noise) || (!a->has_noise && !p1_widths(*a)) ||
+      (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);

@@ -8,7 +8,11 @@
 
 #define ORACLE_NTHREADS 256     // threads per block
 #define ORACLE_NTHREADS_PART 512  // ... in the particle forms
-#define ORACLE_TILE 16          // candidate rows per value_batch block
+// Candidate rows per P=1 value_batch block: one warp each on the register
+// chain of the P=1 forms (trunks of its layout, P1_HID and F <= P1_FMAX);
+// one thread each on the shared-memory step (other trunks).
+#define ORACLE_P1_ROWS APG_MAXK
+#define ORACLE_TILE 16
 #define ORACLE_SMEM_LIMIT 49152 // static + dynamic shared memory budget (bytes), P=1
 // Budget of the particle forms (has_noise): all of a block's shared memory
 // on sm_90 (227 KB), as dynamic shared memory (cost_oracle_init).

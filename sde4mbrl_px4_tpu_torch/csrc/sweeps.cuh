@@ -40,17 +40,17 @@
 // as the TPU kernel reduces), and the particle-form loops run rows over the
 // threads, so R may exceed blockDim.
 //
-// The particle forms of the whole solve and of value_and_grad spread the
-// chunks over a thread-block cluster (ApgArgs::cluster blocks, one per SM):
-// block `rank` sweeps chunks rank, rank + cluster, ..., and keeps each
-// chunk's partials (its share of the gradient, g_u / n_chunks, and of the
-// costs) apart. After a cluster barrier every block sums the partials of
-// all chunks in chunk order 0 .. n_chunks-1, read from their blocks' shared
-// memory (cluster_chunk_sum): the summation order of a one-block serial
-// chunk loop and of the TPU kernel's fori_loop (bodies.py:650-657), so
-// every cluster size gives the same bits, and every block holds the same
-// reduced values. value_batch keeps its one block per candidate
-// (cand_part<SC, false>).
+// The particle forms of every kernel spread the chunks over a thread-block
+// cluster (ApgArgs::cluster blocks, one per SM): block `rank` sweeps chunks
+// rank, rank + cluster, ..., and keeps each chunk's partials (its share of
+// the gradient, g_u / n_chunks, and of the costs) apart. After a cluster
+// barrier every block sums the partials of all chunks in chunk order
+// 0 .. n_chunks-1, read from their blocks' shared memory
+// (cluster_chunk_sum): the summation order of a one-block serial chunk loop
+// and of the TPU kernel's fori_loop (bodies.py:650-657), so every cluster
+// size gives the same bits, and every block holds the same reduced values.
+// The whole solve and value_and_grad launch one cluster; value_batch a grid
+// of K clusters, one per candidate (cand_part with K = 1).
 //
 // State constraints (the state_constr block; bodies.py:188-206 and their
 // reverse, which the TPU kernel gets by tracing jax.vjp, apg_kernel.py:
@@ -274,11 +274,12 @@ __device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, 
 // The network for R rows: features (body-frame velocity, rates, gravity
 // direction, motors), the two swish layers and the output layer into
 // s.feat, s.a0, s.a1, s.a2. Row r's state is x[r*13..]. With PART = false
-// (the P=1 rows of value_batch and trajectory) row r is thread r < R and its
-// controls are U[r*ustride ..]; with PART = true rows run over the threads,
+// (the P=1 rows of value_batch and trajectory on a trunk outside the
+// register layout of P1W) row r is thread r < R and its controls are
+// U[r*ustride ..]; with PART = true rows run over the threads,
 // row r's controls are U[(r % K)*ustride ..], and a stash (bwd_rows) records
 // the R rows' hidden pre-activations (idx = r*HID + j). TILED (the
-// candidate rows of the whole solve's cluster form): the three products as
+// candidate rows of cand_part): the three products as
 // register tiles (rows_gemm), s.a0 and s.a1 at row stride tiled_ld; the
 // same sums in the same order.
 template <bool PART, bool TILED = false>
@@ -537,8 +538,8 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // PART adds the Brownian term (em_step): row r's draws are z[(r / K)*13 ..]
 // (its particle; rows are particle-major). SC adds the state-constraint
 // terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
-// TILED: the trunk's register-tiled products (the whole solve's candidate
-// rows, cand_part<SC, true>).
+// TILED: the trunk's register-tiled products (the candidate rows of
+// cand_part).
 template <bool PART, int SC, bool TILED = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
@@ -885,7 +886,9 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
 }
 
 // ---- The P=1 forms: apg_solve_kernel<false, SC>, value_and_grad_kernel<
-// false, SC>. Latency first, one block of 256 threads (4 per hidden unit):
+// false, SC>, and on the trunks of their layout value_batch_kernel<false,
+// SC, true> and trajectory_kernel<true>. Latency first, blocks of 256
+// threads (4 per hidden unit):
 // a forward step of R <= 8 rows has two block barriers,
 //   warp r (row r):  features, layer 0           -> s.a0   | barrier
 //   all threads:     layer 1, split-K            -> s.a1   | barrier
@@ -1042,10 +1045,10 @@ __device__ __forceinline__ void sigma_bwd(const float* h2, float cR, float dsc, 
 
 // R rows through the horizon from x0, warp r < R owning row r, whose
 // controls at step t are U[r*ustride + t*nZ ..]; row r's costs land in
-// s.jt[r], s.jr[r]. STASH (the vg row, R = 1): the states into s.xs[1..H],
-// the pre-activations into s.h0p, s.h1p, s.h2 and the wrench into s.wr for
-// the reverse sweep. Ends without a barrier (warp r wrote row r's costs,
-// warp 0 the stash).
+// s.jt[r], s.jr[r]. STASH (the vg row and the trajectory, R = 1): the
+// states into s.xs[1..H], the pre-activations into s.h0p, s.h1p, s.h2 and
+// the wrench into s.wr for the reverse sweep. Ends without a barrier (warp r
+// wrote row r's costs, warp 0 the stash).
 template <int SC, bool STASH, bool PROF>
 __device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, const P1W& W,
                                            int R, const float* U, int ustride) {
@@ -1312,48 +1315,42 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 }
 
 // K candidate plans (rows of s.cand, (K, H, nZ)) over P particles
-// (bodies.py::candidate_rollout/run_candidates, :694-765): per chunk, K*Pc
-// rows, particle-major (row i = p*K + k), through the horizon from x0; the
-// particle mean of each candidate's tracking and sigma costs, a mean of
-// chunk means, lands in s.cacc[k] and s.cacc[K + k]. CLUSTER (the whole
-// solve): this block's chunks of a cluster, each chunk's means / n_chunks
-// into its partial (s.pk), summed in chunk order by cluster_chunk_sum;
-// otherwise (value_batch) one block walks every chunk, accumulating.
-template <int SC, bool CLUSTER = false, bool PROF = false>
+// (bodies.py::candidate_rollout/run_candidates, :694-765), by every block of
+// a cluster: per chunk of this block, K*Pc rows, particle-major (row i =
+// p*K + k), through the horizon from x0, and each candidate's tracking and
+// sigma means over the chunk's rows / n_chunks into the chunk's partial
+// (s.pk); then the partials of all chunks summed in chunk order
+// (cluster_chunk_sum): the particle mean of each candidate's costs, a mean
+// of chunk means, in s.cacc[k] and s.cacc[K + k] of every block. The
+// trunk's products are register tiles (fwd_step<true, SC, true>). The whole
+// solve sweeps its K candidates at once; value_batch calls it with K = 1
+// (one candidate per cluster).
+template <int SC, bool PROF = false>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
                           const float* __restrict__ noise) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
-  int rank = 0, stride = 1;
-  if constexpr (CLUSTER) {
-    rank = (int)cg::this_cluster().block_rank();
-    stride = a.cluster;
-  } else if (tid < 2 * K) {
-    s.cacc[tid] = 0.f;
-  }
-  for (int ch = rank, j = 0; ch < a.n_chunks; ch += stride, ++j) {
+  const int rank = (int)cg::this_cluster().block_rank();
+  for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
     for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
     for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
     __syncthreads();
     const float* zc = noise + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true, SC, CLUSTER>(a, s, R, s.cand + t * a.nZ, HZ, K,
-                                  zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
+      fwd_step<true, SC, true>(a, s, R, s.cand + t * a.nZ, HZ, K,
+                               zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
     prof_stamp<PROF>(s, PP_CAND);
     if (tid < 2 * K) {
       const int k = tid < K ? tid : tid - K;
       const float* jr = tid < K ? s.jt : s.jr;
       float acc = 0.f;
       for (int p = 0; p < Pc; ++p) acc += jr[p * K + k];
-      if constexpr (CLUSTER) s.pk[j * 2 * K + tid] = acc / (float)Pc / (float)a.n_chunks;
-      else s.cacc[tid] = s.cacc[tid] + acc / (float)Pc / (float)a.n_chunks;
+      s.pk[j * 2 * K + tid] = acc / (float)Pc / (float)a.n_chunks;
     }
     __syncthreads();
   }
-  if constexpr (CLUSTER) {
-    cluster_chunk_sum(a, s.pk, 2 * K, [&](int e, float v) { s.cacc[e] = v; });
-    prof_stamp<PROF>(s, PP_RED);
-  }
+  cluster_chunk_sum(a, s.pk, 2 * K, [&](int e, float v) { s.cacc[e] = v; });
+  prof_stamp<PROF>(s, PP_RED);
 }
 
 // Let the particle form of a kernel take dynamic shared memory above the
@@ -1369,13 +1366,15 @@ cudaError_t allow_large_smem(Kernel* fn) {
                               APG_SMEM_LIMIT_PARTICLES - (int)fa.sharedSizeBytes);
 }
 
-// A launch of `fn` as one cluster of C blocks of `threads` threads with
-// `dyn` bytes of dynamic shared memory each.
+// A launch of `fn` as `clusters` clusters of C blocks (a grid of
+// C * clusters blocks; cluster i is blocks i*C .. i*C + C-1) of `threads`
+// threads with `dyn` bytes of dynamic shared memory each.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  ClusterLaunch(int C, int threads, size_t dyn, cudaStream_t st) : cfg(), attr() {
-    cfg.gridDim = dim3(C);
+  ClusterLaunch(int C, int threads, size_t dyn, cudaStream_t st, int clusters = 1)
+      : cfg(), attr() {
+    cfg.gridDim = dim3(C * clusters);
     cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = dyn;
     cfg.stream = st;

@@ -19,12 +19,14 @@ index exactly).
 
 :func:`constrained_problem` and :func:`constrained_plans` are the
 fixed-budget state-constraint problem that the kernel-against-plain checks
-on the card and the CPU parity tests share.
+on the card and the CPU parity tests share; :func:`padded_trunk` the
+shipped model at trunk widths outside the P=1 kernels' register layout
+(zero-padded, or with new units drawn like the shipped ones).
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +37,8 @@ from sde4mbrl_px4_tpu_torch.core.types import (
 
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
            "replay_engagement", "replay_solver_family", "compare_to_golden",
-           "constrained_problem", "constrained_plans", "GATES", "SOLVER_FAMILIES"]
+           "constrained_problem", "constrained_plans", "padded_trunk", "GATES",
+           "SOLVER_FAMILIES"]
 
 # bench.py:250 — |du| <= 0.03, |dw| <= 0.08, relative cost <= 0.02
 GATES = {"u": 0.03, "w": 0.08, "cost_rel": 0.02}
@@ -248,3 +251,35 @@ def constrained_plans(b, K: int, seed: int) -> torch.Tensor:
     u = np.random.RandomState(seed).uniform(0.3, 0.95, (K, H, n_u))
     s = np.random.RandomState(seed + 1000).uniform(-0.9, 0.9, (K, H, m))
     return torch.from_numpy(np.concatenate([u, s], -1).astype(np.float32)).to(b.device)
+
+
+def padded_trunk(params: Dict[str, Any], hidden: int,
+                 seed: int | None = None) -> Dict[str, Any]:
+    """``params`` with the trunk's hidden layers padded to ``hidden`` units,
+    a width outside the P=1 kernels' register layout (64 units), so a check
+    drives the shared-memory step of ``value_batch`` and ``trajectory`` on
+    the shipped model's dynamics. With ``seed`` None the padding is zero: the
+    same function (a padded unit's pre-activation is 0, its swish 0, and it
+    feeds nothing). With a ``seed`` the padded weights (into, between and out
+    of the new units) are drawn from numpy at each layer's spread of the
+    shipped weights, biases 0: new units like the shipped ones, which move
+    the costs by ~1e-3 relative, so a step that drops them fails a check."""
+    net = params["net"]
+    h0 = int(net["w1"].shape[0])
+    pad = int(hidden) - h0
+    if pad < 0:
+        raise ValueError(f"padded_trunk: {hidden} units is below the trunk's {h0}")
+    fill = torch.nn.functional.pad
+    out = dict(net, w0=fill(net["w0"], (0, pad)), b0=fill(net["b0"], (0, pad)),
+               w1=fill(net["w1"], (0, pad, 0, pad)), b1=fill(net["b1"], (0, pad)),
+               w2=fill(net["w2"], (0, 0, 0, pad)))
+    if seed is not None:
+        rs = np.random.RandomState(seed)
+        for k in ("w0", "w1", "w2"):
+            w = out[k].clone()
+            new = torch.ones_like(w, dtype=torch.bool)
+            new[:h0 if k != "w0" else None, :h0 if k != "w2" else None] = False
+            draw = rs.standard_normal(int(new.sum())) * float(net[k].double().std())
+            w[new] = torch.from_numpy(draw.astype(np.float32)).to(w.device)
+            out[k] = w
+    return dict(params, net=out)

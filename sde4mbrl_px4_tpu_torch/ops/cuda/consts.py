@@ -17,7 +17,8 @@ kernels read it from device memory, and :func:`plan_particles` fills the
 particle fields (P, the chunk Pc, the number of chunks) and the cluster
 fields (:func:`plan_cluster`): the particle forms of the whole solve and of
 ``value_and_grad`` run one thread-block cluster of ``cluster`` blocks per
-launch, block ``rank`` sweeping chunks ``rank, rank + cluster, ...``.
+launch, ``value_batch`` one per candidate (:func:`value_batch_grid`), block
+``rank`` of a cluster sweeping chunks ``rank, rank + cluster, ...``.
 
 State constraints (``solve_kernels.py:119-174``): ``sc_kind`` selects the
 kernels' compile-time form (:data:`SC_NONE`, :data:`SC_PENALTY`,
@@ -39,9 +40,11 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
-__all__ = ["APG_MAXK", "P1_FMAX", "P1_HID", "SMEM_LIMIT_PARTICLES", "SC_NONE",
-           "SC_PENALTY", "SC_PROX", "ApgArgs", "build_consts", "check_p1_widths",
-           "plan_cluster", "plan_particles", "sc_kind"]
+__all__ = ["APG_MAXK", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
+           "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
+           "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs",
+           "build_consts", "check_p1_widths", "p1_widths", "plan_cluster", "plan_particles",
+           "sc_kind", "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 kernels hold the trunk in registers at these widths: hidden units,
@@ -52,6 +55,11 @@ P1_HID, P1_FMAX = 64, 16
 SMEM_LIMIT_PARTICLES = 232448
 # the kernels' state-constraint forms (csrc/apg_solve.cuh CONSTR_*)
 SC_NONE, SC_PENALTY, SC_PROX = 0, 1, 2
+# the cost-oracle kernels (csrc/cost_oracle.cuh): which kernel a query is
+# for, and the candidate rows of a P=1 value_batch block on the register
+# chain and on the shared-memory step
+ORACLE_VALUE_BATCH, ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD = 0, 1, 2
+ORACLE_P1_ROWS, ORACLE_TILE = APG_MAXK, 16
 
 _INT_FIELDS = (
     "H", "n_u", "nZ", "K", "F", "HID", "OUT",
@@ -98,10 +106,15 @@ def _constraint_pieces(cp: CostParams) -> tuple:
     return ()
 
 
+def p1_widths(F: int, HID: int) -> bool:
+    """Whether the P=1 kernels' register layout takes a (F, HID) trunk."""
+    return HID == P1_HID and F <= P1_FMAX
+
+
 def check_p1_widths(F: int, HID: int, what: str) -> None:
     """Raise ValueError unless the P=1 kernels' register layout takes a
     (F, HID) trunk (the launchers refuse it with cudaErrorInvalidValue)."""
-    if HID != P1_HID or F > P1_FMAX:
+    if not p1_widths(F, HID):
         raise ValueError(
             f"{what}: the P=1 kernel holds the trunk in registers for {P1_HID} hidden "
             f"units and at most {P1_FMAX} inputs (9 + n_u); this model has {HID} "
@@ -190,12 +203,32 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:
     """The cluster of a particle launch over ``n_chunks`` chunks: ``(C,
-    chunks_per_block)``, C = min(n_chunks, c_max) blocks (one cluster per
-    launch, so the grid is C blocks) and the most chunks a block sweeps."""
+    chunks_per_block)``, C = min(n_chunks, c_max) blocks per cluster and the
+    most chunks a block sweeps."""
     C = min(int(n_chunks), int(c_max))
     if C < 1:
         raise ValueError(f"a cluster of {n_chunks} chunks and at most {c_max} blocks")
     return C, -(-int(n_chunks) // C)
+
+
+def value_batch_grid(K: int, a: ApgArgs,
+                     fits: Callable[[int], bool] = lambda rows: True) -> Tuple[int, int]:
+    """The grid of one ``value_batch`` launch over K plans, as
+    ``csrc/cost_oracle.cu::value_batch_launch`` builds it: ``(blocks,
+    rows)``, the candidates per block. With particles K clusters of
+    ``a.cluster`` blocks, one candidate each (block b sweeps candidate
+    b // cluster's chunks rank, rank + cluster, ..., rank = b % cluster). At
+    P=1 ceil(K / rows) blocks (block b takes candidates b*rows ..), rows at
+    most ``ORACLE_P1_ROWS`` (one warp each) on a trunk of the register layout
+    and ``ORACLE_TILE`` (one thread each) on others, and at most K; one less
+    while ``fits(rows)`` (the block's shared memory within 48 KB) is
+    false."""
+    if a.has_noise:
+        return K * a.cluster, 1
+    rows = min(int(K), ORACLE_P1_ROWS if p1_widths(a.F, a.HID) else ORACLE_TILE)
+    while rows > 1 and not fits(rows):
+        rows -= 1
+    return -(-int(K) // rows), rows
 
 
 def plan_particles(a: ApgArgs, num_particles: int, chunk: int,

@@ -21,23 +21,27 @@ cost is the mean over the P Monte-Carlo paths of the Brownian block
 mean dynamics. ``chunk`` is taken and checked as in the original (it must
 divide P; ``P <= chunk`` turns it off): the kernels sweep the particles in
 chunks of that size, or, at 0, of the largest divisor of P that fits their
-shared memory. ``value_and_grad`` spreads the chunks over a thread-block
-cluster of C = min(n_chunks, C_max) blocks (``cluster`` caps C, for
-measurement; every C gives the same bits), ``value_batch`` runs one block
-per candidate. The plain version takes the unchunked mean, which the
-chunked one equals in exact arithmetic.
+shared memory. Both particle kernels spread a plan's chunks over a
+thread-block cluster of C = min(n_chunks, C_max) blocks (``cluster`` caps
+C, for measurement; every C gives the same bits): ``value_and_grad`` is one
+cluster, ``value_batch`` a grid of K clusters, one per candidate. The plain
+version takes the unchunked mean, which the chunked one equals in exact
+arithmetic.
 
 State constraints (``state_constr``, either form): the plans are the
 decision rows, nZ = n_u + m columns wide in the proximal form (the slack
 targets past the controls, as ``engine/mpc_loader.py:765-773`` of the
 original splits them), and the gradient is nZ wide; ``trajectory`` reads
 the control columns. The kernels take the form as a compile-time branch
-(``consts.py::sc_kind``); ``value_batch`` shrinks its tile of candidate
-rows below 16 when the wider rows would not fit 48 KB of shared memory.
-The P=1 ``value_and_grad`` holds the trunk in registers at fixed widths
-(64 hidden units, at most 16 inputs; ``consts.py::check_p1_widths`` raises
-on others). :func:`value_batch_kernel`, :func:`value_and_grad_kernel` and
-:func:`trajectory_kernel` each count their launches in ``.launches``.
+(``consts.py::sc_kind``). At P=1 the kernels hold the trunk in registers
+at fixed widths (64 hidden units, at most 16 inputs): ``value_and_grad``
+raises on others (``consts.py::check_p1_widths``), while ``value_batch``
+(8 candidates per block there) and ``trajectory`` run them on a
+shared-memory step (16 candidates per block); a block takes fewer
+candidates where wider rows would not fit 48 KB of shared memory
+(``consts.py::value_batch_grid``). :func:`value_batch_kernel`,
+:func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
+their launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, check_p1_widths, plan_particles)
+    ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts,
+    check_p1_widths, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -78,9 +83,10 @@ def load_oracle_library() -> ctypes.CDLL:
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 5, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 6, ctypes.c_int),
-        "value_and_grad_cluster_max": ([ctypes.c_int], ctypes.c_int),
-        "value_and_grad_max_active_clusters": ([_A, ctypes.POINTER(ctypes.c_int)],
-                                               ctypes.c_int),
+        "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
+        "oracle_cluster_max": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+        "oracle_max_active_clusters": ([ctypes.c_int, _A, ctypes.POINTER(ctypes.c_int)],
+                                       ctypes.c_int),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -228,7 +234,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(K, H, nZ) plans -> (K,) costs: one launch of ``value_batch_kernel``
-    (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``)."""
+    (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``; the
+    grid is ``consts.value_batch_grid``)."""
     lib = load_oracle_library()
     K = int(U.shape[0])
     need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
@@ -268,17 +275,19 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
 def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
                           cluster: int = 0) -> None:
     """The oracle's chunk: ``chunk``, or the largest divisor of P whose
-    ``value_batch`` and ``value_and_grad`` blocks both fit; and the cluster
-    of ``value_and_grad``: C = min(n_chunks, C_max), C_max its form's
-    largest (``value_and_grad_cluster_max``) or ``cluster`` when given."""
+    ``value_batch`` and ``value_and_grad`` blocks both fit (one chunk for
+    both: the mean of chunk means depends on it); and the cluster of both
+    kernels: C = min(n_chunks, C_max), C_max the smaller of their forms'
+    largest (``oracle_cluster_max``) or ``cluster`` when given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
-    c_max = lib.value_and_grad_cluster_max(args.sc_kind)
+    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind)
+                for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD))
     if cluster:
         if not 1 <= cluster <= c_max:
-            raise ValueError(f"cluster={cluster}: value_and_grad takes 1 to {c_max} blocks")
+            raise ValueError(f"cluster={cluster}: the oracle kernels take 1 to {c_max} blocks")
         c_max = cluster
     plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max)
 
@@ -312,8 +321,8 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
     block of a Monte-Carlo solve (None for the mean dynamics of P=1);
     ``maxls`` is unused, as in the original (``value_batch`` takes any K);
-    ``cluster`` caps the particle ``value_and_grad``'s cluster (0: the
-    card's largest). CPU tensors get :func:`cost_oracle_plain`."""
+    ``cluster`` caps the particle kernels' clusters (0: the card's largest).
+    CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,

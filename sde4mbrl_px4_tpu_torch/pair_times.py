@@ -1,0 +1,209 @@
+"""Kernel and route times of the PyTorch/CUDA port, checkout against checkout,
+on one card.
+
+    python3 sde4mbrl_px4_tpu_torch/pair_times.py ROOT [ROOT ...]
+
+Each ROOT is a checkout of this repository: this one, or another commit
+unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
+Each runs in a fresh process, in the order given (for two commits give
+parent, change, change, parent), and builds its own kernels. Each process
+uses its own checkout's ``chip_smoke.py`` helpers, so both sides solve the
+same problems on the same seeds. It prints one line ``PAIR_TIMES {json}``
+per ROOT, then the card's name and power limit:
+
+- per-launch device times (CUDA events) of the oracle kernels at P=1
+  (``value_batch`` K=64, ``value_and_grad``, ``trajectory``; both
+  state-constraint forms), at P=512 antithetic (``value_batch`` K=1 and
+  K=4, ``value_and_grad``) and at the P=128 altitude floor;
+- the fixed-budget whole solves of ``chip_smoke.py`` (traj 10 iterations,
+  each constraint form 10, P=512 antithetic 5, with its ``trajectory``);
+- wall times of the host-bound oracle routes through ``mpc_fn``: MPPI
+  (p50 over ticks 3-10) and fixed-step APG at P=1 and at P=512 antithetic
+  (the route of ``chip_smoke.py`` phase 13: iterations, ms per iteration,
+  each solve's u0);
+- outputs whose bits the checkouts are compared on (keys ending in
+  ``_bits``): ``value_batch`` at P=512 antithetic (24 plans, K=4) and at
+  the P=128 floor (16 plans, K=1), the u0 of the P=512 route's first
+  solve, and ``value_batch`` K=1 on an ill-conditioned trunk (below). The
+  last line before the card's says, per such key, whether every ROOT gave
+  the same bits;
+- the ill-conditioned trunk: 48 random hidden units (``init_params``, seed
+  48) with the output layer scaled by 100, whose rollout reaches a cost of
+  ~6.5e13. Its ``value_batch`` K=1 on the kernel (the shared-memory step)
+  beside the plain oracle in float32 and in float64, and the spread of the
+  float32 plain value over 8 orders of the hidden units (the same
+  function): how far summation order alone moves this cost.
+
+Needs a CUDA card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def ill_conditioned_trunk(cs, CO, dev) -> dict:
+    """``value_batch`` K=1 on the 48-unit trunk of the module docstring:
+    the kernel, the plain oracle in float32 and float64, and the float32
+    plain values over 8 orders of the hidden units."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.cost.cost import make_cost_fn
+    from sde4mbrl_px4_tpu_torch.models.sde_model import init_params
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_sde
+
+    b = cs.make_bundle("iris_posctrl_mpc", dev)
+    x0, x_ref, u_prev, _ = cs.problem(b, dev)
+    net = init_params(torch.Generator().manual_seed(48), b.model, hidden=48, device=dev)["net"]
+    net["w2"] = net["w2"] * 100
+    U = cs.plans(1, 1, dev)
+
+    def oracle(params, plain):
+        make = CO.cost_oracle_plain if plain else CO.cost_oracle
+        return make(b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+
+    out = {"trunk48_kernel": float(oracle(dict(b.params, net=net), False).value_batch(U)[0]),
+           "trunk48_plain": float(oracle(dict(b.params, net=net), True).value_batch(U)[0])}
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+
+    params = {k: ({n: f64(w) for n, w in v.items()} if isinstance(v, dict) else f64(v))
+              for k, v in dict(b.params, net=net).items()}
+    cp = b.cost_params._replace(**{k: f64(v) for k, v in b.cost_params._asdict().items()})
+    ts, n_u = b.time_steps.double(), b.model.n_u
+    xp, sg = rollout_sde(b.model, params, f64(x0), f64(U[0]), ts,
+                         torch.zeros((ts.shape[0], 1, 13), dtype=torch.float64, device=dev))
+    out["trunk48_plain_float64"] = float(make_cost_fn(cp, ts)(
+        xp, sg, f64(U[0]), f64(x_ref), f64(u_prev)[:n_u], None))
+    orders = []
+    for s in range(8):
+        p0, p1 = (torch.from_numpy(np.random.RandomState(s + k).permutation(48)).to(dev)
+                  for k in (0, 100))
+        perm = dict(net, w0=net["w0"][:, p0], b0=net["b0"][p0], w1=net["w1"][p0][:, p1],
+                    b1=net["b1"][p1], w2=net["w2"][p1])
+        orders.append(float(oracle(dict(b.params, net=perm), True).value_batch(U)[0]))
+    out["trunk48_plain_orders"] = orders
+    out["trunk48_kernel_bits"] = out["trunk48_kernel"]
+    return out
+
+
+def measure(root: str) -> dict:
+    """The times of one checkout, in this process (its package and
+    ``chip_smoke.py`` first on ``sys.path``, this file's directory off it)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_plans, constrained_problem
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    if not torch.cuda.is_available():
+        raise SystemExit("pair_times: no CUDA device")
+    apply_fp32_policy()
+    dev = torch.device("cuda")
+    out = {"root": root}
+
+    def fixed(b, apg, x0, x_ref, u_prev, z, P, lb, ub, u_init, pre=None, n=20):
+        args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P,
+                lb, ub, u_init)
+        return cs.time_fixed(AK, args, pre, n_kernel=n, n_plain=0)[0]
+
+    b = cs.make_bundle("iris_traj_mpc", dev)
+    x0, x_ref, u_prev, u_init = cs.problem(b, dev)
+    out["apg_traj_fixed10"] = fixed(b, b.apg_config._replace(
+        max_iter=10, max_no_improvement_iter=10), x0, x_ref, u_prev, None, 1, b.lb, b.ub, u_init)
+    z512 = cs.brownian(512, dev, antithetic=True, seed=0)
+    out["apg_p512_fixed5"] = fixed(b, b.apg_config._replace(
+        max_iter=5, max_no_improvement_iter=5), x0, x_ref, u_prev, z512, 512, b.lb, b.ub,
+        u_init, b.precond, n=5)
+    for form in cs.SC_FORMS:
+        bc = make_mpc_from_config(cs.constrained_config(form), device=dev)[3]
+        cx0, cxr, cup, z_init = constrained_problem(bc)
+        out[f"apg_{form}_fixed10"] = fixed(bc, bc.apg_config._replace(
+            max_iter=10, max_no_improvement_iter=10), cx0, cxr, cup, None, 1, bc.lb_z, bc.ub_z,
+            z_init)
+        o = CO.cost_oracle(bc.model, bc.params, bc.cost_params, bc.time_steps, cx0, cxr, cup,
+                           None, 1, 4)
+        U, u = constrained_plans(bc, 64, 1), constrained_plans(bc, 1, 2)[0]
+        out[f"value_and_grad_{form}"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 50)
+        out[f"value_batch_K64_{form}"] = cs.per_launch_ms(lambda: o.value_batch(U), 50)
+
+    _, o, _ = cs.oracles("iris_posctrl_mpc", dev)
+    U, u = cs.plans(64, 1, dev), cs.plans(1, 2, dev)[0]
+    out["value_and_grad"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 50)
+    out["value_batch_K64"] = cs.per_launch_ms(lambda: o.value_batch(U), 50)
+    out["trajectory"] = cs.per_launch_ms(lambda: o.trajectory(u), 50)
+    bp = cs.make_bundle("iris_posctrl_mpc", dev)
+    px0, pxr, pup, _ = cs.problem(bp, dev)
+    o = CO.cost_oracle(bp.model, bp.params, bp.cost_params, bp.time_steps, px0, pxr, pup,
+                       z512, 512, 4)
+    U4, u = cs.plans(4, 3, dev), cs.plans(1, 4, dev)[0]
+    out["value_and_grad_p512"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 20)
+    out["value_batch_p512_K1"] = cs.per_launch_ms(lambda: o.value_batch(U4[:1]), 20)
+    out["value_batch_p512_K4"] = cs.per_launch_ms(lambda: o.value_batch(U4), 20)
+    out["value_batch_p512_bits"] = [o.value_batch(cs.plans(4, s, dev)).tolist()
+                                    for s in range(24)]
+    bf = cs.floor_mpc(cs.floor_config(), dev)[3]
+    fx0, fxr, fup, _ = constrained_problem(bf)
+    o = CO.cost_oracle(bf.model, bf.params, bf.cost_params, bf.time_steps, fx0, fxr, fup,
+                       cs.brownian(128, dev, antithetic=True, seed=2), 128, 4)
+    out["value_batch_floor_K1"] = cs.per_launch_ms(lambda: o.value_batch(U4[:1]), 20)
+    out["value_batch_floor_bits"] = [o.value_batch(cs.plans(1, 200 + s, dev)).tolist()
+                                     for s in range(16)]
+    out["value_and_grad_floor"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 20)
+
+    _, ms = cs.chain(cs.config("iris_posctrl_mpc", solver="mppi"), dev, 10)
+    out["mppi_ms_p50"] = statistics.median(ms[2:])
+    step = cs.FIXED_STEP["iris_posctrl_mpc"]
+    rows, ms = cs.chain(cs.config("iris_posctrl_mpc", linesearch=None, stepsize=step), dev, 4)
+    out["fixed_step_ms_p50"] = statistics.median(ms[1:])
+    out["fixed_step_iterations"] = rows[:, -1].tolist()
+    cfg = cs.config("iris_posctrl_mpc", linesearch=None, stepsize=step, particles=512)
+    for rep in range(2):                      # phase 13's route, twice
+        rows, ms = cs.chain(cfg, dev, 2)
+        out[f"fixed_step_p512_iterations_{rep}"] = rows[:, -1].tolist()
+        out[f"fixed_step_p512_iteration_ms_{rep}"] = [m / k for m, k in zip(ms, rows[:, -1])]
+        out[f"fixed_step_p512_u0_{rep}"] = rows[:, :-1].tolist()
+    out["fixed_step_p512_first_u0_bits"] = rows[0, :-1].tolist()
+    out.update(ill_conditioned_trunk(cs, CO, dev))
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(sys.argv[2]))), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    runs = []
+    for root in sys.argv[1:]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                           stdout=subprocess.PIPE, text=True)
+        print(r.stdout, end="", flush=True)
+        if r.returncode != 0:
+            return r.returncode
+        line = [x for x in r.stdout.splitlines() if x.startswith("PAIR_TIMES ")][-1]
+        runs.append(json.loads(line[len("PAIR_TIMES "):]))
+    print("BITS " + json.dumps({k: all(run[k] == runs[0][k] for run in runs)
+                                for k in runs[0] if k.endswith("_bits")}))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True)
+    print(card.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

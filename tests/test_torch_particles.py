@@ -168,12 +168,25 @@ def test_apg_args_mirror_the_header():
     """``consts.ApgArgs`` mirrors ``csrc/apg_solve.cuh::ApgArgs`` field for
     field, the cluster fields last; every field is 4 bytes, so the size is
     4 bytes per field (the launchers' ``*_args_size()`` checks the same on
-    the card)."""
+    the card). The constants of ``csrc/cost_oracle.cuh`` (which kernel a
+    query is for, the candidate rows of a P=1 ``value_batch`` block) are
+    mirrored too."""
     import ctypes
     import re
 
+    from sde4mbrl_px4_tpu_torch.ops.cuda import consts
     from sde4mbrl_px4_tpu_torch.ops.cuda.build import CSRC
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import APG_MAXK, ApgArgs
+
+    oracle = (CSRC / "cost_oracle.cuh").read_text()
+    defines = dict(re.findall(r"#define (ORACLE_\w+) (\w+)", oracle))
+    assert defines["ORACLE_P1_ROWS"] == "APG_MAXK" and consts.ORACLE_P1_ROWS == APG_MAXK
+    assert int(defines["ORACLE_TILE"]) == consts.ORACLE_TILE
+    kinds = re.search(r"enum \{ (ORACLE_VALUE_BATCH.*?) \};", oracle).group(1)
+    for name, value in re.findall(r"(ORACLE_\w+) = (\d+)", kinds):
+        assert getattr(consts, name) == int(value)
+    apg = (CSRC / "apg_solve.cuh").read_text()
+    assert int(re.search(r"#define APG_MAXK (\d+)", apg).group(1)) == APG_MAXK
 
     text = (CSRC / "apg_solve.cuh").read_text()
     body = re.search(r"struct ApgArgs \{(.*?)\};", text, re.S).group(1)
@@ -274,6 +287,34 @@ def test_chunked_particles_match_jax_chunked(repo_root, iris_traj_bundle):
     v_c, g_c = chunked.value_and_grad(jnp.asarray(u))
     assert float(v) == pytest.approx(float(v_c), rel=VAL_RTOL)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_c), rtol=G_RTOL, atol=G_ATOL)
+
+
+@pytest.fixture(scope="module")
+def p64_chunk16(repo_root, iris_pos_bundle):
+    """P=64 in chunks of 16 on the posctrl config (numpy draws): the port's
+    oracle and the JAX package's chunked interpret-mode oracle."""
+    b = iris_pos_bundle[3]
+    tb = load_port_bundles(repo_root)["iris_posctrl_mpc"]
+    x0, x_ref, u_prev, _ = problem(b.cost_params.uref)
+    noise = np.random.RandomState(64).standard_normal((64, H, 13)).astype(np.float32)
+    chunked = pallas_cost_oracle(
+        b.model, b.params, b.cost_params, b.time_steps, jnp.asarray(x0),
+        jnp.asarray(x_ref), jnp.asarray(u_prev), jnp.asarray(noise), 64, maxls=4,
+        interpret=True, chunk=16)
+    port = CO.cost_oracle(tb.model, tb.params, tb.cost_params, tb.time_steps, T(x0),
+                          T(x_ref), T(u_prev), T(noise), 64, 4, chunk=16)
+    return chunked, port
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_p64_chunks_of_16_value_batch_matches_jax(p64_chunk16, K):
+    """``value_batch`` at P=64 in 4 chunks of 16 (on the card a cluster of 4
+    blocks per candidate) against the chunked interpret-mode oracle."""
+    chunked, port = p64_chunk16
+    U = plans(K, 64 + K)
+    v = port.value_batch(T(U)).numpy()
+    assert v.shape == (K,)
+    np.testing.assert_allclose(v, np.asarray(chunked.value_batch(jnp.asarray(U))), rtol=VAL_RTOL)
 
 
 def test_particle_solve_lockstep_with_xla(p4, repo_root, iris_traj_bundle):
