@@ -4,8 +4,11 @@
 
 Drives the port's three solve routes through ``mpc_fn`` on the card and
 checks them: the linesearch APG on the hand-written whole-solve kernel
-(flown by ``RecedingHorizonController`` on both iris flight configs), and
-MPPI and fixed-step APG on the hand-written cost-oracle kernels. Phases
+(flown by ``RecedingHorizonController`` on both iris flight configs and
+both hexa ones), and MPPI and fixed-step APG on the hand-written
+cost-oracle kernels; then flies the closed loop (the engine node on the
+card against the simulated FCU over UDP) and the two-process launch tier.
+Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
 
@@ -18,7 +21,10 @@ without a result):
    ``value_and_grad``, ``value_batch`` and ``trajectory``: their trunk lives
    in registers) or a cluster form of ``value_batch`` spills; prints the
    registers and spills of the cluster particle forms and of the
-   shared-memory step of ``value_batch`` and ``trajectory``;
+   shared-memory step of ``value_batch`` and ``trajectory``; builds the
+   host runtime ``csrc/libmpc_native.so`` (``make -C csrc``: the native
+   mailbox) beside them; prints the P=1 forms' shared memory at n_u = 4
+   (iris) and n_u = 6 (hexa) and fails if the whole solve's passes 48 KB;
 3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
@@ -110,9 +116,39 @@ without a result):
     oracle with the same draws (|du| <= 1e-4 per row), fixed-step APG
     (kernel oracle against plain in lockstep), per-launch times at nZ = 10
     and nZ = 4; the fixed-step floor route at P=128 and its oracle kernels
-    against plain.
+    against plain;
+17. the hexa airframe (n_u = 6, F = 15): the oracle kernels against plain
+    at the phase-4 tolerances (``value_batch`` K = 1, 9, 64 on the register
+    chain, ``value_and_grad``, ``trajectory``), the fixed 10-iteration
+    traj solve (phase 3's check), the fixed 5-iteration P=512 antithetic
+    solve with its ``trajectory`` launch (the particle tolerances; its
+    ``x_evol`` held to the float64 rollout within rtol 1e-5 / atol 1e-6
+    plus twice the float32 spread of the plain rollout, ``rollout_spread``:
+    near hover the hexa's six-motor torque sums cancel, and float32
+    rollouts of that plan scatter by ~3e-6 with the summation order), the
+    three hexa goldens
+    (the engagement's commands gated from tick 20 on, its cost printed;
+    see ``goldens.ENGAGEMENT_GATED_FROM``) with their launch counts, and
+    the chained hexa pos and traj replays' per-solve wall time p50 and
+    iterations;
+18. the closed loop, ``sde4mbrl_px4_tpu_torch/sim/closed_loop.py`` with
+    the engine on the card and the pipeline on, 6 s at time-scale 1 each:
+    iris and hexa (gate: mean tracking error < 0.35 m over t_traj > 3 s,
+    FCU ``MPC_ON``), then iris at P=512 antithetic without and with
+    ``--deadline-ms 30`` (printed, not gated);
+    each prints its errors, watchdog trips, timeout ticks, largest pickup
+    index, solve time p50, the ingress pick's p50 and p99, the mailbox and
+    codec, and its kernel launches (zeroed before it, the engine's warm
+    solves included: ``apg_solve`` only at P=1, ``trajectory`` too at
+    P=512);
+19. the launch tier: ``fcu_sim`` (iris) and ``sde_control`` as two fresh
+    ``python -m sde4mbrl_px4_tpu_torch.launch`` processes on free ports;
+    gates: READY from both within 300 s, the FCU at ``MPC_ON`` within 30 s
+    of ``initialize_mpc`` and the traj idle mode set over
+    ``EngineServiceClient``, the traj mode reported 3 s after
+    ``CTRL_TRAJ_ACTIVE`` with the FCU still on, both exiting 0 on SIGTERM.
 
-In phases 6-8, 11-13 and 15-16 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13 and 15-18 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -157,6 +193,11 @@ PADDED_HID = 72
 FLOOR = {"state_id": [2], "state_bound": [[-5.0, -1.2]], "state_penalty": [300.0],
          "slack_scaling": [1.0]}   # its altitude floor (NED z <= -1.2), :125-130
 FLOOR_NOISE = 0.6    # ... and the diffusion scale it gives the model (:102, :137)
+VEHICLES = ("iris", "hexa")
+# the hexa's fixed-budget solve: the CPU test's (tests/test_torch_hexa.py)
+HEXA_TOLS = {"hexa_traj_mpc": (10, 2e-4, 2e-5)}
+CLOSED_LOOP_S = 6.0    # seconds of each closed loop at time-scale 1
+LAUNCH_READY_S, LAUNCH_ON_S = 300.0, 30.0   # the launch tier's time limits
 # the least time of a call: the H100 SXM's fp32 rate outside the tensor cores
 # and its HBM3 rate (NVIDIA's published H100 SXM figures)
 PEAK_FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -264,9 +305,18 @@ def phase_build() -> None:
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBS)) as ex:
+    with ThreadPoolExecutor(len(LIBS) + 1) as ex:
+        # the host runtime (the native mailbox and MAVLink codec) the closed
+        # loop runs on, built beside the kernels
+        native = ex.submit(subprocess.run, ["make", "-C", os.path.join(ROOT, "csrc")],
+                           capture_output=True, text=True, timeout=300)
         paths = dict(zip(LIBS, ex.map(build.build_library, LIBS)))
+        native = native.result()
     nvcc_s = dict(build.build_library.seconds)     # loading reuses the builds
+    if native.returncode != 0:
+        raise AssertionError(f"make -C csrc failed: {native.stdout[-2000:]}"
+                             f"{native.stderr[-2000:]}")
+    log("phase 2: built csrc/libmpc_native.so (the native mailbox and MAVLink codec)")
     AK.load_apg_library()
     CO.load_oracle_library()
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
@@ -308,9 +358,10 @@ def phase_build() -> None:
         raise AssertionError(f"a cluster form of value_batch spills: {vb}")
 
 
-def phase_parity(dev) -> tuple:
-    """Whole-solve kernel vs plain on the card. Returns (max |du|, kernel
-    ms, plain ms) of the fixed-budget traj solve."""
+def phase_parity(dev, tols: dict = TOLS) -> tuple:
+    """Whole-solve kernel vs plain on the card, on the fixed-budget problem
+    of each config of ``tols`` (name: (max_iter, rtol, atol)). Returns (max
+    |du|, (kernel ms, plain ms) of the first config's solve)."""
     import numpy as np
     import torch
 
@@ -320,7 +371,7 @@ def phase_parity(dev) -> tuple:
 
     worst = 0.0
     timing = None
-    for name, (max_iter, rtol, atol) in TOLS.items():
+    for name, (max_iter, rtol, atol) in tols.items():
         b = load_mpc_from_cfgfile(os.path.join(ROOT, f"configs/{name}.yaml"), device=dev)[3]
         pres = [None] + ([b.precond] if b.precond is not None else [])
         for pre in pres:
@@ -389,11 +440,11 @@ def oracles(name: str, dev):
     return b, CO.cost_oracle(*args), CO.cost_oracle_plain(*args)
 
 
-def plans(K: int, seed: int, dev):
+def plans(K: int, seed: int, dev, n_u: int = 4):
     import numpy as np
     import torch
 
-    u = np.random.RandomState(seed).uniform(0.3, 0.95, (K, 20, 4)).astype(np.float32)
+    u = np.random.RandomState(seed).uniform(0.3, 0.95, (K, 20, n_u)).astype(np.float32)
     return torch.from_numpy(u).to(dev)
 
 
@@ -513,12 +564,12 @@ def phase_fixed_step_parity(dev) -> float:
     return worst
 
 
-def controller(dev):
+def controller(dev, vehicle: str = "iris"):
     from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
 
     return RecedingHorizonController(
-        os.path.join(ROOT, "configs/iris_traj_mpc.yaml"),
-        os.path.join(ROOT, "configs/iris_posctrl_mpc.yaml"),
+        os.path.join(ROOT, f"configs/{vehicle}_traj_mpc.yaml"),
+        os.path.join(ROOT, f"configs/{vehicle}_posctrl_mpc.yaml"),
         seed=0, now_fn=lambda: 0.0, device=dev)
 
 
@@ -536,13 +587,15 @@ def recording(c) -> list:
     return records
 
 
-def phase_slice(dev) -> int:
+def phase_slice(dev, vehicle: str = "iris") -> int:
+    """The whole-solve route of one airframe: its three golden replays on
+    the card, each on a controller of its own; returns the launches."""
     import numpy as np
     import torch
 
     from sde4mbrl_px4_tpu_torch.engine import goldens as G
 
-    ctrls = [controller(dev) for _ in range(3)]         # one per replay
+    ctrls = [controller(dev, vehicle) for _ in range(3)]   # one per replay
     solves0 = sum(c.traj.solves + c.pos.solves for c in ctrls)
     zero_counts()
     modes, *engagement = G.replay_engagement(ctrls[2])
@@ -551,11 +604,14 @@ def phase_slice(dev) -> int:
                "engagement": engagement}
     torch.cuda.synchronize()
     solves = sum(c.traj.solves + c.pos.solves for c in ctrls) - solves0
-    got = check_route("whole-solve", {"apg_solve": solves, "value_batch": 0,
-                                      "value_and_grad": 0, "trajectory": 0})
+    got = check_route(f"{vehicle} whole-solve", {"apg_solve": solves, "value_batch": 0,
+                                                 "value_and_grad": 0, "trajectory": 0})
     for name, (tr, costs) in results.items():
-        path = os.path.join(G.golden_dir(ROOT), f"iris_{name}_trace.npz")
-        res = G.compare_to_golden(tr, costs, path)
+        path = os.path.join(G.golden_dir(ROOT), f"{vehicle}_{name}_trace.npz")
+        # the engagement's commands are gated from its settled window on
+        # (goldens.ENGAGEMENT_GATED_FROM), its modes and indices on every tick
+        first = G.ENGAGEMENT_GATED_FROM[vehicle] if name == "engagement" else 0
+        res = G.compare_to_golden(tr, costs, path, first=first)
         if name == "engagement":
             # The reference gates only the flagship replays on a device
             # (bench.py:231-282). Most engagement ticks stop at max_iter
@@ -568,11 +624,16 @@ def phase_slice(dev) -> int:
             res["ok"] = (res["du"] <= G.GATES["u"] and res["dw"] <= G.GATES["w"]
                          and res["idx_exact"] and bool(np.array_equal(
                              modes.astype(np.float32), np.load(path)["modes"])))
-        log(f"golden iris_{name} ({len(tr)} ticks): max|du| {res['du']:.3e} "
+        full = G.compare_to_golden(tr, costs, path) if first else res
+        if first:
+            log(f"golden {vehicle}_{name} over all {len(tr)} ticks (printed): max|du| "
+                f"{full['du']:.3e} max|dw| {full['dw']:.3e} cost_rel {full['cost_rel']:.3e}")
+        log(f"golden {vehicle}_{name} ({len(tr) - first} ticks from tick {first}): max|du| "
+            f"{res['du']:.3e} "
             f"max|dw| {res['dw']:.3e} cost_rel {res['cost_rel']:.3e} idx "
             f"{'exact' if res['idx_exact'] else 'MISMATCH'} -> {'PASS' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
-            raise AssertionError(f"golden gate failed for iris_{name}: {res}")
+            raise AssertionError(f"golden gate failed for {vehicle}_{name}: {res}")
     return got["apg_solve"]
 
 
@@ -691,12 +752,12 @@ def phase_fixed_step(dev) -> dict:
     return got
 
 
-def chained(dev, mode: str, n: int, warm: int):
+def chained(dev, mode: str, n: int, warm: int, vehicle: str = "iris"):
     """(p50 wall ms, mean iterations, iterations per tick) per solve over
     ticks ``warm+1..n``."""
     from sde4mbrl_px4_tpu_torch.engine import goldens as G
 
-    c = controller(dev)
+    c = controller(dev, vehicle)
     records = recording(c)
     (G.replay_pos if mode == "pos" else G.replay_traj)(c, n=n)
     tail = records[warm:]
@@ -844,13 +905,52 @@ def brownian(P: int, dev, antithetic: bool = False, seed: int = None):
     return draw_brownian(gen, 20, P, antithetic, dev).transpose(0, 1)
 
 
+def rollout_spread(b, x0, u) -> tuple:
+    """(x64, spread): the mean rollout of ``u`` in float64 on the CPU, and
+    per element the largest distance from it of four float32 rollouts of
+    the same function: on the card and on the CPU, each with the motors in
+    their order and reversed (a reversal permutes the mixing columns, the
+    first layer's control rows and the plan's columns together, so only the
+    summation order moves)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    def cast(t, **kw):
+        return {k: cast(v, **kw) for k, v in t.items()} if isinstance(t, dict) else t.to(**kw)
+
+    def rollout(perm, **kw):
+        net = dict(b.params["net"])
+        net["w0"] = torch.cat([net["w0"][:9], net["w0"][9:][perm]])
+        params = cast({**b.params, "net": net}, **kw)
+        model = b.model._replace(mixing=b.model.mixing[:, perm].to(**kw),
+                                 inertia=b.model.inertia.to(**kw))
+        return rollout_mean(model, params, x0.to(**kw), u[:, perm].to(**kw),
+                            b.time_steps.to(**kw)).to(device="cpu", dtype=torch.float64)
+
+    n_u = u.shape[1]
+    orders = (list(range(n_u)), list(range(n_u))[::-1])
+    x64 = rollout(orders[0], device="cpu", dtype=torch.float64)
+    spread = torch.zeros_like(x64)
+    for dev in (b.device, torch.device("cpu")):
+        for perm in orders:
+            x32 = rollout(perm, device=dev, dtype=torch.float32)
+            spread = torch.maximum(spread, (x32 - x64).abs())
+    return x64, spread
+
+
 def particle_solve_parity(AK, b, args, chunk: int, tag: str,
-                          what: str = "particle solve") -> tuple:
+                          what: str = "particle solve", fp32_spread: bool = False) -> tuple:
     """A particle (or state-constrained) solve through the kernel and the
     plain version: equal steps, ``yk`` and ``opt_cost`` at the particle
     tolerances, ``x_evol`` (the ``trajectory`` launch, or the P=1 exit
-    sweep's) the mean rollout of the control columns of the kernel's plan.
-    Returns (max |du|, max |dx| of ``x_evol``, steps)."""
+    sweep's) the mean rollout of the control columns of the kernel's plan
+    at rtol 1e-5 / atol 1e-6. With ``fp32_spread`` ``x_evol`` is held to
+    the float64 rollout instead, each element within rtol 1e-5 / atol 1e-6
+    plus twice the float32 spread of the plain rollout there
+    (``rollout_spread``: a plan whose float32 rollout moves past 1e-5 with
+    the summation order). Returns (max |du|, max |dx| of ``x_evol``,
+    steps)."""
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
@@ -861,14 +961,23 @@ def particle_solve_parity(AK, b, args, chunk: int, tag: str,
     nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
     du = float((st_k.yk - st_p.yk).abs().max())
     dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
-    ref = rollout_mean(b.model, b.params, args[5], st_k.yk[:, :b.model.n_u], b.time_steps)
+    u = st_k.yk[:, :b.model.n_u]
+    ref = rollout_mean(b.model, b.params, args[5], u, b.time_steps)
     dx = float((xe_k - ref).abs().max())
+    ok_x = bool(torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6))
+    spread = ""
+    if fp32_spread:
+        x64, f32 = rollout_spread(b, args[5], u)
+        gap = (xe_k.cpu().double() - x64).abs()
+        ok_x = bool((gap <= 1e-5 * x64.abs() + 1e-6 + 2 * f32).all())
+        spread = (f"; against float64: the kernel max {float(gap.max()):.3e}, the float32 "
+                  f"spread of the plain rollout max {float(f32.max()):.3e}")
     log(f"{what} {tag}: steps kernel {nk} plain {np_}; max|du| {du:.3e} "
         f"(rtol {PART_RTOL}, atol {PART_ATOL}); cost rel {dc:.3e} (5e-4); x_evol "
-        f"max|dx| {dx:.3e} (rtol 1e-5)")
+        f"max|dx| {dx:.3e} (rtol 1e-5{'; held to float64 + twice the spread' if fp32_spread else ''})"
+        f"{spread}")
     if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=PART_RTOL, atol=PART_ATOL)
-            and dc <= PART_RTOL and torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6)
-            and bool(torch.isfinite(st_k.yk).all())):
+            and dc <= PART_RTOL and ok_x and bool(torch.isfinite(st_k.yk).all())):
         raise AssertionError(f"the {what} disagrees with its plain version ({tag})")
     return du, dx, nk
 
@@ -1688,6 +1797,292 @@ def phase_constrained_oracle(dev, card: str) -> dict:
     return out
 
 
+def p1_smem(dev) -> dict:
+    """Shared memory per block of the P=1 forms at n_u = 4 (iris) and n_u = 6
+    (hexa): the whole solve against the 48 KB its launch check allows
+    (``apg_solve.cu::launch_ok``), the oracle kernels at their tiles."""
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    lib, olib = AK.load_apg_library(), CO.load_oracle_library()
+    out = {}
+    for vehicle in VEHICLES:
+        b = make_bundle(f"{vehicle}_traj_mpc", dev)
+        x0, x_ref, u_prev, _ = problem(b, dev)
+        _, a = build_consts(b.model, b.params, b.cost_params, b.apg_config, b.time_steps, x0,
+                            x_ref, u_prev, b.lb, b.ub, has_pre=b.precond is not None)
+        _, o = build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref,
+                            u_prev)
+        out[vehicle] = {"n_u": b.model.n_u, "F": a.F,
+                        "apg_solve": lib.apg_smem_bytes(ctypes.byref(a)),
+                        "value_batch_K64": olib.value_batch_smem_bytes(ctypes.byref(o), 64),
+                        "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(o)),
+                        "trajectory": olib.trajectory_smem_bytes(ctypes.byref(o))}
+        log(f"phase 2: shared memory of the P=1 forms, {vehicle} (n_u = {b.model.n_u}, "
+            f"F = {a.F}): {out[vehicle]} (whole solve budget {AK.SMEM_LIMIT} B)")
+        if out[vehicle]["apg_solve"] > AK.SMEM_LIMIT:
+            raise AssertionError(f"the P=1 whole solve of {vehicle} needs more than 48 KB")
+    return out
+
+
+def phase_hexa(dev, card: str) -> dict:
+    """The hexa airframe (n_u = 6, F = 15) on every kernel: the oracle at
+    the phase-4 tolerances (``value_batch`` K = 1, 9, 64 on the register
+    chain, ``value_and_grad``, ``trajectory``), the fixed 10-iteration traj
+    solve and the fixed 5-iteration P=512 antithetic solve (with its
+    ``trajectory`` launch) kernel against plain, the three hexa goldens
+    (the engagement's cost printed, not gated), then the chained hexa
+    replays' per-solve wall time p50 and iterations."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    out = {"err": {"value_batch": 0.0, "value_and_grad": 0.0, "trajectory": 0.0}}
+    b, kern, plain = oracles("hexa_traj_mpc", dev)
+    n_u = b.model.n_u
+    for K in (1, 9, 64):
+        U = plans(K, K, dev, n_u)
+        n0 = CO.value_batch_kernel.launches
+        vk = kern.value_batch(U)
+        torch.cuda.synchronize()
+        vp = plain.value_batch(U)
+        rel = float(((vk - vp).abs() / vp.abs()).max())
+        out["err"]["value_batch"] = max(out["err"]["value_batch"], float((vk - vp).abs().max()))
+        log(f"oracle hexa_traj_mpc (n_u = {n_u}): value_batch K={K} max rel err {rel:.3e} "
+            f"(rtol 2e-5)")
+        if not (rel <= 2e-5 and bool(torch.isfinite(vk).all())
+                and CO.value_batch_kernel.launches == n0 + 1):
+            raise AssertionError(f"value_batch disagrees with its plain version (hexa, K={K})")
+    u = plans(1, 7, dev, n_u)[0]
+    (v_k, g_k), (v_p, g_p) = kern.value_and_grad(u), plain.value_and_grad(u)
+    x_k, x_p = kern.trajectory(u), plain.trajectory(u)
+    torch.cuda.synchronize()
+    dv = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+    dg, dx = float((g_k - g_p).abs().max()), float((x_k - x_p).abs().max())
+    out["err"]["value_and_grad"] = max(dg, abs(float(v_k - v_p)))
+    out["err"]["trajectory"] = dx
+    log(f"oracle hexa_traj_mpc: value_and_grad value rel {dv:.3e} (rtol 2e-5), grad max|d| "
+        f"{dg:.3e} (rtol 5e-4, atol 5e-5; motors 5-6 max|g| "
+        f"{float(g_k[:, 4:].abs().max()):.3e}); trajectory max|dx| {dx:.3e} (rtol 1e-5)")
+    if not (dv <= 2e-5 and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5)
+            and torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6)
+            and float(g_k[:, 4:].abs().max()) > 0):
+        raise AssertionError("an oracle kernel disagrees with its plain version (hexa)")
+    log(f"value_batch rows per block by K, hexa trunk: {check_grid(b, b.params, dev)}")
+
+    out["solve_err"], out["fixed"] = phase_parity(dev, HEXA_TOLS)
+    # the fixed 5-iteration P=512 antithetic solve, for parity only
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    bp = make_mpc_from_config(config("hexa_traj_mpc", particles=P_FULL), device=dev)[3]
+    x0, x_ref, u_prev, u_init = problem(bp, dev)
+    apg = bp.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    args = (bp.model, bp.params, bp.cost_params, apg, bp.time_steps, x0, x_ref, u_prev, z,
+            P_FULL, bp.lb, bp.ub, u_init)
+    n0 = counts()
+    du, dxp, steps = particle_solve_parity(AK, bp, args, 0,
+                                           f"hexa_traj_mpc P={P_FULL} antithetic",
+                                           fp32_spread=True)
+    n1 = counts()
+    if (n1["apg_solve"] - n0["apg_solve"], n1["trajectory"] - n0["trajectory"]) != (1, 1):
+        raise AssertionError(f"the hexa P={P_FULL} solve did not launch apg_solve and "
+                             f"trajectory once each: {n0} -> {n1}")
+    out["p512"] = {"max_du": du, "max_dx": dxp, "steps": steps}
+    out["p512"]["ms"], out["p512"]["plain_ms"] = time_fixed(AK, args, bp.precond, n_kernel=5,
+                                                            n_plain=2)
+    log(f"fixed 5-iteration hexa P={P_FULL} traj solve ({card}): kernel "
+        f"{out['p512']['ms']:.3f} ms (CUDA events, mean of 5, solve + trajectory), plain "
+        f"{out['p512']['plain_ms']:.3f} ms (wall, mean of 2)")
+
+    out["launches"] = phase_slice(dev, "hexa")
+    for mode in ("pos", "traj"):
+        k_ms, k_steps, ticks = chained(dev, mode, 6, 1, "hexa")
+        out[mode] = (k_ms, k_steps, ticks)
+        log(f"chained hexa/{mode} replay, per solve p50 ({card}): kernel {k_ms:.3f} ms wall "
+            f"at {k_steps:.1f} iterations over ticks 2-6 (iterations {ticks})")
+    return out
+
+
+def free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_closed_loop(dev, card: str) -> dict:
+    """The port's closed loop (``sim/closed_loop.py``: the engine node on the
+    card, pipeline on, the plant on the host CPU, UDP MAVLink between them)
+    at time-scale 1 for ``CLOSED_LOOP_S`` s: iris and hexa gated at the
+    example's PASS (mean error < 0.35 m over t_traj > 3 s, FCU ``MPC_ON``),
+    iris at P=512 antithetic without and with the reference's 30 ms
+    iteration budget (``--deadline-ms 30``) printed. The launch counts are
+    zeroed before
+    each run (the engine's warm solves included) and read after."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.sim import closed_loop
+
+    runs = {}
+    p512 = ["--particles", str(P_FULL)]
+    for tag, argv, gated in (("iris", [], True), ("hexa", ["--vehicle", "hexa"], True),
+                             (f"iris P={P_FULL}", p512, False),
+                             (f"iris P={P_FULL} deadline 30 ms", p512 + ["--deadline-ms", "30"],
+                              False)):
+        zero_counts()
+        res = closed_loop.run(["--seconds", str(CLOSED_LOOP_S), "--time-scale", "1"] + argv)
+        torch.cuda.synchronize()
+        got = counts()
+        res["launches"] = got
+        runs[tag] = res
+        log(f"closed loop {tag} ({card}, engine on {res['device']}, pipeline "
+            f"{res['pipeline']}, {res['seconds']} s at time-scale 1 in {res['wall_s']:.2f} s "
+            f"wall, engine built in {res['build_s']:.2f} s): tracking error mean "
+            f"{res['err_mean_m']:.4f} m max {res['err_max_m']:.4f} m over {res['err_ticks']} "
+            f"ticks; FCU status {res['fcu_status']}; watchdog trips {res['watchdog_trips']}; "
+            f"timeout ticks {res['timeout_ticks']}/{res['tracked_ticks']} "
+            f"({100 * res['timeout_frac']:.1f} %); max pickup idx {res['max_pickup_idx']} "
+            f"(overruns {res['overruns']}); {res['solves']} solves, p50 "
+            f"{res['solve_ms_p50']:.3f} ms (max {res['solve_ms_max']:.3f}) at "
+            f"{res['iterations_p50']} iterations (first {res['first_iterations']}); ingress "
+            f"pick p50 {res['pick_ms_p50']:.4f} ms p99 {res['pick_ms_p99']:.4f} ms over "
+            f"{res['picks']}; mailbox {res['mailbox']}, codec {res['codec']}; kernel "
+            f"launches {got} -> {'PASS' if res['ok'] else 'FAIL'}"
+            f"{'' if gated else ' (printed, not gated)'}")
+        particles = "--particles" in argv
+        if (got["apg_solve"] < 1 or got["value_batch"] or got["value_and_grad"]
+                or (got["trajectory"] < 1 if particles else got["trajectory"])):
+            raise AssertionError(f"the closed loop {tag} did not run on the kernels it needs")
+        if "jax" in sys.modules:
+            raise AssertionError("JAX was imported")
+        if gated and not res["ok"]:
+            raise AssertionError(f"the closed loop {tag} failed its PASS gate: {res}")
+    return runs
+
+
+def phase_launch_tier(card: str) -> dict:
+    """The launch tier: ``fcu_sim`` (iris) and ``sde_control`` as two fresh
+    processes through ``python -m sde4mbrl_px4_tpu_torch.launch``, on the
+    shipped launch files with free UDP ports. Gates: both print READY within
+    ``LAUNCH_READY_S``; after ``initialize_mpc``, the traj idle mode and the
+    motor passthrough are set over ``EngineServiceClient`` the FCU reports
+    ``MPC_ON`` within ``LAUNCH_ON_S``; after ``CTRL_TRAJ_ACTIVE`` the
+    engine reports the traj mode and the FCU stays ``MPC_ON``; both exit
+    0 on SIGTERM."""
+    import queue
+    import threading
+
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.core.types import CTRL_TRAJ_ACTIVE, CTRL_TRAJ_IDLE
+    from sde4mbrl_px4_tpu_torch.io.engine_runtime import EngineServiceClient
+
+    d = os.path.join(ROOT, "build", "chip_smoke", "launch")
+    os.makedirs(d, exist_ok=True)
+    mav, svc = free_udp_port(), free_udp_port()
+    files = {}
+    for key, name in (("fcu_sim", "iris_px4_sitl.yaml"), ("sde_control", "iris_sdectrl.yaml")):
+        with open(os.path.join(ROOT, "configs", "launch", name)) as f:
+            cfg = yaml.safe_load(f)
+        cfg.update(addr_mavlink_state_msg=f"127.0.0.1:{mav}", addr_services=f"127.0.0.1:{svc}",
+                   config_dir=os.path.join(ROOT, "configs"))
+        files[key] = os.path.join(d, name)
+        with open(files[key], "w") as f:
+            yaml.safe_dump(cfg, f)
+    lines: "queue.Queue" = queue.Queue()
+    procs, logs = {}, {k: [] for k in files}
+
+    def pump(key, proc):
+        for line in proc.stdout:
+            logs[key].append(line.rstrip())
+            lines.put((key, line.rstrip()))
+
+    def wait_for(pred, seconds: float, what: str) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            try:
+                key, line = lines.get(timeout=0.5)
+            except queue.Empty:
+                if any(p.poll() is not None for p in procs.values()):
+                    break
+                continue
+            if pred(key, line):
+                return time.perf_counter() - t0
+        tails = {k: v[-15:] for k, v in logs.items()}
+        raise AssertionError(f"the launch tier: no {what} within {seconds} s; {tails}")
+
+    t_start = time.perf_counter()
+    out = {}
+    try:
+        for key in ("sde_control", "fcu_sim"):
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", files[key]],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                bufsize=1)
+            threading.Thread(target=pump, args=(key, procs[key]), daemon=True).start()
+        ready = set()
+
+        def is_ready(key, line):
+            if "[launch] READY" in line:
+                ready.add(key)
+            return ready == set(procs)
+
+        wait_for(is_ready, LAUNCH_READY_S, "READY from both nodes")
+        out["ready_s"] = time.perf_counter() - t_start
+        log(f"launch tier: both nodes READY {out['ready_s']:.2f} s after their start")
+        cli = EngineServiceClient(f"127.0.0.1:{svc}", timeout=5.0)
+        try:
+            t_cmd = time.perf_counter()
+            if not cli.initialize_mpc():
+                raise AssertionError("the launch tier: initialize_mpc refused")
+            for mode, kw in ((CTRL_TRAJ_IDLE, {}), (0, {"weight_motors": 100})):
+                ok, msg = cli.set_mode(mode, **kw)
+                if not ok:
+                    raise AssertionError(f"the launch tier: set_mode {mode} refused: {msg}")
+            on = "status=1"     # FCUSim.MPC_ON
+            wait_for(lambda k, line: k == "fcu_sim" and on in line, LAUNCH_ON_S,
+                     "FCU MPC_ON after the traj idle mode")
+            out["mpc_on_s"] = time.perf_counter() - t_cmd
+            ok, msg = cli.set_mode(CTRL_TRAJ_ACTIVE)
+            if not (ok and "started" in msg):
+                raise AssertionError(f"the launch tier: CTRL_TRAJ_ACTIVE refused: {msg}")
+            time.sleep(3.0)
+            rec = cli.status()
+            n_on = sum(1 for line in logs["fcu_sim"][-3:] if on in line)
+            out.update(state=rec.get("ctrl_state"), num_steps=rec.get("num_steps"),
+                       solve_ms=1e3 * float(rec.get("solve_time", 0.0)),
+                       mpc_indx=rec.get("mpc_indx"), fcu_tail=logs["fcu_sim"][-3:])
+            log(f"launch tier ({card}): FCU MPC_ON {out['mpc_on_s']:.2f} s after "
+                f"initialize_mpc; 3 s after CTRL_TRAJ_ACTIVE the engine reports state "
+                f"{out['state']}, {out['num_steps']} iterations, solve {out['solve_ms']:.3f} "
+                f"ms, pickup idx {out['mpc_indx']}; the FCU's last lines {out['fcu_tail']}")
+            if out["state"] != "traj" or n_on < 2:
+                raise AssertionError(f"the launch tier did not fly the trajectory: {out}")
+        finally:
+            cli.close()
+    finally:
+        for key, proc in procs.items():
+            if proc.poll() is None:
+                proc.terminate()
+        for key, proc in procs.items():
+            try:
+                out[f"{key}_rc"] = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out[f"{key}_rc"] = proc.wait(timeout=30)
+    log(f"launch tier: exit codes after SIGTERM: engine {out['sde_control_rc']}, fcu_sim "
+        f"{out['fcu_sim_rc']}")
+    if out["sde_control_rc"] != 0 or out["fcu_sim_rc"] != 0:
+        raise AssertionError(f"a launch-tier node did not stop cleanly: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1703,6 +2098,7 @@ def main() -> int:
     log(f"phase 1: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
+    smem = p1_smem(dev)
     max_err, fixed = phase_parity(dev)
     log(f"phase 3: the whole-solve kernel matches its plain version (max|du| {max_err:.3e})")
     oracle_err = phase_oracle_parity(dev)
@@ -1740,6 +2136,13 @@ def main() -> int:
     coracle = phase_constrained_oracle(dev, card)
     log("phase 16: MPPI and fixed-step APG with state constraints run on the oracle kernels, "
         "which match the plain oracle there")
+    hexa = phase_hexa(dev, card)
+    log("phase 17: the hexa airframe (n_u = 6) matches the plain versions on every kernel "
+        "and passes its golden gates")
+    loops = phase_closed_loop(dev, card)
+    log("phase 18: the closed loop flies iris and hexa on the card")
+    tier = phase_launch_tier(card)
+    log("phase 19: the launch tier's two processes reach MPC_ON")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -1759,6 +2162,8 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None, **extra}
 
+    b_hexa = make_bundle("hexa_traj_mpc", dev)
+    cl_launches = {tag: run["launches"] for tag, run in loops.items()}
     kernels = [
         entry("apg_solve", "P=1", launches["apg_solve"], max_err, timing["traj"][0],
               timing["traj"][1], bound(b_traj, "apg_solve", nc_traj, K=4,
@@ -1767,7 +2172,18 @@ def main() -> int:
                     f"{timing['traj'][3]:.1f} iterations", device_ms=timing["traj"][2],
               iteration_ms=timing["traj"][4], pos_iteration_ms=timing["pos"][4],
               phase_split_iteration_ms=timing["split"]["iteration_ms"],
-              fixed_budget_ms=fixed[0], fixed_budget_plain_ms=fixed[1]),
+              fixed_budget_ms=fixed[0], fixed_budget_plain_ms=fixed[1],
+              smem_bytes=smem["iris"]["apg_solve"],
+              closed_loop_launches=cl_launches["iris"]["apg_solve"]),
+        entry("apg_solve", "P=1, hexa (n_u = 6, F = 15)", hexa["launches"],
+              hexa["solve_err"], hexa["fixed"][0], hexa["fixed"][1],
+              bound(b_hexa, "apg_solve", n_consts(b_hexa, dev), K=4, iters=10),
+              timed="fixed 10-iteration hexa traj solve", smem_bytes=smem["hexa"]["apg_solve"],
+              traj_solve_ms_p50=hexa["traj"][0], traj_iterations=hexa["traj"][1],
+              pos_solve_ms_p50=hexa["pos"][0], pos_iterations=hexa["pos"][1],
+              closed_loop_launches=cl_launches["hexa"]["apg_solve"],
+              p512_fixed_ms=hexa["p512"]["ms"], p512_fixed_plain_ms=hexa["p512"]["plain_ms"],
+              p512_max_abs_err=hexa["p512"]["max_du"]),
         entry("apg_solve", particles, flight["launches"]["apg_solve"], part_err["apg_solve"],
               flight["fixed_ms"], flight["fixed_plain_ms"],
               bound(b_traj, "apg_solve", nc_traj, P=P_FULL, K=4, iters=flight["fixed_steps"]),
@@ -1786,6 +2202,7 @@ def main() -> int:
     ] + [entry(name, "P=1", launches[name], oracle_err[name], timing[name][0], timing[name][1],
                bound(b_pos, name, nc_pos, K=64 if name == "value_batch" else 1),
                timed="per launch" + (", K=64" if name == "value_batch" else ""),
+               hexa_max_abs_err=hexa["err"][name],
                **({"rows_per_block": ORACLE_P1_ROWS, "ms_K256": timing["value_batch_K256"][0],
                    "plain_ms_K256": timing["value_batch_K256"][1],
                    "bound_ms_K256": bound(b_pos, name, nc_pos, K=256)[0]}
@@ -1813,7 +2230,8 @@ def main() -> int:
         entry("trajectory", f"x_evol of the P={P_FULL} route (mean dynamics)",
               flight["launches"]["trajectory"], flight["max_dx"], timing["trajectory"][0],
               timing["trajectory"][1], bound(b_pos, "trajectory", nc_pos),
-              timed="per launch, as the P=1 branch: the same kernel at the same shape")]
+              timed="per launch, as the P=1 branch: the same kernel at the same shape",
+              closed_loop_launches=cl_launches[f"iris P={P_FULL}"]["trajectory"])]
 
     err, smem = cons["err"], cons["smem"]
     for form in SC_FORMS:
@@ -1876,7 +2294,11 @@ def main() -> int:
         "fixed_step": timing["fixed_step"][0],
         "fixed_step_plain": timing["fixed_step"][1],
         f"p{P_FULL}anti_traj": flight["wall_ms"],
-        "constrained_flight_p50": statistics.median(cflight["runs"]["prox"]["wall"][1:])}}))
+        "constrained_flight_p50": statistics.median(cflight["runs"]["prox"]["wall"][1:]),
+        "hexa_traj": hexa["traj"][0], "hexa_pos": hexa["pos"][0]},
+        "closed_loop": {tag: {k: v for k, v in run.items() if k != "launches"}
+                        for tag, run in loops.items()},
+        "launch_tier": {k: v for k, v in tier.items() if k != "fcu_tail"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,18 @@ each solve draws its exploration noise from it in one call and moves it to
 the device in one copy (``solver/mppi.py::draw_mppi_noise``). The
 deadline budget is ignored by MPPI, as in the original.
 
-Not ported yet (ROADMAP.md §1 'Node twin and closed loop'): the
-``pipeline=True`` fetch thread and the ``offset_adaptation`` estimator.
+``pipeline=True`` fetches each dispatched solve on a single-worker
+thread and publishes plan k-1 at call k of :meth:`solve_once` (original
+``:404-440``). ``offset_adaptation`` arms the position-mode
+:class:`~sde4mbrl_px4_tpu_torch.engine.offset.DisturbanceEstimator`; on a
+fresh engagement it is reset BEFORE its first tick, where the original
+ticks it first and then resets it (``:494-510``), dropping that tick.
 """
 from __future__ import annotations
 
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple
 
@@ -44,7 +49,9 @@ from sde4mbrl_px4_tpu_torch.core.types import (
     hover_state,
 )
 from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+from sde4mbrl_px4_tpu_torch.engine.offset import DisturbanceEstimator
 from sde4mbrl_px4_tpu_torch.engine.telemetry import OptMPCStateRecord
+from sde4mbrl_px4_tpu_torch.models.trajectory import load_trajectory_csv, make_state_from_traj
 
 __all__ = ["ControlAutomata", "RecedingHorizonController", "CompiledMPC",
            "OverrunMeter", "BudgetMeter"]
@@ -209,6 +216,12 @@ class CompiledMPC:
         self.dt_usec = float(cfg["_time_steps"][0]) * 1e6
         self.seed = seed
         self.state_from_traj = state_from_traj
+        # the same table on the host, for the ingress path: a read on the
+        # card there would wait behind the solve in flight
+        self.state_from_traj_host = None
+        if state_from_traj is not None:
+            self.state_from_traj_host = make_state_from_traj(
+                load_trajectory_csv(cfg["trajectory_path"], convert_to_ned=False), "cpu")
         self.reset = reset_fn
         self.mpc = mpc_fn
         self.solves = 0
@@ -256,23 +269,35 @@ class RecedingHorizonController:
     - :meth:`on_state` — the hot ingress: resolve the automata and pick the
       command out of the latest finished plan by time index;
     - :meth:`solve_once` — one solver-loop body: mode dispatch, solve, plan
-      publication (blocking). :meth:`solve_async` + :meth:`collect_entry`
-      split it into a dispatch that never waits on the device and a
-      collection that does.
+      publication (blocking, or with ``pipeline`` the previous call's plan).
+      :meth:`solve_async` + :meth:`collect_entry` split it into a dispatch
+      that never waits on the device and a collection that does.
+
+    With ``pipeline`` the controller holds a fetch thread: :meth:`close`
+    it (or use the controller as a context manager).
     """
 
     def __init__(self, traj_cfg_path: str, pos_cfg_path: str, seed: int = 0,
                  now_fn: Callable[[], float] = time.time,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 pipeline: bool = False,
+                 offset_adaptation: Optional[dict] = None):
         self.traj = CompiledMPC(traj_cfg_path, seed=seed, device=device)
         self.pos = CompiledMPC(pos_cfg_path, seed=seed, device=device)
         self.device = self.traj.device
+        # opt-in integral reference shaping of the pos mode (engine/offset.py),
+        # its step measured from the state stamps
+        self.offset_est = None
+        self._offset_last_usec = None
+        if offset_adaptation:
+            self.offset_est = DisturbanceEstimator(
+                dt=float(self.pos.dt_usec) / 1e6, **offset_adaptation)
         if self.traj.state_from_traj is None:
             raise ValueError("trajectory config must declare trajectory_path")
         if self.pos.state_from_traj is not None:
             raise ValueError("position config must NOT declare trajectory_path")
         self.automata = ControlAutomata(
-            state_from_traj=lambda t: self.traj.state_from_traj(t).cpu().numpy(),
+            state_from_traj=lambda t: self.traj.state_from_traj_host(t).numpy(),
             now_fn=now_fn,
         )
         self.seed = seed
@@ -293,13 +318,41 @@ class RecedingHorizonController:
         self._curr_ctrl: Optional[str] = None
         self._idle_traj = False
 
+        # pipeline: one worker fetches each dispatched solve (waiting on the
+        # device there); solve_once publishes the previous call's fetch
+        self.pipeline = pipeline
+        self._pending = None
+        self._fetcher = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="mpc-fetch")
+                         if pipeline else None)
+
+    def close(self) -> None:
+        """Release the pipeline's fetch worker (no-op without pipeline)."""
+        if self._fetcher is not None:
+            self._fetcher.shutdown(wait=False, cancel_futures=True)
+            self._fetcher = None
+            self._pending = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     # ------------------------------------------------------------------ solve
 
     def solve_once(self, x: np.ndarray, control_state: int, trajec_time: float,
                    target_x: np.ndarray, sample_time_usec: float) -> OptMPCStateRecord:
-        """One blocking solver iteration: dispatch, wait, publish."""
-        record = self.collect_entry(self.solve_async(
-            x, control_state, trajec_time, target_x, sample_time_usec))
+        """One solver iteration: dispatch, wait, publish. With ``pipeline``
+        it dispatches the solve of this state and publishes the previous
+        call's plan (on the first call, this one's); every plan carries its
+        own ``sample_time_usec``, so the pickup index stays exact."""
+        entry = self.solve_async(x, control_state, trajec_time, target_x,
+                                 sample_time_usec)
+        if self.pipeline:
+            fut = self._fetcher.submit(self._fetch, *entry)
+            prev, self._pending = self._pending, fut
+            return self._publish(*(prev if prev is not None else fut).result())
+        record = self.collect_entry(entry)
         budget = (self.traj if self.plan_is_traj else self.pos).dt_usec / 1e6
         if record.solve_time > budget:
             self.budget_warn.record(record.solve_time, budget)
@@ -311,15 +364,28 @@ class RecedingHorizonController:
         """Dispatch one solve without waiting on the device; returns an
         opaque entry for :meth:`collect_entry`. Warm starts advance here."""
         mode = CONTROL_STATE_NAMES.get(int(control_state), "none")
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        x_host = np.asarray(x, np.float32)
+        x = torch.as_tensor(x_host, device=self.device)
         t0 = time.perf_counter()
 
         if self._curr_ctrl is None or (self._curr_ctrl == "none" and mode != "none"):
             self.opt_state_traj = self.traj.reset(x, self.rng_traj, x)
             self.opt_state_pos = self.pos.reset(x, self.rng_pos, x)
+            if self.offset_est is not None:
+                self.offset_est.reset()   # fresh engagement, fresh integral
         if mode == "idle" and self._curr_ctrl in (None, "none", "pos"):
             self.opt_state_traj = self.traj.reset(x, self.rng_traj, x)
             self._idle_traj = True
+        # the estimator ticks after the resets, on the host state, in pos mode
+        # only (idle is the pre-engagement hold), over the measured step
+        if self.offset_est is not None:
+            if mode == "pos":
+                dt_s = (None if self._offset_last_usec is None else
+                        (sample_time_usec - self._offset_last_usec) / 1e6)
+                target_x = self.offset_est.update(x_host, target_x, dt_s)
+                self._offset_last_usec = sample_time_usec
+            else:
+                self._offset_last_usec = None
 
         target = torch.as_tensor(np.asarray(target_x, np.float32), device=self.device)
         tt = max(float(trajec_time), 0.0)
@@ -352,16 +418,26 @@ class RecedingHorizonController:
             used = self.opt_state_pos
         else:
             raise ValueError(f"unknown control state {control_state}")
-        return (sol, used, mode, int(control_state), float(sample_time_usec), t0)
+        done = None
+        if self.device.type == "cuda":
+            # marks the solve's end on the dispatching thread's stream, for
+            # a fetch that runs on another thread (pipeline, the node)
+            done = torch.cuda.Event()
+            done.record()
+        return (sol, used, mode, int(control_state), float(sample_time_usec), t0, done)
 
     def collect_entry(self, entry: tuple) -> OptMPCStateRecord:
         """Block on a dispatched entry and publish its plan + stats."""
         return self._publish(*self._fetch(*entry))
 
     def _fetch(self, sol, used, mode: str, control_state: int,
-               sample_time_usec: float, t0: float) -> tuple:
+               sample_time_usec: float, t0: float, done=None) -> tuple:
         """Wait for a dispatched solve and copy its outputs to the host in
-        one transfer. Mutates no controller state."""
+        one transfer. Mutates no controller state, so it may run on another
+        thread: its stream first waits for ``done``, the event recorded
+        after the solve's launches."""
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
         stats = torch.stack([used.avg_linesearch, used.stepsize, used.num_steps,
                              used.grad_sqr, used.avg_stepsize, used.init_cost,
                              used.opt_cost]).reshape(-1)

@@ -38,7 +38,7 @@ from sde4mbrl_px4_tpu_torch.core.types import (
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
            "replay_engagement", "replay_solver_family", "compare_to_golden",
            "constrained_problem", "constrained_plans", "padded_trunk", "GATES",
-           "SOLVER_FAMILIES"]
+           "SOLVER_FAMILIES", "ENGAGEMENT_GATED_FROM"]
 
 # bench.py:250 — |du| <= 0.03, |dw| <= 0.08, relative cost <= 0.02
 GATES = {"u": 0.03, "w": 0.08, "cost_rel": 0.02}
@@ -210,16 +210,29 @@ def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
     return np.stack(rows)
 
 
+# The first engagement-replay tick whose commands and cost are gated, per
+# airframe. The hexa replay's idle ticks publish unconverged 100-iteration
+# pos plans whose commands move by ~0.13 when the JAX package's own replay
+# gets its states perturbed by 1e-6 relative, and its first engaged traj
+# ticks start from those warm starts
+# (test_torch_hexa_engagement.py::test_jax_hexa_engagement_is_fp_chaotic);
+# from tick 20 on, both packages hold the gates. Modes and pickup indices
+# are exact on every tick.
+ENGAGEMENT_GATED_FROM = {"iris": 0, "hexa": 20}
+
+
 def compare_to_golden(trace: np.ndarray, costs: np.ndarray,
-                      golden_path: str) -> Dict[str, float]:
+                      golden_path: str, first: int = 0) -> Dict[str, float]:
     """Worst differences against a committed golden and whether every
-    gate holds: ``{"du", "dw", "cost_rel", "idx_exact", "ok"}``."""
+    gate holds: ``{"du", "dw", "cost_rel", "idx_exact", "ok"}``. Commands
+    and costs are compared from row ``first`` on, the pickup index on every
+    row."""
     ref = np.load(golden_path)
-    du = float(np.abs(trace[:, :6] - ref["trace"][:, :6]).max())
-    dw = float(np.abs(trace[:, 6:10] - ref["trace"][:, 6:10]).max())
+    du = float(np.abs(trace[first:, :6] - ref["trace"][first:, :6]).max())
+    dw = float(np.abs(trace[first:, 6:10] - ref["trace"][first:, 6:10]).max())
     idx_ok = bool((trace[:, 10] == ref["trace"][:, 10]).all())
-    dc = float((np.abs(costs - ref["costs"])
-                / np.maximum(np.abs(ref["costs"]), 1e-6)).max())
+    dc = float((np.abs(costs[first:] - ref["costs"][first:])
+                / np.maximum(np.abs(ref["costs"][first:]), 1e-6)).max())
     ok = (du <= GATES["u"] and dw <= GATES["w"] and dc <= GATES["cost_rel"]
           and idx_ok)
     return {"du": du, "dw": dw, "cost_rel": dc, "idx_exact": idx_ok, "ok": ok}

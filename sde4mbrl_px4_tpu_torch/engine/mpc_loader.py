@@ -118,8 +118,7 @@ _PARTICLE_XLA = "Particles without a kernel: risk, start spread, MPPI K x P"
 
 
 def _check_slice(cfg: Dict[str, Any]) -> None:
-    """Refuse the config features this port does not implement yet (the
-    hexa among them), and
+    """Refuse the config features this port does not implement yet, and
     the settings the original refuses: particle ones (``:336-341``,
     ``:464-470``) and ``solver: policy`` with proximal slack
     (``:374-378``)."""
@@ -157,10 +156,6 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
         raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
     if str(cfg.get("matmul_precision", "highest")).lower() not in ("highest", "float32"):
         raise _not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
-    # the 6-motor kernel route has never run on the card (_resolve_model
-    # keeps the hexa branch for the item that lifts this)
-    if len(cfg["input_constr"]["input_id"]) != 4:
-        raise _not_in_slice("a 6-motor (hexa) config", "Hexa")
 
 
 def _resolve_model(cfg: Dict[str, Any], device: torch.device):

@@ -11,9 +11,9 @@ position-hold golden replay.
   whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
   never imports JAX;
 - particle configs and ``state_constr`` configs (both forms, APG and MPPI)
-  load and route to the kernel wrappers; configs outside the slice (the
-  hexa configs among them) are
-  refused with the ROADMAP item that brings them, and the settings the
+  load and route to the kernel wrappers, and so do the four hexa configs;
+  configs outside the slice are refused with the ROADMAP item that brings
+  them, and the settings the
   original refuses (particle options, ``solver: policy`` with proximal
   slack) raise ValueError as there;
 - every entry point runs on the card unless asked for the CPU: without
@@ -21,6 +21,7 @@ position-hold golden replay.
   ``test_torch_slice_traj.py``.)
 """
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -209,12 +210,21 @@ def test_policy_on_prox_config_is_refused(repo_root):
 
 @pytest.mark.parametrize("name", ["hexa_posctrl_mpc", "hexa_traj_mpc",
                                   "hexa_sitl_posctrl_mpc", "hexa_sitl_traj_mpc"])
-def test_hexa_configs_are_refused(repo_root, name):
-    """The 6-motor configs are refused, naming the ROADMAP item that brings
-    them: their kernel route has not run on the card."""
-    with pytest.raises(NotImplementedError, match="Hexa"):
-        tloader.load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{name}.yaml"),
-                                      device="cpu")
+def test_hexa_configs_load(repo_root, name):
+    """The four 6-motor configs load: the hexa model (n_u = 6, F = 15) on
+    the shipped checkpoint, a (20, 6) warm start and one finite solve."""
+    cfg, (reset_fn, mpc_fn), sft, b = tloader.load_mpc_from_cfgfile(
+        os.path.join(repo_root, f"configs/{name}.yaml"), device="cpu")
+    assert b.model.n_u == 6 and b.model.vehicle.name.startswith("hexa")
+    assert int(b.params["net"]["w0"].shape[0]) == 15
+    assert b.lb.shape == (6,) and b.cost_params.uref.shape == (6,)
+    assert (sft is not None) == ("traj" in name) and b.num_particles == 1
+    x = torch.zeros(13)
+    x[6] = 1.0
+    st = reset_fn(x, None, x)
+    assert st.yk.shape == (20, 6)
+    sol = mpc_fn(x, None, st, 0.0, x, 2)
+    assert sol.u_opt.shape == (20, 6) and torch.isfinite(sol.u_opt).all()
 
 
 @pytest.mark.parametrize("entry", ["load_mpc_from_cfgfile", "CompiledMPC",
@@ -283,7 +293,10 @@ def test_deadline_budget():
 
 def test_slice_runs_without_jax(repo_root):
     """A fresh process imports the port, builds the controller and solves
-    once in each mode without JAX ever entering ``sys.modules``."""
+    once in each mode, runs the particle and constrained routes, imports
+    the node, the sim and the launcher and flies one solve through the
+    engine node, without JAX ever entering ``sys.modules``; no module of
+    the port imports JAX or the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -320,6 +333,28 @@ def test_slice_runs_without_jax(repo_root):
             sol = mpc_fn(xt, None, reset_fn(xt, None, xt), 0.0, xt)
             assert int(sol.opt_state.num_steps) == 2 and sol.u_opt.shape == (20, 4)
             assert sol.opt_state.yk.shape == (20, 10 if prox else 4)
+        # the node, the sim and the launcher: one pos solve through the
+        # engine's doorbell, picked up by the ingress
+        import time
+        import sde4mbrl_px4_tpu_torch.launch
+        import sde4mbrl_px4_tpu_torch.sim.closed_loop
+        import sde4mbrl_px4_tpu_torch.sim.sitl
+        from sde4mbrl_px4_tpu_torch.core.types import CTRL_POSE_ACTIVE
+        from sde4mbrl_px4_tpu_torch.io.engine_runtime import SDEControlNode
+        node = SDEControlNode("configs/iris_traj_mpc.yaml", "configs/iris_posctrl_mpc.yaml",
+                              device="cpu", now_fn=lambda: 0.0)
+        node.ctrl.pos.deadline_ms, node.ctrl.pos._iter_ms = 1.0, 1.0
+        node.ctrl.pos.deadline_min_iters = 2
+        node.start()
+        assert node.initialize_mpc() and node.set_mode(CTRL_POSE_ACTIVE, target_pose=x)[0]
+        out = None
+        for _ in range(200):
+            out = node.handle_state(x, 1e6)
+            if out is not None:
+                break
+            time.sleep(0.05)
+        node.stop()
+        assert out is not None and out[2] == CONTROL_STATES["pos"], out
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
@@ -328,6 +363,15 @@ def test_slice_runs_without_jax(repo_root):
     r = subprocess.run([sys.executable, "-c", code], cwd=repo_root, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "NO_JAX_OK" in r.stdout, r.stdout + r.stderr
+    # and no module of the port names the JAX package in an import
+    pkg = os.path.join(repo_root, "sde4mbrl_px4_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    text = fh.read()
+                assert not re.search(r"^\s*(from|import)\s+(jax|sde4mbrl_px4_tpu)\b",
+                                     text, re.M), f
 
 
 def test_oracle_routes_run_without_jax(repo_root):
