@@ -146,9 +146,25 @@ without a result):
     gates: READY from both within 300 s, the FCU at ``MPC_ON`` within 30 s
     of ``initialize_mpc`` and the traj idle mode set over
     ``EngineServiceClient``, the traj mode reported 3 s after
-    ``CTRL_TRAJ_ACTIVE`` with the FCU still on, both exiting 0 on SIGTERM.
+    ``CTRL_TRAJ_ACTIVE`` with the FCU still on, both exiting 0 on SIGTERM;
+20. batched scenario solves and the fleet (``parallel/batched.py``,
+    ``parallel/fleet.py``): the whole-solve kernel on its scenario axis, a
+    grid of B blocks (P=1) or B clusters (particles) in one launch. Held
+    bit for bit to each scenario's solo kernel solve: B = 1 on a traj
+    flagship tick, every scenario of iris posctrl at ``bench.py``'s cell
+    (B = 256, 50 iterations, ``make_batch_inputs(spread=0.5)``, its
+    rotating 0.5 m targets), of hexa posctrl at B = 64, and of the fixed
+    5-iteration P=512 antithetic solve at B = 4 with its batched
+    ``trajectory`` launch (``x_evol``); two of the B = 256 scenarios and
+    one P=512 scenario against the plain version (rtol 2e-4 / atol 2e-5,
+    the particle tolerances; equal steps); the batched ``trajectory``
+    against the plain rollouts (rtol 1e-5); the batched steps timed at
+    B = 1, 132, 256 and 1024 (host p50 per step, device ms, iterations per
+    solve, solves/s); then ``sim/fleet_serving.py --vehicles 64 --seconds
+    8`` (gate: ``RESULT: PASS``, the cold tick's age 0 and a steady age
+    above 0; its busy time p50/p99 printed beside a tick's device time).
 
-In phases 6-8, 11-13 and 15-18 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18 and 20 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -197,6 +213,13 @@ VEHICLES = ("iris", "hexa")
 # the hexa's fixed-budget solve: the CPU test's (tests/test_torch_hexa.py)
 HEXA_TOLS = {"hexa_traj_mpc": (10, 2e-4, 2e-5)}
 CLOSED_LOOP_S = 6.0    # seconds of each closed loop at time-scale 1
+# the batched solves (phase 20): bench.py's cell (:787-855), B = 256 at a
+# 50-iteration budget; timed at one block, one wave of the 132 SMs, B = 256
+# and eight waves; the hexa and particle batches held to their solo solves
+BATCH_ITERS, BATCH_B, BATCH_STEPS = 50, 256, 6
+BATCH_SIZES = (1, 132, BATCH_B, 1024)
+HEXA_B, PART_B = 64, 4
+FLEET_ARGV = ["--vehicles", "64", "--seconds", "8"]   # examples/fleet_serving.py
 LAUNCH_READY_S, LAUNCH_ON_S = 300.0, 30.0   # the launch tier's time limits
 # the least time of a call: the H100 SXM's fp32 rate outside the tensor cores
 # and its HBM3 rate (NVIDIA's published H100 SXM figures)
@@ -1405,39 +1428,42 @@ def trunk_flops(b) -> int:
     return 2 * (F * HID + HID * HID + HID * OUT)
 
 
-def work(b, kind: str, P: int = 1, K: int = 1, iters: int = 0) -> int:
+def work(b, kind: str, P: int = 1, K: int = 1, iters: float = 0, B: int = 1) -> float:
     """FLOPs of one call, from its shapes: ``value_batch`` K x P rows
     forward over H steps; ``value_and_grad`` P rows forward and reverse
     (one trunk pass each way: that the particle forms re-run the trunk in
     the reverse is the kernels' choice, not work the function needs);
     ``trajectory`` one row forward; ``apg_solve`` iters + 2 gradients and
-    iters K-candidate rollouts."""
+    iters K-candidate rollouts. A call over B scenarios (the scenario axis
+    of ``apg_solve`` and ``trajectory``) does B times the work, ``iters``
+    then the scenarios' mean iterations."""
     H, f = int(b.time_steps.shape[0]), trunk_flops(b)
     vg = P * H * 2 * f
     cands = K * P * H * f
-    return {"value_batch": cands, "value_and_grad": vg, "trajectory": H * f,
-            "apg_solve": (iters + 2) * vg + iters * cands}[kind]
+    return B * {"value_batch": cands, "value_and_grad": vg, "trajectory": H * f,
+                "apg_solve": (iters + 2) * vg + iters * cands}[kind]
 
 
-def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0) -> int:
+def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0, B: int = 1) -> int:
     """Bytes one call must move: the consts buffer, the plans (nZ wide) and
-    the (H, P, 13) Brownian block read once, the outputs written once."""
+    the (H, P, 13) Brownian block read once, the outputs written once; over
+    B scenarios each has its own, but the preconditioner is shared."""
     H, nZ = int(b.time_steps.shape[0]), int(b.lb_z.shape[0])
     noise = H * P * 13 if P > 1 else 0
-    pre = H * nZ if b.precond is not None else 0
+    pre = H * nZ if b.precond is not None and kind == "apg_solve" else 0
     io = {"value_batch": K * H * nZ + K, "value_and_grad": 2 * H * nZ + 1,
           "trajectory": H * nZ + (H + 1) * 13,
-          "apg_solve": 2 * H * nZ + 1 + pre + 8 + (H + 1) * 13}[kind]
-    return 4 * (n_consts + noise + io)
+          "apg_solve": 2 * H * nZ + 1 + 8 + (H + 1) * 13}[kind]
+    return 4 * (B * (n_consts + noise + io) + pre)
 
 
 def bound(b, kind: str, n_consts: int, **shape) -> tuple:
     """(bound_ms, bound_by): the larger of the call's FLOPs over the fp32
     peak and its bytes over the HBM rate."""
-    t_ops = work(b, kind, **{k: v for k, v in shape.items() if k in ("P", "K", "iters")})
+    t_ops = work(b, kind, **{k: v for k, v in shape.items() if k in ("P", "K", "iters", "B")})
     t_ops = t_ops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = io_bytes(b, kind, n_consts=n_consts,
-                       **{k: v for k, v in shape.items() if k in ("P", "K")}) / HBM_BYTES_S * 1e3
+    t_bytes = io_bytes(b, kind, n_consts=n_consts, **{k: v for k, v in shape.items()
+                                                      if k in ("P", "K", "B")}) / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -2083,6 +2109,276 @@ def phase_launch_tier(card: str) -> dict:
     return out
 
 
+def bench_targets(xs) -> list:
+    """``bench.py``'s rotating targets (:815-823): the states offset by 0.5 m
+    along x, y and -z in turn, so that every step every scenario replans."""
+    import torch
+
+    offs = torch.zeros((3, 13), device=xs.device)
+    offs[0, 0], offs[1, 1], offs[2, 2] = 0.5, 0.5, -0.5
+    return [xs + o for o in offs]
+
+
+def scenario_state(st, i: int):
+    """Scenario i's warm start of a batched ``APGState``."""
+    return type(st)(*(f[i] for f in st))
+
+
+def bit_equal_to_solo(tag: str, sol, solos: list) -> int:
+    """Every scenario of a batched solve against its solo kernel solve
+    (``mpc_fn``, one launch each): ``u_opt``, ``x_evol`` and every
+    ``opt_state`` field bit for bit."""
+    import torch
+
+    bad = [i for i, one in enumerate(solos)
+           if not (torch.equal(one.u_opt, sol.u_opt[i]) and torch.equal(one.x_evol, sol.x_evol[i])
+                   and all(torch.equal(f, g[i]) for f, g in zip(one.opt_state, sol.opt_state)))]
+    steps = sol.opt_state.num_steps
+    log(f"batched {tag}: {len(solos)} scenario(s) against their solo kernel solves: "
+        f"{len(solos) - len(bad)} bit-equal (u_opt, x_evol, opt_state); iterations "
+        f"{float(steps.min()):.0f}-{float(steps.max()):.0f}, mean {float(steps.mean()):.2f}")
+    if bad:
+        raise AssertionError(f"batched {tag}: scenarios {bad[:10]} differ from their solo solves")
+    return len(solos)
+
+
+def batched_pair(cfg: dict, dev) -> tuple:
+    """One config's solo and batched entry points on the card:
+    ``(reset_fn, mpc_fn, batched_reset, batched_mpc, state_from_traj, bundle)``."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batched_mpc
+
+    _, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    reset_b, mpc_b, _ = make_batched_mpc(copy.deepcopy(cfg), device=dev)
+    return reset_fn, mpc_fn, reset_b, mpc_b, sft, b
+
+
+def timed_batched_steps(mpc_b, reset_b, B: int, dev, n: int = BATCH_STEPS) -> dict:
+    """``bench.py``'s batched cell (:787-855) at B scenarios: states from
+    ``make_batch_inputs(spread=0.5)``, one warm step, then ``n`` re-targeted
+    steps, the launch counts zeroed just before them and read just after.
+    Per step: host wall p50 (dispatch to a synchronised result), device ms
+    p50 (CUDA events), iterations per solve (mean, and the slowest scenario,
+    which sets its wave's length); the last step's inputs and solution."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batch_inputs
+
+    xs, _ = make_batch_inputs(B, spread=0.5, device=dev)
+    tg, ts = bench_targets(xs), torch.zeros(B, device=dev)
+    sol = mpc_b(xs, None, reset_b(xs, None, xs), ts, tg[0])
+    torch.cuda.synchronize()
+    wall, dev_ms, steps, slowest = [], [], [], []
+    zero_counts()
+    for k in range(n):
+        st_in, tgt = sol.opt_state, tg[(k + 1) % 3]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        sol = mpc_b(xs, None, st_in, ts, tgt)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+        steps.append(float(sol.opt_state.num_steps.mean()))
+        slowest.append(float(sol.opt_state.num_steps.max()))
+    got = check_route(f"batched B={B}", {"apg_solve": n, "value_batch": 0,
+                                         "value_and_grad": 0, "trajectory": 0})
+    if not (bool(torch.isfinite(sol.u_opt).all()) and bool(torch.isfinite(sol.x_evol).all())):
+        raise AssertionError(f"batched B={B} returned non-finite values")
+    p50 = statistics.median(wall)
+    return {"B": B, "wall_ms_p50": p50, "device_ms_p50": statistics.median(dev_ms),
+            "steps_per_solve": statistics.mean(steps), "slowest_steps": statistics.mean(slowest),
+            "solves_per_s": B / p50 * 1e3, "launches": got, "last": (xs, st_in, ts, tgt, sol)}
+
+
+def phase_batched(dev, card: str) -> dict:
+    """The batched scenario solves (``parallel/batched.py``): the whole-solve
+    kernel over a grid of B scenarios, each held to its solo kernel solve
+    bit for bit (the B = 1 launch on a traj flagship tick; iris posctrl at
+    ``bench.py``'s 50 iterations and B = 256; hexa posctrl at B = 64; the
+    fixed 5-iteration P=512 antithetic solve at B = 4, with its batched
+    ``trajectory`` launch), two of the B = 256 scenarios and one of the
+    P=512 ones held to the plain version (rtol 2e-4 / atol 2e-5, and the
+    particle tolerances; equal steps), the batched steps timed at B in
+    ``BATCH_SIZES``, and the batched ``trajectory`` launch against the
+    plain rollouts."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import batch_consts, build_consts
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batch_inputs
+
+    out = {"bit_equal": {}}
+    # B = 1 is the solo launch: a traj flagship tick (200 iterations at most)
+    reset_fn, mpc_fn, reset_b, mpc_b, sft, _ = batched_pair(config("iris_traj_mpc"), dev)
+    t = np.float32(3.0)
+    x = enu2ned(sft(t))
+    x[0] += 0.2
+    one = mpc_fn(x, None, reset_fn(x, None, x), t, x)
+    sol = mpc_b(x[None], None, reset_b(x[None], None, x[None]),
+                torch.full((1,), float(t), device=dev), x[None])
+    out["bit_equal"]["B=1 traj"] = bit_equal_to_solo("B = 1, a traj flagship tick", sol, [one])
+
+    # iris posctrl at 50 iterations: the timed steps, then B = 256 held to
+    # its solo solves and two scenarios to the plain version
+    cfg = config("iris_posctrl_mpc", max_iter=BATCH_ITERS)
+    reset_fn, mpc_fn, reset_b, mpc_b, _, b = batched_pair(cfg, dev)
+    runs = {}
+    for B in BATCH_SIZES:
+        r = timed_batched_steps(mpc_b, reset_b, B, dev)
+        runs[B] = r
+        log(f"batched iris posctrl, {BATCH_ITERS}-iteration budget, B={B} ({card}): "
+            f"{r['wall_ms_p50']:.3f} ms per step p50 (device {r['device_ms_p50']:.3f} ms), "
+            f"{r['steps_per_solve']:.2f} iterations per solve (slowest scenario "
+            f"{r['slowest_steps']:.1f}), {r['solves_per_s']:.0f} solves/s")
+    xs, st_in, ts, tgt, sol = runs[BATCH_B]["last"]
+    out["bit_equal"][f"iris B={BATCH_B}"] = bit_equal_to_solo(
+        f"iris posctrl B={BATCH_B}", sol,
+        [mpc_fn(xs[i], None, scenario_state(st_in, i), 0.0, tgt[i]) for i in range(BATCH_B)])
+    _, _, pieces = build_mpc(copy.deepcopy(cfg), device=dev)
+    x_ref = pieces.build_ref(ts, pieces.targets(tgt))
+    idx = torch.tensor([0, BATCH_B - 1], device=dev)
+    n_u = b.model.n_u
+    w0 = time.perf_counter()
+    st_p, _ = AK.apg_solve_plain_batched(
+        b.model, b.params, b.cost_params, b.apg_config, b.time_steps, xs[idx], x_ref[idx],
+        st_in.yk[idx, 0], None, 1, b.lb_z, b.ub_z, st_in.yk[idx],
+        t_init=st_in.stepsize[idx], precond=b.precond)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - w0) * 1e3 / 2
+    du = float((st_p.yk[:, :, :n_u] - sol.u_opt[idx]).abs().max())
+    log(f"batched B={BATCH_B}, scenarios 0 and {BATCH_B - 1} against the plain version "
+        f"({plain_ms:.1f} ms per scenario's plain solve): steps "
+        f"{sol.opt_state.num_steps[idx].tolist()} / {st_p.num_steps.tolist()}, max|du| "
+        f"{du:.3e} (rtol 2e-4 / atol 2e-5)")
+    if not (torch.equal(st_p.num_steps, sol.opt_state.num_steps[idx]) and torch.allclose(
+            sol.u_opt[idx], st_p.yk[:, :, :n_u], rtol=2e-4, atol=2e-5)):
+        raise AssertionError("the batched solve does not match the plain version")
+    out.update(runs={B: {k: v for k, v in r.items() if k != "last"} for B, r in runs.items()},
+               plain_ms=plain_ms, du=du, bundle=b)
+
+    # hexa posctrl at B = 64, the config's own 100-iteration budget
+    reset_fn, mpc_fn, reset_b, mpc_b, _, _ = batched_pair(config("hexa_posctrl_mpc"), dev)
+    xs, _ = make_batch_inputs(HEXA_B, spread=0.5, device=dev)
+    tgt = bench_targets(xs)[0]
+    st_in = reset_b(xs, None, xs)
+    sol = mpc_b(xs, None, st_in, torch.zeros(HEXA_B, device=dev), tgt)
+    out["bit_equal"][f"hexa B={HEXA_B}"] = bit_equal_to_solo(
+        f"hexa posctrl B={HEXA_B}", sol,
+        [mpc_fn(xs[i], None, scenario_state(st_in, i), 0.0, tgt[i]) for i in range(HEXA_B)])
+
+    # P=512 antithetic, a fixed 5-iteration solve at B = 4 along the
+    # lemniscate: one apg_solve launch over 4 clusters, one trajectory
+    # launch over 4 blocks
+    pcfg = config("iris_traj_mpc", particles=P_FULL, max_iter=5)
+    reset_fn, mpc_fn, reset_b, mpc_b, sft, pb = batched_pair(pcfg, dev)
+    ts = torch.tensor([3.0 + 0.5 * i for i in range(PART_B)], device=dev)
+    xs = enu2ned(sft(ts))
+    x_refs = build_mpc(copy.deepcopy(pcfg), device=dev)[2].build_ref(ts, xs)
+    z = torch.stack([brownian(P_FULL, dev, antithetic=True, seed=i) for i in range(PART_B)])
+    st_in = reset_b(xs, None, xs)
+    torch.cuda.synchronize()
+    zero_counts()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    sol = mpc_b(xs, iter([z]), st_in, ts, xs)
+    e1.record()
+    torch.cuda.synchronize()
+    part_launches = check_route(f"batched P={P_FULL} B={PART_B}", {
+        "apg_solve": 1, "value_batch": 0, "value_and_grad": 0, "trajectory": 1})
+    part_ms = e0.elapsed_time(e1)
+    out["bit_equal"][f"P={P_FULL} B={PART_B}"] = bit_equal_to_solo(
+        f"P={P_FULL} antithetic B={PART_B} (x_evol from the batched trajectory)", sol,
+        [mpc_fn(xs[i], iter([z[i]]), scenario_state(st_in, i), float(ts[i]), xs[i])
+         for i in range(PART_B)])
+    x_ref = x_refs[0]
+    w0 = time.perf_counter()
+    st_p, _ = AK.apg_solve_plain(
+        pb.model, pb.params, pb.cost_params, pb.apg_config, pb.time_steps, xs[0], x_ref,
+        st_in.yk[0, 0], z[0], P_FULL, pb.lb_z, pb.ub_z, st_in.yk[0],
+        t_init=st_in.stepsize[0], precond=pb.precond)
+    torch.cuda.synchronize()
+    part_plain_ms = (time.perf_counter() - w0) * 1e3
+    part_du = float((st_p.yk[:, :n_u] - sol.u_opt[0]).abs().max())
+    log(f"batched P={P_FULL} B={PART_B} ({part_ms:.3f} ms device for the batch), scenario 0 "
+        f"against the plain version ({part_plain_ms:.1f} ms): steps "
+        f"{int(sol.opt_state.num_steps[0])} / {int(st_p.num_steps)}, max|du| {part_du:.3e} "
+        f"(rtol {PART_RTOL} / atol {PART_ATOL})")
+    if not (int(st_p.num_steps) == int(sol.opt_state.num_steps[0]) and torch.allclose(
+            sol.u_opt[0], st_p.yk[:, :n_u], rtol=PART_RTOL, atol=PART_ATOL)):
+        raise AssertionError("the batched particle solve does not match the plain version")
+    _, a = build_consts(pb.model, pb.params, pb.cost_params, pb.apg_config, pb.time_steps,
+                        xs[0], x_ref, st_in.yk[0, 0], pb.lb_z, pb.ub_z,
+                        has_pre=pb.precond is not None)
+    AK.plan_solve_particles(a, P_FULL, 0)
+    n_act = ctypes.c_int(0)
+    rc = AK.load_apg_library().apg_max_active_clusters(ctypes.byref(a), ctypes.byref(n_act))
+    out["cluster"] = {"cluster": a.cluster, "Pc": a.Pc, "clusters": PART_B,
+                      "max_active_clusters": n_act.value if rc == 0 else f"error {rc}"}
+    log(f"batched P={P_FULL}: {PART_B} clusters of C={a.cluster} blocks (Pc={a.Pc}); "
+        f"cudaOccupancyMaxActiveClusters at that shape {out['cluster']['max_active_clusters']}")
+
+    # the batched trajectory launch alone: the B = 4 plans, against the
+    # plain rollout of each
+    consts, o = build_consts(pb.model, pb.params, pb.cost_params, None, pb.time_steps, xs[0],
+                             x_ref, st_in.yk[0, 0])
+    consts = batch_consts(consts, o, xs, x_refs, st_in.yk[:, 0])
+    plans = sol.opt_state.yk.contiguous()
+    xe = CO.trajectory_kernel(consts, o, plans)
+    plain = torch.stack([rollout_mean(pb.model, pb.params, xs[i], plans[i, :, :n_u],
+                                      pb.time_steps) for i in range(PART_B)])
+    traj_err = float((xe - plain).abs().max())
+    if not torch.allclose(xe, plain, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"the batched trajectory does not match its plain version "
+                             f"({traj_err:.3e})")
+    traj_ms = per_launch_ms(lambda: CO.trajectory_kernel(consts, o, plans), 50)
+    traj_plain_ms = per_launch_ms(lambda: rollout_mean(pb.model, pb.params, xs[0],
+                                                       plans[0, :, :n_u], pb.time_steps), 5)
+    log(f"batched trajectory, B={PART_B}: {traj_ms:.4f} ms per launch, against the plain "
+        f"rollout of each plan max|dx| {traj_err:.3e} (rtol 1e-5 / atol 1e-6); one plan's "
+        f"plain rollout {traj_plain_ms:.3f} ms")
+    out.update(part={"launches": part_launches, "ms": part_ms, "plain_ms": part_plain_ms,
+                     "du": part_du, "steps": sol.opt_state.num_steps.tolist(), "bundle": pb},
+               traj={"ms": traj_ms, "plain_ms": traj_plain_ms, "err": traj_err},
+               n_consts=o.n_consts)
+    return out
+
+
+def phase_fleet(card: str) -> dict:
+    """The fleet demo, ``sim/fleet_serving.py --vehicles 64 --seconds 8`` on
+    the card (one batched launch per 50 ms tick, plans pipelined): gates
+    ``RESULT: PASS``, the cold tick's age 0 and a steady plan age above 0,
+    and one ``apg_solve`` launch per tick; prints the tick's busy time
+    p50/p99 beside the device time of a tick's solve."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.sim import fleet_serving
+
+    zero_counts()
+    res = fleet_serving.run(FLEET_ARGV)
+    torch.cuda.synchronize()
+    res["launches"] = check_route("fleet", {"apg_solve": res["ticks"], "value_batch": 0,
+                                            "value_and_grad": 0, "trajectory": 0})
+    log(f"fleet demo ({card}; {res['vehicles']} vehicles, {res['ticks']} ticks): busy p50 "
+        f"{res['busy_ms_p50']:.3f} ms, p99 {res['busy_ms_p99']:.3f} ms (budget "
+        f"{res['budget_ms']:.0f} ms), a tick's solve on the device p50 "
+        f"{res['device_ms_p50']:.3f} ms, plan age p50 {res['age_ms_p50']:.3f} ms (cold tick "
+        f"{res['first_age']}), {res['vehicle_solves_per_s']:.0f} vehicle-solves/s; tracking "
+        f"mean {res['err_mean']:.4f} m max {res['err_max']:.4f} m -> "
+        f"{'PASS' if res['ok'] else 'FAIL'}")
+    if not (res["ok"] and res["first_age"] == 0.0 and res["age_ms_p50"] > 0.0):
+        raise AssertionError(f"the fleet demo failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2143,6 +2439,10 @@ def main() -> int:
     log("phase 18: the closed loop flies iris and hexa on the card")
     tier = phase_launch_tier(card)
     log("phase 19: the launch tier's two processes reach MPC_ON")
+    batched = phase_batched(dev, card)
+    fleet = phase_fleet(card)
+    log("phase 20: the batched solves equal their solo kernel solves on the scenario grid, "
+        "and the fleet demo passes")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -2233,6 +2533,35 @@ def main() -> int:
               timed="per launch, as the P=1 branch: the same kernel at the same shape",
               closed_loop_launches=cl_launches[f"iris P={P_FULL}"]["trajectory"])]
 
+    runs, part = batched["runs"], batched["part"]
+    b_batch, r = batched["bundle"], batched["runs"][BATCH_B]
+    kernels += [
+        entry("apg_solve", f"P=1, batched B={BATCH_B}", r["launches"]["apg_solve"],
+              batched["du"], r["device_ms_p50"], batched["plain_ms"],
+              bound(b_batch, "apg_solve", nc_pos, K=4, iters=r["steps_per_solve"], B=BATCH_B),
+              timed=f"one batched step of {BATCH_B} re-targeted iris posctrl solves at a "
+                    f"{BATCH_ITERS}-iteration budget, device p50",
+              plain_ms_is="one scenario's plain solve (apg_solve_plain on the card)",
+              wall_ms_p50=r["wall_ms_p50"], steps_per_solve=r["steps_per_solve"],
+              solves_per_s=r["solves_per_s"],
+              batched_steps={str(B): {k: v for k, v in run.items() if k != "launches"}
+                             for B, run in runs.items()},
+              bit_equal_to_solo=batched["bit_equal"],
+              fleet_launches=fleet["launches"]["apg_solve"]),
+        entry("apg_solve", f"particles, batched B={PART_B}", part["launches"]["apg_solve"],
+              part["du"], part["ms"], part["plain_ms"],
+              bound(b_traj, "apg_solve", nc_traj, P=P_FULL, K=4,
+                    iters=statistics.mean(part["steps"]), B=PART_B),
+              timed=f"one batched fixed 5-iteration P={P_FULL} antithetic solve of {PART_B} "
+                    f"scenarios with its batched trajectory launch",
+              plain_ms_is="one scenario's plain solve (apg_solve_plain on the card)",
+              iterations=part["steps"], **batched["cluster"]),
+        entry("trajectory", f"batched B={PART_B} (x_evol of the batched P={P_FULL} solve)",
+              part["launches"]["trajectory"], batched["traj"]["err"], batched["traj"]["ms"],
+              batched["traj"]["plain_ms"],
+              bound(b_traj, "trajectory", batched["n_consts"], B=PART_B),
+              timed=f"per launch over {PART_B} plans",
+              plain_ms_is="one plan's plain rollout (rollout_mean on the card)")]
     err, smem = cons["err"], cons["smem"]
     for form in SC_FORMS:
         (k_ms, p_ms), b = cflight["fixed"][form]
@@ -2298,7 +2627,8 @@ def main() -> int:
         "hexa_traj": hexa["traj"][0], "hexa_pos": hexa["pos"][0]},
         "closed_loop": {tag: {k: v for k, v in run.items() if k != "launches"}
                         for tag, run in loops.items()},
-        "launch_tier": {k: v for k, v in tier.items() if k != "fcu_tail"}}))
+        "launch_tier": {k: v for k, v in tier.items() if k != "fcu_tail"},
+        "fleet": {k: v for k, v in fleet.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,8 @@ function. State layout: ``[x,y,z, vx,vy,vz, qw,qx,qy,qz, wx,wy,wz]``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from sde4mbrl_px4_tpu_torch.core.quaternion import qmul, qnormalize
@@ -24,9 +26,17 @@ def _swap_flip(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([v[..., 1], v[..., 0], -v[..., 2]], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _frame_quats(dtype: torch.dtype, device: torch.device) -> tuple:
+    """The two constant quaternions on ``device``, made once per device and
+    dtype (a ``torch.tensor`` made on a CUDA device per call would wait for
+    the stream to drain)."""
+    return (torch.tensor(Q_NED_ENU, dtype=dtype, device=device),
+            torch.tensor(Q_FLU_FRD, dtype=dtype, device=device))
+
+
 def _convert_state(x: torch.Tensor) -> torch.Tensor:
-    q_ne = torch.tensor(Q_NED_ENU, dtype=x.dtype, device=x.device)
-    q_lf = torch.tensor(Q_FLU_FRD, dtype=x.dtype, device=x.device)
+    q_ne, q_lf = _frame_quats(x.dtype, x.device)
     q_new = qnormalize(qmul(qmul(q_ne, x[..., 6:10]), q_lf))
     w = x[..., 10:13]
     w_new = torch.stack([w[..., 0], -w[..., 1], -w[..., 2]], dim=-1)

@@ -112,7 +112,7 @@ class CostParams(NamedTuple):
 
 def discount_vector(cp: CostParams, H: int, device) -> torch.Tensor:
     """``discount ** [1..H]`` in fp32 (the original's ``disc``)."""
-    return torch.tensor(cp.discount, dtype=torch.float32, device=device) ** \
+    return torch.full((), cp.discount, dtype=torch.float32, device=device) ** \
         torch.arange(1, H + 1, dtype=torch.float32, device=device)
 
 

@@ -1,5 +1,6 @@
 // Whole-solve APG kernel for Hopper (sm_90a): one receding-horizon MPC
-// solve per thread block.
+// solve per thread block (P=1) or thread-block cluster (particles), for
+// a.batch independent scenarios per launch.
 //
 // Replaces the TPU kernel sde4mbrl_px4_tpu/ops/pallas/apg_kernel.py::
 // pallas_apg_solve (pallas_call at :420, body _kernel :163-391) together
@@ -83,6 +84,19 @@
 // 48 KB default, so the constrained P=1 forms take dynamic shared memory
 // above it too (set once per library load by apg_init).
 //
+// The scenario axis (apg_solve.cuh, batch): a launch solves B independent
+// problems, scenario b on block b (P=1) or on cluster b (blocks b*C ..
+// b*C + C-1), each reading and writing its own slice of the per-scenario
+// buffers (consts, u_init, t0, noise; yk, stats, x_evol) at b times their
+// stride, and running its own loop and early exit: no predicate crosses
+// scenarios, so a scenario's bits are those of its solo launch. B blocks of
+// the P=1 form fill up to 132 SMs per wave (one 256-thread block per SM at
+// its 220-255 registers); the particle form's clusters of C run
+// max_active_clusters at a time. The wrapper (ops/cuda/apg_kernel.py::
+// apg_solve_kernel_batched) is the counterpart of the JAX package's vmap
+// of the solve (sde4mbrl_px4_tpu/parallel/batched.py::make_batched_mpc),
+// and a solo solve is the same launch at B = 1.
+//
 // Control flow is block-uniform: every loop decision (done, accepted step,
 // restart) is computed by thread 0 into shared memory, followed by
 // __syncthreads(), and only then read by all threads. Every
@@ -105,6 +119,19 @@ namespace {
 
 static_assert(APG_NTHREADS == 4 * P1_HID && APG_MAXK <= APG_NTHREADS / 32,
               "P=1 layout: 4 threads per hidden unit, one warp per candidate row");
+
+// The block's scenario: its cluster's index in the grid (particles) or its
+// own index (P=1), read from the special register where it is used (asm
+// volatile: never hoisted), so that no register holds it, or a pointer
+// offset by it, across the solve. The clock-stamped forms run one scenario.
+template <bool PART, bool PROF = false>
+__device__ __forceinline__ size_t scenario() {
+  if constexpr (PROF) return 0;
+  unsigned b;
+  if constexpr (PART) asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(b));
+  else asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
 
 struct Scal {
   int k, k_m, no_imp, done, kmax, ok, improved, restart;
@@ -183,6 +210,11 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
+  auto scen = [] { return scenario<PART, PROF>(); };
+  // this scenario's Brownian block, offset where the sweeps start a chunk
+  auto my_noise = [noise, &a]() {
+    return noise + scenario<true, PROF>() * ((size_t)a.H * a.P * 13);
+  };
   // the block's rank in its cluster (0 at P=1: one block); only rank 0
   // writes the outputs
   int rank = 0;
@@ -198,13 +230,23 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     }
   }
 
+  // this scenario's outputs, taken once and kept in shared memory for the
+  // exit (P=1 only: the particle form's x_evol is the trajectory kernel's)
+  __shared__ float* outp[3];               // yk, stats, x_evol
+  if (tid == 0) {
+    outp[0] = yk + scen() * HZ;
+    outp[1] = stats + scen() * 8;
+    if constexpr (!PART) outp[2] = x_evol + scen() * ((a.H + 1) * 13);
+  }
+  consts += scen() * a.n_consts;
+  u_init += scen() * HZ;
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
   __syncthreads();
   P1W W;                                  // the P=1 forms' trunk in registers
   if constexpr (PART) transpose_weights(a, s);
   else W = load_p1_weights(a, c);
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC, PROF>(a, s, &S.fval, U, noise);
+    if constexpr (PART) vg_part<SC, PROF>(a, s, &S.fval, U, my_noise);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -216,7 +258,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   if (tid == 0) {
     S.k = 0; S.k_m = 0; S.no_imp = 0; S.done = 0;
     S.kmax = a.has_budget ? min(a.max_iter, max(a.budget, 1)) : a.max_iter;
-    S.t = *t0p;
+    S.t = t0p[scen()];
     S.sum_t = 0.f; S.sum_ls = 0.f;
   }
   __syncthreads();
@@ -264,7 +306,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, PROF>(a, s, K, noise);
+      cand_part<SC, PROF>(a, s, K, my_noise);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -357,11 +399,12 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   value_grad(s.bu);
   if (warp == 0) warp_reduce_to(HZ, [&](int e) { return s.g[e] * s.g[e]; }, s.red + 0);
   if (rank == 0)
-    for (int e = tid; e < HZ; e += nt) yk[e] = s.bu[e];
+    for (int e = tid; e < HZ; e += nt) outp[0][e] = s.bu[e];
   if constexpr (!PART)
-    for (int e = tid; e < (a.H + 1) * 13; e += nt) x_evol[e] = s.xs[e];
+    for (int e = tid; e < (a.H + 1) * 13; e += nt) outp[2][e] = s.xs[e];
   __syncthreads();
   if (tid == 0 && rank == 0) {
+    stats = outp[1];
     const float n_steps = fmaxf((float)S.k, 1.f);
     stats[0] = (float)S.k;
     stats[1] = S.t;
@@ -391,20 +434,20 @@ int dyn_bytes(const ApgArgs& a) {
   return layout(a, a.has_noise != 0, nullptr, nullptr) * (int)sizeof(float);
 }
 
-// One launch: P=1 one block; the particle form one cluster of a.cluster
-// blocks (cudaLaunchKernelEx, whose error a cluster the card cannot
-// schedule returns).
+// One launch of a.batch scenarios: P=1 one block each; the particle form
+// one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
+// cluster the card cannot schedule returns).
 template <bool PART, int SC, bool PROF = false>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
                    const float* noise, float* yk, float* stats, float* x_evol,
                    long long* prof) {
   if constexpr (PART) {
-    ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st);
+    ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st, a.batch);
     return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF>, a, consts, u_init,
                               t0, precond, noise, yk, stats, x_evol, prof);
   } else {
-    apg_solve_kernel<false, SC, PROF><<<1, APG_NTHREADS, dyn, st>>>(
+    apg_solve_kernel<false, SC, PROF><<<a.batch, APG_NTHREADS, dyn, st>>>(
         a, consts, u_init, t0, precond, noise, yk, stats, x_evol, prof);
     return cudaSuccess;
   }
@@ -483,14 +526,17 @@ const char* apg_error_string(int err) {
 }
 
 // The arguments a launch takes (a refused launch returns
-// cudaErrorInvalidValue and runs nothing); cmax: the particle form's largest
-// cluster.
+// cudaErrorInvalidValue and runs nothing): among them B >= 1 scenarios on a
+// grid the card takes (at most 2^31 - 1 blocks); cmax: the particle form's
+// largest cluster.
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
                       const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
   const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
                                                       : APG_SMEM_LIMIT;
-  return !(a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
+  const long long blocks = (long long)a->batch * (part ? a->cluster : 1);
+  return !(a->batch < 1 || blocks > 2147483647LL ||
+           a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
            (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
            (a->has_pre && precond == nullptr) ||
@@ -500,9 +546,11 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
                     a->cluster != 1 || a->chunks_per_block != 1)));
 }
 
-// Launch one solve on `stream`. noise is the (H, P, 13) Brownian block when
-// a->has_noise (else unused, may be null); x_evol (H+1, 13) is written only
-// by the deterministic form. u_init, precond and yk are (H, nZ). Returns
+// Launch a->batch solves on `stream`. Per scenario (leading axis B): consts
+// (n_consts), u_init and yk (H, nZ), t0 (1), stats (8), noise the
+// (H, P, 13) Brownian block when a->has_noise (else unused, may be null),
+// x_evol (H+1, 13), written only by the deterministic form; precond (H, nZ)
+// is shared by every scenario. Returns
 // the launch's error (cudaErrorInvalidValue for arguments the kernel does
 // not take, among them P=1 trunk widths other than HID = P1_HID and
 // F <= P1_FMAX, and a particle launch whose cluster fields are no plan of
@@ -522,13 +570,14 @@ int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
 
 // A solve without state constraints through the clock-stamped
 // instantiation (apg_solve_kernel<PART, CONSTR_NONE, true>; P=1 or
-// particles), for measurement: as apg_solve_launch, plus prof (int64
+// particles; one scenario, batch = 1), for measurement: as apg_solve_launch,
+// plus prof (int64
 // (2, 8)): per stamped rank the cycles of the PH_* (P=1) or PP_* (particle)
 // phases, of the whole solve, and the rank.
 int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_init,
                           const void* t0, const void* precond, const void* noise,
                           void* yk, void* stats, void* x_evol, void* prof, void* stream) {
-  if (a->sc_kind != CONSTR_NONE || prof == nullptr ||
+  if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 ||
       !launch_ok(a, precond, noise, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>

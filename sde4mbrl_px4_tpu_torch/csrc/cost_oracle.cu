@@ -6,7 +6,9 @@
 //                   run_candidates + control_cost of bodies.py)
 //   value_and_grad  one plan -> cost and (H, nZ) gradient (pallas_call :297,
 //                   vg_sweep of bodies.py)
-//   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347)
+//   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347),
+//                   for a.batch scenarios per launch (one block each, the
+//                   batched particle solves' x_evol)
 //
 // value_batch and value_and_grad are templates <PART, SC>: PART = false the
 // deterministic P=1 oracle (mean dynamics), PART = true the Monte-Carlo one
@@ -203,7 +205,8 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
 
 // The mean rollout of one plan's control columns into x_out (H+1, 13): REG
 // the register chain's row with its states stashed, else the shared-memory
-// step.
+// step. Block b rolls scenario b of a.batch: its consts (n_consts), plan
+// (H, nZ) and output (H+1, 13) at b times their stride.
 template <bool REG>
 __global__ void __launch_bounds__(ORACLE_NTHREADS)
 trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -212,6 +215,10 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   Smem s = {};
   layout(a, ORACLE_TRAJECTORY, 1, false, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t scen = blockIdx.x;
+  consts += scen * a.n_consts;
+  u += scen * ((size_t)a.H * a.nZ);
+  x_out += scen * ((size_t)(a.H + 1) * 13);
   load_block(a, s, 1, consts, u);
   if (tid < 13) s.xs[tid] = s.c[a.o_x0 + tid];
   if constexpr (REG) {
@@ -271,8 +278,11 @@ int smem_limit(const ApgArgs& a) {
   return a.has_noise ? ORACLE_SMEM_LIMIT_PARTICLES : ORACLE_SMEM_LIMIT;
 }
 
+// batch: the scenarios of a trajectory launch; value_batch and
+// value_and_grad take one.
 bool args_ok(const ApgArgs* a) {
-  return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1;
+  return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1 &&
+         a->batch >= 1;
 }
 
 // One launch of a value_batch instantiation: P=1 ceil(K / tile) blocks;
@@ -425,13 +435,14 @@ int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 // (cudaErrorInvalidValue for arguments the kernels do not take). U is
 // (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read only
 // when a->has_noise; may be null otherwise); outputs are (K,), (H+1, 13),
-// () and (H, nZ). The P=1 value_and_grad takes the trunk widths of the
+// () and (H, nZ). trajectory takes a->batch scenarios: consts (B, n_consts),
+// u (B, H, nZ), x_out (B, H+1, 13); the others one (batch = 1). The P=1 value_and_grad takes the trunk widths of the
 // register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
 // cluster plan of its chunks (value_batch one cluster per candidate), and
 // return the cluster launch's own error where the card cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
                        const void* U, const void* noise, void* out, void* stream) {
-  if (!args_ok(a) || !particles_ok(a, noise) || K < 1 ||
+  if (!args_ok(a) || a->batch != 1 || !particles_ok(a, noise) || K < 1 ||
       (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
@@ -448,17 +459,18 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
   const size_t dyn = (size_t)trajectory_smem_bytes(a);
   const cudaStream_t st = (cudaStream_t)stream;
   if (p1_widths(*a))
-    trajectory_kernel<true><<<1, ORACLE_NTHREADS, dyn, st>>>(*a, (const float*)consts,
-                                                             (const float*)u, (float*)x_out);
+    trajectory_kernel<true><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u, (float*)x_out);
   else
-    trajectory_kernel<false><<<1, ORACLE_NTHREADS, dyn, st>>>(*a, (const float*)consts,
-                                                              (const float*)u, (float*)x_out);
+    trajectory_kernel<false><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u, (float*)x_out);
   return (int)cudaGetLastError();
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, void* val, void* grad, void* stream) {
-  if (!args_ok(a) || !particles_ok(a, noise) || (!a->has_noise && !p1_widths(*a)) ||
+  if (!args_ok(a) || a->batch != 1 || !particles_ok(a, noise) ||
+      (!a->has_noise && !p1_widths(*a)) ||
       (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;

@@ -1252,6 +1252,14 @@ __device__ __forceinline__ void cluster_chunk_sum(const ApgArgs& a, float* part,
   cl.sync();
 }
 
+// The particle sweeps' Brownian block: the pointer itself (the oracle
+// kernels), or a source that returns it where a chunk starts (the whole
+// solve's scenario axis: the block of this scenario, offset there so that
+// no register holds the offset pointer across the solve).
+__device__ __forceinline__ const float* noise_at(const float* noise) { return noise; }
+template <class Src>
+__device__ __forceinline__ const float* noise_at(const Src& src) { return src(); }
+
 // Value and gradient of the iterate U over P particles (the noise branch of
 // bodies.py::vg_sweep with its chunk loop, K11 :638-661), by every block of
 // a cluster: per chunk of this block, Pc rows, a forward sweep into the
@@ -1260,10 +1268,11 @@ __device__ __forceinline__ void cluster_chunk_sum(const ApgArgs& a, float* part,
 // into its partial (s.pg); then the partials of all chunks summed in chunk
 // order (cluster_chunk_sum) into s.g and s.cacc[0..2), and the closed-form
 // control gradient and the control-only terms added once. Every block ends
-// with the same s.g and *fval. noise: the (H, P, 13) Brownian block.
-template <int SC, bool PROF = false>
+// with the same s.g and *fval. noise: the (H, P, 13) Brownian block, or a
+// source that returns it (noise_at).
+template <int SC, bool PROF = false, class Noise = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
-                        const float* __restrict__ noise) {
+                        Noise noise) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const float* c = s.c;
   const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2;
@@ -1276,7 +1285,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     }
     for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
     __syncthreads();
-    const float* zc = noise + (size_t)ch * R * 13;
+    const float* zc = noise_at(noise) + (size_t)ch * R * 13;
     for (int t = 0; t < a.H; ++t)
       fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
                      s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
@@ -1325,9 +1334,8 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // trunk's products are register tiles (fwd_step<true, SC, true>). The whole
 // solve sweeps its K candidates at once; value_batch calls it with K = 1
 // (one candidate per cluster).
-template <int SC, bool PROF = false>
-__device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
-                          const float* __restrict__ noise) {
+template <int SC, bool PROF = false, class Noise = const float*>
+__device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
   const int rank = (int)cg::this_cluster().block_rank();
@@ -1335,7 +1343,7 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K,
     for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
     for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
     __syncthreads();
-    const float* zc = noise + (size_t)ch * Pc * 13;
+    const float* zc = noise_at(noise) + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
       fwd_step<true, SC, true>(a, s, R, s.cand + t * a.nZ, HZ, K,
                                zc + (size_t)t * a.P * 13, s.xr, s.xr, t);

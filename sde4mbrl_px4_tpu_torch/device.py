@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["apply_fp32_policy", "resolve_device"]
+__all__ = ["apply_fp32_policy", "host_values", "resolve_device"]
 
 
 def apply_fp32_policy() -> None:
@@ -25,6 +25,17 @@ def apply_fp32_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def host_values(values, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of host ``values`` on ``device``. On a CUDA device
+    the copy goes from pinned memory with ``non_blocking``: a plain
+    ``torch.tensor(..., device="cuda")`` waits for the stream to drain, which
+    would make a caller wait for the solve in flight."""
+    t = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:

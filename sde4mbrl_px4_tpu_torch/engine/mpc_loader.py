@@ -83,7 +83,8 @@ from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian, make_time_steps
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
-__all__ = ["load_mpc_from_cfgfile", "MPCBundle", "make_mpc_from_config"]
+__all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "build_mpc",
+           "make_mpc_from_config", "not_in_slice"]
 
 
 class MPCBundle(NamedTuple):
@@ -106,7 +107,20 @@ class MPCBundle(NamedTuple):
     ub_z: torch.Tensor
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
+class MPCPieces(NamedTuple):
+    """The per-solve pieces of the factory, each over any leading batch
+    shape (none for the solo ``mpc_fn``, (B,) for ``parallel/batched.py``)."""
+
+    reset: Callable        # (x (..., 13), rng, xdes) -> APGState, fields (...)
+    targets: Callable      # xdes (..., 13) in the API frame -> the solver's (NED)
+    build_ref: Callable    # (curr_t (...), xdes_ned (..., 13)) -> (..., H+1, 13)
+    shift: Callable        # plans (..., H, nZ) -> the shifted warm start
+    carry_t: bool          # whether the stepsize carries across solves
+    chunk: int             # pallas_chunk (0: the largest divisor of P that fits)
+    antithetic: bool
+
+
+def not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to sde4mbrl_px4_tpu_torch yet; "
         f"ROADMAP.md §1 '{item}' brings it")
@@ -131,7 +145,7 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
                 "solver: policy does not support slack_proximal state "
                 "constraints — the policy head predicts motor plans only "
                 "(distill an expert WITHOUT slack, or keep solver: apg)")
-        raise _not_in_slice("solver: policy", "Policy solver family")
+        raise not_in_slice("solver: policy", "Policy solver family")
     if solver not in ("apg", "mppi"):
         raise ValueError(f"unknown solver {solver!r} (apg|mppi|policy)")
     P = int(cfg.get("num_particles", 1))
@@ -140,22 +154,22 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
             raise ValueError(
                 "cost_params.risk_lambda needs num_particles > 1 — with one "
                 "particle there is no outcome spread to price")
-        raise _not_in_slice("cost_params.risk_lambda", _PARTICLE_XLA)
+        raise not_in_slice("cost_params.risk_lambda", _PARTICLE_XLA)
     if cfg.get("initial_state_std") is not None:
         if P <= 1:
             raise ValueError(
                 "initial_state_std needs num_particles > 1 — the deterministic "
                 "single-particle path would ignore the scenario spread")
-        raise _not_in_slice("initial_state_std", _PARTICLE_XLA)
+        raise not_in_slice("initial_state_std", _PARTICLE_XLA)
     if solver == "mppi" and P > 1:
-        raise _not_in_slice("solver: mppi with num_particles > 1", _PARTICLE_XLA)
+        raise not_in_slice("solver: mppi with num_particles > 1", _PARTICLE_XLA)
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
     if chunk < 0 or (chunk and P % chunk):
         raise ValueError(f"pallas_chunk={chunk} must divide num_particles={P}")
     if bool(cfg.get("antithetic", False)) and P > 1 and P % 2:
         raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
     if str(cfg.get("matmul_precision", "highest")).lower() not in ("highest", "float32"):
-        raise _not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
+        raise not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
 
 
 def _resolve_model(cfg: Dict[str, Any], device: torch.device):
@@ -245,18 +259,18 @@ def _load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ, convert_to_enu,
             d = np.load(cand)
             if d.shape == (H, nZ):
                 return torch.tensor(np.asarray(d, np.float32), device=device)
-    raise _not_in_slice(
+    raise not_in_slice(
         f"computing the hover_diag preconditioner (no cached {key}.npy)",
         "Preconditioner probe")
 
 
-def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
-                         device: Optional[torch.device | str] = None
-                         ) -> Tuple[Dict[str, Any], Tuple[Callable, Callable],
-                                    Optional[Callable], MPCBundle]:
-    """Core factory; ``cfg`` is an already-parsed config mapping.
-    ``device=None`` is the card (``cuda``); without one this raises, and
-    ``"cpu"`` must be asked for."""
+def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
+              device: Optional[torch.device | str] = None
+              ) -> Tuple[Dict[str, Any], MPCBundle, MPCPieces]:
+    """What :func:`make_mpc_from_config` builds its closures from: the
+    checked config (with ``_time_steps``), the bundle and the per-solve
+    pieces. ``device=None`` is the card (``cuda``); without one this
+    raises."""
     _check_slice(cfg)
     apply_fp32_policy()
     dev = resolve_device(device)
@@ -288,7 +302,6 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         lb_z, ub_z = lb, ub
     apg_cfg = APGConfig.from_config(cfg)
     solver = str(cfg.get("solver", "apg"))
-    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
     num_particles = int(cfg.get("num_particles", 1))
     antithetic = bool(cfg.get("antithetic", False))
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
@@ -324,49 +337,75 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     def reset_fn(x, rng, xdes) -> APGState:
         """State-aware warm start (original :582-615): collective thrust
         scaled by 1/cos(tilt) plus a vertical-rate damping term; slack
-        columns at their rest targets."""
+        columns at their rest targets. ``x`` (..., 13)."""
         del rng, xdes
         x = torch.as_tensor(x, dtype=f32, device=dev)
-        qx, qy = x[7], x[8]
+        lead = x.shape[:-1]
+        qx, qy = x[..., 7], x[..., 8]
         cos_tilt = 1.0 - 2.0 * (qx * qx + qy * qy)
-        scale = 1.0 / torch.clamp(cos_tilt, min=0.5) + 0.3 * x[5]
-        u0 = torch.clamp(cost_params.uref * torch.clamp(scale, 0.7, 1.5), lb, ub)
-        yk = u0.expand(H, n_u)
+        scale = 1.0 / torch.clamp(cos_tilt, min=0.5) + 0.3 * x[..., 5]
+        u0 = torch.clamp(cost_params.uref * torch.clamp(scale, 0.7, 1.5)[..., None], lb, ub)
+        yk = u0[..., None, :].expand(*lead, H, n_u)
         if m:
-            yk = torch.cat([yk, s_hover.expand(H, m)], dim=1)
-        z = torch.zeros((), dtype=f32, device=dev)
+            yk = torch.cat([yk, s_hover.expand(*lead, H, m)], dim=-1)
+        z = torch.zeros(lead, dtype=f32, device=dev)
         return APGState(
             yk=yk.contiguous(), num_steps=z,
-            stepsize=torch.tensor(apg_cfg.init_stepsize, dtype=f32, device=dev),
+            stepsize=torch.full(lead, apg_cfg.init_stepsize, dtype=f32, device=dev),
             avg_stepsize=z, avg_linesearch=z, grad_sqr=z, init_cost=z, opt_cost=z)
 
+    def _targets(xdes: torch.Tensor) -> torch.Tensor:
+        """Targets in the solver frame: position-hold configs take ENU."""
+        return enu2ned(xdes) if convert_to_enu and state_from_traj is None else xdes
+
     def _build_ref(curr_t: torch.Tensor, xdes: torch.Tensor) -> torch.Tensor:
-        """Per-stage reference states (H+1, 13) in the solver frame (NED)."""
+        """Per-stage reference states (..., H+1, 13) in the solver frame
+        (NED), for times ``curr_t`` (...)."""
         if state_from_traj is not None:
             if state_from_traj_ned is not None:
-                return state_from_traj_ned(curr_t + knot_times)
-            return state_from_traj(curr_t + knot_times)
-        return xdes.expand(H + 1, 13)
+                return state_from_traj_ned(curr_t[..., None] + knot_times)
+            return state_from_traj(curr_t[..., None] + knot_times)
+        return xdes[..., None, :].expand(*xdes.shape[:-1], H + 1, 13)
 
     def _shift(z_opt: torch.Tensor) -> torch.Tensor:
         if warm_shift == "extrapolate":
-            tail = torch.clamp(2.0 * z_opt[-1:] - z_opt[-2:-1], lb_z, ub_z)
+            tail = torch.clamp(2.0 * z_opt[..., -1:, :] - z_opt[..., -2:-1, :], lb_z, ub_z)
         else:
-            tail = z_opt[-1:]
-        return torch.cat([z_opt[1:], tail], dim=0)
+            tail = z_opt[..., -1:, :]
+        return torch.cat([z_opt[..., 1:, :], tail], dim=-2)
 
     # Stepsize carry only where the trial rule can re-grow a step
     # (original :702-708).
     carry_t = apg_cfg.reset_option in ("increase", "bb")
+    pieces = MPCPieces(reset=reset_fn, targets=_targets, build_ref=_build_ref, shift=_shift,
+                       carry_t=carry_t, chunk=chunk, antithetic=antithetic)
+    return cfg, bundle, pieces
+
+
+def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
+                         device: Optional[torch.device | str] = None
+                         ) -> Tuple[Dict[str, Any], Tuple[Callable, Callable],
+                                    Optional[Callable], MPCBundle]:
+    """Core factory; ``cfg`` is an already-parsed config mapping.
+    ``device=None`` is the card (``cuda``); without one this raises, and
+    ``"cpu"`` must be asked for."""
+    cfg, bundle, pieces = build_mpc(cfg, convert_to_enu, device)
+    dev, f32 = bundle.device, torch.float32
+    model, params, cost_params = bundle.model, bundle.params, bundle.cost_params
+    apg_cfg, time_steps, precond = bundle.apg_config, bundle.time_steps, bundle.precond
+    lb_z, ub_z, num_particles = bundle.lb_z, bundle.ub_z, bundle.num_particles
+    n_u, H, nZ = model.n_u, int(time_steps.shape[0]), int(lb_z.shape[0])
+    solver = str(cfg.get("solver", "apg"))
+    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
+    chunk, carry_t = pieces.chunk, pieces.carry_t
 
     def mpc_fn(x, rng, opt_state: APGState, curr_t=0.0, xdes=None,
                iter_budget: Optional[int] = None) -> MPCSolution:
         x = torch.as_tensor(x, dtype=f32, device=dev)
         xdes = x if xdes is None else torch.as_tensor(xdes, dtype=f32, device=dev)
-        if convert_to_enu and state_from_traj is None:
-            xdes = enu2ned(xdes)
+        xdes = pieces.targets(xdes)
         curr_t = torch.as_tensor(curr_t, dtype=f32, device=dev)
-        x_ref = _build_ref(curr_t, xdes)
+        x_ref = pieces.build_ref(curr_t, xdes)
         u_prev = opt_state.yk[0]
         noise = _brownian(rng) if num_particles > 1 else None
         if solver == "apg" and apg_cfg.use_linesearch:
@@ -388,7 +427,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
                                    precond=precond, iter_budget=iter_budget)
                 x_evol = oracle.trajectory(st.yk)
         return MPCSolution(u_opt=st.yk[:, :n_u],
-                           opt_state=st._replace(yk=_shift(st.yk)),
+                           opt_state=st._replace(yk=pieces.shift(st.yk)),
                            rng=rng, x_evol=x_evol)
 
     def _brownian(rng) -> torch.Tensor:
@@ -396,7 +435,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         generator (as (H, P, 13), the view transposed), or the next block an
         iterator of draws hands in."""
         if isinstance(rng, torch.Generator):
-            return draw_brownian(rng, H, num_particles, antithetic, dev).transpose(0, 1)
+            return draw_brownian(rng, H, num_particles, pieces.antithetic, dev).transpose(0, 1)
         if rng is None:
             raise ValueError("num_particles > 1 needs rng: a torch.Generator or "
                              "an iterator of (P, H, 13) Brownian blocks")
@@ -413,7 +452,7 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
         eps, c0 = next(rng)
         return (eps.to(dev, f32), None if c0 is None else c0.to(dev, f32))
 
-    return cfg, (reset_fn, mpc_fn), state_from_traj, bundle
+    return cfg, (pieces.reset, mpc_fn), bundle.state_from_traj, bundle
 
 
 def load_mpc_from_cfgfile(path: str, convert_to_enu: bool = True,

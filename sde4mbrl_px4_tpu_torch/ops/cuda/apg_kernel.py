@@ -12,6 +12,11 @@ current stream, no sync) or raises; on CPU tensors it runs
 ``cost_fn`` with autograd for the gradient, ``rollout_mean`` for
 ``x_evol``).
 
+:func:`apg_solve_kernel_batched` solves B problems in one launch, the
+kernel's scenario axis (one block, or one cluster, per scenario; the JAX
+package's vmap of the solve, ``parallel/batched.py``); a solo solve is
+that launch at B = 1.
+
 A deterministic P=1 solve (the flight configs) is one launch, whose exit
 sweep exports ``x_evol``. A Monte-Carlo solve (``num_particles`` P > 1,
 ``noise`` the (P, H, 13) Brownian block) minimises the particle-mean cost:
@@ -55,14 +60,15 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts, check_p1_widths, plan_particles,
-    sc_kind)
+    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths,
+    plan_particles, sc_kind)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
     APGConfig, APGState, apg_solve, resolve_t_init)
 
-__all__ = ["apg_solve_kernel", "apg_solve_plain", "apg_phase_split", "load_apg_library",
+__all__ = ["apg_solve_kernel", "apg_solve_kernel_batched", "apg_solve_plain",
+           "apg_solve_plain_batched", "apg_phase_split", "load_apg_library",
            "plan_solve_particles", "PHASES", "PART_PHASES", "SMEM_LIMIT",
            "SMEM_LIMIT_PARTICLES"]
 
@@ -172,21 +178,21 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             precond: Optional[torch.Tensor], noise: Optional[torch.Tensor],
             stream: int, prof: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Allocate the outputs and launch one solve; returns (yk, stats,
-    x_evol), x_evol None for the particle form. With ``prof`` (int64
-    (2, 8)) the clock-stamped instantiation runs and writes its cycle sums
-    there."""
+    """Allocate the outputs and launch ``args.batch`` solves; returns (yk
+    (B, H, nZ), stats (B, 8), x_evol (B, H+1, 13)), x_evol None for the
+    particle form. With ``prof`` (int64 (2, 8)) the clock-stamped
+    instantiation runs (one scenario) and writes its cycle sums there."""
     limit = (SMEM_LIMIT_PARTICLES if args.has_noise or args.sc_kind != SC_NONE
              else SMEM_LIMIT)
     need = lib.apg_smem_bytes(ctypes.byref(args))
     if need > limit:
         raise ValueError(f"apg_solve_kernel needs {need} bytes of shared "
                          f"memory, above the {limit}-byte budget")
-    H, nZ = args.H, args.nZ
+    B, H, nZ = args.batch, args.H, args.nZ
     kw = dict(dtype=torch.float32, device=u_init.device)
-    yk = torch.empty((H, nZ), **kw)
-    stats = torch.empty(8, **kw)
-    x_evol = None if args.has_noise else torch.empty((H + 1, 13), **kw)
+    yk = torch.empty((B, H, nZ), **kw)
+    stats = torch.empty((B, 8), **kw)
+    x_evol = None if args.has_noise else torch.empty((B, H + 1, 13), **kw)
     ptr = lambda t: None if t is None else t.data_ptr()
     common = (ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
               ptr(precond), ptr(noise), yk.data_ptr(), stats.data_ptr(), ptr(x_evol))
@@ -217,13 +223,69 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     particle chunk (0: the largest divisor of P that fits), ``cluster`` the
     most blocks of the particle form's cluster (0: the card's largest; 1
     sweeps every chunk in one block, the same bits). CPU tensors run
-    :func:`apg_solve_plain`.
+    :func:`apg_solve_plain`. On the card this is the launch of
+    :func:`apg_solve_kernel_batched` at B = 1.
     """
     dev = x0.device
     if dev.type == "cpu":
         return apg_solve_plain(model, params, cp, apg, time_steps, x0, x_ref,
                                u_prev, noise, num_particles, lb, ub, u_init,
                                t_init, precond, iter_budget, chunk, cluster)
+    out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                        num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
+                        cluster)
+    apg_solve_kernel.launches += 1
+    return out
+
+
+def apg_solve_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                            apg: APGConfig, time_steps: torch.Tensor, x0: torch.Tensor,
+                            x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
+                            num_particles: int, lb: torch.Tensor, ub: torch.Tensor,
+                            u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
+                            precond: Optional[torch.Tensor] = None,
+                            iter_budget: Optional[int] = None, chunk: int = 0,
+                            cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+    """Plain version of :func:`apg_solve_kernel_batched` (any device):
+    :func:`apg_solve_plain` once per scenario, the results stacked."""
+    sols = [apg_solve_plain(model, params, cp, apg, time_steps, x0[b], x_ref[b], u_prev[b],
+                            None if noise is None else noise[b], num_particles, lb, ub,
+                            u_init[b], None if t_init is None else t_init[b], precond,
+                            iter_budget, chunk, cluster)
+            for b in range(int(x0.shape[0]))]
+    st = APGState(*(torch.stack(f) for f in zip(*(s for s, _ in sols))))
+    return st, torch.stack([x for _, x in sols])
+
+
+def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                             apg: APGConfig, time_steps: torch.Tensor, x0: torch.Tensor,
+                             x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
+                             num_particles: int, lb: torch.Tensor, ub: torch.Tensor,
+                             u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
+                             precond: Optional[torch.Tensor] = None,
+                             iter_budget: Optional[int] = None, chunk: int = 0,
+                             cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+    """B independent solves of one problem family -> ``(APGState, x_evol)``,
+    every field with a leading B and ``x_evol`` (B, H+1, 13): the
+    counterpart of the JAX package's vmap of the solve
+    (``parallel/batched.py:60-70``).
+
+    Per scenario: ``x0`` (B, 13), ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u)
+    (or wider: the first n_u columns are read), ``noise`` (B, P, H, 13) or
+    None at P=1, ``u_init`` (B, H, nZ), ``t_init`` (B,) or None. The box,
+    ``precond``, ``iter_budget`` and the particle plan are shared. On the card
+    one launch of the whole-solve kernel over a grid of B scenarios (one
+    block, or one cluster of C blocks, each, with its own loop and early
+    exit), counted as one launch, then at P>1 one batched ``trajectory``
+    launch; the consts are the (B, n_consts) buffer of
+    :func:`~sde4mbrl_px4_tpu_torch.ops.cuda.consts.batch_consts`. Scenario
+    b's bits are those of its solo :func:`apg_solve_kernel`. CPU tensors run
+    :func:`apg_solve_plain_batched`.
+    """
+    if x0.device.type == "cpu":
+        return apg_solve_plain_batched(model, params, cp, apg, time_steps, x0, x_ref,
+                                       u_prev, noise, num_particles, lb, ub, u_init, t_init,
+                                       precond, iter_budget, chunk, cluster)
     out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                          num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
                          cluster)
@@ -231,18 +293,44 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     return out
 
 
+def _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                  num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
+                  cluster, prof: Optional[torch.Tensor] = None
+                  ) -> Tuple[APGState, torch.Tensor]:
+    """One solve as the batched launch at B = 1."""
+    one = lambda t: None if t is None else t[None]
+    st, x_evol = _solve_on_card(model, params, cp, apg, time_steps, one(x0), one(x_ref),
+                                one(u_prev), one(noise), num_particles, lb, ub, one(u_init),
+                                t_init, precond, iter_budget, chunk, cluster, prof)
+    return APGState(*(f[0] for f in st)), x_evol[0]
+
+
 def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                    num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
                    cluster, prof: Optional[torch.Tensor] = None
                    ) -> Tuple[APGState, torch.Tensor]:
+    """B solves on the card (the inputs' leading axis), in one launch."""
     dev = x0.device
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_kernel: unsupported device {dev}")
-    H, n = int(time_steps.shape[0]), model.n_u + cp.n_slack
-    P, z, chunk = resolve_particles(noise, num_particles, None, chunk, H, dev)
+    B, H, n = int(x0.shape[0]), int(time_steps.shape[0]), model.n_u + cp.n_slack
+    if B < 1:
+        raise ValueError("apg_solve_kernel_batched: no scenario (B = 0)")
+    P, _, chunk = resolve_particles(None, num_particles, True, chunk, H, dev)
+    z = None
+    if P > 1:
+        if noise is None:
+            raise ValueError(f"a Monte-Carlo solve (num_particles={P}) needs its "
+                             f"Brownian block: noise (P, H, 13), got None")
+        if (noise.device != dev or noise.dtype != torch.float32
+                or tuple(noise.shape) != (B, P, H, 13)):
+            raise ValueError(f"apg_solve_kernel: noise must be float32 {(B, P, H, 13)} on "
+                             f"{dev}, got {noise.dtype} {tuple(noise.shape)} on "
+                             f"{noise.device}")
+        z = noise.transpose(1, 2).contiguous()          # (B, H, P, 13)
     _check_scope(model, cp, apg, lb, params if P == 1 else None)
-    for name, t, shape in (("x0", x0, (13,)), ("x_ref", x_ref, (H + 1, 13)),
-                           ("u_init", u_init, (H, n)), ("lb", lb, (n,)),
+    for name, t, shape in (("x0", x0, (B, 13)), ("x_ref", x_ref, (B, H + 1, 13)),
+                           ("u_init", u_init, (B, H, n)), ("lb", lb, (n,)),
                            ("ub", ub, (n,)), ("time_steps", time_steps, (H,)),
                            ("precond", precond, (H, n))):
         if t is None:
@@ -250,24 +338,28 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"apg_solve_kernel: {name} must be float32 {shape} "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if u_prev.device != dev or u_prev.dim() != 2 or u_prev.shape[0] != B:
+        raise ValueError(f"apg_solve_kernel: u_prev must be (B={B}, n_u) on {dev}, "
+                         f"got {tuple(u_prev.shape)} on {u_prev.device}")
     for name, t in (("u_init", u_init), ("precond", precond)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"apg_solve_kernel: {name} must be contiguous")
     lib = load_apg_library()
-    consts, args = build_consts(model, params, cp, apg, time_steps, x0, x_ref,
-                                u_prev, lb, ub, has_pre=precond is not None,
+    consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
+                                u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget)
+    if B > 1:
+        consts = batch_consts(consts, args, x0, x_ref, u_prev)
     if z is not None:
-        z = z.contiguous()
         plan_solve_particles(args, P, chunk, cluster, prof is not None)
-    t0 = resolve_t_init(apg, t_init, dev)
+    t0 = resolve_t_init(apg, t_init, dev).expand(B).contiguous()
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
     if x_evol is None:
         x_evol = trajectory_kernel(consts, args, yk)
-    st = APGState(yk=yk, num_steps=stats[0], stepsize=stats[1],
-                  avg_stepsize=stats[2], avg_linesearch=stats[3],
-                  grad_sqr=stats[4], init_cost=stats[5], opt_cost=stats[6])
+    st = APGState(yk=yk, num_steps=stats[:, 0], stepsize=stats[:, 1],
+                  avg_stepsize=stats[:, 2], avg_linesearch=stats[:, 3],
+                  grad_sqr=stats[:, 4], init_cost=stats[:, 5], opt_cost=stats[:, 6])
     return st, x_evol
 
 
@@ -292,9 +384,9 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     if sc_kind(cp) != SC_NONE:
         raise ValueError("apg_phase_split times a solve without state constraints")
     prof = torch.zeros((2, 8), dtype=torch.int64, device=x0.device)
-    out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
-                         num_particles, lb, ub, u_init, t_init, precond, iter_budget,
-                         chunk, cluster, prof)
+    out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
+                        num_particles, lb, ub, u_init, t_init, precond, iter_budget,
+                        chunk, cluster, prof)
     apg_phase_split.cycles = prof if int(num_particles) > 1 else prof[0]
     return out
 

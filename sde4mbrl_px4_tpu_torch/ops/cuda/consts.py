@@ -37,13 +37,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
+from sde4mbrl_px4_tpu_torch.device import host_values
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
 __all__ = ["APG_MAXK", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
            "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs",
-           "build_consts", "check_p1_widths", "p1_widths", "plan_cluster", "plan_particles",
+           "batch_consts", "build_consts", "check_p1_widths", "p1_widths", "plan_cluster", "plan_particles",
            "sc_kind", "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
@@ -74,6 +75,7 @@ _FLOAT_FIELDS = ("inc", "one_m_coef", "tmax", "beta_init", "moment_scale",
                  "atol", "rtol")
 _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
               "o_hi13", "o_inv13")
+_BATCH_FIELDS = ("batch",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
@@ -82,7 +84,7 @@ class ApgArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
-                + [(n, ctypes.c_int) for n in _SC_FIELDS + _CLUSTER_FIELDS])
+                + [(n, ctypes.c_int) for n in _SC_FIELDS + _BATCH_FIELDS + _CLUSTER_FIELDS])
 
 
 def sc_kind(cp: CostParams) -> int:
@@ -99,8 +101,7 @@ def _constraint_pieces(cp: CostParams) -> tuple:
         ids = torch.argmax(cp.slack_sel, dim=1).to(torch.float32)
         return (("penm", cp.slack_pen), ("invm", cp.slack_inv_scale), ("sid", ids))
     if kind == SC_PENALTY:
-        pen = torch.tensor(cp.constr_pen, dtype=torch.float32,
-                           device=cp.state_pen13.device) * cp.state_pen13
+        pen = host_values(cp.constr_pen, cp.state_pen13.device) * cp.state_pen13
         return (("pen13", pen), ("lo13", cp.state_lo13), ("hi13", cp.state_hi13),
                 ("inv13", cp.state_inv_scale13))
     return ()
@@ -146,9 +147,8 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         slo, shi = cp.u_slew_constr[:, 0], cp.u_slew_constr[:, 1]
     else:
         slo = shi = torch.zeros(n, dtype=f32, device=x0.device)
-    host = torch.tensor([model.mass, cp.uerr, cp.u_slew_coeff,
-                         cp.u_slew_constr_coeff, cp.res_mult],
-                        dtype=f32, device=x0.device)
+    host = host_values([model.mass, cp.uerr, cp.u_slew_coeff, cp.u_slew_constr_coeff,
+                        cp.res_mult], x0.device)
     scal = torch.cat([host[:1], torch.exp(params["diffusion_log_scale"]).reshape(1),
                       host[1:]])
     if lb is None:
@@ -176,7 +176,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
     a.H, a.n_u, a.nZ = H, n, nZ
     a.sc_kind, a.m = sc_kind(cp), nZ - n
-    a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = 1
+    a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
     if apg is None:
@@ -199,6 +199,23 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     for k, v in enumerate(df_powers(apg)):
         a.dfp[k] = v
     return buf, a
+
+
+def batch_consts(template: torch.Tensor, a: ApgArgs, x0: torch.Tensor,
+                 x_ref: torch.Tensor, u_prev: torch.Tensor) -> torch.Tensor:
+    """The (B, n_consts) consts of B scenarios that differ only in their
+    initial state, reference and previous control: ``template`` (one
+    scenario's buffer from :func:`build_consts`) repeated on the device, with
+    scenario b's ``x0`` (13), ``xref`` (H+1, 13) and ``uprev`` (the first
+    n_u columns of ``u_prev[b]``) blocks written in. No Python loop over B,
+    no host sync; sets ``a.batch = B``."""
+    B, n = int(x0.shape[0]), a.n_u
+    buf = template.reshape(1, -1).repeat(B, 1)
+    buf[:, a.o_x0:a.o_x0 + 13] = x0
+    buf[:, a.o_xref:a.o_xref + (a.H + 1) * 13] = x_ref.reshape(B, -1)
+    buf[:, a.o_uprev:a.o_uprev + n] = u_prev[:, :n]
+    a.batch = B
+    return buf
 
 
 def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:

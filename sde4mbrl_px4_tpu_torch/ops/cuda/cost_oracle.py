@@ -294,13 +294,22 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
 
 def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
                       u: torch.Tensor) -> torch.Tensor:
-    """(H, nZ) plan -> the mean rollout of its controls (H+1, 13): one launch."""
+    """(H, nZ) plan -> the mean rollout of its controls (H+1, 13): one launch.
+    With ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) and
+    ``consts`` (B, n_consts), roll out in the same launch, one block each,
+    into (B, H+1, 13)."""
     lib = load_oracle_library()
     need = lib.trajectory_smem_bytes(ctypes.byref(args))
     if need > SMEM_LIMIT:
         raise ValueError(f"trajectory needs {need} bytes of shared memory, "
                          f"above the {SMEM_LIMIT}-byte budget")
-    out = torch.empty((args.H + 1, 13), dtype=torch.float32, device=u.device)
+    B = args.batch
+    if (u.numel() != B * args.H * args.nZ or consts.numel() != B * args.n_consts
+            or not u.is_contiguous() or not consts.is_contiguous()):
+        raise ValueError(f"trajectory: {B} scenario(s) take contiguous plans of "
+                         f"{args.H}x{args.nZ} and consts of {args.n_consts} floats each, "
+                         f"got {tuple(u.shape)} and {tuple(consts.shape)}")
+    out = torch.empty(u.shape[:-2] + (args.H + 1, 13), dtype=torch.float32, device=u.device)
     _raise_on(lib.trajectory_launch(ctypes.byref(args), consts.data_ptr(),
                                     u.data_ptr(), out.data_ptr(), _stream(u)),
               "trajectory")

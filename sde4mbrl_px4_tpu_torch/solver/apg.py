@@ -130,10 +130,10 @@ def df_powers(cfg: APGConfig) -> list:
 
 def resolve_t_init(cfg: APGConfig, t_init: Optional[torch.Tensor],
                    device) -> torch.Tensor:
-    """The first trial stepsize as a 0-dim device tensor: the carried
-    stepsize clamped to [1e-6, max_stepsize] when positive, else
-    ``init_stepsize`` (no host sync)."""
-    init = torch.tensor(cfg.init_stepsize, dtype=torch.float32, device=device)
+    """The first trial stepsize on ``device`` (0-dim, or the shape of a
+    batch of carried stepsizes): the carried stepsize clamped to [1e-6,
+    max_stepsize] when positive, else ``init_stepsize`` (no host sync)."""
+    init = torch.full((), cfg.init_stepsize, dtype=torch.float32, device=device)
     if t_init is None:
         return init
     ti = torch.as_tensor(t_init, dtype=torch.float32, device=device)

@@ -293,10 +293,11 @@ def test_deadline_budget():
 
 def test_slice_runs_without_jax(repo_root):
     """A fresh process imports the port, builds the controller and solves
-    once in each mode, runs the particle and constrained routes, imports
-    the node, the sim and the launcher and flies one solve through the
-    engine node, without JAX ever entering ``sys.modules``; no module of
-    the port imports JAX or the JAX package."""
+    once in each mode, runs the particle and constrained routes, a batched
+    solve and a fleet tick, imports the node, the sim, the fleet demo and
+    the launcher and flies one solve through the engine node, without JAX
+    ever entering ``sys.modules``; no module of the port imports JAX or the
+    JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -333,6 +334,18 @@ def test_slice_runs_without_jax(repo_root):
             sol = mpc_fn(xt, None, reset_fn(xt, None, xt), 0.0, xt)
             assert int(sol.opt_state.num_steps) == 2 and sol.u_opt.shape == (20, 4)
             assert sol.opt_state.yk.shape == (20, 10 if prox else 4)
+        # the batched route and the fleet: two scenarios, two iterations
+        import sde4mbrl_px4_tpu_torch.sim.fleet_serving
+        from sde4mbrl_px4_tpu_torch.parallel.batched import make_batch_inputs, make_batched_mpc
+        from sde4mbrl_px4_tpu_torch.parallel.fleet import FleetEngine
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg["apg_mpc"]["max_iter"] = 2
+        reset_b, mpc_b, _ = make_batched_mpc(cfg, device="cpu")
+        xs, gen = make_batch_inputs(2, spread=0.3, device="cpu")
+        sol = mpc_b(xs, gen, reset_b(xs, gen, xs), torch.zeros(2), xs)
+        assert sol.u_opt.shape == (2, 20, 4) and sol.opt_state.num_steps.tolist() == [2, 2]
+        u_now, _, age = FleetEngine(cfg, batch=2, device="cpu").step(xs.numpy(), xs.numpy())
+        assert u_now.shape == (2, 4) and age == 0.0
         # the node, the sim and the launcher: one pos solve through the
         # engine's doorbell, picked up by the ingress
         import time
