@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three solve routes through ``mpc_fn`` on the card and
+Drives the port's solve routes through ``mpc_fn`` on the card and
 checks them: the linesearch APG on the hand-written whole-solve kernel
 (flown by ``RecedingHorizonController`` on both iris flight configs and
-both hexa ones), and MPPI and fixed-step APG on the hand-written
-cost-oracle kernels; then flies the closed loop (the engine node on the
-card against the simulated FCU over UDP) and the two-process launch tier.
+both hexa ones), MPPI and fixed-step APG on the hand-written cost-oracle
+kernels, and the policy family (the pure policy on the oracle, the
+``refine_iters`` hybrid on the whole solve); then flies the closed loop
+(the engine node on the card against the simulated FCU over UDP) and the
+two-process launch tier, and serves batched solves and fleets of every
+family on the kernels' scenario axis.
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
@@ -162,16 +165,50 @@ without a result):
     B = 1, 132, 256 and 1024 (host p50 per step, device ms, iterations per
     solve, solves/s); then ``sim/fleet_serving.py --vehicles 64 --seconds
     8`` (gate: ``RESULT: PASS``, the cold tick's age 0 and a steady age
-    above 0; its busy time p50/p99 printed beside a tick's device time).
+    above 0; its busy time p50/p99 printed beside a tick's device time);
+21. the policy family (``solver: policy``, ``models/policy.py``) on the
+    four shipped checkpoints (``configs/models/*_policy.pkl``, loaded
+    through ``policy.params_path``): the pure policy, 4 chained solves on
+    the card against the plain version on the CPU from the same states
+    (|du| <= 1e-5, telemetry cost rtol 2e-5, ``x_evol`` against the mean
+    rollout of the card's plan rtol 1e-5; one ``value_batch`` and one
+    ``trajectory`` launch per solve); the ``refine_iters`` hybrid on iris
+    traj at 3 and 15, a cold and 5 warm solves, each kernel against the
+    plain whole solve from the same warm start (rtol 2e-4 / atol 2e-5,
+    equal steps; one ``apg_solve`` launch per solve), ``iter_budget`` 2
+    giving 2 steps; 50 chained ticks of the pure policy and of the hybrid
+    at 3 and 15 timed (p50 from ``mpc_fn`` dispatch to the plan on the
+    host, and the device span); the closed loop with ``--solver policy``,
+    6 s at time-scale 1: ``--refine-iters 15`` gated at its PASS (0.35 m,
+    ``MPC_ON``), ``--refine-iters 0`` printed;
+22. the batched oracle routes: one ``value_batch`` launch over B x K plans
+    (B = 1, 4, 64, 256 x K = 1, 8, 64 at P=1; P=512 antithetic at B = 4, K
+    = 1, 4; the padded trunk and the proximal form at B = 4) and one
+    ``value_and_grad`` launch over B plans (B = 1, 64, 256; P=512 and
+    proximal at B = 4), every scenario bit-equal to its solo launch and
+    the first and last within the oracle tolerances of the plain oracle
+    (2e-5; gradients 5e-4 / 5e-5), each launch timed; the batched solves,
+    each scenario against its solo ``mpc_fn`` on the card from the same
+    inputs and draws: MPPI at B = 64 (K = 64, 8 rounds; bit for bit),
+    fixed-step APG at B = 64 (posctrl without its linesearch block) and at
+    P=512 antithetic, B = 4 (bit for bit but ``grad_sqr``, held to 1e-6
+    relative), the policy at B = 256, pure and at ``refine_iters`` 15 (the
+    network's plans to 1e-6; the kernels given the batch's plans bit for
+    bit; a warm hybrid step bit for bit), their steps timed (ms and
+    solves/s); the fleet demo with ``--solver policy --refine-iters 15`` and
+    ``--solver mppi``, 64 vehicles, 4 s (gate: PASS at 0.35 m; busy p50/p99
+    and device ms per tick printed).
 
-In phases 6-8, 11-13, 15-18 and 20 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18 and 20-22 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
 JAX must never be imported.
 
-The second-to-last lines are the kernels' JSON record and the card's name
-and power limit; the last line is
+The lines before the last are the routes' JSON record (``{"record": ...}``:
+per-solve times, the closed loops, the launch tier, the fleets, the policy
+family, the batched routes), the kernels' JSON line and the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -221,6 +258,17 @@ BATCH_SIZES = (1, 132, BATCH_B, 1024)
 HEXA_B, PART_B = 64, 4
 FLEET_ARGV = ["--vehicles", "64", "--seconds", "8"]   # examples/fleet_serving.py
 LAUNCH_READY_S, LAUNCH_ON_S = 300.0, 30.0   # the launch tier's time limits
+# the policy family (phase 21): the shipped checkpoints, the hybrid's polish
+# iterations, the chained replay and the timed ticks
+POLICY_CKPTS = (("iris", "traj"), ("iris", "posctrl"), ("hexa", "traj"), ("hexa", "posctrl"))
+POLICY_REFINE = (3, 15)
+POLICY_REPLAY, POLICY_TICKS = 4, 50
+# the batched oracle routes (phase 22): value_batch over B x K plans,
+# value_and_grad over B plans; the batched MPPI and fixed-step solves, the
+# policy's; the fleet demo of the other families
+ORACLE_B, ORACLE_K, VG_B = (1, 4, 64, 256), (1, 8, 64), (1, 64, 256)
+SOLVE_B, POLICY_B = 64, 256
+FLEET_FAMILY_ARGV = ["--vehicles", "64", "--seconds", "4"]
 # the least time of a call: the H100 SXM's fp32 rate outside the tensor cores
 # and its HBM3 rate (NVIDIA's published H100 SXM figures)
 PEAK_FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -663,15 +711,37 @@ def phase_slice(dev, vehicle: str = "iris") -> int:
 @contextlib.contextmanager
 def routed(name: str, fn):
     """Route the loader's ``name`` (``apg_solve_kernel`` or ``cost_oracle``)
-    through ``fn`` (measurement and parity only)."""
+    through ``fn``, which has that wrapper's solo signature (measurement and
+    parity only). The loader calls the ``_batched`` wrappers; a solo solve
+    is their B = 1, which ``fn`` serves on the scenario's inputs."""
     from sde4mbrl_px4_tpu_torch.engine import mpc_loader
+    from sde4mbrl_px4_tpu_torch.solver.apg import APGState, CostOracle
 
-    orig = getattr(mpc_loader, name)
-    setattr(mpc_loader, name, fn)
+    one = lambda t: None if t is None else t[0]
+
+    def solve(model, params, cp, apg, ts, x0, x_ref, u_prev, noise, P, lb, ub, u_init,
+              t_init=None, **kw):
+        assert x0.shape[0] == 1, "routed serves solo solves (B = 1)"
+        st, x_evol = fn(model, params, cp, apg, ts, x0[0], x_ref[0], u_prev[0], one(noise),
+                        P, lb, ub, u_init[0], one(t_init), **kw)
+        return APGState(*(f[None] for f in st)), x_evol[None]
+
+    def oracle(model, params, cp, ts, x0, x_ref, u_prev, noise, P, maxls, **kw):
+        assert x0.shape[0] == 1, "routed serves solo solves (B = 1)"
+        o = fn(model, params, cp, ts, x0[0], x_ref[0], u_prev[0], one(noise), P, maxls, **kw)
+        return CostOracle(
+            value=lambda u: o.value(u[0])[None],
+            value_batch=lambda U: o.value_batch(U[0])[None],
+            value_and_grad=lambda u: tuple(v[None] for v in o.value_and_grad(u[0])),
+            trajectory=lambda u: o.trajectory(u[0])[None])
+
+    attr = name + "_batched"
+    orig = getattr(mpc_loader, attr)
+    setattr(mpc_loader, attr, solve if name == "apg_solve_kernel" else oracle)
     try:
         yield
     finally:
-        setattr(mpc_loader, name, orig)
+        setattr(mpc_loader, attr, orig)
 
 
 def phase_mppi(dev) -> dict:
@@ -2124,15 +2194,17 @@ def scenario_state(st, i: int):
     return type(st)(*(f[i] for f in st))
 
 
-def bit_equal_to_solo(tag: str, sol, solos: list) -> int:
-    """Every scenario of a batched solve against its solo kernel solve
-    (``mpc_fn``, one launch each): ``u_opt``, ``x_evol`` and every
-    ``opt_state`` field bit for bit."""
+def bit_equal_to_solo(tag: str, sol, solos: list, skip: tuple = ()) -> int:
+    """Every scenario of a batched solve against its solo solve (``mpc_fn``
+    on the card): ``u_opt``, ``x_evol`` and every ``opt_state`` field but
+    those in ``skip`` bit for bit."""
     import torch
 
+    fields = [k for k in sol.opt_state._fields if k not in skip]
     bad = [i for i, one in enumerate(solos)
            if not (torch.equal(one.u_opt, sol.u_opt[i]) and torch.equal(one.x_evol, sol.x_evol[i])
-                   and all(torch.equal(f, g[i]) for f, g in zip(one.opt_state, sol.opt_state)))]
+                   and all(torch.equal(getattr(one.opt_state, f), getattr(sol.opt_state, f)[i])
+                           for f in fields))]
     steps = sol.opt_state.num_steps
     log(f"batched {tag}: {len(solos)} scenario(s) against their solo kernel solves: "
         f"{len(solos) - len(bad)} bit-equal (u_opt, x_evol, opt_state); iterations "
@@ -2379,6 +2451,564 @@ def phase_fleet(card: str) -> dict:
     return res
 
 
+def policy_config(vehicle: str, kind: str, refine: int = 0, **apg) -> dict:
+    """A shipped config flown by its shipped policy checkpoint
+    (``configs/models/<vehicle>_<kind>_policy.pkl``), ``refine_iters``
+    ``refine``, the ``apg_mpc`` keys given."""
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(ROOT, f"configs/{vehicle}_{kind}_mpc.yaml"))
+    cfg["solver"] = "policy"
+    cfg["policy"] = {"params_path": os.path.join(
+        ROOT, f"configs/models/{vehicle}_{kind}_policy.pkl"), "refine_iters": refine}
+    cfg["apg_mpc"].update(apg)
+    return cfg
+
+
+def policy_start(sft, dev):
+    """(state, t0): the lemniscate at 3 s for a trajectory config, else the
+    pinned offset state of the family replays."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+
+    if sft is not None:
+        return enu2ned(sft(np.float32(3.0))).to(dev), 3.0
+    x = hover_state(dev)
+    x[0], x[2] = 0.5, -0.3
+    return x, 0.0
+
+
+def policy_pure_parity(dev, vehicle: str, kind: str, n: int = POLICY_REPLAY) -> dict:
+    """``n`` chained pure-policy solves on the card (the states of its own
+    chain), each against the plain version on the CPU from the same state
+    and warm start: the plan (|du| <= 1e-5: cuBLAS and the CPU's GEMM sum
+    the 384-wide layers in other orders), the telemetry cost (rtol 2e-5),
+    and ``x_evol`` against the mean rollout of the card's plan (rtol 1e-5).
+    One ``value_batch`` and one ``trajectory`` launch per solve."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    cfg = policy_config(vehicle, kind)
+    c, (reset_k, mpc_k), sft, b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    _, (reset_p, mpc_p), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
+    dt = float(c["_time_steps"][0])
+    x, t0 = policy_start(sft, dev)
+    st = reset_k(x, None, x)
+    du = dc = dx = 0.0
+    zero_counts()
+    for k in range(n):
+        t = t0 + k * dt
+        sol = mpc_k(x, None, st, t, x)
+        st_cpu = type(st)(*(f.cpu() for f in st))
+        one = mpc_p(x.cpu(), None, st_cpu, t, x.cpu())
+        du = max(du, float((sol.u_opt.cpu() - one.u_opt).abs().max()))
+        dc = max(dc, abs(float(sol.opt_state.opt_cost) - float(one.opt_state.opt_cost))
+                 / abs(float(one.opt_state.opt_cost)))
+        ref = rollout_mean(b.model, b.params, x, sol.u_opt, b.time_steps)
+        dx = max(dx, float((sol.x_evol - ref).abs().max()))
+        if not (torch.allclose(sol.x_evol, ref, rtol=1e-5, atol=1e-6)
+                and int(sol.opt_state.num_steps) == 0
+                and bool(torch.equal(sol.opt_state.init_cost, sol.opt_state.opt_cost))):
+            raise AssertionError(f"pure policy {vehicle} {kind}: x_evol or stats differ")
+        st, x = sol.opt_state, sol.x_evol[1]
+    got = check_route(f"pure policy {vehicle} {kind}", {
+        "apg_solve": 0, "value_batch": n, "value_and_grad": 0, "trajectory": n})
+    log(f"pure policy {vehicle} {kind} ({n} chained solves on the shipped checkpoint), card "
+        f"against the plain CPU version: max|du| {du:.3e} (gate 1e-5), cost rel {dc:.3e} "
+        f"(2e-5), x_evol against the rollout of the card's plan max|dx| {dx:.3e} (rtol 1e-5 / "
+        f"atol 1e-6)")
+    if not (du <= 1e-5 and dc <= 2e-5):
+        raise AssertionError(f"the pure policy {vehicle} {kind} disagrees with plain")
+    return {"du": du, "cost_rel": dc, "dx": dx, "launches": got}
+
+
+def policy_hybrid_parity(dev, refine: int, warm: int = 5) -> dict:
+    """The hybrid on iris traj at ``refine_iters``: a cold solve and ``warm``
+    warm solves on the card, each against the plain whole solve on the card
+    from the same warm start (rtol 2e-4 / atol 2e-5, equal ``num_steps``);
+    one ``apg_solve`` launch per solve."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    c, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(
+        policy_config("iris", "traj", refine), device=dev)
+    dt = float(c["_time_steps"][0])
+    x, t0 = policy_start(sft, dev)
+    st = reset_fn(x, None, x)
+    du, steps, plain_ms = 0.0, [], []
+    for k in range(warm + 1):
+        t = t0 + k * dt
+        zero_counts()
+        sol = mpc_fn(x, None, st, t, x)
+        torch.cuda.synchronize()
+        check_route(f"hybrid refine {refine}", {"apg_solve": 1, "value_batch": 0,
+                                                "value_and_grad": 0, "trajectory": 0})
+        w0 = time.perf_counter()
+        with routed("apg_solve_kernel", AK.apg_solve_plain):
+            one = mpc_fn(x, None, st, t, x)
+        plain_ms.append((time.perf_counter() - w0) * 1e3)
+        nk, np_ = int(sol.opt_state.num_steps), int(one.opt_state.num_steps)
+        du = max(du, float((sol.u_opt - one.u_opt).abs().max()))
+        steps.append(nk)
+        if not (nk == np_ and torch.allclose(sol.u_opt, one.u_opt, rtol=2e-4, atol=2e-5)):
+            raise AssertionError(f"hybrid refine {refine} tick {k}: kernel {nk} steps vs plain "
+                                 f"{np_}, max|du| {du:.3e}")
+        st, x = sol.opt_state, sol.x_evol[1]
+    budget = mpc_fn(x, None, st, t0 + (warm + 1) * dt, x, 2)
+    log(f"hybrid refine_iters {refine} on iris traj: cold + {warm} warm solves, kernel against "
+        f"plain from the same warm starts: steps {steps}, max|du| {du:.3e} (rtol 2e-4 / atol "
+        f"2e-5); iter_budget 2 -> {int(budget.opt_state.num_steps)} steps")
+    if int(budget.opt_state.num_steps) != 2:
+        raise AssertionError("the hybrid ignored its iteration budget")
+    return {"du": du, "steps": steps, "plain_ms": statistics.median(plain_ms)}
+
+
+def policy_ticks(dev, refine: int, n: int = POLICY_TICKS) -> dict:
+    """``n`` chained iris traj ticks of the policy family at ``refine``:
+    wall ms per solve from ``mpc_fn`` dispatch to the plan on the host
+    (p50), and the device span (CUDA events) p50; the launch counts."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    c, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(
+        policy_config("iris", "traj", refine), device=dev)
+    dt = float(c["_time_steps"][0])
+    x, t0 = policy_start(sft, dev)
+    st = reset_fn(x, None, x)
+    for k in range(3):                               # warm: builds, first launches
+        sol = mpc_fn(x, None, st, t0, x)
+        sol.u_opt.cpu()
+    wall, devm, steps = [], [], []
+    zero_counts()
+    for k in range(n):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        sol = mpc_fn(x, None, st, t0 + k * dt, x)
+        e1.record()
+        sol.u_opt[0].cpu()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        e1.synchronize()
+        devm.append(e0.elapsed_time(e1))
+        steps.append(float(sol.opt_state.num_steps))
+        st, x = sol.opt_state, sol.x_evol[1]
+    want = ({"apg_solve": n, "value_batch": 0, "value_and_grad": 0, "trajectory": 0}
+            if refine else {"apg_solve": 0, "value_batch": n, "value_and_grad": 0,
+                            "trajectory": n})
+    got = check_route(f"policy ticks refine {refine}", want)
+    return {"wall_ms_p50": statistics.median(wall), "device_ms_p50": statistics.median(devm),
+            "steps": statistics.mean(steps), "launches": got}
+
+
+def host_launches(fn, n: int = 10) -> dict:
+    """What one call of ``fn`` asks of the card, from ``torch.profiler``
+    over ``n`` calls: kernel launches (every ``cuda*Launch*`` runtime call)
+    and host-to-device copies per call, and the host's CPU time per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    launches = copies = 0
+    for ev in prof.key_averages():
+        if "Launch" in ev.key and ev.key.startswith("cuda"):
+            launches += ev.count
+        if ev.key.startswith("cudaMemcpy"):
+            copies += ev.count
+    wall = []
+    for _ in range(n):
+        w0 = time.perf_counter()
+        fn()
+        wall.append((time.perf_counter() - w0) * 1e3)
+    torch.cuda.synchronize()
+    return {"launches": launches / n, "copies": copies / n,
+            "host_ms": statistics.median(wall)}
+
+
+def policy_host_split(dev) -> dict:
+    """The host's share of a pure-policy iris traj solve: launches and CPU
+    time of the whole ``mpc_fn`` call and of its pieces (the network pass
+    with its features; the oracle's consts; its two kernel launches)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc, make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    cfg = policy_config("iris", "traj")
+    _, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    pieces = build_mpc(copy.deepcopy(cfg), device=dev)[2]
+    x, t0 = policy_start(sft, dev)
+    st = reset_fn(x, None, x)
+    x_ref = pieces.build_ref(torch.tensor(t0, device=dev), x)
+    u_prev = st.yk[0]
+    plan = pieces.policy_plan(x, x_ref, u_prev)
+    oracle = lambda: CO.cost_oracle(b.model, b.params, b.cost_params, b.time_steps, x, x_ref,
+                                    u_prev, None, 1, 4)
+    o = oracle()
+    return {"mpc_fn": host_launches(lambda: mpc_fn(x, None, st, t0, x)),
+            "network": host_launches(lambda: pieces.policy_plan(x, x_ref, u_prev)),
+            "oracle_consts": host_launches(oracle),
+            "value_and_trajectory": host_launches(lambda: (o.value(plan), o.trajectory(plan)))}
+
+
+def phase_policy(dev, card: str) -> dict:
+    """Phase 21, the policy family on the card: the four shipped
+    checkpoints' pure policy against the plain version, the ``refine_iters``
+    hybrid (3 and 15) against the plain whole solve and its iteration
+    budget, chained ticks timed, and the closed loop (the hybrid at 15
+    gated at the example's PASS, the pure policy printed)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.sim import closed_loop
+
+    out = {"pure": {f"{v} {k}": policy_pure_parity(dev, v, k) for v, k in POLICY_CKPTS}}
+    out["hybrid"] = {r: policy_hybrid_parity(dev, r) for r in POLICY_REFINE}
+    out["ticks"] = {r: policy_ticks(dev, r) for r in (0,) + POLICY_REFINE}
+    for r, tk in out["ticks"].items():
+        log(f"policy ticks ({card}), iris traj, refine_iters {r}: {tk['wall_ms_p50']:.3f} ms per "
+            f"solve p50 from dispatch to the plan on the host (device span "
+            f"{tk['device_ms_p50']:.3f} ms) at {tk['steps']:.1f} iterations over "
+            f"{POLICY_TICKS} chained ticks")
+    out["host"] = policy_host_split(dev)
+    log("the pure policy's host work per call (torch.profiler launches and copies; host ms "
+        "p50 without the profiler): " + "; ".join(
+            f"{k} {v['launches']:.0f} launches, {v['copies']:.0f} copies, {v['host_ms']:.3f} ms"
+            for k, v in out["host"].items()))
+    out["closed_loop"] = {}
+    for refine, gated in ((15, True), (0, False)):
+        zero_counts()
+        res = closed_loop.run(["--seconds", str(CLOSED_LOOP_S), "--time-scale", "1",
+                               "--solver", "policy", "--refine-iters", str(refine)])
+        torch.cuda.synchronize()
+        got = res["launches"] = counts()
+        out["closed_loop"][refine] = res
+        log(f"closed loop --solver policy --refine-iters {refine} ({card}): tracking error "
+            f"mean {res['err_mean_m']:.4f} m max {res['err_max_m']:.4f} m; FCU status "
+            f"{res['fcu_status']}; timeout ticks {res['timeout_ticks']}/{res['tracked_ticks']}; "
+            f"max pickup idx {res['max_pickup_idx']}; {res['solves']} solves p50 "
+            f"{res['solve_ms_p50']:.3f} ms at {res['iterations_p50']} iterations; kernel "
+            f"launches {got} -> {'PASS' if res['ok'] else 'FAIL'}"
+            f"{'' if gated else ' (printed, not gated: its error is the shipped checkpoint)'}")
+        kernels_ok = (got["apg_solve"] >= 1 and not got["value_batch"] and not got["trajectory"]
+                      if refine else not got["apg_solve"] and got["value_batch"] >= 1
+                      and got["trajectory"] >= 1)
+        if not kernels_ok or got["value_and_grad"]:
+            raise AssertionError(f"the policy closed loop (refine {refine}) did not run on "
+                                 f"its kernels")
+        if gated and not res["ok"]:
+            raise AssertionError(f"the hybrid closed loop failed its PASS gate: {res}")
+    return out
+
+
+def oracle_batch_inputs(b, pieces, B: int, dev, seed: int, P: int = 1):
+    """B scenarios of one config's oracle: hover states 1 m apart at random,
+    their references, previous controls, and (P > 1) antithetic Brownian
+    blocks (B, P, H, 13)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    H, n_u, nZ = int(b.time_steps.shape[0]), b.model.n_u, int(b.lb_z.shape[0])
+    xs = torch.zeros(B, 13, device=dev)
+    xs[:, 6] = 1.0
+    xs[:, :3] = torch.from_numpy(rs.randn(B, 3).astype(np.float32)).to(dev)
+    x_ref = pieces.build_ref(torch.zeros(B, device=dev), xs)
+    u_prev = torch.cat([b.cost_params.uref.expand(B, n_u),
+                        torch.zeros(B, nZ - n_u, device=dev)], 1).contiguous()
+    noise = None
+    if P > 1:
+        z = torch.randn((B, P // 2, H, 13), generator=torch.Generator().manual_seed(seed))
+        noise = torch.cat([z, -z], 1).to(dev)
+    return xs, x_ref, u_prev, noise
+
+
+def batched_oracle_check(b, pieces, dev, B: int, Ks: tuple, P: int, tag: str,
+                         vg: bool, n_plain: int = 2) -> dict:
+    """One config's batched oracle at B scenarios: ``value_batch`` over
+    B x K plans for each K and (``vg``) ``value_and_grad`` over B plans,
+    one launch each, every scenario bit-equal to its solo launch, and
+    ``n_plain`` scenarios (the first and the last) within the oracle
+    tolerances of the plain oracle. Returns the worst errors and the
+    launches' times."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    xs, x_ref, u_prev, noise = oracle_batch_inputs(b, pieces, B, dev, B + P, P)
+    H, nZ = int(b.time_steps.shape[0]), int(b.lb_z.shape[0])
+    ob = CO.cost_oracle_batched(b.model, b.params, b.cost_params, b.time_steps, xs, x_ref,
+                                u_prev, noise, P, 4)
+    args = lambda i: (b.model, b.params, b.cost_params, b.time_steps, xs[i], x_ref[i],
+                      u_prev[i], None if noise is None else noise[i], P, 4)
+    solo = [CO.cost_oracle(*args(i)) for i in range(B)]
+    plain = {i: CO.cost_oracle_plain(*args(i)) for i in sorted({0, B - 1})[:n_plain]}
+    out = {"vb_err": 0.0, "vg_err": 0.0, "ms": {}}
+    rs = np.random.RandomState(B * 7 + P)
+    for K in Ks:
+        U = torch.from_numpy(rs.uniform(0.35, 0.9, (B, K, H, nZ)).astype(np.float32)).to(dev)
+        n0 = CO.value_batch_kernel.launches
+        costs = ob.value_batch(U)
+        if CO.value_batch_kernel.launches != n0 + 1:
+            raise AssertionError("the batched value_batch was not one launch")
+        bad = [i for i in range(B) if not torch.equal(solo[i].value_batch(U[i]), costs[i])]
+        for i, o in plain.items():
+            ref = o.value_batch(U[i])
+            out["vb_err"] = max(out["vb_err"], float(((costs[i] - ref).abs() / ref.abs()).max()))
+        out["ms"][("value_batch", K)] = per_launch_ms(lambda: ob.value_batch(U), 20)
+        log(f"batched value_batch {tag} B={B} K={K}: {B - len(bad)}/{B} scenarios bit-equal to "
+            f"their solo launches; plain rel {out['vb_err']:.3e} (2e-5); "
+            f"{out['ms'][('value_batch', K)]:.4f} ms per launch")
+        if bad or out["vb_err"] > 2e-5:
+            raise AssertionError(f"batched value_batch {tag} B={B} K={K}: scenarios {bad[:8]}")
+    if vg:
+        u = torch.from_numpy(rs.uniform(0.35, 0.9, (B, H, nZ)).astype(np.float32)).to(dev)
+        n0 = CO.value_and_grad_kernel.launches
+        v, g = ob.value_and_grad(u)
+        if CO.value_and_grad_kernel.launches != n0 + 1:
+            raise AssertionError("the batched value_and_grad was not one launch")
+        bad = []
+        for i in range(B):
+            v1, g1 = solo[i].value_and_grad(u[i])
+            if not (torch.equal(v1, v[i]) and torch.equal(g1, g[i])):
+                bad.append(i)
+        for i, o in plain.items():
+            vp, gp = o.value_and_grad(u[i])
+            if not (torch.allclose(g[i], gp, rtol=5e-4, atol=5e-5)
+                    and abs(float(v[i] - vp)) <= 2e-5 * abs(float(vp))):
+                bad.append(f"plain {i}")
+            out["vg_err"] = max(out["vg_err"], float((g[i] - gp).abs().max()))
+        out["ms"]["value_and_grad"] = per_launch_ms(lambda: ob.value_and_grad(u), 20)
+        log(f"batched value_and_grad {tag} B={B}: {B - sum(isinstance(i, int) for i in bad)}/{B} "
+            f"bit-equal to their solo launches; plain max|dg| {out['vg_err']:.3e} (rtol 5e-4 / "
+            f"atol 5e-5); {out['ms']['value_and_grad']:.4f} ms per launch")
+        if bad:
+            raise AssertionError(f"batched value_and_grad {tag} B={B}: {bad[:8]}")
+    # one scenario's plain evaluation, for the record
+    i = next(iter(plain))
+    U1 = torch.from_numpy(rs.uniform(0.35, 0.9, (Ks[-1], H, nZ)).astype(np.float32)).to(dev)
+    out["plain_ms"] = per_launch_ms(lambda: plain[i].value_batch(U1), 3)
+    return out
+
+
+def batched_steps(mpc_b, args_fn, n: int) -> dict:
+    """``n`` batched steps from the same inputs (``args_fn()`` -> the call's
+    arguments): host wall p50 from dispatch to a synchronised result, and
+    device ms p50 (CUDA events)."""
+    import torch
+
+    wall, devm = [], []
+    for _ in range(n):
+        a = args_fn()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        sol = mpc_b(*a)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        devm.append(e0.elapsed_time(e1))
+    return {"wall_ms_p50": statistics.median(wall), "device_ms_p50": statistics.median(devm),
+            "last": sol}
+
+
+def phase_batched_oracle(dev, card: str) -> dict:
+    """Phase 22, the batched oracle routes: the scenario axis of
+    ``value_batch`` and ``value_and_grad`` (bit-equal per scenario to the
+    solo launch, plain within the oracle tolerances), the batched MPPI,
+    fixed-step and policy solves each bit-equal per scenario to the solo
+    ``mpc_fn`` (the network's plans to 1e-6), their steps timed, and the
+    fleet demo with ``--solver policy --refine-iters 15`` and ``--solver
+    mppi``."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batch_inputs
+    from sde4mbrl_px4_tpu_torch.sim import fleet_serving
+    from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise
+
+    out = {"oracle": {}}
+    _, b, pieces = build_mpc(config("iris_posctrl_mpc"), device=dev)
+    for B in ORACLE_B:
+        out["oracle"][("P=1", B)] = batched_oracle_check(
+            b, pieces, dev, B, ORACLE_K, 1, "iris posctrl P=1", vg=B in VG_B)
+    _, bp, pp = build_mpc(config("iris_posctrl_mpc", particles=P_FULL), device=dev)
+    out["oracle"][(f"P={P_FULL}", PART_B)] = batched_oracle_check(
+        bp, pp, dev, PART_B, (1, 4), P_FULL, f"iris posctrl P={P_FULL} antithetic", vg=True)
+    padded = b._replace(params=G.padded_trunk(b.params, PADDED_HID, seed=0))
+    out["oracle"][("padded", PART_B)] = batched_oracle_check(
+        padded, pieces, dev, PART_B, ORACLE_K, 1, f"padded trunk ({PADDED_HID} units)", vg=False)
+    _, bc, pc = build_mpc(config(SHIPPED), device=dev)
+    out["oracle"][("prox", PART_B)] = batched_oracle_check(
+        bc, pc, dev, PART_B, ORACLE_K, 1, "proximal nZ=10", vg=True)
+
+    # batched MPPI at B = 64, K = 64, 8 rounds, the draws handed in
+    cfg = config("iris_posctrl_mpc", solver="mppi")
+    reset_fn, mpc_fn, reset_b, mpc_b, _, bm = batched_pair(cfg, dev)
+    xs, _ = make_batch_inputs(SOLVE_B, spread=0.5, device=dev)
+    tgt = bench_targets(xs)[0]
+    ts = torch.zeros(SOLVE_B, device=dev)
+    eps, c0 = draw_mppi_noise(torch.Generator().manual_seed(5), MPPIConfig(), 20, 4, dev,
+                              batch=(SOLVE_B,))
+    st_in = reset_b(xs, None, xs)
+    torch.cuda.synchronize()
+    zero_counts()
+    sol = mpc_b(xs, iter([(eps, c0)]), st_in, ts, tgt)
+    torch.cuda.synchronize()
+    out["mppi_launches"] = check_route(f"batched MPPI B={SOLVE_B}", {
+        "apg_solve": 0, "value_batch": MPPIConfig().iters + 2, "value_and_grad": 0,
+        "trajectory": 1})
+    out["bit_equal"] = {f"MPPI B={SOLVE_B}": bit_equal_to_solo(
+        f"MPPI B={SOLVE_B} (K=64, 8 rounds)", sol,
+        [mpc_fn(xs[i], iter([(eps[i], c0[i])]), scenario_state(st_in, i), 0.0, tgt[i])
+         for i in range(SOLVE_B)])}
+    out["mppi"] = batched_steps(mpc_b, lambda: (xs, iter([(eps, c0)]), st_in, ts, tgt), 5)
+
+    # batched fixed-step APG at B = 64 (posctrl without its linesearch
+    # block, its 100-iteration budget)
+    cfg = config("iris_posctrl_mpc", linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"])
+    reset_fn, mpc_fn, reset_b, mpc_b, _, _ = batched_pair(cfg, dev)
+    st_in = reset_b(xs, None, xs)
+    torch.cuda.synchronize()
+    zero_counts()
+    sol = mpc_b(xs, None, st_in, ts, tgt)
+    torch.cuda.synchronize()
+    it = int(sol.opt_state.num_steps.max())
+    out["fixed_launches"] = check_route(f"batched fixed-step B={SOLVE_B}", {
+        "apg_solve": 0, "value_batch": it, "value_and_grad": it + 2, "trajectory": 1})
+    solos = [mpc_fn(xs[i], None, scenario_state(st_in, i), 0.0, tgt[i]) for i in range(SOLVE_B)]
+    gsq = float(max(abs(float(s.opt_state.grad_sqr) - float(sol.opt_state.grad_sqr[i]))
+                    / max(abs(float(s.opt_state.grad_sqr)), 1e-30) for i, s in enumerate(solos)))
+    log(f"batched fixed-step B={SOLVE_B}: grad_sqr (a sum over the plan, in torch's order "
+        f"for the shape) against the solo solves: rel {gsq:.3e} (1e-6)")
+    if gsq > 1e-6:
+        raise AssertionError("batched fixed-step grad_sqr differs from the solo solves")
+    out["bit_equal"][f"fixed-step B={SOLVE_B}"] = bit_equal_to_solo(
+        f"fixed-step B={SOLVE_B}", sol, solos, skip=("grad_sqr",))
+    out["fixed"] = batched_steps(mpc_b, lambda: (xs, None, st_in, ts, tgt), 3)
+    out["fixed"]["steps"] = float(sol.opt_state.num_steps.mean())
+
+    # batched fixed-step APG at P=512 antithetic, B = 4, 5 iterations: the
+    # particle forms' scenario axis on a route (a cluster grid each)
+    cfg = config("iris_posctrl_mpc", linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"],
+                 particles=P_FULL, max_iter=5, max_no_improvement_iter=5)
+    reset_fn, mpc_fn, reset_b, mpc_b, _, _ = batched_pair(cfg, dev)
+    xp = xs[:PART_B]
+    z = torch.stack([brownian(P_FULL, dev, antithetic=True, seed=10 + i) for i in range(PART_B)])
+    st_in = reset_b(xp, None, xp)
+    torch.cuda.synchronize()
+    zero_counts()
+    sol = mpc_b(xp, iter([z]), st_in, ts[:PART_B], tgt[:PART_B])
+    torch.cuda.synchronize()
+    it = int(sol.opt_state.num_steps.max())
+    out["part_launches"] = check_route(f"batched fixed-step P={P_FULL} B={PART_B}", {
+        "apg_solve": 0, "value_batch": it, "value_and_grad": it + 2, "trajectory": 1})
+    out["bit_equal"][f"fixed-step P={P_FULL} B={PART_B}"] = bit_equal_to_solo(
+        f"fixed-step P={P_FULL} antithetic B={PART_B}", sol,
+        [mpc_fn(xp[i], iter([z[i]]), scenario_state(st_in, i), 0.0, tgt[i])
+         for i in range(PART_B)], skip=("grad_sqr",))
+
+    # the policy at B = 256, pure and the hybrid at refine_iters 15
+    xs, _ = make_batch_inputs(POLICY_B, spread=0.5, device=dev)
+    tgt, ts = bench_targets(xs)[0], torch.zeros(POLICY_B, device=dev)
+    for refine in (0, 15):
+        cfg = policy_config("iris", "posctrl", refine)
+        reset_fn, mpc_fn, reset_b, mpc_b, _, pb = batched_pair(cfg, dev)
+        _, _, pieces = build_mpc(copy.deepcopy(cfg), device=dev)
+        st_in = reset_b(xs, None, xs)
+        torch.cuda.synchronize()
+        zero_counts()
+        sol = mpc_b(xs, None, st_in, ts, tgt)
+        torch.cuda.synchronize()
+        tag = f"policy B={POLICY_B} refine_iters {refine}"
+        out[f"policy_{refine}_launches"] = check_route(tag, (
+            {"apg_solve": 1, "value_batch": 0, "value_and_grad": 0, "trajectory": 0} if refine
+            else {"apg_solve": 0, "value_batch": 1, "value_and_grad": 0, "trajectory": 1}))
+        x_ref = pieces.build_ref(ts, pieces.targets(tgt))
+        u_prev = st_in.yk[:, 0]
+        plans = pieces.policy_plan(xs, x_ref, u_prev)
+        dplan = max(float((pieces.policy_plan(xs[i], x_ref[i], u_prev[i]) - plans[i]).abs().max())
+                    for i in range(POLICY_B))
+        bad = []
+        for i in range(POLICY_B):
+            if refine:
+                st1, _ = AK.apg_solve_kernel(
+                    pb.model, pb.params, pb.cost_params, pb.apg_config, pb.time_steps, xs[i],
+                    x_ref[i], u_prev[i], None, 1, pb.lb_z, pb.ub_z, plans[i].contiguous(),
+                    t_init=st_in.stepsize[i], precond=pb.precond)
+                same = torch.equal(st1.yk, sol.u_opt[i]) and torch.equal(
+                    st1.num_steps, sol.opt_state.num_steps[i])
+            else:
+                o = CO.cost_oracle(pb.model, pb.params, pb.cost_params, pb.time_steps, xs[i],
+                                   x_ref[i], u_prev[i], None, 1, 4)
+                same = (torch.equal(o.value(plans[i].contiguous()), sol.opt_state.opt_cost[i])
+                        and torch.equal(o.trajectory(plans[i].contiguous()), sol.x_evol[i])
+                        and torch.equal(plans[i], sol.u_opt[i]))
+            if not same:
+                bad.append(i)
+        log(f"batched {tag}: the network's plans against each scenario's solo pass max|du| "
+            f"{dplan:.3e} (1e-6); the kernels given the batch's plans: {POLICY_B - len(bad)}/"
+            f"{POLICY_B} scenarios bit-equal to their solo launches")
+        if bad or dplan > 1e-6:
+            raise AssertionError(f"batched {tag}: scenarios {bad[:8]} differ")
+        if refine:
+            # a warm step: every scenario past its cold start, the network's
+            # plans selected away; each scenario its solo mpc_fn, bit for bit
+            st_w = sol.opt_state
+            sol_w = mpc_b(xs, None, st_w, ts, tgt)
+            out["bit_equal"][f"hybrid warm B={POLICY_B}"] = bit_equal_to_solo(
+                f"hybrid refine_iters 15 B={POLICY_B}, a warm step", sol_w,
+                [mpc_fn(xs[i], None, scenario_state(st_w, i), 0.0, tgt[i])
+                 for i in range(POLICY_B)])
+        out[f"policy_{refine}"] = batched_steps(
+            mpc_b, lambda: (xs, None, st_in, ts, tgt), 5)
+        out[f"policy_{refine}"]["dplan"] = dplan
+    for key, B in (("mppi", SOLVE_B), ("fixed", SOLVE_B), ("policy_0", POLICY_B),
+                   ("policy_15", POLICY_B)):
+        r = out[key]
+        r["solves_per_s"] = B / r["wall_ms_p50"] * 1e3
+        log(f"batched {key} B={B} ({card}): {r['wall_ms_p50']:.3f} ms per step p50 (device "
+            f"{r['device_ms_p50']:.3f} ms), {r['solves_per_s']:.0f} solves/s")
+
+    out["fleet"] = {}
+    for tag, argv, want in (
+            ("policy 15", ["--solver", "policy", "--refine-iters", "15"],
+             lambda n: {"apg_solve": n, "value_batch": 0, "value_and_grad": 0, "trajectory": 0}),
+            ("mppi", ["--solver", "mppi"],
+             lambda n: {"apg_solve": 0, "value_batch": n * (MPPIConfig().iters + 2),
+                        "value_and_grad": 0, "trajectory": n})):
+        zero_counts()
+        res = fleet_serving.run(FLEET_FAMILY_ARGV + argv)
+        torch.cuda.synchronize()
+        res["launches"] = check_route(f"fleet {tag}", want(res["ticks"]))
+        out["fleet"][tag] = res
+        log(f"fleet demo --solver {tag} ({card}; {res['vehicles']} vehicles, {res['ticks']} "
+            f"ticks): busy p50 {res['busy_ms_p50']:.3f} ms, p99 {res['busy_ms_p99']:.3f} ms, a "
+            f"tick's device time p50 {res['device_ms_p50']:.3f} ms, plan age p50 "
+            f"{res['age_ms_p50']:.3f} ms; tracking mean {res['err_mean']:.4f} m max "
+            f"{res['err_max']:.4f} m -> {'PASS' if res['ok'] else 'FAIL'}")
+        if not (res["ok"] and res["first_age"] == 0.0 and res["age_ms_p50"] > 0.0):
+            raise AssertionError(f"the fleet demo --solver {tag} failed: {res}")
+    out["n_consts"] = {"pos": n_consts(b, dev), "prox": n_consts(bc, dev, True)}
+    out["bundles"] = {"pos": b, "part": bp, "prox": bc}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2443,6 +3073,12 @@ def main() -> int:
     fleet = phase_fleet(card)
     log("phase 20: the batched solves equal their solo kernel solves on the scenario grid, "
         "and the fleet demo passes")
+    policy = phase_policy(dev, card)
+    log("phase 21: the policy family (the shipped checkpoints, pure and refine_iters) runs "
+        "on the card and matches its plain version; the hybrid closed loop passes")
+    boracle = phase_batched_oracle(dev, card)
+    log("phase 22: the oracle kernels' scenario axis equals the solo launches; batched MPPI, "
+        "fixed-step and policy solves equal their solo solves; both fleets pass")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -2618,7 +3254,69 @@ def main() -> int:
             chunks_per_block=smem["floor"]["oracle_cluster"][1],
             **({"iteration_ms": coracle["floor_iteration_ms"]}
                if name == "value_and_grad" else {})))
-    print(json.dumps({"kernels": kernels, "solve_ms": {
+    # slice 10: the hybrid's route of #1, the scenario axis of #2 and #3
+    bo, tk = boracle["oracle"], policy["ticks"]
+    nc_b, b_b = boracle["n_consts"]["pos"], boracle["bundles"]["pos"]
+    vb_p1 = {f"B={B},K={K}": r["ms"][("value_batch", K)]
+             for (form, B), r in bo.items() if form == "P=1" for K in ORACLE_K}
+    r64, rpart = bo[("P=1", SOLVE_B)], bo[(f"P={P_FULL}", PART_B)]
+    kernels += [
+        entry("apg_solve", "P=1, the policy hybrid (refine_iters 15, iris traj)",
+              tk[15]["launches"]["apg_solve"], policy["hybrid"][15]["du"],
+              tk[15]["device_ms_p50"], policy["hybrid"][15]["plain_ms"],
+              bound(b_traj, "apg_solve", nc_traj, K=4, iters=tk[15]["steps"]),
+              timed=f"chained hybrid ticks, device span per solve p50 (the network's three "
+                    f"GEMMs and the select included) at {tk[15]['steps']:.1f} iterations",
+              wall_ms_p50=tk[15]["wall_ms_p50"], refine_3_wall_ms_p50=tk[3]["wall_ms_p50"],
+              refine_3_device_ms_p50=tk[3]["device_ms_p50"],
+              closed_loop_launches=policy["closed_loop"][15]["launches"]["apg_solve"],
+              batched_B256_launches=boracle["policy_15_launches"]["apg_solve"],
+              fleet_launches=boracle["fleet"]["policy 15"]["launches"]["apg_solve"]),
+        entry("value_batch", "P=1, K=1, the pure policy's telemetry cost",
+              tk[0]["launches"]["value_batch"], max(p["cost_rel"] for p in
+                                                    policy["pure"].values()),
+              bo[("P=1", 1)]["ms"][("value_batch", 1)], bo[("P=1", 1)]["plain_ms"],
+              bound(b_b, "value_batch", nc_b, K=1),
+              timed="per launch, K=1", max_abs_err_is="the telemetry cost's relative error",
+              pure_wall_ms_p50=tk[0]["wall_ms_p50"], pure_device_ms_p50=tk[0]["device_ms_p50"],
+              closed_loop_launches=policy["closed_loop"][0]["launches"]["value_batch"],
+              batched_B256_launches=boracle["policy_0_launches"]["value_batch"]),
+        entry("value_batch", f"P=1, batched (scenario axis, grid rows; B in {ORACLE_B})",
+              boracle["mppi_launches"]["value_batch"],
+              max(r["vb_err"] for (form, _), r in bo.items() if form == "P=1"),
+              r64["ms"][("value_batch", 64)], r64["plain_ms"],
+              bound(b_b, "value_batch", nc_b, K=64, B=SOLVE_B),
+              timed=f"per launch over B={SOLVE_B} x K=64 plans (a batched MPPI round)",
+              plain_ms_is="one scenario's plain value_batch at K=64",
+              max_abs_err_is="relative to the plain oracle", ms_by_shape=vb_p1,
+              bound_ms_B256_K64=bound(b_b, "value_batch", nc_b, K=64, B=256)[0],
+              padded_max_rel=bo[("padded", PART_B)]["vb_err"],
+              prox_max_rel=bo[("prox", PART_B)]["vb_err"],
+              fleet_launches=boracle["fleet"]["mppi"]["launches"]["value_batch"]),
+        entry("value_batch", f"P={P_FULL} antithetic, batched B={PART_B}",
+              boracle["part_launches"]["value_batch"], rpart["vb_err"],
+              rpart["ms"][("value_batch", 1)], rpart["plain_ms"],
+              bound(boracle["bundles"]["part"], "value_batch", nc_b, P=P_FULL, K=1, B=PART_B),
+              timed=f"per launch over B={PART_B} x K=1 plans",
+              plain_ms_is="one scenario's plain value_batch at K=4",
+              ms_K4=rpart["ms"][("value_batch", 4)]),
+        entry("value_and_grad", f"P=1, batched (B in {VG_B})",
+              boracle["fixed_launches"]["value_and_grad"],
+              max(r["vg_err"] for (form, _), r in bo.items() if form == "P=1"),
+              r64["ms"]["value_and_grad"], timing["value_and_grad"][1],
+              bound(b_b, "value_and_grad", nc_b, B=SOLVE_B),
+              timed=f"per launch over B={SOLVE_B} plans (a batched fixed-step iteration)",
+              plain_ms_is="one plan's plain value_and_grad (phase 9)",
+              ms_B256=bo[("P=1", 256)]["ms"]["value_and_grad"],
+              prox_max_abs_err=bo[("prox", PART_B)]["vg_err"]),
+        entry("value_and_grad", f"P={P_FULL} antithetic, batched B={PART_B}",
+              boracle["part_launches"]["value_and_grad"], rpart["vg_err"],
+              rpart["ms"]["value_and_grad"], part_oracle["value_and_grad"][1],
+              bound(boracle["bundles"]["part"], "value_and_grad", nc_b, P=P_FULL, B=PART_B),
+              timed=f"per launch over B={PART_B} plans",
+              plain_ms_is=f"one plan's plain value_and_grad at P={P_FULL} (phase 13)")]
+    # the routes' record on a line of its own, the kernels' line after it
+    print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
         "fixed_step": timing["fixed_step"][0],
         "fixed_step_plain": timing["fixed_step"][1],
@@ -2628,7 +3326,21 @@ def main() -> int:
         "closed_loop": {tag: {k: v for k, v in run.items() if k != "launches"}
                         for tag, run in loops.items()},
         "launch_tier": {k: v for k, v in tier.items() if k != "fcu_tail"},
-        "fleet": {k: v for k, v in fleet.items() if k != "launches"}}))
+        "fleet": {k: v for k, v in fleet.items() if k != "launches"},
+        "policy": {"pure": {k: {f: v for f, v in r.items() if f != "launches"}
+                            for k, r in policy["pure"].items()},
+                   "host_split": policy["host"],
+                   "hybrid": policy["hybrid"],
+                   "ticks": {r: {f: v for f, v in t.items() if f != "launches"}
+                             for r, t in policy["ticks"].items()},
+                   "closed_loop": {r: {k: v for k, v in run.items() if k != "launches"}
+                                   for r, run in policy["closed_loop"].items()}},
+        "batched_routes": {key: {f: v for f, v in boracle[key].items() if f != "last"}
+                           for key in ("mppi", "fixed", "policy_0", "policy_15")},
+        "batched_bit_equal": boracle["bit_equal"],
+        "fleet_families": {tag: {k: v for k, v in run.items() if k != "launches"}
+                           for tag, run in boracle["fleet"].items()}}}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

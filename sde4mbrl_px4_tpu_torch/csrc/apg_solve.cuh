@@ -46,12 +46,15 @@ struct ApgArgs {
   // block (penm, invm, the state ids as floats; m each) or of the penalty
   // block (pen13 with constr_pen folded in, lo13, hi13, inv13; 13 each).
   int sc_kind, m, o_penm, o_invm, o_sid, o_pen13, o_lo13, o_hi13, o_inv13;
-  // The scenario axis of the whole solve and of trajectory: `batch`
-  // independent problems in one launch (B >= 1), scenario b one block (P=1)
-  // or one cluster (particles). Per-scenario inputs and outputs lie at b
-  // times their stride: consts n_consts, u_init and yk H*nZ, t0 1, stats 8,
-  // x_evol (H+1)*13, noise H*P*13; precond is shared. The cost-oracle
-  // value_batch and value_and_grad take batch = 1 only.
+  // The scenario axis of every kernel: `batch` independent problems in one
+  // launch (B >= 1). The whole solve, value_and_grad and trajectory take
+  // scenario b on one block (P=1) or one cluster (particles); value_batch
+  // on row b of its grid's y dimension (P=1) or on clusters b*K .. b*K+K-1
+  // (particles). Per-scenario inputs and outputs lie
+  // at b times their stride: consts n_consts, u_init and yk H*nZ, t0 1,
+  // stats 8, x_evol (H+1)*13, noise H*P*13, value_batch's plans K*H*nZ and
+  // costs K, value_and_grad's plan and gradient H*nZ and value 1; precond
+  // is shared.
   int batch;
   // The particle forms of the whole solve and of value_and_grad: one
   // thread-block cluster of `cluster` blocks per launch; block `rank`

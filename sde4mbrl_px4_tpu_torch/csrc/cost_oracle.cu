@@ -6,9 +6,22 @@
 //                   run_candidates + control_cost of bodies.py)
 //   value_and_grad  one plan -> cost and (H, nZ) gradient (pallas_call :297,
 //                   vg_sweep of bodies.py)
-//   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347),
-//                   for a.batch scenarios per launch (one block each, the
-//                   batched particle solves' x_evol)
+//   trajectory      one plan -> mean rollout (H+1, 13)   (pallas_call :347)
+//
+// Each takes a.batch scenarios per launch (apg_solve.cuh, batch): B
+// problems that share the trunk and the cost but not their consts (x0, the
+// reference, u_prev), plans or Brownian block. The P=1 value_batch puts
+// scenario b on row b of its grid's y dimension (the blocks of its K
+// candidates); the particle value_batch runs a flat grid of B x K clusters,
+// cluster i candidate i % K of scenario i / K; value_and_grad and
+// trajectory take block b (P=1) or cluster b (particles). Per-scenario data
+// lies at b times its stride, and no value crosses scenarios, so a
+// scenario's bits are those of its solo launch (B = 1). The P=1 forms and
+// value_and_grad read the scenario index from its special register where
+// it is used (grid_row, vg_scenario), so that no register holds it across
+// the step chain. The batched solves of the oracle routes
+// (parallel/batched.py: MPPI over B x K plans, fixed-step APG, the policy's
+// telemetry cost) make one launch per evaluation over all B scenarios.
 //
 // value_batch and value_and_grad are templates <PART, SC>: PART = false the
 // deterministic P=1 oracle (mean dynamics), PART = true the Monte-Carlo one
@@ -75,6 +88,23 @@ static_assert(ORACLE_TILE <= 32 && ORACLE_P1_ROWS <= 32, "one red slot per row")
 static_assert(ORACLE_TILE <= ORACLE_NTHREADS, "fwd_step: one thread per row");
 static_assert(ORACLE_NTHREADS == 4 * P1_HID && ORACLE_P1_ROWS <= ORACLE_NTHREADS / 32,
               "P=1 register chain: 4 threads per hidden unit, one warp per row");
+
+// The block's scenario, read where it is used (asm volatile: never
+// hoisted), so that no register holds it, or a pointer offset by it, across
+// the step chain: the P=1 value_batch's grid row, value_and_grad's block
+// (P=1) or cluster (particles).
+__device__ __forceinline__ size_t grid_row() {
+  unsigned b;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(b));
+  return b;
+}
+template <bool PART>
+__device__ __forceinline__ size_t vg_scenario() {
+  unsigned b;
+  if constexpr (PART) asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(b));
+  else asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
 
 // Whether a's trunk fits the register layout of the P=1 forms (P1W), which
 // the P=1 kernels then run.
@@ -155,13 +185,20 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
   __syncthreads();
 }
 
-// The costs of K plans U (K, H, nZ) into out (K,). PART: a grid of K
-// clusters of a.cluster blocks, cluster k = blockIdx.x / cluster sweeping
-// candidate k's chunks (cand_part), rank 0 writing its cost. P=1: block b
-// takes candidates b*tile .. b*tile + tile-1, REG on the register chain
-// (p1_rollout, warp r the block's row r), else on the shared-memory step.
+// The costs of K plans U (B, K, H, nZ) into out (B, K) for B = a.batch
+// scenarios (consts, plans, Brownian block and costs at b times their
+// stride). PART: a grid of B x K clusters of a.cluster blocks, cluster i =
+// blockIdx.x / cluster sweeping the chunks of plan i (candidate i % K of
+// scenario i / K; cand_part), rank 0 writing its cost. P=1: scenario b on
+// grid row b, block x taking its candidates x*tile .. x*tile + tile-1, REG
+// on the register chain (p1_rollout, warp r the block's row r), else on the
+// shared-memory step.
+// The particle form states a minimum of one 512-thread block per SM (its
+// 100-128 registers a thread allow no second): without it, ptxas took the
+// proximal form to 64 registers (two blocks per SM) and a 108-byte spill
+// once the scenario offsets were added.
 template <bool PART, int SC, bool REG>
-__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
+__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
                    float* __restrict__ out) {
@@ -174,10 +211,16 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   const int R = PART ? 1 : min(tile, K - k0);
   const int tid = threadIdx.x, warp = tid >> 5, nw = blockDim.x >> 5;
   const float* c = s.c;
-  load_block(a, s, R, consts, U + (size_t)k0 * HZ);
+  // PART: k0 is the flat plan index over B x K, so the plans and costs
+  // need no scenario offset, the consts and the Brownian block k0 / K's
+  if constexpr (PART)
+    load_block(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
+  else
+    load_block(a, s, R, consts + grid_row() * a.n_consts,
+               U + (grid_row() * K + k0) * (size_t)HZ);
 
   if constexpr (PART) {
-    cand_part<SC>(a, s, 1, noise);
+    cand_part<SC>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13));
     if (cg::this_cluster().block_rank() != 0) return;
   } else if constexpr (REG) {
     p1_rollout<SC, false, false>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
@@ -200,7 +243,11 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   __syncthreads();
   const float* cost_t = PART ? s.cacc : s.jt;
   const float* cost_r = PART ? s.cacc + R : s.jr;
-  if (tid < R) out[k0 + tid] = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
+  if (tid < R) {
+    float* o = out + k0 + tid;
+    if constexpr (!PART) o += grid_row() * K;
+    *o = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
+  }
 }
 
 // The mean rollout of one plan's control columns into x_out (H+1, 13): REG
@@ -233,6 +280,9 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
 
+// The cost of one plan and its gradient, for scenario b = block b (P=1) or
+// cluster b (particles): its consts, plan u (H, nZ), Brownian block, value
+// and gradient (H, nZ) at b times their stride.
 template <bool PART, int SC>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -243,18 +293,22 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_block(a, s, 1, consts, u);
+  load_block(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
+             u + vg_scenario<PART>() * (a.H * a.nZ));
   int rank = 0;                       // the block's rank in its cluster
   if constexpr (PART) {
     rank = (int)cg::this_cluster().block_rank();
     transpose_weights(a, s);
-    vg_part<SC>(a, s, &fval, s.cand, noise);
+    vg_part<SC>(a, s, &fval, s.cand,
+                [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); });
   } else {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   }
   if (rank != 0) return;
-  for (int e = tid; e < a.H * a.nZ; e += nt) grad[e] = s.g[e];
-  if (tid == 0) *val = fval;
+  const int HZ = a.H * a.nZ;
+  float* g_out = grad + vg_scenario<PART>() * HZ;
+  for (int e = tid; e < HZ; e += nt) g_out[e] = s.g[e];
+  if (tid == 0) val[vg_scenario<PART>()] = fval;
 }
 
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
@@ -278,26 +332,28 @@ int smem_limit(const ApgArgs& a) {
   return a.has_noise ? ORACLE_SMEM_LIMIT_PARTICLES : ORACLE_SMEM_LIMIT;
 }
 
-// batch: the scenarios of a trajectory launch; value_batch and
-// value_and_grad take one.
+// batch: the scenarios of a launch (B >= 1; the grid's limits are
+// grid_ok's).
 bool args_ok(const ApgArgs* a) {
   return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1 &&
          a->batch >= 1;
 }
 
-// One launch of a value_batch instantiation: P=1 ceil(K / tile) blocks;
-// particles a grid of K clusters of a.cluster blocks (cudaLaunchKernelEx,
-// whose error a cluster the card cannot schedule returns).
+// One launch of a value_batch instantiation over a.batch scenarios: P=1
+// ceil(K / tile) blocks on each of a.batch grid rows; particles B x K
+// clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
+// the card cannot schedule returns).
 template <bool PART, int SC, bool REG>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
                                float* out) {
   if constexpr (PART) {
-    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K);
+    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
     return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false>, K, tile, a, consts,
                               U, noise, out);
   } else {
-    value_batch_kernel<false, SC, REG><<<(K + tile - 1) / tile, ORACLE_NTHREADS, dyn, st>>>(
+    const dim3 grid((K + tile - 1) / tile, a.batch);
+    value_batch_kernel<false, SC, REG><<<grid, ORACLE_NTHREADS, dyn, st>>>(
         K, tile, a, consts, U, noise, out);
     return cudaSuccess;
   }
@@ -315,7 +371,7 @@ const ValueBatchFn kValueBatch[3][3] = {
     {launch_value_batch<true, CONSTR_NONE, false>, launch_value_batch<true, CONSTR_PENALTY, false>,
      launch_value_batch<true, CONSTR_PROX, false>}};
 
-// P=1 one block; particles one cluster of a.cluster blocks
+// P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
 // returns).
 template <bool PART, int SC>
@@ -323,12 +379,12 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
                                   float* val, float* grad) {
   if constexpr (PART) {
-    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st);
+    ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
     return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC>, a, consts, u, noise,
                               val, grad);
   } else {
-    value_and_grad_kernel<false, SC><<<1, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise,
-                                                                     val, grad);
+    value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise,
+                                                                           val, grad);
     return cudaSuccess;
   }
 }
@@ -352,6 +408,16 @@ bool particles_ok(const ApgArgs* a, const void* noise) {
 int g_cmax[3][3] = {};
 
 bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
+
+// Whether the grid of a launch over a.batch scenarios (K plans each for
+// value_batch) fits the card's limits: the P=1 value_batch's rows on the y
+// dimension (65535), every other grid's blocks on x (2^31 - 1).
+bool grid_ok(const ApgArgs* a, int kind, int K = 1) {
+  if (kind == ORACLE_VALUE_BATCH && !a->has_noise) return a->batch <= 65535;
+  const long long per = kind == ORACLE_TRAJECTORY ? 1
+                        : a->has_noise ? (long long)a->cluster * K : 1;
+  return (long long)a->batch * per <= 2147483647LL;
+}
 
 }  // namespace
 
@@ -431,18 +497,18 @@ int value_and_grad_smem_bytes(const ApgArgs* a) {
 // particles: one candidate per cluster).
 int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 
-// Launchers: one launch on `stream` each, returning the launch's error
-// (cudaErrorInvalidValue for arguments the kernels do not take). U is
-// (K, H, nZ), u (H, nZ), noise the (H, P, 13) Brownian block (read only
-// when a->has_noise; may be null otherwise); outputs are (K,), (H+1, 13),
-// () and (H, nZ). trajectory takes a->batch scenarios: consts (B, n_consts),
-// u (B, H, nZ), x_out (B, H+1, 13); the others one (batch = 1). The P=1 value_and_grad takes the trunk widths of the
+// Launchers: one launch on `stream` each over a->batch scenarios B,
+// returning the launch's error (cudaErrorInvalidValue for arguments the
+// kernels do not take). consts is (B, n_consts), U (B, K, H, nZ), u
+// (B, H, nZ), noise the (B, H, P, 13) Brownian blocks (read only when
+// a->has_noise; may be null otherwise); outputs are (B, K), (B, H+1, 13),
+// (B,) and (B, H, nZ). The P=1 value_and_grad takes the trunk widths of the
 // register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
 // cluster plan of its chunks (value_batch one cluster per candidate), and
 // return the cluster launch's own error where the card cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts,
                        const void* U, const void* noise, void* out, void* stream) {
-  if (!args_ok(a) || a->batch != 1 || !particles_ok(a, noise) || K < 1 ||
+  if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) || !particles_ok(a, noise) ||
       (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
@@ -454,7 +520,7 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts,
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
-  if (!args_ok(a) || trajectory_smem_bytes(a) > ORACLE_SMEM_LIMIT)
+  if (!args_ok(a) || !grid_ok(a, ORACLE_TRAJECTORY) || trajectory_smem_bytes(a) > ORACLE_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)trajectory_smem_bytes(a);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -469,7 +535,7 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, void* val, void* grad, void* stream) {
-  if (!args_ok(a) || a->batch != 1 || !particles_ok(a, noise) ||
+  if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise) ||
       (!a->has_noise && !p1_widths(*a)) ||
       (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))

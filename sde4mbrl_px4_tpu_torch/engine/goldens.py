@@ -152,8 +152,7 @@ def replay_engagement(c, n_none: int = 4, n_idle: int = 10, n_traj: int = 28,
             np.asarray(costs, np.float32))
 
 
-# original :190-196; "policy" raises, naming the ROADMAP.md item that
-# brings it
+# original :190-196
 SOLVER_FAMILIES = {
     "p512anti": dict(base="iris_traj_mpc.yaml",
                      mut={"num_particles": 512, "antithetic": True,
@@ -161,11 +160,11 @@ SOLVER_FAMILIES = {
     "mppi": dict(base="iris_posctrl_mpc.yaml", mut={"solver": "mppi"}),
     "policy": dict(base="iris_traj_mpc.yaml", mut={"solver": "policy"}),
 }
-_FAMILY_ITEM = {"policy": "Policy solver family"}
 
 
 def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
-                         device=None, traj_t0: float = 3.0) -> np.ndarray:
+                         device=None, traj_t0: float = 3.0,
+                         policy_path: str | None = None) -> np.ndarray:
     """Pinned-seed replay of one solver family's raw ``(reset_fn, mpc_fn)``
     pair (original :199-237): ``n`` warm receding-horizon solves along the
     trajectory from ``traj_t0`` (a config with a trajectory table, as
@@ -174,14 +173,13 @@ def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
     ``draws`` is what ``mpc_fn`` gets as ``rng``: None for
     ``torch.Generator().manual_seed(0)``, or an iterator of each solve's
     draws (MPPI's ``(eps, c0)``, a (P, H, 13) Brownian block for particles;
-    the original's own draws, in tests)."""
+    the original's own draws, in tests). ``policy_path`` (the ``policy``
+    family) is a policy checkpoint to replay in place of the untrained init
+    the config draws from its seed (the original's init is threefry draws,
+    which tests carry across in a checkpoint file)."""
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
 
-    if family in _FAMILY_ITEM:
-        raise NotImplementedError(
-            f"solver family {family!r} is not ported yet; ROADMAP.md §1 "
-            f"'{_FAMILY_ITEM[family]}' brings it")
     spec = SOLVER_FAMILIES[family]
     cfg = load_yaml_config(os.path.join(repo_root, "configs", spec["base"]))
     for key, val in spec["mut"].items():
@@ -190,6 +188,8 @@ def replay_solver_family(repo_root: str, family: str, n: int = 4, draws=None,
         for p in parts[:-1]:
             blk = blk[p]
         blk[parts[-1]] = val
+    if policy_path is not None:
+        cfg["policy"] = dict(cfg.get("policy") or {}, params_path=policy_path)
     cfg, (reset_fn, mpc_fn), sft, bundle = make_mpc_from_config(cfg, device=device)
     dt = float(cfg["_time_steps"][0])
     rng = torch.Generator().manual_seed(0) if draws is None else draws

@@ -29,14 +29,34 @@ routes (original ``:434-455``, ``:710-822``), each on a hand-written kernel
 on a CUDA device and on its plain PyTorch version on the CPU:
 
 - ``solver: apg`` with an ``apg_mpc.linesearch`` block: one call of
-  ``ops/cuda/apg_kernel.py::apg_solve_kernel``, the whole solve in one
-  launch, ``x_evol`` exported by it (with particles: a second launch, the
-  oracle's ``trajectory``);
+  ``ops/cuda/apg_kernel.py::apg_solve_kernel_batched``, the whole solve in
+  one launch, ``x_evol`` exported by it (with particles: a second launch,
+  the oracle's ``trajectory``);
 - ``solver: apg`` without a linesearch block: the fixed-step
-  ``solver/apg.py::apg_solve`` over the cost oracle
-  (``ops/cuda/cost_oracle.py``), ``x_evol`` from ``oracle.trajectory``;
+  ``solver/apg.py::apg_solve_batched`` over the cost oracle
+  (``ops/cuda/cost_oracle.py::cost_oracle_batched``), ``x_evol`` from
+  ``oracle.trajectory``;
 - ``solver: mppi``: ``solver/mppi.py::mppi_solve`` over the cost oracle,
-  ``x_evol`` from ``oracle.trajectory``.
+  ``x_evol`` from ``oracle.trajectory``;
+- ``solver: policy`` (``models/policy.py``, the weights of
+  ``policy.params_path``): the pure policy (``refine_iters`` 0) is one
+  network pass (three fp32 matrix products), then its plan's cost
+  (``init_cost = opt_cost``, the oracle's ``value``: ``value_batch`` at
+  K = 1) and ``x_evol`` (``trajectory``), ``num_steps`` 0, the stepsize
+  carried, ``iter_budget`` ignored (original ``:681-684``, ``:786-797``);
+  the hybrid (``refine_iters`` N > 0) puts the network's plan in place of
+  the warm start where ``num_steps == 0`` (a cold start) and solves on the
+  APG route of its config at ``max_iter = N`` (the whole-solve kernel with
+  a linesearch block; original ``:685-691``). The network runs on every
+  solve and the select is on the device (the original's ``lax.cond`` skips
+  it on warm solves; a host read of ``num_steps`` would wait for the solve
+  in flight).
+
+The routes are written once, over a leading batch of B scenarios
+(``MPCPieces.solve``, which ``parallel/batched.py::make_batched_mpc``
+serves): ``mpc_fn`` is that solve at B = 1, so a solo solve and each
+scenario of a batched one take the same route and, on the card, the same
+launches.
 
 ``num_particles`` P > 1 makes the APG routes minimise the mean cost over P
 Monte-Carlo paths (``antithetic`` pairs them as (z, -z)); the particles
@@ -72,15 +92,16 @@ from sde4mbrl_px4_tpu_torch.core.types import MPCSolution
 from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy, resolve_device
 from sde4mbrl_px4_tpu_torch.io.config import input_bounds_from_config, load_yaml_config
+from sde4mbrl_px4_tpu_torch.models import policy as policy_mod
 from sde4mbrl_px4_tpu_torch.models.params_io import load_params, params_from_numpy
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE, init_params
 from sde4mbrl_px4_tpu_torch.models.trajectory import (
     TrajectoryTable, load_trajectory_csv, make_state_from_traj)
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
-from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel
-from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle
+from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel_batched
+from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
 from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian, make_time_steps
-from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve
+from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve_batched
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
 __all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "build_mpc",
@@ -118,6 +139,17 @@ class MPCPieces(NamedTuple):
     carry_t: bool          # whether the stepsize carries across solves
     chunk: int             # pallas_chunk (0: the largest divisor of P that fits)
     antithetic: bool
+    # solver: policy — the network's plan (x (..., 13), x_ref (..., H+1, 13),
+    # u_prev (..., n_u)) -> (..., H, n_u), else None; the hybrid's polish
+    # iterations (0: the pure policy); and the hybrid's cold-start select
+    # (opt_state, plan) -> the warm start, the plan where num_steps == 0
+    policy_plan: Optional[Callable] = None
+    refine_iters: int = 0
+    cold_start: Optional[Callable] = None
+    # the solve of B scenarios, every route (xs (B, 13), rngs, opt_states
+    # (B, ...), curr_ts (B,), xdes (B, 13) or None, iter_budget) ->
+    # MPCSolution over B; ``mpc_fn`` is its B = 1
+    solve: Optional[Callable] = None
 
 
 def not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -138,16 +170,14 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
     (``:374-378``)."""
     solver = str(cfg.get("solver", "apg"))
     sc = cfg.get("state_constr")
-    if solver == "policy":
-        if sc is not None and sc.get("slack_proximal"):
-            # the original refuses this pairing (:374-378)
-            raise ValueError(
-                "solver: policy does not support slack_proximal state "
-                "constraints — the policy head predicts motor plans only "
-                "(distill an expert WITHOUT slack, or keep solver: apg)")
-        raise not_in_slice("solver: policy", "Policy solver family")
-    if solver not in ("apg", "mppi"):
+    if solver not in ("apg", "mppi", "policy"):
         raise ValueError(f"unknown solver {solver!r} (apg|mppi|policy)")
+    if solver == "policy" and sc is not None and sc.get("slack_proximal"):
+        # the original refuses this pairing (:374-378)
+        raise ValueError(
+            "solver: policy does not support slack_proximal state "
+            "constraints — the policy head predicts motor plans only "
+            "(distill an expert WITHOUT slack, or keep solver: apg)")
     P = int(cfg.get("num_particles", 1))
     if cfg["cost_params"].get("risk_lambda"):
         if P <= 1:
@@ -188,6 +218,42 @@ def _resolve_model(cfg: Dict[str, Any], device: torch.device):
                       "initializing fresh physics-prior model")
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return model, init_params(gen, model, device=device)
+
+
+def _resolve_policy(cfg: Dict[str, Any], H: int, n_u: int, lb_np: np.ndarray,
+                    ub_np: np.ndarray, device: torch.device
+                    ) -> Tuple[policy_mod.PolicyNet, int]:
+    """The ``policy`` block (original ``:380-431``): ``(network,
+    refine_iters)``. A configured ``params_path`` must exist and hold an
+    MPC policy checkpoint of the config's horizon and motors; without one
+    the untrained init is drawn from ``cfg["seed"]`` at ``policy.hidden``
+    widths (the numbers differ from the original's threefry draws)."""
+    blk = cfg.get("policy") or {}
+    path = blk.get("params_path")
+    if path and os.path.exists(os.path.expanduser(path)):
+        tree, meta = load_params(path)
+        if meta.get("kind") not in (None, policy_mod.POLICY_KIND):
+            raise ValueError(f"policy.params_path {path!r} is not an MPC policy "
+                             f"checkpoint (meta {meta!r})")
+        net = policy_mod.policy_from_numpy(tree, device)
+        if (net.H, net.n_u) != (H, n_u):
+            raise ValueError(f"policy checkpoint horizon/motors ({net.H}, {net.n_u}) "
+                             f"!= config ({H}, {n_u})")
+    elif path:
+        raise ValueError(
+            f"policy.params_path {path!r} does not exist — refusing to serve an "
+            "untrained hover policy in its place; drop params_path to ask for an "
+            "untrained init explicitly")
+    else:
+        uref = np.broadcast_to(np.asarray(cfg["cost_params"]["uref"], np.float32), (n_u,))
+        gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+        net = policy_mod.init_policy(gen, H, n_u, lb_np, ub_np, uref,
+                                     hidden=tuple(blk.get("hidden", (256, 256))),
+                                     device=device)
+    refine = int(blk.get("refine_iters", 0) or 0)
+    if refine < 0:
+        raise ValueError(f"policy.refine_iters must be >= 0, got {refine}")
+    return net, refine
 
 
 # ---- copied from sde4mbrl_px4_tpu/engine/mpc_loader.py:126-176 ------------
@@ -302,6 +368,12 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         lb_z, ub_z = lb, ub
     apg_cfg = APGConfig.from_config(cfg)
     solver = str(cfg.get("solver", "apg"))
+    policy_net, refine = None, 0
+    if solver == "policy":
+        policy_net, refine = _resolve_policy(cfg, H, n_u, lb_np, ub_np, dev)
+        if refine:
+            # the hybrid's polish: refine_iters iterations (original :428-431)
+            apg_cfg = apg_cfg._replace(max_iter=refine, max_no_improvement_iter=refine)
     num_particles = int(cfg.get("num_particles", 1))
     antithetic = bool(cfg.get("antithetic", False))
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
@@ -322,10 +394,10 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     if precond_mode not in ("none", "hover_diag"):
         raise ValueError(f"apg_mpc.precond must be 'hover_diag' or omitted, "
                          f"got {precond_mode!r}")
-    # MPPI takes no metric: the original loads it for apg only (:509)
+    # MPPI takes no metric: the original loads it for apg and policy (:509)
     precond = (_load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ,
                              convert_to_enu, dev)
-               if precond_mode == "hover_diag" and solver == "apg" else None)
+               if precond_mode == "hover_diag" and solver in ("apg", "policy") else None)
 
     bundle = MPCBundle(
         model=model, params=params, cost_params=cost_params,
@@ -374,11 +446,106 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             tail = z_opt[..., -1:, :]
         return torch.cat([z_opt[..., 1:, :], tail], dim=-2)
 
+    policy_plan = cold_start = None
+    if policy_net is not None:
+        def policy_plan(x, x_ref, u_prev):
+            """The network's plan (original :681-684): one pass over any
+            leading batch, inside the input box."""
+            return policy_mod.policy_apply(
+                policy_net, policy_mod.featurize(x, x_ref, u_prev), lb, ub)
+
+        def cold_start(opt_state: APGState, plan: torch.Tensor) -> torch.Tensor:
+            """The hybrid's warm start: the network's plan where the solver
+            is cold (``num_steps == 0``, straight after reset), else the
+            shifted previous plan (original :685-691; a select, as JAX's
+            vmap makes of its lax.cond)."""
+            cold = (opt_state.num_steps == 0)[..., None, None]
+            return torch.where(cold, plan, opt_state.yk)
+
     # Stepsize carry only where the trial rule can re-grow a step
     # (original :702-708).
     carry_t = apg_cfg.reset_option in ("increase", "bb")
+    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
+    P = num_particles
+
+    def brownian(rngs, B: int) -> torch.Tensor:
+        """The call's (B, P, H, 13) Brownian block on the device: one draw of
+        (B, H, P, 13) from a generator (the view transposed), or the next
+        block an iterator hands in."""
+        if isinstance(rngs, torch.Generator):
+            z = draw_brownian(rngs, B * H, P, antithetic, dev)
+            return z.reshape(B, H, P, 13).transpose(1, 2)
+        if rngs is None:
+            raise ValueError("num_particles > 1 needs rng: a torch.Generator or an "
+                             "iterator of Brownian blocks")
+        return next(rngs).to(dev, f32)
+
+    def mppi_draws(rngs, B: int):
+        """The call's (eps, c0) on the device: drawn from a generator in one
+        call, or the next pair an iterator hands in."""
+        if isinstance(rngs, torch.Generator):
+            return draw_mppi_noise(rngs, mppi_cfg, H, nZ, dev, batch=(B,))
+        if rngs is None:
+            raise ValueError("solver: mppi needs rng: a torch.Generator or an "
+                             "iterator of (eps, c0) draws")
+        eps, c0 = next(rngs)
+        return eps.to(dev, f32), None if c0 is None else c0.to(dev, f32)
+
+    def solve(xs, rngs, opt_states: APGState, curr_ts, xdes=None,
+              iter_budget: Optional[int] = None) -> MPCSolution:
+        """B solves, each evaluation one launch over them (the module
+        docstring's routes); ``xdes`` (B, 13) in the config's frame (None:
+        hold ``xs``), ``curr_ts`` (B,) the scenarios' times on the
+        trajectory."""
+        xs = torch.as_tensor(xs, dtype=f32, device=dev)
+        B = int(xs.shape[0])
+        xdes = xs if xdes is None else torch.as_tensor(xdes, dtype=f32, device=dev)
+        curr_ts = torch.as_tensor(curr_ts, dtype=f32, device=dev)
+        x_ref = _build_ref(curr_ts, _targets(xdes))
+        u_prev = opt_states.yk[:, 0]
+        noise = brownian(rngs, B) if P > 1 else None
+        yk = opt_states.yk
+        if solver == "policy":
+            # u_prev is the previously commanded control, read above
+            plan = policy_plan(xs, x_ref, u_prev[:, :n_u])
+            if not refine:
+                # one network pass is the solve (original :786-797): the
+                # plan's cost is telemetry (init_cost = opt_cost)
+                orc = oracle(xs, x_ref, u_prev, noise)
+                with torch.no_grad():
+                    c, x_evol = orc.value(plan), orc.trajectory(plan)
+                z = torch.zeros(B, dtype=f32, device=dev)
+                st = APGState(yk=plan, num_steps=z, stepsize=opt_states.stepsize,
+                              avg_stepsize=z, avg_linesearch=z, grad_sqr=z, init_cost=c,
+                              opt_cost=c)
+                return MPCSolution(u_opt=plan, opt_state=st._replace(yk=_shift(plan)),
+                                   rng=rngs, x_evol=x_evol)
+            yk = cold_start(opt_states, plan)
+        if solver != "mppi" and apg_cfg.use_linesearch:
+            st, x_evol = apg_solve_kernel_batched(
+                model, params, cost_params, apg_cfg, time_steps, xs, x_ref, u_prev, noise,
+                P, lb_z, ub_z, yk, t_init=opt_states.stepsize if carry_t else None,
+                precond=precond, iter_budget=iter_budget, chunk=chunk)
+        else:
+            orc = oracle(xs, x_ref, u_prev, noise)
+            with torch.no_grad():
+                if solver == "mppi":
+                    st = mppi_solve(orc, yk, lb_z, ub_z, mppi_cfg, *mppi_draws(rngs, B))
+                else:
+                    st = apg_solve_batched(orc, yk, lb_z, ub_z, apg_cfg, precond=precond,
+                                           iter_budget=iter_budget)
+                x_evol = orc.trajectory(st.yk)
+        return MPCSolution(u_opt=st.yk[..., :n_u], opt_state=st._replace(yk=_shift(st.yk)),
+                           rng=rngs, x_evol=x_evol)
+
+    def oracle(xs, x_ref, u_prev, noise):
+        return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref, u_prev,
+                                   noise, P, apg_cfg.maxls, chunk=chunk)
+
     pieces = MPCPieces(reset=reset_fn, targets=_targets, build_ref=_build_ref, shift=_shift,
-                       carry_t=carry_t, chunk=chunk, antithetic=antithetic)
+                       carry_t=carry_t, chunk=chunk, antithetic=antithetic,
+                       policy_plan=policy_plan, refine_iters=refine, cold_start=cold_start,
+                       solve=solve)
     return cfg, bundle, pieces
 
 
@@ -391,68 +558,27 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
     ``"cpu"`` must be asked for."""
     cfg, bundle, pieces = build_mpc(cfg, convert_to_enu, device)
     dev, f32 = bundle.device, torch.float32
-    model, params, cost_params = bundle.model, bundle.params, bundle.cost_params
-    apg_cfg, time_steps, precond = bundle.apg_config, bundle.time_steps, bundle.precond
-    lb_z, ub_z, num_particles = bundle.lb_z, bundle.ub_z, bundle.num_particles
-    n_u, H, nZ = model.n_u, int(time_steps.shape[0]), int(lb_z.shape[0])
-    solver = str(cfg.get("solver", "apg"))
-    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
-    chunk, carry_t = pieces.chunk, pieces.carry_t
 
     def mpc_fn(x, rng, opt_state: APGState, curr_t=0.0, xdes=None,
                iter_budget: Optional[int] = None) -> MPCSolution:
-        x = torch.as_tensor(x, dtype=f32, device=dev)
-        xdes = x if xdes is None else torch.as_tensor(xdes, dtype=f32, device=dev)
-        xdes = pieces.targets(xdes)
-        curr_t = torch.as_tensor(curr_t, dtype=f32, device=dev)
-        x_ref = pieces.build_ref(curr_t, xdes)
-        u_prev = opt_state.yk[0]
-        noise = _brownian(rng) if num_particles > 1 else None
-        if solver == "apg" and apg_cfg.use_linesearch:
-            st, x_evol = apg_solve_kernel(
-                model, params, cost_params, apg_cfg, time_steps, x, x_ref,
-                u_prev, noise, num_particles, lb_z, ub_z, opt_state.yk,
-                t_init=opt_state.stepsize if carry_t else None,
-                precond=precond, iter_budget=iter_budget, chunk=chunk)
-        else:
-            oracle = cost_oracle(model, params, cost_params, time_steps, x, x_ref,
-                                 u_prev, noise, num_particles, apg_cfg.maxls,
-                                 chunk=chunk)
-            with torch.no_grad():
-                if solver == "mppi":
-                    eps, c0 = _mppi_draws(rng)
-                    st = mppi_solve(oracle, opt_state.yk, lb_z, ub_z, mppi_cfg, eps, c0)
-                else:
-                    st = apg_solve(oracle, opt_state.yk, lb_z, ub_z, apg_cfg,
-                                   precond=precond, iter_budget=iter_budget)
-                x_evol = oracle.trajectory(st.yk)
-        return MPCSolution(u_opt=st.yk[:, :n_u],
-                           opt_state=st._replace(yk=pieces.shift(st.yk)),
-                           rng=rng, x_evol=x_evol)
-
-    def _brownian(rng) -> torch.Tensor:
-        """One solve's Brownian block (P, H, 13) on the device: drawn from a
-        generator (as (H, P, 13), the view transposed), or the next block an
-        iterator of draws hands in."""
-        if isinstance(rng, torch.Generator):
-            return draw_brownian(rng, H, num_particles, pieces.antithetic, dev).transpose(0, 1)
-        if rng is None:
-            raise ValueError("num_particles > 1 needs rng: a torch.Generator or "
-                             "an iterator of (P, H, 13) Brownian blocks")
-        return next(rng).to(dev, f32)
-
-    def _mppi_draws(rng):
-        """One solve's (eps, c0) on the device: drawn from a generator, or
-        the next pair an iterator of draws hands in."""
-        if isinstance(rng, torch.Generator):
-            return draw_mppi_noise(rng, mppi_cfg, H, nZ, dev)
-        if rng is None:
-            raise ValueError("solver: mppi needs rng: a torch.Generator or an "
-                             "iterator of (eps, c0) draws")
-        eps, c0 = next(rng)
-        return (eps.to(dev, f32), None if c0 is None else c0.to(dev, f32))
+        x = torch.as_tensor(x, dtype=f32, device=dev)[None]
+        xdes = None if xdes is None else torch.as_tensor(xdes, dtype=f32, device=dev)[None]
+        curr_t = torch.as_tensor(curr_t, dtype=f32, device=dev).reshape(1)
+        draws = rng if rng is None or isinstance(rng, torch.Generator) else map(_one, rng)
+        sol = pieces.solve(x, draws, APGState(*(f[None] for f in opt_state)), curr_t, xdes,
+                           iter_budget)
+        return MPCSolution(u_opt=sol.u_opt[0], opt_state=APGState(*(f[0] for f in sol.opt_state)),
+                           rng=rng, x_evol=sol.x_evol[0])
 
     return cfg, (pieces.reset, mpc_fn), bundle.state_from_traj, bundle
+
+
+def _one(draw):
+    """A solo solve's draw (a Brownian block, or MPPI's ``(eps, c0)``) as
+    the draw of a batch of one."""
+    if isinstance(draw, tuple):
+        return tuple(None if d is None else d[None] for d in draw)
+    return draw[None]
 
 
 def load_mpc_from_cfgfile(path: str, convert_to_enu: bool = True,

@@ -84,18 +84,8 @@ def launch_sde_control(cfg: Dict[str, Any], device=None):
     traj = os.path.join(base, cfg["traj_ctrl"])
     sp = os.path.join(base, cfg["sp_ctrl"])
     print(f"[launch] building engine: traj={traj} sp={sp}", flush=True)
-    node = SDEControlNode(traj, sp, seed=int(cfg.get("seed", 0)), device=device)
-    node.start()
-    addr = cfg.get("addr_mavlink_state_msg", "127.0.0.1:14998")
-    node.serve_mavlink(addr)
-    svc_addr = cfg.get("addr_services", "127.0.0.1:14997")
-    node.serve_services(svc_addr)
-    print(f"[launch] engine ({node.ctrl.device}) serving MPC_FULL_STATE on udp:{addr}, "
-          f"services on udp:{svc_addr}; mailbox {node.mailbox_kind}", flush=True)
-    print("[launch] READY", flush=True)
-
     log_file = cfg.get("log_file")
-    logf = open(log_file, "a") if log_file else None
+    logf = None
 
     def report() -> str:
         line = node.last_record.to_json()
@@ -104,8 +94,21 @@ def launch_sde_control(cfg: Dict[str, Any], device=None):
             logf.flush()
         return f"[telemetry] {line}"
 
+    node = SDEControlNode(traj, sp, seed=int(cfg.get("seed", 0)), device=device)
+    node.start()
+    # the node runs from here on: a SIGTERM from now on must still stop it
     try:
+        addr = cfg.get("addr_mavlink_state_msg", "127.0.0.1:14998")
+        node.serve_mavlink(addr)
+        svc_addr = cfg.get("addr_services", "127.0.0.1:14997")
+        node.serve_services(svc_addr)
+        print(f"[launch] engine ({node.ctrl.device}) serving MPC_FULL_STATE on udp:{addr}, "
+              f"services on udp:{svc_addr}; mailbox {node.mailbox_kind}", flush=True)
+        print("[launch] READY", flush=True)
+        logf = open(log_file, "a") if log_file else None
         _serve(report, float(cfg.get("mpc_report_dt", 0.2)))
+    except KeyboardInterrupt:
+        pass
     finally:
         node.stop()
         if logf:
@@ -121,20 +124,23 @@ def launch_fcu_sim(cfg: Dict[str, Any]):
 
     from sde4mbrl_px4_tpu_torch.sim.sitl import fcu_sim_from_config
 
-    node = fcu_sim_from_config(cfg)
-    node.start()
-    print(f"[launch] fcu_sim ({cfg.get('vehicle', 'iris')}) streaming "
-          f"MPC_FULL_STATE to udp:{node.addr} at "
-          f"{1.0 / node.fcu.state_dt:.0f} Hz", flush=True)
-    print("[launch] READY", flush=True)
-
     def report() -> str:
         return (f"[fcu_sim] t={node.fcu.plant.t:7.2f}s "
                 f"pos_ned={np.round(node.fcu.plant.x[:3], 3).tolist()} "
                 f"status={node.fcu.status}")
 
+    node = fcu_sim_from_config(cfg)
+    node.start()
+    # the node streams from here on: a SIGTERM from now on (a client that
+    # has read its first frame) must still stop it
     try:
+        print(f"[launch] fcu_sim ({cfg.get('vehicle', 'iris')}) streaming "
+              f"MPC_FULL_STATE to udp:{node.addr} at "
+              f"{1.0 / node.fcu.state_dt:.0f} Hz", flush=True)
+        print("[launch] READY", flush=True)
         _serve(report, 1.0)
+    except KeyboardInterrupt:
+        pass
     finally:
         node.stop()
     return node

@@ -208,7 +208,9 @@ def batch_consts(template: torch.Tensor, a: ApgArgs, x0: torch.Tensor,
     scenario's buffer from :func:`build_consts`) repeated on the device, with
     scenario b's ``x0`` (13), ``xref`` (H+1, 13) and ``uprev`` (the first
     n_u columns of ``u_prev[b]``) blocks written in. No Python loop over B,
-    no host sync; sets ``a.batch = B``."""
+    no host sync; sets ``a.batch = B``. Every kernel takes the result: the
+    whole solve, and the oracle's ``value_batch``, ``value_and_grad`` and
+    ``trajectory`` (``cost_oracle.py::cost_oracle_batched``)."""
     B, n = int(x0.shape[0]), a.n_u
     buf = template.reshape(1, -1).repeat(B, 1)
     buf[:, a.o_x0:a.o_x0 + 13] = x0
@@ -232,7 +234,10 @@ def value_batch_grid(K: int, a: ApgArgs,
                      fits: Callable[[int], bool] = lambda rows: True) -> Tuple[int, int]:
     """The grid of one ``value_batch`` launch over K plans, as
     ``csrc/cost_oracle.cu::value_batch_launch`` builds it: ``(blocks,
-    rows)``, the candidates per block. With particles K clusters of
+    rows)``, one scenario's blocks and the candidates per block; a launch
+    over ``a.batch`` scenarios B repeats them B times (at P=1 on the grid's
+    y rows, scenario b's on row b; with particles as B x K clusters in
+    one flat grid, cluster i plan i of the (B, K) plans). With particles K clusters of
     ``a.cluster`` blocks, one candidate each (block b sweeps candidate
     b // cluster's chunks rank, rank + cluster, ..., rank = b % cluster). At
     P=1 ceil(K / rows) blocks (block b takes candidates b*rows ..), rows at

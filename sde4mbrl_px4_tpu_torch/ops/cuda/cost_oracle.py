@@ -42,6 +42,16 @@ candidates where wider rows would not fit 48 KB of shared memory
 (``consts.py::value_batch_grid``). :func:`value_batch_kernel`,
 :func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
 their launches in ``.launches``.
+
+:func:`cost_oracle_batched` is the oracle of B solves that share the model
+and the cost but not their initial state, reference, previous control or
+Brownian block (the JAX package's vmap of the solve, ``parallel/batched.py``):
+``value_batch`` (B, K, H, n) -> (B, K), ``value_and_grad`` (B, H, n) ->
+((B,), (B, H, n)), ``trajectory`` (B, H, n) -> (B, H+1, 13). On CUDA tensors
+each evaluation is ONE launch over the kernels' scenario axis
+(``ApgArgs.batch``; the consts of B scenarios built on the device by
+``consts.py::batch_consts``), whose scenario b has the bits of its solo
+launch; on CPU tensors it is :func:`cost_oracle_plain` once per scenario.
 """
 from __future__ import annotations
 
@@ -55,12 +65,13 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts,
-    check_p1_widths, plan_particles)
+    ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts,
+    build_consts, check_p1_widths, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
-__all__ = ["cost_oracle", "cost_oracle_plain", "load_oracle_library",
+__all__ = ["cost_oracle", "cost_oracle_plain", "cost_oracle_batched",
+           "cost_oracle_plain_batched", "load_oracle_library",
            "value_batch_kernel", "value_and_grad_kernel", "trajectory_kernel",
            "resolve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
@@ -231,18 +242,38 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_batch(what: str, args: ApgArgs, consts: torch.Tensor, u: torch.Tensor,
+                 per: int, noise: Optional[torch.Tensor] = None) -> None:
+    """The buffers of a launch over ``args.batch`` scenarios: contiguous,
+    ``per`` plan floats and ``n_consts`` consts floats (and H*P*13 noise
+    floats) a scenario."""
+    B = args.batch
+    bad = (u.numel() != B * per or consts.numel() != B * args.n_consts
+           or not u.is_contiguous() or not consts.is_contiguous())
+    if noise is not None:
+        bad = bad or noise.numel() != B * args.H * args.P * 13 or not noise.is_contiguous()
+    if bad:
+        raise ValueError(f"{what}: {B} scenario(s) take contiguous plans of {per} floats and "
+                         f"consts of {args.n_consts} floats each, got {tuple(u.shape)} and "
+                         f"{tuple(consts.shape)}")
+
+
 def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(K, H, nZ) plans -> (K,) costs: one launch of ``value_batch_kernel``
     (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``; the
-    grid is ``consts.value_batch_grid``)."""
+    grid is ``consts.value_batch_grid``). With ``args.batch`` B > 1 the
+    plans of B scenarios, ``U`` (B, K, H, nZ), ``consts`` (B, n_consts) and
+    ``noise`` (B, H, P, 13), cost in the same launch into (B, K), scenario b
+    on row b of the grid."""
     lib = load_oracle_library()
-    K = int(U.shape[0])
+    K = int(U.shape[-3])
+    _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise)
     need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
     if need > _limit(args):
         raise ValueError(f"value_batch needs {need} bytes of shared memory per "
                          f"block, above the {_limit(args)}-byte budget")
-    out = torch.empty(K, dtype=torch.float32, device=U.device)
+    out = torch.empty(U.shape[:-2], dtype=torch.float32, device=U.device)
     _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
                                      U.data_ptr(), _ptr(noise), out.data_ptr(),
                                      _stream(U)),
@@ -254,15 +285,19 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
 def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                           noise: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch."""
+    """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch. With
+    ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) (and
+    ``consts``, ``noise`` as in :func:`value_batch_kernel`), in the same
+    launch into ((B,), (B, H, nZ)), scenario b on block (or cluster) b."""
     if not args.has_noise:
         check_p1_widths(args.F, args.HID, "value_and_grad")
     lib = load_oracle_library()
+    _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise)
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
         raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
                          f"above the {_limit(args)}-byte budget")
-    val = torch.empty((), dtype=torch.float32, device=u.device)
+    val = torch.empty(u.shape[:-2], dtype=torch.float32, device=u.device)
     grad = torch.empty_like(u)
     _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
                                         u.data_ptr(), _ptr(noise), val.data_ptr(),
@@ -303,12 +338,7 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
     if need > SMEM_LIMIT:
         raise ValueError(f"trajectory needs {need} bytes of shared memory, "
                          f"above the {SMEM_LIMIT}-byte budget")
-    B = args.batch
-    if (u.numel() != B * args.H * args.nZ or consts.numel() != B * args.n_consts
-            or not u.is_contiguous() or not consts.is_contiguous()):
-        raise ValueError(f"trajectory: {B} scenario(s) take contiguous plans of "
-                         f"{args.H}x{args.nZ} and consts of {args.n_consts} floats each, "
-                         f"got {tuple(u.shape)} and {tuple(consts.shape)}")
+    _check_batch("trajectory", args, consts, u, args.H * args.nZ)
     out = torch.empty(u.shape[:-2] + (args.H + 1, 13), dtype=torch.float32, device=u.device)
     _raise_on(lib.trajectory_launch(ctypes.byref(args), consts.data_ptr(),
                                     u.data_ptr(), out.data_ptr(), _stream(u)),
@@ -351,3 +381,101 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     lambda U: value_batch_kernel(consts, args, U, z),
                     lambda u: value_and_grad_kernel(consts, args, u, z),
                     functools.partial(trajectory_kernel, consts, args))
+
+
+def _checked_batched(B: int, H: int, n: int, dev: torch.device, value_batch,
+                     value_and_grad, trajectory) -> CostOracle:
+    """The batched oracle of the three evaluations, with shape/dtype/
+    contiguity checks on the plans of its B scenarios; ``value(u)`` (B, H, n)
+    -> (B,) is ``value_batch(u[:, None])[:, 0]``."""
+
+    def check(name: str, U: torch.Tensor, shape: tuple) -> None:
+        if U.shape[-1] != n:
+            raise ValueError(
+                f"cost_oracle_batched: plans must have nZ={n} columns (the controls "
+                f"and the slack targets of a proximal state_constr block), got "
+                f"{U.shape[-1]}")
+        _check(name, U, shape, dev)
+
+    def vb(U):
+        if U.dim() != 4 or U.shape[1] < 1:
+            raise ValueError(f"cost_oracle_batched: value_batch takes ({B}, K, {H}, {n}), "
+                             f"got {tuple(U.shape)}")
+        check("U", U, (B, U.shape[1], H, n))
+        return value_batch(U)
+
+    def vg(u):
+        check("u", u, (B, H, n))
+        return value_and_grad(u)
+
+    def traj(u):
+        check("u", u, (B, H, n))
+        return trajectory(u)
+
+    return CostOracle(value=lambda u: vb(u[:, None])[:, 0], value_batch=vb,
+                      value_and_grad=vg, trajectory=traj)
+
+
+def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                              time_steps: torch.Tensor, x0: torch.Tensor,
+                              x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
+                              num_particles: int, maxls: int, chunk: int = 0) -> CostOracle:
+    """Plain version of :func:`cost_oracle_batched` (any device):
+    :func:`cost_oracle_plain` once per scenario, the results stacked."""
+    B, H, n = int(x0.shape[0]), int(time_steps.shape[0]), model.n_u + cp.n_slack
+    solo = [cost_oracle_plain(model, params, cp, time_steps, x0[b], x_ref[b], u_prev[b],
+                              None if noise is None else noise[b], num_particles, maxls,
+                              chunk=chunk) for b in range(B)]
+
+    def each(fn):
+        def run(U):
+            outs = [getattr(o, fn)(U[b]) for b, o in enumerate(solo)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.stack(f) for f in zip(*outs))
+            return torch.stack(outs)
+        return run
+
+    return _checked_batched(B, H, n, x0.device, each("value_batch"),
+                            each("value_and_grad"), each("trajectory"))
+
+
+def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
+                        time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
+                        u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
+                        chunk: int = 0, cluster: int = 0) -> CostOracle:
+    """The cost oracle of B solves (module docstring): ``x0`` (B, 13),
+    ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
+    13) for a Monte-Carlo solve (None at P=1). On the card every evaluation
+    is one launch over the B scenarios; CPU tensors get
+    :func:`cost_oracle_plain_batched`."""
+    dev = x0.device
+    if dev.type == "cpu":
+        return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
+                                         noise, num_particles, maxls, chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"cost_oracle_batched: unsupported device {dev}")
+    B, H = int(x0.shape[0]), int(time_steps.shape[0])
+    if B < 1:
+        raise ValueError("cost_oracle_batched: no scenario (B = 0)")
+    _check_inputs(model, time_steps, x0[0], x_ref[0], u_prev[0])
+    for name, t, shape in (("x0", x0, (B, 13)), ("x_ref", x_ref, (B, H + 1, 13))):
+        _check(name, t, shape, dev, contiguous=False)
+    P, _, chunk = resolve_particles(None, num_particles, True, chunk, H, dev)
+    z = None
+    if P > 1:
+        if noise is None:
+            raise ValueError(f"a Monte-Carlo solve (num_particles={P}) needs its "
+                             f"Brownian blocks: noise (B, P, H, 13), got None")
+        _check("noise", noise, (B, P, H, 13), dev, contiguous=False)
+        z = noise.transpose(1, 2).contiguous()          # (B, H, P, 13)
+    lib = load_oracle_library()
+    consts, args = build_consts(model, params, cp, None, time_steps, x0[0], x_ref[0],
+                                u_prev[0])
+    if B > 1:
+        consts = batch_consts(consts, args, x0, x_ref, u_prev)
+    if z is not None:
+        plan_oracle_particles(lib, args, P, chunk, cluster)
+    return _checked_batched(B, H, args.nZ, dev,
+                            lambda U: value_batch_kernel(consts, args, U, z),
+                            lambda u: value_and_grad_kernel(consts, args, u, z),
+                            functools.partial(trajectory_kernel, consts, args))

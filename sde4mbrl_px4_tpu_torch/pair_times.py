@@ -1,7 +1,7 @@
 """Kernel and route times of the PyTorch/CUDA port, checkout against checkout,
 on one card.
 
-    python3 sde4mbrl_px4_tpu_torch/pair_times.py ROOT [ROOT ...]
+    python3 sde4mbrl_px4_tpu_torch/pair_times.py [--routes] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository: this one, or another commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -33,6 +33,14 @@ per ROOT, then the card's name and power limit:
   beside the plain oracle in float32 and in float64, and the spread of the
   float32 plain value over 8 orders of the hidden units (the same
   function): how far summation order alone moves this cost.
+
+With ``--routes`` only the two host-bound P=1 routes are timed, MPPI and
+fixed-step APG through ``mpc_fn``, over 30 chained solves each (p50 and
+min over ticks 3-30), which needs only the oracle's library; beside each,
+what one chained solve dispatches (:func:`dispatch_counts`): its tensor
+ops that run a kernel, its host reads of a device value, and its oracle
+kernel launches; and where the host's time in such a solve goes
+(:func:`host_profile`).
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -92,9 +100,96 @@ def ill_conditioned_trunk(cs, CO, dev) -> dict:
     return out
 
 
-def measure(root: str) -> dict:
+# dispatcher ops that launch no kernel (views, allocations, host scalars)
+_NO_KERNEL = ("view", "_unsafe_view", "unsqueeze", "squeeze", "select", "slice", "expand",
+              "as_strided", "alias", "t", "transpose", "permute", "detach", "empty",
+              "empty_strided", "empty_like", "scalar_tensor", "lift_fresh", "unbind",
+              "split", "split_with_sizes", "_reshape_alias", "reshape", "unflatten",
+              "flatten", "_local_scalar_dense")
+
+
+def dispatch_counts(cs, cfg, dev) -> dict:
+    """What the third of three chained solves of ``cfg`` dispatches: tensor
+    ops that run a kernel (every dispatcher op but views, allocations and
+    host scalars), host reads of a device value (``_local_scalar_dense``),
+    and oracle kernel launches (the wrappers' counters)."""
+    import collections
+    import copy
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    ops = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    def make(c, d):
+        c, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(c), device=d)
+        n = [0]
+
+        def mpc(*a, **kw):
+            n[0] += 1
+            if n[0] != 3:
+                return mpc_fn(*a, **kw)
+            cs.zero_counts()
+            with Count():
+                return mpc_fn(*a, **kw)
+
+        return c, (reset_fn, mpc), sft, b
+
+    cs.chain(cfg, dev, 3, make)
+    torch.cuda.synchronize()
+    return {"kernel_ops": sum(v for k, v in ops.items() if k not in _NO_KERNEL),
+            "host_reads": ops["_local_scalar_dense"],
+            "oracle_launches": sum(cs.counts().values())}
+
+
+def host_profile(cs, cfg, dev, top: int = 14) -> list:
+    """The host's time in the third of three chained solves of ``cfg``
+    (``torch.profiler``, host activity only): the ``top`` entries by self
+    time, as ``[name, calls, self us]``, and the solve's total."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    box = {}
+
+    def make(c, d):
+        c, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(c), device=d)
+        n = [0]
+
+        def mpc(*a, **kw):
+            n[0] += 1
+            if n[0] != 3:
+                return mpc_fn(*a, **kw)
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                out = mpc_fn(*a, **kw)
+                out[0].cpu()
+            box["prof"] = prof
+            return out
+
+        return c, (reset_fn, mpc), sft, b
+
+    cs.chain(cfg, dev, 3, make)
+    torch.cuda.synchronize()
+    rows = sorted(box["prof"].key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in rows)
+    return ([["total", 0, round(total, 1)]]
+            + [[e.key, e.count, round(e.self_cpu_time_total, 1)] for e in rows[:top]])
+
+
+def measure(root: str, routes: bool = False) -> dict:
     """The times of one checkout, in this process (its package and
-    ``chip_smoke.py`` first on ``sys.path``, this file's directory off it)."""
+    ``chip_smoke.py`` first on ``sys.path``, this file's directory off it);
+    with ``routes`` only the P=1 routes' wall times."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, root)
@@ -113,6 +208,19 @@ def measure(root: str) -> dict:
     apply_fp32_policy()
     dev = torch.device("cuda")
     out = {"root": root}
+
+    if routes:
+        step = cs.FIXED_STEP["iris_posctrl_mpc"]
+        for key, cfg in (("mppi", cs.config("iris_posctrl_mpc", solver="mppi")),
+                         ("fixed_step", cs.config("iris_posctrl_mpc", linesearch=None,
+                                                  stepsize=step))):
+            rows, ms = cs.chain(cfg, dev, 30)
+            out[f"{key}_ms_p50"] = statistics.median(ms[2:])
+            out[f"{key}_ms_min"] = min(ms[2:])
+            out[f"{key}_iterations"] = rows[2:, -1].tolist()
+            out[f"{key}_dispatch"] = dispatch_counts(cs, cfg, dev)
+            out[f"{key}_host_profile"] = host_profile(cs, cfg, dev)
+        return out
 
     def fixed(b, apg, x0, x_ref, u_prev, z, P, lb, ub, u_init, pre=None, n=20):
         args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P,
@@ -181,16 +289,20 @@ def measure(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(sys.argv[2]))), flush=True)
+    argv = sys.argv[1:]
+    routes = "--routes" in argv
+    argv = [a for a in argv if a != "--routes"]
+    if len(argv) > 1 and argv[0] == "--one":
+        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(argv[1]), routes)),
+              flush=True)
         return 0
-    if len(sys.argv) < 2:
+    if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
-    for root in sys.argv[1:]:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                           stdout=subprocess.PIPE, text=True)
+    for root in argv:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
+                           + ["--routes"] * routes, stdout=subprocess.PIPE, text=True)
         print(r.stdout, end="", flush=True)
         if r.returncode != 0:
             return r.returncode

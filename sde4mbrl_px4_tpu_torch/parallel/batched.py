@@ -11,30 +11,37 @@ package's call signatures::
     # sol.u_opt (B, H, n_u), sol.opt_state [B], sol.rng, sol.x_evol (B, H+1, 13)
 
 The JAX package vmaps the solve over the batch and shards it over the mesh's
-``dp`` axis, on XLA. Here the batch is the scenario axis of the whole-solve
-kernel (``ops/cuda/apg_kernel.py::apg_solve_kernel_batched``): one launch of
-B blocks (P=1) or B thread-block clusters (particles, then one batched
-``trajectory`` launch for ``x_evol``), each scenario with its own loop and
-early exit, so each scenario's plan is its solo solve's, as the JAX package
-holds its vmapped solves to theirs (``tests/test_sharding.py:44-88``). The
-per-scenario pieces (the tilt-scaled warm start, the reference, the ENU
-targets, the warm-start shift, the stepsize carry) are
-``engine/mpc_loader.py``'s (:class:`~sde4mbrl_px4_tpu_torch.engine.mpc_loader.MPCPieces`)
-over a leading B. The JAX package donates the warm starts; here they stay
-on the device from call to call and PyTorch's caching allocator recycles
-their blocks (no host round trip, no input mutated). ``device=None`` is the
-card (without one this raises); ``device="cpu"`` runs the plain version,
-one solve per scenario.
+``dp`` axis, on XLA. Here ``batched_mpc`` is the loader's solve
+(``engine/mpc_loader.py::build_mpc``, ``MPCPieces.solve``), whose B = 1
+is the solo ``mpc_fn``: the same route choice and pieces, with the batch
+on the scenario axis of the kernels (the loader's docstring lists the
+routes). On the card every kernel call is one launch over the B scenarios
+(the whole solve one launch of B blocks or B thread-block clusters; an
+MPPI round one ``value_batch`` of B x K plans), each scenario with its own
+loop, stop tests, softmax and temperature. The network of ``solver:
+policy`` runs once over (B, feat), and the hybrid's cold-start select is
+on the device.
 
-``rngs``: at P=1 they are unused and passed through; at P>1 a
-``torch.Generator`` (each call draws the (B, H, P, 13) Brownian block in
-one call) or an iterator of (B, P, H, 13) blocks, which is how tests hand in
-the JAX package's per-scenario draws.
+So each scenario's plan is its solo solve's, as the JAX package holds its
+vmapped solves to theirs (``tests/test_sharding.py:44-88``): bit for bit
+on the kernels (the network's plans to fp32 rounding: a batched matrix
+product takes another order than a single row's). The JAX package donates
+the warm starts; here they stay on the device from call to call and
+PyTorch's caching allocator recycles their blocks (no host round trip, no
+input mutated). ``device=None`` is the card (without one this raises);
+``device="cpu"`` runs the plain version (the linesearch route one solo
+plain solve per scenario; the oracle routes the batched solvers over the
+plain oracle of each scenario).
 
-Refused, naming the ROADMAP.md item that brings them: ``solver: mppi`` and
-configs without an ``apg_mpc.linesearch`` block ('Batched oracle routes':
-their solves run on the cost-oracle kernels, which have no scenario axis
-yet) and ``solver: policy`` ('Policy solver family'). Not ported:
+``rngs``: at P=1 the APG and policy routes draw nothing and pass them
+through; at P>1 a ``torch.Generator`` (each call draws the (B, H, P, 13)
+Brownian block in one call) or an iterator of (B, P, H, 13) blocks, which
+is how tests hand in the JAX package's per-scenario draws. ``solver:
+mppi`` draws each call's (B, iters, K, H, nZ) and (B, iters, K, nZ)
+exploration noise from the generator in one call, or takes the next
+``(eps, c0)`` pair of such an iterator.
+
+Not ported:
 ``make_particle_sharded_mpc``, ``mesh.py`` and ``distributed.py``, which
 shard one solve or the batch over several devices; they wait for more than
 one GPU (ROADMAP.md item 9).
@@ -47,14 +54,10 @@ import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.core.types import MPCSolution, hover_state
-from sde4mbrl_px4_tpu_torch.engine.mpc_loader import MPCBundle, build_mpc, not_in_slice
-from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel_batched
-from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian
+from sde4mbrl_px4_tpu_torch.engine.mpc_loader import MPCBundle, build_mpc
 from sde4mbrl_px4_tpu_torch.solver.apg import APGState
 
 __all__ = ["make_batched_mpc", "make_batch_inputs"]
-
-BATCHED_ORACLE_ROUTES = "Batched oracle routes"
 
 
 def make_batched_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
@@ -63,50 +66,18 @@ def make_batched_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     """Build ``(batched_reset, batched_mpc, bundle)`` for ``cfg`` on one
     device (module docstring). Inputs may be numpy arrays or tensors; tensors
     already on the device are used as they are (no copy, no sync)."""
-    cfg = dict(cfg)
-    if str(cfg.get("solver", "apg")) == "mppi":
-        raise not_in_slice("batched solver: mppi", BATCHED_ORACLE_ROUTES)
-    cfg, bundle, pieces = build_mpc(cfg, convert_to_enu, device)
-    if not bundle.apg_config.use_linesearch:
-        raise not_in_slice("batched fixed-step APG (no apg_mpc.linesearch)",
-                           BATCHED_ORACLE_ROUTES)
-    dev, f32 = bundle.device, torch.float32
-    H, P, n_u = int(bundle.time_steps.shape[0]), bundle.num_particles, bundle.model.n_u
+    cfg, bundle, pieces = build_mpc(dict(cfg), convert_to_enu, device)
+    dev = bundle.device
 
     def batched_reset(xs, rngs, xdes) -> APGState:
         """Each scenario's warm start from its state: fields (B, ...)."""
-        return pieces.reset(torch.as_tensor(xs, dtype=f32, device=dev), rngs, xdes)
-
-    def brownian(rngs, B: int) -> torch.Tensor:
-        """The call's (B, P, H, 13) Brownian block on the device: one draw of
-        (B, H, P, 13) from a generator (the view transposed), or the next
-        block an iterator hands in."""
-        if isinstance(rngs, torch.Generator):
-            z = draw_brownian(rngs, B * H, P, pieces.antithetic, dev)
-            return z.reshape(B, H, P, 13).transpose(1, 2)
-        if rngs is None:
-            raise ValueError("num_particles > 1 needs rngs: a torch.Generator or an "
-                             "iterator of (B, P, H, 13) Brownian blocks")
-        return next(rngs).to(dev, f32)
+        return pieces.reset(torch.as_tensor(xs, dtype=torch.float32, device=dev), rngs, xdes)
 
     def batched_mpc(xs, rngs, opt_states: APGState, curr_ts, xdes=None) -> MPCSolution:
-        """B solves in one launch; ``xdes`` (B, 13) in the config's frame
-        (None: hold ``xs``), ``curr_ts`` (B,) the scenarios' times on the
-        trajectory."""
-        xs = torch.as_tensor(xs, dtype=f32, device=dev)
-        B = int(xs.shape[0])
-        xdes = xs if xdes is None else torch.as_tensor(xdes, dtype=f32, device=dev)
-        curr_ts = torch.as_tensor(curr_ts, dtype=f32, device=dev)
-        x_ref = pieces.build_ref(curr_ts, pieces.targets(xdes))
-        noise = brownian(rngs, B) if P > 1 else None
-        st, x_evol = apg_solve_kernel_batched(
-            bundle.model, bundle.params, bundle.cost_params, bundle.apg_config,
-            bundle.time_steps, xs, x_ref, opt_states.yk[:, 0], noise, P, bundle.lb_z,
-            bundle.ub_z, opt_states.yk,
-            t_init=opt_states.stepsize if pieces.carry_t else None,
-            precond=bundle.precond, chunk=pieces.chunk)
-        return MPCSolution(u_opt=st.yk[..., :n_u], opt_state=st._replace(yk=pieces.shift(st.yk)),
-                           rng=rngs, x_evol=x_evol)
+        """B solves, each evaluation one launch over them; ``xdes`` (B, 13)
+        in the config's frame (None: hold ``xs``), ``curr_ts`` (B,) the
+        scenarios' times on the trajectory."""
+        return pieces.solve(xs, rngs, opt_states, curr_ts, xdes)
 
     return batched_reset, batched_mpc, bundle
 

@@ -2,11 +2,13 @@
 
 PyTorch counterpart of ``sde4mbrl_px4_tpu/parallel/fleet.py::FleetEngine``
 (``:36-161``): B vehicles' receding-horizon solves run as one batched solve
-per control tick (``parallel/batched.py``: one launch of the whole-solve
-kernel over a grid of B scenarios), with the warm starts on the card from
-tick to tick, and plans pipelined as in the single-vehicle engine
-(``engine/controller.py``): ``step`` dispatches tick k and returns the plans
-of tick k-1.
+per control tick (``parallel/batched.py``, any solver family: one launch of
+the whole-solve kernel over a grid of B scenarios for linesearch APG and the
+policy hybrid; MPPI, fixed-step APG and the pure policy on the cost oracle,
+one launch per evaluation over the B scenarios), with the warm starts (and
+the policy's cold flags, ``num_steps``) on the card from tick to tick, and
+plans pipelined as in the single-vehicle engine (``engine/controller.py``):
+``step`` dispatches tick k and returns the plans of tick k-1.
 
 How tick k's plans reach the host without a device-wide sync: the
 dispatch copies the state, target and time rows into pinned host buffers
@@ -18,6 +20,12 @@ event only (``Event.synchronize``), after it has dispatched its own solve,
 so the collect of tick k overlaps the solve of tick k+1. Both buffer sets
 are double-buffered by tick parity: a buffer is written again only two
 ticks later, after the event that covers its last copy was waited on.
+Nothing at dispatch reads the device or copies from pageable memory (either
+would wait for the tick in flight): MPPI's per-tick draws go to the card
+from pinned memory (``solver/mppi.py::draw_mppi_noise``), and the policy's
+cold-start select is a device-side ``where``. The one exception is a
+config without ``apg_mpc.linesearch``: the fixed-step loop reads one scalar
+per iteration (whether a scenario still runs), so its dispatch waits.
 
 The multi-process branch (a mesh over hosts) is not ported: one card.
 """

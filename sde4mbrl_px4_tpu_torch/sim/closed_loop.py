@@ -16,7 +16,11 @@ The engine runs on the card (``--cpu``: the plain versions on the CPU); the
 plant runs on the host CPU. Besides the reference's numbers it prints the
 solve time p50 and iterations of the published plans, the ingress pick's
 latency p50 and p99, and which mailbox and MAVLink codec ran. ``--traj-config``
-and ``--pos-config`` replace the vehicle's shipped configs.
+and ``--pos-config`` replace the vehicle's shipped configs. ``--solver
+policy`` flies the shipped ``<policy-dir>/<vehicle>_{traj,posctrl}_policy.pkl``
+checkpoints (default ``configs/models``): the pure policy, or with
+``--refine-iters N`` the hybrid (N whole-solve iterations from the
+network's plan on cold starts).
 """
 from __future__ import annotations
 
@@ -51,6 +55,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-pipeline", action="store_true",
                     help="blocking solver dispatch (pipeline off)")
     ap.add_argument("--solver", default="apg", choices=("apg", "mppi", "policy"))
+    ap.add_argument("--policy-dir", default=None,
+                    help="dir with <vehicle>_{traj,posctrl}_policy.pkl (default: the "
+                         "shipped checkpoints in configs/models)")
+    ap.add_argument("--refine-iters", type=int, default=0,
+                    help="with --solver policy: APG polish iterations per solve "
+                         "(policy.refine_iters)")
     ap.add_argument("--particles", type=int, default=0,
                     help="fly num_particles antithetic Monte-Carlo paths per "
                          "trajectory solve")
@@ -70,8 +80,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _configs(args, tmpdir: str):
-    """The (traj, pos) config paths, with the solver, deadline and particle
-    count injected into copies where asked (as the example does)."""
+    """The (traj, pos) config paths, with the solver (and a policy's
+    checkpoint and ``refine_iters``), deadline and particle count injected
+    into copies where asked (as the example does)."""
     import yaml
 
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
@@ -89,6 +100,14 @@ def _configs(args, tmpdir: str):
         if args.particles and src == traj_cfg:
             c["num_particles"] = args.particles
             c["antithetic"] = True
+        if args.solver == "policy":
+            kind = "traj" if src == traj_cfg else "posctrl"
+            ckpt = os.path.join(args.policy_dir or os.path.join(_ROOT, "configs", "models"),
+                                f"{args.vehicle}_{kind}_policy.pkl")
+            if not os.path.exists(ckpt):
+                raise FileNotFoundError(f"missing {ckpt}: train the policy checkpoints "
+                                        f"first (examples/policy_distill.py)")
+            c["policy"] = {"params_path": ckpt, "refine_iters": args.refine_iters}
         dst = os.path.join(tmpdir, ("traj_" if src == traj_cfg else "pos_")
                            + os.path.basename(src))
         with open(dst, "w") as f:
@@ -118,10 +137,6 @@ def _plant(args):
 def run(argv: Optional[list] = None) -> dict:
     """Fly one closed loop; returns its numbers (``ok`` is the PASS gate)."""
     args = parser().parse_args(argv)
-    if args.solver == "policy":
-        raise NotImplementedError(
-            "--solver policy is not ported to sde4mbrl_px4_tpu_torch yet; "
-            "ROADMAP.md §1 'Policy solver family' brings it")
     if args.log:
         raise NotImplementedError(
             "--log (io/flight_log.py, with io/ulog.py and io/router.py) is not "
@@ -247,6 +262,7 @@ def run(argv: Optional[list] = None) -> dict:
         ok = ok and to_frac <= 0.02 and max_pickup_idx <= 1
     res = {
         "ok": ok, "vehicle": args.vehicle, "solver": args.solver,
+        "refine_iters": args.refine_iters,
         "particles": args.particles, "device": "cpu" if args.cpu else "cuda",
         "plant": args.plant, "pipeline": not args.no_pipeline,
         "seconds": args.seconds, "time_scale": args.time_scale, "wall_s": wall_s,

@@ -4,11 +4,20 @@ The port's counterpart of ``examples/fleet_serving.py``, with its options,
 its numbers and its PASS gate (mean tracking error below 0.35 m)::
 
     python -m sde4mbrl_px4_tpu_torch.sim.fleet_serving [--vehicles 64] [--seconds 8] [--cpu]
+        [--solver apg|mppi|policy] [--refine-iters N] [--policy-dir D]
 
-Every vehicle's receding-horizon solve is one scenario of the whole-solve
-kernel's grid (``parallel/fleet.py::FleetEngine``: one launch per tick,
-warm starts on the card, plans pipelined: tick k is dispatched while tick
-k-1's plans come home). Each iris vehicle holds its own target on a 2 m
+Every vehicle's receding-horizon solve is one scenario of the batched solve
+(``parallel/fleet.py::FleetEngine`` over ``parallel/batched.py``: warm
+starts on the card, plans pipelined: tick k is dispatched while tick k-1's
+plans come home). ``--solver apg`` (the shipped posctrl config) is one
+launch of the whole-solve kernel's scenario grid per tick; ``--solver
+mppi`` runs the sampling solver over the cost oracle's scenario axis
+(``--iters`` maps onto ``mppi.iters`` when it is not 100, as in the
+example); ``--solver policy`` runs the shipped
+``<policy-dir>/iris_posctrl_policy.pkl`` (default ``configs/models``), the
+pure policy (one network pass, one ``value_batch`` and one ``trajectory``
+launch per tick) or, with ``--refine-iters N``, the hybrid (N iterations
+of the whole-solve kernel from the network's plan on cold starts). Each iris vehicle holds its own target on a 2 m
 circle at 1 m altitude, and is stepped by its own plant: the port's
 ``ops/rollout.py::em_step`` over the fleet's (B, 13) states on the same
 device, 10 Euler sub-steps per 50 ms tick (one 50 ms step is too coarse for
@@ -17,8 +26,6 @@ the attitude dynamics and limit-cycles). It prints the tick's busy time
 the vehicle-solves a second that p50 gives, the device time of a tick's
 solve, the plans' age, and the mean and max tracking error. ``--cpu`` runs
 the plain solves on the CPU (slow: one solve after the other).
-``--solver mppi`` and ``--solver policy`` are refused, naming the ROADMAP.md
-item that brings them.
 """
 from __future__ import annotations
 
@@ -47,7 +54,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--iters", type=int, default=100,
                     help="per-solve APG iteration budget (the shipped posctrl config's "
                          "max_iter)")
-    ap.add_argument("--solver", default="apg", choices=("apg", "mppi", "policy"))
+    ap.add_argument("--solver", default="apg", choices=("apg", "mppi", "policy"),
+                    help="per-vehicle solver family")
+    ap.add_argument("--policy-dir", default=None,
+                    help="dir with iris_posctrl_policy.pkl (default: the shipped "
+                         "checkpoints in configs/models)")
+    ap.add_argument("--refine-iters", type=int, default=0,
+                    help="with --solver policy: APG polish iterations per vehicle per "
+                         "tick (policy.refine_iters)")
     ap.add_argument("--cpu", action="store_true", help="run the solves on the CPU")
     return ap
 
@@ -55,14 +69,6 @@ def parser() -> argparse.ArgumentParser:
 def run(argv: Optional[list] = None) -> dict:
     """Fly the fleet; returns its numbers (``ok`` is the PASS gate)."""
     args = parser().parse_args(argv)
-    if args.solver == "mppi":
-        raise NotImplementedError(
-            "a fleet of --solver mppi is not ported to sde4mbrl_px4_tpu_torch yet; "
-            "ROADMAP.md §1 'Batched oracle routes' brings it")
-    if args.solver == "policy":
-        raise NotImplementedError(
-            "--solver policy is not ported to sde4mbrl_px4_tpu_torch yet; "
-            "ROADMAP.md §1 'Policy solver family' brings it")
     import torch
 
     from sde4mbrl_px4_tpu_torch.core.types import hover_state
@@ -73,6 +79,19 @@ def run(argv: Optional[list] = None) -> dict:
     B = args.vehicles
     cfg = load_yaml_config(os.path.join(_ROOT, "configs/iris_posctrl_mpc.yaml"))
     cfg["apg_mpc"]["max_iter"] = args.iters
+    if args.solver == "mppi":
+        cfg["solver"] = "mppi"
+        # --iters is the sampling budget here (apg_mpc.max_iter is unused)
+        if args.iters != 100:
+            cfg["mppi"] = {"iters": args.iters}
+    elif args.solver == "policy":
+        ckpt = os.path.join(args.policy_dir or os.path.join(_ROOT, "configs", "models"),
+                            "iris_posctrl_policy.pkl")
+        if not os.path.exists(ckpt):
+            raise FileNotFoundError(f"missing {ckpt}: train the policy checkpoints first "
+                                    f"(examples/policy_distill.py)")
+        cfg["solver"] = "policy"
+        cfg["policy"] = {"params_path": ckpt, "refine_iters": args.refine_iters}
     t0 = time.perf_counter()
     eng = FleetEngine(cfg, batch=B, seed=0, device="cpu" if args.cpu else None)
     dev, dt = eng.device, eng.dt
@@ -99,7 +118,8 @@ def run(argv: Optional[list] = None) -> dict:
 
     eng.reset(states.cpu().numpy())
     print(f"fleet engine ready in {time.perf_counter() - t0:.1f} s "
-          f"(B={B} solves/tick, horizon {eng.H}, max_iter {args.iters})", flush=True)
+          f"(B={B} solves/tick, horizon {eng.H}, solver {args.solver}, max_iter "
+          f"{eng.bundle.apg_config.max_iter})", flush=True)
 
     busy, device_ms, ages = [], [], []
     x_host = states.cpu().numpy()
@@ -118,7 +138,8 @@ def run(argv: Optional[list] = None) -> dict:
     errs = np.linalg.norm(x_host[:, :3] - targets_ned, axis=1)
     steady = lambda v: v[2:] or v          # past the cold ticks, where there are any
     p50, p99 = (float(np.percentile(steady(busy), q)) for q in (50, 99))
-    res = {"vehicles": B, "device": kind, "ticks": len(busy), "busy_ms_p50": 1e3 * p50,
+    res = {"vehicles": B, "device": kind, "solver": args.solver,
+           "refine_iters": args.refine_iters, "ticks": len(busy), "busy_ms_p50": 1e3 * p50,
            "busy_ms_p99": 1e3 * p99, "vehicle_solves_per_s": B / p50, "budget_ms": 1e3 * dt,
            "device_ms_p50": statistics.median(steady(device_ms)) if device_ms else None,
            "age_ms_p50": 1e3 * statistics.median(steady(ages)), "first_age": ages[0],

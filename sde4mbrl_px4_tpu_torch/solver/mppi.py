@@ -18,6 +18,28 @@ result.
 ``noise_beta == 0``). :func:`draw_mppi_noise` draws them from a
 ``torch.Generator``; tests hand in JAX's own draws instead.
 
+**Batches.** Every tensor may carry a leading batch shape (``u_init``
+(..., H, n), ``eps`` (..., iters, K, H, n), ``c0`` (..., iters, K, n)):
+each scenario is its own solve, with its own softmax at its own
+temperature, the incumbent as its candidate 0 and a result never worse
+than its own warm start, and one round is ONE ``value_batch`` over all
+scenarios' candidates (the oracle of ``ops/cuda/cost_oracle.py::
+cost_oracle_batched``, the JAX package's ``vmap`` of the solve). On a
+CUDA device the sums over the K candidates (the mean cost, then the
+softmax's normaliser and the weighted plan, stacked into one sum) run as a
+fixed pairwise tree of elementwise adds (:func:`ksum`), so a scenario's
+numbers do not depend on how many others share the call: a batched solve
+gives each scenario the bits of its solo solve (torch's reductions and
+matrix products pick their order by shape). On the CPU they stay torch's
+``mean``, ``softmax`` and ``einsum``, the plain version held to the JAX
+package at rtol 1e-5 (the tree moves the last round's weight by ~3e-5: a
+round's weights are sensitive to the last bits of the spread of its
+costs). The exploration noise of every round is made before the first,
+in one pass over the horizon. The solve reads no device value back on the
+host and moves no host value to the device (a ``torch.tensor(...,
+device="cuda")`` would wait for the work in flight): its scalars enter the
+arithmetic as Python floats, computed in float32.
+
 Observability mapping (:class:`APGState`): ``num_steps`` = iters,
 ``avg_linesearch`` = samples, ``stepsize``/``avg_stepsize`` = sigma,
 ``grad_sqr`` = the last round's weight not on the incumbent,
@@ -28,11 +50,12 @@ from __future__ import annotations
 import warnings
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.solver.apg import APGState, CostOracle, box_project
 
-__all__ = ["MPPIConfig", "draw_mppi_noise", "mppi_solve"]
+__all__ = ["MPPIConfig", "draw_mppi_noise", "ksum", "mppi_solve"]
 
 
 class MPPIConfig(NamedTuple):
@@ -64,17 +87,54 @@ class MPPIConfig(NamedTuple):
 
 
 def draw_mppi_noise(gen: torch.Generator, cfg: MPPIConfig, H: int, n: int,
-                    device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    device, batch: Tuple[int, ...] = ()
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One solve's draws from ``gen`` in one call, moved to ``device`` in
-    one copy. Order: all of ``eps`` (iters, K, H, n) in C order, then all
-    of ``c0`` (iters, K, n); ``c0`` is not drawn when ``noise_beta == 0``."""
+    one copy (from pinned memory on a CUDA device, so it does not wait for
+    the work in flight). Order: all of ``eps`` (*batch, iters, K, H, n) in
+    C order, then all of ``c0`` (*batch, iters, K, n); ``c0`` is not drawn
+    when ``noise_beta == 0``."""
+    lead = tuple(int(b) for b in batch)
     n_eps = cfg.iters * cfg.samples * H * n
     n_c0 = cfg.iters * cfg.samples * n if cfg.noise_beta > 0.0 else 0
-    z = torch.randn(n_eps + n_c0, generator=gen, dtype=torch.float32,
-                    device=gen.device).to(device)
-    eps = z[:n_eps].view(cfg.iters, cfg.samples, H, n)
-    c0 = z[n_eps:].view(cfg.iters, cfg.samples, n) if n_c0 else None
+    nb = int(np.prod(lead)) if lead else 1
+    z = torch.randn(nb * (n_eps + n_c0), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    if torch.device(device).type == "cuda" and z.device.type == "cpu":
+        z = z.pin_memory().to(device, non_blocking=True)
+    else:
+        z = z.to(device)
+    eps = z[:nb * n_eps].view(*lead, cfg.iters, cfg.samples, H, n)
+    c0 = z[nb * n_eps:].view(*lead, cfg.iters, cfg.samples, n) if n_c0 else None
     return eps, c0
+
+
+def ksum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a fixed pairwise tree of elementwise adds (zeros
+    padded to a power of two once, then the first half plus the second), so
+    every entry of the other axes sums in the same order whatever their
+    sizes."""
+    n = int(x.shape[dim])
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        pad = list(x.shape)
+        pad[dim] = p - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while p > 1:
+        p //= 2
+        x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
+    return x.squeeze(dim)
+
+
+def _tree_sums(dev: torch.device) -> bool:
+    """Whether the sums over the candidates run as :func:`ksum`'s tree (on a
+    CUDA device) or as torch's reductions (the module docstring says why)."""
+    return dev.type == "cuda"
+
+
+def _f32(v: float) -> float:
+    """A Python float holding the float32 rounding of ``v``."""
+    return float(np.float32(v))
 
 
 def mppi_solve(oracle: CostOracle, u_init: torch.Tensor, lb: torch.Tensor,
@@ -82,54 +142,73 @@ def mppi_solve(oracle: CostOracle, u_init: torch.Tensor, lb: torch.Tensor,
                c0: Optional[torch.Tensor]) -> APGState:
     """Minimize the oracle's cost over box-constrained control sequences by
     iterated importance-weighted sampling. ``eps`` and ``c0`` are the
-    standard-normal draws of the whole solve (see the module docstring).
-    The solve makes ``iters + 2`` ``value_batch`` evaluations and never
-    reads a device value back on the host."""
-    K, H, n = int(cfg.samples), int(u_init.shape[0]), int(u_init.shape[1])
-    if tuple(eps.shape) != (cfg.iters, K, H, n):
-        raise ValueError(f"eps must be {(cfg.iters, K, H, n)}, got {tuple(eps.shape)}")
-    if cfg.noise_beta > 0.0 and (c0 is None or tuple(c0.shape) != (cfg.iters, K, n)):
-        raise ValueError(f"c0 must be {(cfg.iters, K, n)} when noise_beta > 0")
+    standard-normal draws of the whole solve (see the module docstring);
+    ``u_init`` (..., H, n) with a leading batch shape solves each scenario
+    on its own over a batched oracle. On a CUDA device the sums over the
+    candidates are :func:`ksum`'s, on the CPU torch's ``mean``, ``softmax``
+    and ``einsum`` (:func:`_tree_sums`; the module docstring says why). The solve makes
+    ``iters + 2`` ``value_batch`` evaluations and never reads a device value
+    back on the host."""
+    K, H, n = int(cfg.samples), int(u_init.shape[-2]), int(u_init.shape[-1])
+    lead = tuple(u_init.shape[:-2])
+    if tuple(eps.shape) != lead + (cfg.iters, K, H, n):
+        raise ValueError(f"eps must be {lead + (cfg.iters, K, H, n)}, got {tuple(eps.shape)}")
+    if cfg.noise_beta > 0.0 and (c0 is None or tuple(c0.shape) != lead + (cfg.iters, K, n)):
+        raise ValueError(f"c0 must be {lead + (cfg.iters, K, n)} when noise_beta > 0")
     f32 = torch.float32
     dev = u_init.device
-    lam = torch.tensor(cfg.temperature, dtype=f32, device=dev)
-    sigma = torch.tensor(cfg.sigma, dtype=f32, device=dev) * (ub - lb)
-    beta = torch.tensor(cfg.noise_beta, dtype=f32, device=dev)
-    gain = torch.sqrt(1.0 - beta * beta)
+    # float32 scalars, as the original's jnp.float32 constants
+    lam = _f32(cfg.temperature)
+    beta = _f32(cfg.noise_beta)
+    gain = float(np.sqrt(np.float32(1.0) - np.float32(beta) * np.float32(beta)))
+    sigma = _f32(cfg.sigma) * (ub - lb)
 
     u0 = box_project(u_init, lb, ub)
     f0 = oracle.value(u0)
-    u_mean = u0
-    moved = torch.zeros((), dtype=f32, device=dev)
+    # every round's exploration noise at once (elementwise: the bits of
+    # round by round)
+    e = eps                                                   # (..., iters, K, H, n)
+    if cfg.noise_beta > 0.0:
+        # AR(1) along the horizon, started at its unit stationary
+        # variance by c0 (original :118-127)
+        c, rows = c0, []
+        for t in range(H):
+            c = beta * c + gain * eps[..., t, :]
+            rows.append(c)
+        e = torch.stack(rows, dim=-2)
+    e = sigma * e
+    e.select(-3, 0).zero_()                                   # candidate 0: the incumbent
+    tree = _tree_sums(dev)
+    u_mean, w0 = u0, torch.zeros(lead, dtype=f32, device=dev)
     for it in range(cfg.iters):
-        e = eps[it]
-        if cfg.noise_beta > 0.0:
-            # AR(1) along the horizon, started at its unit stationary
-            # variance by c0 (original :118-127)
-            c = c0[it]
-            rows = []
-            for t in range(H):
-                c = beta * c + gain * e[:, t]
-                rows.append(c)
-            e = torch.stack(rows, dim=1)
-        e = sigma * e
-        e = torch.cat([torch.zeros_like(e[:1]), e[1:]])   # candidate 0: incumbent
-        cands = box_project(u_mean[None] + e, lb, ub)
-        costs = oracle.value_batch(cands)                  # (K,)
-        cmin = torch.min(costs)
-        spread = torch.clamp(torch.mean(costs) - cmin, min=1e-9)
-        w = torch.softmax(-(costs - cmin) / (lam * spread), dim=0)
-        u_mean = torch.einsum("k,khn->hn", w, cands)       # fp32, TF32 off
-        moved = 1.0 - w[0]
+        cands = box_project(u_mean[..., None, :, :] + e[..., it, :, :, :], lb, ub)
+        costs = oracle.value_batch(cands)                     # (..., K)
+        cmin = torch.amin(costs, dim=-1, keepdim=True)
+        if tree:
+            # the softmax at the scale-free temperature; its exponent is
+            # <= 0, 0 at the cheapest candidate, so no shift by the maximum
+            spread = torch.clamp(ksum(costs, -1)[..., None] / K - cmin, min=1e-9)
+            ez = torch.exp(-(costs - cmin) / (lam * spread))
+            # the normaliser and the weighted plan in one tree
+            s = ksum(torch.cat([ez[..., None], (ez[..., None, None] * cands).flatten(-2)],
+                               dim=-1), -2)
+            u_mean = (s[..., 1:] / s[..., :1]).unflatten(-1, (H, n))
+            w0 = ez[..., 0] / s[..., 0]
+        else:
+            spread = torch.clamp(torch.mean(costs, -1, keepdim=True) - cmin, min=1e-9)
+            w = torch.softmax(-(costs - cmin) / (lam * spread), dim=-1)
+            u_mean = torch.einsum("...k,...khn->...hn", w, cands)   # fp32, TF32 off
+            w0 = w[..., 0]
+    moved = 1.0 - w0
     u_mean = box_project(u_mean, lb, ub)
     f_final = oracle.value(u_mean)
     # never return a sequence worse than the warm start (original :167-173)
     worse = f_final > f0
-    u_mean = torch.where(worse, u0, u_mean)
+    u_mean = torch.where(worse[..., None, None], u0, u_mean)
     f_final = torch.where(worse, f0, f_final)
 
     def const(v):
-        return torch.tensor(float(v), dtype=f32, device=dev)
+        return torch.full(lead, float(v), dtype=f32, device=dev)
 
     return APGState(yk=u_mean, num_steps=const(cfg.iters), stepsize=const(cfg.sigma),
                     avg_stepsize=const(cfg.sigma), avg_linesearch=const(K),

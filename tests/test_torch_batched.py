@@ -17,8 +17,9 @@ one-device CPU mesh), at the small size of ``tests/test_sharding.py:21-31``
 - P=8 antithetic, B=2, with JAX's per-scenario draws injected, at the
   ``family_p512anti`` tolerance (5e-4);
 - ``make_batch_inputs`` gives JAX's ``xs``;
-- the refusals name their ROADMAP.md items, and the default device is the
-  card;
+- the MPPI, fixed-step and policy routes take their batched solvers (held
+  to the JAX package in ``tests/test_torch_batched_oracle.py``), and the
+  default device is the card;
 - on the card (``cuda`` marker): the batched kernel launch against the solo
   launches, bit for bit.
 """
@@ -238,20 +239,41 @@ def test_make_batch_inputs_equal_jax(spread, seed, n):
     assert isinstance(gen, torch.Generator)
 
 
-@pytest.mark.parametrize("mutation, item", [
-    ({"solver": "mppi"}, "Batched oracle routes"),
-    ({"apg_mpc.linesearch": None}, "Batched oracle routes"),
-    ({"solver": "policy"}, "Policy solver family"),
+@pytest.mark.parametrize("mutation, route", [
+    ({"solver": "mppi"}, "mppi_solve"),
+    ({"apg_mpc.linesearch": None, "apg_mpc.stepsize": 1e-5}, "apg_solve_batched"),
+    ({"solver": "policy"}, "policy_plan"),
 ])
-def test_batched_refusals_name_their_item(repo_root, mutation, item):
-    cfg = j_load_yaml(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
+def test_batched_oracle_and_policy_routes_run(repo_root, monkeypatch, mutation, route):
+    """MPPI, fixed-step APG and the policy take their batched routes over
+    the batched oracle (``tests/test_torch_batched_oracle.py`` holds them
+    to the JAX package): one call of the route's solver for the batch, no
+    whole-solve launch. The routes are the loader's solve, which
+    ``make_batched_mpc`` serves."""
+    from sde4mbrl_px4_tpu_torch.engine import mpc_loader as ML
+
+    cfg = small_cfg(repo_root, "iris_posctrl_mpc")
+    cfg["mppi"] = {"samples": 8, "iters": 2}
     for key, val in mutation.items():
         blk, parts = cfg, key.split(".")
         for p in parts[:-1]:
             blk = blk[p]
-        blk[parts[-1]] = val
-    with pytest.raises(NotImplementedError, match=item):
-        make_batched_mpc(cfg, device="cpu")
+        if val is None:
+            del blk[parts[-1]]
+        else:
+            blk[parts[-1]] = val
+    calls = []
+    if route != "policy_plan":
+        orig = getattr(ML, route)
+        monkeypatch.setattr(ML, route, lambda *a, **k: calls.append(a) or orig(*a, **k))
+    t_reset, t_mpc, tb = make_batched_mpc(cfg, device="cpu")
+    xs, gen = make_batch_inputs(3, spread=0.3, device="cpu")
+    sol = t_mpc(xs, gen, t_reset(xs, gen, xs), torch.zeros(3), xs)
+    assert len(calls) == (0 if route == "policy_plan" else 1)
+    assert sol.u_opt.shape == (3, 6, 4) and sol.x_evol.shape == (3, 7, 13)
+    assert torch.isfinite(sol.u_opt).all() and torch.isfinite(sol.opt_state.opt_cost).all()
+    if route == "policy_plan":
+        assert (sol.opt_state.num_steps == 0).all()
 
 
 def test_batched_defaults_to_card(repo_root):

@@ -10,9 +10,9 @@ tick, one batched solve each) and ``sim/fleet_serving.py`` (the port's
 - blocking ticks are the batched solve of the same inputs, bit for bit;
 - four vehicles with their own targets close on them over a short run
   (the plant is the model's own prediction, ``x_evol[:, 1]``);
-- the fleet demo runs on the CPU and prints its numbers; ``--solver
-  mppi|policy`` are refused naming their ROADMAP.md items; the engine's
-  default device is the card.
+- the fleet demo runs on the CPU and prints its numbers, with ``--solver
+  mppi`` and ``--solver policy`` too (the hybrid, on the shipped
+  checkpoint); the engine's default device is the card.
 """
 import copy
 import os
@@ -109,11 +109,19 @@ def test_fleet_demo_runs_on_cpu(capsys):
     assert np.isfinite(res["err_mean"]) and res["ok"] == (res["err_mean"] < 0.35)
 
 
-@pytest.mark.parametrize("solver, item", [("mppi", "Batched oracle routes"),
-                                          ("policy", "Policy solver family")])
-def test_fleet_demo_refusals(solver, item):
-    with pytest.raises(NotImplementedError, match=item):
-        fleet_serving.run(["--cpu", "--solver", solver])
+@pytest.mark.parametrize("solver, extra, steps", [
+    ("mppi", ["--iters", "2"], 2), ("policy", ["--refine-iters", "2"], None)])
+def test_fleet_demo_runs_mppi_and_policy(capsys, solver, extra, steps):
+    """Two vehicles, five ticks of ``--solver mppi`` (``--iters`` onto
+    ``mppi.iters``, 8 samples would do but the demo takes the config's 64)
+    and of the policy hybrid on ``configs/models/iris_posctrl_policy.pkl``:
+    the numbers and the result line."""
+    res = fleet_serving.run(["--cpu", "--vehicles", "2", "--seconds", "0.25",
+                             "--solver", solver] + extra)
+    out = capsys.readouterr().out
+    assert f"solver {solver}" in out and "RESULT:" in out
+    assert res["solver"] == solver and res["ticks"] == 5 and res["first_age"] == 0.0
+    assert np.isfinite(res["err_mean"]) and res["ok"] == (res["err_mean"] < 0.35)
 
 
 def test_fleet_defaults_to_card(repo_root):

@@ -6,6 +6,8 @@ mppi`` route of the loader, on the CPU (the plain cost oracle).
 - lockstep with the JAX package's ``mppi_solve`` on the iris posctrl cost,
   with the draws reproduced from JAX's own key splits
   (``engine/mpc_loader.py:654``, ``solver/mppi.py:131-138``), rtol 1e-5;
+  and the same with the sums a CUDA device runs (``ksum``'s tree) forced
+  on the CPU, the last round's weight at rtol 1e-4;
 - ``replay_solver_family("mppi")`` against
   ``tests/goldens/family_mppi_trace.npz`` at its own tolerance, 1e-4
   (``tests/test_goldens_flagship.py:128``), with JAX's draws injected;
@@ -101,9 +103,9 @@ def test_draw_order_and_config():
     assert MPPIConfig.from_config({}) == MPPIConfig()
 
 
-@pytest.mark.parametrize("beta", [0.7, 0.0])
-def test_mppi_lockstep_with_jax(iris_pos_bundle, repo_root, beta):
-    """The iris posctrl cost, K=64 x 8 rounds, the same draws on both sides."""
+def mppi_pair(iris_pos_bundle, repo_root, beta):
+    """The JAX and the port's ``mppi_solve`` on the iris posctrl cost, K=64
+    x 8 rounds, the same draws on both sides."""
     b = iris_pos_bundle[3]
     tb = load_port_bundles(repo_root)["iris_posctrl_mpc"]
     x0, x_ref, u_prev, u_init = problem(b.cost_params.uref, x_off=(0.5, 0.1))
@@ -124,12 +126,37 @@ def test_mppi_lockstep_with_jax(iris_pos_bundle, repo_root, beta):
                             T(x0), T(x_ref), T(u_prev), None, 1, 4)
     st_t = mppi_solve(oracle, T(u_init), tb.lb, tb.ub, cfg,
                       *jax_draws(key, cfg, H, 4))
+    for f in ("num_steps", "avg_linesearch", "stepsize", "avg_stepsize"):
+        assert float(getattr(st_t, f)) == float(getattr(st_j, f)), f
+    return st_t, st_j
+
+
+@pytest.mark.parametrize("beta", [0.7, 0.0])
+def test_mppi_lockstep_with_jax(iris_pos_bundle, repo_root, beta):
+    """The iris posctrl cost, K=64 x 8 rounds, the same draws on both sides."""
+    st_t, st_j = mppi_pair(iris_pos_bundle, repo_root, beta)
     np.testing.assert_allclose(st_t.yk.numpy(), np.asarray(st_j.yk), rtol=1e-5, atol=1e-6)
     for f in ("init_cost", "opt_cost", "grad_sqr"):
         assert float(getattr(st_t, f)) == pytest.approx(float(getattr(st_j, f)),
                                                         rel=1e-5, abs=1e-7), f
-    for f in ("num_steps", "avg_linesearch", "stepsize", "avg_stepsize"):
-        assert float(getattr(st_t, f)) == float(getattr(st_j, f)), f
+
+
+@pytest.mark.parametrize("beta", [0.7, 0.0])
+def test_mppi_tree_sums_lockstep_with_jax(iris_pos_bundle, repo_root, beta, monkeypatch):
+    """The arithmetic a CUDA device runs (the sums over the candidates as
+    ``ksum``'s tree, the softmax and the weighted plan from one stacked
+    sum), forced on the CPU, against JAX: plans and costs rtol 1e-5, the
+    last round's weight rtol 1e-4 (its order effect, as the batched test)."""
+    import sde4mbrl_px4_tpu_torch.solver.mppi as M
+
+    assert not M._tree_sums(torch.device("cpu")) and M._tree_sums(torch.device("cuda"))
+    monkeypatch.setattr(M, "_tree_sums", lambda dev: True)
+    st_t, st_j = mppi_pair(iris_pos_bundle, repo_root, beta)
+    np.testing.assert_allclose(st_t.yk.numpy(), np.asarray(st_j.yk), rtol=1e-5, atol=1e-6)
+    for f in ("init_cost", "opt_cost"):
+        assert float(getattr(st_t, f)) == pytest.approx(float(getattr(st_j, f)),
+                                                        rel=1e-5, abs=1e-7), f
+    assert float(st_t.grad_sqr) == pytest.approx(float(st_j.grad_sqr), rel=1e-4)
 
 
 def test_family_mppi_replays_golden(repo_root):
@@ -144,11 +171,14 @@ def test_family_mppi_replays_golden(repo_root):
     np.testing.assert_allclose(tr, ref, atol=1e-4, rtol=1e-4)
 
 
-def test_unported_families_are_refused(repo_root):
-    """Only the policy family is still refused; ``p512anti`` runs since the
-    particles were ported (its golden: ``tests/test_torch_particles.py``)."""
-    with pytest.raises(NotImplementedError, match="Policy solver family"):
-        G.replay_solver_family(repo_root, "policy", device="cpu")
+def test_policy_and_p512anti_families_replay(repo_root):
+    """Every solver family replays: ``policy`` (the untrained init the config
+    draws from its seed: rows of the hover plan, no iteration; its golden,
+    on the JAX package's weights: ``tests/test_torch_policy.py``) and
+    ``p512anti`` (its golden: ``tests/test_torch_particles.py``)."""
+    rows = G.replay_solver_family(repo_root, "policy", n=2, device="cpu")
+    assert rows.shape == (2, 5) and np.isfinite(rows).all() and (rows[:, -1] == 0).all()
+    assert ((rows[:, :4] > 0) & (rows[:, :4] < 1)).all()
     rows = G.replay_solver_family(repo_root, "p512anti", n=1, device="cpu")
     assert rows.shape == (1, 5) and np.isfinite(rows).all() and 1 <= rows[0, -1] <= 6
 

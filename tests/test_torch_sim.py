@@ -11,7 +11,9 @@ loop.
   (``tests/test_runtime.py``);
 - ``FCUSimNode`` streaming and engaging over UDP (``tests/test_sitl.py``);
 - ``sim/closed_loop.py --cpu`` on the tiny config for 2 s of sim time at
-  time-scale 3, reaching ``MPC_ON``; the 0.35 m gate is held on the card.
+  time-scale 3, reaching ``MPC_ON``, with ``--solver apg`` and with
+  ``--solver policy --refine-iters 2`` (checkpoints of the tiny horizon
+  from ``--policy-dir``); the 0.35 m gate is held on the card.
 """
 import os
 import time
@@ -242,8 +244,34 @@ def test_closed_loop_on_the_cpu_reaches_mpc_on(repo_root, tmp_path):
     assert res["last_state"] == "traj"
 
 
-@pytest.mark.parametrize("flag, item", [(["--solver", "policy"], "Policy solver family"),
-                                        (["--log", "x.npz"], "Flight log")])
+def test_closed_loop_flies_the_policy_on_the_cpu(repo_root, tmp_path):
+    """``sim/closed_loop.py --solver policy`` on the tiny H = 5 configs with
+    checkpoints of that horizon from ``--policy-dir`` (untrained, drawn by
+    ``init_policy``) and ``--refine-iters 2``: the engine reaches
+    ``MPC_ON`` and publishes the hybrid's plans."""
+    import pickle
+
+    from sde4mbrl_px4_tpu_torch.models.policy import POLICY_KIND, init_policy
+    from sde4mbrl_px4_tpu_torch.sim import closed_loop
+
+    paths = _tiny(repo_root, tmp_path)
+    for kind in ("traj", "posctrl"):
+        net = init_policy(torch.Generator().manual_seed(0), 5, 4, np.full(4, 1e-4),
+                          np.ones(4), np.full(4, 0.6), hidden=(32, 32))
+        tree = {"net": {k: v.numpy() for k, v in net.state_dict().items()},
+                "meta_H": np.int32(5), "meta_n_u": np.int32(4)}
+        with open(tmp_path / f"iris_{kind}_policy.pkl", "wb") as f:
+            pickle.dump({"params": tree, "meta": {"kind": POLICY_KIND}}, f)
+    res = closed_loop.run(["--cpu", "--seconds", "2", "--time-scale", "3", "--solver", "policy",
+                           "--refine-iters", "2", "--policy-dir", str(tmp_path),
+                           "--traj-config", paths[0], "--pos-config", paths[1]])
+    assert res["fcu_status"] == FCUSim.MPC_ON, res
+    assert res["solver"] == "policy" and res["refine_iters"] == 2
+    assert res["solves"] > 0 and res["tracked_ticks"] > 0
+    assert 1 <= res["iterations_p50"] <= 2
+
+
+@pytest.mark.parametrize("flag, item", [(["--log", "x.npz"], "Flight log")])
 def test_closed_loop_refuses_what_is_not_ported(flag, item):
     from sde4mbrl_px4_tpu_torch.sim import closed_loop
 

@@ -11,7 +11,8 @@ position-hold golden replay.
   whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
   never imports JAX;
 - particle configs and ``state_constr`` configs (both forms, APG and MPPI)
-  load and route to the kernel wrappers, and so do the four hexa configs;
+  load and route to the kernel wrappers, and so do the four hexa configs
+  and the policy family (pure and ``refine_iters``);
   configs outside the slice are refused with the ROADMAP item that brings
   them, and the settings the
   original refuses (particle options, ``solver: policy`` with proximal
@@ -91,7 +92,6 @@ def _mutated(repo_root, name, mutation):
 # ROADMAP item that brings them.
 @pytest.mark.parametrize("mutation, item", [
     ({"solver": "mppi", "num_particles": 8}, "Particles"),
-    ({"solver": "policy"}, "Policy solver family"),
     ({"num_particles": 8, "cost_params.risk_lambda": 1.0}, "Particles"),
     ({"num_particles": 8, "initial_state_std": 0.01}, "Particles"),
     ({"solver": "mppi", "num_particles": 512, "antithetic": True}, "Particles"),
@@ -132,14 +132,16 @@ def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, n
     """``num_particles: 8`` (with ``pallas_chunk`` and ``antithetic``) loads
     and each solve hands the kernel wrapper of its route one (P, H, 13)
     block drawn from the generator, P and the chunk; on the CPU the wrapper
-    runs its plain version."""
+    runs its plain version. The solo solve is the batched one at B = 1, so
+    the wrapper is the ``_batched`` one and the block (1, P, H, 13)."""
     cfg = _mutated(repo_root, name, mutation)
     cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
     calls = []
+    wrapper += "_batched"
     orig = getattr(tloader, wrapper)
 
     def spy(*args, **kw):
-        noise, P = args[7:9] if wrapper == "cost_oracle" else args[8:10]
+        noise, P = args[7:9] if wrapper == "cost_oracle_batched" else args[8:10]
         calls.append((tuple(noise.shape), P, kw["chunk"]))
         return orig(*args, **kw)
 
@@ -152,7 +154,7 @@ def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, n
     state0 = gen.get_state()
     sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
     assert sol.rng is gen and not torch.equal(gen.get_state(), state0)
-    assert calls == [((8, 20, 13), 8, mutation.get("pallas_chunk", 0))]
+    assert calls == [((1, 8, 20, 13), 8, mutation.get("pallas_chunk", 0))]
     assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
     assert sol.x_evol.shape == (21, 13)
 
@@ -168,21 +170,22 @@ def test_constrained_configs_route_to_the_constraint_branch(repo_root, monkeypat
     """``iris_constr_posctrl_mpc.yaml`` in either form loads, and each solve
     hands its route's kernel wrapper the cost with that constraint form and
     the nZ-wide decision box and warm start (nZ = 4 + 6 slack columns in the
-    proximal form); ``u_opt`` is the n_u control columns."""
+    proximal form); ``u_opt`` is the n_u control columns. The solo solve is
+    the batched one at B = 1 (the ``_batched`` wrappers)."""
     cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_constr_posctrl_mpc.yaml"))
     cfg["state_constr"]["slack_proximal"] = form == "prox"
     cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
     if solver == "mppi":
         cfg.update(solver="mppi", mppi={"samples": 8, "iters": 1})
     nZ = 10 if form == "prox" else 4
-    wrapper = "apg_solve_kernel" if solver == "apg" else "cost_oracle"
+    wrapper = "apg_solve_kernel_batched" if solver == "apg" else "cost_oracle_batched"
     calls = []
     orig = getattr(tloader, wrapper)
 
     def spy(*args, **kw):
         calls.append(sc_kind(args[2]))
-        if wrapper == "apg_solve_kernel":
-            assert args[10].shape == (nZ,) and args[12].shape == (20, nZ)
+        if wrapper == "apg_solve_kernel_batched":
+            assert args[10].shape == (nZ,) and args[12].shape == (1, 20, nZ)
         return orig(*args, **kw)
 
     monkeypatch.setattr(tloader, wrapper, spy)
@@ -197,6 +200,46 @@ def test_constrained_configs_route_to_the_constraint_branch(repo_root, monkeypat
     assert calls == [SC_FORMS[form]]
     assert sol.u_opt.shape == (20, 4) and sol.opt_state.yk.shape == (20, nZ)
     assert torch.isfinite(sol.u_opt).all() and sol.x_evol.shape == (21, 13)
+
+
+@pytest.mark.parametrize("refine, wrapper", [(0, "cost_oracle"), (2, "apg_solve_kernel")])
+def test_policy_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, refine,
+                                                     wrapper):
+    """``solver: policy`` on the shipped iris posctrl checkpoint loads; the
+    pure policy hands the oracle the network's plan (its cost and
+    ``x_evol``, no iteration), the hybrid hands the whole-solve kernel the
+    plan as the cold warm start, at ``max_iter = refine_iters`` (the
+    ``_batched`` wrappers at B = 1, as every solo solve)."""
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
+    cfg["solver"] = "policy"
+    cfg["policy"] = {"params_path": os.path.join(
+        repo_root, "configs/models/iris_posctrl_policy.pkl"), "refine_iters": refine}
+    calls = []
+    wrapper += "_batched"
+    orig = getattr(tloader, wrapper)
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(tloader, wrapper, spy)
+    _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg, device="cpu")
+    assert b.apg_config.max_iter == (refine or 100)
+    x = torch.zeros(13)
+    x[6], x[0] = 1.0, 0.3
+    st = reset_fn(x, None, x)
+    sol = mpc_fn(x, None, st, 0.0, x)
+    assert len(calls) == 1
+    if refine:
+        u_init = calls[0][12]
+        assert u_init.shape == (1, 20, 4)
+        assert not torch.equal(u_init[0], st.yk)       # the network's plan
+        assert calls[0][3].max_iter == 2 and int(sol.opt_state.num_steps) == 2
+    else:
+        assert int(sol.opt_state.num_steps) == 0
+        assert torch.equal(sol.opt_state.init_cost, sol.opt_state.opt_cost)
+    assert sol.u_opt.shape == (20, 4) and torch.isfinite(sol.u_opt).all()
+    assert sol.x_evol.shape == (21, 13)
 
 
 def test_policy_on_prox_config_is_refused(repo_root):
@@ -346,6 +389,22 @@ def test_slice_runs_without_jax(repo_root):
         assert sol.u_opt.shape == (2, 20, 4) and sol.opt_state.num_steps.tolist() == [2, 2]
         u_now, _, age = FleetEngine(cfg, batch=2, device="cpu").step(xs.numpy(), xs.numpy())
         assert u_now.shape == (2, 4) and age == 0.0
+        # a batched MPPI call (K = 8, 2 rounds) on the batched oracle
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg.update(solver="mppi", mppi={"samples": 8, "iters": 2})
+        reset_b, mpc_b, _ = make_batched_mpc(cfg, device="cpu")
+        sol = mpc_b(xs, gen, reset_b(xs, gen, xs), torch.zeros(2), xs)
+        assert sol.u_opt.shape == (2, 20, 4) and sol.opt_state.num_steps.tolist() == [2, 2]
+        # the policy family on the shipped checkpoint: the pure policy and
+        # the hybrid
+        for refine in (0, 2):
+            cfg = load_yaml_config("configs/iris_traj_mpc.yaml")
+            cfg["solver"] = "policy"
+            cfg["policy"] = {"params_path": "configs/models/iris_traj_policy.pkl",
+                             "refine_iters": refine}
+            _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device="cpu")
+            sol = mpc_fn(xt, None, reset_fn(xt, None, xt), 0.5, xt)
+            assert int(sol.opt_state.num_steps) == refine and torch.isfinite(sol.u_opt).all()
         # the node, the sim and the launcher: one pos solve through the
         # engine's doorbell, picked up by the ingress
         import time
