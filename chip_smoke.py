@@ -197,9 +197,32 @@ without a result):
     bit; a warm hybrid step bit for bit), their steps timed (ms and
     solves/s); the fleet demo with ``--solver policy --refine-iters 15`` and
     ``--solver mppi``, 64 vehicles, 4 s (gate: PASS at 0.35 m; busy p50/p99
-    and device ms per tick printed).
+    and device ms per tick printed);
+23. the particle options (``cost_params.risk_lambda``, ``initial_state_std``)
+    on the particle forms of kernels #1-#3, kernel against plain on the same
+    draws, on ``p512anti`` (one chunk a block), P=1024 antithetic (two
+    chunks a block), the altitude floor's ``<true, penalty>`` at P=128 and
+    the proximal form at P=64 in chunks of 16: with risk (lambda 2), the
+    example's state-noise starts, and both; the whole solve at a fixed 5
+    iterations (equal steps, the particle tolerances), ``value_batch`` K = 1,
+    4 and ``value_and_grad`` (values 5e-4, gradients 5e-4 / 5e-5); each
+    case's risk-and-starts solve and oracle on their cluster against C = 1
+    bit for bit; the new branches timed (the P=512 solve without and with
+    each option, P=1024 without and with risk, the oracle per launch) and
+    the P=1 ``value_batch`` on the shared-memory step (the trunk padded to
+    72 units) timed beside its bound;
+24. the particle options through the entry points: MPPI over K = 64 x
+    P = 128 antithetic paths (4 chained solves, kernels against the plain
+    oracle on the same draws, |du| <= 1e-4; one particle ``value_batch`` a
+    round), the fixed-step route with risk and starts at P=512, the batched
+    route (B = 4 with risk and starts, each scenario bit-equal to its solo
+    ``mpc_fn``; the batched oracle bit-equal to its solo launches),
+    ``sim/uncertainty.py`` at P=1024 (every variant's ms per solve), a short
+    ``sim/noise_robustness.py`` (4 s x 1 seed; gate: finite readings) and
+    the single-solve floor back-off (gate: the risk-averse and particle
+    plans' terminal z at least 0.01 m above the mean plan's).
 
-In phases 6-8, 11-13, 15-18 and 20-22 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22 and 24 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -355,18 +378,27 @@ def check_route(name: str, expected: dict) -> dict:
 
 def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
-    SC>`` plus the third flag (the whole solve's clock stamps, the P=1
-    ``value_batch``'s register chain or shared-memory step); ``trajectory``'s
+    SC>`` plus its flags (the whole solve's clock stamps, the P=1
+    ``value_batch``'s register chain or shared-memory step, the particle
+    forms' options: ``apg_solve<PART, SC, PROF, OPT>``, ``value_batch<PART,
+    SC, REG, OPT>``, ``value_and_grad<PART, SC, OPT>``); ``trajectory``'s
     one flag."""
     if kernel == "trajectory_kernel":
         return f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}>"
     if len(args) < 2:
         return kernel
+    flags = args[2:]
     extra = ""
-    if len(args) > 2 and kernel == "apg_solve_kernel":
-        extra = ", clock-stamped" if args[2] else ""
-    elif len(args) > 2 and not args[0]:
-        extra = ", register chain" if args[2] else ", shared-memory step"
+    if kernel == "apg_solve_kernel":
+        extra = ", clock-stamped" if flags[:1] == [1] else ""
+        opt = flags[1:2] == [1]
+    elif kernel == "value_batch_kernel":
+        if flags and not args[0]:
+            extra = ", register chain" if flags[0] else ", shared-memory step"
+        opt = flags[1:2] == [1]
+    else:
+        opt = flags[:1] == [1]
+    extra += ", options" if opt else ""
     return f"{kernel}<{'true' if args[0] else 'false'}, {SC_NAMES[args[1]]}{extra}>"
 
 
@@ -422,11 +454,21 @@ def phase_build() -> None:
         f"outside the register layout), (registers, spill stores in bytes): {wide}")
     if len(p1) != 11 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
-    if len(part) != 10 or len(wide) != 4:
+    # ten particle forms, and nine more with the particle options
+    if len(part) != 19 or len(wide) != 4:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}")
     vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
         raise AssertionError(f"a cluster form of value_batch spills: {vb}")
+    # the particle forms without the options compile to the code they had
+    # before them, spill-free, and so do the oracle's options forms; the
+    # whole solve's options forms are printed
+    held = {k: v for k, v in part.items()
+            if "options" not in k or not k.startswith("apg_solve_kernel")}
+    if any(v[1] for v in held.values()):
+        raise AssertionError(f"a particle form spills: {held}")
+    log(f"  the whole solve's particle-options forms, (registers, spill stores in bytes): "
+        f"{ {k: v for k, v in part.items() if k not in held} }")
 
 
 def phase_parity(dev, tols: dict = TOLS) -> tuple:
@@ -477,8 +519,9 @@ def phase_parity(dev, tols: dict = TOLS) -> tuple:
 
 def time_fixed(AK, args, pre, n_kernel=20, n_plain=3, **kw):
     """(kernel ms per solve, CUDA events; plain ms per solve, wall);
-    ``kw`` goes to the kernel's wrapper (``cluster``); ``n_plain=0`` times
-    the kernel only."""
+    ``kw`` goes to the kernel's wrapper (``cluster``, ``chunk``, ``starts``)
+    and, but ``cluster``, to the plain version; ``n_plain=0`` times the
+    kernel only."""
     import torch
 
     for _ in range(3):
@@ -495,7 +538,8 @@ def time_fixed(AK, args, pre, n_kernel=20, n_plain=3, **kw):
         return k_ms, None
     t = time.perf_counter()
     for _ in range(n_plain):
-        AK.apg_solve_plain(*args, precond=pre)[0].yk.cpu()
+        AK.apg_solve_plain(*args, precond=pre,
+                           **{k: v for k, v in kw.items() if k != "cluster"})[0].yk.cpu()
     return k_ms, (time.perf_counter() - t) * 1e3 / n_plain
 
 
@@ -720,15 +764,18 @@ def routed(name: str, fn):
     one = lambda t: None if t is None else t[0]
 
     def solve(model, params, cp, apg, ts, x0, x_ref, u_prev, noise, P, lb, ub, u_init,
-              t_init=None, **kw):
+              t_init=None, starts=None, **kw):
         assert x0.shape[0] == 1, "routed serves solo solves (B = 1)"
+        if starts is not None:                # (the clock-stamped twin takes none)
+            kw["starts"] = starts[0]
         st, x_evol = fn(model, params, cp, apg, ts, x0[0], x_ref[0], u_prev[0], one(noise),
                         P, lb, ub, u_init[0], one(t_init), **kw)
         return APGState(*(f[None] for f in st)), x_evol[None]
 
-    def oracle(model, params, cp, ts, x0, x_ref, u_prev, noise, P, maxls, **kw):
+    def oracle(model, params, cp, ts, x0, x_ref, u_prev, noise, P, maxls, starts=None, **kw):
         assert x0.shape[0] == 1, "routed serves solo solves (B = 1)"
-        o = fn(model, params, cp, ts, x0[0], x_ref[0], u_prev[0], one(noise), P, maxls, **kw)
+        o = fn(model, params, cp, ts, x0[0], x_ref[0], u_prev[0], one(noise), P, maxls,
+               starts=one(starts), **kw)
         return CostOracle(
             value=lambda u: o.value(u[0])[None],
             value_batch=lambda U: o.value_batch(U[0])[None],
@@ -1033,7 +1080,8 @@ def rollout_spread(b, x0, u) -> tuple:
 
 
 def particle_solve_parity(AK, b, args, chunk: int, tag: str,
-                          what: str = "particle solve", fp32_spread: bool = False) -> tuple:
+                          what: str = "particle solve", fp32_spread: bool = False,
+                          starts=None) -> tuple:
     """A particle (or state-constrained) solve through the kernel and the
     plain version: equal steps, ``yk`` and ``opt_cost`` at the particle
     tolerances, ``x_evol`` (the ``trajectory`` launch, or the P=1 exit
@@ -1042,15 +1090,16 @@ def particle_solve_parity(AK, b, args, chunk: int, tag: str,
     the float64 rollout instead, each element within rtol 1e-5 / atol 1e-6
     plus twice the float32 spread of the plain rollout there
     (``rollout_spread``: a plan whose float32 rollout moves past 1e-5 with
-    the summation order). Returns (max |du|, max |dx| of ``x_evol``,
-    steps)."""
+    the summation order). ``starts``: the particles' (P, 13) initial states
+    (``x_evol`` stays the rollout from x0). Returns (max |du|, max |dx| of
+    ``x_evol``, steps)."""
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
 
-    st_k, xe_k = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk)
+    st_k, xe_k = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk, starts=starts)
     torch.cuda.synchronize()
-    st_p, _ = AK.apg_solve_plain(*args, precond=b.precond, chunk=chunk)
+    st_p, _ = AK.apg_solve_plain(*args, precond=b.precond, chunk=chunk, starts=starts)
     nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
     du = float((st_k.yk - st_p.yk).abs().max())
     dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
@@ -1134,30 +1183,33 @@ def batch_cluster_vs_one(kern, one, U, tag: str) -> None:
         raise AssertionError(f"value_batch moves with its cluster size ({tag}, K={len(U)})")
 
 
-def cluster_vs_one(AK, args, chunk: int, pre, tag: str) -> dict:
+def cluster_vs_one(AK, args, chunk: int, pre, tag: str, starts=None) -> dict:
     """A particle solve at its chosen cluster and at C = 1 (one block
     sweeping every chunk): equal steps, max|du| and the relative
     ``opt_cost`` gap within 1e-6 (equal bits expected: the blocks sum the
-    chunks' partials in chunk order). Returns the plan of the chosen
-    cluster and both results."""
+    chunks' partials in chunk order; with the cost's ``risk_lambda`` both
+    moments of the totals too). Returns the plan of the chosen cluster and
+    both results."""
     import ctypes
 
     import torch
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
 
-    st_c, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk)
-    st_1, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk, cluster=1)
+    st_c, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk, starts=starts)
+    st_1, _ = AK.apg_solve_kernel(*args, precond=pre, chunk=chunk, cluster=1, starts=starts)
     torch.cuda.synchronize()
     model, params, cp, apg, ts, x0, x_ref, u_prev, _, P, lb, ub, _ = args
     _, a = build_consts(model, params, cp, apg, ts, x0, x_ref, u_prev, lb, ub,
-                        has_pre=pre is not None)
+                        has_pre=pre is not None, particles=True)
+    a.has_starts = int(starts is not None)
     AK.plan_solve_particles(a, P, chunk)
     lib = AK.load_apg_library()
     n = ctypes.c_int(0)
     rc = lib.apg_max_active_clusters(ctypes.byref(a), ctypes.byref(n))
     out = {"cluster": a.cluster, "chunks_per_block": a.chunks_per_block, "Pc": a.Pc,
-           "n_chunks": a.n_chunks, "c_max": lib.apg_cluster_max(a.sc_kind, 0),
+           "n_chunks": a.n_chunks,
+           "c_max": lib.apg_cluster_max(a.sc_kind, 0, int(bool(a.risk or a.has_starts))),
            "max_active_clusters": n.value if rc == 0 else f"error {rc}",
            "steps": (int(st_c.num_steps), int(st_1.num_steps)),
            "du": float((st_c.yk - st_1.yk).abs().max()),
@@ -1172,12 +1224,14 @@ def cluster_vs_one(AK, args, chunk: int, pre, tag: str) -> dict:
     return out
 
 
-def particle_oracle_parity(kern, plain, U, tag: str, what: str = "particle oracle") -> dict:
+def particle_oracle_parity(kern, plain, U, tag: str, what: str = "particle oracle",
+                           vtol: float = 2e-5) -> dict:
     """The particle (or state-constrained) oracle kernels against the plain
     oracle on the same draws: ``value`` (``value_batch`` at K=1) and
-    ``value_batch`` at K=len(U) at rtol 2e-5, ``value_and_grad`` (value
-    rtol 2e-5, gradient rtol 5e-4 / atol 5e-5). Returns max |err| per
-    kernel."""
+    ``value_batch`` at K=len(U) at rtol ``vtol`` (2e-5; the particle
+    options' checks take the particle tolerance 5e-4), ``value_and_grad``
+    (value rtol ``vtol``, gradient rtol 5e-4 / atol 5e-5). Returns max |err|
+    per kernel."""
     import torch
 
     vk, vp = kern.value_batch(U), plain.value_batch(U)
@@ -1189,9 +1243,9 @@ def particle_oracle_parity(kern, plain, U, tag: str, what: str = "particle oracl
     dv = abs(float(a_k) - float(a_p)) / abs(float(a_p))
     dg = float((g_k - g_p).abs().max())
     log(f"{what} {tag}: value (K=1) / value_batch K={len(U)} max rel err "
-        f"{rel:.3e} (rtol 2e-5); value_and_grad value rel {dv:.3e}, grad max|d| {dg:.3e} "
+        f"{rel:.3e} (rtol {vtol:g}); value_and_grad value rel {dv:.3e}, grad max|d| {dg:.3e} "
         f"(rtol 5e-4, atol 5e-5)")
-    if not (rel <= 2e-5 and dv <= 2e-5 and bool(torch.isfinite(vk).all())
+    if not (rel <= vtol and dv <= vtol and bool(torch.isfinite(vk).all())
             and bool(torch.isfinite(g_k).all())
             and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5)):
         raise AssertionError(f"a {what} kernel disagrees with its plain version ({tag})")
@@ -1452,7 +1506,7 @@ def oracle_plan(b, dev, P: int, constrained: bool = False) -> dict:
                        ("value_and_grad", ORACLE_VALUE_AND_GRAD)):
         n = ctypes.c_int(0)
         rc = lib.oracle_max_active_clusters(kind, ctypes.byref(o), ctypes.byref(n))
-        out[name] = {"c_max": lib.oracle_cluster_max(kind, o.sc_kind),
+        out[name] = {"c_max": lib.oracle_cluster_max(kind, o.sc_kind, 0),
                      "max_active_clusters": n.value if rc == 0 else f"error {rc}"}
     return out
 
@@ -1514,12 +1568,14 @@ def work(b, kind: str, P: int = 1, K: int = 1, iters: float = 0, B: int = 1) -> 
                 "apg_solve": (iters + 2) * vg + iters * cands}[kind]
 
 
-def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0, B: int = 1) -> int:
-    """Bytes one call must move: the consts buffer, the plans (nZ wide) and
-    the (H, P, 13) Brownian block read once, the outputs written once; over
-    B scenarios each has its own, but the preconditioner is shared."""
+def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0, B: int = 1,
+             starts: bool = False) -> int:
+    """Bytes one call must move: the consts buffer, the plans (nZ wide), the
+    (H, P, 13) Brownian block and (``starts``) the (P, 13) particles' starts
+    read once, the outputs written once; over B scenarios each has its own,
+    but the preconditioner is shared."""
     H, nZ = int(b.time_steps.shape[0]), int(b.lb_z.shape[0])
-    noise = H * P * 13 if P > 1 else 0
+    noise = (H * P * 13 + (P * 13 if starts else 0)) if P > 1 else 0
     pre = H * nZ if b.precond is not None and kind == "apg_solve" else 0
     io = {"value_batch": K * H * nZ + K, "value_and_grad": 2 * H * nZ + 1,
           "trajectory": H * nZ + (H + 1) * 13,
@@ -1533,7 +1589,8 @@ def bound(b, kind: str, n_consts: int, **shape) -> tuple:
     t_ops = work(b, kind, **{k: v for k, v in shape.items() if k in ("P", "K", "iters", "B")})
     t_ops = t_ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = io_bytes(b, kind, n_consts=n_consts, **{k: v for k, v in shape.items()
-                                                      if k in ("P", "K", "B")}) / HBM_BYTES_S * 1e3
+                                                      if k in ("P", "K", "B", "starts")}
+                       ) / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -3009,6 +3066,366 @@ def phase_batched_oracle(dev, card: str) -> dict:
     return out
 
 
+# the particle options (phases 23-24): examples/uncertainty_mpc.py's
+# state-noise stds and risk, the cases their kernel branches are held on,
+# MPPI over K x P paths, the batched route's scenarios
+OPTION_STD = [0.15] * 3 + [0.1] * 3 + [0.0] * 4 + [0.05] * 3
+RISK = 2.0
+MPPI_K, MPPI_P = 64, 128
+OPTION_B = 4
+P_LARGE = 1024             # two chunks a block of the particle forms (Pc = 32, C = 16)
+UNCERTAINTY_P = 1024       # examples/uncertainty_mpc.py's --particles (BASELINE config 4)
+ROBUST_ARGV = ["--seconds", "4", "--seeds", "1"]   # a short sim/noise_robustness.py
+
+
+def option_cases(dev) -> list:
+    """The cases the particle options' kernel branches are held on: (tag,
+    bundle, chunk, problem, plans(K, seed), option sets). ``p512anti`` (one
+    chunk a block), P=1024 antithetic (two chunks a block), the altitude
+    floor's ``<true, penalty>`` at P=128 and the proximal form at P=64 in
+    chunks of 16."""
+    from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_plans, constrained_problem
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    every = (("risk",), ("starts",), ("risk", "starts"))
+    b1 = make_mpc_from_config(config("iris_traj_mpc", particles=P_FULL), device=dev)[3]
+    b2 = make_mpc_from_config(config("iris_posctrl_mpc", particles=P_LARGE), device=dev)[3]
+    b3 = floor_mpc(floor_config(), dev)[3]
+    b4 = make_mpc_from_config(constrained_config("prox", particles=64), device=dev)[3]
+    return [
+        (f"p512anti (iris_traj_mpc, P={P_FULL} antithetic)", b1, 0, problem(b1, dev),
+         lambda K, seed: plans(K, seed, dev), every),
+        (f"P={P_LARGE} antithetic (iris_posctrl_mpc, 2 chunks a block)", b2, 0,
+         problem(b2, dev),
+         lambda K, seed: plans(K, seed, dev), every),
+        (f"altitude floor <true, penalty>, P={P_FLOOR} antithetic", b3, 0,
+         constrained_problem(b3), lambda K, seed: constrained_plans(b3, K, seed),
+         (("risk",), ("risk", "starts"))),
+        ("proximal (nZ=10), P=64 in chunks of 16", b4, 16, constrained_problem(b4),
+         lambda K, seed: constrained_plans(b4, K, seed), (("risk",), ("risk", "starts"))),
+    ]
+
+
+def with_options(b, opts, x0, P: int, dev, seed: int):
+    """(cost with ``risk_lambda`` where ``opts`` has risk, the (P, 13) starts
+    of the example's state-noise stds where it has starts, or None)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_start_spread, particle_starts
+
+    cp = b.cost_params._replace(risk_lambda=RISK) if "risk" in opts else b.cost_params
+    starts = None
+    if "starts" in opts:
+        z0 = draw_start_spread(torch.Generator().manual_seed(seed), P, True, dev)
+        starts = particle_starts(x0, torch.tensor(OPTION_STD, device=dev), z0).contiguous()
+    return cp, starts
+
+
+def phase_particle_options(dev, card: str) -> dict:
+    """Phase 23: the particle options' branches of kernels #1-#3 against
+    their plain versions on the same draws (``option_cases``): the whole
+    solve at a fixed 5 iterations (the particle tolerances, equal steps),
+    ``value_batch`` K = 1, 4 and ``value_and_grad`` (values 5e-4, gradients
+    5e-4 / 5e-5), with risk (lambda 2), the example's starts, and both; each
+    case's risk-and-starts solve, ``value_batch`` and ``value_and_grad`` on
+    their cluster against C = 1 bit for bit; then the new branches timed:
+    the fixed 5-iteration P=512 solve without and with each option, P=1024
+    without and with risk, and the oracle kernels per launch at P=512."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    err = {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0}
+    out = {"cases": {}}
+    cases = option_cases(dev)
+    for tag, b, chunk, (x0, x_ref, u_prev, u_init), make_plans, option_sets in cases:
+        P = b.num_particles
+        z = brownian(P, dev, antithetic=True)
+        apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+        for i, opts in enumerate(option_sets):
+            cp, starts = with_options(b, opts, x0, P, dev, seed=P + i)
+            what = " + ".join(opts)
+            t = f"{tag}, {what}"
+            args = (b.model, b.params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P,
+                    b.lb_z, b.ub_z, u_init)
+            du, _, steps = particle_solve_parity(AK, b, args, chunk, t, "option solve",
+                                                 starts=starts)
+            err["apg_solve"] = max(err["apg_solve"], du)
+            oargs = (b.model, b.params, cp, b.time_steps, x0, x_ref, u_prev, z, P,
+                     b.apg_config.maxls)
+            kern = CO.cost_oracle(*oargs, chunk=chunk, starts=starts)
+            plain = CO.cost_oracle_plain(*oargs, chunk=chunk, starts=starts)
+            U = make_plans(4, P + i)
+            for k, e in particle_oracle_parity(kern, plain, U, t, "option oracle",
+                                               vtol=PART_RTOL).items():
+                err[k] = max(err[k], e)
+            out["cases"][t] = {"steps": steps, "max_du": du}
+            if opts != ("risk", "starts"):
+                continue
+            cluster_vs_one(AK, args, chunk, b.precond, t, starts=starts)
+            one = CO.cost_oracle(*oargs, chunk=chunk, cluster=1, starts=starts)
+            for Ub in (U[:1], U):
+                batch_cluster_vs_one(kern, one, Ub, t)
+            (v_c, g_c), (v_1, g_1) = kern.value_and_grad(U[1]), one.value_and_grad(U[1])
+            torch.cuda.synchronize()
+            log(f"value_and_grad {t}, its cluster against C = 1: |dv| "
+                f"{abs(float(v_c - v_1)):.3e}, max|dg| {float((g_c - g_1).abs().max()):.3e} "
+                f"(equal bits)")
+            if not (torch.equal(v_c, v_1) and torch.equal(g_c, g_1)):
+                raise AssertionError(f"value_and_grad moves with its cluster size ({t})")
+
+    # the new branches timed against the forms without them, on one card
+    for _, b, _, (x0, x_ref, u_prev, u_init), _, _ in cases[:2]:
+        P = b.num_particles
+        z = brownian(P, dev, antithetic=True)
+        apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+        sets = ((), ("risk",), ("starts",), ("risk", "starts")) if P == P_FULL else \
+            ((), ("risk",))
+        timed = {}
+        for opts in sets:
+            cp, starts = with_options(b, opts, x0, P, dev, seed=7)
+            args = (b.model, b.params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P,
+                    b.lb_z, b.ub_z, u_init)
+            timed[" + ".join(opts) or "none"] = time_fixed(
+                AK, args, b.precond, n_kernel=10, n_plain=1 if opts else 0, starts=starts)
+        base = timed["none"][0]
+        log(f"fixed 5-iteration solve + trajectory at P={P} antithetic ({card}): "
+            + "; ".join(f"{k} {v[0]:.4f} ms ({v[0] / base:.3f}x"
+                        + (f", plain {v[1]:.1f} ms)" if v[1] else ")")
+                        for k, v in timed.items()))
+        out[f"fixed_P{P}"] = timed
+    b = cases[0][1]
+    x0, x_ref, u_prev, _ = cases[0][3]
+    z = brownian(P_FULL, dev, antithetic=True)
+    oracle_ms = {}
+    for opts in ((), ("risk",), ("starts",), ("risk", "starts")):
+        cp, starts = with_options(b, opts, x0, P_FULL, dev, seed=7)
+        oargs = (b.model, b.params, cp, b.time_steps, x0, x_ref, u_prev, z, P_FULL,
+                 b.apg_config.maxls)
+        kern = CO.cost_oracle(*oargs, starts=starts)
+        plain = CO.cost_oracle_plain(*oargs, starts=starts)
+        U = plans(4, 3, dev)
+        key = " + ".join(opts) or "none"
+        oracle_ms[key] = {
+            "value_batch_K1": per_launch_ms(lambda: kern.value_batch(U[:1]), 20),
+            "value_batch_K4": per_launch_ms(lambda: kern.value_batch(U), 20),
+            "value_and_grad": per_launch_ms(lambda: kern.value_and_grad(U[0]), 20),
+            "plain_value_batch_K1": per_launch_ms(lambda: plain.value_batch(U[:1]), 2),
+            "plain_value_and_grad": per_launch_ms(lambda: plain.value_and_grad(U[0]), 2)}
+    log(f"the oracle kernels per launch at P={P_FULL} antithetic ({card}; CUDA events, mean "
+        f"of 20, plain of 2): " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {v:.4f} ms" for n, v in r.items())
+            for k, r in oracle_ms.items()))
+    out["oracle_ms"] = oracle_ms
+    out["err"] = err
+    out["bundle"] = b
+
+    # the shared-memory step of the P=1 value_batch (a trunk outside the
+    # register layout: phase 4's, padded to 72 units), timed beside its bound
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+
+    bp = make_bundle("iris_posctrl_mpc", dev)
+    bp = bp._replace(params=padded_trunk(bp.params, PADDED_HID, seed=0))
+    x0, x_ref, u_prev, _ = problem(bp, dev)
+    oargs = (bp.model, bp.params, bp.cost_params, bp.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U = plans(64, 64, dev)
+    nc = n_consts(bp, dev)
+    out["padded"] = {"ms": per_launch_ms(lambda: kern.value_batch(U), 20),
+                     "plain_ms": per_launch_ms(lambda: plain.value_batch(U), 2),
+                     "bound": bound(bp, "value_batch", nc, K=64)}
+    log(f"value_batch<false, none, false> (the shared-memory step) on the trunk padded to "
+        f"{PADDED_HID} units, K=64 ({card}): {out['padded']['ms']:.4f} ms per launch, plain "
+        f"{out['padded']['plain_ms']:.2f} ms, bound {out['padded']['bound'][0]:.2e} ms "
+        f"({out['padded']['bound'][1]})")
+    return out
+
+
+def phase_particle_option_routes(dev, card: str) -> dict:
+    """Phase 24: the particle options through the entry points, each route's
+    launch counts zeroed just before it and read just after:
+
+    - MPPI over K x P paths: 4 chained solves of iris posctrl with ``solver:
+      mppi`` (K = 64, 8 rounds) at P = 128 antithetic from the pinned
+      offset, through the kernels (one particle ``value_batch`` a round, the
+      warm start's and the result's) and through the plain oracle on the
+      same draws (|du| <= 1e-4 per row, equal steps); per-launch time;
+    - the fixed-step route with risk and starts at P = 512 (posctrl without
+      its linesearch block): ``value_and_grad`` and ``value_batch`` K = 1 a
+      step;
+    - the batched route: B = 4 fixed 5-iteration P = 512 traj solves with
+      risk and starts in one launch (and one ``trajectory``), each scenario
+      bit-equal to its solo ``mpc_fn``; the batched oracle's ``value_batch``
+      (K = 4) and ``value_and_grad`` bit-equal to their solo launches;
+    - ``sim/uncertainty.py`` at P = 1024 (every variant's ms per solve);
+    - a short ``sim/noise_robustness.py`` (4 s x 1 seed; gate: every reading
+      finite; its violation fractions printed);
+    - the single-solve back-off of ``tests/test_noise_robustness.py``: the
+      risk-averse (and the P=32 particle) planner's terminal z at least
+      0.01 m above the mean planner's (gated)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned, ned2enu
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc, make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_start_spread
+    from sde4mbrl_px4_tpu_torch.sim import noise_robustness as NR
+    from sde4mbrl_px4_tpu_torch.sim import uncertainty as UNC
+
+    out = {"launches": {}}
+    # MPPI over K x P paths
+    n, iters = 4, 8
+    cfg = config("iris_posctrl_mpc", solver="mppi", particles=MPPI_P,
+                 mppi={"samples": MPPI_K, "iters": iters})
+    zero_counts()
+    rows_k, ms = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    out["launches"]["mppi"] = check_route(
+        f"MPPI K={MPPI_K} x P={MPPI_P}", {"apg_solve": 0, "value_batch": n * (iters + 2),
+                                          "value_and_grad": 0, "trajectory": n})
+    with routed("cost_oracle", CO.cost_oracle_plain):
+        rows_p, ms_p = chain(cfg, dev, n)
+    du = np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max(axis=1)
+    log(f"MPPI K={MPPI_K} x P={MPPI_P} antithetic ({n} chained solves, {iters} rounds), "
+        f"kernels vs plain, same draws: max|du| per row {np.array2string(du, precision=3)} "
+        f"(gate 1e-4); wall ms per solve {statistics.median(ms[1:]):.3f} (plain "
+        f"{statistics.median(ms_p[1:]):.1f})")
+    if not ((du <= 1e-4).all() and np.array_equal(rows_k[:, -1], rows_p[:, -1])
+            and np.isfinite(rows_k).all()):
+        raise AssertionError("MPPI over K x P paths disagrees with the plain oracle")
+    b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)[3]
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+             brownian(MPPI_P, dev, antithetic=True), MPPI_P, 4)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U = plans(MPPI_K, 11, dev)
+    out["mppi"] = {"wall_ms_p50": statistics.median(ms[1:]),
+                   "plain_wall_ms_p50": statistics.median(ms_p[1:]),
+                   "max_du": float(du.max()), "bundle": b,
+                   "ms": per_launch_ms(lambda: kern.value_batch(U), 20),
+                   "plain_ms": per_launch_ms(lambda: plain.value_batch(U), 2)}
+    log(f"value_batch K={MPPI_K} x P={MPPI_P} ({card}): {out['mppi']['ms']:.4f} ms per launch "
+        f"(CUDA events, mean of 20), plain {out['mppi']['plain_ms']:.2f} ms")
+
+    # the fixed-step route with risk and starts
+    cfg = config("iris_posctrl_mpc", linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"],
+                 particles=P_FULL, max_iter=20, max_no_improvement_iter=20)
+    cfg["cost_params"]["risk_lambda"] = RISK
+    cfg["initial_state_std"] = OPTION_STD
+    n = 2
+    zero_counts()
+    rows, _ = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    steps = int(rows[:, -1].sum())
+    out["launches"]["fixed_step"] = check_route(
+        f"fixed-step P={P_FULL} with risk and starts",
+        {"apg_solve": 0, "value_batch": steps, "value_and_grad": steps + 2 * n, "trajectory": n})
+    if not np.isfinite(rows).all():
+        raise AssertionError("the fixed-step route with risk and starts returned a bad plan")
+
+    # the batched route: B scenarios with risk and starts
+    pcfg = config("iris_traj_mpc", particles=P_FULL, max_iter=5)
+    pcfg["cost_params"]["risk_lambda"] = RISK
+    pcfg["initial_state_std"] = OPTION_STD
+    # the hover_diag metric is keyed on the cost: a risk cost has no
+    # committed cache, and the port does not probe one (ROADMAP item 12)
+    del pcfg["apg_mpc"]["precond"]
+    reset_fn, mpc_fn, reset_b, mpc_b, sft, pb = batched_pair(pcfg, dev)
+    ts = torch.tensor([3.0 + 0.5 * i for i in range(OPTION_B)], device=dev)
+    xs = enu2ned(sft(ts))
+    z = torch.stack([brownian(P_FULL, dev, antithetic=True, seed=i) for i in range(OPTION_B)])
+    z0 = draw_start_spread(torch.Generator().manual_seed(5), P_FULL, True, dev,
+                           batch=(OPTION_B,))
+    st_in = reset_b(xs, None, xs)
+    torch.cuda.synchronize()
+    zero_counts()
+    sol = mpc_b(xs, iter([(z, z0)]), st_in, ts, xs)
+    torch.cuda.synchronize()
+    out["launches"]["batched"] = check_route(
+        f"batched P={P_FULL} B={OPTION_B} with risk and starts",
+        {"apg_solve": 1, "value_batch": 0, "value_and_grad": 0, "trajectory": 1})
+    out["bit_equal"] = bit_equal_to_solo(
+        f"P={P_FULL} antithetic B={OPTION_B} with risk and starts", sol,
+        [mpc_fn(xs[i], iter([(z[i], z0[i])]), scenario_state(st_in, i), float(ts[i]), xs[i])
+         for i in range(OPTION_B)])
+    from sde4mbrl_px4_tpu_torch.ops.rollout import particle_starts
+
+    starts = particle_starts(xs, torch.tensor(OPTION_STD, device=dev), z0).contiguous()
+    x_refs = build_mpc(copy.deepcopy(pcfg), device=dev)[2].build_ref(ts, xs)
+    u_prev = st_in.yk[:, 0].contiguous()
+    ob = CO.cost_oracle_batched(pb.model, pb.params, pb.cost_params, pb.time_steps, xs,
+                                x_refs, u_prev, z, P_FULL, 4, starts=starts)
+    Ub = torch.stack([plans(4, 20 + i, dev) for i in range(OPTION_B)])
+    vb, (vv, vg) = ob.value_batch(Ub), ob.value_and_grad(Ub[:, 0].contiguous())
+    same = 0
+    for i in range(OPTION_B):
+        o = CO.cost_oracle(pb.model, pb.params, pb.cost_params, pb.time_steps, xs[i],
+                           x_refs[i], u_prev[i], z[i], P_FULL, 4, starts=starts[i])
+        v1, (a1, g1) = o.value_batch(Ub[i]), o.value_and_grad(Ub[i, 0])
+        same += int(torch.equal(v1, vb[i]) and torch.equal(a1, vv[i]) and torch.equal(g1, vg[i]))
+    log(f"batched oracle P={P_FULL} B={OPTION_B} with risk and starts: value_batch K=4 and "
+        f"value_and_grad bit-equal to their solo launches in {same}/{OPTION_B} scenarios")
+    if same != OPTION_B:
+        raise AssertionError("the batched oracle with risk and starts differs from solo")
+
+    # sim/uncertainty.py at P = 1024
+    zero_counts()
+    unc = UNC.run(UNCERTAINTY_P, dev)
+    torch.cuda.synchronize()
+    nv = len(UNC.VARIANTS)
+    out["launches"]["uncertainty"] = check_route(
+        f"sim/uncertainty.py P={UNCERTAINTY_P}",
+        {"apg_solve": 2 * nv, "value_batch": 0, "value_and_grad": 0, "trajectory": 2 * nv})
+    if not all(np.isfinite([r["ms"], r["opt_cost"]]).all() for r in unc.values()):
+        raise AssertionError("sim/uncertainty.py gave a non-finite reading")
+    out["uncertainty"] = unc
+
+    # a short sim/noise_robustness.py
+    zero_counts()
+    robust = NR.run(ROBUST_ARGV)
+    torch.cuda.synchronize()
+    # the drive's ticks a controller (int(seconds / dt), dt the float32 period,
+    # as the example counts them) and its warm solve
+    ticks = int(float(ROBUST_ARGV[1]) / float(np.float32(0.05))) + 1
+    out["launches"]["noise_robustness"] = check_route(
+        "sim/noise_robustness.py " + " ".join(ROBUST_ARGV),
+        {"apg_solve": 3 * ticks, "value_batch": 0, "value_and_grad": 0,
+         "trajectory": 2 * ticks})
+    if not robust["finite"]:
+        raise AssertionError("sim/noise_robustness.py gave a non-finite reading")
+    out["noise_robustness"] = {k: list(v) for k, v in robust["table"].items()}
+
+    # the single-solve back-off of tests/test_noise_robustness.py
+    def terminal_z(mut):
+        cfg = floor_config(**{"max_iter": 60})
+        cfg.update(num_particles=1, antithetic=False)
+        cfg.update(mut)
+        _, (reset_fn, mpc_fn), _, _ = floor_mpc(cfg, dev)
+        tgt = hover_state(dev)
+        tgt[2] = -1.25
+        tgt_enu = ned2enu(tgt)
+        gen = torch.Generator().manual_seed(0)
+        sol = mpc_fn(tgt, gen, reset_fn(tgt, gen, tgt_enu), 0.0, tgt_enu)
+        return float(sol.x_evol[-5:, 2].mean())
+
+    cp = floor_config()["cost_params"]
+    zs = {"mean": terminal_z({}),
+          "particles": terminal_z({"num_particles": 32, "antithetic": True}),
+          "risk": terminal_z({"num_particles": 32, "antithetic": True,
+                              "cost_params": dict(cp, risk_lambda=RISK)})}
+    log(f"the floor back-off, one solve 5 cm above the floor: terminal NED z mean "
+        f"{zs['mean']:.4f}, P=32 particles {zs['particles']:.4f}, risk-averse "
+        f"{zs['risk']:.4f} (gate: each below mean - 0.01)")
+    if not (zs["particles"] < zs["mean"] - 0.01 and zs["risk"] < zs["mean"] - 0.01):
+        raise AssertionError("the risk-averse plan does not back off the floor")
+    out["floor_backoff"] = zs
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3079,6 +3496,13 @@ def main() -> int:
     boracle = phase_batched_oracle(dev, card)
     log("phase 22: the oracle kernels' scenario axis equals the solo launches; batched MPPI, "
         "fixed-step and policy solves equal their solo solves; both fleets pass")
+    popt = phase_particle_options(dev, card)
+    log(f"phase 23: the risk and start branches of the particle kernels match their plain "
+        f"versions (max|err| {popt['err']}) and give the bits of one block on any cluster")
+    proute = phase_particle_option_routes(dev, card)
+    log("phase 24: MPPI over K x P paths, the fixed-step and batched routes with risk and "
+        "starts, and both uncertainty drives run on the particle kernels; risk backs off the "
+        "floor")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -3315,6 +3739,52 @@ def main() -> int:
               bound(boracle["bundles"]["part"], "value_and_grad", nc_b, P=P_FULL, B=PART_B),
               timed=f"per launch over B={PART_B} plans",
               plain_ms_is=f"one plan's plain value_and_grad at P={P_FULL} (phase 13)")]
+    # slice 11: the particle options on the particle forms of #1-#3
+    b_opt, fx, fx2 = popt["bundle"], popt[f"fixed_P{P_FULL}"], popt[f"fixed_P{P_LARGE}"]
+    nc_opt, lo = n_consts(b_opt, dev), proute["launches"]
+    om = popt["oracle_ms"]
+    kernels += [
+        entry("apg_solve", "particles with risk_lambda and initial_state_std",
+              sum(lo[r]["apg_solve"] for r in ("batched", "uncertainty", "noise_robustness")),
+              popt["err"]["apg_solve"], fx["risk"][0], fx["risk"][1],
+              bound(b_opt, "apg_solve", nc_opt, P=P_FULL, K=4, iters=5),
+              timed=f"fixed 5-iteration solve at P={P_FULL} antithetic with risk (lambda "
+                    f"{RISK}), with its trajectory launch",
+              ms_without_options=fx["none"][0], ms_starts=fx["starts"][0],
+              ms_risk_and_starts=fx["risk + starts"][0],
+              bound_ms_starts=bound(b_opt, "apg_solve", nc_opt, P=P_FULL, K=4, iters=5,
+                                    starts=True)[0],
+              P1024_ms_without_risk=fx2["none"][0], P1024_ms_risk=fx2["risk"][0],
+              P1024_plain_ms_risk=fx2["risk"][1],
+              P1024_bound_ms=bound(b_opt, "apg_solve", nc_opt, P=P_LARGE, K=4, iters=5)[0],
+              route_launches={r: lo[r]["apg_solve"]
+                              for r in ("batched", "uncertainty", "noise_robustness")},
+              uncertainty_ms={k: v["ms"] for k, v in proute["uncertainty"].items()}),
+        entry("value_and_grad", "particles with risk_lambda and initial_state_std",
+              lo["fixed_step"]["value_and_grad"], popt["err"]["value_and_grad"],
+              om["risk"]["value_and_grad"], om["risk"]["plain_value_and_grad"],
+              bound(b_opt, "value_and_grad", nc_opt, P=P_FULL),
+              timed=f"per launch at P={P_FULL} antithetic with risk",
+              ms_without_options=om["none"]["value_and_grad"],
+              ms_starts=om["starts"]["value_and_grad"],
+              ms_risk_and_starts=om["risk + starts"]["value_and_grad"]),
+        entry("value_batch", "particles with risk_lambda and initial_state_std",
+              lo["fixed_step"]["value_batch"], popt["err"]["value_batch"],
+              om["risk"]["value_batch_K1"], om["risk"]["plain_value_batch_K1"],
+              bound(b_opt, "value_batch", nc_opt, P=P_FULL, K=1),
+              timed=f"per launch at P={P_FULL} antithetic with risk, K=1",
+              ms_K4=om["risk"]["value_batch_K4"],
+              bound_ms_K4=bound(b_opt, "value_batch", nc_opt, P=P_FULL, K=4)[0],
+              ms_without_options=om["none"]["value_batch_K1"],
+              ms_risk_and_starts_K4=om["risk + starts"]["value_batch_K4"]),
+        entry("value_batch", f"particles, MPPI over K={MPPI_K} x P={MPPI_P} antithetic paths",
+              lo["mppi"]["value_batch"], proute["mppi"]["max_du"], proute["mppi"]["ms"],
+              proute["mppi"]["plain_ms"],
+              bound(proute["mppi"]["bundle"], "value_batch", nc_opt, P=MPPI_P, K=MPPI_K),
+              timed=f"per launch, K={MPPI_K} x P={MPPI_P}",
+              max_abs_err_is="max |du| of the chained MPPI plans, kernels vs plain",
+              solve_ms_p50=proute["mppi"]["wall_ms_p50"],
+              plain_solve_ms_p50=proute["mppi"]["plain_wall_ms_p50"])]
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -3338,6 +3808,13 @@ def main() -> int:
         "batched_routes": {key: {f: v for f, v in boracle[key].items() if f != "last"}
                            for key in ("mppi", "fixed", "policy_0", "policy_15")},
         "batched_bit_equal": boracle["bit_equal"],
+        "particle_options": {
+            "cases": popt["cases"], "fixed_ms": {f"P={P_FULL}": fx, f"P={P_LARGE}": fx2},
+            "oracle_ms": om, "padded_value_batch": popt["padded"],
+            "uncertainty": proute["uncertainty"],
+            "noise_robustness": proute["noise_robustness"],
+            "floor_backoff": proute["floor_backoff"], "bit_equal": proute["bit_equal"],
+            "mppi": {k: v for k, v in proute["mppi"].items() if k != "bundle"}},
         "fleet_families": {tag: {k: v for k, v in run.items() if k != "launches"}
                            for tag, run in boracle["fleet"].items()}}}))
     print(json.dumps({"kernels": kernels}))

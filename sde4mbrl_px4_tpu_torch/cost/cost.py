@@ -10,8 +10,11 @@ the geometric ``discount``; and the ``state_constr`` block in both forms
 penalties over the 13 states, relaxed by ``constr_pen``) and the
 proximal-slack form (``slack_proximal: True``: one slack-target column per
 constrained state in the decision sequence, coupled to the state at full
-``state_penalty`` weight). The ``risk_lambda`` reduction is not ported yet:
-the loader refuses configs that use it (``engine/mpc_loader.py``).
+``state_penalty`` weight). ``cost_params.risk_lambda`` (``:53``,
+``:213-229``) is the risk-sensitive particle reduction: at P > 1 the
+particles' discounted totals ``tot_p`` (tracking, constraint terms and the
+uncertainty penalty) enter as ``mean + risk_lambda * sqrt(var + 1e-12)``,
+the population variance taken about the mean (centred first).
 """
 from __future__ import annotations
 
@@ -44,6 +47,9 @@ class CostParams(NamedTuple):
     state_hi13: Optional[torch.Tensor] = None        # (13,) +1e9 pad
     state_inv_scale13: Optional[torch.Tensor] = None  # (13,) 1/slack_scaling
     constr_pen: float = 0.0
+    # mean + risk_lambda * std of the particles' discounted totals (None: the
+    # mean; original :49-54, coerced as at :139-140)
+    risk_lambda: Optional[float] = None
     # proximal-slack form: m slack-target columns past n_u in the decision
     # sequence, box-projected to [slack_lo, slack_hi] by the solver
     slack_pen: Optional[torch.Tensor] = None         # (m,) state_penalty
@@ -106,6 +112,7 @@ class CostParams(NamedTuple):
                 np.asarray(slew_constr, np.float32), device=device)),
             u_slew_constr_coeff=f32(cp.get("u_slew_constr_coeff", 0.0)),
             discount=f32(cfg.get("discount", 1.0)),
+            risk_lambda=f32(cp["risk_lambda"]) if cp.get("risk_lambda") else None,
             **sc,
         )
 
@@ -131,9 +138,11 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
     ``x_paths`` (P, H+1, 13) or (H+1, 13); ``sigma_paths`` (P, H, 13) or
     None; ``u_seq`` (H, n_u); ``x_ref`` (H+1, 13); ``u_prev`` (n_u,) or None
     (then ``uref``); ``s_seq`` (H, m) the proximal slack targets (the
-    caller splits the decision sequence). Particles reduce by mean. The
-    state-constraint terms join the stage cost in the original's order
-    (prox coupling, then the penalty form's ``constr_pen * viol``).
+    caller splits the decision sequence). Particles reduce by mean, plus
+    ``risk_lambda`` times the std of their totals where it is set and P > 1
+    (original ``:213-229``). The state-constraint terms join the stage cost
+    in the original's order (prox coupling, then the penalty form's
+    ``constr_pen * viol``).
     """
     H = int(time_steps.shape[0])
     disc = discount_vector(cp, H, time_steps.device)
@@ -152,7 +161,18 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
             under = torch.clamp(cp.state_lo13 - xs, min=0.0) * cp.state_inv_scale13
             viol = torch.sum(cp.state_pen13 * (over * over + under * under), -1)
             track = track + cp.constr_pen * viol
-        j_track = torch.mean(torch.sum(disc * track, dim=-1))
+        res_p = None
+        if sigma_paths is not None:
+            if sigma_paths.dim() == 2:
+                sigma_paths = sigma_paths[None]
+            res_p = cp.res_mult * torch.sum(
+                disc * torch.sum(sigma_paths * sigma_paths, -1), dim=-1)     # (P,)
+        tr_p = torch.sum(disc * track, dim=-1)                               # (P,)
+        j_track = torch.mean(tr_p)
+        if cp.risk_lambda is not None and tr_p.shape[0] > 1:
+            tot_p = tr_p if res_p is None else tr_p + res_p
+            var = torch.mean((tot_p - torch.mean(tot_p)) ** 2)
+            j_track = j_track + cp.risk_lambda * torch.sqrt(var + 1e-12)
 
         du = u_seq - cp.uref
         j_u = cp.uerr * torch.sum(disc[:, None] * du * du)
@@ -168,11 +188,7 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
                     + torch.clamp(lo - rate, min=0.0) ** 2)
             j = j + cp.u_slew_constr_coeff * torch.sum(viol)
 
-        if sigma_paths is not None:
-            if sigma_paths.dim() == 2:
-                sigma_paths = sigma_paths[None]
-            res_p = cp.res_mult * torch.sum(
-                disc * torch.sum(sigma_paths * sigma_paths, -1), dim=-1)     # (P,)
+        if res_p is not None:
             j = j + torch.mean(res_p)
         return j
 

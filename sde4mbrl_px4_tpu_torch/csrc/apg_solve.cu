@@ -32,7 +32,9 @@
 //                 clip, the Armijo <g, d> and <d, D^-1 d> and the iterate
 //                 update run over the nZ columns, the control terms over the
 //                 first n_u. CONSTR_NONE compiles to the code the kernel had
-//                 before the constraint forms existed.
+//                 before the constraint forms existed;
+// and three more of the particle form with the particle options (OPT,
+// below), plus the clock-stamped two.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. At P=1 one APG
 // iteration is about 1.6 MFLOP (a forward and a reverse sweep of one row
@@ -83,6 +85,20 @@
 // rows (nZ = 10 on the shipped iris config) take the P=1 layout past the
 // 48 KB default, so the constrained P=1 forms take dynamic shared memory
 // above it too (set once per library load by apg_init).
+//
+// The particle options (sweeps.cuh, Risk): with a.risk the vg sweep and the
+// candidates price mean + lambda * std of the particles' discounted totals
+// (cost_params.risk_lambda; the TPU package sends it to XLA,
+// engine/mpc_loader.py:342-345), so the Armijo test compares that
+// objective on both sides; `starts` (B, P, 13), when not null, gives each
+// particle its initial state (initial_state_std, :346-350), scenario b's at
+// b * P * 13. Both are runtime branches of the particle form: the
+// unconstrained and constrained forms keep their registers and shared
+// memory without them, and a block takes K*Pc floats a chunk more for the
+// totals with risk. They are a template parameter of the particle form
+// (OPT): apg_solve_kernel<true, SC, false, false> compiles to the code it
+// had without them, and a launch with risk or starts takes
+// apg_solve_kernel<true, SC, false, true>.
 //
 // The scenario axis (apg_solve.cuh, batch): a launch solves B independent
 // problems, scenario b on block b (P=1) or on cluster b (blocks b*C ..
@@ -140,8 +156,11 @@ struct Scal {
 
 // Carve the dynamic shared memory; returns the number of floats used.
 // part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows);
-// otherwise every buffer starts on 16 bytes (the P=1 float4 reads).
-__host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, float* base) {
+// otherwise every buffer starts on 16 bytes (the P=1 float4 reads). risk:
+// the risk buffers (a constant false in the forms without the options, so
+// their layout compiles as it did without them).
+__host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Smem* s,
+                                      float* base) {
   const int HZ = a.H * a.nZ;
   const int B = part ? a.Pc : 1;              // vg rows per pass
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
@@ -178,34 +197,40 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, Smem* s, floa
   if (part) take(&t->c_feat, B * a.F);
   take(&t->red, 32);
   if (part) {
-    take(&t->cacc, 2 * a.K);
+    const int np = risk ? 3 : 2;              // the partial means (risk: + totals)
+    take(&t->cacc, np * a.K);
     take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
     take(&t->w2t, a.OUT * a.HID);
-    // the chunk partials of this block (vg: gradient and 2 costs; the K
-    // candidates' 2K means)
-    take(&t->pg, a.chunks_per_block * (HZ + 2));
-    take(&t->pk, a.chunks_per_block * 2 * a.K);
+    // the chunk partials of this block (vg: gradient and 2 costs, + the
+    // totals' mean with risk; the K candidates' 2K or 3K means)
+    take(&t->pg, a.chunks_per_block * (HZ + np));
+    take(&t->pk, a.chunks_per_block * np * a.K);
+    // risk: the rows' discounted totals of this block's chunks
+    if (risk) take(&t->tot, a.chunks_per_block * R);
   }
   return o;
 }
 
-// PROF (only <PART, CONSTR_NONE>, apg_solve_prof_launch): thread 0 stamps
+// OPT (particles only): the particle options' form, risk and starts runtime
+// branches (sweeps.cuh). PROF (only <PART, CONSTR_NONE>,
+// apg_solve_prof_launch): thread 0 stamps
 // clock64() at the phase boundaries (sweeps.cuh, PH_* at P=1, PP_* in the
 // particle form) and writes the per-phase cycle sums and the solve's cycles
 // to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
 // last rank (both from the one block at P=1); each row's last entry is the
 // block's rank.
-template <bool PART, int SC, bool PROF = false>
+template <bool PART, int SC, bool PROF = false, bool OPT = false>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
                  const float* __restrict__ precond, const float* __restrict__ noise,
-                 float* __restrict__ yk, float* __restrict__ stats,
-                 float* __restrict__ x_evol, long long* __restrict__ prof_out) {
+                 const float* __restrict__ starts, float* __restrict__ yk,
+                 float* __restrict__ stats, float* __restrict__ x_evol,
+                 long long* __restrict__ prof_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Scal S;
   Smem s;
-  layout(a, PART, &s, smem);
+  layout(a, PART, OPT && a.risk, &s, smem);
   s.prof = nullptr;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
@@ -215,6 +240,10 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   auto my_noise = [noise, &a]() {
     return noise + scenario<true, PROF>() * ((size_t)a.H * a.P * 13);
   };
+  // ... and (OPT) its particles' starts, or null (every particle at x0),
+  // offset once into shared memory
+  __shared__ const float* my_starts_p;
+  auto my_starts = [&]() -> const float* { return my_starts_p; };
   // the block's rank in its cluster (0 at P=1: one block); only rank 0
   // writes the outputs
   int rank = 0;
@@ -237,6 +266,8 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     outp[0] = yk + scen() * HZ;
     outp[1] = stats + scen() * 8;
     if constexpr (!PART) outp[2] = x_evol + scen() * ((a.H + 1) * 13);
+    if constexpr (OPT)
+      my_starts_p = starts ? starts + scen() * ((size_t)a.P * 13) : nullptr;
   }
   consts += scen() * a.n_consts;
   u_init += scen() * HZ;
@@ -246,7 +277,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   if constexpr (PART) transpose_weights(a, s);
   else W = load_p1_weights(a, c);
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC, PROF>(a, s, &S.fval, U, my_noise);
+    if constexpr (PART) vg_part<SC, PROF, OPT>(a, s, &S.fval, U, my_noise, my_starts);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -306,7 +337,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, PROF>(a, s, K, my_noise);
+      cand_part<SC, PROF, OPT>(a, s, K, my_noise, my_starts);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -314,6 +345,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       prof_stamp<PROF>(s, PH_CAND);
     }
     // rollout costs per candidate: the rows' own (P=1) or particle means
+    // (the tracking mean with lambda * std under risk)
     const float* cost_t = PART ? s.cacc : s.jt;
     const float* cost_r = PART ? s.cacc + K : s.jr;
 
@@ -431,39 +463,44 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
 }
 
 int dyn_bytes(const ApgArgs& a) {
-  return layout(a, a.has_noise != 0, nullptr, nullptr) * (int)sizeof(float);
+  return layout(a, a.has_noise != 0, a.risk != 0, nullptr, nullptr) * (int)sizeof(float);
 }
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
 // one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
 // cluster the card cannot schedule returns).
-template <bool PART, int SC, bool PROF = false>
+template <bool PART, int SC, bool PROF = false, bool OPT = false>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
-                   const float* noise, float* yk, float* stats, float* x_evol,
-                   long long* prof) {
+                   const float* noise, const float* starts, float* yk, float* stats,
+                   float* x_evol, long long* prof) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF>, a, consts, u_init,
-                              t0, precond, noise, yk, stats, x_evol, prof);
+    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT>, a, consts,
+                              u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
   } else {
     apg_solve_kernel<false, SC, PROF><<<a.batch, APG_NTHREADS, dyn, st>>>(
-        a, consts, u_init, t0, precond, noise, yk, stats, x_evol, prof);
+        a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
     return cudaSuccess;
   }
 }
 
-// The instantiation for [has_noise][sc_kind].
+// The instantiation for [form][sc_kind]: form 0 P=1, 1 particles, 2 the
+// particles with the options (OPT).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
-                                 float*, float*, float*, long long*);
-const LaunchFn kLaunch[2][3] = {
+                                 const float*, float*, float*, float*, long long*);
+const LaunchFn kLaunch[3][3] = {
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
-    {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>}};
+    {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>},
+    {launch<true, CONSTR_NONE, false, true>, launch<true, CONSTR_PENALTY, false, true>,
+     launch<true, CONSTR_PROX, false, true>}};
 
-// The largest cluster of each particle form [sc_kind] and of the
+int form(const ApgArgs& a) { return a.has_noise ? (options(a) ? 2 : 1) : 0; }
+
+// The largest cluster of each particle form [opt][sc_kind] and of the
 // clock-stamped one (apg_init; 0 before it).
-int g_cmax[3] = {0, 0, 0};
+int g_cmax[2][3] = {};
 int g_cmax_prof = 0;
 
 }  // namespace
@@ -482,12 +519,21 @@ int apg_init() {
       allow_large_smem(apg_solve_kernel<true, CONSTR_NONE>),
       allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY>),
       allow_large_smem(apg_solve_kernel<true, CONSTR_PROX>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, false, true>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY, false, true>),
+      allow_large_smem(apg_solve_kernel<true, CONSTR_PROX, false, true>),
       allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, true>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>),
-      cluster_max(apg_solve_kernel<true, CONSTR_NONE>, APG_NTHREADS_PART, &g_cmax[0]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY>, APG_NTHREADS_PART, &g_cmax[1]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PROX>, APG_NTHREADS_PART, &g_cmax[2]),
+      cluster_max(apg_solve_kernel<true, CONSTR_NONE>, APG_NTHREADS_PART, &g_cmax[0][0]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY>, APG_NTHREADS_PART, &g_cmax[0][1]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PROX>, APG_NTHREADS_PART, &g_cmax[0][2]),
+      cluster_max(apg_solve_kernel<true, CONSTR_NONE, false, true>, APG_NTHREADS_PART,
+                  &g_cmax[1][0]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY, false, true>, APG_NTHREADS_PART,
+                  &g_cmax[1][1]),
+      cluster_max(apg_solve_kernel<true, CONSTR_PROX, false, true>, APG_NTHREADS_PART,
+                  &g_cmax[1][2]),
       cluster_max(apg_solve_kernel<true, CONSTR_NONE, true>, APG_NTHREADS_PART,
                   &g_cmax_prof)};
   for (const cudaError_t e : errs)
@@ -496,10 +542,10 @@ int apg_init() {
 }
 
 // The largest cluster the particle form of sc_kind takes (prof: the
-// clock-stamped one, CONSTR_NONE only).
-int apg_cluster_max(int sc_kind, int prof) {
+// clock-stamped one, CONSTR_NONE only; opt: the options' form).
+int apg_cluster_max(int sc_kind, int prof, int opt) {
   if (sc_kind < CONSTR_NONE || sc_kind > CONSTR_PROX) return 0;
-  return prof ? g_cmax_prof : g_cmax[sc_kind];
+  return prof ? g_cmax_prof : g_cmax[opt != 0][sc_kind];
 }
 
 // Shared memory the kernel needs for these dimensions (dynamic + static).
@@ -511,14 +557,17 @@ int apg_smem_bytes(const ApgArgs* a) {
 // and cluster size, into *n; returns a cudaError_t.
 int apg_max_active_clusters(const ApgArgs* a, int* n) {
   using Fn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                      const float*, float*, float*, float*, long long*);
-  const Fn fns[3] = {apg_solve_kernel<true, CONSTR_NONE>,
-                     apg_solve_kernel<true, CONSTR_PENALTY>,
-                     apg_solve_kernel<true, CONSTR_PROX>};
+                      const float*, const float*, float*, float*, float*, long long*);
+  const Fn fns[2][3] = {{apg_solve_kernel<true, CONSTR_NONE>,
+                         apg_solve_kernel<true, CONSTR_PENALTY>,
+                         apg_solve_kernel<true, CONSTR_PROX>},
+                        {apg_solve_kernel<true, CONSTR_NONE, false, true>,
+                         apg_solve_kernel<true, CONSTR_PENALTY, false, true>,
+                         apg_solve_kernel<true, CONSTR_PROX, false, true>}};
   if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)max_active_clusters(fns[a->sc_kind], a->cluster, APG_NTHREADS_PART,
-                                  (size_t)dyn_bytes(*a), n);
+  return (int)max_active_clusters(fns[options(*a)][a->sc_kind], a->cluster,
+                                  APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
 }
 
 const char* apg_error_string(int err) {
@@ -530,7 +579,7 @@ const char* apg_error_string(int err) {
 // grid the card takes (at most 2^31 - 1 blocks); cmax: the particle form's
 // largest cluster.
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
-                      const void* x_evol, int cmax) {
+                      const void* starts, const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
   const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
                                                       : APG_SMEM_LIMIT;
@@ -540,6 +589,7 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
            (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
            (a->has_pre && precond == nullptr) ||
+           (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
                     a->Pc * a->n_chunks != a->P || !cluster_args_ok(*a, cmax))
                  : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1 ||
@@ -549,8 +599,10 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
 // Launch a->batch solves on `stream`. Per scenario (leading axis B): consts
 // (n_consts), u_init and yk (H, nZ), t0 (1), stats (8), noise the
 // (H, P, 13) Brownian block when a->has_noise (else unused, may be null),
-// x_evol (H+1, 13), written only by the deterministic form; precond (H, nZ)
-// is shared by every scenario. Returns
+// starts the (P, 13) particles' initial states or null (particles only,
+// with a->has_starts), x_evol (H+1, 13), written only by the deterministic
+// form; precond (H, nZ) is shared by every scenario; a->risk (particles
+// only) prices the particles' totals at mean + lambda * std. Returns
 // the launch's error (cudaErrorInvalidValue for arguments the kernel does
 // not take, among them P=1 trunk widths other than HID = P1_HID and
 // F <= P1_FMAX, and a particle launch whose cluster fields are no plan of
@@ -558,34 +610,37 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
 // schedule the cluster).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
-                     void* yk, void* stats, void* x_evol, void* stream) {
+                     const void* starts, void* yk, void* stats, void* x_evol,
+                     void* stream) {
   if (a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
-      !launch_ok(a, precond, noise, x_evol, g_cmax[a->sc_kind]))
+      !launch_ok(a, precond, noise, starts, x_evol, g_cmax[options(*a)][a->sc_kind]))
     return (int)cudaErrorInvalidValue;
-  return launch_error(kLaunch[a->has_noise != 0][a->sc_kind](
+  return launch_error(kLaunch[form(*a)][a->sc_kind](
       *a, (size_t)dyn_bytes(*a), (cudaStream_t)stream, (const float*)consts,
       (const float*)u_init, (const float*)t0, (const float*)precond, (const float*)noise,
-      (float*)yk, (float*)stats, (float*)x_evol, nullptr));
+      (const float*)starts, (float*)yk, (float*)stats, (float*)x_evol, nullptr));
 }
 
-// A solve without state constraints through the clock-stamped
-// instantiation (apg_solve_kernel<PART, CONSTR_NONE, true>; P=1 or
-// particles; one scenario, batch = 1), for measurement: as apg_solve_launch,
+// A solve without state constraints and particle options through the
+// clock-stamped instantiation (apg_solve_kernel<PART, CONSTR_NONE, true>;
+// P=1 or particles; one scenario, batch = 1), for measurement: as
+// apg_solve_launch,
 // plus prof (int64
 // (2, 8)): per stamped rank the cycles of the PH_* (P=1) or PP_* (particle)
 // phases, of the whole solve, and the rank.
 int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_init,
                           const void* t0, const void* precond, const void* noise,
-                          void* yk, void* stats, void* x_evol, void* prof, void* stream) {
-  if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 ||
-      !launch_ok(a, precond, noise, x_evol, g_cmax_prof))
+                          const void* starts, void* yk, void* stats, void* x_evol,
+                          void* prof, void* stream) {
+  if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 || options(*a) ||
+      !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>
                                    : &launch<false, CONSTR_NONE, true>;
   return launch_error(fn(*a, (size_t)dyn_bytes(*a), (cudaStream_t)stream,
                          (const float*)consts, (const float*)u_init, (const float*)t0,
-                         (const float*)precond, (const float*)noise, (float*)yk,
-                         (float*)stats, (float*)x_evol, (long long*)prof));
+                         (const float*)precond, (const float*)noise, (const float*)starts,
+                         (float*)yk, (float*)stats, (float*)x_evol, (long long*)prof));
 }
 
 }  // extern "C"

@@ -46,6 +46,12 @@ struct ApgArgs {
   // block (penm, invm, the state ids as floats; m each) or of the penalty
   // block (pen13 with constr_pen folded in, lo13, hi13, inv13; 13 each).
   int sc_kind, m, o_penm, o_invm, o_sid, o_pen13, o_lo13, o_hi13, o_inv13;
+  // The particle options (sweeps.cuh, Risk): risk = 1 prices the
+  // particles' discounted totals at mean + lambda * std (cost_params.
+  // risk_lambda, lambda at scal[SC_RISK]); has_starts = 1 when the launch
+  // passes the particles' starts (initial_state_std). Both 0 at P = 1; a
+  // particle launch with either runs the kernels' OPT forms.
+  int risk, has_starts;
   // The scenario axis of every kernel: `batch` independent problems in one
   // launch (B >= 1). The whole solve, value_and_grad and trajectory take
   // scenario b on one block (P=1) or one cluster (particles); value_batch
@@ -73,6 +79,9 @@ struct ApgArgs {
 // the unconstrained forms compile to the code they had without them.
 enum { CONSTR_NONE = 0, CONSTR_PENALTY = 1, CONSTR_PROX = 2 };
 
+// Whether a launch takes the particle options' forms (OPT = true).
+inline bool options(const ApgArgs& a) { return a.risk != 0 || a.has_starts != 0; }
+
 // The constraint fields agree with the decision width.
 inline bool constr_args_ok(const ApgArgs& a) {
   if (a.sc_kind == CONSTR_PROX) return a.m >= 1 && a.nZ == a.n_u + a.m;
@@ -81,6 +90,6 @@ inline bool constr_args_ok(const ApgArgs& a) {
 }
 
 // scal block (o_scal): [mass, diff_scale, uerr, u_slew_coeff,
-//                       u_slew_constr_coeff, res_mult]
+//                       u_slew_constr_coeff, res_mult, risk_lambda]
 enum { SC_MASS = 0, SC_DIFF = 1, SC_UERR = 2, SC_SLEW = 3, SC_SLEWC = 4,
-       SC_RESM = 5 };
+       SC_RESM = 5, SC_RISK = 6 };

@@ -71,7 +71,18 @@
 //     the whole solve), whose sums run in the order of a thread per output.
 // The constraint terms add per-row scalar work to each step and no memory
 // traffic; at nZ > n_u a P=1 value_batch block takes fewer rows only where
-// its wider rows would pass 48 KB.
+// its wider rows would pass 48 KB. The particle forms take the particle
+// options of the whole solve (sweeps.cuh, Risk): a.risk prices each plan at
+// mean + lambda * std of its particles' discounted totals (value_and_grad's
+// gradient with the rows' risk weights), and `starts` (B, P, 13), when not
+// null, gives each particle its initial state (scenario b's at b * P * 13);
+// MPPI's K candidates on P shared paths are one particle value_batch launch
+// of K (x B) clusters. The TPU package sends all three to XLA
+// (engine/mpc_loader.py:342-350, :434-443). The options are a template
+// parameter OPT of the particle forms: the forms without them compile to
+// the code they had before, and a launch with risk or starts takes the
+// OPT = true form (value_batch_kernel<true, SC, false, true>,
+// value_and_grad_kernel<true, SC, true>).
 //
 // Control flow is block-uniform and every __syncthreads() is reached by all
 // threads of the block.
@@ -119,8 +130,9 @@ __host__ __device__ inline bool p1_widths(const ApgArgs& a) {
 // chain) every buffer starts on 16 bytes (its float4 reads) and a row's
 // state, features and outputs live in registers; trajectory and
 // value_and_grad then stash the row's states, pre-activations and wrench.
-// Fields a kernel does not use stay null.
-__host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part,
+// risk: the risk buffers (a constant false in the forms without the
+// options). Fields a kernel does not use stay null.
+__host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part, bool risk,
                                       Smem* s, float* base) {
   const int HZ = a.H * a.nZ;
   const int rows = part ? R * a.Pc : R;       // step rows per pass
@@ -161,11 +173,14 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
       take(&t->w2t, a.OUT * a.HID);
     }
   }
-  if (part) take(&t->cacc, 2 * R);
-  // a block's chunk partials: value_and_grad's gradient and 2 costs, the
-  // candidates' 2R means
-  if (part && kind == ORACLE_VALUE_AND_GRAD) take(&t->pg, a.chunks_per_block * (HZ + 2));
-  if (part && kind == ORACLE_VALUE_BATCH) take(&t->pk, a.chunks_per_block * 2 * R);
+  const int np = risk ? 3 : 2;                // the partial means (risk: + totals)
+  if (part) take(&t->cacc, np * R);
+  // a block's chunk partials: value_and_grad's gradient and 2 costs (+ the
+  // totals' mean with risk), the candidates' 2R (3R) means
+  if (part && kind == ORACLE_VALUE_AND_GRAD) take(&t->pg, a.chunks_per_block * (HZ + np));
+  if (part && kind == ORACLE_VALUE_BATCH) take(&t->pk, a.chunks_per_block * np * R);
+  // risk: the rows' discounted totals of this block's chunks
+  if (part && risk) take(&t->tot, a.chunks_per_block * rows);
   return o;
 }
 
@@ -197,15 +212,15 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // 100-128 registers a thread allow no second): without it, ptxas took the
 // proximal form to 64 registers (two blocks per SM) and a 108-byte spill
 // once the scenario offsets were added.
-template <bool PART, int SC, bool REG>
+template <bool PART, int SC, bool REG, bool OPT = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
-                   float* __restrict__ out) {
+                   const float* __restrict__ starts, float* __restrict__ out) {
   static_assert(!(PART && REG), "the register chain is the P=1 forms'");
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
-  layout(a, ORACLE_VALUE_BATCH, tile, PART, &s, smem);
+  layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem);
   const int HZ = a.H * a.nZ, nZ = a.nZ;
   const int k0 = PART ? (int)blockIdx.x / a.cluster : (int)blockIdx.x * tile;
   const int R = PART ? 1 : min(tile, K - k0);
@@ -220,7 +235,15 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                U + (grid_row() * K + k0) * (size_t)HZ);
 
   if constexpr (PART) {
-    cand_part<SC>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13));
+    // OPT: scenario k0 / K's starts (null: x0), offset once into shared
+    // memory, so that no register holds the pointer across the sweep
+    __shared__ const float* starts_p;
+    if constexpr (OPT) {
+      if (tid == 0) starts_p = starts ? starts + (size_t)(k0 / K) * ((size_t)a.P * 13) : nullptr;
+      __syncthreads();
+    }
+    cand_part<SC, false, OPT>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
+                              [&]() -> const float* { return starts_p; });
     if (cg::this_cluster().block_rank() != 0) return;
   } else if constexpr (REG) {
     p1_rollout<SC, false, false>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
@@ -260,7 +283,7 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
                   const float* __restrict__ u, float* __restrict__ x_out) {
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
-  layout(a, ORACLE_TRAJECTORY, 1, false, &s, smem);
+  layout(a, ORACLE_TRAJECTORY, 1, false, false, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t scen = blockIdx.x;
   consts += scen * a.n_consts;
@@ -283,24 +306,32 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // The cost of one plan and its gradient, for scenario b = block b (P=1) or
 // cluster b (particles): its consts, plan u (H, nZ), Brownian block, value
 // and gradient (H, nZ) at b times their stride.
-template <bool PART, int SC>
+template <bool PART, int SC, bool OPT = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
-                      float* __restrict__ val, float* __restrict__ grad) {
+                      const float* __restrict__ starts, float* __restrict__ val,
+                      float* __restrict__ grad) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float fval;
   Smem s = {};
-  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, &s, smem);
+  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
              u + vg_scenario<PART>() * (a.H * a.nZ));
   int rank = 0;                       // the block's rank in its cluster
   if constexpr (PART) {
     rank = (int)cg::this_cluster().block_rank();
-    transpose_weights(a, s);
-    vg_part<SC>(a, s, &fval, s.cand,
-                [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); });
+    // OPT: this scenario's starts (null: x0), offset once into shared memory
+    __shared__ const float* starts_p;
+    if constexpr (OPT)
+      if (tid == 0)
+        starts_p = starts ? starts + vg_scenario<true>() * ((size_t)a.P * 13) : nullptr;
+    transpose_weights(a, s);                 // ends with a barrier
+    vg_part<SC, false, OPT>(
+        a, s, &fval, s.cand,
+        [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
+        [&]() -> const float* { return starts_p; });
   } else {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   }
@@ -312,7 +343,7 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
 }
 
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
-  return layout(a, kind, R, part, nullptr, nullptr) * (int)sizeof(float);
+  return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr) * (int)sizeof(float);
 }
 
 // Candidate rows per value_batch block: one candidate per cluster with
@@ -343,69 +374,82 @@ bool args_ok(const ApgArgs* a) {
 // ceil(K / tile) blocks on each of a.batch grid rows; particles B x K
 // clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
 // the card cannot schedule returns).
-template <bool PART, int SC, bool REG>
+template <bool PART, int SC, bool REG, bool OPT = false>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
-                               float* out) {
+                               const float* starts, float* out) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false>, K, tile, a, consts,
-                              U, noise, out);
+    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT>, K, tile, a,
+                              consts, U, noise, starts, out);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
     value_batch_kernel<false, SC, REG><<<grid, ORACLE_NTHREADS, dyn, st>>>(
-        K, tile, a, consts, U, noise, out);
+        K, tile, a, consts, U, noise, starts, out);
     return cudaSuccess;
   }
 }
 using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStream_t,
-                                     const float*, const float*, const float*, float*);
+                                     const float*, const float*, const float*, const float*,
+                                     float*);
 // [form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on the
-// register chain, 2 particles
-const ValueBatchFn kValueBatch[3][3] = {
+// register chain, 2 particles, 3 particles with the options
+const ValueBatchFn kValueBatch[4][3] = {
     {launch_value_batch<false, CONSTR_NONE, false>,
      launch_value_batch<false, CONSTR_PENALTY, false>,
      launch_value_batch<false, CONSTR_PROX, false>},
     {launch_value_batch<false, CONSTR_NONE, true>, launch_value_batch<false, CONSTR_PENALTY, true>,
      launch_value_batch<false, CONSTR_PROX, true>},
     {launch_value_batch<true, CONSTR_NONE, false>, launch_value_batch<true, CONSTR_PENALTY, false>,
-     launch_value_batch<true, CONSTR_PROX, false>}};
+     launch_value_batch<true, CONSTR_PROX, false>},
+    {launch_value_batch<true, CONSTR_NONE, false, true>,
+     launch_value_batch<true, CONSTR_PENALTY, false, true>,
+     launch_value_batch<true, CONSTR_PROX, false, true>}};
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
 // returns).
-template <bool PART, int SC>
+template <bool PART, int SC, bool OPT = false>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
-                                  float* val, float* grad) {
+                                  const float* starts, float* val, float* grad) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC>, a, consts, u, noise,
-                              val, grad);
+    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT>, a, consts, u,
+                              noise, starts, val, grad);
   } else {
-    value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise,
-                                                                           val, grad);
+    value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(
+        a, consts, u, noise, starts, val, grad);
     return cudaSuccess;
   }
 }
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
-                                       const float*, const float*, float*, float*);
-const ValueAndGradFn kValueAndGrad[2][3] = {
+                                       const float*, const float*, const float*, float*,
+                                       float*);
+// [form][sc_kind]: form 0 P=1, 1 particles, 2 particles with the options
+const ValueAndGradFn kValueAndGrad[3][3] = {
     {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
      launch_value_and_grad<false, CONSTR_PROX>},
     {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
-     launch_value_and_grad<true, CONSTR_PROX>}};
+     launch_value_and_grad<true, CONSTR_PROX>},
+    {launch_value_and_grad<true, CONSTR_NONE, true>,
+     launch_value_and_grad<true, CONSTR_PENALTY, true>,
+     launch_value_and_grad<true, CONSTR_PROX, true>}};
 
-// The particle fields and the noise block, when the kernel reads them.
-bool particles_ok(const ApgArgs* a, const void* noise) {
-  if (!a->has_noise) return a->P == 1 && a->Pc == 1 && a->n_chunks == 1;
+// The particle fields, the noise block and the particle options (risk and
+// starts: particles only), when the kernel reads them.
+bool particles_ok(const ApgArgs* a, const void* noise, const void* starts) {
+  if ((a->has_starts != 0) != (starts != nullptr)) return false;
+  if (!a->has_noise)
+    return a->P == 1 && a->Pc == 1 && a->n_chunks == 1 && !options(*a);
   return noise != nullptr && a->Pc >= 1 && a->n_chunks >= 1 &&
          a->Pc * a->n_chunks == a->P;
 }
 
-// The largest cluster of each particle form [kind][sc_kind], value_batch
-// and value_and_grad (cost_oracle_init; 0 before it).
-int g_cmax[3][3] = {};
+// The largest cluster of each particle form [kind][opt][sc_kind],
+// value_batch and value_and_grad, without and with the options
+// (cost_oracle_init; 0 before it).
+int g_cmax[3][2][3] = {};
 
 bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
 
@@ -434,52 +478,77 @@ const char* cost_oracle_error_string(int err) {
 // cluster (sweeps.cuh::cluster_max). Called once when the library is
 // loaded; returns a cudaError_t.
 int cost_oracle_init() {
-  int* vb = g_cmax[ORACLE_VALUE_BATCH];
-  int* vg = g_cmax[ORACLE_VALUE_AND_GRAD];
+  int(*vb)[3] = g_cmax[ORACLE_VALUE_BATCH];
+  int(*vg)[3] = g_cmax[ORACLE_VALUE_AND_GRAD];
   const int nt = ORACLE_NTHREADS_PART;
   const cudaError_t errs[] = {
       allow_large_smem(value_batch_kernel<true, CONSTR_NONE, false>),
       allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY, false>),
       allow_large_smem(value_batch_kernel<true, CONSTR_PROX, false>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_NONE, false, true>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY, false, true>),
+      allow_large_smem(value_batch_kernel<true, CONSTR_PROX, false, true>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY>),
       allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>),
-      cluster_max(value_batch_kernel<true, CONSTR_NONE, false>, nt, &vb[CONSTR_NONE]),
-      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false>, nt, &vb[CONSTR_PENALTY]),
-      cluster_max(value_batch_kernel<true, CONSTR_PROX, false>, nt, &vb[CONSTR_PROX]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, nt, &vg[CONSTR_NONE]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, nt, &vg[CONSTR_PENALTY]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, nt, &vg[CONSTR_PROX])};
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE, true>),
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY, true>),
+      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX, true>),
+      cluster_max(value_batch_kernel<true, CONSTR_NONE, false>, nt, &vb[0][CONSTR_NONE]),
+      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false>, nt, &vb[0][CONSTR_PENALTY]),
+      cluster_max(value_batch_kernel<true, CONSTR_PROX, false>, nt, &vb[0][CONSTR_PROX]),
+      cluster_max(value_batch_kernel<true, CONSTR_NONE, false, true>, nt, &vb[1][CONSTR_NONE]),
+      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false, true>, nt,
+                  &vb[1][CONSTR_PENALTY]),
+      cluster_max(value_batch_kernel<true, CONSTR_PROX, false, true>, nt, &vb[1][CONSTR_PROX]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, nt, &vg[0][CONSTR_NONE]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, nt, &vg[0][CONSTR_PENALTY]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, nt, &vg[0][CONSTR_PROX]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_NONE, true>, nt, &vg[1][CONSTR_NONE]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY, true>, nt, &vg[1][CONSTR_PENALTY]),
+      cluster_max(value_and_grad_kernel<true, CONSTR_PROX, true>, nt, &vg[1][CONSTR_PROX])};
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;
 }
 
 // The largest cluster of the particle form of `kind` (ORACLE_VALUE_BATCH,
-// ORACLE_VALUE_AND_GRAD) and sc_kind; 0 for other kinds.
-int oracle_cluster_max(int kind, int sc_kind) {
+// ORACLE_VALUE_AND_GRAD), sc_kind and opt (the options' form); 0 for other
+// kinds.
+int oracle_cluster_max(int kind, int sc_kind, int opt) {
   return (kind == ORACLE_VALUE_BATCH || kind == ORACLE_VALUE_AND_GRAD) && sc_ok(sc_kind)
-             ? g_cmax[kind][sc_kind] : 0;
+             ? g_cmax[kind][opt != 0][sc_kind] : 0;
 }
 
 // cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
 // dimensions and cluster size, into *n; returns a cudaError_t.
 int oracle_max_active_clusters(int kind, const ApgArgs* a, int* n) {
-  using VbFn = void (*)(int, int, ApgArgs, const float*, const float*, const float*, float*);
-  using VgFn = void (*)(ApgArgs, const float*, const float*, const float*, float*, float*);
-  const VbFn vb[3] = {value_batch_kernel<true, CONSTR_NONE, false>,
-                      value_batch_kernel<true, CONSTR_PENALTY, false>,
-                      value_batch_kernel<true, CONSTR_PROX, false>};
-  const VgFn vg[3] = {value_and_grad_kernel<true, CONSTR_NONE>,
-                      value_and_grad_kernel<true, CONSTR_PENALTY>,
-                      value_and_grad_kernel<true, CONSTR_PROX>};
+  using VbFn = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
+                        const float*, float*);
+  using VgFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                        float*, float*);
+  const VbFn vb[2][3] = {{value_batch_kernel<true, CONSTR_NONE, false>,
+                          value_batch_kernel<true, CONSTR_PENALTY, false>,
+                          value_batch_kernel<true, CONSTR_PROX, false>},
+                         {value_batch_kernel<true, CONSTR_NONE, false, true>,
+                          value_batch_kernel<true, CONSTR_PENALTY, false, true>,
+                          value_batch_kernel<true, CONSTR_PROX, false, true>}};
+  const VgFn vg[2][3] = {{value_and_grad_kernel<true, CONSTR_NONE>,
+                          value_and_grad_kernel<true, CONSTR_PENALTY>,
+                          value_and_grad_kernel<true, CONSTR_PROX>},
+                         {value_and_grad_kernel<true, CONSTR_NONE, true>,
+                          value_and_grad_kernel<true, CONSTR_PENALTY, true>,
+                          value_and_grad_kernel<true, CONSTR_PROX, true>}};
   if (!a->has_noise || !sc_ok(a->sc_kind) || a->cluster < 1 ||
       (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a, kind, 1, true);
+  const int o = options(*a);
   return (int)(kind == ORACLE_VALUE_BATCH
-                   ? max_active_clusters(vb[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART, dyn, n)
-                   : max_active_clusters(vg[a->sc_kind], a->cluster, ORACLE_NTHREADS_PART, dyn, n));
+                   ? max_active_clusters(vb[o][a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
+                                         dyn, n)
+                   : max_active_clusters(vg[o][a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
+                                         dyn, n));
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -501,21 +570,26 @@ int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 // returning the launch's error (cudaErrorInvalidValue for arguments the
 // kernels do not take). consts is (B, n_consts), U (B, K, H, nZ), u
 // (B, H, nZ), noise the (B, H, P, 13) Brownian blocks (read only when
-// a->has_noise; may be null otherwise); outputs are (B, K), (B, H+1, 13),
+// a->has_noise; may be null otherwise), starts the (B, P, 13) particles'
+// initial states or null (particles only, with a->has_starts; with it or
+// a->risk the options' form runs); outputs are (B, K), (B, H+1, 13),
 // (B,) and (B, H, nZ). The P=1 value_and_grad takes the trunk widths of the
 // register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
 // cluster plan of its chunks (value_batch one cluster per candidate), and
 // return the cluster launch's own error where the card cannot schedule it.
-int value_batch_launch(const ApgArgs* a, int K, const void* consts,
-                       const void* U, const void* noise, void* out, void* stream) {
-  if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) || !particles_ok(a, noise) ||
-      (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][a->sc_kind])) ||
+int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* U,
+                       const void* noise, const void* starts, void* out, void* stream) {
+  if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
+      !particles_ok(a, noise, starts) ||
+      (a->has_noise &&
+       !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][options(*a)][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int form = a->has_noise ? 2 : p1_widths(*a) ? 1 : 0;
+  const int form = a->has_noise ? (options(*a) ? 3 : 2) : p1_widths(*a) ? 1 : 0;
   return launch_error(kValueBatch[form][a->sc_kind](
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
-      (const float*)consts, (const float*)U, (const float*)noise, (float*)out));
+      (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
+      (float*)out));
 }
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
@@ -534,16 +608,19 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
-                          const void* noise, void* val, void* grad, void* stream) {
-  if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise) ||
+                          const void* noise, const void* starts, void* val, void* grad,
+                          void* stream) {
+  if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise, starts) ||
       (!a->has_noise && !p1_widths(*a)) ||
-      (a->has_noise && !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][a->sc_kind])) ||
+      (a->has_noise &&
+       !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][options(*a)][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  return launch_error(kValueAndGrad[a->has_noise != 0][a->sc_kind](
+  const int form = a->has_noise ? (options(*a) ? 2 : 1) : 0;
+  return launch_error(kValueAndGrad[form][a->sc_kind](
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
-      (const float*)noise, (float*)val, (float*)grad));
+      (const float*)noise, (const float*)starts, (float*)val, (float*)grad));
 }
 
 }  // extern "C"

@@ -24,7 +24,11 @@
 //   - cand_part: K candidates x P particles in chunks, the particle mean
 //     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765);
 //   - cluster_chunk_sum: the chunk partials of a thread-block cluster
-//     summed in chunk order through distributed shared memory.
+//     summed in chunk order through distributed shared memory;
+//   - the particle options (a.risk, the starts): the risk-sensitive
+//     reduction mean + lambda * std of the particles' discounted totals
+//     (sde4mbrl_px4_tpu/cost/cost.py:213-229) and a start per particle
+//     (ops/rollout.py:163-169), which the TPU package runs on XLA only.
 //
 // Every function works on shared-memory scratch described by Smem; each
 // kernel carves its own layout and sets the fields the functions it calls
@@ -51,6 +55,32 @@
 // size gives the same bits, and every block holds the same reduced values.
 // The whole solve and value_and_grad launch one cluster; value_batch a grid
 // of K clusters, one per candidate (cand_part with K = 1).
+//
+// The particle options are a template parameter OPT of the particle sweeps
+// (vg_part, cand_part, bwd_rows) and of the kernels' particle forms: the
+// forms without them (OPT = false) compile to the code they had before the
+// options existed, and a launch with risk or starts takes the OPT = true
+// form, whose branches are runtime (a.risk, a null starts pointer).
+//
+// Risk (a.risk, lambda at scal[SC_RISK]): each row's discounted total
+// tot = jt + res_mult * jr is kept in s.tot for the block's chunks; two more
+// ordered cluster sums give each plan's mean m of the totals and then their
+// centred second moment var (centred first, as the original: the one-pass
+// sum of squares cancels when the spread is small against the mean); the
+// tracking mean becomes mean + lambda * sqrt(var + 1e-12). The gradient
+// weighs row p's share by w_p = 1 + lambda * (tot_p - m) / sqrt(var +
+// 1e-12) (times the mean's 1/P, as without risk): the reverse of a row is
+// linear in its seeds (tracking, uncertainty and constraint terms alike),
+// so bwd_rows runs it unweighted and scales the row's control cotangent by
+// w_p where it sums the rows, which leaves the reverse step's registers as
+// they were. w needs every particle's forward before any reverse, so
+// vg_part forwards all of a block's chunks before any reverse; a block
+// holding more than one chunk runs the forward of every chunk but its last
+// again into the stash before that chunk's reverse (the stash holds one
+// chunk). Starts: an optional (P, 13) array of per-particle initial states
+// (the wrapper makes it from x0, the std and the draws z0); row p of chunk
+// ch starts at start ch * Pc + p, every candidate of a particle at its
+// particle's start; without it every row starts at x0.
 //
 // State constraints (the state_constr block; bodies.py:188-206 and their
 // reverse, which the TPU kernel gets by tracing jax.vjp, apg_kernel.py:
@@ -99,13 +129,20 @@ struct Smem {
   float *cu;                       // (nZ,) partial control cotangent
   float *c_h2, *c_h1p, *c_h0p, *c_feat;   // (OUT), (HID), (HID), (F)
   float *cacc;                     // (2K,) particle means per candidate:
-                                   // tracking [0, K), sigma [K, 2K)
+                                   // tracking [0, K), sigma [K, 2K); with
+                                   // risk (3K,): totals [2K, 3K), and the
+                                   // tracking mean carries lambda * std
+  float *tot;                      // (chunks_per_block, K*Pc) with risk: the
+                                   // rows' discounted totals, then (vg_part)
+                                   // their gradient weights
   float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
                                    // transposed weights (particle reverse)
   float *red;                      // (32,) reduction results
   float *pg;                       // (chunks_per_block, H*nZ + 2) a block's vg
                                    // chunk partials: gradient, tracking, sigma
+                                   // (+ the totals' mean with risk)
   float *pk;                       // (chunks_per_block, 2K) its candidate ones
+                                   // ((.., 3K) with risk)
   float *wr;                       // (H, 4) wrench of the vg row per step (P=1)
   long long *prof;                 // (PH_N + 1,) phase cycles (apg_solve_prof_launch)
 };
@@ -770,12 +807,15 @@ __device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
 // of the step (bodies.py:587-596). Like the traced VJP, it re-runs the
 // trunk forward, from the stashed states xs[t], into s.p0 / s.p1 / s.a2.
 // Each row is seeded with d_t/Pc (the chunk's cost is the mean over its
-// rows; z: the chunk's draws at step t). Updates the row cotangents s.ct
+// rows; z: the chunk's draws at step t); with OPT and a.risk each row's
+// control cotangent enters the chunk's sum times its risk weight, which
+// vg_part leaves in s.jt[r] (the forward's running costs are spent by
+// then). Updates the row cotangents s.ct
 // (R, 13) and writes the chunk's control gradient, summed over its rows and
 // divided by n_chunks, to gout[t*nZ ..] (its partial; the slack columns'
 // gradient rides in s.cu[r*nZ + n_u ..] in the proximal form). Needs
 // transpose_weights first.
-template <int SC>
+template <int SC, bool OPT = false>
 __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
                          const float* __restrict__ z, int t, float* gout) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -789,7 +829,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
   for (int r = tid; r < R; r += nt)
     bwd_dyn<true, SC>(a, c, xt + r * 13, x1 + r * 13, s.a2 + r * OUT, u, z + r * 13, t,
-                  cT, cR, s.ct + r * 13, s.c_h2 + r * OUT, s.cu + r * nZ);
+                      cT, cR, s.ct + r * 13, s.c_h2 + r * OUT, s.cu + r * nZ);
   __syncthreads();
 
   // trunk backward, one output per thread and row, on the transposed
@@ -825,7 +865,10 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   __syncthreads();
   if (tid < nZ) {
     float acc = 0.f;
-    for (int r = 0; r < R; ++r) acc += s.cu[r * nZ + tid];
+    if (OPT && a.risk)
+      for (int r = 0; r < R; ++r) acc += s.jt[r] * s.cu[r * nZ + tid];
+    else
+      for (int r = 0; r < R; ++r) acc += s.cu[r * nZ + tid];
     gout[t * nZ + tid] = acc / (float)a.n_chunks;
   }
   __syncthreads();
@@ -1232,33 +1275,49 @@ __device__ __forceinline__ void vg(const ApgArgs& a, const Smem& s, const P1W& W
 
 // Every block of the cluster: out(e, v) for e < n, v the sum over the
 // chunks ch = 0 .. n_chunks-1, in that order, of element e of chunk ch's
-// partial, part[(ch / cluster) * n + e] in the shared memory of block
+// partial, part[(ch / cluster) * stride + e] in the shared memory of block
 // ch % cluster (the blocks share one layout, so `part` is the same offset
-// in each). Opens with a cluster barrier (every partial written) and closes
-// with one (no block overwrites a partial, or exits, while another still
-// reads it).
+// in each; stride, the partials' spacing, defaults to n). Opens with a
+// cluster barrier (every partial written) and closes with one (no block
+// overwrites a partial, or exits, while another still reads it).
 template <class Out>
 __device__ __forceinline__ void cluster_chunk_sum(const ApgArgs& a, float* part, int n,
-                                                  Out out) {
+                                                  Out out, int stride = 0) {
   cg::cluster_group cl = cg::this_cluster();
+  const int ld = stride ? stride : n;
   cl.sync();
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     float acc = 0.f;
 #pragma unroll 4
     for (int ch = 0; ch < a.n_chunks; ++ch)
-      acc += cl.map_shared_rank(part, (unsigned)(ch % a.cluster))[(ch / a.cluster) * n + e];
+      acc += cl.map_shared_rank(part, (unsigned)(ch % a.cluster))[(ch / a.cluster) * ld + e];
     out(e, acc);
   }
   cl.sync();
 }
 
-// The particle sweeps' Brownian block: the pointer itself (the oracle
-// kernels), or a source that returns it where a chunk starts (the whole
-// solve's scenario axis: the block of this scenario, offset there so that
-// no register holds the offset pointer across the solve).
+
+// The particle sweeps' Brownian block and starts: the pointer itself, or a
+// source that returns it where a chunk starts (the scenario axis: the
+// block of this scenario, offset there so that no register holds the
+// offset pointer across the solve). A null start pointer: every row starts
+// at the consts' x0.
 __device__ __forceinline__ const float* noise_at(const float* noise) { return noise; }
 template <class Src>
 __device__ __forceinline__ const float* noise_at(const Src& src) { return src(); }
+
+// The block's rank in its cluster, read from its special register where
+// used (asm volatile: never hoisted, so no register holds it across a
+// sweep), and the number of chunks the block sweeps (chunks rank, rank +
+// cluster, ...).
+__device__ __forceinline__ int block_rank_now() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int block_chunks(const ApgArgs& a) {
+  return (a.n_chunks - block_rank_now() + a.cluster - 1) / a.cluster;
+}
 
 // Value and gradient of the iterate U over P particles (the noise branch of
 // bodies.py::vg_sweep with its chunk loop, K11 :638-661), by every block of
@@ -1269,42 +1328,146 @@ __device__ __forceinline__ const float* noise_at(const Src& src) { return src();
 // order (cluster_chunk_sum) into s.g and s.cacc[0..2), and the closed-form
 // control gradient and the control-only terms added once. Every block ends
 // with the same s.g and *fval. noise: the (H, P, 13) Brownian block, or a
-// source that returns it (noise_at).
-template <int SC, bool PROF = false, class Noise = const float*>
+// source that returns it (noise_at). OPT (the particle options): starts,
+// the (P, 13) starts or null, or a source of them; with a.risk every
+// chunk's forward comes first, then the two moments of the totals, then
+// each chunk's reverse with the rows' risk weights (the header's Risk
+// note).
+template <int SC, bool PROF = false, bool OPT = false, class Noise = const float*,
+          class Starts = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
-                        Noise noise) {
+                        Noise noise, Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const float* c = s.c;
-  const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2;
+  const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2 + (OPT && a.risk ? 1 : 0);
   const int rank = (int)cg::this_cluster().block_rank();
-  for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
-    float* part = s.pg + j * W;
-    for (int e = tid; e < R * 13; e += nt) {
-      s.xs[e] = c[a.o_x0 + e % 13];
-      s.ct[e] = 0.f;
+  if constexpr (!OPT) {
+    for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
+      float* part = s.pg + j * W;
+      for (int e = tid; e < R * 13; e += nt) {
+        s.xs[e] = c[a.o_x0 + e % 13];
+        s.ct[e] = 0.f;
+      }
+      for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
+      __syncthreads();
+      const float* zc = noise_at(noise) + (size_t)ch * R * 13;
+      for (int t = 0; t < a.H; ++t)
+        fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
+                       s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
+      prof_stamp<PROF>(s, PP_VG_FWD);
+      for (int t = a.H - 1; t >= 0; --t)
+        bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
+      prof_stamp<PROF>(s, PP_VG_BWD);
+      if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
+      if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
+      __syncthreads();
+      if (tid == 0) {
+        part[HZ] = s.red[3] / (float)R / (float)a.n_chunks;
+        part[HZ + 1] = s.red[4] / (float)R / (float)a.n_chunks;
+      }
     }
-    for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
-    __syncthreads();
-    const float* zc = noise_at(noise) + (size_t)ch * R * 13;
-    for (int t = 0; t < a.H; ++t)
-      fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
-                     s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
-    prof_stamp<PROF>(s, PP_VG_FWD);
-    for (int t = a.H - 1; t >= 0; --t)
-      bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
-    prof_stamp<PROF>(s, PP_VG_BWD);
-    if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
-    if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
-    __syncthreads();
-    if (tid == 0) {
-      part[HZ] = s.red[3] / (float)R / (float)a.n_chunks;
-      part[HZ + 1] = s.red[4] / (float)R / (float)a.n_chunks;
+    cluster_chunk_sum(a, s.pg, W, [&](int e, float v) {
+      if (e < HZ) s.g[e] = v;
+      else s.cacc[e - HZ] = v;
+    });
+  } else {
+    // One pass over the block's chunks (nj of them): without risk each
+    // chunk's forward, costs and reverse; with risk 2 * nj steps, the
+    // forwards (and totals) of chunks 0 .. nj-1, then the moments, then
+    // the reverses of chunks nj-1 .. 0, each but the last forwarded one
+    // run forward again first. Each sweep has one call site, and the step
+    // `it` is the one value the loop keeps across a sweep: the chunk, its
+    // partial and the block's chunk count are derived from it and the
+    // block's rank, read from its special register where used
+    // (block_chunks), and the scalars are read from shared memory.
+    for (int it = 0; it < (a.risk ? 2 : 1) * block_chunks(a); ++it) {
+      if (a.risk && it == block_chunks(a)) {
+        // the tracking, sigma and total means, then the totals' centred
+        // second moment, each in chunk order; the rows' weights in place
+        // of their totals
+        const int nj = block_chunks(a);
+        cluster_chunk_sum(a, s.pg + HZ, 3, [&](int e, float v) { s.cacc[e] = v; }, W);
+        for (int jj = 0; jj < nj; ++jj) {
+          const float* tj = s.tot + jj * R;
+          if (warp == 0)
+            warp_reduce_to(R, [&](int r) { const float d = tj[r] - s.cacc[2]; return d * d; },
+                           s.red + 6);
+          __syncthreads();
+          if (tid == 0) s.pg[jj * W + HZ] = s.red[6] / (float)R / (float)a.n_chunks;
+          __syncthreads();
+        }
+        cluster_chunk_sum(a, s.pg + HZ, 1, [&](int, float v) { s.red[7] = v; }, W);
+        const float sd = sqrtf(s.red[7] + 1e-12f), lam = c[a.o_scal + SC_RISK];
+        for (int e = tid; e < nj * R; e += nt)
+          s.tot[e] = 1.f + lam * (s.tot[e] - s.cacc[2]) / sd;
+        __syncthreads();
+        if (tid == 0) s.cacc[0] = s.cacc[0] + lam * sd;
+      }
+      // the step's chunk: chunks 0 .. nj-1 forward, then (risk) nj-1 .. 0
+      auto chunk_of = [&](int step) {
+        const int nj = block_chunks(a);
+        return step < nj ? step : 2 * nj - 1 - step;
+      };
+      if (it < block_chunks(a) || chunk_of(it) != block_chunks(a) - 1) {
+        // chunk ch's rows from their starts through the horizon into the
+        // stash
+        const int ch = block_rank_now() + chunk_of(it) * a.cluster;
+        const float* x0p = noise_at(starts);
+        if (x0p) x0p += (size_t)ch * R * 13;
+        for (int e = tid; e < R * 13; e += nt) {
+          s.xs[e] = x0p ? x0p[e] : c[a.o_x0 + e % 13];
+          s.ct[e] = 0.f;
+        }
+        for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
+        __syncthreads();
+        const float* zc = noise_at(noise) + (size_t)ch * R * 13;
+        for (int t = 0; t < a.H; ++t)
+          fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
+                         s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
+        prof_stamp<PROF>(s, PP_VG_FWD);
+      }
+      if (it < block_chunks(a)) {
+        // the chunk's rows' mean costs / n_chunks into part[HZ], part[HZ +
+        // 1] (and with risk the rows' totals and their mean into
+        // part[HZ + 2])
+        if (a.risk) {
+          float* tot = s.tot + it * R;
+          for (int r = tid; r < R; r += nt) tot[r] = s.jt[r] + c[a.o_scal + SC_RESM] * s.jr[r];
+          __syncthreads();
+          if (warp == 2) warp_reduce_to(R, [&](int r) { return tot[r]; }, s.red + 5);
+        }
+        if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
+        if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
+        __syncthreads();
+        if (tid == 0) {
+          float* part = s.pg + it * W;
+          part[HZ] = s.red[3] / (float)R / (float)a.n_chunks;
+          part[HZ + 1] = s.red[4] / (float)R / (float)a.n_chunks;
+          if (a.risk) part[HZ + 2] = s.red[5] / (float)R / (float)a.n_chunks;
+        }
+      }
+      if (!a.risk || it >= block_chunks(a)) {
+        const int j = chunk_of(it);
+        if (a.risk) {
+          // the chunk's risk weights where bwd_rows reads them (its
+          // forward's running costs are spent)
+          for (int r = tid; r < R; r += nt) s.jt[r] = s.tot[j * R + r];
+          __syncthreads();
+        }
+        for (int t = a.H - 1; t >= 0; --t)
+          bwd_rows<SC, true>(a, s, U,
+                             noise_at(noise) + (size_t)(block_rank_now() + j * a.cluster) * R * 13
+                                 + (size_t)t * a.P * 13,
+                             t, s.pg + chunk_of(it) * W);
+        prof_stamp<PROF>(s, PP_VG_BWD);
+      }
     }
+    // the gradient (and without risk the two costs) summed in chunk order
+    cluster_chunk_sum(a, s.pg, a.risk ? HZ : W, [&](int e, float v) {
+      if (e < HZ) s.g[e] = v;
+      else s.cacc[e - HZ] = v;
+    }, W);
   }
-  cluster_chunk_sum(a, s.pg, W, [&](int e, float v) {
-    if (e < HZ) s.g[e] = v;
-    else s.cacc[e - HZ] = v;
-  });
   prof_stamp<PROF>(s, PP_RED);
   for (int e = tid; e < HZ; e += nt) {
     const int t = e / a.nZ, i = e - t * a.nZ;
@@ -1326,21 +1489,33 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // K candidate plans (rows of s.cand, (K, H, nZ)) over P particles
 // (bodies.py::candidate_rollout/run_candidates, :694-765), by every block of
 // a cluster: per chunk of this block, K*Pc rows, particle-major (row i =
-// p*K + k), through the horizon from x0, and each candidate's tracking and
-// sigma means over the chunk's rows / n_chunks into the chunk's partial
-// (s.pk); then the partials of all chunks summed in chunk order
-// (cluster_chunk_sum): the particle mean of each candidate's costs, a mean
-// of chunk means, in s.cacc[k] and s.cacc[K + k] of every block. The
-// trunk's products are register tiles (fwd_step<true, SC, true>). The whole
-// solve sweeps its K candidates at once; value_batch calls it with K = 1
-// (one candidate per cluster).
-template <int SC, bool PROF = false, class Noise = const float*>
-__device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise) {
+// p*K + k), through the horizon from x0 (OPT: from their particle's start,
+// where starts are given), and each candidate's tracking and sigma means
+// over the chunk's rows / n_chunks into the chunk's partial (s.pk); then the
+// partials of all chunks summed in chunk order (cluster_chunk_sum): the
+// particle mean of each candidate's costs, a mean of chunk means, in
+// s.cacc[k] and s.cacc[K + k] of every block. With OPT and a.risk the
+// partials carry the totals' means too (s.cacc[2K + k]), and a second
+// ordered sum of the centred second moments adds lambda * std to s.cacc[k].
+// The trunk's products are register tiles (fwd_step<true, SC, true>). The
+// whole solve sweeps its K candidates at once; value_batch calls it with
+// K = 1 (one candidate per cluster).
+template <int SC, bool PROF = false, bool OPT = false, class Noise = const float*,
+          class Starts = const float*>
+__device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
+                          Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
   const int rank = (int)cg::this_cluster().block_rank();
   for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
-    for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
+    if constexpr (OPT) {
+      const float* x0p = noise_at(starts);
+      if (x0p) x0p += (size_t)ch * Pc * 13;
+      for (int e = tid; e < R * 13; e += nt)
+        s.xr[e] = x0p ? x0p[(e / 13 / K) * 13 + e % 13] : s.c[a.o_x0 + e % 13];
+    } else {
+      for (int e = tid; e < R * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
+    }
     for (int r = tid; r < R; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
     __syncthreads();
     const float* zc = noise_at(noise) + (size_t)ch * Pc * 13;
@@ -1348,7 +1523,22 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise) {
       fwd_step<true, SC, true>(a, s, R, s.cand + t * a.nZ, HZ, K,
                                zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
     prof_stamp<PROF>(s, PP_CAND);
-    if (tid < 2 * K) {
+    if (OPT && a.risk) {
+      const float resm = s.c[a.o_scal + SC_RESM];
+      for (int r = tid; r < R; r += nt) s.tot[j * R + r] = s.jt[r] + resm * s.jr[r];
+      __syncthreads();
+    }
+    // the partial means per candidate: tracking, sigma (and the totals)
+    if constexpr (OPT) {
+      const int np = a.risk ? 3 : 2;
+      if (tid < np * K) {
+        const int kind = tid / K, k = tid - kind * K;
+        const float* jr = kind == 0 ? s.jt : kind == 1 ? s.jr : s.tot + j * R;
+        float acc = 0.f;
+        for (int p = 0; p < Pc; ++p) acc += jr[p * K + k];
+        s.pk[j * np * K + tid] = acc / (float)Pc / (float)a.n_chunks;
+      }
+    } else if (tid < 2 * K) {
       const int k = tid < K ? tid : tid - K;
       const float* jr = tid < K ? s.jt : s.jr;
       float acc = 0.f;
@@ -1357,7 +1547,27 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise) {
     }
     __syncthreads();
   }
-  cluster_chunk_sum(a, s.pk, 2 * K, [&](int e, float v) { s.cacc[e] = v; });
+  cluster_chunk_sum(a, s.pk, (OPT && a.risk ? 3 : 2) * K,
+                    [&](int e, float v) { s.cacc[e] = v; });
+  if (OPT && a.risk) {
+    for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
+      if (tid < K) {
+        const float m = s.cacc[2 * K + tid];
+        const float* tot = s.tot + j * R;
+        float acc = 0.f;
+        for (int p = 0; p < Pc; ++p) {
+          const float d = tot[p * K + tid] - m;
+          acc += d * d;
+        }
+        s.pk[j * K + tid] = acc / (float)Pc / (float)a.n_chunks;
+      }
+    }
+    __syncthreads();
+    // the tracking mean plus lambda * sqrt(var + 1e-12)
+    cluster_chunk_sum(a, s.pk, K, [&](int e, float v) {
+      s.cacc[e] = s.cacc[e] + s.c[a.o_scal + SC_RISK] * sqrtf(v + 1e-12f);
+    });
+  }
   prof_stamp<PROF>(s, PP_RED);
 }
 

@@ -58,23 +58,40 @@ serves): ``mpc_fn`` is that solve at B = 1, so a solo solve and each
 scenario of a batched one take the same route and, on the card, the same
 launches.
 
-``num_particles`` P > 1 makes the APG routes minimise the mean cost over P
+``num_particles`` P > 1 makes every route minimise the mean cost over P
 Monte-Carlo paths (``antithetic`` pairs them as (z, -z)); the particles
 run on the same kernels, in chunks of ``pallas_chunk`` or, without it, of
 the largest divisor of P that fits a block's shared memory. The original
 sends P > 128 without ``pallas_chunk`` to XLA (``:334-335``); here every P
-runs on the kernels.
+runs on the kernels. So do the three particle options the original sends to
+XLA (``:336-350``, ``:434-443``), on the particle forms of the whole solve,
+``value_and_grad`` and ``value_batch``:
+
+- ``cost_params.risk_lambda``: the mean plus ``risk_lambda`` times the std
+  of the particles' discounted totals (``cost/cost.py``);
+- ``initial_state_std`` (a scalar or a 13-vector, broadcast as at
+  ``:471-472``): particle p starts from ``renorm_quat(x + std * z0[p])``
+  (``ops/rollout.py::particle_starts``, one elementwise pass on the device
+  before the launch); ``x_evol`` stays the mean rollout from ``x``;
+- ``solver: mppi`` at P > 1: each round's K candidates on the solve's P
+  shared paths, one particle ``value_batch`` launch of K (x B) clusters.
+
+Both options need P > 1, as in the original (``ValueError`` otherwise).
 
 ``rng`` is a ``torch.Generator`` (or None for the deterministic APG
 routes, which draw nothing: at ``num_particles: 1`` it passes through
-unchanged, as in the original ``:655-662``). A Monte-Carlo solve draws its
-Brownian block from it in one call (``ops/rollout.py::draw_brownian``),
-MPPI its exploration noise (``solver/mppi.py::draw_mppi_noise``). In place
-of a generator ``rng`` may be an iterator that yields each solve's draws,
-a (P, H, 13) block or MPPI's ``(eps, c0)``, which is how tests hand in the
-original's own draws. ``iter_budget`` caps the APG routes and is ignored by
-MPPI, as in the original (``:636-644``). Configs outside the ported scope
-raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
+unchanged, as in the original ``:655-662``). A solve draws from it in one
+call each, in this order: at P > 1 the Brownian block
+(``ops/rollout.py::draw_brownian``), then with ``initial_state_std`` the
+starts' ``z0`` (``draw_start_spread``, antithetic-paired as the block),
+then for MPPI its exploration noise (``solver/mppi.py::draw_mppi_noise``).
+In place of a generator ``rng`` may be an iterator that yields each
+solve's draws, which is how tests hand in the original's own draws: a
+(P, H, 13) block, or ``(noise, z0)`` with a start spread; MPPI's ``(eps,
+c0)``, or ``(eps, c0, noise[, z0])`` at P > 1. ``iter_budget`` caps the APG
+routes and is ignored by MPPI, as in the original (``:636-644``). Configs
+outside the ported scope raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -100,7 +117,8 @@ from sde4mbrl_px4_tpu_torch.models.trajectory import (
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
 from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel_batched
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
-from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian, make_time_steps
+from sde4mbrl_px4_tpu_torch.ops.rollout import (
+    draw_brownian, draw_start_spread, make_time_steps, particle_starts)
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve_batched
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
@@ -158,11 +176,6 @@ def not_in_slice(what: str, item: str) -> NotImplementedError:
         f"ROADMAP.md §1 '{item}' brings it")
 
 
-# the config options of the original's particle axis that run no TPU
-# kernel there (it sends them to XLA, :336-350, :434-443)
-_PARTICLE_XLA = "Particles without a kernel: risk, start spread, MPPI K x P"
-
-
 def _check_slice(cfg: Dict[str, Any]) -> None:
     """Refuse the config features this port does not implement yet, and
     the settings the original refuses: particle ones (``:336-341``,
@@ -179,20 +192,14 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
             "constraints — the policy head predicts motor plans only "
             "(distill an expert WITHOUT slack, or keep solver: apg)")
     P = int(cfg.get("num_particles", 1))
-    if cfg["cost_params"].get("risk_lambda"):
-        if P <= 1:
-            raise ValueError(
-                "cost_params.risk_lambda needs num_particles > 1 — with one "
-                "particle there is no outcome spread to price")
-        raise not_in_slice("cost_params.risk_lambda", _PARTICLE_XLA)
-    if cfg.get("initial_state_std") is not None:
-        if P <= 1:
-            raise ValueError(
-                "initial_state_std needs num_particles > 1 — the deterministic "
-                "single-particle path would ignore the scenario spread")
-        raise not_in_slice("initial_state_std", _PARTICLE_XLA)
-    if solver == "mppi" and P > 1:
-        raise not_in_slice("solver: mppi with num_particles > 1", _PARTICLE_XLA)
+    if cfg["cost_params"].get("risk_lambda") and P <= 1:
+        raise ValueError(
+            "cost_params.risk_lambda needs num_particles > 1 — with one "
+            "particle there is no outcome spread to price")
+    if cfg.get("initial_state_std") is not None and P <= 1:
+        raise ValueError(
+            "initial_state_std needs num_particles > 1 — the deterministic "
+            "single-particle path would ignore the scenario spread")
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
     if chunk < 0 or (chunk and P % chunk):
         raise ValueError(f"pallas_chunk={chunk} must divide num_particles={P}")
@@ -376,6 +383,10 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             apg_cfg = apg_cfg._replace(max_iter=refine, max_no_improvement_iter=refine)
     num_particles = int(cfg.get("num_particles", 1))
     antithetic = bool(cfg.get("antithetic", False))
+    # the particles' start spread (original :463-472): a scalar or 13 stds
+    init_std = cfg.get("initial_state_std")
+    x0_spread = None if init_std is None else torch.tensor(
+        np.broadcast_to(np.asarray(init_std, np.float32), (13,)).copy(), device=dev)
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
     warm_shift = str(cfg.get("warm_shift", "repeat"))
 
@@ -465,31 +476,41 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     # Stepsize carry only where the trial rule can re-grow a step
     # (original :702-708).
     carry_t = apg_cfg.reset_option in ("increase", "bb")
-    mppi_cfg = MPPIConfig.from_config(cfg) if solver == "mppi" else None
+    mppi = solver == "mppi"
+    mppi_cfg = MPPIConfig.from_config(cfg) if mppi else None
     P = num_particles
+    spread = x0_spread is not None          # needs P > 1 (_check_slice)
 
-    def brownian(rngs, B: int) -> torch.Tensor:
-        """The call's (B, P, H, 13) Brownian block on the device: one draw of
-        (B, H, P, 13) from a generator (the view transposed), or the next
-        block an iterator hands in."""
+    def draws(rngs, B: int):
+        """The call's draws on the device, ``(noise (B, P, H, 13), z0 (B, P,
+        13), eps, c0)``, each None where the solve takes none: from a
+        generator in the module docstring's order (the block one draw of
+        (B, H, P, 13), its view transposed), or the next item an iterator
+        hands in (the module docstring's forms)."""
+        if not (P > 1 or mppi):
+            return None, None, None, None
         if isinstance(rngs, torch.Generator):
-            z = draw_brownian(rngs, B * H, P, antithetic, dev)
-            return z.reshape(B, H, P, 13).transpose(1, 2)
+            noise = z0 = eps = c0 = None
+            if P > 1:
+                noise = draw_brownian(rngs, B * H, P, antithetic, dev)
+                noise = noise.reshape(B, H, P, 13).transpose(1, 2)
+            if spread:
+                z0 = draw_start_spread(rngs, P, antithetic, dev, batch=(B,))
+            if mppi:
+                eps, c0 = draw_mppi_noise(rngs, mppi_cfg, H, nZ, dev, batch=(B,))
+            return noise, z0, eps, c0
         if rngs is None:
-            raise ValueError("num_particles > 1 needs rng: a torch.Generator or an "
-                             "iterator of Brownian blocks")
-        return next(rngs).to(dev, f32)
-
-    def mppi_draws(rngs, B: int):
-        """The call's (eps, c0) on the device: drawn from a generator in one
-        call, or the next pair an iterator hands in."""
-        if isinstance(rngs, torch.Generator):
-            return draw_mppi_noise(rngs, mppi_cfg, H, nZ, dev, batch=(B,))
-        if rngs is None:
-            raise ValueError("solver: mppi needs rng: a torch.Generator or an "
-                             "iterator of (eps, c0) draws")
-        eps, c0 = next(rngs)
-        return eps.to(dev, f32), None if c0 is None else c0.to(dev, f32)
+            raise ValueError(f"{'solver: mppi' if mppi else 'num_particles > 1'} needs rng: "
+                             "a torch.Generator or an iterator of draws")
+        item = next(rngs)
+        item = list(item) if isinstance(item, tuple) else [item]
+        eps, c0 = (item.pop(0), item.pop(0)) if mppi else (None, None)
+        noise = item.pop(0) if P > 1 else None
+        z0 = item.pop(0) if spread else None
+        if item:
+            raise ValueError(f"rng: a solve's draws hold {len(item)} item(s) more than "
+                             "the config takes")
+        return tuple(None if d is None else d.to(dev, f32) for d in (noise, z0, eps, c0))
 
     def solve(xs, rngs, opt_states: APGState, curr_ts, xdes=None,
               iter_budget: Optional[int] = None) -> MPCSolution:
@@ -503,7 +524,9 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         curr_ts = torch.as_tensor(curr_ts, dtype=f32, device=dev)
         x_ref = _build_ref(curr_ts, _targets(xdes))
         u_prev = opt_states.yk[:, 0]
-        noise = brownian(rngs, B) if P > 1 else None
+        noise, z0, eps, c0 = draws(rngs, B)
+        # the particles' starts (B, P, 13), one elementwise pass on the device
+        starts = None if z0 is None else particle_starts(xs, x0_spread, z0).contiguous()
         yk = opt_states.yk
         if solver == "policy":
             # u_prev is the previously commanded control, read above
@@ -511,7 +534,7 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             if not refine:
                 # one network pass is the solve (original :786-797): the
                 # plan's cost is telemetry (init_cost = opt_cost)
-                orc = oracle(xs, x_ref, u_prev, noise)
+                orc = oracle(xs, x_ref, u_prev, noise, starts)
                 with torch.no_grad():
                     c, x_evol = orc.value(plan), orc.trajectory(plan)
                 z = torch.zeros(B, dtype=f32, device=dev)
@@ -521,16 +544,16 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
                 return MPCSolution(u_opt=plan, opt_state=st._replace(yk=_shift(plan)),
                                    rng=rngs, x_evol=x_evol)
             yk = cold_start(opt_states, plan)
-        if solver != "mppi" and apg_cfg.use_linesearch:
+        if not mppi and apg_cfg.use_linesearch:
             st, x_evol = apg_solve_kernel_batched(
                 model, params, cost_params, apg_cfg, time_steps, xs, x_ref, u_prev, noise,
                 P, lb_z, ub_z, yk, t_init=opt_states.stepsize if carry_t else None,
-                precond=precond, iter_budget=iter_budget, chunk=chunk)
+                precond=precond, iter_budget=iter_budget, chunk=chunk, starts=starts)
         else:
-            orc = oracle(xs, x_ref, u_prev, noise)
+            orc = oracle(xs, x_ref, u_prev, noise, starts)
             with torch.no_grad():
-                if solver == "mppi":
-                    st = mppi_solve(orc, yk, lb_z, ub_z, mppi_cfg, *mppi_draws(rngs, B))
+                if mppi:
+                    st = mppi_solve(orc, yk, lb_z, ub_z, mppi_cfg, eps, c0)
                 else:
                     st = apg_solve_batched(orc, yk, lb_z, ub_z, apg_cfg, precond=precond,
                                            iter_budget=iter_budget)
@@ -538,9 +561,9 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         return MPCSolution(u_opt=st.yk[..., :n_u], opt_state=st._replace(yk=_shift(st.yk)),
                            rng=rngs, x_evol=x_evol)
 
-    def oracle(xs, x_ref, u_prev, noise):
+    def oracle(xs, x_ref, u_prev, noise, starts):
         return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref, u_prev,
-                                   noise, P, apg_cfg.maxls, chunk=chunk)
+                                   noise, P, apg_cfg.maxls, chunk=chunk, starts=starts)
 
     pieces = MPCPieces(reset=reset_fn, targets=_targets, build_ref=_build_ref, shift=_shift,
                        carry_t=carry_t, chunk=chunk, antithetic=antithetic,
@@ -574,8 +597,8 @@ def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
 
 
 def _one(draw):
-    """A solo solve's draw (a Brownian block, or MPPI's ``(eps, c0)``) as
-    the draw of a batch of one."""
+    """A solo solve's draws (a Brownian block, or a tuple of the module
+    docstring's forms) as the draws of a batch of one."""
     if isinstance(draw, tuple):
         return tuple(None if d is None else d[None] for d in draw)
     return draw[None]

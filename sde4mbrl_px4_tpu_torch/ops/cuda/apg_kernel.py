@@ -29,6 +29,15 @@ per SM (C_max 16 where the card schedules such a cluster, else 8;
 (``engine/mpc_loader.py:745-751``). Every C gives the same bits: the
 blocks sum the chunks' partials in chunk order.
 
+The particle options, which the JAX package sends to XLA
+(``engine/mpc_loader.py:342-350``), run in the same particle launch:
+``cost_params.risk_lambda`` makes the solve minimise the mean plus
+``risk_lambda`` times the std of the particles' discounted totals (the
+kernel's ``ApgArgs.risk`` branch; its Armijo test prices every candidate
+so), and ``starts`` (P, 13) gives each particle its initial state
+(``initial_state_std``, ``ops/rollout.py::particle_starts``); ``x_evol``
+stays the mean rollout from the unperturbed x0.
+
 State constraints (``state_constr``, either form) are a compile-time branch
 of the kernel (``consts.py::sc_kind``): the penalty form's box penalties
 and the proximal form's slack coupling join the stage cost and the reverse
@@ -61,7 +70,7 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths,
-    plan_particles, sc_kind)
+    has_options, plan_particles, sc_kind)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -96,11 +105,11 @@ def load_apg_library() -> ctypes.CDLL:
     lib.apg_error_string.restype = ctypes.c_char_p
     lib.apg_init.argtypes = []
     lib.apg_init.restype = ctypes.c_int
-    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 9
+    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 10
     lib.apg_solve_launch.restype = ctypes.c_int
-    lib.apg_solve_prof_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 10
+    lib.apg_solve_prof_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 11
     lib.apg_solve_prof_launch.restype = ctypes.c_int
-    lib.apg_cluster_max.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.apg_cluster_max.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.apg_cluster_max.restype = ctypes.c_int
     lib.apg_max_active_clusters.argtypes = [ctypes.POINTER(ApgArgs),
                                             ctypes.POINTER(ctypes.c_int)]
@@ -121,9 +130,10 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int,
     or the largest divisor of P whose shared memory (``apg_smem_bytes``)
     fits the 227 KB budget of the particle form; C = min(n_chunks, C_max)
     blocks, C_max the form's largest cluster (``apg_cluster_max``; the
-    clock-stamped form's with ``prof``) or ``cluster`` when it is given."""
+    clock-stamped form's with ``prof``, the options form's where ``args``
+    has risk or starts) or ``cluster`` when it is given."""
     lib = load_apg_library()
-    c_max = lib.apg_cluster_max(args.sc_kind, int(prof))
+    c_max = lib.apg_cluster_max(args.sc_kind, int(prof), has_options(args))
     if cluster:
         if not 1 <= cluster <= c_max:
             raise ValueError(f"cluster={cluster}: the particle form takes 1 to {c_max} blocks")
@@ -159,13 +169,14 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                     precond: Optional[torch.Tensor] = None,
                     iter_budget: Optional[int] = None,
-                    chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+                    chunk: int = 0, cluster: int = 0,
+                    starts: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
     """Plain PyTorch version of :func:`apg_solve_kernel` (any device); the
     particle mean is unchunked, so ``cluster`` (a launch detail) is
     unused."""
     _check_scope(model, cp, apg, lb)
     oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
-                               noise, num_particles, apg.maxls, chunk=chunk)
+                               noise, num_particles, apg.maxls, chunk=chunk, starts=starts)
     with torch.no_grad():
         st = apg_solve(oracle, u_init, lb, ub, apg, t_init=t_init,
                        precond=precond, iter_budget=iter_budget)
@@ -176,7 +187,8 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
             u_init: torch.Tensor, t0: torch.Tensor,
             precond: Optional[torch.Tensor], noise: Optional[torch.Tensor],
-            stream: int, prof: Optional[torch.Tensor] = None
+            starts: Optional[torch.Tensor], stream: int,
+            prof: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Allocate the outputs and launch ``args.batch`` solves; returns (yk
     (B, H, nZ), stats (B, 8), x_evol (B, H+1, 13)), x_evol None for the
@@ -195,7 +207,8 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     x_evol = None if args.has_noise else torch.empty((B, H + 1, 13), **kw)
     ptr = lambda t: None if t is None else t.data_ptr()
     common = (ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
-              ptr(precond), ptr(noise), yk.data_ptr(), stats.data_ptr(), ptr(x_evol))
+              ptr(precond), ptr(noise), ptr(starts), yk.data_ptr(), stats.data_ptr(),
+              ptr(x_evol))
     rc = (lib.apg_solve_launch(*common, stream) if prof is None
           else lib.apg_solve_prof_launch(*common, prof.data_ptr(), stream))
     if rc != 0:
@@ -211,7 +224,8 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                      u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                      precond: Optional[torch.Tensor] = None,
                      iter_budget: Optional[int] = None,
-                     chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+                     chunk: int = 0, cluster: int = 0,
+                     starts: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
     """One fused APG solve -> ``(APGState, x_evol)``.
 
     Inputs as ``pallas_apg_solve``: ``noise`` the (P, H, 13) Brownian block
@@ -222,7 +236,9 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     ``iter_budget`` an optional host-side iteration cap, ``chunk`` the
     particle chunk (0: the largest divisor of P that fits), ``cluster`` the
     most blocks of the particle form's cluster (0: the card's largest; 1
-    sweeps every chunk in one block, the same bits). CPU tensors run
+    sweeps every chunk in one block, the same bits), ``starts`` the (P, 13)
+    particles' initial states of a Monte-Carlo solve (None: all at
+    ``x0``; the cost's ``risk_lambda`` is read from ``cp``). CPU tensors run
     :func:`apg_solve_plain`. On the card this is the launch of
     :func:`apg_solve_kernel_batched` at B = 1.
     """
@@ -230,10 +246,10 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     if dev.type == "cpu":
         return apg_solve_plain(model, params, cp, apg, time_steps, x0, x_ref,
                                u_prev, noise, num_particles, lb, ub, u_init,
-                               t_init, precond, iter_budget, chunk, cluster)
+                               t_init, precond, iter_budget, chunk, cluster, starts)
     out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                         num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                        cluster)
+                        cluster, starts)
     apg_solve_kernel.launches += 1
     return out
 
@@ -245,13 +261,15 @@ def apg_solve_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostPa
                             u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                             precond: Optional[torch.Tensor] = None,
                             iter_budget: Optional[int] = None, chunk: int = 0,
-                            cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+                            cluster: int = 0, starts: Optional[torch.Tensor] = None
+                            ) -> Tuple[APGState, torch.Tensor]:
     """Plain version of :func:`apg_solve_kernel_batched` (any device):
     :func:`apg_solve_plain` once per scenario, the results stacked."""
     sols = [apg_solve_plain(model, params, cp, apg, time_steps, x0[b], x_ref[b], u_prev[b],
                             None if noise is None else noise[b], num_particles, lb, ub,
                             u_init[b], None if t_init is None else t_init[b], precond,
-                            iter_budget, chunk, cluster)
+                            iter_budget, chunk, cluster,
+                            None if starts is None else starts[b])
             for b in range(int(x0.shape[0]))]
     st = APGState(*(torch.stack(f) for f in zip(*(s for s, _ in sols))))
     return st, torch.stack([x for _, x in sols])
@@ -264,7 +282,8 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
                              u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                              precond: Optional[torch.Tensor] = None,
                              iter_budget: Optional[int] = None, chunk: int = 0,
-                             cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+                             cluster: int = 0, starts: Optional[torch.Tensor] = None
+                             ) -> Tuple[APGState, torch.Tensor]:
     """B independent solves of one problem family -> ``(APGState, x_evol)``,
     every field with a leading B and ``x_evol`` (B, H+1, 13): the
     counterpart of the JAX package's vmap of the solve
@@ -272,7 +291,8 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
 
     Per scenario: ``x0`` (B, 13), ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u)
     (or wider: the first n_u columns are read), ``noise`` (B, P, H, 13) or
-    None at P=1, ``u_init`` (B, H, nZ), ``t_init`` (B,) or None. The box,
+    None at P=1, ``starts`` (B, P, 13) or None, ``u_init`` (B, H, nZ),
+    ``t_init`` (B,) or None. The box,
     ``precond``, ``iter_budget`` and the particle plan are shared. On the card
     one launch of the whole-solve kernel over a grid of B scenarios (one
     block, or one cluster of C blocks, each, with its own loop and early
@@ -285,29 +305,30 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     if x0.device.type == "cpu":
         return apg_solve_plain_batched(model, params, cp, apg, time_steps, x0, x_ref,
                                        u_prev, noise, num_particles, lb, ub, u_init, t_init,
-                                       precond, iter_budget, chunk, cluster)
+                                       precond, iter_budget, chunk, cluster, starts)
     out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                          num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                         cluster)
+                         cluster, starts)
     apg_solve_kernel.launches += 1
     return out
 
 
 def _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                   num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                  cluster, prof: Optional[torch.Tensor] = None
+                  cluster, starts, prof: Optional[torch.Tensor] = None
                   ) -> Tuple[APGState, torch.Tensor]:
     """One solve as the batched launch at B = 1."""
     one = lambda t: None if t is None else t[None]
     st, x_evol = _solve_on_card(model, params, cp, apg, time_steps, one(x0), one(x_ref),
                                 one(u_prev), one(noise), num_particles, lb, ub, one(u_init),
-                                t_init, precond, iter_budget, chunk, cluster, prof)
+                                t_init, precond, iter_budget, chunk, cluster, one(starts),
+                                prof)
     return APGState(*(f[0] for f in st)), x_evol[0]
 
 
 def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                    num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                   cluster, prof: Optional[torch.Tensor] = None
+                   cluster, starts, prof: Optional[torch.Tensor] = None
                    ) -> Tuple[APGState, torch.Tensor]:
     """B solves on the card (the inputs' leading axis), in one launch."""
     dev = x0.device
@@ -328,8 +349,11 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                              f"{dev}, got {noise.dtype} {tuple(noise.shape)} on "
                              f"{noise.device}")
         z = noise.transpose(1, 2).contiguous()          # (B, H, P, 13)
+    else:
+        starts = None                 # the mean dynamics start at x0
     _check_scope(model, cp, apg, lb, params if P == 1 else None)
     for name, t, shape in (("x0", x0, (B, 13)), ("x_ref", x_ref, (B, H + 1, 13)),
+                           ("starts", starts, (B, P, 13)),
                            ("u_init", u_init, (B, H, n)), ("lb", lb, (n,)),
                            ("ub", ub, (n,)), ("time_steps", time_steps, (H,)),
                            ("precond", precond, (H, n))):
@@ -341,19 +365,20 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     if u_prev.device != dev or u_prev.dim() != 2 or u_prev.shape[0] != B:
         raise ValueError(f"apg_solve_kernel: u_prev must be (B={B}, n_u) on {dev}, "
                          f"got {tuple(u_prev.shape)} on {u_prev.device}")
-    for name, t in (("u_init", u_init), ("precond", precond)):
+    for name, t in (("u_init", u_init), ("precond", precond), ("starts", starts)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"apg_solve_kernel: {name} must be contiguous")
     lib = load_apg_library()
     consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
                                 u_prev[0], lb, ub, has_pre=precond is not None,
-                                iter_budget=iter_budget)
+                                iter_budget=iter_budget, particles=z is not None)
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev)
+    args.has_starts = int(starts is not None)
     if z is not None:
         plan_solve_particles(args, P, chunk, cluster, prof is not None)
     t0 = resolve_t_init(apg, t_init, dev).expand(B).contiguous()
-    yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z,
+    yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z, starts,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
     if x_evol is None:
         x_evol = trajectory_kernel(consts, args, yk)
@@ -386,7 +411,7 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     prof = torch.zeros((2, 8), dtype=torch.int64, device=x0.device)
     out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                         num_particles, lb, ub, u_init, t_init, precond, iter_budget,
-                        chunk, cluster, prof)
+                        chunk, cluster, None, prof)
     apg_phase_split.cycles = prof if int(num_particles) > 1 else prof[0]
     return out
 

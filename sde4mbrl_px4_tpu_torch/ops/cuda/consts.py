@@ -28,6 +28,14 @@ proximal block is ``penm``, ``invm`` and the m state ids (as floats), and
 the decision row widens to ``nZ = n_u + m`` with the box ``lb``/``ub``
 nZ wide. ``u_prev`` is packed ``n_u`` wide: only the control columns carry
 effort and slew terms.
+
+The particle options: ``cost_params.risk_lambda`` rides at the end of the
+config scalars (``csrc/apg_solve.cuh`` ``SC_RISK``) and sets ``ApgArgs.risk``
+on a particle solve (``build_consts(..., particles=True)``); the starts of
+``initial_state_std`` are not part of the buffer: the kernels read them from
+an optional (B, P, 13) device array beside the Brownian block, and the
+wrappers set ``ApgArgs.has_starts`` when they pass one. A particle launch
+with either option runs the kernels' options form (:func:`has_options`).
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 __all__ = ["APG_MAXK", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
            "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs",
-           "batch_consts", "build_consts", "check_p1_widths", "p1_widths", "plan_cluster", "plan_particles",
-           "sc_kind", "value_batch_grid"]
+           "batch_consts", "build_consts", "check_p1_widths", "has_options", "p1_widths",
+           "plan_cluster", "plan_particles", "sc_kind", "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 kernels hold the trunk in registers at these widths: hidden units,
@@ -75,6 +83,7 @@ _FLOAT_FIELDS = ("inc", "one_m_coef", "tmax", "beta_init", "moment_scale",
                  "atol", "rtol")
 _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
               "o_hi13", "o_inv13")
+_RISK_FIELDS = ("risk", "has_starts")
 _BATCH_FIELDS = ("batch",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
@@ -84,7 +93,14 @@ class ApgArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
-                + [(n, ctypes.c_int) for n in _SC_FIELDS + _BATCH_FIELDS + _CLUSTER_FIELDS])
+                + [(n, ctypes.c_int)
+                   for n in _SC_FIELDS + _RISK_FIELDS + _BATCH_FIELDS + _CLUSTER_FIELDS])
+
+
+def has_options(a: ApgArgs) -> int:
+    """Whether a launch takes the kernels' particle-options form (1 with risk
+    or starts, ``csrc/apg_solve.cuh::options``)."""
+    return int(bool(a.risk or a.has_starts))
 
 
 def sc_kind(cp: CostParams) -> int:
@@ -127,12 +143,15 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                  x0: torch.Tensor, x_ref: torch.Tensor, u_prev: torch.Tensor,
                  lb: Optional[torch.Tensor] = None,
                  ub: Optional[torch.Tensor] = None, has_pre: bool = False,
-                 iter_budget: Optional[int] = None) -> Tuple[torch.Tensor, ApgArgs]:
+                 iter_budget: Optional[int] = None,
+                 particles: bool = False) -> Tuple[torch.Tensor, ApgArgs]:
     """Pack the consts buffer on the tensors' device (one ``torch.cat``, no
     host sync) and fill the argument struct. Without an ``apg`` config (the
     cost oracle) the solver fields are zero; without a box the ``lb``/``ub``
     blocks hold -inf/+inf. The box is nZ wide (``n_u`` plus the proximal
-    form's slack columns)."""
+    form's slack columns). ``particles`` (a Monte-Carlo solve) turns on the
+    risk reduction where the cost has ``risk_lambda``; at P=1 the cost is
+    the mean dynamics' and the risk term is 0, as in the original."""
     if apg is not None and apg.maxls > APG_MAXK:
         raise ValueError(f"maxls={apg.maxls} exceeds the kernel's {APG_MAXK}")
     f32 = torch.float32
@@ -148,7 +167,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     else:
         slo = shi = torch.zeros(n, dtype=f32, device=x0.device)
     host = host_values([model.mass, cp.uerr, cp.u_slew_coeff, cp.u_slew_constr_coeff,
-                        cp.res_mult], x0.device)
+                        cp.res_mult, cp.risk_lambda or 0.0], x0.device)
     scal = torch.cat([host[:1], torch.exp(params["diffusion_log_scale"]).reshape(1),
                       host[1:]])
     if lb is None:
@@ -176,6 +195,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
     a.H, a.n_u, a.nZ = H, n, nZ
     a.sc_kind, a.m = sc_kind(cp), nZ - n
+    a.risk = int(particles and cp.risk_lambda is not None)
     a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)

@@ -28,6 +28,15 @@ cluster, ``value_batch`` a grid of K clusters, one per candidate. The plain
 version takes the unchunked mean, which the chunked one equals in exact
 arithmetic.
 
+The particle options (the JAX package runs them on XLA only,
+``engine/mpc_loader.py:342-350``): ``cost_params.risk_lambda`` prices a plan
+at the mean plus ``risk_lambda`` times the std of its particles' discounted
+totals (the kernels' ``ApgArgs.risk`` branch, ``cost/cost.py`` in the plain
+version), and ``starts`` (P, 13), the particles' initial states of
+``initial_state_std`` (``ops/rollout.py::particle_starts``), replaces x0
+for the particles (``trajectory`` keeps the unperturbed x0). Both need
+P > 1 (a deterministic oracle ignores the starts).
+
 State constraints (``state_constr``, either form): the plans are the
 decision rows, nZ = n_u + m columns wide in the proximal form (the slack
 targets past the controls, as ``engine/mpc_loader.py:765-773`` of the
@@ -66,7 +75,7 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts,
-    build_consts, check_p1_widths, plan_particles)
+    build_consts, check_p1_widths, has_options, plan_particles)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -91,11 +100,11 @@ def load_oracle_library() -> ctypes.CDLL:
         "value_batch_smem_bytes": ([_A, ctypes.c_int], ctypes.c_int),
         "trajectory_smem_bytes": ([_A], ctypes.c_int),
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
-        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 5, ctypes.c_int),
+        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
-        "value_and_grad_launch": ([_A] + [_P] * 6, ctypes.c_int),
+        "value_and_grad_launch": ([_A] + [_P] * 7, ctypes.c_int),
         "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
-        "oracle_cluster_max": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+        "oracle_cluster_max": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
         "oracle_max_active_clusters": ([ctypes.c_int, _A, ctypes.POINTER(ctypes.c_int)],
                                        ctypes.c_int),
     }
@@ -201,22 +210,27 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                       x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
                       num_particles: int, maxls: int,
                       deterministic: Optional[bool] = None,
-                      chunk: int = 0) -> CostOracle:
+                      chunk: int = 0, starts: Optional[torch.Tensor] = None) -> CostOracle:
     """Plain PyTorch version of :func:`cost_oracle` (any device): the
-    unchunked particle mean."""
+    unchunked particle mean (with ``risk_lambda``, mean + lambda * std), the
+    particles from ``starts`` (P, 13) where given."""
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
     H, n = int(time_steps.shape[0]), model.n_u
-    _, z, _ = resolve_particles(noise, num_particles, deterministic, chunk, H,
+    P, z, _ = resolve_particles(noise, num_particles, deterministic, chunk, H,
                                 x0.device)
+    x_p = x0
     if z is None:
         z = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
+    elif starts is not None:
+        _check("starts", starts, (P, 13), x0.device, contiguous=False)
+        x_p = starts
     cost_fn = make_cost_fn(cp, time_steps)
     u_prev = u_prev[:n]
     m = cp.n_slack
 
     def seq_cost(zr):
         u = zr[:, :n]
-        xp, sg = rollout_sde(model, params, x0, u, time_steps, z)
+        xp, sg = rollout_sde(model, params, x_p, u, time_steps, z)
         return cost_fn(xp, sg, u, x_ref, u_prev, zr[:, n:] if m else None)
 
     base = CostOracle.from_fn(seq_cost)
@@ -243,15 +257,23 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check_batch(what: str, args: ApgArgs, consts: torch.Tensor, u: torch.Tensor,
-                 per: int, noise: Optional[torch.Tensor] = None) -> None:
+                 per: int, noise: Optional[torch.Tensor] = None,
+                 starts: Optional[torch.Tensor] = None) -> None:
     """The buffers of a launch over ``args.batch`` scenarios: contiguous,
     ``per`` plan floats and ``n_consts`` consts floats (and H*P*13 noise
-    floats) a scenario."""
+    floats, P*13 float32 starts on the plans' device) a scenario."""
     B = args.batch
     bad = (u.numel() != B * per or consts.numel() != B * args.n_consts
            or not u.is_contiguous() or not consts.is_contiguous())
     if noise is not None:
         bad = bad or noise.numel() != B * args.H * args.P * 13 or not noise.is_contiguous()
+    if starts is not None:
+        if (not args.has_noise or starts.numel() != B * args.P * 13
+                or starts.dtype != torch.float32 or starts.device != u.device
+                or not starts.is_contiguous()):
+            raise ValueError(f"{what}: the starts of {B} scenario(s) are contiguous float32 "
+                             f"(P={args.P}, 13) blocks on {u.device} (particles only), got "
+                             f"{starts.dtype} {tuple(starts.shape)} on {starts.device}")
     if bad:
         raise ValueError(f"{what}: {B} scenario(s) take contiguous plans of {per} floats and "
                          f"consts of {args.n_consts} floats each, got {tuple(u.shape)} and "
@@ -259,40 +281,44 @@ def _check_batch(what: str, args: ApgArgs, consts: torch.Tensor, u: torch.Tensor
 
 
 def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
-                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       noise: Optional[torch.Tensor] = None,
+                       starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(K, H, nZ) plans -> (K,) costs: one launch of ``value_batch_kernel``
-    (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``; the
-    grid is ``consts.value_batch_grid``). With ``args.batch`` B > 1 the
-    plans of B scenarios, ``U`` (B, K, H, nZ), ``consts`` (B, n_consts) and
-    ``noise`` (B, H, P, 13), cost in the same launch into (B, K), scenario b
-    on row b of the grid."""
+    (``noise``: the contiguous (H, P, 13) block when ``args.has_noise``,
+    ``starts`` its particles' (P, 13) initial states or None; the grid is
+    ``consts.value_batch_grid``). With ``args.batch`` B > 1 the plans of B
+    scenarios, ``U`` (B, K, H, nZ), ``consts`` (B, n_consts), ``noise``
+    (B, H, P, 13) and ``starts`` (B, P, 13), cost in the same launch into
+    (B, K), scenario b on row b of the grid."""
     lib = load_oracle_library()
     K = int(U.shape[-3])
-    _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise)
+    _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise, starts)
     need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
     if need > _limit(args):
         raise ValueError(f"value_batch needs {need} bytes of shared memory per "
                          f"block, above the {_limit(args)}-byte budget")
     out = torch.empty(U.shape[:-2], dtype=torch.float32, device=U.device)
     _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
-                                     U.data_ptr(), _ptr(noise), out.data_ptr(),
-                                     _stream(U)),
+                                     U.data_ptr(), _ptr(noise), _ptr(starts),
+                                     out.data_ptr(), _stream(U)),
               "value_batch")
     value_batch_kernel.launches += 1
     return out
 
 
 def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
-                          noise: Optional[torch.Tensor] = None
+                          noise: Optional[torch.Tensor] = None,
+                          starts: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch. With
     ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) (and
-    ``consts``, ``noise`` as in :func:`value_batch_kernel`), in the same
-    launch into ((B,), (B, H, nZ)), scenario b on block (or cluster) b."""
+    ``consts``, ``noise``, ``starts`` as in :func:`value_batch_kernel`), in
+    the same launch into ((B,), (B, H, nZ)), scenario b on block (or
+    cluster) b."""
     if not args.has_noise:
         check_p1_widths(args.F, args.HID, "value_and_grad")
     lib = load_oracle_library()
-    _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise)
+    _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
         raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
@@ -300,8 +326,8 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     val = torch.empty(u.shape[:-2], dtype=torch.float32, device=u.device)
     grad = torch.empty_like(u)
     _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
-                                        u.data_ptr(), _ptr(noise), val.data_ptr(),
-                                        grad.data_ptr(), _stream(u)),
+                                        u.data_ptr(), _ptr(noise), _ptr(starts),
+                                        val.data_ptr(), grad.data_ptr(), _stream(u)),
               "value_and_grad")
     value_and_grad_kernel.launches += 1
     return val, grad
@@ -313,12 +339,13 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
     ``value_batch`` and ``value_and_grad`` blocks both fit (one chunk for
     both: the mean of chunk means depends on it); and the cluster of both
     kernels: C = min(n_chunks, C_max), C_max the smaller of their forms'
-    largest (``oracle_cluster_max``) or ``cluster`` when given."""
+    largest (``oracle_cluster_max``, the options forms' where ``args`` has
+    risk or starts) or ``cluster`` when given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
-    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind)
+    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, has_options(args))
                 for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD))
     if cluster:
         if not 1 <= cluster <= c_max:
@@ -356,16 +383,18 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                 time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
                 u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                 deterministic: Optional[bool] = None,
-                chunk: int = 0, cluster: int = 0) -> CostOracle:
+                chunk: int = 0, cluster: int = 0,
+                starts: Optional[torch.Tensor] = None) -> CostOracle:
     """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
-    block of a Monte-Carlo solve (None for the mean dynamics of P=1);
+    block of a Monte-Carlo solve (None for the mean dynamics of P=1),
+    ``starts`` (P, 13) its particles' initial states or None (all at x0);
     ``maxls`` is unused, as in the original (``value_batch`` takes any K);
     ``cluster`` caps the particle kernels' clusters (0: the card's largest).
     CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
-                                 noise, num_particles, maxls, deterministic, chunk)
+                                 noise, num_particles, maxls, deterministic, chunk, starts)
     if dev.type != "cuda":
         raise ValueError(f"cost_oracle: unsupported device {dev}")
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
@@ -373,13 +402,16 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     P, z, chunk = resolve_particles(noise, num_particles, deterministic, chunk, H, dev)
     lib = load_oracle_library()
     consts, args = build_consts(model, params, cp, None, time_steps, x0, x_ref,
-                                u_prev)
+                                u_prev, particles=z is not None)
+    if z is None:
+        starts = None                 # the mean dynamics start at x0
+    args.has_starts = int(starts is not None)
     if z is not None:
         z = z.contiguous()
         plan_oracle_particles(lib, args, P, chunk, cluster)
     return _checked(H, args.nZ, dev,
-                    lambda U: value_batch_kernel(consts, args, U, z),
-                    lambda u: value_and_grad_kernel(consts, args, u, z),
+                    lambda U: value_batch_kernel(consts, args, U, z, starts),
+                    lambda u: value_and_grad_kernel(consts, args, u, z, starts),
                     functools.partial(trajectory_kernel, consts, args))
 
 
@@ -419,13 +451,15 @@ def _checked_batched(B: int, H: int, n: int, dev: torch.device, value_batch,
 def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                               time_steps: torch.Tensor, x0: torch.Tensor,
                               x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
-                              num_particles: int, maxls: int, chunk: int = 0) -> CostOracle:
+                              num_particles: int, maxls: int, chunk: int = 0,
+                              starts: Optional[torch.Tensor] = None) -> CostOracle:
     """Plain version of :func:`cost_oracle_batched` (any device):
     :func:`cost_oracle_plain` once per scenario, the results stacked."""
     B, H, n = int(x0.shape[0]), int(time_steps.shape[0]), model.n_u + cp.n_slack
     solo = [cost_oracle_plain(model, params, cp, time_steps, x0[b], x_ref[b], u_prev[b],
                               None if noise is None else noise[b], num_particles, maxls,
-                              chunk=chunk) for b in range(B)]
+                              chunk=chunk, starts=None if starts is None else starts[b])
+            for b in range(B)]
 
     def each(fn):
         def run(U):
@@ -442,16 +476,18 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
 def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                         time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
                         u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
-                        chunk: int = 0, cluster: int = 0) -> CostOracle:
+                        chunk: int = 0, cluster: int = 0,
+                        starts: Optional[torch.Tensor] = None) -> CostOracle:
     """The cost oracle of B solves (module docstring): ``x0`` (B, 13),
     ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
-    13) for a Monte-Carlo solve (None at P=1). On the card every evaluation
-    is one launch over the B scenarios; CPU tensors get
+    13) for a Monte-Carlo solve (None at P=1), ``starts`` (B, P, 13) its
+    particles' initial states or None. On the card every evaluation is one
+    launch over the B scenarios; CPU tensors get
     :func:`cost_oracle_plain_batched`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
-                                         noise, num_particles, maxls, chunk)
+                                         noise, num_particles, maxls, chunk, starts)
     if dev.type != "cuda":
         raise ValueError(f"cost_oracle_batched: unsupported device {dev}")
     B, H = int(x0.shape[0]), int(time_steps.shape[0])
@@ -468,14 +504,19 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
                              f"Brownian blocks: noise (B, P, H, 13), got None")
         _check("noise", noise, (B, P, H, 13), dev, contiguous=False)
         z = noise.transpose(1, 2).contiguous()          # (B, H, P, 13)
+        if starts is not None:
+            _check("starts", starts, (B, P, 13), dev)
+    else:
+        starts = None                 # the mean dynamics start at x0
     lib = load_oracle_library()
     consts, args = build_consts(model, params, cp, None, time_steps, x0[0], x_ref[0],
-                                u_prev[0])
+                                u_prev[0], particles=z is not None)
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev)
+    args.has_starts = int(starts is not None)
     if z is not None:
         plan_oracle_particles(lib, args, P, chunk, cluster)
     return _checked_batched(B, H, args.nZ, dev,
-                            lambda U: value_batch_kernel(consts, args, U, z),
-                            lambda u: value_and_grad_kernel(consts, args, u, z),
+                            lambda U: value_batch_kernel(consts, args, U, z, starts),
+                            lambda u: value_and_grad_kernel(consts, args, u, z, starts),
                             functools.partial(trajectory_kernel, consts, args))

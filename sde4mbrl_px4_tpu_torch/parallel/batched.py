@@ -39,7 +39,13 @@ Brownian block in one call) or an iterator of (B, P, H, 13) blocks, which
 is how tests hand in the JAX package's per-scenario draws. ``solver:
 mppi`` draws each call's (B, iters, K, H, nZ) and (B, iters, K, nZ)
 exploration noise from the generator in one call, or takes the next
-``(eps, c0)`` pair of such an iterator.
+``(eps, c0)`` pair of such an iterator. The particle options ride the same
+scenario axis: with ``initial_state_std`` each call also draws the (B, P,
+13) ``z0`` of every scenario's starts (after the block; an iterator hands
+``(noise, z0)``, MPPI ``(eps, c0, noise[, z0])``), the starts go to the
+kernels as one (B, P, 13) array, and ``risk_lambda`` is one of the cost's
+scalars, the same for every scenario (the loader's docstring has the
+order).
 
 Not ported:
 ``make_particle_sharded_mpc``, ``mesh.py`` and ``distributed.py``, which

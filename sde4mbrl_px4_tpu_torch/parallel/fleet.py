@@ -27,6 +27,10 @@ cold-start select is a device-side ``where``. The one exception is a
 config without ``apg_mpc.linesearch``: the fixed-step loop reads one scalar
 per iteration (whether a scenario still runs), so its dispatch waits.
 
+Configs with particles and the particle options (``risk_lambda``,
+``initial_state_std``, MPPI over K x P paths) serve as any other: each
+tick draws its Brownian block and starts from the engine's generator.
+
 The multi-process branch (a mesh over hosts) is not ported: one card.
 """
 from __future__ import annotations

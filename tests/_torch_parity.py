@@ -1,7 +1,9 @@
 """Shared set-up of the port's solver parity tests: the problems of
 ``tests/test_apg_kernel.py::_solve_both`` solved by the JAX package's XLA
 ``apg_solve`` and by the port's ``apg_solve_kernel`` (on CPU tensors, its
-plain version)."""
+plain version); the draws of the JAX ``mpc_fn`` and the first solve of both
+``mpc_fn``s on them (the particle options' tests)."""
+import copy
 import os
 
 import jax
@@ -14,10 +16,15 @@ from sde4mbrl_px4_tpu.core.types import hover_state
 from sde4mbrl_px4_tpu.cost.cost import make_cost_fn
 from sde4mbrl_px4_tpu.ops.rollout import rollout_sde
 from sde4mbrl_px4_tpu.solver.apg import apg_solve
-from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config as j_make
+from sde4mbrl_px4_tpu.ops.rollout import draw_brownian as j_draw_brownian
+from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile, make_mpc_from_config
 from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
 
 H = 20
+# the lockstep tolerances of the mpc_fn solves (tests/test_sharding.py:87-88)
+SOLVE_RTOL, SOLVE_ATOL = 2e-4, 2e-5
+T = torch.from_numpy
 
 
 def load_port_bundles(repo_root):
@@ -88,3 +95,67 @@ def assert_lockstep(st_x, st_t, rtol, atol, stats=True):
             float(st_x.avg_linesearch), abs=1e-5)
         assert float(st_t.stepsize) == pytest.approx(float(st_x.stepsize), rel=1e-4)
         assert float(st_t.avg_stepsize) == pytest.approx(float(st_x.avg_stepsize), rel=1e-4)
+
+
+def jax_solve_draws(P, n, antithetic, spread=False, mppi_cfg=None, H=H, n_u=4):
+    """Each solve's draws as the JAX ``mpc_fn`` makes them from PRNGKey(0):
+    APG ``(noise, next) = split(rng)``; MPPI ``(noise, mppi, next) =
+    split(rng, 3)`` (``engine/mpc_loader.py:649-664``); the block
+    ``draw_brownian(noise, H, P, antithetic)``; the starts' z0
+    ``draw_brownian(fold_in(noise, 0x5EED), 1, P, antithetic)[0]``
+    (``ops/rollout.py:165-167``); MPPI's draws from its key
+    (``tests/test_torch_mppi.py::jax_draws``). Yields them in the forms
+    ``mpc_fn``'s iterator takes: a (P, H, 13) block, ``(noise, z0)``, or
+    ``(eps, c0, noise[, z0])``."""
+    rng = jax.random.PRNGKey(0)
+    for _ in range(n):
+        if mppi_cfg is None:
+            rng_noise, rng = jax.random.split(rng)
+        else:
+            rng_noise, rng_mppi, rng = jax.random.split(rng, 3)
+        z = np.array(j_draw_brownian(rng_noise, H, P, antithetic=antithetic))
+        out = [T(np.ascontiguousarray(z.transpose(1, 0, 2)))]
+        if spread:
+            z0 = j_draw_brownian(jax.random.fold_in(rng_noise, 0x5EED), 1, P,
+                                 antithetic=antithetic)[0]
+            out.append(T(np.array(z0)))
+        if mppi_cfg is not None:
+            key, eps, c0 = rng_mppi, [], []
+            for _ in range(mppi_cfg.iters):
+                key, sub, sub0 = jax.random.split(key, 3)
+                eps.append(np.array(jax.random.normal(sub, (mppi_cfg.samples, H, n_u))))
+                c0.append(np.array(jax.random.normal(sub0, (mppi_cfg.samples, n_u))))
+            out = [T(np.stack(eps)), T(np.stack(c0)) if mppi_cfg.noise_beta > 0 else None] + out
+        yield out[0] if len(out) == 1 else tuple(out)
+
+
+def first_solve_pair(cfg, draws, x_offset=(0.5, -0.3)):
+    """The first solve of both ``mpc_fn``s from the same state: the JAX one
+    on PRNGKey(0), the port's on ``draws`` (JAX's own). Hold configs start
+    ``x_offset`` off the target in x and z (NED), trajectory configs on the
+    trajectory at t = 3 s."""
+    from sde4mbrl_px4_tpu.core.frames import enu2ned as j_enu2ned
+    from sde4mbrl_px4_tpu.core.types import hover_state as j_hover
+
+    _, (j_reset, j_mpc), j_sft, _ = j_make(copy.deepcopy(cfg))
+    _, (t_reset, t_mpc), _, tb = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
+    if j_sft is not None:
+        x = j_enu2ned(j_sft(jnp.float32(3.0)))
+    else:
+        x = j_hover().at[0].set(x_offset[0]).at[2].set(x_offset[1])
+    xt = T(np.array(x))
+    rng = jax.random.PRNGKey(0)
+    sol_j = jax.jit(j_mpc)(x, rng, j_reset(x, rng, x), jnp.float32(3.0), x)
+    sol_t = t_mpc(xt, draws, t_reset(xt, draws, xt), 3.0, xt)
+    return sol_j, sol_t, tb
+
+
+def assert_solve_lockstep(sol_j, sol_t, rtol=SOLVE_RTOL, atol=SOLVE_ATOL):
+    assert int(sol_t.opt_state.num_steps) == int(sol_j.opt_state.num_steps)
+    np.testing.assert_allclose(sol_t.u_opt.numpy(), np.asarray(sol_j.u_opt), rtol=rtol,
+                               atol=atol)
+    for f in ("init_cost", "opt_cost"):
+        assert float(getattr(sol_t.opt_state, f)) == pytest.approx(
+            float(getattr(sol_j.opt_state, f)), rel=rtol), f
+    np.testing.assert_allclose(sol_t.x_evol.numpy(), np.asarray(sol_j.x_evol), rtol=rtol,
+                               atol=atol)

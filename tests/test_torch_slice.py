@@ -10,13 +10,14 @@ position-hold golden replay.
 - a fresh process that imports the port and runs the slice (the
   whole-solve route at P=1 and with particles, MPPI and fixed-step APG)
   never imports JAX;
-- particle configs and ``state_constr`` configs (both forms, APG and MPPI)
-  load and route to the kernel wrappers, and so do the four hexa configs
-  and the policy family (pure and ``refine_iters``);
+- particle configs (with ``risk_lambda``, ``initial_state_std`` and MPPI
+  over K x P paths too) and ``state_constr`` configs (both forms, APG and
+  MPPI) load and route to the kernel wrappers, and so do the four hexa
+  configs and the policy family (pure and ``refine_iters``);
   configs outside the slice are refused with the ROADMAP item that brings
   them, and the settings the
-  original refuses (particle options, ``solver: policy`` with proximal
-  slack) raise ValueError as there;
+  original refuses (particle options at P=1, ``solver: policy`` with
+  proximal slack) raise ValueError as there;
 - every entry point runs on the card unless asked for the CPU: without
   CUDA it raises, naming the missing card. (The trajectory replay is
   ``test_torch_slice_traj.py``.)
@@ -87,14 +88,9 @@ def _mutated(repo_root, name, mutation):
     return cfg
 
 
-# The particle options that run no TPU kernel in the original (it sends them
-# to XLA, engine/mpc_loader.py:336-350, :434-443) stay refused, naming the
-# ROADMAP item that brings them.
+# Configs outside the slice are refused, naming the ROADMAP item that brings
+# them.
 @pytest.mark.parametrize("mutation, item", [
-    ({"solver": "mppi", "num_particles": 8}, "Particles"),
-    ({"num_particles": 8, "cost_params.risk_lambda": 1.0}, "Particles"),
-    ({"num_particles": 8, "initial_state_std": 0.01}, "Particles"),
-    ({"solver": "mppi", "num_particles": 512, "antithetic": True}, "Particles"),
     ({"num_particles": 512, "matmul_precision": "default"}, "Reduced matmul precision"),
 ])
 def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
@@ -126,35 +122,54 @@ def test_particle_settings_the_original_refuses(repo_root, mutation, match):
     ("iris_posctrl_mpc", {"num_particles": 8, "pallas_chunk": 4,
                           "apg_mpc.linesearch": None, "apg_mpc.stepsize": 1e-5},
      "cost_oracle"),
+    # the particle options the original sends to XLA (engine/mpc_loader.py
+    # :336-350, :434-443) run on the particle kernels' routes
+    ("iris_posctrl_mpc", {"solver": "mppi", "num_particles": 8}, "cost_oracle"),
+    ("iris_posctrl_mpc", {"num_particles": 8, "cost_params.risk_lambda": 1.0},
+     "apg_solve_kernel"),
+    ("iris_posctrl_mpc", {"num_particles": 8, "initial_state_std": 0.01}, "apg_solve_kernel"),
+    ("iris_posctrl_mpc", {"solver": "mppi", "num_particles": 512, "antithetic": True},
+     "cost_oracle"),
 ])
 def test_particle_configs_route_to_the_kernel_wrappers(repo_root, monkeypatch, name,
                                                        mutation, wrapper):
-    """``num_particles: 8`` (with ``pallas_chunk`` and ``antithetic``) loads
-    and each solve hands the kernel wrapper of its route one (P, H, 13)
-    block drawn from the generator, P and the chunk; on the CPU the wrapper
-    runs its plain version. The solo solve is the batched one at B = 1, so
-    the wrapper is the ``_batched`` one and the block (1, P, H, 13)."""
+    """``num_particles`` P (with ``pallas_chunk`` and ``antithetic``, with
+    ``risk_lambda``, ``initial_state_std`` or ``solver: mppi``) loads and
+    each solve hands the kernel wrapper of its route one (P, H, 13) block
+    drawn from the generator, P and the chunk, the cost's ``risk_lambda``,
+    and with a start spread the particles' (P, 13) starts; on the CPU the
+    wrapper runs its plain version. The solo solve is the batched one at
+    B = 1, so the wrapper is the ``_batched`` one and the block (1, P, H,
+    13). (MPPI runs 2 rounds of 4 candidates here.)"""
     cfg = _mutated(repo_root, name, mutation)
     cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
+    mppi = cfg.get("solver") == "mppi"
+    if mppi:
+        cfg["mppi"] = {"samples": 4, "iters": 2}
+    P = cfg["num_particles"]
     calls = []
     wrapper += "_batched"
     orig = getattr(tloader, wrapper)
 
     def spy(*args, **kw):
         noise, P = args[7:9] if wrapper == "cost_oracle_batched" else args[8:10]
-        calls.append((tuple(noise.shape), P, kw["chunk"]))
+        starts = kw["starts"]
+        calls.append((tuple(noise.shape), P, kw["chunk"], args[2].risk_lambda,
+                      None if starts is None else tuple(starts.shape)))
         return orig(*args, **kw)
 
     monkeypatch.setattr(tloader, wrapper, spy)
     _, (reset_fn, mpc_fn), _, b = tloader.make_mpc_from_config(cfg, device="cpu")
-    assert b.num_particles == 8
+    assert b.num_particles == P
     x = torch.zeros(13)
     x[6] = 1.0
     gen = torch.Generator().manual_seed(0)
     state0 = gen.get_state()
     sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
     assert sol.rng is gen and not torch.equal(gen.get_state(), state0)
-    assert calls == [((1, 8, 20, 13), 8, mutation.get("pallas_chunk", 0))]
+    spread = "initial_state_std" in mutation
+    assert calls == [((1, P, 20, 13), P, mutation.get("pallas_chunk", 0),
+                      mutation.get("cost_params.risk_lambda"), (1, P, 13) if spread else None)]
     assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
     assert sol.x_evol.shape == (21, 13)
 
@@ -448,22 +463,29 @@ def test_slice_runs_without_jax(repo_root):
 
 def test_oracle_routes_run_without_jax(repo_root):
     """A fresh process runs one MPPI solve and one fixed-step APG solve (a
-    config without a linesearch block) through ``mpc_fn`` without JAX
-    ever entering ``sys.modules``."""
+    config without a linesearch block) through ``mpc_fn``, then a risk
+    solve with a start spread (P=8) and an MPPI solve over K x P paths,
+    without JAX ever entering ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import torch
         from sde4mbrl_px4_tpu_torch.core.types import hover_state
         from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
         from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
-        for route in ("mppi", "fixed_step"):
+        for route in ("mppi", "fixed_step", "risk_starts", "mppi_particles"):
             cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
-            if route == "mppi":
+            if route.startswith("mppi"):
                 cfg["solver"] = "mppi"
                 cfg["mppi"] = {"samples": 16, "iters": 2}
-            else:
+            elif route == "fixed_step":
                 del cfg["apg_mpc"]["linesearch"]
                 cfg["apg_mpc"]["max_iter"] = 2
+            else:
+                cfg["apg_mpc"]["max_iter"] = 2
+                cfg["cost_params"]["risk_lambda"] = 2.0
+                cfg["initial_state_std"] = 0.05
+            if route in ("risk_starts", "mppi_particles"):
+                cfg.update(num_particles=8, antithetic=True)
             _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(cfg, device="cpu")
             x = hover_state()
             gen = torch.Generator().manual_seed(0)
