@@ -9,8 +9,10 @@ both hexa ones), MPPI and fixed-step APG on the hand-written cost-oracle
 kernels, and the policy family (the pure policy on the oracle, the
 ``refine_iters`` hybrid on the whole solve); then flies the closed loop
 (the engine node on the card against the simulated FCU over UDP) and the
-two-process launch tier, and serves batched solves and fleets of every
-family on the kernels' scenario axis.
+two-process launch tier, serves batched solves and fleets of every
+family on the kernels' scenario axis, and runs the learning loop (a logged
+flight, the SDE fitted to it, its metric probed, a policy distilled from
+batched whole-solve labels and flown).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
@@ -222,7 +224,29 @@ without a result):
     the single-solve floor back-off (gate: the risk-averse and particle
     plans' terminal z at least 0.01 m above the mean plan's).
 
-In phases 6-8, 11-13, 15-18, 20-22 and 24 every kernel's launch count is set to 0 just
+25. the learning loop: (a) the iris closed loop, 6 s at time-scale 1, with
+    ``--log`` to ``.npz`` and to ``.ulg`` (gate: its PASS; both files read
+    back and agree); (b) ``sim/train_model.py`` at the example's size (gate:
+    its ``e_train < 0.8 e_prior``), then ``LEARN_SDE_STEPS`` ``train_sde``
+    steps on the log of (a) from the shipped checkpoint with its motor gains
+    moved by +5 % (gate: the loss on a fixed batch falls); steps/s of both; (c) the ``hover_diag`` probe of
+    ``iris_traj_mpc.yaml`` on the card against its committed file (rtol
+    1e-4), then the checkpoint of (b), probed at build (its file written to
+    a temporary cache), flying ``LEARN_TICKS`` chained traj solves (one
+    ``apg_solve`` launch each) and its fixed 10-iteration solve held to the
+    plain whole solve; (d) ``sim/policy_distill.py`` at the example's widths
+    (4096 states, 300-iteration labels, one DAgger round of 32 x 100, hidden
+    256 256, 3000 steps; gate: its ``RESULT: PASS``): each label call one
+    ``apg_solve`` launch (``ceil(n / B)`` at B = n), its first 8
+    scenarios bit-equal to their solo ``mpc_fn`` solves, the shoot-out's
+    launches (APG one ``apg_solve`` a tick, the distilled policy one
+    ``value_batch`` and one ``trajectory``), the distilled policy against
+    its plain version (phase 21's check), and one label launch per config
+    re-run for its device time and labels/s; (e) a 32-wide trunk refused
+    when ``make_mpc_from_config`` builds the solver (fault 7), with no
+    launch.
+
+In phases 6-8, 11-13, 15-18, 20-22, 24 and 25 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -245,6 +269,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3426,6 +3451,466 @@ def phase_particle_option_routes(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 25: the learning loop -------------------------------------------
+LEARN_LOG_S = 6.0        # the closed loop whose log the trainer reads
+LEARN_SDE_STEPS = 300    # train_sde steps on that log
+LEARN_TICKS = 40         # chained traj solves on the retrained checkpoint
+LABEL_SOLO = 8           # label scenarios held bit for bit to their solo solves
+PROBE_RTOL = 1e-4        # the probe against the committed file (the CPU tests' bound)
+
+
+def learning_log(td: str, card: str) -> dict:
+    """(a) the iris closed loop on the card writing one flight to ``.npz``
+    and ``.ulg``; both read back and agree (state bit for bit, time to a
+    microsecond, commands and achieved motors)."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.io.flight_log import load_flight_log
+    from sde4mbrl_px4_tpu_torch.io.ulog import read_ulog, ulog_to_flight_log
+    from sde4mbrl_px4_tpu_torch.sim import closed_loop
+
+    npz, ulg = os.path.join(td, "flight.npz"), os.path.join(td, "flight.ulg")
+    zero_counts()
+    res = closed_loop.run(["--seconds", str(LEARN_LOG_S), "--time-scale", "1",
+                           "--log", npz, "--log", ulg])
+    got = counts()
+    a, b = load_flight_log(npz), ulog_to_flight_log(ulg)
+    cmd = read_ulog(ulg)["data"]["mpc_motors_cmd"]
+    agree = (np.array_equal(a["state"], b["state"])
+             and np.allclose(a["t"] - a["t"][0], b["t"], atol=2e-6)   # ULog time from 0
+             and np.array_equal(a["motors"], b["cmd_motors"][:, :4])
+             and np.array_equal(a["cmd_motors"], cmd["motor_val_des"])
+             and np.array_equal(a["cmd_thrust_rates"], b["cmd_thrust_rates"]))
+    commanded = int((np.abs(a["cmd_motors"]).sum(axis=1) > 0).sum())
+    log(f"phase 25a: closed loop with --log .npz and .ulg ({card}): {res['log_records']} "
+        f"records, {commanded} commanded; error mean {res['err_mean_m']:.4f} m; the two "
+        f"files agree: {agree}; launches {got} -> {'PASS' if res['ok'] else 'FAIL'}")
+    if not (res["ok"] and agree and commanded > 100 and got["apg_solve"] >= 1):
+        raise AssertionError(f"the logged closed loop failed: {res}, agree {agree}")
+    return {"records": res["log_records"], "commanded": commanded, "agree": agree,
+            "err_mean_m": res["err_mean_m"], "launches": got, "npz": npz}
+
+
+def learning_train(dev, td: str, npz: str, card: str) -> dict:
+    """(b) ``sim/train_model.py`` at the example's size (gate: its PASS),
+    then ``train_sde`` on the log of (a) from the shipped checkpoint with its
+    motor gains moved by +5 % (gate: the loss on a fixed batch falls);
+    steps per second of both."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.learning.trainer import (
+        TrainConfig, TrajectoryDataset, make_loss_fn, train_sde)
+    from sde4mbrl_px4_tpu_torch.models.params_io import load_params, params_from_numpy
+    from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
+    from sde4mbrl_px4_tpu_torch.models.vehicles import iris_config
+    from sde4mbrl_px4_tpu_torch.sim import train_model
+
+    ckpt = os.path.join(td, "iris_sde_trained.pkl")
+    zero_counts()
+    ex = train_model.run(["--out", ckpt])
+    log(f"phase 25b: sim/train_model.py ({card}): {ex['samples']} samples, "
+        f"{ex['train_steps']} steps in {ex['train_s']:.2f} s = {ex['steps_per_s']:.1f} steps/s; "
+        f"20-step error prior {ex['e_prior']:.4f} -> trained {ex['e_train']:.4f} (gate "
+        f"< 0.8 x prior) -> {'PASS' if ex['ok'] else 'FAIL'}")
+    if not ex["ok"] or any(counts().values()):
+        raise AssertionError(f"sim/train_model.py failed (or launched a kernel): {ex}")
+    model = NeuralSDE.for_vehicle(iris_config(), dev)
+    tree, _ = load_params(os.path.join(ROOT, "configs/models/iris_sde.pkl"))
+    # the plant flew the shipped model: start re-identifying from its motor
+    # gains moved by +5 % (tests/test_learning.py::test_sysid_from_flight_log)
+    tree["motor"]["log_gain"] = tree["motor"]["log_gain"] + 0.05
+    cfg = TrainConfig(window=6, batch_size=64, steps=LEARN_SDE_STEPS, lr=1e-3)
+    ds = TrajectoryDataset.from_flight_log(npz, window=cfg.window)
+    loss_fn = make_loss_fn(model, ds.dt, cfg)
+    fixed = [torch.from_numpy(a).to(dev) for a in next(ds.batches(256, seed=11))]
+    with torch.no_grad():
+        before = float(loss_fn(params_from_numpy(tree, dev), *fixed))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fitted, met = train_sde(model, tree, ds, cfg, log_every=0, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    with torch.no_grad():
+        after = float(loss_fn(fitted, *fixed))
+    log(f"phase 25b: train_sde on the log of (a) ({len(ds.x0)} windows of {cfg.window}, batch "
+        f"{cfg.batch_size}): {cfg.steps} steps in {secs:.2f} s = {cfg.steps / secs:.1f} steps/s; "
+        f"loss on a fixed batch {before:.4f} -> {after:.4f}")
+    if not after < before:
+        raise AssertionError("train_sde on the flight log did not lower the loss")
+    return {"example": ex, "ckpt": ckpt, "log_windows": len(ds.x0), "log_steps": cfg.steps,
+            "log_s": secs, "log_steps_per_s": cfg.steps / secs, "loss_before": before,
+            "loss_after": after}
+
+
+def learning_probe(dev, ckpt: str, card: str) -> dict:
+    """(c) the probe on the card: ``iris_traj_mpc.yaml`` against its committed
+    file (rtol ``PROBE_RTOL``); then the retrained checkpoint of (b), which
+    misses the cache, is probed at build and flies ``LEARN_TICKS`` chained
+    traj solves (one ``apg_solve`` launch each), and its fixed 10-iteration
+    solve against the plain whole solve."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine import mpc_loader as L
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    b = make_bundle("iris_traj_mpc", dev)
+    H = int(b.time_steps.shape[0])
+    x_ref = enu2ned(b.state_from_traj(b.knot_times))
+    z = b.cost_params.uref.expand(H, 4).contiguous()
+    probe_ms = []
+    for _ in range(2):                                  # the first call, then again
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = L.hover_diag_probe(b.model, b.params, b.cost_params, b.time_steps, x_ref, z)
+        probe_ms.append((time.perf_counter() - t) * 1e3)
+    rel = float(np.max(np.abs(d / b.precond.cpu().numpy() - 1.0)))
+    log(f"phase 25c: hover_diag probe of iris_traj_mpc.yaml on the card ({card}): "
+        f"{probe_ms[0]:.1f} ms, again {probe_ms[1]:.1f} ms ({H * 4} HVPs, vmapped); against "
+        f"the committed file max rel {rel:.3e} (gate {PROBE_RTOL})")
+    if not rel <= PROBE_RTOL:
+        raise AssertionError("the card's probe disagrees with the committed file")
+    cfg = load_yaml_config(os.path.join(ROOT, "configs/iris_traj_mpc.yaml"))
+    cfg["learned_model_params"] = ckpt
+    t = time.perf_counter()
+    c, (reset_fn, mpc_fn), sft, rb = L.make_mpc_from_config(cfg, device=dev)
+    build_s = time.perf_counter() - t
+    env = os.environ["SDE4MBRL_PRECOND_CACHE"]
+    written = sorted(f for f in os.listdir(env) if f.endswith(".npy"))
+    differs = not torch.equal(rb.precond, b.precond)
+    dt = float(c["_time_steps"][0])
+    x = enu2ned(sft(0.0))
+    st = reset_fn(x, None, x)
+    mpc_fn(x, None, st, 0.0, x)                          # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    wall, dev_ms, steps, errs = [], [], [], []
+    for k in range(LEARN_TICKS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        sol = mpc_fn(x, None, st, k * dt, x)
+        e1.record()
+        steps.append(int(sol.opt_state.num_steps))
+        wall.append((time.perf_counter() - t) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+        st, x = sol.opt_state, sol.x_evol[1]
+        errs.append(float(torch.linalg.norm(x[:3] - enu2ned(sft((k + 1) * dt))[:3])))
+    got = check_route("retrained checkpoint traj", {
+        "apg_solve": LEARN_TICKS, "value_batch": 0, "value_and_grad": 0, "trajectory": 0})
+    # its fixed 10-iteration solve, kernel against the plain whole solve
+    apg = rb.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    x0, xr, u_prev, u_init = problem(rb, dev)
+    args = (rb.model, rb.params, rb.cost_params, apg, rb.time_steps, x0, xr, u_prev, None, 1,
+            rb.lb, rb.ub, u_init)
+    st_k, _ = AK.apg_solve_kernel(*args, precond=rb.precond)
+    st_p, _ = AK.apg_solve_plain(*args, precond=rb.precond)
+    du = float((st_k.yk - st_p.yk).abs().max())
+    same = (int(st_k.num_steps) == int(st_p.num_steps)
+            and bool(torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5)))
+    k_ms, p_ms = time_fixed(AK, args, rb.precond, n_plain=1)
+    out = {"probe_ms": probe_ms, "committed_max_rel": rel, "build_s": build_s,
+           "written": written, "metric_differs": differs, "launches": got["apg_solve"],
+           "wall_ms_p50": statistics.median(wall), "device_ms_p50": statistics.median(dev_ms),
+           "iterations_p50": statistics.median(steps), "iterations": steps[:8],
+           "err_mean_m": float(np.mean(errs)), "fixed_du": du, "fixed_ms": k_ms,
+           "fixed_plain_ms": p_ms, "n_consts": n_consts(rb, dev),
+           "bundle": rb}
+    log(f"phase 25c: the retrained checkpoint built in {build_s:.2f} s with its probed metric "
+        f"({written}; differs from the shipped one: {differs}); {LEARN_TICKS} chained traj "
+        f"solves: wall p50 {out['wall_ms_p50']:.3f} ms, device p50 {out['device_ms_p50']:.3f} "
+        f"ms at {out['iterations_p50']} iterations (first {steps[:4]}); tracking error of "
+        f"x_evol[1] mean {out['err_mean_m']:.4f} m; fixed 10 it. kernel vs plain max|du| "
+        f"{du:.3e}, {k_ms:.4f} / {p_ms:.1f} ms")
+    if not (len(written) == 1 and differs and same and np.isfinite(errs).all()):
+        raise AssertionError(f"the retrained checkpoint's route failed: {out}")
+    return out
+
+
+def label_wrapper(TD, calls: list):
+    """``learning/distill.py::label_states`` wrapped: each call's states,
+    its ``apg_solve`` launches (the difference of the count around it: the
+    main path's count is not reset), its wall time with the card synced,
+    and its first ``LABEL_SOLO`` scenarios' inputs and labels."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    orig = TD.label_states
+
+    def wrapped(cfg, xs, ts, xdes, rng=None, dcfg=TD.DistillConfig(), mesh=None, u_prevs=None,
+                device=None):
+        torch.cuda.synchronize()
+        n0, t = AK.apg_solve_kernel.launches, time.perf_counter()
+        lab = orig(cfg, xs, ts, xdes, rng, dcfg, mesh, u_prevs, device)
+        torch.cuda.synchronize()
+        n = int(xs.shape[0])
+        calls.append({"cfg": cfg, "dcfg": dcfg, "n": n,
+                      "kind": "traj" if cfg.get("trajectory_path") else "posctrl",
+                      "launches": AK.apg_solve_kernel.launches - n0,
+                      "s": time.perf_counter() - t,
+                      "solo": [a[:LABEL_SOLO].clone() for a in (xs, ts, xdes, u_prevs)],
+                      "labels": lab[:LABEL_SOLO].clone()})
+        return lab
+
+    return orig, wrapped
+
+
+def label_solo_bits(call: dict, dev) -> int:
+    """The first ``LABEL_SOLO`` scenarios of a label call, each solved alone
+    through the expert's ``mpc_fn`` (the whole solve at B = 1) from the same
+    warm start: the number whose plan equals its label bit for bit."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.learning.distill import _expert_cfg
+
+    _, (reset_fn, mpc_fn), _, b = make_mpc_from_config(
+        _expert_cfg(call["cfg"], call["dcfg"]), device=dev)
+    equal = 0
+    for i, (x, t, xd, up) in enumerate(zip(*call["solo"])):
+        st = reset_fn(x, None, xd)
+        yk = st.yk.clone()
+        yk[0, :b.model.n_u] = up
+        sol = mpc_fn(x, None, st._replace(yk=yk), t, xd)
+        equal += int(torch.equal(sol.u_opt, call["labels"][i]))
+    return equal
+
+
+def label_launch(cfg: dict, dcfg, dev, n: int) -> dict:
+    """One label launch of ``n`` sampled states re-run for its device time
+    (CUDA events around the batched solve: one ``apg_solve`` launch),
+    iterations and bound inputs; and one of its scenarios at a 10-iteration
+    budget, kernel against the plain whole solve (times of both)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.learning import distill as TD
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batched_mpc
+
+    reset_b, mpc_b, b = make_batched_mpc(TD._expert_cfg(cfg, dcfg), device=dev)
+    xs, ts, xdes, ups = TD.sample_states(b, n, torch.Generator().manual_seed(5), dcfg)
+    st = reset_b(xs, None, xdes)
+    yk = st.yk.clone()
+    yk[:, 0, :b.model.n_u] = ups
+    st = st._replace(yk=yk)
+    mpc_b(xs, None, st, ts, xdes)                        # warm
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n0 = AK.apg_solve_kernel.launches
+    e0.record()
+    sol = mpc_b(xs, None, st, ts, xdes)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    launches = AK.apg_solve_kernel.launches - n0
+    iters = sol.opt_state.num_steps.float()
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    x_ref = TD._reference(b, ts[:1], xdes[:1])[0]
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, xs[0], x_ref, ups[0], None, 1,
+            b.lb, b.ub, yk[0])
+    st_k, _ = AK.apg_solve_kernel(*args, precond=b.precond)
+    st_p, _ = AK.apg_solve_plain(*args, precond=b.precond)
+    if not (int(st_k.num_steps) == int(st_p.num_steps)
+            and torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5)):
+        raise AssertionError("a label scenario's fixed solve disagrees with plain")
+    k_ms, p_ms = time_fixed(AK, args, b.precond, n_plain=1)
+    return {"labels": n, "max_iter": b.apg_config.max_iter, "ms": ms, "launches": launches,
+            "labels_per_s": n / ms * 1e3,
+            "fixed10_du": float((st_k.yk - st_p.yk).abs().max()),
+            "iterations_mean": float(iters.mean()), "iterations_max": int(iters.max()),
+            "at_budget": float((iters >= b.apg_config.max_iter).float().mean()),
+            "fixed10_ms": k_ms, "fixed10_plain_ms": p_ms, "bundle": b,
+            "n_consts": n_consts(b, dev)}
+
+
+def learning_distill(dev, td: str, card: str, argv: tuple = (), label_n: int = 4096,
+                     label_iters: int = 300) -> dict:
+    """(d) ``sim/policy_distill.py`` at the example's widths (its defaults:
+    4096 states, 300-iteration labels, one DAgger round of 32 x 100, hidden
+    256 256, 3000 steps): each label call one ``apg_solve`` launch (B = n,
+    ``ceil(n / B)`` = 1), its first ``LABEL_SOLO`` scenarios bit-equal to their
+    solo solves; the shoot-out's PASS; the distilled policy served through
+    ``solver: policy`` (one ``value_batch`` and one ``trajectory`` a solve)
+    and held to its plain version (``policy_pure_parity``)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.learning import distill as TD
+    from sde4mbrl_px4_tpu_torch.sim import policy_distill
+
+    calls = []
+    orig, wrapped = label_wrapper(TD, calls)
+    TD.label_states = wrapped
+    try:
+        zero_counts()
+        res = policy_distill.run(["--outdir", td, *argv])
+        torch.cuda.synchronize()
+        got = counts()
+    finally:
+        TD.label_states = orig
+    label_launches = sum(c["launches"] for c in calls)
+    expect = {"apg_solve": label_launches + res["ticks"] + 1, "value_batch": res["ticks"] + 1,
+              "value_and_grad": 0, "trajectory": res["ticks"] + 1}
+    check_route("policy distillation (labels and shoot-out)", expect)
+    for c in calls:
+        c["bits"] = label_solo_bits(c, dev)
+        log(f"phase 25d: label call {c['kind']} n={c['n']}: {c['launches']} apg_solve "
+            f"launch(es) (ceil(n/B) = 1 at B = n), {c['s'] * 1e3:.1f} ms wall "
+            f"({c['n'] / c['s']:.0f} labels/s); first {LABEL_SOLO} scenarios bit-equal to "
+            f"their solo solves: {c['bits']}/{LABEL_SOLO}")
+        if c["launches"] != 1 or c["bits"] != LABEL_SOLO:
+            raise AssertionError(f"label call {c['kind']} n={c['n']} failed its checks")
+    for kind, st in res["distill"].items():
+        tr = [st["train_s"]] + [st[k] for k in st if k.startswith("dagger") and
+                                k.endswith("train_s")]
+        log(f"phase 25d: {kind} policy trained: {len(tr)} x {res['steps']} steps in "
+            f"{', '.join(f'{s:.2f}' for s in tr)} s = "
+            f"{', '.join(f'{res['steps'] / s:.0f}' for s in tr)} steps/s; loss "
+            f"{st['losses'][0]:.5f} -> {st['losses'][1]:.5f}")
+    log(f"phase 25d: shoot-out over {res['ticks']} ticks ({card}): APG {res['err_apg_m']:.4f} m "
+        f"at {res['apg_ms']:.2f} ms a solve, policy {res['err_policy_m']:.4f} m at "
+        f"{res['policy_ms']:.2f} ms (gate < {res['gate_m']:.3f} m) -> "
+        f"{'PASS' if res['ok'] else 'FAIL'}; launches {got}")
+    if not res["ok"]:
+        raise AssertionError(f"sim/policy_distill.py failed its gate: {res}")
+    served = distilled_served(dev, distilled_config(res["checkpoints"]["traj"]))
+    # each label launch re-run for its device time, at the drive's widths
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    dcfg = TD.DistillConfig(expert_max_iter=label_iters)
+    launch = {}
+    for kind in ("traj", "posctrl"):
+        cfg = load_yaml_config(os.path.join(ROOT, f"configs/iris_{kind}_mpc.yaml"))
+        launch[kind] = label_launch(cfg, dcfg, dev, label_n)
+        r = launch[kind]
+        log(f"phase 25d: label launch {kind}, B={label_n} at {r['max_iter']} iterations ({card}): "
+            f"{r['ms']:.3f} ms device ({r['launches']} launch), {r['labels_per_s']:.0f} "
+            f"labels/s at {r['iterations_mean']:.1f} iterations a scenario (max "
+            f"{r['iterations_max']}, {100 * r['at_budget']:.1f} % at the budget); one "
+            f"scenario at 10 it.: kernel {r['fixed10_ms']:.4f} ms, plain "
+            f"{r['fixed10_plain_ms']:.1f} ms")
+    return {"drive": res, "calls": [{k: v for k, v in c.items()
+                                     if k not in ("cfg", "dcfg", "solo", "labels")}
+                                    for c in calls],
+            "launches": got, "label_launches": {k: sum(c["launches"] for c in calls
+                                                       if c["kind"] == k)
+                                                for k in ("traj", "posctrl")},
+            "served": served, "launch": launch}
+
+
+def distilled_served(dev, cfg: dict, n: int = POLICY_REPLAY) -> dict:
+    """The distilled policy served through ``solver: policy`` on the card:
+    ``n`` chained pure-policy solves (one ``value_batch`` and one
+    ``trajectory`` launch each), each held to the plain version: the
+    network's plan against the CPU's from the same state and warm start
+    (|du| <= 1e-5, phase 21's gate), the kernel's telemetry cost against the
+    plain oracle's cost of the same plan (rtol 2e-5), ``x_evol`` against the
+    mean rollout of the plan (rtol 1e-5 / atol 1e-6). The CPU solve's own
+    cost (of its own plan) is printed beside it."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc, make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    c, (reset_k, mpc_k), sft, b = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    _, (reset_p, mpc_p), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
+    _, bc, pc = build_mpc(copy.deepcopy(cfg), device="cpu")
+    dt = float(c["_time_steps"][0])
+    x, t0 = policy_start(sft, dev)
+    st = reset_k(x, None, x)
+    du = dc = dc_own = dx = 0.0
+    zero_counts()
+    for k in range(n):
+        t = t0 + k * dt
+        sol = mpc_k(x, None, st, t, x)
+        st_cpu = type(st)(*(f.cpu() for f in st))
+        one = mpc_p(x.cpu(), None, st_cpu, t, x.cpu())
+        xc = x.cpu()[None]
+        x_ref = pc.build_ref(torch.tensor([t], dtype=torch.float32), pc.targets(xc))
+        orc = cost_oracle_batched(bc.model, bc.params, bc.cost_params, bc.time_steps, xc, x_ref,
+                                  st_cpu.yk[None, 0], None, 1, bc.apg_config.maxls)
+        with torch.no_grad():
+            plain = float(orc.value(sol.u_opt.cpu()[None])[0])
+        card = float(sol.opt_state.opt_cost)
+        du = max(du, float((sol.u_opt.cpu() - one.u_opt).abs().max()))
+        dc = max(dc, abs(card - plain) / abs(plain))
+        dc_own = max(dc_own, abs(card - float(one.opt_state.opt_cost)) / abs(plain))
+        ref = rollout_mean(b.model, b.params, x, sol.u_opt, b.time_steps)
+        dx = max(dx, float((sol.x_evol - ref).abs().max()))
+        if not (torch.allclose(sol.x_evol, ref, rtol=1e-5, atol=1e-6)
+                and int(sol.opt_state.num_steps) == 0):
+            raise AssertionError("the distilled policy: x_evol or stats differ")
+        st, x = sol.opt_state, sol.x_evol[1]
+    got = check_route("the distilled policy served", {
+        "apg_solve": 0, "value_batch": n, "value_and_grad": 0, "trajectory": n})
+    log(f"phase 25d: the distilled traj policy served ({n} chained solves), card against "
+        f"plain: plan max|du| {du:.3e} (gate 1e-5), the kernel's cost against the plain cost "
+        f"of the same plan rel {dc:.3e} (2e-5; against the CPU solve's own plan {dc_own:.3e}, "
+        f"printed), x_evol max|dx| {dx:.3e} (rtol 1e-5 / atol 1e-6)")
+    if not (du <= 1e-5 and dc <= 2e-5):
+        raise AssertionError("the distilled policy disagrees with its plain version")
+    return {"du": du, "cost_rel": dc, "cost_rel_own_plan": dc_own, "dx": dx, "launches": got}
+
+
+def distilled_config(ckpt: str) -> dict:
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(ROOT, "configs/iris_traj_mpc.yaml"))
+    cfg.update(solver="policy", policy={"params_path": ckpt})
+    return cfg
+
+
+def learning_fault7(dev, td: str) -> str:
+    """(e) a 32-wide trunk: APG at P=1 is refused when the solver is built
+    (the message names fault 7), with no launch; MPPI on it builds."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+    from sde4mbrl_px4_tpu_torch.models.params_io import save_params
+    from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE, init_params
+    from sde4mbrl_px4_tpu_torch.models.vehicles import iris_config
+
+    ckpt = os.path.join(td, "iris_sde_h32.pkl")
+    save_params(ckpt, init_params(torch.Generator().manual_seed(3),
+                                  NeuralSDE.for_vehicle(iris_config()), hidden=32),
+                {"vehicle": "iris", "hidden": 32})
+    cfg = load_yaml_config(os.path.join(ROOT, "configs/iris_traj_mpc.yaml"))
+    cfg["learned_model_params"] = ckpt
+    zero_counts()
+    try:
+        make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a 32-wide trunk was not refused at build")
+    cfg["solver"] = "mppi"
+    make_mpc_from_config(cfg, device=dev)
+    log(f"phase 25e: a 32-wide trunk refused at build_mpc: {msg[:160]}...; MPPI on it builds; "
+        f"launches {counts()}")
+    if "fault 7" not in msg or any(counts().values()):
+        raise AssertionError(f"the fault-7 refusal is wrong: {msg}")
+    return msg
+
+
+def phase_learning(dev, card: str) -> dict:
+    """Phase 25, the learning loop on the card (module docstring)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_learning_") as td:
+        flight = learning_log(td, card)
+        train = learning_train(dev, td, flight["npz"], card)
+        probe = learning_probe(dev, train["ckpt"], card)
+        distill = learning_distill(dev, td, card)
+        fault7 = learning_fault7(dev, td)
+    return {"log": flight, "train": train, "probe": probe, "distill": distill,
+            "fault7": fault7}
+
+
+
 def main() -> int:
     import torch
 
@@ -3437,6 +3922,10 @@ def main() -> int:
 
     apply_fp32_policy()
     dev = torch.device("cuda")
+    # a config whose metric is not committed probes it (phase 25): its file
+    # goes to a temporary cache, not into the checkout
+    precond_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_precond_")
+    os.environ["SDE4MBRL_PRECOND_CACHE"] = precond_cache.name
     card = card_line()
     log(f"phase 1: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -3503,6 +3992,10 @@ def main() -> int:
     log("phase 24: MPPI over K x P paths, the fixed-step and batched routes with risk and "
         "starts, and both uncertainty drives run on the particle kernels; risk backs off the "
         "floor")
+    learn = phase_learning(dev, card)
+    log("phase 25: the learning loop runs on the card: a logged flight, the SDE fitted to it, "
+        "its metric probed and flown, a policy distilled from batched whole-solve labels and "
+        "served, a 32-wide trunk refused at build")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -3785,6 +4278,35 @@ def main() -> int:
               max_abs_err_is="max |du| of the chained MPPI plans, kernels vs plain",
               solve_ms_p50=proute["mppi"]["wall_ms_p50"],
               plain_solve_ms_p50=proute["mppi"]["plain_wall_ms_p50"])]
+    # phase 25: the distillation labels and the retrained checkpoint on #1
+    lp, ld = learn["probe"], learn["distill"]
+    for kind in ("traj", "posctrl"):
+        r = ld["launch"][kind]
+        kernels.append(entry(
+            "apg_solve", f"P=1, batched B={r['labels']}: distillation labels, iris {kind}, "
+            f"{r['max_iter']} iterations", ld["label_launches"][kind], r["fixed10_du"], r["ms"],
+            r["fixed10_plain_ms"],
+            bound(r["bundle"], "apg_solve", r["n_consts"], K=4, iters=r["iterations_mean"],
+                  B=r["labels"]),
+            timed=f"one label launch of {r['labels']} sampled states at the "
+                  f"{r['max_iter']}-iteration budget, CUDA events",
+            plain_ms_is="one label scenario's plain whole solve at a 10-iteration budget "
+                        "(max_abs_err: its plan against the kernel's)",
+            fixed10_ms=r["fixed10_ms"], labels_per_s=r["labels_per_s"],
+            iterations_mean=r["iterations_mean"], iterations_max=r["iterations_max"],
+            share_at_budget=r["at_budget"],
+            label_calls=[c for c in ld["calls"] if c["kind"] == kind]))
+    kernels.append(entry(
+        "apg_solve", "P=1, the retrained checkpoint on its probed hover_diag metric (iris traj)",
+        lp["launches"], lp["fixed_du"], lp["fixed_ms"], lp["fixed_plain_ms"],
+        bound(lp["bundle"], "apg_solve", lp["n_consts"], K=4, iters=10),
+        timed="fixed 10-iteration solve", chained_wall_ms_p50=lp["wall_ms_p50"],
+        chained_device_ms_p50=lp["device_ms_p50"], chained_iterations_p50=lp["iterations_p50"]))
+    for k in kernels:
+        if k["name"] == "value_batch" and k["branch"].startswith("P=1, K=1"):
+            k["distilled_shootout_launches"] = ld["launches"]["value_batch"]
+        if k["name"] == "trajectory" and k["branch"] == "P=1":
+            k["distilled_shootout_launches"] = ld["launches"]["trajectory"]
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -3816,9 +4338,19 @@ def main() -> int:
             "floor_backoff": proute["floor_backoff"], "bit_equal": proute["bit_equal"],
             "mppi": {k: v for k, v in proute["mppi"].items() if k != "bundle"}},
         "fleet_families": {tag: {k: v for k, v in run.items() if k != "launches"}
-                           for tag, run in boracle["fleet"].items()}}}))
+                           for tag, run in boracle["fleet"].items()},
+        "learning": {
+            "log": {k: v for k, v in learn["log"].items() if k != "npz"},
+            "train": {k: v for k, v in learn["train"].items() if k != "ckpt"},
+            "probe": {k: v for k, v in lp.items() if k != "bundle"},
+            "distill": {"drive": ld["drive"], "calls": ld["calls"], "launches": ld["launches"],
+                        "served": ld["served"],
+                        "launch": {k: {f: v for f, v in r.items() if f != "bundle"}
+                                   for k, r in ld["launch"].items()}},
+            "fault7": learn["fault7"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
+    precond_cache.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,8 @@ __all__ = [
     "qrotate",
     "qrotate_inv",
     "rotmat_to_q",
+    "q_from_yaw",
+    "q_from_euler",
     "acc_yaw_to_q",
     "qerr_vec",
 ]
@@ -103,6 +105,22 @@ def rotmat_to_q(R: torch.Tensor) -> torch.Tensor:
     q = torch.where(cond_w, q_w,
                     torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
     return qnormalize(q)
+
+
+def q_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    """Pure-yaw quaternion ``[cos(y/2), 0, 0, sin(y/2)]``."""
+    h = 0.5 * yaw
+    z = torch.zeros_like(yaw)
+    return torch.stack([torch.cos(h), z, z, torch.sin(h)], dim=-1)
+
+
+def q_from_euler(roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """ZYX (yaw-pitch-roll) Euler angles -> quaternion."""
+    cr, sr = torch.cos(0.5 * roll), torch.sin(0.5 * roll)
+    cp, sp = torch.cos(0.5 * pitch), torch.sin(0.5 * pitch)
+    cy, sy = torch.cos(0.5 * yaw), torch.sin(0.5 * yaw)
+    return torch.stack([cr * cp * cy + sr * sp * sy, sr * cp * cy - cr * sp * sy,
+                        cr * sp * cy + sr * cp * sy, cr * cp * sy - sr * sp * cy], dim=-1)
 
 
 def acc_yaw_to_q(acc: torch.Tensor, yaw: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -78,6 +78,15 @@ XLA (``:336-350``, ``:434-443``), on the particle forms of the whole solve,
 
 Both options need P > 1, as in the original (``ValueError`` otherwise).
 
+``apg_mpc.precond: hover_diag`` (the APG and policy routes) loads the
+diagonal metric cached for the config's content (``_precond_cache_key``:
+the checkpoint's bytes, the cost and the horizon; the flagship configs ship
+theirs in ``configs/models/precond/``), or on a miss probes it once on the
+device (:func:`hover_diag_probe`, the original's ``:510-580``) and writes
+it to the first writable cache path. APG at P=1 on the card takes only the
+trunks of the P=1 kernels' register layout: any other is refused here,
+when the solver is built (ROADMAP.md §3 fault 7).
+
 ``rng`` is a ``torch.Generator`` (or None for the deterministic APG
 routes, which draw nothing: at ``num_particles: 1`` it passes through
 unchanged, as in the original ``:655-662``). A solve draws from it in one
@@ -105,8 +114,8 @@ import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
-from sde4mbrl_px4_tpu_torch.core.types import MPCSolution
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
+from sde4mbrl_px4_tpu_torch.core.types import MPCSolution, hover_state
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
 from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy, resolve_device
 from sde4mbrl_px4_tpu_torch.io.config import input_bounds_from_config, load_yaml_config
 from sde4mbrl_px4_tpu_torch.models import policy as policy_mod
@@ -116,14 +125,15 @@ from sde4mbrl_px4_tpu_torch.models.trajectory import (
     TrajectoryTable, load_trajectory_csv, make_state_from_traj)
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
 from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel_batched
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_FMAX, P1_HID, p1_widths
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
 from sde4mbrl_px4_tpu_torch.ops.rollout import (
-    draw_brownian, draw_start_spread, make_time_steps, particle_starts)
+    draw_brownian, draw_start_spread, make_time_steps, particle_starts, rollout_sde)
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve_batched
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
 __all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "build_mpc",
-           "make_mpc_from_config", "not_in_slice"]
+           "hover_diag_probe", "make_mpc_from_config", "not_in_slice"]
 
 
 class MPCBundle(NamedTuple):
@@ -227,6 +237,22 @@ def _resolve_model(cfg: Dict[str, Any], device: torch.device):
     return model, init_params(gen, model, device=device)
 
 
+def _check_p1_trunk(params: Dict[str, Any], n_u: int) -> None:
+    """ROADMAP.md §3 fault 7, refused when the solver is built rather than
+    at its first launch: the P=1 whole solve and ``value_and_grad`` on the
+    card hold the trunk in registers (``ops/cuda/consts.py::p1_widths``),
+    so APG at P=1 takes no other trunk there."""
+    F, HID = (int(v) for v in params["net"]["w0"].shape)
+    if not p1_widths(F, HID):
+        raise ValueError(
+            f"fault 7 (ROADMAP.md §3): this checkpoint's trunk has {HID} hidden units and "
+            f"{F} inputs, and APG at num_particles 1 on the card takes only {P1_HID} "
+            f"hidden units and at most {P1_FMAX} inputs (the P=1 kernels hold the trunk "
+            f"in registers); ROADMAP.md §1 item 21 brings a shared-memory P=1 form. Until "
+            f"then fly it with device='cpu', num_particles > 1, solver: mppi or a pure "
+            f"policy")
+
+
 def _resolve_policy(cfg: Dict[str, Any], H: int, n_u: int, lb_np: np.ndarray,
                     ub_np: np.ndarray, device: torch.device
                     ) -> Tuple[policy_mod.PolicyNet, int]:
@@ -322,19 +348,72 @@ def _precond_cache_key(cfg: Dict[str, Any], vehicle_name: str,
 # ---------------------------------------------------------------------------
 
 
-def _load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ, convert_to_enu,
-                  device) -> torch.Tensor:
-    H = len(time_steps_np)
+def hover_diag_probe(model: NeuralSDE, params: Dict[str, Any], cost_params: CostParams,
+                     time_steps: torch.Tensor, x_ref: torch.Tensor,
+                     z_hover: torch.Tensor) -> np.ndarray:
+    """The ``hover_diag`` metric (original ``:533-568``): the diagonal of the
+    Hessian of the deterministic P=1 rollout cost at the hover plan
+    ``z_hover`` (H, nZ), from x = ``x_ref[0]`` with ``u_prev`` the hover
+    command, floored at 1e-4 of its peak, returned as ``min(d) / d`` in
+    float32 (so its largest entry is 1). One HVP per decision entry
+    (``torch.func``: forward over reverse, vmapped over the H·nZ basis) on
+    the plain rollout and cost, on ``z_hover``'s device."""
+    H, nZ = z_hover.shape
+    n_u = model.n_u
+    cost_fn = make_cost_fn(cost_params, time_steps)
+    x_p, u_prev = x_ref[0], z_hover[0, :n_u]
+    noise = torch.zeros(H, 1, 13, dtype=torch.float32, device=z_hover.device)
+
+    def cost(z):
+        u_seq = z[:, :n_u]
+        x_paths, sigmas = rollout_sde(model, params, x_p, u_seq, time_steps, noise)
+        return cost_fn(x_paths, sigmas, u_seq, x_ref, u_prev,
+                       s_seq=z[:, n_u:] if nZ > n_u else None)
+
+    grad = torch.func.grad(cost)
+
+    def hess_diag(e):
+        return torch.sum(torch.func.jvp(grad, (z_hover,), (e,))[1] * e)
+
+    basis = torch.eye(H * nZ, dtype=torch.float32, device=z_hover.device).reshape(-1, H, nZ)
+    d = torch.func.vmap(hess_diag)(basis).reshape(H, nZ)
+    # strictly positive: a (near-)flat or locally concave direction cannot
+    # blow the step up
+    d = torch.maximum(d, 1e-4 * torch.max(d))
+    return (torch.min(d) / d).to(torch.float32).cpu().numpy()
+
+
+def _load_precond(cfg, model, params, cost_params, time_steps, x_ref, z_hover,
+                  lb_np, ub_np, convert_to_enu) -> torch.Tensor:
+    """The cached ``hover_diag`` metric of this config's content (original
+    ``:510-570``), else :func:`hover_diag_probe` at ``x_ref`` (H+1, 13) and
+    ``z_hover`` (H, nZ), written atomically to the first writable cache
+    path."""
+    H, nZ = z_hover.shape
+    time_steps_np = time_steps.cpu().numpy()
     key = _precond_cache_key(cfg, model.vehicle.name, time_steps_np, lb_np,
                              ub_np, nZ, convert_to_enu)
-    for cand in _precond_cache_paths(cfg, key):
+    cands = _precond_cache_paths(cfg, key)
+    for cand in cands:
         if os.path.exists(cand):
-            d = np.load(cand)
+            try:
+                d = np.load(cand)
+            except (OSError, ValueError, EOFError):     # a corrupt cache: probe below
+                continue
             if d.shape == (H, nZ):
-                return torch.tensor(np.asarray(d, np.float32), device=device)
-    raise not_in_slice(
-        f"computing the hover_diag preconditioner (no cached {key}.npy)",
-        "Preconditioner probe")
+                return torch.tensor(np.asarray(d, np.float32), device=z_hover.device)
+    d = hover_diag_probe(model, params, cost_params, time_steps, x_ref, z_hover)
+    for cand in cands:
+        try:
+            os.makedirs(os.path.dirname(cand), exist_ok=True)
+            tmp = f"{cand}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                np.save(f, d)
+            os.replace(tmp, cand)
+            break
+        except OSError:
+            continue                # a read-only location: the next one
+    return torch.tensor(d, device=z_hover.device)
 
 
 def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
@@ -383,6 +462,8 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             apg_cfg = apg_cfg._replace(max_iter=refine, max_no_improvement_iter=refine)
     num_particles = int(cfg.get("num_particles", 1))
     antithetic = bool(cfg.get("antithetic", False))
+    if dev.type == "cuda" and num_particles == 1 and (solver == "apg" or refine):
+        _check_p1_trunk(params, n_u)
     # the particles' start spread (original :463-472): a scalar or 13 stds
     init_std = cfg.get("initial_state_std")
     x0_spread = None if init_std is None else torch.tensor(
@@ -406,9 +487,21 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         raise ValueError(f"apg_mpc.precond must be 'hover_diag' or omitted, "
                          f"got {precond_mode!r}")
     # MPPI takes no metric: the original loads it for apg and policy (:509)
-    precond = (_load_precond(cfg, model, time_steps_np, lb_np, ub_np, nZ,
-                             convert_to_enu, dev)
-               if precond_mode == "hover_diag" and solver in ("apg", "policy") else None)
+    precond = None
+    if precond_mode == "hover_diag" and solver in ("apg", "policy"):
+        # the probe's point (original :488-490, :537-544): the trajectory's
+        # first knots (or hover), the hover plan with the slack columns at
+        # their rest targets
+        if state_from_traj is not None:
+            x_ref_p = state_from_traj(knot_times)
+            x_ref_p = enu2ned(x_ref_p) if convert_to_enu else x_ref_p
+        else:
+            x_ref_p = hover_state(dev).expand(H + 1, 13)
+        z_hover = cost_params.uref.expand(H, n_u)
+        if m:
+            z_hover = torch.cat([z_hover, s_hover.expand(H, m)], dim=-1)
+        precond = _load_precond(cfg, model, params, cost_params, time_steps, x_ref_p,
+                                z_hover.contiguous(), lb_np, ub_np, convert_to_enu)
 
     bundle = MPCBundle(
         model=model, params=params, cost_params=cost_params,

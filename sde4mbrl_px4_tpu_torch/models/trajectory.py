@@ -115,4 +115,5 @@ def make_state_from_traj(table: TrajectoryTable,
         return torch.cat([x[..., 0:6], quat.qnormalize(x[..., 6:10]),
                           x[..., 10:13]], dim=-1)
 
+    state_from_traj.t_max = float(tn[-1])     # the table's end (original :164)
     return state_from_traj

@@ -20,7 +20,10 @@ and ``--pos-config`` replace the vehicle's shipped configs. ``--solver
 policy`` flies the shipped ``<policy-dir>/<vehicle>_{traj,posctrl}_policy.pkl``
 checkpoints (default ``configs/models``): the pure policy, or with
 ``--refine-iters N`` the hybrid (N whole-solve iterations from the
-network's plan on cold starts).
+network's plan on cold starts). ``--log path`` records every tick (the
+original's ``:252-270``: state, achieved and commanded motors, rates,
+reference, solver stats) and writes it at the end, ``.npz`` or a PX4 ULog
+for a ``.ulg`` path (``io/flight_log.py``); repeat it to write several.
 """
 from __future__ import annotations
 
@@ -51,7 +54,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--state-rate", type=float, default=50.0)
     ap.add_argument("--time-scale", type=float, default=1.0)
     ap.add_argument("--verbose", action="store_true")
-    ap.add_argument("--log", default=None, help="write a flight log (not ported)")
+    ap.add_argument("--log", action="append", default=None,
+                    help="write the flight log: .npz, or a PX4 ULog for a .ulg path "
+                         "(repeat the option to write one flight to several files)")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="blocking solver dispatch (pipeline off)")
     ap.add_argument("--solver", default="apg", choices=("apg", "mppi", "policy"))
@@ -137,15 +142,11 @@ def _plant(args):
 def run(argv: Optional[list] = None) -> dict:
     """Fly one closed loop; returns its numbers (``ok`` is the PASS gate)."""
     args = parser().parse_args(argv)
-    if args.log:
-        raise NotImplementedError(
-            "--log (io/flight_log.py, with io/ulog.py and io/router.py) is not "
-            "ported to sde4mbrl_px4_tpu_torch yet; ROADMAP.md §1 'Flight log' "
-            "brings it")
 
     from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
     from sde4mbrl_px4_tpu_torch.core.types import CTRL_TRAJ_ACTIVE, CTRL_TRAJ_IDLE
     from sde4mbrl_px4_tpu_torch.io.engine_runtime import SDEControlNode
+    from sde4mbrl_px4_tpu_torch.io.flight_log import FlightRecorder
     from sde4mbrl_px4_tpu_torch.io.mavlink import MavlinkUDP, load_native
     from sde4mbrl_px4_tpu_torch.sim.plant import FCUSim
 
@@ -208,6 +209,7 @@ def run(argv: Optional[list] = None) -> dict:
         watchdog_trips = timeout_ticks = tracked_ticks = 0
         prev_status = fcu.status
         max_pickup_idx = 0
+        recorder = FlightRecorder() if args.log else None
         solves0 = len(node.solve_seconds)
         wall0 = time.perf_counter()
         for k in range(n_steps):
@@ -240,6 +242,19 @@ def run(argv: Optional[list] = None) -> dict:
                 tracked_ticks += 1
                 timeout_ticks += int(fcu.status == FCUSim.MPC_TIMEOUT)
             prev_status = fcu.status
+            if recorder is not None:
+                # every tick, as the original records it (:252-270)
+                c = fcu.last_cmd
+                rec = node.last_record
+                ref_now = (enu2ned(sft(float(node.ctrl.automata.trajec_time))).numpy()
+                           if running else None)
+                recorder.record(
+                    plant.t, plant.x, motors=fcu.applied_motors4,
+                    cmd_motors=None if c is None else c[0],
+                    cmd_thrust_rates=None if c is None else c[1], ref=ref_now,
+                    mpc_on=0 if c is None else c[2], weight_motors=0 if c is None else c[3],
+                    solve_time=rec.solve_time, num_steps=rec.num_steps,
+                    opt_cost=rec.opt_cost, mpc_indx=rec.mpc_indx)
         wall_s = time.perf_counter() - wall0
     finally:
         stop.set()
@@ -294,6 +309,11 @@ def run(argv: Optional[list] = None) -> dict:
           f"{res['iterations_p50']} iterations (first {res['first_iterations']}); "
           f"ingress pick p50 {res['pick_ms_p50']:.4f} ms p99 {res['pick_ms_p99']:.4f} ms "
           f"over {res['picks']}; mailbox {res['mailbox']}, codec {res['codec']}")
+    if recorder is not None:
+        for path in args.log:
+            recorder.save(path)
+            print(f"flight log: {path} ({len(recorder)} records)")
+        res["log"], res["log_records"] = args.log, len(recorder)
     print("RESULT:", "PASS" if ok else "FAIL", flush=True)
     return res
 

@@ -271,12 +271,20 @@ def test_closed_loop_flies_the_policy_on_the_cpu(repo_root, tmp_path):
     assert 1 <= res["iterations_p50"] <= 2
 
 
-@pytest.mark.parametrize("flag, item", [(["--log", "x.npz"], "Flight log")])
-def test_closed_loop_refuses_what_is_not_ported(flag, item):
+@pytest.mark.parametrize("flag, item", [(["--matmul-precision", "bfloat16"],
+                                          "Reduced matmul precision")])
+def test_closed_loop_refuses_what_is_not_ported(repo_root, tmp_path, flag, item):
+    """A config the port refuses stops the closed loop with the refusal
+    naming its ROADMAP item (``--log`` is ported: tests/test_torch_flight_log.py)."""
     from sde4mbrl_px4_tpu_torch.sim import closed_loop
 
+    traj, pos = _tiny(repo_root, tmp_path)
+    cfg = yaml.safe_load(open(traj))
+    cfg["matmul_precision"] = flag[1]
+    with open(traj, "w") as f:
+        yaml.safe_dump(cfg, f)
     with pytest.raises(NotImplementedError, match=item):
-        closed_loop.run(["--cpu"] + flag)
+        closed_loop.run(["--cpu", "--traj-config", traj, "--pos-config", pos])
 
 
 def test_closed_loop_raises_without_a_card():

@@ -307,11 +307,20 @@ def test_entry_points_default_to_card(repo_root, entry):
         call()
 
 
-def test_precond_cache_miss_is_refused(repo_root):
+def test_precond_cache_miss_is_refused(repo_root, tmp_path, monkeypatch):
+    """A cache miss is no longer refused (the probe is ported): new cost
+    content misses, is probed, and its metric is written to the first
+    writable cache path, here the env dir in ``tmp_path`` (never under
+    ``configs/models/precond/``); tests/test_torch_precond.py holds the
+    probe to the JAX package's."""
+    monkeypatch.setenv("SDE4MBRL_PRECOND_CACHE", str(tmp_path))
     cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_traj_mpc.yaml"))
     cfg["cost_params"]["uerr"] = 2.0         # new content -> no cached artifact
-    with pytest.raises(NotImplementedError, match="Preconditioner probe"):
-        tloader.make_mpc_from_config(cfg, device="cpu")
+    _, _, _, b = tloader.make_mpc_from_config(cfg, device="cpu")
+    files = os.listdir(tmp_path)
+    assert len(files) == 1 and files[0].endswith(".npy")
+    np.testing.assert_array_equal(np.load(tmp_path / files[0]), b.precond.numpy())
+    assert b.precond.shape == (20, 4) and float(b.precond.max()) == 1.0
 
 
 def test_pos_replay_matches_golden(repo_root):
@@ -353,9 +362,12 @@ def test_slice_runs_without_jax(repo_root):
     """A fresh process imports the port, builds the controller and solves
     once in each mode, runs the particle and constrained routes, a batched
     solve and a fleet tick, imports the node, the sim, the fleet demo and
-    the launcher and flies one solve through the engine node, without JAX
-    ever entering ``sys.modules``; no module of the port imports JAX or the
-    JAX package."""
+    the launcher and flies one solve through the engine node, then writes
+    and reads flight logs (``io/flight_log.py``, ``io/ulog.py``), takes
+    two ``train_sde`` steps, evaluates and labels a state (``learning/``)
+    and imports the learning drives, without JAX ever entering
+    ``sys.modules``; no module of the port imports JAX or the JAX
+    package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -442,6 +454,40 @@ def test_slice_runs_without_jax(repo_root):
             time.sleep(0.05)
         node.stop()
         assert out is not None and out[2] == CONTROL_STATES["pos"], out
+        # the learning loop: flight logs, a training step, a label, the
+        # evaluation and the drives, imported and run without JAX
+        import os, tempfile
+        import sde4mbrl_px4_tpu_torch.sim.eval_model
+        import sde4mbrl_px4_tpu_torch.sim.policy_distill
+        import sde4mbrl_px4_tpu_torch.sim.train_model
+        from sde4mbrl_px4_tpu_torch.io.flight_log import FlightRecorder, load_flight_log
+        from sde4mbrl_px4_tpu_torch.io.ulog import read_ulog
+        from sde4mbrl_px4_tpu_torch.learning import (
+            DistillConfig, TrainConfig, TrajectoryDataset, kstep_errors, train_sde)
+        from sde4mbrl_px4_tpu_torch.learning.distill import label_states
+        from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE, init_params
+        from sde4mbrl_px4_tpu_torch.models.vehicles import iris_config
+        rec = FlightRecorder()
+        for k in range(12):
+            rec.record(0.02 * k, x, cmd_motors=np.full(6, 0.7, np.float32))
+        with tempfile.TemporaryDirectory() as td:
+            for suffix in (".npz", ".ulg"):
+                rec.save(os.path.join(td, "f" + suffix))
+            assert len(load_flight_log(os.path.join(td, "f.npz"))["t"]) == 12
+            assert "vehicle_local_position" in read_ulog(os.path.join(td, "f.ulg"))["data"]
+        m = NeuralSDE.for_vehicle(iris_config())
+        p0 = init_params(torch.Generator().manual_seed(0), m)
+        t, xs_, us_ = np.arange(12) * 0.02, np.tile(x, (12, 1)), np.full((12, 4), 0.7)
+        ds = TrajectoryDataset(t, xs_, us_.astype(np.float32), 3)
+        _, met = train_sde(m, p0, ds, TrainConfig(window=3, batch_size=4, steps=2),
+                           log_every=0, device="cpu")
+        assert np.isfinite(met["final_loss"])
+        assert kstep_errors(m, p0, t, xs_, us_, ks=(2,), device="cpu")["k2"]["windows"] > 0
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg["apg_mpc"]["max_iter"] = 2
+        lab = label_states(cfg, xs[:1], torch.zeros(1), xs[:1], None,
+                           DistillConfig(expert_max_iter=1), device="cpu")
+        assert lab.shape == (1, 20, 4)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
