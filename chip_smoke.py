@@ -10,9 +10,11 @@ kernels, and the policy family (the pure policy on the oracle, the
 ``refine_iters`` hybrid on the whole solve); then flies the closed loop
 (the engine node on the card against the simulated FCU over UDP) and the
 two-process launch tier, serves batched solves and fleets of every
-family on the kernels' scenario axis, and runs the learning loop (a logged
+family on the kernels' scenario axis, runs the learning loop (a logged
 flight, the SDE fitted to it, its metric probed, a policy distilled from
-batched whole-solve labels and flown).
+batched whole-solve labels and flown), and tunes MPPI knobs and tracking
+weights on that axis, then flies the mismatch sweep and the geometric
+launch node.
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
@@ -245,8 +247,30 @@ without a result):
     re-run for its device time and labels/s; (e) a 32-wide trunk refused
     when ``make_mpc_from_config`` builds the solver (fault 7), with no
     launch.
+26. batched tuning (``tuning/tuner.py``) on both iris configs:
+    ``tune_mppi`` at ``tools/tune_mppi.py``'s default grid (27 candidates,
+    K = 64, 8 rounds) and ``tune_cost_weights`` on a 27-row grid (noisy
+    plant, ``effort_weight`` 0.05), 40 periods each: every period one
+    batched solve over the 27 candidates (MPPI: 10 ``value_batch`` launches
+    over 27 x 64 plans and one ``trajectory``; weights: one ``apg_solve``
+    launch of 27 blocks, each candidate's weights in its consts row); the
+    ranked table, ms a period, closed-loop solves/s and launches a period;
+    candidates 0, 9, 13 and 26 at periods 0 and 20 bit-equal to their solo
+    ``mpc_fn`` built with their own knobs or weights; one MPPI period of
+    all 27 against the plain oracle on the same draws (scores rtol 1e-5,
+    plans |du| <= 1e-4) and the four candidates' weight solves at 10
+    iterations against the plain whole solve (rtol 2e-4 / atol 2e-5, equal
+    steps); the kernels timed at the sweeps' shapes; then the iris mismatch
+    sweep in full (``sim/mismatch_sweep.py``, its JSON to a temporary
+    directory; gate: its PASS with the native geometric controller flown,
+    one ``apg_solve`` a period), the geometric launch node against
+    ``fcu_sim`` for 2 s (the node first, so it flies the plant from its
+    first state; gates: commands sent, the FCU at ``MPC_ON``, both exit 0
+    on SIGTERM), and
+    ``sim/geometric_baseline.py`` for 6 s (gate: its PASS, the circle
+    tracked within 0.6 m).
 
-In phases 6-8, 11-13, 15-18, 20-22, 24 and 25 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22 and 24-26 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -254,7 +278,8 @@ JAX must never be imported.
 
 The lines before the last are the routes' JSON record (``{"record": ...}``:
 per-solve times, the closed loops, the launch tier, the fleets, the policy
-family, the batched routes), the kernels' JSON line and the card's name and
+family, the batched routes, the tuning sweeps, the mismatch sweep and the
+geometric node), the kernels' JSON line and the card's name and
 power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -3910,6 +3935,449 @@ def phase_learning(dev, card: str) -> dict:
             "fault7": fault7}
 
 
+# ---------------------------------------------------------------- phase 26
+# the tuning sweeps at tools/tune_mppi.py's default grid (:33-35) and a
+# 27-row weight grid, 40 periods each; the candidates held bit for bit to
+# their solo solves at two periods; the mismatch sweep; the geometric node
+TUNE_CONFIGS = ("iris_posctrl_mpc", "iris_traj_mpc")
+TUNE_STEPS = 40
+TUNE_SIGMAS, TUNE_TEMPS, TUNE_BETAS = [0.01, 0.02, 0.04], [0.05, 0.1, 0.2], [0.0, 0.5, 0.7]
+WEIGHT_SCALES = ([0.5, 1.0, 2.0], [0.5, 1.0, 2.0], [0.5, 1.0, 2.0], [1.0])
+TUNE_EFFORT = 0.05
+TUNE_CHECK = (0, 9, 13, 26)           # candidates held to their solo solves
+TUNE_PERIODS = (0, TUNE_STEPS // 2)   # ... at these periods
+TUNE_PLAIN_ITERS = 10                 # the weight sweep's plain comparison budget
+GEO_NODE_S = 2.0                      # the geometric launch node's run
+GEO_SIM_S = 6.0                       # examples/geometric_baseline_sim.py's --seconds
+
+
+@contextlib.contextmanager
+def recorded_sweeps(periods: tuple = TUNE_PERIODS):
+    """Record a tuner's builds and, at ``periods``, its batched solves'
+    inputs, draws and solutions (``tuning/tuner.py`` calls ``build_mpc``
+    twice: the probe, then the candidates' solver). ``rec["t0"]`` and
+    ``rec["e0"]`` mark the first solve's dispatch (host clock, CUDA
+    event)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.solver.apg import APGState
+    from sde4mbrl_px4_tpu_torch.tuning import tuner
+
+    rec = {"builds": [], "calls": {}}
+    orig = tuner.build_mpc
+
+    def build(*a, **kw):
+        cfg, bundle, pieces = orig(*a, **kw)
+        rec["builds"].append((cfg, bundle, pieces))
+        solve, k = pieces.solve, [0]
+
+        def recording(xs, rngs, st, ts, xdes=None, iter_budget=None):
+            i = k[0]
+            k[0] += 1
+            if i == 0:
+                rec["t0"] = time.perf_counter()
+                rec["e0"] = torch.cuda.Event(enable_timing=True)
+                rec["e0"].record()
+            if i not in periods:
+                return solve(xs, rngs, st, ts, xdes, iter_budget)
+            item = None
+            if rngs is not None and not isinstance(rngs, torch.Generator):
+                item = next(rngs)
+                rngs = iter([item])
+            inp = (xs.clone(), APGState(*(f.clone() for f in st)), ts.clone(), xdes.clone(),
+                   item)
+            sol = solve(xs, rngs, st, ts, xdes, iter_budget)
+            rec["calls"][i] = (inp, sol)
+            return sol
+
+        return cfg, bundle, pieces._replace(solve=recording)
+
+    tuner.build_mpc = build
+    try:
+        yield rec
+    finally:
+        tuner.build_mpc = orig
+
+
+@contextlib.contextmanager
+def plain_batched():
+    """The loader's batched kernel wrappers swapped for their plain versions
+    on the same device (parity only)."""
+    from sde4mbrl_px4_tpu_torch.engine import mpc_loader
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    orig = (mpc_loader.apg_solve_kernel_batched, mpc_loader.cost_oracle_batched)
+    mpc_loader.apg_solve_kernel_batched = AK.apg_solve_plain_batched
+    mpc_loader.cost_oracle_batched = CO.cost_oracle_plain_batched
+    try:
+        yield
+    finally:
+        mpc_loader.apg_solve_kernel_batched, mpc_loader.cost_oracle_batched = orig
+
+
+def timed_sweep(fn, cfg: dict, grid, steps: int, **kw) -> tuple:
+    """One sweep, recorded: ``(results, rec, stats)``, stats the ms a
+    period (host, from the first solve's dispatch to the scores on the
+    host; device, CUDA events), closed-loop solves/s and the launches a
+    period per kernel (zeroed just before)."""
+    import torch
+
+    with recorded_sweeps() as rec:
+        zero_counts()
+        res = fn(copy.deepcopy(cfg), grid, steps=steps, **kw)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - rec["t0"]
+    got = counts()
+    N = len(grid)
+    stats = {"ms_per_period": 1e3 * wall / steps,
+             "device_ms_per_period": rec["e0"].elapsed_time(e1) / steps,
+             "solves_per_s": N * steps / wall, "candidates": N, "steps": steps,
+             "launches": got, "launches_per_period": {k: v / steps for k, v in got.items()}}
+    return res, rec, stats
+
+
+def tuner_solo_bits(tag: str, kind: str, cfg: dict, rec: dict, grid, dev) -> int:
+    """Candidates ``TUNE_CHECK`` of each recorded batched solve against their
+    solo ``mpc_fn`` on the card, built with their own knobs (Python
+    floats) or tracking weights, on the recorded inputs and draws: bit for
+    bit (``bit_equal_to_solo``)."""
+    from sde4mbrl_px4_tpu_torch.core.types import MPCSolution
+    from sde4mbrl_px4_tpu_torch.cost.cost import scenario_cost
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.solver.apg import APGState
+    from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig
+
+    probe, cand = rec["builds"][0][1], rec["builds"][1][1]
+    fns = {}
+    for i in TUNE_CHECK:
+        if kind == "mppi":
+            s = MPPIConfig.from_config(cfg)
+            kw = {"mppi_params": MPPIConfig(samples=s.samples, sigma=float(grid[i, 0]),
+                                            temperature=float(grid[i, 1]), iters=s.iters,
+                                            noise_beta=float(grid[i, 2]))}
+        else:
+            kw = {"cost_params_override": scenario_cost(cand.cost_params, i)}
+        fns[i] = make_mpc_from_config(copy.deepcopy(cfg), device=dev,
+                                      state_from_traj=probe.state_from_traj, **kw)[1][1]
+    idx = list(TUNE_CHECK)
+    n = 0
+    for period, ((xs, st, ts, xdes, item), sol) in sorted(rec["calls"].items()):
+        solos = [fns[i](xs[i], None if item is None else iter([(item[0][i], item[1][i])]),
+                        scenario_state(st, i), ts[i], xdes[i]) for i in idx]
+        sub = MPCSolution(u_opt=sol.u_opt[idx], rng=None, x_evol=sol.x_evol[idx],
+                          opt_state=APGState(*(f[idx] for f in sol.opt_state)))
+        n += bit_equal_to_solo(f"{tag}, period {period}, candidates {idx}", sub, solos)
+    return n
+
+
+def tuning_mppi(dev, name: str, card: str) -> dict:
+    """``tune_mppi`` on ``name`` at the tool's default grid (27 candidates,
+    K = 64, 8 rounds) over ``TUNE_STEPS`` periods: the table, the times,
+    the launches a period (``iters + 2`` ``value_batch`` over 27 x 64
+    plans and one ``trajectory`` over 27 plans), four candidates bit-equal
+    to their solo solves at two periods; then one period against the plain
+    oracle on the same draws (scores rtol 1e-5, plans |du| <= 1e-4, phase
+    7's gate); the per-launch times of both kernels at the sweep's shapes."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig
+    from sde4mbrl_px4_tpu_torch.tuning import make_mppi_grid, tune_mppi
+
+    cfg = config(name, solver="mppi")
+    static = MPPIConfig.from_config(cfg)
+    grid = make_mppi_grid(TUNE_SIGMAS, TUNE_TEMPS, TUNE_BETAS)
+    N, it = len(grid), static.iters
+    res, rec, st = timed_sweep(tune_mppi, cfg, grid, TUNE_STEPS)
+    want = {"apg_solve": 0, "value_batch": TUNE_STEPS * (it + 2), "value_and_grad": 0,
+            "trajectory": TUNE_STEPS}
+    check_route(f"tune_mppi {name}", want)
+    log(f"tune_mppi {name} ({card}): {N} candidates x {TUNE_STEPS} periods (K={static.samples}, "
+        f"{it} rounds): {st['ms_per_period']:.3f} ms a period host, "
+        f"{st['device_ms_per_period']:.3f} device; {st['solves_per_s']:.0f} closed-loop "
+        f"solves/s; launches a period {st['launches_per_period']}")
+    for r in res[:5]:
+        log(f"  sigma {r.sigma:.4g} temp {r.temperature:.4g} beta {r.noise_beta:.3g}: mean "
+            f"{r.mean_pos_err:.4f} m final {r.final_pos_err:.4f} m")
+    log("  best as a config block: " + res[0].yaml_block(static.samples, it).replace("\n", "; "))
+    if not all(math.isfinite(r.mean_pos_err) for r in res):
+        raise AssertionError(f"tune_mppi {name}: a non-finite score")
+    st["bit_equal"] = tuner_solo_bits(f"tune_mppi {name}", "mppi", cfg, rec, grid, dev)
+    # one period, kernels against the plain oracle on the same draws
+    with recorded_sweeps((0,)) as rk:
+        one_k = tune_mppi(copy.deepcopy(cfg), grid, steps=1)
+    t = time.perf_counter()
+    with plain_batched(), recorded_sweeps((0,)) as rp:
+        one_p = tune_mppi(copy.deepcopy(cfg), grid, steps=1)
+    st["plain_period_s"] = time.perf_counter() - t
+    key = lambda r: (r.sigma, r.temperature, r.noise_beta)
+    pk, pp = ({key(r): r.mean_pos_err for r in rows} for rows in (one_k, one_p))
+    rel = max(abs(pk[k] - pp[k]) / abs(pp[k]) for k in pp)
+    du = float((rk["calls"][0][1].u_opt - rp["calls"][0][1].u_opt).abs().max())
+    st.update(first_period_rel=rel, first_period_du=du)
+    log(f"tune_mppi {name}, one period, kernels vs plain ({N} candidates, same draws): scores "
+        f"rel {rel:.3e} (1e-5), plans max|du| {du:.3e} (1e-4); plain {st['plain_period_s']:.2f} s")
+    if rel > 1e-5 or du > 1e-4:
+        raise AssertionError(f"tune_mppi {name}: the kernels disagree with the plain oracle")
+    # the kernels at the sweep's shapes, per launch
+    (xs, s0, ts, xdes, item), sol = rec["calls"][0]
+    cfg_b, b, pieces = rec["builds"][1]
+    x_ref = pieces.build_ref(ts, pieces.targets(xdes))
+    ob = CO.cost_oracle_batched(b.model, b.params, b.cost_params, b.time_steps, xs, x_ref,
+                                s0.yk[:, 0], None, 1, 4)
+    H, nZ = int(b.time_steps.shape[0]), int(b.lb_z.shape[0])
+    U = (s0.yk[:, None] + 0.05 * torch.randn((N, static.samples, H, nZ),
+                                             generator=torch.Generator().manual_seed(5)
+                                             ).to(dev)).clamp(b.lb_z, b.ub_z).contiguous()
+    plain = [CO.cost_oracle_plain(b.model, b.params, b.cost_params, b.time_steps, xs[i],
+                                  x_ref[i], s0.yk[i, 0], None, 1, 4) for i in (0, N - 1)]
+    costs, traj = ob.value_batch(U), ob.trajectory(sol.u_opt.contiguous())
+    vb_err = max(float(((costs[i] - p.value_batch(U[i])).abs() / costs[i].abs()).max())
+                 for i, p in zip((0, N - 1), plain))
+    tr_err = max(float((traj[i] - p.trajectory(sol.u_opt[i])).abs().max())
+                 for i, p in zip((0, N - 1), plain))
+    st.update(value_batch_ms=per_launch_ms(lambda: ob.value_batch(U), 20),
+              trajectory_ms=per_launch_ms(lambda: ob.trajectory(sol.u_opt.contiguous()), 20),
+              value_batch_plain_ms=per_launch_ms(lambda: plain[0].value_batch(U[0]), 3),
+              trajectory_plain_ms=per_launch_ms(lambda: plain[0].trajectory(sol.u_opt[0]), 3),
+              value_batch_err=vb_err, trajectory_err=tr_err, bundle=b,
+              n_consts=n_consts(b, dev), K=static.samples,
+              table=[r._asdict() for r in res[:5]])
+    log(f"tune_mppi {name}: value_batch over {N} x {static.samples} plans "
+        f"{st['value_batch_ms']:.4f} ms a launch (plain one scenario "
+        f"{st['value_batch_plain_ms']:.2f} ms; rel {vb_err:.2e}), trajectory over {N} plans {st['trajectory_ms']:.4f} ms (plain "
+        f"one plan {st['trajectory_plain_ms']:.2f} ms; max|dx| {tr_err:.2e})")
+    if vb_err > 2e-5 or tr_err > 1e-4:
+        raise AssertionError(f"tune_mppi {name}: a kernel disagrees with the plain oracle")
+    return st
+
+
+def tuning_weights(dev, name: str, card: str) -> dict:
+    """``tune_cost_weights`` on ``name``: a 27-row grid over ``TUNE_STEPS``
+    periods, noisy plant, ``effort_weight`` ``TUNE_EFFORT``: one launch of
+    the whole-solve kernel over the 27 candidates a period, each with its
+    own tracking weights; four candidates bit-equal to their solo solves
+    with their weights at two periods; the four at a ``TUNE_PLAIN_ITERS``
+    budget against the plain whole solve, one period (scores and plans
+    rtol 2e-4 / atol 2e-5, equal steps); the launch over 27 timed."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.cost.cost import scenario_cost
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.tuning import make_weight_grid, tune_cost_weights
+
+    cfg = config(name)
+    grid = make_weight_grid(*WEIGHT_SCALES)
+    N = len(grid)
+    res, rec, st = timed_sweep(tune_cost_weights, cfg, grid, TUNE_STEPS,
+                               effort_weight=TUNE_EFFORT)
+    check_route(f"tune_cost_weights {name}", {"apg_solve": TUNE_STEPS, "value_batch": 0,
+                                              "value_and_grad": 0, "trajectory": 0})
+    sol0 = rec["calls"][0][1]
+    steps = sol0.opt_state.num_steps
+    log(f"tune_cost_weights {name} ({card}): {N} candidates x {TUNE_STEPS} periods "
+        f"({cfg['apg_mpc']['max_iter']}-iteration budget, first period {float(steps.mean()):.1f}"
+        f" it. mean, {float(steps.max()):.0f} max): {st['ms_per_period']:.3f} ms a period host,"
+        f" {st['device_ms_per_period']:.3f} device; {st['solves_per_s']:.0f} closed-loop "
+        f"solves/s; launches a period {st['launches_per_period']}")
+    for r in res[:5]:
+        log(f"  p {r.p_scale:g} v {r.v_scale:g} q {r.q_scale:g} w {r.w_scale:g}: score "
+            f"{r.score:.4f} (err {r.mean_pos_err:.4f} m, effort {r.effort:.5f})")
+    if not all(math.isfinite(r.score) for r in res):
+        raise AssertionError(f"tune_cost_weights {name}: a non-finite score")
+    st["bit_equal"] = tuner_solo_bits(f"tune_cost_weights {name}", "weights", cfg, rec, grid,
+                                      dev)
+    # the launch over the 27 candidates at the sweep's first period, timed
+    (xs, s0, ts, xdes, _), _ = rec["calls"][0]
+    _, b, pieces = rec["builds"][1]
+    x_ref = pieces.build_ref(ts, pieces.targets(xdes))
+    launch = lambda: AK.apg_solve_kernel_batched(
+        b.model, b.params, b.cost_params, b.apg_config, b.time_steps, xs, x_ref, s0.yk[:, 0],
+        None, 1, b.lb_z, b.ub_z, s0.yk, t_init=s0.stepsize if pieces.carry_t else None,
+        precond=b.precond)
+    st["launch_ms"] = per_launch_ms(launch, 5)
+    st["iterations_mean"] = float(steps.mean())
+    # four candidates at a fixed budget, kernel against plain, one period
+    sub = grid[list(TUNE_CHECK)]
+    small = copy.deepcopy(cfg)
+    small["apg_mpc"]["max_iter"] = TUNE_PLAIN_ITERS
+    with recorded_sweeps((0,)) as rk:
+        one_k = tune_cost_weights(copy.deepcopy(small), sub, steps=1,
+                                  effort_weight=TUNE_EFFORT)
+    with plain_batched(), recorded_sweeps((0,)) as rp:
+        one_p = tune_cost_weights(copy.deepcopy(small), sub, steps=1,
+                                  effort_weight=TUNE_EFFORT)
+    sk, sp = rk["calls"][0][1], rp["calls"][0][1]
+    # one scenario's plain solve at that budget, timed
+    bk = rk["builds"][1][1]
+    apg10 = bk.apg_config
+    t = time.perf_counter()
+    AK.apg_solve_plain(bk.model, bk.params, scenario_cost(bk.cost_params, 0), apg10,
+                       bk.time_steps, xs[0], x_ref[0], s0.yk[0, 0], None, 1, bk.lb_z, bk.ub_z,
+                       s0.yk[0], t_init=s0.stepsize[0] if pieces.carry_t else None,
+                       precond=bk.precond)
+    torch.cuda.synchronize()
+    st["plain_ms"] = 1e3 * (time.perf_counter() - t)
+    key = lambda r: (r.p_scale, r.v_scale, r.q_scale, r.w_scale)
+    pk = {key(r): (r.score, r.effort) for r in one_k}
+    bad = [k for k, r in ((key(r), r) for r in one_p)
+           if not np.allclose(pk[k], (r.score, r.effort), rtol=2e-4, atol=2e-5)]
+    du = float((sk.u_opt - sp.u_opt).abs().max())
+    same_steps = bool((sk.opt_state.num_steps == sp.opt_state.num_steps).all())
+    plans_ok = bool(np.allclose(sk.u_opt.cpu().numpy(), sp.u_opt.cpu().numpy(), rtol=2e-4,
+                                atol=2e-5))
+    st.update(fixed_du=du, bundle=b, n_consts=n_consts(b, dev),
+              table=[r._asdict() for r in res[:5]])
+    log(f"tune_cost_weights {name}, candidates {list(TUNE_CHECK)} at {TUNE_PLAIN_ITERS} "
+        f"iterations, one period, kernel vs plain: scores {'within' if not bad else 'OUTSIDE'} "
+        f"rtol 2e-4 / atol 2e-5, plans max|du| {du:.3e} ({'within' if plans_ok else 'OUTSIDE'}"
+        f"), equal steps {same_steps}; the launch over {N} at the full budget "
+        f"{st['launch_ms']:.3f} ms, one scenario's plain solve at {TUNE_PLAIN_ITERS} it. "
+        f"{st['plain_ms']:.1f} ms")
+    if bad or not (plans_ok and same_steps):
+        raise AssertionError(f"tune_cost_weights {name}: the kernel disagrees with plain: {bad}")
+    return st
+
+
+def tuning_mismatch(card: str) -> dict:
+    """The iris mismatch sweep in full (``sim/mismatch_sweep.py``: 11 cells,
+    4 s, 60 iterations, the MPC, the MPC with the offset estimator and the
+    native geometric controller), its JSON to a temporary directory; gate:
+    its PASS with the geometric controller flown, and one ``apg_solve``
+    launch per MPC period."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.sim import mismatch_sweep
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mismatch_") as td:
+        zero_counts()
+        t = time.perf_counter()
+        rec = mismatch_sweep.run(["--out", os.path.join(td, "MISMATCH.json")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    got = counts()
+    check_route("mismatch sweep", {"apg_solve": rec["mpc_periods"], "value_batch": 0,
+                                   "value_and_grad": 0, "trajectory": 0})
+    log(f"mismatch sweep (iris, {card}): {len(rec['cells'])} cells in {wall:.1f} s, gate "
+        f"{'PASS' if rec['gate']['pass'] else 'FAIL'}, geometric flown {rec['geometric']}")
+    if not (rec["gate"]["pass"] and rec["geometric"]
+            and all("geo_mean_m" in r for r in rec["cells"])):
+        raise AssertionError(f"the mismatch sweep failed (or flew without the native "
+                             f"controller): {rec}")
+    return {"wall_s": wall, "launches": got, "cells": rec["cells"], "gate": rec["gate"]}
+
+
+def tuning_geometric_node(card: str) -> dict:
+    """The launch tier's geometric node: ``iris_geoctrl.yaml`` as one
+    ``python -m sde4mbrl_px4_tpu_torch.launch`` process, then ``fcu_sim``
+    (iris) on the same port, so the node flies the plant from its first
+    state (the trajectory's start, where the node's clock starts); after
+    ``GEO_NODE_S`` of both serving, SIGTERM to each. Gates: both READY,
+    the node answers the FCU's states (its count of MPC_MOTORS_CMD frames),
+    the FCU reports ``MPC_ON``, both exit 0; the FCU's positions are
+    printed."""
+    import queue
+    import threading
+
+    import yaml
+
+    d = os.path.join(ROOT, "build", "chip_smoke", "geometric")
+    os.makedirs(d, exist_ok=True)
+    mav = free_udp_port()
+    files = {}
+    for key, name in (("fcu_sim", "iris_px4_sitl.yaml"), ("geometric", "iris_geoctrl.yaml")):
+        with open(os.path.join(ROOT, "configs", "launch", name)) as f:
+            cfg = yaml.safe_load(f)
+        cfg["addr_mavlink_state_msg"] = f"127.0.0.1:{mav}"
+        if key == "fcu_sim":
+            cfg["config_dir"] = os.path.join(ROOT, "configs")
+        else:
+            cfg["trajectory_path"] = os.path.join(ROOT, "configs", cfg["trajectory_path"])
+        files[key] = os.path.join(d, name)
+        with open(files[key], "w") as f:
+            yaml.safe_dump(cfg, f)
+    procs, logs = {}, {k: [] for k in files}
+    ready: "queue.Queue" = queue.Queue()
+
+    def pump(key, proc):
+        for line in proc.stdout:
+            logs[key].append(line.rstrip())
+            if "[launch] READY" in line:
+                ready.put(key)
+
+    out = {}
+    try:
+        for key in ("geometric", "fcu_sim"):
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", files[key]], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, bufsize=1)
+            threading.Thread(target=pump, args=(key, procs[key]), daemon=True).start()
+            try:
+                if ready.get(timeout=LAUNCH_READY_S) != key:
+                    raise queue.Empty
+            except queue.Empty:
+                raise AssertionError(f"{key} did not become READY: {logs[key][-10:]}")
+        time.sleep(GEO_NODE_S)
+        n_reports = len(logs["fcu_sim"])
+    finally:
+        for key in ("geometric", "fcu_sim"):
+            if key in procs and procs[key].poll() is None:
+                procs[key].terminate()
+                try:
+                    procs[key].wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    procs[key].kill()
+            if key in procs:
+                out[f"{key}_rc"] = procs[key].wait(timeout=30)
+    m = re.search(r"sent (\d+) MPC_MOTORS_CMD", "\n".join(logs["geometric"]))
+    out["commands"] = int(m.group(1)) if m else 0
+    reports = [ln for ln in logs["fcu_sim"][:n_reports] if ln.startswith("[fcu_sim]")]
+    out["mpc_on_reports"] = sum("status=1" in ln for ln in reports)
+    out["fcu_tail"] = reports[-3:]
+    log(f"geometric launch node ({card}): {out['commands']} MPC_MOTORS_CMD frames over "
+        f"{GEO_NODE_S} s of fcu_sim streaming; fcu_sim reports MPC_ON {out['mpc_on_reports']} "
+        f"times; exit codes on SIGTERM: node {out['geometric_rc']}, fcu_sim "
+        f"{out['fcu_sim_rc']}; {out['fcu_tail']}")
+    if not (out["geometric_rc"] == 0 and out["fcu_sim_rc"] == 0 and out["commands"] >= 50
+            and out["mpc_on_reports"] >= 1):
+        raise AssertionError(f"the geometric launch node did not serve: {out}; "
+                             f"{logs['geometric'][-5:]}")
+    return out
+
+
+def phase_tuning(dev, card: str) -> dict:
+    """Phase 26, batched tuning, the mismatch sweep and the geometric node
+    (module docstring)."""
+    out = {"mppi": {}, "weights": {}}
+    for name in TUNE_CONFIGS:
+        out["mppi"][name] = tuning_mppi(dev, name, card)
+        out["weights"][name] = tuning_weights(dev, name, card)
+    out["mismatch"] = tuning_mismatch(card)
+    out["geometric"] = tuning_geometric_node(card)
+    out["geometric_sim"] = tuning_geometric_sim()
+    return out
+
+
+def tuning_geometric_sim() -> dict:
+    """``sim/geometric_baseline.py`` at the example's 6 s: the native
+    controller following the circle over UDP against the FCU shim (on the
+    host; the node's tracking, which the launch check does not gate);
+    gate: its PASS."""
+    from sde4mbrl_px4_tpu_torch.sim import geometric_baseline
+
+    res = geometric_baseline.run(["--seconds", str(GEO_SIM_S)])
+    log(f"geometric baseline flight ({GEO_SIM_S} s): mean {res['err_mean_m']:.4f} m, max "
+        f"{res['err_max_m']:.4f} m over {res['ticks']} ticks, FCU status {res['fcu_status']} "
+        f"-> {'PASS' if res['ok'] else 'FAIL'}")
+    if not res["ok"]:
+        raise AssertionError(f"the geometric baseline flight failed: {res}")
+    return res
+
+
 
 def main() -> int:
     import torch
@@ -3996,6 +4464,10 @@ def main() -> int:
     log("phase 25: the learning loop runs on the card: a logged flight, the SDE fitted to it, "
         "its metric probed and flown, a policy distilled from batched whole-solve labels and "
         "served, a 32-wide trunk refused at build")
+    tune = phase_tuning(dev, card)
+    log("phase 26: the MPPI and weight sweeps run their candidates on the kernels' scenario "
+        "axis, each checked candidate bit-equal to its solo solve; the mismatch sweep passes "
+        "with the geometric baseline; the geometric launch node serves")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -4302,6 +4774,44 @@ def main() -> int:
         bound(lp["bundle"], "apg_solve", lp["n_consts"], K=4, iters=10),
         timed="fixed 10-iteration solve", chained_wall_ms_p50=lp["wall_ms_p50"],
         chained_device_ms_p50=lp["device_ms_p50"], chained_iterations_p50=lp["iterations_p50"]))
+    # phase 26: the tuning sweeps on #1 (per-scenario weights), #3 and #4
+    for name in TUNE_CONFIGS:
+        w = tune["weights"][name]
+        kernels.append(entry(
+            "apg_solve", f"P=1, batched B={w['candidates']}, per-scenario tracking weights: "
+            f"tune_cost_weights, {name}", w["launches"]["apg_solve"], w["fixed_du"],
+            w["launch_ms"], w["plain_ms"],
+            bound(w["bundle"], "apg_solve", w["n_consts"], K=4, iters=w["iterations_mean"],
+                  B=w["candidates"]),
+            timed=f"one launch over the {w['candidates']} candidates at the sweep's first "
+                  f"period, full budget, {w['iterations_mean']:.1f} it. mean",
+            plain_ms_is=f"one candidate's plain whole solve at {TUNE_PLAIN_ITERS} iterations "
+                        f"(max_abs_err: its plan against the kernel's, 4 candidates)",
+            ms_per_period=w["ms_per_period"], device_ms_per_period=w["device_ms_per_period"],
+            solves_per_s=w["solves_per_s"], bit_equal_to_solo=w["bit_equal"],
+            launches_per_period=w["launches_per_period"]))
+    for name in TUNE_CONFIGS:
+        m = tune["mppi"][name]
+        N, K = m["candidates"], m["K"]
+        kernels += [
+            entry("value_batch", f"P=1, batched B={N} x K={K}: tune_mppi, {name}",
+                  m["launches"]["value_batch"], m["value_batch_err"], m["value_batch_ms"],
+                  m["value_batch_plain_ms"],
+                  bound(m["bundle"], "value_batch", m["n_consts"], K=K, B=N),
+                  timed=f"per launch over {N} x {K} plans at the sweep's first period",
+                  plain_ms_is=f"one candidate's plain value_batch at K={K}",
+                  max_abs_err_is="relative to the plain oracle",
+                  ms_per_period=m["ms_per_period"],
+                  device_ms_per_period=m["device_ms_per_period"],
+                  solves_per_s=m["solves_per_s"], bit_equal_to_solo=m["bit_equal"],
+                  first_period_rel=m["first_period_rel"], first_period_du=m["first_period_du"],
+                  launches_per_period=m["launches_per_period"]),
+            entry("trajectory", f"batched B={N}: tune_mppi's plant, {name}",
+                  m["launches"]["trajectory"], m["trajectory_err"], m["trajectory_ms"],
+                  m["trajectory_plain_ms"], bound(m["bundle"], "trajectory", m["n_consts"], B=N),
+                  timed=f"per launch over {N} plans",
+                  plain_ms_is="one plan's plain rollout (rollout_mean on the card)")]
+    kernels[0]["mismatch_sweep_launches"] = tune["mismatch"]["launches"]["apg_solve"]
     for k in kernels:
         if k["name"] == "value_batch" and k["branch"].startswith("P=1, K=1"):
             k["distilled_shootout_launches"] = ld["launches"]["value_batch"]
@@ -4347,7 +4857,12 @@ def main() -> int:
                         "served": ld["served"],
                         "launch": {k: {f: v for f, v in r.items() if f != "bundle"}
                                    for k, r in ld["launch"].items()}},
-            "fault7": learn["fault7"]}}}))
+            "fault7": learn["fault7"]},
+        "tuning": {
+            kind: {name: {k: v for k, v in r.items() if k not in ("bundle",)}
+                   for name, r in tune[kind].items()} for kind in ("mppi", "weights")},
+        "mismatch": {k: v for k, v in tune["mismatch"].items() if k != "launches"},
+        "geometric_node": tune["geometric"], "geometric_sim": tune["geometric_sim"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -1,7 +1,8 @@
 """Quaternion / rotation math on torch tensors (L0).
 
 PyTorch counterpart of ``sde4mbrl_px4_tpu/core/quaternion.py``: the subset
-the model, the cost, the frame conversion and the trajectory loader use.
+the model, the cost, the frame conversion, the trajectory loader and the
+geometric baseline use.
 Quaternions are ``(..., 4)`` tensors in scalar-first ``[w, x, y, z]`` order
 and every function broadcasts over leading batch dimensions; all of them
 are differentiable with autograd and traceable by ``torch.func.vmap``.
@@ -19,6 +20,8 @@ __all__ = [
     "qrotate",
     "qrotate_inv",
     "rotmat_to_q",
+    "q_to_rotmat",
+    "vee",
     "q_from_yaw",
     "q_from_euler",
     "acc_yaw_to_q",
@@ -105,6 +108,24 @@ def rotmat_to_q(R: torch.Tensor) -> torch.Tensor:
     q = torch.where(cond_w, q_w,
                     torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
     return qnormalize(q)
+
+
+def q_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation matrix (..., 3, 3), the original's
+    ``:93-114`` (the reference's ``quat2RotMatrix``)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack([
+        w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (w * y + x * z),
+        2 * (w * z + x * y), w * w - x * x + y * y - z * z, 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (w * x + y * z), w * w - x * x - y * y + z * z,
+    ], dim=-1)
+    return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def vee(m: torch.Tensor) -> torch.Tensor:
+    """The 3-vector of a skew-symmetric matrix (the original's ``:229-232``,
+    the reference's ``matrix_hat_inv``)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
 
 
 def q_from_yaw(yaw: torch.Tensor) -> torch.Tensor:

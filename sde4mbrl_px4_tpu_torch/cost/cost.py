@@ -15,6 +15,13 @@ constrained state in the decision sequence, coupled to the state at full
 particles' discounted totals ``tot_p`` (tracking, constraint terms and the
 uncertainty penalty) enter as ``mean + risk_lambda * sqrt(var + 1e-12)``,
 the population variance taken about the mean (centred first).
+
+The tracking weights ``perr``/``verr``/``qerr``/``werr`` may carry a
+leading (B,) axis, one row per scenario of a batched solve (the tuner's
+candidates, ``tuning/tuner.py``): :func:`scenario_cost` is scenario b's
+cost, which the plain batched solvers take one scenario at a time, and
+:func:`tracking_weights` the (B, 12) rows the kernels read from their
+scenario's consts (``ops/cuda/consts.py::batch_consts``).
 """
 from __future__ import annotations
 
@@ -25,7 +32,11 @@ import torch
 
 from sde4mbrl_px4_tpu_torch.core import quaternion as quat
 
-__all__ = ["CostParams", "make_cost_fn"]
+__all__ = ["TRACKING_FIELDS", "CostParams", "make_cost_fn", "scenario_cost",
+           "tracking_weights"]
+
+# the stage-tracking weights, in the order the kernels' wstate block holds them
+TRACKING_FIELDS = ("perr", "verr", "qerr", "werr")
 
 
 class CostParams(NamedTuple):
@@ -115,6 +126,20 @@ class CostParams(NamedTuple):
             risk_lambda=f32(cp["risk_lambda"]) if cp.get("risk_lambda") else None,
             **sc,
         )
+
+
+def tracking_weights(cp: CostParams) -> torch.Tensor:
+    """The tracking weights as the kernels' wstate block: (12,), or (B, 12)
+    where they carry a scenario axis."""
+    return torch.cat([getattr(cp, k) for k in TRACKING_FIELDS], dim=-1)
+
+
+def scenario_cost(cp: CostParams, b: int) -> CostParams:
+    """Scenario ``b``'s cost: ``cp`` with its tracking weights' row b where
+    they carry a scenario axis, else ``cp`` itself."""
+    if cp.perr.dim() == 1:
+        return cp
+    return cp._replace(**{k: getattr(cp, k)[b] for k in TRACKING_FIELDS})
 
 
 def discount_vector(cp: CostParams, H: int, device) -> torch.Tensor:

@@ -87,6 +87,21 @@ it to the first writable cache path. APG at P=1 on the card takes only the
 trunks of the P=1 kernels' register layout: any other is refused here,
 when the solver is built (ROADMAP.md §3 fault 7).
 
+The tuner's hooks (original ``:194-202``, ``:234-240``, ``:360-366``;
+``tuning/tuner.py``): ``mppi_params`` replaces the config's ``mppi``
+block, its continuous knobs ``sigma``, ``temperature`` and ``noise_beta``
+Python floats or (B,) tensors, one value per scenario of a batched solve
+(``solver/mppi.py``); ``cost_params_override`` replaces the config's
+``CostParams`` (float32 on the build's device), its tracking weights
+``perr``/``verr``/``qerr``/``werr`` (3,) or (B, 3), one row per scenario (``cost/cost.py``; on the card each
+scenario's row of the kernels' consts, ``ops/cuda/consts.py::
+batch_consts``); ``state_from_traj`` is a sampler built once outside (ENU
+with ``convert_to_enu``; the reference is converted per solve, as in the
+original). ``samples``, ``iters`` and every routing key stay the
+config's, and so does the ``hover_diag`` metric: its cache key and a
+probe on a miss read the config's cost, never the override (original
+``:509-522``).
+
 ``rng`` is a ``torch.Generator`` (or None for the deterministic APG
 routes, which draw nothing: at ``num_particles: 1`` it passes through
 unchanged, as in the original ``:655-662``). A solve draws from it in one
@@ -417,12 +432,15 @@ def _load_precond(cfg, model, params, cost_params, time_steps, x_ref, z_hover,
 
 
 def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
-              device: Optional[torch.device | str] = None
+              device: Optional[torch.device | str] = None,
+              mppi_params: Optional[MPPIConfig] = None,
+              state_from_traj: Optional[Callable] = None,
+              cost_params_override: Optional[CostParams] = None
               ) -> Tuple[Dict[str, Any], MPCBundle, MPCPieces]:
     """What :func:`make_mpc_from_config` builds its closures from: the
     checked config (with ``_time_steps``), the bundle and the per-solve
     pieces. ``device=None`` is the card (``cuda``); without one this
-    raises."""
+    raises. The tuner's hooks are the module docstring's."""
     _check_slice(cfg)
     apply_fp32_policy()
     dev = resolve_device(device)
@@ -440,7 +458,8 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         device=dev)
     lb_np, ub_np = input_bounds_from_config(cfg)
     lb, ub = torch.tensor(lb_np, device=dev), torch.tensor(ub_np, device=dev)
-    cost_params = CostParams.from_config(cfg, n_u, device=dev)
+    cfg_cost = CostParams.from_config(cfg, n_u, device=dev)
+    cost_params = cfg_cost if cost_params_override is None else cost_params_override
     m = cost_params.n_slack
     nZ = n_u + m
     if m:
@@ -471,8 +490,8 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     chunk = int(cfg.get("pallas_chunk", 0) or 0)
     warm_shift = str(cfg.get("warm_shift", "repeat"))
 
-    state_from_traj = state_from_traj_ned = None
-    if cfg.get("trajectory_path"):
+    state_from_traj_ned = None
+    if state_from_traj is None and cfg.get("trajectory_path"):
         table = load_trajectory_csv(cfg["trajectory_path"], convert_to_ned=False)
         state_from_traj = make_state_from_traj(table, dev)
         if convert_to_enu:
@@ -500,7 +519,7 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         z_hover = cost_params.uref.expand(H, n_u)
         if m:
             z_hover = torch.cat([z_hover, s_hover.expand(H, m)], dim=-1)
-        precond = _load_precond(cfg, model, params, cost_params, time_steps, x_ref_p,
+        precond = _load_precond(cfg, model, params, cfg_cost, time_steps, x_ref_p,
                                 z_hover.contiguous(), lb_np, ub_np, convert_to_enu)
 
     bundle = MPCBundle(
@@ -540,7 +559,9 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         if state_from_traj is not None:
             if state_from_traj_ned is not None:
                 return state_from_traj_ned(curr_t[..., None] + knot_times)
-            return state_from_traj(curr_t[..., None] + knot_times)
+            ref = state_from_traj(curr_t[..., None] + knot_times)
+            # a sampler handed in: converted per solve (original :619-625)
+            return enu2ned(ref) if convert_to_enu else ref
         return xdes[..., None, :].expand(*xdes.shape[:-1], H + 1, 13)
 
     def _shift(z_opt: torch.Tensor) -> torch.Tensor:
@@ -570,7 +591,9 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     # (original :702-708).
     carry_t = apg_cfg.reset_option in ("increase", "bb")
     mppi = solver == "mppi"
-    mppi_cfg = MPPIConfig.from_config(cfg) if mppi else None
+    mppi_cfg = None
+    if mppi:
+        mppi_cfg = MPPIConfig.from_config(cfg) if mppi_params is None else mppi_params
     P = num_particles
     spread = x0_spread is not None          # needs P > 1 (_check_slice)
 
@@ -666,13 +689,19 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
 
 
 def make_mpc_from_config(cfg: Dict[str, Any], convert_to_enu: bool = True,
-                         device: Optional[torch.device | str] = None
+                         device: Optional[torch.device | str] = None,
+                         mppi_params: Optional[MPPIConfig] = None,
+                         state_from_traj: Optional[Callable] = None,
+                         cost_params_override: Optional[CostParams] = None
                          ) -> Tuple[Dict[str, Any], Tuple[Callable, Callable],
                                     Optional[Callable], MPCBundle]:
     """Core factory; ``cfg`` is an already-parsed config mapping.
     ``device=None`` is the card (``cuda``); without one this raises, and
-    ``"cpu"`` must be asked for."""
-    cfg, bundle, pieces = build_mpc(cfg, convert_to_enu, device)
+    ``"cpu"`` must be asked for. ``mppi_params``, ``state_from_traj`` and
+    ``cost_params_override`` are the tuner's hooks (module docstring); the
+    solo ``mpc_fn`` takes their scalar forms."""
+    cfg, bundle, pieces = build_mpc(cfg, convert_to_enu, device, mppi_params,
+                                    state_from_traj, cost_params_override)
     dev, f32 = bundle.device, torch.float32
 
     def mpc_fn(x, rng, opt_state: APGState, curr_t=0.0, xdes=None,

@@ -10,15 +10,22 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/launch.py`` (``:36-66``,
   on the card (``--cpu``: on the CPU), serving the MAVLink UDP side-channel
   and the JSON service channel;
 - ``node: fcu_sim`` — the SITL plant (``sim/sitl.py``; the plant runs on
-  the host CPU).
+  the host CPU);
+- ``node: geometric_controller`` — the native geometric baseline
+  (``baselines/geometric.py::NativeGeometricController`` over
+  ``csrc/libmpc_native.so``, ``make -C csrc``) following the launch file's
+  trajectory on the MAVLink side-channel (the original's ``:104-153``;
+  the trajectory's clock starts at the first state): each
+  ``MPC_FULL_STATE`` it receives is answered with an ``MPC_MOTORS_CMD`` of
+  thrust and FRD body rates (``weight_motors`` 0).
 
 Each node prints ``[launch] READY`` once it serves, then runs until
-interrupted (SIGINT or SIGTERM) and stops its threads. Start a second node
-as a fresh process (``subprocess``), never by forking one that has
-initialised CUDA. ``node: router``, ``node: geometric_controller`` and
-``--repl`` raise ``NotImplementedError`` naming their ROADMAP item; there
-is no ``--coordinator`` (multi-host is ``torch.distributed``, ROADMAP
-'Batched and fleet').
+interrupted (SIGINT or SIGTERM), or for ``--seconds``, and stops its
+threads. Start a second node as a fresh process (``subprocess``), never by
+forking one that has initialised CUDA. ``node: router`` and ``--repl``
+raise ``NotImplementedError`` naming their ROADMAP item; there is no
+``--coordinator`` (multi-host is ``torch.distributed``, ROADMAP 'Batched
+and fleet').
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import argparse
 import os
 import signal
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import yaml
 
@@ -35,7 +42,6 @@ __all__ = ["launch_from_file", "main", "NOT_PORTED"]
 # node types (and --repl) the port does not run yet, and the ROADMAP.md §1
 # item that brings each
 NOT_PORTED = {"router": "Router launch node",
-              "geometric_controller": "Baselines",
               "repl": "Mission CLI and --repl"}
 
 
@@ -64,17 +70,20 @@ def config_dir(cfg: Dict[str, Any]) -> str:
     return next((c for c in cand if os.path.isdir(c)), cand[0])
 
 
-def _serve(report: Callable[[], str], period: float) -> None:
-    """Print ``report()`` every ``period`` seconds until interrupted."""
+def _serve(report: Callable[[], str], period: float,
+           seconds: Optional[float] = None) -> None:
+    """Print ``report()`` every ``period`` seconds until interrupted, or
+    until ``seconds`` have passed."""
+    end = None if seconds is None else time.monotonic() + seconds
     try:
-        while True:
-            time.sleep(period)
+        while end is None or time.monotonic() < end:
+            time.sleep(period if end is None else max(0.0, min(period, end - time.monotonic())))
             print(report(), flush=True)
     except KeyboardInterrupt:
         pass
 
 
-def launch_sde_control(cfg: Dict[str, Any], device=None):
+def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float] = None):
     """Start the MPC engine node (reference sde_control main,
     ``sde_control.py:750-769``); its constructor builds (or reuses) and
     warms every kernel before it serves."""
@@ -106,7 +115,7 @@ def launch_sde_control(cfg: Dict[str, Any], device=None):
               f"services on udp:{svc_addr}; mailbox {node.mailbox_kind}", flush=True)
         print("[launch] READY", flush=True)
         logf = open(log_file, "a") if log_file else None
-        _serve(report, float(cfg.get("mpc_report_dt", 0.2)))
+        _serve(report, float(cfg.get("mpc_report_dt", 0.2)), seconds)
     except KeyboardInterrupt:
         pass
     finally:
@@ -116,7 +125,7 @@ def launch_sde_control(cfg: Dict[str, Any], device=None):
     return node
 
 
-def launch_fcu_sim(cfg: Dict[str, Any]):
+def launch_fcu_sim(cfg: Dict[str, Any], seconds: Optional[float] = None):
     """Start the SITL plant node (the reference's ``px4_sitl.launch``
     bring-up: a simulated FCU streaming MPC_FULL_STATE and consuming
     MPC_MOTORS_CMD). The plant runs on the host CPU."""
@@ -138,7 +147,7 @@ def launch_fcu_sim(cfg: Dict[str, Any]):
               f"MPC_FULL_STATE to udp:{node.addr} at "
               f"{1.0 / node.fcu.state_dt:.0f} Hz", flush=True)
         print("[launch] READY", flush=True)
-        _serve(report, 1.0)
+        _serve(report, 1.0, seconds)
     except KeyboardInterrupt:
         pass
     finally:
@@ -146,15 +155,83 @@ def launch_fcu_sim(cfg: Dict[str, Any]):
     return node
 
 
-def launch_from_file(path: str, repl: bool = False, device=None):
+def launch_geometric(cfg: Dict[str, Any], seconds: Optional[float] = None) -> int:
+    """Start the native geometric controller on the MAVLink side-channel
+    (the original's ``:104-153``): the launch file is its flat parameter
+    file, ``trajectory_path`` (relative to the configs directory) its
+    trajectory, sampled at the time since the first ``MPC_FULL_STATE`` (the
+    original's since the node's start: a plant brought up later would
+    engage mid-trajectory, far from its start). Returns the commands
+    sent."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.baselines.geometric import (
+        GeoParams, NativeGeometricController)
+    from sde4mbrl_px4_tpu_torch.core.frames import ned2enu
+    from sde4mbrl_px4_tpu_torch.core.types import CONTROL_STATES
+    from sde4mbrl_px4_tpu_torch.io.mavlink import MavlinkUDP
+
+    ctl = NativeGeometricController(GeoParams())
+    with tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False) as f:
+        for k, v in cfg.items():
+            if not k.startswith("_") and k not in ("node", "trajectory_path"):
+                f.write(f"{k}: {v}\n")
+    try:
+        ctl.load_params_file(f.name)
+    finally:
+        os.unlink(f.name)
+    traj = cfg.get("trajectory_path")
+    if traj:
+        if not os.path.isabs(traj):
+            traj = os.path.join(os.path.dirname(cfg["_dir"]), traj)
+        if not ctl.load_trajectory(traj):
+            raise FileNotFoundError(f"geometric_controller: cannot load trajectory {traj}")
+    addr = cfg.get("addr_mavlink_state_msg", "127.0.0.1:14998")
+    link = MavlinkUDP(addr, mode="udpin")
+    sent, t0 = 0, None
+    end = None if seconds is None else time.monotonic() + seconds
+    try:
+        print(f"[launch] geometric controller on udp:{addr}", flush=True)
+        print("[launch] READY", flush=True)
+        while end is None or time.monotonic() < end:
+            msg = link.recv_match(type="MPC_FULL_STATE", timeout=0.1)
+            if msg is None:
+                continue
+            t0 = time.monotonic() if t0 is None else t0
+            sp = ctl.sample_trajectory(time.monotonic() - t0)
+            if sp is None:
+                continue
+            pos, vel, acc, yaw = sp
+            x_enu = ned2enu(torch.as_tensor(np.asarray(msg.state, np.float32))).numpy()
+            cmd, _ = ctl.update(x_enu.astype(np.float64), pos, vel, acc, yaw)
+            # thrust + FRD body rates out (FLU -> FRD flips y and z)
+            tr = np.array([cmd[3], cmd[0], -cmd[1], -cmd[2]], np.float32)
+            link.send_motors_cmd(int(time.time() * 1e6), np.zeros(6, np.float32), tr,
+                                 CONTROL_STATES["pos"], 0)
+            sent += 1
+    except KeyboardInterrupt:
+        pass
+    finally:
+        link.close()
+        print(f"[geometric] sent {sent} MPC_MOTORS_CMD frames", flush=True)
+    return sent
+
+
+def launch_from_file(path: str, repl: bool = False, device=None,
+                     seconds: Optional[float] = None):
     cfg = _load(path)
     node_type = cfg.get("node", "sde_control")
     if repl:
         raise _refuse("the mission REPL (--repl)", "repl")
     if node_type == "sde_control":
-        return launch_sde_control(cfg, device=device)
+        return launch_sde_control(cfg, device=device, seconds=seconds)
     if node_type == "fcu_sim":
-        return launch_fcu_sim(cfg)
+        return launch_fcu_sim(cfg, seconds=seconds)
+    if node_type == "geometric_controller":
+        return launch_geometric(cfg, seconds=seconds)
     if node_type in NOT_PORTED:
         raise _refuse(f"node: {node_type}", node_type)
     raise ValueError(f"unknown node type {node_type!r}")
@@ -171,9 +248,13 @@ def main(argv=None):
     ap.add_argument("--repl", action="store_true",
                     help="attach the mission REPL (not ported)")
     ap.add_argument("--cpu", action="store_true", help="run the engine on the CPU")
+    ap.add_argument("--seconds", type=float, default=None,
+                    help="stop after this many seconds of serving (default: run until "
+                         "interrupted)")
     args = ap.parse_args(argv)
     signal.signal(signal.SIGTERM, _sigterm)   # stop cleanly, as on Ctrl-C
-    launch_from_file(args.launch_file, repl=args.repl, device="cpu" if args.cpu else None)
+    launch_from_file(args.launch_file, repl=args.repl, device="cpu" if args.cpu else None,
+                     seconds=args.seconds)
 
 
 if __name__ == "__main__":

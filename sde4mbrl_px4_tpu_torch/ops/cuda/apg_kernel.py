@@ -65,12 +65,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, scenario_cost
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths,
-    has_options, plan_particles, sc_kind)
+    has_options, plan_particles, sc_kind, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -264,9 +264,11 @@ def apg_solve_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostPa
                             cluster: int = 0, starts: Optional[torch.Tensor] = None
                             ) -> Tuple[APGState, torch.Tensor]:
     """Plain version of :func:`apg_solve_kernel_batched` (any device):
-    :func:`apg_solve_plain` once per scenario, the results stacked."""
-    sols = [apg_solve_plain(model, params, cp, apg, time_steps, x0[b], x_ref[b], u_prev[b],
-                            None if noise is None else noise[b], num_particles, lb, ub,
+    :func:`apg_solve_plain` once per scenario (with its own tracking weights
+    where they carry a scenario axis), the results stacked."""
+    sols = [apg_solve_plain(model, params, scenario_cost(cp, b), apg, time_steps, x0[b],
+                            x_ref[b], u_prev[b], None if noise is None else noise[b],
+                            num_particles, lb, ub,
                             u_init[b], None if t_init is None else t_init[b], precond,
                             iter_budget, chunk, cluster,
                             None if starts is None else starts[b])
@@ -292,7 +294,8 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     Per scenario: ``x0`` (B, 13), ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u)
     (or wider: the first n_u columns are read), ``noise`` (B, P, H, 13) or
     None at P=1, ``starts`` (B, P, 13) or None, ``u_init`` (B, H, nZ),
-    ``t_init`` (B,) or None. The box,
+    ``t_init`` (B,) or None, and the tracking weights of ``cp`` where they
+    carry a (B,) axis (``cost/cost.py``). The box,
     ``precond``, ``iter_budget`` and the particle plan are shared. On the card
     one launch of the whole-solve kernel over a grid of B scenarios (one
     block, or one cluster of C blocks, each, with its own loop and early
@@ -372,8 +375,9 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
                                 u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget, particles=z is not None)
+    weights = scenario_weights(cp, B)
     if B > 1:
-        consts = batch_consts(consts, args, x0, x_ref, u_prev)
+        consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
     if z is not None:
         plan_solve_particles(args, P, chunk, cluster, prof is not None)

@@ -44,7 +44,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, discount_vector, tracking_weights
 from sde4mbrl_px4_tpu_torch.device import host_values
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
@@ -53,7 +53,8 @@ __all__ = ["APG_MAXK", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
            "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs",
            "batch_consts", "build_consts", "check_p1_widths", "has_options", "p1_widths",
-           "plan_cluster", "plan_particles", "sc_kind", "value_batch_grid"]
+           "plan_cluster", "plan_particles", "sc_kind", "scenario_weights",
+           "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 kernels hold the trunk in registers at these widths: hidden units,
@@ -148,8 +149,9 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     """Pack the consts buffer on the tensors' device (one ``torch.cat``, no
     host sync) and fill the argument struct. Without an ``apg`` config (the
     cost oracle) the solver fields are zero; without a box the ``lb``/``ub``
-    blocks hold -inf/+inf. The box is nZ wide (``n_u`` plus the proximal
-    form's slack columns). ``particles`` (a Monte-Carlo solve) turns on the
+    blocks hold -inf/+inf. Tracking weights with a scenario axis put
+    scenario 0's in the buffer (:func:`batch_consts` writes the others).
+    The box is nZ wide (``n_u`` plus the proximal form's slack columns). ``particles`` (a Monte-Carlo solve) turns on the
     risk reduction where the cost has ``risk_lambda``; at P=1 the cost is
     the mean dynamics' and the risk term is 0, as in the original."""
     if apg is not None and apg.maxls > APG_MAXK:
@@ -161,7 +163,8 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     net = params["net"]
     HID, OUT = int(net["w1"].shape[0]), int(net["w2"].shape[1])
     mix_eff = model.mixing * torch.exp(params["motor"]["log_gain"])[:, None]
-    wstate = torch.cat([cp.perr, cp.verr, cp.qerr, cp.werr])
+    # per-scenario weights (B, 12): scenario 0's here, the rest by batch_consts
+    wstate = tracking_weights(cp).reshape(-1, 12)[0]
     if cp.u_slew_constr is not None:
         slo, shi = cp.u_slew_constr[:, 0], cp.u_slew_constr[:, 1]
     else:
@@ -222,12 +225,14 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 
 def batch_consts(template: torch.Tensor, a: ApgArgs, x0: torch.Tensor,
-                 x_ref: torch.Tensor, u_prev: torch.Tensor) -> torch.Tensor:
+                 x_ref: torch.Tensor, u_prev: torch.Tensor,
+                 wstate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (B, n_consts) consts of B scenarios that differ only in their
-    initial state, reference and previous control: ``template`` (one
-    scenario's buffer from :func:`build_consts`) repeated on the device, with
-    scenario b's ``x0`` (13), ``xref`` (H+1, 13) and ``uprev`` (the first
-    n_u columns of ``u_prev[b]``) blocks written in. No Python loop over B,
+    initial state, reference, previous control and, with ``wstate`` (B,
+    12), their tracking weights: ``template`` (one scenario's buffer from
+    :func:`build_consts`) repeated on the device, with scenario b's ``x0``
+    (13), ``xref`` (H+1, 13), ``uprev`` (the first n_u columns of
+    ``u_prev[b]``) and ``wstate`` blocks written in. No Python loop over B,
     no host sync; sets ``a.batch = B``. Every kernel takes the result: the
     whole solve, and the oracle's ``value_batch``, ``value_and_grad`` and
     ``trajectory`` (``cost_oracle.py::cost_oracle_batched``)."""
@@ -236,8 +241,25 @@ def batch_consts(template: torch.Tensor, a: ApgArgs, x0: torch.Tensor,
     buf[:, a.o_x0:a.o_x0 + 13] = x0
     buf[:, a.o_xref:a.o_xref + (a.H + 1) * 13] = x_ref.reshape(B, -1)
     buf[:, a.o_uprev:a.o_uprev + n] = u_prev[:, :n]
+    if wstate is not None:
+        if tuple(wstate.shape) != (B, 12):
+            raise ValueError(f"batch_consts: per-scenario tracking weights must be ({B}, 12), "
+                             f"got {tuple(wstate.shape)}")
+        buf[:, a.o_wstate:a.o_wstate + 12] = wstate
     a.batch = B
     return buf
+
+
+def scenario_weights(cp: CostParams, B: int) -> Optional[torch.Tensor]:
+    """The (B, 12) per-scenario tracking weights of a batch of B for
+    :func:`batch_consts`, or None where the weights are shared."""
+    w = tracking_weights(cp)
+    if w.dim() == 1:
+        return None
+    if int(w.shape[0]) != B:
+        raise ValueError(f"per-scenario tracking weights for {int(w.shape[0])} scenarios, "
+                         f"the batch has {B}")
+    return w
 
 
 def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:

@@ -70,12 +70,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn, scenario_cost
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts,
-    build_consts, check_p1_widths, has_options, plan_particles)
+    build_consts, check_p1_widths, has_options, plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -454,10 +454,12 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
                               num_particles: int, maxls: int, chunk: int = 0,
                               starts: Optional[torch.Tensor] = None) -> CostOracle:
     """Plain version of :func:`cost_oracle_batched` (any device):
-    :func:`cost_oracle_plain` once per scenario, the results stacked."""
+    :func:`cost_oracle_plain` once per scenario (with its own tracking
+    weights where they carry a scenario axis), the results stacked."""
     B, H, n = int(x0.shape[0]), int(time_steps.shape[0]), model.n_u + cp.n_slack
-    solo = [cost_oracle_plain(model, params, cp, time_steps, x0[b], x_ref[b], u_prev[b],
-                              None if noise is None else noise[b], num_particles, maxls,
+    solo = [cost_oracle_plain(model, params, scenario_cost(cp, b), time_steps, x0[b],
+                              x_ref[b], u_prev[b], None if noise is None else noise[b],
+                              num_particles, maxls,
                               chunk=chunk, starts=None if starts is None else starts[b])
             for b in range(B)]
 
@@ -481,9 +483,9 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     """The cost oracle of B solves (module docstring): ``x0`` (B, 13),
     ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
     13) for a Monte-Carlo solve (None at P=1), ``starts`` (B, P, 13) its
-    particles' initial states or None. On the card every evaluation is one
-    launch over the B scenarios; CPU tensors get
-    :func:`cost_oracle_plain_batched`."""
+    particles' initial states or None; the tracking weights of ``cp`` may
+    carry a (B,) axis. On the card every evaluation is one launch over the B
+    scenarios; CPU tensors get :func:`cost_oracle_plain_batched`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
@@ -511,8 +513,9 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     lib = load_oracle_library()
     consts, args = build_consts(model, params, cp, None, time_steps, x0[0], x_ref[0],
                                 u_prev[0], particles=z is not None)
+    weights = scenario_weights(cp, B)
     if B > 1:
-        consts = batch_consts(consts, args, x0, x_ref, u_prev)
+        consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
     if z is not None:
         plan_oracle_particles(lib, args, P, chunk, cluster)

@@ -45,7 +45,8 @@ scenario axis: with ``initial_state_std`` each call also draws the (B, P,
 ``(noise, z0)``, MPPI ``(eps, c0, noise[, z0])``), the starts go to the
 kernels as one (B, P, 13) array, and ``risk_lambda`` is one of the cost's
 scalars, the same for every scenario (the loader's docstring has the
-order).
+order). The tuner (``tuning/tuner.py``) serves its candidates on the same
+axis: each scenario its own MPPI knobs or tracking weights.
 
 Not ported:
 ``make_particle_sharded_mpc``, ``mesh.py`` and ``distributed.py``, which
@@ -60,19 +61,28 @@ import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.core.types import MPCSolution, hover_state
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams
 from sde4mbrl_px4_tpu_torch.engine.mpc_loader import MPCBundle, build_mpc
 from sde4mbrl_px4_tpu_torch.solver.apg import APGState
+from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig
 
 __all__ = ["make_batched_mpc", "make_batch_inputs"]
 
 
 def make_batched_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
-                     device: Optional[torch.device | str] = None
+                     device: Optional[torch.device | str] = None,
+                     mppi_params: Optional[MPPIConfig] = None,
+                     state_from_traj: Optional[Callable] = None,
+                     cost_params_override: Optional[CostParams] = None
                      ) -> Tuple[Callable, Callable, MPCBundle]:
     """Build ``(batched_reset, batched_mpc, bundle)`` for ``cfg`` on one
     device (module docstring). Inputs may be numpy arrays or tensors; tensors
-    already on the device are used as they are (no copy, no sync)."""
-    cfg, bundle, pieces = build_mpc(dict(cfg), convert_to_enu, device)
+    already on the device are used as they are (no copy, no sync). The
+    loader's tuner hooks give each scenario its own MPPI knobs
+    (``mppi_params`` with (B,) tensors) or tracking weights
+    (``cost_params_override`` with (B, 3) rows; ``engine/mpc_loader.py``)."""
+    cfg, bundle, pieces = build_mpc(dict(cfg), convert_to_enu, device, mppi_params,
+                                    state_from_traj, cost_params_override)
     dev = bundle.device
 
     def batched_reset(xs, rngs, xdes) -> APGState:

@@ -24,7 +24,9 @@ device, 10 Euler sub-steps per 50 ms tick (one 50 ms step is too coarse for
 the attitude dynamics and limit-cycles). It prints the tick's busy time
 (the host time of ``FleetEngine.step``) p50/p99 against the 50 ms budget,
 the vehicle-solves a second that p50 gives, the device time of a tick's
-solve, the plans' age, and the mean and max tracking error. ``--cpu`` runs
+solve, the plans' age, and the mean and max tracking error (and returns the
+share of ticks over the period and the oldest plan's age in periods, the
+gates of a soak, ``sim/soaks.py``). ``--cpu`` runs
 the plain solves on the CPU (slow: one solve after the other).
 """
 from __future__ import annotations
@@ -143,6 +145,10 @@ def run(argv: Optional[list] = None) -> dict:
            "busy_ms_p99": 1e3 * p99, "vehicle_solves_per_s": B / p50, "budget_ms": 1e3 * dt,
            "device_ms_p50": statistics.median(steady(device_ms)) if device_ms else None,
            "age_ms_p50": 1e3 * statistics.median(steady(ages)), "first_age": ages[0],
+           # the soak's gates (sim/soaks.py): ticks over the period, and the
+           # oldest plan picked, in periods
+           "over_budget_frac": float(np.mean(np.asarray(steady(busy)) > dt)),
+           "age_ticks_max": int(round(max(steady(ages)) / dt)),
            "err_mean": float(errs.mean()), "err_max": float(errs.max())}
     res["ok"] = res["err_mean"] < PASS_MEAN_M
     dev_txt = ("not measured (CPU)" if res["device_ms_p50"] is None

@@ -40,22 +40,33 @@ host and moves no host value to the device (a ``torch.tensor(...,
 device="cuda")`` would wait for the work in flight): its scalars enter the
 arithmetic as Python floats, computed in float32.
 
+**Per-scenario knobs.** The continuous knobs ``sigma``, ``temperature``
+and ``noise_beta`` may be (*batch) float32 tensors, one value per scenario
+(the tuner's candidates, ``tuning/tuner.py``; the original takes them as
+traced values, ``:133-138``); ``samples`` and ``iters`` stay ints. A
+tensor ``noise_beta`` always takes the AR(1) chain and its ``c0`` draw, as
+the original's traced beta does: at beta = 0 the chain gives the raw noise
+exactly (``c = 0 * c + 1 * eps``). Each knob enters the arithmetic as the
+same float32 product or quotient a Python float does, so a scenario's
+numbers are those of its solo solve with its knobs as Python floats.
+
 Observability mapping (:class:`APGState`): ``num_steps`` = iters,
 ``avg_linesearch`` = samples, ``stepsize``/``avg_stepsize`` = sigma,
 ``grad_sqr`` = the last round's weight not on the incumbent,
-``init_cost``/``opt_cost`` = the costs of the warm start and the result.
+``init_cost``/``opt_cost`` = the costs of the warm start and the result
+(``stepsize`` per scenario where ``sigma`` is).
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.solver.apg import APGState, CostOracle, box_project
 
-__all__ = ["MPPIConfig", "draw_mppi_noise", "ksum", "mppi_solve"]
+__all__ = ["MPPIConfig", "ar_chain", "draw_mppi_noise", "ksum", "mppi_solve"]
 
 
 class MPPIConfig(NamedTuple):
@@ -64,10 +75,10 @@ class MPPIConfig(NamedTuple):
     ``noise_beta`` > 0 time-correlates the noise along the horizon."""
 
     samples: int = 64
-    sigma: float = 0.02
-    temperature: float = 0.1
+    sigma: Union[float, torch.Tensor] = 0.02
+    temperature: Union[float, torch.Tensor] = 0.1
     iters: int = 8
-    noise_beta: float = 0.7
+    noise_beta: Union[float, torch.Tensor] = 0.7
 
     @staticmethod
     def from_config(cfg: Dict[str, Any]) -> "MPPIConfig":
@@ -93,10 +104,10 @@ def draw_mppi_noise(gen: torch.Generator, cfg: MPPIConfig, H: int, n: int,
     one copy (from pinned memory on a CUDA device, so it does not wait for
     the work in flight). Order: all of ``eps`` (*batch, iters, K, H, n) in
     C order, then all of ``c0`` (*batch, iters, K, n); ``c0`` is not drawn
-    when ``noise_beta == 0``."""
+    when the chain does not run (:func:`ar_chain`)."""
     lead = tuple(int(b) for b in batch)
     n_eps = cfg.iters * cfg.samples * H * n
-    n_c0 = cfg.iters * cfg.samples * n if cfg.noise_beta > 0.0 else 0
+    n_c0 = cfg.iters * cfg.samples * n if ar_chain(cfg) else 0
     nb = int(np.prod(lead)) if lead else 1
     z = torch.randn(nb * (n_eps + n_c0), generator=gen, dtype=torch.float32,
                     device=gen.device)
@@ -107,6 +118,24 @@ def draw_mppi_noise(gen: torch.Generator, cfg: MPPIConfig, H: int, n: int,
     eps = z[:nb * n_eps].view(*lead, cfg.iters, cfg.samples, H, n)
     c0 = z[nb * n_eps:].view(*lead, cfg.iters, cfg.samples, n) if n_c0 else None
     return eps, c0
+
+
+def ar_chain(cfg: MPPIConfig) -> bool:
+    """Whether a solve runs the AR(1) chain (and draws its ``c0``):
+    ``noise_beta > 0``, or ``noise_beta`` per scenario (module docstring)."""
+    return isinstance(cfg.noise_beta, torch.Tensor) or cfg.noise_beta > 0.0
+
+
+def _knob(v, lead: Tuple[int, ...], dev: torch.device, trail: int):
+    """A knob as the arithmetic takes it: a Python float holding its float32
+    rounding, or its (*lead) float32 tensor with ``trail`` unit axes
+    appended to broadcast against a (*lead, ...) operand."""
+    if not isinstance(v, torch.Tensor):
+        return _f32(v)
+    v = v.to(dev, torch.float32)
+    if tuple(v.shape) != lead:
+        raise ValueError(f"per-scenario MPPI knobs must be {lead}, got {tuple(v.shape)}")
+    return v.reshape(lead + (1,) * trail)
 
 
 def ksum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -153,22 +182,31 @@ def mppi_solve(oracle: CostOracle, u_init: torch.Tensor, lb: torch.Tensor,
     lead = tuple(u_init.shape[:-2])
     if tuple(eps.shape) != lead + (cfg.iters, K, H, n):
         raise ValueError(f"eps must be {lead + (cfg.iters, K, H, n)}, got {tuple(eps.shape)}")
-    if cfg.noise_beta > 0.0 and (c0 is None or tuple(c0.shape) != lead + (cfg.iters, K, n)):
-        raise ValueError(f"c0 must be {lead + (cfg.iters, K, n)} when noise_beta > 0")
+    chain = ar_chain(cfg)
+    if chain and (c0 is None or tuple(c0.shape) != lead + (cfg.iters, K, n)):
+        raise ValueError(f"c0 must be {lead + (cfg.iters, K, n)} when noise_beta > 0 "
+                         f"or per scenario")
     f32 = torch.float32
     dev = u_init.device
-    # float32 scalars, as the original's jnp.float32 constants
-    lam = _f32(cfg.temperature)
-    beta = _f32(cfg.noise_beta)
-    gain = float(np.sqrt(np.float32(1.0) - np.float32(beta) * np.float32(beta)))
-    sigma = _f32(cfg.sigma) * (ub - lb)
+    # float32 scalars, as the original's jnp.float32 constants, or per
+    # scenario float32 tensors shaped to broadcast where each is used
+    lam = _knob(cfg.temperature, lead, dev, 1)              # against (..., 1)
+    beta = _knob(cfg.noise_beta, lead, dev, 3)              # against (..., iters, K, n)
+    if isinstance(beta, torch.Tensor):
+        gain = torch.sqrt(1.0 - beta * beta)
+    else:
+        gain = float(np.sqrt(np.float32(1.0) - np.float32(beta) * np.float32(beta)))
+    sig = _knob(cfg.sigma, lead, dev, 1)
+    sigma = sig * (ub - lb)                                 # (n,) or (..., n)
+    if isinstance(sig, torch.Tensor):
+        sigma = sigma.unsqueeze(-2).unsqueeze(-2).unsqueeze(-2)   # (..., 1, 1, 1, n)
 
     u0 = box_project(u_init, lb, ub)
     f0 = oracle.value(u0)
     # every round's exploration noise at once (elementwise: the bits of
     # round by round)
     e = eps                                                   # (..., iters, K, H, n)
-    if cfg.noise_beta > 0.0:
+    if chain:
         # AR(1) along the horizon, started at its unit stationary
         # variance by c0 (original :118-127)
         c, rows = c0, []
@@ -208,6 +246,8 @@ def mppi_solve(oracle: CostOracle, u_init: torch.Tensor, lb: torch.Tensor,
     f_final = torch.where(worse, f0, f_final)
 
     def const(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev, f32).expand(lead).clone()
         return torch.full(lead, float(v), dtype=f32, device=dev)
 
     return APGState(yk=u_mean, num_steps=const(cfg.iters), stepsize=const(cfg.sigma),

@@ -513,8 +513,7 @@ def test_launcher_parses_the_shipped_launch_files(repo_root):
     assert sum(v == "fcu_sim" for v in kinds.values()) == 2
 
 
-@pytest.mark.parametrize("name, item", [("router_sitl.yaml", "Router launch node"),
-                                        ("iris_geoctrl.yaml", "Baselines")])
+@pytest.mark.parametrize("name, item", [("router_sitl.yaml", "Router launch node")])
 def test_launcher_refuses_what_it_does_not_run(repo_root, name, item):
     from sde4mbrl_px4_tpu_torch import launch as L
 
@@ -523,6 +522,68 @@ def test_launcher_refuses_what_it_does_not_run(repo_root, name, item):
     with pytest.raises(NotImplementedError, match="Mission CLI and --repl"):
         L.launch_from_file(os.path.join(repo_root, "configs", "launch", "iris_sdectrl.yaml"),
                            repl=True)
+
+
+def test_launcher_runs_geometric_node_for_seconds(repo_root, tmp_path):
+    """``python -m sde4mbrl_px4_tpu_torch.launch`` on the shipped
+    ``iris_geoctrl.yaml`` (on a free port) with ``--seconds``: READY, each
+    MPC_FULL_STATE it is sent answered with an MPC_MOTORS_CMD of thrust and
+    body rates (``weight_motors`` 0), and a clean exit 0 when the seconds
+    are up."""
+    import subprocess
+    import sys
+
+    if not os.path.exists(os.path.join(repo_root, "csrc", "libmpc_native.so")):
+        pytest.skip("native library not built (make -C csrc)")
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    cfg = yaml.safe_load(open(os.path.join(repo_root, "configs/launch/iris_geoctrl.yaml")))
+    cfg["addr_mavlink_state_msg"] = f"127.0.0.1:{port}"
+    cfg["trajectory_path"] = os.path.join(repo_root, "configs", cfg["trajectory_path"])
+    p = tmp_path / "geo.yaml"
+    p.write_text(yaml.safe_dump(cfg))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.Popen([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", str(p),
+                             "--seconds", "6"], cwd=repo_root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    link = M.MavlinkUDP(f"127.0.0.1:{port}", mode="udpout")
+    x = enu2ned(hover_state()).numpy()
+    x[2] -= 0.5                                    # 0.5 m below the hover (NED z down)
+    replies = []
+    try:
+        t0 = time.monotonic()                      # the node's start-up, then its seconds
+        while not any("[launch] READY" in ln for ln in lines) and proc.poll() is None:
+            assert time.monotonic() - t0 < 120, lines
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        k = 0
+        while len(replies) < 3 and time.monotonic() - t0 < 5.0:
+            link.send_full_state(int(1e6 + k * 2e4), x)
+            msg = link.recv_match(type="MPC_MOTORS_CMD", timeout=0.05)
+            if msg is not None:
+                replies.append(msg)
+            k += 1
+        proc.wait(timeout=60)
+        reader.join(timeout=10)
+    finally:
+        link.close()
+        if proc.poll() is None:
+            proc.kill()
+    out = "".join(lines)
+    assert not reader.is_alive() and proc.returncode == 0, out
+    assert "[launch] READY" in out and "geometric controller on udp" in out, out
+    assert len(replies) >= 3, out
+    msg = replies[-1]
+    assert msg.weight_motors == 0 and msg.mpc_on == 3
+    tr = np.asarray(msg.thrust_and_angrate_des)
+    assert np.all(np.isfinite(tr)) and 0.0 < tr[0] <= 1.0
+    assert int(out.split("sent ")[1].split()[0]) >= 3
 
 
 def test_launcher_runs_fcu_sim_until_sigterm(repo_root, tmp_path):

@@ -365,9 +365,11 @@ def test_slice_runs_without_jax(repo_root):
     the launcher and flies one solve through the engine node, then writes
     and reads flight logs (``io/flight_log.py``, ``io/ulog.py``), takes
     two ``train_sde`` steps, evaluates and labels a state (``learning/``)
-    and imports the learning drives, without JAX ever entering
-    ``sys.modules``; no module of the port imports JAX or the JAX
-    package."""
+    and imports the learning drives, runs a one-period MPPI and weight
+    sweep (``tuning/``), the geometric law (``baselines/``) and ``trajgen``
+    and imports the mismatch, tuning, soak and baseline drives, without JAX
+    ever entering ``sys.modules``; no module of the port imports JAX or the
+    JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -488,6 +490,30 @@ def test_slice_runs_without_jax(repo_root):
         lab = label_states(cfg, xs[:1], torch.zeros(1), xs[:1], None,
                            DistillConfig(expert_max_iter=1), device="cpu")
         assert lab.shape == (1, 20, 4)
+        # tuning, the baselines and their drives: a 2-candidate MPPI sweep
+        # and a weight sweep of one period each, the geometric law, trajgen
+        import sde4mbrl_px4_tpu_torch.sim.geometric_baseline
+        import sde4mbrl_px4_tpu_torch.sim.mismatch_sweep
+        import sde4mbrl_px4_tpu_torch.sim.soaks
+        import sde4mbrl_px4_tpu_torch.sim.tune_mppi
+        from sde4mbrl_px4_tpu_torch.baselines import GeoParams, geometric_control
+        from sde4mbrl_px4_tpu_torch.models.trajgen import circle_trajectory
+        from sde4mbrl_px4_tpu_torch.tuning import (
+            make_mppi_grid, make_weight_grid, tune_cost_weights, tune_mppi)
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg.update(horizon=6, num_short_dt=6, mppi={"samples": 8, "iters": 2})
+        res = tune_mppi(cfg, make_mppi_grid([0.01, 0.03], [0.1], [0.5]), steps=1,
+                        device="cpu")
+        assert len(res) == 2 and np.isfinite(res[0].mean_pos_err)
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg.update(horizon=6, num_short_dt=6)
+        cfg["apg_mpc"]["max_iter"] = 2
+        res = tune_cost_weights(cfg, make_weight_grid([0.5, 2.0], [1.0], [1.0], [1.0]),
+                                steps=1, device="cpu")
+        assert len(res) == 2 and np.isfinite(res[0].score)
+        cmd, _ = geometric_control(GeoParams(), hover_state(), torch.zeros(3), torch.zeros(3),
+                                   torch.zeros(3), torch.tensor(0.0))
+        assert 0.0 < float(cmd[3]) <= 1.0 and circle_trajectory().shape[1] == 11
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
