@@ -14,7 +14,9 @@ family on the kernels' scenario axis, runs the learning loop (a logged
 flight, the SDE fitted to it, its metric probed, a policy distilled from
 batched whole-solve labels and flown), and tunes MPPI knobs and tracking
 weights on that axis, then flies the mismatch sweep and the geometric
-launch node.
+launch node, and last brings up the SITL deployment stack (the MAVLink
+router, the mission layer, the engine node on the card behind the router,
+the launch tier's router node and mission REPL, and the preflight).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
@@ -269,8 +271,27 @@ without a result):
     on SIGTERM), and
     ``sim/geometric_baseline.py`` for 6 s (gate: its PASS, the circle
     tracked within 0.6 m).
+27. the SITL deployment stack: (a) the router test topology (an FCU server
+    endpoint, an unfiltered sink, an MPC sink with ``AllowMsgIdOut 367`` /
+    ``AllowMsgIdIn 368``, free ports) on the Python twin and the native
+    core (``csrc/router.cpp``, built in phase 2: its absence fails the
+    phase): a paced burst reaches the right sinks, no filtered id leaks,
+    the MPC side's 368 replies reach the FCU; then ``sim/bench_router.py``
+    at its default (frames/s of each and their ratio); (b)
+    ``sim/full_sitl_stack.py --seconds 8`` as a subprocess, the engine node
+    on the card, while a socket at the conf's liveview address
+    (127.0.0.1:14996) feeds the port's ``LiveMonitor`` (gates: ``RESULT:
+    PASS``, the native router, the engine in the traj or pos mode with
+    iterations, both message ids on the tap, the engine process's launches
+    the whole solve's only; printed: the station keeping, the engine's
+    solve ms, the router's per-endpoint counts, the tap's rates); (c) the
+    router launch node on ``router_sitl.yaml`` rewritten to free ports
+    (READY, a frame forwarded, rc 0 on SIGTERM) and ``iris_sdectrl.yaml
+    --repl`` with a script on stdin (READY, the mission's load line, no
+    ``error:``, rc 0); (d) ``sim/preflight.py --solve`` in this process
+    (rc 0, the card on its device line, one ``apg_solve`` launch).
 
-In phases 6-8, 11-13, 15-18, 20-22 and 24-26 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22, 24-26 and 27 (d) every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -278,8 +299,8 @@ JAX must never be imported.
 
 The lines before the last are the routes' JSON record (``{"record": ...}``:
 per-solve times, the closed loops, the launch tier, the fleets, the policy
-family, the batched routes, the tuning sweeps, the mismatch sweep and the
-geometric node), the kernels' JSON line and the card's name and
+family, the batched routes, the tuning sweeps, the mismatch sweep, the
+geometric node and the SITL stack), the kernels' JSON line and the card's name and
 power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -4379,6 +4400,328 @@ def tuning_geometric_sim() -> dict:
 
 
 
+# ---------------------------------------------------------------- phase 27
+# the SITL deployment stack: the router (both implementations and its
+# bench), the full stack with the engine node on the card and the live tap,
+# the router launch node and the mission REPL, and the port's preflight
+SITL_BURST = 300                      # frames of the router topology's paced burst
+SITL_STACK_S = 8.0                    # sim/full_sitl_stack.py's --seconds (its default)
+SITL_STACK_WALL_S = 600.0             # its subprocess's time limit
+SITL_TAP = ("127.0.0.1", 14996)       # configs/router_sitl.conf's liveview endpoint
+SITL_REPL = "controller_init\ncontroller_idle\nweight_motors 100\ncontroller_off\nexit\n"
+
+
+def sitl_router_topology(kind: str) -> dict:
+    """The router test topology on free ports: an FCU server endpoint, an
+    unfiltered sink and an MPC sink with ``AllowMsgIdOut 367`` /
+    ``AllowMsgIdIn 368``. A paced burst of states (367) and commands (368)
+    from the FCU; every few frames the MPC sink answers with a 368 and
+    spoofs a 367. Gates: the unfiltered sink gets every FCU frame and every
+    reply, the MPC sink exactly the FCU's 367s, the FCU every reply and no
+    spoofed 367."""
+    import collections
+    import socket
+
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.io import mavlink as mav
+    from sde4mbrl_px4_tpu_torch.io.router import Endpoint, NativeRouter, Router
+
+    socks = {k: socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for k in ("fcu", "plain", "mpc")}
+    for s in socks.values():
+        s.bind(("127.0.0.1", 0))
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+        s.setblocking(False)
+    eps = [Endpoint("fcu", "127.0.0.1", 0, mode="Server"),
+           Endpoint("plain", "127.0.0.1", socks["plain"].getsockname()[1]),
+           Endpoint("mpc", "127.0.0.1", socks["mpc"].getsockname()[1],
+                    allow_out={367}, allow_in={368})]
+    impl = NativeRouter if kind == "native" else Router
+    r = impl(eps)
+    r.start()
+    want = {k: collections.Counter() for k in socks}
+    got = {k: collections.Counter() for k in socks}
+    rs = np.random.RandomState(27)
+    try:
+        ports = ({n: r.bound_port(n) for n in ("fcu", "mpc")} if impl is NativeRouter
+                 else {"fcu": eps[0].bound_port, "mpc": eps[2].bound_port})
+        for k in range(SITL_BURST):
+            fr = bytes(mav.encode_full_state(k, rs.randn(13).astype(np.float32), seq=k) if k % 3
+                       else mav.encode_motors_cmd(k, rs.rand(6), rs.rand(4), 3, 100, seq=k))
+            socks["fcu"].sendto(fr, ("127.0.0.1", ports["fcu"]))
+            want["plain"][fr] += 1
+            if k % 3:
+                want["mpc"][fr] += 1
+            if k % 10 == 9:
+                reply = bytes(mav.encode_motors_cmd(10_000 + k, rs.rand(6), rs.rand(4), 3, 100))
+                spoof = bytes(mav.encode_full_state(20_000 + k, np.zeros(13, np.float32)))
+                socks["mpc"].sendto(reply, ("127.0.0.1", ports["mpc"]))
+                socks["mpc"].sendto(spoof, ("127.0.0.1", ports["mpc"]))
+                want["plain"][reply] += 1
+                want["fcu"][reply] += 1
+            time.sleep(0.0005)
+        deadline = time.perf_counter() + 1.0
+        while time.perf_counter() < deadline:
+            for key, s in socks.items():
+                try:
+                    got[key][s.recvfrom(512)[0]] += 1
+                    deadline = time.perf_counter() + 0.3
+                except BlockingIOError:
+                    pass
+        stats = dict(r.stats)
+    finally:
+        r.stop()
+        for s in socks.values():
+            s.close()
+    out = {k: sum(got[k].values()) for k in socks}
+    out["stats"] = stats
+    ok = all(got[k] == want[k] for k in socks)
+    log(f"router topology ({kind}): a paced burst of {SITL_BURST} FCU frames and "
+        f"{SITL_BURST // 10} MPC replies (+ as many spoofed 367s): unfiltered sink "
+        f"{out['plain']}/{sum(want['plain'].values())}, MPC sink {out['mpc']}/"
+        f"{sum(want['mpc'].values())} (367 only), FCU {out['fcu']}/{sum(want['fcu'].values())} "
+        f"(368 replies only); frames in per endpoint {stats} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {kind} router lost, leaked or misrouted frames: {out}")
+    return out
+
+
+def sitl_router(card: str) -> dict:
+    """(a) Both router implementations on the test topology, then
+    ``sim/bench_router.py`` at its default (20,000 frames each)."""
+    from sde4mbrl_px4_tpu_torch.io.mavlink import load_native
+    from sde4mbrl_px4_tpu_torch.sim import bench_router
+
+    lib = load_native()
+    if lib is None or not hasattr(lib, "router_new"):
+        raise AssertionError("csrc/libmpc_native.so has no router core (phase 2 builds it)")
+    out = {kind: sitl_router_topology(kind) for kind in ("python", "native")}
+    bench = bench_router.run([])
+    out["bench"] = bench
+    log(f"router bench ({card} host, {bench['python']['frames']} frames each): python "
+        f"{bench['python']['frames_per_s']:.0f} frames/s (loss {bench['python']['loss']:.3f}), "
+        f"native {bench['native']['frames_per_s']:.0f} frames/s (loss "
+        f"{bench['native']['loss']:.3f}); native/python {bench['native_over_python']:.3f}")
+    return out
+
+
+def sitl_stack(card: str) -> dict:
+    """(b) ``sim/full_sitl_stack.py --seconds 8`` as a subprocess, the
+    engine node on the card, while a socket bound at the conf's liveview
+    address feeds the port's ``LiveMonitor``. Gates: ``RESULT: PASS``, the
+    native router, the engine in the traj or pos mode with iterations, the
+    tap fed both message ids, the engine's process launching the whole-solve
+    kernel and no other."""
+    import socket
+    import threading
+
+    from sde4mbrl_px4_tpu_torch.io.mavlink import decode_frame
+    from sde4mbrl_px4_tpu_torch.sim.analyze import LiveMonitor
+
+    tap = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    tap.bind(SITL_TAP)
+    tap.settimeout(0.2)
+    mon = LiveMonitor(window_s=1e9, max_len=1 << 20)
+    seen = {"MPC_FULL_STATE": [], "MPC_MOTORS_CMD": []}
+    stop = threading.Event()
+
+    def read_tap():
+        while not stop.is_set():
+            try:
+                msg = decode_frame(tap.recv(512))
+            except socket.timeout:
+                continue
+            if msg is None:
+                continue
+            seen[msg.get_type()].append(time.perf_counter())
+            if msg.get_type() == "MPC_FULL_STATE":
+                mon.ingest_state(msg.time_usec, msg.state, msg.motors)
+            else:
+                mon.ingest_cmd(msg.time_usec, msg.motor_val_des, msg.thrust_and_angrate_des)
+
+    th = threading.Thread(target=read_tap, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.sim.full_sitl_stack",
+                            "--seconds", str(SITL_STACK_S)], cwd=ROOT, capture_output=True,
+                           text=True, timeout=SITL_STACK_WALL_S)
+    finally:
+        stop.set()
+        th.join(timeout=5)
+        tap.close()
+    wall = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    res = json.loads(next((ln for ln in reversed(lines) if ln.startswith("{")), "{}") or "{}")
+    passed = "RESULT: PASS" in lines
+    router_line = next((ln for ln in lines if ln.startswith("== router")), "")
+    rates = {}
+    for kind, ts in seen.items():
+        span = (ts[-1] - ts[0]) if len(ts) > 1 else 0.0
+        rates[kind] = len(ts) / span if span else 0.0
+    launches = res.get("engine_launches", {})
+    out = {"rc": r.returncode, "wall_s": wall, "router_line": router_line,
+           "tap_states": len(seen["MPC_FULL_STATE"]), "tap_commands": len(seen["MPC_MOTORS_CMD"]),
+           "tap_states_per_s": rates["MPC_FULL_STATE"],
+           "tap_commands_per_s": rates["MPC_MOTORS_CMD"], "tap_summary": mon.summary(),
+           **{k: v for k, v in res.items() if k != "ok"}}
+    log(f"full SITL stack ({card}; {router_line.strip('= ')}; engine READY in "
+        f"{res.get('ready_s', float('nan')):.1f} s): station keeping over {res.get('ticks')} "
+        f"ticks mean {res.get('err_mean_m', float('nan')):.4f} m max "
+        f"{res.get('err_max_m', float('nan')):.4f} m; MPC_ON "
+        f"{res.get('engage_s', float('nan')):.2f} s after ctrl_pos_current; engine state "
+        f"{res.get('engine_state')}, {res.get('engine_num_steps')} iterations, solve "
+        f"{res.get('engine_solve_ms', float('nan')):.3f} ms, pickup idx "
+        f"{res.get('engine_mpc_indx')}; {res.get('engine_plans')} plans, the engine "
+        f"process's launches {launches}; router frames in {res.get('router_stats')}; tap "
+        f"{out['tap_states']} states ({out['tap_states_per_s']:.1f}/s) and "
+        f"{out['tap_commands']} commands ({out['tap_commands_per_s']:.1f}/s), "
+        f"{out['tap_summary']}; rc {r.returncode} in {wall:.1f} s wall -> "
+        f"{'PASS' if passed else 'FAIL'}")
+    if not (r.returncode == 0 and passed and "native C++" in router_line
+            and res.get("engine_state") in ("traj", "pos")
+            and (res.get("engine_num_steps") or 0) > 0
+            and out["tap_states"] > 0 and out["tap_commands"] > 0
+            and launches.get("apg_solve", 0) >= 1
+            and not any(launches.get(k) for k in ("value_batch", "value_and_grad",
+                                                  "trajectory"))):
+        raise AssertionError(f"the full SITL stack failed: {out}\n" + "\n".join(lines[-40:])
+                             + r.stderr[-3000:])
+    if "jax" in sys.modules:
+        raise AssertionError("JAX was imported")
+    return out
+
+
+def sitl_launch(card: str) -> dict:
+    """(c) The launch tier: ``node: router`` on ``router_sitl.yaml`` with its
+    conf rewritten to free ports (READY, a frame forwarded to the telemetry
+    sink, rc 0 on SIGTERM), and ``iris_sdectrl.yaml --repl`` on free ports
+    with a script on stdin (READY, the mission's load line, no ``error:``
+    line, rc 0)."""
+    import socket
+
+    import numpy as np
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.io.mavlink import encode_full_state
+
+    d = os.path.join(ROOT, "build", "chip_smoke", "sitl")
+    os.makedirs(os.path.join(d, "launch"), exist_ok=True)
+    with open(os.path.join(ROOT, "configs", "router_sitl.conf")) as f:
+        conf = f.read()
+    sink = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sink.bind(("127.0.0.1", 0))
+    sink.settimeout(10.0)
+    fcu = free_udp_port()
+    conf = conf.replace("Port = 14550", f"Port = {fcu}").replace(
+        "Port = 14999", f"Port = {sink.getsockname()[1]}")
+    for port in (14998, 14996):
+        conf = conf.replace(f"Port = {port}", f"Port = {free_udp_port()}")
+    with open(os.path.join(d, "router.conf"), "w") as f:
+        f.write(conf)
+    with open(os.path.join(ROOT, "configs", "launch", "router_sitl.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["conf"] = "../router.conf"
+    router_yaml = os.path.join(d, "launch", "router_sitl.yaml")
+    with open(router_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = {}
+    proc = subprocess.Popen([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch",
+                             router_yaml], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, bufsize=1)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "[launch] READY" in line:
+                break
+        frame = bytes(encode_full_state(27, np.eye(1, 13, 6, dtype=np.float32)[0]))
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as client:
+            client.sendto(frame, ("127.0.0.1", fcu))
+            out["router_forwarded"] = sink.recvfrom(512)[0] == frame
+        time.sleep(1.2)                      # one stats report
+    finally:
+        sink.close()
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            out["router_rc"] = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out["router_rc"] = proc.wait(timeout=30)
+    lines += [ln.rstrip() for ln in proc.stdout]
+    out["router_line"] = next((ln for ln in lines if "fanning out" in ln), "")
+    log(f"router launch node: {out['router_line']}; READY "
+        f"{any('[launch] READY' in ln for ln in lines)}, frame forwarded "
+        f"{out.get('router_forwarded')}, rc {out['router_rc']} on SIGTERM; "
+        f"{[ln for ln in lines if ln.startswith('[router]')][-1:]}")
+    if not (out.get("router_forwarded") and out["router_rc"] == 0
+            and "native C++" in out["router_line"]):
+        raise AssertionError(f"the router launch node failed: {out}; {lines[-10:]}")
+
+    with open(os.path.join(ROOT, "configs", "launch", "iris_sdectrl.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(addr_mavlink_state_msg=f"127.0.0.1:{free_udp_port()}",
+               addr_services=f"127.0.0.1:{free_udp_port()}",
+               config_dir=os.path.join(ROOT, "configs"))
+    repl_yaml = os.path.join(d, "launch", "iris_sdectrl.yaml")
+    with open(repl_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", repl_yaml,
+                        "--repl"], cwd=ROOT, input=SITL_REPL, capture_output=True, text=True,
+                       timeout=LAUNCH_READY_S)
+    out["repl_rc"], out["repl_wall_s"] = r.returncode, time.perf_counter() - t0
+    text = r.stdout
+    stopped = next((ln[ln.index("[launch] engine stopped"):] for ln in text.splitlines()
+                    if "[launch] engine stopped" in ln), "")
+    out["repl_stopped"] = stopped
+    replies = [ln.split(">>> ")[-1] for ln in text.splitlines() if ">>> " in ln]
+    log(f"--repl ({card}): rc {r.returncode} in {out['repl_wall_s']:.1f} s; mission replies "
+        f"{[x for x in replies if x and x != stopped]}; {stopped}")
+    if not (r.returncode == 0 and "[launch] READY" in text and "engine (cuda" in text
+            and "Loaded the trajectory and the parameters" in text and "error:" not in text):
+        raise AssertionError(f"--repl failed: rc {r.returncode}\n{text[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return out
+
+
+def sitl_preflight(card: str) -> dict:
+    """(d) ``sim/preflight.py --solve`` in this process, so its one
+    ``apg_solve`` launch is counted. Gates: exit code 0, the device line
+    naming the card, exactly one whole-solve launch."""
+    import io
+
+    from sde4mbrl_px4_tpu_torch.sim import preflight
+
+    buf = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = preflight.main(["--solve"])
+    got = counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"preflight: {line.strip()}")
+    device = next((ln for ln in text.splitlines() if " device " in ln), "")
+    if rc != 0 or card.split(",")[0] not in device:
+        raise AssertionError(f"preflight failed (rc {rc}): {text}")
+    check_route("preflight solve", {"apg_solve": 1, "value_batch": 0, "value_and_grad": 0,
+                                    "trajectory": 0})
+    solve = next((ln for ln in text.splitlines() if "end-to-end solve" in ln), "")
+    return {"rc": rc, "device_line": device.strip(), "solve_line": solve.strip(),
+            "launches": got}
+
+
+def phase_sitl(card: str) -> dict:
+    """Phase 27, the SITL deployment stack (module docstring)."""
+    t = time.perf_counter()
+    out = {"router": sitl_router(card), "stack": sitl_stack(card),
+           "launch": sitl_launch(card), "preflight": sitl_preflight(card)}
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 27 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4468,6 +4811,10 @@ def main() -> int:
     log("phase 26: the MPPI and weight sweeps run their candidates on the kernels' scenario "
         "axis, each checked candidate bit-equal to its solo solve; the mismatch sweep passes "
         "with the geometric baseline; the geometric launch node serves")
+    sitl = phase_sitl(card)
+    log("phase 27: the SITL deployment stack: both routers route the test topology, the full "
+        "stack flies the engine node on the card through the native router and passes, the "
+        "router node and the mission REPL serve, preflight's solve is one whole-solve launch")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -4812,6 +5159,8 @@ def main() -> int:
                   timed=f"per launch over {N} plans",
                   plain_ms_is="one plan's plain rollout (rollout_mean on the card)")]
     kernels[0]["mismatch_sweep_launches"] = tune["mismatch"]["launches"]["apg_solve"]
+    kernels[0]["full_sitl_stack_launches"] = sitl["stack"]["engine_launches"]["apg_solve"]
+    kernels[0]["preflight_launches"] = sitl["preflight"]["launches"]["apg_solve"]
     for k in kernels:
         if k["name"] == "value_batch" and k["branch"].startswith("P=1, K=1"):
             k["distilled_shootout_launches"] = ld["launches"]["value_batch"]
@@ -4862,7 +5211,12 @@ def main() -> int:
             kind: {name: {k: v for k, v in r.items() if k not in ("bundle",)}
                    for name, r in tune[kind].items()} for kind in ("mppi", "weights")},
         "mismatch": {k: v for k, v in tune["mismatch"].items() if k != "launches"},
-        "geometric_node": tune["geometric"], "geometric_sim": tune["geometric_sim"]}}))
+        "geometric_node": tune["geometric"], "geometric_sim": tune["geometric_sim"],
+        "sitl": {"router": sitl["router"],
+                 "stack": {k: v for k, v in sitl["stack"].items() if k != "router_stats"},
+                 "stack_router_stats": sitl["stack"].get("router_stats"),
+                 "launch": sitl["launch"], "preflight": sitl["preflight"],
+                 "wall_s": sitl["wall_s"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``sde4mbrl_px4_tpu/core/quaternion.py``: the subset
 the model, the cost, the frame conversion, the trajectory loader and the
-geometric baseline use.
+geometric baseline and the mission layer use.
 Quaternions are ``(..., 4)`` tensors in scalar-first ``[w, x, y, z]`` order
 and every function broadcasts over leading batch dimensions; all of them
 are differentiable with autograd and traceable by ``torch.func.vmap``.
@@ -24,6 +24,7 @@ __all__ = [
     "vee",
     "q_from_yaw",
     "q_from_euler",
+    "yaw_from_q",
     "acc_yaw_to_q",
     "qerr_vec",
 ]
@@ -133,6 +134,12 @@ def q_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
     h = 0.5 * yaw
     z = torch.zeros_like(yaw)
     return torch.stack([torch.cos(h), z, z, torch.sin(h)], dim=-1)
+
+
+def yaw_from_q(q: torch.Tensor) -> torch.Tensor:
+    """Extract yaw (ZYX convention) from a quaternion."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
 
 
 def q_from_euler(roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Flight recording (L7) — the framework's ULog/PlotJuggler-asset analogue.
 
 Copied from ``sde4mbrl_px4_tpu/io/flight_log.py`` (numpy only: the port
-may not import the JAX package, whose ``__init__`` imports JAX), with
-``read_tlog`` copied from ``sde4mbrl_px4_tpu/io/router.py:134-159`` (the
-router itself is not ported yet).
+may not import the JAX package, whose ``__init__`` imports JAX).
+``read_tlog`` lives with the router that writes the ``.tlog``
+(``io/router.py``) and is re-exported here.
 
 - :class:`FlightRecorder` — accumulates per-tick records (state, command,
   reference, solver stats) and writes ``.npz`` flight logs, or ``.ulg``
@@ -15,10 +15,11 @@ router itself is not ported yet).
 from __future__ import annotations
 
 import os
-import struct
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from sde4mbrl_px4_tpu_torch.io.router import read_tlog
 
 __all__ = ["FlightRecorder", "load_flight_log", "read_tlog", "tlog_to_flight_log"]
 
@@ -88,34 +89,6 @@ class FlightRecorder:
 def load_flight_log(path: str) -> Dict[str, np.ndarray]:
     d = np.load(os.path.expanduser(path))
     return {k: d[k] for k in d.files}
-
-
-def read_tlog(path: str) -> Iterator[Tuple[int, bytes]]:
-    """Yield ``(t_usec, frame)`` from a ``.tlog``. Frame length comes from
-    the MAVLink header (v2: 12 + payload_len signature-less; v1: 8 +
-    payload_len), so the file needs no separate framing. A record
-    truncated at EOF (router killed mid-write) ends the iteration cleanly
-    — the recoverable prefix is the flight log; a corrupt magic mid-file
-    is still an error (that's damage, not truncation)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    off = 0
-    while off + 10 <= len(data):        # timestamp + at least magic+len
-        (t_usec,) = struct.unpack_from(">Q", data, off)
-        off += 8
-        magic = data[off]
-        if magic == 0xFD:
-            if off + 3 > len(data):
-                return                   # truncated header at EOF
-            n = 12 + data[off + 1] + (13 if data[off + 2] & 0x01 else 0)
-        elif magic == 0xFE:
-            n = 8 + data[off + 1]
-        else:
-            raise ValueError(f"{path}: bad frame magic 0x{magic:02x} at {off}")
-        if off + n > len(data):
-            return                       # truncated frame at EOF
-        yield t_usec, data[off : off + n]
-        off += n
 
 
 def tlog_to_flight_log(path: str) -> Dict[str, np.ndarray]:

@@ -8,7 +8,10 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/launch.py`` (``:36-66``,
 
 - ``node: sde_control`` — the async MPC engine (``io/engine_runtime.py``)
   on the card (``--cpu``: on the CPU), serving the MAVLink UDP side-channel
-  and the JSON service channel;
+  and the JSON service channel; with ``--repl`` the mission REPL
+  (``cli/mission.py``) reads operator verbs from stdin and drives the
+  engine's services in-process (no vehicle: engine verbs only), and the
+  process exits 0 on EOF or ``exit``;
 - ``node: fcu_sim`` — the SITL plant (``sim/sitl.py``; the plant runs on
   the host CPU);
 - ``node: geometric_controller`` — the native geometric baseline
@@ -17,19 +20,27 @@ PyTorch counterpart of ``sde4mbrl_px4_tpu/launch.py`` (``:36-66``,
   trajectory on the MAVLink side-channel (the original's ``:104-153``;
   the trajectory's clock starts at the first state): each
   ``MPC_FULL_STATE`` it receives is answered with an ``MPC_MOTORS_CMD`` of
-  thrust and FRD body rates (``weight_motors`` 0).
+  thrust and FRD body rates (``weight_motors`` 0);
+- ``node: router`` — the MAVLink fan-out (``io/router.py``) on the launch
+  file's ``conf`` (resolved against the working directory, then the launch
+  file's directory): the native core over ``csrc/libmpc_native.so`` when
+  it is built and has what the conf needs, else (or with ``native: false``
+  in the launch file) the Python twin; the line before READY says which
+  runs.
 
 Each node prints ``[launch] READY`` once it serves, then runs until
 interrupted (SIGINT or SIGTERM), or for ``--seconds``, and stops its
-threads. Start a second node as a fresh process (``subprocess``), never by
-forking one that has initialised CUDA. ``node: router`` and ``--repl``
-raise ``NotImplementedError`` naming their ROADMAP item; there is no
-``--coordinator`` (multi-host is ``torch.distributed``, ROADMAP 'Batched
-and fleet').
+threads; the engine then prints the plans it published and its process's
+kernel launches (``[launch] engine stopped: ...``), the count a caller in
+another process can read. Start a second node as a fresh process
+(``subprocess``), never by forking one that has initialised CUDA. There is
+no ``--coordinator`` (multi-host is ``torch.distributed``, ROADMAP
+'Batched and fleet').
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import time
@@ -37,12 +48,7 @@ from typing import Any, Callable, Dict, Optional
 
 import yaml
 
-__all__ = ["launch_from_file", "main", "NOT_PORTED"]
-
-# node types (and --repl) the port does not run yet, and the ROADMAP.md §1
-# item that brings each
-NOT_PORTED = {"router": "Router launch node",
-              "repl": "Mission CLI and --repl"}
+__all__ = ["kernel_launches", "launch_from_file", "main"]
 
 
 def _load(path: str) -> Dict[str, Any]:
@@ -50,12 +56,6 @@ def _load(path: str) -> Dict[str, Any]:
         cfg = yaml.safe_load(f)
     cfg["_dir"] = os.path.dirname(os.path.abspath(path))
     return cfg
-
-
-def _refuse(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sde4mbrl_px4_tpu_torch yet; ROADMAP.md §1 "
-        f"'{NOT_PORTED[key]}' brings it")
 
 
 def config_dir(cfg: Dict[str, Any]) -> str:
@@ -83,10 +83,12 @@ def _serve(report: Callable[[], str], period: float,
         pass
 
 
-def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float] = None):
+def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float] = None,
+                       repl: bool = False):
     """Start the MPC engine node (reference sde_control main,
     ``sde_control.py:750-769``); its constructor builds (or reuses) and
-    warms every kernel before it serves."""
+    warms every kernel before it serves. ``repl``: the mission REPL on
+    stdin in place of the telemetry reports, until EOF or ``exit``."""
     from sde4mbrl_px4_tpu_torch.io.engine_runtime import SDEControlNode
 
     base = config_dir(cfg)
@@ -114,6 +116,9 @@ def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float
         print(f"[launch] engine ({node.ctrl.device}) serving MPC_FULL_STATE on udp:{addr}, "
               f"services on udp:{svc_addr}; mailbox {node.mailbox_kind}", flush=True)
         print("[launch] READY", flush=True)
+        if repl:
+            _mission_repl(node)
+            return node
         logf = open(log_file, "a") if log_file else None
         _serve(report, float(cfg.get("mpc_report_dt", 0.2)), seconds)
     except KeyboardInterrupt:
@@ -122,7 +127,92 @@ def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float
         node.stop()
         if logf:
             logf.close()
+        print(f"[launch] engine stopped: {len(node.solve_steps)} plans published; kernel "
+              f"launches {json.dumps(kernel_launches())}", flush=True)
     return node
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of each kernel in this process so far (every wrapper counts
+    where it launches; the plain CPU versions count nothing)."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": AK.apg_solve_kernel.launches,
+            "value_batch": CO.value_batch_kernel.launches,
+            "value_and_grad": CO.value_and_grad_kernel.launches,
+            "trajectory": CO.trajectory_kernel.launches}
+
+
+def _mission_repl(node) -> None:
+    """The operator REPL on ``node`` (the original's ``:65-83``): engine
+    verbs only, over a vehicle that reports itself in OFFBOARD at the
+    origin and accepts no firmware parameters."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.cli.mission import MissionControl, VehicleBase, repl
+
+    class _NullVehicle(VehicleBase):
+        armed = False
+        flight_mode = "OFFBOARD"
+
+        def arm(self, value):
+            pass
+
+        def set_flight_mode(self, mode):
+            pass
+
+        def push_setpoint(self, pos, yaw):
+            pass
+
+        def position(self):
+            return np.zeros(3)
+
+        def yaw(self):
+            return 0.0
+
+        def mpc_status(self):
+            return 0
+
+    ctl = MissionControl(_NullVehicle(), engine=node, auto_spin=True)
+    try:
+        repl(ctl)
+    finally:
+        ctl.stop()
+
+
+def launch_router(cfg: Dict[str, Any], seconds: Optional[float] = None):
+    """Start the MAVLink fan-out router (the reference's ``px4_sitl.launch``
+    + ``sitl_route_mavlink.sh`` transport bring-up; the original's
+    ``:155-200``): a conf in the mavlink-router dialect defines the
+    endpoints and their filters. Returns the router, stopped."""
+    from sde4mbrl_px4_tpu_torch.io.router import (
+        NativeRouter, Router, native_router_supports, parse_conf, parse_general)
+
+    conf = cfg["conf"]
+    if not os.path.isabs(conf):
+        cand = [os.path.abspath(conf), os.path.normpath(os.path.join(cfg["_dir"], conf))]
+        conf = next((c for c in cand if os.path.isfile(c)), cand[0])
+    with open(conf) as f:
+        text = f.read()
+    endpoints = parse_conf(text)
+    general = parse_general(text)          # [General] Log / LogMode
+    native = cfg.get("native", True) and native_router_supports(endpoints, general)
+    router = (NativeRouter if native else Router)(endpoints, log_dir=general.log_dir,
+                                                  log_mode=general.log_mode)
+    router.start()
+    try:
+        print(f"[launch] router ({'native C++' if native else 'python'}) fanning out "
+              f"{len(endpoints)} endpoints ({', '.join(e.name for e in endpoints)}) from {conf}"
+              + (f"; flight log -> {general.log_dir} ({general.log_mode})"
+                 if general.log_dir else ""), flush=True)
+        print("[launch] READY", flush=True)
+        _serve(lambda: f"[router] frames in per endpoint {router.stats}", 1.0, seconds)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        router.stop()
+    return router
 
 
 def launch_fcu_sim(cfg: Dict[str, Any], seconds: Optional[float] = None):
@@ -224,16 +314,16 @@ def launch_from_file(path: str, repl: bool = False, device=None,
                      seconds: Optional[float] = None):
     cfg = _load(path)
     node_type = cfg.get("node", "sde_control")
-    if repl:
-        raise _refuse("the mission REPL (--repl)", "repl")
+    if repl and node_type != "sde_control":
+        raise ValueError(f"--repl attaches to the engine node (sde_control), not {node_type!r}")
     if node_type == "sde_control":
-        return launch_sde_control(cfg, device=device, seconds=seconds)
+        return launch_sde_control(cfg, device=device, seconds=seconds, repl=repl)
     if node_type == "fcu_sim":
         return launch_fcu_sim(cfg, seconds=seconds)
     if node_type == "geometric_controller":
         return launch_geometric(cfg, seconds=seconds)
-    if node_type in NOT_PORTED:
-        raise _refuse(f"node: {node_type}", node_type)
+    if node_type == "router":
+        return launch_router(cfg, seconds=seconds)
     raise ValueError(f"unknown node type {node_type!r}")
 
 
@@ -246,7 +336,7 @@ def main(argv=None):
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("launch_file")
     ap.add_argument("--repl", action="store_true",
-                    help="attach the mission REPL (not ported)")
+                    help="attach the mission REPL on stdin to the engine node")
     ap.add_argument("--cpu", action="store_true", help="run the engine on the CPU")
     ap.add_argument("--seconds", type=float, default=None,
                     help="stop after this many seconds of serving (default: run until "

@@ -14,9 +14,12 @@ async ``SDEControlNode`` and the launcher.
 - the pipelined controller equal to the synchronous one shifted by one
   call; the offset estimator reset before its first tick of a fresh
   engagement;
-- the launcher parsing the shipped ``configs/launch/*`` for both node
-  kinds it runs and refusing the others, naming their ROADMAP item, and
-  running ``fcu_sim`` in a fresh process until SIGTERM.
+- the launcher parsing the shipped ``configs/launch/*``, refusing an
+  engine config it does not run (``matmul_precision`` below fp32, naming
+  its ROADMAP item), and running in fresh processes the geometric node and
+  the router node for ``--seconds`` (a frame forwarded), ``fcu_sim`` until
+  SIGTERM and the engine with the mission REPL (``--repl --cpu``) on a
+  stdin script.
 """
 import os
 import socket
@@ -513,15 +516,122 @@ def test_launcher_parses_the_shipped_launch_files(repo_root):
     assert sum(v == "fcu_sim" for v in kinds.values()) == 2
 
 
-@pytest.mark.parametrize("name, item", [("router_sitl.yaml", "Router launch node")])
-def test_launcher_refuses_what_it_does_not_run(repo_root, name, item):
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_launcher_refuses_what_it_does_not_run(tiny_paths, tmp_path, precision):
+    """An engine config with a matmul precision below fp32 is refused at
+    build, naming its ROADMAP item (reduced precision stalls the solver)."""
     from sde4mbrl_px4_tpu_torch import launch as L
 
-    with pytest.raises(NotImplementedError, match=item):
-        L.launch_from_file(os.path.join(repo_root, "configs", "launch", name))
-    with pytest.raises(NotImplementedError, match="Mission CLI and --repl"):
-        L.launch_from_file(os.path.join(repo_root, "configs", "launch", "iris_sdectrl.yaml"),
-                           repl=True)
+    cfg = yaml.safe_load(open(tiny_paths[1]))
+    cfg["matmul_precision"] = precision
+    (tmp_path / "pos.yaml").write_text(yaml.safe_dump(cfg))
+    p = tmp_path / "engine.yaml"
+    p.write_text(yaml.safe_dump({"node": "sde_control", "config_dir": str(tmp_path),
+                                 "traj_ctrl": tiny_paths[0], "sp_ctrl": "pos.yaml",
+                                 "addr_mavlink_state_msg": f"127.0.0.1:{_free_port()}",
+                                 "addr_services": f"127.0.0.1:{_free_port()}"}))
+    with pytest.raises(NotImplementedError, match="Reduced matmul precision"):
+        L.launch_from_file(str(p), device="cpu", seconds=0.1)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(repo_root, argv, stdin=None):
+    """``python -m sde4mbrl_px4_tpu_torch.launch argv`` in a fresh process,
+    its output collected line by line on a thread."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.Popen([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", *argv],
+                            cwd=repo_root, env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT,
+                            stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    if stdin is not None:
+        proc.stdin.write(stdin)
+        proc.stdin.close()
+    return proc, lines, reader
+
+
+def test_launcher_runs_router_node_for_seconds(repo_root, tmp_path):
+    """``node: router`` on the shipped ``router_sitl.yaml``, its conf
+    rewritten to free ports: READY with the native/python line, a frame sent
+    to the FCU endpoint forwarded to the unfiltered telemetry sink, and exit
+    0 when the seconds are up."""
+    with open(os.path.join(repo_root, "configs", "router_sitl.conf")) as f:
+        conf = f.read()
+    fcu_port = _free_port()
+    sinks = {}
+    for name, port in (("telemetry", 14999), ("mpc", 14998), ("liveview", 14996)):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", 0))
+        s.settimeout(5.0)
+        sinks[name] = s
+        conf = conf.replace(f"Port = {port}", f"Port = {s.getsockname()[1]}")
+    conf = conf.replace("Port = 14550", f"Port = {fcu_port}")
+    (tmp_path / "router.conf").write_text(conf)
+    cfg = yaml.safe_load(open(os.path.join(repo_root, "configs/launch/router_sitl.yaml")))
+    assert cfg == {"node": "router", "conf": "../router_sitl.conf"}
+    (tmp_path / "launch").mkdir()
+    p = tmp_path / "launch" / "router.yaml"
+    p.write_text(yaml.safe_dump({**cfg, "conf": "../router.conf"}))
+    proc, lines, reader = _launch(repo_root, [str(p), "--seconds", "5"])
+    client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        t0 = time.monotonic()
+        while not any("[launch] READY" in ln for ln in lines) and proc.poll() is None:
+            assert time.monotonic() - t0 < 60, lines
+            time.sleep(0.05)
+        frame = bytes(M.encode_full_state(42, hover_state().numpy()))
+        client.sendto(frame, ("127.0.0.1", fcu_port))
+        assert sinks["telemetry"].recvfrom(512)[0] == frame
+        assert sinks["mpc"].recvfrom(512)[0] == frame            # 367 passes its filter
+        proc.wait(timeout=60)
+        reader.join(timeout=10)
+    finally:
+        client.close()
+        for s in sinks.values():
+            s.close()
+        if proc.poll() is None:
+            proc.kill()
+    out = "".join(lines)
+    assert proc.returncode == 0 and "[launch] READY" in out, out
+    native = os.path.exists(os.path.join(repo_root, "csrc", "libmpc_native.so"))
+    assert f"router ({'native C++' if native else 'python'}) fanning out 4 endpoints" in out
+    assert "'fcu': 1" in out, out
+
+
+def test_launcher_repl_runs_a_stdin_script_on_cpu(repo_root, tiny_paths, tmp_path):
+    """``--repl --cpu`` on an engine launch file (the tiny configs, free
+    ports): READY, the mission verbs of a stdin script reach the engine's
+    services, no ``error:`` line, exit 0 at ``exit``."""
+    p = tmp_path / "engine.yaml"
+    p.write_text(yaml.safe_dump({"node": "sde_control", "config_dir": "/",
+                                 "traj_ctrl": tiny_paths[0], "sp_ctrl": tiny_paths[1],
+                                 "addr_mavlink_state_msg": f"127.0.0.1:{_free_port()}",
+                                 "addr_services": f"127.0.0.1:{_free_port()}"}))
+    script = "controller_init\ncontroller_idle\nweight_motors 100\ncontroller_off\nexit\n"
+    proc, lines, reader = _launch(repo_root, [str(p), "--repl", "--cpu"], stdin=script)
+    try:
+        proc.wait(timeout=240)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    out = "".join(lines)
+    assert proc.returncode == 0 and "[launch] READY" in out, out
+    assert "engine (cpu)" in out and "error:" not in out, out
+    for line in ("Loaded the trajectory and the parameters", "entering idle",
+                 "weight_motors updated", "controller deactivated"):
+        assert line in out, out
 
 
 def test_launcher_runs_geometric_node_for_seconds(repo_root, tmp_path):

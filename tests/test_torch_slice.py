@@ -367,9 +367,12 @@ def test_slice_runs_without_jax(repo_root):
     two ``train_sde`` steps, evaluates and labels a state (``learning/``)
     and imports the learning drives, runs a one-period MPPI and weight
     sweep (``tuning/``), the geometric law (``baselines/``) and ``trajgen``
-    and imports the mismatch, tuning, soak and baseline drives, without JAX
-    ever entering ``sys.modules``; no module of the port imports JAX or the
-    JAX package."""
+    and imports the mismatch, tuning, soak and baseline drives, then parses
+    the router confs and a parameter dump, steps the mission layer's
+    vehicle and dispatches a verb (``io/router.py``, ``io/px4_params.py``,
+    ``cli/mission.py``) and imports the SITL stack, router bench, analysis
+    and preflight drives, without JAX ever entering ``sys.modules``; no
+    module of the port imports JAX or the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -514,6 +517,30 @@ def test_slice_runs_without_jax(repo_root):
         cmd, _ = geometric_control(GeoParams(), hover_state(), torch.zeros(3), torch.zeros(3),
                                    torch.zeros(3), torch.tensor(0.0))
         assert 0.0 < float(cmd[3]) <= 1.0 and circle_trajectory().shape[1] == 11
+        # the deployment stack: router confs, PX4 params, the mission layer
+        # over the plant, and the drives
+        import sde4mbrl_px4_tpu_torch.sim.analyze
+        import sde4mbrl_px4_tpu_torch.sim.bench_router
+        import sde4mbrl_px4_tpu_torch.sim.full_sitl_stack
+        import sde4mbrl_px4_tpu_torch.sim.preflight
+        from sde4mbrl_px4_tpu_torch.cli.mission import MissionControl, SimVehicle, dispatch
+        from sde4mbrl_px4_tpu_torch.io.px4_params import parse_params_file
+        from sde4mbrl_px4_tpu_torch.io.router import Deframer, parse_conf
+        from sde4mbrl_px4_tpu_torch.models.params_io import load_params
+        from sde4mbrl_px4_tpu_torch.sim.plant import FCUSim, SDEPlant
+        assert [e.name for e in parse_conf(open("configs/router_sitl.conf").read())] == [
+            "fcu", "telemetry", "mpc", "liveview"]
+        assert len(parse_params_file("configs/params_hexa.params")) == 9
+        from sde4mbrl_px4_tpu_torch.io.mavlink import encode_full_state
+        frame = bytes(encode_full_state(1, x))
+        assert Deframer().feed(frame + frame) == [frame, frame]
+        veh = SimVehicle(FCUSim(SDEPlant(m, load_params("configs/models/iris_sde.pkl")[0])))
+        ctl = MissionControl(veh, engine=None, log=lambda *a: None)
+        assert dispatch(ctl, "takeoff z=1.0")
+        for _ in range(2):
+            ctl.tick()
+            veh.step(0.02)
+        assert veh.armed and np.isfinite(veh.position()).all()
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)
