@@ -16,16 +16,20 @@ batched whole-solve labels and flown), and tunes MPPI knobs and tracking
 weights on that axis, then flies the mismatch sweep and the geometric
 launch node, and last brings up the SITL deployment stack (the MAVLink
 router, the mission layer, the engine node on the card behind the router,
-the launch tier's router node and mission REPL, and the preflight).
+the launch tier's router node and mission REPL, and the preflight), and the
+reduced matmul precision (the bf16 trunk of the JAX package's
+``matmul_precision: default``, its default above 128 particles).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds both kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc`` (one
-   ``nvcc`` each, in parallel) and prints the build seconds and the
-   compiler's register/spill/shared-memory summary per ``<PART, SC>`` form;
+2. builds the three kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
+   (``apg_solve``, its bf16 particle forms ``apg_solve_bf16`` and
+   ``cost_oracle``; one ``nvcc`` each, in parallel) and prints the build
+   seconds and the compiler's register/spill/shared-memory summary per
+   ``<PART, SC>`` form;
    fails if a P=1 form on the register chain (the whole solve,
    ``value_and_grad``, ``value_batch`` and ``trajectory``: their trunk lives
    in registers) or a cluster form of ``value_batch`` spills; prints the
@@ -290,8 +294,34 @@ without a result):
     --repl`` with a script on stdin (READY, the mission's load line, no
     ``error:``, rc 0); (d) ``sim/preflight.py --solve`` in this process
     (rc 0, the card on its device line, one ``apg_solve`` launch).
+28. reduced matmul precision, the bf16 trunk (``MPCPieces.trunk_bf16``,
+    on the routes the JAX package sends to XLA): (a) each bf16 form
+    against its plain bf16 twin on the card's tensors and against its own
+    fp32 form, same inputs and draws (the whole solve's particle form at a
+    fixed 5 iterations, P=512 antithetic; ``value_and_grad`` and
+    ``value_batch`` K = 1, 4 at P=512; ``value_batch`` at K=64 x P=256 and
+    at P=1, K=256 on the register chain and K=64 on the shared-memory
+    step; the options forms, with risk and starts, at P=512 and at P=1024,
+    two chunks a block: the whole solve, ``value_and_grad`` and
+    ``value_batch`` K = 1, 4), each within ``BF16_TOL`` of its twin and
+    more than 10x that from its fp32 form, timed beside its fp32 form and
+    (but the options forms) its bound (fp32 CUDA cores, and bf16 tensor
+    cores); (b) the flagship, iris traj at
+    P=512 antithetic without the key, 20 chained solves through
+    ``load_mpc_from_cfgfile`` -> ``mpc_fn``, one bf16 ``apg_solve`` and one
+    fp32 ``trajectory`` launch each, beside the same config at
+    ``matmul_precision: highest`` (wall and device p50, iterations,
+    tracking gate 0.5 m); (c) the fixed-step route at P=512,
+    ``sim/uncertainty.py`` at P=1024, MPPI at P=1 and K=256 with the key
+    (kernels against the plain bf16 oracle, |du| <= 1e-4) and the pure
+    policy with the key (its cost against the plain bf16 oracle, and more
+    than 10x that tolerance from the same states' cost at ``highest``),
+    each with its bf16 launches; (d) the route table: per config, the trunk's
+    precision on the card and the forms it launches. Phases 11-13, 18, 20,
+    22 and 24 fly P=512 or P=1024 without the key: their solves run the
+    bf16 forms now, as the JAX package's do on its TPU.
 
-In phases 6-8, 11-13, 15-18, 20-22, 24-26 and 27 (d) every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d) and 28 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -323,7 +353,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
-LIBS = ("apg_solve", "cost_oracle")
+LIBS = ("apg_solve", "apg_solve_bf16", "cost_oracle")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
@@ -366,6 +396,9 @@ FLEET_FAMILY_ARGV = ["--vehicles", "64", "--seconds", "4"]
 # the least time of a call: the H100 SXM's fp32 rate outside the tensor cores
 # and its HBM3 rate (NVIDIA's published H100 SXM figures)
 PEAK_FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# ... and its dense bf16 tensor-core rate: the bound of the bf16 trunk once
+# its products run on tensor cores (ROADMAP.md §2 item 32)
+PEAK_BF16_TC_FLOPS = 989e12
 
 
 _T0 = time.perf_counter()
@@ -427,6 +460,17 @@ def counts() -> dict:
             "trajectory": CO.trajectory_kernel.launches}
 
 
+def bf16_counts() -> dict:
+    """The launches of the bf16 forms (the trunk on bf16 operands), counted
+    apart by each wrapper beside its total."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": AK.apg_solve_kernel.launches_bf16,
+            "value_batch": CO.value_batch_kernel.launches_bf16,
+            "value_and_grad": CO.value_and_grad_kernel.launches_bf16}
+
+
 def zero_counts() -> None:
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
@@ -434,13 +478,17 @@ def zero_counts() -> None:
     for fn in (AK.apg_solve_kernel, CO.value_batch_kernel,
                CO.value_and_grad_kernel, CO.trajectory_kernel):
         fn.launches = 0
+    for fn in (AK.apg_solve_kernel, CO.value_batch_kernel, CO.value_and_grad_kernel):
+        fn.launches_bf16 = 0
 
 
-def check_route(name: str, expected: dict) -> dict:
-    """The launch counts of a route just run against what it needs."""
-    got = counts()
-    log(f"kernel launches in the {name} route: {got} (expected {expected})")
-    if got != expected or not any(got.values()):
+def check_route(name: str, expected: dict, bf16: dict = None) -> dict:
+    """The launch counts of a route just run against what it needs; with
+    ``bf16`` its bf16 forms' launches too (printed either way)."""
+    got, half = counts(), bf16_counts()
+    log(f"kernel launches in the {name} route: {got} (expected {expected}); of them bf16 "
+        f"{half}" + (f" (expected {bf16})" if bf16 is not None else ""))
+    if got != expected or not any(got.values()) or (bf16 is not None and half != bf16):
         raise AssertionError(f"the {name} route did not launch the kernels it needs")
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
@@ -451,9 +499,9 @@ def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
     SC>`` plus its flags (the whole solve's clock stamps, the P=1
     ``value_batch``'s register chain or shared-memory step, the particle
-    forms' options: ``apg_solve<PART, SC, PROF, OPT>``, ``value_batch<PART,
-    SC, REG, OPT>``, ``value_and_grad<PART, SC, OPT>``); ``trajectory``'s
-    one flag."""
+    forms' options, the bf16 trunk: ``apg_solve<PART, SC, PROF, OPT, BF>``,
+    ``value_batch<PART, SC, REG, OPT, BF>``, ``value_and_grad<PART, SC,
+    OPT, BF>``); ``trajectory``'s one flag."""
     if kernel == "trajectory_kernel":
         return f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}>"
     if len(args) < 2:
@@ -462,13 +510,14 @@ def form_name(kernel: str, args: list) -> str:
     extra = ""
     if kernel == "apg_solve_kernel":
         extra = ", clock-stamped" if flags[:1] == [1] else ""
-        opt = flags[1:2] == [1]
+        opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
     elif kernel == "value_batch_kernel":
         if flags and not args[0]:
             extra = ", register chain" if flags[0] else ", shared-memory step"
-        opt = flags[1:2] == [1]
+        opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
     else:
-        opt = flags[:1] == [1]
+        opt, bf16 = flags[:1] == [1], flags[1:2] == [1]
+    extra += ", bf16" if bf16 else ""
     extra += ", options" if opt else ""
     return f"{kernel}<{'true' if args[0] else 'false'}, {SC_NAMES[args[1]]}{extra}>"
 
@@ -492,6 +541,7 @@ def phase_build() -> None:
                              f"{native.stderr[-2000:]}")
     log("phase 2: built csrc/libmpc_native.so (the native mailbox and MAVLink codec)")
     AK.load_apg_library()
+    AK.load_apg_library(bf16=True)
     CO.load_oracle_library()
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
         f"{time.perf_counter() - t:.1f} s (with load)")
@@ -523,10 +573,12 @@ def phase_build() -> None:
     wide = {k: (regs.get(k), v) for k, v in spills.items() if "shared-memory step" in k}
     log(f"  the P=1 forms of value_batch and trajectory on the shared-memory step (trunks "
         f"outside the register layout), (registers, spill stores in bytes): {wide}")
-    if len(p1) != 11 or any(p1.values()):
+    # (the P=1 value_batch's three bf16 forms on each: 14 and 7)
+    if len(p1) != 14 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
-    # ten particle forms, and nine more with the particle options
-    if len(part) != 19 or len(wide) != 4:
+    # ten particle forms, nine more with the particle options, and the
+    # eighteen of both with the bf16 trunk
+    if len(part) != 37 or len(wide) != 7:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}")
     vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
@@ -1577,7 +1629,7 @@ def oracle_plan(b, dev, P: int, constrained: bool = False) -> dict:
                        ("value_and_grad", ORACLE_VALUE_AND_GRAD)):
         n = ctypes.c_int(0)
         rc = lib.oracle_max_active_clusters(kind, ctypes.byref(o), ctypes.byref(n))
-        out[name] = {"c_max": lib.oracle_cluster_max(kind, o.sc_kind, 0),
+        out[name] = {"c_max": lib.oracle_cluster_max(kind, o.sc_kind, 0, o.bf16),
                      "max_active_clusters": n.value if rc == 0 else f"error {rc}"}
     return out
 
@@ -1654,11 +1706,12 @@ def io_bytes(b, kind: str, P: int = 1, K: int = 1, n_consts: int = 0, B: int = 1
     return 4 * (B * (n_consts + noise + io) + pre)
 
 
-def bound(b, kind: str, n_consts: int, **shape) -> tuple:
+def bound(b, kind: str, n_consts: int, tc: bool = False, **shape) -> tuple:
     """(bound_ms, bound_by): the larger of the call's FLOPs over the fp32
-    peak and its bytes over the HBM rate."""
+    peak (``tc``: the bf16 tensor-core peak) and its bytes over the HBM
+    rate."""
     t_ops = work(b, kind, **{k: v for k, v in shape.items() if k in ("P", "K", "iters", "B")})
-    t_ops = t_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = t_ops / (PEAK_BF16_TC_FLOPS if tc else PEAK_FP32_FLOPS) * 1e3
     t_bytes = io_bytes(b, kind, n_consts=n_consts, **{k: v for k, v in shape.items()
                                                       if k in ("P", "K", "B", "starts")}
                        ) / HBM_BYTES_S * 1e3
@@ -2482,7 +2535,8 @@ def phase_batched(dev, card: str) -> dict:
     reset_fn, mpc_fn, reset_b, mpc_b, sft, pb = batched_pair(pcfg, dev)
     ts = torch.tensor([3.0 + 0.5 * i for i in range(PART_B)], device=dev)
     xs = enu2ned(sft(ts))
-    x_refs = build_mpc(copy.deepcopy(pcfg), device=dev)[2].build_ref(ts, xs)
+    pp = build_mpc(copy.deepcopy(pcfg), device=dev)[2]
+    x_refs = pp.build_ref(ts, xs)
     z = torch.stack([brownian(P_FULL, dev, antithetic=True, seed=i) for i in range(PART_B)])
     st_in = reset_b(xs, None, xs)
     torch.cuda.synchronize()
@@ -2504,7 +2558,7 @@ def phase_batched(dev, card: str) -> dict:
     st_p, _ = AK.apg_solve_plain(
         pb.model, pb.params, pb.cost_params, pb.apg_config, pb.time_steps, xs[0], x_ref,
         st_in.yk[0, 0], z[0], P_FULL, pb.lb_z, pb.ub_z, st_in.yk[0],
-        t_init=st_in.stepsize[0], precond=pb.precond)
+        t_init=st_in.stepsize[0], precond=pb.precond, bf16=pp.trunk_bf16)
     torch.cuda.synchronize()
     part_plain_ms = (time.perf_counter() - w0) * 1e3
     part_du = float((st_p.yk[:, :n_u] - sol.u_opt[0]).abs().max())
@@ -4722,6 +4776,487 @@ def phase_sitl(card: str) -> dict:
     return out
 
 
+# ---- phase 28: reduced matmul precision (the bf16 trunk) -------------------
+BF16_TICKS = 20                       # (b): chained flagship solves, each precision
+BF16_MPPI_K, BF16_MPPI_P = 64, 256    # (a): MPPI's K candidates x P paths
+BF16_P1_K = 256                       # MPPI at P=1 with the key: K > 128, XLA on the TPU
+BF16_POLICY_TICKS = 4
+# each bf16 form against its plain bf16 twin on the same inputs and draws,
+# per compared output: the whole solve's plan (max |du|) and exit gradient
+# (grad_sqr, relative), value_and_grad's value (relative) and gradient (max
+# |dg| over max |g|), value_batch's costs (relative). The twins sum in other
+# orders, and a last-bit difference in a pre-activation can flip its bf16
+# rounding (one bf16 ulp is 2^-8 relative); a particle mean smooths such
+# flips, a P=1 row does not: the P=1 value_batch's costs (and the pure
+# policy's telemetry cost) read up to 1.7e-6 (measured on one H100), the
+# particle forms' 2e-7. With risk the gradient's particle weights
+# 1 + lambda (tot_p - m) / std amplify the totals' last bits: the fp32
+# options form itself reads up to 8.5e-6 from its plain fp32 twin (P=1024,
+# risk; the bf16 form up to 3.6e-6, both on one H100), so value_and_grad
+# with risk is held at 1e-5 on its gradient.
+BF16_TOL = {"apg_solve": {"du": 1e-6, "gsq": 5e-5},
+            "value_and_grad": {"value": 1e-6, "grad": 1e-6},
+            "value_and_grad_risk": {"value": 1e-6, "grad": 1e-5},
+            "value_batch": {"cost": 5e-7}, "value_batch_P1": {"cost": 3e-6}}
+
+
+def _rel(a, b) -> float:
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def _scaled(a, b) -> float:
+    """max |a - b| over max |b|."""
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _bf16_compare(tag: str, k16: dict, p16: dict, k32: dict, tol: dict) -> dict:
+    """Each metric of a bf16 form: the kernel against its plain bf16 twin
+    (``err``, gated at ``tol``, one of ``BF16_TOL``) and against the kernel's
+    fp32 form (``gap``, gated at more than 10x the tolerance in at least one
+    metric, so the check cannot pass without the rounding)."""
+    import torch
+
+    fns = {"du": lambda a, b: float((a - b).abs().max()), "gsq": _rel, "value": _rel,
+           "grad": _scaled, "cost": _rel}
+    err = {m: fns[m](k16[m], p16[m]) for m in k16}
+    gap = {m: fns[m](k16[m], k32[m]) for m in k16}
+    finite = all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in k16.values())
+    log(f"bf16 form {tag}: against its plain bf16 twin "
+        + ", ".join(f"{m} {err[m]:.3e} (tol {tol[m]:.0e})" for m in err)
+        + "; against its fp32 form " + ", ".join(f"{m} {gap[m]:.3e}" for m in gap))
+    if not (finite and all(err[m] <= tol[m] for m in err)):
+        raise AssertionError(f"the bf16 form {tag} disagrees with its plain bf16 twin")
+    if not any(gap[m] > 10 * tol[m] for m in gap):
+        raise AssertionError(f"the bf16 form {tag} is within 10x its tolerance of its fp32 "
+                             "form: the check would pass without the rounding")
+    return {"err": err, "gap": gap}
+
+
+def bf16_forms(dev, card: str) -> dict:
+    """(a) every bf16 form against its plain bf16 twin (``bf16=True`` on the
+    card's tensors) on the same inputs and draws, and against its own fp32
+    form; its time per launch beside the fp32 form's and the plain twin's:
+    the whole solve's particle form (a fixed 5-iteration P=512 antithetic
+    traj solve, with its ``trajectory`` launch), ``value_and_grad`` and
+    ``value_batch`` K = 1, 4 at P=512 antithetic, ``value_batch`` at K = 64 x
+    P = 256 (MPPI's paths), and the P=1 ``value_batch`` at K = 256 on the
+    register chain and at K = 64 on the shared-memory step (the trunk padded
+    to 72 units)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    out = {}
+    bt = make_bundle("iris_traj_mpc", dev)
+    x0, x_ref, u_prev, u_init = problem(bt, dev)
+    apg = bt.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    args = (bt.model, bt.params, bt.cost_params, apg, bt.time_steps, x0, x_ref, u_prev, z,
+            P_FULL, bt.lb, bt.ub, u_init)
+
+    def solve(fn, bf16):
+        st, _ = fn(*args, precond=bt.precond, bf16=bf16)
+        return {"du": st.yk, "gsq": st.grad_sqr, "steps": int(st.num_steps)}
+
+    k16, k32, p16 = (solve(AK.apg_solve_kernel, True), solve(AK.apg_solve_kernel, False),
+                     solve(AK.apg_solve_plain, True))
+    steps = {k16.pop("steps"), k32.pop("steps"), p16.pop("steps")}
+    if len(steps) != 1:
+        raise AssertionError(f"the bf16 whole solve's steps differ: {steps}")
+    r = _bf16_compare(f"apg_solve (particles, P={P_FULL} antithetic, 5 iterations)", k16, p16,
+                      k32, BF16_TOL["apg_solve"])
+    r["ms"], r["plain_ms"] = time_fixed(AK, args, bt.precond, n_kernel=5, n_plain=1, bf16=True)
+    r["fp32_ms"] = time_fixed(AK, args, bt.precond, n_kernel=5, n_plain=0)[0]
+    shape = dict(P=P_FULL, K=4, iters=steps.pop())
+    r["bound"] = bound(bt, "apg_solve", n_consts(bt, dev), **shape)
+    r["bound_tc_ms"] = bound(bt, "apg_solve", n_consts(bt, dev), tc=True, **shape)[0]
+    out["apg_solve"] = r
+
+    bp = make_bundle("iris_posctrl_mpc", dev)
+    x0, x_ref, u_prev, _ = problem(bp, dev)
+    nc = n_consts(bp, dev)
+
+    def oracles(P, noise, params=None):
+        a = (bp.model, bp.params if params is None else params, bp.cost_params,
+             bp.time_steps, x0, x_ref, u_prev, noise, P, 4)
+        return CO.cost_oracle(*a, bf16=True), CO.cost_oracle(*a), CO.cost_oracle_plain(*a,
+                                                                                      bf16=True)
+
+    def vb_form(tag, name, trio, U, **shape):
+        k16, k32, p16 = ({"cost": o.value_batch(U)} for o in trio)
+        r = _bf16_compare(tag, k16, p16, k32,
+                          BF16_TOL["value_batch" if shape.get("P", 1) > 1 else "value_batch_P1"])
+        r["ms"] = per_launch_ms(lambda: trio[0].value_batch(U), 20)
+        r["fp32_ms"] = per_launch_ms(lambda: trio[1].value_batch(U), 20)
+        r["plain_ms"] = per_launch_ms(lambda: trio[2].value_batch(U), 2)
+        r["bound"] = bound(bp, "value_batch", nc, **shape)
+        r["bound_tc_ms"] = bound(bp, "value_batch", nc, tc=True, **shape)[0]
+        out[name] = r
+
+    trio = oracles(P_FULL, z)
+    u = plans(1, 3, dev)[0].contiguous()
+    k16, k32, p16 = ({"value": v, "grad": g}
+                     for v, g in (o.value_and_grad(u) for o in trio))
+    r = _bf16_compare(f"value_and_grad (particles, P={P_FULL} antithetic)", k16, p16, k32,
+                      BF16_TOL["value_and_grad"])
+    r["ms"] = per_launch_ms(lambda: trio[0].value_and_grad(u), 20)
+    r["fp32_ms"] = per_launch_ms(lambda: trio[1].value_and_grad(u), 20)
+    r["plain_ms"] = per_launch_ms(lambda: trio[2].value_and_grad(u), 2)
+    r["bound"] = bound(bp, "value_and_grad", nc, P=P_FULL)
+    r["bound_tc_ms"] = bound(bp, "value_and_grad", nc, P=P_FULL, tc=True)[0]
+    out["value_and_grad"] = r
+    for K in (1, 4):
+        vb_form(f"value_batch (particles, P={P_FULL} antithetic, K={K})",
+                f"value_batch_P{P_FULL}_K{K}", trio, plans(K, 4, dev), P=P_FULL, K=K)
+    vb_form(f"value_batch (particles, K={BF16_MPPI_K} x P={BF16_MPPI_P} antithetic)",
+            "value_batch_mppi", oracles(BF16_MPPI_P, brownian(BF16_MPPI_P, dev, True, seed=1)),
+            plans(BF16_MPPI_K, 5, dev), P=BF16_MPPI_P, K=BF16_MPPI_K)
+    vb_form(f"value_batch (P=1, register chain, K={BF16_P1_K})", "value_batch_P1",
+            oracles(1, None), plans(BF16_P1_K, 6, dev), K=BF16_P1_K)
+    vb_form(f"value_batch (P=1, shared-memory step, trunk of {PADDED_HID} units, K=64)",
+            "value_batch_P1_smem", oracles(1, None, padded_trunk(bp.params, PADDED_HID, seed=0)),
+            plans(64, 7, dev), K=64)
+    for name, r in out.items():
+        tc = r["bound_tc_ms"]
+        log(f"bf16 {name} ({card}): {r['ms']:.4f} ms per launch (CUDA events), fp32 form "
+            f"{r['fp32_ms']:.4f} ms, plain bf16 twin {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, fp32 CUDA cores), on bf16 tensor cores "
+            f"{tc:.6f} ms")
+    return out
+
+
+def bf16_option_forms(dev, card: str) -> dict:
+    """(a) the particle options' bf16 forms (``risk_lambda`` 2 with the
+    example's state-noise starts, ``with_options``: the forms that
+    ``sim/uncertainty.py`` and every risk or starts config above 128
+    particles launch) against their plain bf16 twins on the same inputs and
+    draws and against their own fp32 forms, at ``BF16_TOL`` (``value_and_grad``
+    at its risk tolerance): at P=512
+    antithetic (one chunk a block) and P=1024 antithetic (two chunks a
+    block), the whole solve at a fixed 5 iterations, ``value_and_grad``,
+    and ``value_batch`` at K = 1 and 4 (both launches' costs held as one
+    set). Their times per launch beside the fp32 forms'."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    out = {}
+    b = make_bundle("iris_traj_mpc", dev)
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    for P in (P_FULL, P_LARGE):
+        tag = f"P={P} antithetic, risk + starts" + (", two chunks a block" if P > P_FULL else "")
+        z = brownian(P, dev, antithetic=True, seed=0)
+        cp, starts = with_options(b, ("risk", "starts"), x0, P, dev, seed=P)
+        args = (b.model, b.params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P, b.lb, b.ub,
+                u_init)
+
+        def solve(fn, bf16):
+            st, _ = fn(*args, precond=b.precond, starts=starts, bf16=bf16)
+            return {"du": st.yk, "gsq": st.grad_sqr, "steps": int(st.num_steps)}
+
+        k16, k32, p16 = (solve(AK.apg_solve_kernel, True), solve(AK.apg_solve_kernel, False),
+                         solve(AK.apg_solve_plain, True))
+        steps = {k16.pop("steps"), k32.pop("steps"), p16.pop("steps")}
+        if len(steps) != 1:
+            raise AssertionError(f"the bf16 whole solve's steps differ ({tag}): {steps}")
+        r = _bf16_compare(f"apg_solve ({tag}, 5 iterations)", k16, p16, k32,
+                          BF16_TOL["apg_solve"])
+        r["ms"] = time_fixed(AK, args, b.precond, n_kernel=5, n_plain=0, starts=starts,
+                             bf16=True)[0]
+        r["fp32_ms"] = time_fixed(AK, args, b.precond, n_kernel=5, n_plain=0, starts=starts)[0]
+        out[f"apg_solve_P{P}"] = r
+
+        oargs = (b.model, b.params, cp, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+        trio = (CO.cost_oracle(*oargs, starts=starts, bf16=True),
+                CO.cost_oracle(*oargs, starts=starts),
+                CO.cost_oracle_plain(*oargs, starts=starts, bf16=True))
+        u = plans(1, 3, dev)[0].contiguous()
+        k16, k32, p16 = ({"value": v, "grad": g}
+                         for v, g in (o.value_and_grad(u) for o in trio))
+        r = _bf16_compare(f"value_and_grad ({tag})", k16, p16, k32,
+                          BF16_TOL["value_and_grad_risk"])
+        r["ms"] = per_launch_ms(lambda: trio[0].value_and_grad(u), 10)
+        r["fp32_ms"] = per_launch_ms(lambda: trio[1].value_and_grad(u), 10)
+        out[f"value_and_grad_P{P}"] = r
+
+        U = plans(4, 4, dev)
+        k16, k32, p16 = ({"cost": torch.cat([o.value_batch(U[:1]), o.value_batch(U)])}
+                         for o in trio)
+        r = _bf16_compare(f"value_batch ({tag}, K = 1 and 4)", k16, p16, k32,
+                          BF16_TOL["value_batch"])
+        r["ms"] = per_launch_ms(lambda: trio[0].value_batch(U), 10)
+        r["fp32_ms"] = per_launch_ms(lambda: trio[1].value_batch(U), 10)
+        out[f"value_batch_P{P}"] = r
+        log(f"bf16 options forms at {tag} ({card}): per launch (CUDA events) "
+            + "; ".join(f"{k.rsplit('_P', 1)[0]} {out[k]['ms']:.4f} ms (fp32 form "
+                        f"{out[k]['fp32_ms']:.4f} ms)"
+                        for k in (f"apg_solve_P{P}", f"value_and_grad_P{P}",
+                                  f"value_batch_P{P}")))
+    return out
+
+
+def bf16_flagship(dev, card: str) -> dict:
+    """(b) the main path at full width: ``iris_traj_mpc.yaml`` on the shipped
+    iris checkpoint at P=512 antithetic without the key (DEFAULT above 128
+    particles: the bf16 trunk), ``BF16_TICKS`` chained solves through
+    ``load_mpc_from_cfgfile`` -> ``mpc_fn`` along the lemniscate, one bf16
+    ``apg_solve`` and one fp32 ``trajectory`` launch each and nothing else;
+    then the same config at ``matmul_precision: highest`` in the same call.
+    Wall (dispatch to the plan on the host) and device (CUDA events around
+    the whole-solve wrapper and its trajectory launch) p50 over ticks 2..,
+    iterations, and ``|x_evol[1] - ref|`` (gate 0.5 m, phase 12's)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+
+    out = {}
+    for key in ("default", "highest"):
+        cfg0 = config("iris_traj_mpc", particles=P_FULL)
+        if key == "highest":
+            cfg0["matmul_precision"] = "highest"
+        path = os.path.join(ROOT, "build", "chip_smoke", f"iris_traj_p{P_FULL}anti_{key}.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump({k: v for k, v in cfg0.items() if not k.startswith("_")}, f)
+        cfg, (reset_fn, mpc_fn), sft, _ = load_mpc_from_cfgfile(path, device=dev)
+        dt, t0 = float(cfg["_time_steps"][0]), 3.0
+        x = enu2ned(sft(np.float32(t0)))
+        gen = torch.Generator().manual_seed(0)
+        st = reset_fn(x, gen, x)
+        events, wall, steps, track = [], [], [], []
+        torch.cuda.synchronize()
+        zero_counts()
+        with routed("apg_solve_kernel", event_timed(events)):
+            for k in range(BF16_TICKS):
+                w0 = time.perf_counter()
+                u, st, gen, x_evol = mpc_fn(x, gen, st, np.float32(t0 + k * dt), x)
+                u0 = u[0].cpu()
+                wall.append((time.perf_counter() - w0) * 1e3)
+                steps.append(int(st.num_steps))
+                x = x_evol[1]
+                ref = enu2ned(sft(np.float32(t0 + (k + 1) * dt)))
+                track.append(float(torch.linalg.norm(x[:3] - ref[:3])))
+                if not (bool(torch.isfinite(u0).all()) and bool(torch.isfinite(x_evol).all())):
+                    raise AssertionError(f"the P={P_FULL} {key} solve {k} is not finite")
+        torch.cuda.synchronize()
+        n = BF16_TICKS
+        launches = check_route(f"P={P_FULL} antithetic flagship at {key}",
+                               {"apg_solve": n, "value_batch": 0, "value_and_grad": 0,
+                                "trajectory": n},
+                               {"apg_solve": n if key == "default" else 0, "value_batch": 0,
+                                "value_and_grad": 0})
+        dev_ms = [a.elapsed_time(e) for a, e in events]
+        r = {"launches": launches, "bf16_launches": bf16_counts(),
+             "wall_ms_p50": statistics.median(wall[1:]),
+             "device_ms_p50": statistics.median(dev_ms[1:]), "iterations": steps,
+             "iteration_ms_p50": statistics.median(d / s for d, s in zip(dev_ms[1:], steps[1:])),
+             "track_max_m": max(track)}
+        log(f"flagship P={P_FULL} antithetic, matmul_precision {key} ({card}): {n} chained "
+            f"solves, wall p50 {r['wall_ms_p50']:.3f} ms, device p50 {r['device_ms_p50']:.3f} ms "
+            f"(solve + trajectory), per iteration p50 {r['iteration_ms_p50']:.4f} ms, iterations "
+            f"{steps}, |x_evol[1] - ref| max {r['track_max_m']:.4f} m (gate 0.5 m)")
+        if r["track_max_m"] > 0.5 or min(steps) < 1:
+            raise AssertionError(f"the P={P_FULL} flagship at {key} did not track")
+        out[key] = r
+    return out
+
+
+def bf16_routes(dev, card: str) -> dict:
+    """(c) the other bf16 routes through ``mpc_fn``, each with its launches
+    (zeroed just before it): the fixed-step route at P=512 antithetic
+    (posctrl without its linesearch block, 20 iterations, 2 chained solves:
+    bf16 ``value_batch`` and ``value_and_grad``, fp32 ``trajectory``);
+    ``sim/uncertainty.py`` at P=1024, every variant (risk-averse and state
+    noise among them; bf16 ``apg_solve``); MPPI at P=1 with ``matmul_precision: bf16`` and K = 256
+    (the P=1 ``value_batch``'s bf16 form on the register chain), 3 chained
+    solves through the kernels and through the plain bf16 oracle on the same
+    draws (|du| <= 1e-4, equal steps, phase 7's gate); the pure policy on
+    the shipped iris traj checkpoint with the key, 4 chained solves (its
+    telemetry cost on the bf16 ``value_batch`` K=1, the network fp32),
+    against the plain bf16 oracle (cost rtol 3e-6, the P=1 ``value_batch``'s
+    tolerance; plan bit for bit) and against the same states through the
+    route at ``matmul_precision: highest`` (the plan bit for bit, the cost
+    more than 10x the tolerance away)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.sim import uncertainty as UNC
+
+    out = {}
+    n = 2
+    cfg = config("iris_posctrl_mpc", linesearch=None, stepsize=FIXED_STEP["iris_posctrl_mpc"],
+                 particles=P_FULL, max_iter=20, max_no_improvement_iter=20)
+    zero_counts()
+    rows, ms = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    steps = int(rows[:, -1].sum())
+    out["fixed_step"] = {"launches": check_route(
+        f"fixed-step P={P_FULL} (bf16)",
+        {"apg_solve": 0, "value_batch": steps, "value_and_grad": steps + 2 * n, "trajectory": n},
+        {"apg_solve": 0, "value_batch": steps, "value_and_grad": steps + 2 * n}),
+        "bf16_launches": bf16_counts(), "ms": ms, "iterations": rows[:, -1].tolist()}
+    if not np.isfinite(rows).all():
+        raise AssertionError("the bf16 fixed-step route returned a bad plan")
+
+    zero_counts()
+    unc = UNC.run(UNCERTAINTY_P, dev)
+    torch.cuda.synchronize()
+    nv = len(UNC.VARIANTS)
+    out["uncertainty"] = {"launches": check_route(
+        f"sim/uncertainty.py P={UNCERTAINTY_P} (bf16)",
+        {"apg_solve": 2 * nv, "value_batch": 0, "value_and_grad": 0, "trajectory": 2 * nv},
+        {"apg_solve": 2 * nv, "value_batch": 0, "value_and_grad": 0}),
+        "bf16_launches": bf16_counts(), "variants": unc}
+    if not all(np.isfinite([r["ms"], r["opt_cost"]]).all() for r in unc.values()):
+        raise AssertionError("the bf16 uncertainty drive gave a non-finite reading")
+
+    iters, n = 8, 3
+    cfg = config("iris_posctrl_mpc", solver="mppi", mppi={"samples": BF16_P1_K, "iters": iters})
+    cfg["matmul_precision"] = "bf16"
+    zero_counts()
+    rows_k, ms = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    launches = check_route(f"MPPI P=1 K={BF16_P1_K} matmul_precision bf16",
+                           {"apg_solve": 0, "value_batch": n * (iters + 2), "value_and_grad": 0,
+                            "trajectory": n},
+                           {"apg_solve": 0, "value_batch": n * (iters + 2),
+                            "value_and_grad": 0})
+    with routed("cost_oracle", CO.cost_oracle_plain):
+        rows_p, _ = chain(cfg, dev, n)
+    du = float(np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max())
+    log(f"MPPI P=1 K={BF16_P1_K} bf16 ({card}): {n} chained solves, p50 "
+        f"{statistics.median(ms[1:]):.3f} ms; kernels vs the plain bf16 oracle, same draws: "
+        f"max|du| {du:.3e} (gate 1e-4), steps {rows_k[:, -1].tolist()} vs "
+        f"{rows_p[:, -1].tolist()}")
+    if not (du <= 1e-4 and np.array_equal(rows_k[:, -1], rows_p[:, -1])):
+        raise AssertionError("bf16 MPPI through the kernels disagrees with the plain oracle")
+    out["mppi_p1"] = {"launches": launches, "bf16_launches": {"value_batch": n * (iters + 2)},
+                      "ms_p50": statistics.median(ms[1:]), "max_du": du}
+
+    cfg = policy_config("iris", "traj")
+    cfg["matmul_precision"] = "bf16"
+    c, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    dt = float(c["_time_steps"][0])
+    x, t0 = policy_start(sft, dev)
+    st = reset_fn(x, None, x)
+    sols, ms = [], []
+    zero_counts()
+    for k in range(BF16_POLICY_TICKS):
+        w0 = time.perf_counter()
+        sol = mpc_fn(x, None, st, t0 + k * dt, x)
+        float(sol.opt_state.opt_cost)
+        ms.append((time.perf_counter() - w0) * 1e3)
+        sols.append((x, st, sol))
+        x, st = sol.x_evol[1], sol.opt_state
+    torch.cuda.synchronize()
+    n = BF16_POLICY_TICKS
+    launches = check_route("the pure policy with matmul_precision bf16",
+                           {"apg_solve": 0, "value_batch": n, "value_and_grad": 0,
+                            "trajectory": n},
+                           {"apg_solve": 0, "value_batch": n, "value_and_grad": 0})
+    dc = 0.0
+    with routed("cost_oracle", CO.cost_oracle_plain):
+        _, (_, mpc_p), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+        for k, (xk, stk, sol) in enumerate(sols):
+            one = mpc_p(xk, None, stk, t0 + k * dt, xk)
+            if not torch.equal(one.u_opt, sol.u_opt):
+                raise AssertionError("the bf16 policy's plan moved with the oracle")
+            dc = max(dc, _rel(sol.opt_state.opt_cost, one.opt_state.opt_cost))
+    # the same states through the route at matmul_precision highest: the
+    # plan (the fp32 network) bit for bit, the cost (fp32 value_batch) more
+    # than 10x the tolerance away, so the check above sees the rounding
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["matmul_precision"] = "highest"
+    _, (_, mpc_32), _, _ = make_mpc_from_config(cfg32, device=dev)
+    gap = 0.0
+    for k, (xk, stk, sol) in enumerate(sols):
+        one = mpc_32(xk, None, stk, t0 + k * dt, xk)
+        if not torch.equal(one.u_opt, sol.u_opt):
+            raise AssertionError("the policy's plan moved with matmul_precision")
+        gap = max(gap, _rel(sol.opt_state.opt_cost, one.opt_state.opt_cost))
+    tol = BF16_TOL["value_batch_P1"]["cost"]
+    log(f"pure policy, iris traj, bf16 telemetry cost ({card}): {n} chained solves, p50 "
+        f"{statistics.median(ms[1:]):.3f} ms; the cost against the plain bf16 oracle rel "
+        f"{dc:.3e} (gate {tol:.0e}), against the route at highest rel {gap:.3e} (gate > "
+        f"{10 * tol:.0e})")
+    if dc > tol:
+        raise AssertionError("the bf16 policy cost disagrees with the plain oracle")
+    if gap <= 10 * tol:
+        raise AssertionError("the bf16 policy cost is within 10x its tolerance of the fp32 "
+                             "route's: the check would pass without the rounding")
+    out["policy"] = {"launches": launches, "bf16_launches": {"value_batch": n},
+                     "ms_p50": statistics.median(ms[1:]), "cost_rel": dc, "gap_to_fp32": gap}
+    return out
+
+
+def bf16_route_table(dev) -> list:
+    """(d) per config, its matmul precision on the card (``MPCPieces.
+    trunk_bf16``) and the forms its solves launch; one line each."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc
+
+    rows = []
+    # (name, config, key, whether the card runs it bf16, the forms it launches)
+    cases = [
+        ("APG P=1 (flight configs), key default", config("iris_traj_mpc"), "default", False,
+         "apg_solve<false> (Pallas on the TPU)"),
+        (f"APG P={P_FULL} antithetic, no key", config("iris_traj_mpc", particles=P_FULL), None,
+         True, "apg_solve<true> bf16 + trajectory fp32"),
+        (f"APG P={P_FULL} antithetic, highest", config("iris_traj_mpc", particles=P_FULL),
+         "highest", False, "apg_solve<true> + trajectory"),
+        ("APG P=128 antithetic, key bf16", config("iris_traj_mpc", particles=128), "bf16",
+         False, "apg_solve<true> (Pallas on the TPU)"),
+        (f"fixed step P={P_FULL}, no key",
+         config("iris_posctrl_mpc", linesearch=None, particles=P_FULL), None, True,
+         "value_and_grad<true> and value_batch<true> bf16 + trajectory fp32"),
+        ("MPPI P=1 K=64, key bf16", config("iris_posctrl_mpc", solver="mppi"), "bf16", False,
+         "value_batch<false, register chain> (Pallas on the TPU)"),
+        (f"MPPI P=1 K={BF16_P1_K}, key bf16",
+         config("iris_posctrl_mpc", solver="mppi", mppi={"samples": BF16_P1_K}), "bf16", True,
+         "value_batch<false, register chain, bf16> + trajectory fp32"),
+        (f"MPPI K={BF16_MPPI_K} x P={BF16_MPPI_P}",
+         config("iris_posctrl_mpc", solver="mppi", particles=BF16_MPPI_P), None, True,
+         "value_batch<true> bf16 + trajectory fp32"),
+        ("pure policy, key bf16", policy_config("iris", "traj"), "bf16", True,
+         "value_batch<false, register chain, bf16> K=1 + trajectory fp32, the network fp32"),
+        ("policy refine_iters 15, key bf16", policy_config("iris", "traj", 15), "bf16", False,
+         "apg_solve<false> (Pallas on the TPU)"),
+    ]
+    for name, cfg, key, want, forms in cases:
+        if key is not None:
+            cfg["matmul_precision"] = key
+        bf16 = build_mpc(copy.deepcopy(cfg), device=dev)[2].trunk_bf16
+        log(f"route table: {name}: the trunk on the card in {'bf16' if bf16 else 'fp32'}; "
+            f"launches {forms}")
+        rows.append({"config": name, "bf16": bf16, "forms": forms})
+        if bf16 != want:
+            raise AssertionError(f"the route table's {name}: trunk_bf16 {bf16}")
+    return rows
+
+
+def phase_bf16(dev, card: str) -> dict:
+    """Phase 28: reduced matmul precision (module docstring)."""
+    out = {"forms": bf16_forms(dev, card), "option_forms": bf16_option_forms(dev, card)}
+    out["flagship"] = bf16_flagship(dev, card)
+    out["routes"] = bf16_routes(dev, card)
+    out["table"] = bf16_route_table(dev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4815,6 +5350,11 @@ def main() -> int:
     log("phase 27: the SITL deployment stack: both routers route the test topology, the full "
         "stack flies the engine node on the card through the native router and passes, the "
         "router node and the mission REPL serve, preflight's solve is one whole-solve launch")
+    bf = phase_bf16(dev, card)
+    log("phase 28: reduced matmul precision: every bf16 form matches its plain bf16 twin and "
+        "differs from its fp32 form; the P=512 flagship runs one bf16 apg_solve and one fp32 "
+        "trajectory per solve; the fixed-step, uncertainty, MPPI and policy routes run their "
+        "bf16 forms")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -5158,6 +5698,64 @@ def main() -> int:
                   m["trajectory_plain_ms"], bound(m["bundle"], "trajectory", m["n_consts"], B=N),
                   timed=f"per launch over {N} plans",
                   plain_ms_is="one plan's plain rollout (rollout_mean on the card)")]
+    # phase 28: the bf16 trunk on the particle forms of #1-#3 and the P=1
+    # value_batch; launches from the main path (b) and the routes (c)
+    fm, fl, rt, of = bf["forms"], bf["flagship"], bf["routes"], bf["option_forms"]
+
+    def option_fields(kind):
+        fields = {f"options_P{P}_{k}": of[f"{kind}_P{P}"][f] for P in (P_FULL, P_LARGE)
+                  for k, f in (("ms", "ms"), ("fp32_form_ms", "fp32_ms"),
+                               ("err_by_metric", "err"), ("gap_to_fp32_form", "gap"))}
+        fields["options_is"] = ("the options form's bf16 instantiation (risk_lambda 2 and "
+                                "state-noise starts) against its plain bf16 twin and its fp32 "
+                                f"form, P={P_FULL} and P={P_LARGE} antithetic (phase 28 (a))")
+        return fields
+
+    def bf16_entry(name, form, branch, launches, **extra):
+        r = fm[form]
+        return entry(name, f"bf16 trunk, {branch}", launches, max(r["err"].values()), r["ms"],
+                     r["plain_ms"], r["bound"], bound_tc_ms=r["bound_tc_ms"],
+                     fp32_form_ms=r["fp32_ms"], err_by_metric=r["err"],
+                     gap_to_fp32_form=r["gap"],
+                     max_abs_err_is="the largest of err_by_metric, against the plain bf16 "
+                                    "twin (phase 28)", **extra)
+
+    kernels += [
+        bf16_entry("apg_solve", "apg_solve", f"particles, P={P_FULL} antithetic",
+                   fl["default"]["bf16_launches"]["apg_solve"],
+                   timed=f"fixed 5-iteration solve at P={P_FULL} antithetic with its fp32 "
+                         "trajectory launch, CUDA events",
+                   flagship_wall_ms_p50=fl["default"]["wall_ms_p50"],
+                   flagship_device_ms_p50=fl["default"]["device_ms_p50"],
+                   flagship_iterations=fl["default"]["iterations"],
+                   fp32_flagship_wall_ms_p50=fl["highest"]["wall_ms_p50"],
+                   fp32_flagship_device_ms_p50=fl["highest"]["device_ms_p50"],
+                   fp32_flagship_iterations=fl["highest"]["iterations"],
+                   uncertainty_launches=rt["uncertainty"]["bf16_launches"]["apg_solve"],
+                   **option_fields("apg_solve")),
+        bf16_entry("value_and_grad", "value_and_grad", f"particles, P={P_FULL} antithetic",
+                   rt["fixed_step"]["bf16_launches"]["value_and_grad"], timed="per launch",
+                   **option_fields("value_and_grad")),
+        bf16_entry("value_batch", f"value_batch_P{P_FULL}_K1",
+                   f"particles, P={P_FULL} antithetic, K=1",
+                   rt["fixed_step"]["bf16_launches"]["value_batch"], timed="per launch",
+                   **{f"{k}_{tag}": fm[form][f] for tag, form in (
+                       ("K4", f"value_batch_P{P_FULL}_K4"),
+                       (f"K{BF16_MPPI_K}xP{BF16_MPPI_P}", "value_batch_mppi"))
+                      for k, f in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                                   ("fp32_form_ms", "fp32_ms"), ("err_by_metric", "err"))},
+                   bound_ms_K4=fm[f"value_batch_P{P_FULL}_K4"]["bound"][0],
+                   bound_ms_mppi_shape=fm["value_batch_mppi"]["bound"][0],
+                   **option_fields("value_batch")),
+        bf16_entry("value_batch", "value_batch_P1", f"P=1, register chain, K={BF16_P1_K}",
+                   rt["mppi_p1"]["bf16_launches"]["value_batch"], timed="per launch",
+                   policy_launches=rt["policy"]["bf16_launches"]["value_batch"],
+                   **{f"shared_memory_step_{k}": fm["value_batch_P1_smem"][f] for k, f in (
+                       ("ms", "ms"), ("plain_ms", "plain_ms"), ("fp32_form_ms", "fp32_ms"),
+                       ("err_by_metric", "err"), ("gap_to_fp32_form", "gap"))},
+                   shared_memory_step_is=f"the bf16 form on the trunk padded to {PADDED_HID} "
+                                         "units, K=64 (no launch on the main path: the iris "
+                                         "trunk runs the register chain)")]
     kernels[0]["mismatch_sweep_launches"] = tune["mismatch"]["launches"]["apg_solve"]
     kernels[0]["full_sitl_stack_launches"] = sitl["stack"]["engine_launches"]["apg_solve"]
     kernels[0]["preflight_launches"] = sitl["preflight"]["launches"]["apg_solve"]
@@ -5216,7 +5814,8 @@ def main() -> int:
                  "stack": {k: v for k, v in sitl["stack"].items() if k != "router_stats"},
                  "stack_router_stats": sitl["stack"].get("router_stats"),
                  "launch": sitl["launch"], "preflight": sitl["preflight"],
-                 "wall_s": sitl["wall_s"]}}}))
+                 "wall_s": sitl["wall_s"]},
+        "bf16": {"flagship": fl, "routes": rt, "table": bf["table"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

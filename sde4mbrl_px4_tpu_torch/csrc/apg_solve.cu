@@ -100,6 +100,19 @@
 // had without them, and a launch with risk or starts takes
 // apg_solve_kernel<true, SC, false, true>.
 //
+// Reduced matmul precision (ApgArgs::bf16; sweeps.cuh): the particle form's
+// bf16-trunk instantiations apg_solve_kernel<true, SC, false, OPT, true>,
+// in which each block rounds the trunk weights of its consts copy to bf16
+// once (before transposing them) and the sweeps store the products' other
+// operands rounded: the JAX package's matmul_precision "default", which its
+// TPU runs on XLA at P > 128 without pallas_chunk and with the particle
+// options (engine/mpc_loader.py:320-350). They are a library of their own,
+// apg_solve_bf16.cu, this source compiled with APG_BF16 = 1 (its particle
+// forms only, built in parallel with this one): the forms without them keep
+// the code they had, and the build keeps its length. Each library refuses
+// a launch of the other's precision, and the P=1 form has no bf16 trunk
+// (the original runs P=1 on its kernel, at HIGHEST).
+//
 // The scenario axis (apg_solve.cuh, batch): a launch solves B independent
 // problems, scenario b on block b (P=1) or on cluster b (blocks b*C ..
 // b*C + C-1), each reading and writing its own slice of the per-scenario
@@ -131,7 +144,14 @@
 #include "apg_solve.cuh"
 #include "sweeps.cuh"
 
+// 1: the library of the bf16-trunk particle forms (apg_solve_bf16.cu)
+#ifndef APG_BF16
+#define APG_BF16 0
+#endif
+
 namespace {
+
+constexpr bool kBF = APG_BF16 != 0;     // this library's trunk
 
 static_assert(APG_NTHREADS == 4 * P1_HID && APG_MAXK <= APG_NTHREADS / 32,
               "P=1 layout: 4 threads per hidden unit, one warp per candidate row");
@@ -218,8 +238,8 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
 // particle form) and writes the per-phase cycle sums and the solve's cycles
 // to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
 // last rank (both from the one block at P=1); each row's last entry is the
-// block's rank.
-template <bool PART, int SC, bool PROF = false, bool OPT = false>
+// block's rank. BF (particles only): the bf16 trunk.
+template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
@@ -273,11 +293,16 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   u_init += scen() * HZ;
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
   __syncthreads();
+  static_assert(PART || !BF, "the P=1 form has no bf16 trunk");
+  if constexpr (BF) {                     // the bf16 trunk: its weights, once
+    round_trunk_weights(a, s.c);
+    __syncthreads();
+  }
   P1W W;                                  // the P=1 forms' trunk in registers
   if constexpr (PART) transpose_weights(a, s);
   else W = load_p1_weights(a, c);
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC, PROF, OPT>(a, s, &S.fval, U, my_noise, my_starts);
+    if constexpr (PART) vg_part<SC, PROF, OPT, BF>(a, s, &S.fval, U, my_noise, my_starts);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -337,7 +362,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, PROF, OPT>(a, s, K, my_noise, my_starts);
+      cand_part<SC, PROF, OPT, BF>(a, s, K, my_noise, my_starts);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -468,7 +493,7 @@ int dyn_bytes(const ApgArgs& a) {
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
 // one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
-// cluster the card cannot schedule returns).
+// cluster the card cannot schedule returns), in this library's precision.
 template <bool PART, int SC, bool PROF = false, bool OPT = false>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
@@ -476,7 +501,7 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
                    float* x_evol, long long* prof) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT>, a, consts,
+    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT, kBF>, a, consts,
                               u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
   } else {
     apg_solve_kernel<false, SC, PROF><<<a.batch, APG_NTHREADS, dyn, st>>>(
@@ -485,16 +510,31 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
   }
 }
 
-// The instantiation for [form][sc_kind]: form 0 P=1, 1 particles, 2 the
-// particles with the options (OPT).
+// The instantiation for [form][sc_kind]: form 0 P=1 (none in the bf16
+// library), 1 particles, 2 the particles with the options (OPT).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
                                  const float*, float*, float*, float*, long long*);
 const LaunchFn kLaunch[3][3] = {
+#if APG_BF16
+    {nullptr, nullptr, nullptr},
+#else
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
+#endif
     {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>},
     {launch<true, CONSTR_NONE, false, true>, launch<true, CONSTR_PENALTY, false, true>,
      launch<true, CONSTR_PROX, false, true>}};
+
+// This library's particle forms [opt][sc_kind].
+using KernelFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*, long long*);
+const KernelFn kPart[2][3] = {
+    {apg_solve_kernel<true, CONSTR_NONE, false, false, kBF>,
+     apg_solve_kernel<true, CONSTR_PENALTY, false, false, kBF>,
+     apg_solve_kernel<true, CONSTR_PROX, false, false, kBF>},
+    {apg_solve_kernel<true, CONSTR_NONE, false, true, kBF>,
+     apg_solve_kernel<true, CONSTR_PENALTY, false, true, kBF>,
+     apg_solve_kernel<true, CONSTR_PROX, false, true, kBF>}};
 
 int form(const ApgArgs& a) { return a.has_noise ? (options(a) ? 2 : 1) : 0; }
 
@@ -515,29 +555,22 @@ int apg_args_size() { return (int)sizeof(ApgArgs); }
 // particle form's largest cluster (sweeps.cuh::cluster_max). Called once
 // when the library is loaded; returns a cudaError_t.
 int apg_init() {
+  for (int o = 0; o < 2; ++o)
+    for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
+      cudaError_t e = allow_large_smem(kPart[o][sc]);
+      if (e == cudaSuccess) e = cluster_max(kPart[o][sc], APG_NTHREADS_PART, &g_cmax[o][sc]);
+      if (e != cudaSuccess) return (int)e;
+    }
+#if !APG_BF16
   const cudaError_t errs[] = {
-      allow_large_smem(apg_solve_kernel<true, CONSTR_NONE>),
-      allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY>),
-      allow_large_smem(apg_solve_kernel<true, CONSTR_PROX>),
-      allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, false, true>),
-      allow_large_smem(apg_solve_kernel<true, CONSTR_PENALTY, false, true>),
-      allow_large_smem(apg_solve_kernel<true, CONSTR_PROX, false, true>),
       allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, true>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>),
-      cluster_max(apg_solve_kernel<true, CONSTR_NONE>, APG_NTHREADS_PART, &g_cmax[0][0]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY>, APG_NTHREADS_PART, &g_cmax[0][1]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PROX>, APG_NTHREADS_PART, &g_cmax[0][2]),
-      cluster_max(apg_solve_kernel<true, CONSTR_NONE, false, true>, APG_NTHREADS_PART,
-                  &g_cmax[1][0]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PENALTY, false, true>, APG_NTHREADS_PART,
-                  &g_cmax[1][1]),
-      cluster_max(apg_solve_kernel<true, CONSTR_PROX, false, true>, APG_NTHREADS_PART,
-                  &g_cmax[1][2]),
       cluster_max(apg_solve_kernel<true, CONSTR_NONE, true>, APG_NTHREADS_PART,
                   &g_cmax_prof)};
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
+#endif
   return 0;
 }
 
@@ -556,17 +589,9 @@ int apg_smem_bytes(const ApgArgs* a) {
 // cudaOccupancyMaxActiveClusters of the particle form for a's dimensions
 // and cluster size, into *n; returns a cudaError_t.
 int apg_max_active_clusters(const ApgArgs* a, int* n) {
-  using Fn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                      const float*, const float*, float*, float*, float*, long long*);
-  const Fn fns[2][3] = {{apg_solve_kernel<true, CONSTR_NONE>,
-                         apg_solve_kernel<true, CONSTR_PENALTY>,
-                         apg_solve_kernel<true, CONSTR_PROX>},
-                        {apg_solve_kernel<true, CONSTR_NONE, false, true>,
-                         apg_solve_kernel<true, CONSTR_PENALTY, false, true>,
-                         apg_solve_kernel<true, CONSTR_PROX, false, true>}};
   if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)max_active_clusters(fns[options(*a)][a->sc_kind], a->cluster,
+  return (int)max_active_clusters(kPart[options(*a)][a->sc_kind], a->cluster,
                                   APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
 }
 
@@ -590,6 +615,7 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
            (a->has_pre && precond == nullptr) ||
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
+           (a->bf16 != 0) != kBF || (!part && kBF) ||
            (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
                     a->Pc * a->n_chunks != a->P || !cluster_args_ok(*a, cmax))
                  : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1 ||
@@ -623,15 +649,17 @@ int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
 
 // A solve without state constraints and particle options through the
 // clock-stamped instantiation (apg_solve_kernel<PART, CONSTR_NONE, true>;
-// P=1 or particles; one scenario, batch = 1), for measurement: as
-// apg_solve_launch,
-// plus prof (int64
+// P=1 or particles; one scenario, batch = 1; fp32, this library only), for
+// measurement: as apg_solve_launch, plus prof (int64
 // (2, 8)): per stamped rank the cycles of the PH_* (P=1) or PP_* (particle)
 // phases, of the whole solve, and the rank.
 int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_init,
                           const void* t0, const void* precond, const void* noise,
                           const void* starts, void* yk, void* stats, void* x_evol,
                           void* prof, void* stream) {
+#if APG_BF16
+  return (int)cudaErrorInvalidValue;      // the clock-stamped build is apg_solve.cu's
+#else
   if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 || options(*a) ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
@@ -641,6 +669,7 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
                          (const float*)consts, (const float*)u_init, (const float*)t0,
                          (const float*)precond, (const float*)noise, (const float*)starts,
                          (float*)yk, (float*)stats, (float*)x_evol, (long long*)prof));
+#endif
 }
 
 }  // extern "C"

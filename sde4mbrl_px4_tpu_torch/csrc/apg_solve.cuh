@@ -62,6 +62,16 @@ struct ApgArgs {
   // costs K, value_and_grad's plan and gradient H*nZ and value 1; precond
   // is shared.
   int batch;
+  // The trunk's three products on bf16-rounded operands with fp32 sums
+  // (bf16 = 1; the JAX package's matmul_precision "default" on its TPU).
+  // It selects the template instantiations with BF = true: the whole
+  // solve's particle forms from the apg_solve_bf16 library
+  // (apg_solve_bf16.cu), value_batch's (particle and P=1) and
+  // value_and_grad's particle forms from cost_oracle.cu. A launcher refuses
+  // a launch whose bf16 differs from its instantiations' precision; the P=1
+  // whole solve and value_and_grad refuse it, and trajectory ignores it
+  // (x_evol stays fp32).
+  int bf16;
   // The particle forms of the whole solve and of value_and_grad: one
   // thread-block cluster of `cluster` blocks per launch; block `rank`
   // sweeps chunks rank, rank + cluster, ... (at most chunks_per_block of

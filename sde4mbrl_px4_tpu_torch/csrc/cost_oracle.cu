@@ -84,6 +84,19 @@
 // OPT = true form (value_batch_kernel<true, SC, false, true>,
 // value_and_grad_kernel<true, SC, true>).
 //
+// Reduced matmul precision (ApgArgs::bf16, sweeps.cuh): the bf16-trunk
+// instantiations (BF) of value_batch (the particle forms and the P=1 ones,
+// value_batch_kernel<PART, SC, REG, OPT, true>) and of value_and_grad's
+// particle forms (value_and_grad_kernel<true, SC, OPT, true>); a launch
+// with a.bf16 takes them. Each block rounds the trunk weights of its
+// consts copy once (load_block) and the sweeps store the products' other
+// operands rounded; the forms without BF compile to the code they had. The
+// JAX package runs these on XLA (MPPI at P > 1 or K > 128, the pure
+// policy's telemetry cost, P > 128): engine/mpc_loader.py:320-350,
+// :434-445. The P=1 value_and_grad refuses it (the original's P=1 oracle is
+// its kernel, at HIGHEST), and trajectory has no bf16 form: x_evol is the
+// fp32 mean rollout (:815-819).
+//
 // Control flow is block-uniform and every __syncthreads() is reached by all
 // threads of the block.
 
@@ -186,12 +199,18 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
 
 // Copy the consts and R rows of controls (row r of the block at U + r*HZ)
 // into shared memory; on the shared-memory step also start each row at x0
-// with zero running costs.
+// with zero running costs. BF: the trunk weights of the copy rounded to
+// bf16.
+template <bool BF = false>
 __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
                            const float* __restrict__ consts,
                            const float* __restrict__ U) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
+  if constexpr (BF) {
+    __syncthreads();
+    round_trunk_weights(a, s.c);
+  }
   for (int e = tid; e < R * a.H * a.nZ; e += nt) s.cand[e] = U[e];
   if (s.xr) {
     for (int e = tid; e < R * 13; e += nt) s.xr[e] = consts[a.o_x0 + e % 13];
@@ -207,12 +226,12 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // scenario i / K; cand_part), rank 0 writing its cost. P=1: scenario b on
 // grid row b, block x taking its candidates x*tile .. x*tile + tile-1, REG
 // on the register chain (p1_rollout, warp r the block's row r), else on the
-// shared-memory step.
+// shared-memory step. BF: the bf16 trunk.
 // The particle form states a minimum of one 512-thread block per SM (its
 // 100-128 registers a thread allow no second): without it, ptxas took the
 // proximal form to 64 registers (two blocks per SM) and a 108-byte spill
 // once the scenario offsets were added.
-template <bool PART, int SC, bool REG, bool OPT = false>
+template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
@@ -229,10 +248,10 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   // PART: k0 is the flat plan index over B x K, so the plans and costs
   // need no scenario offset, the consts and the Brownian block k0 / K's
   if constexpr (PART)
-    load_block(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
+    load_block<BF>(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
   else
-    load_block(a, s, R, consts + grid_row() * a.n_consts,
-               U + (grid_row() * K + k0) * (size_t)HZ);
+    load_block<BF>(a, s, R, consts + grid_row() * a.n_consts,
+                   U + (grid_row() * K + k0) * (size_t)HZ);
 
   if constexpr (PART) {
     // OPT: scenario k0 / K's starts (null: x0), offset once into shared
@@ -242,14 +261,15 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
       if (tid == 0) starts_p = starts ? starts + (size_t)(k0 / K) * ((size_t)a.P * 13) : nullptr;
       __syncthreads();
     }
-    cand_part<SC, false, OPT>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
+    cand_part<SC, false, OPT, BF>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
                               [&]() -> const float* { return starts_p; });
     if (cg::this_cluster().block_rank() != 0) return;
   } else if constexpr (REG) {
-    p1_rollout<SC, false, false>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
+    p1_rollout<SC, false, false, BF>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
   } else {
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false, SC>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr, t);
+      fwd_step<false, SC, false, BF>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr,
+                                     t);
   }
 
   // control-only cost per row, one warp per row
@@ -305,8 +325,9 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 
 // The cost of one plan and its gradient, for scenario b = block b (P=1) or
 // cluster b (particles): its consts, plan u (H, nZ), Brownian block, value
-// and gradient (H, nZ) at b times their stride.
-template <bool PART, int SC, bool OPT = false>
+// and gradient (H, nZ) at b times their stride. BF (particles): the bf16
+// trunk.
+template <bool PART, int SC, bool OPT = false, bool BF = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
@@ -314,11 +335,12 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       float* __restrict__ grad) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float fval;
+  static_assert(PART || !BF, "the P=1 value_and_grad has no bf16 trunk");
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_block(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
-             u + vg_scenario<PART>() * (a.H * a.nZ));
+  load_block<BF>(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
+                 u + vg_scenario<PART>() * (a.H * a.nZ));
   int rank = 0;                       // the block's rank in its cluster
   if constexpr (PART) {
     rank = (int)cg::this_cluster().block_rank();
@@ -328,7 +350,7 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
       if (tid == 0)
         starts_p = starts ? starts + vg_scenario<true>() * ((size_t)a.P * 13) : nullptr;
     transpose_weights(a, s);                 // ends with a barrier
-    vg_part<SC, false, OPT>(
+    vg_part<SC, false, OPT, BF>(
         a, s, &fval, s.cand,
         [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
         [&]() -> const float* { return starts_p; });
@@ -374,17 +396,17 @@ bool args_ok(const ApgArgs* a) {
 // ceil(K / tile) blocks on each of a.batch grid rows; particles B x K
 // clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
 // the card cannot schedule returns).
-template <bool PART, int SC, bool REG, bool OPT = false>
+template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
                                const float* starts, float* out) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT>, K, tile, a,
-                              consts, U, noise, starts, out);
+    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF>, K, tile,
+                              a, consts, U, noise, starts, out);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
-    value_batch_kernel<false, SC, REG><<<grid, ORACLE_NTHREADS, dyn, st>>>(
+    value_batch_kernel<false, SC, REG, false, BF><<<grid, ORACLE_NTHREADS, dyn, st>>>(
         K, tile, a, consts, U, noise, starts, out);
     return cudaSuccess;
   }
@@ -392,30 +414,44 @@ cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cu
 using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStream_t,
                                      const float*, const float*, const float*, const float*,
                                      float*);
-// [form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on the
-// register chain, 2 particles, 3 particles with the options
-const ValueBatchFn kValueBatch[4][3] = {
-    {launch_value_batch<false, CONSTR_NONE, false>,
-     launch_value_batch<false, CONSTR_PENALTY, false>,
-     launch_value_batch<false, CONSTR_PROX, false>},
-    {launch_value_batch<false, CONSTR_NONE, true>, launch_value_batch<false, CONSTR_PENALTY, true>,
-     launch_value_batch<false, CONSTR_PROX, true>},
-    {launch_value_batch<true, CONSTR_NONE, false>, launch_value_batch<true, CONSTR_PENALTY, false>,
-     launch_value_batch<true, CONSTR_PROX, false>},
-    {launch_value_batch<true, CONSTR_NONE, false, true>,
-     launch_value_batch<true, CONSTR_PENALTY, false, true>,
-     launch_value_batch<true, CONSTR_PROX, false, true>}};
+// [bf16][form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on
+// the register chain, 2 particles, 3 particles with the options
+const ValueBatchFn kValueBatch[2][4][3] = {
+    {{launch_value_batch<false, CONSTR_NONE, false, false, false>,
+      launch_value_batch<false, CONSTR_PENALTY, false, false, false>,
+      launch_value_batch<false, CONSTR_PROX, false, false, false>},
+     {launch_value_batch<false, CONSTR_NONE, true, false, false>,
+      launch_value_batch<false, CONSTR_PENALTY, true, false, false>,
+      launch_value_batch<false, CONSTR_PROX, true, false, false>},
+     {launch_value_batch<true, CONSTR_NONE, false, false, false>,
+      launch_value_batch<true, CONSTR_PENALTY, false, false, false>,
+      launch_value_batch<true, CONSTR_PROX, false, false, false>},
+     {launch_value_batch<true, CONSTR_NONE, false, true, false>,
+      launch_value_batch<true, CONSTR_PENALTY, false, true, false>,
+      launch_value_batch<true, CONSTR_PROX, false, true, false>}},
+    {{launch_value_batch<false, CONSTR_NONE, false, false, true>,
+      launch_value_batch<false, CONSTR_PENALTY, false, false, true>,
+      launch_value_batch<false, CONSTR_PROX, false, false, true>},
+     {launch_value_batch<false, CONSTR_NONE, true, false, true>,
+      launch_value_batch<false, CONSTR_PENALTY, true, false, true>,
+      launch_value_batch<false, CONSTR_PROX, true, false, true>},
+     {launch_value_batch<true, CONSTR_NONE, false, false, true>,
+      launch_value_batch<true, CONSTR_PENALTY, false, false, true>,
+      launch_value_batch<true, CONSTR_PROX, false, false, true>},
+     {launch_value_batch<true, CONSTR_NONE, false, true, true>,
+      launch_value_batch<true, CONSTR_PENALTY, false, true, true>,
+      launch_value_batch<true, CONSTR_PROX, false, true, true>}}};
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
 // returns).
-template <bool PART, int SC, bool OPT = false>
+template <bool PART, int SC, bool OPT = false, bool BF = false>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
                                   const float* starts, float* val, float* grad) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT>, a, consts, u,
+    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF>, a, consts, u,
                               noise, starts, val, grad);
   } else {
     value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(
@@ -426,15 +462,55 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                        const float*, const float*, const float*, float*,
                                        float*);
-// [form][sc_kind]: form 0 P=1, 1 particles, 2 particles with the options
-const ValueAndGradFn kValueAndGrad[3][3] = {
+// [form][sc_kind]: form 0 P=1, 1 particles, 2 particles with the options,
+// 3 and 4 the bf16 trunk of 1 and 2
+const ValueAndGradFn kValueAndGrad[5][3] = {
     {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
      launch_value_and_grad<false, CONSTR_PROX>},
     {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
      launch_value_and_grad<true, CONSTR_PROX>},
     {launch_value_and_grad<true, CONSTR_NONE, true>,
      launch_value_and_grad<true, CONSTR_PENALTY, true>,
-     launch_value_and_grad<true, CONSTR_PROX, true>}};
+     launch_value_and_grad<true, CONSTR_PROX, true>},
+    {launch_value_and_grad<true, CONSTR_NONE, false, true>,
+     launch_value_and_grad<true, CONSTR_PENALTY, false, true>,
+     launch_value_and_grad<true, CONSTR_PROX, false, true>},
+    {launch_value_and_grad<true, CONSTR_NONE, true, true>,
+     launch_value_and_grad<true, CONSTR_PENALTY, true, true>,
+     launch_value_and_grad<true, CONSTR_PROX, true, true>}};
+
+// The particle forms' kernels [bf16][opt][sc_kind] of value_batch and
+// value_and_grad.
+using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
+                          const float*, float*);
+using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                          float*, float*);
+const VbKernel kVbForms[2][2][3] = {
+    {{value_batch_kernel<true, CONSTR_NONE, false, false, false>,
+      value_batch_kernel<true, CONSTR_PENALTY, false, false, false>,
+      value_batch_kernel<true, CONSTR_PROX, false, false, false>},
+     {value_batch_kernel<true, CONSTR_NONE, false, true, false>,
+      value_batch_kernel<true, CONSTR_PENALTY, false, true, false>,
+      value_batch_kernel<true, CONSTR_PROX, false, true, false>}},
+    {{value_batch_kernel<true, CONSTR_NONE, false, false, true>,
+      value_batch_kernel<true, CONSTR_PENALTY, false, false, true>,
+      value_batch_kernel<true, CONSTR_PROX, false, false, true>},
+     {value_batch_kernel<true, CONSTR_NONE, false, true, true>,
+      value_batch_kernel<true, CONSTR_PENALTY, false, true, true>,
+      value_batch_kernel<true, CONSTR_PROX, false, true, true>}}};
+const VgKernel kVgForms[2][2][3] = {
+    {{value_and_grad_kernel<true, CONSTR_NONE, false, false>,
+      value_and_grad_kernel<true, CONSTR_PENALTY, false, false>,
+      value_and_grad_kernel<true, CONSTR_PROX, false, false>},
+     {value_and_grad_kernel<true, CONSTR_NONE, true, false>,
+      value_and_grad_kernel<true, CONSTR_PENALTY, true, false>,
+      value_and_grad_kernel<true, CONSTR_PROX, true, false>}},
+    {{value_and_grad_kernel<true, CONSTR_NONE, false, true>,
+      value_and_grad_kernel<true, CONSTR_PENALTY, false, true>,
+      value_and_grad_kernel<true, CONSTR_PROX, false, true>},
+     {value_and_grad_kernel<true, CONSTR_NONE, true, true>,
+      value_and_grad_kernel<true, CONSTR_PENALTY, true, true>,
+      value_and_grad_kernel<true, CONSTR_PROX, true, true>}}};
 
 // The particle fields, the noise block and the particle options (risk and
 // starts: particles only), when the kernel reads them.
@@ -446,10 +522,10 @@ bool particles_ok(const ApgArgs* a, const void* noise, const void* starts) {
          a->Pc * a->n_chunks == a->P;
 }
 
-// The largest cluster of each particle form [kind][opt][sc_kind],
-// value_batch and value_and_grad, without and with the options
-// (cost_oracle_init; 0 before it).
-int g_cmax[3][2][3] = {};
+// The largest cluster of each particle form [kind][bf16][opt][sc_kind],
+// value_batch and value_and_grad, without and with the options and the
+// bf16 trunk (cost_oracle_init; 0 before it).
+int g_cmax[3][2][2][3] = {};
 
 bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
 
@@ -478,77 +554,43 @@ const char* cost_oracle_error_string(int err) {
 // cluster (sweeps.cuh::cluster_max). Called once when the library is
 // loaded; returns a cudaError_t.
 int cost_oracle_init() {
-  int(*vb)[3] = g_cmax[ORACLE_VALUE_BATCH];
-  int(*vg)[3] = g_cmax[ORACLE_VALUE_AND_GRAD];
-  const int nt = ORACLE_NTHREADS_PART;
-  const cudaError_t errs[] = {
-      allow_large_smem(value_batch_kernel<true, CONSTR_NONE, false>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY, false>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PROX, false>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_NONE, false, true>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PENALTY, false, true>),
-      allow_large_smem(value_batch_kernel<true, CONSTR_PROX, false, true>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_NONE, true>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_PENALTY, true>),
-      allow_large_smem(value_and_grad_kernel<true, CONSTR_PROX, true>),
-      cluster_max(value_batch_kernel<true, CONSTR_NONE, false>, nt, &vb[0][CONSTR_NONE]),
-      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false>, nt, &vb[0][CONSTR_PENALTY]),
-      cluster_max(value_batch_kernel<true, CONSTR_PROX, false>, nt, &vb[0][CONSTR_PROX]),
-      cluster_max(value_batch_kernel<true, CONSTR_NONE, false, true>, nt, &vb[1][CONSTR_NONE]),
-      cluster_max(value_batch_kernel<true, CONSTR_PENALTY, false, true>, nt,
-                  &vb[1][CONSTR_PENALTY]),
-      cluster_max(value_batch_kernel<true, CONSTR_PROX, false, true>, nt, &vb[1][CONSTR_PROX]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_NONE>, nt, &vg[0][CONSTR_NONE]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY>, nt, &vg[0][CONSTR_PENALTY]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PROX>, nt, &vg[0][CONSTR_PROX]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_NONE, true>, nt, &vg[1][CONSTR_NONE]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PENALTY, true>, nt, &vg[1][CONSTR_PENALTY]),
-      cluster_max(value_and_grad_kernel<true, CONSTR_PROX, true>, nt, &vg[1][CONSTR_PROX])};
-  for (const cudaError_t e : errs)
-    if (e != cudaSuccess) return (int)e;
+  for (int bf = 0; bf < 2; ++bf)
+    for (int o = 0; o < 2; ++o)
+      for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
+        const VbKernel vb = kVbForms[bf][o][sc];
+        const VgKernel vg = kVgForms[bf][o][sc];
+        cudaError_t e = allow_large_smem(vb);
+        if (e == cudaSuccess) e = allow_large_smem(vg);
+        if (e == cudaSuccess)
+          e = cluster_max(vb, ORACLE_NTHREADS_PART, &g_cmax[ORACLE_VALUE_BATCH][bf][o][sc]);
+        if (e == cudaSuccess)
+          e = cluster_max(vg, ORACLE_NTHREADS_PART, &g_cmax[ORACLE_VALUE_AND_GRAD][bf][o][sc]);
+        if (e != cudaSuccess) return (int)e;
+      }
   return 0;
 }
 
 // The largest cluster of the particle form of `kind` (ORACLE_VALUE_BATCH,
-// ORACLE_VALUE_AND_GRAD), sc_kind and opt (the options' form); 0 for other
-// kinds.
-int oracle_cluster_max(int kind, int sc_kind, int opt) {
+// ORACLE_VALUE_AND_GRAD), sc_kind, opt (the options' form) and bf16 (the
+// bf16 trunk's); 0 for other kinds.
+int oracle_cluster_max(int kind, int sc_kind, int opt, int bf16) {
   return (kind == ORACLE_VALUE_BATCH || kind == ORACLE_VALUE_AND_GRAD) && sc_ok(sc_kind)
-             ? g_cmax[kind][opt != 0][sc_kind] : 0;
+             ? g_cmax[kind][bf16 != 0][opt != 0][sc_kind] : 0;
 }
 
 // cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
-// dimensions and cluster size, into *n; returns a cudaError_t.
+// dimensions, cluster size and precision, into *n; returns a cudaError_t.
 int oracle_max_active_clusters(int kind, const ApgArgs* a, int* n) {
-  using VbFn = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
-                        const float*, float*);
-  using VgFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                        float*, float*);
-  const VbFn vb[2][3] = {{value_batch_kernel<true, CONSTR_NONE, false>,
-                          value_batch_kernel<true, CONSTR_PENALTY, false>,
-                          value_batch_kernel<true, CONSTR_PROX, false>},
-                         {value_batch_kernel<true, CONSTR_NONE, false, true>,
-                          value_batch_kernel<true, CONSTR_PENALTY, false, true>,
-                          value_batch_kernel<true, CONSTR_PROX, false, true>}};
-  const VgFn vg[2][3] = {{value_and_grad_kernel<true, CONSTR_NONE>,
-                          value_and_grad_kernel<true, CONSTR_PENALTY>,
-                          value_and_grad_kernel<true, CONSTR_PROX>},
-                         {value_and_grad_kernel<true, CONSTR_NONE, true>,
-                          value_and_grad_kernel<true, CONSTR_PENALTY, true>,
-                          value_and_grad_kernel<true, CONSTR_PROX, true>}};
   if (!a->has_noise || !sc_ok(a->sc_kind) || a->cluster < 1 ||
       (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a, kind, 1, true);
-  const int o = options(*a);
+  const int bf = a->bf16 != 0, o = options(*a);
   return (int)(kind == ORACLE_VALUE_BATCH
-                   ? max_active_clusters(vb[o][a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
-                                         dyn, n)
-                   : max_active_clusters(vg[o][a->sc_kind], a->cluster, ORACLE_NTHREADS_PART,
-                                         dyn, n));
+                   ? max_active_clusters(kVbForms[bf][o][a->sc_kind], a->cluster,
+                                         ORACLE_NTHREADS_PART, dyn, n)
+                   : max_active_clusters(kVgForms[bf][o][a->sc_kind], a->cluster,
+                                         ORACLE_NTHREADS_PART, dyn, n));
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -581,12 +623,12 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* 
                        const void* noise, const void* starts, void* out, void* stream) {
   if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
       !particles_ok(a, noise, starts) ||
-      (a->has_noise &&
-       !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_BATCH][options(*a)][a->sc_kind])) ||
+      (a->has_noise && !cluster_args_ok(
+          *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][options(*a)][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const int form = a->has_noise ? (options(*a) ? 3 : 2) : p1_widths(*a) ? 1 : 0;
-  return launch_error(kValueBatch[form][a->sc_kind](
+  return launch_error(kValueBatch[a->bf16 != 0][form][a->sc_kind](
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
       (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
       (float*)out));
@@ -611,13 +653,13 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, const void* starts, void* val, void* grad,
                           void* stream) {
   if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise, starts) ||
-      (!a->has_noise && !p1_widths(*a)) ||
-      (a->has_noise &&
-       !cluster_args_ok(*a, g_cmax[ORACLE_VALUE_AND_GRAD][options(*a)][a->sc_kind])) ||
+      (!a->has_noise && (!p1_widths(*a) || a->bf16)) ||
+      (a->has_noise && !cluster_args_ok(
+          *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][options(*a)][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  const int form = a->has_noise ? (options(*a) ? 2 : 1) : 0;
+  const int form = a->has_noise ? (options(*a) ? 2 : 1) + (a->bf16 ? 2 : 0) : 0;
   return launch_error(kValueAndGrad[form][a->sc_kind](
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
       (const float*)noise, (const float*)starts, (float*)val, (float*)grad));

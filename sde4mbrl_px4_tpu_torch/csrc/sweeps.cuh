@@ -96,11 +96,31 @@
 // scalar per-row arithmetic on constants in shared memory: latency on the
 // step's serial chain, no memory traffic.
 //
+// Reduced matmul precision (ApgArgs::bf16; the JAX package's
+// matmul_precision "default", which its TPU runs as bf16-input, fp32-
+// accumulate dots on XLA, sde4mbrl_px4_tpu/models/sde_model.py:123-146):
+// the operands of the trunk's three products are rounded to bf16 where they
+// are stored, not inside the product loops. Forward: each layer's input (the
+// features, motor commands included, and the swish outputs s.a0, s.a1) and
+// the weights w0, w1, w2, rounded once in the block's shared-memory copy of
+// the consts (the buffer in device memory stays fp32: trajectory reads it).
+// Reverse (bwd_rows): the transposed products' operands, the pre-activation
+// cotangents s.c_h2, s.c_h1p, s.c_h0p and the (rounded) transposed weights,
+// as JAX's transpose rule keeps the forward's precision. Not rounded: the
+// biases, the stashed pre-activations the swish derivative reads, the
+// wrench, sigma and every cost term. A product of two bf16 values is exact
+// in fp32, so the sums are the fp32 sums of the rounded operands. The
+// rounding is a template parameter BF of the sweeps (trunk, fwd_step,
+// bwd_rows, vg_part, cand_part, p1_rollout): the kernels' bf16
+// instantiations take BF = true, and every form without it compiles to the
+// code it had before the parameter existed.
+//
 // Numerics: fp32 throughout, no fast-math. softplus is
 // max(x,0)+log1p(exp(-|x|)) and the sigmoid 1/(1+exp(-x)), as in JAX.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -157,6 +177,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
+}
+
+// v rounded to bf16 (to nearest, ties to even: torch's and JAX's casts) and
+// back to fp32.
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// An operand of a trunk product as a sweep stores it: rounded to bf16 in
+// the bf16-trunk instantiations (BF; header, reduced matmul precision).
+template <bool BF>
+__device__ __forceinline__ float mm_in(float v) {
+  if constexpr (BF) return bf16_rn(v);
+  else return v;
+}
+// Round the trunk weights w0, w1, w2 of a block's consts copy c to bf16 in
+// place (every thread a share; the caller puts barriers around it).
+__device__ void round_trunk_weights(const ApgArgs& a, float* c) {
+  const int n0 = a.F * a.HID, n1 = a.HID * a.HID, n2 = a.HID * a.OUT;
+  for (int e = threadIdx.x; e < n0 + n1 + n2; e += blockDim.x) {
+    float* w = e < n0 ? c + a.o_w0 + e
+               : e < n0 + n1 ? c + a.o_w1 + (e - n0) : c + a.o_w2 + (e - n0 - n1);
+    *w = bf16_rn(*w);
+  }
 }
 // x[id] of a 13-float register array at a runtime id, as a select chain (a
 // runtime index would move the array to local memory).
@@ -318,8 +361,9 @@ __device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, 
 // the R rows' hidden pre-activations (idx = r*HID + j). TILED (the
 // candidate rows of cand_part): the three products as
 // register tiles (rows_gemm), s.a0 and s.a1 at row stride tiled_ld; the
-// same sums in the same order.
-template <bool PART, bool TILED = false>
+// same sums in the same order. BF: the products' inputs stored rounded to
+// bf16 (mm_in; the weights are the caller's, rounded in s.c).
+template <bool PART, bool TILED = false, bool BF = false>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
                       float* st_h1p) {
@@ -337,6 +381,8 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     qrot(xr[6], qcu, ez, f + 6);
     const float* ur = PART ? U + (r % K) * ustride : U + r * ustride;
     for (int i = 0; i < a.n_u; ++i) f[9 + i] = ur[i];
+    if constexpr (BF)
+      for (int i = 0; i < F; ++i) f[i] = bf16_rn(f[i]);
   };
   if constexpr (PART) {
     for (int r = tid; r < R; r += nt) features(r);
@@ -351,13 +397,13 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const float* w2 = c + a.o_w2; const float* b2 = c + a.o_b2;
     rows_gemm(R, HID, F, s.feat, F, w0, [&](int r, int j, float acc) {
       const float pre = acc + b0[j];
-      s.a0[r * ld + j] = pre * sigm(pre);
+      s.a0[r * ld + j] = mm_in<BF>(pre * sigm(pre));
       if (st_h0p) st_h0p[r * HID + j] = pre;
     });
     __syncthreads();
     rows_gemm(R, HID, HID, s.a0, ld, w1, [&](int r, int j, float acc) {
       const float pre = acc + b1[j];
-      s.a1[r * ld + j] = pre * sigm(pre);
+      s.a1[r * ld + j] = mm_in<BF>(pre * sigm(pre));
       if (st_h1p) st_h1p[r * HID + j] = pre;
     });
     __syncthreads();
@@ -373,7 +419,7 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     float acc = 0.f;
     for (int i = 0; i < F; ++i) acc += f[i] * w0[i * HID + j];
     const float pre = acc + b0[j];
-    s.a0[idx] = pre * sigm(pre);
+    s.a0[idx] = mm_in<BF>(pre * sigm(pre));
     if (st_h0p) st_h0p[idx] = pre;
   }
   __syncthreads();
@@ -384,7 +430,7 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     float acc = 0.f;
     for (int i = 0; i < HID; ++i) acc += h[i] * w1[i * HID + j];
     const float pre = acc + b1[j];
-    s.a1[idx] = pre * sigm(pre);
+    s.a1[idx] = mm_in<BF>(pre * sigm(pre));
     if (st_h1p) st_h1p[idx] = pre;
   }
   __syncthreads();
@@ -576,12 +622,12 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // (its particle; rows are particle-major). SC adds the state-constraint
 // terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
 // TILED: the trunk's register-tiled products (the candidate rows of
-// cand_part).
-template <bool PART, int SC, bool TILED = false>
+// cand_part). BF: the bf16 trunk (trunk).
+template <bool PART, int SC, bool TILED = false, bool BF = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
                          float* xn, int t) {
-  trunk<PART, TILED>(a, s, R, U, ustride, K, x, nullptr, nullptr);
+  trunk<PART, TILED, BF>(a, s, R, U, ustride, K, x, nullptr, nullptr);
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int OUT = a.OUT;
@@ -814,8 +860,10 @@ __device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
 // (R, 13) and writes the chunk's control gradient, summed over its rows and
 // divided by n_chunks, to gout[t*nZ ..] (its partial; the slack columns'
 // gradient rides in s.cu[r*nZ + n_u ..] in the proximal form). Needs
-// transpose_weights first.
-template <int SC, bool OPT = false>
+// transpose_weights first. BF (the bf16 trunk): the trunk forward rounds as
+// the forward sweep did, and the cotangents entering the transposed
+// products (s.c_h2, s.c_h1p, s.c_h0p) are stored rounded.
+template <int SC, bool OPT = false, bool BF = false>
 __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
                          const float* __restrict__ z, int t, float* gout) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -824,12 +872,15 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   const float* xt = s.xs + t * R * 13;
   const float* x1 = s.xs + (t + 1) * R * 13;
   const float* u = U + t * nZ;
-  trunk<true>(a, s, R, u, 0, 1, xt, s.p0, s.p1);
+  trunk<true, false, BF>(a, s, R, u, 0, 1, xt, s.p0, s.p1);
   const float d_t = c[a.o_disc + t];
   const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
-  for (int r = tid; r < R; r += nt)
+  for (int r = tid; r < R; r += nt) {
     bwd_dyn<true, SC>(a, c, xt + r * 13, x1 + r * 13, s.a2 + r * OUT, u, z + r * 13, t,
                       cT, cR, s.ct + r * 13, s.c_h2 + r * OUT, s.cu + r * nZ);
+    if constexpr (BF)
+      for (int o = 0; o < OUT; ++o) s.c_h2[r * OUT + o] = bf16_rn(s.c_h2[r * OUT + o]);
+  }
   __syncthreads();
 
   // trunk backward, one output per thread and row, on the transposed
@@ -840,7 +891,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
     float acc = 0.f;
     for (int o = 0; o < OUT; ++o) acc += ch[o] * s.w2t[o * HID + j];
     const float h = s.p1[idx], s1 = sigm(h);
-    s.c_h1p[idx] = acc * (s1 + h * s1 * (1.f - s1));
+    s.c_h1p[idx] = mm_in<BF>(acc * (s1 + h * s1 * (1.f - s1)));
   }
   __syncthreads();
   for (int idx = tid; idx < R * HID; idx += nt) {
@@ -849,7 +900,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
     float acc = 0.f;
     for (int j = 0; j < HID; ++j) acc += s.w1t[j * HID + i] * ch[j];
     const float h = s.p0[idx], s0 = sigm(h);
-    s.c_h0p[idx] = acc * (s0 + h * s0 * (1.f - s0));
+    s.c_h0p[idx] = mm_in<BF>(acc * (s0 + h * s0 * (1.f - s0)));
   }
   __syncthreads();
   for (int idx = tid; idx < R * F; idx += nt) {
@@ -1091,8 +1142,10 @@ __device__ __forceinline__ void sigma_bwd(const float* h2, float cR, float dsc, 
 // s.jt[r], s.jr[r]. STASH (the vg row and the trajectory, R = 1): the
 // states into s.xs[1..H], the pre-activations into s.h0p, s.h1p, s.h2 and
 // the wrench into s.wr for the reverse sweep. Ends without a barrier (warp r
-// wrote row r's costs, warp 0 the stash).
-template <int SC, bool STASH, bool PROF>
+// wrote row r's costs, warp 0 the stash). BF (the P=1 value_batch's bf16
+// instantiations): the features and the swish outputs rounded to bf16 before
+// the products read them (W from a rounded consts copy; header).
+template <int SC, bool STASH, bool PROF, bool BF = false>
 __device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, const P1W& W,
                                            int R, const float* U, int ustride) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1110,6 +1163,10 @@ __device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, cons
       float uu[P1_FMAX - 9], f[P1_FMAX];
       load_controls(a, ut, uu);
       features_reg(a, x, uu, f);
+      if constexpr (BF) {
+#pragma unroll
+        for (int i = 0; i < P1_FMAX; ++i) f[i] = bf16_rn(f[i]);
+      }
       wrench4_reg(a, c + a.o_mix, uu, w);
       if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
 #pragma unroll
@@ -1118,7 +1175,7 @@ __device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, cons
 #pragma unroll
         for (int i = 0; i < P1_FMAX; ++i) acc += f[i] * W.w0[h][i];
         const float pre = acc + W.b0[h];
-        s.a0[warp * P1_HID + lane + 32 * h] = pre * sigm(pre);
+        s.a0[warp * P1_HID + lane + 32 * h] = mm_in<BF>(pre * sigm(pre));
         if (STASH) s.h0p[t * P1_HID + lane + 32 * h] = pre;
       }
       if (STASH && lane < 4)
@@ -1139,7 +1196,7 @@ __device__ __forceinline__ void p1_rollout(const ApgArgs& a, const Smem& s, cons
 #pragma unroll
         for (int i = 1; i < APG_MAXK; ++i) v = r == i ? pre[i] : v;
         if (r < R) {
-          s.a1[r * P1_HID + j] = v * sigm(v);
+          s.a1[r * P1_HID + j] = mm_in<BF>(v * sigm(v));
           if (STASH) s.h1p[t * P1_HID + j] = v;
         }
       }
@@ -1332,9 +1389,9 @@ __device__ __forceinline__ int block_chunks(const ApgArgs& a) {
 // the (P, 13) starts or null, or a source of them; with a.risk every
 // chunk's forward comes first, then the two moments of the totals, then
 // each chunk's reverse with the rows' risk weights (the header's Risk
-// note).
-template <int SC, bool PROF = false, bool OPT = false, class Noise = const float*,
-          class Starts = const float*>
+// note). BF: the bf16 trunk.
+template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
+          class Noise = const float*, class Starts = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         Noise noise, Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
@@ -1352,11 +1409,11 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
       __syncthreads();
       const float* zc = noise_at(noise) + (size_t)ch * R * 13;
       for (int t = 0; t < a.H; ++t)
-        fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
-                       s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
+        fwd_step<true, SC, false, BF>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
+                                      s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
       prof_stamp<PROF>(s, PP_VG_FWD);
       for (int t = a.H - 1; t >= 0; --t)
-        bwd_rows<SC>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
+        bwd_rows<SC, false, BF>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
       prof_stamp<PROF>(s, PP_VG_BWD);
       if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
       if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
@@ -1422,8 +1479,9 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
         __syncthreads();
         const float* zc = noise_at(noise) + (size_t)ch * R * 13;
         for (int t = 0; t < a.H; ++t)
-          fwd_step<true, SC>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
-                         s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
+          fwd_step<true, SC, false, BF>(a, s, R, U + t * a.nZ, 0, 1,
+                                        zc + (size_t)t * a.P * 13, s.xs + t * R * 13,
+                                        s.xs + (t + 1) * R * 13, t);
         prof_stamp<PROF>(s, PP_VG_FWD);
       }
       if (it < block_chunks(a)) {
@@ -1455,7 +1513,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           __syncthreads();
         }
         for (int t = a.H - 1; t >= 0; --t)
-          bwd_rows<SC, true>(a, s, U,
+          bwd_rows<SC, true, BF>(a, s, U,
                              noise_at(noise) + (size_t)(block_rank_now() + j * a.cluster) * R * 13
                                  + (size_t)t * a.P * 13,
                              t, s.pg + chunk_of(it) * W);
@@ -1499,9 +1557,9 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // ordered sum of the centred second moments adds lambda * std to s.cacc[k].
 // The trunk's products are register tiles (fwd_step<true, SC, true>). The
 // whole solve sweeps its K candidates at once; value_batch calls it with
-// K = 1 (one candidate per cluster).
-template <int SC, bool PROF = false, bool OPT = false, class Noise = const float*,
-          class Starts = const float*>
+// K = 1 (one candidate per cluster). BF: the bf16 trunk.
+template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
+          class Noise = const float*, class Starts = const float*>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
                           Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1520,7 +1578,7 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
     __syncthreads();
     const float* zc = noise_at(noise) + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true, SC, true>(a, s, R, s.cand + t * a.nZ, HZ, K,
+      fwd_step<true, SC, true, BF>(a, s, R, s.cand + t * a.nZ, HZ, K,
                                zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
     prof_stamp<PROF>(s, PP_CAND);
     if (OPT && a.risk) {

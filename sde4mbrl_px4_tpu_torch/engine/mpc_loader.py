@@ -78,6 +78,23 @@ XLA (``:336-350``, ``:434-443``), on the particle forms of the whole solve,
 
 Both options need P > 1, as in the original (``ValueError`` otherwise).
 
+``matmul_precision`` (original ``:314-322``; ``models/sde_model.py::
+resolve_precision``'s names, ``ValueError`` for others) defaults to
+``default`` above 128 particles and to ``highest`` below. The original's
+TPU runs DEFAULT as bf16-input, fp32-accumulate dots, but only on the
+routes it sends to XLA: its Pallas kernels always run at HIGHEST. So the
+trunk runs bf16 here exactly where both hold (:func:`trunk_bf16`): the
+resolved precision is DEFAULT, and the original would route the config to
+XLA (P > 128 without ``pallas_chunk``, ``risk_lambda``,
+``initial_state_std``, MPPI at P > 1 or K > 128, the pure policy), and then
+on every route of the solve and every B (``MPCPieces.trunk_bf16``), on
+the kernels' bf16 forms (the particle forms of the whole solve and the
+oracle, the P=1 ``value_batch``). ``x_evol``, the ``hover_diag`` probe, the
+control-to-wrench product, the policy network and the costs stay fp32, as
+in the original. On the CPU DEFAULT is fp32, which is what the original's
+XLA computes there (:func:`default_rounds_to_bf16`): every CPU result and
+golden keeps its fp32 numbers.
+
 ``apg_mpc.precond: hover_diag`` (the APG and policy routes) loads the
 diagonal metric cached for the config's content (``_precond_cache_key``:
 the checkpoint's bytes, the cost and the horizon; the flagship configs ship
@@ -135,7 +152,7 @@ from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy, resolve_device
 from sde4mbrl_px4_tpu_torch.io.config import input_bounds_from_config, load_yaml_config
 from sde4mbrl_px4_tpu_torch.models import policy as policy_mod
 from sde4mbrl_px4_tpu_torch.models.params_io import load_params, params_from_numpy
-from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE, init_params
+from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE, init_params, resolve_precision
 from sde4mbrl_px4_tpu_torch.models.trajectory import (
     TrajectoryTable, load_trajectory_csv, make_state_from_traj)
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
@@ -148,7 +165,8 @@ from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve_bat
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
 __all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "build_mpc",
-           "hover_diag_probe", "make_mpc_from_config", "not_in_slice"]
+           "default_rounds_to_bf16", "hover_diag_probe", "make_mpc_from_config",
+           "not_in_slice", "trunk_bf16"]
 
 
 class MPCBundle(NamedTuple):
@@ -193,6 +211,9 @@ class MPCPieces(NamedTuple):
     # (B, ...), curr_ts (B,), xdes (B, 13) or None, iter_budget) ->
     # MPCSolution over B; ``mpc_fn`` is its B = 1
     solve: Optional[Callable] = None
+    # whether ``solve`` runs the trunk's products on bf16 operands
+    # (:func:`trunk_bf16`)
+    trunk_bf16: bool = False
 
 
 def not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -230,8 +251,48 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
         raise ValueError(f"pallas_chunk={chunk} must divide num_particles={P}")
     if bool(cfg.get("antithetic", False)) and P > 1 and P % 2:
         raise ValueError(f"antithetic sampling needs an even particle count, got {P}")
-    if str(cfg.get("matmul_precision", "highest")).lower() not in ("highest", "float32"):
-        raise not_in_slice("matmul_precision below fp32", "Reduced matmul precision")
+
+
+def default_rounds_to_bf16(device: torch.device) -> bool:
+    """What the original's DEFAULT matmul precision computes on ``device``:
+    on the card the TPU's bf16 inputs with fp32 sums (JAX on a GPU would
+    take TF32 here; the port keeps TF32 off, ROADMAP.md §3), on the CPU fp32,
+    which is what XLA's CPU backend computes for the original."""
+    return torch.device(device).type == "cuda"
+
+
+def _jax_routes_to_xla(cfg: Dict[str, Any], mppi_params: Optional[MPPIConfig] = None) -> bool:
+    """Whether the original, on its TPU, sends this config's solve to XLA
+    rather than to its Pallas kernels (``engine/mpc_loader.py:330-350``,
+    ``:432-445``): P > 128 without ``pallas_chunk``, ``risk_lambda`` or
+    ``initial_state_std``, MPPI at P > 1 or more than 128 samples (those of
+    ``mppi_params`` where the tuner's hook gives them), and the pure policy
+    (``refine_iters`` 0)."""
+    P = int(cfg.get("num_particles", 1))
+    solver = str(cfg.get("solver", "apg"))
+    if P > 128 and not int(cfg.get("pallas_chunk", 0) or 0):
+        return True
+    if cfg["cost_params"].get("risk_lambda") or cfg.get("initial_state_std") is not None:
+        return True
+    if solver == "mppi":
+        mp = MPPIConfig.from_config(cfg) if mppi_params is None else mppi_params
+        return P > 1 or int(mp.samples) > 128
+    return solver == "policy" and not int((cfg.get("policy") or {}).get("refine_iters", 0)
+                                          or 0)
+
+
+def trunk_bf16(cfg: Dict[str, Any], device: torch.device,
+               mppi_params: Optional[MPPIConfig] = None) -> bool:
+    """Whether the solves of ``cfg`` on ``device`` run the trunk's products
+    on bf16 operands: the resolved ``matmul_precision`` (``default`` above
+    128 particles, as in the original ``:320-322``) is DEFAULT, the original
+    routes the config to XLA (:func:`_jax_routes_to_xla`), and DEFAULT rounds
+    on ``device`` (:func:`default_rounds_to_bf16`). Unknown names raise
+    ``ValueError``, as in the original, on every device."""
+    P = int(cfg.get("num_particles", 1))
+    default = resolve_precision(cfg.get("matmul_precision",
+                                        "default" if P > 128 else "highest"))
+    return default and _jax_routes_to_xla(cfg, mppi_params) and default_rounds_to_bf16(device)
 
 
 def _resolve_model(cfg: Dict[str, Any], device: torch.device):
@@ -444,6 +505,7 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     _check_slice(cfg)
     apply_fp32_policy()
     dev = resolve_device(device)
+    bf16 = trunk_bf16(cfg, dev, mppi_params)
     model, params = _resolve_model(cfg, dev)
     n_u = model.n_u
     f32 = torch.float32
@@ -664,7 +726,8 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             st, x_evol = apg_solve_kernel_batched(
                 model, params, cost_params, apg_cfg, time_steps, xs, x_ref, u_prev, noise,
                 P, lb_z, ub_z, yk, t_init=opt_states.stepsize if carry_t else None,
-                precond=precond, iter_budget=iter_budget, chunk=chunk, starts=starts)
+                precond=precond, iter_budget=iter_budget, chunk=chunk, starts=starts,
+                bf16=bf16)
         else:
             orc = oracle(xs, x_ref, u_prev, noise, starts)
             with torch.no_grad():
@@ -679,12 +742,13 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
 
     def oracle(xs, x_ref, u_prev, noise, starts):
         return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref, u_prev,
-                                   noise, P, apg_cfg.maxls, chunk=chunk, starts=starts)
+                                   noise, P, apg_cfg.maxls, chunk=chunk, starts=starts,
+                                   bf16=bf16)
 
     pieces = MPCPieces(reset=reset_fn, targets=_targets, build_ref=_build_ref, shift=_shift,
                        carry_t=carry_t, chunk=chunk, antithetic=antithetic,
                        policy_plan=policy_plan, refine_iters=refine, cold_start=cold_start,
-                       solve=solve)
+                       solve=solve, trunk_bf16=bf16)
     return cfg, bundle, pieces
 
 

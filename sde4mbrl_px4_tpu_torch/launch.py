@@ -229,10 +229,11 @@ def launch_fcu_sim(cfg: Dict[str, Any], seconds: Optional[float] = None):
                 f"status={node.fcu.status}")
 
     node = fcu_sim_from_config(cfg)
-    node.start()
-    # the node streams from here on: a SIGTERM from now on (a client that
-    # has read its first frame) must still stop it
+    # the node streams as soon as its plant thread runs, which may be before
+    # start() returns: a SIGTERM from then on (a client that has read its
+    # first frame) must still stop it
     try:
+        node.start()
         print(f"[launch] fcu_sim ({cfg.get('vehicle', 'iris')}) streaming "
               f"MPC_FULL_STATE to udp:{node.addr} at "
               f"{1.0 / node.fcu.state_dt:.0f} Hz", flush=True)

@@ -9,6 +9,11 @@ swish MLP trunk ((9+n_u) -> 64 -> 64 -> 12), and a diagonal diffusion on
 the six velocity states from the same trunk's softplus head. Parameters
 are the checkpoint's nested dict (``models/params_io.py``) with tensors in
 place of numpy arrays. State: NED/FRD 13-vector; control: per-motor thrust.
+
+``matmul_precision`` (:func:`resolve_precision`): at the JAX package's
+``default`` the TPU runs the trunk's three products on bf16 inputs with
+fp32 accumulation. ``trunk_apply(..., bf16=True)`` computes that function
+(:class:`Bf16Matmul`); everything else stays fp32.
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import torch
 from sde4mbrl_px4_tpu_torch.core import quaternion as quat
 from sde4mbrl_px4_tpu_torch.models.vehicles import VehicleConfig
 
-__all__ = ["NeuralSDE", "init_params", "softplus", "trunk_apply", "sigma13",
-           "drift_terms", "drift_and_sigma", "drift_fn", "diffusion_fn"]
+__all__ = ["NeuralSDE", "Bf16Matmul", "init_params", "resolve_precision", "round_bf16",
+           "softplus", "trunk_apply", "sigma13", "drift_terms", "drift_and_sigma",
+           "drift_fn", "diffusion_fn"]
 
 _G = 9.81
 _SPLIT = (3, 3, 4, 3)   # p, v, q, omega
@@ -53,6 +59,60 @@ class NeuralSDE(NamedTuple):
         return float(self.vehicle.mass)
 
 
+# copied from sde4mbrl_px4_tpu/models/sde_model.py:53-67 (resolve_precision's
+# table and error text); True is the TPU's DEFAULT (bf16 inputs), False HIGHEST
+_PRECISION = {None: False, "highest": False, "float32": False,
+              "default": True, "bf16": True, "bfloat16": True}
+
+
+def resolve_precision(name) -> bool:
+    """Whether a ``matmul_precision`` name is the JAX package's DEFAULT (on
+    its TPU, the trunk's products on bf16 inputs with fp32 accumulation)
+    rather than HIGHEST; the original's names, and its ``ValueError`` for
+    any other."""
+    key = name if name is None else str(name).lower()
+    if key not in _PRECISION:
+        raise ValueError(
+            f"matmul_precision {name!r} not recognized; use one of "
+            "highest/float32 (f32 multi-pass) or default/bf16/bfloat16 "
+            "(bf16-input MXU path)"
+        )
+    return _PRECISION[key]
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even) and back to fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+class Bf16Matmul(torch.autograd.Function):
+    """``h @ w`` on bf16-rounded operands with fp32 sums, the TPU's DEFAULT
+    dot, and its transpose rule: the backward's two products round their
+    operands too (``rnd(g) @ rnd(w).T``, ``rnd(h).T @ rnd(g)``), as JAX's
+    transposed dots keep the forward's precision. Autograd through the
+    rounding itself would round the backward's results instead."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return round_bf16(h) @ round_bf16(w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w = ctx.saved_tensors
+        g = round_bf16(g)
+        gh = g @ round_bf16(w).T if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1]:
+            gw = round_bf16(h).reshape(-1, h.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gh, gw
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``max(x, 0) + log1p(exp(-|x|))`` — the form ``jax.nn.softplus`` takes
     (``torch.nn.functional.softplus`` switches to ``x`` above a threshold)."""
@@ -76,13 +136,16 @@ def _feat(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.cat([v_body, om, g_body, u_b], dim=-1)
 
 
-def trunk_apply(params: Dict[str, Any], x: torch.Tensor, u: torch.Tensor):
-    """Shared two-head network -> (residual wrench (...,6), sigma (...,6))."""
+def trunk_apply(params: Dict[str, Any], x: torch.Tensor, u: torch.Tensor,
+                bf16: bool = False):
+    """Shared two-head network -> (residual wrench (...,6), sigma (...,6));
+    ``bf16``: the products on bf16-rounded operands (:class:`Bf16Matmul`)."""
     h = _feat(x, u)
     net = params["net"]
     n_layers = sum(1 for k in net if k.startswith("w"))
     for i in range(n_layers):
-        h = h @ net[f"w{i}"] + net[f"b{i}"]
+        w = net[f"w{i}"]
+        h = (Bf16Matmul.apply(h, w) if bf16 else h @ w) + net[f"b{i}"]
         if i < n_layers - 1:
             h = h * torch.sigmoid(h)
     res, raw = h.split((6, 6), dim=-1)
@@ -118,9 +181,10 @@ def drift_terms(model: NeuralSDE, params: Dict[str, Any], x: torch.Tensor,
 
 
 def drift_and_sigma(model: NeuralSDE, params: Dict[str, Any], x: torch.Tensor,
-                    u: torch.Tensor):
-    """Fused (drift, sigma13) evaluation — one trunk pass for both."""
-    res, sig6 = trunk_apply(params, x, u)
+                    u: torch.Tensor, bf16: bool = False):
+    """Fused (drift, sigma13) evaluation — one trunk pass for both
+    (``bf16``: :func:`trunk_apply`'s)."""
+    res, sig6 = trunk_apply(params, x, u, bf16)
     return drift_terms(model, params, x, u, res), sigma13(x, sig6)
 
 

@@ -56,6 +56,18 @@ same solve without state constraints (P=1 or particles) through the
 kernel's clock-stamped instantiation and returns the SM cycles of each of
 :data:`PHASES` (P=1) or :data:`PART_PHASES` (particles), for
 measurement.
+
+``bf16`` (a Monte-Carlo solve only): the trunk's three products on
+bf16-rounded operands with fp32 sums, the JAX package's ``matmul_precision:
+default`` on its TPU, which it runs on XLA only (P > 128 without
+``pallas_chunk``, or with the particle options: ``engine/mpc_loader.py:
+320-350``). The particle form's bf16 instantiations are a library of their
+own (``csrc/apg_solve_bf16.cu``, :func:`load_apg_library` with ``bf16``),
+which a launch with ``ApgArgs.bf16`` takes; the mean-dynamics ``x_evol``
+stays fp32 (``:815-819``). The P=1 form has no bf16 trunk (the original runs
+P=1 on its kernel, at HIGHEST) and raises.
+``apg_solve_kernel.launches_bf16`` counts the bf16 launches
+(``.launches`` counts all of them).
 """
 from __future__ import annotations
 
@@ -94,9 +106,10 @@ _P = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=None)
-def load_apg_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/apg_solve.cu``."""
-    lib = load_library("apg_solve")
+def load_apg_library(bf16: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/apg_solve.cu``, or with ``bf16``
+    ``csrc/apg_solve_bf16.cu`` (the bf16-trunk particle forms)."""
+    lib = load_library("apg_solve_bf16" if bf16 else "apg_solve")
     lib.apg_args_size.argtypes = []
     lib.apg_args_size.restype = ctypes.c_int
     lib.apg_smem_bytes.argtypes = [ctypes.POINTER(ApgArgs)]
@@ -131,8 +144,9 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int,
     fits the 227 KB budget of the particle form; C = min(n_chunks, C_max)
     blocks, C_max the form's largest cluster (``apg_cluster_max``; the
     clock-stamped form's with ``prof``, the options form's where ``args``
-    has risk or starts) or ``cluster`` when it is given."""
-    lib = load_apg_library()
+    has risk or starts; the bf16 library's with ``args.bf16``) or ``cluster``
+    when it is given."""
+    lib = load_apg_library(bool(args.bf16))
     c_max = lib.apg_cluster_max(args.sc_kind, int(prof), has_options(args))
     if cluster:
         if not 1 <= cluster <= c_max:
@@ -170,13 +184,15 @@ def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     precond: Optional[torch.Tensor] = None,
                     iter_budget: Optional[int] = None,
                     chunk: int = 0, cluster: int = 0,
-                    starts: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
+                    starts: Optional[torch.Tensor] = None,
+                    bf16: bool = False) -> Tuple[APGState, torch.Tensor]:
     """Plain PyTorch version of :func:`apg_solve_kernel` (any device); the
     particle mean is unchunked, so ``cluster`` (a launch detail) is
     unused."""
     _check_scope(model, cp, apg, lb)
     oracle = cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
-                               noise, num_particles, apg.maxls, chunk=chunk, starts=starts)
+                               noise, num_particles, apg.maxls, chunk=chunk, starts=starts,
+                               bf16=bf16)
     with torch.no_grad():
         st = apg_solve(oracle, u_init, lb, ub, apg, t_init=t_init,
                        precond=precond, iter_budget=iter_budget)
@@ -225,7 +241,8 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                      precond: Optional[torch.Tensor] = None,
                      iter_budget: Optional[int] = None,
                      chunk: int = 0, cluster: int = 0,
-                     starts: Optional[torch.Tensor] = None) -> Tuple[APGState, torch.Tensor]:
+                     starts: Optional[torch.Tensor] = None,
+                     bf16: bool = False) -> Tuple[APGState, torch.Tensor]:
     """One fused APG solve -> ``(APGState, x_evol)``.
 
     Inputs as ``pallas_apg_solve``: ``noise`` the (P, H, 13) Brownian block
@@ -238,19 +255,19 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     most blocks of the particle form's cluster (0: the card's largest; 1
     sweeps every chunk in one block, the same bits), ``starts`` the (P, 13)
     particles' initial states of a Monte-Carlo solve (None: all at
-    ``x0``; the cost's ``risk_lambda`` is read from ``cp``). CPU tensors run
-    :func:`apg_solve_plain`. On the card this is the launch of
-    :func:`apg_solve_kernel_batched` at B = 1.
+    ``x0``; the cost's ``risk_lambda`` is read from ``cp``), ``bf16`` the
+    module docstring's. CPU tensors run :func:`apg_solve_plain`. On the card
+    this is the launch of :func:`apg_solve_kernel_batched` at B = 1.
     """
     dev = x0.device
     if dev.type == "cpu":
         return apg_solve_plain(model, params, cp, apg, time_steps, x0, x_ref,
                                u_prev, noise, num_particles, lb, ub, u_init,
-                               t_init, precond, iter_budget, chunk, cluster, starts)
+                               t_init, precond, iter_budget, chunk, cluster, starts, bf16)
     out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                         num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                        cluster, starts)
-    apg_solve_kernel.launches += 1
+                        cluster, starts, bf16)
+    _count(bf16)
     return out
 
 
@@ -261,8 +278,8 @@ def apg_solve_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostPa
                             u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                             precond: Optional[torch.Tensor] = None,
                             iter_budget: Optional[int] = None, chunk: int = 0,
-                            cluster: int = 0, starts: Optional[torch.Tensor] = None
-                            ) -> Tuple[APGState, torch.Tensor]:
+                            cluster: int = 0, starts: Optional[torch.Tensor] = None,
+                            bf16: bool = False) -> Tuple[APGState, torch.Tensor]:
     """Plain version of :func:`apg_solve_kernel_batched` (any device):
     :func:`apg_solve_plain` once per scenario (with its own tracking weights
     where they carry a scenario axis), the results stacked."""
@@ -271,7 +288,7 @@ def apg_solve_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostPa
                             num_particles, lb, ub,
                             u_init[b], None if t_init is None else t_init[b], precond,
                             iter_budget, chunk, cluster,
-                            None if starts is None else starts[b])
+                            None if starts is None else starts[b], bf16)
             for b in range(int(x0.shape[0]))]
     st = APGState(*(torch.stack(f) for f in zip(*(s for s, _ in sols))))
     return st, torch.stack([x for _, x in sols])
@@ -284,8 +301,8 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
                              u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                              precond: Optional[torch.Tensor] = None,
                              iter_budget: Optional[int] = None, chunk: int = 0,
-                             cluster: int = 0, starts: Optional[torch.Tensor] = None
-                             ) -> Tuple[APGState, torch.Tensor]:
+                             cluster: int = 0, starts: Optional[torch.Tensor] = None,
+                             bf16: bool = False) -> Tuple[APGState, torch.Tensor]:
     """B independent solves of one problem family -> ``(APGState, x_evol)``,
     every field with a leading B and ``x_evol`` (B, H+1, 13): the
     counterpart of the JAX package's vmap of the solve
@@ -295,7 +312,7 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     (or wider: the first n_u columns are read), ``noise`` (B, P, H, 13) or
     None at P=1, ``starts`` (B, P, 13) or None, ``u_init`` (B, H, nZ),
     ``t_init`` (B,) or None, and the tracking weights of ``cp`` where they
-    carry a (B,) axis (``cost/cost.py``). The box,
+    carry a (B,) axis (``cost/cost.py``); ``bf16`` the module docstring's. The box,
     ``precond``, ``iter_budget`` and the particle plan are shared. On the card
     one launch of the whole-solve kernel over a grid of B scenarios (one
     block, or one cluster of C blocks, each, with its own loop and early
@@ -308,30 +325,35 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     if x0.device.type == "cpu":
         return apg_solve_plain_batched(model, params, cp, apg, time_steps, x0, x_ref,
                                        u_prev, noise, num_particles, lb, ub, u_init, t_init,
-                                       precond, iter_budget, chunk, cluster, starts)
+                                       precond, iter_budget, chunk, cluster, starts, bf16)
     out = _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                          num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                         cluster, starts)
-    apg_solve_kernel.launches += 1
+                         cluster, starts, bf16)
+    _count(bf16)
     return out
+
+
+def _count(bf16: bool) -> None:
+    apg_solve_kernel.launches += 1
+    apg_solve_kernel.launches_bf16 += int(bool(bf16))
 
 
 def _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                   num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                  cluster, starts, prof: Optional[torch.Tensor] = None
+                  cluster, starts, bf16, prof: Optional[torch.Tensor] = None
                   ) -> Tuple[APGState, torch.Tensor]:
     """One solve as the batched launch at B = 1."""
     one = lambda t: None if t is None else t[None]
     st, x_evol = _solve_on_card(model, params, cp, apg, time_steps, one(x0), one(x_ref),
                                 one(u_prev), one(noise), num_particles, lb, ub, one(u_init),
                                 t_init, precond, iter_budget, chunk, cluster, one(starts),
-                                prof)
+                                bf16, prof)
     return APGState(*(f[0] for f in st)), x_evol[0]
 
 
 def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                    num_particles, lb, ub, u_init, t_init, precond, iter_budget, chunk,
-                   cluster, starts, prof: Optional[torch.Tensor] = None
+                   cluster, starts, bf16, prof: Optional[torch.Tensor] = None
                    ) -> Tuple[APGState, torch.Tensor]:
     """B solves on the card (the inputs' leading axis), in one launch."""
     dev = x0.device
@@ -354,6 +376,9 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
         z = noise.transpose(1, 2).contiguous()          # (B, H, P, 13)
     else:
         starts = None                 # the mean dynamics start at x0
+        if bf16:
+            raise ValueError("apg_solve_kernel: the P=1 form has no bf16 trunk (the JAX "
+                             "package runs P=1 on its kernel, at HIGHEST)")
     _check_scope(model, cp, apg, lb, params if P == 1 else None)
     for name, t, shape in (("x0", x0, (B, 13)), ("x_ref", x_ref, (B, H + 1, 13)),
                            ("starts", starts, (B, P, 13)),
@@ -371,7 +396,9 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     for name, t in (("u_init", u_init), ("precond", precond), ("starts", starts)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"apg_solve_kernel: {name} must be contiguous")
-    lib = load_apg_library()
+    if bf16 and prof is not None:
+        raise ValueError("apg_phase_split: the clock-stamped build has no bf16 trunk")
+    lib = load_apg_library(bool(bf16))
     consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
                                 u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget, particles=z is not None)
@@ -379,13 +406,14 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
+    args.bf16 = int(bool(bf16))
     if z is not None:
         plan_solve_particles(args, P, chunk, cluster, prof is not None)
     t0 = resolve_t_init(apg, t_init, dev).expand(B).contiguous()
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z, starts,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
     if x_evol is None:
-        x_evol = trajectory_kernel(consts, args, yk)
+        x_evol = trajectory_kernel(consts, args, yk)        # fp32 whatever args.bf16
     st = APGState(yk=yk, num_steps=stats[:, 0], stepsize=stats[:, 1],
                   avg_stepsize=stats[:, 2], avg_linesearch=stats[:, 3],
                   grad_sqr=stats[:, 4], init_cost=stats[:, 5], opt_cost=stats[:, 6])
@@ -399,7 +427,8 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                     u_init: torch.Tensor, t_init: Optional[torch.Tensor] = None,
                     precond: Optional[torch.Tensor] = None,
                     iter_budget: Optional[int] = None,
-                    chunk: int = 0, cluster: int = 0) -> Tuple[APGState, torch.Tensor]:
+                    chunk: int = 0, cluster: int = 0,
+                    bf16: bool = False) -> Tuple[APGState, torch.Tensor]:
     """Measurement twin of :func:`apg_solve_kernel` (same arguments and
     result) for a solve without state constraints: it runs the
     clock-stamped instantiation of the kernel, whose thread 0 sums the SM
@@ -415,9 +444,9 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     prof = torch.zeros((2, 8), dtype=torch.int64, device=x0.device)
     out = _solo_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                         num_particles, lb, ub, u_init, t_init, precond, iter_budget,
-                        chunk, cluster, None, prof)
+                        chunk, cluster, None, bf16, prof)
     apg_phase_split.cycles = prof if int(num_particles) > 1 else prof[0]
     return out
 
 
-apg_solve_kernel.launches = 0
+apg_solve_kernel.launches = apg_solve_kernel.launches_bf16 = 0

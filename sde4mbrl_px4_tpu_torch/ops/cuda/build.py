@@ -12,6 +12,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,14 +35,17 @@ def find_nvcc() -> str:
 
 
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (with every ``csrc/*.cuh``) unless a build
-    of the same sources exists; returns the library path. The compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside it as ``.log``; ``build_library.seconds[name]`` is the time the
+    """Compile ``csrc/<name>.cu`` (with every ``csrc/*.cuh`` and the ``.cu``
+    sources it includes) unless a build of the same sources exists; returns
+    the library path. The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside it as ``.log``;
+    ``build_library.seconds[name]`` is the time the
     last call for ``name`` spent compiling (0 when the build was reused).
     Builds of different libraries may run in parallel threads."""
     src = CSRC / f"{name}.cu"
-    deps = [src] + sorted(CSRC.glob("*.cuh"))
+    # every header, and a source the library includes whole (apg_solve_bf16.cu)
+    included = re.findall(r'#include "(\w+\.cu)"', src.read_text())
+    deps = [src] + [CSRC / n for n in included] + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in deps:
         h.update(p.name.encode())

@@ -36,6 +36,12 @@ on a particle solve (``build_consts(..., particles=True)``); the starts of
 an optional (B, P, 13) device array beside the Brownian block, and the
 wrappers set ``ApgArgs.has_starts`` when they pass one. A particle launch
 with either option runs the kernels' options form (:func:`has_options`).
+
+``ApgArgs.bf16`` (set by the wrappers, not by :func:`build_consts`): the
+trunk's three products on bf16-rounded operands, the JAX package's
+``matmul_precision: default`` on its TPU. The kernels round the weights in
+their shared-memory copy of the consts; the buffer itself stays fp32, so the
+``trajectory`` launch of the same solve reads the fp32 weights.
 """
 from __future__ import annotations
 
@@ -86,6 +92,7 @@ _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
               "o_hi13", "o_inv13")
 _RISK_FIELDS = ("risk", "has_starts")
 _BATCH_FIELDS = ("batch",)
+_PRECISION_FIELDS = ("bf16",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
@@ -95,7 +102,8 @@ class ApgArgs(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
                 + [(n, ctypes.c_int)
-                   for n in _SC_FIELDS + _RISK_FIELDS + _BATCH_FIELDS + _CLUSTER_FIELDS])
+                   for n in _SC_FIELDS + _RISK_FIELDS + _BATCH_FIELDS + _PRECISION_FIELDS
+                   + _CLUSTER_FIELDS])
 
 
 def has_options(a: ApgArgs) -> int:

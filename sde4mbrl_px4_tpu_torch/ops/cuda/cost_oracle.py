@@ -61,6 +61,17 @@ each evaluation is ONE launch over the kernels' scenario axis
 (``ApgArgs.batch``; the consts of B scenarios built on the device by
 ``consts.py::batch_consts``), whose scenario b has the bits of its solo
 launch; on CPU tensors it is :func:`cost_oracle_plain` once per scenario.
+
+``bf16`` (every oracle here): the trunk's three products on bf16-rounded
+operands with fp32 sums, the JAX package's ``matmul_precision: default`` on
+its TPU, which it runs on XLA only (``engine/mpc_loader.py:320-335``,
+``models/sde_model.py:123-146``): ``value_batch`` (every form) and the
+particle ``value_and_grad`` take it, as their bf16 instantiations
+(``ApgArgs.bf16`` picks them); ``trajectory``
+stays the fp32 mean rollout (the original's ``x_evol``, ``:815-819``), and
+the P=1 ``value_and_grad`` has no bf16 form (the original runs it on its
+kernels, at HIGHEST), so it raises. ``.launches_bf16`` counts the bf16
+launches of each of the two kernels (``.launches`` counts all of them).
 """
 from __future__ import annotations
 
@@ -104,7 +115,7 @@ def load_oracle_library() -> ctypes.CDLL:
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 7, ctypes.c_int),
         "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
-        "oracle_cluster_max": ([ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+        "oracle_cluster_max": ([ctypes.c_int] * 4, ctypes.c_int),
         "oracle_max_active_clusters": ([ctypes.c_int, _A, ctypes.POINTER(ctypes.c_int)],
                                        ctypes.c_int),
     }
@@ -210,10 +221,12 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                       x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
                       num_particles: int, maxls: int,
                       deterministic: Optional[bool] = None,
-                      chunk: int = 0, starts: Optional[torch.Tensor] = None) -> CostOracle:
+                      chunk: int = 0, starts: Optional[torch.Tensor] = None,
+                      bf16: bool = False) -> CostOracle:
     """Plain PyTorch version of :func:`cost_oracle` (any device): the
     unchunked particle mean (with ``risk_lambda``, mean + lambda * std), the
-    particles from ``starts`` (P, 13) where given."""
+    particles from ``starts`` (P, 13) where given; ``bf16`` the trunk's
+    products on bf16-rounded operands (``trajectory`` stays fp32)."""
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
     H, n = int(time_steps.shape[0]), model.n_u
     P, z, _ = resolve_particles(noise, num_particles, deterministic, chunk, H,
@@ -230,7 +243,7 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
     def seq_cost(zr):
         u = zr[:, :n]
-        xp, sg = rollout_sde(model, params, x_p, u, time_steps, z)
+        xp, sg = rollout_sde(model, params, x_p, u, time_steps, z, bf16=bf16)
         return cost_fn(xp, sg, u, x_ref, u_prev, zr[:, n:] if m else None)
 
     base = CostOracle.from_fn(seq_cost)
@@ -303,6 +316,7 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
                                      out.data_ptr(), _stream(U)),
               "value_batch")
     value_batch_kernel.launches += 1
+    value_batch_kernel.launches_bf16 += args.bf16
     return out
 
 
@@ -317,6 +331,9 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     cluster) b."""
     if not args.has_noise:
         check_p1_widths(args.F, args.HID, "value_and_grad")
+        if args.bf16:
+            raise ValueError("value_and_grad: the P=1 form has no bf16 trunk (the JAX "
+                             "package runs it on its kernel, at HIGHEST)")
     lib = load_oracle_library()
     _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
@@ -330,6 +347,7 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                                         val.data_ptr(), grad.data_ptr(), _stream(u)),
               "value_and_grad")
     value_and_grad_kernel.launches += 1
+    value_and_grad_kernel.launches_bf16 += args.bf16
     return val, grad
 
 
@@ -340,12 +358,13 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
     both: the mean of chunk means depends on it); and the cluster of both
     kernels: C = min(n_chunks, C_max), C_max the smaller of their forms'
     largest (``oracle_cluster_max``, the options forms' where ``args`` has
-    risk or starts) or ``cluster`` when given."""
+    risk or starts, the bf16 forms' with ``args.bf16``) or ``cluster`` when
+    given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
-    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, has_options(args))
+    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, has_options(args), args.bf16)
                 for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD))
     if cluster:
         if not 1 <= cluster <= c_max:
@@ -359,7 +378,7 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
     """(H, nZ) plan -> the mean rollout of its controls (H+1, 13): one launch.
     With ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) and
     ``consts`` (B, n_consts), roll out in the same launch, one block each,
-    into (B, H+1, 13)."""
+    into (B, H+1, 13). Always fp32: the kernel reads no ``args.bf16``."""
     lib = load_oracle_library()
     need = lib.trajectory_smem_bytes(ctypes.byref(args))
     if need > SMEM_LIMIT:
@@ -374,8 +393,8 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
     return out
 
 
-value_batch_kernel.launches = 0
-value_and_grad_kernel.launches = 0
+value_batch_kernel.launches = value_batch_kernel.launches_bf16 = 0
+value_and_grad_kernel.launches = value_and_grad_kernel.launches_bf16 = 0
 trajectory_kernel.launches = 0
 
 
@@ -384,17 +403,18 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                 u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                 deterministic: Optional[bool] = None,
                 chunk: int = 0, cluster: int = 0,
-                starts: Optional[torch.Tensor] = None) -> CostOracle:
+                starts: Optional[torch.Tensor] = None, bf16: bool = False) -> CostOracle:
     """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
     block of a Monte-Carlo solve (None for the mean dynamics of P=1),
     ``starts`` (P, 13) its particles' initial states or None (all at x0);
     ``maxls`` is unused, as in the original (``value_batch`` takes any K);
-    ``cluster`` caps the particle kernels' clusters (0: the card's largest).
-    CPU tensors get :func:`cost_oracle_plain`."""
+    ``cluster`` caps the particle kernels' clusters (0: the card's largest);
+    ``bf16`` the module docstring's. CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
-                                 noise, num_particles, maxls, deterministic, chunk, starts)
+                                 noise, num_particles, maxls, deterministic, chunk, starts,
+                                 bf16)
     if dev.type != "cuda":
         raise ValueError(f"cost_oracle: unsupported device {dev}")
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
@@ -406,6 +426,7 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     if z is None:
         starts = None                 # the mean dynamics start at x0
     args.has_starts = int(starts is not None)
+    args.bf16 = int(bf16)
     if z is not None:
         z = z.contiguous()
         plan_oracle_particles(lib, args, P, chunk, cluster)
@@ -452,7 +473,8 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
                               time_steps: torch.Tensor, x0: torch.Tensor,
                               x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
                               num_particles: int, maxls: int, chunk: int = 0,
-                              starts: Optional[torch.Tensor] = None) -> CostOracle:
+                              starts: Optional[torch.Tensor] = None,
+                              bf16: bool = False) -> CostOracle:
     """Plain version of :func:`cost_oracle_batched` (any device):
     :func:`cost_oracle_plain` once per scenario (with its own tracking
     weights where they carry a scenario axis), the results stacked."""
@@ -460,7 +482,8 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
     solo = [cost_oracle_plain(model, params, scenario_cost(cp, b), time_steps, x0[b],
                               x_ref[b], u_prev[b], None if noise is None else noise[b],
                               num_particles, maxls,
-                              chunk=chunk, starts=None if starts is None else starts[b])
+                              chunk=chunk, starts=None if starts is None else starts[b],
+                              bf16=bf16)
             for b in range(B)]
 
     def each(fn):
@@ -479,7 +502,8 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
                         time_steps: torch.Tensor, x0: torch.Tensor, x_ref: torch.Tensor,
                         u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                         chunk: int = 0, cluster: int = 0,
-                        starts: Optional[torch.Tensor] = None) -> CostOracle:
+                        starts: Optional[torch.Tensor] = None,
+                        bf16: bool = False) -> CostOracle:
     """The cost oracle of B solves (module docstring): ``x0`` (B, 13),
     ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
     13) for a Monte-Carlo solve (None at P=1), ``starts`` (B, P, 13) its
@@ -489,7 +513,7 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
-                                         noise, num_particles, maxls, chunk, starts)
+                                         noise, num_particles, maxls, chunk, starts, bf16)
     if dev.type != "cuda":
         raise ValueError(f"cost_oracle_batched: unsupported device {dev}")
     B, H = int(x0.shape[0]), int(time_steps.shape[0])
@@ -517,6 +541,7 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
+    args.bf16 = int(bf16)
     if z is not None:
         plan_oracle_particles(lib, args, P, chunk, cluster)
     return _checked_batched(B, H, args.nZ, dev,

@@ -109,7 +109,7 @@ def rollout_mean(model: NeuralSDE, params: Dict[str, Any], x0: torch.Tensor,
 def rollout_sde(model: NeuralSDE, params: Dict[str, Any], x0: torch.Tensor,
                 u_seq: torch.Tensor, time_steps: torch.Tensor,
                 noise: torch.Tensor, x0_spread: Optional[torch.Tensor] = None,
-                z0: Optional[torch.Tensor] = None
+                z0: Optional[torch.Tensor] = None, bf16: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Monte-Carlo EM rollout with the Brownian block given.
 
@@ -118,7 +118,9 @@ def rollout_sde(model: NeuralSDE, params: Dict[str, Any], x0: torch.Tensor,
     mean-dynamics (``num_particles: 1``) flight configuration, which still
     reports sigma along the path for the uncertainty cost. With
     ``x0_spread`` (13,) and ``z0`` (P, 13) particle p starts from
-    :func:`particle_starts` (``initial_state_std``). Returns ``(x_paths
+    :func:`particle_starts` (``initial_state_std``). ``bf16``: the trunk's
+    products on bf16-rounded operands (``models/sde_model.py::trunk_apply``;
+    the original's ``precision=DEFAULT`` on its TPU). Returns ``(x_paths
     (P, H+1, 13), sigma_paths (P, H, 13))``.
     """
     P = noise.shape[1]
@@ -128,7 +130,7 @@ def rollout_sde(model: NeuralSDE, params: Dict[str, Any], x0: torch.Tensor,
     xs, sigs = [x], []
     for t in range(u_seq.shape[0]):
         dt = time_steps[t]
-        f, sig = drift_and_sigma(model, params, x, u_seq[t])
+        f, sig = drift_and_sigma(model, params, x, u_seq[t], bf16)
         x = _renorm_quat(x + dt * f + torch.sqrt(dt) * sig * noise[t])
         xs.append(x)
         sigs.append(sig)

@@ -19,8 +19,9 @@ per ROOT, then the card's name and power limit:
   each constraint form 10, P=512 antithetic 5, with its ``trajectory``);
 - wall times of the host-bound oracle routes through ``mpc_fn``: MPPI
   (p50 over ticks 3-10) and fixed-step APG at P=1 and at P=512 antithetic
-  (the route of ``chip_smoke.py`` phase 13: iterations, ms per iteration,
-  each solve's u0);
+  (the route of ``chip_smoke.py`` phase 13 at ``matmul_precision:
+  highest``, the fp32 forms: iterations, ms per iteration, each solve's
+  u0);
 - outputs whose bits the checkouts are compared on (keys ending in
   ``_bits``): ``value_batch`` at P=512 antithetic (24 plans, K=4) and at
   the P=128 floor (16 plans, K=1), the u0 of the P=512 route's first
@@ -278,6 +279,7 @@ def measure(root: str, routes: bool = False) -> dict:
     out["fixed_step_ms_p50"] = statistics.median(ms[1:])
     out["fixed_step_iterations"] = rows[:, -1].tolist()
     cfg = cs.config("iris_posctrl_mpc", linesearch=None, stepsize=step, particles=512)
+    cfg["matmul_precision"] = "highest"       # the fp32 forms (a checkout's default may not be)
     for rep in range(2):                      # phase 13's route, twice
         rows, ms = cs.chain(cfg, dev, 2)
         out[f"fixed_step_p512_iterations_{rep}"] = rows[:, -1].tolist()

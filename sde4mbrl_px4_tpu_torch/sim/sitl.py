@@ -113,7 +113,7 @@ class FCUSimNode:
     def stop(self) -> None:
         self._stop.set()
         for t in (self._rx, self._sim):
-            if t is not None:
+            if t is not None and t.ident is not None:       # started
                 t.join(timeout=1.0)
         self.link.close()
 

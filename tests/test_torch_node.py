@@ -518,8 +518,10 @@ def test_launcher_parses_the_shipped_launch_files(repo_root):
 
 @pytest.mark.parametrize("precision", ["default", "high"])
 def test_launcher_refuses_what_it_does_not_run(tiny_paths, tmp_path, precision):
-    """An engine config with a matmul precision below fp32 is refused at
-    build, naming its ROADMAP item (reduced precision stalls the solver)."""
+    """An engine config with ``matmul_precision: default`` (the bf16 trunk
+    on the card, fp32 on the CPU) starts the engine and serves; a name the
+    original does not know (``high``) is refused at build with its
+    ``ValueError``."""
     from sde4mbrl_px4_tpu_torch import launch as L
 
     cfg = yaml.safe_load(open(tiny_paths[1]))
@@ -530,8 +532,12 @@ def test_launcher_refuses_what_it_does_not_run(tiny_paths, tmp_path, precision):
                                  "traj_ctrl": tiny_paths[0], "sp_ctrl": "pos.yaml",
                                  "addr_mavlink_state_msg": f"127.0.0.1:{_free_port()}",
                                  "addr_services": f"127.0.0.1:{_free_port()}"}))
-    with pytest.raises(NotImplementedError, match="Reduced matmul precision"):
-        L.launch_from_file(str(p), device="cpu", seconds=0.1)
+    if precision == "high":
+        with pytest.raises(ValueError, match="matmul_precision 'high' not recognized"):
+            L.launch_from_file(str(p), device="cpu", seconds=0.1)
+        return
+    node = L.launch_from_file(str(p), device="cpu", seconds=0.1)
+    assert node.ctrl.device.type == "cpu" and node.ctrl.pos.cfg["matmul_precision"] == "default"
 
 
 def _free_port() -> int:

@@ -91,7 +91,7 @@ class FakeOracleLibrary:
     def __init__(self, vb_max, vg_max):
         self.c_max = {ORACLE_VALUE_BATCH: vb_max, ORACLE_VALUE_AND_GRAD: vg_max}
 
-    def oracle_cluster_max(self, kind, sc_kind, opt):
+    def oracle_cluster_max(self, kind, sc_kind, opt, bf16):
         return self.c_max[kind]
 
     def value_batch_smem_bytes(self, a, K):

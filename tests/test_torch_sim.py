@@ -274,8 +274,10 @@ def test_closed_loop_flies_the_policy_on_the_cpu(repo_root, tmp_path):
 @pytest.mark.parametrize("flag, item", [(["--matmul-precision", "bfloat16"],
                                           "Reduced matmul precision")])
 def test_closed_loop_refuses_what_is_not_ported(repo_root, tmp_path, flag, item):
-    """A config the port refuses stops the closed loop with the refusal
-    naming its ROADMAP item (``--log`` is ported: tests/test_torch_flight_log.py)."""
+    """A traj config at ``matmul_precision: bfloat16`` (the ROADMAP item
+    that once refused it, now ported) flies the closed loop on ``--cpu``,
+    where DEFAULT is fp32 as in the original's XLA there (``--log`` is
+    ported too: tests/test_torch_flight_log.py)."""
     from sde4mbrl_px4_tpu_torch.sim import closed_loop
 
     traj, pos = _tiny(repo_root, tmp_path)
@@ -283,8 +285,9 @@ def test_closed_loop_refuses_what_is_not_ported(repo_root, tmp_path, flag, item)
     cfg["matmul_precision"] = flag[1]
     with open(traj, "w") as f:
         yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match=item):
-        closed_loop.run(["--cpu", "--traj-config", traj, "--pos-config", pos])
+    res = closed_loop.run(["--cpu", "--time-scale", "3", "--seconds", "2",
+                           "--traj-config", traj, "--pos-config", pos])
+    assert res["solves"] > 0
 
 
 def test_closed_loop_raises_without_a_card():

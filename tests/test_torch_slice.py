@@ -14,8 +14,8 @@ position-hold golden replay.
   over K x P paths too) and ``state_constr`` configs (both forms, APG and
   MPPI) load and route to the kernel wrappers, and so do the four hexa
   configs and the policy family (pure and ``refine_iters``);
-  configs outside the slice are refused with the ROADMAP item that brings
-  them, and the settings the
+  a ``matmul_precision: default`` config (once refused) loads and solves,
+  and the settings the
   original refuses (particle options at P=1, ``solver: policy`` with
   proximal slack) raise ValueError as there;
 - every entry point runs on the card unless asked for the CPU: without
@@ -88,15 +88,25 @@ def _mutated(repo_root, name, mutation):
     return cfg
 
 
-# Configs outside the slice are refused, naming the ROADMAP item that brings
-# them.
+# Reduced matmul precision was the last config outside the slice: a
+# ``matmul_precision: default`` config at P=512 (the bf16 trunk on the card,
+# ROADMAP.md §1 item 7) now loads and solves on the CPU, where DEFAULT is
+# fp32 as in the original's XLA there.
 @pytest.mark.parametrize("mutation, item", [
     ({"num_particles": 512, "matmul_precision": "default"}, "Reduced matmul precision"),
 ])
 def test_configs_outside_the_slice_are_refused(repo_root, mutation, item):
     cfg = _mutated(repo_root, "iris_posctrl_mpc", mutation)
-    with pytest.raises(NotImplementedError, match=item):
-        tloader.make_mpc_from_config(cfg, device="cpu")
+    cfg["apg_mpc"].update(max_iter=2, max_no_improvement_iter=2)
+    _, bundle, pieces = tloader.build_mpc(cfg, device="cpu")
+    assert not pieces.trunk_bf16 and bundle.num_particles == 512
+    _, (reset_fn, mpc_fn), _, _ = tloader.make_mpc_from_config(cfg, device="cpu")
+    x = torch.zeros(13)
+    x[6], x[0] = 1.0, 0.3
+    gen = torch.Generator().manual_seed(0)
+    sol = mpc_fn(x, gen, reset_fn(x, gen, x), 0.0, x)
+    assert int(sol.opt_state.num_steps) == 2 and torch.isfinite(sol.u_opt).all()
+    assert torch.isfinite(sol.x_evol).all()
 
 
 # ... and the particle settings the original itself refuses
