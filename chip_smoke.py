@@ -18,7 +18,8 @@ launch node, and last brings up the SITL deployment stack (the MAVLink
 router, the mission layer, the engine node on the card behind the router,
 the launch tier's router node and mission REPL, and the preflight), and the
 reduced matmul precision (the bf16 trunk of the JAX package's
-``matmul_precision: default``, its default above 128 particles).
+``matmul_precision: default``, its default above 128 particles), and the
+mesh layer (rank pairs on the card over ``torch.distributed``).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
@@ -320,8 +321,22 @@ without a result):
     precision on the card and the forms it launches. Phases 11-13, 18, 20,
     22 and 24 fly P=512 or P=1024 without the key: their solves run the
     bf16 forms now, as the JAX package's do on its TPU.
+29. the mesh layer (``parallel/mesh.py``, ``parallel/distributed.py``):
+    one pair of fresh rank processes, a gloo world of two sharing the
+    card, runs ``parallel/rank_tasks.py::suite`` against this process's
+    one-process references: (a) iris posctrl at B = 256 over dp = 2, each
+    scenario's plans bit-equal to the one-process batched solve (each
+    rank's device ms per step, the gather ms); (b) the P=512 antithetic
+    flagship at a fixed 5 iterations over mc = 2, within rtol 2e-4 / atol
+    2e-5 of the one-process host loop and of the whole-solve kernel (ms an
+    iteration, the collectives' share); (c) a 64-vehicle fleet over 4
+    ticks, its states equal to one process's; (d) ``label_states`` and
+    ``tune_cost_weights`` over dp = 2, each row equal; (e) two
+    ``launch.py --coordinator`` engine nodes, READY and a clean SIGTERM.
+    Each route's launches are counted on each rank (zeroed just before it)
+    and added to the kernels line as ``mesh_launches``.
 
-In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d) and 28 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28 and 29 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -5257,6 +5272,266 @@ def phase_bf16(dev, card: str) -> dict:
     return out
 
 
+# the mesh layer (phase 29): rank pairs on the one card, each rank cuda:0
+MESH_RANKS = 2
+MESH_B, MESH_STEPS = BATCH_B, 3         # (a) iris posctrl, 50-iteration budget
+MESH_FIXED_ITERS, MESH_SOLVES = 5, 3    # (b) the P=512 flagship over mc = 2
+MESH_FLEET, MESH_TICKS = 64, 4          # (c)
+MESH_LABELS, MESH_TUNE_STEPS = 64, 10   # (d)
+MESH_S = 900.0                          # the pair's time limit
+MESH_TOL = (2e-4, 2e-5)                 # tests/test_sharding.py:103-104
+MESH_DEVICES = None                     # each rank's device: None the card (cuda:0)
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Phase 29, the mesh layer (``parallel/mesh.py``, ``distributed.py``):
+    one pair of fresh rank processes on the card (gloo, both ranks on
+    ``cuda:0``, ``spawn_ranks``) runs ``rank_tasks.suite``, each route with
+    its launch counts zeroed just before it and read just after, and this
+    process runs the one-process references:
+
+    (a) dp: iris posctrl at B = 256 (50 iterations) over (2, 1), a cold and
+        two warm steps: every scenario's plan and iterations bit-equal to
+        the one-process batched solve; each rank's device ms per step, the
+        ms of one gather; one ``apg_solve`` launch a rank a step;
+    (b) mc: the P=512 antithetic flagship (iris traj) at a fixed 5
+        iterations over (1, 2), 3 chained solves: against the one-process
+        host loop (a (1, 1) mesh) on the same draws and against the
+        one-process whole-solve kernel at the same budget, rtol 2e-4 /
+        atol 2e-5; ms an iteration and the collectives' share of it;
+        ``value_and_grad`` and ``value_batch`` launches on both ranks,
+        ``trajectory`` on rank 0 only;
+    (c) fleet: 64 vehicles over (2, 1), 4 ticks: the closed-loop states
+        equal to the one-process fleet's;
+    (d) ``label_states`` (64 states) and ``tune_cost_weights`` (27
+        candidates, 10 periods) over (2, 1): each row equal to the
+        one-process row;
+    (e) ``launch.py --coordinator``: two engine nodes on the card as a
+        world of two, READY, and a clean SIGTERM."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.learning import distill as TD
+    from sde4mbrl_px4_tpu_torch.parallel import rank_tasks as RT
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import spawn_ranks
+    from sde4mbrl_px4_tpu_torch.parallel.mesh import make_mesh
+    from sde4mbrl_px4_tpu_torch.tuning import make_weight_grid
+
+    t0 = time.perf_counter()
+    pos = config("iris_posctrl_mpc", max_iter=BATCH_ITERS, max_no_improvement_iter=BATCH_ITERS)
+    flag = config("iris_traj_mpc", particles=P_FULL, max_iter=MESH_FIXED_ITERS,
+                  max_no_improvement_iter=MESH_FIXED_ITERS, atol=0.0, rtol=0.0)
+    fleet_cfg = config("iris_posctrl_mpc")
+    label_cfg = config("iris_posctrl_mpc")
+    dcfg = TD.DistillConfig(expert_max_iter=100)
+    b_lab = make_mpc_from_config(TD._expert_cfg(label_cfg, dcfg), device=dev)[3]
+    xs, ts, xdes, ups = (a.cpu() for a in TD.sample_states(
+        b_lab, MESH_LABELS, torch.Generator().manual_seed(5), dcfg))
+    grid = make_weight_grid([0.5, 1.0, 2.0], [0.5, 1.0, 2.0], [0.5, 1.0, 2.0], [1.0])
+    tune_cfg = config("iris_posctrl_mpc")
+    devs = dict(devices=MESH_DEVICES)
+    routes = [
+        ("dp_solve", dict(cfg=pos, B=MESH_B, steps=MESH_STEPS, shape=(MESH_RANKS, 1), **devs)),
+        ("particle_solve", dict(cfg=flag, solves=MESH_SOLVES, shape=(1, MESH_RANKS), **devs)),
+        ("fleet", dict(cfg=fleet_cfg, B=MESH_FLEET, ticks=MESH_TICKS, shape=(MESH_RANKS, 1),
+                       **devs)),
+        ("labels", dict(cfg=label_cfg, xs=xs, ts=ts, xdes=xdes, u_prevs=ups,
+                        expert_max_iter=dcfg.expert_max_iter, shape=(MESH_RANKS, 1), **devs)),
+        ("tune", dict(kind="weights", cfg=tune_cfg, grid=grid, steps=MESH_TUNE_STEPS,
+                      shape=(MESH_RANKS, 1), **devs))]
+    ranks = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:suite", MESH_RANKS,
+                        {"routes": routes}, timeout=MESH_S, threads=None)
+    spawn_s = time.perf_counter() - t0
+    (dp, mc, fl, lab, tune) = zip(*ranks)
+    out = {"ranks": MESH_RANKS, "spawn_s": spawn_s, "launches": {}}
+
+    # (a) dp against one process
+    one = RT.dp_solve(copy.deepcopy(pos), MESH_B, steps=MESH_STEPS, **devs)
+    for r in dp:
+        for k in range(MESH_STEPS):
+            if not (np.array_equal(r["u"][k], one["u"][k])
+                    and np.array_equal(r["num_steps"][k], one["num_steps"][k])):
+                raise AssertionError(f"mesh (a): rank {r['rank']} step {k} is not bit-equal "
+                                     f"to the one-process batched solve")
+        if r["rows"] != MESH_B // MESH_RANKS:
+            raise AssertionError(f"mesh (a): rank {r['rank']} solved {r['rows']} rows")
+        mesh_launched("(a)", r["launches"], {"apg_solve": MESH_STEPS, "value_batch": 0,
+                                             "value_and_grad": 0, "trajectory": 0})
+    out["dp"] = {"B": MESH_B, "rows_per_rank": dp[0]["rows"],
+                 "device_ms_per_step": [r["device_ms"] for r in dp],
+                 "wall_ms_per_step": [r["wall_ms"] for r in dp],
+                 "one_process_device_ms_per_step": one["device_ms"],
+                 "gather_ms": [r["gather_ms"] for r in dp],
+                 "iterations_mean": float(np.mean(one["num_steps"][-1]))}
+    out["launches"]["dp"] = [r["launches"] for r in dp]
+    r3 = lambda vs: [None if v is None else round(v, 3) for v in vs]
+    log(f"phase 29 (a): dp over {MESH_RANKS} ranks, B={MESH_B}: every scenario's plan "
+        f"bit-equal to one process over {MESH_STEPS} steps; device ms per step by rank "
+        f"{[r3(r['device_ms']) for r in dp]} (one process {r3(one['device_ms'])}); gather ms "
+        f"{r3([r['gather_ms'] for r in dp])} ({card})")
+
+    # (b) mc against the one-process host loop and the whole-solve kernel
+    loop = RT.particle_solve(copy.deepcopy(flag), solves=MESH_SOLVES, shape=(1, 1), **devs)
+    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(flag), device=dev)
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+
+    x0 = hover_state(dev)
+    x0[0] = 0.4
+    gen = torch.Generator().manual_seed(3)
+    st = reset_fn(x0, gen, x0)
+    kern = []
+    for _ in range(MESH_SOLVES):
+        sol = mpc_fn(x0, gen, st, 0.0, x0)
+        st = sol.opt_state
+        kern.append(sol.u_opt.cpu().numpy())
+    rtol, atol = MESH_TOL
+    err = {"loop": 0.0, "kernel": 0.0}
+    for r in mc:
+        for k in range(MESH_SOLVES):
+            for name, ref in (("loop", loop["plans"][k]), ("kernel", kern[k])):
+                if not np.allclose(r["plans"][k], ref, rtol=rtol, atol=atol):
+                    raise AssertionError(f"mesh (b): rank {r['mc_index']} solve {k} differs "
+                                         f"from the one-process {name} beyond {MESH_TOL}")
+                err[name] = max(err[name], float(np.abs(r["plans"][k] - ref).max()))
+        if r["iterations"] != [float(MESH_FIXED_ITERS)] * MESH_SOLVES:
+            raise AssertionError(f"mesh (b): iterations {r['iterations']}")
+        # x_evol is rank 0's trajectory launch, broadcast
+        mesh_launched("(b)", r["launches"], {
+            "apg_solve": 0, "trajectory": MESH_SOLVES if r["mc_index"] == 0 else 0,
+            "value_and_grad": MESH_SOLVES * (MESH_FIXED_ITERS + 2),
+            "value_batch": MESH_SOLVES * MESH_FIXED_ITERS})
+    if not np.array_equal(mc[0]["plans"][-1], mc[1]["plans"][-1]):
+        raise AssertionError("mesh (b): the ranks' plans differ")
+    it_ms = [[w / MESH_FIXED_ITERS for w in r["wall_ms"]] for r in mc]
+    share = [r["collective_s"] * 1e3 / sum(r["wall_ms"]) for r in mc]
+    out["mc"] = {"P": P_FULL, "mc": MESH_RANKS, "iterations": MESH_FIXED_ITERS,
+                 "ms_per_iteration": it_ms,
+                 "one_process_loop_ms_per_iteration": [w / MESH_FIXED_ITERS
+                                                       for w in loop["wall_ms"]],
+                 "collective_share": share,
+                 "collective_calls": [r["collective_calls"] for r in mc],
+                 "max_abs_err_vs_loop": err["loop"], "max_abs_err_vs_kernel": err["kernel"]}
+    out["launches"]["mc"] = [r["launches"] for r in mc]
+    log(f"phase 29 (b): P={P_FULL} over mc={MESH_RANKS}, {MESH_FIXED_ITERS} iterations: "
+        f"max|du| {err['loop']:.3e} vs the one-process host loop, {err['kernel']:.3e} vs "
+        f"the whole-solve kernel; ms an iteration by rank {[r3(r) for r in it_ms]} "
+        f"(one-process loop {r3(out['mc']['one_process_loop_ms_per_iteration'])}), the "
+        f"collectives {[round(100 * v, 1) for v in share]} % of it ({card})")
+
+    # (c) the fleet
+    f1 = RT.fleet(copy.deepcopy(fleet_cfg), MESH_FLEET, ticks=MESH_TICKS, **devs)
+    for r in fl:
+        if not np.array_equal(r["states"], f1["states"]):
+            raise AssertionError("mesh (c): the fleet's states differ from one process's")
+        mesh_launched("(c)", r["launches"], {"apg_solve": MESH_TICKS, "value_batch": 0,
+                                             "value_and_grad": 0, "trajectory": 0})
+    out["fleet"] = {"vehicles": MESH_FLEET, "ticks": MESH_TICKS,
+                    "tick_wall_ms": [r["wall_ms"] for r in fl],
+                    "one_process_tick_wall_ms": f1["wall_ms"]}
+    out["launches"]["fleet"] = [r["launches"] for r in fl]
+
+    # (d) labels and the weight sweep
+    lab1 = TD.label_states(label_cfg, xs, ts, xdes, None, dcfg, u_prevs=ups, device=dev)
+    tune1 = RT.tune("weights", copy.deepcopy(tune_cfg), grid, steps=MESH_TUNE_STEPS,
+                    shape=(1, 1), **devs)
+    for r, t in zip(lab, tune):
+        if not np.array_equal(r["labels"], lab1.cpu().numpy()):
+            raise AssertionError("mesh (d): a label row differs from one process's")
+        if [tuple(x) for x in t["results"]] != [tuple(x) for x in tune1["results"]]:
+            raise AssertionError("mesh (d): a tuning row differs from one process's")
+        zero = {"value_batch": 0, "value_and_grad": 0, "trajectory": 0}
+        mesh_launched("(d) labels", r["launches"], {"apg_solve": 1, **zero})
+        mesh_launched("(d) tuning", t["launches"], {"apg_solve": MESH_TUNE_STEPS, **zero})
+    out["labels"] = {"n": MESH_LABELS, "wall_ms": [r["wall_ms"] for r in lab]}
+    out["tuning"] = {"candidates": len(grid), "periods": MESH_TUNE_STEPS,
+                     "wall_ms": [t["wall_ms"] for t in tune],
+                     "one_process_wall_ms": tune1["wall_ms"]}
+    out["launches"]["labels"] = [r["launches"] for r in lab]
+    out["launches"]["tuning"] = [t["launches"] for t in tune]
+    log(f"phase 29 (c)-(d): the {MESH_FLEET}-vehicle fleet's states over {MESH_TICKS} ticks, "
+        f"{MESH_LABELS} labels and {len(grid)} tuning candidates equal one process's, row "
+        f"for row")
+
+    # (e) the launcher's world of two
+    out["launch"] = mesh_launch_pair()
+    out["wall_s"] = time.perf_counter() - t0
+    if "jax" in sys.modules:
+        raise AssertionError("JAX was imported")
+    return out
+
+
+def mesh_launched(route: str, got: dict, want: dict) -> None:
+    """A rank's launches over a phase-29 route (zeroed just before it in the
+    rank) against what the route is made of."""
+    if got != want:
+        raise AssertionError(f"mesh {route}: a rank launched {got}, the route needs {want}")
+
+
+def mesh_launch_pair() -> dict:
+    """Two ``launch.py --coordinator tcp://... --num-processes 2
+    --process-id r`` engine nodes on the card (the shipped iris configs,
+    free ports): each prints its rank and READY within ``LAUNCH_READY_S``,
+    and exits 0 with its stop line on SIGTERM."""
+    import signal
+    import socket
+    import threading
+
+    import yaml
+
+    d = os.path.join(ROOT, "build", "chip_smoke", "mesh_launch")
+    os.makedirs(d, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(MESH_RANKS):
+            lf = os.path.join(d, f"engine{r}.yaml")
+            with open(lf, "w") as f:
+                yaml.safe_dump({"node": "sde_control", "config_dir": os.path.join(ROOT, "configs"),
+                                "traj_ctrl": "iris_traj_mpc.yaml",
+                                "sp_ctrl": "iris_posctrl_mpc.yaml",
+                                "addr_mavlink_state_msg": f"127.0.0.1:{free_udp_port()}",
+                                "addr_services": f"127.0.0.1:{free_udp_port()}"}, f)
+            p = subprocess.Popen(
+                [sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", lf, "--coordinator",
+                 f"tcp://127.0.0.1:{port}", "--num-processes", str(MESH_RANKS),
+                 "--process-id", str(r)] + (["--cpu"] if MESH_DEVICES == "cpu" else []),
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            lines = []
+            threading.Thread(target=lambda p=p, lines=lines: lines.extend(p.stdout),
+                             daemon=True).start()
+            procs.append(p)
+            logs.append(lines)
+        while not all(any("[launch] READY" in ln for ln in lg) for lg in logs):
+            if time.perf_counter() - t0 > LAUNCH_READY_S or any(p.poll() is not None
+                                                                 for p in procs):
+                raise AssertionError(f"mesh (e): the pair did not serve: "
+                                     f"{[lg[-10:] for lg in logs]}")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for p in procs:
+            p.wait(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    time.sleep(0.5)
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        text = "".join(lg)
+        if not (p.returncode == 0 and f"[launch] rank {r} of {MESH_RANKS} (gloo)" in text
+                and "[launch] engine stopped" in text and "Traceback" not in text):
+            raise AssertionError(f"mesh (e): rank {r} rc {p.returncode}: {lg[-15:]}")
+    log(f"phase 29 (e): launch.py --coordinator: {MESH_RANKS} engine nodes on the card served "
+        f"in {ready_s:.1f} s and stopped cleanly on SIGTERM")
+    return {"ready_s": ready_s, "rc": [p.returncode for p in procs]}
+
+
 def main() -> int:
     import torch
 
@@ -5355,6 +5630,11 @@ def main() -> int:
         "differs from its fp32 form; the P=512 flagship runs one bf16 apg_solve and one fp32 "
         "trajectory per solve; the fixed-step, uncertainty, MPPI and policy routes run their "
         "bf16 forms")
+    mesh = phase_mesh(dev, card)
+    log("phase 29: the mesh layer: rank pairs on the card over gloo; dp batched solves, the "
+        "fleet, labels and the weight sweep equal one process row for row, the P=512 "
+        "particle-sharded solve matches the host loop and the whole-solve kernel, and a "
+        "launch.py world of two serves and stops cleanly")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -5756,6 +6036,20 @@ def main() -> int:
                    shared_memory_step_is=f"the bf16 form on the trunk padded to {PADDED_HID} "
                                          "units, K=64 (no launch on the main path: the iris "
                                          "trunk runs the register chain)")]
+    # phase 29's launches, summed over the ranks, on the rows of the forms
+    # they ran (the flagship's oracle forms are its bf16 ones)
+    ml = mesh["launches"]
+    msum = lambda keys, kernel: sum(n[kernel] for key in keys for n in ml[key])
+    for k in kernels:
+        if k["name"] == "apg_solve" and k["branch"] == f"P=1, batched B={BATCH_B}":
+            k["mesh_launches"] = msum(("dp", "fleet", "labels", "tuning"), "apg_solve")
+            k["mesh_dp_device_ms_per_step"] = mesh["dp"]["device_ms_per_step"]
+        if k["branch"].startswith(f"bf16 trunk, particles, P={P_FULL} antithetic") and \
+                k["name"] in ("value_and_grad", "value_batch"):
+            k["mesh_launches"] = msum(("mc",), k["name"])
+            k["mesh_ms_per_iteration"] = mesh["mc"]["ms_per_iteration"]
+        if k["name"] == "trajectory" and k["branch"].startswith(f"x_evol of the P={P_FULL}"):
+            k["mesh_launches"] = msum(("mc",), "trajectory")
     kernels[0]["mismatch_sweep_launches"] = tune["mismatch"]["launches"]["apg_solve"]
     kernels[0]["full_sitl_stack_launches"] = sitl["stack"]["engine_launches"]["apg_solve"]
     kernels[0]["preflight_launches"] = sitl["preflight"]["launches"]["apg_solve"]
@@ -5815,7 +6109,9 @@ def main() -> int:
                  "stack_router_stats": sitl["stack"].get("router_stats"),
                  "launch": sitl["launch"], "preflight": sitl["preflight"],
                  "wall_s": sitl["wall_s"]},
-        "bf16": {"flagship": fl, "routes": rt, "table": bf["table"]}}}))
+        "bf16": {"flagship": fl, "routes": rt, "table": bf["table"]},
+        "mesh": {k: v for k, v in mesh.items() if k != "launches"},
+        "mesh_launches": mesh["launches"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -161,10 +161,11 @@ from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_FMAX, P1_HID, p1_widths
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
 from sde4mbrl_px4_tpu_torch.ops.rollout import (
     draw_brownian, draw_start_spread, make_time_steps, particle_starts, rollout_sde)
-from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, APGState, apg_solve_batched
+from sde4mbrl_px4_tpu_torch.solver.apg import (
+    APGConfig, APGState, CostOracle, apg_solve_batched)
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise, mppi_solve
 
-__all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "build_mpc",
+__all__ = ["load_mpc_from_cfgfile", "MPCBundle", "MPCPieces", "ParticleShard", "build_mpc",
            "default_rounds_to_bf16", "hover_diag_probe", "make_mpc_from_config",
            "not_in_slice", "trunk_bf16"]
 
@@ -214,6 +215,19 @@ class MPCPieces(NamedTuple):
     # whether ``solve`` runs the trunk's products on bf16 operands
     # (:func:`trunk_bf16`)
     trunk_bf16: bool = False
+
+
+class ParticleShard(NamedTuple):
+    """This process's share of a solve's particles (``parallel/batched.py::
+    make_particle_sharded_mpc``): block ``index`` of ``count`` equal blocks
+    of the P particles; ``reduce(t)`` sums ``t`` over the ``count``
+    processes in their order (every process gets the same bits) and
+    ``broadcast(t, shape)`` hands every process block 0's ``t``."""
+
+    index: int
+    count: int
+    reduce: Callable
+    broadcast: Callable
 
 
 def not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -496,12 +510,25 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
               device: Optional[torch.device | str] = None,
               mppi_params: Optional[MPPIConfig] = None,
               state_from_traj: Optional[Callable] = None,
-              cost_params_override: Optional[CostParams] = None
+              cost_params_override: Optional[CostParams] = None,
+              shard: Tuple[int, int] = (0, 1),
+              particle_shard: Optional[ParticleShard] = None
               ) -> Tuple[Dict[str, Any], MPCBundle, MPCPieces]:
     """What :func:`make_mpc_from_config` builds its closures from: the
     checked config (with ``_time_steps``), the bundle and the per-solve
     pieces. ``device=None`` is the card (``cuda``); without one this
-    raises. The tuner's hooks are the module docstring's."""
+    raises. The tuner's hooks are the module docstring's.
+
+    The mesh's hooks (``parallel/``): ``shard`` ``(index, count)`` makes a
+    solve of B scenarios the rows ``index * B`` to ``(index + 1) * B`` of a
+    batch of ``count * B``: its draws are that batch's (a generator draws
+    them all, an iterator hands them all), and it keeps its rows, so a
+    scenario's draws do not depend on the mesh. ``particle_shard`` makes
+    every evaluation of a solve this process's share of the particles,
+    summed over the processes (:class:`ParticleShard`): the linesearch
+    route then runs the host loop (``solver/apg.py::apg_solve_batched``)
+    over that oracle in place of the whole-solve kernel, and ``x_evol``
+    is block 0's ``trajectory``."""
     _check_slice(cfg)
     apply_fp32_policy()
     dev = resolve_device(device)
@@ -658,6 +685,27 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         mppi_cfg = MPPIConfig.from_config(cfg) if mppi_params is None else mppi_params
     P = num_particles
     spread = x0_spread is not None          # needs P > 1 (_check_slice)
+    P_local, lo = P, 0
+    if particle_shard is not None:
+        n_sh = int(particle_shard.count)
+        if P % n_sh:
+            raise ValueError(f"num_particles={P} must divide over the mc axis ({n_sh})")
+        P_local = P // n_sh
+        if P > 1 and P_local < 2:
+            # a block of one particle would run as the mean dynamics
+            # (cost_oracle.py::resolve_particles), not as one sampled path
+            raise ValueError(f"num_particles={P} over an mc axis of {n_sh} leaves each block "
+                             f"{P_local} particle; a block needs 2 or more")
+        lo = int(particle_shard.index) * P_local
+        if n_sh > 1 and cost_params.risk_lambda:
+            # the risk term needs the global moments of the particles'
+            # totals before the gradient pass, which per-block means lack
+            raise not_in_slice("cost_params.risk_lambda over a sharded particle axis (mc > 1)",
+                               "34. Risk under particle sharding")
+        if chunk and P_local % chunk:
+            raise ValueError(f"pallas_chunk={chunk} must divide the {P_local} particles of "
+                             f"each of the mc axis's {n_sh} blocks")
+    row_i, n_rows = (int(v) for v in shard)
 
     def draws(rngs, B: int):
         """The call's draws on the device, ``(noise (B, P, H, 13), z0 (B, P,
@@ -667,6 +715,13 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         hands in (the module docstring's forms)."""
         if not (P > 1 or mppi):
             return None, None, None, None
+        out = _global_draws(rngs, B * n_rows)
+        if n_rows > 1:
+            rows = slice(row_i * B, (row_i + 1) * B)
+            out = tuple(None if d is None else d[rows] for d in out)
+        return out
+
+    def _global_draws(rngs, B: int):
         if isinstance(rngs, torch.Generator):
             noise = z0 = eps = c0 = None
             if P > 1:
@@ -722,7 +777,7 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
                 return MPCSolution(u_opt=plan, opt_state=st._replace(yk=_shift(plan)),
                                    rng=rngs, x_evol=x_evol)
             yk = cold_start(opt_states, plan)
-        if not mppi and apg_cfg.use_linesearch:
+        if not mppi and apg_cfg.use_linesearch and particle_shard is None:
             st, x_evol = apg_solve_kernel_batched(
                 model, params, cost_params, apg_cfg, time_steps, xs, x_ref, u_prev, noise,
                 P, lb_z, ub_z, yk, t_init=opt_states.stepsize if carry_t else None,
@@ -734,16 +789,49 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
                 if mppi:
                     st = mppi_solve(orc, yk, lb_z, ub_z, mppi_cfg, eps, c0)
                 else:
-                    st = apg_solve_batched(orc, yk, lb_z, ub_z, apg_cfg, precond=precond,
-                                           iter_budget=iter_budget)
+                    st = apg_solve_batched(orc, yk, lb_z, ub_z, apg_cfg,
+                                           t_init=opt_states.stepsize if carry_t else None,
+                                           precond=precond, iter_budget=iter_budget)
                 x_evol = orc.trajectory(st.yk)
         return MPCSolution(u_opt=st.yk[..., :n_u], opt_state=st._replace(yk=_shift(st.yk)),
                            rng=rngs, x_evol=x_evol)
 
     def oracle(xs, x_ref, u_prev, noise, starts):
-        return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref, u_prev,
-                                   noise, P, apg_cfg.maxls, chunk=chunk, starts=starts,
-                                   bf16=bf16)
+        if particle_shard is None:
+            return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref,
+                                       u_prev, noise, P, apg_cfg.maxls, chunk=chunk,
+                                       starts=starts, bf16=bf16)
+        return _sharded_oracle(xs, x_ref, u_prev, noise, starts)
+
+    def _sharded_oracle(xs, x_ref, u_prev, noise, starts):
+        """This process's particles ``lo .. lo + P_local`` (noise and starts
+        sliced alike), every evaluation its partial mean summed over the
+        processes in their order and divided by their count (a mean of
+        equal blocks' means); ``trajectory`` block 0's."""
+        hi = lo + P_local
+        local = cost_oracle_batched(
+            model, params, cost_params, time_steps, xs, x_ref, u_prev,
+            None if noise is None else noise[:, lo:hi], P_local, apg_cfg.maxls, chunk=chunk,
+            starts=None if starts is None else starts[:, lo:hi].contiguous(), bf16=bf16)
+        n_sh = float(particle_shard.count)
+        mean = lambda t: particle_shard.reduce(t) / n_sh
+
+        def value_batch(U):
+            return mean(local.value_batch(U))
+
+        def value_and_grad(u):
+            f, g = local.value_and_grad(u)
+            fg = mean(torch.cat([f.reshape(-1), g.reshape(-1)]))
+            return fg[:f.numel()].reshape(f.shape), fg[f.numel():].reshape(g.shape)
+
+        def trajectory(u):
+            B = int(u.shape[0])
+            mine = local.trajectory(u) if particle_shard.index == 0 else None
+            return particle_shard.broadcast(mine, (B, H + 1, 13))
+
+        return CostOracle(value=lambda u: value_batch(u[:, None])[:, 0],
+                          value_batch=value_batch, value_and_grad=value_and_grad,
+                          trajectory=trajectory)
 
     pieces = MPCPieces(reset=reset_fn, targets=_targets, build_ref=_build_ref, shift=_shift,
                        carry_t=carry_t, chunk=chunk, antithetic=antithetic,

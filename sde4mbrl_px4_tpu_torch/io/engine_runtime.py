@@ -134,11 +134,14 @@ class SDEControlNode:
     def stop(self) -> None:
         """Stop every thread, then close the sockets, the mailbox and the
         controller (the receive threads are joined before the mailbox
-        closes: a late ``handle_state`` must not post to a closed segment)."""
+        closes: a late ``handle_state`` must not post to a closed segment).
+        Safe after a partial start: only the threads that run are joined."""
         self._running = False
         self.mbx.shutdown()
         for th in (self._solver_thread, self._mav_thread, self._svc_thread):
-            if th is not None:
+            # safe after a partial start: a thread whose start() was
+            # interrupted (or never came) has nothing to join
+            if th is not None and th.is_alive():
                 th.join(timeout=5.0)
         if self.mav is not None:
             self.mav.close()

@@ -392,22 +392,28 @@ class Router:
                  log_mode: str = "while-armed"):
         self.endpoints = endpoints
         self._threads: List[threading.Thread] = []
+        self._opened: List[Endpoint] = []
         self._running = False
         self.stats: Dict[str, int] = {e.name: 0 for e in endpoints}
         self.log_dir, self.log_mode = log_dir, log_mode
         self.framelog: Optional[FrameLog] = None
 
     def start(self) -> None:
+        """Open every endpoint, then start one pump thread per endpoint:
+        frames flow before this returns. An interrupt part way (a SIGTERM
+        raised as ``KeyboardInterrupt`` inside a ``Thread.start``) leaves a
+        partial start that :meth:`stop` takes down."""
         for e in self.endpoints:
             e.open()
+            self._opened.append(e)
         if self.log_dir:
             self.framelog = FrameLog(next_log_path(self.log_dir),
                                      self.log_mode)
         self._running = True
         for e in self.endpoints:
             th = threading.Thread(target=self._pump, args=(e,), daemon=True)
-            th.start()
             self._threads.append(th)
+            th.start()
 
     def _pump(self, src: Endpoint) -> None:
         while self._running:
@@ -422,11 +428,16 @@ class Router:
                     dst.send(frame)
 
     def stop(self) -> None:
+        """Stop the pumps and close what :meth:`start` opened; safe after a
+        partial start: it joins only the threads that run and closes only
+        the endpoints that were opened."""
         self._running = False
         for th in self._threads:
-            th.join(timeout=1.0)
-        for e in self.endpoints:
+            if th.is_alive():
+                th.join(timeout=1.0)
+        for e in self._opened:
             e.close()
+        self._opened = []
         if self.framelog is not None:
             self.framelog.close()
 

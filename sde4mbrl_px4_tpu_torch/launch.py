@@ -33,9 +33,16 @@ interrupted (SIGINT or SIGTERM), or for ``--seconds``, and stops its
 threads; the engine then prints the plans it published and its process's
 kernel launches (``[launch] engine stopped: ...``), the count a caller in
 another process can read. Start a second node as a fresh process
-(``subprocess``), never by forking one that has initialised CUDA. There is
-no ``--coordinator`` (multi-host is ``torch.distributed``, ROADMAP
-'Batched and fleet').
+(``subprocess``), never by forking one that has initialised CUDA.
+
+Multi-process (the original's ``:250-259``): ``--coordinator host:port``
+(or a ``tcp://`` / ``file://`` URL), ``--num-processes`` and
+``--process-id`` (or ``SDE4MBRL_COORDINATOR`` / ``SDE4MBRL_NUM_PROCESSES``
+/ ``SDE4MBRL_PROCESS_ID``) join this process to a gloo process group
+(``parallel/distributed.py::initialize_distributed``) before any CUDA
+work; the line before READY names the rank. Each rank runs the node of
+its launch file (give each rank its own ports), the engine on
+``cuda:(rank % device_count)``; the group is torn down when the node stops.
 """
 from __future__ import annotations
 
@@ -84,11 +91,15 @@ def _serve(report: Callable[[], str], period: float,
 
 
 def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float] = None,
-                       repl: bool = False):
+                       repl: bool = False, time_scale: float = 1.0):
     """Start the MPC engine node (reference sde_control main,
     ``sde_control.py:750-769``); its constructor builds (or reuses) and
     warms every kernel before it serves. ``repl``: the mission REPL on
-    stdin in place of the telemetry reports, until EOF or ``exit``."""
+    stdin in place of the telemetry reports, until EOF or ``exit``.
+    ``time_scale`` S > 1 runs the engine's clock at wall time / S (slow
+    motion: a plant process pacing itself the same way sees S times the
+    solve time in its own seconds, as ``sim/closed_loop.py --time-scale``
+    gives an engine in its process)."""
     from sde4mbrl_px4_tpu_torch.io.engine_runtime import SDEControlNode
 
     base = config_dir(cfg)
@@ -105,10 +116,13 @@ def launch_sde_control(cfg: Dict[str, Any], device=None, seconds: Optional[float
             logf.flush()
         return f"[telemetry] {line}"
 
-    node = SDEControlNode(traj, sp, seed=int(cfg.get("seed", 0)), device=device)
-    node.start()
-    # the node runs from here on: a SIGTERM from now on must still stop it
+    scale = float(time_scale)
+    node = SDEControlNode(traj, sp, seed=int(cfg.get("seed", 0)), device=device,
+                          now_fn=time.time if scale == 1.0 else (lambda: time.time() / scale))
+    # the solver thread may run before start() returns: a SIGTERM from then
+    # on (inside Thread.start too) must still stop the node
     try:
+        node.start()
         addr = cfg.get("addr_mavlink_state_msg", "127.0.0.1:14998")
         node.serve_mavlink(addr)
         svc_addr = cfg.get("addr_services", "127.0.0.1:14997")
@@ -200,8 +214,11 @@ def launch_router(cfg: Dict[str, Any], seconds: Optional[float] = None):
     native = cfg.get("native", True) and native_router_supports(endpoints, general)
     router = (NativeRouter if native else Router)(endpoints, log_dir=general.log_dir,
                                                   log_mode=general.log_mode)
-    router.start()
+    # the Python router forwards frames before start() returns: a SIGTERM
+    # from then on (a client that has read a forwarded frame) must still
+    # stop it, whatever part of it had started
     try:
+        router.start()
         print(f"[launch] router ({'native C++' if native else 'python'}) fanning out "
               f"{len(endpoints)} endpoints ({', '.join(e.name for e in endpoints)}) from {conf}"
               + (f"; flight log -> {general.log_dir} ({general.log_mode})"
@@ -312,13 +329,17 @@ def launch_geometric(cfg: Dict[str, Any], seconds: Optional[float] = None) -> in
 
 
 def launch_from_file(path: str, repl: bool = False, device=None,
-                     seconds: Optional[float] = None):
+                     seconds: Optional[float] = None, time_scale: float = 1.0):
     cfg = _load(path)
     node_type = cfg.get("node", "sde_control")
     if repl and node_type != "sde_control":
         raise ValueError(f"--repl attaches to the engine node (sde_control), not {node_type!r}")
+    if time_scale != 1.0 and node_type != "sde_control":
+        raise ValueError(f"--time-scale slows the engine node's clock (sde_control), not "
+                         f"{node_type!r}'s")
     if node_type == "sde_control":
-        return launch_sde_control(cfg, device=device, seconds=seconds, repl=repl)
+        return launch_sde_control(cfg, device=device, seconds=seconds, repl=repl,
+                                  time_scale=time_scale)
     if node_type == "fcu_sim":
         return launch_fcu_sim(cfg, seconds=seconds)
     if node_type == "geometric_controller":
@@ -342,10 +363,43 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float, default=None,
                     help="stop after this many seconds of serving (default: run until "
                          "interrupted)")
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="the engine's clock at wall time / this (slow motion, for a plant "
+                         "that paces itself alike)")
+    ap.add_argument("--coordinator", default=None,
+                    help="multi-process: the group's rendezvous, host:port or a URL (or env "
+                         "SDE4MBRL_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
     signal.signal(signal.SIGTERM, _sigterm)   # stop cleanly, as on Ctrl-C
-    launch_from_file(args.launch_file, repl=args.repl, device="cpu" if args.cpu else None,
-                     seconds=args.seconds)
+    # multi-process bring-up comes before any CUDA work
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import initialize_distributed, world
+
+    grouped = False
+    try:
+        grouped = initialize_distributed(args.coordinator, args.num_processes, args.process_id)
+        device = "cpu" if args.cpu else None
+        if grouped:
+            rank, size = world()
+            if device is None:
+                import torch
+
+                from sde4mbrl_px4_tpu_torch.device import resolve_device
+
+                resolve_device(None)
+                device = f"cuda:{rank % torch.cuda.device_count()}"
+            print(f"[launch] rank {rank} of {size} (gloo); the node runs on "
+                  f"{device or 'the card'}", flush=True)
+        launch_from_file(args.launch_file, repl=args.repl, device=device,
+                         seconds=args.seconds, time_scale=args.time_scale)
+    except KeyboardInterrupt:
+        pass                          # a SIGTERM before the node served
+    finally:
+        if grouped:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -203,25 +203,38 @@ def label_states(cfg: Dict[str, Any], xs, ts, xdes, rng=None,
     ``opt_state.yk[0]``).
     ``rng`` serves configs with particles (the batched solve's draws).
     ``device`` None is the card; ``"cpu"`` solves each scenario on the plain
-    version. ``mesh`` (labels sharded over several devices) is not ported."""
+    version.
+
+    ``mesh`` (``parallel/mesh.py``; the original's ``:194-215``) labels
+    over its dp axis, on the mesh's device: the states are padded to a
+    dp-divisible batch (the last row repeated), each rank labels its rows
+    with one batched solve (one launch of the whole-solve kernel on the
+    card), and the rows are gathered in rank order on every rank and cut
+    back to n."""
     from sde4mbrl_px4_tpu_torch.parallel.batched import make_batched_mpc
 
     if mesh is not None:
-        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import not_in_slice
-
-        raise not_in_slice("label_states over a device mesh (mesh=)",
-                           "Batched and fleet over more than one GPU")
-    reset_b, mpc_b, bundle = make_batched_mpc(_expert_cfg(cfg, dcfg), device=device)
+        device = mesh.device
+    reset_b, mpc_b, bundle = make_batched_mpc(_expert_cfg(cfg, dcfg), mesh, device=device)
     dev, n_u = bundle.device, bundle.model.n_u
     xs, ts, xdes = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in (xs, ts, xdes))
     n = int(xs.shape[0])
     if u_prevs is None:
         u_prevs = bundle.cost_params.uref.expand(n, n_u)
     u_prevs = torch.as_tensor(u_prevs, dtype=torch.float32).to(dev)
+    if mesh is not None:
+        pad = (-n) % mesh.dp
+        xs, ts, xdes, u_prevs = (torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])[
+            mesh.rows(n + pad)] for a in (xs, ts, xdes, u_prevs))
     st = reset_b(xs, rng, xdes)
     yk = st.yk.clone()
     yk[:, 0, :n_u] = u_prevs
-    return mpc_b(xs, rng, st._replace(yk=yk), ts, xdes).u_opt
+    u_opt = mpc_b(xs, rng, st._replace(yk=yk), ts, xdes).u_opt
+    if mesh is None:
+        return u_opt
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import gather_to_host
+
+    return torch.from_numpy(gather_to_host(u_opt, mesh)[:n]).to(dev)
 
 
 def _reference(bundle, ts: torch.Tensor, xdes: torch.Tensor) -> torch.Tensor:
@@ -348,14 +361,14 @@ def distill_policy(cfg: Dict[str, Any], dcfg: DistillConfig = DistillConfig(), m
     """Full pipeline: sample -> label (the batched expert) -> train
     (-> optional DAgger rounds). Returns ``(policy, stats)``; ``stats``
     also holds ``label_calls``, the (states, seconds) of each label call
-    (the card synchronised around it). ``device`` None is the card."""
+    (the card synchronised around it). ``device`` None is the card.
+    ``mesh``: the labels over its dp axis (:func:`label_states`), on the
+    mesh's device; every rank samples and trains alike, so every rank ends
+    with the same policy."""
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
 
     if mesh is not None:
-        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import not_in_slice
-
-        raise not_in_slice("distill_policy over a device mesh (mesh=)",
-                           "Batched and fleet over more than one GPU")
+        device = mesh.device
     _, _, _, bundle = make_mpc_from_config(dict(cfg), device=device)
     dev = bundle.device
     gen = torch.Generator().manual_seed(dcfg.seed)
@@ -364,7 +377,7 @@ def distill_policy(cfg: Dict[str, Any], dcfg: DistillConfig = DistillConfig(), m
     def labels_of(xs, ts, xdes, ups):
         _sync(dev)
         t0 = time.perf_counter()
-        lab = label_states(cfg, xs, ts, xdes, gen, dcfg, u_prevs=ups, device=dev)
+        lab = label_states(cfg, xs, ts, xdes, gen, dcfg, mesh=mesh, u_prevs=ups, device=dev)
         _sync(dev)
         calls.append((int(xs.shape[0]), time.perf_counter() - t0))
         return lab

@@ -195,27 +195,49 @@ def train_sde(
     parameters a tree of fp32 tensors on ``device`` (None: the card; without
     one this raises). ``params`` is the starting tree (tensors or numpy,
     any trunk width) and is not changed. ``model`` may live on any device:
-    its constants move with the batches. ``mesh`` (data-parallel training
-    over several devices) is not ported."""
-    if mesh is not None:
-        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import not_in_slice
+    its constants move with the batches.
 
-        raise not_in_slice("train_sde over a device mesh (mesh=)",
-                           "Batched and fleet over more than one GPU")
+    ``mesh`` (``parallel/mesh.py``; the original's ``:186-189``) trains
+    data-parallel over its dp axis, on the mesh's device: every rank draws
+    the same batches from the same iterator and takes its dp-th of each
+    (``batch_size`` must divide over dp); the gradients are summed over dp
+    in rank order (``parallel/distributed.py::ordered_sum``) and divided by
+    dp before AdamW, so every rank takes the same step and ends with the
+    same parameters (the loss read is the ranks' mean the same way). A
+    rank's mean over its rows is the batch mean's share, so the step is
+    the one-process step up to the order of the sums."""
     apply_fp32_policy()
+    rows = slice(None)
+    if mesh is not None:
+        device = mesh.device
+        rows = mesh.rows(cfg.batch_size)
     dev = resolve_device(device)
     model = NeuralSDE(model.vehicle, model.mixing.to(dev), model.inertia.to(dev))
     params = _leaves(params, dev)
-    opt = torch.optim.AdamW(_flat(params), lr=cfg.lr, weight_decay=cfg.weight_decay)
+    leaves = _flat(params)
+    opt = torch.optim.AdamW(leaves, lr=cfg.lr, weight_decay=cfg.weight_decay)
     loss_fn = make_loss_fn(model, dataset.dt, cfg)
     it = dataset.batches(cfg.batch_size, seed=cfg.seed)
     loss = torch.zeros((), device=dev)
+
+    def dp_mean(t: torch.Tensor) -> torch.Tensor:
+        if mesh is None or mesh.dp == 1:
+            return t
+        from sde4mbrl_px4_tpu_torch.parallel.distributed import ordered_sum
+
+        return ordered_sum(t, mesh, mesh.axis_names[0]) / float(mesh.dp)
+
     for step in range(cfg.steps):
-        x0, u_win, x_tgt = (torch.from_numpy(a).to(dev) for a in next(it))
+        x0, u_win, x_tgt = (torch.from_numpy(a[rows]).to(dev) for a in next(it))
         loss = loss_fn(params, x0, u_win, x_tgt)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None and mesh.dp > 1:
+            flat = dp_mean(torch.cat([p.grad.reshape(-1) for p in leaves]))
+            for p, g in zip(leaves, torch.split(flat, [p.numel() for p in leaves])):
+                p.grad.copy_(g.view_as(p.grad))
         opt.step()
         if log_every and step % log_every == 0:
-            log(f"step {step}: loss {float(loss.detach()):.5f}")
+            log(f"step {step}: loss {float(dp_mean(loss.detach())):.5f}")
+    loss = dp_mean(loss.detach().reshape(1))[0]
     return _detached(params), {"final_loss": float(loss.detach())}

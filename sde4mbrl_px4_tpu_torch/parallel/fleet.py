@@ -1,4 +1,4 @@
-"""Fleet serving engine (L6): many vehicles, one card.
+"""Fleet serving engine (L6): many vehicles on one card or a mesh of ranks.
 
 PyTorch counterpart of ``sde4mbrl_px4_tpu/parallel/fleet.py::FleetEngine``
 (``:36-161``): B vehicles' receding-horizon solves run as one batched solve
@@ -31,7 +31,12 @@ Configs with particles and the particle options (``risk_lambda``,
 ``initial_state_std``, MPPI over K x P paths) serve as any other: each
 tick draws its Brownian block and starts from the engine's generator.
 
-The multi-process branch (a mesh over hosts) is not ported: one card.
+Over a mesh of ranks (``parallel/mesh.py``; the original's multi-process
+branch, ``:64-90``, ``:144-156``): each rank serves its rows of the fleet,
+``batch / dp`` vehicles (``mesh.rows``), passing and receiving only those
+rows, on its own device; a tick needs no collective. The vehicles' draws
+are their rows of the whole fleet's (``build_mpc``'s ``shard``), so a
+vehicle flies the same on every mesh.
 """
 from __future__ import annotations
 
@@ -42,14 +47,18 @@ import numpy as np
 import torch
 
 from sde4mbrl_px4_tpu_torch.parallel.batched import make_batched_mpc
+from sde4mbrl_px4_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["FleetEngine"]
 
 
 class FleetEngine:
-    """Batched receding-horizon serving of ``batch`` vehicles on one device.
+    """Batched receding-horizon serving of ``batch`` vehicles on one device,
+    or of this rank's ``batch / dp`` of them over a ``mesh`` (``B`` is the
+    rows this process serves; ``batch`` must divide over dp, as the
+    original's ``:47-50`` asks).
 
-    ``step(states, targets, curr_ts)`` solves all B scenarios and returns
+    ``step(states, targets, curr_ts)`` solves its B scenarios and returns
     the PREVIOUS tick's plans (pipelined; the first tick returns its own,
     with age 0). Inputs are host numpy: ``states`` in the solver's NED frame,
     ``targets`` in the config's ``convert_to_enu`` convention, as for the
@@ -57,15 +66,20 @@ class FleetEngine:
     the plain solves (blocking: there is nothing to overlap).
     """
 
-    def __init__(self, cfg: Dict[str, Any], batch: int, seed: int = 0,
+    def __init__(self, cfg: Dict[str, Any], mesh: Optional[Mesh] = None,
+                 batch: Optional[int] = None, seed: int = 0,
                  convert_to_enu: bool = True, pipeline: bool = True,
                  device: Optional[torch.device | str] = None):
-        self.B = int(batch)
-        if self.B < 1:
+        if batch is None or int(batch) < 1:
             raise ValueError(f"a fleet of {batch} vehicles")
+        if mesh is not None and int(batch) % mesh.dp:
+            raise ValueError(f"batch {batch} must divide over the dp axis ({mesh.dp})")
+        self.mesh = mesh
+        # the rows this process serves: all of them, or its rows over dp
+        self.B = int(batch) // (mesh.dp if mesh is not None else 1)
         self.pipeline = pipeline
         self.reset_b, self.mpc_b, self.bundle = make_batched_mpc(
-            dict(cfg), convert_to_enu=convert_to_enu, device=device)
+            dict(cfg), mesh, convert_to_enu=convert_to_enu, device=device)
         self.device = self.bundle.device
         self.H = int(self.bundle.time_steps.shape[0])
         self.n_u = self.bundle.model.n_u

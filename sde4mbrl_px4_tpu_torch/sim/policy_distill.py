@@ -15,8 +15,9 @@ save ``<outdir>/<vehicle>_<kind>_policy.pkl``. Then the shoot-out on the
 lemniscate: APG and the distilled traj policy (``solver: policy``), each
 chained through ``mpc_fn`` on the model's mean dynamics for ``--seconds``;
 the gate: the policy's mean tracking error below ``max(4 err_apg, 0.25)``
-m. The example shards its labels over the device mesh; here they run on
-one card (the mesh waits for ROADMAP.md item 9). Besides the example's
+m. The example shards its labels over the device mesh; this drive labels
+in its own process on one card (``learning/distill.py::distill_policy``
+takes ``mesh=``, a mesh of ranks, ``parallel/mesh.py``). Besides the example's
 lines it prints each label call's seconds and labels per second, and the
 training steps per second.
 """

@@ -11,8 +11,16 @@ table and the winning ``mppi:`` block are printed::
     python -m sde4mbrl_px4_tpu_torch.sim.tune_mppi configs/iris_traj_mpc.yaml \\
         --sigmas 0.01,0.02,0.04 --temps 0.05,0.1,0.2 --betas 0.0,0.5,0.7 --steps 60
 
-``--mesh-dp`` above 1 (the candidates sharded over devices) waits for more
-than one GPU and is refused. ``--cpu`` runs the plain solves on the CPU.
+``--mesh-dp N`` above 1 shards the candidates over a dp mesh of N ranks
+(``tuning/tuner.py``'s ``mesh``; the original's ``:42-75``): inside a
+process group of N ranks (``SDE4MBRL_COORDINATOR`` /
+``SDE4MBRL_NUM_PROCESSES`` / ``SDE4MBRL_PROCESS_ID``, or ``torchrun`` with
+``SDE4MBRL_AUTO_DISTRIBUTED=1``) every rank runs this drive and joins that
+world; otherwise the drive spawns the N ranks itself
+(``parallel/distributed.py::spawn_ranks``, a gloo group on a ``file://``
+store), each rank on ``cuda:(rank % device_count)`` (one card: the ranks
+share it) or, with ``--cpu``, on the CPU, and prints rank 0's table.
+``--cpu`` runs the plain solves on the CPU.
 """
 from __future__ import annotations
 
@@ -41,8 +49,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-crn", action="store_true",
                     help="independent noise per candidate (default: common random numbers)")
     ap.add_argument("--mesh-dp", type=int, default=0,
-                    help="shard the candidate axis over a dp mesh of this size (0 = single "
-                         "device; more than one device is not ported)")
+                    help="shard the candidate axis over a dp mesh of this many ranks (0 = "
+                         "one process): joins the process group that exists, else spawns "
+                         "the ranks")
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--cpu", action="store_true", help="run the plain solves on the CPU")
     return ap
@@ -54,14 +63,12 @@ def run(argv: Optional[list] = None) -> dict:
     args = parser().parse_args(argv)
     import torch
 
-    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import not_in_slice
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import (
+        global_mesh, initialize_distributed, spawn_ranks)
     from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig
     from sde4mbrl_px4_tpu_torch.tuning import make_mppi_grid, tune_mppi
 
-    if args.mesh_dp > 1:
-        raise not_in_slice(f"--mesh-dp {args.mesh_dp} (a candidate grid sharded over "
-                           f"devices)", "Batched and fleet over more than one GPU")
     cfg = load_yaml_config(args.config)
     cfg["solver"] = "mppi"
     static = MPPIConfig.from_config(cfg)
@@ -69,12 +76,22 @@ def run(argv: Optional[list] = None) -> dict:
     device = "cpu" if args.cpu else None
     name = "cpu" if args.cpu else (torch.cuda.get_device_name(0)
                                    if torch.cuda.is_available() else "no CUDA card")
+    mesh = None
+    in_world = args.mesh_dp > 1 and initialize_distributed()
+    if in_world:
+        mesh = global_mesh((args.mesh_dp, 1), devices=device)
     print(f"device: {name}")
     print(f"sweeping {grid.shape[0]} candidates x {args.steps} control periods "
-          f"(K={static.samples}, iters={static.iters}) ...", flush=True)
+          f"(K={static.samples}, iters={static.iters}"
+          f"{', dp=' + str(args.mesh_dp) if args.mesh_dp > 1 else ''}) ...", flush=True)
     t0 = time.time()
-    results = tune_mppi(cfg, grid, steps=args.steps, seed=args.seed, crn=not args.no_crn,
-                        device=device)
+    kw = dict(steps=args.steps, seed=args.seed, crn=not args.no_crn)
+    if args.mesh_dp > 1 and not in_world:
+        results = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:tune", args.mesh_dp,
+                              dict(kind="mppi", cfg=cfg, grid=grid, devices=device, **kw),
+                              timeout=3600.0)[0]["results"]
+    else:
+        results = tune_mppi(cfg, grid, mesh=mesh, device=device, **kw)
     wall = time.time() - t0
     n_solves = grid.shape[0] * args.steps
     print(f"done in {wall:.1f}s ({n_solves} closed-loop solves, "

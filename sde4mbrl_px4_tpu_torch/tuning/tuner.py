@@ -16,7 +16,8 @@ original vmaps the closed loop over the candidates (``:184``, ``:351``):
   config's tracking weights with the configured solver: on the linesearch
   APG route one launch of the whole-solve kernel over the N candidates a
   period, each candidate's weights in its own row of the kernel's consts.
-  The plant is ``ops/rollout.py::em_step`` over the N states, with one
+  The plant is ``ops/rollout.py::em_step`` over the N states (its rows
+  padded to a multiple of 64, :func:`_plant_step`), with one
   (13,) Euler-Maruyama draw a period (``noisy_plant``).
 
 Trajectory configs fly their reference trajectory from its start,
@@ -40,8 +41,16 @@ seeded with ``seed + 1``, per candidate.
 
 The original runs its sweeps on XLA (``use_pallas=False``, ``:90-94``);
 here they run on the kernels, and the plain versions on CPU tensors
-(``device="cpu"``). ``mesh=`` (a sweep sharded over devices) waits for more
-than one GPU and raises.
+(``device="cpu"``).
+
+``mesh=`` (``parallel/mesh.py``; the original's ``:172-183``,
+``:339-350``) shards the candidates over its dp axis, on the mesh's
+device: the grid is padded to a multiple of dp with its first row (as the
+original pads), each rank flies its rows as one batched solve a period on
+the same per-scenario knobs and weights, and the scores are gathered in
+rank order on every rank and cut back to N. Per-candidate draws are each
+candidate's draws of the padded grid (the padding rows repeat the first
+candidate's), so a candidate's score does not depend on the mesh.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ import torch
 
 from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
 from sde4mbrl_px4_tpu_torch.core.types import hover_state
-from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc, not_in_slice
+from sde4mbrl_px4_tpu_torch.engine.mpc_loader import build_mpc
 from sde4mbrl_px4_tpu_torch.models.trajectory import load_trajectory_csv, make_state_from_traj
 from sde4mbrl_px4_tpu_torch.ops.rollout import em_step
 from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig, draw_mppi_noise
@@ -134,10 +143,56 @@ def _checked_grid(grid, width: int, what: str) -> np.ndarray:
     return grid
 
 
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise not_in_slice(f"{what} over a device mesh (mesh=)",
-                           "Batched and fleet over more than one GPU")
+def _padded(grid: np.ndarray, mesh) -> np.ndarray:
+    """The grid padded to a multiple of the mesh's dp with its first row
+    (the original's ``:172-183``); the grid itself without a mesh."""
+    if mesh is None:
+        return grid
+    pad = (-grid.shape[0]) % mesh.dp
+    return np.concatenate([grid, np.repeat(grid[:1], pad, axis=0)]) if pad else grid
+
+
+def _mine(t: Optional[torch.Tensor], rows: slice, Np: int, lead: int) -> Optional[torch.Tensor]:
+    """A draw with a per-candidate axis at ``lead`` (N rows, N <= Np): padded
+    to Np with the first candidate's rows and cut to this rank's ``rows``;
+    a shared draw (no such axis, fewer dims) as it is."""
+    if t is None or rows == slice(None):
+        return t
+    n = int(t.shape[lead])
+    if n < Np:
+        first = t.narrow(lead, 0, 1)
+        t = torch.cat([t, first.expand(*t.shape[:lead], Np - n, *t.shape[lead + 1:])], lead)
+    return t[(slice(None),) * lead + (rows,)]
+
+
+# the plant's products take a multiple of this many rows, whatever the grid
+PLANT_ROWS = 64
+
+
+def _plant_step(model, params, x: torch.Tensor, u: torch.Tensor, dt: torch.Tensor,
+                noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """``em_step`` of the candidates' states, its rows padded (with the first
+    candidate's) to a multiple of ``PLANT_ROWS``: cuBLAS picks its GEMM by
+    shape, and a row's bits with it (on the card 14 rows and 28 differ in
+    the last bit), so one shape for every grid of up to ``PLANT_ROWS``
+    candidates gives a candidate the same plant in one process and on any
+    mesh."""
+    n = int(x.shape[0])
+    pad = (-n) % PLANT_ROWS
+    if pad:
+        grow = lambda t: torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+        x, u = grow(x), grow(u)
+        noise = None if noise is None else grow(noise)
+    return em_step(model, params, x, u, dt, noise)[:n]
+
+
+def _gathered(out: np.ndarray, mesh, N: int) -> np.ndarray:
+    """Every rank's rows of the scores, in rank order, cut back to N."""
+    if mesh is None:
+        return out
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import gather_to_host
+
+    return gather_to_host(out, mesh)[:N]
 
 
 class _Workload(NamedTuple):
@@ -204,16 +259,21 @@ def tune_mppi(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, seed: int 
     closed-loop tracking error; returns ``TuneResult`` rows sorted
     best-first (module docstring). ``cfg``'s ``solver`` is forced to
     ``mppi``; its ``mppi.samples`` and ``iters`` stay as configured.
-    ``device=None`` is the card."""
-    _refuse_mesh(mesh, "tune_mppi")
+    ``device=None`` is the card; ``mesh`` the module docstring's."""
     grid = _checked_grid(grid, 3, "sigma, temperature, noise_beta")
     N = int(grid.shape[0])
+    padded = _padded(grid, mesh)
+    Np = int(padded.shape[0])
+    rows = slice(None) if mesh is None else mesh.rows(Np)
+    if mesh is not None:
+        device = mesh.device
     base = dict(cfg)
     base["solver"] = "mppi"
     static = MPPIConfig.from_config(base)
     cfg_probe, probe, _ = build_mpc(dict(base), convert_to_enu, device)
     dev = probe.device
-    hp = torch.from_numpy(grid).to(dev)
+    hp = torch.from_numpy(padded[rows]).to(dev)
+    Nl = int(hp.shape[0])
     knobs = MPPIConfig(samples=static.samples, sigma=hp[:, 0], temperature=hp[:, 1],
                        iters=static.iters, noise_beta=hp[:, 2])
     _, bundle, pieces = build_mpc(dict(base), convert_to_enu, dev, mppi_params=knobs,
@@ -223,9 +283,15 @@ def tune_mppi(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, seed: int 
     if draws is None:
         gen = torch.Generator().manual_seed(int(seed))
         lead = (steps,) if crn else (steps, N)
+        # the knobs' values do not enter the draws, only whether c0 is drawn
         eps, c0 = draw_mppi_noise(gen, knobs, H, nZ, dev, batch=lead)
         draws = zip(eps, c0)
-    periods = ((_per_candidate(e, N, 4, dev), _per_candidate(c, N, 3, dev)) for e, c in draws)
+    periods = ((_per_candidate(_mine(e, rows, Np, 0) if e is not None and e.dim() == 5 else e,
+                               Nl, 4, dev),
+                _per_candidate(_mine(c, rows, Np, 0) if c is not None and c.dim() == 4 else c,
+                               Nl, 3, dev))
+               for e, c in draws)
+    N_all, N = N, Nl
     x = w.x0.expand(N, 13)
     xdes = w.xdes.expand(N, 13)
     st = pieces.reset(x, None, xdes)
@@ -237,6 +303,7 @@ def tune_mppi(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, seed: int 
             errs.append(torch.linalg.norm(x[:, :3] - w.refs[k], dim=-1))
         errs = torch.stack(errs)                                  # (steps, N)
         out = torch.stack([errs.mean(0), errs[-1]], dim=-1).cpu().numpy()
+    out, N = _gathered(out, mesh, N_all), N_all
     results = [TuneResult(sigma=float(grid[i, 0]), temperature=float(grid[i, 1]),
                           noise_beta=float(grid[i, 2]), mean_pos_err=float(out[i, 0]),
                           final_pos_err=float(out[i, 1]))
@@ -256,19 +323,25 @@ def tune_cost_weights(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, se
     Euler-Maruyama draw a period (``noisy_plant``; the solver plans on the
     mean dynamics). ``effort_weight`` adds ``mean ||u - uref||^2`` to the
     score. Returns ``WeightTuneResult`` rows sorted by score (module
-    docstring). ``device=None`` is the card."""
-    _refuse_mesh(mesh, "tune_cost_weights")
+    docstring). ``device=None`` is the card; ``mesh`` the module
+    docstring's (a solver that draws draws the padded grid's scenarios,
+    each rank keeping its rows: ``build_mpc``'s ``shard``)."""
     grid = _checked_grid(grid, 4, "p, v, q, w scale")
     N = int(grid.shape[0])
+    padded = _padded(grid, mesh)
+    Np = int(padded.shape[0])
+    rows, shard = slice(None), (0, 1)
+    if mesh is not None:
+        device, rows, shard = mesh.device, mesh.rows(Np), (mesh.dp_index, mesh.dp)
     base = dict(cfg)
     cfg_probe, probe, _ = build_mpc(dict(base), convert_to_enu, device)
     dev, base_cp = probe.device, probe.cost_params
-    hp = torch.from_numpy(grid).to(dev)
+    hp = torch.from_numpy(padded[rows]).to(dev)
     cp = base_cp._replace(perr=base_cp.perr * hp[:, 0:1], verr=base_cp.verr * hp[:, 1:2],
                           qerr=base_cp.qerr * hp[:, 2:3], werr=base_cp.werr * hp[:, 3:4])
     _, bundle, pieces = build_mpc(dict(base), convert_to_enu, dev,
                                   state_from_traj=probe.state_from_traj,
-                                  cost_params_override=cp)
+                                  cost_params_override=cp, shard=shard)
     w = _workload(cfg_probe, bundle, steps, convert_to_enu)
     if noisy_plant and draws is None:
         gen = torch.Generator().manual_seed(int(seed))
@@ -277,7 +350,9 @@ def tune_cost_weights(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, se
         # one copy that does not wait for the work in flight
         draws = draws.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" \
             else draws.to(dev)
-    noise = (_per_candidate(d, N, 1, dev) for d in draws) if noisy_plant else None
+    N_all, N = N, int(hp.shape[0])
+    noise = (_per_candidate(_mine(d, rows, Np, 0) if d.dim() == 2 else d, N, 1, dev)
+             for d in draws) if noisy_plant else None
     solver_rng = torch.Generator().manual_seed(int(seed) + 1)
     dt = torch.full((), w.dt, dtype=torch.float32, device=dev)
     x = w.x0.expand(N, 13)
@@ -288,13 +363,14 @@ def tune_cost_weights(cfg: Dict[str, Any], grid: np.ndarray, steps: int = 40, se
         for k in range(steps):
             sol = pieces.solve(x, solver_rng, st, w.times[k].expand(N), xdes)
             u0, st = sol.u_opt[:, 0], sol.opt_state
-            x = em_step(bundle.model, bundle.params, x, u0, dt,
-                        next(noise) if noisy_plant else None)
+            x = _plant_step(bundle.model, bundle.params, x, u0, dt,
+                            next(noise) if noisy_plant else None)
             errs.append(torch.linalg.norm(x[:, :3] - w.refs[k], dim=-1))
             effs.append(torch.sum((u0 - base_cp.uref) ** 2, dim=-1))
         mean_err, mean_eff = torch.stack(errs).mean(0), torch.stack(effs).mean(0)
         out = torch.stack([mean_err + float(np.float32(effort_weight)) * mean_eff, mean_err,
                            mean_eff], dim=-1).cpu().numpy()
+    out, N = _gathered(out, mesh, N_all), N_all
     results = [WeightTuneResult(p_scale=float(grid[i, 0]), v_scale=float(grid[i, 1]),
                                 q_scale=float(grid[i, 2]), w_scale=float(grid[i, 3]),
                                 score=float(out[i, 0]), mean_pos_err=float(out[i, 1]),

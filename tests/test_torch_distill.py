@@ -7,7 +7,8 @@ H = 6 and ``max_iter`` 15 (``tests/test_distill.py``'s).
 - ``build_features`` at atol 1e-6 (``tests/test_torch_policy.py``'s);
 - ``label_states`` on the CPU's plain batched route, given JAX's states and
   previous commands: JAX's labels at the fixed-budget tolerance (rtol
-  2e-4, atol 2e-5, ``tests/test_apg_kernel.py:60-69``);
+  2e-4, atol 2e-5, ``tests/test_apg_kernel.py:60-69``); over a pair of
+  CPU ranks (``mesh=``), the one-process labels row for row;
 - ``train_policy``, 20 AdamW steps in lockstep given JAX's minibatch
   indices and initial network: rtol 1e-4 with an atol of lr / 1000 (a
   thousandth of one Adam step; ``tests/test_torch_learning.py`` says why);
@@ -134,8 +135,21 @@ def test_label_states_match_jax(pair, states):
 
 
 def test_label_states_mesh_is_refused(pair, states):
-    with pytest.raises(NotImplementedError, match="Batched and fleet over more than one GPU"):
-        TD.label_states(pair[3], *states[1][:3], mesh=object(), device="cpu")
+    """``mesh=`` runs: the first 5 states labelled over a pair of CPU ranks
+    (a (2, 1) mesh, ``parallel/rank_tasks.py::labels``; padded to 6, 3
+    rows a rank, gathered and cut back) equal the one-process labels row
+    for row, bit for bit."""
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import spawn_ranks
+
+    xs, ts, xdes, ups = (a[:5] for a in states[1])
+    ranks = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:labels", 2,
+                        dict(cfg=pair[3], xs=xs, ts=ts, xdes=xdes, u_prevs=ups,
+                             expert_max_iter=states[2].expert_max_iter, devices="cpu"),
+                        timeout=90.0)
+    one = TD.label_states(pair[3], xs, ts, xdes, None, states[2], u_prevs=ups, device="cpu")
+    assert one.shape == (5, 6, 4)
+    for r in ranks:
+        np.testing.assert_array_equal(r["labels"], one.numpy())
 
 
 @pytest.mark.parametrize("steps", [11, 200, 3000])

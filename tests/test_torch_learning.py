@@ -19,7 +19,8 @@ carried across with ``params_from_numpy``).
 - the twin of ``tests/test_learning.py::test_sysid_from_flight_log``, from
   a log recorded by the port, on a 64-wide and on a 32-wide trunk (the
   trainer takes any width);
-- ``mesh=`` is refused, naming the roadmap item.
+- ``mesh=`` runs data-parallel over a pair of CPU ranks, within the
+  lockstep tolerance of one process on the same batches.
 """
 import jax
 import jax.numpy as jnp
@@ -233,10 +234,42 @@ def test_sysid_from_flight_log(tmp_path, models, hidden):
 
 
 def test_mesh_is_refused(models, flight):
+    """``mesh=`` runs: 10 data-parallel steps over a pair of CPU ranks (a
+    (2, 1) mesh, ``parallel/rank_tasks.py::train``; each rank its half of
+    every batch, the gradients summed in rank order and halved) against
+    one process on the same batches: every parameter at the lockstep
+    tolerance above (rtol 1e-4, atol lr / 1000), the final loss at rtol
+    1e-4; a batch that does not divide over dp raises."""
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import spawn_ranks
+
     t, x, u, _, init = flight
-    with pytest.raises(NotImplementedError, match="Batched and fleet over more than one GPU"):
-        TT.train_sde(models[1], init, TT.TrajectoryDataset(t, x, u, 4), mesh=object(),
-                     device="cpu")
+    kw = dict(window=4, batch_size=32, steps=10, lr=1e-3, weight_decay=1e-2, seed=5)
+    ranks = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:train", 2,
+                        dict(params=init, t=t, x=x, u=u, train_cfg=kw, devices="cpu"),
+                        timeout=90.0)
+    one, m1 = TT.train_sde(models[1], init, TT.TrajectoryDataset(t, x, u, 4),
+                           TT.TrainConfig(**kw), log=lambda *a: None, device="cpu")
+    for name, v in _flat(one).items():
+        for r in ranks:
+            np.testing.assert_allclose(_flat(r["params"])[name], v, rtol=STEP_RTOL,
+                                       atol=kw["lr"] / 1000, err_msg=name)
+        np.testing.assert_array_equal(_flat(ranks[0]["params"])[name],
+                                      _flat(ranks[1]["params"])[name])
+    np.testing.assert_allclose(ranks[0]["final_loss"], m1["final_loss"], rtol=STEP_RTOL)
+    with pytest.raises(ValueError, match="must divide over the dp axis"):
+        TT.train_sde(models[1], init, TT.TrajectoryDataset(t, x, u, 4),
+                     TT.TrainConfig(batch_size=3, steps=1),
+                     mesh=_two_row_mesh(), device="cpu")
+
+
+def _two_row_mesh():
+    """A (2, 1) mesh seen from rank 0 without a process group (nothing is
+    gathered before the batch split raises)."""
+    from sde4mbrl_px4_tpu_torch.parallel.mesh import Mesh
+
+    grid = np.empty(2, dtype=object)
+    grid[:] = ["cpu", "cpu"]
+    return Mesh(grid.reshape(2, 1), ("dp", "mc"), 0)
 
 
 def test_eval_model_drive_reports_on_a_recorded_flight(tmp_path, models, flight):

@@ -733,3 +733,93 @@ def test_launcher_runs_fcu_sim_until_sigterm(repo_root, tmp_path):
         out, _ = proc.communicate(timeout=30)
     assert proc.returncode == 0, out
     assert "[launch] READY" in out and "fcu_sim (iris) streaming" in out
+
+
+def _sigterm_and_wait(proc, lines, reader) -> str:
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    reader.join(timeout=10)
+    return "".join(lines)
+
+
+def test_router_node_survives_sigterm_at_its_first_forwarded_frame(repo_root, tmp_path):
+    """Fault 8: ``node: router`` with ``native: false`` (the Python router,
+    whose pump threads forward frames before ``start()`` returns), frames
+    sent to its FCU endpoint from before it starts, SIGTERM the moment the
+    first forwarded frame reaches the telemetry sink: a clean exit 0, no
+    traceback, not the rc -6 of an interrupted ``Thread.start``."""
+    with open(os.path.join(repo_root, "configs", "router_sitl.conf")) as f:
+        conf = f.read()
+    fcu_port = _free_port()
+    sinks = {}
+    for name, port in (("telemetry", 14999), ("mpc", 14998), ("liveview", 14996)):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", 0))
+        sinks[name] = s
+        conf = conf.replace(f"Port = {port}", f"Port = {s.getsockname()[1]}")
+    (tmp_path / "router.conf").write_text(conf.replace("Port = 14550", f"Port = {fcu_port}"))
+    p = tmp_path / "router.yaml"
+    p.write_text(yaml.safe_dump({"node": "router", "conf": "router.conf", "native": False}))
+    stop = threading.Event()
+    frame = bytes(M.encode_full_state(42, hover_state().numpy()))
+
+    def flood():
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as c:
+            while not stop.is_set():
+                c.sendto(frame, ("127.0.0.1", fcu_port))
+                time.sleep(0.0005)
+
+    sender = threading.Thread(target=flood, daemon=True)
+    sender.start()
+    proc, lines, reader = _launch(repo_root, [str(p)])
+    try:
+        sinks["telemetry"].settimeout(60.0)
+        assert sinks["telemetry"].recvfrom(512)[0] == frame
+        out = _sigterm_and_wait(proc, lines, reader)
+    finally:
+        stop.set()
+        for s in sinks.values():
+            s.close()
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out
+    assert "Traceback" not in out, out
+
+
+def test_engine_node_survives_sigterm_in_its_start_up(repo_root, tiny_paths, tmp_path):
+    """Fault 8's twin on the engine node (``--cpu``, the tiny configs):
+    SIGTERM the moment its service channel first answers (its solver,
+    MAVLink and service threads just started, before READY is needed):
+    exit 0 with the stop line and no traceback."""
+    from sde4mbrl_px4_tpu_torch.io.engine_runtime import EngineServiceClient
+
+    svc_port = _free_port()
+    p = tmp_path / "engine.yaml"
+    p.write_text(yaml.safe_dump({"node": "sde_control", "config_dir": "/",
+                                 "traj_ctrl": tiny_paths[0], "sp_ctrl": tiny_paths[1],
+                                 "addr_mavlink_state_msg": f"127.0.0.1:{_free_port()}",
+                                 "addr_services": f"127.0.0.1:{svc_port}"}))
+    proc, lines, reader = _launch(repo_root, [str(p), "--cpu"])
+    client = EngineServiceClient(f"127.0.0.1:{svc_port}", timeout=0.05)
+    try:
+        t0 = time.monotonic()
+        while True:
+            assert proc.poll() is None and time.monotonic() - t0 < 120, "".join(lines)
+            try:
+                client.status()
+                break
+            except OSError:
+                continue
+        out = _sigterm_and_wait(proc, lines, reader)
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out
+    assert "[launch] engine stopped" in out and "Traceback" not in out, out

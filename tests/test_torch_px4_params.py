@@ -103,8 +103,8 @@ def test_diff_params():
 
 def test_full_vehicle_dump_asset(tmp_path):
     """The committed full dump: several hundred params, consistent with the
-    preflight subset, diffable, and re-dumped byte for byte (the generator,
-    ``tools/gen_px4_params.py``, is not ported: ROADMAP.md item 31)."""
+    preflight subset, diffable, and parsed back after a re-dump (its
+    generator's byte-for-byte output: the test below)."""
     full_path = os.path.join(REPO, "configs", "params_hexa_full.params")
     full = parse_params_file(full_path)
     assert len(full) >= 400, len(full)
@@ -125,6 +125,22 @@ def test_full_vehicle_dump_asset(tmp_path):
     out = str(tmp_path / "again.params")
     dump_params_file(out, full)
     assert parse_params_file(out) == full
+
+
+def test_generator_reproduces_the_committed_dump(tmp_path, monkeypatch):
+    """``sim/gen_px4_params.py`` (the port of ``tools/gen_px4_params.py``)
+    writes ``configs/params_hexa_full.params`` byte for byte, to the path it
+    is given (here ``tmp_path``), as ``tests/test_px4_params.py:90-95``
+    holds the original; without a path it writes under ``build/``."""
+    from sde4mbrl_px4_tpu_torch.sim import gen_px4_params
+
+    out = gen_px4_params.main(str(tmp_path / "hexa_full.params"))
+    with open(out, "rb") as f, open(os.path.join(REPO, "configs",
+                                                 "params_hexa_full.params"), "rb") as g:
+        assert f.read() == g.read()
+    assert gen_px4_params.build_params() == parse_params_file(out)
+    monkeypatch.setattr(gen_px4_params, "_ROOT", str(tmp_path))
+    assert gen_px4_params.main() == str(tmp_path / "build" / "params_hexa_full.params")
 
 
 def test_mission_push_full_dump(fcu):

@@ -381,8 +381,12 @@ def test_slice_runs_without_jax(repo_root):
     the router confs and a parameter dump, steps the mission layer's
     vehicle and dispatches a verb (``io/router.py``, ``io/px4_params.py``,
     ``cli/mission.py``) and imports the SITL stack, router bench, analysis
-    and preflight drives, without JAX ever entering ``sys.modules``; no
-    module of the port imports JAX or the JAX package."""
+    and preflight drives, then runs the mesh layer on this process's (1, 1)
+    mesh (a batched and a particle-sharded solve, the gather), builds the
+    PX4 parameter dump and imports the mesh's rank programs and the
+    scaling, constrained and two-process drives, without JAX ever entering
+    ``sys.modules``; no module of the port, the rank workers among them,
+    imports JAX or the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -551,6 +555,32 @@ def test_slice_runs_without_jax(repo_root):
             ctl.tick()
             veh.step(0.02)
         assert veh.armed and np.isfinite(veh.position()).all()
+        # the mesh layer on this process's (1, 1) mesh, the example drives
+        # and the parameter generator
+        import sde4mbrl_px4_tpu_torch.parallel.rank_tasks
+        import sde4mbrl_px4_tpu_torch.sim.bench_scaling
+        import sde4mbrl_px4_tpu_torch.sim.closed_loop_two_process
+        from sde4mbrl_px4_tpu_torch.parallel.batched import make_particle_sharded_mpc
+        from sde4mbrl_px4_tpu_torch.parallel.distributed import (
+            gather_to_host, global_batch_inputs, initialize_distributed)
+        from sde4mbrl_px4_tpu_torch.parallel.mesh import best_mesh_shape, make_mesh
+        from sde4mbrl_px4_tpu_torch.sim import constrained_mpc, gen_px4_params
+        assert initialize_distributed() is False and best_mesh_shape(8, 4, 8) == (4, 2)
+        mesh = make_mesh(devices="cpu")
+        cfg = load_yaml_config("configs/iris_posctrl_mpc.yaml")
+        cfg.update(horizon=6, num_short_dt=6)
+        cfg["apg_mpc"]["max_iter"] = 2
+        reset_b, mpc_b, _ = make_batched_mpc(cfg, mesh)
+        xs_m, gen_m, ts_m = global_batch_inputs(mesh, 2, spread=0.3)
+        sol = mpc_b(xs_m, gen_m, reset_b(xs_m, gen_m, xs_m), ts_m, xs_m)
+        assert gather_to_host(sol.u_opt, mesh).shape == (2, 6, 4)
+        cfg.update(num_particles=4)
+        reset_fn, mpc_fn, _ = make_particle_sharded_mpc(cfg, mesh)
+        gen = torch.Generator().manual_seed(0)
+        sol = mpc_fn(xt, gen, reset_fn(xt, gen, xt), 0.0, xt)
+        assert int(sol.opt_state.num_steps) == 2 and sol.x_evol.shape == (7, 13)
+        assert len(gen_px4_params.build_params()) > 1000
+        assert callable(constrained_mpc.fly)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """)

@@ -14,7 +14,7 @@ K=8, 3 rounds, at most 4 periods), given the JAX tuners' own draws:
   Armijo decision, ``CHAIN_EFFORT_RTOL``), and the same ranking;
 - the JAX suite's own checks as twins (``tests/test_tuning.py``): grid
   order and validation, ranking sanity, a deterministic plant, the YAML
-  blocks; ``mesh=`` refused, naming its ROADMAP item;
+  blocks; ``mesh=`` over a pair of CPU ranks scoring as one process does;
 - per-scenario knobs and weights in one batched call equal to each
   candidate's solo call with its own knobs or weights (the CPU runs the
   card's tree sums for MPPI, bit for bit);
@@ -186,13 +186,26 @@ def test_make_grids_equal_jax():
 
 @pytest.mark.parametrize("kind", ["mppi", "weights"])
 def test_grid_shape_validation_and_mesh_refused(repo_root, kind):
-    cfg = _cfg(repo_root, "iris_posctrl_mpc", "mppi" if kind == "mppi" else None)
+    """A grid of the wrong width raises; ``mesh=`` runs: 3 candidates (each
+    its own draws, ``crn=False``) over a pair of CPU ranks (a (2, 1) mesh,
+    ``parallel/rank_tasks.py::tune``; padded to 4 with the first row, 2 a
+    rank) score as one process scores them, row for row."""
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import spawn_ranks
+
+    cfg = _cfg(repo_root, "iris_posctrl_mpc", "mppi" if kind == "mppi" else None,
+               max_iter=None if kind == "mppi" else 10)
     fn = tune_mppi if kind == "mppi" else tune_cost_weights
     with pytest.raises(ValueError, match="grid must be"):
         fn(cfg, np.zeros((4, 2 if kind == "mppi" else 3)), steps=2, device="cpu")
-    grid = MPPI_GRID if kind == "mppi" else WEIGHT_GRID
-    with pytest.raises(NotImplementedError, match="Batched and fleet over more than one GPU"):
-        fn(cfg, grid, steps=2, device="cpu", mesh=object())
+    grid = (MPPI_GRID if kind == "mppi" else WEIGHT_GRID)[:3]
+    kw = dict(steps=3, seed=4, crn=False)
+    ranks = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:tune", 2,
+                        dict(kind=kind, cfg=cfg, grid=grid, devices="cpu", **kw),
+                        timeout=90.0)
+    one = fn(cfg, grid, device="cpu", **kw)
+    assert len(one) == 3
+    for r in ranks:
+        assert [tuple(x) for x in r["results"]] == [tuple(x) for x in one]
 
 
 def test_yaml_blocks_equal_jax():
