@@ -39,6 +39,9 @@ without a result):
    host runtime ``csrc/libmpc_native.so`` (``make -C csrc``: the native
    mailbox) beside them; prints the P=1 forms' shared memory at n_u = 4
    (iris) and n_u = 6 (hexa) and fails if the whole solve's passes 48 KB;
+   prints the oracle's largest cluster of each options form and its
+   shared-moments form, and fails if the latter is smaller (an oracle with
+   risk plans one cluster for both);
 3. holds the whole-solve kernel against its plain PyTorch version: the
    fixed-budget solves of the CPU tests (traj max_iter=10 at rtol 2e-4 /
    atol 2e-5, posctrl max_iter=8 at rtol 5e-4 / atol 5e-5, plus the traj
@@ -307,7 +310,14 @@ without a result):
     ``value_batch`` K = 1, 4), each within ``BF16_TOL`` of its twin and
     more than 10x that from its fp32 form, timed beside its fp32 form and
     (but the options forms) its bound (fp32 CUDA cores, and bf16 tensor
-    cores); (b) the flagship, iris traj at
+    cores); (a') the options forms' shared-moments forms (the risk of a
+    particle-sharded solve: ``value_batch`` moments out at K = 1 and 4,
+    ``value_and_grad`` moments in), fp32 and bf16, at P=256 antithetic
+    with risk and starts, each against its plain twin (``BF16_TOL``:
+    ``value_batch``'s cost tolerance on the risk-free cost, the totals'
+    mean and the cost they price; ``value_and_grad``'s risk tolerance), the
+    bf16 forms more than 10x from their fp32 forms, timed beside the
+    in-cluster options forms; (b) the flagship, iris traj at
     P=512 antithetic without the key, 20 chained solves through
     ``load_mpc_from_cfgfile`` -> ``mpc_fn``, one bf16 ``apg_solve`` and one
     fp32 ``trajectory`` launch each, beside the same config at
@@ -327,9 +337,14 @@ without a result):
     one-process references: (a) iris posctrl at B = 256 over dp = 2, each
     scenario's plans bit-equal to the one-process batched solve (each
     rank's device ms per step, the gather ms); (b) the P=512 antithetic
-    flagship at a fixed 5 iterations over mc = 2, within rtol 2e-4 / atol
-    2e-5 of the one-process host loop and of the whole-solve kernel (ms an
-    iteration, the collectives' share); (c) a 64-vehicle fleet over 4
+    flagship at a fixed 5 iterations over mc = 2, 3 chained solves, within
+    rtol 2e-4 / atol 2e-5 of the one-process host loop and of the
+    whole-solve kernel, the first solve within 1e-5 (the worst entry's
+    share of its limit, ms an iteration, the collectives' share); (b') (b) with ``risk_lambda`` 2 and
+    the example's starts: the ranks share the risk moments of their halves
+    (the shared-moments forms), held as (b) and more than 10x that
+    tolerance from the solves without risk, one more ``value_batch`` launch
+    a gradient, the solves' p50/p99 through ``SolveTimer``; (c) a 64-vehicle fleet over 4
     ticks, its states equal to one process's; (d) ``label_states`` and
     ``tune_cost_weights`` over dp = 2, each row equal; (e) two
     ``launch.py --coordinator`` engine nodes, READY and a clean SIGTERM.
@@ -495,6 +510,8 @@ def zero_counts() -> None:
         fn.launches = 0
     for fn in (AK.apg_solve_kernel, CO.value_batch_kernel, CO.value_and_grad_kernel):
         fn.launches_bf16 = 0
+    for fn in (CO.value_batch_kernel, CO.value_and_grad_kernel):
+        fn.launches_moments = 0
 
 
 def check_route(name: str, expected: dict, bf16: dict = None) -> dict:
@@ -514,9 +531,10 @@ def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
     SC>`` plus its flags (the whole solve's clock stamps, the P=1
     ``value_batch``'s register chain or shared-memory step, the particle
-    forms' options, the bf16 trunk: ``apg_solve<PART, SC, PROF, OPT, BF>``,
-    ``value_batch<PART, SC, REG, OPT, BF>``, ``value_and_grad<PART, SC,
-    OPT, BF>``); ``trajectory``'s one flag."""
+    forms' options, the bf16 trunk, the oracle's risk mode:
+    ``apg_solve<PART, SC, PROF, OPT, BF>``, ``value_batch<PART, SC, REG,
+    OPT, BF, RM>``, ``value_and_grad<PART, SC, OPT, BF, RM>``);
+    ``trajectory``'s one flag."""
     if kernel == "trajectory_kernel":
         return f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}>"
     if len(args) < 2:
@@ -530,10 +548,14 @@ def form_name(kernel: str, args: list) -> str:
         if flags and not args[0]:
             extra = ", register chain" if flags[0] else ", shared-memory step"
         opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
+        mode = flags[3:4]
     else:
         opt, bf16 = flags[:1] == [1], flags[1:2] == [1]
+        mode = flags[2:3]
     extra += ", bf16" if bf16 else ""
     extra += ", options" if opt else ""
+    if kernel != "apg_solve_kernel" and mode and mode[0]:
+        extra += {1: ", moments out", 2: ", moments in"}[mode[0]]
     return f"{kernel}<{'true' if args[0] else 'false'}, {SC_NAMES[args[1]]}{extra}>"
 
 
@@ -591,9 +613,14 @@ def phase_build() -> None:
     # (the P=1 value_batch's three bf16 forms on each: 14 and 7)
     if len(p1) != 14 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
-    # ten particle forms, nine more with the particle options, and the
-    # eighteen of both with the bf16 trunk
-    if len(part) != 37 or len(wide) != 7:
+    # ten particle forms, nine more with the particle options, the eighteen
+    # of both with the bf16 trunk, and the options forms' twelve
+    # shared-moments forms (value_batch moments out, value_and_grad moments
+    # in; fp32 and bf16)
+    moments = {k: v for k, v in part.items() if "moments" in k}
+    log(f"  the oracle's shared-moments forms (the risk of a particle-sharded solve), "
+        f"(registers, spill stores in bytes): {moments}")
+    if len(part) != 49 or len(wide) != 7 or len(moments) != 12:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}")
     vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
@@ -607,6 +634,24 @@ def phase_build() -> None:
         raise AssertionError(f"a particle form spills: {held}")
     log(f"  the whole solve's particle-options forms, (registers, spill stores in bytes): "
         f"{ {k: v for k, v in part.items() if k not in held} }")
+    # an oracle with risk plans one cluster for its in-cluster options forms
+    # and its shared-moments forms (cost_oracle.py::plan_oracle_particles):
+    # the smaller largest cluster of the two, so the moments forms must take
+    # at least the options forms' or the one-process risk forms' plan (and
+    # bits) would change
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (OPT_MOMENTS, ORACLE_VALUE_AND_GRAD,
+                                                        ORACLE_VALUE_BATCH)
+
+    lib = CO.load_oracle_library()
+    cmax = {(kind, sc, bf): tuple(lib.oracle_cluster_max(kind, sc, o, bf)
+                                  for o in (1, OPT_MOMENTS))
+            for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD)
+            for sc in range(len(SC_NAMES)) for bf in (0, 1)}
+    log(f"  the oracle's largest cluster, (options form, its shared-moments form) by "
+        f"(kind, sc_kind, bf16): {cmax}")
+    if any(c2 < c1 or c1 < 1 for c1, c2 in cmax.values()):
+        raise AssertionError(f"a shared-moments form takes a smaller cluster than its "
+                             f"options form: {cmax}")
 
 
 def phase_parity(dev, tols: dict = TOLS) -> tuple:
@@ -4838,7 +4883,7 @@ def _bf16_compare(tag: str, k16: dict, p16: dict, k32: dict, tol: dict) -> dict:
     import torch
 
     fns = {"du": lambda a, b: float((a - b).abs().max()), "gsq": _rel, "value": _rel,
-           "grad": _scaled, "cost": _rel}
+           "grad": _scaled, "cost": _rel, "f": _rel, "m": _rel}
     err = {m: fns[m](k16[m], p16[m]) for m in k16}
     gap = {m: fns[m](k16[m], k32[m]) for m in k16}
     finite = all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in k16.values())
@@ -5017,6 +5062,116 @@ def bf16_option_forms(dev, card: str) -> dict:
                         f"{out[k]['fp32_ms']:.4f} ms)"
                         for k in (f"apg_solve_P{P}", f"value_and_grad_P{P}",
                                   f"value_batch_P{P}")))
+    return out
+
+
+MOMENT_P = P_FULL // 2     # a rank's share of the flagship's particles over mc = 2
+
+
+def moment_metrics(orc, U, u, mom) -> tuple:
+    """The shared-moments evaluations of the risk oracle ``orc``: the
+    moments-out triples of K = 1 and K = len(U) as one set, the risk-free
+    cost ``f``, the totals' mean ``m`` and the cost they price, ``f +
+    RISK * sqrt(v + 1e-12)`` (``cost``; the in-cluster form's, held at its
+    tolerance), and the moments-in value and gradient of ``u`` given
+    ``mom``."""
+    import torch
+
+    t = torch.cat([orc.value_batch_moments(U[None, :1]), orc.value_batch_moments(U[None])], 1)
+    v, g = orc.value_and_grad_moments(u[None], mom)
+    out = {"f": t[..., 0], "m": t[..., 1], "cost": t[..., 0] + RISK * torch.sqrt(t[..., 2] + 1e-12)}
+    return out, {"value": v, "grad": g}, t[..., 2]
+
+
+def bf16_moment_forms(dev, card: str) -> dict:
+    """(a') the options forms' shared-moments forms (the risk of a
+    particle-sharded solve, ``ApgArgs.risk_mode``) at ``MOMENT_P`` = 256
+    antithetic particles, a rank's share of 512, with ``risk_lambda`` 2 and
+    the example's starts: ``value_batch`` moments out at K = 1 and 4 and
+    ``value_and_grad`` moments in (the moments of the plain twin's K = 1
+    triple), fp32 and bf16, each against its plain twin on the same tensors
+    (``value_batch``'s cost tolerance on ``f``, ``m`` and the cost they
+    price; ``value_and_grad``'s risk tolerance), the bf16 forms also more
+    than 10x from their fp32 forms; their times per launch beside the
+    in-cluster options forms' at the same shape and the plain twins'."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    b = make_bundle("iris_traj_mpc", dev)
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    z = brownian(MOMENT_P, dev, antithetic=True, seed=0)
+    cp, starts = with_options(b, ("risk", "starts"), x0, MOMENT_P, dev, seed=MOMENT_P)
+    args = (b.model, b.params, cp, b.time_steps, x0[None], x_ref[None], u_prev[None], z[None],
+            MOMENT_P, 4)
+    U, u = plans(4, 4, dev), plans(1, 3, dev)[0].contiguous()
+    out, runs = {}, {}
+    for bf in (False, True):
+        kern = CO.cost_oracle_batched(*args, starts=starts[None], bf16=bf)
+        plain = CO.cost_oracle_plain_batched(*args, starts=starts[None], bf16=bf)
+        one = plain.value_batch_moments(U[None, :1])[:, 0]
+        mom = torch.stack([one[:, 1], torch.sqrt(one[:, 2] + 1e-12)], -1).contiguous()
+        runs[bf] = [moment_metrics(o, U, u, mom) for o in (kern, plain)]
+        runs[bf].append((kern, plain, mom, CO.cost_oracle_batched(*args, starts=starts[None],
+                                                                  bf16=bf)))
+    for bf in (False, True):
+        (vb_k, vg_k, v_k), (vb_p, vg_p, v_p), (kern, plain, mom, incl) = runs[bf]
+        name = "bf16" if bf else "fp32"
+        r = {}
+        for kind, k, p, tol in (("value_batch", vb_k, vb_p, BF16_TOL["value_batch"]["cost"]),
+                                ("value_and_grad", vg_k, vg_p, None)):
+            tols = ({m: tol for m in k} if tol is not None
+                    else BF16_TOL["value_and_grad_risk"])
+            tag = (f"{kind} {'moments out' if kind == 'value_batch' else 'moments in'} "
+                   f"({name}, P={MOMENT_P} antithetic, risk + starts"
+                   + (", K = 1 and 4)" if kind == "value_batch" else ")"))
+            if bf:
+                k32 = runs[False][0][0 if kind == "value_batch" else 1]
+                r[kind] = _bf16_compare(tag, k, p, k32, tols)
+            else:
+                fns = {"f": _rel, "m": _rel, "cost": _rel, "value": _rel, "grad": _scaled}
+                err = {m: fns[m](k[m], p[m]) for m in k}
+                finite = all(bool(torch.isfinite(v).all()) for v in k.values())
+                log(f"fp32 form {tag}: against its plain twin "
+                    + ", ".join(f"{m} {err[m]:.3e} (tol {tols[m]:.0e})" for m in err))
+                if not (finite and all(err[m] <= tols[m] for m in err)):
+                    raise AssertionError(f"the fp32 form {tag} disagrees with its plain twin")
+                r[kind] = {"err": err}
+        r["value_batch"]["v_rel_err"] = _rel(v_k, v_p)
+        r["value_batch"]["ms_K1"] = per_launch_ms(lambda: kern.value_batch_moments(U[None, :1]),
+                                                  20)
+        r["value_batch"]["ms"] = per_launch_ms(lambda: kern.value_batch_moments(U[None]), 20)
+        r["value_batch"]["in_cluster_ms"] = per_launch_ms(lambda: incl.value_batch(U[None]), 20)
+        r["value_batch"]["plain_ms"] = per_launch_ms(lambda: plain.value_batch_moments(U[None]),
+                                                     2)
+        r["value_and_grad"]["ms"] = per_launch_ms(
+            lambda: kern.value_and_grad_moments(u[None], mom), 20)
+        r["value_and_grad"]["in_cluster_ms"] = per_launch_ms(
+            lambda: incl.value_and_grad(u[None]), 20)
+        r["value_and_grad"]["plain_ms"] = per_launch_ms(
+            lambda: plain.value_and_grad_moments(u[None], mom), 2)
+        # the bound on fp32 CUDA cores and (``_tc``) on the bf16 tensor cores,
+        # the peak for the bf16 forms' products (bf16 operands, fp32 sums)
+        nc = n_consts(b, dev)
+        for tc in ("", "_tc"):
+            on = dict(tc=bool(tc), P=MOMENT_P, starts=True)
+            r["value_batch"][f"bound{tc}"] = bound(b, "value_batch", nc, K=4, **on)
+            r["value_batch"][f"bound{tc}_K1_ms"] = bound(b, "value_batch", nc, K=1, **on)[0]
+            r["value_and_grad"][f"bound{tc}"] = bound(b, "value_and_grad", nc, **on)
+        out[name] = r
+        log(f"shared-moments forms, {name}, P={MOMENT_P} antithetic, risk + starts ({card}): "
+            f"value_batch moments out {r['value_batch']['ms']:.4f} ms per launch at K=4 "
+            f"({r['value_batch']['ms_K1']:.4f} at K=1; the in-cluster options form "
+            f"{r['value_batch']['in_cluster_ms']:.4f} at K=4; plain "
+            f"{r['value_batch']['plain_ms']:.2f}), value_and_grad moments in "
+            f"{r['value_and_grad']['ms']:.4f} ms (in-cluster {r['value_and_grad']['in_cluster_ms']:.4f};"
+            f" plain {r['value_and_grad']['plain_ms']:.2f}); the triples' v rel err "
+            f"{r['value_batch']['v_rel_err']:.3e}; bounds on fp32 CUDA cores / bf16 tensor "
+            f"cores: value_batch K=4 {r['value_batch']['bound'][0]:.6f} / "
+            f"{r['value_batch']['bound_tc'][0]:.6f} ms (K=1 "
+            f"{r['value_batch']['bound_K1_ms']:.6f} / {r['value_batch']['bound_tc_K1_ms']:.6f}), "
+            f"value_and_grad {r['value_and_grad']['bound'][0]:.6f} / "
+            f"{r['value_and_grad']['bound_tc'][0]:.6f} ms")
     return out
 
 
@@ -5265,7 +5420,8 @@ def bf16_route_table(dev) -> list:
 
 def phase_bf16(dev, card: str) -> dict:
     """Phase 28: reduced matmul precision (module docstring)."""
-    out = {"forms": bf16_forms(dev, card), "option_forms": bf16_option_forms(dev, card)}
+    out = {"forms": bf16_forms(dev, card), "option_forms": bf16_option_forms(dev, card),
+           "moment_forms": bf16_moment_forms(dev, card)}
     out["flagship"] = bf16_flagship(dev, card)
     out["routes"] = bf16_routes(dev, card)
     out["table"] = bf16_route_table(dev)
@@ -5280,6 +5436,7 @@ MESH_FLEET, MESH_TICKS = 64, 4          # (c)
 MESH_LABELS, MESH_TUNE_STEPS = 64, 10   # (d)
 MESH_S = 900.0                          # the pair's time limit
 MESH_TOL = (2e-4, 2e-5)                 # tests/test_sharding.py:103-104
+MESH_FIRST_TOL = 1e-5                   # (b), (b'): max|du| of the first solve
 MESH_DEVICES = None                     # each rank's device: None the card (cuda:0)
 
 
@@ -5298,9 +5455,20 @@ def phase_mesh(dev, card: str) -> dict:
         iterations over (1, 2), 3 chained solves: against the one-process
         host loop (a (1, 1) mesh) on the same draws and against the
         one-process whole-solve kernel at the same budget, rtol 2e-4 /
-        atol 2e-5; ms an iteration and the collectives' share of it;
+        atol 2e-5, and the first solve, before the chained solves amplify
+        the rounding, within max|du| 1e-5; the worst entry's error over its
+        allclose limit; ms an iteration and the collectives' share of it;
         ``value_and_grad`` and ``value_batch`` launches on both ranks,
         ``trajectory`` on rank 0 only;
+    (b') (b) with ``risk_lambda`` 2 and the example's ``initial_state_std``
+        (``hover_diag`` off, as phase 24): the ranks combine the risk
+        moments of their halves (the oracle's shared-moments forms), held
+        as (b) to the one-process host loop and to the whole-solve options
+        kernel, and more than 10x the tolerance from the same solves without
+        risk; each gradient one more ``value_batch`` launch (moments out,
+        K = 1) than in (b), every ``value_batch`` a moments-out and every
+        ``value_and_grad`` a moments-in launch; the solves' p50/p99
+        through ``SolveTimer``;
     (c) fleet: 64 vehicles over (2, 1), 4 ticks: the closed-loop states
         equal to the one-process fleet's;
     (d) ``label_states`` (64 states) and ``tune_cost_weights`` (27
@@ -5322,6 +5490,12 @@ def phase_mesh(dev, card: str) -> dict:
     pos = config("iris_posctrl_mpc", max_iter=BATCH_ITERS, max_no_improvement_iter=BATCH_ITERS)
     flag = config("iris_traj_mpc", particles=P_FULL, max_iter=MESH_FIXED_ITERS,
                   max_no_improvement_iter=MESH_FIXED_ITERS, atol=0.0, rtol=0.0)
+    flag_risk = copy.deepcopy(flag)
+    flag_risk["cost_params"]["risk_lambda"] = RISK
+    flag_risk["initial_state_std"] = OPTION_STD
+    # the hover_diag metric is keyed on the cost: a risk cost has no
+    # committed cache (phase 24)
+    flag_risk["apg_mpc"].pop("precond", None)
     fleet_cfg = config("iris_posctrl_mpc")
     label_cfg = config("iris_posctrl_mpc")
     dcfg = TD.DistillConfig(expert_max_iter=100)
@@ -5334,6 +5508,8 @@ def phase_mesh(dev, card: str) -> dict:
     routes = [
         ("dp_solve", dict(cfg=pos, B=MESH_B, steps=MESH_STEPS, shape=(MESH_RANKS, 1), **devs)),
         ("particle_solve", dict(cfg=flag, solves=MESH_SOLVES, shape=(1, MESH_RANKS), **devs)),
+        ("particle_solve", dict(cfg=flag_risk, solves=MESH_SOLVES, shape=(1, MESH_RANKS),
+                                **devs)),
         ("fleet", dict(cfg=fleet_cfg, B=MESH_FLEET, ticks=MESH_TICKS, shape=(MESH_RANKS, 1),
                        **devs)),
         ("labels", dict(cfg=label_cfg, xs=xs, ts=ts, xdes=xdes, u_prevs=ups,
@@ -5343,7 +5519,7 @@ def phase_mesh(dev, card: str) -> dict:
     ranks = spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:suite", MESH_RANKS,
                         {"routes": routes}, timeout=MESH_S, threads=None)
     spawn_s = time.perf_counter() - t0
-    (dp, mc, fl, lab, tune) = zip(*ranks)
+    (dp, mc, mc_risk, fl, lab, tune) = zip(*ranks)
     out = {"ranks": MESH_RANKS, "spawn_s": spawn_s, "launches": {}}
 
     # (a) dp against one process
@@ -5372,52 +5548,13 @@ def phase_mesh(dev, card: str) -> dict:
         f"{r3([r['gather_ms'] for r in dp])} ({card})")
 
     # (b) mc against the one-process host loop and the whole-solve kernel
-    loop = RT.particle_solve(copy.deepcopy(flag), solves=MESH_SOLVES, shape=(1, 1), **devs)
-    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(flag), device=dev)
-    from sde4mbrl_px4_tpu_torch.core.types import hover_state
-
-    x0 = hover_state(dev)
-    x0[0] = 0.4
-    gen = torch.Generator().manual_seed(3)
-    st = reset_fn(x0, gen, x0)
-    kern = []
-    for _ in range(MESH_SOLVES):
-        sol = mpc_fn(x0, gen, st, 0.0, x0)
-        st = sol.opt_state
-        kern.append(sol.u_opt.cpu().numpy())
-    rtol, atol = MESH_TOL
-    err = {"loop": 0.0, "kernel": 0.0}
-    for r in mc:
-        for k in range(MESH_SOLVES):
-            for name, ref in (("loop", loop["plans"][k]), ("kernel", kern[k])):
-                if not np.allclose(r["plans"][k], ref, rtol=rtol, atol=atol):
-                    raise AssertionError(f"mesh (b): rank {r['mc_index']} solve {k} differs "
-                                         f"from the one-process {name} beyond {MESH_TOL}")
-                err[name] = max(err[name], float(np.abs(r["plans"][k] - ref).max()))
-        if r["iterations"] != [float(MESH_FIXED_ITERS)] * MESH_SOLVES:
-            raise AssertionError(f"mesh (b): iterations {r['iterations']}")
-        # x_evol is rank 0's trajectory launch, broadcast
-        mesh_launched("(b)", r["launches"], {
-            "apg_solve": 0, "trajectory": MESH_SOLVES if r["mc_index"] == 0 else 0,
-            "value_and_grad": MESH_SOLVES * (MESH_FIXED_ITERS + 2),
-            "value_batch": MESH_SOLVES * MESH_FIXED_ITERS})
-    if not np.array_equal(mc[0]["plans"][-1], mc[1]["plans"][-1]):
-        raise AssertionError("mesh (b): the ranks' plans differ")
-    it_ms = [[w / MESH_FIXED_ITERS for w in r["wall_ms"]] for r in mc]
-    share = [r["collective_s"] * 1e3 / sum(r["wall_ms"]) for r in mc]
-    out["mc"] = {"P": P_FULL, "mc": MESH_RANKS, "iterations": MESH_FIXED_ITERS,
-                 "ms_per_iteration": it_ms,
-                 "one_process_loop_ms_per_iteration": [w / MESH_FIXED_ITERS
-                                                       for w in loop["wall_ms"]],
-                 "collective_share": share,
-                 "collective_calls": [r["collective_calls"] for r in mc],
-                 "max_abs_err_vs_loop": err["loop"], "max_abs_err_vs_kernel": err["kernel"]}
+    out["mc"] = mesh_mc("(b)", mc, flag, dev, card)
     out["launches"]["mc"] = [r["launches"] for r in mc]
-    log(f"phase 29 (b): P={P_FULL} over mc={MESH_RANKS}, {MESH_FIXED_ITERS} iterations: "
-        f"max|du| {err['loop']:.3e} vs the one-process host loop, {err['kernel']:.3e} vs "
-        f"the whole-solve kernel; ms an iteration by rank {[r3(r) for r in it_ms]} "
-        f"(one-process loop {r3(out['mc']['one_process_loop_ms_per_iteration'])}), the "
-        f"collectives {[round(100 * v, 1) for v in share]} % of it ({card})")
+
+    # (b') mc with risk and starts: the shared moments
+    out["mc_risk"] = mesh_mc("(b')", mc_risk, flag_risk, dev, card, risk=True)
+    out["launches"]["mc_risk"] = [r["launches"] for r in mc_risk]
+    out["launches"]["mc_risk_moments"] = [r["moments_launches"] for r in mc_risk]
 
     # (c) the fleet
     f1 = RT.fleet(copy.deepcopy(fleet_cfg), MESH_FLEET, ticks=MESH_TICKS, **devs)
@@ -5458,6 +5595,118 @@ def phase_mesh(dev, card: str) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
+    return out
+
+
+def kernel_plans(cfg: dict, dev, seed: int = 3) -> list:
+    """``MESH_SOLVES`` chained solves of ``cfg`` through the one-process
+    ``mpc_fn`` (the whole-solve kernel), from hover with x moved by 0.4 m,
+    drawn from ``torch.Generator().manual_seed(seed)`` as the ranks draw."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    x0 = hover_state(dev)
+    x0[0] = 0.4
+    gen = torch.Generator().manual_seed(seed)
+    st = reset_fn(x0, gen, x0)
+    out = []
+    for _ in range(MESH_SOLVES):
+        sol = mpc_fn(x0, gen, st, 0.0, x0)
+        st = sol.opt_state
+        out.append(sol.u_opt.cpu().numpy())
+    return out
+
+
+def mesh_mc(route: str, ranks, cfg: dict, dev, card: str, risk: bool = False) -> dict:
+    """Phase 29 (b) and, ``risk`` (``cfg`` with ``risk_lambda`` and starts),
+    (b'): the ranks' ``MESH_SOLVES`` chained solves of ``cfg`` over mc
+    against the one-process host loop and the whole-solve kernel on the same
+    draws, each solve within ``MESH_TOL`` and the first, before the chained
+    solves amplify the rounding, within ``MESH_FIRST_TOL``; the worst entry's
+    error over its ``allclose`` limit (``atol + rtol |ref|``); the ranks'
+    plans equal, ``MESH_FIXED_ITERS`` iterations and their launches (with
+    risk one more ``value_batch`` a gradient, every oracle launch a
+    shared-moments one, and the plans more than 10x ``MESH_TOL`` from the
+    solves without risk); ms an iteration, the collectives' share and
+    ``SolveTimer``'s p50/p99."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.parallel import rank_tasks as RT
+
+    rtol, atol = MESH_TOL
+    iters, grads = MESH_FIXED_ITERS, MESH_FIXED_ITERS + 2
+    loop = RT.particle_solve(copy.deepcopy(cfg), solves=MESH_SOLVES, shape=(1, 1),
+                             devices=MESH_DEVICES)
+    refs = {"loop": loop["plans"], "kernel": kernel_plans(cfg, dev)}
+    err = {name: [0.0] * MESH_SOLVES for name in refs}
+    limit = {name: 0.0 for name in refs}
+    for r in ranks:
+        for k in range(MESH_SOLVES):
+            for name, ref in refs.items():
+                got, want = r["plans"][k], ref[k]
+                if not np.allclose(got, want, rtol=rtol, atol=atol):
+                    raise AssertionError(f"mesh {route}: rank {r['mc_index']} solve {k} "
+                                         f"differs from the one-process {name} beyond "
+                                         f"{MESH_TOL}")
+                du = np.abs(got - want)
+                err[name][k] = max(err[name][k], float(du.max()))
+                limit[name] = max(limit[name], float((du / (atol + rtol * np.abs(want))).max()))
+        if r["iterations"] != [float(iters)] * MESH_SOLVES:
+            raise AssertionError(f"mesh {route}: iterations {r['iterations']}")
+        vb = MESH_SOLVES * (iters + (grads if risk else 0))
+        # x_evol is rank 0's trajectory launch, broadcast
+        mesh_launched(route, r["launches"], {
+            "apg_solve": 0, "trajectory": MESH_SOLVES if r["mc_index"] == 0 else 0,
+            "value_and_grad": MESH_SOLVES * grads, "value_batch": vb})
+        if risk:
+            mesh_launched(f"{route} shared-moments forms", r["moments_launches"],
+                          {"value_and_grad": MESH_SOLVES * grads, "value_batch": vb})
+    first = {name: e[0] for name, e in err.items()}
+    if max(first.values()) > MESH_FIRST_TOL:
+        raise AssertionError(f"mesh {route}: the first solve differs from one process's by "
+                             f"{first}, beyond {MESH_FIRST_TOL}")
+    if not np.array_equal(ranks[0]["plans"][-1], ranks[1]["plans"][-1]):
+        raise AssertionError(f"mesh {route}: the ranks' plans differ")
+    it_ms = [[w / iters for w in r["wall_ms"]] for r in ranks]
+    share = [r["collective_s"] * 1e3 / sum(r["wall_ms"]) for r in ranks]
+    out = {"P": P_FULL, "mc": MESH_RANKS, "iterations": iters, "ms_per_iteration": it_ms,
+           "one_process_loop_ms_per_iteration": [w / iters for w in loop["wall_ms"]],
+           "collective_share": share,
+           "collective_calls": [r["collective_calls"] for r in ranks],
+           "solve_p50_ms": [r["solve_stats"]["p50_ms"] for r in ranks],
+           "solve_p99_ms": [r["solve_stats"]["p99_ms"] for r in ranks],
+           "max_abs_err_vs_loop": max(err["loop"]), "max_abs_err_vs_kernel": max(err["kernel"]),
+           "max_abs_err_by_solve": err, "worst_err_over_limit": limit}
+    what = ""
+    if risk:
+        free_cfg = copy.deepcopy(cfg)
+        del free_cfg["cost_params"]["risk_lambda"]
+        free = np.stack(kernel_plans(free_cfg, dev))
+        for r in ranks:
+            if np.allclose(np.stack(r["plans"]), free, rtol=10 * rtol, atol=10 * atol):
+                raise AssertionError(f"mesh {route}: the risk solves are within 10x the "
+                                     f"tolerance of the solves without risk: the check would "
+                                     f"pass without risk")
+        out["risk_lambda"] = RISK
+        out["max_abs_gap_to_no_risk"] = min(float(np.abs(np.stack(r["plans"]) - free).max())
+                                            for r in ranks)
+        what = f" with risk {RISK} and starts"
+    r3 = lambda vs: [round(v, 3) for v in vs]
+    e1 = lambda vs: [f"{v:.1e}" for v in vs]
+    log(f"phase 29 {route}: P={P_FULL} over mc={MESH_RANKS}{what}, {iters} iterations: "
+        f"max|du| {out['max_abs_err_vs_loop']:.3e} vs the one-process host loop, "
+        f"{out['max_abs_err_vs_kernel']:.3e} vs the whole-solve kernel (by solve "
+        f"{e1(err['loop'])}, {e1(err['kernel'])}; the first within {MESH_FIRST_TOL}); the "
+        f"worst entry at {limit['loop']:.3f} / {limit['kernel']:.3f} of its allclose limit "
+        f"{MESH_TOL}"
+        + (f"; {out['max_abs_gap_to_no_risk']:.3e} to the solves without risk" if risk else "")
+        + f"; ms an iteration by rank {[r3(r) for r in it_ms]} (one-process loop "
+        f"{r3(out['one_process_loop_ms_per_iteration'])}), the collectives "
+        f"{[round(100 * v, 1) for v in share]} % of it; solves p50 / p99 (SolveTimer) "
+        f"{r3(out['solve_p50_ms'])} / {r3(out['solve_p99_ms'])} ms ({card})")
     return out
 
 
@@ -5633,8 +5882,9 @@ def main() -> int:
     mesh = phase_mesh(dev, card)
     log("phase 29: the mesh layer: rank pairs on the card over gloo; dp batched solves, the "
         "fleet, labels and the weight sweep equal one process row for row, the P=512 "
-        "particle-sharded solve matches the host loop and the whole-solve kernel, and a "
-        "launch.py world of two serves and stops cleanly")
+        "particle-sharded solve matches the host loop and the whole-solve kernel (and so "
+        "with risk and starts, on the shared-moments forms), and a launch.py world of two "
+        "serves and stops cleanly")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -6036,6 +6286,31 @@ def main() -> int:
                    shared_memory_step_is=f"the bf16 form on the trunk padded to {PADDED_HID} "
                                          "units, K=64 (no launch on the main path: the iris "
                                          "trunk runs the register chain)")]
+    # phase 28 (a') and 29 (b'): the options forms' shared-moments forms, bf16
+    # on the main path ((b') runs the flagship's bf16 trunk), fp32 beside them
+    mf, mr = bf["moment_forms"], mesh["mc_risk"]
+    mlm = mesh["launches"]["mc_risk_moments"]
+    for name, mode in (("value_batch", "moments out"), ("value_and_grad", "moments in")):
+        r16, r32 = mf["bf16"][name], mf["fp32"][name]
+        kernels.append(entry(
+            name, f"bf16 trunk, particles with risk and starts, {mode}: the particle-sharded "
+                  f"solve's risk, P={MOMENT_P} (a rank's share of {P_FULL})",
+            sum(n[name] for n in mlm), max(r16["err"].values()), r16["ms"], r16["plain_ms"],
+            r16["bound"], timed="per launch" + (", K=4" if name == "value_batch" else "")
+                                + f" at P={MOMENT_P} antithetic (phase 28 (a'))",
+            bound_tc_ms=r16["bound_tc"][0],
+            err_by_metric=r16["err"], gap_to_fp32_form=r16["gap"],
+            in_cluster_options_form_ms=r16["in_cluster_ms"], fp32_form_ms=r32["ms"],
+            fp32_form_plain_ms=r32["plain_ms"], fp32_form_err_by_metric=r32["err"],
+            fp32_form_in_cluster_ms=r32["in_cluster_ms"],
+            mesh_ms_per_iteration=mr["ms_per_iteration"],
+            mesh_collective_share=mr["collective_share"],
+            max_abs_err_is="the largest of err_by_metric (relative; the gradient's over its "
+                           "largest entry), against the plain bf16 twin (phase 28 (a'))",
+            **({"ms_K1": r16["ms_K1"], "bound_ms_K1": r16["bound_K1_ms"],
+                "bound_tc_ms_K1": r16["bound_tc_K1_ms"],
+                "v_rel_err": r16["v_rel_err"], "fp32_form_v_rel_err": r32["v_rel_err"]}
+               if name == "value_batch" else {})))
     # phase 29's launches, summed over the ranks, on the rows of the forms
     # they ran (the flagship's oracle forms are its bf16 ones)
     ml = mesh["launches"]

@@ -16,6 +16,18 @@ particles' discounted totals ``tot_p`` (tracking, constraint terms and the
 uncertainty penalty) enter as ``mean + risk_lambda * sqrt(var + 1e-12)``,
 the population variance taken about the mean (centred first).
 
+Over a sharded particle axis (``parallel/batched.py::
+make_particle_sharded_mpc``) each process holds an equal block of the P
+particles. :func:`make_risk_moments_fn` gives a block's
+``(f, m, v)``: its cost without the risk term, the mean of its totals and
+their centred second moment; :func:`combine_risk_moments` combines the
+blocks' triples in block order into the cost over all P (Chan's formula
+for equal blocks, algebraically the one-process centred variance; no
+one-pass sum of squares, which cancels when the spread is small against the
+mean), and into the mean and std the gradient needs;
+:func:`make_risk_surrogate_fn` takes them back and gives a surrogate whose
+gradient over the block is the block's share of the risk cost's.
+
 The tracking weights ``perr``/``verr``/``qerr``/``werr`` may carry a
 leading (B,) axis, one row per scenario of a batched solve (the tuner's
 candidates, ``tuning/tuner.py``): :func:`scenario_cost` is scenario b's
@@ -32,7 +44,8 @@ import torch
 
 from sde4mbrl_px4_tpu_torch.core import quaternion as quat
 
-__all__ = ["TRACKING_FIELDS", "CostParams", "make_cost_fn", "scenario_cost",
+__all__ = ["TRACKING_FIELDS", "CostParams", "combine_risk_moments", "make_cost_fn",
+           "make_risk_moments_fn", "make_risk_surrogate_fn", "scenario_cost",
            "tracking_weights"]
 
 # the stage-tracking weights, in the order the kernels' wstate block holds them
@@ -169,6 +182,64 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
     in the original's order (prox coupling, then the penalty form's
     ``constr_pen * viol``).
     """
+    body = _cost_body(cp, time_steps, with_risk=True)
+    return lambda *a, **kw: body(*a, **kw)[0]
+
+
+def make_risk_moments_fn(cp: CostParams, time_steps: torch.Tensor):
+    """A block of particles' ``(f, m, v)`` (3,) for a cost with
+    ``risk_lambda`` (module docstring): :func:`make_cost_fn`'s arguments
+    (P > 1), the cost without the risk term and the mean and centred second
+    moment of the particles' totals."""
+    body = _risk_body(cp, time_steps)
+
+    def moments_fn(*a, **kw):
+        j, tot_p = body(*a, **kw)
+        m = torch.mean(tot_p)
+        return torch.stack([j, m, torch.mean((tot_p - m) ** 2)])
+
+    return moments_fn
+
+
+def make_risk_surrogate_fn(cp: CostParams, time_steps: torch.Tensor):
+    """``surrogate(x_paths, sigma_paths, u_seq, x_ref, u_prev, s_seq,
+    moments) -> (f, f + risk_lambda * mean((tot - m)**2) / (2 sd))`` (2,),
+    ``moments`` (2,) the mean m and std sd of the totals over all particles
+    (module docstring). With m and sd held, the second entry's gradient is
+    ``mean_p((1 + risk_lambda (tot_p - m) / sd) dtot_p)`` plus the control
+    terms' (the ``dm`` term vanishes: the deviations sum to 0 over all
+    particles)."""
+    body = _risk_body(cp, time_steps)
+
+    def surrogate_fn(x_paths, sigma_paths, u_seq, x_ref, u_prev, s_seq, moments):
+        j, tot_p = body(x_paths, sigma_paths, u_seq, x_ref, u_prev, s_seq)
+        m, sd = moments[0], moments[1]
+        return torch.stack([j, j + cp.risk_lambda * torch.mean((tot_p - m) ** 2) / (2 * sd)])
+
+    return surrogate_fn
+
+
+def _risk_body(cp: CostParams, time_steps: torch.Tensor):
+    """:func:`_cost_body` without the risk term, for a cost with
+    ``risk_lambda``; its totals must have P > 1 particles."""
+    if cp.risk_lambda is None:
+        raise ValueError("the risk moments need a cost with risk_lambda")
+    body = _cost_body(cp, time_steps, with_risk=False)
+
+    def risk_body(*a, **kw):
+        j, tot_p = body(*a, **kw)
+        if tot_p is None:
+            raise ValueError("the risk moments need the particles of a Monte-Carlo cost "
+                             "(P > 1)")
+        return j, tot_p
+
+    return risk_body
+
+
+def _cost_body(cp: CostParams, time_steps: torch.Tensor, with_risk: bool):
+    """``(j, tot_p)``: :func:`make_cost_fn`'s cost, its risk term only
+    ``with_risk``, and the particles' totals where ``risk_lambda`` is set
+    and P > 1 (else None)."""
     H = int(time_steps.shape[0])
     disc = discount_vector(cp, H, time_steps.device)
 
@@ -194,10 +265,12 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
                 disc * torch.sum(sigma_paths * sigma_paths, -1), dim=-1)     # (P,)
         tr_p = torch.sum(disc * track, dim=-1)                               # (P,)
         j_track = torch.mean(tr_p)
+        tot_p = None
         if cp.risk_lambda is not None and tr_p.shape[0] > 1:
             tot_p = tr_p if res_p is None else tr_p + res_p
-            var = torch.mean((tot_p - torch.mean(tot_p)) ** 2)
-            j_track = j_track + cp.risk_lambda * torch.sqrt(var + 1e-12)
+            if with_risk:
+                var = torch.mean((tot_p - torch.mean(tot_p)) ** 2)
+                j_track = j_track + cp.risk_lambda * torch.sqrt(var + 1e-12)
 
         du = u_seq - cp.uref
         j_u = cp.uerr * torch.sum(disc[:, None] * du * du)
@@ -215,6 +288,27 @@ def make_cost_fn(cp: CostParams, time_steps: torch.Tensor):
 
         if res_p is not None:
             j = j + torch.mean(res_p)
-        return j
+        return j, tot_p
 
     return cost_fn
+
+
+def combine_risk_moments(parts: torch.Tensor, risk_lambda: float):
+    """The risk cost over all particles from equal blocks of them: ``parts``
+    (R, ..., 3), block r's ``(f_r, m_r, v_r)`` (:func:`make_risk_moments_fn`)
+    in block order. Returns ``(value, m, sd)`` (...):
+    ``m = mean_r m_r``, ``var = mean_r (v_r + (m_r - m)**2)`` (Chan's
+    formula for blocks of equal size), ``sd = sqrt(var + 1e-12)`` and
+    ``value = mean_r f_r + risk_lambda * sd``; every mean sums in block
+    order, so every process that holds the same ``parts`` gets the same
+    bits."""
+    def mean(x):
+        acc = x[0]
+        for r in range(1, int(x.shape[0])):
+            acc = acc + x[r]
+        return acc / int(x.shape[0])
+
+    f, m_r, v_r = parts.unbind(-1)
+    m = mean(m_r)
+    sd = torch.sqrt(mean(v_r + (m_r - m) ** 2) + 1e-12)
+    return mean(f) + risk_lambda * sd, m, sd

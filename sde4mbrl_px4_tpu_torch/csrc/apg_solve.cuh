@@ -50,8 +50,12 @@ struct ApgArgs {
   // particles' discounted totals at mean + lambda * std (cost_params.
   // risk_lambda, lambda at scal[SC_RISK]); has_starts = 1 when the launch
   // passes the particles' starts (initial_state_std). Both 0 at P = 1; a
-  // particle launch with either runs the kernels' OPT forms.
-  int risk, has_starts;
+  // particle launch with either runs the kernels' OPT forms. risk_mode
+  // (RISK_*, below) is where a risk launch of the oracle kernels gets the
+  // moments of its particles' totals: 0 from its own cluster (every other
+  // kernel, and the default); the particle-sharded solve's value_batch
+  // writes them out, its value_and_grad reads them in.
+  int risk, has_starts, risk_mode;
   // The scenario axis of every kernel: `batch` independent problems in one
   // launch (B >= 1). The whole solve, value_and_grad and trajectory take
   // scenario b on one block (P=1) or one cluster (particles); value_batch
@@ -91,6 +95,17 @@ enum { CONSTR_NONE = 0, CONSTR_PENALTY = 1, CONSTR_PROX = 2 };
 
 // Whether a launch takes the particle options' forms (OPT = true).
 inline bool options(const ApgArgs& a) { return a.risk != 0 || a.has_starts != 0; }
+
+// The risk modes (ApgArgs::risk_mode; a template parameter RM of the
+// oracle's options forms, sweeps.cuh's Risk note). IN_CLUSTER: the moments
+// of the totals over the launch's own P particles, two ordered cluster sums
+// (the one-process solve). MOMENTS_OUT (value_batch): each plan's
+// risk-free cost, the mean of its totals and their centred second moment,
+// over the launch's particles, written out for the host to combine across
+// the blocks of particles of a sharded solve. MOMENTS_IN (value_and_grad):
+// the mean and std of the totals over all particles read in per scenario,
+// and the rows weighed with them.
+enum { RISK_IN_CLUSTER = 0, RISK_MOMENTS_OUT = 1, RISK_MOMENTS_IN = 2 };
 
 // The constraint fields agree with the decision width.
 inline bool constr_args_ok(const ApgArgs& a) {

@@ -84,6 +84,18 @@
 // OPT = true form (value_batch_kernel<true, SC, false, true>,
 // value_and_grad_kernel<true, SC, true>).
 //
+// Risk over the blocks of particles of a sharded solve (ApgArgs::risk_mode,
+// apg_solve.cuh RISK_*; the template parameter RM of the OPT forms, whose
+// default RISK_IN_CLUSTER compiles to the code they had): a process holds
+// P/mc of the P particles, so the moments of the totals over all P are not
+// in its cluster. value_batch's RISK_MOMENTS_OUT form writes each plan's
+// risk-free cost, the mean of its totals and their centred second moment
+// over the launch's particles, (B, K, 3) into `out`, and the host combines
+// the blocks' triples (cost/cost.py::combine_risk_moments);
+// value_and_grad's RISK_MOMENTS_IN form reads each scenario's (m, std) over
+// all P from `moments` (B, 2) and weighs its rows with them, each chunk's
+// reverse right after its own forward (sweeps.cuh, Risk).
+//
 // Reduced matmul precision (ApgArgs::bf16, sweeps.cuh): the bf16-trunk
 // instantiations (BF) of value_batch (the particle forms and the P=1 ones,
 // value_batch_kernel<PART, SC, REG, OPT, true>) and of value_and_grad's
@@ -187,7 +199,9 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
     }
   }
   const int np = risk ? 3 : 2;                // the partial means (risk: + totals)
-  if (part) take(&t->cacc, np * R);
+  // value_batch with risk: + the centred second moments a moments-out form
+  // writes out
+  if (part) take(&t->cacc, (kind == ORACLE_VALUE_BATCH && risk ? 4 : np) * R);
   // a block's chunk partials: value_and_grad's gradient and 2 costs (+ the
   // totals' mean with risk), the candidates' 2R (3R) means
   if (part && kind == ORACLE_VALUE_AND_GRAD) take(&t->pg, a.chunks_per_block * (HZ + np));
@@ -230,13 +244,18 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // The particle form states a minimum of one 512-thread block per SM (its
 // 100-128 registers a thread allow no second): without it, ptxas took the
 // proximal form to 64 registers (two blocks per SM) and a 108-byte spill
-// once the scenario offsets were added.
-template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false>
+// once the scenario offsets were added. RM (PART and OPT): RISK_MOMENTS_OUT
+// writes plan i's risk-free cost, the mean of its totals and their centred
+// second moment to out[3i ..] (out (B, K, 3)).
+template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
+          int RM = RISK_IN_CLUSTER>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
                    const float* __restrict__ starts, float* __restrict__ out) {
   static_assert(!(PART && REG), "the register chain is the P=1 forms'");
+  static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_OUT, "value_batch writes moments");
+  static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
   layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem);
@@ -261,8 +280,9 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
       if (tid == 0) starts_p = starts ? starts + (size_t)(k0 / K) * ((size_t)a.P * 13) : nullptr;
       __syncthreads();
     }
-    cand_part<SC, false, OPT, BF>(a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
-                              [&]() -> const float* { return starts_p; });
+    cand_part<SC, false, OPT, BF, RM>(a, s, 1,
+                                      noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
+                                      [&]() -> const float* { return starts_p; });
     if (cg::this_cluster().block_rank() != 0) return;
   } else if constexpr (REG) {
     p1_rollout<SC, false, false, BF>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
@@ -287,9 +307,19 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   const float* cost_t = PART ? s.cacc : s.jt;
   const float* cost_r = PART ? s.cacc + R : s.jr;
   if (tid < R) {
-    float* o = out + k0 + tid;
-    if constexpr (!PART) o += grid_row() * K;
-    *o = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
+    const float f = (cost_t[tid] + scal[SC_RESM] * cost_r[tid]) + s.red[tid];
+    if constexpr (RM == RISK_MOMENTS_OUT) {
+      // R = 1: cand_part's K = 1 leaves the totals' mean in s.cacc[2] and
+      // their centred second moment in s.cacc[3]
+      float* o = out + 3 * (size_t)k0;
+      o[0] = f;
+      o[1] = s.cacc[2];
+      o[2] = s.cacc[3];
+    } else {
+      float* o = out + k0 + tid;
+      if constexpr (!PART) o += grid_row() * K;
+      *o = f;
+    }
   }
 }
 
@@ -326,16 +356,21 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // The cost of one plan and its gradient, for scenario b = block b (P=1) or
 // cluster b (particles): its consts, plan u (H, nZ), Brownian block, value
 // and gradient (H, nZ) at b times their stride. BF (particles): the bf16
-// trunk.
-template <bool PART, int SC, bool OPT = false, bool BF = false>
+// trunk. RM (PART and OPT): RISK_MOMENTS_IN weighs the rows with the
+// scenario's mean and std of the totals over all particles, moments[2b ..]
+// (moments (B, 2)), and val is then its risk-free cost over these
+// particles.
+template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
-                      const float* __restrict__ starts, float* __restrict__ val,
-                      float* __restrict__ grad) {
+                      const float* __restrict__ starts, const float* __restrict__ moments,
+                      float* __restrict__ val, float* __restrict__ grad) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float fval;
   static_assert(PART || !BF, "the P=1 value_and_grad has no bf16 trunk");
+  static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_IN, "value_and_grad reads moments");
+  static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -349,8 +384,14 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
     if constexpr (OPT)
       if (tid == 0)
         starts_p = starts ? starts + vg_scenario<true>() * ((size_t)a.P * 13) : nullptr;
+    // RM: the scenario's moments where vg_part reads them
+    if constexpr (RM == RISK_MOMENTS_IN)
+      if (tid == 0) {
+        s.red[6] = moments[2 * vg_scenario<true>()];
+        s.red[7] = moments[2 * vg_scenario<true>() + 1];
+      }
     transpose_weights(a, s);                 // ends with a barrier
-    vg_part<SC, false, OPT, BF>(
+    vg_part<SC, false, OPT, BF, RM>(
         a, s, &fval, s.cand,
         [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
         [&]() -> const float* { return starts_p; });
@@ -396,14 +437,15 @@ bool args_ok(const ApgArgs* a) {
 // ceil(K / tile) blocks on each of a.batch grid rows; particles B x K
 // clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
 // the card cannot schedule returns).
-template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false>
+template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
+          int RM = RISK_IN_CLUSTER>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
                                const float* starts, float* out) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF>, K, tile,
-                              a, consts, U, noise, starts, out);
+    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF, RM>, K,
+                              tile, a, consts, U, noise, starts, out);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
     value_batch_kernel<false, SC, REG, false, BF><<<grid, ORACLE_NTHREADS, dyn, st>>>(
@@ -415,8 +457,13 @@ using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStrea
                                      const float*, const float*, const float*, const float*,
                                      float*);
 // [bf16][form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on
-// the register chain, 2 particles, 3 particles with the options
-const ValueBatchFn kValueBatch[2][4][3] = {
+// the register chain, 2 particles, 3 particles with the options, 4 their
+// moments-out form
+#define MOMENTS_OUT_FORMS(BF)                                                              \
+  {launch_value_batch<true, CONSTR_NONE, false, true, BF, RISK_MOMENTS_OUT>,               \
+   launch_value_batch<true, CONSTR_PENALTY, false, true, BF, RISK_MOMENTS_OUT>,            \
+   launch_value_batch<true, CONSTR_PROX, false, true, BF, RISK_MOMENTS_OUT>}
+const ValueBatchFn kValueBatch[2][5][3] = {
     {{launch_value_batch<false, CONSTR_NONE, false, false, false>,
       launch_value_batch<false, CONSTR_PENALTY, false, false, false>,
       launch_value_batch<false, CONSTR_PROX, false, false, false>},
@@ -428,7 +475,8 @@ const ValueBatchFn kValueBatch[2][4][3] = {
       launch_value_batch<true, CONSTR_PROX, false, false, false>},
      {launch_value_batch<true, CONSTR_NONE, false, true, false>,
       launch_value_batch<true, CONSTR_PENALTY, false, true, false>,
-      launch_value_batch<true, CONSTR_PROX, false, true, false>}},
+      launch_value_batch<true, CONSTR_PROX, false, true, false>},
+     MOMENTS_OUT_FORMS(false)},
     {{launch_value_batch<false, CONSTR_NONE, false, false, true>,
       launch_value_batch<false, CONSTR_PENALTY, false, false, true>,
       launch_value_batch<false, CONSTR_PROX, false, false, true>},
@@ -440,31 +488,37 @@ const ValueBatchFn kValueBatch[2][4][3] = {
       launch_value_batch<true, CONSTR_PROX, false, false, true>},
      {launch_value_batch<true, CONSTR_NONE, false, true, true>,
       launch_value_batch<true, CONSTR_PENALTY, false, true, true>,
-      launch_value_batch<true, CONSTR_PROX, false, true, true>}}};
+      launch_value_batch<true, CONSTR_PROX, false, true, true>},
+     MOMENTS_OUT_FORMS(true)}};
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
 // returns).
-template <bool PART, int SC, bool OPT = false, bool BF = false>
+template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
-                                  const float* starts, float* val, float* grad) {
+                                  const float* starts, const float* moments, float* val,
+                                  float* grad) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF>, a, consts, u,
-                              noise, starts, val, grad);
+    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM>, a, consts,
+                              u, noise, starts, moments, val, grad);
   } else {
     value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(
-        a, consts, u, noise, starts, val, grad);
+        a, consts, u, noise, starts, moments, val, grad);
     return cudaSuccess;
   }
 }
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
-                                       const float*, const float*, const float*, float*,
-                                       float*);
+                                       const float*, const float*, const float*, const float*,
+                                       float*, float*);
 // [form][sc_kind]: form 0 P=1, 1 particles, 2 particles with the options,
-// 3 and 4 the bf16 trunk of 1 and 2
-const ValueAndGradFn kValueAndGrad[5][3] = {
+// 3 and 4 the bf16 trunk of 1 and 2, 5 and 6 the moments-in form of 2 and 4
+#define MOMENTS_IN_FORMS(BF)                                                               \
+  {launch_value_and_grad<true, CONSTR_NONE, true, BF, RISK_MOMENTS_IN>,                    \
+   launch_value_and_grad<true, CONSTR_PENALTY, true, BF, RISK_MOMENTS_IN>,                 \
+   launch_value_and_grad<true, CONSTR_PROX, true, BF, RISK_MOMENTS_IN>}
+const ValueAndGradFn kValueAndGrad[7][3] = {
     {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
      launch_value_and_grad<false, CONSTR_PROX>},
     {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
@@ -477,40 +531,55 @@ const ValueAndGradFn kValueAndGrad[5][3] = {
      launch_value_and_grad<true, CONSTR_PROX, false, true>},
     {launch_value_and_grad<true, CONSTR_NONE, true, true>,
      launch_value_and_grad<true, CONSTR_PENALTY, true, true>,
-     launch_value_and_grad<true, CONSTR_PROX, true, true>}};
+     launch_value_and_grad<true, CONSTR_PROX, true, true>},
+    MOMENTS_IN_FORMS(false), MOMENTS_IN_FORMS(true)};
 
 // The particle forms' kernels [bf16][opt][sc_kind] of value_batch and
-// value_and_grad.
+// value_and_grad: opt 0 without the options, 1 with them, 2 their
+// shared-moments form (value_batch's moments out, value_and_grad's moments
+// in).
 using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
                           const float*, float*);
 using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                          float*, float*);
-const VbKernel kVbForms[2][2][3] = {
+                          const float*, float*, float*);
+#define VB_MOMENTS(BF)                                                                     \
+  {value_batch_kernel<true, CONSTR_NONE, false, true, BF, RISK_MOMENTS_OUT>,               \
+   value_batch_kernel<true, CONSTR_PENALTY, false, true, BF, RISK_MOMENTS_OUT>,            \
+   value_batch_kernel<true, CONSTR_PROX, false, true, BF, RISK_MOMENTS_OUT>}
+#define VG_MOMENTS(BF)                                                                     \
+  {value_and_grad_kernel<true, CONSTR_NONE, true, BF, RISK_MOMENTS_IN>,                    \
+   value_and_grad_kernel<true, CONSTR_PENALTY, true, BF, RISK_MOMENTS_IN>,                 \
+   value_and_grad_kernel<true, CONSTR_PROX, true, BF, RISK_MOMENTS_IN>}
+const VbKernel kVbForms[2][3][3] = {
     {{value_batch_kernel<true, CONSTR_NONE, false, false, false>,
       value_batch_kernel<true, CONSTR_PENALTY, false, false, false>,
       value_batch_kernel<true, CONSTR_PROX, false, false, false>},
      {value_batch_kernel<true, CONSTR_NONE, false, true, false>,
       value_batch_kernel<true, CONSTR_PENALTY, false, true, false>,
-      value_batch_kernel<true, CONSTR_PROX, false, true, false>}},
+      value_batch_kernel<true, CONSTR_PROX, false, true, false>},
+     VB_MOMENTS(false)},
     {{value_batch_kernel<true, CONSTR_NONE, false, false, true>,
       value_batch_kernel<true, CONSTR_PENALTY, false, false, true>,
       value_batch_kernel<true, CONSTR_PROX, false, false, true>},
      {value_batch_kernel<true, CONSTR_NONE, false, true, true>,
       value_batch_kernel<true, CONSTR_PENALTY, false, true, true>,
-      value_batch_kernel<true, CONSTR_PROX, false, true, true>}}};
-const VgKernel kVgForms[2][2][3] = {
+      value_batch_kernel<true, CONSTR_PROX, false, true, true>},
+     VB_MOMENTS(true)}};
+const VgKernel kVgForms[2][3][3] = {
     {{value_and_grad_kernel<true, CONSTR_NONE, false, false>,
       value_and_grad_kernel<true, CONSTR_PENALTY, false, false>,
       value_and_grad_kernel<true, CONSTR_PROX, false, false>},
      {value_and_grad_kernel<true, CONSTR_NONE, true, false>,
       value_and_grad_kernel<true, CONSTR_PENALTY, true, false>,
-      value_and_grad_kernel<true, CONSTR_PROX, true, false>}},
+      value_and_grad_kernel<true, CONSTR_PROX, true, false>},
+     VG_MOMENTS(false)},
     {{value_and_grad_kernel<true, CONSTR_NONE, false, true>,
       value_and_grad_kernel<true, CONSTR_PENALTY, false, true>,
       value_and_grad_kernel<true, CONSTR_PROX, false, true>},
      {value_and_grad_kernel<true, CONSTR_NONE, true, true>,
       value_and_grad_kernel<true, CONSTR_PENALTY, true, true>,
-      value_and_grad_kernel<true, CONSTR_PROX, true, true>}}};
+      value_and_grad_kernel<true, CONSTR_PROX, true, true>},
+     VG_MOMENTS(true)}};
 
 // The particle fields, the noise block and the particle options (risk and
 // starts: particles only), when the kernel reads them.
@@ -522,10 +591,21 @@ bool particles_ok(const ApgArgs* a, const void* noise, const void* starts) {
          a->Pc * a->n_chunks == a->P;
 }
 
+// The form of a particle launch of `kind` (ORACLE_VALUE_BATCH,
+// ORACLE_VALUE_AND_GRAD) by its options (kVbForms' `opt`): 0 without them,
+// 1 with them, 2 their shared-moments form (a.risk_mode; risk only); -1 for
+// a risk mode the kernel does not take (value_batch writes the moments out,
+// value_and_grad reads them in).
+int opt_form(const ApgArgs* a, int kind) {
+  if (a->risk_mode == RISK_IN_CLUSTER) return options(*a) ? 1 : 0;
+  const int mode = kind == ORACLE_VALUE_BATCH ? RISK_MOMENTS_OUT : RISK_MOMENTS_IN;
+  return a->risk_mode == mode && a->has_noise && a->risk ? 2 : -1;
+}
+
 // The largest cluster of each particle form [kind][bf16][opt][sc_kind],
-// value_batch and value_and_grad, without and with the options and the
-// bf16 trunk (cost_oracle_init; 0 before it).
-int g_cmax[3][2][2][3] = {};
+// value_batch and value_and_grad, without and with the options (and their
+// shared-moments forms) and the bf16 trunk (cost_oracle_init; 0 before it).
+int g_cmax[3][2][3][3] = {};
 
 bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
 
@@ -555,7 +635,7 @@ const char* cost_oracle_error_string(int err) {
 // loaded; returns a cudaError_t.
 int cost_oracle_init() {
   for (int bf = 0; bf < 2; ++bf)
-    for (int o = 0; o < 2; ++o)
+    for (int o = 0; o < 3; ++o)
       for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
         const VbKernel vb = kVbForms[bf][o][sc];
         const VgKernel vg = kVgForms[bf][o][sc];
@@ -571,21 +651,23 @@ int cost_oracle_init() {
 }
 
 // The largest cluster of the particle form of `kind` (ORACLE_VALUE_BATCH,
-// ORACLE_VALUE_AND_GRAD), sc_kind, opt (the options' form) and bf16 (the
-// bf16 trunk's); 0 for other kinds.
+// ORACLE_VALUE_AND_GRAD), sc_kind, opt (0 without the options, 1 the
+// options' form, 2 its shared-moments form) and bf16 (the bf16 trunk's); 0
+// for other kinds.
 int oracle_cluster_max(int kind, int sc_kind, int opt, int bf16) {
-  return (kind == ORACLE_VALUE_BATCH || kind == ORACLE_VALUE_AND_GRAD) && sc_ok(sc_kind)
-             ? g_cmax[kind][bf16 != 0][opt != 0][sc_kind] : 0;
+  return (kind == ORACLE_VALUE_BATCH || kind == ORACLE_VALUE_AND_GRAD) && sc_ok(sc_kind) &&
+                 opt >= 0 && opt <= 2
+             ? g_cmax[kind][bf16 != 0][opt][sc_kind] : 0;
 }
 
 // cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
 // dimensions, cluster size and precision, into *n; returns a cudaError_t.
 int oracle_max_active_clusters(int kind, const ApgArgs* a, int* n) {
   if (!a->has_noise || !sc_ok(a->sc_kind) || a->cluster < 1 ||
-      (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD))
+      (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD) || opt_form(a, kind) < 0)
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a, kind, 1, true);
-  const int bf = a->bf16 != 0, o = options(*a);
+  const int bf = a->bf16 != 0, o = opt_form(a, kind);
   return (int)(kind == ORACLE_VALUE_BATCH
                    ? max_active_clusters(kVbForms[bf][o][a->sc_kind], a->cluster,
                                          ORACLE_NTHREADS_PART, dyn, n)
@@ -615,19 +697,25 @@ int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 // a->has_noise; may be null otherwise), starts the (B, P, 13) particles'
 // initial states or null (particles only, with a->has_starts; with it or
 // a->risk the options' form runs); outputs are (B, K), (B, H+1, 13),
-// (B,) and (B, H, nZ). The P=1 value_and_grad takes the trunk widths of the
+// (B,) and (B, H, nZ). A risk launch with a->risk_mode RISK_MOMENTS_OUT
+// (value_batch) writes (B, K, 3) triples (the risk-free cost, the mean of
+// the totals, their centred second moment); with RISK_MOMENTS_IN
+// (value_and_grad) it reads `moments` (B, 2), each scenario's mean and std
+// of the totals (null otherwise), and writes the risk-free cost of its
+// particles to val. The P=1 value_and_grad takes the trunk widths of the
 // register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
 // cluster plan of its chunks (value_batch one cluster per candidate), and
 // return the cluster launch's own error where the card cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* U,
                        const void* noise, const void* starts, void* out, void* stream) {
+  const int opt = opt_form(a, ORACLE_VALUE_BATCH);
   if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
-      !particles_ok(a, noise, starts) ||
+      !particles_ok(a, noise, starts) || opt < 0 ||
       (a->has_noise && !cluster_args_ok(
-          *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][options(*a)][a->sc_kind])) ||
+          *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][opt][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int form = a->has_noise ? (options(*a) ? 3 : 2) : p1_widths(*a) ? 1 : 0;
+  const int form = a->has_noise ? 2 + opt : p1_widths(*a) ? 1 : 0;
   return launch_error(kValueBatch[a->bf16 != 0][form][a->sc_kind](
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
       (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
@@ -650,19 +738,23 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
-                          const void* noise, const void* starts, void* val, void* grad,
-                          void* stream) {
+                          const void* noise, const void* starts, const void* moments,
+                          void* val, void* grad, void* stream) {
+  const int opt = opt_form(a, ORACLE_VALUE_AND_GRAD);
   if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise, starts) ||
+      opt < 0 || (opt == 2) != (moments != nullptr) ||
       (!a->has_noise && (!p1_widths(*a) || a->bf16)) ||
       (a->has_noise && !cluster_args_ok(
-          *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][options(*a)][a->sc_kind])) ||
+          *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  const int form = a->has_noise ? (options(*a) ? 2 : 1) + (a->bf16 ? 2 : 0) : 0;
+  const int form = !a->has_noise ? 0 : opt == 2 ? 5 + (a->bf16 ? 1 : 0)
+                                                : (opt ? 2 : 1) + (a->bf16 ? 2 : 0);
   return launch_error(kValueAndGrad[form][a->sc_kind](
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
-      (const float*)noise, (const float*)starts, (float*)val, (float*)grad));
+      (const float*)noise, (const float*)starts, (const float*)moments, (float*)val,
+      (float*)grad));
 }
 
 }  // extern "C"

@@ -77,7 +77,17 @@
 // vg_part forwards all of a block's chunks before any reverse; a block
 // holding more than one chunk runs the forward of every chunk but its last
 // again into the stash before that chunk's reverse (the stash holds one
-// chunk). Starts: an optional (P, 13) array of per-particle initial states
+// chunk). Across the blocks of particles of a sharded solve (RM, the risk
+// mode, a template parameter of vg_part and cand_part; apg_solve.cuh
+// RISK_*): cand_part's RISK_MOMENTS_OUT leaves each candidate's centred
+// second moment about its own mean in s.cacc[3K + k] in place of adding
+// lambda * std, so that value_batch writes the risk-free cost and both
+// moments out; vg_part's RISK_MOMENTS_IN takes the mean m and std of the
+// totals over all particles in s.red[6], s.red[7] (the kernel puts them
+// there), so a row's weight is ready after its own forward and each chunk
+// runs forward then reverse as without risk. The default RISK_IN_CLUSTER
+// compiles to the code the forms had before the modes existed.
+// Starts: an optional (P, 13) array of per-particle initial states
 // (the wrapper makes it from x0, the std and the draws z0); row p of chunk
 // ch starts at start ch * Pc + p, every candidate of a particle at its
 // particle's start; without it every row starts at x0.
@@ -152,6 +162,8 @@ struct Smem {
                                    // tracking [0, K), sigma [K, 2K); with
                                    // risk (3K,): totals [2K, 3K), and the
                                    // tracking mean carries lambda * std
+                                   // (value_batch (4K,): moments out, the
+                                   // centred second moments [3K, 4K))
   float *tot;                      // (chunks_per_block, K*Pc) with risk: the
                                    // rows' discounted totals, then (vg_part)
                                    // their gradient weights
@@ -1389,14 +1401,17 @@ __device__ __forceinline__ int block_chunks(const ApgArgs& a) {
 // the (P, 13) starts or null, or a source of them; with a.risk every
 // chunk's forward comes first, then the two moments of the totals, then
 // each chunk's reverse with the rows' risk weights (the header's Risk
-// note). BF: the bf16 trunk.
+// note). BF: the bf16 trunk. RM (OPT): RISK_MOMENTS_IN weighs the rows with
+// the moments in s.red[6], s.red[7] after each chunk's own forward, and
+// *fval is then the risk-free cost of this launch's particles.
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          class Noise = const float*, class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, class Noise = const float*, class Starts = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         Noise noise, Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const float* c = s.c;
-  const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2 + (OPT && a.risk ? 1 : 0);
+  constexpr bool IN = RM == RISK_MOMENTS_IN;     // the moments given: one pass
+  const int HZ = a.H * a.nZ, R = a.Pc, W = HZ + 2 + (OPT && !IN && a.risk ? 1 : 0);
   const int rank = (int)cg::this_cluster().block_rank();
   if constexpr (!OPT) {
     for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
@@ -1436,9 +1451,10 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     // `it` is the one value the loop keeps across a sweep: the chunk, its
     // partial and the block's chunk count are derived from it and the
     // block's rank, read from its special register where used
-    // (block_chunks), and the scalars are read from shared memory.
-    for (int it = 0; it < (a.risk ? 2 : 1) * block_chunks(a); ++it) {
-      if (a.risk && it == block_chunks(a)) {
+    // (block_chunks), and the scalars are read from shared memory. IN: one
+    // step a chunk, as without risk.
+    for (int it = 0; it < (!IN && a.risk ? 2 : 1) * block_chunks(a); ++it) {
+      if (!IN && a.risk && it == block_chunks(a)) {
         // the tracking, sigma and total means, then the totals' centred
         // second moment, each in chunk order; the rows' weights in place
         // of their totals
@@ -1488,7 +1504,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
         // the chunk's rows' mean costs / n_chunks into part[HZ], part[HZ +
         // 1] (and with risk the rows' totals and their mean into
         // part[HZ + 2])
-        if (a.risk) {
+        if (!IN && a.risk) {
           float* tot = s.tot + it * R;
           for (int r = tid; r < R; r += nt) tot[r] = s.jt[r] + c[a.o_scal + SC_RESM] * s.jr[r];
           __syncthreads();
@@ -1501,15 +1517,22 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           float* part = s.pg + it * W;
           part[HZ] = s.red[3] / (float)R / (float)a.n_chunks;
           part[HZ + 1] = s.red[4] / (float)R / (float)a.n_chunks;
-          if (a.risk) part[HZ + 2] = s.red[5] / (float)R / (float)a.n_chunks;
+          if (!IN && a.risk) part[HZ + 2] = s.red[5] / (float)R / (float)a.n_chunks;
         }
       }
-      if (!a.risk || it >= block_chunks(a)) {
+      if (IN || !a.risk || it >= block_chunks(a)) {
         const int j = chunk_of(it);
         if (a.risk) {
           // the chunk's risk weights where bwd_rows reads them (its
-          // forward's running costs are spent)
-          for (int r = tid; r < R; r += nt) s.jt[r] = s.tot[j * R + r];
+          // forward's running costs are spent; IN: made from them and the
+          // given moments)
+          if constexpr (IN) {
+            const float m = s.red[6], sd = s.red[7], lam = c[a.o_scal + SC_RISK];
+            for (int r = tid; r < R; r += nt)
+              s.jt[r] = 1.f + lam * ((s.jt[r] + c[a.o_scal + SC_RESM] * s.jr[r]) - m) / sd;
+          } else {
+            for (int r = tid; r < R; r += nt) s.jt[r] = s.tot[j * R + r];
+          }
           __syncthreads();
         }
         for (int t = a.H - 1; t >= 0; --t)
@@ -1520,8 +1543,9 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
         prof_stamp<PROF>(s, PP_VG_BWD);
       }
     }
-    // the gradient (and without risk the two costs) summed in chunk order
-    cluster_chunk_sum(a, s.pg, a.risk ? HZ : W, [&](int e, float v) {
+    // the gradient (and without in-cluster risk the two costs) summed in
+    // chunk order
+    cluster_chunk_sum(a, s.pg, !IN && a.risk ? HZ : W, [&](int e, float v) {
       if (e < HZ) s.g[e] = v;
       else s.cacc[e - HZ] = v;
     }, W);
@@ -1557,9 +1581,11 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // ordered sum of the centred second moments adds lambda * std to s.cacc[k].
 // The trunk's products are register tiles (fwd_step<true, SC, true>). The
 // whole solve sweeps its K candidates at once; value_batch calls it with
-// K = 1 (one candidate per cluster). BF: the bf16 trunk.
+// K = 1 (one candidate per cluster). BF: the bf16 trunk. RM (OPT):
+// RISK_MOMENTS_OUT leaves the centred second moments in s.cacc[3K + k] and
+// the tracking means without the risk term.
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          class Noise = const float*, class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, class Noise = const float*, class Starts = const float*>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
                           Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1621,9 +1647,10 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
       }
     }
     __syncthreads();
-    // the tracking mean plus lambda * sqrt(var + 1e-12)
+    // the tracking mean plus lambda * sqrt(var + 1e-12); moments out: var
     cluster_chunk_sum(a, s.pk, K, [&](int e, float v) {
-      s.cacc[e] = s.cacc[e] + s.c[a.o_scal + SC_RISK] * sqrtf(v + 1e-12f);
+      if constexpr (RM == RISK_MOMENTS_OUT) s.cacc[3 * K + e] = v;
+      else s.cacc[e] = s.cacc[e] + s.c[a.o_scal + SC_RISK] * sqrtf(v + 1e-12f);
     });
   }
   prof_stamp<PROF>(s, PP_RED);

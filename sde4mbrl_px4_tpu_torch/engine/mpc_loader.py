@@ -147,7 +147,7 @@ import torch
 
 from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
 from sde4mbrl_px4_tpu_torch.core.types import MPCSolution, hover_state
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn
+from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, combine_risk_moments, make_cost_fn
 from sde4mbrl_px4_tpu_torch.device import apply_fp32_policy, resolve_device
 from sde4mbrl_px4_tpu_torch.io.config import input_bounds_from_config, load_yaml_config
 from sde4mbrl_px4_tpu_torch.models import policy as policy_mod
@@ -697,11 +697,6 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             raise ValueError(f"num_particles={P} over an mc axis of {n_sh} leaves each block "
                              f"{P_local} particle; a block needs 2 or more")
         lo = int(particle_shard.index) * P_local
-        if n_sh > 1 and cost_params.risk_lambda:
-            # the risk term needs the global moments of the particles'
-            # totals before the gradient pass, which per-block means lack
-            raise not_in_slice("cost_params.risk_lambda over a sharded particle axis (mc > 1)",
-                               "34. Risk under particle sharding")
         if chunk and P_local % chunk:
             raise ValueError(f"pallas_chunk={chunk} must divide the {P_local} particles of "
                              f"each of the mc axis's {n_sh} blocks")
@@ -807,19 +802,44 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         """This process's particles ``lo .. lo + P_local`` (noise and starts
         sliced alike), every evaluation its partial mean summed over the
         processes in their order and divided by their count (a mean of
-        equal blocks' means); ``trajectory`` block 0's."""
+        equal blocks' means); ``trajectory`` block 0's.
+
+        With ``risk_lambda`` (the risk term's moments span every block): a
+        ``value_batch`` is one moments-out launch, each plan's ``(f, m, v)``
+        over this block, written into this process's slot of an (mc, ...)
+        zero tensor and summed in rank order (adding zeros is exact, so
+        every process holds every block's triple, with the same bits), then
+        combined (``cost/cost.py::combine_risk_moments``); a
+        ``value_and_grad`` is that at K = 1 on the plan, then one moments-in
+        launch with the combined mean and std, its gradient summed in rank
+        order over mc: one ``value_batch`` launch and one collective more a
+        gradient than without risk."""
         hi = lo + P_local
+        risk = P > 1 and cost_params.risk_lambda is not None
         local = cost_oracle_batched(
             model, params, cost_params, time_steps, xs, x_ref, u_prev,
             None if noise is None else noise[:, lo:hi], P_local, apg_cfg.maxls, chunk=chunk,
             starts=None if starts is None else starts[:, lo:hi].contiguous(), bf16=bf16)
-        n_sh = float(particle_shard.count)
-        mean = lambda t: particle_shard.reduce(t) / n_sh
+        n_sh = int(particle_shard.count)
+        mean = lambda t: particle_shard.reduce(t) / float(n_sh)
+
+        def combined(U):
+            """(value, m, sd) of the plans U (B, K, H, nZ) over all blocks."""
+            mine = local.value_batch_moments(U)
+            slots = torch.zeros((n_sh,) + tuple(mine.shape), dtype=f32, device=mine.device)
+            slots[int(particle_shard.index)] = mine
+            return combine_risk_moments(particle_shard.reduce(slots), cost_params.risk_lambda)
 
         def value_batch(U):
+            if risk:
+                return combined(U)[0]
             return mean(local.value_batch(U))
 
         def value_and_grad(u):
+            if risk:
+                f, m, sd = (t[:, 0] for t in combined(u[:, None]))
+                _, g = local.value_and_grad_moments(u, torch.stack([m, sd], dim=-1))
+                return f, mean(g)
             f, g = local.value_and_grad(u)
             fg = mean(torch.cat([f.reshape(-1), g.reshape(-1)]))
             return fg[:f.numel()].reshape(f.shape), fg[f.numel():].reshape(g.shape)

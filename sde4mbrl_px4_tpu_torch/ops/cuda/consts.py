@@ -36,6 +36,12 @@ on a particle solve (``build_consts(..., particles=True)``); the starts of
 an optional (B, P, 13) device array beside the Brownian block, and the
 wrappers set ``ApgArgs.has_starts`` when they pass one. A particle launch
 with either option runs the kernels' options form (:func:`has_options`).
+``ApgArgs.risk_mode`` (0 unless a wrapper sets it) is where the oracle's
+risk launches take the moments of the particles' totals: the
+particle-sharded solve's ``value_batch`` writes each plan's risk-free cost
+and the moments of its block of particles out (:data:`RISK_MOMENTS_OUT`),
+its ``value_and_grad`` reads the moments over all particles in
+(:data:`RISK_MOMENTS_IN`); those are the oracle's shared-moments forms.
 
 ``ApgArgs.bf16`` (set by the wrappers, not by :func:`build_consts`): the
 trunk's three products on bf16-rounded operands, the JAX package's
@@ -55,11 +61,12 @@ from sde4mbrl_px4_tpu_torch.device import host_values
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
-__all__ = ["APG_MAXK", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
+__all__ = ["APG_MAXK", "OPT_MOMENTS", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
-           "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs",
-           "batch_consts", "build_consts", "check_p1_widths", "has_options", "p1_widths",
-           "plan_cluster", "plan_particles", "sc_kind", "scenario_weights",
+           "RISK_IN_CLUSTER", "RISK_MOMENTS_IN", "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES",
+           "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs", "batch_consts", "build_consts",
+           "check_p1_widths", "has_options", "opt_form", "p1_widths", "plan_cluster",
+           "plan_particles", "sc_kind", "scenario_weights",
            "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
@@ -76,6 +83,13 @@ SC_NONE, SC_PENALTY, SC_PROX = 0, 1, 2
 # chain and on the shared-memory step
 ORACLE_VALUE_BATCH, ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD = 0, 1, 2
 ORACLE_P1_ROWS, ORACLE_TILE = APG_MAXK, 16
+# where a risk launch of the oracle kernels takes the moments of its
+# particles' totals (csrc/apg_solve.cuh RISK_*, ApgArgs.risk_mode): from its
+# own cluster; written out (value_batch); read in (value_and_grad)
+RISK_IN_CLUSTER, RISK_MOMENTS_OUT, RISK_MOMENTS_IN = 0, 1, 2
+# the shared-moments forms' `opt` in a query of the oracle's largest cluster
+# (oracle_cluster_max; 0 and 1 are has_options's)
+OPT_MOMENTS = 2
 
 _INT_FIELDS = (
     "H", "n_u", "nZ", "K", "F", "HID", "OUT",
@@ -90,7 +104,7 @@ _FLOAT_FIELDS = ("inc", "one_m_coef", "tmax", "beta_init", "moment_scale",
                  "atol", "rtol")
 _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
               "o_hi13", "o_inv13")
-_RISK_FIELDS = ("risk", "has_starts")
+_RISK_FIELDS = ("risk", "has_starts", "risk_mode")
 _BATCH_FIELDS = ("batch",)
 _PRECISION_FIELDS = ("bf16",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
@@ -110,6 +124,13 @@ def has_options(a: ApgArgs) -> int:
     """Whether a launch takes the kernels' particle-options form (1 with risk
     or starts, ``csrc/apg_solve.cuh::options``)."""
     return int(bool(a.risk or a.has_starts))
+
+
+def opt_form(a: ApgArgs) -> int:
+    """The oracle's particle form of a launch for ``oracle_cluster_max``:
+    :data:`OPT_MOMENTS` where ``a.risk_mode`` shares the risk moments,
+    else :func:`has_options`."""
+    return OPT_MOMENTS if a.risk_mode else has_options(a)
 
 
 def sc_kind(cp: CostParams) -> int:

@@ -72,6 +72,20 @@ stays the fp32 mean rollout (the original's ``x_evol``, ``:815-819``), and
 the P=1 ``value_and_grad`` has no bf16 form (the original runs it on its
 kernels, at HIGHEST), so it raises. ``.launches_bf16`` counts the bf16
 launches of each of the two kernels (``.launches`` counts all of them).
+
+A risk cost at P > 1 (:func:`cost_oracle_batched` and the plain twins):
+the oracle also gets the two evaluations a solve over a block of the
+particles needs when the risk term's moments span every block
+(``engine/mpc_loader.py``, the particle-sharded solve; ``cost/cost.py``'s
+module docstring): ``value_batch_moments`` (B, K, H, n) -> (B, K, 3), each
+plan's risk-free cost and the mean and centred second moment of its
+particles' totals, one launch of ``value_batch``'s moments-out form
+(``ApgArgs.risk_mode``); and ``value_and_grad_moments`` ((B, H, n), (B, 2))
+-> ((B,), (B, H, n)), the risk-free cost and the gradient of the block's
+share of the risk cost given each scenario's mean and std of the totals
+over all particles, one launch of ``value_and_grad``'s moments-in form.
+``.launches_moments`` counts the launches of those forms (in ``.launches``
+too).
 """
 from __future__ import annotations
 
@@ -81,12 +95,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, make_cost_fn, scenario_cost
+from sde4mbrl_px4_tpu_torch.cost.cost import (CostParams, make_cost_fn, make_risk_moments_fn,
+                                               make_risk_surrogate_fn, scenario_cost)
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts,
-    build_consts, check_p1_widths, has_options, plan_particles, scenario_weights)
+    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, RISK_MOMENTS_IN, RISK_MOMENTS_OUT,
+    SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths, opt_form,
+    plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -113,7 +129,7 @@ def load_oracle_library() -> ctypes.CDLL:
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
-        "value_and_grad_launch": ([_A] + [_P] * 7, ctypes.c_int),
+        "value_and_grad_launch": ([_A] + [_P] * 8, ctypes.c_int),
         "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
         "oracle_cluster_max": ([ctypes.c_int] * 4, ctypes.c_int),
         "oracle_max_active_clusters": ([ctypes.c_int, _A, ctypes.POINTER(ctypes.c_int)],
@@ -182,11 +198,12 @@ def _check_inputs(model: NeuralSDE, time_steps, x0, x_ref, u_prev) -> None:
 
 
 def _checked(H: int, n: int, dev: torch.device, value_batch, value_and_grad,
-             trajectory) -> CostOracle:
-    """The oracle of the three evaluations, with shape/dtype/contiguity
-    checks on the plans it is given (n = nZ columns: the controls and the
-    proximal form's slack targets); ``value(u)`` is
-    ``value_batch(u[None])[0]``."""
+             trajectory, value_batch_moments=None, value_and_grad_moments=None
+             ) -> CostOracle:
+    """The oracle of the three evaluations (and the module docstring's two
+    moment evaluations, where given), with shape/dtype/contiguity checks on
+    the plans it is given (n = nZ columns: the controls and the proximal
+    form's slack targets); ``value(u)`` is ``value_batch(u[None])[0]``."""
 
     def check_plan(u: torch.Tensor) -> None:
         if u.shape[-1] != n:
@@ -212,8 +229,19 @@ def _checked(H: int, n: int, dev: torch.device, value_batch, value_and_grad,
         check_plan(u)
         return trajectory(u)
 
+    def vb_m(U):
+        check_plan(U[0])
+        return value_batch_moments(U)
+
+    def vg_m(u, moments):
+        check_plan(u)
+        _check("moments", moments, (2,), dev, contiguous=False)
+        return value_and_grad_moments(u, moments)
+
     return CostOracle(value=lambda u: vb(u[None])[0], value_batch=vb,
-                      value_and_grad=vg, trajectory=traj)
+                      value_and_grad=vg, trajectory=traj,
+                      value_batch_moments=vb_m if value_batch_moments else None,
+                      value_and_grad_moments=vg_m if value_and_grad_moments else None)
 
 
 def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -226,12 +254,16 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     """Plain PyTorch version of :func:`cost_oracle` (any device): the
     unchunked particle mean (with ``risk_lambda``, mean + lambda * std), the
     particles from ``starts`` (P, 13) where given; ``bf16`` the trunk's
-    products on bf16-rounded operands (``trajectory`` stays fp32)."""
+    products on bf16-rounded operands (``trajectory`` stays fp32). With
+    ``risk_lambda`` at P > 1 also the module docstring's two moment
+    evaluations, one plan's (``value_batch_moments`` (K, H, n) -> (K, 3),
+    ``value_and_grad_moments(u, moments (2,))``): ``make_risk_moments_fn``
+    vmapped, and autograd of ``make_risk_surrogate_fn``."""
     _check_inputs(model, time_steps, x0, x_ref, u_prev)
     H, n = int(time_steps.shape[0]), model.n_u
     P, z, _ = resolve_particles(noise, num_particles, deterministic, chunk, H,
                                 x0.device)
-    x_p = x0
+    x_p, risk = x0, z is not None and cp.risk_lambda is not None
     if z is None:
         z = torch.zeros((H, 1, 13), dtype=torch.float32, device=x0.device)
     elif starts is not None:
@@ -241,14 +273,29 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     u_prev = u_prev[:n]
     m = cp.n_slack
 
-    def seq_cost(zr):
-        u = zr[:, :n]
-        xp, sg = rollout_sde(model, params, x_p, u, time_steps, z, bf16=bf16)
-        return cost_fn(xp, sg, u, x_ref, u_prev, zr[:, n:] if m else None)
+    def seq(cost):
+        def seq_cost(zr, *moments):
+            u = zr[:, :n]
+            xp, sg = rollout_sde(model, params, x_p, u, time_steps, z, bf16=bf16)
+            return cost(xp, sg, u, x_ref, u_prev, zr[:, n:] if m else None, *moments)
+        return seq_cost
 
-    base = CostOracle.from_fn(seq_cost)
+    base = CostOracle.from_fn(seq(cost_fn))
+    vb_m = vg_m = None
+    if risk:
+        vb_m = torch.func.vmap(seq(make_risk_moments_fn(cp, time_steps)))
+        surrogate = seq(make_risk_surrogate_fn(cp, time_steps))
+
+        def vg_m(zr, moments):
+            with torch.enable_grad():
+                z_ = zr.detach().requires_grad_(True)
+                f = surrogate(z_, moments.detach())
+                (g,) = torch.autograd.grad(f[1], z_)
+            return f[0].detach(), g
+
     return _checked(H, n + m, x0.device, base.value_batch, base.value_and_grad,
-                    lambda zr: rollout_mean(model, params, x0, zr[:, :n], time_steps))
+                    lambda zr: rollout_mean(model, params, x0, zr[:, :n], time_steps),
+                    vb_m, vg_m)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -302,7 +349,11 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     ``consts.value_batch_grid``). With ``args.batch`` B > 1 the plans of B
     scenarios, ``U`` (B, K, H, nZ), ``consts`` (B, n_consts), ``noise``
     (B, H, P, 13) and ``starts`` (B, P, 13), cost in the same launch into
-    (B, K), scenario b on row b of the grid."""
+    (B, K), scenario b on row b of the grid. ``args.risk_mode``
+    ``RISK_MOMENTS_OUT`` (a risk launch with particles): the moments-out
+    form, each plan's (risk-free cost, mean of the totals, their centred
+    second moment) into (K, 3) (B, K, 3), counted in ``.launches_moments``
+    too."""
     lib = load_oracle_library()
     K = int(U.shape[-3])
     _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise, starts)
@@ -310,25 +361,42 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     if need > _limit(args):
         raise ValueError(f"value_batch needs {need} bytes of shared memory per "
                          f"block, above the {_limit(args)}-byte budget")
-    out = torch.empty(U.shape[:-2], dtype=torch.float32, device=U.device)
+    moments = args.risk_mode == RISK_MOMENTS_OUT
+    out = torch.empty(U.shape[:-2] + ((3,) if moments else ()), dtype=torch.float32,
+                      device=U.device)
     _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
                                      U.data_ptr(), _ptr(noise), _ptr(starts),
                                      out.data_ptr(), _stream(U)),
               "value_batch")
     value_batch_kernel.launches += 1
     value_batch_kernel.launches_bf16 += args.bf16
+    value_batch_kernel.launches_moments += moments
     return out
 
 
 def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                           noise: Optional[torch.Tensor] = None,
-                          starts: Optional[torch.Tensor] = None
+                          starts: Optional[torch.Tensor] = None,
+                          moments: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, nZ) plan -> (cost (), gradient (H, nZ)): one launch. With
     ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) (and
     ``consts``, ``noise``, ``starts`` as in :func:`value_batch_kernel`), in
     the same launch into ((B,), (B, H, nZ)), scenario b on block (or
-    cluster) b."""
+    cluster) b. ``args.risk_mode`` ``RISK_MOMENTS_IN`` (a risk launch with
+    particles) takes ``moments`` (B, 2), each scenario's mean and std of
+    the totals over all particles: the moments-in form, whose cost is the
+    risk-free cost of these particles; counted in ``.launches_moments``
+    too."""
+    want = args.risk_mode == RISK_MOMENTS_IN
+    if want != (moments is not None):
+        raise ValueError("value_and_grad: moments go with args.risk_mode RISK_MOMENTS_IN "
+                         "and with it only")
+    if want and (moments.dtype != torch.float32 or moments.device != u.device
+                 or moments.numel() != 2 * args.batch or not moments.is_contiguous()):
+        raise ValueError(f"value_and_grad: moments must be contiguous float32 ({args.batch}, "
+                         f"2) on {u.device}, got {moments.dtype} {tuple(moments.shape)} on "
+                         f"{moments.device}")
     if not args.has_noise:
         check_p1_widths(args.F, args.HID, "value_and_grad")
         if args.bf16:
@@ -344,10 +412,12 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     grad = torch.empty_like(u)
     _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
                                         u.data_ptr(), _ptr(noise), _ptr(starts),
-                                        val.data_ptr(), grad.data_ptr(), _stream(u)),
+                                        _ptr(moments), val.data_ptr(), grad.data_ptr(),
+                                        _stream(u)),
               "value_and_grad")
     value_and_grad_kernel.launches += 1
     value_and_grad_kernel.launches_bf16 += args.bf16
+    value_and_grad_kernel.launches_moments += want
     return val, grad
 
 
@@ -358,14 +428,16 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
     both: the mean of chunk means depends on it); and the cluster of both
     kernels: C = min(n_chunks, C_max), C_max the smaller of their forms'
     largest (``oracle_cluster_max``, the options forms' where ``args`` has
-    risk or starts, the bf16 forms' with ``args.bf16``) or ``cluster`` when
-    given."""
+    risk or starts, with risk their shared-moments forms' too, so that one
+    plan serves both; the bf16 forms' with ``args.bf16``) or ``cluster``
+    when given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
-    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, has_options(args), args.bf16)
-                for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD))
+    forms = (opt_form(args),) + ((OPT_MOMENTS,) if args.risk else ())
+    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, form, args.bf16)
+                for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD) for form in forms)
     if cluster:
         if not 1 <= cluster <= c_max:
             raise ValueError(f"cluster={cluster}: the oracle kernels take 1 to {c_max} blocks")
@@ -395,6 +467,7 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
 
 value_batch_kernel.launches = value_batch_kernel.launches_bf16 = 0
 value_and_grad_kernel.launches = value_and_grad_kernel.launches_bf16 = 0
+value_batch_kernel.launches_moments = value_and_grad_kernel.launches_moments = 0
 trajectory_kernel.launches = 0
 
 
@@ -437,8 +510,10 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 
 def _checked_batched(B: int, H: int, n: int, dev: torch.device, value_batch,
-                     value_and_grad, trajectory) -> CostOracle:
-    """The batched oracle of the three evaluations, with shape/dtype/
+                     value_and_grad, trajectory, value_batch_moments=None,
+                     value_and_grad_moments=None) -> CostOracle:
+    """The batched oracle of the three evaluations (and the module
+    docstring's two moment evaluations, where given), with shape/dtype/
     contiguity checks on the plans of its B scenarios; ``value(u)`` (B, H, n)
     -> (B,) is ``value_batch(u[:, None])[:, 0]``."""
 
@@ -465,8 +540,22 @@ def _checked_batched(B: int, H: int, n: int, dev: torch.device, value_batch,
         check("u", u, (B, H, n))
         return trajectory(u)
 
+    def vb_m(U):
+        if U.dim() != 4 or U.shape[1] < 1:
+            raise ValueError(f"cost_oracle_batched: value_batch_moments takes ({B}, K, {H}, "
+                             f"{n}), got {tuple(U.shape)}")
+        check("U", U, (B, U.shape[1], H, n))
+        return value_batch_moments(U)
+
+    def vg_m(u, moments):
+        check("u", u, (B, H, n))
+        _check("moments", moments, (B, 2), dev)
+        return value_and_grad_moments(u, moments)
+
     return CostOracle(value=lambda u: vb(u[:, None])[:, 0], value_batch=vb,
-                      value_and_grad=vg, trajectory=traj)
+                      value_and_grad=vg, trajectory=traj,
+                      value_batch_moments=vb_m if value_batch_moments else None,
+                      value_and_grad_moments=vg_m if value_and_grad_moments else None)
 
 
 def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -487,15 +576,17 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
             for b in range(B)]
 
     def each(fn):
-        def run(U):
-            outs = [getattr(o, fn)(U[b]) for b, o in enumerate(solo)]
+        def run(U, *rest):
+            outs = [getattr(o, fn)(U[b], *(r[b] for r in rest)) for b, o in enumerate(solo)]
             if isinstance(outs[0], tuple):
                 return tuple(torch.stack(f) for f in zip(*outs))
             return torch.stack(outs)
         return run
 
+    moments = (each("value_batch_moments"), each("value_and_grad_moments")) \
+        if solo[0].value_batch_moments is not None else (None, None)
     return _checked_batched(B, H, n, x0.device, each("value_batch"),
-                            each("value_and_grad"), each("trajectory"))
+                            each("value_and_grad"), each("trajectory"), *moments)
 
 
 def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -508,8 +599,10 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
     13) for a Monte-Carlo solve (None at P=1), ``starts`` (B, P, 13) its
     particles' initial states or None; the tracking weights of ``cp`` may
-    carry a (B,) axis. On the card every evaluation is one launch over the B
-    scenarios; CPU tensors get :func:`cost_oracle_plain_batched`."""
+    carry a (B,) axis. With risk at P > 1 the module docstring's two moment
+    evaluations too. On the card every evaluation is
+    one launch over the B scenarios; CPU tensors get
+    :func:`cost_oracle_plain_batched`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
@@ -544,7 +637,13 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
     args.bf16 = int(bf16)
     if z is not None:
         plan_oracle_particles(lib, args, P, chunk, cluster)
+    moments = (None, None)
+    if z is not None and args.risk:
+        a_out, a_in = (ApgArgs.from_buffer_copy(args) for _ in range(2))
+        a_out.risk_mode, a_in.risk_mode = RISK_MOMENTS_OUT, RISK_MOMENTS_IN
+        moments = (lambda U: value_batch_kernel(consts, a_out, U, z, starts),
+                   lambda u, mom: value_and_grad_kernel(consts, a_in, u, z, starts, mom))
     return _checked_batched(B, H, args.nZ, dev,
                             lambda U: value_batch_kernel(consts, args, U, z, starts),
                             lambda u: value_and_grad_kernel(consts, args, u, z, starts),
-                            functools.partial(trajectory_kernel, consts, args))
+                            functools.partial(trajectory_kernel, consts, args), *moments)

@@ -25,7 +25,11 @@ per ROOT, then the card's name and power limit:
 - outputs whose bits the checkouts are compared on (keys ending in
   ``_bits``): ``value_batch`` at P=512 antithetic (24 plans, K=4) and at
   the P=128 floor (16 plans, K=1), the u0 of the P=512 route's first
-  solve, and ``value_batch`` K=1 on an ill-conditioned trunk (below). The
+  solve, ``value_batch`` K=1 on an ill-conditioned trunk (below), and the
+  particle options' forms at P=512 antithetic with ``risk_lambda`` 2 and
+  the example's starts, fp32 and bf16 (``value_batch`` K=4 on 8 plans,
+  ``value_and_grad`` on 4, the whole solve's plan at a fixed 5
+  iterations). The
   last line before the card's says, per such key, whether every ROOT gave
   the same bits;
 - the ill-conditioned trunk: 48 random hidden units (``init_params``, seed
@@ -271,6 +275,22 @@ def measure(root: str, routes: bool = False) -> dict:
     out["value_batch_floor_bits"] = [o.value_batch(cs.plans(1, 200 + s, dev)).tolist()
                                      for s in range(16)]
     out["value_and_grad_floor"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 20)
+    # the particle options' forms (risk and starts), fp32 and bf16
+    cp, starts = cs.with_options(bp, ("risk", "starts"), px0, 512, dev, seed=512)
+    apg = bp.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    for bf in (False, True):
+        tag = "bf16" if bf else "fp32"
+        o = CO.cost_oracle(bp.model, bp.params, cp, bp.time_steps, px0, pxr, pup, z512, 512, 4,
+                           starts=starts, bf16=bf)
+        out[f"options_{tag}_value_batch_bits"] = [o.value_batch(cs.plans(4, 300 + s, dev))
+                                                  .tolist() for s in range(8)]
+        vg = [o.value_and_grad(cs.plans(1, 400 + s, dev)[0]) for s in range(4)]
+        out[f"options_{tag}_value_and_grad_bits"] = [[float(v)] + g.reshape(-1).tolist()
+                                                     for v, g in vg]
+        st, _ = AK.apg_solve_kernel(bp.model, bp.params, cp, apg, bp.time_steps, px0, pxr, pup,
+                                    z512, 512, bp.lb, bp.ub, cs.plans(1, 5, dev)[0],
+                                    starts=starts, bf16=bf)
+        out[f"options_{tag}_apg_solve_bits"] = st.yk.reshape(-1).tolist()
 
     _, ms = cs.chain(cs.config("iris_posctrl_mpc", solver="mppi"), dev, 10)
     out["mppi_ms_p50"] = statistics.median(ms[2:])

@@ -69,8 +69,14 @@ Over a mesh (``parallel/mesh.py``, the ranks of a gloo process group):
   linesearch loop, which runs on the host (``solver/apg.py::
   apg_solve_batched``, as the original leaves its kernels for XLA when the
   particle axis is sharded, ``engine/mpc_loader.py:312-313``). ``x_evol``
-  is rank 0's ``trajectory`` launch, broadcast. ``risk_lambda`` is refused
-  there when mc > 1 (ROADMAP.md item 34).
+  is rank 0's ``trajectory`` launch, broadcast. With ``risk_lambda`` the
+  risk term's moments span every rank's particles: each evaluation first
+  gathers every rank's ``(f, m, v)`` (the oracle's moments-out
+  ``value_batch``) in rank order and combines them (Chan's formula,
+  ``cost/cost.py::combine_risk_moments``), and a gradient then weighs each
+  rank's rows with the combined mean and std (the moments-in
+  ``value_and_grad``) before its partials are summed: the JAX package's
+  function over all P particles, whose moments XLA lowers to ``psum``.
 """
 from __future__ import annotations
 

@@ -47,6 +47,17 @@ def zero_launches() -> None:
     for fn in (AK.apg_solve_kernel, CO.value_batch_kernel, CO.value_and_grad_kernel,
                CO.trajectory_kernel):
         fn.launches = 0
+    for fn in (CO.value_batch_kernel, CO.value_and_grad_kernel):
+        fn.launches_moments = 0
+
+
+def moments_launches() -> Dict[str, int]:
+    """The launches of the oracle's shared-moments forms (the risk of a
+    particle-sharded solve), counted in ``launches()`` too."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"value_batch": CO.value_batch_kernel.launches_moments,
+            "value_and_grad": CO.value_and_grad_kernel.launches_moments}
 
 
 class _Timer:
@@ -160,9 +171,11 @@ def particle_solve(cfg: Dict[str, Any], seed: int = 3, solves: int = 1,
     manual_seed(seed)`` on every rank, or from ``draws``, each solve's
     whole (P, H, 13) block (numpy; or a tuple of the loader's forms).
     Returns the last solve's plan, cost, iterations and ``x_evol``, every
-    solve's plan, wall ms and iterations, the host seconds in the
-    collectives, and the launches."""
+    solve's plan, wall ms and iterations, their ``SolveTimer`` statistics
+    (p50/p99), the host seconds in the collectives, and the launches (of
+    them the shared-moments forms' apart)."""
     from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.profiling import SolveTimer
     from sde4mbrl_px4_tpu_torch.parallel.batched import make_particle_sharded_mpc
 
     mesh = _mesh(shape, devices)
@@ -178,8 +191,9 @@ def particle_solve(cfg: Dict[str, Any], seed: int = 3, solves: int = 1,
     zero_launches()
     ordered_sum.seconds, ordered_sum.calls = 0.0, 0
     wall, iters, plans = [], [], []
+    timer = SolveTimer()
     for _ in range(solves):
-        with _Timer(mesh.device) as t:
+        with _Timer(mesh.device) as t, timer:
             sol = mpc_fn(x0, gen, st, 0.0, x0, iter_budget)
             iters.append(float(sol.opt_state.num_steps))
         st = sol.opt_state
@@ -187,8 +201,9 @@ def particle_solve(cfg: Dict[str, Any], seed: int = 3, solves: int = 1,
         plans.append(sol.u_opt.cpu().numpy())
     return {"u": plans[-1], "plans": plans, "opt_cost": float(sol.opt_state.opt_cost),
             "num_steps": float(sol.opt_state.num_steps), "x_evol": sol.x_evol.cpu().numpy(),
-            "wall_ms": wall, "iterations": iters, "collective_s": ordered_sum.seconds,
-            "collective_calls": ordered_sum.calls, "launches": launches(),
+            "wall_ms": wall, "iterations": iters, "solve_stats": timer.stats(),
+            "collective_s": ordered_sum.seconds, "collective_calls": ordered_sum.calls,
+            "launches": launches(), "moments_launches": moments_launches(),
             "mc_index": mesh.mc_index}
 
 

@@ -42,13 +42,22 @@ class CostOracle(NamedTuple):
     - ``value_batch(U[K, H, n]) -> (K,)``;
     - ``value_and_grad(u) -> ((), (H, n))``;
     - ``trajectory(u) -> (H+1, 13)``, the mean rollout of a plan (None when
-      the oracle wraps a bare cost function).
+      the oracle wraps a bare cost function);
+    - with a risk cost over particles (``ops/cuda/cost_oracle.py``; None
+      elsewhere), for a solve over a block of them:
+      ``value_batch_moments(U[K, H, n]) -> (K, 3)``, each plan's risk-free
+      cost and the mean and centred second moment of its particles'
+      totals, and ``value_and_grad_moments(u, moments (2,)) -> ((), (H,
+      n))``, the risk-free cost and the gradient of the block's share of the
+      risk cost, given the mean and std of the totals over all particles.
     """
 
     value: Callable
     value_batch: Callable
     value_and_grad: Callable
     trajectory: Optional[Callable] = None
+    value_batch_moments: Optional[Callable] = None
+    value_and_grad_moments: Optional[Callable] = None
 
     @staticmethod
     def from_fn(cost_fn: Callable) -> "CostOracle":

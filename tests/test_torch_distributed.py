@@ -16,7 +16,10 @@ config (H = 5, ``max_iter`` 5; the particle pair on
 - mc: the particle-sharded solve over (1, 2) equals the one-process host
   loop on the same draws at rtol 2e-4 / atol 2e-5, the loop equals the
   solo ``mpc_fn``, and on JAX's own draws (``tests/_torch_parity.py``) it
-  matches JAX's ``make_particle_sharded_mpc`` on a (4, 2) mesh;
+  matches JAX's ``make_particle_sharded_mpc`` on a (4, 2) mesh; with
+  ``risk_lambda`` (and with ``initial_state_std`` too) the same three
+  comparisons over two chained solves, and the risk plans far from the
+  risk-free ones;
 - ``distill_policy(mesh=)`` on this process's mesh equals it without one;
 - ``sim/tune_mppi.py --mesh-dp 2 --cpu`` spawns its two ranks and scores
   an odd grid row for row as one process does;
@@ -151,6 +154,67 @@ def test_particle_sharded_pair(repo_root):
     sol_j = j_mpc(xj, key, j_reset(xj, key, xj), jnp.float32(0.0), xj)
     np.testing.assert_allclose(ranks[0]["plans"][0], np.asarray(sol_j.u_opt), rtol=RTOL,
                                atol=ATOL)
+
+
+STATE_STD = [0.15] * 3 + [0.1] * 3 + [0.0] * 4 + [0.05] * 3   # the uncertainty example's
+
+
+@pytest.mark.parametrize("spread", [False, True], ids=["risk", "risk_and_starts"])
+def test_particle_sharded_risk_pair(repo_root, spread):
+    """``risk_lambda: 2`` over mc = 2 (and the example's ``initial_state_std``
+    too), on JAX's own draws, two chained solves: both ranks hold the same
+    plans; against one process on the same draws (rtol 2e-4 / atol 2e-5),
+    the one-process loop against the solo ``mpc_fn``, both solves against
+    JAX's particle-sharded solve on a (4, 2) mesh at the same tolerance; the
+    risk plans more than 10x atol from the risk-free ones on the same
+    draws."""
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+    cfg = particle_cfg(repo_root)
+    cfg["cost_params"]["risk_lambda"] = 2.0
+    if spread:
+        cfg["initial_state_std"] = STATE_STD
+    to_np = lambda d: tuple(a.numpy() for a in d) if isinstance(d, tuple) else d.numpy()
+    draws = [to_np(d) for d in jax_solve_draws(8, 2, False, spread=spread, H=6)]
+    ranks = pair("particle_solve", cfg=copy.deepcopy(cfg), solves=2, draws=draws)
+    one = RT.particle_solve(copy.deepcopy(cfg), solves=2, shape=(1, 1), devices="cpu",
+                            draws=draws)
+    for a, b in zip(ranks[0]["plans"], ranks[1]["plans"]):
+        np.testing.assert_array_equal(a, b)                          # one step on every rank
+    np.testing.assert_array_equal(ranks[0]["x_evol"], ranks[1]["x_evol"])
+    for a, b in zip(ranks[0]["plans"], one["plans"]):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    assert ranks[0]["iterations"] == one["iterations"]
+    assert ranks[0]["opt_cost"] == pytest.approx(one["opt_cost"], rel=RTOL)
+
+    _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(copy.deepcopy(cfg), device="cpu")
+    x0 = hover_state()
+    x0[0] = 0.4
+    solo = iter(tuple(torch.from_numpy(a) for a in d) if spread else torch.from_numpy(d)
+                for d in draws)
+    st = reset_fn(x0, None, x0)
+    for plan in one["plans"]:
+        sol = mpc_fn(x0, solo, st, 0.0, x0)
+        st = sol.opt_state
+        np.testing.assert_allclose(sol.u_opt.numpy(), plan, rtol=RTOL, atol=ATOL)
+
+    jmesh = j_make_mesh((4, 2), devices=jax.devices()[:8])
+    j_reset, j_mpc, _ = jbatched.make_particle_sharded_mpc(copy.deepcopy(cfg), jmesh)
+    xj = j_hover().at[0].set(0.4)
+    key = jax.random.PRNGKey(0)
+    st_j = j_reset(xj, key, xj)
+    for plan in ranks[0]["plans"]:
+        sol_j = j_mpc(xj, key, st_j, jnp.float32(0.0), xj)
+        key, st_j = sol_j.rng, sol_j.opt_state
+        np.testing.assert_allclose(plan, np.asarray(sol_j.u_opt), rtol=RTOL, atol=ATOL)
+
+    plain = copy.deepcopy(cfg)
+    del plain["cost_params"]["risk_lambda"]
+    free = RT.particle_solve(plain, solves=2, shape=(1, 1), devices="cpu", draws=draws)
+    assert max(float(np.abs(a - b).max()) for a, b in zip(one["plans"], free["plans"])) \
+        > 10 * ATOL
+    assert ranks[0]["collective_calls"] > 0 and one["collective_calls"] == 0
 
 
 def test_distill_policy_on_a_mesh(repo_root):

@@ -16,8 +16,9 @@ package's ``parallel/mesh.py`` and its invariants
   ``shard``): the rows of a batch solved as the second half of a (2, 1)
   mesh equal those rows of the whole batch, bit for bit, for particle
   blocks with start spreads and for MPPI noise;
-- risk under a sharded particle axis is refused, naming its ROADMAP item,
-  and so are particles that do not split into blocks of two or more;
+- risk under a sharded particle axis builds (its solve is in
+  ``tests/test_torch_distributed.py``); particles that do not split into
+  blocks of two or more are refused;
 - ``sim/bench_scaling.py`` runs its dist and solo sweep over 1 and 2 CPU
   ranks and writes its result where it is told (never ``SCALING.json``).
 
@@ -139,11 +140,16 @@ def test_a_scenarios_draws_do_not_depend_on_the_mesh(repo_root, kind):
 
 
 def test_risk_under_a_sharded_particle_axis_is_refused(repo_root):
+    """What the particle shard still refuses: particles that do not divide
+    over the mc axis, or leave a block of one. Risk is no longer refused:
+    ``build_mpc`` builds the shard with ``risk_lambda``, and its bundle
+    keeps the cost's lambda."""
     cfg = tiny_cfg(repo_root, num_particles=4)
     cfg["cost_params"]["risk_lambda"] = 1.0
     shard = ParticleShard(index=0, count=2, reduce=lambda t: t, broadcast=lambda t, s: t)
-    with pytest.raises(NotImplementedError, match="34. Risk under particle sharding"):
-        build_mpc(copy.deepcopy(cfg), device="cpu", particle_shard=shard)
+    _, bundle, pieces = build_mpc(copy.deepcopy(cfg), device="cpu", particle_shard=shard)
+    assert bundle.cost_params.risk_lambda == pytest.approx(1.0)
+    assert bundle.num_particles == 4 and callable(pieces.solve)
     with pytest.raises(ValueError, match="must divide over the mc axis"):
         build_mpc(tiny_cfg(repo_root, num_particles=5), device="cpu", particle_shard=shard)
     with pytest.raises(ValueError, match="a block needs 2 or more"):

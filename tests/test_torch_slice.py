@@ -382,7 +382,8 @@ def test_slice_runs_without_jax(repo_root):
     vehicle and dispatches a verb (``io/router.py``, ``io/px4_params.py``,
     ``cli/mission.py``) and imports the SITL stack, router bench, analysis
     and preflight drives, then runs the mesh layer on this process's (1, 1)
-    mesh (a batched and a particle-sharded solve, the gather), builds the
+    mesh (a batched and a particle-sharded solve, the latter with risk too,
+    timed by ``engine/profiling.py``'s ``SolveTimer``; the gather), builds the
     PX4 parameter dump and imports the mesh's rank programs and the
     scaling, constrained and two-process drives, without JAX ever entering
     ``sys.modules``; no module of the port, the rank workers among them,
@@ -579,6 +580,13 @@ def test_slice_runs_without_jax(repo_root):
         gen = torch.Generator().manual_seed(0)
         sol = mpc_fn(xt, gen, reset_fn(xt, gen, xt), 0.0, xt)
         assert int(sol.opt_state.num_steps) == 2 and sol.x_evol.shape == (7, 13)
+        from sde4mbrl_px4_tpu_torch.engine.profiling import SolveTimer, trace
+        cfg["cost_params"]["risk_lambda"] = 2.0
+        reset_fn, mpc_fn, _ = make_particle_sharded_mpc(cfg, mesh)
+        timer = SolveTimer()
+        with timer:
+            sol = mpc_fn(xt, gen, reset_fn(xt, gen, xt), 0.0, xt)
+        assert np.isfinite(sol.u_opt.numpy()).all() and timer.stats()["n"] == 1
         assert len(gen_px4_params.build_params()) > 1000
         assert callable(constrained_mpc.fly)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
