@@ -18,17 +18,20 @@ launch node, and last brings up the SITL deployment stack (the MAVLink
 router, the mission layer, the engine node on the card behind the router,
 the launch tier's router node and mission REPL, and the preflight), and the
 reduced matmul precision (the bf16 trunk of the JAX package's
-``matmul_precision: default``, its default above 128 particles), and the
-mesh layer (rank pairs on the card over ``torch.distributed``).
+``matmul_precision: default``, its default above 128 particles), the
+mesh layer (rank pairs on the card over ``torch.distributed``), and the
+P=1 kernels on trunks of any width (a learned model of 32 to 256 hidden
+units flying every P=1 route).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds the three kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
-   (``apg_solve``, its bf16 particle forms ``apg_solve_bf16`` and
-   ``cost_oracle``; one ``nvcc`` each, in parallel) and prints the build
+2. builds the four kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
+   (``apg_solve``, its bf16 particle forms ``apg_solve_bf16``, its P=1
+   shared-memory step ``apg_solve_p1`` and ``cost_oracle``; one ``nvcc``
+   each, in parallel) and prints the build
    seconds and the compiler's register/spill/shared-memory summary per
    ``<PART, SC>`` form;
    fails if a P=1 form on the register chain (the whole solve,
@@ -39,6 +42,9 @@ without a result):
    host runtime ``csrc/libmpc_native.so`` (``make -C csrc``: the native
    mailbox) beside them; prints the P=1 forms' shared memory at n_u = 4
    (iris) and n_u = 6 (hexa) and fails if the whole solve's passes 48 KB;
+   prints the P=1 form each library picks for each kernel at phase 30's
+   widths and its shared memory, and fails unless the weights sit in
+   shared memory to 128 units and in device memory at 256, within 227 KB;
    prints the oracle's largest cluster of each options form and its
    shared-moments form, and fails if the latter is smaller (an oracle with
    risk plans one cluster for both);
@@ -254,9 +260,9 @@ without a result):
     launches (APG one ``apg_solve`` a tick, the distilled policy one
     ``value_batch`` and one ``trajectory``), the distilled policy against
     its plain version (phase 21's check), and one label launch per config
-    re-run for its device time and labels/s; (e) a 32-wide trunk refused
-    when ``make_mpc_from_config`` builds the solver (fault 7), with no
-    launch.
+    re-run for its device time and labels/s; (e) a 32-wide trunk flown at
+    P=1 (3 chained flagship solves on the whole solve's shared-memory step,
+    and MPPI).
 26. batched tuning (``tuning/tuner.py``) on both iris configs:
     ``tune_mppi`` at ``tools/tune_mppi.py``'s default grid (27 candidates,
     K = 64, 8 rounds) and ``tune_cost_weights`` on a 27-row grid (noisy
@@ -350,8 +356,33 @@ without a result):
     ``launch.py --coordinator`` engine nodes, READY and a clean SIGTERM.
     Each route's launches are counted on each rank (zeroed just before it)
     and added to the kernels line as ``mesh_launches``.
+30. the P=1 kernels on any trunk width (the shared-memory step, its weights
+    in device memory past 227 KB; phase 2 prints the form each library
+    picks per kernel and width): (a) at 32, 72, 128 and 256 hidden units
+    (the shipped trunk redrawn below 64 units, padded with drawn units
+    above), each new form of #1-#4 against its plain twin in the three
+    constraint forms (the whole solve at a fixed 10 iterations, phase 3's
+    and phase 14's tolerances, ``x_evol`` the rollout of its plan at rtol
+    1e-5; ``value_batch`` K = 1, 4, 20 at 2e-5, ``value_and_grad`` 5e-4 /
+    5e-5, ``trajectory`` 1e-5), and on the scenario axis at B = 4 (every
+    scenario bit-equal to its solo launch, scenario 0 to the solve held to
+    the plain twin); (b) the shipped trunk zero-padded to 128 and 256 units (the same
+    function) against the register chain at the fixed-budget tolerance,
+    equal steps; (c) ``make_batched_mpc`` on the 128-unit checkpoint
+    (``padded_trunk(..., 128, seed=0)``), B = 256 in one launch, every
+    scenario bit-equal to its solo ``mpc_fn``; (d) the slice's path: the
+    flagship traj config on that checkpoint through ``make_mpc_from_config``
+    (its metric probed), 12 chained solves (p50, iterations, ms an
+    iteration), a controller for 3 traj ticks, a fixed 10-iteration solve
+    kernel against plain, the fixed-step posctrl route and its kernels per
+    launch; (e) every P=1 route (linesearch, both constraint forms, fixed
+    step, MPPI, the pure policy, the ``refine_iters`` hybrid) on each
+    width's checkpoint, ``label_states``, ``tune_cost_weights`` and a fleet
+    on the 128-unit one, each route's launches checked; the 256-unit
+    checkpoint's global-weight forms timed; (f) the widest trunk each
+    particle form plans at P=512, each launched there once.
 
-In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28 and 29 every kernel's launch count is set to 0 just
+In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28, 29 and 30 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
 exactly the kernels it is made of, as many times as its solves need (a
 particle solve is one ``apg_solve`` and one ``trajectory`` launch), and
@@ -383,7 +414,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
-LIBS = ("apg_solve", "apg_solve_bf16", "cost_oracle")
+LIBS = ("apg_solve", "apg_solve_bf16", "apg_solve_p1", "cost_oracle")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
@@ -529,29 +560,34 @@ def check_route(name: str, expected: dict, bf16: dict = None) -> dict:
 
 def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
-    SC>`` plus its flags (the whole solve's clock stamps, the P=1
-    ``value_batch``'s register chain or shared-memory step, the particle
-    forms' options, the bf16 trunk, the oracle's risk mode:
-    ``apg_solve<PART, SC, PROF, OPT, BF>``, ``value_batch<PART, SC, REG,
-    OPT, BF, RM>``, ``value_and_grad<PART, SC, OPT, BF, RM>``);
-    ``trajectory``'s one flag."""
+    SC>`` plus its flags (the whole solve's clock stamps, the P=1 forms'
+    register chain or shared-memory step and its global weights, the
+    particle forms' options, the bf16 trunk, the oracle's risk mode:
+    ``apg_solve<PART, SC, PROF, OPT, BF, STEP>``, ``value_batch<PART, SC,
+    REG, OPT, BF, RM, GW>``, ``value_and_grad<PART, SC, OPT, BF, RM,
+    STEP>``); ``trajectory``'s two, ``<REG, GW>``."""
+    steps = {1: ", shared-memory step", 2: ", shared-memory step, global weights"}
     if kernel == "trajectory_kernel":
-        return f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}>"
+        return (f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}"
+                f"{', global weights' if args[1:2] == [1] else ''}>")
     if len(args) < 2:
         return kernel
     flags = args[2:]
     extra = ""
     if kernel == "apg_solve_kernel":
         extra = ", clock-stamped" if flags[:1] == [1] else ""
+        extra += steps.get((flags[3:4] or [0])[0], "")
         opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
     elif kernel == "value_batch_kernel":
         if flags and not args[0]:
             extra = ", register chain" if flags[0] else ", shared-memory step"
+            extra += ", global weights" if flags[4:5] == [1] else ""
         opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
         mode = flags[3:4]
     else:
         opt, bf16 = flags[:1] == [1], flags[1:2] == [1]
         mode = flags[2:3]
+        extra += steps.get((flags[3:4] or [0])[0], "")
     extra += ", bf16" if bf16 else ""
     extra += ", options" if opt else ""
     if kernel != "apg_solve_kernel" and mode and mode[0]:
@@ -579,6 +615,7 @@ def phase_build() -> None:
     log("phase 2: built csrc/libmpc_native.so (the native mailbox and MAVLink codec)")
     AK.load_apg_library()
     AK.load_apg_library(bf16=True)
+    AK.load_apg_library(p1_step=True)
     CO.load_oracle_library()
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
         f"{time.perf_counter() - t:.1f} s (with load)")
@@ -600,17 +637,22 @@ def phase_build() -> None:
                 if used:
                     regs[current] = int(used.group(1))
     p1 = {k: v for k, v in spills.items()
-          if k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))
-          or "register chain" in k}
+          if (k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))
+              and "shared-memory step" not in k) or "register chain" in k}
     log(f"  spill stores of the P=1 forms on the register chain: {p1}")
     part = {k: (regs.get(k), v) for k, v in spills.items()
             if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
                              "value_batch_kernel<true"))}
     log(f"  the cluster particle forms, (registers, spill stores in bytes): {part}")
     wide = {k: (regs.get(k), v) for k, v in spills.items() if "shared-memory step" in k}
-    log(f"  the P=1 forms of value_batch and trajectory on the shared-memory step (trunks "
-        f"outside the register layout), (registers, spill stores in bytes): {wide}")
-    # (the P=1 value_batch's three bf16 forms on each: 14 and 7)
+    log(f"  the P=1 forms on the shared-memory step (trunks outside the register chain's "
+        f"widths; their weights in shared or, global weights, in device memory), (registers, "
+        f"spill stores in bytes): {wide}")
+    # the register chain: the whole solve's three and its clock-stamped one,
+    # value_and_grad's three, value_batch's three (and three bf16),
+    # trajectory's one; the shared-memory step: the whole solve's and
+    # value_and_grad's six each, value_batch's twelve (fp32 and bf16, each
+    # with the weights in shared and in device memory), trajectory's two
     if len(p1) != 14 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
     # ten particle forms, nine more with the particle options, the eighteen
@@ -620,7 +662,7 @@ def phase_build() -> None:
     moments = {k: v for k, v in part.items() if "moments" in k}
     log(f"  the oracle's shared-moments forms (the risk of a particle-sharded solve), "
         f"(registers, spill stores in bytes): {moments}")
-    if len(part) != 49 or len(wide) != 7 or len(moments) != 12:
+    if len(part) != 49 or len(wide) != 26 or len(moments) != 12:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}")
     vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
@@ -2162,6 +2204,28 @@ def p1_smem(dev) -> dict:
             f"F = {a.F}): {out[vehicle]} (whole solve budget {AK.SMEM_LIMIT} B)")
         if out[vehicle]["apg_solve"] > AK.SMEM_LIMIT:
             raise AssertionError(f"the P=1 whole solve of {vehicle} needs more than 48 KB")
+    # the new forms at each width of phase 30, iris: the form each library
+    # picks for each kernel and its shared memory (the weights in shared
+    # memory to 128 units, in device memory at 256)
+    b = make_bundle("iris_traj_mpc", dev)
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    for hid in WIDE_HIDS:
+        _, a = build_consts(b.model, wide_params(b.params, hid), b.cost_params, b.apg_config,
+                            b.time_steps, x0, x_ref, u_prev, b.lb, b.ub)
+        rows = olib.value_batch_rows(ctypes.byref(a), 64)
+        got = {"apg_solve": lib.apg_smem_bytes(ctypes.byref(a)),
+               "value_batch_K64": olib.value_batch_smem_bytes(ctypes.byref(a), 64),
+               "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(a)),
+               "trajectory": olib.trajectory_smem_bytes(ctypes.byref(a))}
+        forms = wide_forms(a)
+        want = "shared-memory step" + (", global weights" if hid > WIDE_HID else "")
+        out[f"iris_h{hid}"] = dict(got, form=wide_step(a), value_batch_rows=rows)
+        log(f"phase 2: shared memory of the P=1 forms, iris at {hid} hidden units "
+            f"({wide_step(a)}, {rows} value_batch rows a block): {got} (budget "
+            f"{AK.SMEM_LIMIT_PARTICLES} B)")
+        if set(forms.values()) != {want} or max(got.values()) > AK.SMEM_LIMIT_PARTICLES:
+            raise AssertionError(f"at {hid} units the libraries pick {forms} (want {want}) or "
+                                 f"the shared memory {got} passes the budget")
     return out
 
 
@@ -4023,11 +4087,15 @@ def distilled_config(ckpt: str) -> dict:
     return cfg
 
 
-def learning_fault7(dev, td: str) -> str:
-    """(e) a 32-wide trunk: APG at P=1 is refused when the solver is built
-    (the message names fault 7), with no launch; MPPI on it builds."""
+def learning_narrow(dev, td: str) -> dict:
+    """(e) a 32-wide trunk (``init_params(..., hidden=32)``) flies the
+    flagship config at P=1 on the card: built by ``make_mpc_from_config``
+    (its metric probed), 3 chained solves along the lemniscate, one launch
+    of the whole solve's shared-memory step each; MPPI on it too."""
+    import numpy as np
     import torch
 
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
     from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
     from sde4mbrl_px4_tpu_torch.models.params_io import save_params
@@ -4040,20 +4108,25 @@ def learning_fault7(dev, td: str) -> str:
                 {"vehicle": "iris", "hidden": 32})
     cfg = load_yaml_config(os.path.join(ROOT, "configs/iris_traj_mpc.yaml"))
     cfg["learned_model_params"] = ckpt
+    cfg, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(copy.deepcopy(cfg), device=dev)
+    dt, x = float(cfg["_time_steps"][0]), enu2ned(sft(np.float32(3.0)))
+    st, steps = reset_fn(x, None, x), []
     zero_counts()
-    try:
-        make_mpc_from_config(copy.deepcopy(cfg), device=dev)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        raise AssertionError("a 32-wide trunk was not refused at build")
-    cfg["solver"] = "mppi"
-    make_mpc_from_config(cfg, device=dev)
-    log(f"phase 25e: a 32-wide trunk refused at build_mpc: {msg[:160]}...; MPPI on it builds; "
-        f"launches {counts()}")
-    if "fault 7" not in msg or any(counts().values()):
-        raise AssertionError(f"the fault-7 refusal is wrong: {msg}")
-    return msg
+    for k in range(3):
+        u, st, _, x_evol = mpc_fn(x, None, st, np.float32(3.0 + k * dt), x)
+        steps.append(int(st.num_steps))
+        x = x_evol[1]
+    torch.cuda.synchronize()
+    got = check_route("32-unit flagship", {"apg_solve": 3, "value_batch": 0,
+                                           "value_and_grad": 0, "trajectory": 0})
+    mcfg = dict(cfg, solver="mppi")
+    rows, _ = chain({k: v for k, v in mcfg.items() if not k.startswith("_")}, dev, 1)
+    log(f"phase 25e: a 32-wide trunk flies the flagship at P=1 on the card: 3 solves at "
+        f"{steps} iterations, launches {got}; MPPI on it: u0 "
+        f"{np.array2string(rows[0, :4], precision=4)}")
+    if not (bool(torch.isfinite(u).all()) and np.isfinite(rows).all()):
+        raise AssertionError("the 32-wide trunk did not fly")
+    return {"launches": got, "steps": steps}
 
 
 def phase_learning(dev, card: str) -> dict:
@@ -4065,9 +4138,9 @@ def phase_learning(dev, card: str) -> dict:
         train = learning_train(dev, td, flight["npz"], card)
         probe = learning_probe(dev, train["ckpt"], card)
         distill = learning_distill(dev, td, card)
-        fault7 = learning_fault7(dev, td)
+        narrow = learning_narrow(dev, td)
     return {"log": flight, "train": train, "probe": probe, "distill": distill,
-            "fault7": fault7}
+            "narrow": narrow}
 
 
 # ---------------------------------------------------------------- phase 26
@@ -5781,6 +5854,710 @@ def mesh_launch_pair() -> dict:
     return {"ready_s": ready_s, "rc": [p.returncode for p in procs]}
 
 
+# ---- phase 30: the P=1 kernels on any trunk width ---------------------------
+# The widths each new P=1 form is held at (the shared-memory step at 32, 72
+# and 128 units, its weights in device memory at 256), the slice's flagship
+# trunk (the shipped 64 units and 64 drawn at the shipped spread:
+# goldens.padded_trunk(..., 128, seed=0)), its chained solves and controller
+# ticks, the batched launch held to its solo launches, the particle forms'
+# width ceiling at P=512
+WIDE_HIDS = (32, 72, 128, 256)
+WIDE_HID = 128
+WIDE_SOLVES, WIDE_TICKS = 12, 3
+WIDE_B, WIDE_BATCH_ITERS = 256, 20
+WIDE_FORMS = ("none", "penalty", "prox")
+WIDE_SCEN = 4                 # the scenario axis of the parity checks
+
+
+def wide_params(params: dict, hid: int) -> dict:
+    """The shipped trunk at ``hid`` units: above 64 padded with units drawn
+    at each layer's shipped spread (``goldens.padded_trunk(..., seed=0)``),
+    below it redrawn from a numpy seed at that spread (biases 0 but the
+    output layer's)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+
+    if hid >= 64:
+        return padded_trunk(params, hid, seed=0)
+    net = params["net"]
+    rs = np.random.RandomState(hid)
+
+    def draw(k, shape):
+        w = rs.standard_normal(shape) * float(net[k].double().std())
+        return torch.from_numpy(w.astype(np.float32)).to(net[k].device)
+
+    F, OUT, dev = int(net["w0"].shape[0]), int(net["w2"].shape[1]), net["w0"].device
+    new = dict(net, w0=draw("w0", (F, hid)), b0=torch.zeros(hid, device=dev),
+               w1=draw("w1", (hid, hid)), b1=torch.zeros(hid, device=dev),
+               w2=draw("w2", (hid, OUT)))
+    return dict(params, net=new)
+
+
+def wide_checkpoint(td: str, b, hid: int) -> str:
+    """The shipped checkpoint at ``hid`` units (:func:`wide_params`), saved
+    with ``params_io.save_params`` into ``td``."""
+    from sde4mbrl_px4_tpu_torch.models.params_io import save_params
+
+    path = os.path.join(td, f"iris_sde_h{hid}.pkl")
+    save_params(path, wide_params(b.params, hid), {"vehicle": "iris", "hidden": hid})
+    return path
+
+
+def wide_config(name: str, ckpt: str, **mut) -> dict:
+    """A shipped config (:func:`config`'s ``mut``; ``prox``/``penalty`` the
+    constrained posctrl config in that form) on the checkpoint ``ckpt``."""
+    cfg = constrained_config(name, **mut) if name in SC_FORMS else config(name, **mut)
+    cfg["learned_model_params"] = ckpt
+    return cfg
+
+
+def wide_forms(a) -> dict:
+    """The P=1 form the libraries pick for a's dimensions, per kernel
+    (``apg_p1_form``, ``oracle_p1_form``)."""
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
+        ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_CHAIN, P1_SMEM)
+
+    name = {P1_CHAIN: "register chain", P1_SMEM: "shared-memory step"}
+    olib = CO.load_oracle_library()
+    forms = {"apg_solve": AK.load_apg_library().apg_p1_form(ctypes.byref(a))}
+    forms.update((k, olib.oracle_p1_form(ctypes.byref(a), kind)) for k, kind in (
+        ("value_batch", ORACLE_VALUE_BATCH), ("value_and_grad", ORACLE_VALUE_AND_GRAD),
+        ("trajectory", ORACLE_TRAJECTORY)))
+    return {k: name.get(v, "shared-memory step, global weights") for k, v in forms.items()}
+
+
+def wide_step(a) -> str:
+    """:func:`wide_forms` as one label: the form, or each kernel's where
+    they differ."""
+    forms = wide_forms(a)
+    if len(set(forms.values())) == 1:
+        return forms["apg_solve"]
+    return "; ".join(f"{k} {v}" for k, v in forms.items())
+
+
+def wide_solve_check(b, params, args, rtol: float, atol: float, tag: str) -> tuple:
+    """One P=1 solve on the kernel and on the plain twin: equal steps,
+    ``yk`` at (rtol, atol), ``opt_cost`` rel rtol, ``x_evol`` the mean
+    rollout of the kernel's plan at rtol 1e-5 / atol 1e-6. Returns (max
+    |du|, the kernel's solve)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    st_k, xe_k = AK.apg_solve_kernel(*args)
+    torch.cuda.synchronize()
+    st_p, _ = AK.apg_solve_plain(*args)
+    nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+    du = float((st_k.yk - st_p.yk).abs().max())
+    dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+    ref = rollout_mean(b.model, params, args[5], st_k.yk[:, :b.model.n_u], b.time_steps)
+    dx = float((xe_k - ref).abs().max())
+    log(f"wide {tag}: whole solve steps kernel {nk} plain {np_}; max|du| {du:.3e} (rtol "
+        f"{rtol}, atol {atol}); cost rel {dc:.3e}; x_evol max|dx| {dx:.3e} (rtol 1e-5)")
+    if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=rtol, atol=atol)
+            and dc <= rtol and torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6)
+            and bool(torch.isfinite(st_k.yk).all())):
+        raise AssertionError(f"the P=1 whole solve disagrees with its plain twin ({tag})")
+    return du, st_k
+
+
+def wide_oracle_check(kern, plain, U, tag: str) -> dict:
+    """The oracle kernels against the plain twin on the plans U (K, H, nZ):
+    ``value_batch`` at K = 1, 4 and all (rel 2e-5), ``value_and_grad``
+    (value rel 2e-5, gradient rtol 5e-4 / atol 5e-5), ``trajectory`` (rtol
+    1e-5 / atol 1e-6). Returns max |err| per kernel (relative for
+    ``value_batch``)."""
+    import torch
+
+    e = {"value_batch": 0.0}
+    for K in sorted({1, 4, int(U.shape[0])}):
+        vk = kern.value_batch(U[:K])
+        torch.cuda.synchronize()
+        vp = plain.value_batch(U[:K])
+        e["value_batch"] = max(e["value_batch"], float(((vk - vp).abs() / vp.abs()).max()))
+    (v_k, g_k), (v_p, g_p) = kern.value_and_grad(U[0]), plain.value_and_grad(U[0])
+    dv = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+    e["value_and_grad"] = float((g_k - g_p).abs().max())
+    x_k, x_p = kern.trajectory(U[1]), plain.trajectory(U[1])
+    e["trajectory"] = float((x_k - x_p).abs().max())
+    log(f"wide {tag}: value_batch K=1,4,{int(U.shape[0])} max rel {e['value_batch']:.3e} "
+        f"(2e-5); value_and_grad value rel {dv:.3e}, grad max|d| {e['value_and_grad']:.3e} "
+        f"(5e-4 / 5e-5); trajectory max|dx| {e['trajectory']:.3e} (1e-5)")
+    if not (e["value_batch"] <= 2e-5 and dv <= 2e-5
+            and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5)
+            and torch.allclose(x_k, x_p, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"a P=1 oracle form disagrees with its plain twin ({tag})")
+    return e
+
+
+def wide_scenarios(dev, b, problem_fn, params, apg, lb, ub, U, solo, tag: str) -> None:
+    """The scenario axis of the new forms at B = WIDE_SCEN: one whole-solve
+    launch and one launch of each oracle kernel over the scenarios (x0
+    moved 0.1 m a scenario), each scenario bit-equal to its solo launch;
+    scenario 0 is the problem of ``solo``, the solve :func:`wide_solve_check`
+    held to the plain twin, and bit-equal to it."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    x0, x_ref, u_prev, u_init = problem_fn()
+    B = WIDE_SCEN
+    X0 = x0.expand(B, 13).clone()
+    X0[:, 0] += 0.1 * torch.arange(B, device=dev)
+    XR, UP = x_ref.expand(B, *x_ref.shape).contiguous(), u_prev.expand(B, -1).contiguous()
+    UI = u_init.expand(B, *u_init.shape).contiguous()
+    m, cp, ts = b.model, b.cost_params, b.time_steps
+    st_b, xe_b = AK.apg_solve_kernel_batched(m, params, cp, apg, ts, X0, XR, UP, None, 1, lb,
+                                             ub, UI)
+    ob = CO.cost_oracle_batched(m, params, cp, ts, X0, XR, UP, None, 1, 4)
+    UB = U[:4].expand(B, *U[:4].shape).contiguous()
+    vb, (vg, gg) = ob.value_batch(UB), ob.value_and_grad(UB[:, 0].contiguous())
+    tr = ob.trajectory(UB[:, 1].contiguous())
+    bad = []
+    for i in range(B):
+        st_1, xe_1 = AK.apg_solve_kernel(m, params, cp, apg, ts, X0[i], XR[i], UP[i], None, 1,
+                                         lb, ub, UI[i])
+        o1 = CO.cost_oracle(m, params, cp, ts, X0[i], XR[i], UP[i], None, 1, 4)
+        v1, g1 = o1.value_and_grad(UB[i, 0])
+        same = (torch.equal(st_1.yk, st_b.yk[i]) and torch.equal(xe_1, xe_b[i])
+                and torch.equal(st_1.num_steps, st_b.num_steps[i])
+                and torch.equal(o1.value_batch(UB[i]), vb[i]) and torch.equal(v1, vg[i])
+                and torch.equal(g1, gg[i]) and torch.equal(o1.trajectory(UB[i, 1]), tr[i]))
+        if not same:
+            bad.append(i)
+    torch.cuda.synchronize()
+    first = torch.equal(st_b.yk[0], solo.yk) and torch.equal(st_b.num_steps[0], solo.num_steps)
+    log(f"wide {tag}: B={B} scenarios, one launch of each kernel: {B - len(bad)} bit-equal to "
+        f"their solo launches; scenario 0 bit-equal to the solve held to the plain twin: "
+        f"{first}")
+    if bad or not first:
+        raise AssertionError(f"the scenario axis of the new forms is wrong ({tag}): {bad}")
+
+
+def wide_parity(dev, traj_b) -> dict:
+    """(a) Each new form of #1-#4 against its plain twin at every width of
+    ``WIDE_HIDS``, in the three constraint forms (none: the traj config and
+    phase 3's problem at a fixed 10 iterations, rtol 2e-4 / atol 2e-5;
+    penalty and prox: the constrained posctrl config from its bound-violating
+    start, phase 14's particle tolerances), at B = 1 and B = WIDE_SCEN; then
+    (b) the shipped trunk zero-padded to 128 and 256 units (the same
+    function) on the new forms against the register chain on the shipped
+    one. Returns max |err| per kernel and the forms' shared memory."""
+    import ctypes
+
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import (constrained_plans, constrained_problem,
+                                                       padded_trunk)
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    err = {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0, "trajectory": 0.0}
+    bundles = {"none": traj_b}
+    for form in SC_FORMS:
+        bundles[form] = make_mpc_from_config(constrained_config(form), device=dev)[3]
+    smem = {}
+    for hid in WIDE_HIDS:
+        for form in WIDE_FORMS:
+            b = bundles[form]
+            params = wide_params(b.params, hid)
+            apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+            if form == "none":
+                prob = lambda b=b: problem(b, dev)
+                lb, ub, (rtol, atol) = b.lb, b.ub, TOLS["iris_traj_mpc"][1:]
+                U = plans(20, hid, dev)
+            else:
+                prob = lambda b=b: constrained_problem(b)
+                lb, ub, (rtol, atol) = b.lb_z, b.ub_z, (PART_RTOL, PART_ATOL)
+                U = constrained_plans(b, 20, hid)
+            x0, x_ref, u_prev, u_init = prob()
+            _, a = build_consts(b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref,
+                                u_prev, lb, ub)
+            tag = f"{hid} units, {form}, {wide_step(a)}"
+            args = (b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None,
+                    1, lb, ub, u_init)
+            du, solo = wide_solve_check(b, params, args, rtol, atol, tag)
+            err["apg_solve"] = max(err["apg_solve"], du)
+            oargs = (b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+            e = wide_oracle_check(CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs), U, tag)
+            for k, v in e.items():
+                err[k] = max(err[k], v)
+            wide_scenarios(dev, b, prob, params, apg, lb, ub, U, solo, tag)
+            lib, olib = AK.load_apg_library(), CO.load_oracle_library()
+            smem[(hid, form)] = {
+                "form": wide_step(a), "apg_solve": lib.apg_smem_bytes(ctypes.byref(a)),
+                "value_batch_K64": olib.value_batch_smem_bytes(ctypes.byref(a), 64),
+                "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(a)),
+                "trajectory": olib.trajectory_smem_bytes(ctypes.byref(a))}
+
+    # (b) the zero-padded trunk is the shipped function: the new forms on it
+    # against the register chain on the shipped trunk
+    b = traj_b
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    U = plans(8, 3, dev)
+
+    def run(params):
+        st, xe = AK.apg_solve_kernel(b.model, params, b.cost_params, apg, b.time_steps, x0,
+                                     x_ref, u_prev, None, 1, b.lb, b.ub, u_init,
+                                     precond=b.precond)
+        o = CO.cost_oracle(b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev,
+                           None, 1, 4)
+        return st, xe, o.value_batch(U), o.value_and_grad(U[0])
+
+    st_c, xe_c, vb_c, (v_c, g_c) = run(b.params)
+    padded = {}
+    for hid in (WIDE_HID, 256):
+        st_w, xe_w, vb_w, (v_w, g_w) = run(padded_trunk(b.params, hid))
+        torch.cuda.synchronize()
+        du = float((st_w.yk - st_c.yk).abs().max())
+        dvb = float(((vb_w - vb_c).abs() / vb_c.abs()).max())
+        dg = float((g_w - g_c).abs().max())
+        padded[hid] = {"du": du, "steps": (int(st_w.num_steps), int(st_c.num_steps)),
+                       "value_batch_rel": dvb, "grad": dg}
+        log(f"wide: the shipped trunk zero-padded to {hid} units against the register chain "
+            f"(fixed 10-iteration traj solve with its hover_diag metric): steps "
+            f"{padded[hid]['steps']}, max|du| {du:.3e}, x_evol max|dx| "
+            f"{float((xe_w - xe_c).abs().max()):.3e} (rtol 2e-4, atol 2e-5); value_batch K=8 max rel "
+            f"{dvb:.3e} (2e-5), grad max|d| {dg:.3e} (5e-4 / 5e-5)")
+        if not (st_w.num_steps == st_c.num_steps
+                and torch.allclose(st_w.yk, st_c.yk, rtol=2e-4, atol=2e-5)
+                and torch.allclose(xe_w, xe_c, rtol=2e-4, atol=2e-5) and dvb <= 2e-5
+                and abs(float(v_w - v_c)) <= 2e-5 * abs(float(v_c))
+                and torch.allclose(g_w, g_c, rtol=5e-4, atol=5e-5)):
+            raise AssertionError(f"the zero-padded {hid}-unit trunk leaves the register chain")
+    return {"err": err, "smem": smem, "padded": padded}
+
+
+def wide_batched(dev, ckpt: str, card: str) -> dict:
+    """(c) ``make_batched_mpc`` on the 128-unit checkpoint: iris posctrl at
+    a WIDE_BATCH_ITERS budget, WIDE_B scenarios of ``bench.py``'s batch
+    (``make_batch_inputs(spread=0.5)``) in one launch of the new whole-solve
+    form, each scenario bit-equal to its solo ``mpc_fn`` solve (phase 20's
+    check), the launch timed."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.parallel.batched import make_batch_inputs
+
+    cfg = wide_config("iris_posctrl_mpc", ckpt, max_iter=WIDE_BATCH_ITERS)
+    reset_fn, mpc_fn, reset_b, mpc_b, _, _ = batched_pair(cfg, dev)
+    xs, _ = make_batch_inputs(WIDE_B, spread=0.5, device=dev)
+    tgt, ts = bench_targets(xs)[0], torch.zeros(WIDE_B, device=dev)
+    st_in = reset_b(xs, None, xs)
+    mpc_b(xs, None, st_in, ts, tgt)                      # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    sol = mpc_b(xs, None, st_in, ts, tgt)
+    e1.record()
+    torch.cuda.synchronize()
+    got = check_route(f"batched B={WIDE_B}, {WIDE_HID} units",
+                      {"apg_solve": 1, "value_batch": 0, "value_and_grad": 0, "trajectory": 0})
+    n = bit_equal_to_solo(f"iris posctrl B={WIDE_B} on the {WIDE_HID}-unit trunk", sol,
+                          [mpc_fn(xs[i], None, scenario_state(st_in, i), 0.0, tgt[i])
+                           for i in range(WIDE_B)])
+    ms = e0.elapsed_time(e1)
+    steps = float(sol.opt_state.num_steps.mean())
+    log(f"batched B={WIDE_B} on the {WIDE_HID}-unit trunk ({card}): {ms:.3f} ms device a step "
+        f"at {steps:.2f} iterations a scenario ({WIDE_B / ms * 1e3:.0f} solves/s)")
+    return {"launches": got, "bit_equal": n, "device_ms": ms, "steps_per_solve": steps}
+
+
+def wide_flagship(dev, ckpt: str, card: str) -> dict:
+    """(d) the slice's path: ``configs/iris_traj_mpc.yaml`` as shipped on the
+    128-unit checkpoint through ``make_mpc_from_config`` (its ``hover_diag``
+    metric probed on the card into the run's temporary cache), WIDE_SOLVES
+    chained solves along the lemniscate through ``mpc_fn`` (one launch of
+    the new whole-solve form each, its ``x_evol`` the time-indexed pickup's
+    plan), then a ``RecedingHorizonController`` on both iris configs on the
+    checkpoint for WIDE_TICKS traj ticks; a fixed 10-iteration solve,
+    kernel against plain, timed; then the fixed-step posctrl route on the
+    checkpoint (``value_and_grad``, the K=1 trial ``value_batch``,
+    ``trajectory``), its kernels timed per launch against the plain twin."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    out = {}
+    cfg0 = wide_config("iris_traj_mpc", ckpt)
+    w0 = time.perf_counter()
+    cfg, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(copy.deepcopy(cfg0), device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - w0
+    if b.precond is None or tuple(b.params["net"]["w1"].shape) != (WIDE_HID, WIDE_HID):
+        raise AssertionError("the 128-unit flagship did not build with its metric")
+    dt, t0 = float(cfg["_time_steps"][0]), 3.0
+    x = enu2ned(sft(np.float32(t0)))
+    st = reset_fn(x, None, x)
+    events, wall, steps, track = [], [], [], []
+    zero_counts()
+    with routed("apg_solve_kernel", event_timed(events)):
+        for k in range(WIDE_SOLVES):
+            w = time.perf_counter()
+            u, st, _, x_evol = mpc_fn(x, None, st, np.float32(t0 + k * dt), x)
+            u0 = u[0].cpu()
+            wall.append((time.perf_counter() - w) * 1e3)
+            steps.append(int(st.num_steps))
+            x = x_evol[1]
+            ref = enu2ned(sft(np.float32(t0 + (k + 1) * dt)))
+            track.append(float(torch.linalg.norm(x[:3] - ref[:3])))
+            if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(u0).all())):
+                raise AssertionError(f"the {WIDE_HID}-unit flagship solve {k} is not finite")
+    torch.cuda.synchronize()
+    out["launches"] = check_route(f"{WIDE_HID}-unit flagship", {
+        "apg_solve": WIDE_SOLVES, "value_batch": 0, "value_and_grad": 0, "trajectory": 0})
+    dev_ms = [a.elapsed_time(e) for a, e in events]
+    tail = slice(1, WIDE_SOLVES)
+    out.update(wall_ms_p50=statistics.median(wall[tail]),
+               device_ms_p50=statistics.median(dev_ms[tail]), steps=steps,
+               iterations_p50=statistics.median(steps[tail]),
+               iteration_ms=statistics.median(d / s for d, s in zip(dev_ms[tail], steps[tail])),
+               track_m=max(track))
+    log(f"{WIDE_HID}-unit flagship (iris_traj_mpc as shipped, hover_diag probed in "
+        f"{out['build_s']:.2f} s with the build) through mpc_fn, {WIDE_SOLVES} chained ticks "
+        f"along the lemniscate ({card}): per solve p50 {out['wall_ms_p50']:.3f} ms wall, "
+        f"{out['device_ms_p50']:.3f} ms device over ticks 2-{WIDE_SOLVES}; iterations "
+        f"{steps}; {out['iteration_ms']:.4f} ms an iteration p50; |x_evol[1] - ref| max "
+        f"{max(track):.4f} m (gate 0.5 m)")
+    if max(track) > 0.5:
+        raise AssertionError(f"the {WIDE_HID}-unit flagship did not track the lemniscate")
+
+    paths = []
+    for name in ("iris_traj_mpc", "iris_posctrl_mpc"):
+        path = os.path.join(ROOT, "build", "chip_smoke", f"{name}_h{WIDE_HID}.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump({k: v for k, v in wide_config(name, ckpt).items()
+                            if not k.startswith("_")}, f)
+        paths.append(path)
+    c = RecedingHorizonController(*paths, seed=0, now_fn=lambda: 0.0, device=dev)
+    traj0, pos0 = c.traj.solves, c.pos.solves
+    zero_counts()
+    cmds, _ = G.replay_traj(c, n=WIDE_TICKS)
+    torch.cuda.synchronize()
+    n_traj, n_pos = c.traj.solves - traj0, c.pos.solves - pos0
+    out["controller_launches"] = check_route(
+        f"{WIDE_HID}-unit controller", {"apg_solve": n_traj + n_pos, "value_batch": 0,
+                                        "value_and_grad": 0, "trajectory": 0})
+    log(f"RecedingHorizonController on the {WIDE_HID}-unit checkpoint: {n_traj} traj solves, "
+        f"u0 {np.array2string(cmds[-1, :4], precision=4)}, pickup idx {cmds[:, 10].tolist()}")
+    if not (n_traj == WIDE_TICKS and np.isfinite(cmds).all()):
+        raise AssertionError(f"the controller did not fly the {WIDE_HID}-unit checkpoint")
+
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
+            b.lb, b.ub, u_init)
+    out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=10,
+                                                        n_plain=2)
+    _, a = build_consts(b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev)
+    out["n_consts"], out["form"], out["bundle"] = a.n_consts, wide_step(a), b
+    log(f"fixed 10-iteration solve on the {WIDE_HID}-unit trunk ({card}, {out['form']}): "
+        f"kernel {out['fixed_ms']:.4f} ms (CUDA events, mean of 10), plain "
+        f"{out['fixed_plain_ms']:.3f} ms (wall, mean of 2); bound "
+        f"{bound(b, 'apg_solve', a.n_consts, K=4, iters=10)[0]:.5f} ms at 10 it., "
+        f"{bound(b, 'apg_solve', a.n_consts, K=4, iters=out['iterations_p50'])[0]:.5f} ms at "
+        f"the flagship's {out['iterations_p50']:.0f}")
+
+    fcfg = wide_config("iris_posctrl_mpc", ckpt, linesearch=None,
+                       stepsize=FIXED_STEP["iris_posctrl_mpc"])
+    n = 3
+    zero_counts()
+    rows, fms = chain(fcfg, dev, n)
+    torch.cuda.synchronize()
+    fsteps = int(rows[:, -1].sum())
+    out["fixed_step_launches"] = check_route(
+        f"{WIDE_HID}-unit fixed-step", {"apg_solve": 0, "value_batch": fsteps,
+                                        "value_and_grad": fsteps + 2 * n, "trajectory": n})
+    out["fixed_step_ms"] = statistics.median(fms[1:])
+    if not (np.isfinite(rows).all() and (rows[:, :-1] >= 1e-4 - 1e-7).all()):
+        raise AssertionError(f"the {WIDE_HID}-unit fixed-step route returned an invalid plan")
+    fb = make_mpc_from_config(copy.deepcopy(fcfg), device=dev)[3]
+    x0, x_ref, u_prev, _ = problem(fb, dev)
+    oargs = (fb.model, fb.params, fb.cost_params, fb.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U, u = plans(64, 1, dev), plans(1, 2, dev)[0]
+    calls = {"value_batch": lambda o: o.value_batch(U[:1]),
+             "value_batch_K64": lambda o: o.value_batch(U),
+             "value_and_grad": lambda o: o.value_and_grad(u),
+             "trajectory": lambda o: o.trajectory(u)}
+    for name, call in calls.items():
+        out[name] = (per_launch_ms(lambda: call(kern), 50), per_launch_ms(lambda: call(plain), 5))
+    log(f"fixed-step posctrl route on the {WIDE_HID}-unit trunk ({card}): {n} chained solves "
+        f"at {rows[:, -1].tolist()} iterations, {out['fixed_step_ms']:.3f} ms a solve p50; per "
+        f"launch kernel / plain (CUDA events): " + "; ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.3f} ms" for k, v in calls.items() for v in [out[k]]))
+    out["oracle_bundle"] = fb
+    return out
+
+
+def wide_routes(dev, ckpts: dict, card: str) -> dict:
+    """(e) Every route that reaches #1-#4 at P=1, built by
+    ``make_mpc_from_config`` on the checkpoint of each width and flown 2
+    chained solves from the pinned offset state (one for MPPI): the
+    linesearch traj config (``hover_diag`` probed), the constrained posctrl
+    config in both forms, the fixed-step posctrl route, MPPI, the pure
+    policy (its telemetry cost on the bf16 trunk) and the ``refine_iters``
+    hybrid (3); each route's launches checked (zeroed just before it);
+    then, on the 128-unit checkpoint, ``label_states`` of 8 sampled states
+    (one launch of 8 blocks), ``tune_cost_weights`` over 3 candidates for 2
+    periods and a ``FleetEngine`` of 8 vehicles for 3 ticks."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.learning import distill as TD
+    from sde4mbrl_px4_tpu_torch.parallel.fleet import FleetEngine
+    from sde4mbrl_px4_tpu_torch.parallel.rank_tasks import fleet_inputs
+    from sde4mbrl_px4_tpu_torch.tuning import make_weight_grid, tune_cost_weights
+
+    total, by_width = {}, {}
+    mppi_iters = 8
+    for hid, ckpt in ckpts.items():
+        mine = by_width.setdefault(hid, {})
+        routes = {
+            "linesearch": (wide_config("iris_traj_mpc", ckpt), 2),
+            "prox": (wide_config("prox", ckpt), 2),
+            "penalty": (wide_config("penalty", ckpt), 2),
+            "fixed_step": (wide_config("iris_posctrl_mpc", ckpt, linesearch=None,
+                                       stepsize=FIXED_STEP["iris_posctrl_mpc"]), 2),
+            "mppi": (wide_config("iris_posctrl_mpc", ckpt, solver="mppi"), 1),
+            "policy": (dict(policy_config("iris", "posctrl"), learned_model_params=ckpt), 2),
+            "hybrid": (dict(policy_config("iris", "traj", refine=3), learned_model_params=ckpt),
+                       2)}
+        for route, (cfg, n) in routes.items():
+            zero_counts()
+            rows, _ = chain(cfg, dev, n)
+            torch.cuda.synchronize()
+            steps = int(rows[:, -1].sum())
+            want = {"apg_solve": 0, "value_batch": 0, "value_and_grad": 0, "trajectory": 0}
+            if route in ("linesearch", "prox", "penalty", "hybrid"):
+                want["apg_solve"] = n
+            elif route == "fixed_step":
+                want.update(value_batch=steps, value_and_grad=steps + 2 * n, trajectory=n)
+            elif route == "mppi":
+                want.update(value_batch=n * (mppi_iters + 2), trajectory=n)
+            else:
+                want.update(value_batch=n, trajectory=n)
+            got = check_route(f"{hid}-unit {route}", want)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+                mine[k] = mine.get(k, 0) + v
+            if not np.isfinite(rows).all():
+                raise AssertionError(f"the {hid}-unit {route} route is not finite")
+        log(f"wide routes on the {hid}-unit checkpoint ({card}): linesearch, both constraint "
+            f"forms, fixed step, MPPI, the pure policy and the refine_iters hybrid flew on the "
+            f"card")
+
+    ckpt = ckpts[WIDE_HID]
+
+    def whole_solve_only(name: str, least: int) -> dict:
+        # the batched routes launch the whole solve only, at least `least` times
+        got = counts()
+        log(f"kernel launches in the {name} route: {got} (whole solve only, >= {least})")
+        if got["apg_solve"] < least or any(v for k, v in got.items() if k != "apg_solve"):
+            raise AssertionError(f"the {name} route did not launch the kernels it needs")
+        if "jax" in sys.modules:
+            raise AssertionError("JAX was imported")
+        return got
+
+    tb = make_mpc_from_config(wide_config("iris_traj_mpc", ckpt), device=dev)[3]
+    dcfg = TD.DistillConfig(expert_max_iter=50)
+    xs, ts, xdes, ups = TD.sample_states(tb, 8, torch.Generator().manual_seed(5), dcfg)
+    zero_counts()
+    labels = TD.label_states(wide_config("iris_traj_mpc", ckpt), xs, ts, xdes, None, dcfg,
+                             u_prevs=ups, device=dev)
+    torch.cuda.synchronize()
+    batched = [check_route(f"{WIDE_HID}-unit labels", {
+        "apg_solve": 1, "value_batch": 0, "value_and_grad": 0, "trajectory": 0})]
+    zero_counts()
+    rows = tune_cost_weights(wide_config("iris_posctrl_mpc", ckpt),
+                             make_weight_grid([0.5, 1.0, 2.0], [1.0], [1.0], [1.0]), steps=2,
+                             device=dev)
+    torch.cuda.synchronize()
+    batched.append(whole_solve_only(f"{WIDE_HID}-unit tune_cost_weights", 2))
+    eng = FleetEngine(wide_config("iris_posctrl_mpc", ckpt), batch=8, seed=0, pipeline=False,
+                      device=dev)
+    states, targets = fleet_inputs(8)
+    zero_counts()
+    for _ in range(3):
+        u, x_evol, _ = eng.step(states, targets)
+        states = np.asarray(x_evol[:, 1, :])
+    torch.cuda.synchronize()
+    batched.append(whole_solve_only(f"{WIDE_HID}-unit fleet", 3))
+    log(f"on the {WIDE_HID}-unit checkpoint: label_states of 8 states {tuple(labels.shape)}, "
+        f"tune_cost_weights over 3 candidates {len(rows)} rows, a fleet of 8 for 3 ticks "
+        f"(finite: {bool(np.isfinite(u).all())})")
+    if not (bool(torch.isfinite(labels).all()) and len(rows) == 3 and np.isfinite(u).all()):
+        raise AssertionError("a batched route on the wide checkpoint is not finite")
+    for got in batched:
+        total["apg_solve"] += got["apg_solve"]
+    return {"total": total, "by_width": by_width}
+
+
+def wide_global(dev, ckpt: str, card: str) -> dict:
+    """The global-weight forms on the 256-unit checkpoint (the iris traj
+    config as shipped, its metric probed): 4 chained solves along the
+    lemniscate, a fixed 10-iteration solve and each oracle kernel per
+    launch, kernel against plain."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    cfg, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(wide_config("iris_traj_mpc", ckpt),
+                                                           device=dev)
+    dt, x = float(cfg["_time_steps"][0]), enu2ned(sft(np.float32(3.0)))
+    st, events, steps = reset_fn(x, None, x), [], []
+    zero_counts()
+    with routed("apg_solve_kernel", event_timed(events)):
+        for k in range(4):
+            u, st, _, x_evol = mpc_fn(x, None, st, np.float32(3.0 + k * dt), x)
+            steps.append(int(st.num_steps))
+            x = x_evol[1]
+    torch.cuda.synchronize()
+    launches = check_route("256-unit flagship", {"apg_solve": 4, "value_batch": 0,
+                                                 "value_and_grad": 0, "trajectory": 0})
+    dev_ms = [a.elapsed_time(e) for a, e in events]
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
+            b.lb, b.ub, u_init)
+    out = {"launches": launches, "steps": steps, "device_ms": dev_ms[1:],
+           "iteration_ms": statistics.median(d / s for d, s in zip(dev_ms[1:], steps[1:]))}
+    out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=10,
+                                                        n_plain=2)
+    _, a = build_consts(b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev)
+    out["n_consts"], out["form"], out["bundle"] = a.n_consts, wide_step(a), b
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    U, u1 = plans(64, 1, dev), plans(1, 2, dev)[0]
+    calls = {"value_batch": lambda o: o.value_batch(U[:1]),
+             "value_batch_K64": lambda o: o.value_batch(U),
+             "value_and_grad": lambda o: o.value_and_grad(u1),
+             "trajectory": lambda o: o.trajectory(u1)}
+    for name, call in calls.items():
+        out[name] = (per_launch_ms(lambda: call(kern), 20), per_launch_ms(lambda: call(plain), 3))
+    log(f"256-unit checkpoint ({card}, {out['form']}): 4 chained flagship solves at {steps} "
+        f"iterations, {out['iteration_ms']:.4f} ms an iteration; fixed 10-iteration solve "
+        f"kernel {out['fixed_ms']:.4f} ms, plain {out['fixed_plain_ms']:.3f} ms; per launch "
+        f"kernel / plain: " + "; ".join(f"{k} {out[k][0]:.4f} / {out[k][1]:.3f} ms"
+                                        for k in calls))
+    return out
+
+
+def particle_ceiling(dev, traj_b, card: str) -> dict:
+    """(f) The widest trunk (a multiple of 8 units) each particle form takes
+    today at P=512, from the libraries' own shared-memory queries at the
+    chunk each wrapper would pick: the whole solve (``plan_solve_particles``),
+    the oracle (``plan_oracle_particles``: ``value_batch`` and
+    ``value_and_grad`` share one chunk) and each oracle kernel on its own
+    bytes (``plan_particles``); the widest width plans, 8 units more does
+    not. The whole solve (one iteration) and the oracle (``value_batch`` K=1
+    and ``value_and_grad``) are launched once at their widest (finite)."""
+    import ctypes
+
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
+        ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, build_consts,
+        plan_particles)
+
+    b = traj_b
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    olib = CO.load_oracle_library()
+    need = {"value_batch": lambda o: olib.value_batch_smem_bytes(ctypes.byref(o), 1),
+            "value_and_grad": lambda o: olib.value_and_grad_smem_bytes(ctypes.byref(o))}
+    kinds = {"value_batch": ORACLE_VALUE_BATCH, "value_and_grad": ORACLE_VALUE_AND_GRAD}
+
+    def plans_at(kind, hid) -> bool:
+        a = build_consts(b.model, padded_trunk(b.params, hid), b.cost_params,
+                         b.apg_config if kind == "apg_solve" else None, b.time_steps, x0,
+                         x_ref, u_prev, b.lb, b.ub)[1]
+        try:
+            if kind == "apg_solve":
+                AK.plan_solve_particles(a, P_FULL, 0)
+            elif kind == "oracle":
+                CO.plan_oracle_particles(olib, a, P_FULL, 0)
+            else:
+                plan_particles(a, P_FULL, 0, need[kind], SMEM_LIMIT_PARTICLES,
+                               olib.oracle_cluster_max(kinds[kind], 0, 0, 0))
+        except ValueError:
+            return False
+        return True
+
+    out = {}
+    for kind in ("apg_solve", "oracle", "value_batch", "value_and_grad"):
+        lo, hi = 64, 1024                       # lo plans (the shipped trunk), hi does not
+        while hi - lo > 8:
+            mid = (lo + hi) // 16 * 8
+            lo, hi = (mid, hi) if plans_at(kind, mid) else (lo, mid)
+        out[kind] = lo
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    apg = b.apg_config._replace(max_iter=1, max_no_improvement_iter=1)
+    st, _ = AK.apg_solve_kernel(b.model, padded_trunk(b.params, out["apg_solve"], seed=0),
+                                b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P_FULL,
+                                b.lb, b.ub, u_init)
+    o = CO.cost_oracle(b.model, padded_trunk(b.params, out["oracle"], seed=0), b.cost_params,
+                       b.time_steps, x0, x_ref, u_prev, z, P_FULL, 4)
+    v, (_, g) = o.value_batch(plans(1, 1, dev)), o.value_and_grad(plans(1, 2, dev)[0])
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(st.yk).all() and torch.isfinite(v).all() and torch.isfinite(g).all())
+    log(f"the particle forms' widest trunk at P={P_FULL} ({card}; 227 KB a block, the "
+        f"wrappers' chunk and cluster plans): whole solve {out['apg_solve']} units, the oracle "
+        f"{out['oracle']} (value_batch alone {out['value_batch']}, value_and_grad alone "
+        f"{out['value_and_grad']}); 8 units more plan no chunk; the whole solve and the oracle "
+        f"launched at their widest: finite {ok}")
+    if not ok or min(out.values()) < 64:
+        raise AssertionError(f"a particle form does not take its widest trunk: {out}")
+    return out
+
+
+def phase_wide(dev, card: str) -> dict:
+    """Phase 30, the P=1 kernels on any trunk width (module docstring)."""
+    import tempfile
+
+    traj_b = make_bundle("iris_traj_mpc", dev)
+    t = time.perf_counter()
+    out = {"parity": wide_parity(dev, traj_b)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as td:
+        ckpts = {hid: wide_checkpoint(td, traj_b, hid) for hid in WIDE_HIDS}
+        out["batched"] = wide_batched(dev, ckpts[WIDE_HID], card)
+        out["flagship"] = wide_flagship(dev, ckpts[WIDE_HID], card)
+        out["routes"] = wide_routes(dev, ckpts, card)
+        out["global"] = wide_global(dev, ckpts[256], card)
+    out["ceiling"] = particle_ceiling(dev, traj_b, card)
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 30 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5865,7 +6642,7 @@ def main() -> int:
     learn = phase_learning(dev, card)
     log("phase 25: the learning loop runs on the card: a logged flight, the SDE fitted to it, "
         "its metric probed and flown, a policy distilled from batched whole-solve labels and "
-        "served, a 32-wide trunk refused at build")
+        "served, a 32-wide trunk flown at P=1")
     tune = phase_tuning(dev, card)
     log("phase 26: the MPPI and weight sweeps run their candidates on the kernels' scenario "
         "axis, each checked candidate bit-equal to its solo solve; the mismatch sweep passes "
@@ -5885,6 +6662,11 @@ def main() -> int:
         "particle-sharded solve matches the host loop and the whole-solve kernel (and so "
         "with risk and starts, on the shared-moments forms), and a launch.py world of two "
         "serves and stops cleanly")
+    wide = phase_wide(dev, card)
+    log("phase 30: the P=1 kernels on any trunk width: every new form of #1-#4 matches its "
+        "plain twin at 32, 72, 128 and 256 units in every constraint form and on the scenario "
+        "axis, the zero-padded trunk matches the register chain, the 128-unit flagship flies "
+        "through the entry points, and every P=1 route flies every width")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -6333,6 +7115,50 @@ def main() -> int:
             k["distilled_shootout_launches"] = ld["launches"]["value_batch"]
         if k["name"] == "trajectory" and k["branch"] == "P=1":
             k["distilled_shootout_launches"] = ld["launches"]["trajectory"]
+    # phase 30: the P=1 forms of #1-#4 on any trunk width; launches from the
+    # slice's path (the 128-unit flagship and its fixed-step route) and, for
+    # the global-weight forms, the routes on the 256-unit checkpoint
+    wf, gl, wp = wide["flagship"], wide["global"], wide["parity"]
+    w256 = wide["routes"]["by_width"][256]
+    fb, nc_w, nc_g = wf["oracle_bundle"], wf["n_consts"], gl["n_consts"]
+    kernels += [
+        entry("apg_solve", f"P=1, shared-memory step (any trunk width): the {WIDE_HID}-unit "
+              f"flagship", wf["launches"]["apg_solve"], wp["err"]["apg_solve"], wf["fixed_ms"],
+              wf["fixed_plain_ms"], bound(wf["bundle"], "apg_solve", nc_w, K=4, iters=10),
+              timed=f"fixed 10-iteration solve on the {WIDE_HID}-unit trunk, CUDA events",
+              max_abs_err_is="max |du| over the widths 32-256 and the constraint forms "
+                             "(phase 30 (a))",
+              flagship_wall_ms_p50=wf["wall_ms_p50"], flagship_device_ms_p50=wf["device_ms_p50"],
+              flagship_iterations_p50=wf["iterations_p50"], iteration_ms=wf["iteration_ms"],
+              bound_ms_flagship=bound(wf["bundle"], "apg_solve", nc_w, K=4,
+                                      iters=wf["iterations_p50"])[0],
+              controller_launches=wf["controller_launches"]["apg_solve"],
+              routes_launches=wide["routes"]["total"]["apg_solve"],
+              batched_B256_device_ms=wide["batched"]["device_ms"],
+              batched_B256_bit_equal=wide["batched"]["bit_equal"],
+              smem_bytes=wp["smem"][(WIDE_HID, "none")]["apg_solve"]),
+        entry("apg_solve", "P=1, shared-memory step, global weights: the 256-unit trunk",
+              gl["launches"]["apg_solve"] + w256["apg_solve"], wp["err"]["apg_solve"],
+              gl["fixed_ms"], gl["fixed_plain_ms"],
+              bound(gl["bundle"], "apg_solve", nc_g, K=4, iters=10),
+              timed="fixed 10-iteration solve on the 256-unit trunk, CUDA events",
+              iteration_ms=gl["iteration_ms"], smem_bytes=wp["smem"][(256, "none")]["apg_solve"])]
+    for name, K in (("value_batch", 1), ("value_and_grad", 1), ("trajectory", 1)):
+        extra = {"ms_K64": wf["value_batch_K64"][0], "plain_ms_K64": wf["value_batch_K64"][1],
+                 "bound_ms_K64": bound(fb, name, nc_w, K=64)[0]} if name == "value_batch" else {}
+        kernels.append(entry(
+            name, f"P=1, shared-memory step: the {WIDE_HID}-unit fixed-step route",
+            wf["fixed_step_launches"][name], wp["err"][name], wf[name][0], wf[name][1],
+            bound(fb, name, nc_w, K=K), timed="per launch" + (", K=1" if K == 1 and
+                                                             name == "value_batch" else ""),
+            **extra))
+        gextra = {"ms_K64": gl["value_batch_K64"][0],
+                  "plain_ms_K64": gl["value_batch_K64"][1]} if name == "value_batch" else {}
+        kernels.append(entry(
+            name, "P=1, shared-memory step, global weights: the 256-unit trunk",
+            w256[name], wp["err"][name], gl[name][0], gl[name][1],
+            bound(gl["bundle"], name, nc_g, K=K), timed="per launch"
+            + (", K=1" if name == "value_batch" else ""), **gextra))
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -6373,7 +7199,7 @@ def main() -> int:
                         "served": ld["served"],
                         "launch": {k: {f: v for f, v in r.items() if f != "bundle"}
                                    for k, r in ld["launch"].items()}},
-            "fault7": learn["fault7"]},
+            "narrow": learn["narrow"]},
         "tuning": {
             kind: {name: {k: v for k, v in r.items() if k not in ("bundle",)}
                    for name, r in tune[kind].items()} for kind in ("mppi", "weights")},
@@ -6386,7 +7212,13 @@ def main() -> int:
                  "wall_s": sitl["wall_s"]},
         "bf16": {"flagship": fl, "routes": rt, "table": bf["table"]},
         "mesh": {k: v for k, v in mesh.items() if k != "launches"},
-        "mesh_launches": mesh["launches"]}}))
+        "mesh_launches": mesh["launches"],
+        "wide": {"flagship": {k: v for k, v in wf.items() if "bundle" not in k},
+                 "global": {k: v for k, v in gl.items() if k != "bundle"},
+                 "padded": wp["padded"], "err": wp["err"],
+                 "smem": {f"{h} {f}": v for (h, f), v in wp["smem"].items()},
+                 "batched": wide["batched"], "routes": wide["routes"],
+                 "particle_ceiling_P512": wide["ceiling"], "wall_s": wide["wall_s"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -34,7 +34,8 @@
 //                 first n_u. CONSTR_NONE compiles to the code the kernel had
 //                 before the constraint forms existed;
 // and three more of the particle form with the particle options (OPT,
-// below), plus the clock-stamped two.
+// below), plus the clock-stamped two; and the P=1 form on the shared-memory
+// step (STEP, below; six, in apg_solve_p1.cu's library).
 //
 // What bounds it on this card: latency, not FLOPs or bytes. At P=1 one APG
 // iteration is about 1.6 MFLOP (a forward and a reverse sweep of one row
@@ -57,7 +58,18 @@
 // lanes of the row's warp, alike in every lane, so the new state never
 // leaves registers; two block barriers per forward and per reverse step
 // (candidate row k is warp k, K <= APG_MAXK = 8 warps). Their register
-// layout fixes HID = 64 and F <= 16 (apg_solve_launch refuses others). The
+// layout fixes HID = 64 and F <= 16. Every other trunk runs the P=1
+// shared-memory step (P1_SMEM, the template's STEP;
+// sweeps.cuh, vg_smem / cand_smem; the TPU kernel takes any width): the
+// vg row's forward stashes its states and pre-activations, its reverse is
+// bwd_dyn and bwd_feat in thread 0 and the trunk's transposed products a
+// warp per output, and the K candidates are K rows of fwd_step<false>; the
+// weights stay in the block's consts copy while the layout fits 227 KB
+// (dynamic shared memory, set by apg_init), and past that (P1_GLOBAL)
+// they are read from device memory (scenario 0's; L2-resident, 290 KB at
+// 256 units) and only the consts before them are copied. The launcher
+// picks the form from the dimensions (p1_form_of); these forms are a
+// library of their own (apg_solve_p1.cu), built in parallel. The
 // particle form keeps the generic shared-memory trunk: it takes dynamic
 // shared memory above 48 KB (up to 227 KB, set once per library load by
 // apg_init), which sets the chunk: the wrapper takes the largest divisor Pc
@@ -148,6 +160,15 @@
 #ifndef APG_BF16
 #define APG_BF16 0
 #endif
+// 1: the library of the P=1 shared-memory step's forms (apg_solve_p1.cu)
+#ifndef APG_P1S
+#define APG_P1S 0
+#endif
+// This library's forms: the register chain and the fp32 particle forms
+// (apg_solve.cu), the bf16 particle forms (apg_solve_bf16.cu) or the P=1
+// shared-memory step (apg_solve_p1.cu); nvcc builds the three in parallel.
+#define APG_CHAIN_LIB (!APG_BF16 && !APG_P1S)
+#define APG_PART_LIB (!APG_P1S)
 
 namespace {
 
@@ -176,15 +197,20 @@ struct Scal {
 
 // Carve the dynamic shared memory; returns the number of floats used.
 // part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows);
-// otherwise every buffer starts on 16 bytes (the P=1 float4 reads). risk:
-// the risk buffers (a constant false in the forms without the options, so
-// their layout compiles as it did without them).
+// otherwise every buffer starts on 16 bytes (the P=1 float4 reads), and
+// step is the P=1 form (P1_*; the kernel's template constant): the register
+// chain keeps a row's state, features, outputs and cotangents in registers,
+// the shared-memory step keeps them here, P1_GLOBAL without the trunk's
+// weights in the consts copy. risk: the risk buffers (a constant false in
+// the forms without the options, so their layout compiles as it did
+// without them).
 __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Smem* s,
-                                      float* base) {
+                                      float* base, int step) {
   const int HZ = a.H * a.nZ;
   const int B = part ? a.Pc : 1;              // vg rows per pass
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
   const int ldh = part ? tiled_ld(a) : a.HID;  // hidden row stride (tiled candidates)
+  const bool rows = part || step != P1_CHAIN;  // row buffers in shared memory
   int o = 0;
   auto take = [&](float** p, int n) {
     if (!part) o = (o + 3) & ~3;
@@ -193,7 +219,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
   };
   Smem d = {};
   Smem* t = s ? s : &d;
-  take(&t->c, a.n_consts);
+  take(&t->c, !part && step == P1_GLOBAL ? a.o_w0 : a.n_consts);
   take(&t->D, HZ); take(&t->u, HZ); take(&t->y, HZ); take(&t->bu, HZ);
   take(&t->g, HZ); take(&t->yp, HZ); take(&t->gp, HZ);
   take(&t->cand, a.K * HZ);
@@ -202,19 +228,18 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
     take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
   } else {
     take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
-    take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
+    take(&t->h2, a.H * a.OUT);
+    if (!rows) take(&t->wr, a.H * 4);
   }
-  // the P=1 forms keep a row's state, features, outputs and their
-  // cotangents in registers (sweeps.cuh, p1_rollout / p1_reverse)
-  if (part) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
+  if (rows) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
   take(&t->a0, R * ldh); take(&t->a1, R * ldh);
-  if (part) take(&t->a2, R * a.OUT);
+  if (rows) take(&t->a2, R * a.OUT);
   take(&t->jt, R); take(&t->jr, R);
-  if (part) take(&t->ct, B * 13);
+  if (rows) take(&t->ct, B * 13);
   take(&t->cu, B * a.nZ);
-  if (part) take(&t->c_h2, B * a.OUT);
+  if (rows) take(&t->c_h2, B * a.OUT);
   take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
-  if (part) take(&t->c_feat, B * a.F);
+  if (rows) take(&t->c_feat, B * a.F);
   take(&t->red, 32);
   if (part) {
     const int np = risk ? 3 : 2;              // the partial means (risk: + totals)
@@ -238,8 +263,12 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
 // particle form) and writes the per-phase cycle sums and the solve's cycles
 // to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
 // last rank (both from the one block at P=1); each row's last entry is the
-// block's rank. BF (particles only): the bf16 trunk.
-template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false>
+// block's rank. BF (particles only): the bf16 trunk. STEP (P=1 only): the
+// P=1 form (P1_*): the register chain, or the shared-memory step on any
+// trunk (sweeps.cuh, vg_smem / cand_smem; P1_GLOBAL with the weights read
+// from scenario 0's consts in device memory).
+template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false,
+          int STEP = P1_CHAIN>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
@@ -247,10 +276,14 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ starts, float* __restrict__ yk,
                  float* __restrict__ stats, float* __restrict__ x_evol,
                  long long* __restrict__ prof_out) {
+  static_assert(!PART || STEP == P1_CHAIN, "the P=1 forms are a P=1 template");
+  static_assert(STEP == P1_CHAIN || !PROF, "the clock stamps are the register chain's");
+  constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 shared-memory step
+  constexpr bool GW = STEP == P1_GLOBAL;
   extern __shared__ __align__(16) float smem[];
   __shared__ Scal S;
   Smem s;
-  layout(a, PART, OPT && a.risk, &s, smem);
+  layout(a, PART, OPT && a.risk, &s, smem, STEP);
   s.prof = nullptr;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
@@ -289,20 +322,22 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     if constexpr (OPT)
       my_starts_p = starts ? starts + scen() * ((size_t)a.P * 13) : nullptr;
   }
+  const float* const wb = consts;          // GW: the launch's one trunk
   consts += scen() * a.n_consts;
   u_init += scen() * HZ;
-  for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
+  for (int i = tid; i < (GW ? a.o_w0 : a.n_consts); i += nt) s.c[i] = consts[i];
   __syncthreads();
   static_assert(PART || !BF, "the P=1 form has no bf16 trunk");
   if constexpr (BF) {                     // the bf16 trunk: its weights, once
     round_trunk_weights(a, s.c);
     __syncthreads();
   }
-  P1W W;                                  // the P=1 forms' trunk in registers
+  P1W W;                                  // the register chain's trunk
   if constexpr (PART) transpose_weights(a, s);
-  else W = load_p1_weights(a, c);
+  else if constexpr (!P1S) W = load_p1_weights(a, c);
   auto value_grad = [&](const float* U) {
     if constexpr (PART) vg_part<SC, PROF, OPT, BF>(a, s, &S.fval, U, my_noise, my_starts);
+    else if constexpr (P1S) vg_smem<SC, GW>(a, s, wb, &S.fval, U);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -363,6 +398,9 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     }
     if constexpr (PART) {
       cand_part<SC, PROF, OPT, BF>(a, s, K, my_noise, my_starts);
+    } else if constexpr (P1S) {
+      __syncthreads();                            // the candidate rows
+      cand_smem<SC, GW>(a, s, wb, K);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -487,14 +525,25 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
 }
 
+// The P=1 form of a's solve (apg_solve.cuh, p1_form): the weights in shared
+// memory where the block, its Scal included, fits 227 KB with them.
+int p1_form_of(const ApgArgs& a) {
+  return p1_form(a, [&a](int step) {
+    return layout(a, false, false, nullptr, nullptr, step) * (int)sizeof(float) +
+               (int)sizeof(Scal) <= APG_SMEM_LIMIT_PARTICLES;
+  });
+}
+
 int dyn_bytes(const ApgArgs& a) {
-  return layout(a, a.has_noise != 0, a.risk != 0, nullptr, nullptr) * (int)sizeof(float);
+  const bool part = a.has_noise != 0;
+  return layout(a, part, a.risk != 0, nullptr, nullptr, part ? P1_CHAIN : p1_form_of(a)) *
+         (int)sizeof(float);
 }
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
 // one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
 // cluster the card cannot schedule returns), in this library's precision.
-template <bool PART, int SC, bool PROF = false, bool OPT = false>
+template <bool PART, int SC, bool PROF = false, bool OPT = false, int STEP = P1_CHAIN>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
                    const float* noise, const float* starts, float* yk, float* stats,
@@ -504,27 +553,44 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
     return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT, kBF>, a, consts,
                               u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
   } else {
-    apg_solve_kernel<false, SC, PROF><<<a.batch, APG_NTHREADS, dyn, st>>>(
+    apg_solve_kernel<false, SC, PROF, false, false, STEP><<<a.batch, APG_NTHREADS, dyn, st>>>(
         a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
     return cudaSuccess;
   }
 }
 
-// The instantiation for [form][sc_kind]: form 0 P=1 (none in the bf16
-// library), 1 particles, 2 the particles with the options (OPT).
+// The instantiation for [form][sc_kind]: form 0 P=1 on the register chain,
+// 3 on the shared-memory step, 4 on it with the weights in device memory
+// (none of the three in the bf16 library), 1 particles, 2 the particles
+// with the options (OPT).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
                                  const float*, float*, float*, float*, long long*);
-const LaunchFn kLaunch[3][3] = {
-#if APG_BF16
-    {nullptr, nullptr, nullptr},
-#else
+#define P1_STEP_FORMS(STEP)                                                                \
+  {launch<false, CONSTR_NONE, false, false, STEP>,                                         \
+   launch<false, CONSTR_PENALTY, false, false, STEP>,                                      \
+   launch<false, CONSTR_PROX, false, false, STEP>}
+#define NO_FORMS {nullptr, nullptr, nullptr}
+const LaunchFn kLaunch[5][3] = {
+#if APG_CHAIN_LIB
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
+#else
+    NO_FORMS,
 #endif
+#if APG_PART_LIB
     {launch<true, CONSTR_NONE>, launch<true, CONSTR_PENALTY>, launch<true, CONSTR_PROX>},
     {launch<true, CONSTR_NONE, false, true>, launch<true, CONSTR_PENALTY, false, true>,
-     launch<true, CONSTR_PROX, false, true>}};
+     launch<true, CONSTR_PROX, false, true>},
+#else
+    NO_FORMS, NO_FORMS,
+#endif
+#if APG_P1S
+    P1_STEP_FORMS(P1_SMEM), P1_STEP_FORMS(P1_GLOBAL)};
+#else
+    NO_FORMS, NO_FORMS};
+#endif
 
+#if APG_PART_LIB
 // This library's particle forms [opt][sc_kind].
 using KernelFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
                           const float*, const float*, float*, float*, float*, long long*);
@@ -535,8 +601,13 @@ const KernelFn kPart[2][3] = {
     {apg_solve_kernel<true, CONSTR_NONE, false, true, kBF>,
      apg_solve_kernel<true, CONSTR_PENALTY, false, true, kBF>,
      apg_solve_kernel<true, CONSTR_PROX, false, true, kBF>}};
+#endif
 
-int form(const ApgArgs& a) { return a.has_noise ? (options(a) ? 2 : 1) : 0; }
+int form(const ApgArgs& a) {
+  if (a.has_noise) return options(a) ? 2 : 1;
+  const int step = p1_form_of(a);
+  return step == P1_CHAIN ? 0 : step == P1_SMEM ? 3 : 4;
+}
 
 // The largest cluster of each particle form [opt][sc_kind] and of the
 // clock-stamped one (apg_init; 0 before it).
@@ -549,28 +620,41 @@ extern "C" {
 
 int apg_args_size() { return (int)sizeof(ApgArgs); }
 
-// Let the particle forms and the constrained P=1 forms take dynamic shared
-// memory up to the card's 227 KB less their static shared memory (the
-// unconstrained P=1 form stays inside the 48 KB default), and find each
-// particle form's largest cluster (sweeps.cuh::cluster_max). Called once
-// when the library is loaded; returns a cudaError_t.
+// Let the particle forms, the constrained P=1 forms and the P=1
+// shared-memory step take dynamic shared memory up to the card's 227 KB
+// less their static shared memory (the unconstrained register chain stays
+// inside the 48 KB default), and find each particle form's largest cluster
+// (sweeps.cuh::cluster_max). Called once when the library is loaded;
+// returns a cudaError_t.
 int apg_init() {
+#if APG_PART_LIB
   for (int o = 0; o < 2; ++o)
     for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
       cudaError_t e = allow_large_smem(kPart[o][sc]);
       if (e == cudaSuccess) e = cluster_max(kPart[o][sc], APG_NTHREADS_PART, &g_cmax[o][sc]);
       if (e != cudaSuccess) return (int)e;
     }
-#if !APG_BF16
+#endif
+#if APG_CHAIN_LIB
   const cudaError_t errs[] = {
       allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, true>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>),
       cluster_max(apg_solve_kernel<true, CONSTR_NONE, true>, APG_NTHREADS_PART,
                   &g_cmax_prof)};
+#elif APG_P1S
+  const cudaError_t errs[] = {
+      allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_SMEM>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY, false, false, false, P1_SMEM>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX, false, false, false, P1_SMEM>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_GLOBAL>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY, false, false, false, P1_GLOBAL>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX, false, false, false, P1_GLOBAL>)};
+#else
+  const cudaError_t errs[] = {cudaSuccess};
+#endif
   for (const cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
-#endif
   return 0;
 }
 
@@ -586,13 +670,20 @@ int apg_smem_bytes(const ApgArgs* a) {
   return dyn_bytes(*a) + (int)sizeof(Scal);
 }
 
+// The P=1 form (P1_*) a solve with a's dimensions runs (p1_form_of).
+int apg_p1_form(const ApgArgs* a) { return p1_form_of(*a); }
+
 // cudaOccupancyMaxActiveClusters of the particle form for a's dimensions
 // and cluster size, into *n; returns a cudaError_t.
 int apg_max_active_clusters(const ApgArgs* a, int* n) {
+#if APG_PART_LIB
   if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
     return (int)cudaErrorInvalidValue;
   return (int)max_active_clusters(kPart[options(*a)][a->sc_kind], a->cluster,
                                   APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
+#else
+  return (int)cudaErrorInvalidValue;       // the particle forms are the other libraries'
+#endif
 }
 
 const char* apg_error_string(int err) {
@@ -606,13 +697,14 @@ const char* apg_error_string(int err) {
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
                       const void* starts, const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
-  const int limit = part || a->sc_kind != CONSTR_NONE ? APG_SMEM_LIMIT_PARTICLES
-                                                      : APG_SMEM_LIMIT;
+  const int step = part ? P1_CHAIN : p1_form_of(*a);
+  const int limit = part || a->sc_kind != CONSTR_NONE || step != P1_CHAIN
+                        ? APG_SMEM_LIMIT_PARTICLES : APG_SMEM_LIMIT;
   const long long blocks = (long long)a->batch * (part ? a->cluster : 1);
   return !(a->batch < 1 || blocks > 2147483647LL ||
            a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
-           (!part && (a->HID != P1_HID || a->F > P1_FMAX)) ||
+           (!part && !p1_form_ok(*a, step)) ||
            (a->has_pre && precond == nullptr) ||
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (a->bf16 != 0) != kBF || (!part && kBF) ||
@@ -628,18 +720,20 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
 // starts the (P, 13) particles' initial states or null (particles only,
 // with a->has_starts), x_evol (H+1, 13), written only by the deterministic
 // form; precond (H, nZ) is shared by every scenario; a->risk (particles
-// only) prices the particles' totals at mean + lambda * std. Returns
-// the launch's error (cudaErrorInvalidValue for arguments the kernel does
-// not take, among them P=1 trunk widths other than HID = P1_HID and
-// F <= P1_FMAX, and a particle launch whose cluster fields are no plan of
-// its chunks; the cluster launch's own error where the card cannot
-// schedule the cluster).
+// only) prices the particles' totals at mean + lambda * std; a P=1 solve
+// runs the form p1_form_of picks (or a->p1_step names). Returns the
+// launch's error (cudaErrorInvalidValue for arguments the kernel does not
+// take, among them a P=1 form the trunk's widths or the form's shared
+// memory do not take, a form of another library, and a particle launch
+// whose cluster fields are no plan of its chunks; the cluster launch's own
+// error where the card cannot schedule the cluster).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
                      const void* starts, void* yk, void* stats, void* x_evol,
                      void* stream) {
   if (a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
-      !launch_ok(a, precond, noise, starts, x_evol, g_cmax[options(*a)][a->sc_kind]))
+      !launch_ok(a, precond, noise, starts, x_evol, g_cmax[options(*a)][a->sc_kind]) ||
+      kLaunch[form(*a)][a->sc_kind] == nullptr)   // a form of another library
     return (int)cudaErrorInvalidValue;
   return launch_error(kLaunch[form(*a)][a->sc_kind](
       *a, (size_t)dyn_bytes(*a), (cudaStream_t)stream, (const float*)consts,
@@ -657,10 +751,11 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
                           const void* t0, const void* precond, const void* noise,
                           const void* starts, void* yk, void* stats, void* x_evol,
                           void* prof, void* stream) {
-#if APG_BF16
+#if !APG_CHAIN_LIB
   return (int)cudaErrorInvalidValue;      // the clock-stamped build is apg_solve.cu's
 #else
   if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 || options(*a) ||
+      (!a->has_noise && p1_form_of(*a) != P1_CHAIN) ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>

@@ -8,19 +8,35 @@
 #define APG_MAXK 8          // largest maxls (linesearch candidates) supported
 #define APG_NTHREADS 256    // threads per block (one block per solve)
 #define APG_NTHREADS_PART 512  // ... in the particle form (more rows per step)
-#define APG_SMEM_LIMIT 49152  // static + dynamic shared memory budget (bytes), P=1
+#define APG_SMEM_LIMIT 49152  // static + dynamic shared memory budget (bytes), P=1 chain
 // Budget of the particle path (has_noise): all of a block's shared memory on
 // sm_90 (227 KB), taken as dynamic shared memory after
 // cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize, ...)
 // (apg_init).
 #define APG_SMEM_LIMIT_PARTICLES 232448
-// The P=1 forms hold the trunk in registers at fixed widths (sweeps.cuh,
-// P1W): the hidden width, the largest input width F = 9 + n_u, the output
-// width. Their block is 4 threads per hidden unit (APG_NTHREADS), and the
-// K <= APG_MAXK candidate rows are one warp each.
+// The P=1 register chain holds the trunk in registers at fixed widths
+// (sweeps.cuh, P1W): the hidden width, the largest input width F = 9 + n_u,
+// the output width. Its block is 4 threads per hidden unit (APG_NTHREADS),
+// and the K <= APG_MAXK candidate rows are one warp each. Other trunks run
+// the P=1 shared-memory step (p1_form, below).
 #define P1_HID 64
 #define P1_FMAX 16
 #define P1_OUT 12
+
+// The P=1 forms of every kernel (a template parameter of the kernels):
+// P1_CHAIN the register chain (trunks of P1W's widths only); P1_SMEM the
+// shared-memory step (a thread per trunk output, the weights in the block's
+// shared-memory copy of the consts); P1_GLOBAL the same step with the
+// weights read from device memory (L2-resident; the block copies only the
+// consts before them, `trunk_last`). Each library picks a launch's form
+// from its dimensions (p1_form, below, with that kernel's own layout):
+// the chain on P1W's widths, else P1_SMEM where the kernel's block fits
+// 227 KB with the weights, else P1_GLOBAL. Both step forms give the same
+// bits; P1_SMEM is 7-20 % faster at 32-128 units in every kernel
+// (sde4mbrl_px4_tpu_torch/p1_step_ab.py). ApgArgs::p1_step asks for that
+// choice (P1_BY_SHAPE) or names a form, which the launch then takes or
+// refuses (for measurement).
+enum { P1_BY_SHAPE = -1, P1_CHAIN = 0, P1_SMEM = 1, P1_GLOBAL = 2 };
 
 struct ApgArgs {
   // dimensions
@@ -76,6 +92,12 @@ struct ApgArgs {
   // whole solve and value_and_grad refuse it, and trajectory ignores it
   // (x_evol stays fp32).
   int bf16;
+  // The P=1 form a launch runs: P1_BY_SHAPE (ops/cuda/consts.py::
+  // build_consts), the library's choice (p1_form), or the P1_* form named.
+  // The P=1 kernels and trajectory read it, the particle forms ignore it.
+  // P1_GLOBAL reads the trunk of scenario 0's consts: every scenario of a
+  // launch shares it.
+  int p1_step;
   // The particle forms of the whole solve and of value_and_grad: one
   // thread-block cluster of `cluster` blocks per launch; block `rank`
   // sweeps chunks rank, rank + cluster, ... (at most chunks_per_block of
@@ -106,6 +128,40 @@ inline bool options(const ApgArgs& a) { return a.risk != 0 || a.has_starts != 0;
 // the mean and std of the totals over all particles read in per scenario,
 // and the rows weighed with them.
 enum { RISK_IN_CLUSTER = 0, RISK_MOMENTS_OUT = 1, RISK_MOMENTS_IN = 2 };
+
+// Whether a's trunk has the widths of the P=1 register chain (P1W).
+__host__ __device__ inline bool p1_widths(const ApgArgs& a) {
+  return a.HID == P1_HID && a.F <= P1_FMAX && a.OUT == P1_OUT;
+}
+
+// Whether the trunk's weights w0, b0, w1, b1, w2, b2 close the consts
+// buffer (ops/cuda/consts.py::build_consts), so that the consts before
+// them, a.o_w0 floats, are all that P1_GLOBAL copies into shared memory.
+inline bool trunk_last(const ApgArgs& a) {
+  const int F = a.F, H = a.HID, O = a.OUT;
+  return a.o_b0 == a.o_w0 + F * H && a.o_w1 == a.o_b0 + H && a.o_b1 == a.o_w1 + H * H &&
+         a.o_w2 == a.o_b1 + H && a.o_b2 == a.o_w2 + H * O && a.n_consts == a.o_b2 + O;
+}
+
+// The P=1 form of a launch of a: the one a.p1_step names, or by shape the
+// register chain on P1W's widths, else the shared-memory step with the
+// weights in shared memory where `smem_fits(P1_SMEM)` (the kernel's block
+// within 227 KB), else with the weights in device memory.
+template <class Fits>
+inline int p1_form(const ApgArgs& a, Fits smem_fits) {
+  if (a.p1_step != P1_BY_SHAPE) return a.p1_step;
+  if (p1_widths(a)) return P1_CHAIN;
+  return smem_fits(P1_SMEM) ? P1_SMEM : P1_GLOBAL;
+}
+
+// The P=1 form `step` takes a's trunk: the register chain exactly on P1W's
+// widths, the shared-memory step elsewhere (its global form on a buffer
+// whose weights come last).
+inline bool p1_form_ok(const ApgArgs& a, int step) {
+  if (step == P1_CHAIN) return p1_widths(a);
+  if (step == P1_SMEM) return !p1_widths(a);
+  return step == P1_GLOBAL && !p1_widths(a) && trunk_last(a);
+}
 
 // The constraint fields agree with the decision width.
 inline bool constr_args_ok(const ApgArgs& a) {

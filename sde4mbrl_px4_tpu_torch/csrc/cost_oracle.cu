@@ -53,11 +53,15 @@
 //     takes its linesearch candidates, in ceil(K / 8) blocks in parallel
 //     (the TPU package sends K > 128 to XLA only because of its VMEM);
 //     trajectory is one row whose states the chain stashes. The register
-//     layout takes HID = 64 and F <= 16 only: value_batch<false, SC, false>
-//     and trajectory<false> run other trunks on the shared-memory step
-//     (fwd_step<false>: a thread per trunk output, ORACLE_TILE rows per
-//     value_batch block), chosen by the widths, so every trunk that ran
-//     before still runs; value_and_grad refuses them;
+//     layout takes HID = 64 and F <= 16 only: other trunks run the P=1
+//     shared-memory step (P1_SMEM / P1_GLOBAL, chosen by shape, p1_form_of:
+//     value_batch<false, SC, false> and trajectory<false> on fwd_step<false>,
+//     a thread per trunk output, ORACLE_TILE rows per value_batch block;
+//     value_and_grad<false, SC, ..., STEP> on sweeps.cuh::vg_smem), their
+//     weights in the block's consts copy up to 227 KB of dynamic shared
+//     memory (cost_oracle_init) and past that read from device memory
+//     (P1_GLOBAL, the GW forms: scenario 0's trunk, L2-resident; the same
+//     bits, 7-20 % slower where both fit);
 //   - with particles the chunks of a plan spread over a thread-block
 //     cluster, one block per SM (sweeps.cuh::vg_part / cand_part: block
 //     `rank` sweeps chunks rank, rank + C, ..., and every block sums all
@@ -142,27 +146,26 @@ __device__ __forceinline__ size_t vg_scenario() {
   return b;
 }
 
-// Whether a's trunk fits the register layout of the P=1 forms (P1W), which
-// the P=1 kernels then run.
-__host__ __device__ inline bool p1_widths(const ApgArgs& a) {
-  return a.HID == P1_HID && a.F <= P1_FMAX && a.OUT == P1_OUT;
-}
-
 // Carve one block's dynamic shared memory for `kind` with R candidate rows
 // of controls; returns the number of floats used. part: the particle form
 // (R*Pc step rows per pass, a Pc-row state stash and reverse sweep in
-// value_and_grad). At P=1 on a trunk of the register layout (the register
-// chain) every buffer starts on 16 bytes (its float4 reads) and a row's
-// state, features and outputs live in registers; trajectory and
+// value_and_grad). step: the P=1 form (P1_*; a kernel's template constant).
+// On the register chain every buffer starts on 16 bytes (its float4 reads)
+// and a row's state, features and outputs live in registers; trajectory and
 // value_and_grad then stash the row's states, pre-activations and wrench.
-// risk: the risk buffers (a constant false in the forms without the
-// options). Fields a kernel does not use stay null.
+// On the shared-memory step value_and_grad stashes the row's states,
+// pre-activations and outputs and keeps its cotangents here; P1_GLOBAL
+// copies only the consts before the trunk's weights. risk: the risk buffers
+// (a constant false in the forms without the options). Fields a kernel
+// does not use stay null.
 __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part, bool risk,
-                                      Smem* s, float* base) {
+                                      Smem* s, float* base, int step) {
   const int HZ = a.H * a.nZ;
   const int rows = part ? R * a.Pc : R;       // step rows per pass
   const int B = part ? a.Pc : 1;              // value_and_grad rows per pass
-  const bool reg = !part && p1_widths(a);
+  // the register chain also tests the widths at run time (its launches
+  // hold them, p1_form_ok): the chain forms' code and times depend on it
+  const bool reg = !part && step == P1_CHAIN && p1_widths(a);
   // the hidden row stride: the particle value_batch's rows are tiled
   const int ldh = part && kind == ORACLE_VALUE_BATCH ? tiled_ld(a) : a.HID;
   int o = 0;
@@ -173,7 +176,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   };
   Smem d = {};
   Smem* t = s ? s : &d;
-  take(&t->c, a.n_consts);
+  take(&t->c, !part && step == P1_GLOBAL ? a.o_w0 : a.n_consts);
   take(&t->cand, R * HZ);
   if (!reg) { take(&t->xr, rows * 13); take(&t->feat, rows * a.F); }
   take(&t->a0, rows * ldh); take(&t->a1, rows * ldh);
@@ -197,6 +200,11 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
       take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
       take(&t->w2t, a.OUT * a.HID);
     }
+    if (!part && !reg) {                        // the shared-memory step's vg row
+      take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
+      take(&t->h2, a.H * a.OUT);
+      take(&t->ct, 13); take(&t->c_h2, a.OUT); take(&t->c_feat, a.F);
+    }
   }
   const int np = risk ? 3 : 2;                // the partial means (risk: + totals)
   // value_batch with risk: + the centred second moments a moments-out form
@@ -214,14 +222,15 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
 // Copy the consts and R rows of controls (row r of the block at U + r*HZ)
 // into shared memory; on the shared-memory step also start each row at x0
 // with zero running costs. BF: the trunk weights of the copy rounded to
-// bf16.
-template <bool BF = false>
+// bf16. GW (P1_GLOBAL): only the consts before the trunk's weights (the
+// trunk reads them in device memory, rounded there in the bf16 forms).
+template <bool BF = false, bool GW = false>
 __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
                            const float* __restrict__ consts,
                            const float* __restrict__ U) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < a.n_consts; i += nt) s.c[i] = consts[i];
-  if constexpr (BF) {
+  for (int i = tid; i < (GW ? a.o_w0 : a.n_consts); i += nt) s.c[i] = consts[i];
+  if constexpr (BF && !GW) {
     __syncthreads();
     round_trunk_weights(a, s.c);
   }
@@ -246,9 +255,11 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // proximal form to 64 registers (two blocks per SM) and a 108-byte spill
 // once the scenario offsets were added. RM (PART and OPT): RISK_MOMENTS_OUT
 // writes plan i's risk-free cost, the mean of its totals and their centred
-// second moment to out[3i ..] (out (B, K, 3)).
+// second moment to out[3i ..] (out (B, K, 3)). GW (P=1, not REG): the
+// shared-memory step with the trunk's weights in device memory (P1_GLOBAL,
+// scenario 0's).
 template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER>
+          int RM = RISK_IN_CLUSTER, bool GW = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
@@ -256,9 +267,11 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   static_assert(!(PART && REG), "the register chain is the P=1 forms'");
   static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_OUT, "value_batch writes moments");
   static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
+  static_assert(!GW || (!PART && !REG), "global weights are the P=1 step's");
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
-  layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem);
+  layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem,
+         REG ? P1_CHAIN : GW ? P1_GLOBAL : P1_SMEM);
   const int HZ = a.H * a.nZ, nZ = a.nZ;
   const int k0 = PART ? (int)blockIdx.x / a.cluster : (int)blockIdx.x * tile;
   const int R = PART ? 1 : min(tile, K - k0);
@@ -269,8 +282,8 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   if constexpr (PART)
     load_block<BF>(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
   else
-    load_block<BF>(a, s, R, consts + grid_row() * a.n_consts,
-                   U + (grid_row() * K + k0) * (size_t)HZ);
+    load_block<BF, GW>(a, s, R, consts + grid_row() * a.n_consts,
+                       U + (grid_row() * K + k0) * (size_t)HZ);
 
   if constexpr (PART) {
     // OPT: scenario k0 / K's starts (null: x0), offset once into shared
@@ -288,8 +301,8 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
     p1_rollout<SC, false, false, BF>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
   } else {
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false, SC, false, BF>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr,
-                                     t);
+      fwd_step<false, SC, false, BF, GW>(a, s, R, s.cand + t * nZ, HZ, 1, nullptr, s.xr, s.xr,
+                                         t, nullptr, nullptr, consts);
   }
 
   // control-only cost per row, one warp per row
@@ -325,21 +338,25 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
 
 // The mean rollout of one plan's control columns into x_out (H+1, 13): REG
 // the register chain's row with its states stashed, else the shared-memory
-// step. Block b rolls scenario b of a.batch: its consts (n_consts), plan
-// (H, nZ) and output (H+1, 13) at b times their stride.
-template <bool REG>
+// step (GW: its weights in device memory, scenario 0's). Block b rolls
+// scenario b of a.batch: its consts (n_consts), plan (H, nZ) and output
+// (H+1, 13) at b times their stride.
+template <bool REG, bool GW = false>
 __global__ void __launch_bounds__(ORACLE_NTHREADS)
 trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
                   const float* __restrict__ u, float* __restrict__ x_out) {
+  static_assert(!(REG && GW), "global weights are the shared-memory step's");
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
-  layout(a, ORACLE_TRAJECTORY, 1, false, false, &s, smem);
+  layout(a, ORACLE_TRAJECTORY, 1, false, false, &s, smem,
+         REG ? P1_CHAIN : GW ? P1_GLOBAL : P1_SMEM);
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t scen = blockIdx.x;
+  const float* const wb = consts;
   consts += scen * a.n_consts;
   u += scen * ((size_t)a.H * a.nZ);
   x_out += scen * ((size_t)(a.H + 1) * 13);
-  load_block(a, s, 1, consts, u);
+  load_block<false, GW>(a, s, 1, consts, u);
   if (tid < 13) s.xs[tid] = s.c[a.o_x0 + tid];
   if constexpr (REG) {
     p1_rollout<CONSTR_NONE, true, false>(a, s, load_p1_weights(a, s.c), 1, s.cand, 0);
@@ -347,8 +364,9 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   } else {
     __syncthreads();
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false, CONSTR_NONE>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr, s.xs + t * 13,
-                                   s.xs + (t + 1) * 13, t);
+      fwd_step<false, CONSTR_NONE, false, false, GW>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr,
+                                                     s.xs + t * 13, s.xs + (t + 1) * 13, t,
+                                                     nullptr, nullptr, wb);
   }
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
@@ -359,8 +377,11 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // trunk. RM (PART and OPT): RISK_MOMENTS_IN weighs the rows with the
 // scenario's mean and std of the totals over all particles, moments[2b ..]
 // (moments (B, 2)), and val is then its risk-free cost over these
-// particles.
-template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER>
+// particles. STEP (P=1): the P=1 form (P1_*), the register chain or the
+// shared-memory step on any trunk (sweeps.cuh::vg_smem; P1_GLOBAL with the
+// weights read from scenario 0's consts in device memory).
+template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
+          int STEP = P1_CHAIN>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
@@ -371,11 +392,13 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   static_assert(PART || !BF, "the P=1 value_and_grad has no bf16 trunk");
   static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_IN, "value_and_grad reads moments");
   static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
+  static_assert(!PART || STEP == P1_CHAIN, "the P=1 forms are a P=1 template");
+  constexpr bool GW = STEP == P1_GLOBAL;
   Smem s = {};
-  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem);
+  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem, STEP);
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_block<BF>(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
-                 u + vg_scenario<PART>() * (a.H * a.nZ));
+  load_block<BF, GW>(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
+                     u + vg_scenario<PART>() * (a.H * a.nZ));
   int rank = 0;                       // the block's rank in its cluster
   if constexpr (PART) {
     rank = (int)cg::this_cluster().block_rank();
@@ -395,8 +418,10 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
         a, s, &fval, s.cand,
         [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
         [&]() -> const float* { return starts_p; });
-  } else {
+  } else if constexpr (STEP == P1_CHAIN) {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
+  } else {
+    vg_smem<SC, GW>(a, s, consts, &fval, s.cand);
   }
   if (rank != 0) return;
   const int HZ = a.H * a.nZ;
@@ -405,32 +430,49 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   if (tid == 0) val[vg_scenario<PART>()] = fval;
 }
 
+// The P=1 form of a launch of `kind` (apg_solve.cuh, p1_form): the weights
+// in shared memory where one row's block (value_and_grad's 4-byte static
+// cost included) fits 227 KB with them.
+int p1_form_of(const ApgArgs& a, int kind) {
+  return p1_form(a, [&a, kind](int step) {
+    return layout(a, kind, 1, false, false, nullptr, nullptr, step) * (int)sizeof(float) +
+               (kind == ORACLE_VALUE_AND_GRAD ? (int)sizeof(float) : 0) <=
+           ORACLE_SMEM_LIMIT_PARTICLES;
+  });
+}
+
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
-  return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr) * (int)sizeof(float);
+  return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr,
+                part ? P1_CHAIN : p1_form_of(a, kind)) * (int)sizeof(float);
+}
+
+// The shared memory a block may take: 48 KB on the register chain, all
+// 227 KB (dynamic, set by cost_oracle_init) with particles and on the P=1
+// shared-memory step.
+int smem_limit(const ApgArgs& a) {
+  return a.has_noise || !p1_widths(a) ? ORACLE_SMEM_LIMIT_PARTICLES : ORACLE_SMEM_LIMIT;
 }
 
 // Candidate rows per value_batch block: one candidate per cluster with
 // particles; at P=1 up to ORACLE_P1_ROWS on the register chain and
-// ORACLE_TILE on the shared-memory step, fewer where wide decision rows
-// would pass the 48 KB budget.
+// ORACLE_TILE on the shared-memory step, fewer where wide rows would pass
+// the form's budget (smem_limit).
 int tile_rows(const ApgArgs& a, int K) {
   if (a.has_noise) return 1;
   const int most = p1_widths(a) ? ORACLE_P1_ROWS : ORACLE_TILE;
   int tile = K < most ? K : most;
-  while (tile > 1 && dyn_bytes(a, ORACLE_VALUE_BATCH, tile, false) > ORACLE_SMEM_LIMIT)
+  while (tile > 1 && dyn_bytes(a, ORACLE_VALUE_BATCH, tile, false) > smem_limit(a))
     --tile;
   return tile;
 }
 
-int smem_limit(const ApgArgs& a) {
-  return a.has_noise ? ORACLE_SMEM_LIMIT_PARTICLES : ORACLE_SMEM_LIMIT;
-}
-
 // batch: the scenarios of a launch (B >= 1; the grid's limits are
-// grid_ok's).
-bool args_ok(const ApgArgs* a) {
+// grid_ok's); at P=1 the form of `kind` takes the trunk (the particle forms
+// do not read it; trajectory has no particle form).
+bool args_ok(const ApgArgs* a, int kind) {
   return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1 &&
-         a->batch >= 1;
+         a->batch >= 1 &&
+         ((a->has_noise && kind != ORACLE_TRAJECTORY) || p1_form_ok(*a, p1_form_of(*a, kind)));
 }
 
 // One launch of a value_batch instantiation over a.batch scenarios: P=1
@@ -438,7 +480,7 @@ bool args_ok(const ApgArgs* a) {
 // clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
 // the card cannot schedule returns).
 template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER>
+          int RM = RISK_IN_CLUSTER, bool GW = false>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
                                const float* starts, float* out) {
@@ -448,8 +490,8 @@ cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cu
                               tile, a, consts, U, noise, starts, out);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
-    value_batch_kernel<false, SC, REG, false, BF><<<grid, ORACLE_NTHREADS, dyn, st>>>(
-        K, tile, a, consts, U, noise, starts, out);
+    value_batch_kernel<false, SC, REG, false, BF, RISK_IN_CLUSTER, GW>
+        <<<grid, ORACLE_NTHREADS, dyn, st>>>(K, tile, a, consts, U, noise, starts, out);
     return cudaSuccess;
   }
 }
@@ -458,12 +500,17 @@ using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStrea
                                      float*);
 // [bf16][form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on
 // the register chain, 2 particles, 3 particles with the options, 4 their
-// moments-out form
+// moments-out form, 5 P=1 on the shared-memory step with the weights in
+// device memory
 #define MOMENTS_OUT_FORMS(BF)                                                              \
   {launch_value_batch<true, CONSTR_NONE, false, true, BF, RISK_MOMENTS_OUT>,               \
    launch_value_batch<true, CONSTR_PENALTY, false, true, BF, RISK_MOMENTS_OUT>,            \
    launch_value_batch<true, CONSTR_PROX, false, true, BF, RISK_MOMENTS_OUT>}
-const ValueBatchFn kValueBatch[2][5][3] = {
+#define GLOBAL_WEIGHT_FORMS(BF)                                                            \
+  {launch_value_batch<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, true>,        \
+   launch_value_batch<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, true>,     \
+   launch_value_batch<false, CONSTR_PROX, false, false, BF, RISK_IN_CLUSTER, true>}
+const ValueBatchFn kValueBatch[2][6][3] = {
     {{launch_value_batch<false, CONSTR_NONE, false, false, false>,
       launch_value_batch<false, CONSTR_PENALTY, false, false, false>,
       launch_value_batch<false, CONSTR_PROX, false, false, false>},
@@ -476,7 +523,7 @@ const ValueBatchFn kValueBatch[2][5][3] = {
      {launch_value_batch<true, CONSTR_NONE, false, true, false>,
       launch_value_batch<true, CONSTR_PENALTY, false, true, false>,
       launch_value_batch<true, CONSTR_PROX, false, true, false>},
-     MOMENTS_OUT_FORMS(false)},
+     MOMENTS_OUT_FORMS(false), GLOBAL_WEIGHT_FORMS(false)},
     {{launch_value_batch<false, CONSTR_NONE, false, false, true>,
       launch_value_batch<false, CONSTR_PENALTY, false, false, true>,
       launch_value_batch<false, CONSTR_PROX, false, false, true>},
@@ -489,12 +536,33 @@ const ValueBatchFn kValueBatch[2][5][3] = {
      {launch_value_batch<true, CONSTR_NONE, false, true, true>,
       launch_value_batch<true, CONSTR_PENALTY, false, true, true>,
       launch_value_batch<true, CONSTR_PROX, false, true, true>},
-     MOMENTS_OUT_FORMS(true)}};
+     MOMENTS_OUT_FORMS(true), GLOBAL_WEIGHT_FORMS(true)}};
+
+// The P=1 kernels on the shared-memory step, whose shared memory may pass
+// 48 KB: value_batch [bf16][global weights][sc_kind], value_and_grad
+// [global weights][sc_kind], trajectory [global weights]
+// (cost_oracle_init).
+using P1VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
+                            const float*, float*);
+using P1VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                            const float*, float*, float*);
+#define P1_VB(BF, GW)                                                                      \
+  {value_batch_kernel<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, GW>,          \
+   value_batch_kernel<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, GW>,       \
+   value_batch_kernel<false, CONSTR_PROX, false, false, BF, RISK_IN_CLUSTER, GW>}
+#define P1_VG(STEP)                                                                        \
+  {value_and_grad_kernel<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP>,         \
+   value_and_grad_kernel<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP>,      \
+   value_and_grad_kernel<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP>}
+const P1VbKernel kP1Vb[2][2][3] = {{P1_VB(false, false), P1_VB(false, true)},
+                                    {P1_VB(true, false), P1_VB(true, true)}};
+const P1VgKernel kP1Vg[2][3] = {P1_VG(P1_SMEM), P1_VG(P1_GLOBAL)};
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
 // returns).
-template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER>
+template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
+          int STEP = P1_CHAIN>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
                                   const float* starts, const float* moments, float* val,
@@ -504,21 +572,28 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
     return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM>, a, consts,
                               u, noise, starts, moments, val, grad);
   } else {
-    value_and_grad_kernel<false, SC><<<a.batch, ORACLE_NTHREADS, dyn, st>>>(
-        a, consts, u, noise, starts, moments, val, grad);
+    value_and_grad_kernel<false, SC, false, false, RISK_IN_CLUSTER, STEP>
+        <<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise, starts, moments, val,
+                                                 grad);
     return cudaSuccess;
   }
 }
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                        const float*, const float*, const float*, const float*,
                                        float*, float*);
-// [form][sc_kind]: form 0 P=1, 1 particles, 2 particles with the options,
-// 3 and 4 the bf16 trunk of 1 and 2, 5 and 6 the moments-in form of 2 and 4
+// [form][sc_kind]: form 0 P=1 on the register chain, 1 particles, 2
+// particles with the options, 3 and 4 the bf16 trunk of 1 and 2, 5 and 6
+// the moments-in form of 2 and 4, 7 P=1 on the shared-memory step, 8 on it
+// with the weights in device memory
 #define MOMENTS_IN_FORMS(BF)                                                               \
   {launch_value_and_grad<true, CONSTR_NONE, true, BF, RISK_MOMENTS_IN>,                    \
    launch_value_and_grad<true, CONSTR_PENALTY, true, BF, RISK_MOMENTS_IN>,                 \
    launch_value_and_grad<true, CONSTR_PROX, true, BF, RISK_MOMENTS_IN>}
-const ValueAndGradFn kValueAndGrad[7][3] = {
+#define P1_STEP_VG(STEP)                                                                   \
+  {launch_value_and_grad<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP>,         \
+   launch_value_and_grad<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP>,      \
+   launch_value_and_grad<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP>}
+const ValueAndGradFn kValueAndGrad[9][3] = {
     {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
      launch_value_and_grad<false, CONSTR_PROX>},
     {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
@@ -532,7 +607,8 @@ const ValueAndGradFn kValueAndGrad[7][3] = {
     {launch_value_and_grad<true, CONSTR_NONE, true, true>,
      launch_value_and_grad<true, CONSTR_PENALTY, true, true>,
      launch_value_and_grad<true, CONSTR_PROX, true, true>},
-    MOMENTS_IN_FORMS(false), MOMENTS_IN_FORMS(true)};
+    MOMENTS_IN_FORMS(false), MOMENTS_IN_FORMS(true), P1_STEP_VG(P1_SMEM),
+    P1_STEP_VG(P1_GLOBAL)};
 
 // The particle forms' kernels [bf16][opt][sc_kind] of value_batch and
 // value_and_grad: opt 0 without the options, 1 with them, 2 their
@@ -629,11 +705,22 @@ const char* cost_oracle_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Let the particle forms take dynamic shared memory above 48 KB (the
-// deterministic ones stay inside the default) and find each one's largest
-// cluster (sweeps.cuh::cluster_max). Called once when the library is
-// loaded; returns a cudaError_t.
+// Let the particle forms and the P=1 shared-memory step take dynamic shared
+// memory above 48 KB (the register chain stays inside the default) and find
+// each particle form's largest cluster (sweeps.cuh::cluster_max). Called
+// once when the library is loaded; returns a cudaError_t.
 int cost_oracle_init() {
+  for (int gw = 0; gw < 2; ++gw) {
+    for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
+      cudaError_t e = allow_large_smem(kP1Vb[0][gw][sc]);
+      if (e == cudaSuccess) e = allow_large_smem(kP1Vb[1][gw][sc]);
+      if (e == cudaSuccess) e = allow_large_smem(kP1Vg[gw][sc]);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const cudaError_t e = gw ? allow_large_smem(trajectory_kernel<false, true>)
+                             : allow_large_smem(trajectory_kernel<false, false>);
+    if (e != cudaSuccess) return (int)e;
+  }
   for (int bf = 0; bf < 2; ++bf)
     for (int o = 0; o < 3; ++o)
       for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
@@ -690,6 +777,10 @@ int value_and_grad_smem_bytes(const ApgArgs* a) {
 // particles: one candidate per cluster).
 int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 
+// The P=1 form (P1_*) a launch of `kind` with a's dimensions runs
+// (p1_form_of).
+int oracle_p1_form(const ApgArgs* a, int kind) { return p1_form_of(*a, kind); }
+
 // Launchers: one launch on `stream` each over a->batch scenarios B,
 // returning the launch's error (cudaErrorInvalidValue for arguments the
 // kernels do not take). consts is (B, n_consts), U (B, K, H, nZ), u
@@ -702,20 +793,23 @@ int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 // the totals, their centred second moment); with RISK_MOMENTS_IN
 // (value_and_grad) it reads `moments` (B, 2), each scenario's mean and std
 // of the totals (null otherwise), and writes the risk-free cost of its
-// particles to val. The P=1 value_and_grad takes the trunk widths of the
-// register layout only (HID = P1_HID, F <= P1_FMAX); the particle forms a's
-// cluster plan of its chunks (value_batch one cluster per candidate), and
-// return the cluster launch's own error where the card cannot schedule it.
+// particles to val. A P=1 launch runs the form p1_form_of picks (or
+// a->p1_step names), which the trunk's widths and the form's shared memory
+// must take; the
+// particle forms a's cluster plan of its chunks (value_batch one cluster
+// per candidate), and return the cluster launch's own error where the card
+// cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* U,
                        const void* noise, const void* starts, void* out, void* stream) {
   const int opt = opt_form(a, ORACLE_VALUE_BATCH);
-  if (!args_ok(a) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
+  if (!args_ok(a, ORACLE_VALUE_BATCH) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
       !particles_ok(a, noise, starts) || opt < 0 ||
       (a->has_noise && !cluster_args_ok(
           *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][opt][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int form = a->has_noise ? 2 + opt : p1_widths(*a) ? 1 : 0;
+  const int step = p1_form_of(*a, ORACLE_VALUE_BATCH);
+  const int form = a->has_noise ? 2 + opt : step == P1_CHAIN ? 1 : step == P1_GLOBAL ? 5 : 0;
   return launch_error(kValueBatch[a->bf16 != 0][form][a->sc_kind](
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
       (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
@@ -724,15 +818,22 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* 
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
-  if (!args_ok(a) || !grid_ok(a, ORACLE_TRAJECTORY) || trajectory_smem_bytes(a) > ORACLE_SMEM_LIMIT)
+  // (x_evol of a particle solve too: the mean dynamics, on a P=1 form)
+  const int step = p1_form_of(*a, ORACLE_TRAJECTORY);
+  if (!args_ok(a, ORACLE_TRAJECTORY) || !grid_ok(a, ORACLE_TRAJECTORY) ||
+      trajectory_smem_bytes(a) > (step == P1_CHAIN ? ORACLE_SMEM_LIMIT
+                                                   : ORACLE_SMEM_LIMIT_PARTICLES))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)trajectory_smem_bytes(a);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (p1_widths(*a))
+  if (step == P1_CHAIN)
     trajectory_kernel<true><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
         *a, (const float*)consts, (const float*)u, (float*)x_out);
-  else
+  else if (step == P1_SMEM)
     trajectory_kernel<false><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
+        *a, (const float*)consts, (const float*)u, (float*)x_out);
+  else
+    trajectory_kernel<false, true><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
         *a, (const float*)consts, (const float*)u, (float*)x_out);
   return (int)cudaGetLastError();
 }
@@ -741,16 +842,19 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, const void* starts, const void* moments,
                           void* val, void* grad, void* stream) {
   const int opt = opt_form(a, ORACLE_VALUE_AND_GRAD);
-  if (!args_ok(a) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) || !particles_ok(a, noise, starts) ||
+  if (!args_ok(a, ORACLE_VALUE_AND_GRAD) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) ||
+      !particles_ok(a, noise, starts) ||
       opt < 0 || (opt == 2) != (moments != nullptr) ||
-      (!a->has_noise && (!p1_widths(*a) || a->bf16)) ||
+      (!a->has_noise && a->bf16) ||
       (a->has_noise && !cluster_args_ok(
           *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind])) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  const int form = !a->has_noise ? 0 : opt == 2 ? 5 + (a->bf16 ? 1 : 0)
-                                                : (opt ? 2 : 1) + (a->bf16 ? 2 : 0);
+  const int step = a->has_noise ? P1_CHAIN : p1_form_of(*a, ORACLE_VALUE_AND_GRAD);
+  const int form = !a->has_noise ? (step == P1_CHAIN ? 0 : step == P1_SMEM ? 7 : 8)
+                   : opt == 2 ? 5 + (a->bf16 ? 1 : 0)
+                              : (opt ? 2 : 1) + (a->bf16 ? 2 : 0);
   return launch_error(kValueAndGrad[form][a->sc_kind](
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
       (const float*)noise, (const float*)starts, (const float*)moments, (float*)val,

@@ -13,9 +13,10 @@
 // one thread each on the shared-memory step (other trunks).
 #define ORACLE_P1_ROWS APG_MAXK
 #define ORACLE_TILE 16
-#define ORACLE_SMEM_LIMIT 49152 // static + dynamic shared memory budget (bytes), P=1
-// Budget of the particle forms (has_noise): all of a block's shared memory
-// on sm_90 (227 KB), as dynamic shared memory (cost_oracle_init).
+#define ORACLE_SMEM_LIMIT 49152 // static + dynamic shared memory budget (bytes), P=1 chain
+// Budget of the particle forms (has_noise) and of the P=1 shared-memory
+// step: all of a block's shared memory on sm_90 (227 KB), as dynamic shared
+// memory (cost_oracle_init).
 #define ORACLE_SMEM_LIMIT_PARTICLES APG_SMEM_LIMIT_PARTICLES
 
 // Which kernel a shared-memory query is for.

@@ -16,7 +16,9 @@
 //     jax.vjp, bodies.py:587-596);
 //   - the P=1 forms (P1W, p1_rollout, p1_reverse, vg): the trunk in
 //     registers, split-K layer-1 products, the row's scalar step in the 32
-//     lanes of its warp, two block barriers per step;
+//     lanes of its warp, two block barriers per step; on trunks of other
+//     widths the P=1 shared-memory step (vg_smem, cand_smem on trunk /
+//     fwd_step<false>, the weights in shared or device memory, wt);
 //   - ctrl_grad / ctrl_terms: the control-only cost terms and their
 //     closed-form gradient (bodies.py::control_cost, vg_sweep :598-628);
 //   - vg / vg_part: value and gradient of one plan (bodies.py::vg_sweep),
@@ -363,24 +365,37 @@ __device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, 
   else tile_gemm<1, 1>(R, N, Kd, A, lda, W, epi);
 }
 
+// A trunk weight: from the block's shared-memory copy of the consts, or
+// (GW, the P=1 form P1_GLOBAL) from device memory through the read-only
+// path, rounded to bf16 there in the bf16 forms (BF: the shared copy holds
+// them rounded already, round_trunk_weights).
+template <bool GW, bool BF = false>
+__device__ __forceinline__ float wt(const float* w) {
+  if constexpr (GW) return mm_in<BF>(__ldg(w));
+  else return *w;
+}
+
 // The network for R rows: features (body-frame velocity, rates, gravity
 // direction, motors), the two swish layers and the output layer into
 // s.feat, s.a0, s.a1, s.a2. Row r's state is x[r*13..]. With PART = false
-// (the P=1 rows of value_batch and trajectory on a trunk outside the
-// register layout of P1W) row r is thread r < R and its controls are
+// (the P=1 shared-memory step: trunks outside the register layout of P1W)
+// row r is thread r < R and its controls are
 // U[r*ustride ..]; with PART = true rows run over the threads,
 // row r's controls are U[(r % K)*ustride ..], and a stash (bwd_rows) records
 // the R rows' hidden pre-activations (idx = r*HID + j). TILED (the
 // candidate rows of cand_part): the three products as
 // register tiles (rows_gemm), s.a0 and s.a1 at row stride tiled_ld; the
 // same sums in the same order. BF: the products' inputs stored rounded to
-// bf16 (mm_in; the weights are the caller's, rounded in s.c).
-template <bool PART, bool TILED = false, bool BF = false>
+// bf16 (mm_in; the weights are the caller's, rounded in s.c). GW (P=1
+// only): the weights (and biases) at their offsets from wb, in device
+// memory (wt).
+template <bool PART, bool TILED = false, bool BF = false, bool GW = false>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
-                      float* st_h1p) {
+                      float* st_h1p, const float* wb = nullptr) {
+  static_assert(!(GW && (PART || TILED)), "global weights are the P=1 step's");
   const int tid = threadIdx.x, nt = blockDim.x;
-  const float* c = s.c;
+  const float* c = GW ? wb : s.c;
   const int F = a.F, HID = a.HID, OUT = a.OUT;
 
   auto features = [&](int r) {
@@ -429,8 +444,8 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const int r = idx / HID, j = idx - r * HID;
     const float* f = s.feat + r * F;
     float acc = 0.f;
-    for (int i = 0; i < F; ++i) acc += f[i] * w0[i * HID + j];
-    const float pre = acc + b0[j];
+    for (int i = 0; i < F; ++i) acc += f[i] * wt<GW, BF>(w0 + i * HID + j);
+    const float pre = acc + wt<GW>(b0 + j);
     s.a0[idx] = mm_in<BF>(pre * sigm(pre));
     if (st_h0p) st_h0p[idx] = pre;
   }
@@ -440,8 +455,8 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const int r = idx / HID, j = idx - r * HID;
     const float* h = s.a0 + r * HID;
     float acc = 0.f;
-    for (int i = 0; i < HID; ++i) acc += h[i] * w1[i * HID + j];
-    const float pre = acc + b1[j];
+    for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w1 + i * HID + j);
+    const float pre = acc + wt<GW>(b1 + j);
     s.a1[idx] = mm_in<BF>(pre * sigm(pre));
     if (st_h1p) st_h1p[idx] = pre;
   }
@@ -451,8 +466,8 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const int r = idx / OUT, o = idx - r * OUT;
     const float* h = s.a1 + r * HID;
     float acc = 0.f;
-    for (int i = 0; i < HID; ++i) acc += h[i] * w2[i * OUT + o];
-    const float pre = acc + b2[o];
+    for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w2 + i * OUT + o);
+    const float pre = acc + wt<GW>(b2 + o);
     s.a2[idx] = pre;
   }
   __syncthreads();
@@ -634,12 +649,15 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // (its particle; rows are particle-major). SC adds the state-constraint
 // terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
 // TILED: the trunk's register-tiled products (the candidate rows of
-// cand_part). BF: the bf16 trunk (trunk).
-template <bool PART, int SC, bool TILED = false, bool BF = false>
+// cand_part). BF: the bf16 trunk (trunk). st_h0p, st_h1p: the rows'
+// pre-activations stashed there (trunk; the P=1 vg row, vg_smem). GW, wb:
+// the weights in device memory (trunk).
+template <bool PART, int SC, bool TILED = false, bool BF = false, bool GW = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
-                         float* xn, int t) {
-  trunk<PART, TILED, BF>(a, s, R, U, ustride, K, x, nullptr, nullptr);
+                         float* xn, int t, float* st_h0p = nullptr, float* st_h1p = nullptr,
+                         const float* wb = nullptr) {
+  trunk<PART, TILED, BF, GW>(a, s, R, U, ustride, K, x, st_h0p, st_h1p, wb);
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int OUT = a.OUT;
@@ -1010,8 +1028,8 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
 // by shuffles where every lane needs them, so all lanes hold the same
 // values; per-solve constants are read from the consts copy in shared
 // memory, off the chain.
-// Widths are fixed: HID = P1_HID, F <= P1_FMAX, OUT = 12 (the launchers
-// refuse others).
+// Widths are fixed: HID = P1_HID, F <= P1_FMAX, OUT = 12 (other trunks run
+// the shared-memory step below, vg_smem).
 
 // Clock-stamped phases (apg_solve_prof_launch): thread 0 adds the SM cycles
 // since the previous stamp to s.prof[ph]; s.prof[PH_N] holds the last stamp.
@@ -1340,6 +1358,118 @@ __device__ __forceinline__ void vg(const ApgArgs& a, const Smem& s, const P1W& W
     *fval = s.jt[0] + scal[SC_RESM] * s.jr[0] + jc;
   }
   __syncthreads();
+}
+
+// ---- The P=1 shared-memory step (P1_SMEM / P1_GLOBAL, apg_solve.cuh):
+// apg_solve_kernel<false, SC, ..., STEP> and value_and_grad_kernel<false,
+// SC, ..., STEP> on trunks of any width (value_batch and trajectory run the
+// same fwd_step<false> on them). A step is the network with a thread per
+// output (trunk<false>) and the row's scalar step in thread r < R; the
+// reverse of the vg row is bwd_dyn and bwd_feat in thread 0 and the trunk's
+// transposed products a warp per output (lanes along the weights' rows,
+// which read consecutive addresses of the stored layout in shared or device
+// memory alike; one warp sum each), four block barriers a step each way. wb:
+// where the trunk's weights are read (GW: device memory, else s.c).
+
+// Value and gradient of the iterate U at P=1 on the shared-memory step
+// (bodies.py::vg_sweep / manual_bwd_step at B = 1): the forward sweep from
+// x0 into the stash (states s.xs, the mean trajectory x_evol; the layer-0/1
+// pre-activations s.h0p, s.h1p; the outputs s.h2), then the manual reverse
+// sweep of the row, then the closed-form control gradients and the
+// control-only terms, as vg ends. The gradient lands in s.g, the value in
+// *fval (shared memory). U must be visible to the block on entry.
+template <int SC, bool GW>
+__device__ void vg_smem(const ApgArgs& a, const Smem& s, const float* wb, float* fval,
+                        const float* U) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5,
+            nw = nt >> 5;
+  const float* c = s.c;
+  const float* w = GW ? wb : c;
+  const int H = a.H, F = a.F, HID = a.HID, OUT = a.OUT, nZ = a.nZ;
+  if (tid < 13) { s.xs[tid] = c[a.o_x0 + tid]; s.ct[tid] = 0.f; }
+  if (tid == 0) { s.jt[0] = 0.f; s.jr[0] = 0.f; }
+  __syncthreads();
+  for (int t = 0; t < H; ++t) {
+    fwd_step<false, SC, false, false, GW>(a, s, 1, U + t * nZ, 0, 1, nullptr, s.xs + t * 13,
+                                          s.xs + (t + 1) * 13, t, s.h0p + t * HID,
+                                          s.h1p + t * HID, wb);
+    for (int o = tid; o < OUT; o += nt) s.h2[t * OUT + o] = s.a2[o];
+  }
+  const float* w0 = w + a.o_w0; const float* w1 = w + a.o_w1; const float* w2 = w + a.o_w2;
+  for (int t = H - 1; t >= 0; --t) {
+    const float* st = s.xs + t * 13;
+    if (tid == 0) {
+      const float d_t = c[a.o_disc + t];
+      bwd_dyn<false, SC>(a, c, st, st + 13, s.h2 + t * OUT, U + t * nZ, nullptr, t, d_t,
+                         d_t * c[a.o_scal + SC_RESM], s.ct, s.c_h2, s.cu);
+    }
+    __syncthreads();
+    // layer 2 back to the second swish: a thread per hidden unit
+    for (int j = tid; j < HID; j += nt) {
+      float acc = 0.f;
+      for (int o = 0; o < OUT; ++o) acc += s.c_h2[o] * wt<GW>(w2 + j * OUT + o);
+      const float h = s.h1p[t * HID + j], s1 = sigm(h);
+      s.c_h1p[j] = acc * (s1 + h * s1 * (1.f - s1));
+    }
+    __syncthreads();
+    // layer 1 back to the first swish: a warp per hidden unit i, its lanes
+    // along row i of w1
+    for (int i = warp; i < HID; i += nw) {
+      float acc = 0.f;
+      for (int j = lane; j < HID; j += 32) acc += wt<GW>(w1 + i * HID + j) * s.c_h1p[j];
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        const float h = s.h0p[t * HID + i], s0 = sigm(h);
+        s.c_h0p[i] = acc * (s0 + h * s0 * (1.f - s0));
+      }
+    }
+    __syncthreads();
+    // layer 0 back to the features: a warp per input
+    for (int f = warp; f < F; f += nw) {
+      float acc = 0.f;
+      for (int j = lane; j < HID; j += 32) acc += wt<GW>(w0 + f * HID + j) * s.c_h0p[j];
+      acc = warp_sum(acc);
+      if (lane == 0) s.c_feat[f] = acc;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // the features back to the state; step t's gradient (the slack
+      // columns' from constr_bwd in the proximal form)
+      bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.cu);
+      for (int i = 0; i < nZ; ++i) s.g[t * nZ + i] = s.cu[i];
+    }
+  }
+  __syncthreads();
+  const int HZ = a.H * nZ;
+  for (int e = tid; e < HZ; e += nt) {
+    const int t = e / nZ, i = e - t * nZ;
+    s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
+  }
+  if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).u; }, s.red + 0);
+  if (warp == 1) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).sl; }, s.red + 1);
+  if (warp == 2) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).viol; }, s.red + 2);
+  __syncthreads();
+  if (tid == 0) {
+    const float* scal = c + a.o_scal;
+    float jc = scal[SC_UERR] * s.red[0] + scal[SC_SLEW] * s.red[1];
+    if (a.has_slew) jc = jc + scal[SC_SLEWC] * s.red[2];
+    *fval = s.jt[0] + scal[SC_RESM] * s.jr[0] + jc;
+  }
+  __syncthreads();
+}
+
+// The K candidate plans of s.cand ((K, H, nZ)) through the horizon from x0
+// on the shared-memory step (bodies.py::run_candidates at P=1): row k's
+// costs in s.jt[k], s.jr[k]. Ends with a barrier.
+template <int SC, bool GW>
+__device__ void cand_smem(const ApgArgs& a, const Smem& s, const float* wb, int K) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int e = tid; e < K * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
+  for (int r = tid; r < K; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
+  __syncthreads();
+  for (int t = 0; t < a.H; ++t)
+    fwd_step<false, SC, false, false, GW>(a, s, K, s.cand + t * a.nZ, a.H * a.nZ, 1, nullptr,
+                                          s.xr, s.xr, t, nullptr, nullptr, wb);
 }
 
 // Every block of the cluster: out(e, v) for e < n, v the sum over the

@@ -100,9 +100,9 @@ diagonal metric cached for the config's content (``_precond_cache_key``:
 the checkpoint's bytes, the cost and the horizon; the flagship configs ship
 theirs in ``configs/models/precond/``), or on a miss probes it once on the
 device (:func:`hover_diag_probe`, the original's ``:510-580``) and writes
-it to the first writable cache path. APG at P=1 on the card takes only the
-trunks of the P=1 kernels' register layout: any other is refused here,
-when the solver is built (ROADMAP.md §3 fault 7).
+it to the first writable cache path. A trunk of any width flies every
+route on the card: the P=1 kernels pick their form by its shape
+(``ops/cuda/consts.py::p1_step``).
 
 The tuner's hooks (original ``:194-202``, ``:234-240``, ``:360-366``;
 ``tuning/tuner.py``): ``mppi_params`` replaces the config's ``mppi``
@@ -157,7 +157,6 @@ from sde4mbrl_px4_tpu_torch.models.trajectory import (
     TrajectoryTable, load_trajectory_csv, make_state_from_traj)
 from sde4mbrl_px4_tpu_torch.models.vehicles import hexa_config, iris_config
 from sde4mbrl_px4_tpu_torch.ops.cuda.apg_kernel import apg_solve_kernel_batched
-from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_FMAX, P1_HID, p1_widths
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import cost_oracle_batched
 from sde4mbrl_px4_tpu_torch.ops.rollout import (
     draw_brownian, draw_start_spread, make_time_steps, particle_starts, rollout_sde)
@@ -325,22 +324,6 @@ def _resolve_model(cfg: Dict[str, Any], device: torch.device):
                       "initializing fresh physics-prior model")
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return model, init_params(gen, model, device=device)
-
-
-def _check_p1_trunk(params: Dict[str, Any], n_u: int) -> None:
-    """ROADMAP.md §3 fault 7, refused when the solver is built rather than
-    at its first launch: the P=1 whole solve and ``value_and_grad`` on the
-    card hold the trunk in registers (``ops/cuda/consts.py::p1_widths``),
-    so APG at P=1 takes no other trunk there."""
-    F, HID = (int(v) for v in params["net"]["w0"].shape)
-    if not p1_widths(F, HID):
-        raise ValueError(
-            f"fault 7 (ROADMAP.md §3): this checkpoint's trunk has {HID} hidden units and "
-            f"{F} inputs, and APG at num_particles 1 on the card takes only {P1_HID} "
-            f"hidden units and at most {P1_FMAX} inputs (the P=1 kernels hold the trunk "
-            f"in registers); ROADMAP.md §1 item 21 brings a shared-memory P=1 form. Until "
-            f"then fly it with device='cpu', num_particles > 1, solver: mppi or a pure "
-            f"policy")
 
 
 def _resolve_policy(cfg: Dict[str, Any], H: int, n_u: int, lb_np: np.ndarray,
@@ -570,8 +553,6 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
             apg_cfg = apg_cfg._replace(max_iter=refine, max_no_improvement_iter=refine)
     num_particles = int(cfg.get("num_particles", 1))
     antithetic = bool(cfg.get("antithetic", False))
-    if dev.type == "cuda" and num_particles == 1 and (solver == "apg" or refine):
-        _check_p1_trunk(params, n_u)
     # the particles' start spread (original :463-472): a scalar or 13 stds
     init_std = cfg.get("initial_state_std")
     x0_spread = None if init_std is None else torch.tensor(

@@ -49,11 +49,17 @@ shared memory above the default (set once per library load by
 ``apg_init``). ``apg_solve_kernel.launches`` counts the whole-solve
 kernel's launches.
 
-The P=1 forms hold the trunk in registers at fixed widths (64 hidden
-units, at most 16 inputs; ``consts.py::check_p1_widths``), which the card
-path checks before it builds anything. :func:`apg_phase_split` runs the
-same solve without state constraints (P=1 or particles) through the
-kernel's clock-stamped instantiation and returns the SM cycles of each of
+A P=1 solve runs the form its trunk's shape picks (``consts.py`` module
+docstring): the register chain on 64 hidden units and at most 16 inputs,
+the shared-memory step on any other trunk (its weights in the block's
+shared memory, or in device memory where they do not fit 227 KB; the
+library chooses, ``apg_p1_form`` reports it). The shared-memory step's
+forms are a library of their own (``csrc/apg_solve_p1.cu``,
+:func:`load_apg_library` with ``p1_step``), built in parallel with the
+others.
+:func:`apg_phase_split` runs the same solve without state constraints
+(P=1 on the register chain, or particles) through the kernel's
+clock-stamped instantiation and returns the SM cycles of each of
 :data:`PHASES` (P=1) or :data:`PART_PHASES` (particles), for
 measurement.
 
@@ -81,8 +87,8 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, scenario_cost
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths,
-    has_options, plan_particles, sc_kind, scenario_weights)
+    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, has_options,
+    p1_widths, plan_particles, sc_kind, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -93,7 +99,7 @@ __all__ = ["apg_solve_kernel", "apg_solve_kernel_batched", "apg_solve_plain",
            "plan_solve_particles", "PHASES", "PART_PHASES", "SMEM_LIMIT",
            "SMEM_LIMIT_PARTICLES"]
 
-SMEM_LIMIT = 49152   # bytes of shared memory the unconstrained P=1 kernel may use (48 KB)
+SMEM_LIMIT = 49152   # bytes of shared memory the unconstrained register chain may use (48 KB)
 # the clock64 phases of apg_phase_split, in the order of its cycle sums
 # (csrc/apg_solve.cu, PH_*)
 PHASES = ("forward trunk", "forward scalar step", "reverse scalar", "reverse trunk",
@@ -106,14 +112,19 @@ _P = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=None)
-def load_apg_library(bf16: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/apg_solve.cu``, or with ``bf16``
-    ``csrc/apg_solve_bf16.cu`` (the bf16-trunk particle forms)."""
-    lib = load_library("apg_solve_bf16" if bf16 else "apg_solve")
+def load_apg_library(bf16: bool = False, p1_step: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/apg_solve.cu`` (the register
+    chain and the particle forms), with ``bf16`` ``csrc/apg_solve_bf16.cu``
+    (the bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
+    (the P=1 shared-memory step). Each answers the shared-memory and ABI
+    queries of every form."""
+    lib = load_library("apg_solve_bf16" if bf16 else "apg_solve_p1" if p1_step else "apg_solve")
     lib.apg_args_size.argtypes = []
     lib.apg_args_size.restype = ctypes.c_int
     lib.apg_smem_bytes.argtypes = [ctypes.POINTER(ApgArgs)]
     lib.apg_smem_bytes.restype = ctypes.c_int
+    lib.apg_p1_form.argtypes = [ctypes.POINTER(ApgArgs)]
+    lib.apg_p1_form.restype = ctypes.c_int
     lib.apg_error_string.argtypes = [ctypes.c_int]
     lib.apg_error_string.restype = ctypes.c_char_p
     lib.apg_init.argtypes = []
@@ -158,9 +169,8 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int,
 
 
 def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
-                 lb: torch.Tensor, params: Optional[Dict[str, Any]] = None) -> None:
-    """What the kernel takes; with ``params`` (a P=1 solve on the card) also
-    the trunk widths of its register layout."""
+                 lb: torch.Tensor) -> None:
+    """What the kernel takes."""
     nZ = model.n_u + cp.n_slack
     if lb.shape[-1] != nZ:
         raise ValueError(
@@ -171,9 +181,6 @@ def _check_scope(model: NeuralSDE, cp: CostParams, apg: APGConfig,
             "apg_solve_kernel runs the linesearch APG; a config without "
             "apg_mpc.linesearch is the fixed-step solver, which runs "
             "solver/apg.py::apg_solve over the cost oracle (engine/mpc_loader.py)")
-    if params is not None:
-        w0, w1 = params["net"]["w0"], params["net"]["w1"]
-        check_p1_widths(int(w0.shape[0]), int(w1.shape[0]), "apg_solve_kernel")
 
 
 def apg_solve_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -210,7 +217,8 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     (B, H, nZ), stats (B, 8), x_evol (B, H+1, 13)), x_evol None for the
     particle form. With ``prof`` (int64 (2, 8)) the clock-stamped
     instantiation runs (one scenario) and writes its cycle sums there."""
-    limit = (SMEM_LIMIT_PARTICLES if args.has_noise or args.sc_kind != SC_NONE
+    limit = (SMEM_LIMIT_PARTICLES
+             if args.has_noise or args.sc_kind != SC_NONE or not p1_widths(args.F, args.HID)
              else SMEM_LIMIT)
     need = lib.apg_smem_bytes(ctypes.byref(args))
     if need > limit:
@@ -313,7 +321,9 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     None at P=1, ``starts`` (B, P, 13) or None, ``u_init`` (B, H, nZ),
     ``t_init`` (B,) or None, and the tracking weights of ``cp`` where they
     carry a (B,) axis (``cost/cost.py``); ``bf16`` the module docstring's. The box,
-    ``precond``, ``iter_budget`` and the particle plan are shared. On the card
+    ``params`` (the trunk, which the P=1 form with its weights in device
+    memory reads once for every scenario), ``precond``, ``iter_budget`` and
+    the particle plan are shared. On the card
     one launch of the whole-solve kernel over a grid of B scenarios (one
     block, or one cluster of C blocks, each, with its own loop and early
     exit), counted as one launch, then at P>1 one batched ``trajectory``
@@ -379,7 +389,7 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
         if bf16:
             raise ValueError("apg_solve_kernel: the P=1 form has no bf16 trunk (the JAX "
                              "package runs P=1 on its kernel, at HIGHEST)")
-    _check_scope(model, cp, apg, lb, params if P == 1 else None)
+    _check_scope(model, cp, apg, lb)
     for name, t, shape in (("x0", x0, (B, 13)), ("x_ref", x_ref, (B, H + 1, 13)),
                            ("starts", starts, (B, P, 13)),
                            ("u_init", u_init, (B, H, n)), ("lb", lb, (n,)),
@@ -398,10 +408,10 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
             raise ValueError(f"apg_solve_kernel: {name} must be contiguous")
     if bf16 and prof is not None:
         raise ValueError("apg_phase_split: the clock-stamped build has no bf16 trunk")
-    lib = load_apg_library(bool(bf16))
     consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
                                 u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget, particles=z is not None)
+    lib = load_apg_library(bool(bf16), z is None and not p1_widths(args.F, args.HID))
     weights = scenario_weights(cp, B)
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)

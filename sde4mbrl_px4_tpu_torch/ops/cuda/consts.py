@@ -3,10 +3,10 @@ argument struct of dimensions, options, offsets and config scalars.
 
 Port of ``sde4mbrl_px4_tpu/ops/pallas/solve_kernels.py::build_consts``
 (``:71-184``, K7): the constants every sweep of the solve reads (initial
-state, the horizon of reference states, the previous control, the trunk
-weights, the effective mixer, inertia, per-step dt and discount, cost
-weights and scalars, the decision box, and the ``state_constr`` block of
-either form). :class:`ApgArgs` mirrors
+state, the horizon of reference states, the previous control, the effective
+mixer, inertia, per-step dt and discount, cost weights and scalars, the
+decision box, the ``state_constr`` block of either form, and last the trunk
+weights). :class:`ApgArgs` mirrors
 ``csrc/apg_solve.cuh::ApgArgs`` field for field; each library's
 ``*_args_size()`` is checked against it when it is loaded. One layout
 serves all four kernels: the whole-solve kernel and the three cost-oracle
@@ -48,6 +48,19 @@ trunk's three products on bf16-rounded operands, the JAX package's
 ``matmul_precision: default`` on its TPU. The kernels round the weights in
 their shared-memory copy of the consts; the buffer itself stays fp32, so the
 ``trajectory`` launch of the same solve reads the fp32 weights.
+
+The P=1 forms: a trunk of the register chain's widths (64 hidden units, at
+most 16 inputs, :func:`p1_widths`) runs the chain (:data:`P1_CHAIN`); any
+other runs the shared-memory step, with the weights in the block's copy of
+the consts (:data:`P1_SMEM`) where that kernel's block fits 227 KB with
+them, else read from device memory (:data:`P1_GLOBAL`), for which the
+buffer ends with the trunk (``w0, b0, w1, b1, w2, b2``): the kernels copy
+the ``o_w0`` floats before it. Each library picks the form of each launch
+from its dimensions (``csrc/apg_solve.cuh::p1_form``; ``apg_p1_form`` and
+``oracle_p1_form`` report it); :func:`build_consts` leaves
+``ApgArgs.p1_step`` at :data:`P1_BY_SHAPE`, which asks for that choice. A
+launch given a form by name (``p1_step``, for measurement) takes it or is
+refused.
 """
 from __future__ import annotations
 
@@ -62,17 +75,21 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.solver.apg import APGConfig, df_powers
 
 __all__ = ["APG_MAXK", "OPT_MOMENTS", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_TRAJECTORY",
-           "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_FMAX", "P1_HID",
-           "RISK_IN_CLUSTER", "RISK_MOMENTS_IN", "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES",
-           "SC_NONE", "SC_PENALTY", "SC_PROX", "ApgArgs", "batch_consts", "build_consts",
-           "check_p1_widths", "has_options", "opt_form", "p1_widths", "plan_cluster",
-           "plan_particles", "sc_kind", "scenario_weights",
+           "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_BY_SHAPE", "P1_CHAIN", "P1_FMAX",
+           "P1_GLOBAL", "P1_HID", "P1_SMEM", "RISK_IN_CLUSTER", "RISK_MOMENTS_IN",
+           "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
+           "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form", "p1_widths",
+           "plan_cluster", "plan_particles", "sc_kind", "scenario_weights",
            "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
-# the P=1 kernels hold the trunk in registers at these widths: hidden units,
-# and the most inputs 9 + n_u (csrc/apg_solve.cuh P1_HID, P1_FMAX)
+# the P=1 register chain holds the trunk in registers at these widths: hidden
+# units, and the most inputs 9 + n_u (csrc/apg_solve.cuh P1_HID, P1_FMAX)
 P1_HID, P1_FMAX = 64, 16
+# the P=1 forms (csrc/apg_solve.cuh P1_*, ApgArgs.p1_step): the libraries'
+# choice by shape, the register chain, the shared-memory step, and that step
+# with the weights in device memory
+P1_BY_SHAPE, P1_CHAIN, P1_SMEM, P1_GLOBAL = -1, 0, 1, 2
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
 SMEM_LIMIT_PARTICLES = 232448
@@ -108,6 +125,7 @@ _RISK_FIELDS = ("risk", "has_starts", "risk_mode")
 _BATCH_FIELDS = ("batch",)
 _PRECISION_FIELDS = ("bf16",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
+_P1_FIELDS = ("p1_step",)
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
 
@@ -117,7 +135,7 @@ class ApgArgs(ctypes.Structure):
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
                 + [(n, ctypes.c_int)
                    for n in _SC_FIELDS + _RISK_FIELDS + _BATCH_FIELDS + _PRECISION_FIELDS
-                   + _CLUSTER_FIELDS])
+                   + _P1_FIELDS + _CLUSTER_FIELDS])
 
 
 def has_options(a: ApgArgs) -> int:
@@ -154,18 +172,8 @@ def _constraint_pieces(cp: CostParams) -> tuple:
 
 
 def p1_widths(F: int, HID: int) -> bool:
-    """Whether the P=1 kernels' register layout takes a (F, HID) trunk."""
+    """Whether the P=1 register chain takes a (F, HID) trunk."""
     return HID == P1_HID and F <= P1_FMAX
-
-
-def check_p1_widths(F: int, HID: int, what: str) -> None:
-    """Raise ValueError unless the P=1 kernels' register layout takes a
-    (F, HID) trunk (the launchers refuse it with cudaErrorInvalidValue)."""
-    if not p1_widths(F, HID):
-        raise ValueError(
-            f"{what}: the P=1 kernel holds the trunk in registers for {P1_HID} hidden "
-            f"units and at most {P1_FMAX} inputs (9 + n_u); this model has {HID} "
-            f"hidden units and {F} inputs")
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -182,7 +190,9 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     scenario 0's in the buffer (:func:`batch_consts` writes the others).
     The box is nZ wide (``n_u`` plus the proximal form's slack columns). ``particles`` (a Monte-Carlo solve) turns on the
     risk reduction where the cost has ``risk_lambda``; at P=1 the cost is
-    the mean dynamics' and the risk term is 0, as in the original."""
+    the mean dynamics' and the risk term is 0, as in the original. The
+    trunk's weights close the buffer; ``p1_step`` asks the libraries for
+    the P=1 form by shape (module docstring)."""
     if apg is not None and apg.maxls > APG_MAXK:
         raise ValueError(f"maxls={apg.maxls} exceeds the kernel's {APG_MAXK}")
     f32 = torch.float32
@@ -207,13 +217,13 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         ub = -lb
     pieces = (
         ("x0", x0), ("xref", x_ref), ("uprev", u_prev[:n]),
-        ("w0", net["w0"]), ("b0", net["b0"]), ("w1", net["w1"]),
-        ("b1", net["b1"]), ("w2", net["w2"]), ("b2", net["b2"]),
         ("mix", mix_eff), ("inertia", model.inertia), ("ts", time_steps),
         ("disc", discount_vector(cp, H, x0.device)), ("wstate", wstate),
         ("uref", cp.uref), ("slo", slo), ("shi", shi), ("scal", scal),
         ("lb", lb), ("ub", ub),
-    ) + _constraint_pieces(cp)
+    ) + _constraint_pieces(cp) + (
+        ("w0", net["w0"]), ("b0", net["b0"]), ("w1", net["w1"]),
+        ("b1", net["b1"]), ("w2", net["w2"]), ("b2", net["b2"]))
     a = ApgArgs()
     off = 0
     flat = []
@@ -231,6 +241,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
+    a.p1_step = P1_BY_SHAPE
     if apg is None:
         return buf, a
     a.K = int(apg.maxls)
@@ -314,8 +325,9 @@ def value_batch_grid(K: int, a: ApgArgs,
     P=1 ceil(K / rows) blocks (block b takes candidates b*rows ..), rows at
     most ``ORACLE_P1_ROWS`` (one warp each) on a trunk of the register layout
     and ``ORACLE_TILE`` (one thread each) on others, and at most K; one less
-    while ``fits(rows)`` (the block's shared memory within 48 KB) is
-    false."""
+    while ``fits(rows)`` (the block's shared memory within its form's
+    budget: 48 KB on the register chain, 227 KB on the shared-memory step)
+    is false."""
     if a.has_noise:
         return K * a.cluster, 1
     rows = min(int(K), ORACLE_P1_ROWS if p1_widths(a.F, a.HID) else ORACLE_TILE)

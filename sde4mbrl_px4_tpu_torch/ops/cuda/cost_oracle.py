@@ -42,13 +42,14 @@ decision rows, nZ = n_u + m columns wide in the proximal form (the slack
 targets past the controls, as ``engine/mpc_loader.py:765-773`` of the
 original splits them), and the gradient is nZ wide; ``trajectory`` reads
 the control columns. The kernels take the form as a compile-time branch
-(``consts.py::sc_kind``). At P=1 the kernels hold the trunk in registers
-at fixed widths (64 hidden units, at most 16 inputs): ``value_and_grad``
-raises on others (``consts.py::check_p1_widths``), while ``value_batch``
-(8 candidates per block there) and ``trajectory`` run them on a
-shared-memory step (16 candidates per block); a block takes fewer
-candidates where wider rows would not fit 48 KB of shared memory
-(``consts.py::value_batch_grid``). :func:`value_batch_kernel`,
+(``consts.py::sc_kind``). At P=1 the kernels run the form the trunk's
+shape picks (``consts.py`` module docstring): the register chain on 64
+hidden units and at most 16 inputs (8 ``value_batch`` candidates per
+block), the shared-memory step on any other trunk (16 candidates per block;
+the weights in device memory where that kernel's block would not fit
+227 KB with them; the library chooses, ``oracle_p1_form`` reports it);
+a block takes fewer candidates where wider rows would not fit its form's
+budget (``consts.py::value_batch_grid``). :func:`value_batch_kernel`,
 :func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
 their launches in ``.launches``.
 
@@ -100,9 +101,9 @@ from sde4mbrl_px4_tpu_torch.cost.cost import (CostParams, make_cost_fn, make_ris
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, RISK_MOMENTS_IN, RISK_MOMENTS_OUT,
-    SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, check_p1_widths, opt_form,
-    plan_particles, scenario_weights)
+    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, RISK_MOMENTS_IN,
+    RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, opt_form,
+    p1_widths, plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -111,7 +112,7 @@ __all__ = ["cost_oracle", "cost_oracle_plain", "cost_oracle_batched",
            "value_batch_kernel", "value_and_grad_kernel", "trajectory_kernel",
            "resolve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
-SMEM_LIMIT = 49152   # bytes of shared memory a P=1 block may use (48 KB)
+SMEM_LIMIT = 49152   # bytes of shared memory a block of the register chain may use (48 KB)
 _P = ctypes.c_void_p
 _A = ctypes.POINTER(ApgArgs)
 
@@ -127,6 +128,7 @@ def load_oracle_library() -> ctypes.CDLL:
         "value_batch_smem_bytes": ([_A, ctypes.c_int], ctypes.c_int),
         "trajectory_smem_bytes": ([_A], ctypes.c_int),
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
+        "oracle_p1_form": ([_A, ctypes.c_int], ctypes.c_int),
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 8, ctypes.c_int),
@@ -308,8 +310,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _limit(args: ApgArgs) -> int:
-    return SMEM_LIMIT_PARTICLES if args.has_noise else SMEM_LIMIT
+def _limit(args: ApgArgs, particles: bool = True) -> int:
+    """A block's shared-memory budget: 48 KB on the register chain, 227 KB
+    with particles (``particles``: the kernel has particle forms) and on the
+    P=1 shared-memory step."""
+    if (particles and args.has_noise) or not p1_widths(args.F, args.HID):
+        return SMEM_LIMIT_PARTICLES
+    return SMEM_LIMIT
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -353,7 +360,9 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     ``RISK_MOMENTS_OUT`` (a risk launch with particles): the moments-out
     form, each plan's (risk-free cost, mean of the totals, their centred
     second moment) into (K, 3) (B, K, 3), counted in ``.launches_moments``
-    too."""
+    too. Every scenario must hold the same trunk in its consts (as
+    ``consts.batch_consts`` writes them): at P=1 the form with the weights
+    in device memory reads scenario 0's for all."""
     lib = load_oracle_library()
     K = int(U.shape[-3])
     _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise, starts)
@@ -387,7 +396,7 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     particles) takes ``moments`` (B, 2), each scenario's mean and std of
     the totals over all particles: the moments-in form, whose cost is the
     risk-free cost of these particles; counted in ``.launches_moments``
-    too."""
+    too. The scenarios share one trunk, as in :func:`value_batch_kernel`."""
     want = args.risk_mode == RISK_MOMENTS_IN
     if want != (moments is not None):
         raise ValueError("value_and_grad: moments go with args.risk_mode RISK_MOMENTS_IN "
@@ -397,11 +406,9 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
         raise ValueError(f"value_and_grad: moments must be contiguous float32 ({args.batch}, "
                          f"2) on {u.device}, got {moments.dtype} {tuple(moments.shape)} on "
                          f"{moments.device}")
-    if not args.has_noise:
-        check_p1_widths(args.F, args.HID, "value_and_grad")
-        if args.bf16:
-            raise ValueError("value_and_grad: the P=1 form has no bf16 trunk (the JAX "
-                             "package runs it on its kernel, at HIGHEST)")
+    if not args.has_noise and args.bf16:
+        raise ValueError("value_and_grad: the P=1 form has no bf16 trunk (the JAX "
+                         "package runs it on its kernel, at HIGHEST)")
     lib = load_oracle_library()
     _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
@@ -450,12 +457,14 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
     """(H, nZ) plan -> the mean rollout of its controls (H+1, 13): one launch.
     With ``args.batch`` B > 1 the plans of B scenarios, ``u`` (B, H, nZ) and
     ``consts`` (B, n_consts), roll out in the same launch, one block each,
-    into (B, H+1, 13). Always fp32: the kernel reads no ``args.bf16``."""
+    into (B, H+1, 13), the scenarios on one trunk as in
+    :func:`value_batch_kernel`. Always fp32: the kernel reads no
+    ``args.bf16``."""
     lib = load_oracle_library()
     need = lib.trajectory_smem_bytes(ctypes.byref(args))
-    if need > SMEM_LIMIT:
+    if need > _limit(args, particles=False):
         raise ValueError(f"trajectory needs {need} bytes of shared memory, "
-                         f"above the {SMEM_LIMIT}-byte budget")
+                         f"above the {_limit(args, particles=False)}-byte budget")
     _check_batch("trajectory", args, consts, u, args.H * args.nZ)
     out = torch.empty(u.shape[:-2] + (args.H + 1, 13), dtype=torch.float32, device=u.device)
     _raise_on(lib.trajectory_launch(ctypes.byref(args), consts.data_ptr(),

@@ -28,7 +28,7 @@ from sde4mbrl_px4_tpu.ops.rollout import rollout_mean
 from sde4mbrl_px4_tpu_torch.engine.goldens import constrained_problem
 from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
 from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
-from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_BY_SHAPE, build_consts, p1_widths
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import value_and_grad_kernel
 
 
@@ -85,21 +85,26 @@ def test_scope_is_enforced(port_bundles):
     lb6 = torch.cat([tb.lb, torch.zeros(2)])
     with pytest.raises(ValueError, match="nZ=4"):
         AK.apg_solve_kernel(*args, 1, lb6, lb6 + 1, u_init)
-    # the P=1 kernels hold the trunk in registers: 64 hidden units, at most
-    # 16 inputs (9 + n_u); the card path checks the widths before building
-    AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, tb.params)
+    # the P=1 form is the trunk's shape's: the register chain on 64 hidden
+    # units and at most 16 inputs (9 + n_u), the shared-memory step on any
+    # other, whose weights the libraries place (p1_step asks them to); no
+    # width is refused, and the weights close the consts buffer
+    AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb)
     net = tb.params["net"]
-    narrow = {**tb.params, "net": {**net, "w1": net["w1"][:32, :32]}}
-    with pytest.raises(ValueError, match="64 hidden units"):
-        AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, narrow)
-    wide = {**tb.params, "net": {**net, "w0": torch.zeros(17, 64)}}
-    with pytest.raises(ValueError, match="at most 16 inputs"):
-        AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb, wide)
-    _, oargs = build_consts(tb.model, narrow, tb.cost_params, None, tb.time_steps, x0,
-                            x_ref, u_prev)
-    assert (oargs.HID, oargs.F) == (32, 13)
-    with pytest.raises(ValueError, match="value_and_grad: the P=1 kernel"):
-        value_and_grad_kernel(torch.zeros(oargs.n_consts), oargs, u_init)
+
+    def trunk(hid):
+        w = {"w0": torch.zeros(13, hid), "b0": torch.zeros(hid), "w1": torch.zeros(hid, hid),
+             "b1": torch.zeros(hid), "w2": torch.zeros(hid, 12), "b2": net["b2"]}
+        return {**tb.params, "net": w}
+
+    for params, hid in ((tb.params, 64), (trunk(32), 32), (trunk(128), 128), (trunk(256), 256)):
+        _, oargs = build_consts(tb.model, params, tb.cost_params, tb.apg_config,
+                                tb.time_steps, x0, x_ref, u_prev)
+        assert (oargs.HID, oargs.F, oargs.p1_step) == (hid, 13, P1_BY_SHAPE)
+        assert p1_widths(oargs.F, oargs.HID) == (hid == 64)
+        assert oargs.n_consts == oargs.o_b2 + 12 and oargs.o_w0 == oargs.o_ub + 4
+    with pytest.raises(ValueError, match="no bf16 trunk"):
+        value_and_grad_kernel(torch.zeros(oargs.n_consts), type(oargs)(bf16=1), u_init)
 
 
 @pytest.mark.cuda

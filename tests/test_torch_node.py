@@ -705,10 +705,9 @@ def test_launcher_runs_geometric_node_for_seconds(repo_root, tmp_path):
 def test_launcher_runs_fcu_sim_until_sigterm(repo_root, tmp_path):
     """``python -m sde4mbrl_px4_tpu_torch.launch`` on the shipped iris SITL
     file (on a free port) in a fresh process: READY, MPC_FULL_STATE frames
-    on the wire, and a clean exit 0 on SIGTERM."""
-    import subprocess
-    import sys
-
+    on the wire, and a clean exit 0 on SIGTERM. The SIGTERM waits for READY
+    on the process's output: the plant thread streams before the launcher
+    prints it, and a SIGTERM in between ends the node before READY."""
     probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     probe.bind(("127.0.0.1", 0))
     probe.settimeout(30.0)
@@ -718,19 +717,18 @@ def test_launcher_runs_fcu_sim_until_sigterm(repo_root, tmp_path):
                config_dir=os.path.join(repo_root, "configs"))
     p = tmp_path / "fcu.yaml"
     p.write_text(yaml.safe_dump(cfg))
-    env = dict(os.environ)
-    env.pop("PYTHONPATH", None)
-    proc = subprocess.Popen([sys.executable, "-m", "sde4mbrl_px4_tpu_torch.launch", str(p)],
-                            cwd=repo_root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc, lines, reader = _launch(repo_root, [str(p)])
     try:
         msg = M.decode_frame(probe.recv(512))
         assert msg is not None and msg.get_type() == "MPC_FULL_STATE"
         np.testing.assert_allclose(np.linalg.norm(msg.state[6:10]), 1.0, atol=1e-3)
+        t0 = time.monotonic()
+        while not any("[launch] READY" in ln for ln in lines) and proc.poll() is None:
+            assert time.monotonic() - t0 < 60, lines
+            time.sleep(0.05)
     finally:
         probe.close()
-        proc.terminate()
-        out, _ = proc.communicate(timeout=30)
+        out = _sigterm_and_wait(proc, lines, reader)
     assert proc.returncode == 0, out
     assert "[launch] READY" in out and "fcu_sim (iris) streaming" in out
 

@@ -14,9 +14,9 @@ the JAX package's (``engine/mpc_loader.py:533-580``), on the CPU.
   writes its file there, loads it on the next build, and solves;
 - the labeling expert (``learning/distill.py::_expert_cfg``) hits the
   committed file of the traj config: it changes only ``apg_mpc``;
-- fault 7: a trunk outside the P=1 register layout is refused when the
-  solver is built on the card (the check itself here, the build on the
-  card in the ``cuda`` test), and flies on the CPU's plain version.
+- a trunk outside the P=1 register chain's widths flies on the CPU's plain
+  version (``tests/test_torch_wide_trunk.py`` holds it on every width
+  against the JAX package, and the card's forms against the plain ones).
 
 No test writes under ``configs/models/precond/``: the caches live in
 ``tmp_path`` (``SDE4MBRL_PRECOND_CACHE``, ``HOME`` and checkpoint copies).
@@ -193,16 +193,6 @@ def _narrow_checkpoint(repo_root, tmp_path, hidden=32):
     return ckpt, p
 
 
-def test_fault7_trunk_check(repo_root, tmp_path):
-    """The build-time check names fault 7 and item 21 for a 32-wide trunk
-    and passes the shipped 64-wide one."""
-    _, narrow = _narrow_checkpoint(repo_root, tmp_path)
-    with pytest.raises(ValueError, match=r"fault 7.*item 21"):
-        L._check_p1_trunk(narrow, 4)
-    tree, _ = load_params(os.path.join(repo_root, "configs/models/iris_sde.pkl"))
-    L._check_p1_trunk(tree, 4)
-
-
 def test_narrow_trunk_flies_on_the_cpu(repo_root, tmp_path, cache):
     """The plain version takes any trunk width, as the JAX package does: a
     32-wide checkpoint builds (probing its metric) and solves on the CPU."""
@@ -214,16 +204,3 @@ def test_narrow_trunk_flies_on_the_cpu(repo_root, tmp_path, cache):
     sol = mpc_fn(x, None, reset_fn(x, None, x), 0.0, x)
     assert torch.isfinite(sol.u_opt).all()
 
-
-@pytest.mark.cuda
-def test_fault7_refused_at_build_on_the_card(repo_root, tmp_path, cache):
-    """On the card the refusal comes from ``build_mpc``, before any launch:
-    APG at P=1 on a 32-wide trunk; MPPI on it builds."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the refusal is of the card's P=1 kernels")
-    ckpt, _ = _narrow_checkpoint(repo_root, tmp_path)
-    with pytest.raises(ValueError, match=r"fault 7.*item 21"):
-        L.build_mpc(_traj_h6(repo_root, ckpt))
-    cfg = _traj_h6(repo_root, ckpt)
-    cfg["solver"] = "mppi"
-    L.build_mpc(cfg)
