@@ -20,25 +20,30 @@ the launch tier's router node and mission REPL, and the preflight), and the
 reduced matmul precision (the bf16 trunk of the JAX package's
 ``matmul_precision: default``, its default above 128 particles), the
 mesh layer (rank pairs on the card over ``torch.distributed``), and the
-P=1 kernels on trunks of any width (a learned model of 32 to 256 hidden
-units flying every P=1 route).
+kernels on trunks of any width (a learned model of 32 to 256 hidden
+units flying every P=1 route, and of 256 units the P=512 flagship and the
+P=128 floor on the particle forms' global-weight forms).
 Phases
 (each prints a line; any failure raises and the script exits non-zero
 without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds the four kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
+2. builds the seven kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
    (``apg_solve``, its bf16 particle forms ``apg_solve_bf16``, its P=1
-   shared-memory step ``apg_solve_p1`` and ``cost_oracle``; one ``nvcc``
-   each, in parallel) and prints the build
+   shared-memory step ``apg_solve_p1``, its particle global-weight forms
+   ``apg_solve_gw`` and ``apg_solve_gw_bf16``, ``cost_oracle`` and its
+   global-weight forms ``cost_oracle_gw``; one ``nvcc`` each, in parallel)
+   and prints the build
    seconds and the compiler's register/spill/shared-memory summary per
    ``<PART, SC>`` form;
    fails if a P=1 form on the register chain (the whole solve,
    ``value_and_grad``, ``value_batch`` and ``trajectory``: their trunk lives
-   in registers) or a cluster form of ``value_batch`` spills; prints the
-   registers and spills of the cluster particle forms and of the
-   shared-memory step of ``value_batch`` and ``trajectory``; builds the
+   in registers), a cluster form of ``value_batch`` or a global-weight form
+   of the oracle spills; prints the registers and spills of the cluster
+   particle forms, of their global-weight forms (apart; the whole solve's
+   not gated) and of the shared-memory step of ``value_batch`` and
+   ``trajectory``; builds the
    host runtime ``csrc/libmpc_native.so`` (``make -C csrc``: the native
    mailbox) beside them; prints the P=1 forms' shared memory at n_u = 4
    (iris) and n_u = 6 (hexa) and fails if the whole solve's passes 48 KB;
@@ -379,8 +384,29 @@ without a result):
     step, MPPI, the pure policy, the ``refine_iters`` hybrid) on each
     width's checkpoint, ``label_states``, ``tune_cost_weights`` and a fleet
     on the 128-unit one, each route's launches checked; the 256-unit
-    checkpoint's global-weight forms timed; (f) the widest trunk each
-    particle form plans at P=512, each launched there once.
+    checkpoint's global-weight forms timed; (f) the widths each particle
+    form plans at P=512 and P=128, every multiple of 8 units to 2048 (the
+    widest in its shared-memory form, and every width in some form), each
+    launched finite at 152, 1024 and 2048 units; (g) the particle
+    forms past their shared memory, the global-weight forms: at 128 units
+    named in ``ApgArgs.step`` against the shared-memory forms on the
+    same chunk, bit for bit (the P=512 whole solve at 5 iterations, fp32,
+    with risk and starts, bf16; ``value_batch`` K = 1, 4;
+    ``value_and_grad``), each timed in both forms; the shipped trunk
+    zero-padded to 256 units against the 64-unit solve; at 152 and 256
+    units each form against its plain twin at P=128 antithetic (the whole
+    solve at 5 iterations, rtol 2e-4 / atol 2e-5, equal steps;
+    ``value_batch`` K = 1, 4 at 2e-5; ``value_and_grad`` 5e-4 / 5e-5;
+    with risk and starts at phase 23's tolerances; the bf16 forms at
+    phase 28's; the floor's penalty form), the shared-moments forms and
+    B = 4 scenarios bit-equal to their solo launches at 256; the 256-unit
+    checkpoint (``padded_trunk(..., 256, seed=0)``) through
+    ``load_mpc_from_cfgfile`` -> ``mpc_fn``: iris traj at P=512
+    antithetic (bf16) and at ``highest``, a controller with
+    ``deadline_ms: 30``, the floor at P=128, the fixed-step route at
+    P=512 (ms a solve and an iteration, launches, the global-weight
+    launches among them); the forms timed at P=512 beside their plain
+    twins and bounds.
 
 In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28, 29 and 30 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
@@ -414,7 +440,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
-LIBS = ("apg_solve", "apg_solve_bf16", "apg_solve_p1", "cost_oracle")
+LIBS = ("apg_solve", "apg_solve_bf16", "apg_solve_p1", "apg_solve_gw", "apg_solve_gw_bf16",
+        "cost_oracle", "cost_oracle_gw")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
@@ -540,7 +567,7 @@ def zero_counts() -> None:
                CO.value_and_grad_kernel, CO.trajectory_kernel):
         fn.launches = 0
     for fn in (AK.apg_solve_kernel, CO.value_batch_kernel, CO.value_and_grad_kernel):
-        fn.launches_bf16 = 0
+        fn.launches_bf16 = fn.launches_global = 0
     for fn in (CO.value_batch_kernel, CO.value_and_grad_kernel):
         fn.launches_moments = 0
 
@@ -562,11 +589,13 @@ def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
     SC>`` plus its flags (the whole solve's clock stamps, the P=1 forms'
     register chain or shared-memory step and its global weights, the
-    particle forms' options, the bf16 trunk, the oracle's risk mode:
-    ``apg_solve<PART, SC, PROF, OPT, BF, STEP>``, ``value_batch<PART, SC,
-    REG, OPT, BF, RM, GW>``, ``value_and_grad<PART, SC, OPT, BF, RM,
-    STEP>``); ``trajectory``'s two, ``<REG, GW>``."""
+    particle forms' global weights, options, the bf16 trunk, the oracle's
+    risk mode: ``apg_solve<PART, SC, PROF, OPT, BF, STEP>``,
+    ``value_batch<PART, SC, REG, OPT, BF, RM, GW>``, ``value_and_grad<PART,
+    SC, OPT, BF, RM, STEP>``); ``trajectory``'s two, ``<REG, GW>``."""
     steps = {1: ", shared-memory step", 2: ", shared-memory step, global weights"}
+    if args and args[0]:                 # particles: STEP 2 / GW the global-weight form
+        steps = {2: ", global weights"}
     if kernel == "trajectory_kernel":
         return (f"{kernel}<{'register chain' if args[0] else 'shared-memory step'}"
                 f"{', global weights' if args[1:2] == [1] else ''}>")
@@ -581,7 +610,7 @@ def form_name(kernel: str, args: list) -> str:
     elif kernel == "value_batch_kernel":
         if flags and not args[0]:
             extra = ", register chain" if flags[0] else ", shared-memory step"
-            extra += ", global weights" if flags[4:5] == [1] else ""
+        extra += ", global weights" if flags[4:5] == [1] else ""
         opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
         mode = flags[3:4]
     else:
@@ -616,7 +645,10 @@ def phase_build() -> None:
     AK.load_apg_library()
     AK.load_apg_library(bf16=True)
     AK.load_apg_library(p1_step=True)
+    AK.load_apg_library(part_global=True)
+    AK.load_apg_library(bf16=True, part_global=True)
     CO.load_oracle_library()
+    CO.load_oracle_library(part_global=True)
     log(f"phase 2: built {len(LIBS)} libraries in parallel in "
         f"{time.perf_counter() - t:.1f} s (with load)")
     spills, regs, current = {}, {}, None
@@ -642,8 +674,16 @@ def phase_build() -> None:
     log(f"  spill stores of the P=1 forms on the register chain: {p1}")
     part = {k: (regs.get(k), v) for k, v in spills.items()
             if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
-                             "value_batch_kernel<true"))}
+                             "value_batch_kernel<true")) and "global weights" not in k}
     log(f"  the cluster particle forms, (registers, spill stores in bytes): {part}")
+    # the particle forms' global-weight forms (trunks past their shared
+    # memory): the whole solve's options form and the oracle's options and
+    # shared-moments forms, fp32 and bf16; the oracle's are gated below as
+    # the cluster forms are, the whole solve's printed
+    gw = {k: (regs.get(k), v) for k, v in spills.items()
+          if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
+                           "value_batch_kernel<true")) and "global weights" in k}
+    log(f"  the particle global-weight forms, (registers, spill stores in bytes): {gw}")
     wide = {k: (regs.get(k), v) for k, v in spills.items() if "shared-memory step" in k}
     log(f"  the P=1 forms on the shared-memory step (trunks outside the register chain's "
         f"widths; their weights in shared or, global weights, in device memory), (registers, "
@@ -662,11 +702,14 @@ def phase_build() -> None:
     moments = {k: v for k, v in part.items() if "moments" in k}
     log(f"  the oracle's shared-moments forms (the risk of a particle-sharded solve), "
         f"(registers, spill stores in bytes): {moments}")
-    if len(part) != 49 or len(wide) != 26 or len(moments) != 12:
-        raise AssertionError(f"the build log lacks a form: {part}, {wide}")
-    vb = {k: v for k, v in part.items() if k.startswith("value_batch_kernel<true")}
+    if len(part) != 49 or len(wide) != 26 or len(moments) != 12 or len(gw) != 30:
+        raise AssertionError(f"the build log lacks a form: {part}, {wide}, {gw}")
+    vb = {k: v for k, v in {**part, **gw}.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
         raise AssertionError(f"a cluster form of value_batch spills: {vb}")
+    gw_oracle = {k: v for k, v in gw.items() if not k.startswith("apg_solve_kernel")}
+    if any(v[1] for v in gw_oracle.values()):
+        raise AssertionError(f"a global-weight form of the oracle spills: {gw_oracle}")
     # the particle forms without the options compile to the code they had
     # before them, spill-free, and so do the oracle's options forms; the
     # whole solve's options forms are printed
@@ -6470,14 +6513,16 @@ def wide_global(dev, ckpt: str, card: str) -> dict:
 
 
 def particle_ceiling(dev, traj_b, card: str) -> dict:
-    """(f) The widest trunk (a multiple of 8 units) each particle form takes
-    today at P=512, from the libraries' own shared-memory queries at the
-    chunk each wrapper would pick: the whole solve (``plan_solve_particles``),
-    the oracle (``plan_oracle_particles``: ``value_batch`` and
-    ``value_and_grad`` share one chunk) and each oracle kernel on its own
-    bytes (``plan_particles``); the widest width plans, 8 units more does
-    not. The whole solve (one iteration) and the oracle (``value_batch`` K=1
-    and ``value_and_grad``) are launched once at their widest (finite)."""
+    """(f) The widths each particle form plans at P=512 and P=128, from the
+    libraries' own shared-memory queries at the chunk each wrapper would
+    pick: the whole solve (``plan_solve_particles``), the oracle
+    (``plan_oracle_particles``: ``value_batch`` and ``value_and_grad`` share
+    one chunk) and each oracle kernel on its own bytes (``plan_particles``),
+    at every multiple of 8 units from 64 to WIDE_PART_CEIL; the widest trunk
+    each takes in its shared-memory form (the widest width whose plan needs
+    no global-weight form) and in any form. The whole solve (one iteration)
+    and the oracle (``value_batch`` K=1 and ``value_and_grad``) are launched
+    at WIDE_PART_LAUNCH units (finite)."""
     import ctypes
 
     import torch
@@ -6486,61 +6531,598 @@ def particle_ceiling(dev, traj_b, card: str) -> dict:
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-        ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, SMEM_LIMIT_PARTICLES, build_consts,
-        plan_particles)
+        ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL, SMEM_LIMIT_PARTICLES, ApgArgs,
+        build_consts, plan_particles)
 
     b = traj_b
     x0, x_ref, u_prev, u_init = problem(b, dev)
-    olib = CO.load_oracle_library()
+    olib, alib = CO.load_oracle_library(), AK.load_apg_library()
     need = {"value_batch": lambda o: olib.value_batch_smem_bytes(ctypes.byref(o), 1),
             "value_and_grad": lambda o: olib.value_and_grad_smem_bytes(ctypes.byref(o))}
     kinds = {"value_batch": ORACLE_VALUE_BATCH, "value_and_grad": ORACLE_VALUE_AND_GRAD}
 
-    def plans_at(kind, hid) -> bool:
-        a = build_consts(b.model, padded_trunk(b.params, hid), b.cost_params,
-                         b.apg_config if kind == "apg_solve" else None, b.time_steps, x0,
-                         x_ref, u_prev, b.lb, b.ub)[1]
+    def plan(kind, a, P) -> int:
+        """0: no plan; 1: the shared-memory form; 2: the global-weight form."""
+        a = ApgArgs.from_buffer_copy(a)
         try:
             if kind == "apg_solve":
-                AK.plan_solve_particles(a, P_FULL, 0)
-            elif kind == "oracle":
-                CO.plan_oracle_particles(olib, a, P_FULL, 0)
+                AK.plan_solve_particles(a, P, 0)
+                return 1 + (alib.apg_part_form(ctypes.byref(a)) == P1_GLOBAL)
+            if kind == "oracle":
+                CO.plan_oracle_particles(olib, a, P, 0)
             else:
-                plan_particles(a, P_FULL, 0, need[kind], SMEM_LIMIT_PARTICLES,
+                plan_particles(a, P, 0, need[kind], SMEM_LIMIT_PARTICLES,
                                olib.oracle_cluster_max(kinds[kind], 0, 0, 0))
         except ValueError:
-            return False
-        return True
+            return 0
+        forms = [olib.oracle_part_form(ctypes.byref(a), k) for k in
+                 ((kinds[kind],) if kind in kinds else kinds.values())]
+        return 1 + (P1_GLOBAL in forms)
 
     out = {}
-    for kind in ("apg_solve", "oracle", "value_batch", "value_and_grad"):
-        lo, hi = 64, 1024                       # lo plans (the shipped trunk), hi does not
-        while hi - lo > 8:
-            mid = (lo + hi) // 16 * 8
-            lo, hi = (mid, hi) if plans_at(kind, mid) else (lo, mid)
-        out[kind] = lo
-    z = brownian(P_FULL, dev, antithetic=True, seed=0)
-    apg = b.apg_config._replace(max_iter=1, max_no_improvement_iter=1)
-    st, _ = AK.apg_solve_kernel(b.model, padded_trunk(b.params, out["apg_solve"], seed=0),
-                                b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P_FULL,
-                                b.lb, b.ub, u_init)
-    o = CO.cost_oracle(b.model, padded_trunk(b.params, out["oracle"], seed=0), b.cost_params,
-                       b.time_steps, x0, x_ref, u_prev, z, P_FULL, 4)
-    v, (_, g) = o.value_batch(plans(1, 1, dev)), o.value_and_grad(plans(1, 2, dev)[0])
+    widths = range(64, WIDE_PART_CEIL + 1, 8)
+    args = {}
+    for hid in widths:
+        prm = padded_trunk(b.params, hid)
+        args[hid] = [build_consts(b.model, prm, b.cost_params, apg, b.time_steps, x0, x_ref,
+                                  u_prev, b.lb, b.ub, particles=True)[1]
+                     for apg in (b.apg_config, None)]
+    for P in (P_FULL, P_FLOOR):
+        for kind in ("apg_solve", "oracle", "value_batch", "value_and_grad"):
+            got = {hid: plan(kind, args[hid][kind != "apg_solve"], P) for hid in widths}
+            shared = [h for h in widths if got[h] == 1]
+            out[f"P{P} {kind}"] = {
+                "shared_memory_form_widest": max(shared) if shared else None,
+                "every_width_plans_to": max(h for h in widths
+                                            if all(got[w] for w in widths if w <= h))
+                if got[64] else None,
+                "global_from": min((h for h in widths if got[h] == 2), default=None)}
+    for P in (P_FULL, P_FLOOR):
+        z = brownian(P, dev, antithetic=True, seed=0)
+        apg = b.apg_config._replace(max_iter=1, max_no_improvement_iter=1)
+        fin = {}
+        for hid in WIDE_PART_LAUNCH:
+            prm = padded_trunk(b.params, hid, seed=0)
+            g0 = global_counts()
+            st, _ = AK.apg_solve_kernel(b.model, prm, b.cost_params, apg, b.time_steps, x0,
+                                        x_ref, u_prev, z, P, b.lb, b.ub, u_init)
+            o = CO.cost_oracle(b.model, prm, b.cost_params, b.time_steps, x0, x_ref, u_prev, z,
+                               P, 4)
+            v, (_, g) = o.value_batch(plans(1, 1, dev)), o.value_and_grad(plans(1, 2, dev)[0])
+            torch.cuda.synchronize()
+            fin[hid] = bool(torch.isfinite(st.yk).all() and torch.isfinite(v).all()
+                            and torch.isfinite(g).all())
+            if global_counts()["apg_solve"] != g0["apg_solve"] + 1:
+                raise AssertionError(f"the {hid}-unit P={P} solve left the global-weight form")
+        out[f"P{P} launched finite"] = fin
+    for key, r in out.items():
+        log(f"the particle forms' widths ({card}; 227 KB a block, the wrappers' chunk and "
+            f"cluster plans), {key}: {r}")
+    full = [r for k, r in out.items() if "launched" not in k]
+    if not (all(r["every_width_plans_to"] == WIDE_PART_CEIL for r in full)
+            and all(all(r.values()) for k, r in out.items() if "launched" in k)
+            and all((r["shared_memory_form_widest"] or 0) >= 64 for r in full)):
+        raise AssertionError(f"a particle form does not take every width: {out}")
+    return out
+
+
+# phase 30 (g): the particle forms of #1-#3 past their shared memory (the
+# global-weight forms): their widths, the particles of their parity checks,
+# the chained solves of each route on the 256-unit checkpoint, and the
+# widest trunk (f) searches
+WIDE_PART_HIDS = (152, 256)
+WIDE_PART_P = P_FLOOR
+WIDE_PART_SOLVES = 3
+WIDE_PART_CEIL = 2048
+WIDE_PART_LAUNCH = (152, 1024, WIDE_PART_CEIL)   # (f) launches at these widths
+
+
+def global_counts() -> dict:
+    """The launches of the particle global-weight forms, counted apart by
+    each wrapper beside its total."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": AK.apg_solve_kernel.launches_global,
+            "value_batch": CO.value_batch_kernel.launches_global,
+            "value_and_grad": CO.value_and_grad_kernel.launches_global}
+
+
+def part_chunk(b, params, P: int, dev) -> int:
+    """The chunk the whole solve plans for b's problem on ``params`` at P
+    particles (the shared-memory form wherever one fits)."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    a = build_consts(b.model, params, b.cost_params, b.apg_config, b.time_steps, x0, x_ref,
+                     u_prev, b.lb, b.ub, particles=True)[1]
+    AK.plan_solve_particles(a, P, 0)
+    return a.Pc
+
+
+def wide_part_solve(b, params, args, tag: str, starts=None, bf16: bool = False) -> dict:
+    """One particle solve at a fixed budget through the kernel and its plain
+    twin on the same draws: equal steps, ``yk`` at rtol 2e-4 / atol 2e-5
+    (fp32) or BF16_TOL against the plain bf16 twin and more than 10x that
+    from the kernel's fp32 form (bf16), ``x_evol`` the mean rollout of the
+    kernel's plan at rtol 1e-5 / atol 1e-6; the launch must take the
+    global-weight form. Returns the metrics."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    g0 = global_counts()["apg_solve"]
+    st_k, xe_k = AK.apg_solve_kernel(*args, precond=b.precond, starts=starts, bf16=bf16)
     torch.cuda.synchronize()
-    ok = bool(torch.isfinite(st.yk).all() and torch.isfinite(v).all() and torch.isfinite(g).all())
-    log(f"the particle forms' widest trunk at P={P_FULL} ({card}; 227 KB a block, the "
-        f"wrappers' chunk and cluster plans): whole solve {out['apg_solve']} units, the oracle "
-        f"{out['oracle']} (value_batch alone {out['value_batch']}, value_and_grad alone "
-        f"{out['value_and_grad']}); 8 units more plan no chunk; the whole solve and the oracle "
-        f"launched at their widest: finite {ok}")
-    if not ok or min(out.values()) < 64:
-        raise AssertionError(f"a particle form does not take its widest trunk: {out}")
+    if global_counts()["apg_solve"] != g0 + 1:
+        raise AssertionError(f"the whole solve did not take its global-weight form ({tag})")
+    st_p, _ = AK.apg_solve_plain(*args, precond=b.precond, starts=starts, bf16=bf16)
+    ref = rollout_mean(b.model, params, args[5], st_k.yk[:, :b.model.n_u], b.time_steps)
+    dx = float((xe_k - ref).abs().max())
+    steps = (int(st_k.num_steps), int(st_p.num_steps))
+    out = {"du": float((st_k.yk - st_p.yk).abs().max()), "steps": steps, "dx": dx}
+    if bf16:
+        st_32, _ = AK.apg_solve_kernel(*args, precond=b.precond, starts=starts)
+        r = _bf16_compare(f"apg_solve {tag}", {"du": st_k.yk, "gsq": st_k.grad_sqr},
+                          {"du": st_p.yk, "gsq": st_p.grad_sqr},
+                          {"du": st_32.yk, "gsq": st_32.grad_sqr}, BF16_TOL["apg_solve"])
+        out["bf16_err"], ok = r["err"], True
+    else:
+        log(f"wide particles {tag}: whole solve steps kernel {steps[0]} plain {steps[1]}; "
+            f"max|du| {out['du']:.3e} (rtol 2e-4, atol 2e-5); x_evol max|dx| {dx:.3e} "
+            f"(rtol 1e-5)")
+        ok = bool(torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5))
+    if not (ok and steps[0] == steps[1] and bool(torch.isfinite(st_k.yk).all())
+            and torch.allclose(xe_k, ref, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"the global-weight whole solve disagrees with its plain twin "
+                             f"({tag})")
+    return out
+
+
+def wide_part_oracle(make, plain, U, tag: str, vtol: float) -> dict:
+    """The particle oracle kernels against the plain twin (``value`` K=1,
+    ``value_batch`` K=4 at rtol ``vtol``, ``value_and_grad`` value rtol
+    ``vtol``, gradient rtol 5e-4 / atol 5e-5), each launch in its
+    global-weight form: the oracle ``make()`` builds under
+    ``p1_step_ab.forced`` (``value_batch`` keeps its shared-memory form by
+    shape up to 224 units, ``value_and_grad`` to 144-152)."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_GLOBAL
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+
+    g0 = global_counts()
+    with forced(P1_GLOBAL):
+        kern = make()
+    e = particle_oracle_parity(kern, plain, U, tag, what="wide particle oracle", vtol=vtol)
+    g1 = global_counts()
+    if not (g1["value_batch"] - g0["value_batch"] == 2
+            and g1["value_and_grad"] - g0["value_and_grad"] == 1):
+        raise AssertionError(f"an oracle launch did not take its global-weight form ({tag})")
+    return e
+
+
+def wide_part_parity(dev, traj_b) -> dict:
+    """(g) Each global-weight form against its plain twin at WIDE_PART_HIDS
+    (``padded_trunk(..., seed=0)``), P=128 antithetic: the traj problem
+    without the options (the whole solve at a fixed 5 iterations, rtol 2e-4 /
+    atol 2e-5, equal steps; ``value_batch`` K = 1, 4 at 2e-5;
+    ``value_and_grad`` 5e-4 / 5e-5), with risk and starts (phase 23's
+    tolerances: values 5e-4), the bf16 forms against their plain bf16 twins
+    (phase 28's BF16_TOL) and the altitude floor's penalty form; at 256 units
+    the shared-moments forms and B = 4 scenarios in one launch, each bit-equal
+    to its solo launch. The whole solve takes its global-weight form by
+    shape at both widths; the oracles of the checks against the plain twin
+    name it in ``ApgArgs.step`` (``value_batch`` keeps its shared-memory form by
+    shape to 224 units). Returns max |err| per kernel."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import (constrained_plans, constrained_problem,
+                                                       padded_trunk)
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_GLOBAL
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+
+    P = WIDE_PART_P
+    err = {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0}
+    err16 = {k: {} for k in err}     # the bf16 forms', per metric, against their plain twins
+
+    def worst16(kernel: str, metrics: dict) -> None:
+        for m, v in metrics.items():
+            err16[kernel][m] = max(err16[kernel].get(m, 0.0), v)
+
+    fl = floor_mpc(floor_config(), dev)[3]
+    for hid in WIDE_PART_HIDS:
+        for case, b in (("traj", traj_b), ("floor", fl)):
+            params = padded_trunk(b.params, hid, seed=0)
+            if case == "traj":
+                x0, x_ref, u_prev, u_init = problem(b, dev)
+                lb, ub, U = b.lb, b.ub, plans(4, hid, dev)
+            else:
+                x0, x_ref, u_prev, u_init = constrained_problem(b)
+                lb, ub, U = b.lb_z, b.ub_z, constrained_plans(b, 4, hid)
+            z = brownian(P, dev, antithetic=True, seed=hid)
+            apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+            for opts in (((), ("risk", "starts")) if case == "traj" else ((),)):
+                cp, starts = with_options(b, opts, x0, P, dev, seed=hid)
+                tag = (f"{hid} units, {case}{', ' + ' and '.join(opts) if opts else ''}, "
+                       f"P={P} antithetic")
+                args = (b.model, params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P, lb,
+                        ub, u_init)
+                r = wide_part_solve(b, params, args, tag, starts=starts)
+                err["apg_solve"] = max(err["apg_solve"], r["du"])
+                oargs = (b.model, params, cp, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+                e = wide_part_oracle(lambda: CO.cost_oracle(*oargs, starts=starts),
+                                     CO.cost_oracle_plain(*oargs, starts=starts), U, tag,
+                                     5e-4 if opts else 2e-5)
+                for k, v in e.items():
+                    err[k] = max(err[k], v)
+                if case == "traj" and not opts:
+                    worst16("apg_solve", wide_part_solve(b, params, args, tag + ", bf16",
+                                                         bf16=True)["bf16_err"])
+                    with forced(P1_GLOBAL):
+                        trio = (CO.cost_oracle(*oargs, bf16=True), CO.cost_oracle(*oargs),
+                                CO.cost_oracle_plain(*oargs, bf16=True))
+                    u1 = U[1].contiguous()
+                    k16, k32, p16 = ({"value": v, "grad": g}
+                                     for v, g in (o.value_and_grad(u1) for o in trio))
+                    worst16("value_and_grad", _bf16_compare(
+                        f"value_and_grad {tag}", k16, p16, k32, BF16_TOL["value_and_grad"])["err"])
+                    for K in (1, 4):
+                        k16, k32, p16 = ({"cost": o.value_batch(U[:K])} for o in trio)
+                        worst16("value_batch", _bf16_compare(
+                            f"value_batch {tag}, K={K}", k16, p16, k32,
+                            BF16_TOL["value_batch"])["err"])
+
+    # the shared-moments forms and the scenario axis, at 256 units
+    b, hid = traj_b, WIDE_PART_HIDS[-1]
+    params = padded_trunk(b.params, hid, seed=0)
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    B, m, cp = OPTION_B, b.model, b.cost_params
+    X0 = x0.expand(B, 13).clone()
+    X0[:, 0] += 0.1 * torch.arange(B, device=dev)
+    XR, UP = x_ref.expand(B, *x_ref.shape).contiguous(), u_prev.expand(B, -1).contiguous()
+    UI = u_init.expand(B, *u_init.shape).contiguous()
+    Z = torch.stack([brownian(P, dev, antithetic=True, seed=hid + i) for i in range(B)])
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    st_b, xe_b = AK.apg_solve_kernel_batched(m, params, cp, apg, b.time_steps, X0, XR, UP, Z, P,
+                                             b.lb, b.ub, UI, precond=b.precond)
+    ob = CO.cost_oracle_batched(m, params, cp, b.time_steps, X0, XR, UP, Z, P, 4)
+    U = plans(4, 7, dev)
+    UB = U.expand(B, *U.shape).contiguous()
+    vb, (vg, gg) = ob.value_batch(UB), ob.value_and_grad(UB[:, 0].contiguous())
+    bad = []
+    for i in range(B):
+        st_1, xe_1 = AK.apg_solve_kernel(m, params, cp, apg, b.time_steps, X0[i], XR[i], UP[i],
+                                         Z[i], P, b.lb, b.ub, UI[i], precond=b.precond)
+        o1 = CO.cost_oracle(m, params, cp, b.time_steps, X0[i], XR[i], UP[i], Z[i], P, 4)
+        v1, g1 = o1.value_and_grad(UB[i, 0])
+        if not (torch.equal(st_1.yk, st_b.yk[i]) and torch.equal(xe_1, xe_b[i])
+                and torch.equal(o1.value_batch(UB[i]), vb[i]) and torch.equal(v1, vg[i])
+                and torch.equal(g1, gg[i])):
+            bad.append(i)
+    torch.cuda.synchronize()
+    log(f"wide particles {hid} units, B={B} scenarios in one launch of each global-weight "
+        f"form: {B - len(bad)} bit-equal to their solo launches")
+    if bad:
+        raise AssertionError(f"the global-weight forms' scenario axis is wrong: {bad}")
+    cpr, starts = with_options(b, ("risk", "starts"), x0, P, dev, seed=hid)
+    st1 = starts[None].expand(B, *starts.shape).contiguous()
+    oa = (m, params, cpr, b.time_steps, X0[:1], XR[:1], UP[:1], Z[:1], P, 4)
+    ok_, op_ = (CO.cost_oracle_batched(*oa, starts=st1[:1]),
+                CO.cost_oracle_plain_batched(*oa, starts=st1[:1]))
+    # the moments-in form weighs the rows with plan U[2]'s own mean and std
+    t2 = op_.value_batch_moments(U[None, 2:3])[0, 0]
+    mom = torch.stack([t2[1], torch.sqrt(t2[2] + 1e-12)])[None].contiguous()
+    (tk, vk, _), (tp, vp, _) = (moment_metrics(o, U, U[2], mom) for o in (ok_, op_))
+    rel = {k: _rel(tk[k], tp[k]) for k in tk}
+    rel["value"] = _rel(vk["value"], vp["value"])
+    dg = _scaled(vk["grad"], vp["grad"])
+    log(f"wide particles {hid} units, the shared-moments forms (risk and starts, P={P}) "
+        f"against the plain twin: moments out and in values rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (5e-4); moments in grad "
+        f"max|d| over max|g| {dg:.3e} (rtol 5e-4 / atol 5e-5)")
+    if not (max(rel.values()) <= 5e-4
+            and torch.allclose(vk["grad"], vp["grad"], rtol=5e-4, atol=5e-5)):
+        raise AssertionError("a global-weight shared-moments form disagrees with its plain twin")
+    err["bf16"] = err16
+    return err
+
+
+def wide_part_bits(dev, traj_b, card: str) -> dict:
+    """(g) At 128 units (the shared-memory forms' trunk) the global-weight
+    forms, named in ``ApgArgs.step``, against the shared-memory forms
+    on the same chunk: the P=512 antithetic whole solve at a fixed 5
+    iterations (fp32, bf16, with risk and starts), ``value_batch`` K = 1, 4
+    and ``value_and_grad``, bit for bit; each timed in both forms (the cost
+    of the weights in device memory). Then the shipped trunk zero-padded to
+    256 units (the same function) on the global-weight form against the
+    64-unit solve on the shared-memory form at the fixed-budget tolerance,
+    equal steps."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_GLOBAL, P1_SMEM
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+
+    b, hid, P = traj_b, WIDE_HID, P_FULL
+    params = padded_trunk(b.params, hid, seed=0)
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    z = brownian(P, dev, antithetic=True, seed=0)
+    chunk = part_chunk(b, params, P, dev)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    cpr, starts = with_options(b, ("risk", "starts"), x0, P, dev, seed=1)
+    U, u = plans(4, 11, dev), plans(1, 12, dev)[0].contiguous()
+    out, ms = {}, {}
+    for tag, cp, st0, bf16 in (("fp32", b.cost_params, None, False),
+                               ("fp32, risk and starts", cpr, starts, False),
+                               ("bf16", b.cost_params, None, True)):
+        args = (b.model, params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P, b.lb, b.ub,
+                u_init)
+        oargs = (b.model, params, cp, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+        res = {}
+        for step in (P1_SMEM, P1_GLOBAL):
+            g0 = global_counts()
+            with forced(step):
+                st, _ = AK.apg_solve_kernel(*args, precond=b.precond, chunk=chunk, starts=st0,
+                                            bf16=bf16)
+                o = CO.cost_oracle(*oargs, chunk=chunk, starts=st0, bf16=bf16)
+                res[step] = (st.yk, st.num_steps, st.grad_sqr, o.value_batch(U[:1]),
+                             o.value_batch(U), *o.value_and_grad(u))
+                t_solve = time_fixed(AK, args, b.precond, n_kernel=3, n_plain=0, chunk=chunk,
+                                     starts=st0, bf16=bf16)[0]
+                t_vb = per_launch_ms(lambda: o.value_batch(U[:1]), 10)
+                t_vg = per_launch_ms(lambda: o.value_and_grad(u), 10)
+            torch.cuda.synchronize()
+            took = {k: v - g0[k] for k, v in global_counts().items()}
+            if any(bool(v) != (step == P1_GLOBAL) for v in took.values()):
+                raise AssertionError(f"a forced particle form was not taken: {took} ({tag})")
+            ms[(tag, step)] = {"apg_solve_5it": t_solve, "value_batch_K1": t_vb,
+                               "value_and_grad": t_vg}
+        same = all(torch.equal(x, y) for x, y in zip(res[P1_SMEM], res[P1_GLOBAL]))
+        sm, gw = ms[(tag, P1_SMEM)], ms[(tag, P1_GLOBAL)]
+        log(f"wide particles {hid} units ({card}), {tag}, P={P} antithetic in chunks of "
+            f"{chunk}: the global-weight forms against the shared-memory forms, bit-equal "
+            f"(whole solve, value_batch K=1,4, value_and_grad): {same}; ms shared / global: "
+            + "; ".join(f"{k} {sm[k]:.4f} / {gw[k]:.4f} ({gw[k] / sm[k]:.2f}x)" for k in sm))
+        if not same:
+            raise AssertionError(f"the global-weight forms move the bits ({tag})")
+        out[tag] = {"shared_ms": sm, "global_ms": gw}
+
+    # the zero-padded trunk is the shipped function
+    args = lambda prm: (b.model, prm, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P,
+                        b.lb, b.ub, u_init)
+    st_c, xe_c = AK.apg_solve_kernel(*args(b.params), precond=b.precond)
+    g0 = global_counts()["apg_solve"]
+    st_w, xe_w = AK.apg_solve_kernel(*args(padded_trunk(b.params, 256)), precond=b.precond)
+    torch.cuda.synchronize()
+    du = float((st_w.yk - st_c.yk).abs().max())
+    steps = (int(st_w.num_steps), int(st_c.num_steps))
+    log(f"wide particles: the shipped trunk zero-padded to 256 units (global-weight form) "
+        f"against the shipped 64 units, P={P} antithetic, fixed 5 iterations: steps {steps}, "
+        f"max|du| {du:.3e}, x_evol max|dx| {float((xe_w - xe_c).abs().max()):.3e} (rtol 2e-4, "
+        f"atol 2e-5)")
+    if not (global_counts()["apg_solve"] == g0 + 1 and steps[0] == steps[1]
+            and torch.allclose(st_w.yk, st_c.yk, rtol=2e-4, atol=2e-5)
+            and torch.allclose(xe_w, xe_c, rtol=2e-4, atol=2e-5)):
+        raise AssertionError("the zero-padded 256-unit trunk moves the particle solve")
+    out["padded_du"], out["padded_steps"] = du, steps
+    return out
+
+
+def wide_part_routes(dev, ckpt: str, card: str) -> dict:
+    """(g) The slice's path on the 256-unit checkpoint (``padded_trunk(...,
+    256, seed=0)``): ``configs/iris_traj_mpc.yaml`` at P=512 antithetic
+    through ``load_mpc_from_cfgfile`` -> ``mpc_fn`` (the bf16 trunk by
+    default above 128 particles), WIDE_PART_SOLVES chained solves, then the
+    same at ``matmul_precision: highest``; a ``RecedingHorizonController``
+    on it with ``deadline_ms: 30`` (``p512anti_dl30``, ``bench.py:514-521``)
+    for WIDE_PART_SOLVES traj ticks; the altitude floor at P=128 (the
+    penalty form, fp32) through ``mpc_fn``; the fixed-step posctrl route at
+    P=512, one solve. Each route's launches checked (zeroed just before it),
+    its global-weight launches among them; ms per solve and per iteration
+    (CUDA events around each whole-solve launch)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine import goldens as G
+    from sde4mbrl_px4_tpu_torch.engine.controller import RecedingHorizonController
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+
+    out, n = {}, WIDE_PART_SOLVES
+    paths = {}
+    for tag, cfg in (
+            ("bf16", config("iris_traj_mpc", particles=P_FULL)),
+            ("highest", config("iris_traj_mpc", particles=P_FULL)),
+            ("dl30", config("iris_traj_mpc", particles=P_FULL, deadline_ms=30.0)),
+            ("pos", config("iris_posctrl_mpc"))):
+        cfg["learned_model_params"] = ckpt
+        if tag == "highest":
+            cfg["matmul_precision"] = "highest"
+        path = os.path.join(ROOT, "build", "chip_smoke", f"iris_{tag}_h256_p{P_FULL}.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump({k: v for k, v in cfg.items() if not k.startswith("_")}, f)
+        paths[tag] = path
+
+    for tag in ("bf16", "highest"):
+        cfg, (reset_fn, mpc_fn), sft, b = load_mpc_from_cfgfile(paths[tag], device=dev)
+        if tuple(b.params["net"]["w1"].shape) != (256, 256):
+            raise AssertionError("the 256-unit checkpoint did not load")
+        dt, t0 = float(cfg["_time_steps"][0]), 3.0
+        x = enu2ned(sft(np.float32(t0)))
+        gen = torch.Generator().manual_seed(0)
+        st = reset_fn(x, gen, x)
+        events, steps = [], []
+        zero_counts()
+        with routed("apg_solve_kernel", event_timed(events)):
+            for k in range(n):
+                u, st, gen, x_evol = mpc_fn(x, gen, st, np.float32(t0 + k * dt), x)
+                steps.append(int(st.num_steps))
+                x = x_evol[1]
+                if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(x_evol).all())):
+                    raise AssertionError(f"the 256-unit P={P_FULL} solve {k} is not finite")
+        torch.cuda.synchronize()
+        half = n if tag == "bf16" else 0
+        got = check_route(f"256-unit P={P_FULL} {tag}", {
+            "apg_solve": n, "value_batch": 0, "value_and_grad": 0, "trajectory": n},
+            {"apg_solve": half, "value_batch": 0, "value_and_grad": 0})
+        glob = global_counts()
+        if glob["apg_solve"] != n:
+            raise AssertionError(f"the 256-unit P={P_FULL} route left the global-weight form")
+        dev_ms = [a.elapsed_time(e) for a, e in events]
+        out[tag] = {"launches": got, "global_launches": glob["apg_solve"], "steps": steps,
+                    "device_ms": dev_ms,
+                    "iteration_ms": statistics.median(d / max(s, 1)
+                                                      for d, s in zip(dev_ms, steps))}
+        log(f"256-unit checkpoint, iris_traj_mpc P={P_FULL} antithetic, {tag} trunk ({card}): "
+            f"{n} chained solves through mpc_fn at {steps} iterations, device ms per solve "
+            f"{[round(v, 3) for v in dev_ms]}, {out[tag]['iteration_ms']:.3f} ms an iteration "
+            f"p50; launches {got}, global-weight {glob['apg_solve']}")
+
+    c = RecedingHorizonController(paths["dl30"], paths["pos"], seed=0, now_fn=lambda: 0.0,
+                                  device=dev)
+    traj0, pos0 = c.traj.solves, c.pos.solves
+    records = recording(c)
+    zero_counts()
+    cmds, _ = G.replay_traj(c, n=n)
+    torch.cuda.synchronize()
+    n_traj, n_pos = c.traj.solves - traj0, c.pos.solves - pos0
+    got = check_route(f"256-unit P={P_FULL} controller, deadline_ms 30", {
+        "apg_solve": n_traj + n_pos, "value_batch": 0, "value_and_grad": 0,
+        "trajectory": n_traj}, {"apg_solve": n_traj, "value_batch": 0, "value_and_grad": 0})
+    dl_steps = [r.num_steps for r in records]
+    out["dl30"] = {"launches": got, "global_launches": global_counts()["apg_solve"],
+                   "steps": dl_steps, "solve_ms": [r.solve_time * 1e3 for r in records]}
+    log(f"RecedingHorizonController on the 256-unit checkpoint, P={P_FULL} antithetic with "
+        f"deadline_ms 30 ({card}): {n_traj} traj ticks at {dl_steps} iterations, solve ms "
+        f"{[round(v, 2) for v in out['dl30']['solve_ms']]}; u0 "
+        f"{np.array2string(cmds[-1, :4], precision=4)}")
+    if not (n_traj == n and np.isfinite(cmds).all()
+            and out["dl30"]["global_launches"] == n_traj):
+        raise AssertionError("the controller did not fly the 256-unit P=512 checkpoint")
+
+    def floor_make(cfg, dev):
+        return floor_mpc(cfg, dev)
+
+    fcfg = floor_config()
+    fcfg["learned_model_params"] = ckpt
+    events = []
+    zero_counts()
+    with routed("apg_solve_kernel", event_timed(events)):
+        rows, fms = chain(fcfg, dev, n, make=floor_make)
+    torch.cuda.synchronize()
+    got = check_route(f"256-unit altitude floor P={P_FLOOR}", {
+        "apg_solve": n, "value_batch": 0, "value_and_grad": 0, "trajectory": n},
+        {"apg_solve": 0, "value_batch": 0, "value_and_grad": 0})
+    fsteps = rows[:, -1].astype(int).tolist()
+    dev_ms = [a.elapsed_time(e) for a, e in events]
+    out["floor"] = {"launches": got, "global_launches": global_counts()["apg_solve"],
+                    "steps": fsteps, "device_ms": dev_ms, "wall_ms": fms,
+                    "iteration_ms": statistics.median(d / max(s, 1)
+                                                      for d, s in zip(dev_ms, fsteps))}
+    log(f"256-unit altitude floor (penalty form, P={P_FLOOR} antithetic, fp32) through mpc_fn "
+        f"({card}): {n} chained solves at {fsteps} iterations, device ms per solve "
+        f"{[round(v, 3) for v in dev_ms]}, {out['floor']['iteration_ms']:.3f} ms an iteration "
+        f"p50; global-weight launches {out['floor']['global_launches']}")
+    if not (np.isfinite(rows).all() and out["floor"]["global_launches"] == n):
+        raise AssertionError("the 256-unit floor route did not fly its global-weight form")
+
+    scfg = config("iris_posctrl_mpc", particles=P_FULL, linesearch=None,
+                  stepsize=FIXED_STEP["iris_posctrl_mpc"])
+    scfg["learned_model_params"] = ckpt
+    zero_counts()
+    rows, sms = chain(scfg, dev, 1)
+    torch.cuda.synchronize()
+    k = int(rows[0, -1])
+    got = check_route(f"256-unit fixed-step P={P_FULL}", {
+        "apg_solve": 0, "value_batch": k, "value_and_grad": k + 2, "trajectory": 1},
+        {"apg_solve": 0, "value_batch": k, "value_and_grad": k + 2})
+    glob = global_counts()
+    out["fixed_step"] = {"launches": got, "global_launches": glob, "steps": k,
+                         "wall_ms": sms[0], "iteration_ms": sms[0] / max(k, 1)}
+    log(f"256-unit fixed-step posctrl P={P_FULL} antithetic (bf16) through mpc_fn ({card}): "
+        f"one solve of {k} iterations, {sms[0]:.1f} ms wall ({sms[0] / max(k, 1):.3f} ms an "
+        f"iteration); global-weight launches {glob}")
+    if not (np.isfinite(rows).all() and glob["value_and_grad"] == k + 2
+            and glob["value_batch"] == k):
+        raise AssertionError("the 256-unit fixed-step route left the global-weight forms")
+    return out
+
+
+def wide_part_times(dev, ckpt: str, card: str) -> dict:
+    """(g) The global-weight forms timed on the 256-unit checkpoint at the
+    routes' shapes (P=512 antithetic; CUDA events, warm), beside their plain
+    twins and bounds, each instantiation apart: the whole solve at a fixed 5
+    iterations in fp32 (the ``highest`` flagship's and the floor's form) and
+    bf16 (the default flagship's and the controller's); ``value_batch`` K = 1
+    and 4 and ``value_and_grad`` in bf16 (the fixed-step P=512 route's form;
+    their fp32 forms' kernel times beside them). The bf16 forms' bounds on
+    the bf16 tensor-core peak too (``bound_tc``)."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    cfg = config("iris_traj_mpc")
+    cfg["learned_model_params"] = ckpt
+    b = make_mpc_from_config(cfg, device=dev)[3]
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P_FULL,
+            b.lb, b.ub, u_init)
+    nc = n_consts(b, dev)
+    out = {"bundle": b, "n_consts": nc}
+    st = AK.apg_solve_kernel(*args, precond=b.precond)[0]
+    iters = int(st.num_steps)
+    out["apg_solve"] = time_fixed(AK, args, b.precond, n_kernel=3, n_plain=1)
+    out["apg_solve_bf16"] = time_fixed(AK, args, b.precond, n_kernel=3, n_plain=1, bf16=True)
+    out["apg_solve_bound"] = bound(b, "apg_solve", nc, P=P_FULL, K=4, iters=iters)
+    out["apg_solve_bound_tc"] = bound(b, "apg_solve", nc, tc=True, P=P_FULL, K=4, iters=iters)
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, z, P_FULL, 4)
+    k16, p16 = CO.cost_oracle(*oargs, bf16=True), CO.cost_oracle_plain(*oargs, bf16=True)
+    k32 = CO.cost_oracle(*oargs)
+    U, u = plans(4, 13, dev), plans(1, 14, dev)[0].contiguous()
+    for name, call, shape in (
+            ("value_batch", lambda o: o.value_batch(U[:1]), dict(P=P_FULL, K=1)),
+            ("value_batch_K4", lambda o: o.value_batch(U), dict(P=P_FULL, K=4)),
+            ("value_and_grad", lambda o: o.value_and_grad(u), dict(P=P_FULL))):
+        kind = "value_and_grad" if name == "value_and_grad" else "value_batch"
+        out[name] = (per_launch_ms(lambda: call(k16), 5), per_launch_ms(lambda: call(p16), 2),
+                     bound(b, kind, nc, **shape), bound(b, kind, nc, tc=True, **shape))
+        out[name + "_fp32"] = per_launch_ms(lambda: call(k32), 5)
+    log(f"the global-weight forms on the 256-unit trunk, P={P_FULL} antithetic ({card}): "
+        f"whole solve ({iters} iterations) fp32 kernel {out['apg_solve'][0]:.3f} ms, plain "
+        f"{out['apg_solve'][1]:.1f} ms; bf16 kernel {out['apg_solve_bf16'][0]:.3f} ms, plain "
+        f"{out['apg_solve_bf16'][1]:.1f} ms; bound {out['apg_solve_bound'][0]:.5f} ms "
+        f"({out['apg_solve_bound'][1]}), on bf16 tensor cores "
+        f"{out['apg_solve_bound_tc'][0]:.5f} ms; per launch, bf16 kernel / plain bf16 / bound / "
+        f"tensor-core bound (fp32 kernel): " + "; ".join(
+            f"{k} {out[k][0]:.4f} / {out[k][1]:.3f} / {out[k][2][0]:.5f} / {out[k][3][0]:.6f} ms "
+            f"({out[k + '_fp32']:.4f} ms)"
+            for k in ("value_batch", "value_batch_K4", "value_and_grad")))
+    return out
+
+
+def wide_particles(dev, traj_b, ckpt: str, card: str) -> dict:
+    """(g) the particle forms of #1-#3 past their shared memory."""
+    t = time.perf_counter()
+    out = {"parity": wide_part_parity(dev, traj_b), "bits": wide_part_bits(dev, traj_b, card),
+           "routes": wide_part_routes(dev, ckpt, card), "times": wide_part_times(dev, ckpt, card)}
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 30 (g) took {out['wall_s']:.1f} s")
     return out
 
 
 def phase_wide(dev, card: str) -> dict:
-    """Phase 30, the P=1 kernels on any trunk width (module docstring)."""
+    """Phase 30, the kernels on any trunk width: the P=1 forms (a-e), the
+    particle forms' widths (f) and their global-weight forms (g) (module
+    docstring)."""
     import tempfile
 
     traj_b = make_bundle("iris_traj_mpc", dev)
@@ -6552,6 +7134,7 @@ def phase_wide(dev, card: str) -> dict:
         out["flagship"] = wide_flagship(dev, ckpts[WIDE_HID], card)
         out["routes"] = wide_routes(dev, ckpts, card)
         out["global"] = wide_global(dev, ckpts[256], card)
+        out["particles"] = wide_particles(dev, traj_b, ckpts[256], card)
     out["ceiling"] = particle_ceiling(dev, traj_b, card)
     out["wall_s"] = time.perf_counter() - t
     log(f"phase 30 took {out['wall_s']:.1f} s")
@@ -6663,10 +7246,13 @@ def main() -> int:
         "with risk and starts, on the shared-moments forms), and a launch.py world of two "
         "serves and stops cleanly")
     wide = phase_wide(dev, card)
-    log("phase 30: the P=1 kernels on any trunk width: every new form of #1-#4 matches its "
+    log("phase 30: the kernels on any trunk width: every P=1 form of #1-#4 matches its "
         "plain twin at 32, 72, 128 and 256 units in every constraint form and on the scenario "
         "axis, the zero-padded trunk matches the register chain, the 128-unit flagship flies "
-        "through the entry points, and every P=1 route flies every width")
+        "through the entry points, and every P=1 route flies every width; the particle forms "
+        "plan every width to 2048 units, their global-weight forms match their plain twins at "
+        "152 and 256 units and the shared-memory forms bit for bit at 128, and the 256-unit "
+        "checkpoint flies the P=512 flagship and the P=128 floor")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -7159,6 +7745,65 @@ def main() -> int:
             w256[name], wp["err"][name], gl[name][0], gl[name][1],
             bound(gl["bundle"], name, nc_g, K=K), timed="per launch"
             + (", K=1" if name == "value_batch" else ""), **gextra))
+    # phase 30 (g): the particle global-weight forms of #1-#3, a row per
+    # instantiation, its launches from the slice's routes on the 256-unit
+    # checkpoint that run it: the fp32 whole solve (the P=512 flagship at
+    # highest, the P=128 floor), the bf16 whole solve (the P=512 flagship at
+    # its default precision, the deadline controller), the bf16 oracle forms
+    # (the fixed-step P=512 route)
+    wpp = wide["particles"]
+    rts, tms, bits = wpp["routes"], wpp["times"], wpp["bits"]
+    gsrc = "sde4mbrl_px4_tpu_torch/csrc/"
+    e16 = wpp["parity"]["bf16"]
+    bf16_is = ("the largest of err_by_metric, against the plain bf16 twin at 152 and 256 units "
+               "(phase 30 (g))")
+    kernels += [
+        entry("apg_solve", f"particles, global weights (any trunk width), fp32 trunk: the "
+              f"256-unit P={P_FULL} antithetic flagship at matmul_precision highest and the "
+              f"P={P_FLOOR} floor",
+              rts["highest"]["global_launches"] + rts["floor"]["global_launches"],
+              wpp["parity"]["apg_solve"], tms["apg_solve"][0], tms["apg_solve"][1],
+              tms["apg_solve_bound"], source=gsrc + "apg_solve_gw.cu",
+              timed=f"fixed 5-iteration P={P_FULL} antithetic solve on the 256-unit trunk, "
+                    f"fp32, CUDA events",
+              max_abs_err_is="max |du| against the plain twin at 152 and 256 units (phase 30 "
+                             "(g))",
+              iteration_ms_P512_highest=rts["highest"]["iteration_ms"],
+              iteration_ms_P128_floor=rts["floor"]["iteration_ms"],
+              solve_ms_P512_highest=rts["highest"]["device_ms"],
+              solve_ms_P128_floor=rts["floor"]["device_ms"],
+              steps_P512_highest=rts["highest"]["steps"], steps_P128_floor=rts["floor"]["steps"],
+              shared_vs_global_128={k: v for k, v in bits.items() if isinstance(v, dict)}),
+        entry("apg_solve", f"particles, global weights (any trunk width), bf16 trunk: the "
+              f"256-unit P={P_FULL} antithetic flagship at its default precision and its "
+              f"deadline_ms 30 controller",
+              rts["bf16"]["global_launches"] + rts["dl30"]["global_launches"],
+              max(e16["apg_solve"].values()), tms["apg_solve_bf16"][0],
+              tms["apg_solve_bf16"][1], tms["apg_solve_bound"],
+              source=gsrc + "apg_solve_gw_bf16.cu",
+              bound_tc_ms=tms["apg_solve_bound_tc"][0],
+              timed=f"fixed 5-iteration P={P_FULL} antithetic solve on the 256-unit trunk, "
+                    f"bf16, CUDA events",
+              max_abs_err_is=bf16_is, err_by_metric=e16["apg_solve"],
+              fp32_form_ms=tms["apg_solve"][0],
+              iteration_ms_P512_bf16=rts["bf16"]["iteration_ms"],
+              solve_ms_P512_bf16=rts["bf16"]["device_ms"], steps_P512_bf16=rts["bf16"]["steps"],
+              steps_dl30=rts["dl30"]["steps"], solve_ms_dl30=rts["dl30"]["solve_ms"])]
+    for name in ("value_batch", "value_and_grad"):
+        extra = {"ms_K4": tms["value_batch_K4"][0], "plain_ms_K4": tms["value_batch_K4"][1],
+                 "bound_ms_K4": tms["value_batch_K4"][2][0],
+                 "bound_tc_ms_K4": tms["value_batch_K4"][3][0],
+                 "fp32_form_ms_K4": tms["value_batch_K4_fp32"]} if name == "value_batch" else {}
+        kernels.append(entry(
+            name, f"particles, global weights, bf16 trunk: the 256-unit fixed-step P={P_FULL} "
+                  f"route", rts["fixed_step"]["global_launches"][name],
+            max(e16[name].values()), tms[name][0], tms[name][1], tms[name][2],
+            source=gsrc + "cost_oracle_gw.cu", bound_tc_ms=tms[name][3][0],
+            timed=f"per launch{', K=1' if name == 'value_batch' else ''}, P={P_FULL} "
+                  f"antithetic, bf16, on the 256-unit trunk",
+            max_abs_err_is=bf16_is, err_by_metric=e16[name],
+            fp32_form_ms=tms[name + "_fp32"], fp32_form_max_abs_err=wpp["parity"][name],
+            route_iteration_ms=rts["fixed_step"]["iteration_ms"], **extra))
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -7218,7 +7863,10 @@ def main() -> int:
                  "padded": wp["padded"], "err": wp["err"],
                  "smem": {f"{h} {f}": v for (h, f), v in wp["smem"].items()},
                  "batched": wide["batched"], "routes": wide["routes"],
-                 "particle_ceiling_P512": wide["ceiling"], "wall_s": wide["wall_s"]}}}))
+                 "particle_widths": wide["ceiling"], "wall_s": wide["wall_s"],
+                 "particles": {"routes": rts, "bits": bits,
+                               "times": {k: v for k, v in tms.items() if k != "bundle"},
+                               "wall_s": wpp["wall_s"]}}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

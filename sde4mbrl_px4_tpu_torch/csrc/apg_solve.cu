@@ -98,6 +98,19 @@
 // 48 KB default, so the constrained P=1 forms take dynamic shared memory
 // above it too (set once per library load by apg_init).
 //
+// Trunks past the particle form's shared memory (apg_solve.cuh, part_form;
+// past 144 units at P=512 on the iris configs, whose trunk and transposes
+// take 196 KB of the block's 227 KB): the global-weight form apg_solve_kernel<
+// true, SC, false, true, BF, P1_GLOBAL> reads the weights in place from
+// scenario 0's consts in device memory (sweeps.cuh, GW; 290 KB at 256 units,
+// L2-resident), keeps no transposes and copies only the consts before the
+// trunk, so the block's shared memory holds the chunk's rows alone and any
+// width up to thousands of units plans a chunk. Only the options form is
+// instantiated (risk and starts its runtime branches, off without them), in
+// libraries of their own (apg_solve_gw.cu, apg_solve_gw_bf16.cu), built in
+// parallel. It is planned only where no chunk fits the shared-memory form,
+// and gives its bits wherever both run.
+//
 // The particle options (sweeps.cuh, Risk): with a.risk the vg sweep and the
 // candidates price mean + lambda * std of the particles' discounted totals
 // (cost_params.risk_lambda; the TPU package sends it to XLA,
@@ -164,11 +177,18 @@
 #ifndef APG_P1S
 #define APG_P1S 0
 #endif
+// 1: a library of the particle forms' global-weight forms (apg_solve_gw.cu,
+// with APG_BF16 apg_solve_gw_bf16.cu)
+#ifndef APG_GW
+#define APG_GW 0
+#endif
 // This library's forms: the register chain and the fp32 particle forms
-// (apg_solve.cu), the bf16 particle forms (apg_solve_bf16.cu) or the P=1
-// shared-memory step (apg_solve_p1.cu); nvcc builds the three in parallel.
-#define APG_CHAIN_LIB (!APG_BF16 && !APG_P1S)
-#define APG_PART_LIB (!APG_P1S)
+// (apg_solve.cu), the bf16 particle forms (apg_solve_bf16.cu), the P=1
+// shared-memory step (apg_solve_p1.cu) or the particle global-weight forms
+// of one precision (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc builds the
+// five in parallel.
+#define APG_CHAIN_LIB (!APG_BF16 && !APG_P1S && !APG_GW)
+#define APG_PART_LIB (!APG_P1S && !APG_GW)
 
 namespace {
 
@@ -201,9 +221,11 @@ struct Scal {
 // step is the P=1 form (P1_*; the kernel's template constant): the register
 // chain keeps a row's state, features, outputs and cotangents in registers,
 // the shared-memory step keeps them here, P1_GLOBAL without the trunk's
-// weights in the consts copy. risk: the risk buffers (a constant false in
-// the forms without the options, so their layout compiles as it did
-// without them).
+// weights in the consts copy. With part, step P1_GLOBAL is the global-weight
+// form (no weights and no transposes here, the reverse cotangents at row
+// stride tiled_ld: sweeps.cuh, bwd_rows), any other the shared-memory form.
+// risk: the risk buffers (a constant false in the forms without the options,
+// so their layout compiles as it did without them).
 __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Smem* s,
                                       float* base, int step) {
   const int HZ = a.H * a.nZ;
@@ -211,6 +233,8 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
   const int ldh = part ? tiled_ld(a) : a.HID;  // hidden row stride (tiled candidates)
   const bool rows = part || step != P1_CHAIN;  // row buffers in shared memory
+  const bool gw = step == P1_GLOBAL;           // the weights in device memory
+  const int ldc = part && gw ? tiled_ld(a) : a.HID;   // reverse cotangents' row stride
   int o = 0;
   auto take = [&](float** p, int n) {
     if (!part) o = (o + 3) & ~3;
@@ -219,7 +243,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
   };
   Smem d = {};
   Smem* t = s ? s : &d;
-  take(&t->c, !part && step == P1_GLOBAL ? a.o_w0 : a.n_consts);
+  take(&t->c, gw ? a.o_w0 : a.n_consts);
   take(&t->D, HZ); take(&t->u, HZ); take(&t->y, HZ); take(&t->bu, HZ);
   take(&t->g, HZ); take(&t->yp, HZ); take(&t->gp, HZ);
   take(&t->cand, a.K * HZ);
@@ -238,14 +262,16 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
   if (rows) take(&t->ct, B * 13);
   take(&t->cu, B * a.nZ);
   if (rows) take(&t->c_h2, B * a.OUT);
-  take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+  take(&t->c_h1p, B * ldc); take(&t->c_h0p, B * ldc);
   if (rows) take(&t->c_feat, B * a.F);
   take(&t->red, 32);
   if (part) {
     const int np = risk ? 3 : 2;              // the partial means (risk: + totals)
     take(&t->cacc, np * a.K);
-    take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
-    take(&t->w2t, a.OUT * a.HID);
+    if (!gw) {
+      take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
+      take(&t->w2t, a.OUT * a.HID);
+    }
     // the chunk partials of this block (vg: gradient and 2 costs, + the
     // totals' mean with risk; the K candidates' 2K or 3K means)
     take(&t->pg, a.chunks_per_block * (HZ + np));
@@ -263,10 +289,12 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
 // particle form) and writes the per-phase cycle sums and the solve's cycles
 // to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
 // last rank (both from the one block at P=1); each row's last entry is the
-// block's rank. BF (particles only): the bf16 trunk. STEP (P=1 only): the
-// P=1 form (P1_*): the register chain, or the shared-memory step on any
-// trunk (sweeps.cuh, vg_smem / cand_smem; P1_GLOBAL with the weights read
-// from scenario 0's consts in device memory).
+// block's rank. BF (particles only): the bf16 trunk. STEP: at P=1 the P=1
+// form (P1_*): the register chain, or the shared-memory step on any trunk
+// (sweeps.cuh, vg_smem / cand_smem; P1_GLOBAL with the weights read from
+// scenario 0's consts in device memory); with particles P1_CHAIN (the
+// default: the weights in the block's consts copy) or P1_GLOBAL, the global-
+// weight form (apg_solve.cuh, part_form; its options form only).
 template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false,
           int STEP = P1_CHAIN>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
@@ -276,7 +304,9 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ starts, float* __restrict__ yk,
                  float* __restrict__ stats, float* __restrict__ x_evol,
                  long long* __restrict__ prof_out) {
-  static_assert(!PART || STEP == P1_CHAIN, "the P=1 forms are a P=1 template");
+  static_assert(!PART || STEP == P1_CHAIN || (STEP == P1_GLOBAL && OPT && !PROF),
+                "a particle form reads its weights in shared memory or, the options form, "
+                "in device memory");
   static_assert(STEP == P1_CHAIN || !PROF, "the clock stamps are the register chain's");
   constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 shared-memory step
   constexpr bool GW = STEP == P1_GLOBAL;
@@ -322,21 +352,26 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     if constexpr (OPT)
       my_starts_p = starts ? starts + scen() * ((size_t)a.P * 13) : nullptr;
   }
-  const float* const wb = consts;          // GW: the launch's one trunk
+  const float* const wb = consts;          // GW: the launch's one trunk (scenario 0's)
   consts += scen() * a.n_consts;
   u_init += scen() * HZ;
   for (int i = tid; i < (GW ? a.o_w0 : a.n_consts); i += nt) s.c[i] = consts[i];
   __syncthreads();
   static_assert(PART || !BF, "the P=1 form has no bf16 trunk");
-  if constexpr (BF) {                     // the bf16 trunk: its weights, once
+  if constexpr (BF && !GW) {               // the bf16 trunk: its weights, once
     round_trunk_weights(a, s.c);
     __syncthreads();
   }
   P1W W;                                  // the register chain's trunk
-  if constexpr (PART) transpose_weights(a, s);
-  else if constexpr (!P1S) W = load_p1_weights(a, c);
+  if constexpr (PART) {
+    if constexpr (GW) s.wg = wb;          // read in place, rounded where read
+    else transpose_weights(a, s);
+  } else if constexpr (!P1S) {
+    W = load_p1_weights(a, c);
+  }
   auto value_grad = [&](const float* U) {
-    if constexpr (PART) vg_part<SC, PROF, OPT, BF>(a, s, &S.fval, U, my_noise, my_starts);
+    if constexpr (PART)
+      vg_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW>(a, s, &S.fval, U, my_noise, my_starts);
     else if constexpr (P1S) vg_smem<SC, GW>(a, s, wb, &S.fval, U);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
@@ -397,7 +432,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, PROF, OPT, BF>(a, s, K, my_noise, my_starts);
+      cand_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW>(a, s, K, my_noise, my_starts);
     } else if constexpr (P1S) {
       __syncthreads();                            // the candidate rows
       cand_smem<SC, GW>(a, s, wb, K);
@@ -534,10 +569,20 @@ int p1_form_of(const ApgArgs& a) {
   });
 }
 
+// The particle form of a's solve (apg_solve.cuh, part_form): the weights
+// in shared memory where the block, its Scal included, fits 227 KB with them
+// and a's chunk.
+int part_form_of(const ApgArgs& a) {
+  return part_form(a, [&a](int step) {
+    return layout(a, true, a.risk != 0, nullptr, nullptr, step) * (int)sizeof(float) +
+               (int)sizeof(Scal) <= APG_SMEM_LIMIT_PARTICLES;
+  });
+}
+
 int dyn_bytes(const ApgArgs& a) {
   const bool part = a.has_noise != 0;
-  return layout(a, part, a.risk != 0, nullptr, nullptr, part ? P1_CHAIN : p1_form_of(a)) *
-         (int)sizeof(float);
+  return layout(a, part, a.risk != 0, nullptr, nullptr,
+                part ? part_form_of(a) : p1_form_of(a)) * (int)sizeof(float);
 }
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
@@ -550,8 +595,9 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
                    float* x_evol, long long* prof) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT, kBF>, a, consts,
-                              u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
+    return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT, kBF, STEP>, a,
+                              consts, u_init, t0, precond, noise, starts, yk, stats, x_evol,
+                              prof);
   } else {
     apg_solve_kernel<false, SC, PROF, false, false, STEP><<<a.batch, APG_NTHREADS, dyn, st>>>(
         a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
@@ -562,7 +608,8 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
 // The instantiation for [form][sc_kind]: form 0 P=1 on the register chain,
 // 3 on the shared-memory step, 4 on it with the weights in device memory
 // (none of the three in the bf16 library), 1 particles, 2 the particles
-// with the options (OPT).
+// with the options (OPT), 5 the particles' global-weight form (OPT; the
+// global-weight libraries' only forms).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
                                  const float*, float*, float*, float*, long long*);
@@ -571,7 +618,7 @@ using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const flo
    launch<false, CONSTR_PENALTY, false, false, STEP>,                                      \
    launch<false, CONSTR_PROX, false, false, STEP>}
 #define NO_FORMS {nullptr, nullptr, nullptr}
-const LaunchFn kLaunch[5][3] = {
+const LaunchFn kLaunch[6][3] = {
 #if APG_CHAIN_LIB
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
 #else
@@ -585,15 +632,22 @@ const LaunchFn kLaunch[5][3] = {
     NO_FORMS, NO_FORMS,
 #endif
 #if APG_P1S
-    P1_STEP_FORMS(P1_SMEM), P1_STEP_FORMS(P1_GLOBAL)};
+    P1_STEP_FORMS(P1_SMEM), P1_STEP_FORMS(P1_GLOBAL),
 #else
-    NO_FORMS, NO_FORMS};
+    NO_FORMS, NO_FORMS,
+#endif
+#if APG_GW
+    {launch<true, CONSTR_NONE, false, true, P1_GLOBAL>,
+     launch<true, CONSTR_PENALTY, false, true, P1_GLOBAL>,
+     launch<true, CONSTR_PROX, false, true, P1_GLOBAL>}};
+#else
+    NO_FORMS};
 #endif
 
-#if APG_PART_LIB
-// This library's particle forms [opt][sc_kind].
 using KernelFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
                           const float*, const float*, float*, float*, float*, long long*);
+#if APG_PART_LIB
+// This library's particle forms [opt][sc_kind].
 const KernelFn kPart[2][3] = {
     {apg_solve_kernel<true, CONSTR_NONE, false, false, kBF>,
      apg_solve_kernel<true, CONSTR_PENALTY, false, false, kBF>,
@@ -602,15 +656,35 @@ const KernelFn kPart[2][3] = {
      apg_solve_kernel<true, CONSTR_PENALTY, false, true, kBF>,
      apg_solve_kernel<true, CONSTR_PROX, false, true, kBF>}};
 #endif
+#if APG_GW
+// This library's global-weight forms [sc_kind].
+const KernelFn kPartGW[3] = {apg_solve_kernel<true, CONSTR_NONE, false, true, kBF, P1_GLOBAL>,
+                             apg_solve_kernel<true, CONSTR_PENALTY, false, true, kBF, P1_GLOBAL>,
+                             apg_solve_kernel<true, CONSTR_PROX, false, true, kBF, P1_GLOBAL>};
+#endif
+
+// This library's particle kernel for a's form, or null (another library's).
+KernelFn part_kernel(const ApgArgs& a) {
+  const bool gw = part_form_of(a) == P1_GLOBAL;
+#if APG_PART_LIB
+  return gw ? nullptr : kPart[options(a)][a.sc_kind];
+#elif APG_GW
+  return gw ? kPartGW[a.sc_kind] : nullptr;
+#else
+  (void)gw;
+  return nullptr;
+#endif
+}
 
 int form(const ApgArgs& a) {
-  if (a.has_noise) return options(a) ? 2 : 1;
+  if (a.has_noise) return part_form_of(a) == P1_GLOBAL ? 5 : options(a) ? 2 : 1;
   const int step = p1_form_of(a);
   return step == P1_CHAIN ? 0 : step == P1_SMEM ? 3 : 4;
 }
 
 // The largest cluster of each particle form [opt][sc_kind] and of the
-// clock-stamped one (apg_init; 0 before it).
+// clock-stamped one (apg_init; 0 before it); in a global-weight library its
+// one form's under both opt.
 int g_cmax[2][3] = {};
 int g_cmax_prof = 0;
 
@@ -634,6 +708,14 @@ int apg_init() {
       if (e == cudaSuccess) e = cluster_max(kPart[o][sc], APG_NTHREADS_PART, &g_cmax[o][sc]);
       if (e != cudaSuccess) return (int)e;
     }
+#endif
+#if APG_GW
+  for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
+    cudaError_t e = allow_large_smem(kPartGW[sc]);
+    if (e == cudaSuccess) e = cluster_max(kPartGW[sc], APG_NTHREADS_PART, &g_cmax[1][sc]);
+    if (e != cudaSuccess) return (int)e;
+    g_cmax[0][sc] = g_cmax[1][sc];
+  }
 #endif
 #if APG_CHAIN_LIB
   const cudaError_t errs[] = {
@@ -673,17 +755,18 @@ int apg_smem_bytes(const ApgArgs* a) {
 // The P=1 form (P1_*) a solve with a's dimensions runs (p1_form_of).
 int apg_p1_form(const ApgArgs* a) { return p1_form_of(*a); }
 
+// The particle form (P1_SMEM, P1_GLOBAL) a solve with a's dimensions and
+// chunk runs (part_form_of).
+int apg_part_form(const ApgArgs* a) { return part_form_of(*a); }
+
 // cudaOccupancyMaxActiveClusters of the particle form for a's dimensions
 // and cluster size, into *n; returns a cudaError_t.
 int apg_max_active_clusters(const ApgArgs* a, int* n) {
-#if APG_PART_LIB
   if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX || a->cluster < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)max_active_clusters(kPart[options(*a)][a->sc_kind], a->cluster,
-                                  APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
-#else
-  return (int)cudaErrorInvalidValue;       // the particle forms are the other libraries'
-#endif
+  const KernelFn fn = part_kernel(*a);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;   // another library's form
+  return (int)max_active_clusters(fn, a->cluster, APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
 }
 
 const char* apg_error_string(int err) {
@@ -697,14 +780,14 @@ const char* apg_error_string(int err) {
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
                       const void* starts, const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
-  const int step = part ? P1_CHAIN : p1_form_of(*a);
+  const int step = part ? part_form_of(*a) : p1_form_of(*a);
   const int limit = part || a->sc_kind != CONSTR_NONE || step != P1_CHAIN
                         ? APG_SMEM_LIMIT_PARTICLES : APG_SMEM_LIMIT;
   const long long blocks = (long long)a->batch * (part ? a->cluster : 1);
   return !(a->batch < 1 || blocks > 2147483647LL ||
            a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
-           (!part && !p1_form_ok(*a, step)) ||
+           (part ? !part_form_ok(*a, step) : !p1_form_ok(*a, step)) ||
            (a->has_pre && precond == nullptr) ||
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (a->bf16 != 0) != kBF || (!part && kBF) ||
@@ -721,7 +804,7 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
 // with a->has_starts), x_evol (H+1, 13), written only by the deterministic
 // form; precond (H, nZ) is shared by every scenario; a->risk (particles
 // only) prices the particles' totals at mean + lambda * std; a P=1 solve
-// runs the form p1_form_of picks (or a->p1_step names). Returns the
+// runs the form p1_form_of picks (or a->step names). Returns the
 // launch's error (cudaErrorInvalidValue for arguments the kernel does not
 // take, among them a P=1 form the trunk's widths or the form's shared
 // memory do not take, a form of another library, and a particle launch
@@ -755,7 +838,7 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
   return (int)cudaErrorInvalidValue;      // the clock-stamped build is apg_solve.cu's
 #else
   if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 || options(*a) ||
-      (!a->has_noise && p1_form_of(*a) != P1_CHAIN) ||
+      (a->has_noise ? part_form_of(*a) != P1_SMEM : p1_form_of(*a) != P1_CHAIN) ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>

@@ -33,7 +33,7 @@
 // the chain on P1W's widths, else P1_SMEM where the kernel's block fits
 // 227 KB with the weights, else P1_GLOBAL. Both step forms give the same
 // bits; P1_SMEM is 7-20 % faster at 32-128 units in every kernel
-// (sde4mbrl_px4_tpu_torch/p1_step_ab.py). ApgArgs::p1_step asks for that
+// (sde4mbrl_px4_tpu_torch/p1_step_ab.py). ApgArgs::step asks for that
 // choice (P1_BY_SHAPE) or names a form, which the launch then takes or
 // refuses (for measurement).
 enum { P1_BY_SHAPE = -1, P1_CHAIN = 0, P1_SMEM = 1, P1_GLOBAL = 2 };
@@ -92,12 +92,13 @@ struct ApgArgs {
   // whole solve and value_and_grad refuse it, and trajectory ignores it
   // (x_evol stays fp32).
   int bf16;
-  // The P=1 form a launch runs: P1_BY_SHAPE (ops/cuda/consts.py::
-  // build_consts), the library's choice (p1_form), or the P1_* form named.
-  // The P=1 kernels and trajectory read it, the particle forms ignore it.
-  // P1_GLOBAL reads the trunk of scenario 0's consts: every scenario of a
-  // launch shares it.
-  int p1_step;
+  // The trunk's form a launch runs: P1_BY_SHAPE (ops/cuda/consts.py::
+  // build_consts), the library's choice, or the P1_* form named (for
+  // measurement), which the launch takes or refuses. The P=1 kernels and
+  // trajectory read it through p1_form, the particle forms through
+  // part_form (P1_SMEM or P1_GLOBAL). P1_GLOBAL reads the trunk of scenario
+  // 0's consts: every scenario of a launch shares it.
+  int step;
   // The particle forms of the whole solve and of value_and_grad: one
   // thread-block cluster of `cluster` blocks per launch; block `rank`
   // sweeps chunks rank, rank + cluster, ... (at most chunks_per_block of
@@ -143,13 +144,13 @@ inline bool trunk_last(const ApgArgs& a) {
          a.o_w2 == a.o_b1 + H && a.o_b2 == a.o_w2 + H * O && a.n_consts == a.o_b2 + O;
 }
 
-// The P=1 form of a launch of a: the one a.p1_step names, or by shape the
+// The P=1 form of a launch of a: the one a.step names, or by shape the
 // register chain on P1W's widths, else the shared-memory step with the
 // weights in shared memory where `smem_fits(P1_SMEM)` (the kernel's block
 // within 227 KB), else with the weights in device memory.
 template <class Fits>
 inline int p1_form(const ApgArgs& a, Fits smem_fits) {
-  if (a.p1_step != P1_BY_SHAPE) return a.p1_step;
+  if (a.step != P1_BY_SHAPE) return a.step;
   if (p1_widths(a)) return P1_CHAIN;
   return smem_fits(P1_SMEM) ? P1_SMEM : P1_GLOBAL;
 }
@@ -161,6 +162,30 @@ inline bool p1_form_ok(const ApgArgs& a, int step) {
   if (step == P1_CHAIN) return p1_widths(a);
   if (step == P1_SMEM) return !p1_widths(a);
   return step == P1_GLOBAL && !p1_widths(a) && trunk_last(a);
+}
+
+// The particle forms' trunk (a.step): P1_SMEM the weights, with their
+// transposes for the reverse sweep, in the block's shared-memory copy of the
+// consts; P1_GLOBAL the global-weight forms (sweeps.cuh, GW: the weights read
+// in place from scenario 0's consts in device memory, only the consts before
+// them copied, no transposes; the OPT instantiations only, the options their
+// runtime branches), in libraries of their own (apg_solve_gw.cu,
+// apg_solve_gw_bf16.cu, cost_oracle_gw.cu), built in parallel. By shape:
+// P1_SMEM where the kernel's block fits 227 KB with a's chunk
+// (`smem_fits(P1_SMEM)`), else P1_GLOBAL; the wrappers plan the chunk in
+// the shared-memory form first and take the global-weight form only where no
+// chunk of it fits (ops/cuda/consts.py::plan_particles), so every trunk that
+// planned before keeps its form. The two give the same bits.
+template <class Fits>
+inline int part_form(const ApgArgs& a, Fits smem_fits) {
+  if (a.step != P1_BY_SHAPE) return a.step;
+  return smem_fits(P1_SMEM) ? P1_SMEM : P1_GLOBAL;
+}
+
+// The particle form `step` takes a's buffer: the shared-memory form always,
+// the global-weight form on a buffer whose weights come last.
+inline bool part_form_ok(const ApgArgs& a, int step) {
+  return step == P1_SMEM || (step == P1_GLOBAL && trunk_last(a));
 }
 
 // The constraint fields agree with the decision width.

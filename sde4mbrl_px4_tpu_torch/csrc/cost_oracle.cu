@@ -100,6 +100,18 @@
 // all P from `moments` (B, 2) and weighs its rows with them, each chunk's
 // reverse right after its own forward (sweeps.cuh, Risk).
 //
+// Trunks past the particle forms' shared memory (apg_solve.cuh, part_form;
+// past 144 units at P=512 on the iris configs, whose trunk and transposes
+// take 196 KB of a block's 227 KB): the global-weight forms of value_batch
+// and value_and_grad (GW; sweeps.cuh) read the weights in place from
+// scenario 0's consts in device memory, keep no transposes and copy only the
+// consts before the trunk. They are the options forms and their
+// shared-moments forms (risk and starts runtime branches, off without them),
+// fp32 and bf16, in a library of their own (cost_oracle_gw.cu, built in
+// parallel), each taken by shape per kernel: value_batch keeps its
+// shared-memory form wherever its own block fits with the planned chunk.
+// Both forms give the same bits.
+//
 // Reduced matmul precision (ApgArgs::bf16, sweeps.cuh): the bf16-trunk
 // instantiations (BF) of value_batch (the particle forms and the P=1 ones,
 // value_batch_kernel<PART, SC, REG, OPT, true>) and of value_and_grad's
@@ -121,6 +133,15 @@
 #include "apg_solve.cuh"
 #include "cost_oracle.cuh"
 #include "sweeps.cuh"
+
+// 1: the library of the particle forms' global-weight forms
+// (cost_oracle_gw.cu: value_batch's and value_and_grad's options forms and
+// their shared-moments forms, fp32 and bf16, with the trunk's weights read in
+// device memory); 0 every other form of the three kernels. nvcc builds the
+// two in parallel.
+#ifndef ORACLE_GW
+#define ORACLE_GW 0
+#endif
 
 namespace {
 
@@ -155,9 +176,12 @@ __device__ __forceinline__ size_t vg_scenario() {
 // value_and_grad then stash the row's states, pre-activations and wrench.
 // On the shared-memory step value_and_grad stashes the row's states,
 // pre-activations and outputs and keeps its cotangents here; P1_GLOBAL
-// copies only the consts before the trunk's weights. risk: the risk buffers
-// (a constant false in the forms without the options). Fields a kernel
-// does not use stay null.
+// copies only the consts before the trunk's weights; with part it is the
+// global-weight form (no weights and no transposes here; value_and_grad's
+// reverse cotangents at row stride tiled_ld, sweeps.cuh::bwd_rows), any
+// other step the shared-memory form. risk: the risk buffers (a constant
+// false in the forms without the options). Fields a kernel does not use stay
+// null.
 __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part, bool risk,
                                       Smem* s, float* base, int step) {
   const int HZ = a.H * a.nZ;
@@ -168,6 +192,8 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   const bool reg = !part && step == P1_CHAIN && p1_widths(a);
   // the hidden row stride: the particle value_batch's rows are tiled
   const int ldh = part && kind == ORACLE_VALUE_BATCH ? tiled_ld(a) : a.HID;
+  const bool gw = step == P1_GLOBAL;          // the weights in device memory
+  const int ldc = part && gw ? tiled_ld(a) : a.HID;   // reverse cotangents' row stride
   int o = 0;
   auto take = [&](float** p, int n) {
     if (reg) o = (o + 3) & ~3;
@@ -176,7 +202,7 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   };
   Smem d = {};
   Smem* t = s ? s : &d;
-  take(&t->c, !part && step == P1_GLOBAL ? a.o_w0 : a.n_consts);
+  take(&t->c, gw ? a.o_w0 : a.n_consts);
   take(&t->cand, R * HZ);
   if (!reg) { take(&t->xr, rows * 13); take(&t->feat, rows * a.F); }
   take(&t->a0, rows * ldh); take(&t->a1, rows * ldh);
@@ -194,11 +220,13 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
     if (part) take(&t->ct, B * 13);              // P=1: the row's cotangents in
     take(&t->cu, B * a.nZ);                      // registers (p1_reverse)
     if (part) take(&t->c_h2, B * a.OUT);
-    take(&t->c_h1p, B * a.HID); take(&t->c_h0p, B * a.HID);
+    take(&t->c_h1p, B * ldc); take(&t->c_h0p, B * ldc);
     if (part) {
       take(&t->c_feat, B * a.F);
-      take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
-      take(&t->w2t, a.OUT * a.HID);
+      if (!gw) {
+        take(&t->w0t, a.F * a.HID); take(&t->w1t, a.HID * a.HID);
+        take(&t->w2t, a.OUT * a.HID);
+      }
     }
     if (!part && !reg) {                        // the shared-memory step's vg row
       take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
@@ -255,9 +283,10 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // proximal form to 64 registers (two blocks per SM) and a 108-byte spill
 // once the scenario offsets were added. RM (PART and OPT): RISK_MOMENTS_OUT
 // writes plan i's risk-free cost, the mean of its totals and their centred
-// second moment to out[3i ..] (out (B, K, 3)). GW (P=1, not REG): the
-// shared-memory step with the trunk's weights in device memory (P1_GLOBAL,
-// scenario 0's).
+// second moment to out[3i ..] (out (B, K, 3)). GW (not REG): the trunk's
+// weights in device memory (scenario 0's): at P=1 the shared-memory step's
+// P1_GLOBAL, with particles the global-weight form (the options forms only;
+// apg_solve.cuh, part_form).
 template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
           int RM = RISK_IN_CLUSTER, bool GW = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
@@ -267,7 +296,8 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   static_assert(!(PART && REG), "the register chain is the P=1 forms'");
   static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_OUT, "value_batch writes moments");
   static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
-  static_assert(!GW || (!PART && !REG), "global weights are the P=1 step's");
+  static_assert(!GW || (!REG && (!PART || OPT)),
+                "global weights are the shared-memory step's and the particle options forms'");
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
   layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem,
@@ -280,7 +310,7 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
   // PART: k0 is the flat plan index over B x K, so the plans and costs
   // need no scenario offset, the consts and the Brownian block k0 / K's
   if constexpr (PART)
-    load_block<BF>(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
+    load_block<BF, GW>(a, s, R, consts + (size_t)(k0 / K) * a.n_consts, U + (size_t)k0 * HZ);
   else
     load_block<BF, GW>(a, s, R, consts + grid_row() * a.n_consts,
                        U + (grid_row() * K + k0) * (size_t)HZ);
@@ -293,7 +323,8 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
       if (tid == 0) starts_p = starts ? starts + (size_t)(k0 / K) * ((size_t)a.P * 13) : nullptr;
       __syncthreads();
     }
-    cand_part<SC, false, OPT, BF, RM>(a, s, 1,
+    if constexpr (GW) s.wg = consts;        // scenario 0's trunk, read in place
+    cand_part<SC, false, OPT, BF, RM, GW>(a, s, 1,
                                       noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
                                       [&]() -> const float* { return starts_p; });
     if (cg::this_cluster().block_rank() != 0) return;
@@ -377,9 +408,12 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // trunk. RM (PART and OPT): RISK_MOMENTS_IN weighs the rows with the
 // scenario's mean and std of the totals over all particles, moments[2b ..]
 // (moments (B, 2)), and val is then its risk-free cost over these
-// particles. STEP (P=1): the P=1 form (P1_*), the register chain or the
+// particles. STEP: at P=1 the P=1 form (P1_*), the register chain or the
 // shared-memory step on any trunk (sweeps.cuh::vg_smem; P1_GLOBAL with the
-// weights read from scenario 0's consts in device memory).
+// weights read from scenario 0's consts in device memory); with particles
+// P1_CHAIN (the default: the weights and their transposes in shared memory)
+// or P1_GLOBAL, the global-weight form (the options forms only; apg_solve.cuh,
+// part_form).
 template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
           int STEP = P1_CHAIN>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
@@ -392,7 +426,9 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   static_assert(PART || !BF, "the P=1 value_and_grad has no bf16 trunk");
   static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_IN, "value_and_grad reads moments");
   static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
-  static_assert(!PART || STEP == P1_CHAIN, "the P=1 forms are a P=1 template");
+  static_assert(!PART || STEP == P1_CHAIN || (STEP == P1_GLOBAL && OPT),
+                "a particle form reads its weights in shared memory or, the options form, "
+                "in device memory");
   constexpr bool GW = STEP == P1_GLOBAL;
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem, STEP);
@@ -413,8 +449,13 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
         s.red[6] = moments[2 * vg_scenario<true>()];
         s.red[7] = moments[2 * vg_scenario<true>() + 1];
       }
-    transpose_weights(a, s);                 // ends with a barrier
-    vg_part<SC, false, OPT, BF, RM>(
+    if constexpr (GW) {
+      s.wg = consts;                         // scenario 0's trunk, read in place
+      __syncthreads();
+    } else {
+      transpose_weights(a, s);               // ends with a barrier
+    }
+    vg_part<SC, false, OPT, BF, RM, GW>(
         a, s, &fval, s.cand,
         [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
         [&]() -> const float* { return starts_p; });
@@ -441,9 +482,25 @@ int p1_form_of(const ApgArgs& a, int kind) {
   });
 }
 
+// The particle form of a launch of `kind` (apg_solve.cuh, part_form): the
+// weights in shared memory where one block (value_and_grad's 4-byte static
+// cost included) fits 227 KB with them and a's chunk.
+int part_form_of(const ApgArgs& a, int kind) {
+  return part_form(a, [&a, kind](int step) {
+    return layout(a, kind, 1, true, a.risk != 0, nullptr, nullptr, step) * (int)sizeof(float) +
+               (kind == ORACLE_VALUE_AND_GRAD ? (int)sizeof(float) : 0) <=
+           ORACLE_SMEM_LIMIT_PARTICLES;
+  });
+}
+
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
   return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr,
-                part ? P1_CHAIN : p1_form_of(a, kind)) * (int)sizeof(float);
+                part ? part_form_of(a, kind) : p1_form_of(a, kind)) * (int)sizeof(float);
+}
+
+// Whether a particle launch of `kind` runs the global-weight form.
+bool global_weights(const ApgArgs& a, int kind) {
+  return a.has_noise && part_form_of(a, kind) == P1_GLOBAL;
 }
 
 // The shared memory a block may take: 48 KB on the register chain, all
@@ -472,7 +529,9 @@ int tile_rows(const ApgArgs& a, int K) {
 bool args_ok(const ApgArgs* a, int kind) {
   return constr_args_ok(*a) && a->OUT == 12 && a->F == 9 + a->n_u && a->H >= 1 &&
          a->batch >= 1 &&
-         ((a->has_noise && kind != ORACLE_TRAJECTORY) || p1_form_ok(*a, p1_form_of(*a, kind)));
+         ((a->has_noise && kind != ORACLE_TRAJECTORY)
+              ? part_form_ok(*a, part_form_of(*a, kind))
+              : p1_form_ok(*a, p1_form_of(*a, kind)));
 }
 
 // One launch of a value_batch instantiation over a.batch scenarios: P=1
@@ -486,7 +545,7 @@ cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cu
                                const float* starts, float* out) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF, RM>, K,
+    return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF, RM, GW>, K,
                               tile, a, consts, U, noise, starts, out);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
@@ -498,6 +557,7 @@ cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cu
 using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStream_t,
                                      const float*, const float*, const float*, const float*,
                                      float*);
+#if !ORACLE_GW
 // [bf16][form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on
 // the register chain, 2 particles, 3 particles with the options, 4 their
 // moments-out form, 5 P=1 on the shared-memory step with the weights in
@@ -557,6 +617,7 @@ using P1VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, c
 const P1VbKernel kP1Vb[2][2][3] = {{P1_VB(false, false), P1_VB(false, true)},
                                     {P1_VB(true, false), P1_VB(true, true)}};
 const P1VgKernel kP1Vg[2][3] = {P1_VG(P1_SMEM), P1_VG(P1_GLOBAL)};
+#endif
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
@@ -569,8 +630,8 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   float* grad) {
   if constexpr (PART) {
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
-    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM>, a, consts,
-                              u, noise, starts, moments, val, grad);
+    return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM, STEP>, a,
+                              consts, u, noise, starts, moments, val, grad);
   } else {
     value_and_grad_kernel<false, SC, false, false, RISK_IN_CLUSTER, STEP>
         <<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise, starts, moments, val,
@@ -581,6 +642,11 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                        const float*, const float*, const float*, const float*,
                                        float*, float*);
+using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
+                          const float*, float*);
+using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
+                          const float*, float*, float*);
+#if !ORACLE_GW
 // [form][sc_kind]: form 0 P=1 on the register chain, 1 particles, 2
 // particles with the options, 3 and 4 the bf16 trunk of 1 and 2, 5 and 6
 // the moments-in form of 2 and 4, 7 P=1 on the shared-memory step, 8 on it
@@ -614,10 +680,6 @@ const ValueAndGradFn kValueAndGrad[9][3] = {
 // value_and_grad: opt 0 without the options, 1 with them, 2 their
 // shared-moments form (value_batch's moments out, value_and_grad's moments
 // in).
-using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
-                          const float*, float*);
-using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                          const float*, float*, float*);
 #define VB_MOMENTS(BF)                                                                     \
   {value_batch_kernel<true, CONSTR_NONE, false, true, BF, RISK_MOMENTS_OUT>,               \
    value_batch_kernel<true, CONSTR_PENALTY, false, true, BF, RISK_MOMENTS_OUT>,            \
@@ -656,6 +718,41 @@ const VgKernel kVgForms[2][3][3] = {
       value_and_grad_kernel<true, CONSTR_PENALTY, true, true>,
       value_and_grad_kernel<true, CONSTR_PROX, true, true>},
      VG_MOMENTS(true)}};
+#else
+// The global-weight forms [bf16][moments][sc_kind], kernels and launchers:
+// the options forms of value_batch and value_and_grad (moments 0; a launch
+// without risk or starts takes them too, their branches off) and their
+// shared-moments forms (moments 1: value_batch's moments out,
+// value_and_grad's moments in).
+#define GW_VB(BF, RM)                                                                      \
+  {value_batch_kernel<true, CONSTR_NONE, false, true, BF, RM, true>,                       \
+   value_batch_kernel<true, CONSTR_PENALTY, false, true, BF, RM, true>,                    \
+   value_batch_kernel<true, CONSTR_PROX, false, true, BF, RM, true>}
+#define GW_VG(BF, RM)                                                                      \
+  {value_and_grad_kernel<true, CONSTR_NONE, true, BF, RM, P1_GLOBAL>,                      \
+   value_and_grad_kernel<true, CONSTR_PENALTY, true, BF, RM, P1_GLOBAL>,                   \
+   value_and_grad_kernel<true, CONSTR_PROX, true, BF, RM, P1_GLOBAL>}
+#define GW_VB_LAUNCH(BF, RM)                                                               \
+  {launch_value_batch<true, CONSTR_NONE, false, true, BF, RM, true>,                       \
+   launch_value_batch<true, CONSTR_PENALTY, false, true, BF, RM, true>,                    \
+   launch_value_batch<true, CONSTR_PROX, false, true, BF, RM, true>}
+#define GW_VG_LAUNCH(BF, RM)                                                               \
+  {launch_value_and_grad<true, CONSTR_NONE, true, BF, RM, P1_GLOBAL>,                      \
+   launch_value_and_grad<true, CONSTR_PENALTY, true, BF, RM, P1_GLOBAL>,                   \
+   launch_value_and_grad<true, CONSTR_PROX, true, BF, RM, P1_GLOBAL>}
+const VbKernel kVbGW[2][2][3] = {
+    {GW_VB(false, RISK_IN_CLUSTER), GW_VB(false, RISK_MOMENTS_OUT)},
+    {GW_VB(true, RISK_IN_CLUSTER), GW_VB(true, RISK_MOMENTS_OUT)}};
+const VgKernel kVgGW[2][2][3] = {
+    {GW_VG(false, RISK_IN_CLUSTER), GW_VG(false, RISK_MOMENTS_IN)},
+    {GW_VG(true, RISK_IN_CLUSTER), GW_VG(true, RISK_MOMENTS_IN)}};
+const ValueBatchFn kVbGWLaunch[2][2][3] = {
+    {GW_VB_LAUNCH(false, RISK_IN_CLUSTER), GW_VB_LAUNCH(false, RISK_MOMENTS_OUT)},
+    {GW_VB_LAUNCH(true, RISK_IN_CLUSTER), GW_VB_LAUNCH(true, RISK_MOMENTS_OUT)}};
+const ValueAndGradFn kVgGWLaunch[2][2][3] = {
+    {GW_VG_LAUNCH(false, RISK_IN_CLUSTER), GW_VG_LAUNCH(false, RISK_MOMENTS_IN)},
+    {GW_VG_LAUNCH(true, RISK_IN_CLUSTER), GW_VG_LAUNCH(true, RISK_MOMENTS_IN)}};
+#endif
 
 // The particle fields, the noise block and the particle options (risk and
 // starts: particles only), when the kernel reads them.
@@ -680,8 +777,59 @@ int opt_form(const ApgArgs* a, int kind) {
 
 // The largest cluster of each particle form [kind][bf16][opt][sc_kind],
 // value_batch and value_and_grad, without and with the options (and their
-// shared-moments forms) and the bf16 trunk (cost_oracle_init; 0 before it).
+// shared-moments forms) and the bf16 trunk (cost_oracle_init; 0 before it);
+// in the global-weight library its options form's under opt 0 and 1.
 int g_cmax[3][2][3][3] = {};
+
+// This library's kernel and launcher of a particle launch of `kind` (opt:
+// opt_form), or null where the form is the other library's.
+VbKernel vb_kernel(const ApgArgs& a, int opt) {
+#if ORACLE_GW
+  return global_weights(a, ORACLE_VALUE_BATCH) ? kVbGW[a.bf16 != 0][opt == 2][a.sc_kind]
+                                               : nullptr;
+#else
+  return global_weights(a, ORACLE_VALUE_BATCH) ? nullptr
+                                               : kVbForms[a.bf16 != 0][opt][a.sc_kind];
+#endif
+}
+VgKernel vg_kernel(const ApgArgs& a, int opt) {
+#if ORACLE_GW
+  return global_weights(a, ORACLE_VALUE_AND_GRAD) ? kVgGW[a.bf16 != 0][opt == 2][a.sc_kind]
+                                                  : nullptr;
+#else
+  return global_weights(a, ORACLE_VALUE_AND_GRAD) ? nullptr
+                                                  : kVgForms[a.bf16 != 0][opt][a.sc_kind];
+#endif
+}
+
+// This library's value_batch launcher for a launch (P=1 or particles), or
+// null where its form is the other library's.
+ValueBatchFn vb_launcher(const ApgArgs& a, int opt) {
+  const bool gw = global_weights(a, ORACLE_VALUE_BATCH);
+#if ORACLE_GW
+  return gw ? kVbGWLaunch[a.bf16 != 0][opt == 2][a.sc_kind] : nullptr;
+#else
+  if (gw) return nullptr;
+  const int step = p1_form_of(a, ORACLE_VALUE_BATCH);
+  const int form = a.has_noise ? 2 + opt : step == P1_CHAIN ? 1 : step == P1_GLOBAL ? 5 : 0;
+  return kValueBatch[a.bf16 != 0][form][a.sc_kind];
+#endif
+}
+
+// ... and its value_and_grad launcher.
+ValueAndGradFn vg_launcher(const ApgArgs& a, int opt) {
+  const bool gw = global_weights(a, ORACLE_VALUE_AND_GRAD);
+#if ORACLE_GW
+  return gw ? kVgGWLaunch[a.bf16 != 0][opt == 2][a.sc_kind] : nullptr;
+#else
+  if (gw) return nullptr;
+  const int step = a.has_noise ? P1_CHAIN : p1_form_of(a, ORACLE_VALUE_AND_GRAD);
+  const int form = !a.has_noise ? (step == P1_CHAIN ? 0 : step == P1_SMEM ? 7 : 8)
+                   : opt == 2 ? 5 + (a.bf16 ? 1 : 0)
+                              : (opt ? 2 : 1) + (a.bf16 ? 2 : 0);
+  return kValueAndGrad[form][a.sc_kind];
+#endif
+}
 
 bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PROX; }
 
@@ -710,6 +858,27 @@ const char* cost_oracle_error_string(int err) {
 // each particle form's largest cluster (sweeps.cuh::cluster_max). Called
 // once when the library is loaded; returns a cudaError_t.
 int cost_oracle_init() {
+#if ORACLE_GW
+  for (int bf = 0; bf < 2; ++bf)
+    for (int m = 0; m < 2; ++m)
+      for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
+        const VbKernel vb = kVbGW[bf][m][sc];
+        const VgKernel vg = kVgGW[bf][m][sc];
+        const int o = m ? 2 : 1;             // opt_form: the options form, its moments form
+        cudaError_t e = allow_large_smem(vb);
+        if (e == cudaSuccess) e = allow_large_smem(vg);
+        if (e == cudaSuccess)
+          e = cluster_max(vb, ORACLE_NTHREADS_PART, &g_cmax[ORACLE_VALUE_BATCH][bf][o][sc]);
+        if (e == cudaSuccess)
+          e = cluster_max(vg, ORACLE_NTHREADS_PART, &g_cmax[ORACLE_VALUE_AND_GRAD][bf][o][sc]);
+        if (e != cudaSuccess) return (int)e;
+        if (!m) {                             // a launch without the options: the same form
+          g_cmax[ORACLE_VALUE_BATCH][bf][0][sc] = g_cmax[ORACLE_VALUE_BATCH][bf][1][sc];
+          g_cmax[ORACLE_VALUE_AND_GRAD][bf][0][sc] = g_cmax[ORACLE_VALUE_AND_GRAD][bf][1][sc];
+        }
+      }
+  return 0;
+#else
   for (int gw = 0; gw < 2; ++gw) {
     for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
       cudaError_t e = allow_large_smem(kP1Vb[0][gw][sc]);
@@ -735,6 +904,7 @@ int cost_oracle_init() {
         if (e != cudaSuccess) return (int)e;
       }
   return 0;
+#endif
 }
 
 // The largest cluster of the particle form of `kind` (ORACLE_VALUE_BATCH,
@@ -754,12 +924,15 @@ int oracle_max_active_clusters(int kind, const ApgArgs* a, int* n) {
       (kind != ORACLE_VALUE_BATCH && kind != ORACLE_VALUE_AND_GRAD) || opt_form(a, kind) < 0)
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)dyn_bytes(*a, kind, 1, true);
-  const int bf = a->bf16 != 0, o = opt_form(a, kind);
-  return (int)(kind == ORACLE_VALUE_BATCH
-                   ? max_active_clusters(kVbForms[bf][o][a->sc_kind], a->cluster,
-                                         ORACLE_NTHREADS_PART, dyn, n)
-                   : max_active_clusters(kVgForms[bf][o][a->sc_kind], a->cluster,
-                                         ORACLE_NTHREADS_PART, dyn, n));
+  const int o = opt_form(a, kind);
+  if (kind == ORACLE_VALUE_BATCH) {
+    const VbKernel fn = vb_kernel(*a, o);
+    return fn ? (int)max_active_clusters(fn, a->cluster, ORACLE_NTHREADS_PART, dyn, n)
+              : (int)cudaErrorInvalidValue;     // the other library's form
+  }
+  const VgKernel fn = vg_kernel(*a, o);
+  return fn ? (int)max_active_clusters(fn, a->cluster, ORACLE_NTHREADS_PART, dyn, n)
+            : (int)cudaErrorInvalidValue;
 }
 
 // Shared memory one block of each kernel needs (dynamic + static).
@@ -781,6 +954,11 @@ int value_batch_rows(const ApgArgs* a, int K) { return tile_rows(*a, K); }
 // (p1_form_of).
 int oracle_p1_form(const ApgArgs* a, int kind) { return p1_form_of(*a, kind); }
 
+// The particle form (P1_SMEM, P1_GLOBAL) a launch of `kind`
+// (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD) with a's dimensions and chunk
+// runs (part_form_of).
+int oracle_part_form(const ApgArgs* a, int kind) { return part_form_of(*a, kind); }
+
 // Launchers: one launch on `stream` each over a->batch scenarios B,
 // returning the launch's error (cudaErrorInvalidValue for arguments the
 // kernels do not take). consts is (B, n_consts), U (B, K, H, nZ), u
@@ -794,7 +972,7 @@ int oracle_p1_form(const ApgArgs* a, int kind) { return p1_form_of(*a, kind); }
 // (value_and_grad) it reads `moments` (B, 2), each scenario's mean and std
 // of the totals (null otherwise), and writes the risk-free cost of its
 // particles to val. A P=1 launch runs the form p1_form_of picks (or
-// a->p1_step names), which the trunk's widths and the form's shared memory
+// a->step names), which the trunk's widths and the form's shared memory
 // must take; the
 // particle forms a's cluster plan of its chunks (value_batch one cluster
 // per candidate), and return the cluster launch's own error where the card
@@ -808,9 +986,9 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* 
           *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][opt][a->sc_kind])) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
-  const int step = p1_form_of(*a, ORACLE_VALUE_BATCH);
-  const int form = a->has_noise ? 2 + opt : step == P1_CHAIN ? 1 : step == P1_GLOBAL ? 5 : 0;
-  return launch_error(kValueBatch[a->bf16 != 0][form][a->sc_kind](
+  const ValueBatchFn fn = vb_launcher(*a, opt);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;    // the other library's form
+  return launch_error(fn(
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
       (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
       (float*)out));
@@ -818,6 +996,9 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* 
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
+#if ORACLE_GW
+  return (int)cudaErrorInvalidValue;       // trajectory is the other library's
+#else
   // (x_evol of a particle solve too: the mean dynamics, on a P=1 form)
   const int step = p1_form_of(*a, ORACLE_TRAJECTORY);
   if (!args_ok(a, ORACLE_TRAJECTORY) || !grid_ok(a, ORACLE_TRAJECTORY) ||
@@ -836,6 +1017,7 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
     trajectory_kernel<false, true><<<a->batch, ORACLE_NTHREADS, dyn, st>>>(
         *a, (const float*)consts, (const float*)u, (float*)x_out);
   return (int)cudaGetLastError();
+#endif
 }
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
@@ -851,11 +1033,9 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
-  const int step = a->has_noise ? P1_CHAIN : p1_form_of(*a, ORACLE_VALUE_AND_GRAD);
-  const int form = !a->has_noise ? (step == P1_CHAIN ? 0 : step == P1_SMEM ? 7 : 8)
-                   : opt == 2 ? 5 + (a->bf16 ? 1 : 0)
-                              : (opt ? 2 : 1) + (a->bf16 ? 2 : 0);
-  return launch_error(kValueAndGrad[form][a->sc_kind](
+  const ValueAndGradFn fn = vg_launcher(*a, opt);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;    // the other library's form
+  return launch_error(fn(
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
       (const float*)noise, (const float*)starts, (const float*)moments, (float*)val,
       (float*)grad));

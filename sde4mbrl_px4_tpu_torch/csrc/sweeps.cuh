@@ -127,6 +127,17 @@
 // instantiations take BF = true, and every form without it compiles to the
 // code it had before the parameter existed.
 //
+// Trunks wider than a block's shared memory takes (apg_solve.cuh, part_form;
+// past 144 units on the iris configs at P=512): the particle forms' global-
+// weight forms (GW, a template parameter of trunk, rows_gemm, bwd_rows,
+// vg_part and cand_part) read the trunk's weights and biases in place from
+// device memory (s.wg: scenario 0's consts, L2-resident; wt, through the
+// read-only path, rounded to bf16 where read in the bf16 forms), keep no
+// transposes, and copy only the consts before the trunk into shared memory.
+// Every sum takes the products of the shared-memory forms in their order,
+// so the two forms give the same bits wherever both run the same chunk and
+// cluster.
+//
 // Numerics: fp32 throughout, no fast-math. softplus is
 // max(x,0)+log1p(exp(-|x|)) and the sigmoid 1/(1+exp(-x)), as in JAX.
 #pragma once
@@ -171,6 +182,9 @@ struct Smem {
                                    // their gradient weights
   float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
                                    // transposed weights (particle reverse)
+  const float* wg;                 // the particle forms with the weights in
+                                   // device memory (GW): the consts holding
+                                   // the trunk the sweeps read (scenario 0's)
   float *red;                      // (32,) reduction results
   float *pg;                       // (chunks_per_block, H*nZ + 2) a block's vg
                                    // chunk partials: gradient, tracking, sigma
@@ -303,19 +317,31 @@ __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
   if (lane == 0) *out = acc;
 }
 
+// A trunk weight: from the block's shared-memory copy of the consts, or
+// (GW: the P=1 form P1_GLOBAL, the particle forms' global-weight
+// forms) from device memory through the read-only
+// path, rounded to bf16 there in the bf16 forms (BF: the shared copy holds
+// them rounded already, round_trunk_weights).
+template <bool GW, bool BF = false>
+__device__ __forceinline__ float wt(const float* w) {
+  if constexpr (GW) return mm_in<BF>(__ldg(w));
+  else return *w;
+}
+
 // The row stride of the hidden activations s.a0 and s.a1 in the tiled
 // candidate step: HID + 1, so rows a few apart fall in different
 // shared-memory banks when a warp reads them.
 __host__ __device__ __forceinline__ int tiled_ld(const ApgArgs& a) { return a.HID + 1; }
 
 // epi(r, n, A[r] . W[:, n]) for r < R, n < N: A is (R, Kd) at row stride
-// lda, W (Kd, N) row-major, both in shared memory. Each thread takes a tile
+// lda in shared memory, W (Kd, N) row-major, read through wt<GW, BF> (in
+// shared memory, or GW in device memory). Each thread takes a tile
 // of TR rows and TJ columns (columns jt + NJ*c, so a warp reads consecutive
 // columns of W, and a row of A at one address), holding its TR x TJ sums in
 // registers: one load of A and one of W feed TJ and TR products. Each sum
 // runs over k = 0 .. Kd-1 in order from 0.f, as a thread per output does,
 // so the result has its bits.
-template <int TR, int TJ, class Epi>
+template <int TR, int TJ, bool GW, bool BF, class Epi>
 __device__ __forceinline__ void tile_gemm(int R, int N, int Kd, const float* A, int lda,
                                           const float* W, Epi epi) {
   const int NJ = (N + TJ - 1) / TJ, NR = (R + TR - 1) / TR;
@@ -337,7 +363,7 @@ __device__ __forceinline__ void tile_gemm(int R, int N, int Kd, const float* A, 
       const float* w = W + k * N;
       float wv[TJ];
 #pragma unroll
-      for (int c = 0; c < TJ; ++c) wv[c] = w[col[c]];
+      for (int c = 0; c < TJ; ++c) wv[c] = wt<GW, BF>(w + col[c]);
 #pragma unroll
       for (int i = 0; i < TR; ++i) {
         const float av = ar[i][k];
@@ -356,23 +382,13 @@ __device__ __forceinline__ void tile_gemm(int R, int N, int Kd, const float* A, 
 // tile_gemm with the tile that keeps the block's threads busy: 4 x 4 where
 // there are 16 outputs per thread, 2 x 2 where there are 2, else one output
 // per thread.
-template <class Epi>
+template <bool GW, bool BF, class Epi>
 __device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, int lda,
                                           const float* W, Epi epi) {
   const int outs = R * N, nt = blockDim.x;
-  if (outs >= 16 * nt) tile_gemm<4, 4>(R, N, Kd, A, lda, W, epi);
-  else if (outs >= 2 * nt) tile_gemm<2, 2>(R, N, Kd, A, lda, W, epi);
-  else tile_gemm<1, 1>(R, N, Kd, A, lda, W, epi);
-}
-
-// A trunk weight: from the block's shared-memory copy of the consts, or
-// (GW, the P=1 form P1_GLOBAL) from device memory through the read-only
-// path, rounded to bf16 there in the bf16 forms (BF: the shared copy holds
-// them rounded already, round_trunk_weights).
-template <bool GW, bool BF = false>
-__device__ __forceinline__ float wt(const float* w) {
-  if constexpr (GW) return mm_in<BF>(__ldg(w));
-  else return *w;
+  if (outs >= 16 * nt) tile_gemm<4, 4, GW, BF>(R, N, Kd, A, lda, W, epi);
+  else if (outs >= 2 * nt) tile_gemm<2, 2, GW, BF>(R, N, Kd, A, lda, W, epi);
+  else tile_gemm<1, 1, GW, BF>(R, N, Kd, A, lda, W, epi);
 }
 
 // The network for R rows: features (body-frame velocity, rates, gravity
@@ -386,14 +402,15 @@ __device__ __forceinline__ float wt(const float* w) {
 // candidate rows of cand_part): the three products as
 // register tiles (rows_gemm), s.a0 and s.a1 at row stride tiled_ld; the
 // same sums in the same order. BF: the products' inputs stored rounded to
-// bf16 (mm_in; the weights are the caller's, rounded in s.c). GW (P=1
-// only): the weights (and biases) at their offsets from wb, in device
-// memory (wt).
+// bf16 (mm_in; the weights are the caller's, rounded in s.c, or GW rounded
+// where read). GW (the P=1 form P1_GLOBAL and the particle forms' global-
+// weight forms): the weights (and biases) at their offsets from wb, in
+// device memory (wt), read in the order and at the indices of the shared
+// copy, so both give the same sums.
 template <bool PART, bool TILED = false, bool BF = false, bool GW = false>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
                       float* st_h1p, const float* wb = nullptr) {
-  static_assert(!(GW && (PART || TILED)), "global weights are the P=1 step's");
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = GW ? wb : s.c;
   const int F = a.F, HID = a.HID, OUT = a.OUT;
@@ -422,20 +439,20 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const int ld = tiled_ld(a);
     const float* w1 = c + a.o_w1; const float* b1 = c + a.o_b1;
     const float* w2 = c + a.o_w2; const float* b2 = c + a.o_b2;
-    rows_gemm(R, HID, F, s.feat, F, w0, [&](int r, int j, float acc) {
-      const float pre = acc + b0[j];
+    rows_gemm<GW, BF>(R, HID, F, s.feat, F, w0, [&](int r, int j, float acc) {
+      const float pre = acc + wt<GW>(b0 + j);
       s.a0[r * ld + j] = mm_in<BF>(pre * sigm(pre));
       if (st_h0p) st_h0p[r * HID + j] = pre;
     });
     __syncthreads();
-    rows_gemm(R, HID, HID, s.a0, ld, w1, [&](int r, int j, float acc) {
-      const float pre = acc + b1[j];
+    rows_gemm<GW, BF>(R, HID, HID, s.a0, ld, w1, [&](int r, int j, float acc) {
+      const float pre = acc + wt<GW>(b1 + j);
       s.a1[r * ld + j] = mm_in<BF>(pre * sigm(pre));
       if (st_h1p) st_h1p[r * HID + j] = pre;
     });
     __syncthreads();
-    rows_gemm(R, OUT, HID, s.a1, ld, w2, [&](int r, int o, float acc) {
-      s.a2[r * OUT + o] = acc + b2[o];
+    rows_gemm<GW, BF>(R, OUT, HID, s.a1, ld, w2, [&](int r, int o, float acc) {
+      s.a2[r * OUT + o] = acc + wt<GW>(b2 + o);
     });
     __syncthreads();
     return;
@@ -892,8 +909,15 @@ __device__ void transpose_weights(const ApgArgs& a, const Smem& s) {
 // gradient rides in s.cu[r*nZ + n_u ..] in the proximal form). Needs
 // transpose_weights first. BF (the bf16 trunk): the trunk forward rounds as
 // the forward sweep did, and the cotangents entering the transposed
-// products (s.c_h2, s.c_h1p, s.c_h0p) are stored rounded.
-template <int SC, bool OPT = false, bool BF = false>
+// products (s.c_h2, s.c_h1p, s.c_h0p) are stored rounded. GW (the global-
+// weight forms): no transposes; the weights are read in place in device
+// memory (s.wg, wt), and a warp's threads take the rows of one unit (idx =
+// unit * R + r), so each weight read is one address for the warp (a
+// broadcast) and the cotangents s.c_h1p, s.c_h0p sit at row stride
+// tiled_ld (rows a warp reads together fall in different banks). Each
+// output is still one thread's sum over the same products in the same
+// order, so both forms give the same bits.
+template <int SC, bool OPT = false, bool BF = false, bool GW = false>
 __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
                          const float* __restrict__ z, int t, float* gout) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -902,7 +926,7 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   const float* xt = s.xs + t * R * 13;
   const float* x1 = s.xs + (t + 1) * R * 13;
   const float* u = U + t * nZ;
-  trunk<true, false, BF>(a, s, R, u, 0, 1, xt, s.p0, s.p1);
+  trunk<true, false, BF, GW>(a, s, R, u, 0, 1, xt, s.p0, s.p1, GW ? s.wg : nullptr);
   const float d_t = c[a.o_disc + t];
   const float cT = d_t / (float)R, cR = d_t * c[a.o_scal + SC_RESM] / (float)R;
   for (int r = tid; r < R; r += nt) {
@@ -913,34 +937,70 @@ __device__ void bwd_rows(const ApgArgs& a, const Smem& s, const float* U,
   }
   __syncthreads();
 
-  // trunk backward, one output per thread and row, on the transposed
-  // weights (transpose_weights)
-  for (int idx = tid; idx < R * HID; idx += nt) {
-    const int r = idx / HID, j = idx - r * HID;
-    const float* ch = s.c_h2 + r * OUT;
-    float acc = 0.f;
-    for (int o = 0; o < OUT; ++o) acc += ch[o] * s.w2t[o * HID + j];
-    const float h = s.p1[idx], s1 = sigm(h);
-    s.c_h1p[idx] = mm_in<BF>(acc * (s1 + h * s1 * (1.f - s1)));
+  if constexpr (GW) {
+    // trunk backward, one output per thread and row, on the weights in
+    // device memory: w2t[o][j] = w2[j][o], w1t[j][i] = w1[i][j], w0t[j][i] =
+    // w0[i][j]
+    const int ld = tiled_ld(a);
+    const float* w0 = s.wg + a.o_w0;
+    const float* w1 = s.wg + a.o_w1;
+    const float* w2 = s.wg + a.o_w2;
+    for (int idx = tid; idx < R * HID; idx += nt) {
+      const int j = idx / R, r = idx - j * R;
+      const float* ch = s.c_h2 + r * OUT;
+      float acc = 0.f;
+      for (int o = 0; o < OUT; ++o) acc += ch[o] * wt<GW, BF>(w2 + j * OUT + o);
+      const float h = s.p1[r * HID + j], s1 = sigm(h);
+      s.c_h1p[r * ld + j] = mm_in<BF>(acc * (s1 + h * s1 * (1.f - s1)));
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * HID; idx += nt) {
+      const int i = idx / R, r = idx - i * R;
+      const float* ch = s.c_h1p + r * ld;
+      float acc = 0.f;
+      for (int j = 0; j < HID; ++j) acc += wt<GW, BF>(w1 + i * HID + j) * ch[j];
+      const float h = s.p0[r * HID + i], s0 = sigm(h);
+      s.c_h0p[r * ld + i] = mm_in<BF>(acc * (s0 + h * s0 * (1.f - s0)));
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * F; idx += nt) {
+      const int i = idx / R, r = idx - i * R;
+      const float* ch = s.c_h0p + r * ld;
+      float acc = 0.f;
+      for (int j = 0; j < HID; ++j) acc += wt<GW, BF>(w0 + i * HID + j) * ch[j];
+      s.c_feat[r * F + i] = acc;
+    }
+    __syncthreads();
+  } else {
+    // trunk backward, one output per thread and row, on the transposed
+    // weights (transpose_weights)
+    for (int idx = tid; idx < R * HID; idx += nt) {
+      const int r = idx / HID, j = idx - r * HID;
+      const float* ch = s.c_h2 + r * OUT;
+      float acc = 0.f;
+      for (int o = 0; o < OUT; ++o) acc += ch[o] * s.w2t[o * HID + j];
+      const float h = s.p1[idx], s1 = sigm(h);
+      s.c_h1p[idx] = mm_in<BF>(acc * (s1 + h * s1 * (1.f - s1)));
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * HID; idx += nt) {
+      const int r = idx / HID, i = idx - r * HID;
+      const float* ch = s.c_h1p + r * HID;
+      float acc = 0.f;
+      for (int j = 0; j < HID; ++j) acc += s.w1t[j * HID + i] * ch[j];
+      const float h = s.p0[idx], s0 = sigm(h);
+      s.c_h0p[idx] = mm_in<BF>(acc * (s0 + h * s0 * (1.f - s0)));
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * F; idx += nt) {
+      const int r = idx / F, i = idx - r * F;
+      const float* ch = s.c_h0p + r * HID;
+      float acc = 0.f;
+      for (int j = 0; j < HID; ++j) acc += s.w0t[j * F + i] * ch[j];
+      s.c_feat[idx] = acc;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int idx = tid; idx < R * HID; idx += nt) {
-    const int r = idx / HID, i = idx - r * HID;
-    const float* ch = s.c_h1p + r * HID;
-    float acc = 0.f;
-    for (int j = 0; j < HID; ++j) acc += s.w1t[j * HID + i] * ch[j];
-    const float h = s.p0[idx], s0 = sigm(h);
-    s.c_h0p[idx] = mm_in<BF>(acc * (s0 + h * s0 * (1.f - s0)));
-  }
-  __syncthreads();
-  for (int idx = tid; idx < R * F; idx += nt) {
-    const int r = idx / F, i = idx - r * F;
-    const float* ch = s.c_h0p + r * HID;
-    float acc = 0.f;
-    for (int j = 0; j < HID; ++j) acc += s.w0t[j * F + i] * ch[j];
-    s.c_feat[idx] = acc;
-  }
-  __syncthreads();
   for (int r = tid; r < R; r += nt)
     bwd_feat(a, xt + r * 13, s.c_feat + r * F, s.cu + r * nZ, s.ct + r * 13, s.cu + r * nZ);
   __syncthreads();
@@ -1533,9 +1593,11 @@ __device__ __forceinline__ int block_chunks(const ApgArgs& a) {
 // each chunk's reverse with the rows' risk weights (the header's Risk
 // note). BF: the bf16 trunk. RM (OPT): RISK_MOMENTS_IN weighs the rows with
 // the moments in s.red[6], s.red[7] after each chunk's own forward, and
-// *fval is then the risk-free cost of this launch's particles.
+// *fval is then the risk-free cost of this launch's particles. GW: the
+// trunk's weights read from device memory (s.wg; trunk, bwd_rows).
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER, class Noise = const float*, class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, bool GW = false, class Noise = const float*,
+          class Starts = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         Noise noise, Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
@@ -1554,11 +1616,13 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
       __syncthreads();
       const float* zc = noise_at(noise) + (size_t)ch * R * 13;
       for (int t = 0; t < a.H; ++t)
-        fwd_step<true, SC, false, BF>(a, s, R, U + t * a.nZ, 0, 1, zc + (size_t)t * a.P * 13,
-                                      s.xs + t * R * 13, s.xs + (t + 1) * R * 13, t);
+        fwd_step<true, SC, false, BF, GW>(a, s, R, U + t * a.nZ, 0, 1,
+                                          zc + (size_t)t * a.P * 13, s.xs + t * R * 13,
+                                          s.xs + (t + 1) * R * 13, t, nullptr, nullptr,
+                                          GW ? s.wg : nullptr);
       prof_stamp<PROF>(s, PP_VG_FWD);
       for (int t = a.H - 1; t >= 0; --t)
-        bwd_rows<SC, false, BF>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
+        bwd_rows<SC, false, BF, GW>(a, s, U, zc + (size_t)t * a.P * 13, t, part);
       prof_stamp<PROF>(s, PP_VG_BWD);
       if (warp == 0) warp_reduce_to(R, [&](int r) { return s.jt[r]; }, s.red + 3);
       if (warp == 1) warp_reduce_to(R, [&](int r) { return s.jr[r]; }, s.red + 4);
@@ -1625,9 +1689,10 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
         __syncthreads();
         const float* zc = noise_at(noise) + (size_t)ch * R * 13;
         for (int t = 0; t < a.H; ++t)
-          fwd_step<true, SC, false, BF>(a, s, R, U + t * a.nZ, 0, 1,
-                                        zc + (size_t)t * a.P * 13, s.xs + t * R * 13,
-                                        s.xs + (t + 1) * R * 13, t);
+          fwd_step<true, SC, false, BF, GW>(a, s, R, U + t * a.nZ, 0, 1,
+                                            zc + (size_t)t * a.P * 13, s.xs + t * R * 13,
+                                            s.xs + (t + 1) * R * 13, t, nullptr, nullptr,
+                                            GW ? s.wg : nullptr);
         prof_stamp<PROF>(s, PP_VG_FWD);
       }
       if (it < block_chunks(a)) {
@@ -1666,7 +1731,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           __syncthreads();
         }
         for (int t = a.H - 1; t >= 0; --t)
-          bwd_rows<SC, true, BF>(a, s, U,
+          bwd_rows<SC, true, BF, GW>(a, s, U,
                              noise_at(noise) + (size_t)(block_rank_now() + j * a.cluster) * R * 13
                                  + (size_t)t * a.P * 13,
                              t, s.pg + chunk_of(it) * W);
@@ -1713,9 +1778,11 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // whole solve sweeps its K candidates at once; value_batch calls it with
 // K = 1 (one candidate per cluster). BF: the bf16 trunk. RM (OPT):
 // RISK_MOMENTS_OUT leaves the centred second moments in s.cacc[3K + k] and
-// the tracking means without the risk term.
+// the tracking means without the risk term. GW: the trunk's weights read from
+// device memory (s.wg; trunk).
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER, class Noise = const float*, class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, bool GW = false, class Noise = const float*,
+          class Starts = const float*>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
                           Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1734,8 +1801,9 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
     __syncthreads();
     const float* zc = noise_at(noise) + (size_t)ch * Pc * 13;
     for (int t = 0; t < a.H; ++t)
-      fwd_step<true, SC, true, BF>(a, s, R, s.cand + t * a.nZ, HZ, K,
-                               zc + (size_t)t * a.P * 13, s.xr, s.xr, t);
+      fwd_step<true, SC, true, BF, GW>(a, s, R, s.cand + t * a.nZ, HZ, K,
+                                       zc + (size_t)t * a.P * 13, s.xr, s.xr, t, nullptr,
+                                       nullptr, GW ? s.wg : nullptr);
     prof_stamp<PROF>(s, PP_CAND);
     if (OPT && a.risk) {
       const float resm = s.c[a.o_scal + SC_RESM];

@@ -102,7 +102,7 @@ theirs in ``configs/models/precond/``), or on a miss probes it once on the
 device (:func:`hover_diag_probe`, the original's ``:510-580``) and writes
 it to the first writable cache path. A trunk of any width flies every
 route on the card: the P=1 kernels pick their form by its shape
-(``ops/cuda/consts.py::p1_step``).
+(``csrc/apg_solve.cuh::p1_form``).
 
 The tuner's hooks (original ``:194-202``, ``:234-240``, ``:360-366``;
 ``tuning/tuner.py``): ``mppi_params`` replaces the config's ``mppi``

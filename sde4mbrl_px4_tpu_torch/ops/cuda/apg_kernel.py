@@ -74,6 +74,16 @@ stays fp32 (``:815-819``). The P=1 form has no bf16 trunk (the original runs
 P=1 on its kernel, at HIGHEST) and raises.
 ``apg_solve_kernel.launches_bf16`` counts the bf16 launches
 (``.launches`` counts all of them).
+
+A particle solve whose trunk and chunk fit no shared-memory form (past 144
+hidden units at P=512 on the iris configs) runs the global-weight form
+(``consts.py`` module docstring): the trunk's weights read in place from
+device memory, scenario 0's for a batched launch. Its instantiations are the
+options forms (risk and starts off unless the solve has them) in libraries
+of their own (``csrc/apg_solve_gw.cu``, ``csrc/apg_solve_gw_bf16.cu``;
+:func:`load_apg_library` with ``part_global``), picked by ``apg_part_form``
+after the chunk is planned; ``apg_solve_kernel.launches_global`` counts
+their launches (in ``.launches`` too).
 """
 from __future__ import annotations
 
@@ -87,8 +97,8 @@ from sde4mbrl_px4_tpu_torch.cost.cost import CostParams, scenario_cost
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, has_options,
-    p1_widths, plan_particles, sc_kind, scenario_weights)
+    P1_GLOBAL, SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts,
+    has_options, p1_widths, plan_particles, sc_kind, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -112,19 +122,28 @@ _P = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=None)
-def load_apg_library(bf16: bool = False, p1_step: bool = False) -> ctypes.CDLL:
+def load_apg_library(bf16: bool = False, p1_step: bool = False,
+                     part_global: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/apg_solve.cu`` (the register
     chain and the particle forms), with ``bf16`` ``csrc/apg_solve_bf16.cu``
     (the bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
-    (the P=1 shared-memory step). Each answers the shared-memory and ABI
+    (the P=1 shared-memory step), with ``part_global``
+    ``csrc/apg_solve_gw.cu`` (``csrc/apg_solve_gw_bf16.cu`` with ``bf16``:
+    the particle global-weight forms). Each answers the shared-memory and ABI
     queries of every form."""
-    lib = load_library("apg_solve_bf16" if bf16 else "apg_solve_p1" if p1_step else "apg_solve")
+    if part_global:
+        name = "apg_solve_gw_bf16" if bf16 else "apg_solve_gw"
+    else:
+        name = "apg_solve_bf16" if bf16 else "apg_solve_p1" if p1_step else "apg_solve"
+    lib = load_library(name)
     lib.apg_args_size.argtypes = []
     lib.apg_args_size.restype = ctypes.c_int
     lib.apg_smem_bytes.argtypes = [ctypes.POINTER(ApgArgs)]
     lib.apg_smem_bytes.restype = ctypes.c_int
     lib.apg_p1_form.argtypes = [ctypes.POINTER(ApgArgs)]
     lib.apg_p1_form.restype = ctypes.c_int
+    lib.apg_part_form.argtypes = [ctypes.POINTER(ApgArgs)]
+    lib.apg_part_form.restype = ctypes.c_int
     lib.apg_error_string.argtypes = [ctypes.c_int]
     lib.apg_error_string.restype = ctypes.c_char_p
     lib.apg_init.argtypes = []
@@ -152,17 +171,29 @@ def plan_solve_particles(args: ApgArgs, num_particles: int, chunk: int,
                          cluster: int = 0, prof: bool = False) -> None:
     """Fill the particle and cluster fields of a solve's ``args``: ``chunk``,
     or the largest divisor of P whose shared memory (``apg_smem_bytes``)
-    fits the 227 KB budget of the particle form; C = min(n_chunks, C_max)
-    blocks, C_max the form's largest cluster (``apg_cluster_max``; the
-    clock-stamped form's with ``prof``, the options form's where ``args``
-    has risk or starts; the bf16 library's with ``args.bf16``) or ``cluster``
-    when it is given."""
+    fits the 227 KB budget of the particle form, the shared-memory form at
+    every chunk first and the global-weight form only where none fits
+    (``consts.plan_particles``); C = min(n_chunks, C_max) blocks, C_max the
+    form's largest cluster (``apg_cluster_max``; the clock-stamped form's
+    with ``prof``, the options form's where ``args`` has risk or starts; the
+    bf16 library's with ``args.bf16``; the global-weight library's for that
+    form) or ``cluster`` when it is given."""
     lib = load_apg_library(bool(args.bf16))
-    c_max = lib.apg_cluster_max(args.sc_kind, int(prof), has_options(args))
-    if cluster:
-        if not 1 <= cluster <= c_max:
-            raise ValueError(f"cluster={cluster}: the particle form takes 1 to {c_max} blocks")
-        c_max = cluster
+
+    def c_max(form: int) -> int:
+        if form == P1_GLOBAL:
+            if prof:
+                raise ValueError("apg_phase_split: the clock-stamped build has no "
+                                 "global-weight form (a trunk past the particle form's "
+                                 "shared memory)")
+            most = load_apg_library(bool(args.bf16), part_global=True).apg_cluster_max(
+                args.sc_kind, 0, 1)
+        else:
+            most = lib.apg_cluster_max(args.sc_kind, int(prof), has_options(args))
+        if cluster and not 1 <= cluster <= most:
+            raise ValueError(f"cluster={cluster}: the particle form takes 1 to {most} blocks")
+        return cluster or most
+
     plan_particles(args, num_particles, chunk,
                    lambda a: lib.apg_smem_bytes(ctypes.byref(a)), SMEM_LIMIT_PARTICLES,
                    c_max)
@@ -322,7 +353,8 @@ def apg_solve_kernel_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostP
     ``t_init`` (B,) or None, and the tracking weights of ``cp`` where they
     carry a (B,) axis (``cost/cost.py``); ``bf16`` the module docstring's. The box,
     ``params`` (the trunk, which the P=1 form with its weights in device
-    memory reads once for every scenario), ``precond``, ``iter_budget`` and
+    memory and the particle global-weight form read once, scenario 0's, for
+    every scenario), ``precond``, ``iter_budget`` and
     the particle plan are shared. On the card
     one launch of the whole-solve kernel over a grid of B scenarios (one
     block, or one cluster of C blocks, each, with its own loop and early
@@ -417,11 +449,16 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
     args.bf16 = int(bool(bf16))
+    glob = False
     if z is not None:
         plan_solve_particles(args, P, chunk, cluster, prof is not None)
+        glob = lib.apg_part_form(ctypes.byref(args)) == P1_GLOBAL
+        if glob:
+            lib = load_apg_library(bool(bf16), part_global=True)
     t0 = resolve_t_init(apg, t_init, dev).expand(B).contiguous()
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z, starts,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
+    apg_solve_kernel.launches_global += int(glob)
     if x_evol is None:
         x_evol = trajectory_kernel(consts, args, yk)        # fp32 whatever args.bf16
     st = APGState(yk=yk, num_steps=stats[:, 0], stepsize=stats[:, 1],
@@ -460,3 +497,4 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 
 apg_solve_kernel.launches = apg_solve_kernel.launches_bf16 = 0
+apg_solve_kernel.launches_global = 0

@@ -58,14 +58,26 @@ buffer ends with the trunk (``w0, b0, w1, b1, w2, b2``): the kernels copy
 the ``o_w0`` floats before it. Each library picks the form of each launch
 from its dimensions (``csrc/apg_solve.cuh::p1_form``; ``apg_p1_form`` and
 ``oracle_p1_form`` report it); :func:`build_consts` leaves
-``ApgArgs.p1_step`` at :data:`P1_BY_SHAPE`, which asks for that choice. A
-launch given a form by name (``p1_step``, for measurement) takes it or is
+``ApgArgs.step`` at :data:`P1_BY_SHAPE`, which asks for that choice. A
+launch given a form by name (``step``, for measurement) takes it or is
 refused.
+
+The particle forms' trunk: the weights, and their transposes for the
+reverse sweep, in the block's copy of the consts (:data:`P1_SMEM`, every
+trunk up to 144 units at P=512 on the iris configs), or read in place from
+device memory with only the consts before them copied
+(:data:`P1_GLOBAL`, the global-weight forms: any width). Each library picks
+the form of a launch from its dimensions and chunk
+(``csrc/apg_solve.cuh::part_form``; ``apg_part_form`` and
+``oracle_part_form`` report it), and :func:`plan_particles` plans the chunk
+in the shared-memory form first, so the global-weight form runs only where
+no chunk of the other fits. A form named in ``ApgArgs.step`` (for
+measurement) is planned alone and taken or refused at launch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -86,9 +98,9 @@ APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 register chain holds the trunk in registers at these widths: hidden
 # units, and the most inputs 9 + n_u (csrc/apg_solve.cuh P1_HID, P1_FMAX)
 P1_HID, P1_FMAX = 64, 16
-# the P=1 forms (csrc/apg_solve.cuh P1_*, ApgArgs.p1_step): the libraries'
+# the trunk's forms (csrc/apg_solve.cuh P1_*, ApgArgs.step): the libraries'
 # choice by shape, the register chain, the shared-memory step, and that step
-# with the weights in device memory
+# with the weights in device memory (the particle forms: the last two)
 P1_BY_SHAPE, P1_CHAIN, P1_SMEM, P1_GLOBAL = -1, 0, 1, 2
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
@@ -125,7 +137,7 @@ _RISK_FIELDS = ("risk", "has_starts", "risk_mode")
 _BATCH_FIELDS = ("batch",)
 _PRECISION_FIELDS = ("bf16",)
 _CLUSTER_FIELDS = ("cluster", "chunks_per_block")
-_P1_FIELDS = ("p1_step",)
+_STEP_FIELDS = ("step",)
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
 
@@ -135,7 +147,7 @@ class ApgArgs(ctypes.Structure):
                 + [("dfp", ctypes.c_float * (APG_MAXK + 1))]
                 + [(n, ctypes.c_int)
                    for n in _SC_FIELDS + _RISK_FIELDS + _BATCH_FIELDS + _PRECISION_FIELDS
-                   + _P1_FIELDS + _CLUSTER_FIELDS])
+                   + _STEP_FIELDS + _CLUSTER_FIELDS])
 
 
 def has_options(a: ApgArgs) -> int:
@@ -191,8 +203,8 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     The box is nZ wide (``n_u`` plus the proximal form's slack columns). ``particles`` (a Monte-Carlo solve) turns on the
     risk reduction where the cost has ``risk_lambda``; at P=1 the cost is
     the mean dynamics' and the risk term is 0, as in the original. The
-    trunk's weights close the buffer; ``p1_step`` asks the libraries for
-    the P=1 form by shape (module docstring)."""
+    trunk's weights close the buffer; ``step`` asks the libraries for
+    the trunk's form by shape (module docstring)."""
     if apg is not None and apg.maxls > APG_MAXK:
         raise ValueError(f"maxls={apg.maxls} exceeds the kernel's {APG_MAXK}")
     f32 = torch.float32
@@ -241,7 +253,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
-    a.p1_step = P1_BY_SHAPE
+    a.step = P1_BY_SHAPE
     if apg is None:
         return buf, a
     a.K = int(apg.maxls)
@@ -336,22 +348,44 @@ def value_batch_grid(K: int, a: ApgArgs,
     return -(-int(K) // rows), rows
 
 
+# the particle forms by their ApgArgs.step, as plan_particles names them
+_FORM_NAMES = {P1_SMEM: "the shared-memory form", P1_GLOBAL: "the global-weight form"}
+
+
 def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
-                   need: Callable[[ApgArgs], int], limit: int, c_max: int = 1) -> None:
+                   need: Callable[[ApgArgs], int], limit: int,
+                   c_max: Union[int, Callable[[int], int]] = 1) -> None:
     """Fill the particle fields of ``a`` for a Monte-Carlo solve: P paths
     swept in ``n_chunks`` passes of ``Pc`` rows, over a cluster of at most
-    ``c_max`` blocks (:func:`plan_cluster`). ``chunk`` is the one
+    ``c_max`` blocks (:func:`plan_cluster`; a function of the particle form
+    where the forms' largest clusters differ). ``chunk`` is the one
     ``cost_oracle.resolve_particles`` checked: a divisor of P below P, or 0,
     which takes the largest divisor of P whose shared-memory ``need(a)``
-    (bytes, the block's chunk partials included) fits ``limit``. Raises
-    ValueError when nothing fits."""
+    (bytes, the block's chunk partials included; the library's count for the
+    form ``a.step`` names) fits ``limit``. The shared-memory form
+    (:data:`P1_SMEM`) is tried at every chunk first and the global-weight
+    form (:data:`P1_GLOBAL`) only where none fits (module docstring); a
+    form named in ``a.step`` is tried alone. ``a.step`` is left as
+    it came: the libraries take the planned form by shape. Raises ValueError,
+    naming the width and the bytes, when nothing fits."""
     P = int(num_particles)
     a.P, a.has_noise = P, 1
     sizes = [chunk] if chunk else [d for d in range(P, 0, -1) if P % d == 0]
-    for pc in sizes:
-        a.Pc, a.n_chunks = pc, P // pc
-        a.cluster, a.chunks_per_block = plan_cluster(a.n_chunks, c_max)
-        if need(a) <= limit:
-            return
-    raise ValueError(f"P={P} in chunks of {a.Pc} needs {need(a)} bytes of "
-                     f"shared memory per block, above the {limit}-byte budget")
+    named = a.step
+    forms = (P1_SMEM, P1_GLOBAL) if named == P1_BY_SHAPE else (named,)
+    cmax = c_max if callable(c_max) else (lambda form: c_max)
+    tried = []
+    try:
+        for form in forms:
+            a.step = form
+            for pc in sizes:
+                a.Pc, a.n_chunks = pc, P // pc
+                a.cluster, a.chunks_per_block = plan_cluster(a.n_chunks, cmax(form))
+                if need(a) <= limit:
+                    return
+            tried.append(f"{need(a)} bytes ({_FORM_NAMES.get(form, f'form {form}')})")
+    finally:
+        a.step = named
+    raise ValueError(f"P={P} on a {a.HID}-unit trunk (F={a.F}) in chunks of {a.Pc} needs "
+                     f"{' or '.join(tried)} of shared memory per block, above the "
+                     f"{limit}-byte budget")

@@ -87,6 +87,20 @@ share of the risk cost given each scenario's mean and std of the totals
 over all particles, one launch of ``value_and_grad``'s moments-in form.
 ``.launches_moments`` counts the launches of those forms (in ``.launches``
 too).
+
+A particle trunk and chunk that fit no shared-memory form of a kernel (past
+144 hidden units at P=512 on the iris configs; ``consts.py`` module
+docstring) run that kernel's global-weight form: the trunk's weights read in
+place from device memory (scenario 0's for a batched launch), no transposes.
+Its instantiations are the options forms and their shared-moments forms
+(risk and starts off unless the oracle has them), fp32 and bf16, in a
+library of their own (``csrc/cost_oracle_gw.cu``;
+:func:`load_oracle_library` with ``part_global``), picked per launch by
+``oracle_part_form``; the two kernels share one chunk, planned in the
+shared-memory forms first, and each takes its form by shape (``value_batch``
+keeps its shared-memory form wherever its own block fits).
+``.launches_global`` counts each kernel's global-weight launches (in
+``.launches`` too).
 """
 from __future__ import annotations
 
@@ -101,7 +115,7 @@ from sde4mbrl_px4_tpu_torch.cost.cost import (CostParams, make_cost_fn, make_ris
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, RISK_MOMENTS_IN,
+    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL, RISK_MOMENTS_IN,
     RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, opt_form,
     p1_widths, plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
@@ -118,9 +132,11 @@ _A = ctypes.POINTER(ApgArgs)
 
 
 @functools.lru_cache(maxsize=None)
-def load_oracle_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/cost_oracle.cu``."""
-    lib = load_library("cost_oracle")
+def load_oracle_library(part_global: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/cost_oracle.cu``, with
+    ``part_global`` ``csrc/cost_oracle_gw.cu`` (the particle global-weight
+    forms). Each answers the shared-memory and ABI queries of every form."""
+    lib = load_library("cost_oracle_gw" if part_global else "cost_oracle")
     sig = {
         "cost_oracle_args_size": ([], ctypes.c_int),
         "cost_oracle_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -129,6 +145,7 @@ def load_oracle_library() -> ctypes.CDLL:
         "trajectory_smem_bytes": ([_A], ctypes.c_int),
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
         "oracle_p1_form": ([_A, ctypes.c_int], ctypes.c_int),
+        "oracle_part_form": ([_A, ctypes.c_int], ctypes.c_int),
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 8, ctypes.c_int),
@@ -323,6 +340,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _library(args: ApgArgs, kind: int) -> Tuple[ctypes.CDLL, bool]:
+    """The library a launch of ``kind`` takes, and whether its form is the
+    particle global-weight form (``oracle_part_form``)."""
+    lib = load_oracle_library()
+    glob = bool(args.has_noise) and lib.oracle_part_form(ctypes.byref(args), kind) == P1_GLOBAL
+    return (load_oracle_library(True) if glob else lib), glob
+
+
 def _check_batch(what: str, args: ApgArgs, consts: torch.Tensor, u: torch.Tensor,
                  per: int, noise: Optional[torch.Tensor] = None,
                  starts: Optional[torch.Tensor] = None) -> None:
@@ -361,9 +386,10 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     form, each plan's (risk-free cost, mean of the totals, their centred
     second moment) into (K, 3) (B, K, 3), counted in ``.launches_moments``
     too. Every scenario must hold the same trunk in its consts (as
-    ``consts.batch_consts`` writes them): at P=1 the form with the weights
-    in device memory reads scenario 0's for all."""
-    lib = load_oracle_library()
+    ``consts.batch_consts`` writes them): the forms with the weights in
+    device memory (at P=1, and the particle global-weight forms) read
+    scenario 0's for all."""
+    lib, glob = _library(args, ORACLE_VALUE_BATCH)
     K = int(U.shape[-3])
     _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise, starts)
     need = lib.value_batch_smem_bytes(ctypes.byref(args), K)
@@ -379,6 +405,7 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
               "value_batch")
     value_batch_kernel.launches += 1
     value_batch_kernel.launches_bf16 += args.bf16
+    value_batch_kernel.launches_global += glob
     value_batch_kernel.launches_moments += moments
     return out
 
@@ -409,7 +436,7 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     if not args.has_noise and args.bf16:
         raise ValueError("value_and_grad: the P=1 form has no bf16 trunk (the JAX "
                          "package runs it on its kernel, at HIGHEST)")
-    lib = load_oracle_library()
+    lib, glob = _library(args, ORACLE_VALUE_AND_GRAD)
     _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
@@ -424,6 +451,7 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
               "value_and_grad")
     value_and_grad_kernel.launches += 1
     value_and_grad_kernel.launches_bf16 += args.bf16
+    value_and_grad_kernel.launches_global += glob
     value_and_grad_kernel.launches_moments += want
     return val, grad
 
@@ -432,23 +460,34 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
                           cluster: int = 0) -> None:
     """The oracle's chunk: ``chunk``, or the largest divisor of P whose
     ``value_batch`` and ``value_and_grad`` blocks both fit (one chunk for
-    both: the mean of chunk means depends on it); and the cluster of both
-    kernels: C = min(n_chunks, C_max), C_max the smaller of their forms'
-    largest (``oracle_cluster_max``, the options forms' where ``args`` has
-    risk or starts, with risk their shared-moments forms' too, so that one
-    plan serves both; the bf16 forms' with ``args.bf16``) or ``cluster``
-    when given."""
+    both: the mean of chunk means depends on it), in the shared-memory forms
+    at every chunk first and the global-weight forms only where none fits
+    (``consts.plan_particles``); and the cluster of both kernels: C =
+    min(n_chunks, C_max), C_max the smaller of their forms' largest
+    (``oracle_cluster_max``, the options forms' where ``args`` has risk or
+    starts, with risk their shared-moments forms' too, so that one plan
+    serves both; the bf16 forms' with ``args.bf16``; with the global-weight
+    forms the smaller over both libraries, since each kernel takes its form
+    by its own bytes; that library is loaded only where they are planned) or
+    ``cluster`` when given."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
 
     forms = (opt_form(args),) + ((OPT_MOMENTS,) if args.risk else ())
-    c_max = min(lib.oracle_cluster_max(kind, args.sc_kind, form, args.bf16)
-                for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD) for form in forms)
-    if cluster:
-        if not 1 <= cluster <= c_max:
-            raise ValueError(f"cluster={cluster}: the oracle kernels take 1 to {c_max} blocks")
-        c_max = cluster
+
+    def largest(l) -> int:
+        return min(l.oracle_cluster_max(kind, args.sc_kind, form, args.bf16)
+                   for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD) for form in forms)
+
+    def c_max(step: int) -> int:
+        most = largest(lib)
+        if step == P1_GLOBAL:
+            most = min(most, largest(load_oracle_library(True)))
+        if cluster and not 1 <= cluster <= most:
+            raise ValueError(f"cluster={cluster}: the oracle kernels take 1 to {most} blocks")
+        return cluster or most
+
     plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max)
 
 
@@ -477,6 +516,7 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
 value_batch_kernel.launches = value_batch_kernel.launches_bf16 = 0
 value_and_grad_kernel.launches = value_and_grad_kernel.launches_bf16 = 0
 value_batch_kernel.launches_moments = value_and_grad_kernel.launches_moments = 0
+value_batch_kernel.launches_global = value_and_grad_kernel.launches_global = 0
 trajectory_kernel.launches = 0
 
 

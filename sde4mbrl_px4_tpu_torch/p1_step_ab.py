@@ -33,8 +33,10 @@ HIDS = (32, 72, 128)
 
 @contextlib.contextmanager
 def forced(step: int):
-    """The wrappers' consts name the P=1 form ``step`` (``ApgArgs.p1_step``)
-    for the duration, in place of the libraries' choice by shape."""
+    """The wrappers' consts name the trunk's form ``step``
+    (``ApgArgs.step``: at P=1 any ``P1_*`` form, on the particle forms
+    ``P1_SMEM`` or ``P1_GLOBAL``) for the duration, in place of the
+    libraries' choice by shape (measurement only)."""
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
@@ -42,7 +44,7 @@ def forced(step: int):
 
     def named(*args, **kw):
         consts, a = build(*args, **kw)
-        a.p1_step = step
+        a.step = step
         return consts, a
 
     AK.build_consts = CO.build_consts = named

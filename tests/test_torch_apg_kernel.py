@@ -87,7 +87,7 @@ def test_scope_is_enforced(port_bundles):
         AK.apg_solve_kernel(*args, 1, lb6, lb6 + 1, u_init)
     # the P=1 form is the trunk's shape's: the register chain on 64 hidden
     # units and at most 16 inputs (9 + n_u), the shared-memory step on any
-    # other, whose weights the libraries place (p1_step asks them to); no
+    # other, whose weights the libraries place (ApgArgs.step asks them to); no
     # width is refused, and the weights close the consts buffer
     AK._check_scope(tb.model, tb.cost_params, tb.apg_config, tb.lb)
     net = tb.params["net"]
@@ -100,7 +100,7 @@ def test_scope_is_enforced(port_bundles):
     for params, hid in ((tb.params, 64), (trunk(32), 32), (trunk(128), 128), (trunk(256), 256)):
         _, oargs = build_consts(tb.model, params, tb.cost_params, tb.apg_config,
                                 tb.time_steps, x0, x_ref, u_prev)
-        assert (oargs.HID, oargs.F, oargs.p1_step) == (hid, 13, P1_BY_SHAPE)
+        assert (oargs.HID, oargs.F, oargs.step) == (hid, 13, P1_BY_SHAPE)
         assert p1_widths(oargs.F, oargs.HID) == (hid == 64)
         assert oargs.n_consts == oargs.o_b2 + 12 and oargs.o_w0 == oargs.o_ub + 4
     with pytest.raises(ValueError, match="no bf16 trunk"):

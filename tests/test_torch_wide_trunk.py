@@ -3,7 +3,7 @@
 The JAX package's kernels take the trunk at whatever width its arrays have
 (``sde4mbrl_px4_tpu/models/sde_model.py::init_params(..., hidden)``; the
 Pallas kernels read ``w0, w1, w2`` as refs of any shape). The port's P=1
-kernels pick a form by the trunk's shape (``ops/cuda/consts.py::p1_step``):
+kernels pick a form by the trunk's shape (``csrc/apg_solve.cuh::p1_form``):
 the register chain on 64 hidden units, the shared-memory step elsewhere,
 its weights in device memory where the blocks would not fit 227 KB with
 them. On the CPU every wrapper runs its plain twin, which these tests hold
@@ -121,7 +121,7 @@ def cache(tmp_path, monkeypatch):
 def test_p1_step_by_shape(repo_root, hidden, n_u, step):
     """The form of each shape: the register chain exactly on 64 units (iris
     F = 13, hexa F = 15), else a shared-memory step form, which the
-    libraries pick (``p1_step`` asks for that); and the trunk last in the
+    libraries pick (``ApgArgs.step`` asks for that); and the trunk last in the
     consts, as the form with its weights in device memory needs. Which step
     form each kernel takes at ``step``'s widths (the weights in shared
     memory to 128 units, in device memory at 256) is the libraries' choice,
@@ -137,7 +137,7 @@ def test_p1_step_by_shape(repo_root, hidden, n_u, step):
     x0 = hover_state()
     _, a = build_consts(tb.model, params, tb.cost_params, tb.apg_config, tb.time_steps, x0,
                         x0.expand(tb.time_steps.shape[0] + 1, 13), torch.zeros(n_u))
-    assert (a.F, a.HID, a.p1_step) == (9 + n_u, hidden, P1_BY_SHAPE)
+    assert (a.F, a.HID, a.step) == (9 + n_u, hidden, P1_BY_SHAPE)
     assert p1_widths(a.F, a.HID) == (step == P1_CHAIN)
     assert a.n_consts == a.o_b2 + 12 and a.o_w0 == a.o_ub + n_u
     assert (a.o_b0, a.o_w1, a.o_b1, a.o_w2) == (
@@ -222,7 +222,7 @@ def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
     rtol 1e-5), ``value_batch`` K = 1, 20 (rtol 2e-5), ``value_and_grad``
     (rtol 5e-4 / atol 5e-5) and ``trajectory`` (rtol 1e-5); each kernel
     runs the form the libraries pick by shape, within 227 KB, and the other
-    step form, named in ``p1_step``, gives the same bits."""
+    step form, named in ``ApgArgs.step``, gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the P=1 shared-memory step is a CUDA kernel")
     import ctypes
@@ -276,7 +276,7 @@ def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
     # the weights in device memory instead: the same sums, the same bits
     consts, g = build_consts(b.model, params, b.cost_params, None, b.time_steps, x0, x_ref,
                              u_prev)
-    g.p1_step = P1_GLOBAL
+    g.step = P1_GLOBAL
     assert torch.equal(CO.value_batch_kernel(consts, g, U), kern.value_batch(U))
     assert all(torch.equal(p, q) for p, q in zip(CO.value_and_grad_kernel(consts, g, U[0]),
                                                  kern.value_and_grad(U[0])))
