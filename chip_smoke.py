@@ -29,13 +29,14 @@ without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds the seven kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
-   (``apg_solve``, its bf16 particle forms ``apg_solve_bf16``, its P=1
+2. builds the eight kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
+   (``apg_solve``: the fp32 particle forms, its P=1 register chain
+   ``apg_solve_chain``, its bf16 particle forms ``apg_solve_bf16``, its P=1
    shared-memory step ``apg_solve_p1``, its particle global-weight forms
    ``apg_solve_gw`` and ``apg_solve_gw_bf16``, ``cost_oracle`` and its
    global-weight forms ``cost_oracle_gw``; one ``nvcc`` each, in parallel)
-   and prints the build
-   seconds and the compiler's register/spill/shared-memory summary per
+   and prints each library's ``nvcc`` seconds, the build's wall and the
+   compiler's register/spill/shared-memory summary per
    ``<PART, SC>`` form;
    fails if a P=1 form on the register chain (the whole solve,
    ``value_and_grad``, ``value_batch`` and ``trajectory``: their trunk lives
@@ -405,8 +406,27 @@ without a result):
     antithetic (bf16) and at ``highest``, a controller with
     ``deadline_ms: 30``, the floor at P=128, the fixed-step route at
     P=512 (ms a solve and an iteration, launches, the global-weight
-    launches among them); the forms timed at P=512 beside their plain
-    twins and bounds.
+    launches among them and their blocks per scenario), the same routes at
+    one cluster a scenario (``p1_step_ab.grouped(1)``), the controller's
+    warm solve against the 50 ms period; the forms timed at P=512 beside
+    their plain twins and bounds; (h) the spread of the global-weight forms
+    of #1 and #2 over more blocks than one cluster (``ApgArgs.groups``): at
+    152 and 256 units, P=512 antithetic, fp32 and bf16, without and with
+    risk and starts, the whole solve at 5 iterations (plan, stats,
+    ``x_evol``) and ``value_and_grad`` (in-cluster and moments-in forms) at
+    the planned groups bit-equal to one cluster a scenario, B = 2 in one
+    launch bit-equal to solo launches, and the 256-unit whole solve past one
+    cluster's 16 blocks; the spread forms against their plain twins at
+    P=512 (phase (g)'s tolerances); each timed at one cluster and at the
+    planned groups in turns; (i) the wide-trunk routes no other phase
+    flies: MPPI over K = 64 x P = 128 paths on the 256-unit checkpoint
+    (``value_batch``'s global-weight form on a grid of 64 clusters) against
+    the plain oracle, the particle-sharded P=512 solve over mc = 2 with
+    risk and starts on it (phase 29 (b')'s checks, the ranks' global-weight
+    launches counted), and the hexa on its checkpoint padded past each
+    form's switch (P=1 at 128 and 256 units, P=128 at 256) through
+    ``mpc_fn`` at a fixed 10 iterations against the plain route, its oracle
+    kernels against the plain oracle.
 
 In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28, 29 and 30 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
@@ -440,8 +460,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
-LIBS = ("apg_solve", "apg_solve_bf16", "apg_solve_p1", "apg_solve_gw", "apg_solve_gw_bf16",
-        "cost_oracle", "cost_oracle_gw")
+LIBS = ("apg_solve", "apg_solve_chain", "apg_solve_bf16", "apg_solve_p1", "apg_solve_gw",
+        "apg_solve_gw_bf16", "cost_oracle", "cost_oracle_gw")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
@@ -638,19 +658,22 @@ def phase_build() -> None:
         paths = dict(zip(LIBS, ex.map(build.build_library, LIBS)))
         native = native.result()
     nvcc_s = dict(build.build_library.seconds)     # loading reuses the builds
+    build_wall = time.perf_counter() - t
     if native.returncode != 0:
         raise AssertionError(f"make -C csrc failed: {native.stdout[-2000:]}"
                              f"{native.stderr[-2000:]}")
     log("phase 2: built csrc/libmpc_native.so (the native mailbox and MAVLink codec)")
     AK.load_apg_library()
+    AK.load_apg_library(chain=True)
     AK.load_apg_library(bf16=True)
     AK.load_apg_library(p1_step=True)
     AK.load_apg_library(part_global=True)
     AK.load_apg_library(bf16=True, part_global=True)
     CO.load_oracle_library()
     CO.load_oracle_library(part_global=True)
-    log(f"phase 2: built {len(LIBS)} libraries in parallel in "
-        f"{time.perf_counter() - t:.1f} s (with load)")
+    log(f"phase 2: built {len(LIBS)} libraries in parallel, one nvcc each, in "
+        f"{build_wall:.1f} s of wall ({time.perf_counter() - t:.1f} s with load); nvcc s by "
+        f"library: " + ", ".join(f"{name} {nvcc_s[name]:.1f}" for name in LIBS))
     spills, regs, current = {}, {}, None
     for name, path in paths.items():
         log(f"  {os.path.relpath(path, ROOT)}: nvcc {nvcc_s[name]:.1f} s")
@@ -6913,7 +6936,7 @@ def wide_part_bits(dev, traj_b, card: str) -> dict:
     return out
 
 
-def wide_part_routes(dev, ckpt: str, card: str) -> dict:
+def wide_part_routes(dev, ckpt: str, card: str, label: str = "planned groups") -> dict:
     """(g) The slice's path on the 256-unit checkpoint (``padded_trunk(...,
     256, seed=0)``): ``configs/iris_traj_mpc.yaml`` at P=512 antithetic
     through ``load_mpc_from_cfgfile`` -> ``mpc_fn`` (the bf16 trunk by
@@ -6924,7 +6947,10 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
     penalty form, fp32) through ``mpc_fn``; the fixed-step posctrl route at
     P=512, one solve. Each route's launches checked (zeroed just before it),
     its global-weight launches among them; ms per solve and per iteration
-    (CUDA events around each whole-solve launch)."""
+    (CUDA events around each whole-solve launch), the controller's solve ms
+    against the control period; ``label`` names the spread the caller set
+    (``p1_step_ab.grouped``), and each route's global-weight launches are
+    printed by their blocks per scenario."""
     import numpy as np
     import torch
     import yaml
@@ -6960,6 +6986,7 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
         st = reset_fn(x, gen, x)
         events, steps = [], []
         zero_counts()
+        b0 = spread_blocks()
         with routed("apg_solve_kernel", event_timed(events)):
             for k in range(n):
                 u, st, gen, x_evol = mpc_fn(x, gen, st, np.float32(t0 + k * dt), x)
@@ -6977,19 +7004,23 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
             raise AssertionError(f"the 256-unit P={P_FULL} route left the global-weight form")
         dev_ms = [a.elapsed_time(e) for a, e in events]
         out[tag] = {"launches": got, "global_launches": glob["apg_solve"], "steps": steps,
-                    "device_ms": dev_ms,
+                    "device_ms": dev_ms, "blocks": new_blocks(b0, "apg_solve"),
                     "iteration_ms": statistics.median(d / max(s, 1)
                                                       for d, s in zip(dev_ms, steps))}
-        log(f"256-unit checkpoint, iris_traj_mpc P={P_FULL} antithetic, {tag} trunk ({card}): "
-            f"{n} chained solves through mpc_fn at {steps} iterations, device ms per solve "
-            f"{[round(v, 3) for v in dev_ms]}, {out[tag]['iteration_ms']:.3f} ms an iteration "
-            f"p50; launches {got}, global-weight {glob['apg_solve']}")
+        ref = ONE_CLUSTER_REF["iteration_ms_" + tag]
+        log(f"256-unit checkpoint, iris_traj_mpc P={P_FULL} antithetic, {tag} trunk, {label} "
+            f"({card}): {n} chained solves through mpc_fn at {steps} iterations, device ms per "
+            f"solve {[round(v, 3) for v in dev_ms]}, {out[tag]['iteration_ms']:.3f} ms an "
+            f"iteration p50 (one cluster before the spread, PERF.md: {ref} ms); launches "
+            f"{got}, global-weight {glob['apg_solve']} at {out[tag]['blocks']} blocks per "
+            f"scenario")
 
     c = RecedingHorizonController(paths["dl30"], paths["pos"], seed=0, now_fn=lambda: 0.0,
                                   device=dev)
     traj0, pos0 = c.traj.solves, c.pos.solves
     records = recording(c)
     zero_counts()
+    b0 = spread_blocks()
     cmds, _ = G.replay_traj(c, n=n)
     torch.cuda.synchronize()
     n_traj, n_pos = c.traj.solves - traj0, c.pos.solves - pos0
@@ -6998,10 +7029,17 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
         "trajectory": n_traj}, {"apg_solve": n_traj, "value_batch": 0, "value_and_grad": 0})
     dl_steps = [r.num_steps for r in records]
     out["dl30"] = {"launches": got, "global_launches": global_counts()["apg_solve"],
-                   "steps": dl_steps, "solve_ms": [r.solve_time * 1e3 for r in records]}
+                   "steps": dl_steps, "solve_ms": [r.solve_time * 1e3 for r in records],
+                   "blocks": new_blocks(b0, "apg_solve")}
+    warm = out["dl30"]["solve_ms"][1:] or out["dl30"]["solve_ms"]
+    out["dl30"]["warm_solve_ms_p50"] = statistics.median(warm)
     log(f"RecedingHorizonController on the 256-unit checkpoint, P={P_FULL} antithetic with "
-        f"deadline_ms 30 ({card}): {n_traj} traj ticks at {dl_steps} iterations, solve ms "
-        f"{[round(v, 2) for v in out['dl30']['solve_ms']]}; u0 "
+        f"deadline_ms 30, {label} ({card}): {n_traj} traj ticks at {dl_steps} iterations and "
+        f"{out['dl30']['blocks']} blocks per scenario, solve ms "
+        f"{[round(v, 2) for v in out['dl30']['solve_ms']]}; warm solve p50 "
+        f"{out['dl30']['warm_solve_ms_p50']:.2f} ms against the {SPREAD_PERIOD_MS:.0f} ms "
+        f"period: {'within' if out['dl30']['warm_solve_ms_p50'] < SPREAD_PERIOD_MS else 'OVER'} "
+        f"(one cluster before the spread, PERF.md: {ONE_CLUSTER_REF['dl30_solve_ms']} ms); u0 "
         f"{np.array2string(cmds[-1, :4], precision=4)}")
     if not (n_traj == n and np.isfinite(cmds).all()
             and out["dl30"]["global_launches"] == n_traj):
@@ -7037,6 +7075,7 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
                   stepsize=FIXED_STEP["iris_posctrl_mpc"])
     scfg["learned_model_params"] = ckpt
     zero_counts()
+    b0 = spread_blocks()
     rows, sms = chain(scfg, dev, 1)
     torch.cuda.synchronize()
     k = int(rows[0, -1])
@@ -7045,10 +7084,13 @@ def wide_part_routes(dev, ckpt: str, card: str) -> dict:
         {"apg_solve": 0, "value_batch": k, "value_and_grad": k + 2})
     glob = global_counts()
     out["fixed_step"] = {"launches": got, "global_launches": glob, "steps": k,
-                         "wall_ms": sms[0], "iteration_ms": sms[0] / max(k, 1)}
-    log(f"256-unit fixed-step posctrl P={P_FULL} antithetic (bf16) through mpc_fn ({card}): "
-        f"one solve of {k} iterations, {sms[0]:.1f} ms wall ({sms[0] / max(k, 1):.3f} ms an "
-        f"iteration); global-weight launches {glob}")
+                         "wall_ms": sms[0], "iteration_ms": sms[0] / max(k, 1),
+                         "blocks": new_blocks(b0, "value_and_grad")}
+    log(f"256-unit fixed-step posctrl P={P_FULL} antithetic (bf16) through mpc_fn, {label} "
+        f"({card}): one solve of {k} iterations, {sms[0]:.1f} ms wall ({sms[0] / max(k, 1):.3f} "
+        f"ms an iteration; one cluster before the spread, PERF.md: "
+        f"{ONE_CLUSTER_REF['fixed_step_iteration_ms']} ms); global-weight launches {glob}, "
+        f"value_and_grad at {out['fixed_step']['blocks']} blocks per scenario")
     if not (np.isfinite(rows).all() and glob["value_and_grad"] == k + 2
             and glob["value_batch"] == k):
         raise AssertionError("the 256-unit fixed-step route left the global-weight forms")
@@ -7109,20 +7151,484 @@ def wide_part_times(dev, ckpt: str, card: str) -> dict:
     return out
 
 
-def wide_particles(dev, traj_b, ckpt: str, card: str) -> dict:
-    """(g) the particle forms of #1-#3 past their shared memory."""
+# ---- phase 30 (h): the spread of the global-weight forms of #1 and #2 ------
+# A scenario's chunks over ApgArgs.groups clusters' worth of blocks
+# (consts.plan_groups): the planned groups held bit for bit to one cluster
+# a scenario (p1_step_ab.grouped(1)) and to the plain twins at these widths,
+# P_FULL antithetic, SPREAD_B scenarios in one launch against their solo
+# launches, both timed in one call (G = 1, planned, planned, G = 1). The
+# one-cluster figures recorded before the spread (PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+SPREAD_HIDS = WIDE_PART_HIDS
+SPREAD_B = 2
+CLUSTER_BLOCKS = 16               # the most blocks one cluster gives a scenario (CLUSTER_MAX)
+SPREAD_PERIOD_MS = 50.0           # the control period the deadline controller flies
+ONE_CLUSTER_REF = {"iteration_ms_highest": 13.816, "iteration_ms_bf16": 17.000,
+                   "dl30_solve_ms": 105.1, "value_and_grad_bf16_ms": 9.2049,
+                   "value_and_grad_fp32_ms": 7.2601, "fixed_step_iteration_ms": 12.284}
+
+
+def spread_blocks() -> dict:
+    """The global-weight launches of #1 and #2 by their blocks per scenario
+    (``.blocks_global``), copied."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": dict(AK.apg_solve_kernel.blocks_global),
+            "value_and_grad": dict(CO.value_and_grad_kernel.blocks_global)}
+
+
+def new_blocks(before: dict, kernel: str) -> list:
+    """The blocks per scenario of ``kernel``'s global-weight launches since
+    ``before`` (a :func:`spread_blocks`)."""
+    now = spread_blocks()[kernel]
+    return sorted(n for n, k in now.items() if k > before[kernel].get(n, 0))
+
+
+def spread_pair(fn, kernel: str) -> tuple:
+    """``fn()`` under ``p1_step_ab.grouped(1)`` (one cluster a scenario) and
+    at the planned groups: ((outputs, blocks per scenario) at G = 1, the same
+    planned), the outputs a flat list of tensors."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import flat, grouped
+
+    out = []
+    for pin in (True, False):
+        b0 = spread_blocks()
+        if pin:
+            with grouped(1):
+                got = [t.clone() for t in flat(fn())]
+        else:
+            got = [t.clone() for t in flat(fn())]
+        torch.cuda.synchronize()
+        out.append((got, new_blocks(b0, kernel)))
+    return tuple(out)
+
+
+def spread_equal(pair: tuple, tag: str) -> tuple:
+    """Whether a :func:`spread_pair`'s outputs are bit-equal, and its blocks
+    per scenario (G = 1, planned); raises where the bits differ or the
+    planned launch took no global-weight form."""
+    import torch
+
+    (o1, n1), (og, ng) = pair
+    same = len(o1) == len(og) and all(torch.equal(a, b) for a, b in zip(o1, og))
+    if not (same and n1 and ng):
+        raise AssertionError(f"the spread moves the bits or left the global-weight form "
+                             f"({tag}: blocks {n1} / {ng}, bit-equal {same})")
+    return n1, ng
+
+
+def spread_bits(dev, traj_b, card: str) -> dict:
+    """(h) The planned groups against one cluster a scenario on the same
+    inputs, bit for bit, at SPREAD_HIDS (``padded_trunk(..., seed=0)``),
+    P_FULL antithetic, fp32 and bf16, without and with risk and starts: the
+    whole solve at a fixed 5 iterations (the plan, every stat, ``num_steps``
+    among them, and ``x_evol``), ``value_and_grad`` in its in-cluster form
+    (value, gradient) and, with risk, its moments-in form; then SPREAD_B
+    scenarios in one launch of each, each bit-equal to its solo launch at
+    the planned groups. Fails unless the 256-unit P_FULL solve spreads past
+    one cluster's 16 blocks."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_GLOBAL
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+
+    b, P = traj_b, P_FULL
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    u = plans(1, 21, dev)[0].contiguous()
+    out = {}
+    for hid in SPREAD_HIDS:
+        params = padded_trunk(b.params, hid, seed=0)
+        z = brownian(P, dev, antithetic=True, seed=hid)
+        for bf16 in (False, True):
+            for opts in ((), ("risk", "starts")):
+                cp, starts = with_options(b, opts, x0, P, dev, seed=hid)
+                tag = (f"{hid} units, {'bf16' if bf16 else 'fp32'}"
+                       f"{', ' + ' and '.join(opts) if opts else ''}")
+                args = (b.model, params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P, b.lb,
+                        b.ub, u_init)
+                solve = spread_equal(spread_pair(
+                    lambda: AK.apg_solve_kernel(*args, precond=b.precond, starts=starts,
+                                                bf16=bf16), "apg_solve"), f"whole solve, {tag}")
+                oargs = (b.model, params, cp, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+
+                def vg():
+                    with forced(P1_GLOBAL):
+                        o = CO.cost_oracle(*oargs, starts=starts, bf16=bf16)
+                    return o.value_and_grad(u)
+
+                grad = spread_equal(spread_pair(vg, "value_and_grad"), f"value_and_grad, {tag}")
+                res = {"apg_solve_blocks": solve, "value_and_grad_blocks": grad}
+                if opts:
+                    def vg_in():
+                        with forced(P1_GLOBAL):
+                            o = CO.cost_oracle_batched(
+                                b.model, params, cp, b.time_steps, x0[None], x_ref[None],
+                                u_prev[None], z[None], P, 4, starts=starts[None], bf16=bf16)
+                        t = o.value_batch_moments(u[None, None])[0, 0]
+                        mom = torch.stack([t[1], torch.sqrt(t[2] + 1e-12)])[None]
+                        return o.value_and_grad_moments(u[None], mom.contiguous())
+
+                    res["moments_in_blocks"] = spread_equal(spread_pair(vg_in, "value_and_grad"),
+                                                            f"value_and_grad moments in, {tag}")
+                log(f"spread {tag}, P={P} antithetic ({card}): bit-equal at the planned blocks "
+                    f"per scenario to one cluster a scenario, (G = 1, planned) blocks: " +
+                    ", ".join(f"{k.replace('_blocks', '')} {v}" for k, v in res.items()))
+                out[tag] = res
+    big = out[f"{SPREAD_HIDS[-1]} units, fp32"]["apg_solve_blocks"][1]
+    if not big or max(big) <= CLUSTER_BLOCKS:
+        raise AssertionError(f"the {SPREAD_HIDS[-1]}-unit P={P} whole solve did not spread past "
+                             f"one cluster: blocks {big}")
+
+    # SPREAD_B scenarios a launch at the planned groups against their solo launches
+    hid = SPREAD_HIDS[-1]
+    params = padded_trunk(b.params, hid, seed=0)
+    B = SPREAD_B
+    X0 = x0.expand(B, 13).clone()
+    X0[:, 0] += 0.1 * torch.arange(B, device=dev)
+    XR, UP = x_ref.expand(B, *x_ref.shape).contiguous(), u_prev.expand(B, -1).contiguous()
+    UI = u_init.expand(B, *u_init.shape).contiguous()
+    Z = torch.stack([brownian(P, dev, antithetic=True, seed=hid + i) for i in range(B)])
+    UB = plans(B, 22, dev).contiguous()
+    for bf16 in (False, True):
+        cp, st1 = with_options(b, ("risk", "starts"), x0, P, dev, seed=hid)
+        ST = st1[None].expand(B, *st1.shape).contiguous()
+        b0 = spread_blocks()
+        sb, xb = AK.apg_solve_kernel_batched(b.model, params, cp, apg, b.time_steps, X0, XR, UP,
+                                             Z, P, b.lb, b.ub, UI, precond=b.precond, starts=ST,
+                                             bf16=bf16)
+        with forced(P1_GLOBAL):
+            ob = CO.cost_oracle_batched(b.model, params, cp, b.time_steps, X0, XR, UP, Z, P, 4,
+                                        starts=ST, bf16=bf16)
+        vb, gb = ob.value_and_grad(UB)
+        torch.cuda.synchronize()
+        blocks_b = {k: new_blocks(b0, k) for k in ("apg_solve", "value_and_grad")}
+        bad = []
+        for i in range(B):
+            s1, x1 = AK.apg_solve_kernel(b.model, params, cp, apg, b.time_steps, X0[i], XR[i],
+                                         UP[i], Z[i], P, b.lb, b.ub, UI[i], precond=b.precond,
+                                         starts=ST[i], bf16=bf16)
+            with forced(P1_GLOBAL):
+                o1 = CO.cost_oracle(b.model, params, cp, b.time_steps, X0[i], XR[i], UP[i],
+                                    Z[i], P, 4, starts=ST[i], bf16=bf16)
+            v1, g1 = o1.value_and_grad(UB[i])
+            if not (all(torch.equal(f1, fb[i]) for f1, fb in zip(s1, sb))
+                    and torch.equal(x1, xb[i]) and torch.equal(v1, vb[i])
+                    and torch.equal(g1, gb[i])):
+                bad.append(i)
+        torch.cuda.synchronize()
+        tag = f"{hid} units, {'bf16' if bf16 else 'fp32'}, risk and starts, B={B}"
+        log(f"spread {tag} in one launch of each ({card}): blocks per scenario {blocks_b}; "
+            f"{B - len(bad)} of {B} scenarios bit-equal to their solo launches")
+        if bad or not all(blocks_b.values()):
+            raise AssertionError(f"the spread's scenario axis is wrong ({tag}): {bad}")
+        out[tag] = blocks_b
+    return out
+
+
+def spread_parity(dev, traj_b) -> dict:
+    """(h) The spread forms at their planned groups against their plain
+    twins (``wide_part_solve``, ``wide_part_oracle``: the whole solve at a
+    fixed 5 iterations, rtol 2e-4 / atol 2e-5, equal steps; ``value_and_grad``
+    rtol 5e-4 / atol 5e-5 on the gradient; with risk and starts phase 23's
+    tolerances; bf16 against the plain bf16 twin at BF16_TOL) at SPREAD_HIDS,
+    P_FULL antithetic. Returns max |err| per kernel and the bf16 forms'."""
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    b, P = traj_b, P_FULL
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    err = {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0}
+    err16 = {}
+    for hid in SPREAD_HIDS:
+        params = padded_trunk(b.params, hid, seed=0)
+        z = brownian(P, dev, antithetic=True, seed=hid + 1)
+        U = plans(4, hid + 1, dev)
+        for opts in ((), ("risk", "starts")):
+            cp, starts = with_options(b, opts, x0, P, dev, seed=hid)
+            tag = (f"spread, {hid} units{', ' + ' and '.join(opts) if opts else ''}, P={P} "
+                   f"antithetic")
+            args = (b.model, params, cp, apg, b.time_steps, x0, x_ref, u_prev, z, P, b.lb, b.ub,
+                    u_init)
+            b0 = spread_blocks()
+            err["apg_solve"] = max(err["apg_solve"],
+                                   wide_part_solve(b, params, args, tag, starts=starts)["du"])
+            oargs = (b.model, params, cp, b.time_steps, x0, x_ref, u_prev, z, P, 4)
+            e = wide_part_oracle(lambda: CO.cost_oracle(*oargs, starts=starts),
+                                 CO.cost_oracle_plain(*oargs, starts=starts), U, tag,
+                                 5e-4 if opts else 2e-5)
+            for k, v in e.items():
+                err[k] = max(err[k], v)
+            if not opts:
+                r = wide_part_solve(b, params, args, tag + ", bf16", bf16=True)
+                err16[f"{hid}"] = r["bf16_err"]
+            log(f"{tag}: blocks per scenario of the launches held to their plain twins "
+                f"{ {k: new_blocks(b0, k) for k in ('apg_solve', 'value_and_grad')} }")
+    err["bf16"] = err16
+    return err
+
+
+def spread_times(dev, ckpt: str, card: str) -> dict:
+    """(h) On the 256-unit checkpoint at the routes' shape (P_FULL
+    antithetic): the whole solve at a fixed 5 iterations (fp32 and bf16) and
+    ``value_and_grad`` (bf16 and fp32) timed at one cluster a scenario and
+    at the planned groups, in turns (G = 1, planned, planned, G = 1; CUDA
+    events, warm): blocks per scenario and ms per launch of each."""
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import grouped
+
+    cfg = config("iris_traj_mpc")
+    cfg["learned_model_params"] = ckpt
+    b = make_mpc_from_config(cfg, device=dev)[3]
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    z = brownian(P_FULL, dev, antithetic=True, seed=0)
+    apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, z, P_FULL,
+            b.lb, b.ub, u_init)
+    oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, z, P_FULL, 4)
+    u = plans(1, 14, dev)[0].contiguous()
+
+    def solve(bf16):
+        return lambda: time_fixed(AK, args, b.precond, n_kernel=3, n_plain=0, bf16=bf16)[0]
+
+    def grad(bf16):
+        def run():
+            o = CO.cost_oracle(*oargs, bf16=bf16)
+            return per_launch_ms(lambda: o.value_and_grad(u), 10)
+        return run
+
+    out = {}
+    for name, fn, kernel in (("apg_solve_5it_fp32", solve(False), "apg_solve"),
+                             ("apg_solve_5it_bf16", solve(True), "apg_solve"),
+                             ("value_and_grad_bf16", grad(True), "value_and_grad"),
+                             ("value_and_grad_fp32", grad(False), "value_and_grad")):
+        ms = {"one_cluster": [], "planned": []}
+        blocks = {}
+        for pin in (True, False, False, True):
+            key = "one_cluster" if pin else "planned"
+            b0 = spread_blocks()
+            if pin:
+                with grouped(1):
+                    ms[key].append(fn())
+            else:
+                ms[key].append(fn())
+            blocks[key] = new_blocks(b0, kernel)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        out[name] = {"ms": ms, "mean_ms": mean, "blocks": blocks,
+                     "speedup": mean["one_cluster"] / mean["planned"]}
+    log(f"spread on the 256-unit checkpoint, P={P_FULL} antithetic ({card}), ms per launch "
+        f"at one cluster a scenario / at the planned groups (blocks per scenario; in turns "
+        f"G = 1, planned, planned, G = 1): " + "; ".join(
+            f"{k} {v['mean_ms']['one_cluster']:.4f} ({v['blocks']['one_cluster']}) / "
+            f"{v['mean_ms']['planned']:.4f} ({v['blocks']['planned']}), "
+            f"{v['speedup']:.2f}x" for k, v in out.items())
+        + f"; one cluster before the spread (PERF.md): value_and_grad bf16 "
+          f"{ONE_CLUSTER_REF['value_and_grad_bf16_ms']} ms, fp32 "
+          f"{ONE_CLUSTER_REF['value_and_grad_fp32_ms']} ms")
+    return out
+
+
+def wide_spread(dev, traj_b, ckpt: str, card: str) -> dict:
+    """(h) the spread of the global-weight forms of #1 and #2."""
     t = time.perf_counter()
+    out = {"bits": spread_bits(dev, traj_b, card), "parity": spread_parity(dev, traj_b),
+           "times": spread_times(dev, ckpt, card)}
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 30 (h) took {out['wall_s']:.1f} s")
+    return out
+
+
+def wide_particles(dev, traj_b, ckpt: str, card: str) -> dict:
+    """(g) the particle forms of #1-#3 past their shared memory; their routes
+    at one cluster a scenario too (``p1_step_ab.grouped(1)``), beside the
+    planned spread (h)."""
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import grouped
+
+    t = time.perf_counter()
+    with grouped(1):
+        one = wide_part_routes(dev, ckpt, card, label="one cluster a scenario")
     out = {"parity": wide_part_parity(dev, traj_b), "bits": wide_part_bits(dev, traj_b, card),
-           "routes": wide_part_routes(dev, ckpt, card), "times": wide_part_times(dev, ckpt, card)}
+           "routes": wide_part_routes(dev, ckpt, card), "routes_one_cluster": one,
+           "times": wide_part_times(dev, ckpt, card)}
     out["wall_s"] = time.perf_counter() - t
     log(f"phase 30 (g) took {out['wall_s']:.1f} s")
     return out
 
 
+# ---- phase 30 (i): the wide-trunk routes no other phase flies -------------
+# MPPI over K x P paths and the particle-sharded solve with risk on the
+# 256-unit checkpoint, and the hexa on padded trunks past each form's
+# switch (the P=1 shared-memory step at WIDE_HID units, its global weights
+# and the particle global-weight forms at 256); each route held to its
+# plain route (the routes at a fixed budget where the plain one is slow).
+UNFLOWN_MPPI_SOLVES = 2
+UNFLOWN_BUDGET = 10            # the hexa routes' fixed iterations
+UNFLOWN_TOL = (2e-4, 2e-5)     # the fixed-budget whole solve's (phase 3)
+
+
+def hexa_checkpoint(td: str, b, hid: int) -> str:
+    """The shipped hexa checkpoint at ``hid`` units (:func:`wide_params`)."""
+    from sde4mbrl_px4_tpu_torch.models.params_io import save_params
+
+    path = os.path.join(td, f"hexa_sde_h{hid}.pkl")
+    save_params(path, wide_params(b.params, hid), {"vehicle": "hexa", "hidden": hid})
+    return path
+
+
+def unflown_mppi(dev, ckpt: str, card: str) -> dict:
+    """MPPI over K x P paths (phase 24's route, K = MPPI_K, P = MPPI_P
+    antithetic) on the 256-unit checkpoint: the particle ``value_batch`` in
+    its global-weight form on a grid of K clusters, against the plain oracle
+    on the same draws (|du| <= 1e-4, equal rounds, phase 24's gate)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    n, iters = UNFLOWN_MPPI_SOLVES, 8
+    cfg = wide_config("iris_posctrl_mpc", ckpt, solver="mppi", particles=MPPI_P,
+                      mppi={"samples": MPPI_K, "iters": iters})
+    zero_counts()
+    rows_k, ms = chain(cfg, dev, n)
+    torch.cuda.synchronize()
+    got = check_route(f"256-unit MPPI K={MPPI_K} x P={MPPI_P}", {
+        "apg_solve": 0, "value_batch": n * (iters + 2), "value_and_grad": 0, "trajectory": n})
+    glob = global_counts()
+    with routed("cost_oracle", CO.cost_oracle_plain):
+        rows_p, ms_p = chain(cfg, dev, n)
+    du = float(np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max())
+    out = {"launches": got, "global_launches": glob, "max_du": du, "wall_ms": ms,
+           "plain_wall_ms": ms_p}
+    log(f"256-unit MPPI K={MPPI_K} x P={MPPI_P} antithetic ({n} chained solves, {iters} rounds; "
+        f"{card}): global-weight value_batch launches {glob['value_batch']}; kernels vs plain "
+        f"on the same draws max|du| {du:.3e} (1e-4); wall ms {[round(v, 1) for v in ms]} "
+        f"(plain {[round(v, 1) for v in ms_p]})")
+    if not (du <= 1e-4 and glob["value_batch"] == n * (iters + 2)
+            and np.array_equal(rows_k[:, -1], rows_p[:, -1]) and np.isfinite(rows_k).all()):
+        raise AssertionError("the 256-unit MPPI route left the global-weight form or the plain "
+                             "route")
+    return out
+
+
+def unflown_mesh(dev, ckpt: str, card: str) -> dict:
+    """The particle-sharded P_FULL solve over mc = MESH_RANKS with risk and
+    starts (phase 29 (b')) on the 256-unit checkpoint: a pair of fresh ranks
+    on the card, each launching the oracle's global-weight shared-moments
+    forms (moments out, moments in) on its half of the particles, held as
+    (b') to the one-process host loop and the whole-solve kernel."""
+    from sde4mbrl_px4_tpu_torch.parallel.distributed import spawn_ranks
+
+    flag = wide_config("iris_traj_mpc", ckpt, particles=P_FULL, max_iter=MESH_FIXED_ITERS,
+                       max_no_improvement_iter=MESH_FIXED_ITERS, atol=0.0, rtol=0.0)
+    flag["cost_params"]["risk_lambda"] = RISK
+    flag["initial_state_std"] = OPTION_STD
+    flag["apg_mpc"].pop("precond", None)
+    routes = [("particle_solve", dict(cfg=flag, solves=MESH_SOLVES, shape=(1, MESH_RANKS),
+                                      devices=MESH_DEVICES))]
+    ranks = [r[0] for r in spawn_ranks("sde4mbrl_px4_tpu_torch.parallel.rank_tasks:suite",
+                                       MESH_RANKS, {"routes": routes}, timeout=MESH_S,
+                                       threads=None)]
+    out = mesh_mc("(i) 256 units", ranks, flag, dev, card, risk=True)
+    grads = MESH_FIXED_ITERS + 2
+    want = {"value_and_grad": MESH_SOLVES * grads,
+            "value_batch": MESH_SOLVES * (MESH_FIXED_ITERS + grads)}
+    out["global_launches"] = [r["global_launches"] for r in ranks]
+    log(f"phase 30 (i): the 256-unit sharded solve's global-weight launches by rank "
+        f"{out['global_launches']} (each {want})")
+    for r in ranks:
+        mesh_launched("(i) 256 units, global-weight forms", r["global_launches"], want)
+    return out
+
+
+def unflown_hexa(dev, td: str, card: str) -> dict:
+    """The hexa (n_u = 6, F = 15) on its checkpoint padded past each form's
+    switch: the traj config at P=1 on WIDE_HID units (the shared-memory
+    step) and 256 (its weights in device memory), and at P=P_FLOOR
+    antithetic on 256 (the particle global-weight form), 2 chained solves
+    through ``mpc_fn`` at a fixed UNFLOWN_BUDGET iterations against the
+    plain route on the same draws (u0 at UNFLOWN_TOL, equal steps), the
+    launches checked; then the oracle kernels on each trunk against the
+    plain oracle (P=1: phase 30's tolerances; P=P_FLOOR in the global-weight
+    forms, phase 30 (g)'s)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    b = make_bundle("hexa_traj_mpc", dev)
+    ckpts = {hid: hexa_checkpoint(td, b, hid) for hid in (WIDE_HID, 256)}
+    rtol, atol = UNFLOWN_TOL
+    out = {}
+    for tag, hid, P in ((f"P=1, {WIDE_HID} units", WIDE_HID, 1), ("P=1, 256 units", 256, 1),
+                        (f"P={P_FLOOR} antithetic, 256 units", 256, P_FLOOR)):
+        mut = dict(max_iter=UNFLOWN_BUDGET, max_no_improvement_iter=UNFLOWN_BUDGET, atol=0.0,
+                   rtol=0.0)
+        if P > 1:
+            mut["particles"] = P
+        cfg = wide_config("hexa_traj_mpc", ckpts[hid], **mut)
+        cfg["apg_mpc"].pop("precond", None)
+        zero_counts()
+        rows_k, _ = chain(cfg, dev, 2)
+        torch.cuda.synchronize()
+        got = check_route(f"hexa {tag}", {"apg_solve": 2, "value_batch": 0, "value_and_grad": 0,
+                                         "trajectory": 2 if P > 1 else 0})
+        glob = global_counts()["apg_solve"]
+        with routed("apg_solve_kernel", AK.apg_solve_plain):
+            rows_p, _ = chain(cfg, dev, 2)
+        du = float(np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max())
+        log(f"hexa {tag} ({card}): 2 chained solves through mpc_fn at {UNFLOWN_BUDGET} "
+            f"iterations, kernel vs plain route max|du0| {du:.3e} ({UNFLOWN_TOL}); steps "
+            f"{rows_k[:, -1].tolist()} / {rows_p[:, -1].tolist()}; global-weight launches {glob}")
+        if not (np.allclose(rows_k[:, :-1], rows_p[:, :-1], rtol=rtol, atol=atol)
+                and np.array_equal(rows_k[:, -1], rows_p[:, -1]) and np.isfinite(rows_k).all()
+                and glob == (2 if P > 1 else 0)):
+            raise AssertionError(f"the hexa {tag} route disagrees with its plain route or left "
+                                 f"its form")
+        from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+
+        hb = make_mpc_from_config(copy.deepcopy(cfg), device=dev)[3]
+        x0, x_ref, u_prev, _ = problem(hb, dev)
+        U = plans(4, hid, dev, n_u=6)
+        if P == 1:
+            oargs = (hb.model, hb.params, hb.cost_params, hb.time_steps, x0, x_ref, u_prev,
+                     None, 1, 4)
+            e = wide_oracle_check(CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs), U,
+                                  f"hexa {tag}")
+        else:
+            z = brownian(P, dev, antithetic=True, seed=hid)
+            oargs = (hb.model, hb.params, hb.cost_params, hb.time_steps, x0, x_ref, u_prev, z,
+                     P, 4)
+            e = wide_part_oracle(lambda: CO.cost_oracle(*oargs),
+                                 CO.cost_oracle_plain(*oargs), U, f"hexa {tag}", 2e-5)
+        out[tag] = {"launches": got, "global_launches": glob, "route_max_du": du, "err": e}
+    return out
+
+
+def wide_unflown(dev, ckpt: str, td: str, card: str) -> dict:
+    """(i) the wide-trunk routes no other phase flies."""
+    t = time.perf_counter()
+    out = {"mppi": unflown_mppi(dev, ckpt, card), "mesh": unflown_mesh(dev, ckpt, card),
+           "hexa": unflown_hexa(dev, td, card)}
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 30 (i) took {out['wall_s']:.1f} s")
+    return out
+
+
 def phase_wide(dev, card: str) -> dict:
     """Phase 30, the kernels on any trunk width: the P=1 forms (a-e), the
-    particle forms' widths (f) and their global-weight forms (g) (module
-    docstring)."""
+    particle forms' widths (f), their global-weight forms (g), those
+    forms' spread over more blocks than one cluster (h) and the wide-trunk
+    routes no other phase flies (i) (module docstring)."""
     import tempfile
 
     traj_b = make_bundle("iris_traj_mpc", dev)
@@ -7135,6 +7641,8 @@ def phase_wide(dev, card: str) -> dict:
         out["routes"] = wide_routes(dev, ckpts, card)
         out["global"] = wide_global(dev, ckpts[256], card)
         out["particles"] = wide_particles(dev, traj_b, ckpts[256], card)
+        out["spread"] = wide_spread(dev, traj_b, ckpts[256], card)
+        out["unflown"] = wide_unflown(dev, ckpts[256], td, card)
     out["ceiling"] = particle_ceiling(dev, traj_b, card)
     out["wall_s"] = time.perf_counter() - t
     log(f"phase 30 took {out['wall_s']:.1f} s")
@@ -7252,7 +7760,9 @@ def main() -> int:
         "through the entry points, and every P=1 route flies every width; the particle forms "
         "plan every width to 2048 units, their global-weight forms match their plain twins at "
         "152 and 256 units and the shared-memory forms bit for bit at 128, and the 256-unit "
-        "checkpoint flies the P=512 flagship and the P=128 floor")
+        "checkpoint flies the P=512 flagship and the P=128 floor; the spread of #1 and #2 "
+        "over more blocks than one cluster gives one cluster's bits; MPPI, the sharded "
+        "solve and the hexa fly their wide trunks against their plain routes")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -7751,8 +8261,9 @@ def main() -> int:
     # highest, the P=128 floor), the bf16 whole solve (the P=512 flagship at
     # its default precision, the deadline controller), the bf16 oracle forms
     # (the fixed-step P=512 route)
-    wpp = wide["particles"]
+    wpp, spr = wide["particles"], wide["spread"]
     rts, tms, bits = wpp["routes"], wpp["times"], wpp["bits"]
+    one, stm = wpp["routes_one_cluster"], spr["times"]
     gsrc = "sde4mbrl_px4_tpu_torch/csrc/"
     e16 = wpp["parity"]["bf16"]
     bf16_is = ("the largest of err_by_metric, against the plain bf16 twin at 152 and 256 units "
@@ -7773,7 +8284,12 @@ def main() -> int:
               solve_ms_P512_highest=rts["highest"]["device_ms"],
               solve_ms_P128_floor=rts["floor"]["device_ms"],
               steps_P512_highest=rts["highest"]["steps"], steps_P128_floor=rts["floor"]["steps"],
-              shared_vs_global_128={k: v for k, v in bits.items() if isinstance(v, dict)}),
+              shared_vs_global_128={k: v for k, v in bits.items() if isinstance(v, dict)},
+              blocks_per_scenario_P512=rts["highest"]["blocks"],
+              one_cluster_ms=stm["apg_solve_5it_fp32"]["mean_ms"]["one_cluster"],
+              planned_groups_ms=stm["apg_solve_5it_fp32"]["mean_ms"]["planned"],
+              one_cluster_iteration_ms_P512_highest=one["highest"]["iteration_ms"],
+              spread_max_abs_err=spr["parity"]["apg_solve"]),
         entry("apg_solve", f"particles, global weights (any trunk width), bf16 trunk: the "
               f"256-unit P={P_FULL} antithetic flagship at its default precision and its "
               f"deadline_ms 30 controller",
@@ -7788,12 +8304,21 @@ def main() -> int:
               fp32_form_ms=tms["apg_solve"][0],
               iteration_ms_P512_bf16=rts["bf16"]["iteration_ms"],
               solve_ms_P512_bf16=rts["bf16"]["device_ms"], steps_P512_bf16=rts["bf16"]["steps"],
-              steps_dl30=rts["dl30"]["steps"], solve_ms_dl30=rts["dl30"]["solve_ms"])]
+              steps_dl30=rts["dl30"]["steps"], solve_ms_dl30=rts["dl30"]["solve_ms"],
+              blocks_per_scenario_P512=rts["bf16"]["blocks"],
+              one_cluster_ms=stm["apg_solve_5it_bf16"]["mean_ms"]["one_cluster"],
+              planned_groups_ms=stm["apg_solve_5it_bf16"]["mean_ms"]["planned"],
+              one_cluster_iteration_ms_P512_bf16=one["bf16"]["iteration_ms"],
+              one_cluster_solve_ms_dl30=one["dl30"]["solve_ms"])]
     for name in ("value_batch", "value_and_grad"):
         extra = {"ms_K4": tms["value_batch_K4"][0], "plain_ms_K4": tms["value_batch_K4"][1],
                  "bound_ms_K4": tms["value_batch_K4"][2][0],
                  "bound_tc_ms_K4": tms["value_batch_K4"][3][0],
-                 "fp32_form_ms_K4": tms["value_batch_K4_fp32"]} if name == "value_batch" else {}
+                 "fp32_form_ms_K4": tms["value_batch_K4_fp32"],
+                 # phase 30 (i): MPPI over 64 x 128 paths on the 256-unit checkpoint
+                 "fp32_form_mppi_launches":
+                     wide["unflown"]["mppi"]["global_launches"]["value_batch"]
+                 } if name == "value_batch" else {}
         kernels.append(entry(
             name, f"particles, global weights, bf16 trunk: the 256-unit fixed-step P={P_FULL} "
                   f"route", rts["fixed_step"]["global_launches"][name],
@@ -7803,7 +8328,15 @@ def main() -> int:
                   f"antithetic, bf16, on the 256-unit trunk",
             max_abs_err_is=bf16_is, err_by_metric=e16[name],
             fp32_form_ms=tms[name + "_fp32"], fp32_form_max_abs_err=wpp["parity"][name],
-            route_iteration_ms=rts["fixed_step"]["iteration_ms"], **extra))
+            route_iteration_ms=rts["fixed_step"]["iteration_ms"], **extra,
+            **({"blocks_per_scenario": rts["fixed_step"]["blocks"],
+                "one_cluster_ms": stm["value_and_grad_bf16"]["mean_ms"]["one_cluster"],
+                "planned_groups_ms": stm["value_and_grad_bf16"]["mean_ms"]["planned"],
+                "fp32_one_cluster_ms": stm["value_and_grad_fp32"]["mean_ms"]["one_cluster"],
+                "fp32_planned_groups_ms": stm["value_and_grad_fp32"]["mean_ms"]["planned"],
+                "one_cluster_route_iteration_ms": one["fixed_step"]["iteration_ms"],
+                "spread_max_abs_err": spr["parity"]["value_and_grad"]}
+               if name == "value_and_grad" else {})))
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -7866,7 +8399,11 @@ def main() -> int:
                  "particle_widths": wide["ceiling"], "wall_s": wide["wall_s"],
                  "particles": {"routes": rts, "bits": bits,
                                "times": {k: v for k, v in tms.items() if k != "bundle"},
-                               "wall_s": wpp["wall_s"]}}}}))
+                               "wall_s": wpp["wall_s"]},
+                 "spread": {"routes_one_cluster": one, "bits": spr["bits"],
+                            "parity": spr["parity"], "times": stm,
+                            "wall_s": spr["wall_s"]},
+                 "unflown": wide["unflown"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -35,7 +35,10 @@
 //                 before the constraint forms existed;
 // and three more of the particle form with the particle options (OPT,
 // below), plus the clock-stamped two; and the P=1 form on the shared-memory
-// step (STEP, below; six, in apg_solve_p1.cu's library).
+// step (STEP, below; six, in apg_solve_p1.cu's library). The libraries
+// (APG_CHAIN_LIB and below) split the forms so that nvcc builds them in
+// parallel: the P=1 register chain in apg_solve_chain.cu, the fp32
+// particle forms here.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. At P=1 one APG
 // iteration is about 1.6 MFLOP (a forward and a reverse sweep of one row
@@ -105,11 +108,23 @@
 // scenario 0's consts in device memory (sweeps.cuh, GW; 290 KB at 256 units,
 // L2-resident), keeps no transposes and copies only the consts before the
 // trunk, so the block's shared memory holds the chunk's rows alone and any
-// width up to thousands of units plans a chunk. Only the options form is
-// instantiated (risk and starts its runtime branches, off without them), in
-// libraries of their own (apg_solve_gw.cu, apg_solve_gw_bf16.cu), built in
-// parallel. It is planned only where no chunk fits the shared-memory form,
-// and gives its bits wherever both run.
+// width up to thousands of units plans a chunk. What bounds it: the trunk's
+// FLOPs (12.6x the 64-unit trunk's a row at 256 units) on the SMs it gets,
+// then the weights' reads from L2. One cluster gives a scenario at most 16
+// SMs, and at 256 units P=512 plans 64 chunks of 8 rows. So the form
+// spreads a scenario over ApgArgs::groups clusters' worth of blocks
+// (sweeps.cuh, the spread note): groups * cluster blocks of a cooperative
+// grid, one chunk each at 64 chunks (up to 64 of the 132 SMs), which the
+// planner sizes to what the card holds at once for the launch's scenarios
+// (ops/cuda/consts.py::plan_groups); groups = 1 is the one cluster. Each
+// chunk's partials go to a slot in device memory, and after a barrier over
+// the scenario's blocks every block sums the slots in chunk order, so the
+// sums, and every loop decision, are those of one block: the bits of any
+// groups and cluster. Only the options form is instantiated (risk and
+// starts its runtime branches, off without them), in libraries of their own
+// (apg_solve_gw.cu, apg_solve_gw_bf16.cu), built in parallel. It is planned
+// only where no chunk fits the shared-memory form, and gives its bits
+// wherever both run.
 //
 // The particle options (sweeps.cuh, Risk): with a.risk the vg sweep and the
 // candidates price mean + lambda * std of the particles' discounted totals
@@ -169,6 +184,10 @@
 #include "apg_solve.cuh"
 #include "sweeps.cuh"
 
+// 1: the library of the P=1 register chain (apg_solve_chain.cu)
+#ifndef APG_CHAIN
+#define APG_CHAIN 0
+#endif
 // 1: the library of the bf16-trunk particle forms (apg_solve_bf16.cu)
 #ifndef APG_BF16
 #define APG_BF16 0
@@ -182,13 +201,15 @@
 #ifndef APG_GW
 #define APG_GW 0
 #endif
-// This library's forms: the register chain and the fp32 particle forms
-// (apg_solve.cu), the bf16 particle forms (apg_solve_bf16.cu), the P=1
-// shared-memory step (apg_solve_p1.cu) or the particle global-weight forms
-// of one precision (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc builds the
-// five in parallel.
-#define APG_CHAIN_LIB (!APG_BF16 && !APG_P1S && !APG_GW)
-#define APG_PART_LIB (!APG_P1S && !APG_GW)
+// This library's forms: the fp32 particle forms and their clock-stamped
+// form (apg_solve.cu), the P=1 register chain and its clock-stamped form
+// (apg_solve_chain.cu), the bf16 particle forms (apg_solve_bf16.cu), the
+// P=1 shared-memory step (apg_solve_p1.cu) or the particle global-weight
+// forms of one precision (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc
+// builds the six in parallel.
+#define APG_CHAIN_LIB (APG_CHAIN != 0)
+#define APG_PART_LIB (!APG_CHAIN && !APG_P1S && !APG_GW)
+#define APG_PROF_PART_LIB (APG_PART_LIB && !APG_BF16)
 
 namespace {
 
@@ -303,13 +324,16 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ precond, const float* __restrict__ noise,
                  const float* __restrict__ starts, float* __restrict__ yk,
                  float* __restrict__ stats, float* __restrict__ x_evol,
-                 long long* __restrict__ prof_out) {
+                 long long* __restrict__ prof_out, float* __restrict__ scratch) {
   static_assert(!PART || STEP == P1_CHAIN || (STEP == P1_GLOBAL && OPT && !PROF),
                 "a particle form reads its weights in shared memory or, the options form, "
                 "in device memory");
   static_assert(STEP == P1_CHAIN || !PROF, "the clock stamps are the register chain's");
   constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 shared-memory step
   constexpr bool GW = STEP == P1_GLOBAL;
+  // the particle global-weight form spreads a scenario's chunks over
+  // a.groups * a.cluster blocks (sweeps.cuh, the spread note)
+  constexpr bool SPREAD = PART && GW;
   extern __shared__ __align__(16) float smem[];
   __shared__ Scal S;
   Smem s;
@@ -318,19 +342,28 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
   const float* c = s.c;
-  auto scen = [] { return scenario<PART, PROF>(); };
+  auto scen = [&a] {
+    if constexpr (SPREAD) return spread_scenario(a);
+    else return scenario<PART, PROF>();
+  };
   // this scenario's Brownian block, offset where the sweeps start a chunk
   auto my_noise = [noise, &a]() {
-    return noise + scenario<true, PROF>() * ((size_t)a.H * a.P * 13);
+    if constexpr (SPREAD) return noise + spread_scenario(a) * ((size_t)a.H * a.P * 13);
+    else return noise + scenario<true, PROF>() * ((size_t)a.H * a.P * 13);
   };
   // ... and (OPT) its particles' starts, or null (every particle at x0),
   // offset once into shared memory
   __shared__ const float* my_starts_p;
   auto my_starts = [&]() -> const float* { return my_starts_p; };
-  // the block's rank in its cluster (0 at P=1: one block); only rank 0
-  // writes the outputs
+  // the block's rank in its cluster, or among the scenario's blocks with
+  // the spread (0 at P=1: one block); only rank 0 writes the outputs
   int rank = 0;
-  if constexpr (PART) rank = (int)cg::this_cluster().block_rank();
+  if constexpr (SPREAD) rank = spread_rank(a);
+  else if constexpr (PART) rank = (int)cg::this_cluster().block_rank();
+  if constexpr (SPREAD) {
+    __shared__ Spread sp;
+    spread_init(a, s, &sp, scratch);
+  }
   constexpr int LOOP = PART ? (int)PP_LOOP : (int)PH_LOOP;    // the loop's stamp
   long long t_start = 0;
   if constexpr (PROF) {
@@ -371,7 +404,8 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   }
   auto value_grad = [&](const float* U) {
     if constexpr (PART)
-      vg_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW>(a, s, &S.fval, U, my_noise, my_starts);
+      vg_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW, SPREAD>(a, s, &S.fval, U, my_noise,
+                                                             my_starts);
     else if constexpr (P1S) vg_smem<SC, GW>(a, s, wb, &S.fval, U);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
@@ -432,7 +466,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       s.cand[e] = clampf(s.y[r] - tk * (s.D[r] * s.g[r]), c[a.o_lb + i], c[a.o_ub + i]);
     }
     if constexpr (PART) {
-      cand_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW>(a, s, K, my_noise, my_starts);
+      cand_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW, SPREAD>(a, s, K, my_noise, my_starts);
     } else if constexpr (P1S) {
       __syncthreads();                            // the candidate rows
       cand_smem<SC, GW>(a, s, wb, K);
@@ -587,20 +621,28 @@ int dyn_bytes(const ApgArgs& a) {
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
 // one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
-// cluster the card cannot schedule returns), in this library's precision.
+// cluster the card cannot schedule returns), the global-weight form with
+// a.groups > 1 a.groups * a.cluster blocks each on a cooperative grid
+// (launch_spread, whose error a grid the card cannot hold at once returns),
+// in this library's precision.
 template <bool PART, int SC, bool PROF = false, bool OPT = false, int STEP = P1_CHAIN>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
                    const float* noise, const float* starts, float* yk, float* stats,
-                   float* x_evol, long long* prof) {
+                   float* x_evol, long long* prof, float* scratch) {
   if constexpr (PART) {
+    if constexpr (STEP == P1_GLOBAL)
+      if (a.groups > 1)
+        return launch_spread(apg_solve_kernel<true, SC, PROF, OPT, kBF, STEP>, a,
+                             APG_NTHREADS_PART, dyn, st, scratch, a, consts, u_init, t0,
+                             precond, noise, starts, yk, stats, x_evol, prof, scratch);
     ClusterLaunch l(a.cluster, APG_NTHREADS_PART, dyn, st, a.batch);
     return cudaLaunchKernelEx(&l.cfg, apg_solve_kernel<true, SC, PROF, OPT, kBF, STEP>, a,
                               consts, u_init, t0, precond, noise, starts, yk, stats, x_evol,
-                              prof);
+                              prof, scratch);
   } else {
     apg_solve_kernel<false, SC, PROF, false, false, STEP><<<a.batch, APG_NTHREADS, dyn, st>>>(
-        a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof);
+        a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof, scratch);
     return cudaSuccess;
   }
 }
@@ -612,7 +654,7 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
 // global-weight libraries' only forms).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
-                                 const float*, float*, float*, float*, long long*);
+                                 const float*, float*, float*, float*, long long*, float*);
 #define P1_STEP_FORMS(STEP)                                                                \
   {launch<false, CONSTR_NONE, false, false, STEP>,                                         \
    launch<false, CONSTR_PENALTY, false, false, STEP>,                                      \
@@ -645,7 +687,8 @@ const LaunchFn kLaunch[6][3] = {
 #endif
 
 using KernelFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                          const float*, const float*, float*, float*, float*, long long*);
+                          const float*, const float*, float*, float*, float*, long long*,
+                          float*);
 #if APG_PART_LIB
 // This library's particle forms [opt][sc_kind].
 const KernelFn kPart[2][3] = {
@@ -717,13 +760,15 @@ int apg_init() {
     g_cmax[0][sc] = g_cmax[1][sc];
   }
 #endif
-#if APG_CHAIN_LIB
+#if APG_PROF_PART_LIB
   const cudaError_t errs[] = {
       allow_large_smem(apg_solve_kernel<true, CONSTR_NONE, true>),
-      allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
-      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>),
       cluster_max(apg_solve_kernel<true, CONSTR_NONE, true>, APG_NTHREADS_PART,
                   &g_cmax_prof)};
+#elif APG_CHAIN_LIB
+  const cudaError_t errs[] = {
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>)};
 #elif APG_P1S
   const cudaError_t errs[] = {
       allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_SMEM>),
@@ -769,21 +814,38 @@ int apg_max_active_clusters(const ApgArgs* a, int* n) {
   return (int)max_active_clusters(fn, a->cluster, APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
 }
 
+// How many blocks of the global-weight form for a's dimensions and chunk
+// the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times the SMs), into *n: the bound on a spread launch's batch * groups *
+// cluster (ops/cuda/consts.py::plan_groups); returns a cudaError_t.
+int apg_resident_blocks(const ApgArgs* a, int* n) {
+  if (!a->has_noise || a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
+      part_form_of(*a) != P1_GLOBAL)
+    return (int)cudaErrorInvalidValue;
+  const KernelFn fn = part_kernel(*a);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;   // another library's form
+  return (int)resident_blocks(fn, APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
+}
+
+// Floats of the scratch a launch with a's plan takes (apg_solve.cuh
+// spread_floats; 0 but for the global-weight form at groups > 1).
+long long apg_scratch_floats(const ApgArgs* a) { return spread_floats(*a); }
+
 const char* apg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // The arguments a launch takes (a refused launch returns
 // cudaErrorInvalidValue and runs nothing): among them B >= 1 scenarios on a
-// grid the card takes (at most 2^31 - 1 blocks); cmax: the particle form's
-// largest cluster.
+// grid the card takes (at most 2^31 - 1 blocks), groups > 1 only in the
+// global-weight form; cmax: the particle form's largest cluster.
 static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
                       const void* starts, const void* x_evol, int cmax) {
   const bool part = a->has_noise != 0;
   const int step = part ? part_form_of(*a) : p1_form_of(*a);
   const int limit = part || a->sc_kind != CONSTR_NONE || step != P1_CHAIN
                         ? APG_SMEM_LIMIT_PARTICLES : APG_SMEM_LIMIT;
-  const long long blocks = (long long)a->batch * (part ? a->cluster : 1);
+  const long long blocks = (long long)a->batch * (part ? (long long)a->cluster * a->groups : 1);
   return !(a->batch < 1 || blocks > 2147483647LL ||
            a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
@@ -792,9 +854,10 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (a->bf16 != 0) != kBF || (!part && kBF) ||
            (part ? (noise == nullptr || a->Pc < 1 || a->n_chunks < 1 ||
-                    a->Pc * a->n_chunks != a->P || !cluster_args_ok(*a, cmax))
+                    a->Pc * a->n_chunks != a->P ||
+                    !cluster_args_ok(*a, cmax, step == P1_GLOBAL))
                  : (x_evol == nullptr || a->P != 1 || a->Pc != 1 || a->n_chunks != 1 ||
-                    a->cluster != 1 || a->chunks_per_block != 1)));
+                    a->cluster != 1 || a->chunks_per_block != 1 || a->groups != 1)));
 }
 
 // Launch a->batch solves on `stream`. Per scenario (leading axis B): consts
@@ -804,16 +867,19 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
 // with a->has_starts), x_evol (H+1, 13), written only by the deterministic
 // form; precond (H, nZ) is shared by every scenario; a->risk (particles
 // only) prices the particles' totals at mean + lambda * std; a P=1 solve
-// runs the form p1_form_of picks (or a->step names). Returns the
-// launch's error (cudaErrorInvalidValue for arguments the kernel does not
-// take, among them a P=1 form the trunk's widths or the form's shared
-// memory do not take, a form of another library, and a particle launch
-// whose cluster fields are no plan of its chunks; the cluster launch's own
-// error where the card cannot schedule the cluster).
+// runs the form p1_form_of picks (or a->step names); scratch, the
+// global-weight form's at a->groups > 1, apg_scratch_floats floats (null
+// otherwise). Returns the launch's error (cudaErrorInvalidValue for
+// arguments the kernel does not take, among them a P=1 form the trunk's
+// widths or the form's shared memory do not take, a form of another
+// library, a particle launch whose cluster fields are no plan of its chunks
+// and a spread launch without its scratch; the cluster launch's own error
+// where the card cannot schedule the cluster, and the cooperative launch's
+// where it cannot hold a spread launch's grid at once).
 int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      const void* t0, const void* precond, const void* noise,
                      const void* starts, void* yk, void* stats, void* x_evol,
-                     void* stream) {
+                     void* scratch, void* stream) {
   if (a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax[options(*a)][a->sc_kind]) ||
       kLaunch[form(*a)][a->sc_kind] == nullptr)   // a form of another library
@@ -821,7 +887,8 @@ int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
   return launch_error(kLaunch[form(*a)][a->sc_kind](
       *a, (size_t)dyn_bytes(*a), (cudaStream_t)stream, (const float*)consts,
       (const float*)u_init, (const float*)t0, (const float*)precond, (const float*)noise,
-      (const float*)starts, (float*)yk, (float*)stats, (float*)x_evol, nullptr));
+      (const float*)starts, (float*)yk, (float*)stats, (float*)x_evol, nullptr,
+      (float*)scratch));
 }
 
 // A solve without state constraints and particle options through the
@@ -834,20 +901,25 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
                           const void* t0, const void* precond, const void* noise,
                           const void* starts, void* yk, void* stats, void* x_evol,
                           void* prof, void* stream) {
-#if !APG_CHAIN_LIB
-  return (int)cudaErrorInvalidValue;      // the clock-stamped build is apg_solve.cu's
+  // the clock-stamped P=1 form is apg_solve_chain.cu's, the particle one
+  // apg_solve.cu's
+#if APG_CHAIN_LIB
+  const LaunchFn fn = a->has_noise ? nullptr : &launch<false, CONSTR_NONE, true>;
+#elif APG_PROF_PART_LIB
+  const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true> : nullptr;
 #else
-  if (a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 || options(*a) ||
+  const LaunchFn fn = nullptr;
+#endif
+  if (fn == nullptr || a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 ||
+      options(*a) || a->groups != 1 ||
       (a->has_noise ? part_form_of(*a) != P1_SMEM : p1_form_of(*a) != P1_CHAIN) ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
-  const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true>
-                                   : &launch<false, CONSTR_NONE, true>;
   return launch_error(fn(*a, (size_t)dyn_bytes(*a), (cudaStream_t)stream,
                          (const float*)consts, (const float*)u_init, (const float*)t0,
                          (const float*)precond, (const float*)noise, (const float*)starts,
-                         (float*)yk, (float*)stats, (float*)x_evol, (long long*)prof));
-#endif
+                         (float*)yk, (float*)stats, (float*)x_evol, (long long*)prof,
+                         nullptr));
 }
 
 }  // extern "C"

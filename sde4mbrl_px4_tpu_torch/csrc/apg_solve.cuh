@@ -104,7 +104,41 @@ struct ApgArgs {
   // sweeps chunks rank, rank + cluster, ... (at most chunks_per_block of
   // them). 1 and 1 elsewhere.
   int cluster, chunks_per_block;
+  // The spread of the global-weight forms of the whole solve and of
+  // value_and_grad (part_form P1_GLOBAL; sweeps.cuh, the spread note).
+  // What bounds those forms is the trunk's FLOPs on the SMs they get, then
+  // the weights' reads from L2, and one cluster is at most 16 SMs; so a
+  // scenario runs on groups * cluster blocks, block j sweeping chunks j,
+  // j + groups * cluster, ... (chunks_per_block counts them over all the
+  // scenario's blocks). groups = 1 is the one cluster above; past it the
+  // scenario's blocks are plain blocks of a cooperative grid, and the chunk
+  // partials meet in the launch's scratch in device memory (spread_floats),
+  // summed in chunk order, so every groups gives one cluster's bits. 1 for
+  // every other form (the wrappers plan it, ops/cuda/consts.py::
+  // plan_groups).
+  int groups;
 };
+
+// The spread forms' scratch in device memory (ApgArgs::groups > 1), which
+// the wrapper allocates and the launcher's memset zeroes the counters of:
+// first one arrival counter per scenario, SPREAD_CTR 4-byte words apart
+// (its own 128-byte line), then per scenario two regions (the chunk sums
+// alternate between them, so a region is written again only after a
+// barrier that every block reaches once it has read it) of n_chunks slots
+// of spread_width floats: the widest chunk partial of a sum, value_and_grad's
+// gradient and three means (H*nZ + 3) or the K candidates' three means
+// (3K).
+#define SPREAD_CTR 32
+__host__ __device__ inline int spread_width(const ApgArgs& a) {
+  return a.H * a.nZ + 3 > 3 * a.K ? a.H * a.nZ + 3 : 3 * a.K;
+}
+__host__ __device__ inline long long spread_region(const ApgArgs& a) {
+  return (long long)a.n_chunks * spread_width(a);
+}
+// Floats of a launch's scratch (0 at groups = 1: no scratch).
+inline long long spread_floats(const ApgArgs& a) {
+  return a.groups > 1 ? (long long)a.batch * (SPREAD_CTR + 2 * spread_region(a)) : 0;
+}
 
 // The largest cluster the particle forms take: 16 blocks where the card
 // schedules one at the form's block size and shared memory (a non-portable

@@ -6,5 +6,7 @@
 // whose trunk and chunk take no shared-memory form (the wrapper,
 // ops/cuda/apg_kernel.py, picks the library by apg_part_form) and refuse
 // every other. A batched launch reads scenario 0's trunk.
+// Each scenario spreads over ApgArgs::groups clusters' worth of blocks
+// (apg_solve.cu, the global-weight note).
 #define APG_GW 1
 #include "apg_solve.cu"

@@ -110,7 +110,16 @@
 // fp32 and bf16, in a library of their own (cost_oracle_gw.cu, built in
 // parallel), each taken by shape per kernel: value_batch keeps its
 // shared-memory form wherever its own block fits with the planned chunk.
-// Both forms give the same bits.
+// Both forms give the same bits. What bounds value_and_grad's: the trunk's
+// FLOPs on the SMs it gets, then the weights' reads from L2; one cluster
+// gives a plan at most 16 SMs (64 chunks of 8 rows at 256 units, P=512).
+// So it spreads a scenario over ApgArgs::groups clusters' worth of plain
+// blocks of a cooperative grid (sweeps.cuh, the spread note; the planner
+// sizes it to what the card holds at once, ops/cuda/consts.py::
+// plan_groups), each chunk's partials in a slot in device memory, summed in
+// chunk order by every block after a barrier over the scenario's blocks:
+// the bits of one cluster. value_batch's global-weight form keeps its grid
+// of K clusters (groups = 1).
 //
 // Reduced matmul precision (ApgArgs::bf16, sweeps.cuh): the bf16-trunk
 // instantiations (BF) of value_batch (the particle forms and the P=1 ones,
@@ -165,6 +174,13 @@ __device__ __forceinline__ size_t vg_scenario() {
   if constexpr (PART) asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(b));
   else asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
   return b;
+}
+// ... and with the spread (the global-weight form; sweeps.cuh) its blocks'
+// scenario
+template <bool PART, bool SPREAD>
+__device__ __forceinline__ size_t vg_scen(const ApgArgs& a) {
+  if constexpr (SPREAD) return spread_scenario(a);
+  else return vg_scenario<PART>();
 }
 
 // Carve one block's dynamic shared memory for `kind` with R candidate rows
@@ -420,7 +436,8 @@ __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
                       const float* __restrict__ starts, const float* __restrict__ moments,
-                      float* __restrict__ val, float* __restrict__ grad) {
+                      float* __restrict__ val, float* __restrict__ grad,
+                      float* __restrict__ scratch) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float fval;
   static_assert(PART || !BF, "the P=1 value_and_grad has no bf16 trunk");
@@ -430,24 +447,32 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                 "a particle form reads its weights in shared memory or, the options form, "
                 "in device memory");
   constexpr bool GW = STEP == P1_GLOBAL;
+  // the particle global-weight form spreads a scenario's chunks over
+  // a.groups * a.cluster blocks (sweeps.cuh, the spread note)
+  constexpr bool SPREAD = PART && GW;
   Smem s = {};
   layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem, STEP);
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_block<BF, GW>(a, s, 1, consts + vg_scenario<PART>() * a.n_consts,
-                     u + vg_scenario<PART>() * (a.H * a.nZ));
-  int rank = 0;                       // the block's rank in its cluster
+  load_block<BF, GW>(a, s, 1, consts + vg_scen<PART, SPREAD>(a) * a.n_consts,
+                     u + vg_scen<PART, SPREAD>(a) * (a.H * a.nZ));
+  int rank = 0;    // the block's rank in its cluster, or among the scenario's blocks
+  if constexpr (SPREAD) {
+    __shared__ Spread sp;
+    spread_init(a, s, &sp, scratch);
+  }
   if constexpr (PART) {
-    rank = (int)cg::this_cluster().block_rank();
+    if constexpr (SPREAD) rank = spread_rank(a);
+    else rank = (int)cg::this_cluster().block_rank();
     // OPT: this scenario's starts (null: x0), offset once into shared memory
     __shared__ const float* starts_p;
     if constexpr (OPT)
       if (tid == 0)
-        starts_p = starts ? starts + vg_scenario<true>() * ((size_t)a.P * 13) : nullptr;
+        starts_p = starts ? starts + vg_scen<true, SPREAD>(a) * ((size_t)a.P * 13) : nullptr;
     // RM: the scenario's moments where vg_part reads them
     if constexpr (RM == RISK_MOMENTS_IN)
       if (tid == 0) {
-        s.red[6] = moments[2 * vg_scenario<true>()];
-        s.red[7] = moments[2 * vg_scenario<true>() + 1];
+        s.red[6] = moments[2 * vg_scen<true, SPREAD>(a)];
+        s.red[7] = moments[2 * vg_scen<true, SPREAD>(a) + 1];
       }
     if constexpr (GW) {
       s.wg = consts;                         // scenario 0's trunk, read in place
@@ -455,9 +480,9 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
     } else {
       transpose_weights(a, s);               // ends with a barrier
     }
-    vg_part<SC, false, OPT, BF, RM, GW>(
+    vg_part<SC, false, OPT, BF, RM, GW, SPREAD>(
         a, s, &fval, s.cand,
-        [noise, &a] { return noise + vg_scenario<true>() * ((size_t)a.H * a.P * 13); },
+        [noise, &a] { return noise + vg_scen<true, SPREAD>(a) * ((size_t)a.H * a.P * 13); },
         [&]() -> const float* { return starts_p; });
   } else if constexpr (STEP == P1_CHAIN) {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
@@ -466,9 +491,9 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   }
   if (rank != 0) return;
   const int HZ = a.H * a.nZ;
-  float* g_out = grad + vg_scenario<PART>() * HZ;
+  float* g_out = grad + vg_scen<PART, SPREAD>(a) * HZ;
   for (int e = tid; e < HZ; e += nt) g_out[e] = s.g[e];
-  if (tid == 0) val[vg_scenario<PART>()] = fval;
+  if (tid == 0) val[vg_scen<PART, SPREAD>(a)] = fval;
 }
 
 // The P=1 form of a launch of `kind` (apg_solve.cuh, p1_form): the weights
@@ -605,7 +630,7 @@ const ValueBatchFn kValueBatch[2][6][3] = {
 using P1VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
                             const float*, float*);
 using P1VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                            const float*, float*, float*);
+                            const float*, float*, float*, float*);
 #define P1_VB(BF, GW)                                                                      \
   {value_batch_kernel<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, GW>,          \
    value_batch_kernel<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, GW>,       \
@@ -621,31 +646,38 @@ const P1VgKernel kP1Vg[2][3] = {P1_VG(P1_SMEM), P1_VG(P1_GLOBAL)};
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
 // (cudaLaunchKernelEx, whose error a cluster the card cannot schedule
-// returns).
+// returns), the global-weight form with a.groups > 1 a.groups * a.cluster
+// blocks each on a cooperative grid (launch_spread, whose error a grid the
+// card cannot hold at once returns).
 template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
           int STEP = P1_CHAIN>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
                                   const float* starts, const float* moments, float* val,
-                                  float* grad) {
+                                  float* grad, float* scratch) {
   if constexpr (PART) {
+    if constexpr (STEP == P1_GLOBAL)
+      if (a.groups > 1)
+        return launch_spread(value_and_grad_kernel<true, SC, OPT, BF, RM, STEP>, a,
+                             ORACLE_NTHREADS_PART, dyn, st, scratch, a, consts, u, noise,
+                             starts, moments, val, grad, scratch);
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, a.batch);
     return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM, STEP>, a,
-                              consts, u, noise, starts, moments, val, grad);
+                              consts, u, noise, starts, moments, val, grad, scratch);
   } else {
     value_and_grad_kernel<false, SC, false, false, RISK_IN_CLUSTER, STEP>
         <<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise, starts, moments, val,
-                                                 grad);
+                                                 grad, scratch);
     return cudaSuccess;
   }
 }
 using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                        const float*, const float*, const float*, const float*,
-                                       float*, float*);
+                                       float*, float*, float*);
 using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
                           const float*, float*);
 using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                          const float*, float*, float*);
+                          const float*, float*, float*, float*);
 #if !ORACLE_GW
 // [form][sc_kind]: form 0 P=1 on the register chain, 1 particles, 2
 // particles with the options, 3 and 4 the bf16 trunk of 1 and 2, 5 and 6
@@ -839,7 +871,7 @@ bool sc_ok(int sc_kind) { return sc_kind >= CONSTR_NONE && sc_kind <= CONSTR_PRO
 bool grid_ok(const ApgArgs* a, int kind, int K = 1) {
   if (kind == ORACLE_VALUE_BATCH && !a->has_noise) return a->batch <= 65535;
   const long long per = kind == ORACLE_TRAJECTORY ? 1
-                        : a->has_noise ? (long long)a->cluster * K : 1;
+                        : a->has_noise ? (long long)a->cluster * a->groups * K : 1;
   return (long long)a->batch * per <= 2147483647LL;
 }
 
@@ -916,6 +948,27 @@ int oracle_cluster_max(int kind, int sc_kind, int opt, int bf16) {
                  opt >= 0 && opt <= 2
              ? g_cmax[kind][bf16 != 0][opt][sc_kind] : 0;
 }
+
+// How many blocks of value_and_grad's global-weight form for a's
+// dimensions, chunk and precision the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), into *n:
+// the bound on a spread launch's batch * groups * cluster
+// (ops/cuda/consts.py::plan_groups); returns a cudaError_t.
+int oracle_resident_blocks(const ApgArgs* a, int* n) {
+  const int o = opt_form(a, ORACLE_VALUE_AND_GRAD);
+  if (!a->has_noise || !sc_ok(a->sc_kind) || o < 0 ||
+      part_form_of(*a, ORACLE_VALUE_AND_GRAD) != P1_GLOBAL)
+    return (int)cudaErrorInvalidValue;
+  const VgKernel fn = vg_kernel(*a, o);
+  return fn ? (int)resident_blocks(fn, ORACLE_NTHREADS_PART,
+                                   (size_t)dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, true), n)
+            : (int)cudaErrorInvalidValue;     // the other library's form
+}
+
+// Floats of the scratch a value_and_grad launch with a's plan takes
+// (apg_solve.cuh spread_floats; 0 but for the global-weight form at
+// groups > 1).
+long long value_and_grad_scratch_floats(const ApgArgs* a) { return spread_floats(*a); }
 
 // cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
 // dimensions, cluster size and precision, into *n; returns a cudaError_t.
@@ -1022,14 +1075,15 @@ int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
 
 int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
                           const void* noise, const void* starts, const void* moments,
-                          void* val, void* grad, void* stream) {
+                          void* val, void* grad, void* scratch, void* stream) {
   const int opt = opt_form(a, ORACLE_VALUE_AND_GRAD);
   if (!args_ok(a, ORACLE_VALUE_AND_GRAD) || !grid_ok(a, ORACLE_VALUE_AND_GRAD) ||
       !particles_ok(a, noise, starts) ||
       opt < 0 || (opt == 2) != (moments != nullptr) ||
-      (!a->has_noise && a->bf16) ||
+      (!a->has_noise && (a->bf16 || a->groups != 1)) ||
       (a->has_noise && !cluster_args_ok(
-          *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind])) ||
+          *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind],
+          global_weights(*a, ORACLE_VALUE_AND_GRAD))) ||
       value_and_grad_smem_bytes(a) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const size_t dyn = dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, a->has_noise != 0);
@@ -1038,7 +1092,7 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
   return launch_error(fn(
       *a, dyn, (cudaStream_t)stream, (const float*)consts, (const float*)u,
       (const float*)noise, (const float*)starts, (const float*)moments, (float*)val,
-      (float*)grad));
+      (float*)grad, (float*)scratch));
 }
 
 }  // extern "C"

@@ -8,6 +8,10 @@
 // cost_oracle.cu's; they launch only particle evaluations whose trunk and
 // chunk take no shared-memory form of that kernel (the wrapper,
 // ops/cuda/cost_oracle.py, picks the library by oracle_part_form) and refuse
-// every other (trajectory among them).
+// every other (trajectory among them). What bounds them is the trunk's
+// FLOPs on the SMs a plan gets, then the weights' reads from L2, so
+// value_and_grad's forms spread a scenario's chunks over ApgArgs::groups
+// clusters' worth of blocks (sweeps.cuh, the spread note), their partials
+// summed through device memory in chunk order: the bits of one cluster.
 #define ORACLE_GW 1
 #include "cost_oracle.cu"

@@ -26,7 +26,8 @@
 //   - cand_part: K candidates x P particles in chunks, the particle mean
 //     per candidate (bodies.py::candidate_rollout/run_candidates, :700-765);
 //   - cluster_chunk_sum: the chunk partials of a thread-block cluster
-//     summed in chunk order through distributed shared memory;
+//     summed in chunk order through distributed shared memory; with the
+//     spread (spread_chunk_sum) through slots in device memory;
 //   - the particle options (a.risk, the starts): the risk-sensitive
 //     reduction mean + lambda * std of the particles' discounted totals
 //     (sde4mbrl_px4_tpu/cost/cost.py:213-229) and a start per particle
@@ -57,6 +58,25 @@
 // size gives the same bits, and every block holds the same reduced values.
 // The whole solve and value_and_grad launch one cluster; value_batch a grid
 // of K clusters, one per candidate (cand_part with K = 1).
+//
+// The spread (SPREAD, a template parameter of vg_part and cand_part that the
+// global-weight forms of the whole solve and of value_and_grad take;
+// ApgArgs::groups): what bounds those forms is the trunk's FLOPs on the SMs
+// they get, then the weights' reads from L2 (they read every weight in
+// place, apg_solve.cuh part_form), and one cluster gives a scenario at most
+// 16 SMs. With groups > 1 a scenario runs on N = groups * cluster blocks of
+// a cooperative grid, blocks b*N .. b*N + N-1, block j sweeping chunks j,
+// j + N, ...: no block keeps the trunk in its shared memory, so nothing ties
+// a scenario's chunks to one cluster. Each block writes its chunks'
+// partials to their slots in device memory (the launch's scratch,
+// apg_solve.cuh spread_floats), a barrier over the scenario's blocks alone
+// (an arrival counter, spread_barrier; the cooperative launch makes every
+// block resident, or is refused) follows, and every block sums the slots in
+// chunk order 0 .. n_chunks-1 (spread_chunk_sum): the loop of
+// cluster_chunk_sum on another memory, so every groups and cluster give the
+// bits of one block, and every block holds the same sums and takes the same
+// decisions. groups = 1 is the one cluster above (the spread forms then read
+// the same sums through distributed shared memory).
 //
 // The particle options are a template parameter OPT of the particle sweeps
 // (vg_part, cand_part, bwd_rows) and of the kernels' particle forms: the
@@ -155,6 +175,16 @@ namespace cg = cooperative_groups;
 
 constexpr float kG = 9.81f;
 
+// The spread's state, in the block's shared memory (spread_init): this
+// scenario's slots and arrival counter in the launch's scratch (groups > 1),
+// and the number of chunk sums the block has taken, which picks the region a
+// sum writes and the count its barrier waits for.
+struct Spread {
+  float* slots;
+  unsigned* arrive;
+  unsigned nsum;
+};
+
 // Shared-memory scratch. R is the number of rows a fwd_step sweeps at once
 // (the whole-solve kernel's K linesearch candidates, a value_batch tile).
 struct Smem {
@@ -192,6 +222,7 @@ struct Smem {
   float *pk;                       // (chunks_per_block, 2K) its candidate ones
                                    // ((.., 3K) with risk)
   float *wr;                       // (H, 4) wrench of the vg row per step (P=1)
+  struct Spread* sp;               // the spread forms' slots and barrier (shared memory)
   long long *prof;                 // (PH_N + 1,) phase cycles (apg_solve_prof_launch)
 };
 
@@ -1574,8 +1605,124 @@ __device__ __forceinline__ int block_rank_now() {
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
   return (int)r;
 }
+
+// The spread (the header's note): a scenario's N = groups * cluster blocks
+// are blocks b*N .. b*N + N-1 of the grid (at groups = 1 cluster b, whose
+// ranks they are), the block index read from its special register where
+// used.
+__device__ __forceinline__ unsigned block_id_now() {
+  unsigned b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
+__device__ __forceinline__ int spread_blocks(const ApgArgs& a) { return a.groups * a.cluster; }
+__device__ __forceinline__ size_t spread_scenario(const ApgArgs& a) {
+  return block_id_now() / (unsigned)spread_blocks(a);
+}
+__device__ __forceinline__ int spread_rank(const ApgArgs& a) {
+  return (int)(block_id_now() % (unsigned)spread_blocks(a));
+}
+
+// A block's first chunk and its chunks' stride, by the scenario's blocks:
+// SPREAD its index among the scenario's N blocks and N, else its rank in
+// its cluster and the cluster's size; and the number of chunks it sweeps.
+template <bool SPREAD = false>
+__device__ __forceinline__ int first_chunk(const ApgArgs& a) {
+  if constexpr (SPREAD) return spread_rank(a);
+  else return (int)cg::this_cluster().block_rank();
+}
+template <bool SPREAD = false>
+__device__ __forceinline__ int chunk_stride(const ApgArgs& a) {
+  if constexpr (SPREAD) return spread_blocks(a);
+  else return a.cluster;
+}
+template <bool SPREAD = false>
 __device__ __forceinline__ int block_chunks(const ApgArgs& a) {
-  return (a.n_chunks - block_rank_now() + a.cluster - 1) / a.cluster;
+  if constexpr (SPREAD)
+    return (a.n_chunks - spread_rank(a) + spread_blocks(a) - 1) / spread_blocks(a);
+  else return (a.n_chunks - block_rank_now() + a.cluster - 1) / a.cluster;
+}
+template <bool SPREAD = false>
+__device__ __forceinline__ int rank_now(const ApgArgs& a) {
+  if constexpr (SPREAD) return spread_rank(a);
+  else return block_rank_now();
+}
+
+// The spread forms' set-up, by every thread before the block's first
+// barrier: the block's Spread `sp` (shared memory) in s, no sum taken, and
+// with groups > 1 this scenario's counter and slots in `scratch`
+// (apg_solve.cuh spread_floats).
+__device__ __forceinline__ void spread_init(const ApgArgs& a, Smem& s, Spread* sp,
+                                            float* scratch) {
+  s.sp = sp;
+  if (threadIdx.x != 0) return;
+  sp->nsum = 0;
+  if (a.groups > 1) {
+    const size_t b = spread_scenario(a);
+    sp->arrive = reinterpret_cast<unsigned*>(scratch) + b * SPREAD_CTR;
+    sp->slots = scratch + (size_t)a.batch * SPREAD_CTR + b * 2 * (size_t)spread_region(a);
+  }
+}
+
+// The barrier over the scenario's blocks before sum k = s.sp->nsum (its
+// k+1-th): each block's thread 0 makes the block's writes visible, counts
+// the block in and waits until all N blocks of each of the k+1 barriers are
+// in (the counter starts at 0, zeroed before the launch); then nsum moves
+// on. A scenario waits on its own blocks only.
+__device__ __forceinline__ void spread_barrier(const ApgArgs& a, const Smem& s) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Spread* sp = s.sp;
+    const unsigned target = (sp->nsum + 1u) * (unsigned)spread_blocks(a);
+    __threadfence();
+    atomicAdd(sp->arrive, 1u);
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(sp->arrive) : "memory");
+    } while (v < target);
+    __threadfence();
+    sp->nsum = sp->nsum + 1u;
+  }
+  __syncthreads();
+}
+
+// cluster_chunk_sum through device memory (groups > 1): the block copies
+// its chunks' partials (chunk ch = first_chunk + jj * N at part[jj * stride
+// ..]) to their slots of this sum's region, the barrier, then out(e, v) with
+// v the sum of element e over the chunks' slots in chunk order
+// 0 .. n_chunks-1, read past L1 (other blocks wrote them). Ends with a block
+// barrier; the two regions alternate, so no slot is written again before
+// every block has read it.
+template <class Out>
+__device__ void spread_chunk_sum(const ApgArgs& a, const Smem& s, const float* part,
+                                              int n, Out out, int stride = 0) {
+  const int ld = stride ? stride : n, N = spread_blocks(a), tid = threadIdx.x;
+  __syncthreads();                                   // the block's partials written
+  float* slot = s.sp->slots + (s.sp->nsum & 1u) * spread_region(a);
+  for (int jj = 0, ch = spread_rank(a); ch < a.n_chunks; ++jj, ch += N)
+    for (int e = tid; e < n; e += blockDim.x) __stcg(slot + (size_t)ch * n + e, part[jj * ld + e]);
+  spread_barrier(a, s);
+  for (int e = tid; e < n; e += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < a.n_chunks; ++ch) acc += __ldcg(slot + (size_t)ch * n + e);
+    out(e, acc);
+  }
+  __syncthreads();
+}
+
+// The chunk sum of a sweep: SPREAD with groups > 1 through device memory,
+// else through the cluster's distributed shared memory.
+template <bool SPREAD = false, class Out>
+__device__ __forceinline__ void chunk_sum(const ApgArgs& a, const Smem& s, float* part, int n,
+                                          Out out, int stride = 0) {
+  if constexpr (SPREAD) {
+    if (a.groups > 1) {
+      spread_chunk_sum(a, s, part, n, out, stride);
+      return;
+    }
+  }
+  cluster_chunk_sum(a, part, n, out, stride);
 }
 
 // Value and gradient of the iterate U over P particles (the noise branch of
@@ -1594,12 +1741,15 @@ __device__ __forceinline__ int block_chunks(const ApgArgs& a) {
 // note). BF: the bf16 trunk. RM (OPT): RISK_MOMENTS_IN weighs the rows with
 // the moments in s.red[6], s.red[7] after each chunk's own forward, and
 // *fval is then the risk-free cost of this launch's particles. GW: the
-// trunk's weights read from device memory (s.wg; trunk, bwd_rows).
+// trunk's weights read from device memory (s.wg; trunk, bwd_rows). SPREAD
+// (OPT): the chunks over the scenario's blocks and their sums through
+// chunk_sum (the header's spread note).
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER, bool GW = false, class Noise = const float*,
-          class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, bool GW = false, bool SPREAD = false,
+          class Noise = const float*, class Starts = const float*>
 __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const float* U,
                         Noise noise, Starts starts) {
+  static_assert(!SPREAD || OPT, "the spread is the options forms'");
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const float* c = s.c;
   constexpr bool IN = RM == RISK_MOMENTS_IN;     // the moments given: one pass
@@ -1647,13 +1797,13 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
     // block's rank, read from its special register where used
     // (block_chunks), and the scalars are read from shared memory. IN: one
     // step a chunk, as without risk.
-    for (int it = 0; it < (!IN && a.risk ? 2 : 1) * block_chunks(a); ++it) {
-      if (!IN && a.risk && it == block_chunks(a)) {
+    for (int it = 0; it < (!IN && a.risk ? 2 : 1) * block_chunks<SPREAD>(a); ++it) {
+      if (!IN && a.risk && it == block_chunks<SPREAD>(a)) {
         // the tracking, sigma and total means, then the totals' centred
         // second moment, each in chunk order; the rows' weights in place
         // of their totals
-        const int nj = block_chunks(a);
-        cluster_chunk_sum(a, s.pg + HZ, 3, [&](int e, float v) { s.cacc[e] = v; }, W);
+        const int nj = block_chunks<SPREAD>(a);
+        chunk_sum<SPREAD>(a, s, s.pg + HZ, 3, [&](int e, float v) { s.cacc[e] = v; }, W);
         for (int jj = 0; jj < nj; ++jj) {
           const float* tj = s.tot + jj * R;
           if (warp == 0)
@@ -1663,7 +1813,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           if (tid == 0) s.pg[jj * W + HZ] = s.red[6] / (float)R / (float)a.n_chunks;
           __syncthreads();
         }
-        cluster_chunk_sum(a, s.pg + HZ, 1, [&](int, float v) { s.red[7] = v; }, W);
+        chunk_sum<SPREAD>(a, s, s.pg + HZ, 1, [&](int, float v) { s.red[7] = v; }, W);
         const float sd = sqrtf(s.red[7] + 1e-12f), lam = c[a.o_scal + SC_RISK];
         for (int e = tid; e < nj * R; e += nt)
           s.tot[e] = 1.f + lam * (s.tot[e] - s.cacc[2]) / sd;
@@ -1672,13 +1822,13 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
       }
       // the step's chunk: chunks 0 .. nj-1 forward, then (risk) nj-1 .. 0
       auto chunk_of = [&](int step) {
-        const int nj = block_chunks(a);
+        const int nj = block_chunks<SPREAD>(a);
         return step < nj ? step : 2 * nj - 1 - step;
       };
-      if (it < block_chunks(a) || chunk_of(it) != block_chunks(a) - 1) {
+      if (it < block_chunks<SPREAD>(a) || chunk_of(it) != block_chunks<SPREAD>(a) - 1) {
         // chunk ch's rows from their starts through the horizon into the
         // stash
-        const int ch = block_rank_now() + chunk_of(it) * a.cluster;
+        const int ch = rank_now<SPREAD>(a) + chunk_of(it) * chunk_stride<SPREAD>(a);
         const float* x0p = noise_at(starts);
         if (x0p) x0p += (size_t)ch * R * 13;
         for (int e = tid; e < R * 13; e += nt) {
@@ -1695,7 +1845,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
                                             GW ? s.wg : nullptr);
         prof_stamp<PROF>(s, PP_VG_FWD);
       }
-      if (it < block_chunks(a)) {
+      if (it < block_chunks<SPREAD>(a)) {
         // the chunk's rows' mean costs / n_chunks into part[HZ], part[HZ +
         // 1] (and with risk the rows' totals and their mean into
         // part[HZ + 2])
@@ -1715,7 +1865,7 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           if (!IN && a.risk) part[HZ + 2] = s.red[5] / (float)R / (float)a.n_chunks;
         }
       }
-      if (IN || !a.risk || it >= block_chunks(a)) {
+      if (IN || !a.risk || it >= block_chunks<SPREAD>(a)) {
         const int j = chunk_of(it);
         if (a.risk) {
           // the chunk's risk weights where bwd_rows reads them (its
@@ -1731,16 +1881,17 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
           __syncthreads();
         }
         for (int t = a.H - 1; t >= 0; --t)
-          bwd_rows<SC, true, BF, GW>(a, s, U,
-                             noise_at(noise) + (size_t)(block_rank_now() + j * a.cluster) * R * 13
-                                 + (size_t)t * a.P * 13,
-                             t, s.pg + chunk_of(it) * W);
+          bwd_rows<SC, true, BF, GW>(
+              a, s, U,
+              noise_at(noise) + (size_t)(rank_now<SPREAD>(a) + j * chunk_stride<SPREAD>(a)) * R * 13
+                  + (size_t)t * a.P * 13,
+              t, s.pg + chunk_of(it) * W);
         prof_stamp<PROF>(s, PP_VG_BWD);
       }
     }
     // the gradient (and without in-cluster risk the two costs) summed in
     // chunk order
-    cluster_chunk_sum(a, s.pg, !IN && a.risk ? HZ : W, [&](int e, float v) {
+    chunk_sum<SPREAD>(a, s, s.pg, !IN && a.risk ? HZ : W, [&](int e, float v) {
       if (e < HZ) s.g[e] = v;
       else s.cacc[e - HZ] = v;
     }, W);
@@ -1779,16 +1930,18 @@ __device__ void vg_part(const ApgArgs& a, const Smem& s, float* fval, const floa
 // K = 1 (one candidate per cluster). BF: the bf16 trunk. RM (OPT):
 // RISK_MOMENTS_OUT leaves the centred second moments in s.cacc[3K + k] and
 // the tracking means without the risk term. GW: the trunk's weights read from
-// device memory (s.wg; trunk).
+// device memory (s.wg; trunk). SPREAD: the chunks over the scenario's blocks
+// and their sums through chunk_sum (the header's spread note; the whole
+// solve's global-weight form, not value_batch's grid).
 template <int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          int RM = RISK_IN_CLUSTER, bool GW = false, class Noise = const float*,
-          class Starts = const float*>
+          int RM = RISK_IN_CLUSTER, bool GW = false, bool SPREAD = false,
+          class Noise = const float*, class Starts = const float*>
 __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
                           Starts starts) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int HZ = a.H * a.nZ, Pc = a.Pc, R = K * Pc;
-  const int rank = (int)cg::this_cluster().block_rank();
-  for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
+  const int rank = first_chunk<SPREAD>(a);
+  for (int ch = rank, j = 0; ch < a.n_chunks; ch += chunk_stride<SPREAD>(a), ++j) {
     if constexpr (OPT) {
       const float* x0p = noise_at(starts);
       if (x0p) x0p += (size_t)ch * Pc * 13;
@@ -1829,10 +1982,10 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
     }
     __syncthreads();
   }
-  cluster_chunk_sum(a, s.pk, (OPT && a.risk ? 3 : 2) * K,
+  chunk_sum<SPREAD>(a, s, s.pk, (OPT && a.risk ? 3 : 2) * K,
                     [&](int e, float v) { s.cacc[e] = v; });
   if (OPT && a.risk) {
-    for (int ch = rank, j = 0; ch < a.n_chunks; ch += a.cluster, ++j) {
+    for (int ch = rank, j = 0; ch < a.n_chunks; ch += chunk_stride<SPREAD>(a), ++j) {
       if (tid < K) {
         const float m = s.cacc[2 * K + tid];
         const float* tot = s.tot + j * R;
@@ -1846,7 +1999,7 @@ __device__ void cand_part(const ApgArgs& a, const Smem& s, int K, Noise noise,
     }
     __syncthreads();
     // the tracking mean plus lambda * sqrt(var + 1e-12); moments out: var
-    cluster_chunk_sum(a, s.pk, K, [&](int e, float v) {
+    chunk_sum<SPREAD>(a, s, s.pk, K, [&](int e, float v) {
       if constexpr (RM == RISK_MOMENTS_OUT) s.cacc[3 * K + e] = v;
       else s.cacc[e] = s.cacc[e] + s.c[a.o_scal + SC_RISK] * sqrtf(v + 1e-12f);
     });
@@ -1927,11 +2080,51 @@ cudaError_t cluster_max(Kernel* fn, int threads, int* cmax) {
 }
 
 // Whether a particle launch's cluster fields are a plan of its chunks: C
-// blocks, 1 <= C <= cmax and C <= n_chunks, each block at least one chunk
-// and at most chunks_per_block.
-inline bool cluster_args_ok(const ApgArgs& a, int cmax) {
-  return a.cluster >= 1 && a.cluster <= cmax && a.cluster <= a.n_chunks &&
-         a.chunks_per_block == (a.n_chunks + a.cluster - 1) / a.cluster;
+// blocks a cluster, 1 <= C <= cmax, G = groups >= 1 of them a scenario (G
+// > 1 only where `spread`, the spread forms), G * C <= n_chunks, each block
+// at least one chunk and at most chunks_per_block.
+inline bool cluster_args_ok(const ApgArgs& a, int cmax, bool spread = false) {
+  const int n = a.groups * a.cluster;
+  return a.cluster >= 1 && a.cluster <= cmax && a.groups >= 1 && (a.groups == 1 || spread) &&
+         n <= a.n_chunks && a.chunks_per_block == (a.n_chunks + n - 1) / n;
+}
+
+// A spread launch (groups > 1; the header's spread note): the scenarios'
+// arrival counters in `scratch` zeroed on the stream, then `fn` on a
+// cooperative grid of batch * groups * cluster plain blocks of `threads`
+// threads with `dyn` bytes of dynamic shared memory each, which the
+// runtime refuses (its error returned) where the card cannot hold every
+// block at once.
+template <class... Params, class... Args>
+cudaError_t launch_spread(void (*fn)(Params...), const ApgArgs& a, int threads, size_t dyn,
+                          cudaStream_t st, float* scratch, Args... args) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaMemsetAsync(scratch, 0, (size_t)a.batch * SPREAD_CTR * sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  cfg.gridDim = dim3(a.batch * a.groups * a.cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fn, args...);
+}
+
+// How many blocks of `fn` (threads, dyn as above) the card holds at once:
+// the bound of a spread launch's grid.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel* fn, int threads, size_t dyn, int* n) {
+  int per = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, threads, dyn);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *n = e == cudaSuccess ? per * sms : 0;
+  return e;
 }
 
 }  // namespace

@@ -83,7 +83,20 @@ options forms (risk and starts off unless the solve has them) in libraries
 of their own (``csrc/apg_solve_gw.cu``, ``csrc/apg_solve_gw_bf16.cu``;
 :func:`load_apg_library` with ``part_global``), picked by ``apg_part_form``
 after the chunk is planned; ``apg_solve_kernel.launches_global`` counts
-their launches (in ``.launches`` too).
+their launches (in ``.launches`` too). The global-weight form spreads a
+scenario's chunks over ``ApgArgs.groups`` clusters' worth of blocks
+(``consts.py`` module docstring, ``consts.plan_groups``: the most the card
+holds at once for the launch's B scenarios, from the library's
+``apg_resident_blocks``), with the bits of one cluster; a launch the card
+refuses raises, with no retry on fewer blocks. ``cluster``, when given,
+plans one cluster a scenario (groups 1). ``apg_solve_kernel.blocks_global``
+counts the global-weight launches by their blocks per scenario
+(``{groups * cluster: launches}``).
+
+The P=1 register chain's forms are a library of their own
+(``csrc/apg_solve_chain.cu``, :func:`load_apg_library` with ``chain``);
+``csrc/apg_solve.cu`` holds the fp32 particle forms. Both build in parallel
+with the others.
 """
 from __future__ import annotations
 
@@ -98,7 +111,7 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     P1_GLOBAL, SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts,
-    has_options, p1_widths, plan_particles, sc_kind, scenario_weights)
+    has_options, p1_widths, plan_groups, plan_particles, sc_kind, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -123,16 +136,19 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def load_apg_library(bf16: bool = False, p1_step: bool = False,
-                     part_global: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/apg_solve.cu`` (the register
-    chain and the particle forms), with ``bf16`` ``csrc/apg_solve_bf16.cu``
-    (the bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
+                     part_global: bool = False, chain: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/apg_solve.cu`` (the fp32
+    particle forms), with ``chain`` ``csrc/apg_solve_chain.cu`` (the P=1
+    register chain), with ``bf16`` ``csrc/apg_solve_bf16.cu`` (the
+    bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
     (the P=1 shared-memory step), with ``part_global``
     ``csrc/apg_solve_gw.cu`` (``csrc/apg_solve_gw_bf16.cu`` with ``bf16``:
     the particle global-weight forms). Each answers the shared-memory and ABI
     queries of every form."""
     if part_global:
         name = "apg_solve_gw_bf16" if bf16 else "apg_solve_gw"
+    elif chain:
+        name = "apg_solve_chain"
     else:
         name = "apg_solve_bf16" if bf16 else "apg_solve_p1" if p1_step else "apg_solve"
     lib = load_library(name)
@@ -148,7 +164,7 @@ def load_apg_library(bf16: bool = False, p1_step: bool = False,
     lib.apg_error_string.restype = ctypes.c_char_p
     lib.apg_init.argtypes = []
     lib.apg_init.restype = ctypes.c_int
-    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 10
+    lib.apg_solve_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 11
     lib.apg_solve_launch.restype = ctypes.c_int
     lib.apg_solve_prof_launch.argtypes = [ctypes.POINTER(ApgArgs)] + [_P] * 11
     lib.apg_solve_prof_launch.restype = ctypes.c_int
@@ -157,6 +173,10 @@ def load_apg_library(bf16: bool = False, p1_step: bool = False,
     lib.apg_max_active_clusters.argtypes = [ctypes.POINTER(ApgArgs),
                                             ctypes.POINTER(ctypes.c_int)]
     lib.apg_max_active_clusters.restype = ctypes.c_int
+    lib.apg_resident_blocks.argtypes = [ctypes.POINTER(ApgArgs), ctypes.POINTER(ctypes.c_int)]
+    lib.apg_resident_blocks.restype = ctypes.c_int
+    lib.apg_scratch_floats.argtypes = [ctypes.POINTER(ApgArgs)]
+    lib.apg_scratch_floats.restype = ctypes.c_longlong
     if lib.apg_args_size() != ctypes.sizeof(ApgArgs):
         raise RuntimeError(
             f"ApgArgs ABI mismatch: library {lib.apg_args_size()} bytes, "
@@ -260,11 +280,14 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     yk = torch.empty((B, H, nZ), **kw)
     stats = torch.empty((B, 8), **kw)
     x_evol = None if args.has_noise else torch.empty((B, H + 1, 13), **kw)
+    # the spread's slots and counters (consts.plan_groups), zeroed by the launcher
+    n_scratch = lib.apg_scratch_floats(ctypes.byref(args))
+    scratch = torch.empty(n_scratch, **kw) if n_scratch else None
     ptr = lambda t: None if t is None else t.data_ptr()
     common = (ctypes.byref(args), consts.data_ptr(), u_init.data_ptr(), t0.data_ptr(),
               ptr(precond), ptr(noise), ptr(starts), yk.data_ptr(), stats.data_ptr(),
               ptr(x_evol))
-    rc = (lib.apg_solve_launch(*common, stream) if prof is None
+    rc = (lib.apg_solve_launch(*common, ptr(scratch), stream) if prof is None
           else lib.apg_solve_prof_launch(*common, prof.data_ptr(), stream))
     if rc != 0:
         raise RuntimeError("apg_solve_kernel launch failed: "
@@ -291,7 +314,8 @@ def apg_solve_kernel(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     optional (H, nZ) diagonal metric,
     ``iter_budget`` an optional host-side iteration cap, ``chunk`` the
     particle chunk (0: the largest divisor of P that fits), ``cluster`` the
-    most blocks of the particle form's cluster (0: the card's largest; 1
+    most blocks of the particle form's cluster (0: the card's largest, and
+    the global-weight form's spread; given: one cluster a scenario, so 1
     sweeps every chunk in one block, the same bits), ``starts`` the (P, 13)
     particles' initial states of a Monte-Carlo solve (None: all at
     ``x0``; the cost's ``risk_lambda`` is read from ``cp``), ``bf16`` the
@@ -443,7 +467,8 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     consts, args = build_consts(model, params, cp, apg, time_steps, x0[0], x_ref[0],
                                 u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget, particles=z is not None)
-    lib = load_apg_library(bool(bf16), z is None and not p1_widths(args.F, args.HID))
+    chain = z is None and p1_widths(args.F, args.HID)
+    lib = load_apg_library(bool(bf16), z is None and not chain, chain=chain)
     weights = scenario_weights(cp, B)
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
@@ -455,10 +480,20 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
         glob = lib.apg_part_form(ctypes.byref(args)) == P1_GLOBAL
         if glob:
             lib = load_apg_library(bool(bf16), part_global=True)
+            if not cluster:
+                n = ctypes.c_int(0)
+                rc = lib.apg_resident_blocks(ctypes.byref(args), ctypes.byref(n))
+                if rc != 0:
+                    raise RuntimeError("apg_resident_blocks failed: "
+                                       + lib.apg_error_string(rc).decode())
+                plan_groups(args, P1_GLOBAL, n.value)
     t0 = resolve_t_init(apg, t_init, dev).expand(B).contiguous()
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z, starts,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
     apg_solve_kernel.launches_global += int(glob)
+    if glob:
+        n = args.groups * args.cluster
+        apg_solve_kernel.blocks_global[n] = apg_solve_kernel.blocks_global.get(n, 0) + 1
     if x_evol is None:
         x_evol = trajectory_kernel(consts, args, yk)        # fp32 whatever args.bf16
     st = APGState(yk=yk, num_steps=stats[:, 0], stepsize=stats[:, 1],
@@ -498,3 +533,4 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 apg_solve_kernel.launches = apg_solve_kernel.launches_bf16 = 0
 apg_solve_kernel.launches_global = 0
+apg_solve_kernel.blocks_global = {}

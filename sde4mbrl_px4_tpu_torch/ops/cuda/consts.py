@@ -73,6 +73,16 @@ the form of a launch from its dimensions and chunk
 in the shared-memory form first, so the global-weight form runs only where
 no chunk of the other fits. A form named in ``ApgArgs.step`` (for
 measurement) is planned alone and taken or refused at launch.
+
+The spread (``ApgArgs.groups``): the global-weight forms of the whole solve
+and of ``value_and_grad`` run a scenario on ``groups * cluster`` blocks,
+block j sweeping chunks ``j, j + groups * cluster, ...``
+(:func:`scenario_chunks`); past one cluster the blocks are plain blocks of
+a cooperative grid, their chunk partials summed in chunk order through
+slots in device memory (``csrc/sweeps.cuh``, the spread note), so the bits
+are those of one cluster. :func:`plan_groups` picks ``groups`` after the
+form: 1 for every other form, and for those two the most that keep every
+block of the launch resident at once on the card.
 """
 from __future__ import annotations
 
@@ -91,8 +101,8 @@ __all__ = ["APG_MAXK", "OPT_MOMENTS", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_T
            "P1_GLOBAL", "P1_HID", "P1_SMEM", "RISK_IN_CLUSTER", "RISK_MOMENTS_IN",
            "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
            "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form", "p1_widths",
-           "plan_cluster", "plan_particles", "sc_kind", "scenario_weights",
-           "value_batch_grid"]
+           "plan_cluster", "plan_groups", "plan_particles", "sc_kind", "scenario_chunks",
+           "scenario_weights", "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 register chain holds the trunk in registers at these widths: hidden
@@ -136,7 +146,7 @@ _SC_FIELDS = ("sc_kind", "m", "o_penm", "o_invm", "o_sid", "o_pen13", "o_lo13",
 _RISK_FIELDS = ("risk", "has_starts", "risk_mode")
 _BATCH_FIELDS = ("batch",)
 _PRECISION_FIELDS = ("bf16",)
-_CLUSTER_FIELDS = ("cluster", "chunks_per_block")
+_CLUSTER_FIELDS = ("cluster", "chunks_per_block", "groups")
 _STEP_FIELDS = ("step",)
 _RESET = {"increase": 0, "conservative": 1, "bb": 2}
 
@@ -250,7 +260,7 @@ def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
     a.H, a.n_u, a.nZ = H, n, nZ
     a.sc_kind, a.m = sc_kind(cp), nZ - n
     a.risk = int(particles and cp.risk_lambda is not None)
-    a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = 1
+    a.P = a.Pc = a.n_chunks = a.cluster = a.chunks_per_block = a.batch = a.groups = 1
     a.F, a.HID, a.OUT = int(net["w0"].shape[0]), HID, OUT
     a.has_slew = int(cp.u_slew_constr is not None)
     a.step = P1_BY_SHAPE
@@ -324,6 +334,32 @@ def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:
     return C, -(-int(n_chunks) // C)
 
 
+def plan_groups(a: ApgArgs, form: int, resident: int) -> None:
+    """The spread of a particle launch whose chunk and cluster are planned
+    (:func:`plan_particles`), for its form ``form`` (``ApgArgs.step`` or the
+    library's ``*_part_form``): ``a.groups`` G, the clusters' worth of blocks
+    each of the ``a.batch`` scenarios runs on, and ``a.chunks_per_block``
+    over the scenario's G * C blocks. G = 1 but for the global-weight form
+    (:data:`P1_GLOBAL`) of a particle launch, where G is the most groups
+    with G * C <= n_chunks (every block a chunk) and batch * G * C <=
+    ``resident`` (every block of the launch on the card at once: the
+    cooperative launch's bound, ``apg_resident_blocks`` /
+    ``oracle_resident_blocks``), at least 1."""
+    C, B = int(a.cluster), int(a.batch)
+    a.groups = 1
+    if a.has_noise and form == P1_GLOBAL:
+        a.groups = max(1, min(int(a.n_chunks) // C, int(resident) // (B * C)))
+    a.chunks_per_block = -(-int(a.n_chunks) // (a.groups * C))
+
+
+def scenario_chunks(a: ApgArgs) -> list:
+    """The chunks each of a scenario's ``groups * cluster`` blocks sweeps, as
+    the particle kernels assign them: block j the chunks j, j + N, ... below
+    ``n_chunks`` (N = groups * cluster)."""
+    n = int(a.groups) * int(a.cluster)
+    return [list(range(j, int(a.n_chunks), n)) for j in range(n)]
+
+
 def value_batch_grid(K: int, a: ApgArgs,
                      fits: Callable[[int], bool] = lambda rows: True) -> Tuple[int, int]:
     """The grid of one ``value_batch`` launch over K plans, as
@@ -381,6 +417,7 @@ def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
             for pc in sizes:
                 a.Pc, a.n_chunks = pc, P // pc
                 a.cluster, a.chunks_per_block = plan_cluster(a.n_chunks, cmax(form))
+                a.groups = 1
                 if need(a) <= limit:
                     return
             tried.append(f"{need(a)} bytes ({_FORM_NAMES.get(form, f'form {form}')})")

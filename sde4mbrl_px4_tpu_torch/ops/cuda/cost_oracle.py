@@ -100,7 +100,14 @@ library of their own (``csrc/cost_oracle_gw.cu``;
 shared-memory forms first, and each takes its form by shape (``value_batch``
 keeps its shared-memory form wherever its own block fits).
 ``.launches_global`` counts each kernel's global-weight launches (in
-``.launches`` too).
+``.launches`` too). ``value_and_grad``'s global-weight form spreads a
+scenario's chunks over ``ApgArgs.groups`` clusters' worth of blocks
+(``consts.plan_groups``: the most the card holds at once for the B
+scenarios, ``oracle_resident_blocks``), with the bits of one cluster; its
+launches keep their own copy of the plan (``value_batch``, whose grid is K
+clusters a scenario, keeps groups 1), and ``cluster``, when given, plans one
+cluster a scenario. ``value_and_grad_kernel.blocks_global`` counts its
+global-weight launches by their blocks per scenario.
 """
 from __future__ import annotations
 
@@ -117,7 +124,7 @@ from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL, RISK_MOMENTS_IN,
     RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, opt_form,
-    p1_widths, plan_particles, scenario_weights)
+    p1_widths, plan_groups, plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -148,11 +155,13 @@ def load_oracle_library(part_global: bool = False) -> ctypes.CDLL:
         "oracle_part_form": ([_A, ctypes.c_int], ctypes.c_int),
         "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
-        "value_and_grad_launch": ([_A] + [_P] * 8, ctypes.c_int),
+        "value_and_grad_launch": ([_A] + [_P] * 9, ctypes.c_int),
         "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
         "oracle_cluster_max": ([ctypes.c_int] * 4, ctypes.c_int),
         "oracle_max_active_clusters": ([ctypes.c_int, _A, ctypes.POINTER(ctypes.c_int)],
                                        ctypes.c_int),
+        "oracle_resident_blocks": ([_A, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+        "value_and_grad_scratch_floats": ([_A], ctypes.c_longlong),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -444,16 +453,39 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                          f"above the {_limit(args)}-byte budget")
     val = torch.empty(u.shape[:-2], dtype=torch.float32, device=u.device)
     grad = torch.empty_like(u)
+    # the spread's slots and counters (consts.plan_groups), zeroed by the launcher
+    n_scratch = lib.value_and_grad_scratch_floats(ctypes.byref(args))
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=u.device) if n_scratch
+               else None)
     _raise_on(lib.value_and_grad_launch(ctypes.byref(args), consts.data_ptr(),
                                         u.data_ptr(), _ptr(noise), _ptr(starts),
                                         _ptr(moments), val.data_ptr(), grad.data_ptr(),
-                                        _stream(u)),
+                                        _ptr(scratch), _stream(u)),
               "value_and_grad")
     value_and_grad_kernel.launches += 1
     value_and_grad_kernel.launches_bf16 += args.bf16
     value_and_grad_kernel.launches_global += glob
     value_and_grad_kernel.launches_moments += want
+    if glob:
+        n, seen = args.groups * args.cluster, value_and_grad_kernel.blocks_global
+        seen[n] = seen.get(n, 0) + 1
     return val, grad
+
+
+def _spread_args(args: ApgArgs, cluster: int = 0) -> ApgArgs:
+    """``value_and_grad``'s copy of an oracle's planned ``args``: where its
+    form is the global-weight form, the spread over the scenarios
+    (``consts.plan_groups`` on ``oracle_resident_blocks``), unless
+    ``cluster`` was given (one cluster a scenario); ``args`` itself keeps
+    groups 1, ``value_batch``'s."""
+    a = ApgArgs.from_buffer_copy(args)
+    lib, glob = _library(a, ORACLE_VALUE_AND_GRAD)
+    if glob and not cluster:
+        n = ctypes.c_int(0)
+        _raise_on(lib.oracle_resident_blocks(ctypes.byref(a), ctypes.byref(n)),
+                  "oracle_resident_blocks")
+        plan_groups(a, P1_GLOBAL, n.value)
+    return a
 
 
 def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
@@ -517,6 +549,7 @@ value_batch_kernel.launches = value_batch_kernel.launches_bf16 = 0
 value_and_grad_kernel.launches = value_and_grad_kernel.launches_bf16 = 0
 value_batch_kernel.launches_moments = value_and_grad_kernel.launches_moments = 0
 value_batch_kernel.launches_global = value_and_grad_kernel.launches_global = 0
+value_and_grad_kernel.blocks_global = {}
 trajectory_kernel.launches = 0
 
 
@@ -549,12 +582,14 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         starts = None                 # the mean dynamics start at x0
     args.has_starts = int(starts is not None)
     args.bf16 = int(bf16)
+    a_vg = args
     if z is not None:
         z = z.contiguous()
         plan_oracle_particles(lib, args, P, chunk, cluster)
+        a_vg = _spread_args(args, cluster)
     return _checked(H, args.nZ, dev,
                     lambda U: value_batch_kernel(consts, args, U, z, starts),
-                    lambda u: value_and_grad_kernel(consts, args, u, z, starts),
+                    lambda u: value_and_grad_kernel(consts, a_vg, u, z, starts),
                     functools.partial(trajectory_kernel, consts, args))
 
 
@@ -684,15 +719,18 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
     args.bf16 = int(bf16)
+    a_vg = args
     if z is not None:
         plan_oracle_particles(lib, args, P, chunk, cluster)
+        a_vg = _spread_args(args, cluster)
     moments = (None, None)
     if z is not None and args.risk:
         a_out, a_in = (ApgArgs.from_buffer_copy(args) for _ in range(2))
         a_out.risk_mode, a_in.risk_mode = RISK_MOMENTS_OUT, RISK_MOMENTS_IN
+        a_in = _spread_args(a_in, cluster)
         moments = (lambda U: value_batch_kernel(consts, a_out, U, z, starts),
                    lambda u, mom: value_and_grad_kernel(consts, a_in, u, z, starts, mom))
     return _checked_batched(B, H, args.nZ, dev,
                             lambda U: value_batch_kernel(consts, args, U, z, starts),
-                            lambda u: value_and_grad_kernel(consts, args, u, z, starts),
+                            lambda u: value_and_grad_kernel(consts, a_vg, u, z, starts),
                             functools.partial(trajectory_kernel, consts, args), *moments)

@@ -54,6 +54,29 @@ def forced(step: int):
         AK.build_consts = CO.build_consts = build
 
 
+@contextlib.contextmanager
+def grouped(groups: int):
+    """The wrappers plan the particle global-weight forms' spread
+    (``ApgArgs.groups``, ``consts.plan_groups``) at ``groups`` clusters'
+    worth of blocks a scenario, or fewer where the chunks run out, in place
+    of the most the card holds at once (measurement only: 1 is one cluster a
+    scenario, the form's plan before the spread). A plan the card cannot
+    hold is refused at launch."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    plan = AK.plan_groups
+
+    def pinned(a, form, resident):
+        plan(a, form, int(groups) * int(a.batch) * int(a.cluster))
+
+    AK.plan_groups = CO.plan_groups = pinned
+    try:
+        yield
+    finally:
+        AK.plan_groups = CO.plan_groups = plan
+
+
 def timed(fn, n: int) -> float:
     """Mean device ms of ``fn()`` over ``n`` warm calls (CUDA events)."""
     import torch

@@ -48,7 +48,16 @@ def zero_launches() -> None:
                CO.trajectory_kernel):
         fn.launches = 0
     for fn in (CO.value_batch_kernel, CO.value_and_grad_kernel):
-        fn.launches_moments = 0
+        fn.launches_moments = fn.launches_global = 0
+
+
+def global_launches() -> Dict[str, int]:
+    """The launches of the oracle's particle global-weight forms (trunks past
+    the shared-memory forms), counted in ``launches()`` too."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"value_batch": CO.value_batch_kernel.launches_global,
+            "value_and_grad": CO.value_and_grad_kernel.launches_global}
 
 
 def moments_launches() -> Dict[str, int]:
@@ -173,7 +182,7 @@ def particle_solve(cfg: Dict[str, Any], seed: int = 3, solves: int = 1,
     Returns the last solve's plan, cost, iterations and ``x_evol``, every
     solve's plan, wall ms and iterations, their ``SolveTimer`` statistics
     (p50/p99), the host seconds in the collectives, and the launches (of
-    them the shared-moments forms' apart)."""
+    them the shared-moments and the global-weight forms' apart)."""
     from sde4mbrl_px4_tpu_torch.core.types import hover_state
     from sde4mbrl_px4_tpu_torch.engine.profiling import SolveTimer
     from sde4mbrl_px4_tpu_torch.parallel.batched import make_particle_sharded_mpc
@@ -204,7 +213,7 @@ def particle_solve(cfg: Dict[str, Any], seed: int = 3, solves: int = 1,
             "wall_ms": wall, "iterations": iters, "solve_stats": timer.stats(),
             "collective_s": ordered_sum.seconds, "collective_calls": ordered_sum.calls,
             "launches": launches(), "moments_launches": moments_launches(),
-            "mc_index": mesh.mc_index}
+            "global_launches": global_launches(), "mc_index": mesh.mc_index}
 
 
 def train(params: Dict[str, Any], t: np.ndarray, x: np.ndarray, u: np.ndarray,

@@ -198,10 +198,10 @@ def test_apg_args_mirror_the_header():
             header += [n.strip().split("[")[0] for n in decl.split(None, 1)[1].split(",")]
     python = [name for name, _ in ApgArgs._fields_]
     assert python == header
-    assert python[-2:] == ["cluster", "chunks_per_block"]
+    assert python[-3:] == ["cluster", "chunks_per_block", "groups"]
     assert ctypes.sizeof(ApgArgs) == 4 * (len(python) - 1 + APG_MAXK + 1)
     a = ApgArgs()
-    assert (a.cluster, a.chunks_per_block) == (0, 0)
+    assert (a.cluster, a.chunks_per_block, a.groups) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("P, chunk, want", [(64, 16, 16), (16, 16, 0), (8, 16, None),

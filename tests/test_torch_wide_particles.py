@@ -22,6 +22,10 @@ tolerances:
   rtol 2e-4 / atol 2e-5, equal steps;
 - ``mpc_fn`` at P = 8 antithetic on a saved 192-unit checkpoint, its first
   solve in lockstep with the JAX ``mpc_fn``'s on JAX's draws;
+- MPPI over K x P paths (``solver: mppi``, K = 16, P = 8 antithetic) on a
+  saved 192-unit checkpoint, the first solve of both ``mpc_fn``s in
+  lockstep at ``tests/test_torch_mppi.py``'s tolerance (rtol 1e-5) on
+  JAX's draws;
 - the form choice of ``plan_particles`` on stub byte counts: the
   shared-memory form wherever any chunk fits, the global-weight form only
   past that, and an error naming the width and the bytes past both.
@@ -52,6 +56,7 @@ from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (P1_BY_SHAPE, P1_GLOBAL, P1_SMEM, ApgArgs,
                                                     plan_particles)
 from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+from sde4mbrl_px4_tpu_torch.solver.mppi import MPPIConfig
 
 T = torch.from_numpy
 
@@ -129,6 +134,36 @@ def test_mpc_fn_p8_antithetic_h192_lockstep_with_jax(repo_root, tmp_path, cache)
     assert torch.isfinite(sol_t.u_opt).all()
     assert_solve_lockstep(sol_j, sol_t, rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
     assert counts == (AK.apg_solve_kernel.launches, CO.trajectory_kernel.launches)
+
+
+def test_mppi_p8_antithetic_h192_lockstep_with_jax(repo_root, tmp_path, cache):
+    """MPPI over K x P paths on a saved 192-unit checkpoint (the particle
+    ``value_batch``, its plain twin on the CPU, at H = 6): the first solve of
+    the port's ``mpc_fn`` on the JAX ``mpc_fn``'s own draws (``split(rng,
+    3)``: the block, MPPI's eps and c0) in lockstep with the JAX one's; no
+    launch on the CPU."""
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
+    cfg.update(horizon=H, num_short_dt=H, solver="mppi", mppi={"samples": 16, "iters": 4},
+               num_particles=8, antithetic=True,
+               learned_model_params=checkpoint(repo_root, tmp_path, 192, seed=6))
+    cfg["apg_mpc"].pop("precond", None)
+    counts = (CO.value_batch_kernel.launches, CO.trajectory_kernel.launches)
+    sol_j, sol_t, tb = first_solve_pair(
+        cfg, jax_solve_draws(8, 1, True, mppi_cfg=MPPIConfig.from_config(cfg), H=H))
+    assert tb.num_particles == 8 and tb.params["net"]["w1"].shape == (192, 192)
+    assert torch.isfinite(sol_t.u_opt).all()
+    np.testing.assert_allclose(sol_t.u_opt.numpy(), np.asarray(sol_j.u_opt), rtol=1e-5,
+                               atol=1e-6)
+    for f in ("init_cost", "opt_cost"):
+        assert float(getattr(sol_t.opt_state, f)) == pytest.approx(
+            float(getattr(sol_j.opt_state, f)), rel=1e-5), f
+    for f in ("num_steps", "avg_linesearch"):
+        assert float(getattr(sol_t.opt_state, f)) == float(getattr(sol_j.opt_state, f)), f
+    np.testing.assert_allclose(sol_t.x_evol.numpy(), np.asarray(sol_j.x_evol), rtol=1e-4,
+                               atol=1e-5)
+    assert counts == (CO.value_batch_kernel.launches, CO.trajectory_kernel.launches)
 
 
 class StubForms:
