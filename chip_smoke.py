@@ -362,30 +362,49 @@ without a result):
     ``launch.py --coordinator`` engine nodes, READY and a clean SIGTERM.
     Each route's launches are counted on each rank (zeroed just before it)
     and added to the kernels line as ``mesh_launches``.
-30. the P=1 kernels on any trunk width (the shared-memory step, its weights
-    in device memory past 227 KB; phase 2 prints the form each library
-    picks per kernel and width): (a) at 32, 72, 128 and 256 hidden units
-    (the shipped trunk redrawn below 64 units, padded with drawn units
-    above), each new form of #1-#4 against its plain twin in the three
-    constraint forms (the whole solve at a fixed 10 iterations, phase 3's
+30. the P=1 kernels on any trunk width (the wide step of the whole solve
+    and ``value_and_grad``, the shared-memory step of ``value_batch`` and
+    ``trajectory``, their weights in device memory past 227 KB; phase 2
+    prints the form each library picks per kernel and width): (a) at 32,
+    72, 128, 152 and 256 hidden units (the shipped trunk redrawn below 64
+    units, padded with drawn units above), each new form of #1-#4 against
+    its plain twin in the three
+    constraint forms, and at 1024 and 2048 units (the wide step's stash,
+    slice sums and transposed output layer in the launch's scratch in device
+    memory, checked to be there) in the unconstrained one
+    (the whole solve at a fixed 10 iterations, phase 3's
     and phase 14's tolerances, ``x_evol`` the rollout of its plan at rtol
     1e-5; ``value_batch`` K = 1, 4, 20 at 2e-5, ``value_and_grad`` 5e-4 /
     5e-5, ``trajectory`` 1e-5), and on the scenario axis at B = 4 (every
     scenario bit-equal to its solo launch, scenario 0 to the solve held to
-    the plain twin); (b) the shipped trunk zero-padded to 128 and 256 units (the same
+    the plain twin); where a width takes the weights in shared memory, the
+    same kernels with the weights in device memory (``P1_GLOBAL`` named in
+    ``ApgArgs.step``) bit for bit; a whole solve whose candidates all equal
+    its iterate (lb = ub = uref) accepting its first candidate at the
+    iterate's cost bit for bit (the vg row's and the candidate rows' sums
+    agree); whether ``value_batch`` K = 1 (the shared-memory step) and
+    ``value_and_grad`` (the wide step) give one plan the same value, bit for
+    bit (printed: the fixed-step route compares the two), and fixed-step APG
+    over the kernels against the plain oracle at 128 and 256 units (phase
+    5's check); (b) the shipped
+    trunk zero-padded to 128 and 256 units (the same
     function) against the register chain at the fixed-budget tolerance,
     equal steps; (c) ``make_batched_mpc`` on the 128-unit checkpoint
     (``padded_trunk(..., 128, seed=0)``), B = 256 in one launch, every
     scenario bit-equal to its solo ``mpc_fn``; (d) the slice's path: the
     flagship traj config on that checkpoint through ``make_mpc_from_config``
     (its metric probed), 12 chained solves (p50, iterations, ms an
-    iteration), a controller for 3 traj ticks, a fixed 10-iteration solve
+    iteration; the first, cold solve's device ms), a cold solve at a fixed
+    200 iterations against the 50 ms period and the wide step's phase split
+    (its clock-stamped instantiation), a controller for 3 traj
+    ticks, a fixed 10-iteration solve
     kernel against plain, the fixed-step posctrl route and its kernels per
     launch; (e) every P=1 route (linesearch, both constraint forms, fixed
     step, MPPI, the pure policy, the ``refine_iters`` hybrid) on each
     width's checkpoint, ``label_states``, ``tune_cost_weights`` and a fleet
     on the 128-unit one, each route's launches checked; the 256-unit
-    checkpoint's global-weight forms timed; (f) the widths each particle
+    checkpoint's global-weight forms timed (12 chained flagship solves, the
+    cold 200-iteration solve); (f) the widths each particle
     form plans at P=512 and P=128, every multiple of 8 units to 2048 (the
     widest in its shared-memory form, and every width in some form), each
     launched finite at 152, 1024 and 2048 units; (g) the particle
@@ -608,12 +627,14 @@ def check_route(name: str, expected: dict, bf16: dict = None) -> dict:
 def form_name(kernel: str, args: list) -> str:
     """An instantiation as the build log's mangled name gives it: ``kernel<PART,
     SC>`` plus its flags (the whole solve's clock stamps, the P=1 forms'
-    register chain or shared-memory step and its global weights, the
+    register chain, wide step (the whole solve, ``value_and_grad``) or
+    shared-memory step (``value_batch``, ``trajectory``) and their global
+    weights, the
     particle forms' global weights, options, the bf16 trunk, the oracle's
     risk mode: ``apg_solve<PART, SC, PROF, OPT, BF, STEP>``,
     ``value_batch<PART, SC, REG, OPT, BF, RM, GW>``, ``value_and_grad<PART,
     SC, OPT, BF, RM, STEP>``); ``trajectory``'s two, ``<REG, GW>``."""
-    steps = {1: ", shared-memory step", 2: ", shared-memory step, global weights"}
+    steps = {1: ", wide step", 2: ", wide step, global weights"}
     if args and args[0]:                 # particles: STEP 2 / GW the global-weight form
         steps = {2: ", global weights"}
     if kernel == "trajectory_kernel":
@@ -693,7 +714,7 @@ def phase_build() -> None:
                     regs[current] = int(used.group(1))
     p1 = {k: v for k, v in spills.items()
           if (k.startswith(("apg_solve_kernel<false", "value_and_grad_kernel<false"))
-              and "shared-memory step" not in k) or "register chain" in k}
+              and "wide step" not in k) or "register chain" in k}
     log(f"  spill stores of the P=1 forms on the register chain: {p1}")
     part = {k: (regs.get(k), v) for k, v in spills.items()
             if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
@@ -707,17 +728,23 @@ def phase_build() -> None:
           if k.startswith(("apg_solve_kernel<true", "value_and_grad_kernel<true",
                            "value_batch_kernel<true")) and "global weights" in k}
     log(f"  the particle global-weight forms, (registers, spill stores in bytes): {gw}")
-    wide = {k: (regs.get(k), v) for k, v in spills.items() if "shared-memory step" in k}
-    log(f"  the P=1 forms on the shared-memory step (trunks outside the register chain's "
+    wide = {k: (regs.get(k), v) for k, v in spills.items()
+            if "shared-memory step" in k or "wide step" in k}
+    log(f"  the P=1 forms on the wide step (the whole solve, value_and_grad) and the "
+        f"shared-memory step (value_batch, trajectory) (trunks outside the register chain's "
         f"widths; their weights in shared or, global weights, in device memory), (registers, "
         f"spill stores in bytes): {wide}")
     # the register chain: the whole solve's three and its clock-stamped one,
     # value_and_grad's three, value_batch's three (and three bf16),
-    # trajectory's one; the shared-memory step: the whole solve's and
-    # value_and_grad's six each, value_batch's twelve (fp32 and bf16, each
-    # with the weights in shared and in device memory), trajectory's two
+    # trajectory's one; the wide step: the whole solve's and value_and_grad's
+    # six each and the whole solve's clock-stamped form (the weights in
+    # shared memory); the shared-memory step: value_batch's
+    # twelve (fp32 and bf16,
+    # each with the weights in shared and in device memory), trajectory's two
     if len(p1) != 14 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
+    if any(v[1] for v in wide.values()):
+        raise AssertionError(f"a P=1 form of the wide or shared-memory step spills: {wide}")
     # ten particle forms, nine more with the particle options, the eighteen
     # of both with the bf16 trunk, and the options forms' twelve
     # shared-moments forms (value_batch moments out, value_and_grad moments
@@ -725,7 +752,7 @@ def phase_build() -> None:
     moments = {k: v for k, v in part.items() if "moments" in k}
     log(f"  the oracle's shared-moments forms (the risk of a particle-sharded solve), "
         f"(registers, spill stores in bytes): {moments}")
-    if len(part) != 49 or len(wide) != 26 or len(moments) != 12 or len(gw) != 30:
+    if len(part) != 49 or len(wide) != 27 or len(moments) != 12 or len(gw) != 30:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}, {gw}")
     vb = {k: v for k, v in {**part, **gw}.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
@@ -2245,7 +2272,8 @@ def phase_constrained_oracle(dev, card: str) -> dict:
 def p1_smem(dev) -> dict:
     """Shared memory per block of the P=1 forms at n_u = 4 (iris) and n_u = 6
     (hexa): the whole solve against the 48 KB its launch check allows
-    (``apg_solve.cu::launch_ok``), the oracle kernels at their tiles."""
+    (``apg_solve.cu::launch_ok``), the oracle kernels at their tiles; at
+    each width of phase 30 the form each library picks."""
     import ctypes
 
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
@@ -2284,7 +2312,7 @@ def p1_smem(dev) -> dict:
                "value_and_grad": olib.value_and_grad_smem_bytes(ctypes.byref(a)),
                "trajectory": olib.trajectory_smem_bytes(ctypes.byref(a))}
         forms = wide_forms(a)
-        want = "shared-memory step" + (", global weights" if hid > WIDE_HID else "")
+        want = "global weights" if hid > WIDE_HID else "shared-memory weights"
         out[f"iris_h{hid}"] = dict(got, form=wide_step(a), value_batch_rows=rows)
         log(f"phase 2: shared memory of the P=1 forms, iris at {hid} hidden units "
             f"({wide_step(a)}, {rows} value_batch rows a block): {got} (budget "
@@ -5928,7 +5956,12 @@ def mesh_launch_pair() -> dict:
 # ticks, the batched launch held to its solo launches, the particle forms'
 # width ceiling at P=512
 WIDE_HIDS = (32, 72, 128, 256)
+WIDE_STEP_HIDS = (32, 72, 128, 152, 256)   # (a): each new P=1 form at these widths
+# (a) past 227 KB: the wide step's width-sized buffers in the launch's scratch
+# (the unconstrained form; the constrained forms share its code)
+WIDE_FAR_HIDS = (1024, 2048)
 WIDE_HID = 128
+COLD_ITERS, PERIOD_MS = 200, 50.0   # the flagship's cold solve, the control period
 WIDE_SOLVES, WIDE_TICKS = 12, 3
 WIDE_B, WIDE_BATCH_ITERS = 256, 20
 WIDE_FORMS = ("none", "penalty", "prox")
@@ -5989,13 +6022,13 @@ def wide_forms(a) -> dict:
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
         ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_CHAIN, P1_SMEM)
 
-    name = {P1_CHAIN: "register chain", P1_SMEM: "shared-memory step"}
+    name = {P1_CHAIN: "register chain", P1_SMEM: "shared-memory weights"}
     olib = CO.load_oracle_library()
     forms = {"apg_solve": AK.load_apg_library().apg_p1_form(ctypes.byref(a))}
     forms.update((k, olib.oracle_p1_form(ctypes.byref(a), kind)) for k, kind in (
         ("value_batch", ORACLE_VALUE_BATCH), ("value_and_grad", ORACLE_VALUE_AND_GRAD),
         ("trajectory", ORACLE_TRAJECTORY)))
-    return {k: name.get(v, "shared-memory step, global weights") for k, v in forms.items()}
+    return {k: name.get(v, "global weights") for k, v in forms.items()}
 
 
 def wide_step(a) -> str:
@@ -6108,15 +6141,73 @@ def wide_scenarios(dev, b, problem_fn, params, apg, lb, ub, U, solo, tag: str) -
         raise AssertionError(f"the scenario axis of the new forms is wrong ({tag}): {bad}")
 
 
+def wide_bits(dev, b, params, args, oargs, U, a, tag: str) -> dict:
+    """The bits of the new P=1 forms on one trunk (the traj problem of
+    :func:`wide_parity`, its config's ``lb``/``ub`` and plans ``U``): where
+    a kernel takes the weights in shared memory, the same launch with the
+    weights in device memory (``P1_GLOBAL`` named in ``ApgArgs.step``) bit
+    for bit; a fixed 1-iteration whole solve whose candidates all equal its
+    iterate (lb = ub = uref, u_prev = uref: no control cost) accepts its
+    largest candidate at the iterate's cost bit for bit, which holds only
+    if a candidate row's sums are the vg row's; and whether ``value_batch``
+    K = 1 (the shared-memory step) gives ``value_and_grad``'s value (the
+    wide step) on the same plan, bit for bit (recorded, not gated: the
+    fixed-step route compares the two). Returns what it found."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import P1_GLOBAL
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+
+    forms = wide_forms(a)
+    out = {}
+
+    def run():
+        st, xe = AK.apg_solve_kernel(*args)
+        o = CO.cost_oracle(*oargs)
+        return [st.yk, st.num_steps, st.opt_cost, st.grad_sqr, xe, *o.value_and_grad(U[0]),
+                o.value_batch(U[:20]), o.trajectory(U[1])]
+
+    if "shared-memory weights" in forms.values():
+        mine = run()
+        with forced(P1_GLOBAL):
+            glob = run()
+        out["smem_equals_global"] = all(torch.equal(p, q) for p, q in zip(mine, glob))
+    m, cp, ts = args[0], args[2], args[4]
+    x0, x_ref, uref = args[5], args[6], cp.uref
+    apg = args[3]._replace(max_iter=1, max_no_improvement_iter=1)
+    st, _ = AK.apg_solve_kernel(m, params, cp, apg, ts, x0, x_ref, uref, None, 1, uref, uref,
+                                uref.expand(ts.shape[0], -1).contiguous())
+    out["candidate_equals_iterate"] = (float(st.avg_linesearch) == 1.0
+                                       and torch.equal(st.opt_cost, st.init_cost))
+    o = CO.cost_oracle(*oargs)
+    out["value_batch_equals_value_and_grad"] = bool(torch.equal(
+        o.value_batch(U[:1])[0], o.value_and_grad(U[0])[0]))
+    torch.cuda.synchronize()
+    log(f"wide {tag}: the weights in device memory against shared memory, bit for bit: "
+        f"{out.get('smem_equals_global', 'not run: the width takes device memory')}; a "
+        f"candidate equal to the iterate at its cost, bit for bit: "
+        f"{out['candidate_equals_iterate']} (line search {float(st.avg_linesearch)}, cost "
+        f"{float(st.opt_cost)!r} against {float(st.init_cost)!r}); value_batch K=1 equal to "
+        f"value_and_grad's value: {out['value_batch_equals_value_and_grad']}")
+    if out.get("smem_equals_global") is False or not out["candidate_equals_iterate"]:
+        raise AssertionError(f"a P=1 form's bits are wrong ({tag}): {out}")
+    return out
+
+
 def wide_parity(dev, traj_b) -> dict:
     """(a) Each new form of #1-#4 against its plain twin at every width of
-    ``WIDE_HIDS``, in the three constraint forms (none: the traj config and
-    phase 3's problem at a fixed 10 iterations, rtol 2e-4 / atol 2e-5;
-    penalty and prox: the constrained posctrl config from its bound-violating
-    start, phase 14's particle tolerances), at B = 1 and B = WIDE_SCEN; then
-    (b) the shipped trunk zero-padded to 128 and 256 units (the same
-    function) on the new forms against the register chain on the shipped
-    one. Returns max |err| per kernel and the forms' shared memory."""
+    ``WIDE_STEP_HIDS`` in the three constraint forms, and of
+    ``WIDE_FAR_HIDS`` in the unconstrained one, where the wide step's
+    width-sized buffers lie in the launch's scratch (none: the traj config
+    and phase 3's problem at a fixed 10 iterations, rtol 2e-4 / atol 2e-5,
+    and :func:`wide_bits`; penalty and prox: the constrained posctrl config
+    from its bound-violating start, phase 14's particle tolerances), at B = 1
+    and B = WIDE_SCEN; then (b) the shipped trunk zero-padded to 128 and 256
+    units (the same function) on the new forms against the register chain on
+    the shipped one. Returns max |err| per kernel, the forms' shared memory
+    and the bits by width."""
     import ctypes
 
     import torch
@@ -6132,9 +6223,9 @@ def wide_parity(dev, traj_b) -> dict:
     bundles = {"none": traj_b}
     for form in SC_FORMS:
         bundles[form] = make_mpc_from_config(constrained_config(form), device=dev)[3]
-    smem = {}
-    for hid in WIDE_HIDS:
-        for form in WIDE_FORMS:
+    smem, bits, far = {}, {}, {}
+    for hid in WIDE_STEP_HIDS + WIDE_FAR_HIDS:
+        for form in WIDE_FORMS if hid in WIDE_STEP_HIDS else WIDE_FORMS[:1]:
             b = bundles[form]
             params = wide_params(b.params, hid)
             apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
@@ -6150,6 +6241,16 @@ def wide_parity(dev, traj_b) -> dict:
             _, a = build_consts(b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref,
                                 u_prev, lb, ub)
             tag = f"{hid} units, {form}, {wide_step(a)}"
+            if hid in WIDE_FAR_HIDS:
+                far[hid] = (AK.load_apg_library().apg_scratch_floats(ctypes.byref(a)),
+                            CO.load_oracle_library().value_and_grad_scratch_floats(
+                                ctypes.byref(a)))
+                tag += ", buffers in the scratch"
+                log(f"wide {tag}: scratch floats a scenario (whole solve, value_and_grad) "
+                    f"{far[hid]}")
+                if not all(far[hid]):
+                    raise AssertionError(f"at {hid} units the wide step keeps its buffers in "
+                                         f"shared memory: {far[hid]}")
             args = (b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None,
                     1, lb, ub, u_init)
             du, solo = wide_solve_check(b, params, args, rtol, atol, tag)
@@ -6159,6 +6260,8 @@ def wide_parity(dev, traj_b) -> dict:
             for k, v in e.items():
                 err[k] = max(err[k], v)
             wide_scenarios(dev, b, prob, params, apg, lb, ub, U, solo, tag)
+            if form == "none":
+                bits[hid] = wide_bits(dev, b, params, args, oargs, U, a, tag)
             lib, olib = AK.load_apg_library(), CO.load_oracle_library()
             smem[(hid, form)] = {
                 "form": wide_step(a), "apg_solve": lib.apg_smem_bytes(ctypes.byref(a)),
@@ -6202,7 +6305,42 @@ def wide_parity(dev, traj_b) -> dict:
                 and abs(float(v_w - v_c)) <= 2e-5 * abs(float(v_c))
                 and torch.allclose(g_w, g_c, rtol=5e-4, atol=5e-5)):
             raise AssertionError(f"the zero-padded {hid}-unit trunk leaves the register chain")
-    return {"err": err, "smem": smem, "padded": padded}
+    return {"err": err, "smem": smem, "padded": padded, "bits": bits, "far": far}
+
+
+def wide_fixed_step(dev) -> dict:
+    """Fixed-step APG over the kernel oracle against the plain oracle on the
+    trunk at 128 and 256 units (phase 5's check on the posctrl config, the
+    fixed-step route's: a fixed budget of 30 iterations, rtol 2e-4 / atol
+    2e-5, equal steps). Its trial is ``value_batch`` K = 1 (the shared-memory
+    step) against ``value_and_grad``'s value (the wide step), two summation
+    orders on the kernel side. Returns max |du| by width."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.solver.apg import apg_solve
+
+    name = "iris_posctrl_mpc"
+    b = make_bundle(name, dev)
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(use_linesearch=False, stepsize=FIXED_STEP[name], max_iter=30,
+                                max_no_improvement_iter=30)
+    worst = {}
+    for hid in (WIDE_HID, 256):
+        oargs = (b.model, wide_params(b.params, hid), b.cost_params, b.time_steps, x0, x_ref,
+                 u_prev, None, 1, 4)
+        with torch.no_grad():
+            st_k, st_p = (apg_solve(o, u_init, b.lb, b.ub, apg, precond=b.precond)
+                          for o in (CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)))
+        nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+        worst[hid] = float((st_k.yk - st_p.yk).abs().max())
+        dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+        log(f"wide fixed-step {name} at {hid} units: steps kernel {nk} plain {np_}; max|du| "
+            f"{worst[hid]:.3e} (rtol 2e-4, atol 2e-5); cost rel {dc:.3e}")
+        if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5)
+                and dc <= 2e-4 and float(st_k.opt_cost) < float(st_k.init_cost)):
+            raise AssertionError(f"fixed-step APG disagrees on the {hid}-unit kernels")
+    return worst
 
 
 def wide_batched(dev, ckpt: str, card: str) -> dict:
@@ -6238,6 +6376,61 @@ def wide_batched(dev, ckpt: str, card: str) -> dict:
     log(f"batched B={WIDE_B} on the {WIDE_HID}-unit trunk ({card}): {ms:.3f} ms device a step "
         f"at {steps:.2f} iterations a scenario ({WIDE_B / ms * 1e3:.0f} solves/s)")
     return {"launches": got, "bit_equal": n, "device_ms": ms, "steps_per_solve": steps}
+
+
+def cold_solve(b, dev, card: str, tag: str) -> dict:
+    """The flagship's cold solve on the kernel: ``problem``'s plan at a fixed
+    COLD_ITERS iterations (no convergence stop), device ms by CUDA events
+    (mean of 3, warm), against the PERIOD_MS control period."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=COLD_ITERS, max_no_improvement_iter=COLD_ITERS,
+                                atol=0.0, rtol=0.0)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
+            b.lb, b.ub, u_init)
+    ms, _ = time_fixed(AK, args, b.precond, n_kernel=3, n_plain=0)
+    steps = int(AK.apg_solve_kernel(*args, precond=b.precond)[0].num_steps)
+    out = {"ms": ms, "iterations": steps, "iteration_ms": ms / steps,
+           "fits_period": ms < PERIOD_MS}
+    log(f"{tag} cold solve at a fixed {COLD_ITERS} iterations ({card}): {ms:.3f} ms device "
+        f"({steps} iterations, {out['iteration_ms']:.4f} ms each); within the {PERIOD_MS:.0f} ms "
+        f"period: {out['fits_period']}")
+    return out
+
+
+def wide_split(b, dev, card: str, tag: str) -> dict:
+    """The wide step's phase split: ``problem``'s plan at a fixed 10
+    iterations through the whole solve's clock-stamped wide-step
+    instantiation (``apg_phase_split``): each phase's share of the solve's
+    SM cycles (thread 0's stamps) and that share of its device span (CUDA
+    events) per iteration."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+
+    x0, x_ref, u_prev, u_init = problem(b, dev)
+    apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10, atol=0.0, rtol=0.0)
+    args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
+            b.lb, b.ub, u_init)
+    AK.apg_phase_split(*args, precond=b.precond)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    st, _ = AK.apg_phase_split(*args, precond=b.precond)
+    e1.record()
+    torch.cuda.synchronize()
+    cyc = AK.apg_phase_split.cycles.cpu().tolist()
+    span, steps = e0.elapsed_time(e1), float(st.num_steps)
+    share = {name: cyc[i] / cyc[len(AK.PHASES)] for i, name in enumerate(AK.PHASES)}
+    out = {"iterations": steps, "device_ms": span, "cycles": cyc[len(AK.PHASES)],
+           "iteration_ms": {k: v * span / steps for k, v in share.items()}, "share": share}
+    log(f"{tag} phase split, fixed 10-iteration solve ({card}; clock-stamped wide step, thread "
+        f"0): {span:.3f} ms device span, {out['cycles']} cycles; "
+        + "; ".join(f"{k} {100 * v:.1f} % ({out['iteration_ms'][k]:.4f} ms/iteration)"
+                    for k, v in share.items()))
+    if abs(sum(share.values()) - 1.0) > 0.01 or steps < 1:
+        raise AssertionError(f"the {tag} phase split does not cover the solve: {share}")
+    return out
 
 
 def wide_flagship(dev, ckpt: str, card: str) -> dict:
@@ -6297,15 +6490,17 @@ def wide_flagship(dev, ckpt: str, card: str) -> dict:
                device_ms_p50=statistics.median(dev_ms[tail]), steps=steps,
                iterations_p50=statistics.median(steps[tail]),
                iteration_ms=statistics.median(d / s for d, s in zip(dev_ms[tail], steps[tail])),
-               track_m=max(track))
+               track_m=max(track), first_device_ms=dev_ms[0])
     log(f"{WIDE_HID}-unit flagship (iris_traj_mpc as shipped, hover_diag probed in "
         f"{out['build_s']:.2f} s with the build) through mpc_fn, {WIDE_SOLVES} chained ticks "
         f"along the lemniscate ({card}): per solve p50 {out['wall_ms_p50']:.3f} ms wall, "
         f"{out['device_ms_p50']:.3f} ms device over ticks 2-{WIDE_SOLVES}; iterations "
-        f"{steps}; {out['iteration_ms']:.4f} ms an iteration p50; |x_evol[1] - ref| max "
-        f"{max(track):.4f} m (gate 0.5 m)")
+        f"{steps}; {out['iteration_ms']:.4f} ms an iteration p50; the first solve "
+        f"{dev_ms[0]:.3f} ms device; |x_evol[1] - ref| max {max(track):.4f} m (gate 0.5 m)")
     if max(track) > 0.5:
         raise AssertionError(f"the {WIDE_HID}-unit flagship did not track the lemniscate")
+    out["cold"] = cold_solve(b, dev, card, f"{WIDE_HID}-unit flagship")
+    out["split"] = wide_split(b, dev, card, f"{WIDE_HID}-unit flagship")
 
     paths = []
     for name in ("iris_traj_mpc", "iris_posctrl_mpc"):
@@ -6482,9 +6677,10 @@ def wide_routes(dev, ckpts: dict, card: str) -> dict:
 
 def wide_global(dev, ckpt: str, card: str) -> dict:
     """The global-weight forms on the 256-unit checkpoint (the iris traj
-    config as shipped, its metric probed): 4 chained solves along the
-    lemniscate, a fixed 10-iteration solve and each oracle kernel per
-    launch, kernel against plain."""
+    config as shipped, its metric probed): WIDE_SOLVES chained solves along
+    the lemniscate, the cold solve at COLD_ITERS iterations, a fixed
+    10-iteration solve and each oracle kernel per launch, kernel against
+    plain."""
     import numpy as np
     import torch
 
@@ -6500,12 +6696,14 @@ def wide_global(dev, ckpt: str, card: str) -> dict:
     st, events, steps = reset_fn(x, None, x), [], []
     zero_counts()
     with routed("apg_solve_kernel", event_timed(events)):
-        for k in range(4):
+        for k in range(WIDE_SOLVES):
             u, st, _, x_evol = mpc_fn(x, None, st, np.float32(3.0 + k * dt), x)
             steps.append(int(st.num_steps))
             x = x_evol[1]
     torch.cuda.synchronize()
-    launches = check_route("256-unit flagship", {"apg_solve": 4, "value_batch": 0,
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError("the 256-unit flagship's plan is not finite")
+    launches = check_route("256-unit flagship", {"apg_solve": WIDE_SOLVES, "value_batch": 0,
                                                  "value_and_grad": 0, "trajectory": 0})
     dev_ms = [a.elapsed_time(e) for a, e in events]
     x0, x_ref, u_prev, u_init = problem(b, dev)
@@ -6513,7 +6711,9 @@ def wide_global(dev, ckpt: str, card: str) -> dict:
     args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
             b.lb, b.ub, u_init)
     out = {"launches": launches, "steps": steps, "device_ms": dev_ms[1:],
-           "iteration_ms": statistics.median(d / s for d, s in zip(dev_ms[1:], steps[1:]))}
+           "device_ms_p50": statistics.median(dev_ms[1:]), "first_device_ms": dev_ms[0],
+           "iteration_ms": statistics.median(d / s for d, s in zip(dev_ms[1:], steps[1:])),
+           "cold": cold_solve(b, dev, card, "256-unit flagship")}
     out["fixed_ms"], out["fixed_plain_ms"] = time_fixed(AK, args, b.precond, n_kernel=10,
                                                         n_plain=2)
     _, a = build_consts(b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev)
@@ -6527,8 +6727,10 @@ def wide_global(dev, ckpt: str, card: str) -> dict:
              "trajectory": lambda o: o.trajectory(u1)}
     for name, call in calls.items():
         out[name] = (per_launch_ms(lambda: call(kern), 20), per_launch_ms(lambda: call(plain), 3))
-    log(f"256-unit checkpoint ({card}, {out['form']}): 4 chained flagship solves at {steps} "
-        f"iterations, {out['iteration_ms']:.4f} ms an iteration; fixed 10-iteration solve "
+    log(f"256-unit checkpoint ({card}, {out['form']}): {WIDE_SOLVES} chained flagship solves "
+        f"at {steps} iterations, {out['device_ms_p50']:.3f} ms device p50 over ticks "
+        f"2-{WIDE_SOLVES}, {out['iteration_ms']:.4f} ms an iteration; the first solve "
+        f"{out['first_device_ms']:.3f} ms; fixed 10-iteration solve "
         f"kernel {out['fixed_ms']:.4f} ms, plain {out['fixed_plain_ms']:.3f} ms; per launch "
         f"kernel / plain: " + "; ".join(f"{k} {out[k][0]:.4f} / {out[k][1]:.3f} ms"
                                         for k in calls))
@@ -7633,7 +7835,7 @@ def phase_wide(dev, card: str) -> dict:
 
     traj_b = make_bundle("iris_traj_mpc", dev)
     t = time.perf_counter()
-    out = {"parity": wide_parity(dev, traj_b)}
+    out = {"parity": wide_parity(dev, traj_b), "fixed_step": wide_fixed_step(dev)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as td:
         ckpts = {hid: wide_checkpoint(td, traj_b, hid) for hid in WIDE_HIDS}
         out["batched"] = wide_batched(dev, ckpts[WIDE_HID], card)
@@ -7755,9 +7957,12 @@ def main() -> int:
         "serves and stops cleanly")
     wide = phase_wide(dev, card)
     log("phase 30: the kernels on any trunk width: every P=1 form of #1-#4 matches its "
-        "plain twin at 32, 72, 128 and 256 units in every constraint form and on the scenario "
-        "axis, the zero-padded trunk matches the register chain, the 128-unit flagship flies "
-        "through the entry points, and every P=1 route flies every width; the particle forms "
+        "plain twin at 32, 72, 128, 152 and 256 units in every constraint form and on the "
+        "scenario axis, the weights in device memory give the shared-memory bits, a candidate "
+        "equal to the iterate its cost, fixed-step APG on the kernels matches plain at 128 and "
+        "256 units, the zero-padded trunk matches the register chain, the 128- and 256-unit "
+        "flagships fly through the entry points (the cold 200-iteration solve timed), and "
+        "every P=1 route flies every width; the particle forms "
         "plan every width to 2048 units, their global-weight forms match their plain twins at "
         "152 and 256 units and the shared-memory forms bit for bit at 128, and the 256-unit "
         "checkpoint flies the P=512 flagship and the P=128 floor; the spread of #1 and #2 "
@@ -8218,7 +8423,7 @@ def main() -> int:
     w256 = wide["routes"]["by_width"][256]
     fb, nc_w, nc_g = wf["oracle_bundle"], wf["n_consts"], gl["n_consts"]
     kernels += [
-        entry("apg_solve", f"P=1, shared-memory step (any trunk width): the {WIDE_HID}-unit "
+        entry("apg_solve", f"P=1, wide step (any trunk width): the {WIDE_HID}-unit "
               f"flagship", wf["launches"]["apg_solve"], wp["err"]["apg_solve"], wf["fixed_ms"],
               wf["fixed_plain_ms"], bound(wf["bundle"], "apg_solve", nc_w, K=4, iters=10),
               timed=f"fixed 10-iteration solve on the {WIDE_HID}-unit trunk, CUDA events",
@@ -8232,18 +8437,33 @@ def main() -> int:
               routes_launches=wide["routes"]["total"]["apg_solve"],
               batched_B256_device_ms=wide["batched"]["device_ms"],
               batched_B256_bit_equal=wide["batched"]["bit_equal"],
+              first_solve_device_ms=wf["first_device_ms"], cold_200_ms=wf["cold"]["ms"],
+              cold_200_iterations=wf["cold"]["iterations"],
+              cold_200_fits_50ms=wf["cold"]["fits_period"],
+              bound_ms_cold_200=bound(wf["bundle"], "apg_solve", nc_w, K=4,
+                                      iters=wf["cold"]["iterations"])[0],
+              phase_split_iteration_ms=wf["split"]["iteration_ms"],
+              bits_by_width={str(h): v for h, v in wp["bits"].items()},
               smem_bytes=wp["smem"][(WIDE_HID, "none")]["apg_solve"]),
-        entry("apg_solve", "P=1, shared-memory step, global weights: the 256-unit trunk",
+        entry("apg_solve", "P=1, wide step, global weights: the 256-unit trunk",
               gl["launches"]["apg_solve"] + w256["apg_solve"], wp["err"]["apg_solve"],
               gl["fixed_ms"], gl["fixed_plain_ms"],
               bound(gl["bundle"], "apg_solve", nc_g, K=4, iters=10),
               timed="fixed 10-iteration solve on the 256-unit trunk, CUDA events",
-              iteration_ms=gl["iteration_ms"], smem_bytes=wp["smem"][(256, "none")]["apg_solve"])]
+              iteration_ms=gl["iteration_ms"], flagship_device_ms_p50=gl["device_ms_p50"],
+              flagship_iterations=gl["steps"], first_solve_device_ms=gl["first_device_ms"],
+              cold_200_ms=gl["cold"]["ms"], cold_200_iterations=gl["cold"]["iterations"],
+              cold_200_fits_50ms=gl["cold"]["fits_period"],
+              bound_ms_cold_200=bound(gl["bundle"], "apg_solve", nc_g, K=4,
+                                      iters=gl["cold"]["iterations"])[0],
+              smem_bytes=wp["smem"][(256, "none")]["apg_solve"],
+              scratch_floats_by_width={str(h): v for h, v in wp["far"].items()})]
     for name, K in (("value_batch", 1), ("value_and_grad", 1), ("trajectory", 1)):
         extra = {"ms_K64": wf["value_batch_K64"][0], "plain_ms_K64": wf["value_batch_K64"][1],
                  "bound_ms_K64": bound(fb, name, nc_w, K=64)[0]} if name == "value_batch" else {}
+        step = "wide step" if name == "value_and_grad" else "shared-memory step"
         kernels.append(entry(
-            name, f"P=1, shared-memory step: the {WIDE_HID}-unit fixed-step route",
+            name, f"P=1, {step}: the {WIDE_HID}-unit fixed-step route",
             wf["fixed_step_launches"][name], wp["err"][name], wf[name][0], wf[name][1],
             bound(fb, name, nc_w, K=K), timed="per launch" + (", K=1" if K == 1 and
                                                              name == "value_batch" else ""),
@@ -8251,7 +8471,7 @@ def main() -> int:
         gextra = {"ms_K64": gl["value_batch_K64"][0],
                   "plain_ms_K64": gl["value_batch_K64"][1]} if name == "value_batch" else {}
         kernels.append(entry(
-            name, "P=1, shared-memory step, global weights: the 256-unit trunk",
+            name, f"P=1, {step}, global weights: the 256-unit trunk",
             w256[name], wp["err"][name], gl[name][0], gl[name][1],
             bound(gl["bundle"], name, nc_g, K=K), timed="per launch"
             + (", K=1" if name == "value_batch" else ""), **gextra))
@@ -8393,7 +8613,8 @@ def main() -> int:
         "mesh_launches": mesh["launches"],
         "wide": {"flagship": {k: v for k, v in wf.items() if "bundle" not in k},
                  "global": {k: v for k, v in gl.items() if k != "bundle"},
-                 "padded": wp["padded"], "err": wp["err"],
+                 "padded": wp["padded"], "err": wp["err"], "bits": wp["bits"],
+                 "fixed_step_parity": wide["fixed_step"],
                  "smem": {f"{h} {f}": v for (h, f), v in wp["smem"].items()},
                  "batched": wide["batched"], "routes": wide["routes"],
                  "particle_widths": wide["ceiling"], "wall_s": wide["wall_s"],

@@ -34,8 +34,8 @@
 //                 first n_u. CONSTR_NONE compiles to the code the kernel had
 //                 before the constraint forms existed;
 // and three more of the particle form with the particle options (OPT,
-// below), plus the clock-stamped two; and the P=1 form on the shared-memory
-// step (STEP, below; six, in apg_solve_p1.cu's library). The libraries
+// below), plus the clock-stamped two; and the P=1 form on the wide step
+// (STEP, below; six and one clock-stamped, in apg_solve_p1.cu's library). The libraries
 // (APG_CHAIN_LIB and below) split the forms so that nvcc builds them in
 // parallel: the P=1 register chain in apg_solve_chain.cu, the fp32
 // particle forms here.
@@ -61,16 +61,21 @@
 // lanes of the row's warp, alike in every lane, so the new state never
 // leaves registers; two block barriers per forward and per reverse step
 // (candidate row k is warp k, K <= APG_MAXK = 8 warps). Their register
-// layout fixes HID = 64 and F <= 16. Every other trunk runs the P=1
-// shared-memory step (P1_SMEM, the template's STEP;
-// sweeps.cuh, vg_smem / cand_smem; the TPU kernel takes any width): the
-// vg row's forward stashes its states and pre-activations, its reverse is
-// bwd_dyn and bwd_feat in thread 0 and the trunk's transposed products a
-// warp per output, and the K candidates are K rows of fwd_step<false>; the
+// layout fixes HID = 64 and F <= 16. Every other trunk runs the P=1 wide
+// step (P1_SMEM, the template's STEP; sweeps.cuh, vg_wide / cand_wide; the
+// TPU kernel takes any width): the chain's structure over a runtime width,
+// the row's scalar step and layers 0 and 2 in its warp, layer 1 and its
+// transpose split over the block's eight warps (each a slice of the inputs,
+// or 16 hidden units, HID/32 a lane), two block barriers a step each way,
+// the vg row and the K candidates one rollout's rows (a row's sums do not
+// depend on the rows beside it, so the Armijo test stays exact); the
 // weights stay in the block's consts copy while the layout fits 227 KB
 // (dynamic shared memory, set by apg_init), and past that (P1_GLOBAL)
 // they are read from device memory (scenario 0's; L2-resident, 290 KB at
-// 256 units) and only the consts before them are copied. The launcher
+// 256 units) and only the consts before them are copied; past 227 KB
+// again (wide_far: 624 units on the iris traj config) the step's
+// width-sized buffers go to the launch's scratch in device memory, so the
+// form takes any width to 2048 units and past. The launcher
 // picks the form from the dimensions (p1_form_of); these forms are a
 // library of their own (apg_solve_p1.cu), built in parallel. The
 // particle form keeps the generic shared-memory trunk: it takes dynamic
@@ -204,7 +209,7 @@
 // This library's forms: the fp32 particle forms and their clock-stamped
 // form (apg_solve.cu), the P=1 register chain and its clock-stamped form
 // (apg_solve_chain.cu), the bf16 particle forms (apg_solve_bf16.cu), the
-// P=1 shared-memory step (apg_solve_p1.cu) or the particle global-weight
+// P=1 wide step (apg_solve_p1.cu) or the particle global-weight
 // forms of one precision (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc
 // builds the six in parallel.
 #define APG_CHAIN_LIB (APG_CHAIN != 0)
@@ -240,27 +245,39 @@ struct Scal {
 // part: the particle form (a.Pc rows per vg pass, K*Pc candidate rows);
 // otherwise every buffer starts on 16 bytes (the P=1 float4 reads), and
 // step is the P=1 form (P1_*; the kernel's template constant): the register
-// chain keeps a row's state, features, outputs and cotangents in registers,
-// the shared-memory step keeps them here, P1_GLOBAL without the trunk's
-// weights in the consts copy. With part, step P1_GLOBAL is the global-weight
+// chain and the wide step keep a row's state, features, outputs and
+// cotangents in registers; the wide step keeps layer 1's slice sums and the
+// transposed output layer here, P1_GLOBAL without the trunk's weights in the
+// consts copy. With part, step P1_GLOBAL is the global-weight
 // form (no weights and no transposes here, the reverse cotangents at row
 // stride tiled_ld: sweeps.cuh, bwd_rows), any other the shared-memory form.
 // risk: the risk buffers (a constant false in the forms without the options,
-// so their layout compiles as it did without them).
+// so their layout compiles as it did without them). far (the wide step's
+// global-weight form, wide_far): the wide step's buffers that grow with the
+// trunk's width (the vg row's stash h0p, h1p; layer 1's slice sums pp; the
+// transposed output layer w2t) are carved from fbase, the scenario's region
+// of the launch's scratch in device memory, on 16 bytes as here; *n_far (if
+// given) their floats.
 __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Smem* s,
-                                      float* base, int step) {
+                                      float* base, int step, bool far = false,
+                                      float* fbase = nullptr, int* n_far = nullptr) {
   const int HZ = a.H * a.nZ;
   const int B = part ? a.Pc : 1;              // vg rows per pass
   const int R = part ? a.K * a.Pc : a.K;      // candidate rows per pass
   const int ldh = part ? tiled_ld(a) : a.HID;  // hidden row stride (tiled candidates)
-  const bool rows = part || step != P1_CHAIN;  // row buffers in shared memory
+  const bool p1s = !part && step != P1_CHAIN;  // the P=1 wide step
   const bool gw = step == P1_GLOBAL;           // the weights in device memory
   const int ldc = part && gw ? tiled_ld(a) : a.HID;   // reverse cotangents' row stride
-  int o = 0;
+  int o = 0, of = 0;
   auto take = [&](float** p, int n) {
     if (!part) o = (o + 3) & ~3;
     if (s) *p = base + o;
     o += n;
+  };
+  auto take_far = [&](float** p, int n) {
+    of = (of + 3) & ~3;
+    if (s) *p = fbase + of;
+    of += n;
   };
   Smem d = {};
   Smem* t = s ? s : &d;
@@ -271,21 +288,28 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
   take(&t->xs, (a.H + 1) * B * 13);
   if (part) {
     take(&t->p0, B * a.HID); take(&t->p1, B * a.HID);
+  } else if (far) {
+    take_far(&t->h0p, a.H * a.HID); take_far(&t->h1p, a.H * a.HID);
+    take(&t->h2, a.H * a.OUT);
+    take(&t->wr, a.H * 4);
   } else {
     take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
     take(&t->h2, a.H * a.OUT);
-    if (!rows) take(&t->wr, a.H * 4);
+    take(&t->wr, a.H * 4);
   }
-  if (rows) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
-  take(&t->a0, R * ldh); take(&t->a1, R * ldh);
-  if (rows) take(&t->a2, R * a.OUT);
+  if (part) { take(&t->xr, R * 13); take(&t->feat, R * a.F); }
+  take(&t->a0, R * ldh);
+  if (!p1s) take(&t->a1, R * ldh);
+  if (part) take(&t->a2, R * a.OUT);
   take(&t->jt, R); take(&t->jr, R);
-  if (rows) take(&t->ct, B * 13);
+  if (part) take(&t->ct, B * 13);
   take(&t->cu, B * a.nZ);
-  if (rows) take(&t->c_h2, B * a.OUT);
+  if (part) take(&t->c_h2, B * a.OUT);
   take(&t->c_h1p, B * ldc); take(&t->c_h0p, B * ldc);
-  if (rows) take(&t->c_feat, B * a.F);
+  if (part) take(&t->c_feat, B * a.F);
   take(&t->red, 32);
+  if (p1s && far) { take_far(&t->pp, kSlices * R * a.HID); take_far(&t->w2t, a.OUT * a.HID); }
+  else if (p1s) { take(&t->pp, kSlices * R * a.HID); take(&t->w2t, a.OUT * a.HID); }
   if (part) {
     const int np = risk ? 3 : 2;              // the partial means (risk: + totals)
     take(&t->cacc, np * a.K);
@@ -300,25 +324,50 @@ __host__ __device__ inline int layout(const ApgArgs& a, bool part, bool risk, Sm
     // risk: the rows' discounted totals of this block's chunks
     if (risk) take(&t->tot, a.chunks_per_block * R);
   }
+  if (n_far) *n_far = of;
   return o;
 }
 
+// Whether a P=1 solve of a in form `step` keeps the wide step's width-sized
+// buffers in device memory (layout's far): in the global-weight form where
+// its block, Scal included, would not fit 227 KB with them (past 624 units
+// on the iris traj config, 616 on the hexa's). They are read there, and
+// the sums run in the same order, so the bits are the same.
+__host__ __device__ inline bool wide_far(const ApgArgs& a, int step) {
+  return step == P1_GLOBAL &&
+         layout(a, false, false, nullptr, nullptr, P1_GLOBAL) * (int)sizeof(float) +
+                 (int)sizeof(Scal) > APG_SMEM_LIMIT_PARTICLES;
+}
+
+// Floats of one scenario's region of the scratch with layout's far.
+__host__ __device__ inline int wide_far_floats(const ApgArgs& a) {
+  int n = 0;
+  layout(a, false, false, nullptr, nullptr, P1_GLOBAL, true, nullptr, &n);
+  return (n + 3) & ~3;
+}
+
 // OPT (particles only): the particle options' form, risk and starts runtime
-// branches (sweeps.cuh). PROF (only <PART, CONSTR_NONE>,
+// branches (sweeps.cuh). PROF (CONSTR_NONE only: the particle form, the
+// register chain, the wide step with the weights in shared memory;
 // apg_solve_prof_launch): thread 0 stamps
 // clock64() at the phase boundaries (sweeps.cuh, PH_* at P=1, PP_* in the
 // particle form) and writes the per-phase cycle sums and the solve's cycles
 // to prof_out, int64 (2, 8): row 0 from rank 0, row 1 from the cluster's
 // last rank (both from the one block at P=1); each row's last entry is the
 // block's rank. BF (particles only): the bf16 trunk. STEP: at P=1 the P=1
-// form (P1_*): the register chain, or the shared-memory step on any trunk
-// (sweeps.cuh, vg_smem / cand_smem; P1_GLOBAL with the weights read from
+// form (P1_*): the register chain, or the wide step on any trunk
+// (sweeps.cuh, vg_wide / cand_wide; P1_GLOBAL with the weights read from
 // scenario 0's consts in device memory); with particles P1_CHAIN (the
 // default: the weights in the block's consts copy) or P1_GLOBAL, the global-
-// weight form (apg_solve.cuh, part_form; its options form only).
+// weight form (apg_solve.cuh, part_form; its options form only). The P=1
+// wide step's forms state a minimum of one block per SM (their 133 KB block
+// at 128 units allows no second): without it, ptxas took the unconstrained
+// and proximal forms with the weights in shared memory to 128 registers and
+// 52-132 bytes of spill; every other form keeps the bounds it had.
 template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false,
           int STEP = P1_CHAIN>
-__global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS)
+__global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS,
+                                  !PART && STEP != P1_CHAIN ? 1 : 0)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
                  const float* __restrict__ u_init, const float* __restrict__ t0p,
                  const float* __restrict__ precond, const float* __restrict__ noise,
@@ -328,8 +377,10 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   static_assert(!PART || STEP == P1_CHAIN || (STEP == P1_GLOBAL && OPT && !PROF),
                 "a particle form reads its weights in shared memory or, the options form, "
                 "in device memory");
-  static_assert(STEP == P1_CHAIN || !PROF, "the clock stamps are the register chain's");
-  constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 shared-memory step
+  static_assert(STEP == P1_CHAIN || (!PART && SC == CONSTR_NONE && STEP == P1_SMEM) || !PROF,
+                "the clock stamps are the register chain's, the particle form's and the "
+                "wide step's with its weights in shared memory");
+  constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 wide step
   constexpr bool GW = STEP == P1_GLOBAL;
   // the particle global-weight form spreads a scenario's chunks over
   // a.groups * a.cluster blocks (sweeps.cuh, the spread note)
@@ -337,7 +388,13 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   extern __shared__ __align__(16) float smem[];
   __shared__ Scal S;
   Smem s;
-  layout(a, PART, OPT && a.risk, &s, smem, STEP);
+  if constexpr (!PART && GW) {             // past 227 KB, the scenario's scratch region
+    const bool far = wide_far(a, STEP);
+    layout(a, false, false, &s, smem, STEP, far,
+           far ? scratch + scenario<false, PROF>() * (size_t)wide_far_floats(a) : nullptr);
+  } else {
+    layout(a, PART, OPT && a.risk, &s, smem, STEP);
+  }
   s.prof = nullptr;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nw = nt >> 5;
   const int HZ = a.H * a.nZ, K = a.K, nZ = a.nZ;
@@ -401,12 +458,14 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     else transpose_weights(a, s);
   } else if constexpr (!P1S) {
     W = load_p1_weights(a, c);
+  } else {
+    wide_prep<GW>(a, s, wb);
   }
   auto value_grad = [&](const float* U) {
     if constexpr (PART)
       vg_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW, SPREAD>(a, s, &S.fval, U, my_noise,
                                                              my_starts);
-    else if constexpr (P1S) vg_smem<SC, GW>(a, s, wb, &S.fval, U);
+    else if constexpr (P1S) vg_wide<SC, GW, PROF>(a, s, wb, &S.fval, U);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -469,7 +528,9 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
       cand_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW, SPREAD>(a, s, K, my_noise, my_starts);
     } else if constexpr (P1S) {
       __syncthreads();                            // the candidate rows
-      cand_smem<SC, GW>(a, s, wb, K);
+      prof_stamp<PROF>(s, PH_LOOP);
+      cand_wide<SC, GW>(a, s, wb, K);
+      prof_stamp<PROF>(s, PH_CAND);
     } else {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
@@ -615,9 +676,13 @@ int part_form_of(const ApgArgs& a) {
 
 int dyn_bytes(const ApgArgs& a) {
   const bool part = a.has_noise != 0;
-  return layout(a, part, a.risk != 0, nullptr, nullptr,
-                part ? part_form_of(a) : p1_form_of(a)) * (int)sizeof(float);
+  const int step = part ? part_form_of(a) : p1_form_of(a);
+  return layout(a, part, a.risk != 0, nullptr, nullptr, step, !part && wide_far(a, step)) *
+         (int)sizeof(float);
 }
+
+// Whether a's launch keeps the wide step's buffers in its scratch (wide_far).
+bool far_of(const ApgArgs& a) { return !a.has_noise && wide_far(a, p1_form_of(a)); }
 
 // One launch of a.batch scenarios: P=1 one block each; the particle form
 // one cluster of a.cluster blocks each (cudaLaunchKernelEx, whose error a
@@ -771,6 +836,7 @@ int apg_init() {
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>)};
 #elif APG_P1S
   const cudaError_t errs[] = {
+      allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, true, false, false, P1_SMEM>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_SMEM>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY, false, false, false, P1_SMEM>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX, false, false, false, P1_SMEM>),
@@ -827,9 +893,14 @@ int apg_resident_blocks(const ApgArgs* a, int* n) {
   return (int)resident_blocks(fn, APG_NTHREADS_PART, (size_t)dyn_bytes(*a), n);
 }
 
-// Floats of the scratch a launch with a's plan takes (apg_solve.cuh
-// spread_floats; 0 but for the global-weight form at groups > 1).
-long long apg_scratch_floats(const ApgArgs* a) { return spread_floats(*a); }
+// Floats of the scratch a launch with a's plan takes: with particles
+// apg_solve.cuh's spread_floats (0 but for the global-weight form at
+// groups > 1), at P=1 a region a scenario where the wide step keeps its
+// width-sized buffers in device memory (wide_far), else 0.
+long long apg_scratch_floats(const ApgArgs* a) {
+  if (a->has_noise) return spread_floats(*a);
+  return far_of(*a) ? (long long)a->batch * wide_far_floats(*a) : 0;
+}
 
 const char* apg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -850,6 +921,7 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
            (part ? !part_form_ok(*a, step) : !p1_form_ok(*a, step)) ||
+           (!part && step != P1_CHAIN && a->F > P1_FMAX) ||   // the wide step's features
            (a->has_pre && precond == nullptr) ||
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (a->bf16 != 0) != kBF || (!part && kBF) ||
@@ -882,6 +954,7 @@ int apg_solve_launch(const ApgArgs* a, const void* consts, const void* u_init,
                      void* scratch, void* stream) {
   if (a->sc_kind < CONSTR_NONE || a->sc_kind > CONSTR_PROX ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax[options(*a)][a->sc_kind]) ||
+      (far_of(*a) && scratch == nullptr) ||
       kLaunch[form(*a)][a->sc_kind] == nullptr)   // a form of another library
     return (int)cudaErrorInvalidValue;
   return launch_error(kLaunch[form(*a)][a->sc_kind](
@@ -901,18 +974,21 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
                           const void* t0, const void* precond, const void* noise,
                           const void* starts, void* yk, void* stats, void* x_evol,
                           void* prof, void* stream) {
-  // the clock-stamped P=1 form is apg_solve_chain.cu's, the particle one
-  // apg_solve.cu's
+  // the clock-stamped P=1 forms are apg_solve_chain.cu's (the register
+  // chain) and apg_solve_p1.cu's (the wide step with its weights in shared
+  // memory), the particle one apg_solve.cu's
+  const int p1 = a->has_noise ? -1 : p1_form_of(*a);
 #if APG_CHAIN_LIB
-  const LaunchFn fn = a->has_noise ? nullptr : &launch<false, CONSTR_NONE, true>;
+  const LaunchFn fn = p1 == P1_CHAIN ? &launch<false, CONSTR_NONE, true> : nullptr;
+#elif APG_P1S
+  const LaunchFn fn = p1 == P1_SMEM ? &launch<false, CONSTR_NONE, true, false, P1_SMEM> : nullptr;
 #elif APG_PROF_PART_LIB
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true> : nullptr;
 #else
   const LaunchFn fn = nullptr;
 #endif
   if (fn == nullptr || a->sc_kind != CONSTR_NONE || prof == nullptr || a->batch != 1 ||
-      options(*a) || a->groups != 1 ||
-      (a->has_noise ? part_form_of(*a) != P1_SMEM : p1_form_of(*a) != P1_CHAIN) ||
+      options(*a) || a->groups != 1 || (a->has_noise && part_form_of(*a) != P1_SMEM) ||
       !launch_ok(a, precond, noise, starts, x_evol, g_cmax_prof))
     return (int)cudaErrorInvalidValue;
   return launch_error(fn(*a, (size_t)dyn_bytes(*a), (cudaStream_t)stream,

@@ -18,21 +18,24 @@
 // (sweeps.cuh, P1W): the hidden width, the largest input width F = 9 + n_u,
 // the output width. Its block is 4 threads per hidden unit (APG_NTHREADS),
 // and the K <= APG_MAXK candidate rows are one warp each. Other trunks run
-// the P=1 shared-memory step (p1_form, below).
+// the P=1 forms P1_SMEM or P1_GLOBAL (p1_form, below).
 #define P1_HID 64
 #define P1_FMAX 16
 #define P1_OUT 12
 
 // The P=1 forms of every kernel (a template parameter of the kernels):
-// P1_CHAIN the register chain (trunks of P1W's widths only); P1_SMEM the
-// shared-memory step (a thread per trunk output, the weights in the block's
-// shared-memory copy of the consts); P1_GLOBAL the same step with the
-// weights read from device memory (L2-resident; the block copies only the
-// consts before them, `trunk_last`). Each library picks a launch's form
+// P1_CHAIN the register chain (trunks of P1W's widths only); P1_SMEM a step
+// on any trunk with the weights in the block's shared-memory copy of the
+// consts (the whole solve and value_and_grad: the wide step, sweeps.cuh
+// vg_wide / cand_wide; value_batch and trajectory: the shared-memory step,
+// fwd_step<false>, a thread per trunk output); P1_GLOBAL the same steps with
+// the weights read from device memory (L2-resident; the block copies only
+// the consts before them, `trunk_last`). Each library picks a launch's form
 // from its dimensions (p1_form, below, with that kernel's own layout):
 // the chain on P1W's widths, else P1_SMEM where the kernel's block fits
 // 227 KB with the weights, else P1_GLOBAL. Both step forms give the same
-// bits; P1_SMEM is 7-20 % faster at 32-128 units in every kernel
+// bits; P1_SMEM is up to 30 % faster at 72-128 units (the wide step;
+// alike at 32) and 10-20 % in value_batch and trajectory
 // (sde4mbrl_px4_tpu_torch/p1_step_ab.py). ApgArgs::step asks for that
 // choice (P1_BY_SHAPE) or names a form, which the launch then takes or
 // refuses (for measurement).

@@ -57,11 +57,13 @@
 //     shared-memory step (P1_SMEM / P1_GLOBAL, chosen by shape, p1_form_of:
 //     value_batch<false, SC, false> and trajectory<false> on fwd_step<false>,
 //     a thread per trunk output, ORACLE_TILE rows per value_batch block;
-//     value_and_grad<false, SC, ..., STEP> on sweeps.cuh::vg_smem), their
+//     value_and_grad<false, SC, ..., STEP> on the whole solve's wide step,
+//     sweeps.cuh::vg_wide: the chain's structure over a runtime width, layer
+//     1 split over the block's warps), their
 //     weights in the block's consts copy up to 227 KB of dynamic shared
 //     memory (cost_oracle_init) and past that read from device memory
 //     (P1_GLOBAL, the GW forms: scenario 0's trunk, L2-resident; the same
-//     bits, 7-20 % slower where both fit);
+//     bits, up to 30 % slower where both fit);
 //   - with particles the chunks of a plan spread over a thread-block
 //     cluster, one block per SM (sweeps.cuh::vg_part / cand_part: block
 //     `rank` sweeps chunks rank, rank + C, ..., and every block sums all
@@ -158,6 +160,7 @@ static_assert(ORACLE_TILE <= 32 && ORACLE_P1_ROWS <= 32, "one red slot per row")
 static_assert(ORACLE_TILE <= ORACLE_NTHREADS, "fwd_step: one thread per row");
 static_assert(ORACLE_NTHREADS == 4 * P1_HID && ORACLE_P1_ROWS <= ORACLE_NTHREADS / 32,
               "P=1 register chain: 4 threads per hidden unit, one warp per row");
+static_assert(ORACLE_NTHREADS == APG_NTHREADS, "the P=1 wide step: kSlices warps a block");
 
 // The block's scenario, read where it is used (asm volatile: never
 // hoisted), so that no register holds it, or a pointer offset by it, across
@@ -190,16 +193,22 @@ __device__ __forceinline__ size_t vg_scen(const ApgArgs& a) {
 // On the register chain every buffer starts on 16 bytes (its float4 reads)
 // and a row's state, features and outputs live in registers; trajectory and
 // value_and_grad then stash the row's states, pre-activations and wrench.
-// On the shared-memory step value_and_grad stashes the row's states,
-// pre-activations and outputs and keeps its cotangents here; P1_GLOBAL
+// On the P=1 step forms value_and_grad runs the wide step (sweeps.cuh,
+// vg_wide), which stashes the row's states, pre-activations, outputs and
+// wrench and keeps layer 1's slice sums and the transposed output layer
+// here; P1_GLOBAL
 // copies only the consts before the trunk's weights; with part it is the
 // global-weight form (no weights and no transposes here; value_and_grad's
 // reverse cotangents at row stride tiled_ld, sweeps.cuh::bwd_rows), any
 // other step the shared-memory form. risk: the risk buffers (a constant
 // false in the forms without the options). Fields a kernel does not use stay
-// null.
+// null. far (value_and_grad's wide step with the weights in device memory,
+// vg_far): the wide step's width-sized buffers (h0p, h1p, pp, w2t) are
+// carved from fbase, the scenario's region of the launch's scratch in
+// device memory; *n_far (if given) their floats.
 __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool part, bool risk,
-                                      Smem* s, float* base, int step) {
+                                      Smem* s, float* base, int step, bool far = false,
+                                      float* fbase = nullptr, int* n_far = nullptr) {
   const int HZ = a.H * a.nZ;
   const int rows = part ? R * a.Pc : R;       // step rows per pass
   const int B = part ? a.Pc : 1;              // value_and_grad rows per pass
@@ -210,19 +219,27 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   const int ldh = part && kind == ORACLE_VALUE_BATCH ? tiled_ld(a) : a.HID;
   const bool gw = step == P1_GLOBAL;          // the weights in device memory
   const int ldc = part && gw ? tiled_ld(a) : a.HID;   // reverse cotangents' row stride
-  int o = 0;
+  // value_and_grad on the P=1 wide step (a kernel's constant STEP, so that
+  // the register chain's forms compile to the code they had)
+  const bool wide = kind == ORACLE_VALUE_AND_GRAD && !part && step != P1_CHAIN;
+  int o = 0, of = 0;
   auto take = [&](float** p, int n) {
     if (reg) o = (o + 3) & ~3;
     if (s) *p = base + o;
     o += n;
   };
+  auto take_far = [&](float** p, int n) {
+    if (s) *p = fbase + of;
+    of += n;
+  };
   Smem d = {};
   Smem* t = s ? s : &d;
   take(&t->c, gw ? a.o_w0 : a.n_consts);
   take(&t->cand, R * HZ);
-  if (!reg) { take(&t->xr, rows * 13); take(&t->feat, rows * a.F); }
-  take(&t->a0, rows * ldh); take(&t->a1, rows * ldh);
-  if (!reg) take(&t->a2, rows * a.OUT);
+  if (!reg && !wide) { take(&t->xr, rows * 13); take(&t->feat, rows * a.F); }
+  take(&t->a0, rows * ldh);
+  if (!wide) take(&t->a1, rows * ldh);
+  if (!reg && !wide) take(&t->a2, rows * a.OUT);
   take(&t->jt, rows); take(&t->jr, rows);
   take(&t->red, 32);
   if (kind != ORACLE_VALUE_BATCH) take(&t->xs, (a.H + 1) * B * 13);
@@ -244,10 +261,22 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
         take(&t->w2t, a.OUT * a.HID);
       }
     }
-    if (!part && !reg) {                        // the shared-memory step's vg row
+    // a chain form's row on other widths: a launch never takes it (p1_form_ok
+    // refuses the chain off its widths); it stays for register parity, as
+    // without it ptxas gave the chain forms other code and registers
+    if (!part && !reg && !wide) {
       take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
       take(&t->h2, a.H * a.OUT);
       take(&t->ct, 13); take(&t->c_h2, a.OUT); take(&t->c_feat, a.F);
+    }
+    if (wide && far) {                          // the wide step's vg row
+      take_far(&t->h0p, a.H * a.HID); take_far(&t->h1p, a.H * a.HID);
+      take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
+      take_far(&t->pp, kSlices * a.HID); take_far(&t->w2t, a.OUT * a.HID);
+    } else if (wide) {
+      take(&t->h0p, a.H * a.HID); take(&t->h1p, a.H * a.HID);
+      take(&t->h2, a.H * a.OUT); take(&t->wr, a.H * 4);
+      take(&t->pp, kSlices * a.HID); take(&t->w2t, a.OUT * a.HID);
     }
   }
   const int np = risk ? 3 : 2;                // the partial means (risk: + totals)
@@ -260,7 +289,27 @@ __host__ __device__ inline int layout(const ApgArgs& a, int kind, int R, bool pa
   if (part && kind == ORACLE_VALUE_BATCH) take(&t->pk, a.chunks_per_block * np * R);
   // risk: the rows' discounted totals of this block's chunks
   if (part && risk) take(&t->tot, a.chunks_per_block * rows);
+  if (n_far) *n_far = of;
   return o;
+}
+
+// Whether a P=1 value_and_grad of a in form `step` keeps the wide step's
+// width-sized buffers in device memory (layout's far): in the global-weight
+// form where its block, the 4-byte static value included, would not fit
+// 227 KB with them (past 896 units on the traj configs). The sums run in
+// the same order, so the bits are the same.
+__host__ __device__ inline bool vg_far(const ApgArgs& a, int step) {
+  return step == P1_GLOBAL &&
+         layout(a, ORACLE_VALUE_AND_GRAD, 1, false, false, nullptr, nullptr, P1_GLOBAL) *
+                 (int)sizeof(float) + (int)sizeof(float) > ORACLE_SMEM_LIMIT_PARTICLES;
+}
+
+// Floats of one scenario's region of the scratch with layout's far.
+__host__ __device__ inline int vg_far_floats(const ApgArgs& a) {
+  int n = 0;
+  layout(a, ORACLE_VALUE_AND_GRAD, 1, false, false, nullptr, nullptr, P1_GLOBAL, true, nullptr,
+         &n);
+  return (n + 3) & ~3;
 }
 
 // Copy the consts and R rows of controls (row r of the block at U + r*HZ)
@@ -425,14 +474,17 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // scenario's mean and std of the totals over all particles, moments[2b ..]
 // (moments (B, 2)), and val is then its risk-free cost over these
 // particles. STEP: at P=1 the P=1 form (P1_*), the register chain or the
-// shared-memory step on any trunk (sweeps.cuh::vg_smem; P1_GLOBAL with the
+// wide step on any trunk (sweeps.cuh::vg_wide; P1_GLOBAL with the
 // weights read from scenario 0's consts in device memory); with particles
 // P1_CHAIN (the default: the weights and their transposes in shared memory)
 // or P1_GLOBAL, the global-weight form (the options forms only; apg_solve.cuh,
-// part_form).
+// part_form). The P=1 wide step's forms state a minimum of one block per
+// SM, as the whole solve's do (apg_solve.cu): without it ptxas held two of
+// them at 128 registers; every other form keeps the bounds it had.
 template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
           int STEP = P1_CHAIN>
-__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS)
+__global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
+                                  !PART && STEP != P1_CHAIN ? 1 : 0)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
                       const float* __restrict__ u, const float* __restrict__ noise,
                       const float* __restrict__ starts, const float* __restrict__ moments,
@@ -451,7 +503,13 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   // a.groups * a.cluster blocks (sweeps.cuh, the spread note)
   constexpr bool SPREAD = PART && GW;
   Smem s = {};
-  layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem, STEP);
+  if constexpr (!PART && GW) {             // past 227 KB, the scenario's scratch region
+    const bool far = vg_far(a, STEP);
+    layout(a, ORACLE_VALUE_AND_GRAD, 1, false, false, &s, smem, STEP, far,
+           far ? scratch + vg_scenario<false>() * (size_t)vg_far_floats(a) : nullptr);
+  } else {
+    layout(a, ORACLE_VALUE_AND_GRAD, 1, PART, OPT && a.risk, &s, smem, STEP);
+  }
   const int tid = threadIdx.x, nt = blockDim.x;
   load_block<BF, GW>(a, s, 1, consts + vg_scen<PART, SPREAD>(a) * a.n_consts,
                      u + vg_scen<PART, SPREAD>(a) * (a.H * a.nZ));
@@ -487,7 +545,8 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   } else if constexpr (STEP == P1_CHAIN) {
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   } else {
-    vg_smem<SC, GW>(a, s, consts, &fval, s.cand);
+    wide_prep<GW>(a, s, consts);             // ends with a barrier
+    vg_wide<SC, GW>(a, s, consts, &fval, s.cand);
   }
   if (rank != 0) return;
   const int HZ = a.H * a.nZ;
@@ -519,8 +578,16 @@ int part_form_of(const ApgArgs& a, int kind) {
 }
 
 int dyn_bytes(const ApgArgs& a, int kind, int R, bool part) {
-  return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr,
-                part ? part_form_of(a, kind) : p1_form_of(a, kind)) * (int)sizeof(float);
+  const int step = part ? part_form_of(a, kind) : p1_form_of(a, kind);
+  const bool far = !part && kind == ORACLE_VALUE_AND_GRAD && vg_far(a, step);
+  return layout(a, kind, R, part, a.risk != 0, nullptr, nullptr, step, far) *
+         (int)sizeof(float);
+}
+
+// Whether a's value_and_grad launch keeps the wide step's buffers in its
+// scratch (vg_far).
+bool vg_far_of(const ApgArgs& a) {
+  return !a.has_noise && vg_far(a, p1_form_of(a, ORACLE_VALUE_AND_GRAD));
 }
 
 // Whether a particle launch of `kind` runs the global-weight form.
@@ -965,10 +1032,14 @@ int oracle_resident_blocks(const ApgArgs* a, int* n) {
             : (int)cudaErrorInvalidValue;     // the other library's form
 }
 
-// Floats of the scratch a value_and_grad launch with a's plan takes
-// (apg_solve.cuh spread_floats; 0 but for the global-weight form at
-// groups > 1).
-long long value_and_grad_scratch_floats(const ApgArgs* a) { return spread_floats(*a); }
+// Floats of the scratch a value_and_grad launch with a's plan takes: with
+// particles apg_solve.cuh's spread_floats (0 but for the global-weight form
+// at groups > 1), at P=1 a region a scenario where the wide step keeps its
+// width-sized buffers in device memory (vg_far), else 0.
+long long value_and_grad_scratch_floats(const ApgArgs* a) {
+  if (a->has_noise) return spread_floats(*a);
+  return vg_far_of(*a) ? (long long)a->batch * vg_far_floats(*a) : 0;
+}
 
 // cudaOccupancyMaxActiveClusters of the particle form of `kind` for a's
 // dimensions, cluster size and precision, into *n; returns a cudaError_t.
@@ -1081,6 +1152,9 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
       !particles_ok(a, noise, starts) ||
       opt < 0 || (opt == 2) != (moments != nullptr) ||
       (!a->has_noise && (a->bf16 || a->groups != 1)) ||
+      // the wide step holds at most P1_FMAX features; its far buffers
+      (!a->has_noise && !p1_widths(*a) && a->F > P1_FMAX) ||
+      (vg_far_of(*a) && scratch == nullptr) ||
       (a->has_noise && !cluster_args_ok(
           *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind],
           global_weights(*a, ORACLE_VALUE_AND_GRAD))) ||

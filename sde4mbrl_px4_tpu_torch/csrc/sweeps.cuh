@@ -17,8 +17,10 @@
 //   - the P=1 forms (P1W, p1_rollout, p1_reverse, vg): the trunk in
 //     registers, split-K layer-1 products, the row's scalar step in the 32
 //     lanes of its warp, two block barriers per step; on trunks of other
-//     widths the P=1 shared-memory step (vg_smem, cand_smem on trunk /
-//     fwd_step<false>, the weights in shared or device memory, wt);
+//     widths the P=1 wide step (vg_wide, cand_wide: the same structure over
+//     a runtime width, layer 1 split over the block's warps, the weights in
+//     shared or device memory, wt) and, for value_batch and trajectory, the
+//     shared-memory step fwd_step<false>;
 //   - ctrl_grad / ctrl_terms: the control-only cost terms and their
 //     closed-form gradient (bodies.py::control_cost, vg_sweep :598-628);
 //   - vg / vg_part: value and gradient of one plan (bodies.py::vg_sweep),
@@ -211,7 +213,10 @@ struct Smem {
                                    // rows' discounted totals, then (vg_part)
                                    // their gradient weights
   float *w0t, *w1t, *w2t;          // (HID, F), (HID, HID), (OUT, HID):
-                                   // transposed weights (particle reverse)
+                                   // transposed weights (particle reverse;
+                                   // the P=1 wide step w2t alone)
+  float *pp;                       // (kSlices, R, HID) layer 1's slice sums
+                                   // (the P=1 wide step)
   const float* wg;                 // the particle forms with the weights in
                                    // device memory (GW): the consts holding
                                    // the trunk the sweeps read (scenario 0's)
@@ -698,7 +703,7 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // terms (constr_cost). Accumulates jt[r] += d_t * track, jr[r] += d_t * res2.
 // TILED: the trunk's register-tiled products (the candidate rows of
 // cand_part). BF: the bf16 trunk (trunk). st_h0p, st_h1p: the rows'
-// pre-activations stashed there (trunk; the P=1 vg row, vg_smem). GW, wb:
+// pre-activations stashed there (trunk). GW, wb:
 // the weights in device memory (trunk).
 template <bool PART, int SC, bool TILED = false, bool BF = false, bool GW = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
@@ -1120,7 +1125,7 @@ __device__ __forceinline__ CtrlTerms ctrl_terms(const ApgArgs& a, const float* c
 // values; per-solve constants are read from the consts copy in shared
 // memory, off the chain.
 // Widths are fixed: HID = P1_HID, F <= P1_FMAX, OUT = 12 (other trunks run
-// the shared-memory step below, vg_smem).
+// the wide step below, vg_wide).
 
 // Clock-stamped phases (apg_solve_prof_launch): thread 0 adds the SM cycles
 // since the previous stamp to s.prof[ph]; s.prof[PH_N] holds the last stamp.
@@ -1451,89 +1456,373 @@ __device__ __forceinline__ void vg(const ApgArgs& a, const Smem& s, const P1W& W
   __syncthreads();
 }
 
-// ---- The P=1 shared-memory step (P1_SMEM / P1_GLOBAL, apg_solve.cuh):
+// ---- The P=1 wide step (P1_SMEM / P1_GLOBAL, apg_solve.cuh):
 // apg_solve_kernel<false, SC, ..., STEP> and value_and_grad_kernel<false,
-// SC, ..., STEP> on trunks of any width (value_batch and trajectory run the
-// same fwd_step<false> on them). A step is the network with a thread per
-// output (trunk<false>) and the row's scalar step in thread r < R; the
-// reverse of the vg row is bwd_dyn and bwd_feat in thread 0 and the trunk's
-// transposed products a warp per output (lanes along the weights' rows,
-// which read consecutive addresses of the stored layout in shared or device
-// memory alike; one warp sum each), four block barriers a step each way. wb:
-// where the trunk's weights are read (GW: device memory, else s.c).
+// SC, ..., STEP> on trunks of any width (value_batch and trajectory keep
+// fwd_step<false> on them). The register chain's structure over a runtime
+// HID, on a block of APG_NTHREADS threads (kSlices warps): a forward step of
+// R <= APG_MAXK rows has two block barriers,
+//   warp r (row r):  features and wrench in registers, layer 0 (lane l the
+//                    units l + 32c)                       -> s.a0   | barrier
+//   every warp w:    layer 1's partial sums over input slice w of every row
+//                    (wide_l1_partials)                   -> s.pp   | barrier
+//   warp r:          the slices' sums, swish, layer 2 (a scattered warp sum),
+//                    the Euler step and stage cost computed alike in all 32
+//                    lanes, so the new state stays in registers;
+// and a reverse step of the vg row two more,
+//   warp 0:          sigma_bwd, bwd_dyn, layer 2 backward -> s.c_h1p | barrier
+//   every warp:      layer 1 backward, 16 hidden units a warp at a time on
+//                    the stored layout (wide_l1_back)     -> s.c_h0p | barrier
+//   warp 0:          layer 0 backward, bwd_feat (the state cotangent in
+//                    registers, the control gradient into s.g[t]).
+// What bounds it: with the weights in shared memory, latency, as the chain
+// (a step's trunk 3-4x the chain's at 128 units: 4x its layer 1, read from
+// shared memory, not registers); with them in device memory, the reads of
+// w1 from L2 every step. Layer 1 (HID^2 products, the only part that grows
+// with the square of the width) runs over all the block's threads, each
+// slice HID / kSlices inputs deep; every other part is one warp's. The
+// weights stay where the form keeps them, in the block's consts
+// copy (s.c) or in device memory (GW: scenario 0's consts, through wt), and
+// are read in the stored layout, each warp load over consecutive addresses
+// (w0 and w1 along their rows; w2 from its transposed copy s.w2t, made once
+// per block, wide_prep). The stash, the slice sums s.pp and s.w2t lie in
+// shared memory, or, where the global-weight form's block would not fit
+// 227 KB with them (past ~620 units), in the scenario's region of the
+// launch's scratch in device memory (the kernels' layout, `far`), which
+// the block barriers order as they order shared memory. Every sum runs in
+// an order fixed by HID alone, so
+// both forms give the same bits, a row's sums do not depend on the rows
+// beside it (a candidate equal to the iterate gets the vg row's costs), and
+// a scenario's bits do not depend on the launch's others.
+constexpr int kSlices = APG_NTHREADS / 32;   // layer 1's input slices, a warp each
 
-// Value and gradient of the iterate U at P=1 on the shared-memory step
-// (bodies.py::vg_sweep / manual_bwd_step at B = 1): the forward sweep from
-// x0 into the stash (states s.xs, the mean trajectory x_evol; the layer-0/1
-// pre-activations s.h0p, s.h1p; the outputs s.h2), then the manual reverse
-// sweep of the row, then the closed-form control gradients and the
-// control-only terms, as vg ends. The gradient lands in s.g, the value in
-// *fval (shared memory). U must be visible to the block on entry.
-template <int SC, bool GW>
-__device__ void vg_smem(const ApgArgs& a, const Smem& s, const float* wb, float* fval,
-                        const float* U) {
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5,
-            nw = nt >> 5;
-  const float* c = s.c;
-  const float* w = GW ? wb : c;
-  const int H = a.H, F = a.F, HID = a.HID, OUT = a.OUT, nZ = a.nZ;
-  if (tid < 13) { s.xs[tid] = c[a.o_x0 + tid]; s.ct[tid] = 0.f; }
-  if (tid == 0) { s.jt[0] = 0.f; s.jr[0] = 0.f; }
-  __syncthreads();
-  for (int t = 0; t < H; ++t) {
-    fwd_step<false, SC, false, false, GW>(a, s, 1, U + t * nZ, 0, 1, nullptr, s.xs + t * 13,
-                                          s.xs + (t + 1) * 13, t, s.h0p + t * HID,
-                                          s.h1p + t * HID, wb);
-    for (int o = tid; o < OUT; o += nt) s.h2[t * OUT + o] = s.a2[o];
+// The wide step's transposed output layer s.w2t (OUT, HID) from the block's
+// consts copy or (GW) from wb in device memory. Every thread; ends with a
+// barrier.
+template <bool GW>
+__device__ void wide_prep(const ApgArgs& a, const Smem& s, const float* wb) {
+  const float* w2 = (GW ? wb : s.c) + a.o_w2;
+  for (int e = threadIdx.x; e < a.HID * a.OUT; e += blockDim.x) {
+    const int j = e / a.OUT, o = e - j * a.OUT;
+    s.w2t[o * a.HID + j] = wt<GW>(w2 + e);
   }
-  const float* w0 = w + a.o_w0; const float* w1 = w + a.o_w1; const float* w2 = w + a.o_w2;
-  for (int t = H - 1; t >= 0; --t) {
-    const float* st = s.xs + t * 13;
-    if (tid == 0) {
+  __syncthreads();
+}
+
+// Layer 1 of the rows r0 .. r0+RM-1 (those below R) over the block: warp w
+// sums the inputs i in [w*HID/kSlices, (w+1)*HID/kSlices) in order, lane l
+// the units j = l + 32c, s.pp[(w*R + r)*HID + j] = sum_i s.a0[r*HID + i] *
+// w1[i*HID + j]. The RM rows' sums sit in registers, so each weight read
+// feeds RM products; a partial's products and their order do not depend on
+// RM, r0 or R. The input loop is unrolled 8 deep in shared memory and 4 in
+// the global-weight form, whose 64-bit addresses took the whole solve past
+// 255 registers at 8 (16 was no faster than 8 there; PERF.md §6).
+template <int RM, bool GW>
+__device__ __forceinline__ void wide_l1_partials(const ApgArgs& a, const Smem& s,
+                                                 const float* w1, int R, int r0 = 0) {
+  constexpr int UC = 4;                      // units a lane sums at once
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, HID = a.HID;
+  const int lo = warp * HID / kSlices, hi = (warp + 1) * HID / kSlices;
+  for (int c0 = 0; c0 < HID; c0 += 32 * UC) {
+    int col[UC];
+#pragma unroll
+    for (int q = 0; q < UC; ++q) col[q] = min(c0 + lane + 32 * q, HID - 1);
+    float acc[RM][UC];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int q = 0; q < UC; ++q) acc[r][q] = 0.f;
+    auto input = [&](int i) {
+      float w[UC];
+#pragma unroll
+      for (int q = 0; q < UC; ++q) w[q] = wt<GW>(w1 + i * HID + col[q]);
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float av = s.a0[min(r0 + r, R - 1) * HID + i];
+#pragma unroll
+        for (int q = 0; q < UC; ++q) acc[r][q] = fmaf(av, w[q], acc[r][q]);
+      }
+    };
+    if constexpr (GW) {
+#pragma unroll 4
+      for (int i = lo; i < hi; ++i) input(i);
+    } else {
+#pragma unroll 8
+      for (int i = lo; i < hi; ++i) input(i);
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int q = 0; q < UC; ++q) {
+        const int j = c0 + lane + 32 * q;
+        if (r0 + r < R && j < HID) s.pp[(warp * R + r0 + r) * HID + j] = acc[r][q];
+      }
+  }
+}
+
+// A lane's hidden units in the wide step's warp-local layers: the units
+// l + 32m (unit_at(m)), taken wide_group<GW> at a time (m = m0 .. m0 + WG -
+// 1) so that their reads and swishes overlap; a unit past HID reads unit
+// HID - 1 (`uc`) and its value goes unused (as a product with 0 in layer 2:
+// unconditional reads keep the group's loads in flight together). The
+// global-weight form takes 2 (4 took its whole solve past 255 registers).
+template <bool GW>
+constexpr int wide_group = GW ? 2 : 4;
+__device__ __forceinline__ int unit_at(int m) { return (threadIdx.x & 31) + 32 * m; }
+
+// R rows through the horizon from x0 on the wide step, warp r < R owning row
+// r, whose controls at step t are U[r*ustride + t*nZ ..]; row r's costs land
+// in s.jt[r], s.jr[r]. STASH (the vg row, R = 1): the states into
+// s.xs[1..H], the pre-activations into s.h0p, s.h1p, the outputs into s.h2
+// and the wrench into s.wr for the reverse sweep; PROF then stamps the
+// chain's forward phases. wb: where GW reads the trunk. Ends without a
+// barrier (warp r wrote row r's costs, warp 0 the stash).
+template <int SC, bool STASH, bool GW, bool PROF = false>
+__device__ void wide_rollout(const ApgArgs& a, const Smem& s, const float* wb, int R,
+                             const float* U, int ustride) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* c = s.c;
+  const float* W = GW ? wb : c;
+  const int HID = a.HID, F = a.F, NU = (HID + 31) / 32;
+  constexpr int WG = wide_group<GW>;
+  const bool own = warp < R;
+  const float* Ur = U + (own ? warp : 0) * ustride;
+  float x[13], jt = 0.f, jr = 0.f;
+#pragma unroll
+  for (int i = 0; i < 13; ++i) x[i] = c[a.o_x0 + i];
+  for (int t = 0; t < a.H; ++t) {
+    const float* ut = Ur + t * a.nZ;
+    float w[4];                                  // the wrench of u_t
+    if (own) {
+      float uu[P1_FMAX - 9], f[P1_FMAX];
+      load_controls(a, ut, uu);
+      features_reg(a, x, uu, f);
+      wrench4_reg(a, c + a.o_mix, uu, w);
+      if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
+      for (int m0 = 0; m0 < NU; m0 += WG) {
+        float acc[WG];
+        int uc[WG];
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          acc[q] = 0.f;
+          uc[q] = min(unit_at(m0 + q), HID - 1);
+        }
+#pragma unroll
+        for (int i = 0; i < P1_FMAX; ++i)
+          if (i < F) {
+#pragma unroll
+            for (int q = 0; q < WG; ++q)
+              acc[q] = fmaf(f[i], wt<GW>(W + a.o_w0 + i * HID + uc[q]), acc[q]);
+          }
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          const int u = unit_at(m0 + q);
+          const float pre = acc[q] + wt<GW>(W + a.o_b0 + uc[q]);
+          if (u < HID) {
+            s.a0[warp * HID + u] = pre * sigm(pre);
+            if (STASH) s.h0p[t * HID + u] = pre;
+          }
+        }
+      }
+      if (STASH && lane < 4)
+        s.wr[t * 4 + lane] = lane == 0 ? w[0] : lane == 1 ? w[1] : lane == 2 ? w[2] : w[3];
+    }
+    __syncthreads();
+    if (STASH || R == 1) {
+      wide_l1_partials<1, GW>(a, s, W + a.o_w1, R);
+    } else {                                     // four rows a pass
+      for (int r0 = 0; r0 < R; r0 += 4) wide_l1_partials<4, GW>(a, s, W + a.o_w1, R, r0);
+    }
+    __syncthreads();
+    if (own) {
+      // the slices' sums in slice order plus the bias, the swish, and this
+      // lane's share of layer 2 (its units in order)
+      float p[16];
+#pragma unroll
+      for (int o = 0; o < 16; ++o) p[o] = 0.f;
+      for (int m0 = 0; m0 < NU; m0 += WG) {
+        float pre[WG];
+        int uc[WG];
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          uc[q] = min(unit_at(m0 + q), HID - 1);
+          pre[q] = s.pp[warp * HID + uc[q]];
+        }
+#pragma unroll
+        for (int k = 1; k < kSlices; ++k)
+#pragma unroll
+          for (int q = 0; q < WG; ++q) pre[q] += s.pp[(k * R + warp) * HID + uc[q]];
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          const int u = unit_at(m0 + q);
+          pre[q] += wt<GW>(W + a.o_b1 + uc[q]);
+          if (STASH && u < HID) s.h1p[t * HID + u] = pre[q];
+          pre[q] = u < HID ? pre[q] * sigm(pre[q]) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < WG; ++q)
+#pragma unroll
+          for (int o = 0; o < P1_OUT; ++o) p[o] = fmaf(pre[q], s.w2t[o * HID + uc[q]], p[o]);
+      }
+      const int o = lane >> 1;                   // this lane's output unit
+      const float mine = warp_sum16_scatter(p) +
+                         (o < P1_OUT ? wt<GW>(W + a.o_b2 + min(o, P1_OUT - 1)) : 0.f);
+      float h2[P1_OUT];
+#pragma unroll
+      for (int i = 0; i < P1_OUT; ++i) h2[i] = __shfl_sync(0xffffffffu, mine, 2 * i);
+      const float res2 = sigma_res2(mine, c[a.o_scal + SC_DIFF]);
+      if (STASH) prof_stamp<PROF>(s, PH_FWD_TRUNK);
+      float track, unused;
+      em_step<false, SC, true>(a, c, x, h2, ut, nullptr, t, x, track, unused, w);
       const float d_t = c[a.o_disc + t];
-      bwd_dyn<false, SC>(a, c, st, st + 13, s.h2 + t * OUT, U + t * nZ, nullptr, t, d_t,
-                         d_t * c[a.o_scal + SC_RESM], s.ct, s.c_h2, s.cu);
+      jt += d_t * track;
+      jr += d_t * res2;
+      if (STASH) {
+        if (!(lane & 1) && o < P1_OUT) s.h2[t * P1_OUT + o] = mine;
+        if (lane < 13) s.xs[(t + 1) * 13 + lane] = pick13(x, lane);
+      }
     }
-    __syncthreads();
-    // layer 2 back to the second swish: a thread per hidden unit
-    for (int j = tid; j < HID; j += nt) {
-      float acc = 0.f;
-      for (int o = 0; o < OUT; ++o) acc += s.c_h2[o] * wt<GW>(w2 + j * OUT + o);
-      const float h = s.h1p[t * HID + j], s1 = sigm(h);
-      s.c_h1p[j] = acc * (s1 + h * s1 * (1.f - s1));
+  }
+  if (own && lane == 0) { s.jt[warp] = jt; s.jr[warp] = jr; }
+  if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
+}
+
+// Layer 1 backward of the vg row at step t over the block: warp w takes the
+// hidden units i0 .. i0+15 (i0 = 16w, 16(w + kSlices), ...), lane l their
+// products with the cotangents j = l + 32m (m in order) along the rows of
+// w1 as stored, and one scattered warp sum per 16 units (warp_sum16_scatter);
+// s.c_h0p[i] = that sum times the swish derivative at s.h0p[t*HID + i].
+template <bool GW>
+__device__ __forceinline__ void wide_l1_back(const ApgArgs& a, const Smem& s,
+                                             const float* w1, int t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, HID = a.HID;
+  const int NU = (HID + 31) / 32;
+  for (int i0 = 16 * warp; i0 < HID; i0 += 16 * kSlices) {
+    int row[16];                                 // the units' rows, as offsets
+#pragma unroll
+    for (int o = 0; o < 16; ++o) row[o] = min(i0 + o, HID - 1) * HID;
+    float v[16];
+#pragma unroll
+    for (int o = 0; o < 16; ++o) v[o] = 0.f;
+    auto cotangent = [&](int m) {
+      const int j = lane + 32 * m, jc = min(j, HID - 1);
+      const float cj = j < HID ? s.c_h1p[jc] : 0.f;
+#pragma unroll
+      for (int o = 0; o < 16; ++o) v[o] = fmaf(wt<GW>(w1 + row[o] + jc), cj, v[o]);
+    };
+    if constexpr (GW) {                          // registers: as wide_l1_partials
+      for (int m = 0; m < NU; ++m) cotangent(m);
+    } else {
+#pragma unroll 2
+      for (int m = 0; m < NU; ++m) cotangent(m);
     }
-    __syncthreads();
-    // layer 1 back to the first swish: a warp per hidden unit i, its lanes
-    // along row i of w1
-    for (int i = warp; i < HID; i += nw) {
-      float acc = 0.f;
-      for (int j = lane; j < HID; j += 32) acc += wt<GW>(w1 + i * HID + j) * s.c_h1p[j];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float h = s.h0p[t * HID + i], s0 = sigm(h);
-        s.c_h0p[i] = acc * (s0 + h * s0 * (1.f - s0));
+    const float mine = warp_sum16_scatter(v);
+    const int i = i0 + (lane >> 1);
+    if (!(lane & 1) && i < HID) {
+      const float h = s.h0p[t * HID + i], s0 = sigm(h);
+      s.c_h0p[i] = mine * (s0 + h * s0 * (1.f - s0));
+    }
+  }
+}
+
+// The manual reverse sweep of the vg row (bodies.py::manual_bwd_step, B = 1)
+// on the stash of wide_rollout<STASH>: the dynamics part of the control
+// gradient (with the slack columns' in the proximal form) into s.g; PROF
+// stamps the chain's reverse phases. Ends with a barrier.
+template <int SC, bool GW, bool PROF = false>
+__device__ void wide_reverse(const ApgArgs& a, const Smem& s, const float* wb,
+                             const float* U) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* c = s.c;
+  const float* W = GW ? wb : c;
+  const int HID = a.HID, F = a.F, nZ = a.nZ, NU = (HID + 31) / 32;
+  constexpr int WG = wide_group<GW>;
+  float ct[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) ct[i] = 0.f;
+  __syncwarp();                                  // warp 0's stash writes
+  for (int t = a.H - 1; t >= 0; --t) {
+    const float* st = s.xs + t * 13;
+    if (warp == 0) {
+      const float d_t = c[a.o_disc + t];
+      const float cR = d_t * c[a.o_scal + SC_RESM];
+      float c_h2[P1_OUT];
+      sigma_bwd(s.h2 + t * P1_OUT, cR, c[a.o_scal + SC_DIFF], c_h2);
+      bwd_dyn<false, SC, true>(a, c, st, st + 13, s.h2 + t * P1_OUT, U + t * nZ, nullptr, t,
+                               d_t, cR, ct, c_h2, s.cu, s.wr + t * 4);
+      prof_stamp<PROF>(s, PH_BWD_SCALAR);
+      const float* h1p = s.h1p + t * HID;
+      for (int m0 = 0; m0 < NU; m0 += WG) {
+        float acc[WG];
+        int uc[WG];
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          acc[q] = 0.f;
+          uc[q] = min(unit_at(m0 + q), HID - 1);
+        }
+#pragma unroll
+        for (int o = 0; o < P1_OUT; ++o)
+#pragma unroll
+          for (int q = 0; q < WG; ++q) acc[q] = fmaf(c_h2[o], s.w2t[o * HID + uc[q]], acc[q]);
+#pragma unroll
+        for (int q = 0; q < WG; ++q) {
+          const float h = h1p[uc[q]], s1 = sigm(h);
+          if (unit_at(m0 + q) < HID) s.c_h1p[uc[q]] = acc[q] * (s1 + h * s1 * (1.f - s1));
+        }
       }
     }
     __syncthreads();
-    // layer 0 back to the features: a warp per input
-    for (int f = warp; f < F; f += nw) {
-      float acc = 0.f;
-      for (int j = lane; j < HID; j += 32) acc += wt<GW>(w0 + f * HID + j) * s.c_h0p[j];
-      acc = warp_sum(acc);
-      if (lane == 0) s.c_feat[f] = acc;
-    }
+    wide_l1_back<GW>(a, s, W + a.o_w1, t);
     __syncthreads();
-    if (tid == 0) {
-      // the features back to the state; step t's gradient (the slack
-      // columns' from constr_bwd in the proximal form)
-      bwd_feat(a, st, s.c_feat, s.cu, s.ct, s.cu);
-      for (int i = 0; i < nZ; ++i) s.g[t * nZ + i] = s.cu[i];
+    if (warp == 0) {
+      float cf[P1_FMAX];
+#pragma unroll
+      for (int f = 0; f < P1_FMAX; ++f) cf[f] = 0.f;
+#pragma unroll 2
+      for (int m = 0; m < NU; ++m) {
+        const int j = lane + 32 * m, jc = min(j, HID - 1);
+        const float g = j < HID ? s.c_h0p[jc] : 0.f;
+#pragma unroll
+        for (int f = 0; f < P1_FMAX; ++f)
+          if (f < F) cf[f] = fmaf(wt<GW>(W + a.o_w0 + f * HID + jc), g, cf[f]);
+      }
+      const float mine = warp_sum16_scatter(cf);
+#pragma unroll
+      for (int f = 0; f < P1_FMAX; ++f) cf[f] = __shfl_sync(0xffffffffu, mine, 2 * f);
+      prof_stamp<PROF>(s, PH_BWD_TRUNK);
+      bwd_feat<true>(a, st, cf, nullptr, ct, nullptr);
+      // step t's control gradient: bwd_dyn's cotangent plus the features'
+      float* g = s.g + t * nZ;
+#pragma unroll
+      for (int i = 0; i < P1_FMAX - 9; ++i) {
+        const float v = s.cu[min(i, a.n_u - 1)] + cf[9 + i];
+        if (i < a.n_u && lane == 0) g[i] = v;
+      }
+      if constexpr (SC == CONSTR_PROX)
+        for (int i = a.n_u + lane; i < nZ; i += 32) g[i] = s.cu[i];
     }
   }
+  prof_stamp<PROF>(s, PH_BWD_SCALAR);
   __syncthreads();
-  const int HZ = a.H * nZ;
-  for (int e = tid; e < HZ; e += nt) {
-    const int t = e / nZ, i = e - t * nZ;
+}
+
+// Value and gradient of the iterate U (bodies.py::vg_sweep) at P=1 on the
+// wide step: the forward sweep from x0 into the stash (s.xs is the mean
+// trajectory, x_evol), the manual reverse sweep, the closed-form control
+// gradients and the control-only terms, as vg ends. The gradient lands in
+// s.g, the value in *fval (shared memory). U and s.w2t (wide_prep) must be
+// visible to the block on entry. PROF: the chain's clock stamps.
+template <int SC, bool GW, bool PROF = false>
+__device__ void vg_wide(const ApgArgs& a, const Smem& s, const float* wb, float* fval,
+                        const float* U) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const float* c = s.c;
+  const int HZ = a.H * a.nZ;
+  if (tid < 13) s.xs[tid] = c[a.o_x0 + tid];
+  wide_rollout<SC, true, GW, PROF>(a, s, wb, 1, U, 0);
+  wide_reverse<SC, GW, PROF>(a, s, wb, U);
+  for (int e = tid; e < HZ; e += blockDim.x) {
+    const int t = e / a.nZ, i = e - t * a.nZ;
     s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
   }
   if (warp == 0) warp_reduce_to(HZ, [&](int e) { return ctrl_terms<SC>(a, c, U, e).u; }, s.red + 0);
@@ -1549,18 +1838,13 @@ __device__ void vg_smem(const ApgArgs& a, const Smem& s, const float* wb, float*
   __syncthreads();
 }
 
-// The K candidate plans of s.cand ((K, H, nZ)) through the horizon from x0
-// on the shared-memory step (bodies.py::run_candidates at P=1): row k's
-// costs in s.jt[k], s.jr[k]. Ends with a barrier.
+// The K candidate plans of s.cand ((K, H, nZ), visible to the block) through
+// the horizon from x0 on the wide step (bodies.py::run_candidates at P=1):
+// row k's costs in s.jt[k], s.jr[k]. Ends without a barrier, as
+// wide_rollout.
 template <int SC, bool GW>
-__device__ void cand_smem(const ApgArgs& a, const Smem& s, const float* wb, int K) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < K * 13; e += nt) s.xr[e] = s.c[a.o_x0 + e % 13];
-  for (int r = tid; r < K; r += nt) { s.jt[r] = 0.f; s.jr[r] = 0.f; }
-  __syncthreads();
-  for (int t = 0; t < a.H; ++t)
-    fwd_step<false, SC, false, false, GW>(a, s, K, s.cand + t * a.nZ, a.H * a.nZ, 1, nullptr,
-                                          s.xr, s.xr, t, nullptr, nullptr, wb);
+__device__ void cand_wide(const ApgArgs& a, const Smem& s, const float* wb, int K) {
+  wide_rollout<SC, false, GW>(a, s, wb, K, s.cand, a.H * a.nZ);
 }
 
 // Every block of the cluster: out(e, v) for e < n, v the sum over the

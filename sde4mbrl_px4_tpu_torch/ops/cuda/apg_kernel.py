@@ -51,14 +51,18 @@ kernel's launches.
 
 A P=1 solve runs the form its trunk's shape picks (``consts.py`` module
 docstring): the register chain on 64 hidden units and at most 16 inputs,
-the shared-memory step on any other trunk (its weights in the block's
-shared memory, or in device memory where they do not fit 227 KB; the
-library chooses, ``apg_p1_form`` reports it). The shared-memory step's
-forms are a library of their own (``csrc/apg_solve_p1.cu``,
-:func:`load_apg_library` with ``p1_step``), built in parallel with the
-others.
+the wide step on any other trunk (``csrc/sweeps.cuh::vg_wide``: the chain's
+structure over a runtime width, layer 1 split over the block's warps; its
+weights in the block's shared memory, or in device memory where they do
+not fit 227 KB; the library chooses, ``apg_p1_form`` reports it; past
+227 KB again its width-sized buffers go to the launch's scratch in device
+memory, so any width runs). Every P=1 form takes at most 16 trunk inputs
+(``consts.p1_check_inputs``). The wide step's forms are a library of their
+own (``csrc/apg_solve_p1.cu``, :func:`load_apg_library` with ``p1_step``),
+built in parallel with the others.
 :func:`apg_phase_split` runs the same solve without state constraints
-(P=1 on the register chain, or particles) through the kernel's
+(P=1 on the register chain or the wide step with its weights in shared
+memory, or particles) through the kernel's
 clock-stamped instantiation and returns the SM cycles of each of
 :data:`PHASES` (P=1) or :data:`PART_PHASES` (particles), for
 measurement.
@@ -111,7 +115,8 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     P1_GLOBAL, SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts,
-    has_options, p1_widths, plan_groups, plan_particles, sc_kind, scenario_weights)
+    has_options, p1_check_inputs, p1_widths, plan_groups, plan_particles, sc_kind,
+    scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
 from sde4mbrl_px4_tpu_torch.solver.apg import (
@@ -141,7 +146,7 @@ def load_apg_library(bf16: bool = False, p1_step: bool = False,
     particle forms), with ``chain`` ``csrc/apg_solve_chain.cu`` (the P=1
     register chain), with ``bf16`` ``csrc/apg_solve_bf16.cu`` (the
     bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
-    (the P=1 shared-memory step), with ``part_global``
+    (the P=1 wide step), with ``part_global``
     ``csrc/apg_solve_gw.cu`` (``csrc/apg_solve_gw_bf16.cu`` with ``bf16``:
     the particle global-weight forms). Each answers the shared-memory and ABI
     queries of every form."""
@@ -271,6 +276,7 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     limit = (SMEM_LIMIT_PARTICLES
              if args.has_noise or args.sc_kind != SC_NONE or not p1_widths(args.F, args.HID)
              else SMEM_LIMIT)
+    p1_check_inputs(args, "apg_solve_kernel")
     need = lib.apg_smem_bytes(ctypes.byref(args))
     if need > limit:
         raise ValueError(f"apg_solve_kernel needs {need} bytes of shared "
@@ -280,7 +286,8 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     yk = torch.empty((B, H, nZ), **kw)
     stats = torch.empty((B, 8), **kw)
     x_evol = None if args.has_noise else torch.empty((B, H + 1, 13), **kw)
-    # the spread's slots and counters (consts.plan_groups), zeroed by the launcher
+    # the spread's slots and counters (consts.plan_groups), zeroed by the
+    # launcher, or the P=1 wide step's buffers past 227 KB
     n_scratch = lib.apg_scratch_floats(ctypes.byref(args))
     scratch = torch.empty(n_scratch, **kw) if n_scratch else None
     ptr = lambda t: None if t is None else t.data_ptr()

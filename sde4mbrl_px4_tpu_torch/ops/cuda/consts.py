@@ -51,16 +51,22 @@ their shared-memory copy of the consts; the buffer itself stays fp32, so the
 
 The P=1 forms: a trunk of the register chain's widths (64 hidden units, at
 most 16 inputs, :func:`p1_widths`) runs the chain (:data:`P1_CHAIN`); any
-other runs the shared-memory step, with the weights in the block's copy of
-the consts (:data:`P1_SMEM`) where that kernel's block fits 227 KB with
-them, else read from device memory (:data:`P1_GLOBAL`), for which the
+other runs a step on any width (the whole solve and ``value_and_grad`` the
+wide step, ``value_batch`` and ``trajectory`` the shared-memory step), with
+the weights in the block's copy of the consts (:data:`P1_SMEM`) where that
+kernel's block fits 227 KB with them, else read from device memory
+(:data:`P1_GLOBAL`), for which the
 buffer ends with the trunk (``w0, b0, w1, b1, w2, b2``): the kernels copy
 the ``o_w0`` floats before it. Each library picks the form of each launch
 from its dimensions (``csrc/apg_solve.cuh::p1_form``; ``apg_p1_form`` and
 ``oracle_p1_form`` report it); :func:`build_consts` leaves
 ``ApgArgs.step`` at :data:`P1_BY_SHAPE`, which asks for that choice. A
 launch given a form by name (``step``, for measurement) takes it or is
-refused.
+refused. Past 227 KB with the weights in device memory (624 units on the
+iris traj config in the whole solve, 896 in ``value_and_grad``) the wide
+step keeps its width-sized buffers in the launch's scratch in device
+memory, so it takes any width; it takes at most :data:`P1_FMAX` trunk
+inputs (:func:`p1_check_inputs`).
 
 The particle forms' trunk: the weights, and their transposes for the
 reverse sweep, in the block's copy of the consts (:data:`P1_SMEM`, every
@@ -100,7 +106,8 @@ __all__ = ["APG_MAXK", "OPT_MOMENTS", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_T
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_BY_SHAPE", "P1_CHAIN", "P1_FMAX",
            "P1_GLOBAL", "P1_HID", "P1_SMEM", "RISK_IN_CLUSTER", "RISK_MOMENTS_IN",
            "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
-           "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form", "p1_widths",
+           "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form",
+           "p1_check_inputs", "p1_widths",
            "plan_cluster", "plan_groups", "plan_particles", "sc_kind", "scenario_chunks",
            "scenario_weights", "value_batch_grid"]
 
@@ -109,8 +116,10 @@ APG_MAXK = 8  # csrc/apg_solve.cuh
 # units, and the most inputs 9 + n_u (csrc/apg_solve.cuh P1_HID, P1_FMAX)
 P1_HID, P1_FMAX = 64, 16
 # the trunk's forms (csrc/apg_solve.cuh P1_*, ApgArgs.step): the libraries'
-# choice by shape, the register chain, the shared-memory step, and that step
-# with the weights in device memory (the particle forms: the last two)
+# choice by shape, the register chain, a step on any width with the weights
+# in shared memory (the whole solve and value_and_grad the wide step,
+# value_batch and trajectory the shared-memory step), and that step with the
+# weights in device memory (the particle forms: the last two)
 P1_BY_SHAPE, P1_CHAIN, P1_SMEM, P1_GLOBAL = -1, 0, 1, 2
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
@@ -196,6 +205,19 @@ def _constraint_pieces(cp: CostParams) -> tuple:
 def p1_widths(F: int, HID: int) -> bool:
     """Whether the P=1 register chain takes a (F, HID) trunk."""
     return HID == P1_HID and F <= P1_FMAX
+
+
+def p1_check_inputs(args: ApgArgs, what: str) -> None:
+    """Raise ValueError where a P=1 launch of the whole solve or
+    ``value_and_grad`` (``what``) has a trunk of more than :data:`P1_FMAX`
+    inputs (9 + n_u, n_u > 7 motors): the register chain and the wide step
+    hold the features in registers, at most :data:`P1_FMAX` of them
+    (``csrc/sweeps.cuh::features_reg``), and the libraries refuse such a
+    launch. ``value_batch``, ``trajectory`` and the particle forms take any
+    width."""
+    if not args.has_noise and args.F > P1_FMAX:
+        raise ValueError(f"{what}: the P=1 kernels take at most {P1_FMAX} trunk inputs "
+                         f"(9 + {P1_FMAX - 9} motors), got F = {args.F}")
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,

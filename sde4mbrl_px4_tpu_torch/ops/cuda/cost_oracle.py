@@ -45,9 +45,11 @@ the control columns. The kernels take the form as a compile-time branch
 (``consts.py::sc_kind``). At P=1 the kernels run the form the trunk's
 shape picks (``consts.py`` module docstring): the register chain on 64
 hidden units and at most 16 inputs (8 ``value_batch`` candidates per
-block), the shared-memory step on any other trunk (16 candidates per block;
-the weights in device memory where that kernel's block would not fit
-227 KB with them; the library chooses, ``oracle_p1_form`` reports it);
+block), on any other trunk ``value_batch`` and ``trajectory`` the
+shared-memory step (16 candidates per block) and ``value_and_grad`` the
+whole solve's wide step (``csrc/sweeps.cuh::vg_wide``), the weights in
+device memory where that kernel's block would not fit 227 KB with them (the
+library chooses, ``oracle_p1_form`` reports it);
 a block takes fewer candidates where wider rows would not fit its form's
 budget (``consts.py::value_batch_grid``). :func:`value_batch_kernel`,
 :func:`value_and_grad_kernel` and :func:`trajectory_kernel` each count
@@ -124,7 +126,7 @@ from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL, RISK_MOMENTS_IN,
     RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, opt_form,
-    p1_widths, plan_groups, plan_particles, scenario_weights)
+    p1_check_inputs, p1_widths, plan_groups, plan_particles, scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -339,7 +341,7 @@ def _stream(t: torch.Tensor) -> int:
 def _limit(args: ApgArgs, particles: bool = True) -> int:
     """A block's shared-memory budget: 48 KB on the register chain, 227 KB
     with particles (``particles``: the kernel has particle forms) and on the
-    P=1 shared-memory step."""
+    P=1 steps off the register chain (the wide and shared-memory steps)."""
     if (particles and args.has_noise) or not p1_widths(args.F, args.HID):
         return SMEM_LIMIT_PARTICLES
     return SMEM_LIMIT
@@ -447,13 +449,15 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                          "package runs it on its kernel, at HIGHEST)")
     lib, glob = _library(args, ORACLE_VALUE_AND_GRAD)
     _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
+    p1_check_inputs(args, "value_and_grad")
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
         raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
                          f"above the {_limit(args)}-byte budget")
     val = torch.empty(u.shape[:-2], dtype=torch.float32, device=u.device)
     grad = torch.empty_like(u)
-    # the spread's slots and counters (consts.plan_groups), zeroed by the launcher
+    # the spread's slots and counters (consts.plan_groups), zeroed by the
+    # launcher, or the P=1 wide step's buffers past 227 KB
     n_scratch = lib.value_and_grad_scratch_floats(ctypes.byref(args))
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=u.device) if n_scratch
                else None)

@@ -6,9 +6,11 @@ read from device memory (``P1_GLOBAL``), on the same trunks.
 
 On ``chip_smoke.py``'s iris problems at 32, 72 and 128 hidden units
 (``chip_smoke.py::wide_params``; both forms take these, the libraries
-pick ``P1_SMEM``), each kernel of the P=1 shared-memory step is launched on the
-same inputs in both forms, in the order SMEM, GLOBAL, GLOBAL, SMEM, and
-timed with CUDA events (mean per launch, warm):
+pick ``P1_SMEM``), each P=1 kernel off the register chain (the whole solve
+and ``value_and_grad`` on the wide step, ``value_batch`` and ``trajectory``
+on the shared-memory step) is launched on the same inputs in both forms, in
+the order SMEM, GLOBAL, GLOBAL, SMEM, and timed with CUDA events (mean per
+launch, warm):
 
 - the whole solve on the traj problem at a fixed 50 iterations (B = 1),
   and at a fixed 20 iterations over B = 256 scenarios (x0 spread);

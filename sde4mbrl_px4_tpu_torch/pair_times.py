@@ -1,7 +1,7 @@
 """Kernel and route times of the PyTorch/CUDA port, checkout against checkout,
 on one card.
 
-    python3 sde4mbrl_px4_tpu_torch/pair_times.py [--routes] ROOT [ROOT ...]
+    python3 sde4mbrl_px4_tpu_torch/pair_times.py [--routes | --wide] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository: this one, or another commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -38,6 +38,12 @@ per ROOT, then the card's name and power limit:
   beside the plain oracle in float32 and in float64, and the spread of the
   float32 plain value over 8 orders of the hidden units (the same
   function): how far summation order alone moves this cost.
+
+With ``--wide`` only the P=1 whole solve and ``value_and_grad`` on trunks
+off the register chain's widths are timed (:func:`measure_wide`: the
+flagship's chained and cold solves at 128 and 256 units, a fixed
+10-iteration solve, each oracle kernel per launch, the fixed-step route),
+which needs only the libraries of those forms.
 
 With ``--routes`` only the two host-bound P=1 routes are timed, MPPI and
 fixed-step APG through ``mpc_fn``, over 30 chained solves each (p50 and
@@ -191,10 +197,89 @@ def host_profile(cs, cfg, dev, top: int = 14) -> list:
             + [[e.key, e.count, round(e.self_cpu_time_total, 1)] for e in rows[:top]])
 
 
-def measure(root: str, routes: bool = False) -> dict:
+WIDE_HIDS = (128, 256)   # the weights in shared memory; in device memory
+WIDE_SOLVES, WIDE_COLD = 12, 200
+
+
+def measure_wide(cs, dev) -> dict:
+    """The P=1 whole solve and ``value_and_grad`` of one checkout on the
+    iris trunk at each of WIDE_HIDS units (``chip_smoke.py::wide_checkpoint``):
+    the shipped traj config through ``mpc_fn``, WIDE_SOLVES chained solves
+    along the lemniscate (device ms a solve by CUDA events, iterations, ms an
+    iteration p50 over solves 2-12, the plans' bits); ``problem``'s plan at a
+    fixed WIDE_COLD iterations (the cold solve) and at a fixed 10 (mean of
+    3 and of 10); on the posctrl config ``value_and_grad``, ``value_batch``
+    K = 1 and ``trajectory`` per launch, whether ``value_batch`` K = 1 gives
+    ``value_and_grad``'s value bit for bit, and the fixed-step route's 3
+    chained solves (wall ms, iterations, plans)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.core.frames import enu2ned
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    out = {}
+    tb = cs.make_bundle("iris_traj_mpc", dev)
+    with tempfile.TemporaryDirectory(prefix="pair_times_wide_") as td:
+        for hid in WIDE_HIDS:
+            tag = f"h{hid}_"
+            ckpt = cs.wide_checkpoint(td, tb, hid)
+            cfg, (reset_fn, mpc_fn), sft, b = make_mpc_from_config(
+                cs.wide_config("iris_traj_mpc", ckpt), device=dev)
+            dt, x = float(cfg["_time_steps"][0]), enu2ned(sft(np.float32(3.0)))
+            st, events, steps, plans = reset_fn(x, None, x), [], [], []
+            with cs.routed("apg_solve_kernel", cs.event_timed(events)):
+                for k in range(WIDE_SOLVES):
+                    u, st, _, x_evol = mpc_fn(x, None, st, np.float32(3.0 + k * dt), x)
+                    steps.append(int(st.num_steps))
+                    plans.append(u[0].tolist())
+                    x = x_evol[1]
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(e) for a, e in events]
+            out.update({tag + "flagship_ms": ms, tag + "flagship_steps": steps,
+                        tag + "flagship_u0_bits": plans,
+                        tag + "iteration_ms": statistics.median(
+                            d / n for d, n in zip(ms[1:], steps[1:]))})
+            x0, x_ref, u_prev, u_init = cs.problem(b, dev)
+            for iters, n, key in ((WIDE_COLD, 3, "cold"), (10, 10, "fixed10")):
+                apg = b.apg_config._replace(max_iter=iters, max_no_improvement_iter=iters,
+                                            atol=0.0, rtol=0.0)
+                args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
+                        None, 1, b.lb, b.ub, u_init)
+                out[tag + key + "_ms"] = cs.time_fixed(AK, args, b.precond, n_kernel=n,
+                                                       n_plain=0)[0]
+                sol = AK.apg_solve_kernel(*args, precond=b.precond)[0]
+                out[tag + key + "_steps"] = int(sol.num_steps)
+                out[tag + key + "_bits"] = sol.yk.reshape(-1).tolist()
+            ob = make_mpc_from_config(cs.wide_config("iris_posctrl_mpc", ckpt), device=dev)[3]
+            y0, y_ref, v_prev, _ = cs.problem(ob, dev)
+            o = CO.cost_oracle(ob.model, ob.params, ob.cost_params, ob.time_steps, y0, y_ref,
+                               v_prev, None, 1, 4)
+            u1 = cs.plans(1, 2, dev)[0]
+            out[tag + "value_and_grad_ms"] = cs.per_launch_ms(lambda: o.value_and_grad(u1), 100)
+            out[tag + "value_batch_K1_ms"] = cs.per_launch_ms(lambda: o.value_batch(u1[None]), 100)
+            out[tag + "trajectory_ms"] = cs.per_launch_ms(lambda: o.trajectory(u1), 100)
+            v, g = o.value_and_grad(u1)
+            out[tag + "value_and_grad_bits"] = [float(v)] + g.reshape(-1).tolist()
+            out[tag + "value_batch_equals_value_and_grad"] = bool(
+                torch.equal(o.value_batch(u1[None])[0], v))
+            rows, ms = cs.chain(cs.wide_config("iris_posctrl_mpc", ckpt, linesearch=None,
+                                               stepsize=cs.FIXED_STEP["iris_posctrl_mpc"]),
+                                dev, 3)
+            out.update({tag + "fixed_step_ms": ms, tag + "fixed_step_iterations":
+                        rows[:, -1].tolist(), tag + "fixed_step_u0_bits": rows[:, :-1].tolist()})
+    return out
+
+
+def measure(root: str, routes: bool = False, wide: bool = False) -> dict:
     """The times of one checkout, in this process (its package and
     ``chip_smoke.py`` first on ``sys.path``, this file's directory off it);
-    with ``routes`` only the P=1 routes' wall times."""
+    with ``routes`` only the P=1 routes' wall times, with ``wide``
+    :func:`measure_wide`."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, root)
@@ -214,6 +299,9 @@ def measure(root: str, routes: bool = False) -> dict:
     dev = torch.device("cuda")
     out = {"root": root}
 
+    if wide:
+        out.update(measure_wide(cs, dev))
+        return out
     if routes:
         step = cs.FIXED_STEP["iris_posctrl_mpc"]
         for key, cfg in (("mppi", cs.config("iris_posctrl_mpc", solver="mppi")),
@@ -312,10 +400,10 @@ def measure(root: str, routes: bool = False) -> dict:
 
 def main() -> int:
     argv = sys.argv[1:]
-    routes = "--routes" in argv
-    argv = [a for a in argv if a != "--routes"]
+    routes, wide = "--routes" in argv, "--wide" in argv
+    argv = [a for a in argv if a not in ("--routes", "--wide")]
     if len(argv) > 1 and argv[0] == "--one":
-        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(argv[1]), routes)),
+        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(argv[1]), routes, wide)),
               flush=True)
         return 0
     if not argv:
@@ -324,7 +412,8 @@ def main() -> int:
     runs = []
     for root in argv:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
-                           + ["--routes"] * routes, stdout=subprocess.PIPE, text=True)
+                           + ["--routes"] * routes + ["--wide"] * wide,
+                           stdout=subprocess.PIPE, text=True)
         print(r.stdout, end="", flush=True)
         if r.returncode != 0:
             return r.returncode

@@ -23,13 +23,24 @@ reference's tolerances:
   solve in lockstep with the JAX package's ``make_mpc_from_config`` at the
   fixed-budget tolerance;
 - the form each shape picks: the register chain on its widths, else the
-  libraries' choice of a shared-memory step form.
+  libraries' choice of a P=1 step form; for the whole solve and
+  ``value_and_grad`` (the wide step) the width at which each leaves its
+  weights in shared memory (the 227 KB line), the width past which its
+  global-weight form keeps its width-sized buffers in device memory, and
+  that 2048 units then fit, from this module's mirror of the libraries'
+  layouts (:func:`p1_step_bytes`);
+- the P=1 kernels' input limit: a trunk of more than 16 inputs (8 motors
+  or more) is refused before launch (``consts.p1_check_inputs``).
 
 Weights are drawn with numpy from a seed and carried to the port with
 ``params_from_numpy``. ``test_p1_forms_match_plain_on_cuda`` holds every new
 form (the whole solve, ``value_and_grad``, ``value_batch``, ``trajectory``)
-against its plain twin on the card at hidden 32, 128 and 256, and skips
-without one.
+against its plain twin on the card at hidden 32, 72, 128, 152 and 256, the
+weights in device memory against shared memory bit for bit, and
+:func:`p1_step_bytes` against the libraries' answer;
+``test_wide_step_far_matches_plain_on_cuda`` holds the wide step at 1024
+and 2048 units, its buffers in the launch's scratch, to its plain twin and
+its scenarios to their solo launches. Both skip without a card.
 """
 import copy
 import os
@@ -53,7 +64,8 @@ from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
 from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_BY_SHAPE, P1_CHAIN,
-    P1_GLOBAL, P1_SMEM, SMEM_LIMIT_PARTICLES, build_consts, p1_widths)
+    P1_FMAX, P1_GLOBAL, P1_SMEM, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts,
+    p1_check_inputs, p1_widths)
 
 H = 6
 SOLVE_RTOL, SOLVE_ATOL, X_RTOL = 2e-4, 2e-5, 1e-5
@@ -115,34 +127,161 @@ def cache(tmp_path, monkeypatch):
     monkeypatch.setenv("SDE4MBRL_PRECOND_CACHE", str(tmp_path / "precond"))
 
 
-@pytest.mark.parametrize("hidden, n_u, step", [
-    (32, 4, P1_SMEM), (64, 4, P1_CHAIN), (64, 6, P1_CHAIN), (72, 4, P1_SMEM),
-    (128, 4, P1_SMEM), (128, 6, P1_SMEM), (256, 4, P1_GLOBAL), (256, 6, P1_GLOBAL)])
-def test_p1_step_by_shape(repo_root, hidden, n_u, step):
-    """The form of each shape: the register chain exactly on 64 units (iris
-    F = 13, hexa F = 15), else a shared-memory step form, which the
-    libraries pick (``ApgArgs.step`` asks for that); and the trunk last in the
-    consts, as the form with its weights in device memory needs. Which step
-    form each kernel takes at ``step``'s widths (the weights in shared
-    memory to 128 units, in device memory at 256) is the libraries' choice,
-    held on the card by ``test_p1_forms_match_plain_on_cuda``."""
+def traj_args(repo_root, hidden: int, n_u: int, seed: int = None):
+    """The ApgArgs of the shipped traj config of the airframe with ``n_u``
+    motors on a trunk of ``hidden`` units drawn from a numpy seed."""
     vehicle = "hexa" if n_u == 6 else "iris"
     tb = L.load_mpc_from_cfgfile(os.path.join(repo_root, f"configs/{vehicle}_traj_mpc.yaml"),
                                  device="cpu")[3]
-    rs = np.random.RandomState(hidden)
+    rs = np.random.RandomState(hidden if seed is None else seed)
     net = {"w0": rs.standard_normal((9 + n_u, hidden)), "b0": np.zeros(hidden),
            "w1": rs.standard_normal((hidden, hidden)), "b1": np.zeros(hidden),
            "w2": rs.standard_normal((hidden, 12)), "b2": np.zeros(12)}
     params = {**tb.params, "net": params_from_numpy(net)}
     x0 = hover_state()
-    _, a = build_consts(tb.model, params, tb.cost_params, tb.apg_config, tb.time_steps, x0,
-                        x0.expand(tb.time_steps.shape[0] + 1, 13), torch.zeros(n_u))
+    return build_consts(tb.model, params, tb.cost_params, tb.apg_config, tb.time_steps, x0,
+                        x0.expand(tb.time_steps.shape[0] + 1, 13), torch.zeros(n_u))[1]
+
+
+# The wide step's layer 1 slices (csrc/sweeps.cuh kSlices) and the whole
+# solve's static shared memory (sizeof(Scal), csrc/apg_solve.cu), for the
+# mirror below.
+P1_SLICES, APG_SCAL_BYTES = 8, 72
+
+
+def wide_step_bufs(a, kind, step):
+    """The wide step's buffers in floats, in each library's layout order
+    (``csrc/apg_solve.cu::layout`` for the whole solve, ``kind`` None;
+    ``csrc/cost_oracle.cu::layout`` for ``value_and_grad``): (the buffers
+    always in shared memory, the width-sized ones (h0p, h1p, pp, w2t) that
+    the global-weight form moves to device memory past 227 KB)."""
+    H, HZ, HID, K = a.H, a.H * a.nZ, a.HID, a.K
+    consts = a.o_w0 if step == P1_GLOBAL else a.n_consts
+    if kind is None:
+        near = ([consts] + [HZ] * 7 + [K * HZ, (H + 1) * 13, H * a.OUT, H * 4, K * HID, K, K,
+                                         a.nZ, HID, HID, 32])
+        return near, [H * HID, H * HID, P1_SLICES * K * HID, a.OUT * HID]
+    near = [consts, HZ, HID, 1, 1, 32, (H + 1) * 13, HZ, a.nZ, HID, HID, H * a.OUT, H * 4]
+    return near, [H * HID, H * HID, P1_SLICES * HID, a.OUT * HID]
+
+
+def p1_step_bytes(a, kind, step, far: bool = False) -> int:
+    """Shared memory of a P=1 launch on the wide step in form ``step`` for
+    a's dimensions, the whole solve (``kind`` None; ``apg_smem_bytes``, every
+    buffer on 16 bytes, with its static Scal) or ``value_and_grad``
+    (``value_and_grad_smem_bytes``, with its static value); ``far``: the
+    width-sized buffers in device memory."""
+    near, wide = wide_step_bufs(a, kind, step)
+    bufs = near if far else near + wide
+    if kind is None:
+        return sum((n + 3) // 4 * 4 for n in bufs[:-1]) * 4 + bufs[-1] * 4 + APG_SCAL_BYTES
+    return sum(bufs) * 4 + 4
+
+
+def p1_far_floats(a, kind) -> int:
+    """Floats of one scenario's region of the scratch with the width-sized
+    buffers in device memory (``apg_scratch_floats`` /
+    ``value_and_grad_scratch_floats`` at B = 1)."""
+    _, wide = wide_step_bufs(a, kind, P1_GLOBAL)
+    n = sum((n + 3) // 4 * 4 for n in wide[:-1]) + wide[-1] if kind is None else sum(wide)
+    return (n + 3) // 4 * 4
+
+
+def p1_step_form(a, kind):
+    """The P=1 form the libraries take by shape in the whole solve (``kind``
+    None) or ``value_and_grad``, and whether its buffers go to device
+    memory: the register chain on its widths, else the wide step with the
+    weights in shared memory where the block fits 227 KB with them, else in
+    device memory, its width-sized buffers there too where the block would
+    not fit 227 KB with them."""
+    if p1_widths(a.F, a.HID):
+        return P1_CHAIN, False
+    if p1_step_bytes(a, kind, P1_SMEM) <= SMEM_LIMIT_PARTICLES:
+        return P1_SMEM, False
+    return P1_GLOBAL, p1_step_bytes(a, kind, P1_GLOBAL) > SMEM_LIMIT_PARTICLES
+
+
+# (hidden, n_u, the chain or a step form, (the whole solve's form, value_and_grad's))
+P1_SHAPES = [
+    (32, 4, P1_SMEM, (P1_SMEM, P1_SMEM)), (64, 4, P1_CHAIN, (P1_CHAIN, P1_CHAIN)),
+    (64, 6, P1_CHAIN, (P1_CHAIN, P1_CHAIN)), (72, 4, P1_SMEM, (P1_SMEM, P1_SMEM)),
+    (128, 4, P1_SMEM, (P1_SMEM, P1_SMEM)), (128, 6, P1_SMEM, (P1_SMEM, P1_SMEM)),
+    (152, 4, P1_SMEM, (P1_SMEM, P1_SMEM)), (184, 4, P1_SMEM, (P1_SMEM, P1_SMEM)),
+    (184, 6, P1_SMEM, (P1_GLOBAL, P1_SMEM)), (192, 4, P1_SMEM, (P1_GLOBAL, P1_SMEM)),
+    (200, 4, P1_SMEM, (P1_GLOBAL, P1_GLOBAL)), (256, 4, P1_GLOBAL, (P1_GLOBAL, P1_GLOBAL)),
+    (256, 6, P1_GLOBAL, (P1_GLOBAL, P1_GLOBAL))]
+
+
+@pytest.mark.parametrize("hidden, n_u, step, forms", P1_SHAPES)
+def test_p1_step_by_shape(repo_root, hidden, n_u, step, forms):
+    """The form of each shape: the register chain exactly on 64 units (iris
+    F = 13, hexa F = 15), else a P=1 step form, which the libraries pick
+    (``ApgArgs.step`` asks for that); and the trunk last in the consts, as
+    the form with its weights in device memory needs. The whole solve and
+    ``value_and_grad`` (the wide step) keep the weights in shared memory to
+    184 and 192 units on iris (176 and 192 on the hexa), then read them in
+    device memory (:func:`p1_step_form` on :func:`p1_step_bytes`, which the
+    card's test holds to the libraries' own answer); ``value_batch``'s and
+    ``trajectory``'s forms are theirs, held on the card by
+    ``test_p1_forms_match_plain_on_cuda``."""
+    a = traj_args(repo_root, hidden, n_u)
     assert (a.F, a.HID, a.step) == (9 + n_u, hidden, P1_BY_SHAPE)
     assert p1_widths(a.F, a.HID) == (step == P1_CHAIN)
+    assert (p1_step_form(a, None), p1_step_form(a, ORACLE_VALUE_AND_GRAD)) == tuple(
+        (f, False) for f in forms)
     assert a.n_consts == a.o_b2 + 12 and a.o_w0 == a.o_ub + n_u
     assert (a.o_b0, a.o_w1, a.o_b1, a.o_w2) == (
         a.o_w0 + a.F * hidden, a.o_w0 + (a.F + 1) * hidden,
         a.o_w0 + (a.F + 1 + hidden) * hidden, a.o_w0 + (a.F + 2 + hidden) * hidden)
+
+
+# (n_u, kind, the widest trunk in shared memory, the widest in device memory
+# with every buffer in shared memory)
+WIDE_STEP_LINES = [(4, None, 184, 624), (4, ORACLE_VALUE_AND_GRAD, 192, 896),
+                   (6, None, 176, 616), (6, ORACLE_VALUE_AND_GRAD, 192, 896)]
+
+
+@pytest.mark.parametrize("n_u, kind, smem, glob", WIDE_STEP_LINES)
+def test_wide_step_227kb_lines(repo_root, n_u, kind, smem, glob):
+    """The 227 KB lines of the wide step on the traj configs (H = 20, K =
+    4), in multiples of 8 units: the widest trunk whose block fits with the
+    weights in shared memory, and the widest with them in device memory
+    and every buffer in shared memory; past that the width-sized buffers
+    (the stash, layer 1's slice sums, the transposed output layer) go to the
+    launch's scratch in device memory, and the block fits to 2048 units and
+    past."""
+    for hid, step, fits in ((smem, P1_SMEM, True), (smem + 8, P1_SMEM, False),
+                            (glob, P1_GLOBAL, True), (glob + 8, P1_GLOBAL, False)):
+        a = traj_args(repo_root, hid, n_u, seed=0)
+        need = p1_step_bytes(a, kind, step)
+        assert (need <= SMEM_LIMIT_PARTICLES) == fits, (hid, step, need)
+        assert p1_step_form(a, kind) == ((P1_SMEM, False) if step == P1_SMEM and fits else
+                                         (P1_GLOBAL, step == P1_GLOBAL and not fits))
+    for hid in (glob + 8, 1024, 2048):
+        a = traj_args(repo_root, hid, n_u, seed=0)
+        assert p1_step_form(a, kind) == (P1_GLOBAL, True)
+        assert p1_step_bytes(a, kind, P1_GLOBAL, far=True) <= SMEM_LIMIT_PARTICLES
+        assert p1_far_floats(a, kind) >= 2 * a.H * hid + (P1_SLICES + 12) * hid
+
+
+@pytest.mark.parametrize("n_u, F_ok", [(4, True), (6, True), (7, True), (8, False)])
+def test_p1_kernels_refuse_wide_inputs(n_u, F_ok):
+    """A trunk of 9 + n_u inputs at P=1: the register chain and the wide
+    step hold at most 16 features in registers, so a P=1 launch of the whole
+    solve or ``value_and_grad`` with 8 motors or more (F = 17, a form off the
+    chain's widths: the wide step) is refused before launch with a message;
+    particle launches and the other kernels are not held to it."""
+    a = ApgArgs()
+    a.F, a.HID, a.n_u, a.has_noise = 9 + n_u, 128, n_u, 0
+    assert p1_widths(a.F, 64) == F_ok          # the chain's own limit
+    if F_ok:
+        p1_check_inputs(a, "apg_solve_kernel")
+    else:
+        with pytest.raises(ValueError, match="at most 16 trunk inputs"):
+            p1_check_inputs(a, "apg_solve_kernel")
+    assert (a.F <= P1_FMAX) == F_ok
+    a.has_noise = 1
+    p1_check_inputs(a, "value_and_grad")
 
 
 def test_whole_solve_matches_interpret_pallas_h32(repo_root, tmp_path):
@@ -212,23 +351,11 @@ def test_build_mpc_on_a_128_unit_checkpoint(repo_root, tmp_path, cache):
     assert_solve_lockstep(sol_j, sol_t, rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [32, 128, 256])
-def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
-    """Each new form against its plain twin on the card, the iris traj
-    config at H = 20 on a trunk of ``hidden`` units (the shared-memory step
-    at 32 and 128, its global-weight form at 256): the whole solve at a
-    fixed 10 iterations (rtol 2e-4 / atol 2e-5, equal steps, ``x_evol``
-    rtol 1e-5), ``value_batch`` K = 1, 20 (rtol 2e-5), ``value_and_grad``
-    (rtol 5e-4 / atol 5e-5) and ``trajectory`` (rtol 1e-5); each kernel
-    runs the form the libraries pick by shape, within 227 KB, and the other
-    step form, named in ``ApgArgs.step``, gives the same bits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the P=1 shared-memory step is a CUDA kernel")
-    import ctypes
-
-    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean as t_rollout_mean
-
+def card_problem(repo_root, hidden: int):
+    """The card tests' problem: the iris traj config at H = 20 on the card
+    with a trunk of ``hidden`` units drawn from a numpy seed, x0 off the
+    hover, a fixed 10-iteration budget. Returns (bundle, params, the whole
+    solve's arguments, the oracle's arguments, plans U (20, H, 4))."""
     dev = torch.device("cuda")
     b = L.load_mpc_from_cfgfile(os.path.join(repo_root, "configs/iris_traj_mpc.yaml"),
                                 device=dev)[3]
@@ -243,17 +370,48 @@ def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
     apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
     args = (b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev, None, 1,
             b.lb, b.ub, u_init)
+    oargs = (b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    U = torch.from_numpy(np.random.RandomState(3).uniform(0.3, 0.95, (20, hz, 4)).astype(
+        np.float32)).to(dev)
+    return b, params, args, oargs, U
+
+
+def card_solve_matches_plain(b, params, args):
+    """The whole solve on the card against its plain twin: equal steps,
+    ``yk`` at rtol 2e-4 / atol 2e-5, ``x_evol`` the mean rollout of its
+    plan at rtol 1e-5. Returns the kernel's (state, x_evol)."""
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean as t_rollout_mean
+
     st_k, xe_k = AK.apg_solve_kernel(*args)
     torch.cuda.synchronize()
     st_p, _ = AK.apg_solve_plain(*args)
     assert int(st_k.num_steps) == int(st_p.num_steps)
     torch.testing.assert_close(st_k.yk, st_p.yk, rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
-    ref = t_rollout_mean(b.model, params, x0, st_k.yk, b.time_steps)
+    ref = t_rollout_mean(b.model, params, args[5], st_k.yk, b.time_steps)
     torch.testing.assert_close(xe_k, ref, rtol=X_RTOL, atol=1e-6)
-    oargs = (b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None, 1, 4)
+    return st_k, xe_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [32, 72, 128, 152, 256])
+def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
+    """Each new form against its plain twin on the card, the iris traj
+    config at H = 20 on a trunk of ``hidden`` units (the weights in shared
+    memory to 152 units, in device memory at 256; the whole solve and
+    ``value_and_grad`` on the wide step): the whole solve at a fixed 10
+    iterations (rtol 2e-4 / atol 2e-5, equal steps, ``x_evol`` rtol 1e-5),
+    ``value_batch`` K = 1, 20 (rtol 2e-5), ``value_and_grad`` (rtol 5e-4 /
+    atol 5e-5) and ``trajectory`` (rtol 1e-5); each kernel runs the form the
+    libraries pick by shape, within 227 KB, the wide step's bytes are
+    :func:`p1_step_bytes`, and the weights in device memory, named in
+    ``ApgArgs.step``, give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the P=1 shared-memory step is a CUDA kernel")
+    import ctypes
+
+    b, params, args, oargs, U = card_problem(repo_root, hidden)
+    st_k, xe_k = card_solve_matches_plain(b, params, args)
     kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
-    U = torch.from_numpy(np.random.RandomState(3).uniform(0.3, 0.95, (20, hz, 4)).astype(
-        np.float32)).to(dev)
     for K in (1, 20):
         torch.testing.assert_close(kern.value_batch(U[:K]), plain.value_batch(U[:K]),
                                    rtol=VAL_RTOL, atol=0.0)
@@ -262,22 +420,85 @@ def test_p1_forms_match_plain_on_cuda(repo_root, hidden):
     torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
     torch.testing.assert_close(kern.trajectory(U[1]), plain.trajectory(U[1]), rtol=X_RTOL,
                                atol=1e-6)
-    _, a = build_consts(b.model, params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev)
+    _, a = build_consts(*args[:8])
     want = P1_GLOBAL if hidden == 256 else P1_SMEM
     lib, alib = CO.load_oracle_library(), AK.load_apg_library(p1_step=True)
     assert alib.apg_p1_form(ctypes.byref(a)) == want
+    assert p1_step_form(a, None) == p1_step_form(a, ORACLE_VALUE_AND_GRAD) == (want, False)
     for kind in (ORACLE_VALUE_BATCH, ORACLE_VALUE_AND_GRAD, ORACLE_TRAJECTORY):
         assert lib.oracle_p1_form(ctypes.byref(a), kind) == want
+    assert alib.apg_smem_bytes(ctypes.byref(a)) == p1_step_bytes(a, None, want)
+    assert lib.value_and_grad_smem_bytes(ctypes.byref(a)) == p1_step_bytes(
+        a, ORACLE_VALUE_AND_GRAD, want)
     assert max(alib.apg_smem_bytes(ctypes.byref(a)), lib.trajectory_smem_bytes(ctypes.byref(a)),
                lib.value_and_grad_smem_bytes(ctypes.byref(a)),
                lib.value_batch_smem_bytes(ctypes.byref(a), 20)) <= SMEM_LIMIT_PARTICLES
     if hidden == 256:
         return
     # the weights in device memory instead: the same sums, the same bits
-    consts, g = build_consts(b.model, params, b.cost_params, None, b.time_steps, x0, x_ref,
-                             u_prev)
+    consts, g = build_consts(b.model, params, b.cost_params, None, *args[4:8])
     g.step = P1_GLOBAL
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import forced
+    with forced(P1_GLOBAL):
+        st_g, xe_g = AK.apg_solve_kernel(*args)
+    assert torch.equal(st_g.yk, st_k.yk) and torch.equal(xe_g, xe_k)
+    assert torch.equal(st_g.opt_cost, st_k.opt_cost)
     assert torch.equal(CO.value_batch_kernel(consts, g, U), kern.value_batch(U))
     assert all(torch.equal(p, q) for p, q in zip(CO.value_and_grad_kernel(consts, g, U[0]),
                                                  kern.value_and_grad(U[0])))
     assert torch.equal(CO.trajectory_kernel(consts, g, U[1]), kern.trajectory(U[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [1024, 2048])
+def test_wide_step_far_matches_plain_on_cuda(repo_root, hidden):
+    """The wide step past 227 KB on the card (the problem of
+    :func:`card_problem`): its stash, slice sums and transposed output
+    layer in the launch's scratch in device memory, the weights there too.
+    The whole solve at a fixed 10 iterations and ``value_and_grad`` against
+    their plain twins at the tolerances of
+    ``test_p1_forms_match_plain_on_cuda``; the shared memory and the
+    scratch each library asks for against :func:`p1_step_bytes` and
+    :func:`p1_far_floats`; and B = 2 scenarios in one launch of each,
+    bit-equal to their solo launches (each scenario its own region of the
+    scratch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the P=1 wide step is a CUDA kernel")
+    import ctypes
+
+    b, params, args, oargs, U = card_problem(repo_root, hidden)
+    _, a = build_consts(*args[:8])
+    lib, alib = CO.load_oracle_library(), AK.load_apg_library(p1_step=True)
+    assert alib.apg_p1_form(ctypes.byref(a)) == lib.oracle_p1_form(
+        ctypes.byref(a), ORACLE_VALUE_AND_GRAD) == P1_GLOBAL
+    assert p1_step_form(a, None) == p1_step_form(a, ORACLE_VALUE_AND_GRAD) == (P1_GLOBAL, True)
+    assert alib.apg_smem_bytes(ctypes.byref(a)) == p1_step_bytes(a, None, P1_GLOBAL, True)
+    assert lib.value_and_grad_smem_bytes(ctypes.byref(a)) == p1_step_bytes(
+        a, ORACLE_VALUE_AND_GRAD, P1_GLOBAL, True)
+    assert alib.apg_scratch_floats(ctypes.byref(a)) == p1_far_floats(a, None)
+    assert lib.value_and_grad_scratch_floats(ctypes.byref(a)) == p1_far_floats(
+        a, ORACLE_VALUE_AND_GRAD)
+    st_k, xe_k = card_solve_matches_plain(b, params, args)
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    (vk, gk), (vp, gp) = kern.value_and_grad(U[0]), plain.value_and_grad(U[0])
+    torch.testing.assert_close(vk, vp, rtol=VAL_RTOL, atol=0.0)
+    torch.testing.assert_close(gk, gp, rtol=G_RTOL, atol=G_ATOL)
+    # two scenarios, x0 0.1 m apart, in one launch of each kernel
+    m, cp, ts, x0, x_ref, u_prev, u_init = (b.model, b.cost_params, b.time_steps, args[5],
+                                            args[6], args[7], args[12])
+    X0 = x0.expand(2, 13).clone()
+    X0[1, 0] += 0.1
+    XR, UP = x_ref.expand(2, *x_ref.shape).contiguous(), u_prev.expand(2, -1).contiguous()
+    UI = u_init.expand(2, *u_init.shape).contiguous()
+    st_b, xe_b = AK.apg_solve_kernel_batched(m, params, cp, args[3], ts, X0, XR, UP, None, 1,
+                                             b.lb, b.ub, UI)
+    vb, gb = CO.cost_oracle_batched(m, params, cp, ts, X0, XR, UP, None, 1, 4).value_and_grad(
+        U[:2].contiguous())
+    for i in range(2):
+        st_1, xe_1 = AK.apg_solve_kernel(m, params, cp, args[3], ts, X0[i], x_ref, u_prev, None,
+                                         1, b.lb, b.ub, u_init)
+        v1, g1 = CO.cost_oracle(m, params, cp, ts, X0[i], x_ref, u_prev, None, 1,
+                                4).value_and_grad(U[i])
+        assert torch.equal(st_1.yk, st_b.yk[i]) and torch.equal(xe_1, xe_b[i])
+        assert torch.equal(v1, vb[i]) and torch.equal(g1, gb[i])
+    assert torch.equal(st_b.yk[0], st_k.yk) and torch.equal(vb[0], vk)
