@@ -29,12 +29,14 @@ without a result):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. builds the eight kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
+2. builds the ten kernel libraries from ``sde4mbrl_px4_tpu_torch/csrc``
    (``apg_solve``: the fp32 particle forms, its P=1 register chain
    ``apg_solve_chain``, its bf16 particle forms ``apg_solve_bf16``, its P=1
-   shared-memory step ``apg_solve_p1``, its particle global-weight forms
-   ``apg_solve_gw`` and ``apg_solve_gw_bf16``, ``cost_oracle`` and its
-   global-weight forms ``cost_oracle_gw``; one ``nvcc`` each, in parallel)
+   wide step ``apg_solve_p1`` and that step over more than 16 trunk inputs
+   ``apg_solve_p1x``, its particle global-weight forms ``apg_solve_gw`` and
+   ``apg_solve_gw_bf16``, ``cost_oracle`` (the cluster particle forms), its
+   P=1 forms and ``trajectory`` ``cost_oracle_p1`` and its global-weight
+   forms ``cost_oracle_gw``; one ``nvcc`` each, in parallel)
    and prints each library's ``nvcc`` seconds, the build's wall and the
    compiler's register/spill/shared-memory summary per
    ``<PART, SC>`` form;
@@ -437,7 +439,11 @@ without a result):
     launch bit-equal to solo launches, and the 256-unit whole solve past one
     cluster's 16 blocks; the spread forms against their plain twins at
     P=512 (phase (g)'s tolerances); each timed at one cluster and at the
-    planned groups in turns; (i) the wide-trunk routes no other phase
+    planned groups in turns; ``value_batch``'s global-weight form the same way
+    over its plans (K = 1 and 4, its moments-out form with risk; B = 2
+    bit-equal to solo; K = 1 bf16 and fp32 and K = 4 timed at one cluster a
+    plan and at the planned groups; the fixed-step route's ms an iteration
+    and blocks are (g)'s); (i) the wide-trunk routes no other phase
     flies: MPPI over K = 64 x P = 128 paths on the 256-unit checkpoint
     (``value_batch``'s global-weight form on a grid of 64 clusters) against
     the plain oracle, the particle-sharded P=512 solve over mc = 2 with
@@ -445,7 +451,20 @@ without a result):
     launches counted), and the hexa on its checkpoint padded past each
     form's switch (P=1 at 128 and 256 units, P=128 at 256) through
     ``mpc_fn`` at a fixed 10 iterations against the plain route, its oracle
-    kernels against the plain oracle.
+    kernels against the plain oracle; (j) trunks of more than 16 inputs: 8
+    and 12 rotors (F = 17, 21) on the hexa checkpoint widened to 64, 128 and
+    256 units, the whole solve (a fixed 10 iterations: equal steps, ``yk``
+    rtol 2e-4 / atol 2e-5) and the oracle kernels (``value_and_grad`` rtol
+    5e-4 / atol 5e-5) against their plain twins, ``x_evol`` and
+    ``trajectory`` against the plain fp32 rollout of the same plan (rtol
+    1e-5 / atol 1e-6), or against the float64 rollout at that tolerance
+    where the plain fp32 rollout itself misses it (both distances printed),
+    B = 4 bit-equal to solo; the traj and fixed-step routes through
+    ``mpc_fn`` against the plain routes at 128 and 256 units; then fault
+    9's comparison: ``trajectory`` at 1024 units (numpy seed 5) and the
+    plain fp32 twin against the float64 rollout on 4 plans, the kernel
+    within rtol 1e-5 / atol 1e-6 of it (the plans on which it is further
+    from it than the plain twin counted).
 
 In phases 6-8, 11-13, 15-18, 20-22, 24-26, 27 (d), 28, 29 and 30 every kernel's launch count is set to 0 just
 before the route runs and read just after: each route must have launched
@@ -479,8 +498,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOLS = {"iris_traj_mpc": (10, 2e-4, 2e-5), "iris_posctrl_mpc": (8, 5e-4, 5e-5)}
 # fixed-step APG: a stepsize that accepts steps on the problem of each config
 FIXED_STEP = {"iris_traj_mpc": 1e-3, "iris_posctrl_mpc": 1e-5}
-LIBS = ("apg_solve", "apg_solve_chain", "apg_solve_bf16", "apg_solve_p1", "apg_solve_gw",
-        "apg_solve_gw_bf16", "cost_oracle", "cost_oracle_gw")
+LIBS = ("apg_solve", "apg_solve_chain", "apg_solve_bf16", "apg_solve_p1", "apg_solve_p1x",
+        "apg_solve_gw", "apg_solve_gw_bf16", "cost_oracle", "cost_oracle_p1", "cost_oracle_gw")
 # particle solves: yk rtol / atol, opt_cost rel (tests/test_apg_kernel.py:100-105)
 PART_RTOL, PART_ATOL = 5e-4, 5e-5
 P_FULL = 512      # the recommended flight operating point (bench.py:502-516)
@@ -633,7 +652,8 @@ def form_name(kernel: str, args: list) -> str:
     particle forms' global weights, options, the bf16 trunk, the oracle's
     risk mode: ``apg_solve<PART, SC, PROF, OPT, BF, STEP>``,
     ``value_batch<PART, SC, REG, OPT, BF, RM, GW>``, ``value_and_grad<PART,
-    SC, OPT, BF, RM, STEP>``); ``trajectory``'s two, ``<REG, GW>``."""
+    SC, OPT, BF, RM, STEP>``; the wide step's forms over more than 16 trunk
+    inputs, FX, end ", F > 16"); ``trajectory``'s two, ``<REG, GW>``."""
     steps = {1: ", wide step", 2: ", wide step, global weights"}
     if args and args[0]:                 # particles: STEP 2 / GW the global-weight form
         steps = {2: ", global weights"}
@@ -647,6 +667,7 @@ def form_name(kernel: str, args: list) -> str:
     if kernel == "apg_solve_kernel":
         extra = ", clock-stamped" if flags[:1] == [1] else ""
         extra += steps.get((flags[3:4] or [0])[0], "")
+        extra += ", F > 16" if flags[4:5] == [1] else ""
         opt, bf16 = flags[1:2] == [1], flags[2:3] == [1]
     elif kernel == "value_batch_kernel":
         if flags and not args[0]:
@@ -658,6 +679,7 @@ def form_name(kernel: str, args: list) -> str:
         opt, bf16 = flags[:1] == [1], flags[1:2] == [1]
         mode = flags[2:3]
         extra += steps.get((flags[3:4] or [0])[0], "")
+        extra += ", F > 16" if flags[4:5] == [1] else ""
     extra += ", bf16" if bf16 else ""
     extra += ", options" if opt else ""
     if kernel != "apg_solve_kernel" and mode and mode[0]:
@@ -688,9 +710,11 @@ def phase_build() -> None:
     AK.load_apg_library(chain=True)
     AK.load_apg_library(bf16=True)
     AK.load_apg_library(p1_step=True)
+    AK.load_apg_library(p1_step=True, wide_inputs=True)
     AK.load_apg_library(part_global=True)
     AK.load_apg_library(bf16=True, part_global=True)
     CO.load_oracle_library()
+    CO.load_oracle_library(p1=True)
     CO.load_oracle_library(part_global=True)
     log(f"phase 2: built {len(LIBS)} libraries in parallel, one nvcc each, in "
         f"{build_wall:.1f} s of wall ({time.perf_counter() - t:.1f} s with load); nvcc s by "
@@ -737,9 +761,9 @@ def phase_build() -> None:
     # the register chain: the whole solve's three and its clock-stamped one,
     # value_and_grad's three, value_batch's three (and three bf16),
     # trajectory's one; the wide step: the whole solve's and value_and_grad's
-    # six each and the whole solve's clock-stamped form (the weights in
-    # shared memory); the shared-memory step: value_batch's
-    # twelve (fp32 and bf16,
+    # six each, six more each over more than 16 trunk inputs, and the whole
+    # solve's clock-stamped form (the weights in shared memory); the
+    # shared-memory step: value_batch's twelve (fp32 and bf16,
     # each with the weights in shared and in device memory), trajectory's two
     if len(p1) != 14 or any(p1.values()):
         raise AssertionError(f"a P=1 form on the register chain spills: {p1}")
@@ -752,7 +776,7 @@ def phase_build() -> None:
     moments = {k: v for k, v in part.items() if "moments" in k}
     log(f"  the oracle's shared-moments forms (the risk of a particle-sharded solve), "
         f"(registers, spill stores in bytes): {moments}")
-    if len(part) != 49 or len(wide) != 27 or len(moments) != 12 or len(gw) != 30:
+    if len(part) != 49 or len(wide) != 39 or len(moments) != 12 or len(gw) != 30:
         raise AssertionError(f"the build log lacks a form: {part}, {wide}, {gw}")
     vb = {k: v for k, v in {**part, **gw}.items() if k.startswith("value_batch_kernel<true")}
     if any(v[1] for v in vb.values()):
@@ -7287,12 +7311,14 @@ def wide_part_routes(dev, ckpt: str, card: str, label: str = "planned groups") -
     glob = global_counts()
     out["fixed_step"] = {"launches": got, "global_launches": glob, "steps": k,
                          "wall_ms": sms[0], "iteration_ms": sms[0] / max(k, 1),
-                         "blocks": new_blocks(b0, "value_and_grad")}
+                         "blocks": new_blocks(b0, "value_and_grad"),
+                         "value_batch_blocks": new_blocks(b0, "value_batch")}
     log(f"256-unit fixed-step posctrl P={P_FULL} antithetic (bf16) through mpc_fn, {label} "
         f"({card}): one solve of {k} iterations, {sms[0]:.1f} ms wall ({sms[0] / max(k, 1):.3f} "
         f"ms an iteration; one cluster before the spread, PERF.md: "
         f"{ONE_CLUSTER_REF['fixed_step_iteration_ms']} ms); global-weight launches {glob}, "
-        f"value_and_grad at {out['fixed_step']['blocks']} blocks per scenario")
+        f"value_and_grad at {out['fixed_step']['blocks']} and value_batch at "
+        f"{out['fixed_step']['value_batch_blocks']} blocks per scenario (plan)")
     if not (np.isfinite(rows).all() and glob["value_and_grad"] == k + 2
             and glob["value_batch"] == k):
         raise AssertionError("the 256-unit fixed-step route left the global-weight forms")
@@ -7363,6 +7389,7 @@ def wide_part_times(dev, ckpt: str, card: str) -> dict:
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
 SPREAD_HIDS = WIDE_PART_HIDS
 SPREAD_B = 2
+SPREAD_VB_K = (1, 4)              # value_batch's spread: a plan a unit, K plans a launch
 CLUSTER_BLOCKS = 16               # the most blocks one cluster gives a scenario (CLUSTER_MAX)
 SPREAD_PERIOD_MS = 50.0           # the control period the deadline controller flies
 ONE_CLUSTER_REF = {"iteration_ms_highest": 13.816, "iteration_ms_bf16": 17.000,
@@ -7371,13 +7398,14 @@ ONE_CLUSTER_REF = {"iteration_ms_highest": 13.816, "iteration_ms_bf16": 17.000,
 
 
 def spread_blocks() -> dict:
-    """The global-weight launches of #1 and #2 by their blocks per scenario
-    (``.blocks_global``), copied."""
+    """The global-weight launches of #1-#3 by their blocks per scenario
+    (``value_batch``: per plan; ``.blocks_global``), copied."""
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 
     return {"apg_solve": dict(AK.apg_solve_kernel.blocks_global),
-            "value_and_grad": dict(CO.value_and_grad_kernel.blocks_global)}
+            "value_and_grad": dict(CO.value_and_grad_kernel.blocks_global),
+            "value_batch": dict(CO.value_batch_kernel.blocks_global)}
 
 
 def new_blocks(before: dict, kernel: str) -> list:
@@ -7428,10 +7456,12 @@ def spread_bits(dev, traj_b, card: str) -> dict:
     P_FULL antithetic, fp32 and bf16, without and with risk and starts: the
     whole solve at a fixed 5 iterations (the plan, every stat, ``num_steps``
     among them, and ``x_evol``), ``value_and_grad`` in its in-cluster form
-    (value, gradient) and, with risk, its moments-in form; then SPREAD_B
-    scenarios in one launch of each, each bit-equal to its solo launch at
-    the planned groups. Fails unless the 256-unit P_FULL solve spreads past
-    one cluster's 16 blocks."""
+    (value, gradient) and, with risk, its moments-in form, ``value_batch``
+    at K in SPREAD_VB_K (one cluster a plan against its planned groups) and,
+    with risk, its moments-out form; then SPREAD_B scenarios in one launch
+    of each, each bit-equal to its solo launch at the planned groups. Fails
+    unless the 256-unit P_FULL solve and ``value_batch`` at K = 1 spread
+    past one cluster's 16 blocks."""
     import torch
 
     from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
@@ -7444,6 +7474,7 @@ def spread_bits(dev, traj_b, card: str) -> dict:
     x0, x_ref, u_prev, u_init = problem(b, dev)
     apg = b.apg_config._replace(max_iter=5, max_no_improvement_iter=5)
     u = plans(1, 21, dev)[0].contiguous()
+    UK = plans(max(SPREAD_VB_K), 23, dev).contiguous()
     out = {}
     for hid in SPREAD_HIDS:
         params = padded_trunk(b.params, hid, seed=0)
@@ -7467,6 +7498,25 @@ def spread_bits(dev, traj_b, card: str) -> dict:
 
                 grad = spread_equal(spread_pair(vg, "value_and_grad"), f"value_and_grad, {tag}")
                 res = {"apg_solve_blocks": solve, "value_and_grad_blocks": grad}
+                for K in SPREAD_VB_K:
+                    def vb(K=K):
+                        with forced(P1_GLOBAL):
+                            o = CO.cost_oracle(*oargs, starts=starts, bf16=bf16)
+                        return o.value_batch(UK[:K])
+
+                    res[f"value_batch_K{K}_blocks"] = spread_equal(
+                        spread_pair(vb, "value_batch"), f"value_batch K={K}, {tag}")
+                    if opts:
+                        def vb_out(K=K):
+                            with forced(P1_GLOBAL):
+                                o = CO.cost_oracle_batched(
+                                    b.model, params, cp, b.time_steps, x0[None], x_ref[None],
+                                    u_prev[None], z[None], P, 4, starts=starts[None], bf16=bf16)
+                            return o.value_batch_moments(UK[None, :K])
+
+                        res[f"moments_out_K{K}_blocks"] = spread_equal(
+                            spread_pair(vb_out, "value_batch"),
+                            f"value_batch moments out K={K}, {tag}")
                 if opts:
                     def vg_in():
                         with forced(P1_GLOBAL):
@@ -7483,10 +7533,11 @@ def spread_bits(dev, traj_b, card: str) -> dict:
                     f"per scenario to one cluster a scenario, (G = 1, planned) blocks: " +
                     ", ".join(f"{k.replace('_blocks', '')} {v}" for k, v in res.items()))
                 out[tag] = res
-    big = out[f"{SPREAD_HIDS[-1]} units, fp32"]["apg_solve_blocks"][1]
-    if not big or max(big) <= CLUSTER_BLOCKS:
-        raise AssertionError(f"the {SPREAD_HIDS[-1]}-unit P={P} whole solve did not spread past "
-                             f"one cluster: blocks {big}")
+    for key in ("apg_solve_blocks", "value_batch_K1_blocks"):
+        big = out[f"{SPREAD_HIDS[-1]} units, fp32"][key][1]
+        if not big or max(big) <= CLUSTER_BLOCKS:
+            raise AssertionError(f"the {SPREAD_HIDS[-1]}-unit P={P} {key[:-7]} did not spread "
+                                 f"past one cluster: blocks {big}")
 
     # SPREAD_B scenarios a launch at the planned groups against their solo launches
     hid = SPREAD_HIDS[-1]
@@ -7509,8 +7560,11 @@ def spread_bits(dev, traj_b, card: str) -> dict:
             ob = CO.cost_oracle_batched(b.model, params, cp, b.time_steps, X0, XR, UP, Z, P, 4,
                                         starts=ST, bf16=bf16)
         vb, gb = ob.value_and_grad(UB)
+        UKB = UK[None].expand(B, *UK.shape).contiguous()
+        cb = {K: ob.value_batch(UKB[:, :K].contiguous()) for K in SPREAD_VB_K}
+        mb = {K: ob.value_batch_moments(UKB[:, :K].contiguous()) for K in SPREAD_VB_K}
         torch.cuda.synchronize()
-        blocks_b = {k: new_blocks(b0, k) for k in ("apg_solve", "value_and_grad")}
+        blocks_b = {k: new_blocks(b0, k) for k in ("apg_solve", "value_and_grad", "value_batch")}
         bad = []
         for i in range(B):
             s1, x1 = AK.apg_solve_kernel(b.model, params, cp, apg, b.time_steps, X0[i], XR[i],
@@ -7520,9 +7574,16 @@ def spread_bits(dev, traj_b, card: str) -> dict:
                 o1 = CO.cost_oracle(b.model, params, cp, b.time_steps, X0[i], XR[i], UP[i],
                                     Z[i], P, 4, starts=ST[i], bf16=bf16)
             v1, g1 = o1.value_and_grad(UB[i])
+            with forced(P1_GLOBAL):
+                m1 = CO.cost_oracle_batched(b.model, params, cp, b.time_steps, X0[i:i + 1],
+                                            XR[i:i + 1], UP[i:i + 1], Z[i:i + 1], P, 4,
+                                            starts=ST[i:i + 1], bf16=bf16)
+            same_vb = all(torch.equal(o1.value_batch(UK[:K]), cb[K][i])
+                          and torch.equal(m1.value_batch_moments(UK[None, :K])[0], mb[K][i])
+                          for K in SPREAD_VB_K)
             if not (all(torch.equal(f1, fb[i]) for f1, fb in zip(s1, sb))
                     and torch.equal(x1, xb[i]) and torch.equal(v1, vb[i])
-                    and torch.equal(g1, gb[i])):
+                    and torch.equal(g1, gb[i]) and same_vb):
                 bad.append(i)
         torch.cuda.synchronize()
         tag = f"{hid} units, {'bf16' if bf16 else 'fp32'}, risk and starts, B={B}"
@@ -7579,10 +7640,11 @@ def spread_parity(dev, traj_b) -> dict:
 
 def spread_times(dev, ckpt: str, card: str) -> dict:
     """(h) On the 256-unit checkpoint at the routes' shape (P_FULL
-    antithetic): the whole solve at a fixed 5 iterations (fp32 and bf16) and
-    ``value_and_grad`` (bf16 and fp32) timed at one cluster a scenario and
-    at the planned groups, in turns (G = 1, planned, planned, G = 1; CUDA
-    events, warm): blocks per scenario and ms per launch of each."""
+    antithetic): the whole solve at a fixed 5 iterations (fp32 and bf16),
+    ``value_and_grad`` (bf16 and fp32) and ``value_batch`` (K = 1 bf16 and
+    fp32, K = 4 bf16) timed at one cluster a scenario (a plan) and at the
+    planned groups, in turns (G = 1, planned, planned, G = 1; CUDA events,
+    warm): blocks per scenario (plan) and ms per launch of each."""
     from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
     from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
     from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
@@ -7608,11 +7670,22 @@ def spread_times(dev, ckpt: str, card: str) -> dict:
             return per_launch_ms(lambda: o.value_and_grad(u), 10)
         return run
 
+    U4 = plans(4, 15, dev).contiguous()
+
+    def batch(bf16, K):
+        def run():
+            o = CO.cost_oracle(*oargs, bf16=bf16)
+            return per_launch_ms(lambda: o.value_batch(U4[:K]), 10)
+        return run
+
     out = {}
     for name, fn, kernel in (("apg_solve_5it_fp32", solve(False), "apg_solve"),
                              ("apg_solve_5it_bf16", solve(True), "apg_solve"),
                              ("value_and_grad_bf16", grad(True), "value_and_grad"),
-                             ("value_and_grad_fp32", grad(False), "value_and_grad")):
+                             ("value_and_grad_fp32", grad(False), "value_and_grad"),
+                             ("value_batch_K1_bf16", batch(True, 1), "value_batch"),
+                             ("value_batch_K1_fp32", batch(False, 1), "value_batch"),
+                             ("value_batch_K4_bf16", batch(True, 4), "value_batch")):
         ms = {"one_cluster": [], "planned": []}
         blocks = {}
         for pin in (True, False, False, True):
@@ -7640,7 +7713,7 @@ def spread_times(dev, ckpt: str, card: str) -> dict:
 
 
 def wide_spread(dev, traj_b, ckpt: str, card: str) -> dict:
-    """(h) the spread of the global-weight forms of #1 and #2."""
+    """(h) the spread of the global-weight forms of #1-#3."""
     t = time.perf_counter()
     out = {"bits": spread_bits(dev, traj_b, card), "parity": spread_parity(dev, traj_b),
            "times": spread_times(dev, ckpt, card)}
@@ -7826,11 +7899,447 @@ def wide_unflown(dev, ckpt: str, td: str, card: str) -> dict:
     return out
 
 
+# ---- phase 30 (j): trunks of more than 16 inputs at P=1 (item 40) ---------
+# The wide step's forms over more than P1_FMAX trunk inputs (9 + n_u > 16:
+# the whole solve's apg_solve_p1x.cu, value_and_grad's in cost_oracle_p1.cu):
+# a vehicle of n rotors evenly spaced (the port's models/vehicles.py::
+# _mixing; the shipped airframes have 4 and 6, and none is added to the
+# configs) on the hexa checkpoint widened to 9 + n inputs (the new motors'
+# rows drawn from a numpy seed), flown on the hexa traj config widened to n
+# controls.
+# At each width: the whole solve (a fixed 10 iterations, phase 3's
+# tolerances) and the oracle kernels (value_and_grad rtol 5e-4 / atol 5e-5)
+# against their plain twins, B = WIDE_SCEN scenarios bit-equal to their
+# solo launches; on the 128-unit trunk of each vehicle the traj route
+# through mpc_fn against the plain route and the fixed-step route, their
+# launches checked; the forms timed on the 8-rotor trunks.
+INPUT_MOTORS = (8, 12)
+INPUT_HIDS = (64, 128, 256)
+# the routes: (motors, units), the weights in shared memory at 128 units and
+# in device memory at 256
+INPUT_ROUTES = ((8, 128), (8, 256), (12, 128))
+INPUT_TIMED = (128, 256)
+
+
+def rollout64(b, params, x0, u):
+    """The plain mean rollout of the plan ``u``'s control columns in float64
+    (the model's constants, the trunk, x0 and the plan cast; the reference
+    the fp32 orders are measured against)."""
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    m64 = b.model._replace(mixing=b.model.mixing.double(), inertia=b.model.inertia.double())
+    p64 = {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict) else v.double())
+           for k, v in params.items()}
+    return rollout_mean(m64, p64, x0.double(), u[:, :b.model.n_u].double(),
+                        b.time_steps.double())
+
+
+def near64(x, x64, what: str) -> dict:
+    """``x`` (fp32) against its float64 value ``x64`` at the reference's
+    rtol 1e-5 / atol 1e-6: max |err| and whether it is within."""
+    import torch
+
+    return {f"{what}_err64": float((x.double() - x64).abs().max()),
+            f"{what}_within64": bool(torch.allclose(x, x64.float(), rtol=1e-5, atol=1e-6))}
+
+
+def held_plain(x, x32, x64, what: str) -> dict:
+    """A kernel's rollout ``x`` against the plain fp32 twin's ``x32`` of the
+    same plan at rtol 1e-5 / atol 1e-6, each beside its distance to the
+    float64 rollout ``x64`` (:func:`near64`). ``ok``: within that tolerance
+    of the twin; or, where the twin itself is not within it of the float64
+    rollout (two fp32 orders apart by more than the tolerance, fault 9's
+    arbiter), within it of the float64 rollout (``held_to``)."""
+    import torch
+
+    out = {**near64(x, x64, what), **near64(x32, x64, what + "_plain"),
+           f"{what}_vs_plain": float((x - x32).abs().max()),
+           f"{what}_within_plain": bool(torch.allclose(x, x32, rtol=1e-5, atol=1e-6))}
+    out["held_to"] = ("plain" if out[f"{what}_within_plain"] or out[f"{what}_plain_within64"]
+                      else "float64")
+    out["ok"] = out[f"{what}_within_plain"] or (out["held_to"] == "float64"
+                                                and out[f"{what}_within64"])
+    return out
+
+
+def input_checks(b, args, oargs, U, tag: str) -> tuple:
+    """(j) The whole solve and the oracle kernels against their plain twins:
+    equal steps, ``yk`` at rtol 2e-4 / atol 2e-5, ``opt_cost`` rel 2e-4;
+    ``value_batch`` K = 1, 4, 20 rel 2e-5, ``value_and_grad`` value rel
+    2e-5 and gradient rtol 5e-4 / atol 5e-5; ``x_evol`` (the kernel's plan)
+    and ``trajectory`` against the plain fp32 rollout of the same plan at
+    rtol 1e-5 / atol 1e-6, or to the float64 rollout at that tolerance
+    where the plain one misses it (:func:`held_plain`). Returns (max |du|,
+    the kernel's solve, the oracle's max |err|)."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    st_k, xe_k = AK.apg_solve_kernel(*args)
+    torch.cuda.synchronize()
+    st_p, _ = AK.apg_solve_plain(*args)
+    nk, np_ = int(st_k.num_steps), int(st_p.num_steps)
+    du = float((st_k.yk - st_p.yk).abs().max())
+    dc = abs(float(st_k.opt_cost) - float(st_p.opt_cost)) / abs(float(st_p.opt_cost))
+    params, x0 = args[1], args[5]
+    x64 = rollout64(b, params, x0, st_k.yk)
+    x32 = rollout_mean(b.model, params, x0, st_k.yk[:, :b.model.n_u], b.time_steps)
+    xs = held_plain(xe_k, x32, x64, "x_evol")
+    kern, plain = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+    e = {"value_batch": 0.0}
+    for K in (1, 4, int(U.shape[0])):
+        vk, vp = kern.value_batch(U[:K]), plain.value_batch(U[:K])
+        e["value_batch"] = max(e["value_batch"], float(((vk - vp).abs() / vp.abs()).max()))
+    (v_k, g_k), (v_p, g_p) = kern.value_and_grad(U[0]), plain.value_and_grad(U[0])
+    dv = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+    e["value_and_grad"] = float((g_k - g_p).abs().max())
+    t64 = rollout64(b, params, x0, U[1])
+    tr = held_plain(kern.trajectory(U[1]), plain.trajectory(U[1]), t64, "trajectory")
+    e["trajectory"] = tr["trajectory_vs_plain"]
+    torch.cuda.synchronize()
+    log(f"wide inputs {tag}: whole solve steps kernel {nk} plain {np_}; max|du| {du:.3e} "
+        f"(rtol 2e-4, atol 2e-5); cost rel {dc:.3e}; x_evol against plain fp32 (rtol 1e-5 / "
+        f"atol 1e-6) and float64 {xs}; "
+        f"value_batch max rel {e['value_batch']:.3e} (2e-5); value_and_grad value rel "
+        f"{dv:.3e}, grad max|d| {e['value_and_grad']:.3e} (5e-4 / 5e-5); trajectory against "
+        f"plain fp32 (rtol 1e-5 / atol 1e-6) and float64 {tr}")
+    if not (nk == np_ and torch.allclose(st_k.yk, st_p.yk, rtol=2e-4, atol=2e-5)
+            and dc <= 2e-4 and xs["ok"] and bool(torch.isfinite(st_k.yk).all())
+            and e["value_batch"] <= 2e-5 and dv <= 2e-5
+            and torch.allclose(g_k, g_p, rtol=5e-4, atol=5e-5) and tr["ok"]):
+        raise AssertionError(f"a kernel disagrees with its plain twin ({tag})")
+    return du, st_k, e
+
+
+def rotor_vehicle(n: int):
+    """An n-rotor vehicle of the hexa's mass and inertia, rotors evenly
+    spaced at 0.30 m with alternating spin (the port's
+    ``models/vehicles.py::_mixing``), hovering at 2 / n a motor (the hexa's
+    total thrust constant)."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.models.vehicles import VehicleConfig, _mixing, hexa_config
+
+    hexa, hover = hexa_config(), 2.0 / n
+    ct = hexa.mass * 9.81 / (n * hover)
+    ang = 2.0 * np.pi * (np.arange(n) + 0.5) / n
+    xy = 0.30 * np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    spin = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    return VehicleConfig(name=f"rotor{n}", n_motors=n, mass=hexa.mass, inertia=hexa.inertia,
+                         mixing=_mixing(xy, spin, ct, 0.06 * ct), hover_u=hover)
+
+
+def rotor_params(params: dict, n: int, hid: int) -> dict:
+    """The hexa checkpoint's ``params`` taking 9 + n inputs at ``hid`` units:
+    the input rows of motors 6 .. n-1 drawn from a numpy seed at the spread
+    of the hexa's motor rows, the hidden layers padded to ``hid`` with units
+    drawn like the shipped ones (``goldens.padded_trunk(..., seed=0)``)."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+
+    net = params["net"]
+    w0 = net["w0"]
+    motors = w0[9:]
+    rs = np.random.RandomState(n)
+    extra = rs.standard_normal((n - int(motors.shape[0]), int(w0.shape[1]))) * float(
+        motors.double().std())
+    w0 = torch.cat([w0, torch.from_numpy(extra.astype(np.float32)).to(w0.device)])
+    params = dict(params, net=dict(net, w0=w0))
+    return padded_trunk(params, hid, seed=0) if hid > int(w0.shape[1]) else params
+
+
+def rotor_checkpoint(td: str, hexa_b, n: int, hid: int) -> str:
+    """:func:`rotor_params` of the hexa checkpoint, saved into ``td``."""
+    from sde4mbrl_px4_tpu_torch.models.params_io import save_params
+
+    path = os.path.join(td, f"rotor{n}_h{hid}.pkl")
+    save_params(path, rotor_params(hexa_b.params, n, hid), {"vehicle": f"rotor{n}",
+                                                            "hidden": hid})
+    return path
+
+
+def rotor_config(n: int, ckpt: str, **mut) -> dict:
+    """The hexa traj config (:func:`config`'s ``mut``) widened to n motors on
+    the checkpoint ``ckpt``, without the probed metric."""
+    cfg = config("hexa_traj_mpc", **mut)
+    cfg["input_constr"] = {"input_id": list(range(n)), "input_bound": [[1.0e-4, 1.0]] * n}
+    cfg["cost_params"]["uref"] = [rotor_vehicle(n).hover_u] * n
+    cfg["apg_mpc"].pop("precond", None)
+    cfg["learned_model_params"] = ckpt
+    return cfg
+
+
+@contextlib.contextmanager
+def rotor_loader(n: int):
+    """The loader builds the n-rotor vehicle where it would build the hexa
+    (``mpc_loader._resolve_model`` takes any n_u other than 4 for it)."""
+    from sde4mbrl_px4_tpu_torch.engine import mpc_loader as L
+
+    keep, veh = L.hexa_config, rotor_vehicle(n)
+    L.hexa_config = lambda: veh
+    try:
+        yield
+    finally:
+        L.hexa_config = keep
+
+
+def wide_input_counts() -> dict:
+    """The P=1 launches of the forms over more than 16 inputs, by wrapper."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    return {"apg_solve": AK.apg_solve_kernel.launches_wide_inputs,
+            "value_and_grad": CO.value_and_grad_kernel.launches_wide_inputs}
+
+
+def input_parity(dev, td: str, card: str) -> dict:
+    """(j) At INPUT_MOTORS x INPUT_HIDS: the kernels against their plain
+    twins and B = WIDE_SCEN against solo (:func:`input_checks`,
+    :func:`wide_scenarios`), each whole solve and
+    ``value_and_grad`` launch in the forms over more than 16 inputs; the
+    8-rotor trunks' forms timed (a fixed 10-iteration solve, ``value_and_grad``
+    per launch) beside their plain twins and bounds."""
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    hexa_b = make_bundle("hexa_traj_mpc", dev)
+    out = {"err": {"apg_solve": 0.0, "value_batch": 0.0, "value_and_grad": 0.0,
+                   "trajectory": 0.0}, "cases": {}, "timed": {}, "ckpts": {}}
+    for n in INPUT_MOTORS:
+        for hid in INPUT_HIDS:
+            ckpt = rotor_checkpoint(td, hexa_b, n, hid)
+            out["ckpts"][(n, hid)] = ckpt
+            with rotor_loader(n):
+                b = make_mpc_from_config(rotor_config(n, ckpt), device=dev)[3]
+            tag = f"{n} rotors (F = {9 + n}), {hid} units"
+            if b.model.n_u != n or tuple(b.params["net"]["w0"].shape) != (9 + n, hid):
+                raise AssertionError(f"the {tag} model did not load")
+            x0, x_ref, u_prev, u_init = problem(b, dev)
+            apg = b.apg_config._replace(max_iter=10, max_no_improvement_iter=10)
+            args = (b.model, b.params, b.cost_params, apg, b.time_steps, x0, x_ref, u_prev,
+                    None, 1, b.lb, b.ub, u_init)
+            oargs = (b.model, b.params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None,
+                     1, 4)
+            U = plans(20, hid + n, dev, n_u=n) * (rotor_vehicle(n).hover_u / 0.71)
+            c0 = wide_input_counts()
+            du, st, e = input_checks(b, args, oargs, U, tag)
+            wide_scenarios(dev, b, lambda: problem(b, dev), b.params, apg, b.lb, b.ub, U, st,
+                           tag)
+            c1 = wide_input_counts()
+            got = {k: c1[k] - c0[k] for k in c1}
+            # the checked solve, B solo and one batched; the checked
+            # value_and_grad, B solo and one batched
+            want = {"apg_solve": WIDE_SCEN + 2, "value_and_grad": WIDE_SCEN + 2}
+            _, a = build_consts_of(b, dev)
+            form = wide_step(a)
+            log(f"wide inputs {tag} ({card}): {form}; launches of the forms over 16 inputs "
+                f"{got} (expected {want})")
+            if got != want:
+                raise AssertionError(f"a launch of {tag} left the forms over 16 inputs")
+            out["err"]["apg_solve"] = max(out["err"]["apg_solve"], du)
+            for k, v in e.items():
+                out["err"][k] = max(out["err"][k], v)
+            out["cases"][tag] = {"form": form, "max_du": du, "err": e}
+            if n == INPUT_MOTORS[0] and hid in INPUT_TIMED:
+                o, p = CO.cost_oracle(*oargs), CO.cost_oracle_plain(*oargs)
+                nc = n_consts(b, dev)
+                out["timed"][hid] = {
+                    "bundle": b, "n_consts": nc,
+                    "apg_solve": time_fixed(AK, args, None, n_kernel=10, n_plain=1),
+                    "apg_solve_bound": bound(b, "apg_solve", nc, K=4, iters=10),
+                    "value_and_grad": (per_launch_ms(lambda: o.value_and_grad(U[0]), 20),
+                                       per_launch_ms(lambda: p.value_and_grad(U[0]), 2)),
+                    "value_and_grad_bound": bound(b, "value_and_grad", nc)}
+    return out
+
+
+def build_consts_of(b, dev):
+    """(consts, ApgArgs) of b's oracle problem (:func:`problem`)."""
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    return build_consts(b.model, b.params, b.cost_params, None, b.time_steps, x0, x_ref, u_prev)
+
+
+def input_routes(dev, ckpts: dict, card: str) -> dict:
+    """(j) On the checkpoints of INPUT_ROUTES through
+    ``make_mpc_from_config`` -> ``mpc_fn``: the traj route at a fixed
+    UNFLOWN_BUDGET iterations, 2 chained solves against the plain route on
+    the same draws (u0 at UNFLOWN_TOL, equal steps), and the fixed-step
+    route (one solve of 5 iterations) against the plain oracle's; each
+    route's launches checked, the forms over 16 inputs among them."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import apg_kernel as AK
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    rtol, atol = UNFLOWN_TOL
+    out = {}
+    for n, hid in INPUT_ROUTES:
+        ckpt = ckpts[(n, hid)]
+        fix = dict(max_iter=UNFLOWN_BUDGET, max_no_improvement_iter=UNFLOWN_BUDGET, atol=0.0,
+                   rtol=0.0)
+        tag = f"{n} rotors, {hid} units"
+        with rotor_loader(n):
+            zero_counts()
+            c0 = wide_input_counts()
+            rows_k, ms = chain(rotor_config(n, ckpt, **fix), dev, 2)
+            torch.cuda.synchronize()
+            got = check_route(f"{tag} traj", {"apg_solve": 2, "value_batch": 0,
+                                              "value_and_grad": 0, "trajectory": 0})
+            wide_n = wide_input_counts()["apg_solve"] - c0["apg_solve"]
+            with routed("apg_solve_kernel", AK.apg_solve_plain):
+                rows_p, _ = chain(rotor_config(n, ckpt, **fix), dev, 2)
+            du = float(np.abs(rows_k[:, :-1] - rows_p[:, :-1]).max())
+            log(f"{tag} ({card}): 2 chained traj solves through mpc_fn at {UNFLOWN_BUDGET} "
+                f"iterations, kernel vs plain route max|du0| {du:.3e} ({UNFLOWN_TOL}); steps "
+                f"{rows_k[:, -1].tolist()} / {rows_p[:, -1].tolist()}; launches {got}, of "
+                f"them over 16 inputs {wide_n}; wall ms {[round(v, 1) for v in ms]}")
+            if not (np.allclose(rows_k[:, :-1], rows_p[:, :-1], rtol=rtol, atol=atol)
+                    and np.array_equal(rows_k[:, -1], rows_p[:, -1])
+                    and np.isfinite(rows_k).all() and wide_n == 2):
+                raise AssertionError(f"the {tag} traj route disagrees with its plain route")
+            fcfg = rotor_config(n, ckpt, linesearch=None, stepsize=1e-3, max_iter=5,
+                                max_no_improvement_iter=5)
+            zero_counts()
+            c0 = wide_input_counts()
+            rows_f, _ = chain(fcfg, dev, 1)
+            torch.cuda.synchronize()
+            k = int(rows_f[0, -1])
+            fgot = check_route(f"{tag} fixed-step", {"apg_solve": 0, "value_batch": k,
+                                                     "value_and_grad": k + 2, "trajectory": 1})
+            fwide = wide_input_counts()["value_and_grad"] - c0["value_and_grad"]
+            with routed("cost_oracle", CO.cost_oracle_plain):
+                rows_fp, _ = chain(fcfg, dev, 1)
+            fdu = float(np.abs(rows_f[:, :-1] - rows_fp[:, :-1]).max())
+            log(f"{tag} ({card}): the fixed-step route, one solve of {k} iterations, kernels vs "
+                f"the plain oracle max|du0| {fdu:.3e} ({UNFLOWN_TOL}); launches {fgot}, "
+                f"value_and_grad over 16 inputs {fwide}")
+            if not (np.allclose(rows_f[:, :-1], rows_fp[:, :-1], rtol=rtol, atol=atol)
+                    and np.isfinite(rows_f).all() and fwide == k + 2):
+                raise AssertionError(f"the {tag} fixed-step route disagrees with its plain "
+                                     f"route")
+        out[(n, hid)] = {"traj_launches": got, "traj_wide_inputs": wide_n, "traj_max_du": du,
+                    "traj_wall_ms": ms, "fixed_step_launches": fgot,
+                    "fixed_step_wide_inputs": fwide, "fixed_step_max_du": fdu}
+    return out
+
+
+def wide_inputs(dev, card: str) -> dict:
+    """(j) trunks of more than 16 inputs at P=1."""
+    import tempfile
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inputs_") as td:
+        out = input_parity(dev, td, card)
+        out["routes"] = input_routes(dev, out.pop("ckpts"), card)
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase 30 (j) took {out['wall_s']:.1f} s")
+    return out
+
+
+# ---- phase 30, fault 9: trajectory at 1024 units against float64 ----------
+# The P=1 trajectory (the shared-memory step, a thread per trunk output, its
+# weights in device memory) on the FAULT9_HID-unit trunk drawn from numpy
+# seed FAULT9_SEED (tests/test_torch_wide_trunk.py::card_problem's), on its
+# plans, held with the plain fp32 twin (cuBLAS's order) to the plain twin
+# run in float64: whichever is further from float64 decides whether the
+# kernel's order or the reference's tolerance between two fp32 orders is at
+# fault. One running sum a trunk output was further on 3 of 4 plans, one
+# past the tolerance; with its sums compensated (sweeps.cuh, trunk's DOT2)
+# the kernel must be within the reference's rtol 1e-5 / atol 1e-6 of the
+# float64 rollout on every plan, and the plans on which it is further from
+# it than the plain twin are counted.
+FAULT9_HID, FAULT9_SEED, FAULT9_PLANS = 1024, 5, 4
+
+
+def seeded_trunk(params: dict, hid: int, seed: int) -> dict:
+    """``params`` with its trunk redrawn at ``hid`` units from a numpy seed,
+    each weight at the spread of the given one's, biases 0 but the output
+    layer's (``tests/test_torch_wide_trunk.py::numpy_trunk``)."""
+    import numpy as np
+
+    from sde4mbrl_px4_tpu_torch.models.params_io import params_from_numpy
+
+    net = {k: v.cpu().numpy() for k, v in params["net"].items()}
+    rs = np.random.RandomState(seed)
+    F, OUT = net["w0"].shape[0], net["w2"].shape[1]
+    new = {k: (rs.standard_normal(shape) * float(np.std(net[k]))).astype(np.float32)
+           for k, shape in (("w0", (F, hid)), ("w1", (hid, hid)), ("w2", (hid, OUT)))}
+    new.update(b0=np.zeros(hid, np.float32), b1=np.zeros(hid, np.float32),
+               b2=np.asarray(net["b2"], np.float32))
+    return {**params, "net": params_from_numpy(new, params["net"]["w0"].device)}
+
+
+def fault9(dev, card: str) -> dict:
+    """Fault 9's comparison (module comment above): per plan the max |err|
+    of the kernel and of the plain fp32 twin against the float64 rollout,
+    and whether each is within rtol 1e-5 / atol 1e-6 of it and of the
+    other. Fails unless the kernel is within the reference's tolerance of
+    the float64 rollout."""
+    import numpy as np
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+    from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean
+
+    b = make_bundle("iris_traj_mpc", dev)
+    params = seeded_trunk(b.params, FAULT9_HID, FAULT9_SEED)
+    x0, x_ref, u_prev, _ = problem(b, dev)
+    H = int(b.time_steps.shape[0])
+    U = torch.from_numpy(np.random.RandomState(3).uniform(0.3, 0.95, (20, H, 4)).astype(
+        np.float32)).to(dev)
+    o = CO.cost_oracle(b.model, params, b.cost_params, b.time_steps, x0, x_ref, u_prev, None,
+                       1, 4)
+    rows = []
+    for k in range(FAULT9_PLANS):
+        xk = o.trajectory(U[k])
+        x32 = rollout_mean(b.model, params, x0, U[k], b.time_steps)
+        x64 = rollout64(b, params, x0, U[k])
+        ref = x64.float()
+        rows.append({
+            "kernel_err": float((xk.double() - x64).abs().max()),
+            "plain_err": float((x32.double() - x64).abs().max()),
+            "kernel_vs_plain": float((xk - x32).abs().max()),
+            "kernel_within": bool(torch.allclose(xk, ref, rtol=1e-5, atol=1e-6)),
+            "plain_within": bool(torch.allclose(x32, ref, rtol=1e-5, atol=1e-6)),
+            "kernel_plain_within": bool(torch.allclose(xk, x32, rtol=1e-5, atol=1e-6))})
+    torch.cuda.synchronize()
+    worse = sum(r["kernel_err"] > r["plain_err"] for r in rows)
+    out = {"plans": rows, "kernel_further_on": worse,
+           "kernel_within_float64": all(r["kernel_within"] for r in rows),
+           "kernel_worst_err": max(r["kernel_err"] for r in rows),
+           "plain_worst_err": max(r["plain_err"] for r in rows)}
+    verdict = (f"the kernel further from float64 than the plain fp32 twin on {worse} of "
+               f"{len(rows)} plans (the worst plan's max|err| kernel "
+               f"{out['kernel_worst_err']:.3e}, plain {out['plain_worst_err']:.3e}); within "
+               f"rtol 1e-5 / atol 1e-6 of float64 on {sum(r['kernel_within'] for r in rows)} "
+               f"of {len(rows)}")
+    log(f"fault 9, trajectory at {FAULT9_HID} units (seed {FAULT9_SEED}, {card}): per plan "
+        f"max|err| against the float64 rollout, kernel / plain fp32 "
+        + "; ".join(f"{r['kernel_err']:.3e} / {r['plain_err']:.3e} (kernel vs plain "
+                    f"{r['kernel_vs_plain']:.3e}, within rtol 1e-5 / atol 1e-6: kernel "
+                    f"{r['kernel_within']}, plain {r['plain_within']}, of each other "
+                    f"{r['kernel_plain_within']})" for r in rows) + f"; {verdict}")
+    if not out["kernel_within_float64"]:
+        raise AssertionError(f"trajectory at {FAULT9_HID} units: {verdict}")
+    return out
+
+
 def phase_wide(dev, card: str) -> dict:
     """Phase 30, the kernels on any trunk width: the P=1 forms (a-e), the
     particle forms' widths (f), their global-weight forms (g), those
-    forms' spread over more blocks than one cluster (h) and the wide-trunk
-    routes no other phase flies (i) (module docstring)."""
+    forms' spread over more blocks than one cluster (h), the wide-trunk
+    routes no other phase flies (i), trunks of more than 16 inputs (j) and
+    fault 9's comparison (module docstring)."""
     import tempfile
 
     traj_b = make_bundle("iris_traj_mpc", dev)
@@ -7845,6 +8354,8 @@ def phase_wide(dev, card: str) -> dict:
         out["particles"] = wide_particles(dev, traj_b, ckpts[256], card)
         out["spread"] = wide_spread(dev, traj_b, ckpts[256], card)
         out["unflown"] = wide_unflown(dev, ckpts[256], td, card)
+    out["inputs"] = wide_inputs(dev, card)
+    out["fault9"] = fault9(dev, card)
     out["ceiling"] = particle_ceiling(dev, traj_b, card)
     out["wall_s"] = time.perf_counter() - t
     log(f"phase 30 took {out['wall_s']:.1f} s")
@@ -7965,9 +8476,11 @@ def main() -> int:
         "every P=1 route flies every width; the particle forms "
         "plan every width to 2048 units, their global-weight forms match their plain twins at "
         "152 and 256 units and the shared-memory forms bit for bit at 128, and the 256-unit "
-        "checkpoint flies the P=512 flagship and the P=128 floor; the spread of #1 and #2 "
+        "checkpoint flies the P=512 flagship and the P=128 floor; the spread of #1-#3 "
         "over more blocks than one cluster gives one cluster's bits; MPPI, the sharded "
-        "solve and the hexa fly their wide trunks against their plain routes")
+        "solve and the hexa fly their wide trunks against their plain routes; trunks of 17 "
+        "and 21 inputs (8 and 12 rotors) match their plain twins on the wide step; "
+        "trajectory at 1024 units is within the reference's tolerance of float64")
 
     from sde4mbrl_px4_tpu_torch.ops.cuda.consts import ORACLE_P1_ROWS
 
@@ -8549,6 +9062,17 @@ def main() -> int:
             max_abs_err_is=bf16_is, err_by_metric=e16[name],
             fp32_form_ms=tms[name + "_fp32"], fp32_form_max_abs_err=wpp["parity"][name],
             route_iteration_ms=rts["fixed_step"]["iteration_ms"], **extra,
+            **({"blocks_per_plan": rts["fixed_step"]["value_batch_blocks"],
+                "one_cluster_ms": stm["value_batch_K1_bf16"]["mean_ms"]["one_cluster"],
+                "planned_groups_ms": stm["value_batch_K1_bf16"]["mean_ms"]["planned"],
+                "fp32_one_cluster_ms": stm["value_batch_K1_fp32"]["mean_ms"]["one_cluster"],
+                "fp32_planned_groups_ms": stm["value_batch_K1_fp32"]["mean_ms"]["planned"],
+                "K4_one_cluster_ms": stm["value_batch_K4_bf16"]["mean_ms"]["one_cluster"],
+                "K4_planned_groups_ms": stm["value_batch_K4_bf16"]["mean_ms"]["planned"],
+                "planned_blocks_K1_K4": [stm["value_batch_K1_bf16"]["blocks"]["planned"],
+                                         stm["value_batch_K4_bf16"]["blocks"]["planned"]],
+                "spread_max_abs_err": spr["parity"]["value_batch"]}
+               if name == "value_batch" else {}),
             **({"blocks_per_scenario": rts["fixed_step"]["blocks"],
                 "one_cluster_ms": stm["value_and_grad_bf16"]["mean_ms"]["one_cluster"],
                 "planned_groups_ms": stm["value_and_grad_bf16"]["mean_ms"]["planned"],
@@ -8557,6 +9081,31 @@ def main() -> int:
                 "one_cluster_route_iteration_ms": one["fixed_step"]["iteration_ms"],
                 "spread_max_abs_err": spr["parity"]["value_and_grad"]}
                if name == "value_and_grad" else {})))
+    # phase 30 (j): the wide step's forms over more than 16 trunk inputs, a
+    # row per storage form, their launches from the routes of INPUT_ROUTES
+    # (traj: the whole solve; fixed step: value_and_grad), timed on the
+    # 8-rotor trunks
+    win = wide["inputs"]
+    for hid, form in ((128, "wide step"), (256, "wide step, global weights")):
+        t = win["timed"][hid]
+        at = [r for (n, h), r in win["routes"].items() if h == hid]
+        kernels += [
+            entry("apg_solve", f"P=1, {form}, more than 16 trunk inputs: the {hid}-unit "
+                  f"{INPUT_MOTORS[0]}-rotor trunk", sum(r["traj_wide_inputs"] for r in at),
+                  win["err"]["apg_solve"], t["apg_solve"][0], t["apg_solve"][1],
+                  t["apg_solve_bound"], source=gsrc + "apg_solve_p1x.cu",
+                  timed=f"fixed 10-iteration solve, {INPUT_MOTORS[0]} rotors (F = "
+                        f"{9 + INPUT_MOTORS[0]}), CUDA events",
+                  max_abs_err_is=f"max |du| over {INPUT_MOTORS} rotors at {INPUT_HIDS} units "
+                                 f"(phase 30 (j))"),
+            entry("value_and_grad", f"P=1, {form}, more than 16 trunk inputs: the {hid}-unit "
+                  f"{INPUT_MOTORS[0]}-rotor trunk", sum(r["fixed_step_wide_inputs"] for r in at),
+                  win["err"]["value_and_grad"], t["value_and_grad"][0],
+                  t["value_and_grad"][1], t["value_and_grad_bound"],
+                  source=gsrc + "cost_oracle_p1.cu",
+                  timed=f"per launch, {INPUT_MOTORS[0]} rotors", max_abs_err_is=(
+                      f"max |d| of the gradient over {INPUT_MOTORS} rotors at {INPUT_HIDS} "
+                      f"units (phase 30 (j))"))]
     # the routes' record on a line of its own, the kernels' line after it
     print(json.dumps({"record": {"solve_ms": {
         "mppi": timing["mppi"][0], "mppi_plain": timing["mppi"][1],
@@ -8624,7 +9173,14 @@ def main() -> int:
                  "spread": {"routes_one_cluster": one, "bits": spr["bits"],
                             "parity": spr["parity"], "times": stm,
                             "wall_s": spr["wall_s"]},
-                 "unflown": wide["unflown"]}}}))
+                 "unflown": wide["unflown"],
+                 "inputs": {"err": win["err"], "cases": win["cases"],
+                            "routes": {f"{n} rotors, {h} units": r
+                                       for (n, h), r in win["routes"].items()},
+                            "timed": {str(h): {k: v for k, v in t.items() if k != "bundle"}
+                                      for h, t in win["timed"].items()},
+                            "wall_s": win["wall_s"]},
+                 "fault9": wide["fault9"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     precond_cache.cleanup()

@@ -35,7 +35,9 @@
 //                 before the constraint forms existed;
 // and three more of the particle form with the particle options (OPT,
 // below), plus the clock-stamped two; and the P=1 form on the wide step
-// (STEP, below; six and one clock-stamped, in apg_solve_p1.cu's library). The libraries
+// (STEP, below; six and one clock-stamped, in apg_solve_p1.cu's library, and
+// six more over trunks of more than P1_FMAX inputs, FX, in
+// apg_solve_p1x.cu's). The libraries
 // (APG_CHAIN_LIB and below) split the forms so that nvcc builds them in
 // parallel: the P=1 register chain in apg_solve_chain.cu, the fp32
 // particle forms here.
@@ -75,7 +77,13 @@
 // 256 units) and only the consts before them are copied; past 227 KB
 // again (wide_far: 624 units on the iris traj config) the step's
 // width-sized buffers go to the launch's scratch in device memory, so the
-// form takes any width to 2048 units and past. The launcher
+// form takes any width to 2048 units and past. The step holds a row's
+// features, controls and wrench in registers, P1_FMAX of them; a trunk of
+// more inputs (9 + n_u > 16: eight motors or more) runs the forms FX, whose
+// layer 0 reads the inputs past P1_FMAX from the row's controls in shared
+// memory and whose reverse sums layer 0's transpose P1_FMAX inputs at a
+// time, a library of their own (apg_solve_p1x.cu), so that the forms of up
+// to 16 inputs keep their code. The launcher
 // picks the form from the dimensions (p1_form_of); these forms are a
 // library of their own (apg_solve_p1.cu), built in parallel. The
 // particle form keeps the generic shared-memory trunk: it takes dynamic
@@ -206,14 +214,20 @@
 #ifndef APG_GW
 #define APG_GW 0
 #endif
+// 1: the library of the P=1 wide step's forms over more than P1_FMAX trunk
+// inputs (apg_solve_p1x.cu)
+#ifndef APG_P1X
+#define APG_P1X 0
+#endif
 // This library's forms: the fp32 particle forms and their clock-stamped
 // form (apg_solve.cu), the P=1 register chain and its clock-stamped form
 // (apg_solve_chain.cu), the bf16 particle forms (apg_solve_bf16.cu), the
-// P=1 wide step (apg_solve_p1.cu) or the particle global-weight
-// forms of one precision (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc
-// builds the six in parallel.
+// P=1 wide step (apg_solve_p1.cu), its forms over more than P1_FMAX inputs
+// (apg_solve_p1x.cu) or the particle global-weight forms of one precision
+// (apg_solve_gw.cu, apg_solve_gw_bf16.cu); nvcc builds the seven in
+// parallel.
 #define APG_CHAIN_LIB (APG_CHAIN != 0)
-#define APG_PART_LIB (!APG_CHAIN && !APG_P1S && !APG_GW)
+#define APG_PART_LIB (!APG_CHAIN && !APG_P1S && !APG_GW && !APG_P1X)
 #define APG_PROF_PART_LIB (APG_PART_LIB && !APG_BF16)
 
 namespace {
@@ -363,9 +377,11 @@ __host__ __device__ inline int wide_far_floats(const ApgArgs& a) {
 // wide step's forms state a minimum of one block per SM (their 133 KB block
 // at 128 units allows no second): without it, ptxas took the unconstrained
 // and proximal forms with the weights in shared memory to 128 registers and
-// 52-132 bytes of spill; every other form keeps the bounds it had.
+// 52-132 bytes of spill; every other form keeps the bounds it had. FX (the
+// wide step only): a trunk of more than P1_FMAX inputs (sweeps.cuh,
+// wide_rollout).
 template <bool PART, int SC, bool PROF = false, bool OPT = false, bool BF = false,
-          int STEP = P1_CHAIN>
+          int STEP = P1_CHAIN, bool FX = false>
 __global__ void __launch_bounds__(PART ? APG_NTHREADS_PART : APG_NTHREADS,
                                   !PART && STEP != P1_CHAIN ? 1 : 0)
 apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -380,6 +396,8 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
   static_assert(STEP == P1_CHAIN || (!PART && SC == CONSTR_NONE && STEP == P1_SMEM) || !PROF,
                 "the clock stamps are the register chain's, the particle form's and the "
                 "wide step's with its weights in shared memory");
+  static_assert(!FX || (!PART && STEP != P1_CHAIN && !PROF),
+                "more than P1_FMAX inputs are the wide step's forms");
   constexpr bool P1S = STEP != P1_CHAIN;   // the P=1 wide step
   constexpr bool GW = STEP == P1_GLOBAL;
   // the particle global-weight form spreads a scenario's chunks over
@@ -465,7 +483,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     if constexpr (PART)
       vg_part<SC, PROF, OPT, BF, RISK_IN_CLUSTER, GW, SPREAD>(a, s, &S.fval, U, my_noise,
                                                              my_starts);
-    else if constexpr (P1S) vg_wide<SC, GW, PROF>(a, s, wb, &S.fval, U);
+    else if constexpr (P1S) vg_wide<SC, GW, PROF, FX>(a, s, wb, &S.fval, U);
     else vg<SC, PROF>(a, s, W, &S.fval, U);
   };
   for (int e = tid; e < HZ; e += nt) {
@@ -529,7 +547,7 @@ apg_solve_kernel(ApgArgs a, const float* __restrict__ consts,
     } else if constexpr (P1S) {
       __syncthreads();                            // the candidate rows
       prof_stamp<PROF>(s, PH_LOOP);
-      cand_wide<SC, GW>(a, s, wb, K);
+      cand_wide<SC, GW, FX>(a, s, wb, K);
       prof_stamp<PROF>(s, PH_CAND);
     } else {
       __syncthreads();                            // the candidate rows
@@ -690,7 +708,8 @@ bool far_of(const ApgArgs& a) { return !a.has_noise && wide_far(a, p1_form_of(a)
 // a.groups > 1 a.groups * a.cluster blocks each on a cooperative grid
 // (launch_spread, whose error a grid the card cannot hold at once returns),
 // in this library's precision.
-template <bool PART, int SC, bool PROF = false, bool OPT = false, int STEP = P1_CHAIN>
+template <bool PART, int SC, bool PROF = false, bool OPT = false, int STEP = P1_CHAIN,
+          bool FX = false>
 cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* consts,
                    const float* u_init, const float* t0, const float* precond,
                    const float* noise, const float* starts, float* yk, float* stats,
@@ -706,26 +725,27 @@ cudaError_t launch(const ApgArgs& a, size_t dyn, cudaStream_t st, const float* c
                               consts, u_init, t0, precond, noise, starts, yk, stats, x_evol,
                               prof, scratch);
   } else {
-    apg_solve_kernel<false, SC, PROF, false, false, STEP><<<a.batch, APG_NTHREADS, dyn, st>>>(
+    apg_solve_kernel<false, SC, PROF, false, false, STEP, FX><<<a.batch, APG_NTHREADS, dyn, st>>>(
         a, consts, u_init, t0, precond, noise, starts, yk, stats, x_evol, prof, scratch);
     return cudaSuccess;
   }
 }
 
 // The instantiation for [form][sc_kind]: form 0 P=1 on the register chain,
-// 3 on the shared-memory step, 4 on it with the weights in device memory
-// (none of the three in the bf16 library), 1 particles, 2 the particles
-// with the options (OPT), 5 the particles' global-weight form (OPT; the
-// global-weight libraries' only forms).
+// 3 on the wide step, 4 on it with the weights in device memory, 6 and 7 the
+// two over more than P1_FMAX inputs (FX; none of the five in the bf16
+// library), 1 particles, 2 the particles with the options (OPT), 5 the
+// particles' global-weight form (OPT; the global-weight libraries' only
+// forms).
 using LaunchFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, const float*,
                                  const float*, const float*, const float*, const float*,
                                  const float*, float*, float*, float*, long long*, float*);
-#define P1_STEP_FORMS(STEP)                                                                \
-  {launch<false, CONSTR_NONE, false, false, STEP>,                                         \
-   launch<false, CONSTR_PENALTY, false, false, STEP>,                                      \
-   launch<false, CONSTR_PROX, false, false, STEP>}
+#define P1_STEP_FORMS(STEP, FX)                                                            \
+  {launch<false, CONSTR_NONE, false, false, STEP, FX>,                                     \
+   launch<false, CONSTR_PENALTY, false, false, STEP, FX>,                                  \
+   launch<false, CONSTR_PROX, false, false, STEP, FX>}
 #define NO_FORMS {nullptr, nullptr, nullptr}
-const LaunchFn kLaunch[6][3] = {
+const LaunchFn kLaunch[8][3] = {
 #if APG_CHAIN_LIB
     {launch<false, CONSTR_NONE>, launch<false, CONSTR_PENALTY>, launch<false, CONSTR_PROX>},
 #else
@@ -739,16 +759,21 @@ const LaunchFn kLaunch[6][3] = {
     NO_FORMS, NO_FORMS,
 #endif
 #if APG_P1S
-    P1_STEP_FORMS(P1_SMEM), P1_STEP_FORMS(P1_GLOBAL),
+    P1_STEP_FORMS(P1_SMEM, false), P1_STEP_FORMS(P1_GLOBAL, false),
 #else
     NO_FORMS, NO_FORMS,
 #endif
 #if APG_GW
     {launch<true, CONSTR_NONE, false, true, P1_GLOBAL>,
      launch<true, CONSTR_PENALTY, false, true, P1_GLOBAL>,
-     launch<true, CONSTR_PROX, false, true, P1_GLOBAL>}};
+     launch<true, CONSTR_PROX, false, true, P1_GLOBAL>},
 #else
-    NO_FORMS};
+    NO_FORMS,
+#endif
+#if APG_P1X
+    P1_STEP_FORMS(P1_SMEM, true), P1_STEP_FORMS(P1_GLOBAL, true)};
+#else
+    NO_FORMS, NO_FORMS};
 #endif
 
 using KernelFn = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
@@ -787,7 +812,8 @@ KernelFn part_kernel(const ApgArgs& a) {
 int form(const ApgArgs& a) {
   if (a.has_noise) return part_form_of(a) == P1_GLOBAL ? 5 : options(a) ? 2 : 1;
   const int step = p1_form_of(a);
-  return step == P1_CHAIN ? 0 : step == P1_SMEM ? 3 : 4;
+  const int fx = a.F > P1_FMAX ? 3 : 0;      // more inputs than the registers of 3 and 4
+  return step == P1_CHAIN ? 0 : (step == P1_SMEM ? 3 : 4) + fx;
 }
 
 // The largest cluster of each particle form [opt][sc_kind] and of the
@@ -834,6 +860,18 @@ int apg_init() {
   const cudaError_t errs[] = {
       allow_large_smem(apg_solve_kernel<false, CONSTR_PENALTY>),
       allow_large_smem(apg_solve_kernel<false, CONSTR_PROX>)};
+#elif APG_P1X
+  const cudaError_t errs[] = {
+      allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_SMEM, true>),
+      allow_large_smem(
+          apg_solve_kernel<false, CONSTR_PENALTY, false, false, false, P1_SMEM, true>),
+      allow_large_smem(apg_solve_kernel<false, CONSTR_PROX, false, false, false, P1_SMEM, true>),
+      allow_large_smem(
+          apg_solve_kernel<false, CONSTR_NONE, false, false, false, P1_GLOBAL, true>),
+      allow_large_smem(
+          apg_solve_kernel<false, CONSTR_PENALTY, false, false, false, P1_GLOBAL, true>),
+      allow_large_smem(
+          apg_solve_kernel<false, CONSTR_PROX, false, false, false, P1_GLOBAL, true>)};
 #elif APG_P1S
   const cudaError_t errs[] = {
       allow_large_smem(apg_solve_kernel<false, CONSTR_NONE, true, false, false, P1_SMEM>),
@@ -921,7 +959,6 @@ static bool launch_ok(const ApgArgs* a, const void* precond, const void* noise,
            a->K < 1 || a->K > APG_MAXK || !constr_args_ok(*a) || a->OUT != P1_OUT ||
            a->F != 9 + a->n_u || apg_smem_bytes(a) > limit ||
            (part ? !part_form_ok(*a, step) : !p1_form_ok(*a, step)) ||
-           (!part && step != P1_CHAIN && a->F > P1_FMAX) ||   // the wide step's features
            (a->has_pre && precond == nullptr) ||
            (a->has_starts != 0) != (starts != nullptr) || (!part && options(*a)) ||
            (a->bf16 != 0) != kBF || (!part && kBF) ||
@@ -980,8 +1017,9 @@ int apg_solve_prof_launch(const ApgArgs* a, const void* consts, const void* u_in
   const int p1 = a->has_noise ? -1 : p1_form_of(*a);
 #if APG_CHAIN_LIB
   const LaunchFn fn = p1 == P1_CHAIN ? &launch<false, CONSTR_NONE, true> : nullptr;
-#elif APG_P1S
-  const LaunchFn fn = p1 == P1_SMEM ? &launch<false, CONSTR_NONE, true, false, P1_SMEM> : nullptr;
+#elif APG_P1S     // (its forms of up to P1_FMAX inputs)
+  const LaunchFn fn = p1 == P1_SMEM && a->F <= P1_FMAX
+                          ? &launch<false, CONSTR_NONE, true, false, P1_SMEM> : nullptr;
 #elif APG_PROF_PART_LIB
   const LaunchFn fn = a->has_noise ? &launch<true, CONSTR_NONE, true> : nullptr;
 #else

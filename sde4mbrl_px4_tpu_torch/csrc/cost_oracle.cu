@@ -120,8 +120,11 @@
 // sizes it to what the card holds at once, ops/cuda/consts.py::
 // plan_groups), each chunk's partials in a slot in device memory, summed in
 // chunk order by every block after a barrier over the scenario's blocks:
-// the bits of one cluster. value_batch's global-weight form keeps its grid
-// of K clusters (groups = 1).
+// the bits of one cluster. value_batch's global-weight form spreads each of
+// its B x K plans the same way (a plan a spread unit: groups * cluster
+// blocks each, planned over the B x K plans), so a K = 1 trial of the
+// fixed-step route gets up to the card's SMs; MPPI's K = 64 grid already
+// fills the card and plans groups 1.
 //
 // Reduced matmul precision (ApgArgs::bf16, sweeps.cuh): the bf16-trunk
 // instantiations (BF) of value_batch (the particle forms and the P=1 ones,
@@ -148,10 +151,18 @@
 // 1: the library of the particle forms' global-weight forms
 // (cost_oracle_gw.cu: value_batch's and value_and_grad's options forms and
 // their shared-moments forms, fp32 and bf16, with the trunk's weights read in
-// device memory); 0 every other form of the three kernels. nvcc builds the
-// two in parallel.
+// device memory).
 #ifndef ORACLE_GW
 #define ORACLE_GW 0
+#endif
+// 1: the library of the P=1 forms of the three kernels (cost_oracle_p1.cu:
+// value_batch on the register chain and the shared-memory step,
+// value_and_grad on the register chain and the wide step, its forms over
+// more than P1_FMAX inputs among them, trajectory); 0 with ORACLE_GW 0 the
+// cluster particle forms of value_batch and value_and_grad. nvcc builds the
+// three in parallel.
+#ifndef ORACLE_P1
+#define ORACLE_P1 0
 #endif
 
 namespace {
@@ -351,24 +362,34 @@ __device__ void load_block(const ApgArgs& a, const Smem& s, int R,
 // second moment to out[3i ..] (out (B, K, 3)). GW (not REG): the trunk's
 // weights in device memory (scenario 0's): at P=1 the shared-memory step's
 // P1_GLOBAL, with particles the global-weight form (the options forms only;
-// apg_solve.cuh, part_form).
+// apg_solve.cuh, part_form), which spreads each plan's chunks over
+// a.groups * a.cluster blocks (sweeps.cuh, the spread note): plan i on
+// blocks i*N .. i*N + N-1, its chunk partials summed through its slots of
+// `scratch` (value_batch_scratch_floats) where groups > 1, so that a K = 1
+// plan gets up to the card's SMs, not one cluster's 16, with the bits of one
+// cluster.
 template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
           int RM = RISK_IN_CLUSTER, bool GW = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS, PART ? 1 : 0)
 value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                    const float* __restrict__ U, const float* __restrict__ noise,
-                   const float* __restrict__ starts, float* __restrict__ out) {
+                   const float* __restrict__ starts, float* __restrict__ out,
+                   float* __restrict__ scratch) {
   static_assert(!(PART && REG), "the register chain is the P=1 forms'");
   static_assert(RM == RISK_IN_CLUSTER || RM == RISK_MOMENTS_OUT, "value_batch writes moments");
   static_assert(RM == RISK_IN_CLUSTER || (PART && OPT), "the moments are the options forms'");
   static_assert(!GW || (!REG && (!PART || OPT)),
                 "global weights are the shared-memory step's and the particle options forms'");
+  // the particle global-weight form spreads each plan over a.groups *
+  // a.cluster blocks (plan i = block / N)
+  constexpr bool SPREAD = PART && GW;
   extern __shared__ __align__(16) float smem[];
   Smem s = {};
   layout(a, ORACLE_VALUE_BATCH, tile, PART, OPT && a.risk, &s, smem,
          REG ? P1_CHAIN : GW ? P1_GLOBAL : P1_SMEM);
   const int HZ = a.H * a.nZ, nZ = a.nZ;
-  const int k0 = PART ? (int)blockIdx.x / a.cluster : (int)blockIdx.x * tile;
+  const int k0 = SPREAD ? (int)spread_scenario(a)
+                 : PART ? (int)blockIdx.x / a.cluster : (int)blockIdx.x * tile;
   const int R = PART ? 1 : min(tile, K - k0);
   const int tid = threadIdx.x, warp = tid >> 5, nw = blockDim.x >> 5;
   const float* c = s.c;
@@ -381,6 +402,10 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
                        U + (grid_row() * K + k0) * (size_t)HZ);
 
   if constexpr (PART) {
+    if constexpr (SPREAD) {
+      __shared__ Spread sp;
+      spread_init(a, s, &sp, scratch, (size_t)a.batch * K);    // a unit a plan
+    }
     // OPT: scenario k0 / K's starts (null: x0), offset once into shared
     // memory, so that no register holds the pointer across the sweep
     __shared__ const float* starts_p;
@@ -389,10 +414,14 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
       __syncthreads();
     }
     if constexpr (GW) s.wg = consts;        // scenario 0's trunk, read in place
-    cand_part<SC, false, OPT, BF, RM, GW>(a, s, 1,
-                                      noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
-                                      [&]() -> const float* { return starts_p; });
-    if (cg::this_cluster().block_rank() != 0) return;
+    cand_part<SC, false, OPT, BF, RM, GW, SPREAD>(
+        a, s, 1, noise + (size_t)(k0 / K) * ((size_t)a.H * a.P * 13),
+        [&]() -> const float* { return starts_p; });
+    if constexpr (SPREAD) {
+      if (spread_rank(a) != 0) return;
+    } else if (cg::this_cluster().block_rank() != 0) {
+      return;
+    }
   } else if constexpr (REG) {
     p1_rollout<SC, false, false, BF>(a, s, load_p1_weights(a, c), R, s.cand, HZ);
   } else {
@@ -434,9 +463,12 @@ value_batch_kernel(int K, int tile, ApgArgs a, const float* __restrict__ consts,
 
 // The mean rollout of one plan's control columns into x_out (H+1, 13): REG
 // the register chain's row with its states stashed, else the shared-memory
-// step (GW: its weights in device memory, scenario 0's). Block b rolls
-// scenario b of a.batch: its consts (n_consts), plan (H, nZ) and output
-// (H+1, 13) at b times their stride.
+// step (GW: its weights in device memory, scenario 0's) with the hidden and
+// output layers' sums compensated (sweeps.cuh, trunk's DOT2): one running
+// sum over a wide trunk's 1024 inputs left the rollout further from its
+// float64 value than the reference's cuBLAS order, past the reference's
+// tolerance. Block b rolls scenario b of a.batch: its consts (n_consts),
+// plan (H, nZ) and output (H+1, 13) at b times their stride.
 template <bool REG, bool GW = false>
 __global__ void __launch_bounds__(ORACLE_NTHREADS)
 trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -460,9 +492,10 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
   } else {
     __syncthreads();
     for (int t = 0; t < a.H; ++t)
-      fwd_step<false, CONSTR_NONE, false, false, GW>(a, s, 1, s.cand + t * a.nZ, 0, 1, nullptr,
-                                                     s.xs + t * 13, s.xs + (t + 1) * 13, t,
-                                                     nullptr, nullptr, wb);
+      fwd_step<false, CONSTR_NONE, false, false, GW, true>(a, s, 1, s.cand + t * a.nZ, 0, 1,
+                                                           nullptr, s.xs + t * 13,
+                                                           s.xs + (t + 1) * 13, t, nullptr,
+                                                           nullptr, wb);
   }
   for (int e = tid; e < (a.H + 1) * 13; e += nt) x_out[e] = s.xs[e];
 }
@@ -480,9 +513,11 @@ trajectory_kernel(ApgArgs a, const float* __restrict__ consts,
 // or P1_GLOBAL, the global-weight form (the options forms only; apg_solve.cuh,
 // part_form). The P=1 wide step's forms state a minimum of one block per
 // SM, as the whole solve's do (apg_solve.cu): without it ptxas held two of
-// them at 128 registers; every other form keeps the bounds it had.
+// them at 128 registers; every other form keeps the bounds it had. FX (the
+// wide step only): a trunk of more than P1_FMAX inputs (sweeps.cuh,
+// wide_rollout).
 template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
-          int STEP = P1_CHAIN>
+          int STEP = P1_CHAIN, bool FX = false>
 __global__ void __launch_bounds__(PART ? ORACLE_NTHREADS_PART : ORACLE_NTHREADS,
                                   !PART && STEP != P1_CHAIN ? 1 : 0)
 value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
@@ -498,6 +533,7 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
   static_assert(!PART || STEP == P1_CHAIN || (STEP == P1_GLOBAL && OPT),
                 "a particle form reads its weights in shared memory or, the options form, "
                 "in device memory");
+  static_assert(!FX || (!PART && STEP != P1_CHAIN), "more than P1_FMAX inputs: the wide step");
   constexpr bool GW = STEP == P1_GLOBAL;
   // the particle global-weight form spreads a scenario's chunks over
   // a.groups * a.cluster blocks (sweeps.cuh, the spread note)
@@ -546,7 +582,7 @@ value_and_grad_kernel(ApgArgs a, const float* __restrict__ consts,
     vg<SC>(a, s, load_p1_weights(a, s.c), &fval, s.cand);
   } else {
     wide_prep<GW>(a, s, consts);             // ends with a barrier
-    vg_wide<SC, GW>(a, s, consts, &fval, s.cand);
+    vg_wide<SC, GW, false, FX>(a, s, consts, &fval, s.cand);
   }
   if (rank != 0) return;
   const int HZ = a.H * a.nZ;
@@ -629,31 +665,43 @@ bool args_ok(const ApgArgs* a, int kind) {
 // One launch of a value_batch instantiation over a.batch scenarios: P=1
 // ceil(K / tile) blocks on each of a.batch grid rows; particles B x K
 // clusters of a.cluster blocks (cudaLaunchKernelEx, whose error a cluster
-// the card cannot schedule returns).
+// the card cannot schedule returns), the global-weight form with a.groups >
+// 1 a.groups * a.cluster blocks a plan on a cooperative grid (launch_spread
+// over the B x K plans, whose error a grid the card cannot hold at once
+// returns).
 template <bool PART, int SC, bool REG, bool OPT = false, bool BF = false,
           int RM = RISK_IN_CLUSTER, bool GW = false>
 cudaError_t launch_value_batch(const ApgArgs& a, int K, int tile, size_t dyn, cudaStream_t st,
                                const float* consts, const float* U, const float* noise,
-                               const float* starts, float* out) {
+                               const float* starts, float* out, float* scratch) {
   if constexpr (PART) {
+    if constexpr (GW)
+      if (a.groups > 1) {
+        ApgArgs plans = a;                    // the spread's units: the B x K plans
+        plans.batch = K * a.batch;
+        return launch_spread(value_batch_kernel<true, SC, false, OPT, BF, RM, GW>, plans,
+                             ORACLE_NTHREADS_PART, dyn, st, scratch, K, tile, a, consts, U,
+                             noise, starts, out, scratch);
+      }
     ClusterLaunch l(a.cluster, ORACLE_NTHREADS_PART, dyn, st, K * a.batch);
     return cudaLaunchKernelEx(&l.cfg, value_batch_kernel<true, SC, false, OPT, BF, RM, GW>, K,
-                              tile, a, consts, U, noise, starts, out);
+                              tile, a, consts, U, noise, starts, out, scratch);
   } else {
     const dim3 grid((K + tile - 1) / tile, a.batch);
     value_batch_kernel<false, SC, REG, false, BF, RISK_IN_CLUSTER, GW>
-        <<<grid, ORACLE_NTHREADS, dyn, st>>>(K, tile, a, consts, U, noise, starts, out);
+        <<<grid, ORACLE_NTHREADS, dyn, st>>>(K, tile, a, consts, U, noise, starts, out, scratch);
     return cudaSuccess;
   }
 }
 using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStream_t,
                                      const float*, const float*, const float*, const float*,
-                                     float*);
+                                     float*, float*);
+#define NO3 {nullptr, nullptr, nullptr}
 #if !ORACLE_GW
 // [bf16][form][sc_kind]: form 0 P=1 on the shared-memory step, 1 P=1 on
 // the register chain, 2 particles, 3 particles with the options, 4 their
 // moments-out form, 5 P=1 on the shared-memory step with the weights in
-// device memory
+// device memory (0, 1 and 5 in the P=1 library, 2-4 in this one)
 #define MOMENTS_OUT_FORMS(BF)                                                              \
   {launch_value_batch<true, CONSTR_NONE, false, true, BF, RISK_MOMENTS_OUT>,               \
    launch_value_batch<true, CONSTR_PENALTY, false, true, BF, RISK_MOMENTS_OUT>,            \
@@ -662,53 +710,20 @@ using ValueBatchFn = cudaError_t (*)(const ApgArgs&, int, int, size_t, cudaStrea
   {launch_value_batch<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, true>,        \
    launch_value_batch<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, true>,     \
    launch_value_batch<false, CONSTR_PROX, false, false, BF, RISK_IN_CLUSTER, true>}
-const ValueBatchFn kValueBatch[2][6][3] = {
-    {{launch_value_batch<false, CONSTR_NONE, false, false, false>,
-      launch_value_batch<false, CONSTR_PENALTY, false, false, false>,
-      launch_value_batch<false, CONSTR_PROX, false, false, false>},
-     {launch_value_batch<false, CONSTR_NONE, true, false, false>,
-      launch_value_batch<false, CONSTR_PENALTY, true, false, false>,
-      launch_value_batch<false, CONSTR_PROX, true, false, false>},
-     {launch_value_batch<true, CONSTR_NONE, false, false, false>,
-      launch_value_batch<true, CONSTR_PENALTY, false, false, false>,
-      launch_value_batch<true, CONSTR_PROX, false, false, false>},
-     {launch_value_batch<true, CONSTR_NONE, false, true, false>,
-      launch_value_batch<true, CONSTR_PENALTY, false, true, false>,
-      launch_value_batch<true, CONSTR_PROX, false, true, false>},
-     MOMENTS_OUT_FORMS(false), GLOBAL_WEIGHT_FORMS(false)},
-    {{launch_value_batch<false, CONSTR_NONE, false, false, true>,
-      launch_value_batch<false, CONSTR_PENALTY, false, false, true>,
-      launch_value_batch<false, CONSTR_PROX, false, false, true>},
-     {launch_value_batch<false, CONSTR_NONE, true, false, true>,
-      launch_value_batch<false, CONSTR_PENALTY, true, false, true>,
-      launch_value_batch<false, CONSTR_PROX, true, false, true>},
-     {launch_value_batch<true, CONSTR_NONE, false, false, true>,
-      launch_value_batch<true, CONSTR_PENALTY, false, false, true>,
-      launch_value_batch<true, CONSTR_PROX, false, false, true>},
-     {launch_value_batch<true, CONSTR_NONE, false, true, true>,
-      launch_value_batch<true, CONSTR_PENALTY, false, true, true>,
-      launch_value_batch<true, CONSTR_PROX, false, true, true>},
-     MOMENTS_OUT_FORMS(true), GLOBAL_WEIGHT_FORMS(true)}};
-
-// The P=1 kernels on the shared-memory step, whose shared memory may pass
-// 48 KB: value_batch [bf16][global weights][sc_kind], value_and_grad
-// [global weights][sc_kind], trajectory [global weights]
-// (cost_oracle_init).
-using P1VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
-                            const float*, float*);
-using P1VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
-                            const float*, float*, float*, float*);
-#define P1_VB(BF, GW)                                                                      \
-  {value_batch_kernel<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, GW>,          \
-   value_batch_kernel<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, GW>,       \
-   value_batch_kernel<false, CONSTR_PROX, false, false, BF, RISK_IN_CLUSTER, GW>}
-#define P1_VG(STEP)                                                                        \
-  {value_and_grad_kernel<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP>,         \
-   value_and_grad_kernel<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP>,      \
-   value_and_grad_kernel<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP>}
-const P1VbKernel kP1Vb[2][2][3] = {{P1_VB(false, false), P1_VB(false, true)},
-                                    {P1_VB(true, false), P1_VB(true, true)}};
-const P1VgKernel kP1Vg[2][3] = {P1_VG(P1_SMEM), P1_VG(P1_GLOBAL)};
+#define VB_LAUNCH(PART, REG, OPT, BF)                                                      \
+  {launch_value_batch<PART, CONSTR_NONE, REG, OPT, BF>,                                    \
+   launch_value_batch<PART, CONSTR_PENALTY, REG, OPT, BF>,                                 \
+   launch_value_batch<PART, CONSTR_PROX, REG, OPT, BF>}
+#if ORACLE_P1
+#define VB_TABLE(BF)                                                                       \
+  {VB_LAUNCH(false, false, false, BF), VB_LAUNCH(false, true, false, BF), NO3, NO3, NO3,   \
+   GLOBAL_WEIGHT_FORMS(BF)}
+#else
+#define VB_TABLE(BF)                                                                       \
+  {NO3, NO3, VB_LAUNCH(true, false, false, BF), VB_LAUNCH(true, false, true, BF),          \
+   MOMENTS_OUT_FORMS(BF), NO3}
+#endif
+const ValueBatchFn kValueBatch[2][6][3] = {VB_TABLE(false), VB_TABLE(true)};
 #endif
 
 // P=1 a.batch blocks; particles a.batch clusters of a.cluster blocks
@@ -717,7 +732,7 @@ const P1VgKernel kP1Vg[2][3] = {P1_VG(P1_SMEM), P1_VG(P1_GLOBAL)};
 // blocks each on a cooperative grid (launch_spread, whose error a grid the
 // card cannot hold at once returns).
 template <bool PART, int SC, bool OPT = false, bool BF = false, int RM = RISK_IN_CLUSTER,
-          int STEP = P1_CHAIN>
+          int STEP = P1_CHAIN, bool FX = false>
 cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
                                   const float* consts, const float* u, const float* noise,
                                   const float* starts, const float* moments, float* val,
@@ -732,7 +747,7 @@ cudaError_t launch_value_and_grad(const ApgArgs& a, size_t dyn, cudaStream_t st,
     return cudaLaunchKernelEx(&l.cfg, value_and_grad_kernel<true, SC, OPT, BF, RM, STEP>, a,
                               consts, u, noise, starts, moments, val, grad, scratch);
   } else {
-    value_and_grad_kernel<false, SC, false, false, RISK_IN_CLUSTER, STEP>
+    value_and_grad_kernel<false, SC, false, false, RISK_IN_CLUSTER, STEP, FX>
         <<<a.batch, ORACLE_NTHREADS, dyn, st>>>(a, consts, u, noise, starts, moments, val,
                                                  grad, scratch);
     return cudaSuccess;
@@ -742,39 +757,58 @@ using ValueAndGradFn = cudaError_t (*)(const ApgArgs&, size_t, cudaStream_t, con
                                        const float*, const float*, const float*, const float*,
                                        float*, float*, float*);
 using VbKernel = void (*)(int, int, ApgArgs, const float*, const float*, const float*,
-                          const float*, float*);
+                          const float*, float*, float*);
 using VgKernel = void (*)(ApgArgs, const float*, const float*, const float*, const float*,
                           const float*, float*, float*, float*);
+#if ORACLE_P1
+// The P=1 kernels, whose shared memory may pass 48 KB off the register
+// chain: value_batch [bf16][global weights][sc_kind], value_and_grad [global
+// weights][sc_kind] and its forms over more than P1_FMAX inputs, trajectory
+// [global weights] (cost_oracle_init).
+#define P1_VB(BF, GW)                                                                      \
+  {value_batch_kernel<false, CONSTR_NONE, false, false, BF, RISK_IN_CLUSTER, GW>,          \
+   value_batch_kernel<false, CONSTR_PENALTY, false, false, BF, RISK_IN_CLUSTER, GW>,       \
+   value_batch_kernel<false, CONSTR_PROX, false, false, BF, RISK_IN_CLUSTER, GW>}
+#define P1_VG(STEP, FX)                                                                    \
+  {value_and_grad_kernel<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP, FX>,     \
+   value_and_grad_kernel<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP, FX>,  \
+   value_and_grad_kernel<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP, FX>}
+const VbKernel kP1Vb[2][2][3] = {{P1_VB(false, false), P1_VB(false, true)},
+                                  {P1_VB(true, false), P1_VB(true, true)}};
+const VgKernel kP1Vg[2][2][3] = {{P1_VG(P1_SMEM, false), P1_VG(P1_GLOBAL, false)},
+                                  {P1_VG(P1_SMEM, true), P1_VG(P1_GLOBAL, true)}};
+#endif
 #if !ORACLE_GW
 // [form][sc_kind]: form 0 P=1 on the register chain, 1 particles, 2
 // particles with the options, 3 and 4 the bf16 trunk of 1 and 2, 5 and 6
-// the moments-in form of 2 and 4, 7 P=1 on the shared-memory step, 8 on it
-// with the weights in device memory
+// the moments-in form of 2 and 4, 7 P=1 on the wide step, 8 on it with the
+// weights in device memory, 9 and 10 the two over more than P1_FMAX inputs
+// (0 and 7-10 in the P=1 library, 1-6 in this one)
 #define MOMENTS_IN_FORMS(BF)                                                               \
   {launch_value_and_grad<true, CONSTR_NONE, true, BF, RISK_MOMENTS_IN>,                    \
    launch_value_and_grad<true, CONSTR_PENALTY, true, BF, RISK_MOMENTS_IN>,                 \
    launch_value_and_grad<true, CONSTR_PROX, true, BF, RISK_MOMENTS_IN>}
-#define P1_STEP_VG(STEP)                                                                   \
-  {launch_value_and_grad<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP>,         \
-   launch_value_and_grad<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP>,      \
-   launch_value_and_grad<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP>}
-const ValueAndGradFn kValueAndGrad[9][3] = {
-    {launch_value_and_grad<false, CONSTR_NONE>, launch_value_and_grad<false, CONSTR_PENALTY>,
-     launch_value_and_grad<false, CONSTR_PROX>},
-    {launch_value_and_grad<true, CONSTR_NONE>, launch_value_and_grad<true, CONSTR_PENALTY>,
-     launch_value_and_grad<true, CONSTR_PROX>},
-    {launch_value_and_grad<true, CONSTR_NONE, true>,
-     launch_value_and_grad<true, CONSTR_PENALTY, true>,
-     launch_value_and_grad<true, CONSTR_PROX, true>},
-    {launch_value_and_grad<true, CONSTR_NONE, false, true>,
-     launch_value_and_grad<true, CONSTR_PENALTY, false, true>,
-     launch_value_and_grad<true, CONSTR_PROX, false, true>},
-    {launch_value_and_grad<true, CONSTR_NONE, true, true>,
-     launch_value_and_grad<true, CONSTR_PENALTY, true, true>,
-     launch_value_and_grad<true, CONSTR_PROX, true, true>},
-    MOMENTS_IN_FORMS(false), MOMENTS_IN_FORMS(true), P1_STEP_VG(P1_SMEM),
-    P1_STEP_VG(P1_GLOBAL)};
+#define P1_STEP_VG(STEP, FX)                                                               \
+  {launch_value_and_grad<false, CONSTR_NONE, false, false, RISK_IN_CLUSTER, STEP, FX>,     \
+   launch_value_and_grad<false, CONSTR_PENALTY, false, false, RISK_IN_CLUSTER, STEP, FX>,  \
+   launch_value_and_grad<false, CONSTR_PROX, false, false, RISK_IN_CLUSTER, STEP, FX>}
+#define VG_LAUNCH(PART, OPT, BF)                                                           \
+  {launch_value_and_grad<PART, CONSTR_NONE, OPT, BF>,                                      \
+   launch_value_and_grad<PART, CONSTR_PENALTY, OPT, BF>,                                   \
+   launch_value_and_grad<PART, CONSTR_PROX, OPT, BF>}
+const ValueAndGradFn kValueAndGrad[11][3] = {
+#if ORACLE_P1
+    VG_LAUNCH(false, false, false), NO3, NO3, NO3, NO3, NO3, NO3,
+    P1_STEP_VG(P1_SMEM, false), P1_STEP_VG(P1_GLOBAL, false),
+    P1_STEP_VG(P1_SMEM, true), P1_STEP_VG(P1_GLOBAL, true)};
+#else
+    NO3, VG_LAUNCH(true, false, false), VG_LAUNCH(true, true, false),
+    VG_LAUNCH(true, false, true), VG_LAUNCH(true, true, true),
+    MOMENTS_IN_FORMS(false), MOMENTS_IN_FORMS(true), NO3, NO3, NO3, NO3};
+#endif
+#endif
 
+#if !ORACLE_GW && !ORACLE_P1
 // The particle forms' kernels [bf16][opt][sc_kind] of value_batch and
 // value_and_grad: opt 0 without the options, 1 with them, 2 their
 // shared-moments form (value_batch's moments out, value_and_grad's moments
@@ -817,7 +851,7 @@ const VgKernel kVgForms[2][3][3] = {
       value_and_grad_kernel<true, CONSTR_PENALTY, true, true>,
       value_and_grad_kernel<true, CONSTR_PROX, true, true>},
      VG_MOMENTS(true)}};
-#else
+#elif ORACLE_GW
 // The global-weight forms [bf16][moments][sc_kind], kernels and launchers:
 // the options forms of value_batch and value_and_grad (moments 0; a launch
 // without risk or starts takes them too, their branches off) and their
@@ -886,6 +920,9 @@ VbKernel vb_kernel(const ApgArgs& a, int opt) {
 #if ORACLE_GW
   return global_weights(a, ORACLE_VALUE_BATCH) ? kVbGW[a.bf16 != 0][opt == 2][a.sc_kind]
                                                : nullptr;
+#elif ORACLE_P1
+  (void)a, (void)opt;
+  return nullptr;
 #else
   return global_weights(a, ORACLE_VALUE_BATCH) ? nullptr
                                                : kVbForms[a.bf16 != 0][opt][a.sc_kind];
@@ -895,6 +932,9 @@ VgKernel vg_kernel(const ApgArgs& a, int opt) {
 #if ORACLE_GW
   return global_weights(a, ORACLE_VALUE_AND_GRAD) ? kVgGW[a.bf16 != 0][opt == 2][a.sc_kind]
                                                   : nullptr;
+#elif ORACLE_P1
+  (void)a, (void)opt;
+  return nullptr;
 #else
   return global_weights(a, ORACLE_VALUE_AND_GRAD) ? nullptr
                                                   : kVgForms[a.bf16 != 0][opt][a.sc_kind];
@@ -923,7 +963,8 @@ ValueAndGradFn vg_launcher(const ApgArgs& a, int opt) {
 #else
   if (gw) return nullptr;
   const int step = a.has_noise ? P1_CHAIN : p1_form_of(a, ORACLE_VALUE_AND_GRAD);
-  const int form = !a.has_noise ? (step == P1_CHAIN ? 0 : step == P1_SMEM ? 7 : 8)
+  const int fx = a.F > P1_FMAX ? 2 : 0;      // more inputs than the registers of 7 and 8
+  const int form = !a.has_noise ? (step == P1_CHAIN ? 0 : (step == P1_SMEM ? 7 : 8) + fx)
                    : opt == 2 ? 5 + (a.bf16 ? 1 : 0)
                               : (opt ? 2 : 1) + (a.bf16 ? 2 : 0);
   return kValueAndGrad[form][a.sc_kind];
@@ -977,18 +1018,21 @@ int cost_oracle_init() {
         }
       }
   return 0;
-#else
+#elif ORACLE_P1
   for (int gw = 0; gw < 2; ++gw) {
     for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
       cudaError_t e = allow_large_smem(kP1Vb[0][gw][sc]);
       if (e == cudaSuccess) e = allow_large_smem(kP1Vb[1][gw][sc]);
-      if (e == cudaSuccess) e = allow_large_smem(kP1Vg[gw][sc]);
+      if (e == cudaSuccess) e = allow_large_smem(kP1Vg[0][gw][sc]);
+      if (e == cudaSuccess) e = allow_large_smem(kP1Vg[1][gw][sc]);
       if (e != cudaSuccess) return (int)e;
     }
     const cudaError_t e = gw ? allow_large_smem(trajectory_kernel<false, true>)
                              : allow_large_smem(trajectory_kernel<false, false>);
     if (e != cudaSuccess) return (int)e;
   }
+  return 0;
+#else
   for (int bf = 0; bf < 2; ++bf)
     for (int o = 0; o < 3; ++o)
       for (int sc = CONSTR_NONE; sc <= CONSTR_PROX; ++sc) {
@@ -1030,6 +1074,30 @@ int oracle_resident_blocks(const ApgArgs* a, int* n) {
   return fn ? (int)resident_blocks(fn, ORACLE_NTHREADS_PART,
                                    (size_t)dyn_bytes(*a, ORACLE_VALUE_AND_GRAD, 1, true), n)
             : (int)cudaErrorInvalidValue;     // the other library's form
+}
+
+// ... and of value_batch's global-weight form (one plan a block's chunks;
+// the bound on a spread launch's batch * K * groups * cluster).
+int value_batch_resident_blocks(const ApgArgs* a, int* n) {
+  const int o = opt_form(a, ORACLE_VALUE_BATCH);
+  if (!a->has_noise || !sc_ok(a->sc_kind) || o < 0 ||
+      part_form_of(*a, ORACLE_VALUE_BATCH) != P1_GLOBAL)
+    return (int)cudaErrorInvalidValue;
+  const VbKernel fn = vb_kernel(*a, o);
+  return fn ? (int)resident_blocks(fn, ORACLE_NTHREADS_PART,
+                                   (size_t)dyn_bytes(*a, ORACLE_VALUE_BATCH, 1, true), n)
+            : (int)cudaErrorInvalidValue;     // the other library's form
+}
+
+// Floats of the scratch a particle value_batch launch over K plans a
+// scenario with a's plan takes: apg_solve.cuh's spread_floats over the
+// a.batch * K plans, each a spread unit of its own (0 but for the
+// global-weight form at groups > 1).
+long long value_batch_scratch_floats(const ApgArgs* a, int K) {
+  if (!a->has_noise || K < 1) return 0;
+  ApgArgs plans = *a;
+  plans.batch = a->batch * K;
+  return spread_floats(plans);
 }
 
 // Floats of the scratch a value_and_grad launch with a's plan takes: with
@@ -1102,12 +1170,16 @@ int oracle_part_form(const ApgArgs* a, int kind) { return part_form_of(*a, kind)
 // per candidate), and return the cluster launch's own error where the card
 // cannot schedule it.
 int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* U,
-                       const void* noise, const void* starts, void* out, void* stream) {
+                       const void* noise, const void* starts, void* out, void* scratch,
+                       void* stream) {
   const int opt = opt_form(a, ORACLE_VALUE_BATCH);
   if (!args_ok(a, ORACLE_VALUE_BATCH) || K < 1 || !grid_ok(a, ORACLE_VALUE_BATCH, K) ||
       !particles_ok(a, noise, starts) || opt < 0 ||
       (a->has_noise && !cluster_args_ok(
-          *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][opt][a->sc_kind])) ||
+          *a, g_cmax[ORACLE_VALUE_BATCH][a->bf16 != 0][opt][a->sc_kind],
+          global_weights(*a, ORACLE_VALUE_BATCH))) ||
+      (!a->has_noise && a->groups != 1) ||
+      (value_batch_scratch_floats(a, K) > 0 && scratch == nullptr) ||
       value_batch_smem_bytes(a, K) > smem_limit(*a))
     return (int)cudaErrorInvalidValue;
   const ValueBatchFn fn = vb_launcher(*a, opt);
@@ -1115,13 +1187,13 @@ int value_batch_launch(const ApgArgs* a, int K, const void* consts, const void* 
   return launch_error(fn(
       *a, K, tile_rows(*a, K), (size_t)value_batch_smem_bytes(a, K), (cudaStream_t)stream,
       (const float*)consts, (const float*)U, (const float*)noise, (const float*)starts,
-      (float*)out));
+      (float*)out, (float*)scratch));
 }
 
 int trajectory_launch(const ApgArgs* a, const void* consts, const void* u,
                       void* x_out, void* stream) {
-#if ORACLE_GW
-  return (int)cudaErrorInvalidValue;       // trajectory is the other library's
+#if !ORACLE_P1
+  return (int)cudaErrorInvalidValue;       // trajectory is the P=1 library's
 #else
   // (x_evol of a particle solve too: the mean dynamics, on a P=1 form)
   const int step = p1_form_of(*a, ORACLE_TRAJECTORY);
@@ -1152,8 +1224,6 @@ int value_and_grad_launch(const ApgArgs* a, const void* consts, const void* u,
       !particles_ok(a, noise, starts) ||
       opt < 0 || (opt == 2) != (moments != nullptr) ||
       (!a->has_noise && (a->bf16 || a->groups != 1)) ||
-      // the wide step holds at most P1_FMAX features; its far buffers
-      (!a->has_noise && !p1_widths(*a) && a->F > P1_FMAX) ||
       (vg_far_of(*a) && scratch == nullptr) ||
       (a->has_noise && !cluster_args_ok(
           *a, g_cmax[ORACLE_VALUE_AND_GRAD][a->bf16 != 0][opt][a->sc_kind],

@@ -343,6 +343,18 @@ __device__ __forceinline__ void wrench4_reg(const ApgArgs& a, const float* mix,
   }
 }
 
+// wrench4 over all n_u controls of u (the wide step's forms past P1_FMAX
+// inputs), in wrench4_reg's order: the same sums where both run.
+__device__ __forceinline__ void wrench4_all(const ApgArgs& a, const float* mix,
+                                            const float* u, float* w) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float acc = 0.f;
+    for (int i = 0; i < a.n_u; ++i) acc = fmaf(u[i], mix[m * a.n_u + i], acc);
+    w[m] = acc;
+  }
+}
+
 // Sum of n values produced by f(e), by one warp; lane 0 writes *out.
 template <class Fn>
 __device__ __forceinline__ void warp_reduce_to(int n, Fn f, float* out) {
@@ -442,11 +454,17 @@ __device__ __forceinline__ void rows_gemm(int R, int N, int Kd, const float* A, 
 // where read). GW (the P=1 form P1_GLOBAL and the particle forms' global-
 // weight forms): the weights (and biases) at their offsets from wb, in
 // device memory (wt), read in the order and at the indices of the shared
-// copy, so both give the same sums.
-template <bool PART, bool TILED = false, bool BF = false, bool GW = false>
+// copy, so both give the same sums. DOT2 (trajectory's P=1 step): the
+// hidden and output layers' sums over the HID inputs as compensated dot
+// products (Ogita, Rump and Oishi's Dot2): each product's rounding error
+// (fmaf) and each addition's (TwoSum) carried in a second sum added last,
+// as accurate as one sum in twice the precision, rounded to float.
+template <bool PART, bool TILED = false, bool BF = false, bool GW = false,
+          bool DOT2 = false>
 __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
                       int ustride, int K, const float* x, float* st_h0p,
                       float* st_h1p, const float* wb = nullptr) {
+  static_assert(!DOT2 || (!PART && !TILED), "the compensated sums are the P=1 step's");
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = GW ? wb : s.c;
   const int F = a.F, HID = a.HID, OUT = a.OUT;
@@ -504,11 +522,25 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
   }
   __syncthreads();
   const float* w1 = c + a.o_w1; const float* b1 = c + a.o_b1;
+  // DOT2: sum_i h[i] * w[i * ld] over i < HID, compensated; the _rn
+  // intrinsics keep the compiler from fusing a product into a sum
+  auto dot2 = [&](const float* h, const float* w, int ld) {
+    float sum = 0.f, err = 0.f;
+    for (int i = 0; i < HID; ++i) {
+      const float x = h[i], y = wt<GW, BF>(w + i * ld);
+      const float p = __fmul_rn(x, y), t = __fadd_rn(sum, p), z = __fsub_rn(t, sum);
+      err += (__fsub_rn(sum, __fsub_rn(t, z)) + __fsub_rn(p, z)) + fmaf(x, y, -p);
+      sum = t;
+    }
+    return sum + err;
+  };
   for (int idx = tid; idx < R * HID; idx += nt) {
     const int r = idx / HID, j = idx - r * HID;
     const float* h = s.a0 + r * HID;
     float acc = 0.f;
-    for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w1 + i * HID + j);
+    if constexpr (DOT2) acc = dot2(h, w1 + j, HID);
+    else
+      for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w1 + i * HID + j);
     const float pre = acc + wt<GW>(b1 + j);
     s.a1[idx] = mm_in<BF>(pre * sigm(pre));
     if (st_h1p) st_h1p[idx] = pre;
@@ -519,7 +551,9 @@ __device__ void trunk(const ApgArgs& a, const Smem& s, int R, const float* U,
     const int r = idx / OUT, o = idx - r * OUT;
     const float* h = s.a1 + r * HID;
     float acc = 0.f;
-    for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w2 + i * OUT + o);
+    if constexpr (DOT2) acc = dot2(h, w2 + o, OUT);
+    else
+      for (int i = 0; i < HID; ++i) acc += h[i] * wt<GW, BF>(w2 + i * OUT + o);
     const float pre = acc + wt<GW>(b2 + o);
     s.a2[idx] = pre;
   }
@@ -704,13 +738,14 @@ __device__ __forceinline__ void em_step(const ApgArgs& a, const float* c, const 
 // TILED: the trunk's register-tiled products (the candidate rows of
 // cand_part). BF: the bf16 trunk (trunk). st_h0p, st_h1p: the rows'
 // pre-activations stashed there (trunk). GW, wb:
-// the weights in device memory (trunk).
-template <bool PART, int SC, bool TILED = false, bool BF = false, bool GW = false>
+// the weights in device memory (trunk). DOT2: the trunk's compensated sums.
+template <bool PART, int SC, bool TILED = false, bool BF = false, bool GW = false,
+          bool DOT2 = false>
 __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
                          int ustride, int K, const float* z, const float* x,
                          float* xn, int t, float* st_h0p = nullptr, float* st_h1p = nullptr,
                          const float* wb = nullptr) {
-  trunk<PART, TILED, BF, GW>(a, s, R, U, ustride, K, x, st_h0p, st_h1p, wb);
+  trunk<PART, TILED, BF, GW, DOT2>(a, s, R, U, ustride, K, x, st_h0p, st_h1p, wb);
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* c = s.c;
   const int OUT = a.OUT;
@@ -743,8 +778,10 @@ __device__ void fwd_step(const ApgArgs& a, const Smem& s, int R, const float* U,
 // row's draws). SC adds the state-constraint cotangents to ct first
 // (constr_bwd; the proximal form's slack gradient lands in cu[n_u..]). REG
 // (the P=1 forms): ct and c_h2 are register arrays, wr (4) the stashed
-// wrench, and c_h2[6..12) the caller's (sigma_bwd).
-template <bool PART, int SC, bool REG = false>
+// wrench, and c_h2[6..12) the caller's (sigma_bwd); its control cotangent
+// covers the first P1_FMAX - 9 controls, or with ALLU (the wide step's
+// forms past P1_FMAX inputs) all n_u.
+template <bool PART, int SC, bool REG = false, bool ALLU = false>
 __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
                                         const float* st, const float* x1,
                                         const float* h2, const float* u,
@@ -868,7 +905,7 @@ __device__ __forceinline__ void bwd_dyn(const ApgArgs& a, const float* c,
       for (int m = 0; m < 4; ++m) acc += c_wr[m] * mix[m * a.n_u + i];
       cu[i] = acc;
     };
-    if constexpr (REG) {
+    if constexpr (REG && !ALLU) {
 #pragma unroll
       for (int i = 0; i < P1_FMAX - 9; ++i) {
         const int ic = min(i, a.n_u - 1);
@@ -1565,9 +1602,12 @@ __device__ __forceinline__ void wide_l1_partials(const ApgArgs& a, const Smem& s
 // 1) so that their reads and swishes overlap; a unit past HID reads unit
 // HID - 1 (`uc`) and its value goes unused (as a product with 0 in layer 2:
 // unconditional reads keep the group's loads in flight together). The
-// global-weight form takes 2 (4 took its whole solve past 255 registers).
-template <bool GW>
-constexpr int wide_group = GW ? 2 : 4;
+// global-weight form takes 2 (4 took its whole solve past 255 registers);
+// the forms over more than P1_FMAX inputs (FX) half as many (at 4 and 2 the
+// whole solve's constrained forms took 255 registers and spilled 12-16 B in
+// the global-weight form).
+template <bool GW, bool FX = false>
+constexpr int wide_group = FX ? (GW ? 1 : 2) : (GW ? 2 : 4);
 __device__ __forceinline__ int unit_at(int m) { return (threadIdx.x & 31) + 32 * m; }
 
 // R rows through the horizon from x0 on the wide step, warp r < R owning row
@@ -1575,16 +1615,21 @@ __device__ __forceinline__ int unit_at(int m) { return (threadIdx.x & 31) + 32 *
 // in s.jt[r], s.jr[r]. STASH (the vg row, R = 1): the states into
 // s.xs[1..H], the pre-activations into s.h0p, s.h1p, the outputs into s.h2
 // and the wrench into s.wr for the reverse sweep; PROF then stamps the
-// chain's forward phases. wb: where GW reads the trunk. Ends without a
-// barrier (warp r wrote row r's costs, warp 0 the stash).
-template <int SC, bool STASH, bool GW, bool PROF = false>
+// chain's forward phases. wb: where GW reads the trunk. FX (trunks of more
+// than P1_FMAX inputs, F = 9 + n_u > 16): the features past the first
+// P1_FMAX (controls 7 ..) are read from the row's controls where layer 0
+// takes them, in input order after the first P1_FMAX, and the wrench sums
+// all n_u controls (wrench4_all); without it the first P1_FMAX inputs are
+// all there are. Ends without a barrier (warp r wrote row r's costs, warp 0
+// the stash).
+template <int SC, bool STASH, bool GW, bool PROF = false, bool FX = false>
 __device__ void wide_rollout(const ApgArgs& a, const Smem& s, const float* wb, int R,
                              const float* U, int ustride) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* c = s.c;
   const float* W = GW ? wb : c;
   const int HID = a.HID, F = a.F, NU = (HID + 31) / 32;
-  constexpr int WG = wide_group<GW>;
+  constexpr int WG = wide_group<GW, FX>;
   const bool own = warp < R;
   const float* Ur = U + (own ? warp : 0) * ustride;
   float x[13], jt = 0.f, jr = 0.f;
@@ -1597,7 +1642,8 @@ __device__ void wide_rollout(const ApgArgs& a, const Smem& s, const float* wb, i
       float uu[P1_FMAX - 9], f[P1_FMAX];
       load_controls(a, ut, uu);
       features_reg(a, x, uu, f);
-      wrench4_reg(a, c + a.o_mix, uu, w);
+      if constexpr (FX) wrench4_all(a, c + a.o_mix, ut, w);
+      else wrench4_reg(a, c + a.o_mix, uu, w);
       if (STASH) prof_stamp<PROF>(s, PH_FWD_SCALAR);
       for (int m0 = 0; m0 < NU; m0 += WG) {
         float acc[WG];
@@ -1614,6 +1660,14 @@ __device__ void wide_rollout(const ApgArgs& a, const Smem& s, const float* wb, i
             for (int q = 0; q < WG; ++q)
               acc[q] = fmaf(f[i], wt<GW>(W + a.o_w0 + i * HID + uc[q]), acc[q]);
           }
+        if constexpr (FX) {
+          for (int i = P1_FMAX; i < F; ++i) {
+            const float fi = ut[i - 9];                // control i - 9
+#pragma unroll
+            for (int q = 0; q < WG; ++q)
+              acc[q] = fmaf(fi, wt<GW>(W + a.o_w0 + i * HID + uc[q]), acc[q]);
+          }
+        }
 #pragma unroll
         for (int q = 0; q < WG; ++q) {
           const int u = unit_at(m0 + q);
@@ -1728,15 +1782,19 @@ __device__ __forceinline__ void wide_l1_back(const ApgArgs& a, const Smem& s,
 // The manual reverse sweep of the vg row (bodies.py::manual_bwd_step, B = 1)
 // on the stash of wide_rollout<STASH>: the dynamics part of the control
 // gradient (with the slack columns' in the proximal form) into s.g; PROF
-// stamps the chain's reverse phases. Ends with a barrier.
-template <int SC, bool GW, bool PROF = false>
+// stamps the chain's reverse phases. FX (more than P1_FMAX inputs): the
+// wrench's cotangent over all n_u controls (bwd_dyn's ALLU), and layer 0's
+// transpose past the first P1_FMAX inputs in slices of P1_FMAX, one
+// scattered warp sum each, each control's gradient from its input's lanes.
+// Ends with a barrier.
+template <int SC, bool GW, bool PROF = false, bool FX = false>
 __device__ void wide_reverse(const ApgArgs& a, const Smem& s, const float* wb,
                              const float* U) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* c = s.c;
   const float* W = GW ? wb : c;
   const int HID = a.HID, F = a.F, nZ = a.nZ, NU = (HID + 31) / 32;
-  constexpr int WG = wide_group<GW>;
+  constexpr int WG = wide_group<GW, FX>;
   float ct[13];
 #pragma unroll
   for (int i = 0; i < 13; ++i) ct[i] = 0.f;
@@ -1748,8 +1806,8 @@ __device__ void wide_reverse(const ApgArgs& a, const Smem& s, const float* wb,
       const float cR = d_t * c[a.o_scal + SC_RESM];
       float c_h2[P1_OUT];
       sigma_bwd(s.h2 + t * P1_OUT, cR, c[a.o_scal + SC_DIFF], c_h2);
-      bwd_dyn<false, SC, true>(a, c, st, st + 13, s.h2 + t * P1_OUT, U + t * nZ, nullptr, t,
-                               d_t, cR, ct, c_h2, s.cu, s.wr + t * 4);
+      bwd_dyn<false, SC, true, FX>(a, c, st, st + 13, s.h2 + t * P1_OUT, U + t * nZ, nullptr,
+                                   t, d_t, cR, ct, c_h2, s.cu, s.wr + t * 4);
       prof_stamp<PROF>(s, PH_BWD_SCALAR);
       const float* h1p = s.h1p + t * HID;
       for (int m0 = 0; m0 < NU; m0 += WG) {
@@ -1798,6 +1856,24 @@ __device__ void wide_reverse(const ApgArgs& a, const Smem& s, const float* wb,
         const float v = s.cu[min(i, a.n_u - 1)] + cf[9 + i];
         if (i < a.n_u && lane == 0) g[i] = v;
       }
+      if constexpr (FX) {
+        // the inputs past the first P1_FMAX, P1_FMAX at a time: input f0 + o
+        // in lanes 2o, 2o + 1, its control's gradient as above
+        for (int f0 = P1_FMAX; f0 < F; f0 += P1_FMAX) {
+#pragma unroll
+          for (int f = 0; f < P1_FMAX; ++f) cf[f] = 0.f;
+          for (int m = 0; m < NU; ++m) {
+            const int j = lane + 32 * m, jc = min(j, HID - 1);
+            const float gj = j < HID ? s.c_h0p[jc] : 0.f;
+#pragma unroll
+            for (int f = 0; f < P1_FMAX; ++f)
+              if (f0 + f < F) cf[f] = fmaf(wt<GW>(W + a.o_w0 + (f0 + f) * HID + jc), gj, cf[f]);
+          }
+          const float v = warp_sum16_scatter(cf);
+          const int i = f0 + (lane >> 1) - 9;
+          if (!(lane & 1) && i < a.n_u) g[i] = s.cu[i] + v;
+        }
+      }
       if constexpr (SC == CONSTR_PROX)
         for (int i = a.n_u + lane; i < nZ; i += 32) g[i] = s.cu[i];
     }
@@ -1811,16 +1887,17 @@ __device__ void wide_reverse(const ApgArgs& a, const Smem& s, const float* wb,
 // trajectory, x_evol), the manual reverse sweep, the closed-form control
 // gradients and the control-only terms, as vg ends. The gradient lands in
 // s.g, the value in *fval (shared memory). U and s.w2t (wide_prep) must be
-// visible to the block on entry. PROF: the chain's clock stamps.
-template <int SC, bool GW, bool PROF = false>
+// visible to the block on entry. PROF: the chain's clock stamps. FX: more
+// than P1_FMAX trunk inputs (wide_rollout).
+template <int SC, bool GW, bool PROF = false, bool FX = false>
 __device__ void vg_wide(const ApgArgs& a, const Smem& s, const float* wb, float* fval,
                         const float* U) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* c = s.c;
   const int HZ = a.H * a.nZ;
   if (tid < 13) s.xs[tid] = c[a.o_x0 + tid];
-  wide_rollout<SC, true, GW, PROF>(a, s, wb, 1, U, 0);
-  wide_reverse<SC, GW, PROF>(a, s, wb, U);
+  wide_rollout<SC, true, GW, PROF, FX>(a, s, wb, 1, U, 0);
+  wide_reverse<SC, GW, PROF, FX>(a, s, wb, U);
   for (int e = tid; e < HZ; e += blockDim.x) {
     const int t = e / a.nZ, i = e - t * a.nZ;
     s.g[e] = s.g[e] + ctrl_grad<SC>(a, c, U, t, i);
@@ -1841,10 +1918,10 @@ __device__ void vg_wide(const ApgArgs& a, const Smem& s, const float* wb, float*
 // The K candidate plans of s.cand ((K, H, nZ), visible to the block) through
 // the horizon from x0 on the wide step (bodies.py::run_candidates at P=1):
 // row k's costs in s.jt[k], s.jr[k]. Ends without a barrier, as
-// wide_rollout.
-template <int SC, bool GW>
+// wide_rollout (FX its).
+template <int SC, bool GW, bool FX = false>
 __device__ void cand_wide(const ApgArgs& a, const Smem& s, const float* wb, int K) {
-  wide_rollout<SC, false, GW>(a, s, wb, K, s.cand, a.H * a.nZ);
+  wide_rollout<SC, false, GW, false, FX>(a, s, wb, K, s.cand, a.H * a.nZ);
 }
 
 // Every block of the cluster: out(e, v) for e < n, v the sum over the
@@ -1935,16 +2012,19 @@ __device__ __forceinline__ int rank_now(const ApgArgs& a) {
 // The spread forms' set-up, by every thread before the block's first
 // barrier: the block's Spread `sp` (shared memory) in s, no sum taken, and
 // with groups > 1 this scenario's counter and slots in `scratch`
-// (apg_solve.cuh spread_floats).
+// (apg_solve.cuh spread_floats). units: the launch's spread units, each on
+// groups * cluster blocks of its own (0: a.batch, one a scenario; the
+// particle value_batch spreads each of its a.batch * K plans).
 __device__ __forceinline__ void spread_init(const ApgArgs& a, Smem& s, Spread* sp,
-                                            float* scratch) {
+                                            float* scratch, size_t units = 0) {
   s.sp = sp;
   if (threadIdx.x != 0) return;
   sp->nsum = 0;
   if (a.groups > 1) {
     const size_t b = spread_scenario(a);
     sp->arrive = reinterpret_cast<unsigned*>(scratch) + b * SPREAD_CTR;
-    sp->slots = scratch + (size_t)a.batch * SPREAD_CTR + b * 2 * (size_t)spread_region(a);
+    sp->slots = scratch + (units ? units : (size_t)a.batch) * SPREAD_CTR +
+                b * 2 * (size_t)spread_region(a);
   }
 }
 

@@ -664,6 +664,9 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
     mppi_cfg = None
     if mppi:
         mppi_cfg = MPPIConfig.from_config(cfg) if mppi_params is None else mppi_params
+    # the K of most of the solver's value_batch launches, which the oracle
+    # plans its particle chunk for (cost_oracle.py::plan_oracle_particles)
+    plans = int(mppi_cfg.samples) if mppi else 1
     P = num_particles
     spread = x0_spread is not None          # needs P > 1 (_check_slice)
     P_local, lo = P, 0
@@ -776,7 +779,7 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         if particle_shard is None:
             return cost_oracle_batched(model, params, cost_params, time_steps, xs, x_ref,
                                        u_prev, noise, P, apg_cfg.maxls, chunk=chunk,
-                                       starts=starts, bf16=bf16)
+                                       starts=starts, bf16=bf16, plans=plans)
         return _sharded_oracle(xs, x_ref, u_prev, noise, starts)
 
     def _sharded_oracle(xs, x_ref, u_prev, noise, starts):
@@ -800,7 +803,8 @@ def build_mpc(cfg: Dict[str, Any], convert_to_enu: bool = True,
         local = cost_oracle_batched(
             model, params, cost_params, time_steps, xs, x_ref, u_prev,
             None if noise is None else noise[:, lo:hi], P_local, apg_cfg.maxls, chunk=chunk,
-            starts=None if starts is None else starts[:, lo:hi].contiguous(), bf16=bf16)
+            starts=None if starts is None else starts[:, lo:hi].contiguous(), bf16=bf16,
+            plans=plans)
         n_sh = int(particle_shard.count)
         mean = lambda t: particle_shard.reduce(t) / float(n_sh)
 

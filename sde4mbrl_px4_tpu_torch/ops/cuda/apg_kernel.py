@@ -56,10 +56,13 @@ structure over a runtime width, layer 1 split over the block's warps; its
 weights in the block's shared memory, or in device memory where they do
 not fit 227 KB; the library chooses, ``apg_p1_form`` reports it; past
 227 KB again its width-sized buffers go to the launch's scratch in device
-memory, so any width runs). Every P=1 form takes at most 16 trunk inputs
-(``consts.p1_check_inputs``). The wide step's forms are a library of their
-own (``csrc/apg_solve_p1.cu``, :func:`load_apg_library` with ``p1_step``),
-built in parallel with the others.
+memory, so any width runs). The wide step takes any number of trunk
+inputs: past 16 (eight motors or more, ``consts.p1_wide_inputs``) in forms
+whose layer 0 reads the inputs past the first 16 from the row's controls.
+The wide step's forms are a library of their own (``csrc/apg_solve_p1.cu``,
+:func:`load_apg_library` with ``p1_step``; those over more than 16 inputs
+``csrc/apg_solve_p1x.cu``, with ``wide_inputs`` too), built in parallel
+with the others.
 :func:`apg_phase_split` runs the same solve without state constraints
 (P=1 on the register chain or the wide step with its weights in shared
 memory, or particles) through the kernel's
@@ -87,7 +90,8 @@ options forms (risk and starts off unless the solve has them) in libraries
 of their own (``csrc/apg_solve_gw.cu``, ``csrc/apg_solve_gw_bf16.cu``;
 :func:`load_apg_library` with ``part_global``), picked by ``apg_part_form``
 after the chunk is planned; ``apg_solve_kernel.launches_global`` counts
-their launches (in ``.launches`` too). The global-weight form spreads a
+their launches (in ``.launches`` too), ``.launches_wide_inputs`` the P=1
+launches of the wide step's forms over more than 16 trunk inputs. The global-weight form spreads a
 scenario's chunks over ``ApgArgs.groups`` clusters' worth of blocks
 (``consts.py`` module docstring, ``consts.plan_groups``: the most the card
 holds at once for the launch's B scenarios, from the library's
@@ -115,7 +119,7 @@ from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     P1_GLOBAL, SC_NONE, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts,
-    has_options, p1_check_inputs, p1_widths, plan_groups, plan_particles, sc_kind,
+    has_options, p1_wide_inputs, p1_widths, plan_groups, plan_particles, sc_kind,
     scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.cuda.cost_oracle import (
     cost_oracle_plain, resolve_particles, trajectory_kernel)
@@ -141,12 +145,14 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def load_apg_library(bf16: bool = False, p1_step: bool = False,
-                     part_global: bool = False, chain: bool = False) -> ctypes.CDLL:
+                     part_global: bool = False, chain: bool = False,
+                     wide_inputs: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/apg_solve.cu`` (the fp32
     particle forms), with ``chain`` ``csrc/apg_solve_chain.cu`` (the P=1
     register chain), with ``bf16`` ``csrc/apg_solve_bf16.cu`` (the
     bf16-trunk particle forms), with ``p1_step`` ``csrc/apg_solve_p1.cu``
-    (the P=1 wide step), with ``part_global``
+    (the P=1 wide step; with ``wide_inputs`` too ``csrc/apg_solve_p1x.cu``,
+    its forms over more than 16 trunk inputs), with ``part_global``
     ``csrc/apg_solve_gw.cu`` (``csrc/apg_solve_gw_bf16.cu`` with ``bf16``:
     the particle global-weight forms). Each answers the shared-memory and ABI
     queries of every form."""
@@ -154,6 +160,8 @@ def load_apg_library(bf16: bool = False, p1_step: bool = False,
         name = "apg_solve_gw_bf16" if bf16 else "apg_solve_gw"
     elif chain:
         name = "apg_solve_chain"
+    elif p1_step and wide_inputs:
+        name = "apg_solve_p1x"
     else:
         name = "apg_solve_bf16" if bf16 else "apg_solve_p1" if p1_step else "apg_solve"
     lib = load_library(name)
@@ -276,7 +284,6 @@ def _launch(lib: ctypes.CDLL, args: ApgArgs, consts: torch.Tensor,
     limit = (SMEM_LIMIT_PARTICLES
              if args.has_noise or args.sc_kind != SC_NONE or not p1_widths(args.F, args.HID)
              else SMEM_LIMIT)
-    p1_check_inputs(args, "apg_solve_kernel")
     need = lib.apg_smem_bytes(ctypes.byref(args))
     if need > limit:
         raise ValueError(f"apg_solve_kernel needs {need} bytes of shared "
@@ -475,7 +482,9 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
                                 u_prev[0], lb, ub, has_pre=precond is not None,
                                 iter_budget=iter_budget, particles=z is not None)
     chain = z is None and p1_widths(args.F, args.HID)
-    lib = load_apg_library(bool(bf16), z is None and not chain, chain=chain)
+    wide = z is None and not chain
+    lib = load_apg_library(bool(bf16), wide, chain=chain,
+                           wide_inputs=wide and p1_wide_inputs(args.F))
     weights = scenario_weights(cp, B)
     if B > 1:
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
@@ -498,6 +507,9 @@ def _solve_on_card(model, params, cp, apg, time_steps, x0, x_ref, u_prev, noise,
     yk, stats, x_evol = _launch(lib, args, consts, u_init, t0, precond, z, starts,
                                 torch.cuda.current_stream(dev).cuda_stream, prof)
     apg_solve_kernel.launches_global += int(glob)
+    # the wide step's forms over more than 16 inputs (apg_solve_p1x.cu)
+    apg_solve_kernel.launches_wide_inputs += int(wide and p1_wide_inputs(args.F)
+                                                 and prof is None)
     if glob:
         n = args.groups * args.cluster
         apg_solve_kernel.blocks_global[n] = apg_solve_kernel.blocks_global.get(n, 0) + 1
@@ -539,5 +551,5 @@ def apg_phase_split(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
 
 
 apg_solve_kernel.launches = apg_solve_kernel.launches_bf16 = 0
-apg_solve_kernel.launches_global = 0
+apg_solve_kernel.launches_global = apg_solve_kernel.launches_wide_inputs = 0
 apg_solve_kernel.blocks_global = {}

@@ -65,8 +65,12 @@ launch given a form by name (``step``, for measurement) takes it or is
 refused. Past 227 KB with the weights in device memory (624 units on the
 iris traj config in the whole solve, 896 in ``value_and_grad``) the wide
 step keeps its width-sized buffers in the launch's scratch in device
-memory, so it takes any width; it takes at most :data:`P1_FMAX` trunk
-inputs (:func:`p1_check_inputs`).
+memory, so it takes any width. It takes any number of trunk inputs: past
+:data:`P1_FMAX` (eight motors or more) in forms of their own
+(:func:`p1_wide_inputs`), whose layer 0 reads the inputs past the first 16
+from the row's controls, in libraries of their own (the whole solve's
+``csrc/apg_solve_p1x.cu``; ``value_and_grad``'s with every other P=1 form of
+the oracle in ``csrc/cost_oracle_p1.cu``).
 
 The particle forms' trunk: the weights, and their transposes for the
 reverse sweep, in the block's copy of the consts (:data:`P1_SMEM`, every
@@ -80,15 +84,17 @@ in the shared-memory form first, so the global-weight form runs only where
 no chunk of the other fits. A form named in ``ApgArgs.step`` (for
 measurement) is planned alone and taken or refused at launch.
 
-The spread (``ApgArgs.groups``): the global-weight forms of the whole solve
-and of ``value_and_grad`` run a scenario on ``groups * cluster`` blocks,
-block j sweeping chunks ``j, j + groups * cluster, ...``
+The spread (``ApgArgs.groups``): the global-weight forms of the whole
+solve, ``value_and_grad`` and ``value_batch`` run a scenario (for
+``value_batch`` each of a scenario's K plans) on ``groups * cluster``
+blocks, block j sweeping chunks ``j, j + groups * cluster, ...``
 (:func:`scenario_chunks`); past one cluster the blocks are plain blocks of
 a cooperative grid, their chunk partials summed in chunk order through
-slots in device memory (``csrc/sweeps.cuh``, the spread note), so the bits
-are those of one cluster. :func:`plan_groups` picks ``groups`` after the
-form: 1 for every other form, and for those two the most that keep every
-block of the launch resident at once on the card.
+slots in device memory (``csrc/sweeps.cuh``, the spread note; the launch's
+scratch, :func:`spread_floats`), so the bits are those of one cluster.
+:func:`plan_groups` picks ``groups`` after the form: 1 for every other form,
+and for those the most that keep every block of the launch resident at
+once on the card.
 """
 from __future__ import annotations
 
@@ -106,10 +112,10 @@ __all__ = ["APG_MAXK", "OPT_MOMENTS", "ORACLE_P1_ROWS", "ORACLE_TILE", "ORACLE_T
            "ORACLE_VALUE_AND_GRAD", "ORACLE_VALUE_BATCH", "P1_BY_SHAPE", "P1_CHAIN", "P1_FMAX",
            "P1_GLOBAL", "P1_HID", "P1_SMEM", "RISK_IN_CLUSTER", "RISK_MOMENTS_IN",
            "RISK_MOMENTS_OUT", "SMEM_LIMIT_PARTICLES", "SC_NONE", "SC_PENALTY", "SC_PROX",
-           "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form",
-           "p1_check_inputs", "p1_widths",
-           "plan_cluster", "plan_groups", "plan_particles", "sc_kind", "scenario_chunks",
-           "scenario_weights", "value_batch_grid"]
+           "SPREAD_CTR", "ApgArgs", "batch_consts", "build_consts", "has_options", "opt_form",
+           "p1_wide_inputs", "p1_widths", "plan_cluster", "plan_groups", "plan_particles",
+           "sc_kind", "scenario_chunks", "scenario_weights", "spread_floats",
+           "value_batch_grid"]
 
 APG_MAXK = 8  # csrc/apg_solve.cuh
 # the P=1 register chain holds the trunk in registers at these widths: hidden
@@ -121,6 +127,9 @@ P1_HID, P1_FMAX = 64, 16
 # value_batch and trajectory the shared-memory step), and that step with the
 # weights in device memory (the particle forms: the last two)
 P1_BY_SHAPE, P1_CHAIN, P1_SMEM, P1_GLOBAL = -1, 0, 1, 2
+# the spread's scratch: each unit's arrival counter SPREAD_CTR 4-byte words
+# apart (csrc/apg_solve.cuh SPREAD_CTR, spread_floats)
+SPREAD_CTR = 32
 # shared memory a block of a particle form may take: 227 KB, all of an sm_90
 # block's (csrc/apg_solve.cuh APG_SMEM_LIMIT_PARTICLES)
 SMEM_LIMIT_PARTICLES = 232448
@@ -207,17 +216,15 @@ def p1_widths(F: int, HID: int) -> bool:
     return HID == P1_HID and F <= P1_FMAX
 
 
-def p1_check_inputs(args: ApgArgs, what: str) -> None:
-    """Raise ValueError where a P=1 launch of the whole solve or
-    ``value_and_grad`` (``what``) has a trunk of more than :data:`P1_FMAX`
-    inputs (9 + n_u, n_u > 7 motors): the register chain and the wide step
-    hold the features in registers, at most :data:`P1_FMAX` of them
-    (``csrc/sweeps.cuh::features_reg``), and the libraries refuse such a
-    launch. ``value_batch``, ``trajectory`` and the particle forms take any
-    width."""
-    if not args.has_noise and args.F > P1_FMAX:
-        raise ValueError(f"{what}: the P=1 kernels take at most {P1_FMAX} trunk inputs "
-                         f"(9 + {P1_FMAX - 9} motors), got F = {args.F}")
+def p1_wide_inputs(F: int) -> bool:
+    """Whether a P=1 whole solve or ``value_and_grad`` on the wide step takes
+    its forms over more than :data:`P1_FMAX` trunk inputs (9 + n_u, n_u > 7
+    motors; ``csrc/sweeps.cuh::wide_rollout``'s FX): the forms of up to 16
+    hold a row's features in registers, these read the rest from the row's
+    controls. The register chain takes at most 16 (:func:`p1_widths`);
+    ``value_batch``, ``trajectory`` and the particle forms take any number in
+    one form."""
+    return int(F) > P1_FMAX
 
 
 def build_consts(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
@@ -356,22 +363,38 @@ def plan_cluster(n_chunks: int, c_max: int) -> Tuple[int, int]:
     return C, -(-int(n_chunks) // C)
 
 
-def plan_groups(a: ApgArgs, form: int, resident: int) -> None:
+def plan_groups(a: ApgArgs, form: int, resident: int, plans: int = 1) -> None:
     """The spread of a particle launch whose chunk and cluster are planned
     (:func:`plan_particles`), for its form ``form`` (``ApgArgs.step`` or the
     library's ``*_part_form``): ``a.groups`` G, the clusters' worth of blocks
-    each of the ``a.batch`` scenarios runs on, and ``a.chunks_per_block``
-    over the scenario's G * C blocks. G = 1 but for the global-weight form
-    (:data:`P1_GLOBAL`) of a particle launch, where G is the most groups
-    with G * C <= n_chunks (every block a chunk) and batch * G * C <=
-    ``resident`` (every block of the launch on the card at once: the
-    cooperative launch's bound, ``apg_resident_blocks`` /
-    ``oracle_resident_blocks``), at least 1."""
-    C, B = int(a.cluster), int(a.batch)
+    each of the launch's ``a.batch * plans`` units runs on (``plans``: the
+    plans of a scenario that each spread on their own, ``value_batch``'s K;
+    1 for the whole solve and ``value_and_grad``, a unit a scenario), and
+    ``a.chunks_per_block`` over a unit's G * C blocks. G = 1 but for the
+    global-weight form (:data:`P1_GLOBAL`) of a particle launch, where G is
+    the most groups with G * C <= n_chunks (every block a chunk) and units *
+    G * C <= ``resident`` (every block of the launch on the card at once:
+    the cooperative launch's bound, ``apg_resident_blocks``,
+    ``oracle_resident_blocks``, ``value_batch_resident_blocks``), at least
+    1."""
+    C, units = int(a.cluster), int(a.batch) * int(plans)
     a.groups = 1
     if a.has_noise and form == P1_GLOBAL:
-        a.groups = max(1, min(int(a.n_chunks) // C, int(resident) // (B * C)))
+        a.groups = max(1, min(int(a.n_chunks) // C, int(resident) // (units * C)))
     a.chunks_per_block = -(-int(a.n_chunks) // (a.groups * C))
+
+
+def spread_floats(a: ApgArgs, plans: int = 1) -> int:
+    """Floats of a spread launch's scratch (``csrc/apg_solve.cuh::
+    spread_floats``; ``value_batch_scratch_floats`` with ``plans`` = K): 0
+    at ``groups`` 1; else per unit (``a.batch * plans`` of them) an arrival
+    counter :data:`SPREAD_CTR` words wide and two regions of ``n_chunks``
+    slots, each slot as wide as the widest chunk partial (H * nZ + 3, or
+    3K for the whole solve's K candidates)."""
+    if int(a.groups) <= 1:
+        return 0
+    width = max(int(a.H) * int(a.nZ) + 3, 3 * int(a.K))
+    return int(a.batch) * int(plans) * (SPREAD_CTR + 2 * int(a.n_chunks) * width)
 
 
 def scenario_chunks(a: ApgArgs) -> list:
@@ -412,7 +435,7 @@ _FORM_NAMES = {P1_SMEM: "the shared-memory form", P1_GLOBAL: "the global-weight 
 
 def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
                    need: Callable[[ApgArgs], int], limit: int,
-                   c_max: Union[int, Callable[[int], int]] = 1) -> None:
+                   c_max: Union[int, Callable[[int], int]] = 1, gw_max_chunk: int = 0) -> None:
     """Fill the particle fields of ``a`` for a Monte-Carlo solve: P paths
     swept in ``n_chunks`` passes of ``Pc`` rows, over a cluster of at most
     ``c_max`` blocks (:func:`plan_cluster`; a function of the particle form
@@ -423,7 +446,10 @@ def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
     form ``a.step`` names) fits ``limit``. The shared-memory form
     (:data:`P1_SMEM`) is tried at every chunk first and the global-weight
     form (:data:`P1_GLOBAL`) only where none fits (module docstring); a
-    form named in ``a.step`` is tried alone. ``a.step`` is left as
+    form named in ``a.step`` is tried alone. ``gw_max_chunk`` (the oracle's
+    global-weight plan, ``cost_oracle.plan_oracle_particles``): the
+    global-weight form tries no chunk larger (0: every chunk), so that a
+    plan has chunks enough for the spread's blocks. ``a.step`` is left as
     it came: the libraries take the planned form by shape. Raises ValueError,
     naming the width and the bytes, when nothing fits."""
     P = int(num_particles)
@@ -436,7 +462,8 @@ def plan_particles(a: ApgArgs, num_particles: int, chunk: int,
     try:
         for form in forms:
             a.step = form
-            for pc in sizes:
+            small = [d for d in sizes if d <= gw_max_chunk]
+            for pc in (small or sizes[-1:]) if form == P1_GLOBAL and gw_max_chunk else sizes:
                 a.Pc, a.n_chunks = pc, P // pc
                 a.cluster, a.chunks_per_block = plan_cluster(a.n_chunks, cmax(form))
                 a.groups = 1

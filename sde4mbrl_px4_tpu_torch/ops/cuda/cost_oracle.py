@@ -102,20 +102,34 @@ library of their own (``csrc/cost_oracle_gw.cu``;
 shared-memory forms first, and each takes its form by shape (``value_batch``
 keeps its shared-memory form wherever its own block fits).
 ``.launches_global`` counts each kernel's global-weight launches (in
-``.launches`` too). ``value_and_grad``'s global-weight form spreads a
-scenario's chunks over ``ApgArgs.groups`` clusters' worth of blocks
-(``consts.plan_groups``: the most the card holds at once for the B
-scenarios, ``oracle_resident_blocks``), with the bits of one cluster; its
-launches keep their own copy of the plan (``value_batch``, whose grid is K
-clusters a scenario, keeps groups 1), and ``cluster``, when given, plans one
-cluster a scenario. ``value_and_grad_kernel.blocks_global`` counts its
-global-weight launches by their blocks per scenario.
+``.launches`` too). Both global-weight forms spread their chunks over
+``ApgArgs.groups`` clusters' worth of blocks (``consts.plan_groups``: the
+most the card holds at once, ``oracle_resident_blocks`` /
+``value_batch_resident_blocks``), with the bits of one cluster:
+``value_and_grad`` a scenario, ``value_batch`` each of its B x K plans
+(planned per K at the first launch of that K: a K = 1 trial spreads, MPPI's
+K = 64 grid fills the card at groups 1). Each kernel's launches keep their
+own copy of the plan, and ``cluster``, when given, plans one cluster a
+scenario (a plan). ``value_and_grad_kernel.launches_wide_inputs`` counts
+its P=1 launches of the wide step's forms over more than 16 trunk inputs.
+``.blocks_global`` on both wrappers counts their
+global-weight launches by their blocks per scenario (per plan). The oracle
+plans one chunk for both kernels; in the global-weight forms a chunk of at
+most ``max(P // GW_ORACLE_BLOCKS, GW_MIN_ROWS)`` rows where ``value_batch``
+spreads at the K its solver launches most (``plans``: MPPI's samples, 1 for
+APG), else the largest chunk that fits (:func:`plan_oracle_particles`).
+
+Three libraries: ``csrc/cost_oracle.cu`` (the cluster particle forms),
+``csrc/cost_oracle_gw.cu`` (the particle global-weight forms) and
+``csrc/cost_oracle_p1.cu`` (every P=1 form, ``trajectory`` among them),
+built in parallel; :func:`load_oracle_library` loads each, and each answers
+the shared-memory and ABI queries of every form.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -124,9 +138,10 @@ from sde4mbrl_px4_tpu_torch.cost.cost import (CostParams, make_cost_fn, make_ris
 from sde4mbrl_px4_tpu_torch.models.sde_model import NeuralSDE
 from sde4mbrl_px4_tpu_torch.ops.cuda.build import load_library
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
-    OPT_MOMENTS, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL, RISK_MOMENTS_IN,
-    RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts, build_consts, opt_form,
-    p1_check_inputs, p1_widths, plan_groups, plan_particles, scenario_weights)
+    OPT_MOMENTS, ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_GLOBAL,
+    RISK_MOMENTS_IN, RISK_MOMENTS_OUT, SMEM_LIMIT_PARTICLES, ApgArgs, batch_consts,
+    build_consts, opt_form, p1_wide_inputs, p1_widths, plan_groups, plan_particles,
+    scenario_weights)
 from sde4mbrl_px4_tpu_torch.ops.rollout import rollout_mean, rollout_sde
 from sde4mbrl_px4_tpu_torch.solver.apg import CostOracle
 
@@ -136,16 +151,23 @@ __all__ = ["cost_oracle", "cost_oracle_plain", "cost_oracle_batched",
            "resolve_particles", "SMEM_LIMIT", "SMEM_LIMIT_PARTICLES"]
 
 SMEM_LIMIT = 49152   # bytes of shared memory a block of the register chain may use (48 KB)
+# the oracle's global-weight chunk where value_batch spreads
+# (plan_oracle_particles): at most P // GW_ORACLE_BLOCKS rows, so that a plan
+# has that many chunks for the spread's blocks, but not below GW_MIN_ROWS rows
+GW_ORACLE_BLOCKS, GW_MIN_ROWS = 64, 8
 _P = ctypes.c_void_p
 _A = ctypes.POINTER(ApgArgs)
 
 
 @functools.lru_cache(maxsize=None)
-def load_oracle_library(part_global: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/cost_oracle.cu``, with
-    ``part_global`` ``csrc/cost_oracle_gw.cu`` (the particle global-weight
-    forms). Each answers the shared-memory and ABI queries of every form."""
-    lib = load_library("cost_oracle_gw" if part_global else "cost_oracle")
+def load_oracle_library(part_global: bool = False, p1: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/cost_oracle.cu`` (the cluster
+    particle forms), with ``part_global`` ``csrc/cost_oracle_gw.cu`` (the
+    particle global-weight forms), with ``p1`` ``csrc/cost_oracle_p1.cu``
+    (every P=1 form and ``trajectory``). Each answers the shared-memory and
+    ABI queries of every form."""
+    lib = load_library("cost_oracle_gw" if part_global else
+                       "cost_oracle_p1" if p1 else "cost_oracle")
     sig = {
         "cost_oracle_args_size": ([], ctypes.c_int),
         "cost_oracle_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -155,7 +177,7 @@ def load_oracle_library(part_global: bool = False) -> ctypes.CDLL:
         "value_and_grad_smem_bytes": ([_A], ctypes.c_int),
         "oracle_p1_form": ([_A, ctypes.c_int], ctypes.c_int),
         "oracle_part_form": ([_A, ctypes.c_int], ctypes.c_int),
-        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 6, ctypes.c_int),
+        "value_batch_launch": ([_A, ctypes.c_int] + [_P] * 7, ctypes.c_int),
         "trajectory_launch": ([_A] + [_P] * 4, ctypes.c_int),
         "value_and_grad_launch": ([_A] + [_P] * 9, ctypes.c_int),
         "value_batch_rows": ([_A, ctypes.c_int], ctypes.c_int),
@@ -164,6 +186,8 @@ def load_oracle_library(part_global: bool = False) -> ctypes.CDLL:
                                        ctypes.c_int),
         "oracle_resident_blocks": ([_A, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
         "value_and_grad_scratch_floats": ([_A], ctypes.c_longlong),
+        "value_batch_resident_blocks": ([_A, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+        "value_batch_scratch_floats": ([_A, ctypes.c_int], ctypes.c_longlong),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -280,11 +304,12 @@ def cost_oracle_plain(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                       num_particles: int, maxls: int,
                       deterministic: Optional[bool] = None,
                       chunk: int = 0, starts: Optional[torch.Tensor] = None,
-                      bf16: bool = False) -> CostOracle:
+                      bf16: bool = False, plans: int = 1) -> CostOracle:
     """Plain PyTorch version of :func:`cost_oracle` (any device): the
     unchunked particle mean (with ``risk_lambda``, mean + lambda * std), the
     particles from ``starts`` (P, 13) where given; ``bf16`` the trunk's
-    products on bf16-rounded operands (``trajectory`` stays fp32). With
+    products on bf16-rounded operands (``trajectory`` stays fp32); ``plans``
+    unused (no launch plan). With
     ``risk_lambda`` at P > 1 also the module docstring's two moment
     evaluations, one plan's (``value_batch_moments`` (K, H, n) -> (K, 3),
     ``value_and_grad_moments(u, moments (2,))``): ``make_risk_moments_fn``
@@ -352,10 +377,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _library(args: ApgArgs, kind: int) -> Tuple[ctypes.CDLL, bool]:
-    """The library a launch of ``kind`` takes, and whether its form is the
-    particle global-weight form (``oracle_part_form``)."""
+    """The library a launch of ``kind`` takes (the P=1 forms' and
+    ``trajectory``'s, the cluster particle forms' or the particle
+    global-weight forms'), and whether its form is the particle global-weight
+    form (``oracle_part_form``)."""
+    if not args.has_noise or kind == ORACLE_TRAJECTORY:
+        return load_oracle_library(p1=True), False
     lib = load_oracle_library()
-    glob = bool(args.has_noise) and lib.oracle_part_form(ctypes.byref(args), kind) == P1_GLOBAL
+    glob = lib.oracle_part_form(ctypes.byref(args), kind) == P1_GLOBAL
     return (load_oracle_library(True) if glob else lib), glob
 
 
@@ -399,7 +428,8 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     too. Every scenario must hold the same trunk in its consts (as
     ``consts.batch_consts`` writes them): the forms with the weights in
     device memory (at P=1, and the particle global-weight forms) read
-    scenario 0's for all."""
+    scenario 0's for all. The global-weight form runs each plan on
+    ``args.groups * args.cluster`` blocks (:func:`_batch_spread` plans it)."""
     lib, glob = _library(args, ORACLE_VALUE_BATCH)
     K = int(U.shape[-3])
     _check_batch("value_batch", args, consts, U, K * args.H * args.nZ, noise, starts)
@@ -410,14 +440,21 @@ def value_batch_kernel(consts: torch.Tensor, args: ApgArgs, U: torch.Tensor,
     moments = args.risk_mode == RISK_MOMENTS_OUT
     out = torch.empty(U.shape[:-2] + ((3,) if moments else ()), dtype=torch.float32,
                       device=U.device)
+    # the spread's slots and counters (consts.plan_groups), zeroed by the launcher
+    n_scratch = lib.value_batch_scratch_floats(ctypes.byref(args), K)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=U.device) if n_scratch
+               else None)
     _raise_on(lib.value_batch_launch(ctypes.byref(args), K, consts.data_ptr(),
                                      U.data_ptr(), _ptr(noise), _ptr(starts),
-                                     out.data_ptr(), _stream(U)),
+                                     out.data_ptr(), _ptr(scratch), _stream(U)),
               "value_batch")
     value_batch_kernel.launches += 1
     value_batch_kernel.launches_bf16 += args.bf16
     value_batch_kernel.launches_global += glob
     value_batch_kernel.launches_moments += moments
+    if glob:
+        n, seen = args.groups * args.cluster, value_batch_kernel.blocks_global
+        seen[n] = seen.get(n, 0) + 1
     return out
 
 
@@ -449,7 +486,6 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
                          "package runs it on its kernel, at HIGHEST)")
     lib, glob = _library(args, ORACLE_VALUE_AND_GRAD)
     _check_batch("value_and_grad", args, consts, u, args.H * args.nZ, noise, starts)
-    p1_check_inputs(args, "value_and_grad")
     need = lib.value_and_grad_smem_bytes(ctypes.byref(args))
     if need > _limit(args):
         raise ValueError(f"value_and_grad needs {need} bytes of shared memory, "
@@ -470,6 +506,9 @@ def value_and_grad_kernel(consts: torch.Tensor, args: ApgArgs, u: torch.Tensor,
     value_and_grad_kernel.launches_bf16 += args.bf16
     value_and_grad_kernel.launches_global += glob
     value_and_grad_kernel.launches_moments += want
+    # the wide step's forms over more than 16 inputs (P=1 off the register chain)
+    value_and_grad_kernel.launches_wide_inputs += int(
+        not args.has_noise and not p1_widths(args.F, args.HID) and p1_wide_inputs(args.F))
     if glob:
         n, seen = args.groups * args.cluster, value_and_grad_kernel.blocks_global
         seen[n] = seen.get(n, 0) + 1
@@ -481,7 +520,7 @@ def _spread_args(args: ApgArgs, cluster: int = 0) -> ApgArgs:
     form is the global-weight form, the spread over the scenarios
     (``consts.plan_groups`` on ``oracle_resident_blocks``), unless
     ``cluster`` was given (one cluster a scenario); ``args`` itself keeps
-    groups 1, ``value_batch``'s."""
+    groups 1."""
     a = ApgArgs.from_buffer_copy(args)
     lib, glob = _library(a, ORACLE_VALUE_AND_GRAD)
     if glob and not cluster:
@@ -492,8 +531,48 @@ def _spread_args(args: ApgArgs, cluster: int = 0) -> ApgArgs:
     return a
 
 
+def _batch_spread(args: ApgArgs, cluster: int = 0) -> Callable[[int], ApgArgs]:
+    """``value_batch``'s plans of an oracle's planned ``args``, by K: where
+    its form is the global-weight form, a copy with the spread over the
+    B x K plans (``consts.plan_groups`` with ``plans`` = K on
+    ``value_batch_resident_blocks``), planned at the first launch of each K,
+    unless ``cluster`` was given (one cluster a plan); else ``args``."""
+    lib, glob = _library(args, ORACLE_VALUE_BATCH)
+    if not glob or cluster:
+        return lambda K: args
+    n = ctypes.c_int(0)
+    _raise_on(lib.value_batch_resident_blocks(ctypes.byref(args), ctypes.byref(n)),
+              "value_batch_resident_blocks")
+    plans: Dict[int, ApgArgs] = {}
+
+    def at(K: int) -> ApgArgs:
+        if K not in plans:
+            a = ApgArgs.from_buffer_copy(args)
+            plan_groups(a, P1_GLOBAL, n.value, K)
+            plans[K] = a
+        return plans[K]
+
+    return at
+
+
+def _value_batch_spreads(args: ApgArgs, plans: int) -> bool:
+    """Whether ``value_batch`` on the planned ``args`` runs its global-weight
+    form over more than one cluster a plan at K = ``plans`` (the test of
+    ``consts.plan_groups`` for G > 1 on ``value_batch_resident_blocks``,
+    written out so that a pinned spread, ``p1_step_ab.grouped``, leaves the
+    chunk, and so the bits, as planned)."""
+    lib, glob = _library(args, ORACLE_VALUE_BATCH)
+    if not glob:
+        return False
+    n = ctypes.c_int(0)
+    _raise_on(lib.value_batch_resident_blocks(ctypes.byref(args), ctypes.byref(n)),
+              "value_batch_resident_blocks")
+    C, units = int(args.cluster), int(args.batch) * int(plans)
+    return int(args.n_chunks) >= 2 * C and n.value >= 2 * units * C
+
+
 def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
-                          cluster: int = 0) -> None:
+                          cluster: int = 0, plans: int = 1) -> None:
     """The oracle's chunk: ``chunk``, or the largest divisor of P whose
     ``value_batch`` and ``value_and_grad`` blocks both fit (one chunk for
     both: the mean of chunk means depends on it), in the shared-memory forms
@@ -505,7 +584,14 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
     serves both; the bf16 forms' with ``args.bf16``; with the global-weight
     forms the smaller over both libraries, since each kernel takes its form
     by its own bytes; that library is loaded only where they are planned) or
-    ``cluster`` when given."""
+    ``cluster`` when given. In the global-weight forms the chunk is at most
+    ``max(P // GW_ORACLE_BLOCKS, GW_MIN_ROWS)`` rows (``consts.
+    plan_particles``' ``gw_max_chunk``), so that a K = 1 plan has
+    GW_ORACLE_BLOCKS chunks for the spread, where ``value_batch`` at K =
+    ``plans`` (the K its solver launches most: MPPI's samples; 1 for APG's
+    gradient and value) spreads over the B x ``plans`` plans; where it stays
+    at one cluster a plan, the largest chunk that fits (more chunks a block
+    only cost it time there)."""
     def need(a):
         return max(lib.value_batch_smem_bytes(ctypes.byref(a), 1),
                    lib.value_and_grad_smem_bytes(ctypes.byref(a)))
@@ -525,6 +611,11 @@ def plan_oracle_particles(lib: ctypes.CDLL, args: ApgArgs, P: int, chunk: int,
         return cluster or most
 
     plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max)
+    widest = int(args.Pc)
+    plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max,
+                   max(int(P) // GW_ORACLE_BLOCKS, GW_MIN_ROWS))
+    if args.Pc != widest and not _value_batch_spreads(args, plans):
+        plan_particles(args, P, chunk, need, SMEM_LIMIT_PARTICLES, c_max)
 
 
 def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
@@ -535,7 +626,7 @@ def trajectory_kernel(consts: torch.Tensor, args: ApgArgs,
     into (B, H+1, 13), the scenarios on one trunk as in
     :func:`value_batch_kernel`. Always fp32: the kernel reads no
     ``args.bf16``."""
-    lib = load_oracle_library()
+    lib = load_oracle_library(p1=True)
     need = lib.trajectory_smem_bytes(ctypes.byref(args))
     if need > _limit(args, particles=False):
         raise ValueError(f"trajectory needs {need} bytes of shared memory, "
@@ -553,7 +644,8 @@ value_batch_kernel.launches = value_batch_kernel.launches_bf16 = 0
 value_and_grad_kernel.launches = value_and_grad_kernel.launches_bf16 = 0
 value_batch_kernel.launches_moments = value_and_grad_kernel.launches_moments = 0
 value_batch_kernel.launches_global = value_and_grad_kernel.launches_global = 0
-value_and_grad_kernel.blocks_global = {}
+value_batch_kernel.blocks_global, value_and_grad_kernel.blocks_global = {}, {}
+value_and_grad_kernel.launches_wide_inputs = 0
 trajectory_kernel.launches = 0
 
 
@@ -562,13 +654,16 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
                 u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                 deterministic: Optional[bool] = None,
                 chunk: int = 0, cluster: int = 0,
-                starts: Optional[torch.Tensor] = None, bf16: bool = False) -> CostOracle:
+                starts: Optional[torch.Tensor] = None, bf16: bool = False,
+                plans: int = 1) -> CostOracle:
     """The cost oracle of one solve. ``noise`` (P, H, 13) is the Brownian
     block of a Monte-Carlo solve (None for the mean dynamics of P=1),
     ``starts`` (P, 13) its particles' initial states or None (all at x0);
     ``maxls`` is unused, as in the original (``value_batch`` takes any K);
     ``cluster`` caps the particle kernels' clusters (0: the card's largest);
-    ``bf16`` the module docstring's. CPU tensors get :func:`cost_oracle_plain`."""
+    ``bf16`` the module docstring's; ``plans`` the K of most of the solver's
+    ``value_batch`` launches, which the particle chunk is planned for
+    (:func:`plan_oracle_particles`). CPU tensors get :func:`cost_oracle_plain`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain(model, params, cp, time_steps, x0, x_ref, u_prev,
@@ -586,13 +681,13 @@ def cost_oracle(model: NeuralSDE, params: Dict[str, Any], cp: CostParams,
         starts = None                 # the mean dynamics start at x0
     args.has_starts = int(starts is not None)
     args.bf16 = int(bf16)
-    a_vg = args
+    a_vg, a_vb = args, lambda K: args
     if z is not None:
         z = z.contiguous()
-        plan_oracle_particles(lib, args, P, chunk, cluster)
-        a_vg = _spread_args(args, cluster)
+        plan_oracle_particles(lib, args, P, chunk, cluster, plans)
+        a_vg, a_vb = _spread_args(args, cluster), _batch_spread(args, cluster)
     return _checked(H, args.nZ, dev,
-                    lambda U: value_batch_kernel(consts, args, U, z, starts),
+                    lambda U: value_batch_kernel(consts, a_vb(int(U.shape[0])), U, z, starts),
                     lambda u: value_and_grad_kernel(consts, a_vg, u, z, starts),
                     functools.partial(trajectory_kernel, consts, args))
 
@@ -651,7 +746,7 @@ def cost_oracle_plain_batched(model: NeuralSDE, params: Dict[str, Any], cp: Cost
                               x_ref: torch.Tensor, u_prev: torch.Tensor, noise,
                               num_particles: int, maxls: int, chunk: int = 0,
                               starts: Optional[torch.Tensor] = None,
-                              bf16: bool = False) -> CostOracle:
+                              bf16: bool = False, plans: int = 1) -> CostOracle:
     """Plain version of :func:`cost_oracle_batched` (any device):
     :func:`cost_oracle_plain` once per scenario (with its own tracking
     weights where they carry a scenario axis), the results stacked."""
@@ -682,15 +777,15 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
                         u_prev: torch.Tensor, noise, num_particles: int, maxls: int,
                         chunk: int = 0, cluster: int = 0,
                         starts: Optional[torch.Tensor] = None,
-                        bf16: bool = False) -> CostOracle:
+                        bf16: bool = False, plans: int = 1) -> CostOracle:
     """The cost oracle of B solves (module docstring): ``x0`` (B, 13),
     ``x_ref`` (B, H+1, 13), ``u_prev`` (B, n_u) or wider, ``noise`` (B, P, H,
     13) for a Monte-Carlo solve (None at P=1), ``starts`` (B, P, 13) its
     particles' initial states or None; the tracking weights of ``cp`` may
     carry a (B,) axis. With risk at P > 1 the module docstring's two moment
     evaluations too. On the card every evaluation is
-    one launch over the B scenarios; CPU tensors get
-    :func:`cost_oracle_plain_batched`."""
+    one launch over the B scenarios; ``plans`` as in :func:`cost_oracle`.
+    CPU tensors get :func:`cost_oracle_plain_batched`."""
     dev = x0.device
     if dev.type == "cpu":
         return cost_oracle_plain_batched(model, params, cp, time_steps, x0, x_ref, u_prev,
@@ -723,18 +818,19 @@ def cost_oracle_batched(model: NeuralSDE, params: Dict[str, Any], cp: CostParams
         consts = batch_consts(consts, args, x0, x_ref, u_prev, weights)
     args.has_starts = int(starts is not None)
     args.bf16 = int(bf16)
-    a_vg = args
+    a_vg, a_vb = args, lambda K: args
     if z is not None:
-        plan_oracle_particles(lib, args, P, chunk, cluster)
-        a_vg = _spread_args(args, cluster)
+        plan_oracle_particles(lib, args, P, chunk, cluster, plans)
+        a_vg, a_vb = _spread_args(args, cluster), _batch_spread(args, cluster)
     moments = (None, None)
     if z is not None and args.risk:
         a_out, a_in = (ApgArgs.from_buffer_copy(args) for _ in range(2))
         a_out.risk_mode, a_in.risk_mode = RISK_MOMENTS_OUT, RISK_MOMENTS_IN
-        a_in = _spread_args(a_in, cluster)
-        moments = (lambda U: value_batch_kernel(consts, a_out, U, z, starts),
+        a_in, a_out = _spread_args(a_in, cluster), _batch_spread(a_out, cluster)
+        moments = (lambda U: value_batch_kernel(consts, a_out(int(U.shape[1])), U, z, starts),
                    lambda u, mom: value_and_grad_kernel(consts, a_in, u, z, starts, mom))
     return _checked_batched(B, H, args.nZ, dev,
-                            lambda U: value_batch_kernel(consts, args, U, z, starts),
+                            lambda U: value_batch_kernel(consts, a_vb(int(U.shape[1])), U, z,
+                                                         starts),
                             lambda u: value_and_grad_kernel(consts, a_vg, u, z, starts),
                             functools.partial(trajectory_kernel, consts, args), *moments)

@@ -60,7 +60,7 @@ def forced(step: int):
 def grouped(groups: int):
     """The wrappers plan the particle global-weight forms' spread
     (``ApgArgs.groups``, ``consts.plan_groups``) at ``groups`` clusters'
-    worth of blocks a scenario, or fewer where the chunks run out, in place
+    worth of blocks a scenario (``value_batch``: a plan), or fewer where the chunks run out, in place
     of the most the card holds at once (measurement only: 1 is one cluster a
     scenario, the form's plan before the spread). A plan the card cannot
     hold is refused at launch."""
@@ -69,8 +69,8 @@ def grouped(groups: int):
 
     plan = AK.plan_groups
 
-    def pinned(a, form, resident):
-        plan(a, form, int(groups) * int(a.batch) * int(a.cluster))
+    def pinned(a, form, resident, plans=1):
+        plan(a, form, int(groups) * int(a.batch) * int(plans) * int(a.cluster), plans)
 
     AK.plan_groups = CO.plan_groups = pinned
     try:

@@ -1,7 +1,7 @@
 """Kernel and route times of the PyTorch/CUDA port, checkout against checkout,
 on one card.
 
-    python3 sde4mbrl_px4_tpu_torch/pair_times.py [--routes | --wide] ROOT [ROOT ...]
+    python3 sde4mbrl_px4_tpu_torch/pair_times.py [--routes | --wide | --gw] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository: this one, or another commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -44,6 +44,12 @@ off the register chain's widths are timed (:func:`measure_wide`: the
 flagship's chained and cold solves at 128 and 256 units, a fixed
 10-iteration solve, each oracle kernel per launch, the fixed-step route),
 which needs only the libraries of those forms.
+
+With ``--gw`` only the particle global-weight oracle on the 256-unit
+trunk and ``trajectory`` on wide trunks are timed (:func:`measure_gw`: the
+launches whose particle chunk the oracle plans by the spread, and the
+trajectory kernel's sums), which needs only the oracle's and the whole
+solve's libraries.
 
 With ``--routes`` only the two host-bound P=1 routes are timed, MPPI and
 fixed-step APG through ``mpc_fn``, over 30 chained solves each (p50 and
@@ -197,6 +203,103 @@ def host_profile(cs, cfg, dev, top: int = 14) -> list:
             + [[e.key, e.count, round(e.self_cpu_time_total, 1)] for e in rows[:top]])
 
 
+GW_TRAJECTORY_HIDS = (128, 256, 1024)
+GW_ROUTE_REPS = 3
+
+
+def measure_gw(cs, dev) -> dict:
+    """One checkout's particle global-weight oracle on the 256-unit
+    checkpoint (``chip_smoke.py::wide_checkpoint``) and its ``trajectory``
+    on wide trunks: MPPI over ``MPPI_K`` x ``MPPI_P`` antithetic paths
+    through ``mpc_fn`` (phase 30 (i)'s route: its checks, two chained
+    solves' wall ms; then 8 chained solves, wall ms p50 over solves 3-8, the
+    first solve's plan) and its ``value_batch`` at K = ``MPPI_K`` and 1 per
+    launch (CUDA events; the oracle planned as the route plans it); the
+    particle-sharded P_FULL solve over mc = 2 with risk and starts (phase 30
+    (i): ms an iteration by rank) and its moments-out ``value_batch`` at K =
+    1 and 4 per launch on one rank's P_FULL / 2 particles, bits at K = 4;
+    the fixed-step P_FULL route (bf16), GW_ROUTE_REPS runs of two chained
+    solves (the second's wall ms an iteration); ``value_batch`` K = 1 and
+    ``value_and_grad`` per launch at P_FULL (bf16); ``trajectory`` per
+    launch at P=1 on each of GW_TRAJECTORY_HIDS units, its bits."""
+    import inspect
+    import tempfile
+
+    import torch
+
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
+
+    card = cs.card_line()
+    out = {}
+    # the oracle as the loader plans it for MPPI (a checkout without the
+    # argument plans every oracle alike)
+    mppi_plans = ({"plans": cs.MPPI_K}
+                  if "plans" in inspect.signature(CO.cost_oracle).parameters else {})
+    tb = cs.make_bundle("iris_traj_mpc", dev)
+    with tempfile.TemporaryDirectory(prefix="pair_times_gw_") as td:
+        ckpt = cs.wide_checkpoint(td, tb, 256)
+        out["mppi_route_wall_ms"] = cs.unflown_mppi(dev, ckpt, card)["wall_ms"]
+        mcfg = cs.wide_config("iris_posctrl_mpc", ckpt, solver="mppi", particles=cs.MPPI_P,
+                              mppi={"samples": cs.MPPI_K, "iters": 8})
+        rows, ms = cs.chain(mcfg, dev, 8)
+        out["mppi_route_ms_p50"] = statistics.median(ms[2:])
+        out["mppi_route_u0_bits"] = rows[0, :-1].tolist()
+        ob = make_mpc_from_config(cs.wide_config("iris_posctrl_mpc", ckpt), device=dev)[3]
+        x0, x_ref, u_prev, _ = cs.problem(ob, dev)
+        zm = cs.brownian(cs.MPPI_P, dev, antithetic=True, seed=0)
+        o = CO.cost_oracle(ob.model, ob.params, ob.cost_params, ob.time_steps, x0, x_ref,
+                           u_prev, zm, cs.MPPI_P, 4, **mppi_plans)
+        Um = cs.plans(cs.MPPI_K, 21, dev)
+        out["mppi_value_batch_K64_ms"] = cs.per_launch_ms(lambda: o.value_batch(Um), 20)
+        out["mppi_value_batch_K1_ms"] = cs.per_launch_ms(lambda: o.value_batch(Um[:1]), 20)
+        out["mppi_value_batch_bits"] = o.value_batch(Um).tolist()
+
+        out["mesh"] = cs.unflown_mesh(dev, ckpt, card)
+        tcfg = cs.wide_config("iris_traj_mpc", ckpt, particles=cs.P_FULL)
+        tcfg["cost_params"]["risk_lambda"] = cs.RISK
+        bt = make_mpc_from_config(tcfg, device=dev)[3]
+        y0, y_ref, v_prev, _ = cs.problem(bt, dev)
+        half = cs.P_FULL // 2
+        zh = cs.brownian(half, dev, antithetic=True, seed=0)
+        ob2 = CO.cost_oracle_batched(bt.model, bt.params, bt.cost_params, bt.time_steps,
+                                     y0[None], y_ref[None], v_prev[None],
+                                     zh[None].contiguous(), half, 4)
+        U4 = cs.plans(4, 22, dev)[None].contiguous()
+        out["mesh_moments_out_K1_ms"] = cs.per_launch_ms(
+            lambda: ob2.value_batch_moments(U4[:, :1].contiguous()), 20)
+        out["mesh_moments_out_K4_ms"] = cs.per_launch_ms(lambda: ob2.value_batch_moments(U4), 20)
+        out["mesh_moments_out_K4_bits"] = ob2.value_batch_moments(U4).tolist()
+
+        scfg = cs.config("iris_posctrl_mpc", particles=cs.P_FULL, linesearch=None,
+                         stepsize=cs.FIXED_STEP["iris_posctrl_mpc"])
+        scfg["learned_model_params"] = ckpt
+        its = []
+        for _ in range(GW_ROUTE_REPS):
+            rows, ms = cs.chain(scfg, dev, 2)
+            its.append(ms[1] / max(int(rows[1, -1]), 1))
+        out["fixed_step_p512_iteration_ms"] = its
+        bp = make_mpc_from_config(cs.wide_config("iris_posctrl_mpc", ckpt), device=dev)[3]
+        p0, pr, pu, _ = cs.problem(bp, dev)
+        z512 = cs.brownian(cs.P_FULL, dev, antithetic=True, seed=0)
+        o = CO.cost_oracle(bp.model, bp.params, bp.cost_params, bp.time_steps, p0, pr, pu, z512,
+                           cs.P_FULL, 4, bf16=True)
+        U1, u = cs.plans(1, 23, dev), cs.plans(1, 24, dev)[0]
+        out["p512_value_batch_K1_bf16_ms"] = cs.per_launch_ms(lambda: o.value_batch(U1), 20)
+        out["p512_value_and_grad_bf16_ms"] = cs.per_launch_ms(lambda: o.value_and_grad(u), 20)
+
+        for hid in GW_TRAJECTORY_HIDS:
+            ck = ckpt if hid == 256 else cs.wide_checkpoint(td, tb, hid)
+            b = make_mpc_from_config(cs.wide_config("iris_posctrl_mpc", ck), device=dev)[3]
+            q0, qr, qu, _ = cs.problem(b, dev)
+            o = CO.cost_oracle(b.model, b.params, b.cost_params, b.time_steps, q0, qr, qu, None,
+                               1, 4)
+            ut = cs.plans(1, 25, dev)[0]
+            out[f"h{hid}_trajectory_ms"] = cs.per_launch_ms(lambda: o.trajectory(ut), 50)
+            out[f"h{hid}_trajectory_bits"] = o.trajectory(ut).reshape(-1).tolist()
+    return out
+
+
 WIDE_HIDS = (128, 256)   # the weights in shared memory; in device memory
 WIDE_SOLVES, WIDE_COLD = 12, 200
 
@@ -275,11 +378,11 @@ def measure_wide(cs, dev) -> dict:
     return out
 
 
-def measure(root: str, routes: bool = False, wide: bool = False) -> dict:
+def measure(root: str, routes: bool = False, wide: bool = False, gw: bool = False) -> dict:
     """The times of one checkout, in this process (its package and
     ``chip_smoke.py`` first on ``sys.path``, this file's directory off it);
     with ``routes`` only the P=1 routes' wall times, with ``wide``
-    :func:`measure_wide`."""
+    :func:`measure_wide`, with ``gw`` :func:`measure_gw`."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, root)
@@ -301,6 +404,9 @@ def measure(root: str, routes: bool = False, wide: bool = False) -> dict:
 
     if wide:
         out.update(measure_wide(cs, dev))
+        return out
+    if gw:
+        out.update(measure_gw(cs, dev))
         return out
     if routes:
         step = cs.FIXED_STEP["iris_posctrl_mpc"]
@@ -400,10 +506,10 @@ def measure(root: str, routes: bool = False, wide: bool = False) -> dict:
 
 def main() -> int:
     argv = sys.argv[1:]
-    routes, wide = "--routes" in argv, "--wide" in argv
-    argv = [a for a in argv if a not in ("--routes", "--wide")]
+    routes, wide, gw = "--routes" in argv, "--wide" in argv, "--gw" in argv
+    argv = [a for a in argv if a not in ("--routes", "--wide", "--gw")]
     if len(argv) > 1 and argv[0] == "--one":
-        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(argv[1]), routes, wide)),
+        print("PAIR_TIMES " + json.dumps(measure(os.path.abspath(argv[1]), routes, wide, gw)),
               flush=True)
         return 0
     if not argv:
@@ -412,7 +518,7 @@ def main() -> int:
     runs = []
     for root in argv:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
-                           + ["--routes"] * routes + ["--wide"] * wide,
+                           + ["--routes"] * routes + ["--wide"] * wide + ["--gw"] * gw,
                            stdout=subprocess.PIPE, text=True)
         print(r.stdout, end="", flush=True)
         if r.returncode != 0:

@@ -24,11 +24,20 @@
   ``tests/test_torch_particles.py::test_apg_args_mirror_the_header``);
 - a plain emulation of the spread's slot sum (each block's chunk partials
   written to their slots, every slot summed in chunk order) gives the bits
-  of the one-block serial chunk loop in fp32.
+  of the one-block serial chunk loop in fp32;
+- ``value_batch``'s spread: ``plan_groups`` over the B x K plans (each a
+  unit of groups * cluster blocks; MPPI's K = 64 at groups 1), each plan's
+  chunks covered once, the scratch floats (``consts.spread_floats``) as
+  ``csrc/apg_solve.cuh::spread_floats`` counts them over the plans, and
+  the oracle's one chunk for both kernels in the global-weight forms (at
+  most P // 64 rows, ``cost_oracle.GW_ORACLE_BLOCKS``, where ``value_batch``
+  spreads at its solver's K; else the largest that fits).
 
 ``test_spread_is_bit_equal_to_one_cluster_on_cuda`` holds the planned
-spread to one cluster a scenario bit for bit on the card, and skips without
-one.
+spread to one cluster a scenario bit for bit on the card, and
+``test_value_batch_spread_is_bit_equal_to_one_cluster_on_cuda`` the same
+for ``value_batch``'s plans (and the library's scratch floats against
+``consts.spread_floats``); both skip without a card.
 """
 import os
 
@@ -42,8 +51,9 @@ from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (APG_MAXK, ORACLE_P1_ROWS, ORACLE_TILE,
                                                     ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH,
                                                     P1_BY_SHAPE, P1_CHAIN, P1_GLOBAL, P1_SMEM,
-                                                    ApgArgs, plan_cluster, plan_groups,
-                                                    scenario_chunks, value_batch_grid)
+                                                    SPREAD_CTR, ApgArgs, plan_cluster,
+                                                    plan_groups, scenario_chunks, spread_floats,
+                                                    value_batch_grid)
 
 
 def p1_args(F=13, HID=64):
@@ -293,3 +303,219 @@ def test_spread_is_bit_equal_to_one_cluster_on_cuda(repo_root, bf16, batch):
     spread, n_spread = run()
     assert n_one == [16, 16] and n_spread[0] > 16 and n_spread[1] > 16
     assert all(torch.equal(p, q) for p, q in zip(one, spread))
+
+
+@settings(max_examples=400, deadline=None)
+@given(n_chunks=st.integers(1, 256), c_max=st.sampled_from([1, 8, 16]),
+       batch=st.integers(1, 4), K=st.integers(1, 80), resident=st.integers(0, 400))
+def test_value_batch_spread_plan_bounds(n_chunks, c_max, batch, K, resident):
+    """``value_batch``'s groups over its B x K plans: past 1, G * C <=
+    n_chunks and B * K * G * C <= resident (the cooperative grid the card
+    holds at once), G + 1 breaks one of the two; each plan's blocks cover
+    its chunks once (``scenario_chunks``)."""
+    a = spread_args(n_chunks, c_max, batch=batch)
+    plan_groups(a, P1_GLOBAL, resident, K)
+    G, C = a.groups, a.cluster
+    assert G >= 1
+    if G > 1:
+        assert G * C <= n_chunks and batch * K * G * C <= resident
+    assert (G + 1) * C > n_chunks or batch * K * (G + 1) * C > resident
+    assert a.chunks_per_block == -(-n_chunks // (G * C))
+    mine = scenario_chunks(a)
+    assert sorted(ch for block in mine for ch in block) == list(range(n_chunks))
+
+
+@pytest.mark.parametrize("n_chunks, batch, K, want", [
+    (64, 1, 1, 4), (32, 1, 1, 2), (64, 1, 4, 2), (64, 2, 1, 4), (64, 2, 4, 1), (16, 1, 1, 1),
+    (16, 1, 64, 1), (64, 1, 64, 1)])
+def test_value_batch_spread_plan_examples(n_chunks, batch, K, want):
+    """On a card of 132 SMs (one block each): the 256-unit fixed-step
+    route's K = 1 trial on 64 chunks of 8 spreads over 4 clusters' worth, on
+    the parent's 32 chunks of 16 over 2; the linesearch's K = 4 over 2;
+    MPPI's K = 64 grid fills the card at groups 1."""
+    a = spread_args(n_chunks, 16, batch=batch)
+    plan_groups(a, P1_GLOBAL, 132, K)
+    assert a.groups == want
+
+
+@settings(max_examples=200, deadline=None)
+@given(H=st.integers(1, 40), nZ=st.integers(1, 12), K=st.integers(0, 8),
+       n_chunks=st.integers(1, 128), groups=st.integers(1, 8), batch=st.integers(1, 4),
+       plans=st.integers(1, 64))
+def test_spread_scratch_floats_mirror_the_header(H, nZ, K, n_chunks, groups, batch, plans):
+    """``consts.spread_floats`` against ``csrc/apg_solve.cuh::spread_floats``
+    written out: 0 at groups 1; else per unit (a scenario, or for
+    ``value_batch`` each of its plans: ``value_batch_scratch_floats``) a
+    counter SPREAD_CTR words wide and two regions of n_chunks slots of
+    max(H * nZ + 3, 3K) floats."""
+    a = ApgArgs()
+    a.H, a.nZ, a.K, a.n_chunks, a.groups, a.batch = H, nZ, K, n_chunks, groups, batch
+    width = H * nZ + 3 if H * nZ + 3 > 3 * K else 3 * K
+    want = 0 if groups == 1 else batch * plans * (SPREAD_CTR + 2 * n_chunks * width)
+    assert spread_floats(a, plans) == want
+    assert spread_floats(a, plans) == plans * spread_floats(a)
+
+
+def test_spread_scratch_constants_match_the_header(repo_root):
+    """The counter's width and the slot width in the header are the ones
+    ``consts.spread_floats`` mirrors."""
+    import re
+
+    hdr = open(os.path.join(repo_root, "sde4mbrl_px4_tpu_torch/csrc/apg_solve.cuh")).read()
+    assert int(re.search(r"#define SPREAD_CTR (\d+)", hdr).group(1)) == SPREAD_CTR
+    assert "a.H * a.nZ + 3 > 3 * a.K ? a.H * a.nZ + 3 : 3 * a.K" in hdr
+    assert "a.batch * (SPREAD_CTR + 2 * spread_region(a))" in hdr
+    src = open(os.path.join(repo_root, "sde4mbrl_px4_tpu_torch/csrc/cost_oracle.cu")).read()
+    assert "plans.batch = a->batch * K;" in src       # value_batch_scratch_floats' units
+
+
+class FakeGlobalOracleLibrary(FakeOracleLibrary):
+    """As FakeOracleLibrary, but no chunk fits the shared-memory forms (a
+    wide trunk): the global-weight forms take the plan, their bytes growing
+    with the chunk; ``value_batch`` holds ``resident`` blocks at once."""
+
+    def __init__(self, vb_max, vg_max, resident=132):
+        super().__init__(vb_max, vg_max)
+        self.resident = resident
+
+    def value_batch_smem_bytes(self, a, K):
+        return 10 ** 9 if a._obj.step == P1_SMEM else 2000 * a._obj.Pc
+
+    def value_and_grad_smem_bytes(self, a):
+        return 10 ** 9 if a._obj.step == P1_SMEM else 9000 * a._obj.Pc
+
+    def oracle_part_form(self, a, kind):
+        return P1_GLOBAL
+
+    def value_batch_resident_blocks(self, a, n):
+        n._obj.value = self.resident
+        return 0
+
+
+@pytest.mark.parametrize("P, plans, batch, want", [
+    (512, 1, 1, (8, 64)), (512, 64, 1, (16, 32)), (512, 1, 8, (16, 32)), (128, 1, 1, (16, 8)),
+    (256, 1, 1, (8, 32)), (1024, 1, 1, (16, 64)), (48, 1, 1, (24, 2))])
+def test_oracle_global_weight_chunk_is_one_for_both(monkeypatch, P, plans, batch, want):
+    """The oracle's chunk in the global-weight forms: where ``value_batch``
+    spreads at K = ``plans`` over the B x K plans (two clusters' worth of
+    chunks a plan and of blocks on the card each), at most max(P //
+    GW_ORACLE_BLOCKS, GW_MIN_ROWS) rows (the largest divisor of P that fits
+    both kernels at or below it), so a K = 1 plan of P=512 has 64 chunks for
+    the spread; where it stays at one cluster a plan (MPPI's K = 64, eight
+    scenarios, or too few chunks) the largest chunk that fits (16 here, the
+    256-unit trunk's before). One chunk for both kernels; the form asked of
+    the libraries stays the shape's."""
+    lib = FakeGlobalOracleLibrary(16, 16)
+    monkeypatch.setattr(CO, "load_oracle_library", lambda *args, **kw: lib)
+    a = ApgArgs()
+    a.step, a.batch = P1_BY_SHAPE, batch
+    CO.plan_oracle_particles(lib, a, P, 0, plans=plans)
+    assert (a.Pc, a.n_chunks) == want and a.Pc * a.n_chunks == P
+    assert a.step == P1_BY_SHAPE
+
+
+def test_grouped_pins_value_batch_plans_at_one_cluster():
+    """``p1_step_ab.grouped(g)`` pins every spread plan, ``value_batch``'s
+    over its K plans too, at g clusters' worth a unit (or fewer where the
+    chunks run out)."""
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import grouped
+
+    for g, K, want in ((1, 1, 1), (1, 4, 1), (2, 4, 2), (8, 1, 4)):
+        a = spread_args(64, 16)
+        with grouped(g):
+            CO.plan_groups(a, P1_GLOBAL, 10 ** 6, K)
+        assert a.groups == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_value_batch_spread_is_bit_equal_to_one_cluster_on_cuda(repo_root, bf16):
+    """On the card, the iris posctrl config on a 256-unit trunk (the shipped
+    one zero-padded), P=512 antithetic, with risk and starts, two scenarios:
+    ``value_batch`` at K = 1 and 4 and its moments-out form at their planned
+    spread (K = 1 past one cluster's 16 blocks a plan) give the bits of one
+    cluster a plan (``p1_step_ab.grouped(1)``); the library's scratch floats
+    are ``consts.spread_floats`` over the plans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the spread forms are CUDA kernels")
+    import ctypes
+
+    from sde4mbrl_px4_tpu_torch.engine.goldens import padded_trunk
+    from sde4mbrl_px4_tpu_torch.engine.mpc_loader import load_mpc_from_cfgfile
+    from sde4mbrl_px4_tpu_torch.ops.cuda.consts import build_consts
+    from sde4mbrl_px4_tpu_torch.ops.rollout import draw_brownian, draw_start_spread
+    from sde4mbrl_px4_tpu_torch.p1_step_ab import flat, grouped
+
+    dev = torch.device("cuda")
+    b = load_mpc_from_cfgfile(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"),
+                              device=dev)[3]
+    params = padded_trunk(b.params, 256)
+    H, P, B = int(b.time_steps.shape[0]), 512, 2
+    x0 = b.cost_params.uref.new_zeros((B, 13))
+    x0[:, 6] = 1.0
+    x0[:, 0] = 0.3 + 0.1 * torch.arange(B, device=dev)
+    x_ref = x0[:, None].expand(B, H + 1, 13).contiguous()
+    u_prev = b.cost_params.uref.expand(B, 4).contiguous()
+    z = torch.stack([draw_brownian(torch.Generator().manual_seed(i), H, P, True, dev)
+                     .transpose(0, 1) for i in range(B)]).contiguous()
+    z0 = draw_start_spread(torch.Generator().manual_seed(9), P, True, dev)
+    starts = (x0[:, None] + 0.05 * z0[None]).contiguous()
+    cp = b.cost_params._replace(risk_lambda=2.0)
+    U = (u_prev[:, None, None] + 0.05 * torch.rand((B, 4, H, 4), device=dev,
+         generator=torch.Generator(device=dev).manual_seed(3))).contiguous()
+
+    def run():
+        n0 = dict(CO.value_batch_kernel.blocks_global)
+        o = CO.cost_oracle_batched(b.model, params, cp, b.time_steps, x0, x_ref, u_prev, z, P,
+                                   4, starts=starts, bf16=bf16)
+        outs = [o.value_batch(U[:, :1].contiguous()), o.value_batch(U),
+                o.value_batch_moments(U[:, :1].contiguous()), o.value_batch_moments(U)]
+        torch.cuda.synchronize()
+        new = CO.value_batch_kernel.blocks_global
+        return [t.clone() for t in flat(outs)], sorted(n for n, k in new.items()
+                                                       if k > n0.get(n, 0))
+
+    with grouped(1):
+        one, n_one = run()
+    spread, n_spread = run()
+    assert n_one == [16] and max(n_spread) > 16
+    assert all(torch.equal(p, q) for p, q in zip(one, spread))
+    _, a = build_consts(b.model, params, cp, None, b.time_steps, x0[0], x_ref[0], u_prev[0],
+                        particles=True)
+    a.batch, a.has_starts, a.bf16 = B, 1, int(bf16)
+    CO.plan_oracle_particles(CO.load_oracle_library(), a, P, 0)
+    for K, groups in ((1, 4), (4, 2)):
+        a.groups = groups
+        assert CO.load_oracle_library(True).value_batch_scratch_floats(
+            ctypes.byref(a), K) == spread_floats(a, K)
+
+
+@pytest.mark.parametrize("solver, want", [("mppi", 16), ("apg", 1)])
+def test_loader_plans_the_oracle_for_its_solvers_k(repo_root, monkeypatch, solver, want):
+    """The loader builds the oracle of a route for the K of most of its
+    solver's ``value_batch`` launches (``cost_oracle_batched``'s ``plans``,
+    which the particle chunk is planned for): MPPI's samples, 1 for the
+    fixed-step APG route's gradient and value."""
+    from sde4mbrl_px4_tpu_torch.core.types import hover_state
+    from sde4mbrl_px4_tpu_torch.engine import mpc_loader as ML
+    from sde4mbrl_px4_tpu_torch.io.config import load_yaml_config
+
+    seen = []
+    real = ML.cost_oracle_batched
+
+    def spy(*args, **kw):
+        seen.append(kw.get("plans"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ML, "cost_oracle_batched", spy)
+    cfg = load_yaml_config(os.path.join(repo_root, "configs/iris_posctrl_mpc.yaml"))
+    cfg["solver"] = solver
+    cfg["mppi"] = {"samples": 16, "iters": 1}
+    del cfg["apg_mpc"]["linesearch"]
+    cfg["apg_mpc"].update(stepsize=1e-5, max_iter=2, max_no_improvement_iter=2)
+    _, (reset_fn, mpc_fn), _, _ = ML.make_mpc_from_config(cfg, device="cpu")
+    x0 = hover_state(torch.device("cpu"))
+    gen = torch.Generator().manual_seed(0)
+    u = mpc_fn(x0, gen, reset_fn(x0, gen, x0), 0.0, x0)[0]
+    assert bool(torch.isfinite(u).all())
+    assert seen and set(seen) == {want}

@@ -29,8 +29,10 @@ reference's tolerances:
   global-weight form keeps its width-sized buffers in device memory, and
   that 2048 units then fit, from this module's mirror of the libraries'
   layouts (:func:`p1_step_bytes`);
-- the P=1 kernels' input limit: a trunk of more than 16 inputs (8 motors
-  or more) is refused before launch (``consts.p1_check_inputs``).
+- the P=1 kernels' inputs: the register chain takes at most 16 (8 motors
+  or more run the wide step), and the wide step any number, past 16 in forms
+  of their own (``consts.p1_wide_inputs``; the 8-motor vehicle against the
+  JAX package: ``tests/test_torch_wide_inputs.py``).
 
 Weights are drawn with numpy from a seed and carried to the port with
 ``params_from_numpy``. ``test_p1_forms_match_plain_on_cuda`` holds every new
@@ -65,7 +67,7 @@ from sde4mbrl_px4_tpu_torch.ops.cuda import cost_oracle as CO
 from sde4mbrl_px4_tpu_torch.ops.cuda.consts import (
     ORACLE_TRAJECTORY, ORACLE_VALUE_AND_GRAD, ORACLE_VALUE_BATCH, P1_BY_SHAPE, P1_CHAIN,
     P1_FMAX, P1_GLOBAL, P1_SMEM, SMEM_LIMIT_PARTICLES, ApgArgs, build_consts,
-    p1_check_inputs, p1_widths)
+    p1_wide_inputs, p1_widths)
 
 H = 6
 SOLVE_RTOL, SOLVE_ATOL, X_RTOL = 2e-4, 2e-5, 1e-5
@@ -266,22 +268,16 @@ def test_wide_step_227kb_lines(repo_root, n_u, kind, smem, glob):
 
 @pytest.mark.parametrize("n_u, F_ok", [(4, True), (6, True), (7, True), (8, False)])
 def test_p1_kernels_refuse_wide_inputs(n_u, F_ok):
-    """A trunk of 9 + n_u inputs at P=1: the register chain and the wide
-    step hold at most 16 features in registers, so a P=1 launch of the whole
-    solve or ``value_and_grad`` with 8 motors or more (F = 17, a form off the
-    chain's widths: the wide step) is refused before launch with a message;
-    particle launches and the other kernels are not held to it."""
+    """A trunk of 9 + n_u inputs at P=1: the register chain holds at most 16
+    features in registers, so 8 motors or more (F = 17) run the wide step
+    even on 64 units; the wide step takes them, past 16 in its forms over
+    more inputs (``p1_wide_inputs``), and the wrappers raise for none: the
+    plain whole solve and ``value_and_grad`` run an 8-motor trunk."""
     a = ApgArgs()
     a.F, a.HID, a.n_u, a.has_noise = 9 + n_u, 128, n_u, 0
     assert p1_widths(a.F, 64) == F_ok          # the chain's own limit
-    if F_ok:
-        p1_check_inputs(a, "apg_solve_kernel")
-    else:
-        with pytest.raises(ValueError, match="at most 16 trunk inputs"):
-            p1_check_inputs(a, "apg_solve_kernel")
-    assert (a.F <= P1_FMAX) == F_ok
-    a.has_noise = 1
-    p1_check_inputs(a, "value_and_grad")
+    assert p1_wide_inputs(a.F) == (not F_ok) == (a.F > P1_FMAX)
+    assert not hasattr(AK, "p1_check_inputs") and not hasattr(CO, "p1_check_inputs")
 
 
 def test_whole_solve_matches_interpret_pallas_h32(repo_root, tmp_path):
